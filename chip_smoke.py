@@ -5,17 +5,27 @@
 
 Phases, each a function, any failure exits non-zero and names its phase:
 
-1. build  - compile the hand-written kernels of csrc/ with nvcc (sm_90a).
+1. build  - compile the hand-written kernels of csrc/ with nvcc (sm_90a), one
+   nvcc per source, all at once; compile the host BVH builder with g++.
 2. kernels - each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (one wavefront block: 128 x 128 pixels x 8 sample
-   lanes = 131072 lanes), with the tolerances of utils/kernel_check.py; each
+   its path's shapes, with the tolerances of utils/kernel_check.py; each
    kernel's wrapper-call time beside the plain version's (CUDA events around
-   20 calls after warm-up; host-bound at this size).
+   20 calls after warm-up). K1-K3 on the Cornell frame's block (128 x 128
+   pixels x 8 sample lanes = 131072 lanes); K5 on the mesh frame's 76800
+   camera rays and random rays, K6 on env-NEE shadow rays from their first
+   hits and random rays, K8 on the camera directions and on uniforms.
 3. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
-   components, SensorRGB) through render_frame_wavefront on the GPU. Every
-   kernel's launch counter must move, the image must be finite, its mean
-   within 1e-3 relative of the JAX package's deterministic CPU output, and
-   the cast counters within 0.5 % of it.
+   components, SensorRGB) through render_frame_wavefront on the GPU. K1, K2
+   and K3 must be launched, the image must be finite, its mean within 1e-3
+   relative of the JAX package's deterministic CPU output, and the cast
+   counters within 0.5 % of it.
+4. mesh path - terrain_city(seed=3) (102098 triangles, BVH, importance-
+   sampled sky) built on the GPU, then the bvh_100k bench frame (160 x 120,
+   4 spp, 4 path components): K3, K5, K6 and K8 must be launched, and the
+   frame held to its JAX reference as in phase 3.
+
+Each path's counters are set to 0 just before it and read just after; a
+kernel's `launches` in the JSON line is the sum over both paths.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -31,14 +41,26 @@ import sys
 import time
 import traceback
 
-KERNELS = {  # name -> (source, TPU kernel it replaces)
+DEVICE = "cuda"
+kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
+
+KERNELS = {  # name -> (source, TPU kernel it replaces, launch counters)
     "closest_hit": ("wurblpt_tpu_torch/csrc/closest_hit.cu",
-                    "wurblpt_tpu/render/intersect_mxu.py:164"),
+                    "wurblpt_tpu/render/intersect_mxu.py:164", ("closest_hit",)),
     "any_hit": ("wurblpt_tpu_torch/csrc/any_hit.cu",
-                "wurblpt_tpu/render/intersect_mxu.py:259"),
+                "wurblpt_tpu/render/intersect_mxu.py:259", ("any_hit",)),
     "assemble_hit": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
-                     "wurblpt_tpu/render/intersect_mxu.py:345"),
+                     "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit",)),
+    "bvh_closest_hit": ("wurblpt_tpu_torch/csrc/bvh_closest.cu",
+                        "wurblpt_tpu/accel/traverse.py:511", ("bvh_closest_hit",)),
+    "bvh_any_hit": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
+                    "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",)),
+    "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
+               ("env_radiance", "env_sample", "env_pdf")),
 }
+MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit")
+MESH_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
+             "env_pdf")
 
 
 def phase_build():
@@ -49,91 +71,157 @@ def phase_build():
     native.load_kernels()
     dt = time.perf_counter() - t0
     print(f"build: {dt:.1f} s -> {lib.relative_to(native.BUILD_DIR.parent.parent)}")
+    t0 = time.perf_counter()
+    native.load_bvh_builder()
+    print(f"build: host BVH builder {time.perf_counter() - t0:.1f} s")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
 
-def phase_kernels(device):
-    import torch
+def _timed_records(timed, errs, lanes):
+    records = []
+    for name, (kernel, plain) in timed.items():
+        ms = kc.time_ms(kernel, DEVICE)
+        plain_ms = kc.time_ms(plain, DEVICE)
+        print(f"kernels: {name} {ms:.4f} ms (wrapper call) vs plain {plain_ms:.4f} ms "
+              f"at {lanes} lanes")
+        src, replaces, _ = KERNELS[name]
+        records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": 0, "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain_ms})
+    return records
 
-    from wurblpt_tpu_torch.render import intersect, intersect_brute
-    from wurblpt_tpu_torch.utils import kernel_check as kc
-    from wurblpt_tpu_torch.utils import scenes
 
-    scene = scenes.cornell_box_ref(device)
-    bs = intersect_brute.build_brute_scene(scene)
-    ht = intersect.build_hit_tables(scene)
-    cam = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device)
-    n = cam[0].shape[0]
-    rnd = kc.random_lanes(n, device)
-    shadow = kc.shadow_lanes(scene, bs, cam)
-
-    results = {}
-    for name, check, sets in (
-            ("closest_hit", lambda r: kc.check_closest_hit(bs, r), {"camera": cam, "random": rnd}),
-            ("any_hit", lambda r: kc.check_any_hit(bs, r), {"shadow": shadow, "random": rnd}),
-            ("assemble_hit", lambda r: kc.check_assemble_hit(bs, ht, r),
-             {"camera": cam, "random": rnd})):
-        errs = []
-        for label, rays in sets.items():
-            res = check(rays)
+def _run_checks(checks):
+    errs = {}
+    for name, check, sets in checks:
+        err = 0.0
+        for label, args in sets.items():
+            res = check(*args)
             torch.cuda.synchronize()
             print(f"kernels: {name} [{label}] ok {res}")
-            errs.append(res["max_abs_err"])
-        results[name] = max(errs)
+            err = max(err, res["max_abs_err"])
+        errs[name] = err
+    return errs
 
+
+def phase_kernels(mesh_scene):
+    from wurblpt_tpu_torch.accel import traverse
+    from wurblpt_tpu_torch.render import envmap, intersect, intersect_brute
+    from wurblpt_tpu_torch.utils import scenes
+
+    # K1-K3 on the Cornell frame's block.
+    scene = scenes.cornell_box_ref(DEVICE)
+    bs = intersect_brute.build_brute_scene(scene)
+    ht = intersect.build_hit_tables(scene)
+    cam = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, DEVICE)
+    rnd = kc.random_lanes(cam[0].shape[0], DEVICE)
+    shadow = kc.shadow_lanes(scene, bs, cam)
+    errs = _run_checks((
+        ("closest_hit", lambda r: kc.check_closest_hit(bs, r), {"camera": (cam,), "random": (rnd,)}),
+        ("any_hit", lambda r: kc.check_any_hit(bs, r), {"shadow": (shadow,), "random": (rnd,)}),
+        ("assemble_hit", lambda r: kc.check_assemble_hit(bs, ht, r),
+         {"camera": (cam,), "random": (rnd,)})))
     t, prim, u, v = intersect_brute.closest_hit_plain(bs, *cam)
     o, d = cam[0], cam[1]
-    timed = {
+    records = _timed_records({
         "closest_hit": (lambda: intersect_brute.closest_hit(bs, *cam),
                         lambda: intersect_brute.closest_hit_plain(bs, *cam)),
         "any_hit": (lambda: intersect_brute.any_hit(bs, *shadow),
                     lambda: intersect_brute.any_hit_plain(bs, *shadow)),
         "assemble_hit": (lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v),
                          lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v)),
-    }
-    records = []
-    for name, (kernel, plain) in timed.items():
-        ms = kc.time_ms(kernel, device)
-        plain_ms = kc.time_ms(plain, device)
-        print(f"kernels: {name} {ms:.4f} ms (wrapper call) vs plain {plain_ms:.4f} ms "
-              f"at {n} lanes")
-        src, replaces = KERNELS[name]
-        records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": 0, "max_abs_err": results[name], "ms": ms,
-                        "plain_ms": plain_ms})
+    }, errs, cam[0].shape[0])
+
+    # K5, K6, K8 on the mesh frame's block.
+    bvh, env = mesh_scene.bvh, mesh_scene.envmap
+    mcam = kc.mesh_camera_lanes(DEVICE)
+    n = mcam[0].shape[0]
+    mrnd = kc.terrain_random_lanes(n, DEVICE)
+    eshadow = kc.env_shadow_lanes(mesh_scene, mcam)
+    u3 = torch.as_tensor(np.random.default_rng(3).uniform(size=(n, 3)), dtype=torch.float32,
+                         device=DEVICE)
+    errs = _run_checks((
+        ("bvh_closest_hit", lambda r: kc.check_bvh_closest_hit(bvh, r),
+         {"camera": (mcam,), "random": (mrnd,)}),
+        ("bvh_any_hit", lambda r: kc.check_bvh_any_hit(bvh, r),
+         {"env shadow": (eshadow,), "random": (mrnd,)}),
+        ("envmap", lambda dirs, uni: kc.check_envmap(env, dirs, uni),
+         {"camera directions, uniforms": (mcam[1], u3)})))
+
+    def env_all(radiance, sample, pdf):
+        return lambda: (radiance(env, mcam[1]), sample(env, u3), pdf(env, mcam[1]))
+
+    records += _timed_records({
+        "bvh_closest_hit": (lambda: traverse.bvh_closest_hit(bvh, *mcam),
+                            lambda: traverse.bvh_closest_hit_plain(bvh, *mcam)),
+        "bvh_any_hit": (lambda: traverse.bvh_any_hit(bvh, *eshadow),
+                        lambda: traverse.bvh_any_hit_plain(bvh, *eshadow)),
+        "envmap": (env_all(envmap.env_radiance, envmap.env_sample, envmap.env_pdf),
+                   env_all(envmap.env_radiance_plain, envmap.env_sample_plain,
+                           envmap.env_pdf_plain)),
+    }, errs, n)
     return records
 
 
-def phase_main_path(device):
+def _drive(label, render, names):
+    """Render once with the counters at 0, check that `names` launched, then
+    time 5 more frames; returns (first image, stats, counters, frame times)."""
     from wurblpt_tpu_torch import native
-    from wurblpt_tpu_torch.utils import kernel_check as kc
 
-    render = kc.bench_frame(device)
     native.reset_launch_counts()
     t0 = time.perf_counter()
     img, stats = render()
     first_s = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
-    print(f"main path: launches {launches}, first frame {first_s * 1e3:.1f} ms")
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} was not launched on the main path"
-    stats = [int(x) for x in stats.tolist()]
-    print(f"main path: mean radiance {float(img.double().mean())!r} (reference {kc.REF_MEAN}), "
-          f"stats {stats} (reference {list(kc.REF_STATS)})")
-    kc.check_bench_frame(img, stats)
-
+    print(f"{label}: launches {launches}, first frame {first_s * 1e3:.1f} ms")
+    for name in names:
+        assert launches[name] > 0, f"kernel {name} was not launched on the {label}"
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
         render()
         times.append(time.perf_counter() - t0)
+    return img, [int(x) for x in stats.tolist()], launches, times
+
+
+def _report(label, stats, times, paths):
     dt = statistics.median(times)
-    paths = kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2
-    print(f"main path: frame {dt * 1e3:.2f} ms (median of 5; all {[round(t * 1e3, 2) for t in times]}),"
-          f" {paths / dt:.4g} paths/s, {stats[1] / dt / 1e6:.4g} Mrays/s on {_nvidia_smi()}")
+    print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
+          f"{[round(t * 1e3, 2) for t in times]}), {paths / dt:.4g} paths/s, "
+          f"{stats[1] / dt / 1e6:.4g} Mrays/s on {_nvidia_smi()}")
+
+
+def phase_main_path():
+    img, stats, launches, times = _drive("main path", kc.bench_frame(DEVICE), MAIN_PATH)
+    print(f"main path: mean radiance {float(img.double().mean())!r} (reference {kc.REF_MEAN}), "
+          f"stats {stats} (reference {list(kc.REF_STATS)})")
+    kc.check_bench_frame(img, stats)
+    _report("main path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2)
     return launches
+
+
+def phase_mesh_path(mesh_scene):
+    img, stats, launches, times = _drive("mesh path", kc.mesh_frame(DEVICE, mesh_scene),
+                                         MESH_PATH)
+    print(f"mesh path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.MESH_REF_MEAN}), stats {stats} (reference {list(kc.MESH_REF_STATS)})")
+    kc.check_mesh_frame(img, stats)
+    _report("mesh path", stats, times, kc.MESH_WIDTH * kc.MESH_HEIGHT * kc.MESH_SSQRT ** 2)
+    return launches
+
+
+def build_mesh_scene():
+    from wurblpt_tpu_torch.utils import scenes
+
+    t0 = time.perf_counter()
+    scene = scenes.terrain_city(seed=3, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"mesh path: terrain_city built on the GPU in {time.perf_counter() - t0:.2f} s: "
+          f"{scene.n_tris} triangles, {scene.bvh.nodes.shape[0]} BVH nodes, depth "
+          f"{scene.bvh.depth}")
+    return scene
 
 
 def _nvidia_smi():
@@ -147,36 +235,40 @@ def _nvidia_smi():
 
 
 def main() -> int:
+    global kc, np, torch
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
     try:
-        import wurblpt_tpu_torch  # noqa: F401
+        import numpy as np
+
+        from wurblpt_tpu_torch.utils import kernel_check as kc
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
-    device = "cuda"
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    records = None
-    for name, phase in (("build", phase_build), ("kernels", lambda: phase_kernels(device)),
-                        ("main path", lambda: phase_main_path(device))):
+    out = {}
+    for name, phase in (("build", phase_build), ("mesh scene", build_mesh_scene),
+                        ("kernels", lambda: phase_kernels(out["mesh scene"])),
+                        ("main path", phase_main_path),
+                        ("mesh path", lambda: phase_mesh_path(out["mesh scene"]))):
         try:
-            out = phase()
+            out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run
             traceback.print_exc()
             print(f"FAILED phase {name}: {type(e).__name__}: {e}", file=sys.stderr)
             return 1
-        if name == "kernels":
-            records = out
-        elif name == "main path":
-            for r in records:
-                r["launches"] = out[r["name"]]
+    records = out["kernels"]
+    for r in records:
+        r["launches"] = sum(out[path][c] for path in ("main path", "mesh path")
+                            for c in KERNELS[r["name"]][2])
     print(_nvidia_smi())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

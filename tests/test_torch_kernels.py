@@ -1,11 +1,14 @@
-"""The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly)
-against their plain PyTorch versions.
+"""The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly,
+K5 BVH closest hit, K6 BVH any hit, K8 envmap) against their plain PyTorch
+versions, with the tolerances of utils/kernel_check.py.
 
 Tests marked `cuda` need an NVIDIA GPU with nvcc and skip without one. This
 file imports no jax, so on such a machine it runs without the repository's
 conftest:  python -m pytest --noconftest tests/test_torch_kernels.py
 The CPU tests check the wrappers' dispatch and input checks.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -161,3 +164,78 @@ def test_bench_frame_check_holds_the_reference(off):
 def test_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     img, stats = kc.bench_frame(gpu)()
     kc.check_bench_frame(img, stats)
+
+
+@functools.lru_cache(maxsize=None)
+def _terrain(device):
+    """The mesh path's scene, terrain_city(seed=3) at full size, on `device`."""
+    return scenes.terrain_city(seed=3, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_bvh_closest_hit_kernel_matches_plain(gpu, kind):
+    scene = _terrain(gpu)
+    rays = (kc.mesh_camera_lanes(gpu) if kind == "camera"
+            else kc.terrain_random_lanes(kc.MESH_LANES, gpu))
+    before = native.LAUNCHES["bvh_closest_hit"]
+    res = kc.check_bvh_closest_hit(scene.bvh, rays)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["bvh_closest_hit"] == before + 1
+    assert res["hits"] > 0.2 * res["lanes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["env shadow", "random"])
+def test_bvh_any_hit_kernel_matches_plain(gpu, kind):
+    scene = _terrain(gpu)
+    rays = (kc.env_shadow_lanes(scene, kc.mesh_camera_lanes(gpu)) if kind == "env shadow"
+            else kc.terrain_random_lanes(kc.MESH_LANES, gpu))
+    before = native.LAUNCHES["bvh_any_hit"]
+    res = kc.check_bvh_any_hit(scene.bvh, rays)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["bvh_any_hit"] == before + 1
+    assert 0 < res["occluded"] < res["lanes"]
+
+
+@pytest.mark.cuda
+def test_envmap_kernels_match_plain(gpu):
+    env = _terrain(gpu).envmap
+    dirs = kc.mesh_camera_lanes(gpu)[1]
+    u3 = torch.as_tensor(np.random.default_rng(3).uniform(size=(kc.MESH_LANES, 3)),
+                         dtype=torch.float32, device=gpu)
+    before = [native.LAUNCHES[k] for k in ("env_radiance", "env_sample", "env_pdf")]
+    kc.check_envmap(env, dirs, u3)
+    torch.cuda.synchronize()
+    assert [native.LAUNCHES[k] for k in ("env_radiance", "env_sample", "env_pdf")] == [
+        b + 1 for b in before]
+
+
+@pytest.mark.parametrize("off", [None, "mean", "stats", "nan", "shape"])
+def test_mesh_frame_check_holds_the_reference(off):
+    img = torch.full((kc.MESH_HEIGHT, kc.MESH_WIDTH, 3), kc.MESH_REF_MEAN, dtype=torch.float64)
+    stats = torch.tensor(kc.MESH_REF_STATS)
+    if off == "mean":
+        img = img * 1.002
+    elif off == "stats":
+        stats = stats * 1.01
+    elif off == "nan":
+        img[0, 0, 0] = float("nan")
+    elif off == "shape":
+        img = img.transpose(0, 1)
+    if off is None:
+        assert kc.check_mesh_frame(img, stats) == pytest.approx(kc.MESH_REF_MEAN)
+    else:
+        with pytest.raises(AssertionError):
+            kc.check_mesh_frame(img, stats)
+
+
+@pytest.mark.cuda
+def test_mesh_render_on_gpu_matches_the_jax_reference_numbers(gpu):
+    native.reset_launch_counts()
+    img, stats = kc.mesh_frame(gpu, _terrain(gpu))()
+    kc.check_mesh_frame(img, stats)
+    for name in ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
+                 "env_pdf"):
+        assert native.LAUNCHES[name] > 0, name
+    assert native.LAUNCHES["closest_hit"] == native.LAUNCHES["any_hit"] == 0

@@ -1,5 +1,6 @@
-"""The port's scene: jax-free Cornell build against the JAX flattener, the
-import boundary, and refusal of scenes outside the ported slice."""
+"""The port's scene: jax-free Cornell and terrain_city builds against the JAX
+flattener, the import boundary, and refusal of scenes outside the ported
+slice."""
 
 import subprocess
 import sys
@@ -11,6 +12,9 @@ import pytest
 import torch
 
 from wurblpt_tpu import CameraConfig as JCameraConfig
+from wurblpt_tpu.core.transform import Transformation as JTransformation
+from wurblpt_tpu.scene import builder as B
+from wurblpt_tpu.scene.generator import generate_quad
 from wurblpt_tpu.utils import scenes as jscenes
 from wurblpt_tpu_torch import (
     CameraConfig,
@@ -35,7 +39,9 @@ def _port_of(jax_scene):
 def _assert_same(a, b, path="scene"):
     if isinstance(a, torch.Tensor):
         assert a.dtype == b.dtype and a.shape == b.shape, path
-        assert torch.equal(a, b), path
+        # bit-equal; float32 tensors may hold int bit patterns (BVH links)
+        assert torch.equal(a, b) or (a.dtype == torch.float32 and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))), path
     elif isinstance(a, tuple) and hasattr(a, "_fields"):
         for f in a._fields:
             _assert_same(getattr(a, f), getattr(b, f), f"{path}.{f}")
@@ -51,9 +57,33 @@ def test_cornell_box_ref_equals_jax_build_field_by_field():
     assert ours.light_prims.tolist() == [34, 35]
 
 
+def test_terrain_city_equals_jax_build_field_by_field():
+    """The mesh path's scene at a small size, BVH and sky included. The port's
+    importance tables come from its own radiance lookup on the CPU: pdf table
+    and acceptance probabilities to rtol 1e-5, everything else bit-equal."""
+    small = dict(terrain_res=24, n_buildings=8, sphere_slices=6)
+    ours = scenes.terrain_city(seed=3, **small)
+    ref = _port_of(jscenes.terrain_city(seed=3, **small).build(use_bvh=True))
+    for f in ("pdf_table", "alias_prob"):
+        np.testing.assert_allclose(getattr(ours.envmap, f).numpy(),
+                                   getattr(ref.envmap, f).numpy(), rtol=1e-5)
+    env = ref.envmap._replace(pdf_table=ours.envmap.pdf_table, alias_prob=ours.envmap.alias_prob)
+    _assert_same(ours, ref._replace(envmap=env))
+    assert ours.n_tris == 2594 and ours.n_lights == 0 and ours.light_weights is None
+    assert ours.has_bvh and ours.env_kind == 1 and ours.envmap.importance
+    assert not torch.equal(ours.tris.v1, ours.tris.p0 + ours.tris.e1)   # why v1/v2 are kept
+
+
 def test_port_imports_without_jax():
     code = ("import sys, wurblpt_tpu_torch, wurblpt_tpu_torch.native, "
             "wurblpt_tpu_torch.utils.scenes as s; s.cornell_box_ref('cpu'); "
+            "from wurblpt_tpu_torch import SceneStatic, CameraConfig, SensorRGB, make_camera, "
+            "RenderParams, render_frame_wavefront as r; "
+            "t = s.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4); "
+            "p, f = s.terrain_camera(); "
+            "img = r(t, SceneStatic.from_scene(t), make_camera(p, f, 8, 6), CameraConfig(), "
+            "SensorRGB(), 8, 6, 1, params=RenderParams(max_path_components=2), device='cpu'); "
+            "assert bool(img.isfinite().all()) and float(img.mean()) > 0; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'wurblpt_tpu' or m.startswith('wurblpt_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -66,13 +96,33 @@ def test_static_of_the_slice():
     st = SceneStatic.from_scene(scenes.cornell_box_ref("cpu"))
     assert st.mat_types == frozenset({1, 7}) and st.n_lights == 2
     st.check_slice()
+    st = SceneStatic.from_scene(scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2,
+                                                    sphere_slices=4))
+    assert st.mat_types == frozenset({1, 2, 4}) and st.n_lights == 0
+    assert st.has_bvh and st.env_kind == 1 and st.env_importance
+    st.check_slice()
+
+
+def _quad_scene(material, animated=False, **build):
+    scene = B.Scene()
+    inst = B.MeshInstance(generate_quad(), scene.take_material(material))
+    if animated:
+        inst.animation = scene.take_animation(B.AnimationKeyframes(
+            [0.0, 1.0], [JTransformation.make(), JTransformation.make(translation=(0, 1, 0))]))
+    scene.take_mesh_instance(inst)
+    return scene.build(**build)
 
 
 @pytest.mark.parametrize("build, feature", [
-    (lambda: jscenes.cornell_box_ref(tall_box="metal").build(), "material types [2]"),
     (lambda: jscenes.cornell_box(short_object="glass_sphere").build(), "material types [3]"),
-    (lambda: jscenes.furnace().build(), "environment map"),
-    (lambda: jscenes.cornell_box().build(use_bvh=True), "BVH"),
+    (lambda: _quad_scene(B.ModPhong(diffuse=(0.5, 0.5, 0.5))), "material types [5]"),
+    (lambda: jscenes.envmap_spheres(cube=True, importance_resolution=8).build(),
+     "environment map kind 2"),
+    (lambda: jscenes.furnace().build(), "environment map kind 3"),
+    (lambda: _quad_scene(B.Lambertian(albedo=B.CheckerTexture())), "textures"),
+    (lambda: _quad_scene(B.Lambertian(), animated=True), "animation"),
+    (lambda: jscenes.cornell_box(short_object="sphere").build(use_bvh=True),
+     "spheres in a BVH scene"),
 ])
 def test_scenes_outside_the_slice_are_refused(build, feature):
     scene = _port_of(build())

@@ -6,7 +6,13 @@ once and handed to both sides, so any difference is the port's arithmetic:
 tolerances are f32 rounding (rtol 1e-5, atol 1e-6), except: pdfs, which
 divide by |cos| * area, rtol 1e-4; sampled directions and the cosines taken
 of them atol 1e-5, because XLA's and PyTorch's sin/cos differ by an ulp and
-the cosine warp's z = sqrt(1 - x^2 - y^2) amplifies that near the horizon."""
+the cosine warp's z = sqrt(1 - x^2 - y^2) amplifies that near the horizon.
+
+GGX and Mirror run on the hits of the mesh path's camera on the small
+terrain_city, with materials drawn per lane from its table (Lambertian,
+GGX, mirror). GGX values and pdfs to rtol 1e-4: the microfacet density
+1/(pi a^2 (...)^2) of a roughness-0.1 lobe magnifies an ulp of the half
+vector."""
 
 import functools
 
@@ -18,11 +24,13 @@ import torch
 
 from wurblpt_tpu import CameraConfig as JCameraConfig, SceneStatic as JSceneStatic
 from wurblpt_tpu import make_camera as jmake_camera
+from wurblpt_tpu.core.transform import from_lookat
 from wurblpt_tpu.core.sampler import power_heuristic as jpower_heuristic
 from wurblpt_tpu.render import bsdf as jbsdf
 from wurblpt_tpu.render import lights as jlights
 from wurblpt_tpu.render.camera import camera_rays as jcamera_rays
 from wurblpt_tpu.render.intersect import assemble_hit as jassemble_hit
+from wurblpt_tpu.render.intersect import scene_raw_hit as jscene_raw_hit
 from wurblpt_tpu.render.intersect_mxu import build_mxu_scene, mxu_closest_hit
 from wurblpt_tpu.utils import scenes as jscenes
 from wurblpt_tpu_torch import scene_from_numpy
@@ -105,7 +113,8 @@ def test_bsdf_eval_matches():
     wd = uni[:, :3] * 2.0 - 1.0
     wd /= np.linalg.norm(wd, axis=-1, keepdims=True)
     jf, jp = jbsdf.bsdf_eval(jscene, JSceneStatic.from_scene(jscene), jhr, d, jnp.asarray(wd))
-    f, p = bsdf.bsdf_eval(hr, torch.from_numpy(wd), _mrow(scene, hr))
+    f, p = bsdf.bsdf_eval(hr, torch.from_numpy(np.array(d)), torch.from_numpy(wd),
+                          _mrow(scene, hr))
     _close(f, jf)
     _close(p, jp)
     assert float((p > 0).float().mean()) > 0.2
@@ -144,3 +153,62 @@ def test_power_heuristic_matches():
             for _ in range(2))
     _close(power_heuristic(torch.from_numpy(a), torch.from_numpy(b)),
            jpower_heuristic(jnp.asarray(a), jnp.asarray(b)))
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_case():
+    """Small terrain_city: JAX scene, port scene, JAX hits of camera rays with
+    a material per lane drawn from the table, uniforms, directions."""
+    jscene = jscenes.terrain_city(seed=3, terrain_res=24, n_buildings=8,
+                                  sphere_slices=6).build(use_bvh=True)
+    scene = scene_from_numpy(jax.tree_util.tree_map(np.asarray, jscene), "cpu")
+    cam = jmake_camera(transformation=from_lookat((14.0, 9.0, 14.0), (0.0, 0.5, 0.0)),
+                       vfov_deg=45.0, width=N_SIDE, height=N_SIDE)
+    rs = np.random.default_rng(12)
+    n = N_SIDE * N_SIDE
+    pxy = np.stack([np.arange(n) % N_SIDE, np.arange(n) // N_SIDE], -1) + rs.uniform(size=(n, 2))
+    o, d, _ = jcamera_rays(cam, JCameraConfig(), jnp.asarray(pxy, jnp.float32), N_SIDE,
+                           N_SIDE, 0.0, 0.0, jnp.zeros((n,)), jnp.zeros((n, 2)))
+    cast = jax.jit(lambda s, o, d: jassemble_hit(s, o, d, *jscene_raw_hit(
+        s, o, d, jnp.full((n,), 1e-4), jnp.full((n,), 3e37))))
+    jhr = cast(jscene, o, d)
+    mats = rs.integers(0, int(np.asarray(jscene.materials.typ).shape[0]), n).astype(np.int32)
+    jhr = jhr._replace(mat=jnp.where(jhr.hit, jnp.asarray(mats), 0))
+    uni = rs.uniform(size=(n, 4)).astype(np.float32)
+    wd = rs.normal(size=(n, 3))
+    wd = (wd / np.linalg.norm(wd, axis=-1, keepdims=True)).astype(np.float32)
+    return jscene, scene, d, jhr, uni, wd
+
+
+def test_ggx_and_mirror_sample_match():
+    jscene, scene, d, jhr, uni, _ = _mesh_case()
+    static = JSceneStatic.from_scene(jscene)
+    assert static.mat_types == {1, 2, 4}
+    hr = _port_hr(jhr)
+    typ = np.asarray(jscene.materials.typ)[np.asarray(jhr.mat)] * np.asarray(jhr.hit)
+    assert (typ == 2).sum() > 100 and (typ == 4).sum() > 20
+    n = uni.shape[0]
+    ior = np.ones((n, 4), np.float32)
+    js = jbsdf.bsdf_sample(jscene, static, jhr, d, jnp.asarray(ior), jnp.asarray(uni),
+                           jnp.asarray(uni[:, 2]), jnp.asarray(uni[:, 3]))
+    ts = bsdf.bsdf_sample(hr, torch.from_numpy(np.array(d)), torch.from_numpy(ior),
+                          torch.from_numpy(uni), _mrow(scene, hr), static.mat_types)
+    np.testing.assert_array_equal(ts.kind.numpy(), np.asarray(js.kind))
+    assert (ts.kind.numpy()[typ == 4] == bsdf.ScatterKind.EXPLICIT).all()
+    _close(ts.direction, js.direction, atol=1e-5)
+    _close(ts.atten, js.atten, rtol=1e-4, atol=1e-5)
+    _close(ts.pdf, js.pdf, rtol=1e-4, atol=1e-5)
+    _close(ts.ior, js.ior)
+
+
+def test_ggx_and_mirror_eval_match():
+    jscene, scene, d, jhr, _, wd = _mesh_case()
+    static = JSceneStatic.from_scene(jscene)
+    hr = _port_hr(jhr)
+    jf, jp = jbsdf.bsdf_eval(jscene, static, jhr, d, jnp.asarray(wd))
+    f, p = bsdf.bsdf_eval(hr, torch.from_numpy(np.array(d)), torch.from_numpy(wd),
+                          _mrow(scene, hr), static.mat_types)
+    _close(f, jf, rtol=1e-4, atol=1e-5)
+    _close(p, jp, rtol=1e-4, atol=1e-5)
+    typ = np.asarray(jscene.materials.typ)[np.asarray(jhr.mat)] * np.asarray(jhr.hit)
+    assert (p.numpy()[typ == 2] > 0).mean() > 0.2 and (p.numpy()[typ == 4] == 0).all()

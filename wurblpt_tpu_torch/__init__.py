@@ -6,9 +6,10 @@ JAX package ``wurblpt_tpu`` is the reference it is tested against. Kernels
 written by hand for Hopper live in ``csrc/`` and are built at first use
 (:mod:`wurblpt_tpu_torch.native`).
 
-Ported so far: the persistent-lane wavefront render of static triangle scenes
-with Lambertian and diffuse-light materials, a pinhole camera and SensorRGB,
-on the brute-force intersector (see ROADMAP.md for the rest).
+Ported so far: the persistent-lane wavefront render of static scenes with a
+pinhole camera and SensorRGB: Lambertian, GGX, mirror and diffuse-light
+materials, triangle hot spots, an importance-sampled equirect sky, on the
+brute-force intersector or the port's BVH (see ROADMAP.md for the rest).
 """
 
 from .core.transform import Transformation, from_lookat  # noqa: F401

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from .vecmath import cross, dot, normalize
+
 
 def onb_from_normal(n):
     """(tangent, bitangent) for unit normal n, branch-free Duff et al. 2017.
@@ -21,3 +23,14 @@ def onb_from_normal(n):
 def to_world(local_dir, t, b, n):
     """Tangent-space direction (x=t, y=b, z=n) to world space."""
     return local_dir[..., 0:1] * t + local_dir[..., 1:2] * b + local_dir[..., 2:3] * n
+
+
+def onb_from_normal_tangent(n, t):
+    """Gram-Schmidt a supplied tangent against n; returns (t, b)."""
+    t = normalize(t - dot(t, n, keepdim=True) * n)
+    return t, cross(n, t)
+
+
+def to_local(world_dir, t, b, n):
+    """World direction into the (t, b, n) tangent frame."""
+    return torch.stack([dot(world_dir, t), dot(world_dir, b), dot(world_dir, n)], -1)

@@ -1,10 +1,20 @@
 """TRS poses and quaternions (port of ``wurblpt_tpu/core/transform.py``, the
-subset the camera pose needs). Quaternion layout: [x, y, z, w]."""
+subset the camera pose and the scene builder need). Quaternion layout: [x, y, z, w].
+
+`quat_from_axis_angle` takes sin and cos of the half angle from the C
+library's ``sinf``/``cosf``, which XLA's CPU backend also calls: PyTorch's
+and numpy's vectorised sin differ from them by an ulp on about 5 % of
+arguments, and a building's vertices would then differ from the JAX build.
+"""
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .vecmath import cross, normalize
@@ -19,6 +29,35 @@ class Transformation(NamedTuple):
 
     def to(self, device) -> "Transformation":
         return Transformation(*(x.to(device) for x in self))
+
+    @staticmethod
+    def make(translation=(0.0, 0.0, 0.0), rotation=None, scale=(1.0, 1.0, 1.0)):
+        """A host-side pose from Python values (float32 CPU tensors)."""
+        f32 = dict(dtype=torch.float32)
+        rotation = torch.tensor([0.0, 0.0, 0.0, 1.0], **f32) if rotation is None else rotation
+        scale = torch.as_tensor(scale, **f32)
+        if scale.ndim == 0:
+            scale = scale.expand(3)
+        return Transformation(torch.as_tensor(translation, **f32),
+                              torch.as_tensor(rotation, **f32), scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        getattr(lib, name).restype = ctypes.c_float
+        getattr(lib, name).argtypes = [ctypes.c_float]
+    return lib
+
+
+def quat_from_axis_angle(axis, angle) -> torch.Tensor:
+    """Unit quaternion [4] of a rotation by `angle` (radians) about `axis`."""
+    axis = normalize(torch.as_tensor(axis, dtype=torch.float32))
+    half = float(np.float32(0.5) * np.float32(angle))
+    s, c = _libm().sinf(half), _libm().cosf(half)
+    return torch.cat([axis * torch.tensor(s, dtype=torch.float32),
+                      torch.tensor([c], dtype=torch.float32)])
 
 
 def quat_rotate(q, v):

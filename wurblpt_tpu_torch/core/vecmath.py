@@ -32,3 +32,8 @@ def cross(a, b):
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
+
+
+def reflect(d, n):
+    """Mirror direction of incident d about normal n (both unit)."""
+    return d - 2.0 * dot(d, n, keepdim=True) * n

@@ -2,7 +2,8 @@
 
 The kernels are compiled at first use with ``nvcc`` into one shared library
 with a plain C interface and loaded with ctypes: no PyTorch headers are
-compiled, so the build takes seconds. The library lands in
+compiled, so the build takes seconds. Each source compiles in its own nvcc
+process, all started together, and one more links them. The library lands in
 ``_build/<hash of sources and flags>/``, so a changed source rebuilds and an
 unchanged one is reused. Nothing is built or loaded at import time.
 
@@ -12,6 +13,12 @@ PyTorch op of its plain version does, so the two can be compared bit for bit.
 
 `LAUNCHES` counts kernel launches per kernel; each wrapper adds one where it
 launches its kernel and nowhere else.
+
+The BVH build runs on the host: the JAX package's SAH builder
+(``wurblpt_tpu/native/src/bvh_builder.cpp``, plain C++ with a C interface) is
+compiled by file path with g++ into ``_build/host-<hash>/``
+(`load_bvh_builder`). ``-ffp-contract=off`` and no ``-march=native``, so every
+machine builds the same tree from the same triangles.
 """
 
 from __future__ import annotations
@@ -27,16 +34,22 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu")
-HEADERS = ("brute_common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
+           "envmap.cu")
+HEADERS = ("brute_common.cuh", "bvh_common.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libwpt_kernels.so"
 
-LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0}
+BVH_BUILDER_SRC = _PKG.parent / "wurblpt_tpu" / "native" / "src" / "bvh_builder.cpp"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-contract=off")
+
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "bvh_closest_hit": 0,
+            "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0}
 
 _lock = threading.Lock()
 _lib = None
+_bvh_builder = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +59,11 @@ _SIGNATURES = {
     "wpt_any_hit": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P],
     "wpt_assemble_hit": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_bvh_closest_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_bvh_any_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "wpt_env_radiance": [_P, _I, _P, _I, _I, _P, _P, _P],
+    "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],
 }
 
 
@@ -81,12 +99,30 @@ def build_kernels() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(SRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(SRC_DIR / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, p in zip(SOURCES, procs):
+        out = p.communicate()[0]
+        logs.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"{src} ({p.returncode}):\n{out[-3000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-3000:]}")
+    (out_dir / "build.log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 
@@ -103,6 +139,40 @@ def load_kernels() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def _compile_host(src: Path, name: str) -> Path:
+    """Compile one host C++ source into a shared library under `_build`, once per content."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    out_dir = BUILD_DIR / f"host-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found (set CXX or put g++ on PATH)")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_bvh_builder():
+    """The C function ``wurblpt_build_bvh`` of bvh_builder.cpp, built at first use."""
+    global _bvh_builder
+    with _lock:
+        if _bvh_builder is None:
+            lib = ctypes.CDLL(str(_compile_host(BVH_BUILDER_SRC, "wpt_bvh_builder")))
+            fn = lib.wurblpt_build_bvh
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P]
+            _bvh_builder = fn
+        return _bvh_builder
 
 
 def check(code: int, name: str) -> None:

@@ -2,12 +2,17 @@
 the persistent-lane `render_frame_wavefront` and its bounce step).
 
 Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
-  1. closest hit (K1) and hit assembly (K3);
-  2. emitted radiance with its MIS weight against the light-mixture pdf;
-  3. BSDF sample;
-  4. NEE toward a picked hot spot, visibility by an any-hit cast (K2)
+  1. closest hit (K1 brute force, or K5 on a BVH);
+  2. on a miss, the environment map's radiance (K8) with its MIS weight
+     against the env importance pdf (K8);
+  3. hit assembly (K3), emitted radiance with its MIS weight against the
+     light-mixture pdf;
+  4. BSDF sample;
+  5. NEE toward a picked hot spot, visibility by an any-hit cast (K2 or K6)
      shortened by `shadow_identity_eps`, power-heuristic weighted;
-  5. throughput update and Russian roulette.
+  6. env NEE: an importance-sampled sky direction (K8), visibility by an
+     any-hit cast to BIG, power-heuristic weighted;
+  7. throughput update and Russian roulette.
 
 Randomness is counter-based on (pixel, sample, bounce, salt), so the port
 draws the JAX package's random numbers. The JAX `while_loop` condition
@@ -36,6 +41,7 @@ from .bsdf import (
     pack_material_table,
 )
 from .camera import CameraConfig, CameraParams, camera_rays, check_pinhole
+from .envmap import env_pdf, env_radiance, env_sample
 from .intersect import assemble_hit, build_hit_tables, scene_any_hit, scene_raw_hit
 from .intersect_brute import BIG, brute_eligible, build_brute_scene
 from .lights import lights_pdf_multi, lights_sample
@@ -88,19 +94,39 @@ def _light_emitted_at(scene: SceneArrays, prim, toward, mat_packed):
 
 def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: RenderParams, n):
     """One wavefront bounce as a function of (state, pixel, sample)."""
-    bs = build_brute_scene(scene)
+    accel = scene.bvh if scene.has_bvh else build_brute_scene(scene)
     ht = build_hit_tables(scene)
     mat_packed = pack_material_table(scene.materials)
+    mat_types = static.mat_types
     has_lights = static.n_lights > 0
+    has_env = static.env_kind != 0
+    env_is = has_env and static.env_importance
+    env = scene.envmap
     dev = scene.device
     t_min = torch.full((n,), params.min_hit_distance, dtype=torch.float32, device=dev)
+    zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     def body(st: _LoopState, pixel_id, sample_id) -> _LoopState:
         k = st.bounce
         acc = st.acc
-        t, prim, u, v = scene_raw_hit(bs, st.o, st.d, t_min,
+        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min,
                                       torch.where(st.active, BIG, 0.0))
         hit = (prim >= 0) & st.active
+
+        # Environment on a miss (wurblpt.hpp:136-146), MIS-weighted against
+        # env NEE with the pdf of the previous bsdf sample.
+        if has_env:
+            L_env = env_radiance(env, st.d)
+            if env_is:
+                w_env = torch.where(st.prev_random,
+                                    power_heuristic(st.prev_pdf, env_pdf(env, st.d)), 1.0)
+            else:
+                w_env = torch.ones_like(t)
+            acc = sensor.accumulate(acc, SensorEvent(
+                radiance=st.throughput * L_env * w_env[:, None], path_component=k,
+                geom_path_length=st.geom_len, optical_path_length=st.opt_len,
+                distance_to_light=zeros, active=st.active & (prim < 0)))
+
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
         mrow = gather_material_rows(mat_packed, hr.mat.long())
 
@@ -122,7 +148,7 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
 
         u4 = uniform4(pixel_id, sample_id, k, Salt.BSDF)
         u_aux = uniform4(pixel_id, sample_id, k, Salt.BSDF_AUX)
-        sr = bsdf_sample(hr, st.d, st.ior, u4, mrow)
+        sr = bsdf_sample(hr, st.d, st.ior, u4, mrow, mat_types)
         is_random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
         is_explicit = hit & (sr.kind == ScatterKind.EXPLICIT)
 
@@ -133,10 +159,10 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
             # NEE direction now, the bsdf sample at the next bounce.
             pdf_pair = lights_pdf_multi(scene, hr.position, torch.stack([ldir, sr.direction], 1))
             pdf_light, light_pdf_next = pdf_pair[:, 0], pdf_pair[:, 1]
-            f_l, pdf_b = bsdf_eval(hr, ldir, mrow)
+            f_l, pdf_b = bsdf_eval(hr, st.d, ldir, mrow, mat_types)
             t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps),
                                     params.min_hit_distance)
-            occluded = scene_any_hit(bs, hr.position, ldir, t_min,
+            occluded = scene_any_hit(accel, hr.position, ldir, t_min,
                                      torch.where(is_random, t_vis, 0.0))
             Le = _light_emitted_at(scene, torch.clamp_min(lprim, 0), -ldir, mat_packed)
             w_nee = power_heuristic(pdf_light, pdf_b)
@@ -148,6 +174,22 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
                 optical_path_length=opt_len + ldist[:, None] * st.ior,
                 distance_to_light=ldist,
                 active=is_random & ~occluded & (pdf_light > 1e-12)))
+
+        # Env NEE (wurblpt.hpp:221-252): shadow ray to BIG, unoccluded lanes
+        # see the sky's radiance in the sampled direction.
+        if env_is:
+            ue = uniform4(pixel_id, sample_id, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
+            edir, epdf = env_sample(env, ue)
+            f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types)
+            occluded_e = scene_any_hit(accel, hr.position, edir, t_min,
+                                       torch.where(is_random, BIG, 0.0))
+            w_e = power_heuristic(epdf, pdf_be)
+            contrib_e = (st.throughput * f_e * env_radiance(env, edir)
+                         * (w_e / torch.clamp_min(epdf, 1e-12))[:, None])
+            acc = sensor.accumulate(acc, SensorEvent(
+                radiance=contrib_e, path_component=k, geom_path_length=geom_len,
+                optical_path_length=opt_len, distance_to_light=zeros,
+                active=is_random & ~occluded_e & (epdf > 1e-12)))
 
         # Throughput update + Russian roulette (wurblpt.hpp:258-273).
         ratio = torch.where(is_random[:, None],
@@ -163,9 +205,9 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
         alive = cont & ~killed & (new_tp.max(-1).values > 0.0)
 
         # Ray counters: one closest cast per active lane, one shadow cast per
-        # RANDOM lane (bench.py's Mrays/s accounting).
+        # RANDOM lane and NEE kind (bench.py's Mrays/s accounting).
         n_closest = st.active.sum()
-        n_all = n_closest + is_random.sum() if has_lights else n_closest
+        n_all = n_closest + (int(has_lights) + int(env_is)) * is_random.sum()
         return _LoopState(
             bounce=torch.where(st.active, k + 1, k),
             o=torch.where(hit[:, None], hr.position, st.o),
@@ -285,8 +327,9 @@ def render_frame_wavefront(
     device = torch.device(device)
     static.check_slice()
     check_pinhole(cam_cfg)
-    if not brute_eligible(scene):
-        raise NotImplementedError("only the brute-force intersector (<= 2048 prims) is ported")
+    if not (scene.has_bvh or brute_eligible(scene)):
+        raise NotImplementedError("a scene of more than 2048 primitives needs a BVH "
+                                  "(flatten with use_bvh)")
     for name, x in (("scene", scene.tris.p0), ("camera", cam.focal_px)):
         if x.device.type != device.type:
             raise ValueError(f"{name} is on {x.device}, render device is {device}")

@@ -1,5 +1,10 @@
-"""Closest/any hit and hit-record assembly (port of ``wurblpt_tpu/render/intersect.py``,
-the brute-force branches for static scenes).
+"""Closest/any hit and hit-record assembly (port of ``wurblpt_tpu/render/intersect.py``
+for static scenes).
+
+`scene_raw_hit` and `scene_any_hit` dispatch on the scene's accelerator: the
+port's BVH (K5/K6, :mod:`wurblpt_tpu_torch.accel.traverse`) or the
+brute-force table (K1/K2, :mod:`.intersect_brute`). `watertight_tri` is the
+leaf test of the BVH path, op for op as the JAX package computes it.
 
 `assemble_hit` is K3: a hand-written CUDA kernel (``csrc/assemble_hit.cu``)
 on CUDA tensors, its plain PyTorch version `assemble_hit_plain` on CPU
@@ -16,7 +21,8 @@ import torch
 from .. import native
 from ..core.onb import onb_from_normal
 from ..core.vecmath import cross, dot, normalize, safe_sqrt
-from .intersect_brute import BruteScene, any_hit, closest_hit
+from ..scene.ir import BVHArrays
+from .intersect_brute import BIG, any_hit, closest_hit
 
 _INV_2PI = 1.0 / (2.0 * math.pi)
 _INV_PI = 1.0 / math.pi
@@ -58,14 +64,98 @@ def build_hit_tables(scene) -> HitTables:
                      S.mat.to(torch.int32).contiguous(), scene.n_tris, scene.n_spheres)
 
 
-def scene_raw_hit(bs: BruteScene, o, d, t_min, t_max):
-    """Closest hit over all primitives: (t, prim, u, v); prim = -1 on a miss."""
-    return closest_hit(bs, o, d, t_min, t_max)
+def _two_prod(a, b):
+    """Dekker/Veltkamp exact product: a * b == p + err in f32, without an FMA."""
+    p = a * b
+    ac = a * 4097.0
+    ah = ac - (ac - a)
+    al = a - ah
+    bc = b * 4097.0
+    bh = bc - (bc - b)
+    bl = b - bh
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, err
 
 
-def scene_any_hit(bs: BruteScene, o, d, t_min, t_max):
-    """Occlusion test (shadow rays): True where any primitive is hit in (t_min, t_max)."""
-    return any_hit(bs, o, d, t_min, t_max)
+def _diff_of_products(a, b, c, d):
+    """a * b - c * d, compensated: its sign is right under cancellation."""
+    p1, e1 = _two_prod(a, b)
+    p2, e2 = _two_prod(c, d)
+    return (p1 - p2) + (e1 - e2)
+
+
+def _comp(x, k):
+    """x[..., k] for a per-element axis index k (broadcast against x[..., 0])."""
+    return torch.where(k == 0, x[..., 0], torch.where(k == 1, x[..., 1], x[..., 2]))
+
+
+def watertight_tri(o, d, v0, v1, v2, t_min, t_max):
+    """Watertight ray/triangle test (Woop et al.; hitable_triangle.hpp:189-274).
+
+    o, d [..., 3] broadcast against the ABSOLUTE vertices v0/v1/v2 [..., 3];
+    t_min/t_max broadcast to the result. Returns (t, u, v, valid) with u, v
+    the barycentric weights of v1, v2 and t = BIG where not valid. Where an
+    edge function falls under 1.1e-19 (the reference's long-double epsilon)
+    all three are recomputed with two-product compensation instead of f64."""
+    kz = torch.argmax(torch.abs(d), -1)
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+    dz = _comp(d, kz)
+    neg = dz < 0
+    kx, ky = torch.where(neg, ky, kx), torch.where(neg, kx, ky)
+    dx = _comp(d, kx)
+    dy = _comp(d, ky)
+    sz = 1.0 / dz
+    sx = dx * sz
+    sy = dy * sz
+
+    def shear(p):
+        rel = p - o
+        pz = _comp(rel, kz)
+        return _comp(rel, kx) - sx * pz, _comp(rel, ky) - sy * pz, pz
+
+    ax, ay, az = shear(v0)
+    bx, by, bz = shear(v1)
+    cx, cy, cz = shear(v2)
+    u_e = cx * by - cy * bx
+    v_e = ax * cy - ay * cx
+    w_e = bx * ay - by * ax
+    eps = 1.1e-19
+    near = (torch.abs(u_e) < eps) | (torch.abs(v_e) < eps) | (torch.abs(w_e) < eps)
+    u_e = torch.where(near, _diff_of_products(cx, by, cy, bx), u_e)
+    v_e = torch.where(near, _diff_of_products(ax, cy, ay, cx), v_e)
+    w_e = torch.where(near, _diff_of_products(bx, ay, by, ax), w_e)
+
+    mixed = (((u_e < 0.0) | (v_e < 0.0) | (w_e < 0.0))
+             & ((u_e > 0.0) | (v_e > 0.0) | (w_e > 0.0)))
+    det = u_e + v_e + w_e
+    tn = u_e * (sz * az) + v_e * (sz * bz) + w_e * (sz * cz)
+    ds = torch.sign(det)
+    in_range = (tn * ds > t_min * det * ds) & (tn * ds < t_max * det * ds)
+    valid = (~mixed) & (det != 0.0) & in_range
+    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
+    return torch.where(valid, tn * inv_det, BIG), v_e * inv_det, w_e * inv_det, valid
+
+
+def scene_raw_hit(accel, o, d, t_min, t_max):
+    """Closest hit over all primitives: (t, prim, u, v); prim = -1 on a miss.
+
+    `accel` is the scene's BVHArrays (K5) or its BruteScene (K1)."""
+    if isinstance(accel, BVHArrays):
+        from ..accel.traverse import bvh_closest_hit  # imports this module: bind late
+
+        return bvh_closest_hit(accel, o, d, t_min, t_max)
+    return closest_hit(accel, o, d, t_min, t_max)
+
+
+def scene_any_hit(accel, o, d, t_min, t_max):
+    """Occlusion test (shadow rays): True where any primitive is hit in
+    (t_min, t_max); K6 on a BVH, K2 on a BruteScene."""
+    if isinstance(accel, BVHArrays):
+        from ..accel.traverse import bvh_any_hit
+
+        return bvh_any_hit(accel, o, d, t_min, t_max)
+    return any_hit(accel, o, d, t_min, t_max)
 
 
 def _sphere_uv_tangent(n):

@@ -3,18 +3,21 @@ of ``wurblpt_tpu/scene/flatten.py`` and ``scene/geometryproc.py``).
 
 Everything is computed with numpy exactly as the JAX package's flattener does
 it, so a scene built here equals the JAX build field by field, bits included.
-Covered: indexed meshes with per-vertex normals and texcoords (tangents are
-derived), constant Lambertian and diffuse-light materials, hot-spot triangles,
-and the power-proportional light pick with its alias table.
+Covered: indexed meshes with texcoords, with or without per-vertex normals
+(missing ones are computed, tangents always are), static instance transforms
+baked into world space; constant Lambertian, GGX, mirror and diffuse-light
+materials; hot-spot triangles and the power-proportional light pick with its
+alias table; the port's BVH and an equirect environment map.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core.transform import Transformation
 from .ir import MaterialTable, MaterialType, SceneArrays, Spheres, Triangles
 
 _f32 = np.float32
@@ -22,12 +25,13 @@ _i32 = np.int32
 
 
 class MeshSpec(NamedTuple):
-    positions: np.ndarray   # [V, 3]
-    normals: np.ndarray     # [V, 3]
-    texcoords: np.ndarray   # [V, 2]
-    indices: np.ndarray     # [F, 3]
+    positions: np.ndarray            # [V, 3] object space
+    normals: Optional[np.ndarray]    # [V, 3]; None: area-weighted smooth normals
+    texcoords: np.ndarray            # [V, 2]
+    indices: np.ndarray              # [F, 3]
     material: int
     hot_spot: bool = False
+    transformation: Optional[Transformation] = None   # static pose, baked at flatten
 
 
 def vec4(c) -> np.ndarray:
@@ -38,6 +42,20 @@ def vec4(c) -> np.ndarray:
     if c.size == 1:
         c = np.repeat(c, 3)
     return np.array([c[0], c[1], c[2], float(np.mean(c[:3]))], _f32)
+
+
+def compute_normals(positions, indices) -> np.ndarray:
+    """Area-weighted smooth vertex normals (geometryproc.hpp:58)."""
+    positions = np.asarray(positions, _f32)
+    indices = np.asarray(indices, np.int64)
+    v0, v1, v2 = (positions[indices[:, k]] for k in range(3))
+    fn = np.cross(v1 - v0, v2 - v0)  # length = 2 * area: area weighting for free
+    normals = np.zeros_like(positions)
+    for k in range(3):
+        np.add.at(normals, indices[:, k], fn)
+    ln = np.linalg.norm(normals, axis=-1, keepdims=True)
+    normals = np.where(ln > 1e-20, normals / np.maximum(ln, 1e-20), np.array([0.0, 0.0, 1.0], _f32))
+    return normals.astype(_f32)
 
 
 def compute_tangents(positions, normals, texcoords, indices) -> np.ndarray:
@@ -63,6 +81,26 @@ def compute_tangents(positions, normals, texcoords, indices) -> np.ndarray:
     alt /= np.maximum(np.linalg.norm(alt, axis=-1, keepdims=True), 1e-20)
     tangents = np.where(ln > 1e-8, tangents / np.maximum(ln, 1e-20), alt)
     return tangents.astype(_f32)
+
+
+def bake_transform(tf: Optional[Transformation], pos, nrm, tan):
+    """Object-space positions, normals and tangents to world space (scale,
+    rotate, translate; normals by the inverse scale), in float32 numpy."""
+    if tf is None:
+        return pos, nrm, tan
+    t, q, s = (np.asarray(x.detach().cpu().numpy(), _f32) for x in tf)
+
+    def rot(v):
+        u, w = q[:3], q[3]
+        tq = 2.0 * np.cross(u, v)
+        return v + w * tq + np.cross(u, tq)
+
+    pos = rot(pos * s) + t
+    nn = rot(nrm / s)
+    nrm = nn / np.maximum(np.linalg.norm(nn, axis=-1, keepdims=True), 1e-20)
+    tn = rot(tan * s)
+    tan = tn / np.maximum(np.linalg.norm(tn, axis=-1, keepdims=True), 1e-20)
+    return pos, nrm, tan
 
 
 def build_alias_table(weights: np.ndarray):
@@ -101,23 +139,29 @@ def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_emissive):
     return area * lum
 
 
-def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device) -> SceneArrays:
-    """Static triangle meshes (world space) + a material table -> SceneArrays on `device`.
+def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=False,
+                   envmap=None) -> SceneArrays:
+    """Static triangle meshes + a material table -> SceneArrays on `device`.
 
     `materials` holds numpy arrays; the light pick is power-proportional, as
-    ``flatten_scene(light_sampling="power")`` builds it."""
+    ``flatten_scene(light_sampling="power")`` builds it. `use_bvh` builds the
+    port's BVH (:func:`wurblpt_tpu_torch.accel.build.build_bvh`); `envmap` is an
+    :class:`~wurblpt_tpu_torch.render.envmap.EnvironmentMapEquiRect`."""
     cols = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
-                            "tan0", "tan1", "tan2", "mat", "flags")}
+                            "tan0", "tan1", "tan2", "mat", "flags", "v1", "v2")}
     light_prims = []
     n = 0
     for mesh in meshes:
         pos = np.asarray(mesh.positions, _f32)
-        nrm = np.asarray(mesh.normals, _f32)
-        uv = np.asarray(mesh.texcoords, _f32)
         f = np.asarray(mesh.indices, _i32)
+        nrm = compute_normals(pos, f) if mesh.normals is None else np.asarray(mesh.normals, _f32)
+        uv = np.asarray(mesh.texcoords, _f32)
         tan = compute_tangents(pos, nrm, uv, f)
+        pos, nrm, tan = bake_transform(mesh.transformation, pos, nrm, tan)
         v0, v1, v2 = pos[f[:, 0]], pos[f[:, 1]], pos[f[:, 2]]
         cols["p0"].append(v0)
+        cols["v1"].append(v1)
+        cols["v2"].append(v2)
         cols["e1"].append(v1 - v0)
         cols["e2"].append(v2 - v0)
         for k in range(3):
@@ -130,39 +174,65 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device) -> 
             light_prims.extend(range(n, n + len(f)))
         n += len(f)
     arr = {k: np.concatenate(v) for k, v in cols.items()}
-
-    light_ids = np.asarray(sorted(set(light_prims)), _i32)
-    powers = light_power_weights(light_ids, arr["e1"], arr["e2"], arr["mat"],
-                                 np.asarray(materials.emissive))
-    prob, alias, w = build_alias_table(powers)
+    arr = {k: (v if k in ("mat", "flags") else v.astype(_f32)) for k, v in arr.items()}
 
     def dev(x):
         return torch.as_tensor(x, device=device)
 
+    light_ids = np.asarray(sorted(set(light_prims)), _i32)
+    picks = {}
+    if light_ids.size:
+        powers = light_power_weights(light_ids, arr["e1"], arr["e2"], arr["mat"],
+                                     np.asarray(materials.emissive))
+        prob, alias, w = build_alias_table(powers)
+        picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias))
+
     z3 = np.zeros((0, 3), _f32)
+    tris = Triangles(**{k: dev(v) for k, v in arr.items()})
+    bvh = None
+    if use_bvh:
+        from ..accel.build import build_bvh
+
+        bvh = build_bvh(tris)
+    env = None
+    if envmap is not None:
+        from ..render.envmap import build_envmap_arrays
+
+        env = build_envmap_arrays(envmap, device)
     return SceneArrays(
-        tris=Triangles(**{k: dev(v) for k, v in arr.items()}),
+        tris=tris,
         spheres=Spheres(dev(z3), dev(np.zeros((0,), _f32)), dev(np.zeros((0,), _i32))),
         materials=MaterialTable(*(dev(np.asarray(x)) for x in materials)),
         light_prims=dev(light_ids),
-        light_weights=dev(w),
-        light_alias_prob=dev(prob),
-        light_alias_idx=dev(alias),
+        bvh=bvh,
+        envmap=env,
+        **picks,
     )
 
 
 def material_table(rows) -> MaterialTable:
-    """numpy MaterialTable from [(MaterialType, albedo, emissive), ...]."""
+    """numpy MaterialTable from [(MaterialType, colour, parameter), ...].
+
+    The colour is the albedo of LAMBERTIAN, the F0 of GGX, the tint of MIRROR
+    (None: white) and the radiance of LIGHT_DIFFUSE; the parameter is GGX's
+    roughness (a scalar or (x, y)), None otherwise."""
     m = len(rows)
     typ = np.array([r[0] for r in rows], _i32)
     albedo = np.zeros((m, 4), _f32)
     emissive = np.zeros((m, 4), _f32)
-    for i, (t, a, e) in enumerate(rows):
+    p0 = np.zeros((m, 4), _f32)
+    for i, (t, c, param) in enumerate(rows):
         if t == MaterialType.LAMBERTIAN:
-            albedo[i] = vec4(a)
+            albedo[i] = vec4(c)
+        elif t == MaterialType.GGX:
+            albedo[i] = vec4(c)
+            r = (param, param) if np.isscalar(param) else param
+            p0[i, 0:2] = np.maximum(np.asarray(r, _f32), 1e-4)
+        elif t == MaterialType.MIRROR:
+            albedo[i] = vec4((1, 1, 1) if c is None else c)
         elif t == MaterialType.LIGHT_DIFFUSE:
-            emissive[i] = vec4(e)
+            emissive[i] = vec4(c)
         else:
             raise NotImplementedError(f"material type {t} is outside the ported slice")
     return MaterialTable(typ=typ, flags=np.zeros((m,), _i32), albedo=albedo,
-                         emissive=emissive, p0=np.zeros((m, 4), _f32))
+                         emissive=emissive, p0=p0)

@@ -4,8 +4,9 @@ Port of ``wurblpt_tpu/scene/ir.py``, holding the fields the ported slice
 reads. Integer columns stay int32 tensors (the JAX package float-encodes some
 of them to dodge TPU gather costs; nothing here needs that). Features outside
 the slice are recorded only by their size (`n_textures`, `n_anims`,
-`env_kind`, `n_media`, `has_bvh`), so that
-:class:`wurblpt_tpu_torch.render.bsdf.SceneStatic` can refuse such a scene.
+`n_media`), so that :class:`wurblpt_tpu_torch.render.bsdf.SceneStatic` can
+refuse such a scene. The BVH is the port's own layout
+(:mod:`wurblpt_tpu_torch.accel.build`), not the JAX package's W-wide rows.
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ class Triangles(NamedTuple):
     tan2: torch.Tensor
     mat: torch.Tensor       # [T] int32 material index
     flags: torch.Tensor     # [T] int32: bit0 has_texcoords, bit1 has_tangents
+    # Absolute vertices for the watertight test: shared vertices must be
+    # bit-identical across neighbours, which p0 + e1 (rounded) is not.
+    v1: torch.Tensor        # [T, 3]
+    v2: torch.Tensor        # [T, 3]
 
     @property
     def count(self):
@@ -83,6 +88,48 @@ class MaterialTable(NamedTuple):
         return self.typ.shape[0]
 
 
+class BVHArrays(NamedTuple):
+    """Binary BVH in the layout of the K5/K6 kernels (accel/build.py).
+
+    Node row, 16 floats = 4 x float4: child 0 box (min xyz, max xyz), child 1
+    box, then the two child links as int32 bit patterns and two pad words.
+    A link >= 0 is an inner node; -1 is an empty child; any other negative
+    link is a leaf, ``-1 - link = start * 16 + count``: triangles
+    [start, start + count) of `tri_v` / `tri_id`. Node 0 is the root."""
+
+    nodes: torch.Tensor     # [M, 16] f32 (links bit-cast)
+    tri_v: torch.Tensor     # [T, 9] f32 absolute vertices v0 v1 v2, in leaf order
+    tri_id: torch.Tensor    # [T] int32 global prim id of each leaf slot
+    depth: int              # inner nodes on the longest root-to-leaf path
+
+    @property
+    def links(self):
+        """[M, 2] int32 child links."""
+        return self.nodes.view(torch.int32)[:, 12:14]
+
+
+class EnvMapArrays(NamedTuple):
+    """Environment map raster + importance tables (ir.EnvMapArrays).
+
+    `kind`: 1 equirect, 2 cube, 3 constant (a scene without a map has
+    none); only 1 renders in the port. The importance tables live on the
+    R x R equal-area grid."""
+
+    kind: int
+    image: torch.Tensor       # equirect [H, W, 4] f32 (cube: [6, H, W, 4])
+    pdf_table: torch.Tensor   # [R, R] f32 solid-angle pdf per cell (R = 0: none)
+    alias_prob: torch.Tensor  # [R * R] f32
+    alias_idx: torch.Tensor   # [R * R] int32
+    rotation: torch.Tensor    # [4] f32 quaternion world-from-map
+
+    @property
+    def importance(self) -> bool:
+        return self.alias_prob.shape[0] > 0
+
+    def to(self, device) -> "EnvMapArrays":
+        return EnvMapArrays(self.kind, *(x.to(device).contiguous() for x in self[1:]))
+
+
 class SceneArrays(NamedTuple):
     """Everything the render kernels read, on one device."""
 
@@ -95,9 +142,17 @@ class SceneArrays(NamedTuple):
     light_alias_idx: Optional[torch.Tensor] = None   # [L] int32
     n_textures: int = 0
     n_anims: int = 1        # animation table rows; row 0 is the static identity
-    env_kind: int = 0
     n_media: int = 0
-    has_bvh: bool = False
+    bvh: Optional[BVHArrays] = None
+    envmap: Optional[EnvMapArrays] = None
+
+    @property
+    def has_bvh(self) -> bool:
+        return self.bvh is not None
+
+    @property
+    def env_kind(self) -> int:
+        return 0 if self.envmap is None else self.envmap.kind
 
     @property
     def n_tris(self):
@@ -129,10 +184,12 @@ def scene_from_numpy(a, device) -> SceneArrays:
 
     `a` is ``wurblpt_tpu.scene.ir.SceneArrays`` after
     ``jax.tree_util.tree_map(np.asarray, ...)``; it is read by attribute only.
+    Where the JAX scene has a BVH, the port builds its own from the triangles.
     """
     t, s, m = a.tris, a.spheres, a.materials
     tris = Triangles(*(_f32(getattr(t, f), device) for f in Triangles._fields[:12]),
-                     mat=_i32(t.mat, device), flags=_i32(t.flags, device))
+                     mat=_i32(t.mat, device), flags=_i32(t.flags, device),
+                     v1=_f32(t.v1, device), v2=_f32(t.v2, device))
     spheres = Spheres(_f32(np.reshape(s.center, (-1, 3)), device),
                       _f32(np.reshape(s.radius, (-1,)), device), _i32(s.mat, device))
     materials = MaterialTable(_i32(m.typ, device), _i32(m.flags, device),
@@ -140,6 +197,17 @@ def scene_from_numpy(a, device) -> SceneArrays:
                               _f32(m.p0, device))
     opt = lambda x, conv: None if x is None else conv(x, device)  # noqa: E731
     n_textures = int(np.shape(a.textures.typ)[0])
+    e = a.envmap
+    envmap = None
+    if int(np.asarray(e.kind)) != 0:
+        envmap = EnvMapArrays(int(np.asarray(e.kind)), _f32(e.image, device),
+                              _f32(e.pdf_table, device), _f32(e.alias_prob, device),
+                              _i32(e.alias_idx, device), _f32(e.rotation, device))
+    bvh = None
+    if a.bvh is not None:
+        from ..accel.build import build_bvh
+
+        bvh = build_bvh(tris)
     return SceneArrays(
         tris=tris, spheres=spheres, materials=materials,
         light_prims=_i32(a.light_prims, device),
@@ -148,7 +216,7 @@ def scene_from_numpy(a, device) -> SceneArrays:
         light_alias_idx=opt(a.light_alias_idx, _i32),
         n_textures=n_textures,
         n_anims=int(np.shape(a.anims.times)[0]),
-        env_kind=int(np.asarray(a.envmap.kind)),
         n_media=int(np.shape(a.media.density)[0]),
-        has_bvh=a.bvh is not None,
+        bvh=bvh,
+        envmap=envmap,
     )

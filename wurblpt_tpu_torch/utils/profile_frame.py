@@ -1,15 +1,16 @@
-"""Where the time of one Cornell bench frame goes on the GPU.
+"""Where the time of the Cornell bench frame and of the mesh frame goes on the GPU.
 
     python -m wurblpt_tpu_torch.utils.profile_frame
 
-Renders the bench frame once to warm up, 5 times unprofiled, once under
+For each frame in turn (Cornell first, then the mesh frame of bench config
+bvh_100k): renders it once to warm up, 5 times unprofiled, once under
 torch.profiler (CPU + CUDA activities), and 3 times more unprofiled (frames
 after a profiled one run slower), and prints: the wavefront steps,
 the number of kernel launches, the summed device time of all kernels, the
 profiled frame's wall time and the median unprofiled one, the device's busy
 share of each (kernels run on one stream, so they do not overlap; the
 profiler adds host time, hardly any device time), the device time of the
-three hand-written kernels in all and per launch, the device time per kernel
+hand-written kernels in all and per launch, the device time per kernel
 name, and the host ops by launch count.
 """
 
@@ -22,9 +23,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import native
-from .kernel_check import bench_frame
+from .kernel_check import bench_frame, mesh_frame
 
-_OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel")
+_OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
+         "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel")
 _TOP = 25
 
 
@@ -38,10 +40,9 @@ def _wall_ms(frame):
     return (time.perf_counter() - t0) * 1e3
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_frame: needs a CUDA device")
-    frame = bench_frame("cuda")
+def profile_one(name, frame, step_counter):
+    """Profile one frame function (see the module docstring)."""
+    print(f"== {name}")
     frame()
     # Unprofiled frames first: frames after a profiled one run slower.
     plain = [_wall_ms(frame) for _ in range(5)]
@@ -49,7 +50,7 @@ def main():
     native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms = _wall_ms(frame)
-    steps = native.LAUNCHES["closest_hit"]
+    steps = native.LAUNCHES[step_counter]
     after = [_wall_ms(frame) for _ in range(3)]
 
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -75,6 +76,13 @@ def main():
     print(f"host ops by calls (top {_TOP}):")
     for e in sorted(ops, key=lambda e: e.count, reverse=True)[:_TOP]:
         print(f"  {e.count:7d} calls  {e.self_cpu_time_total / 1e3:9.3f} ms self  {e.key}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frame: needs a CUDA device")
+    profile_one("cornell bench frame", bench_frame("cuda"), "closest_hit")
+    profile_one("mesh frame (bvh_100k)", mesh_frame("cuda"), "bvh_closest_hit")
 
 
 if __name__ == "__main__":
