@@ -7,25 +7,36 @@ Phases, each a function, any failure exits non-zero and names its phase:
 
 1. build  - compile the hand-written kernels of csrc/ with nvcc (sm_90a), one
    nvcc per source, all at once; compile the host BVH builder with g++.
-2. kernels - each kernel against its plain PyTorch version on the card, at
+2. scenes - terrain_city(seed=3) (102098 triangles) and city_night(seed=7)
+   (249218 triangles after its OBJ/MTL round trip, 192 light triangles, an
+   RGL sphere), each built on the card's host with its BVH.
+3. kernels - each kernel against its plain PyTorch version on the card, at
    its path's shapes, with the tolerances of utils/kernel_check.py; each
-   kernel's wrapper-call time beside the plain version's (CUDA events around
-   20 calls after warm-up). K1-K3 on the Cornell frame's block (128 x 128
-   pixels x 8 sample lanes = 131072 lanes); K5 on the mesh frame's 76800
-   camera rays and random rays, K6 on env-NEE shadow rays from their first
-   hits and random rays, K8 on the camera directions and on uniforms.
-3. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
+   kernel's wrapper-call time beside the plain version's and, where one
+   PyTorch call computes the same function, that call's (CUDA events around
+   20 calls after warm-up), and its bound: the least time an H100 could take
+   for the same work (kernel_check.bound_ms). K1-K3 on the Cornell frame's
+   block (128 x 128 pixels x 8 sample lanes = 131072 lanes); K5 on the mesh
+   frame's 76800 camera rays and random rays, K6 on env-NEE shadow rays from
+   their first hits and random rays, K8 on the camera directions and on
+   uniforms; K7 on 1048576 lanes of the city frame's block (camera hits and
+   their bounce directions, random tangent-space lanes); P0 on the Pallas
+   probe's shapes and on the city's material rows at 1048576 lanes.
+4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
    components, SensorRGB) through render_frame_wavefront on the GPU. K1, K2
    and K3 must be launched, the image must be finite, its mean within 1e-3
    relative of the JAX package's deterministic CPU output, and the cast
    counters within 0.5 % of it.
-4. mesh path - terrain_city(seed=3) (102098 triangles, BVH, importance-
-   sampled sky) built on the GPU, then the bvh_100k bench frame (160 x 120,
-   4 spp, 4 path components): K3, K5, K6 and K8 must be launched, and the
-   frame held to its JAX reference as in phase 3.
+5. mesh path - the bvh_100k bench frame (160 x 120, 4 spp, 4 path
+   components): K3, K5, K6 and K8 must be launched, and the frame held to
+   its JAX reference as in phase 4.
+6. city path - the city_many_lights bench frame (1920 x 1080, 360-degree
+   stereo, 1 spp, 4 path components, per-light MIS): K3, K5, K6, K7 (eval and
+   sample), K8 and P0 must be launched, and the frame held to its JAX
+   reference as in phase 4.
 
 Each path's counters are set to 0 just before it and read just after; a
-kernel's `launches` in the JSON line is the sum over both paths.
+kernel's `launches` in the JSON line is the sum over the three paths.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -57,10 +68,18 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, launch counters)
                     "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",)),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
                ("env_radiance", "env_sample", "env_pdf")),
+    "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
+                 ("rgl_eval",)),
+    "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
+                   ("rgl_sample",)),
+    "row_gather": ("wurblpt_tpu_torch/csrc/row_gather.cu", "tools/probe_pallas_gather.py:20",
+                   ("row_gather",)),
 }
 MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit")
 MESH_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
              "env_pdf")
+CITY_PATH = MESH_PATH + ("rgl_eval", "rgl_sample", "row_gather")
+PATHS = ("main path", "mesh path", "city path")
 
 
 def phase_build():
@@ -80,16 +99,22 @@ def phase_build():
 
 
 def _timed_records(timed, errs, lanes):
+    """name -> (kernel call, plain call, (bytes, flops) of the work, library call or None)."""
     records = []
-    for name, (kernel, plain) in timed.items():
+    for name, (kernel, plain, work, library) in timed.items():
         ms = kc.time_ms(kernel, DEVICE)
         plain_ms = kc.time_ms(plain, DEVICE)
-        print(f"kernels: {name} {ms:.4f} ms (wrapper call) vs plain {plain_ms:.4f} ms "
+        library_ms = None if library is None else kc.time_ms(library, DEVICE)
+        bound, bound_by = kc.bound_ms(*work)
+        print(f"kernels: {name} {ms:.4f} ms (wrapper call) vs plain {plain_ms:.4f} ms"
+              f"{'' if library is None else f', library {library_ms:.4f} ms'}; bound "
+              f"{bound:.6f} ms by {bound_by} ({work[0]:.4g} bytes, {work[1]:.4g} flops) "
               f"at {lanes} lanes")
         src, replaces, _ = KERNELS[name]
         records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": 0, "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": library_ms})
     return records
 
 
@@ -106,9 +131,10 @@ def _run_checks(checks):
     return errs
 
 
-def phase_kernels(mesh_scene):
+def phase_kernels(mesh_scene, city_scene):
     from wurblpt_tpu_torch.accel import traverse
-    from wurblpt_tpu_torch.render import envmap, intersect, intersect_brute
+    from wurblpt_tpu_torch.materials import rgl
+    from wurblpt_tpu_torch.render import bsdf, envmap, gather, intersect, intersect_brute
     from wurblpt_tpu_torch.utils import scenes
 
     # K1-K3 on the Cornell frame's block.
@@ -127,11 +153,14 @@ def phase_kernels(mesh_scene):
     o, d = cam[0], cam[1]
     records = _timed_records({
         "closest_hit": (lambda: intersect_brute.closest_hit(bs, *cam),
-                        lambda: intersect_brute.closest_hit_plain(bs, *cam)),
+                        lambda: intersect_brute.closest_hit_plain(bs, *cam),
+                        kc.closest_hit_work(bs, cam), None),
         "any_hit": (lambda: intersect_brute.any_hit(bs, *shadow),
-                    lambda: intersect_brute.any_hit_plain(bs, *shadow)),
+                    lambda: intersect_brute.any_hit_plain(bs, *shadow),
+                    kc.any_hit_work(bs, shadow), None),
         "assemble_hit": (lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v),
-                         lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v)),
+                         lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v),
+                         kc.assemble_hit_work(ht, o.shape[0]), None),
     }, errs, cam[0].shape[0])
 
     # K5, K6, K8 on the mesh frame's block.
@@ -155,13 +184,42 @@ def phase_kernels(mesh_scene):
 
     records += _timed_records({
         "bvh_closest_hit": (lambda: traverse.bvh_closest_hit(bvh, *mcam),
-                            lambda: traverse.bvh_closest_hit_plain(bvh, *mcam)),
+                            lambda: traverse.bvh_closest_hit_plain(bvh, *mcam),
+                            kc.bvh_work(bvh, mcam, any_hit=False), None),
         "bvh_any_hit": (lambda: traverse.bvh_any_hit(bvh, *eshadow),
-                        lambda: traverse.bvh_any_hit_plain(bvh, *eshadow)),
+                        lambda: traverse.bvh_any_hit_plain(bvh, *eshadow),
+                        kc.bvh_work(bvh, eshadow, any_hit=True), None),
         "envmap": (env_all(envmap.env_radiance, envmap.env_sample, envmap.env_pdf),
                    env_all(envmap.env_radiance_plain, envmap.env_sample_plain,
-                           envmap.env_pdf_plain)),
+                           envmap.env_pdf_plain), kc.envmap_work(env, n), None),
     }, errs, n)
+
+    # K7 on the city frame's block; P0 on the probe's shapes and the city's material rows.
+    tables = city_scene.rgl
+    mid, wi, wo, u2 = kc.city_rgl_lanes(city_scene, DEVICE)
+    packed = bsdf.pack_material_table(city_scene.materials)
+    mat_idx = torch.as_tensor(np.random.default_rng(9).integers(0, packed.shape[0], kc.CITY_LANES),
+                              dtype=torch.int32, device=DEVICE)
+    probe_rows, probe_vec = kc.probe_gather_inputs(DEVICE)
+    errs = _run_checks((
+        ("rgl", lambda: kc.check_rgl(tables, (mid, wi, wo, u2)),
+         {"city camera hits and random lanes": ()}),
+        ("row_gather", kc.check_row_gather,
+         {"probe rows [512, 128] x 256": probe_rows, "probe vector [512] x [8, 128]": probe_vec,
+          "city material rows": (packed, mat_idx)})))
+    errs["rgl_eval"] = errs["rgl_sample"] = errs.pop("rgl")
+    records += _timed_records({
+        "rgl_eval": (lambda: rgl.rgl_eval(tables, mid, wi, wo),
+                     lambda: rgl.rgl_eval_plain(tables, mid, wi, wo),
+                     kc.rgl_work(tables, mid.shape[0], sample=False), None),
+        "rgl_sample": (lambda: rgl.rgl_sample(tables, mid, wi, u2),
+                       lambda: rgl.rgl_sample_plain(tables, mid, wi, u2),
+                       kc.rgl_work(tables, mid.shape[0], sample=True), None),
+        "row_gather": (lambda: gather.row_gather(packed, mat_idx),
+                       lambda: gather.row_gather_plain(packed, mat_idx),
+                       kc.row_gather_work(packed, mat_idx),
+                       lambda: torch.index_select(packed, 0, mat_idx)),
+    }, errs, mid.shape[0])
     return records
 
 
@@ -202,6 +260,16 @@ def phase_main_path():
     return launches
 
 
+def phase_city_path(city_scene):
+    img, stats, launches, times = _drive("city path", kc.city_frame(DEVICE, city_scene),
+                                         CITY_PATH)
+    print(f"city path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.CITY_REF_MEAN}), stats {stats} (reference {list(kc.CITY_REF_STATS)})")
+    kc.check_city_frame(img, stats)
+    _report("city path", stats, times, kc.CITY_WIDTH * kc.CITY_HEIGHT * kc.CITY_SSQRT ** 2)
+    return launches
+
+
 def phase_mesh_path(mesh_scene):
     img, stats, launches, times = _drive("mesh path", kc.mesh_frame(DEVICE, mesh_scene),
                                          MESH_PATH)
@@ -212,16 +280,20 @@ def phase_mesh_path(mesh_scene):
     return launches
 
 
-def build_mesh_scene():
+def phase_scenes():
     from wurblpt_tpu_torch.utils import scenes
 
-    t0 = time.perf_counter()
-    scene = scenes.terrain_city(seed=3, device=DEVICE)
-    torch.cuda.synchronize()
-    print(f"mesh path: terrain_city built on the GPU in {time.perf_counter() - t0:.2f} s: "
-          f"{scene.n_tris} triangles, {scene.bvh.nodes.shape[0]} BVH nodes, depth "
-          f"{scene.bvh.depth}")
-    return scene
+    out = {}
+    for label, build in (("mesh", lambda: scenes.terrain_city(seed=3, device=DEVICE)),
+                         ("city", lambda: scenes.city_night(seed=7, device=DEVICE))):
+        t0 = time.perf_counter()
+        scene = build()
+        torch.cuda.synchronize()
+        print(f"scenes: {label} scene built for the GPU in {time.perf_counter() - t0:.2f} s: "
+              f"{scene.n_tris} triangles, {scene.n_lights} light triangles, "
+              f"{scene.bvh.nodes.shape[0]} BVH nodes, depth {scene.bvh.depth}")
+        out[label] = scene
+    return out
 
 
 def _nvidia_smi():
@@ -255,10 +327,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     out = {}
-    for name, phase in (("build", phase_build), ("mesh scene", build_mesh_scene),
-                        ("kernels", lambda: phase_kernels(out["mesh scene"])),
+    for name, phase in (("build", phase_build), ("scenes", phase_scenes),
+                        ("kernels", lambda: phase_kernels(out["scenes"]["mesh"],
+                                                          out["scenes"]["city"])),
                         ("main path", phase_main_path),
-                        ("mesh path", lambda: phase_mesh_path(out["mesh scene"]))):
+                        ("mesh path", lambda: phase_mesh_path(out["scenes"]["mesh"])),
+                        ("city path", lambda: phase_city_path(out["scenes"]["city"]))):
         try:
             out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run
@@ -267,8 +341,7 @@ def main() -> int:
             return 1
     records = out["kernels"]
     for r in records:
-        r["launches"] = sum(out[path][c] for path in ("main path", "mesh path")
-                            for c in KERNELS[r["name"]][2])
+        r["launches"] = sum(out[path][c] for path in PATHS for c in KERNELS[r["name"]][2])
     print(_nvidia_smi())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly,
-K5 BVH closest hit, K6 BVH any hit, K8 envmap) against their plain PyTorch
-versions, with the tolerances of utils/kernel_check.py.
+K5 BVH closest hit, K6 BVH any hit, K7 RGL eval/sample, K8 envmap, P0 row
+gather) against their plain PyTorch versions, with the tolerances of
+utils/kernel_check.py.
 
 Tests marked `cuda` need an NVIDIA GPU with nvcc and skip without one. This
 file imports no jax, so on such a machine it runs without the repository's
@@ -15,7 +16,16 @@ import pytest
 import torch
 
 from wurblpt_tpu_torch import native
-from wurblpt_tpu_torch.render import intersect, intersect_brute
+from wurblpt_tpu_torch.materials.rgl import (
+    load_rgl_material,
+    rgl_eval,
+    rgl_eval_plain,
+    rgl_sample,
+    rgl_sample_plain,
+    stack_rgl_tables,
+)
+from wurblpt_tpu_torch.render import bsdf, intersect, intersect_brute
+from wurblpt_tpu_torch.render.gather import row_gather
 from wurblpt_tpu_torch.scene.ir import Spheres
 from wurblpt_tpu_torch.utils import kernel_check as kc
 from wurblpt_tpu_torch.utils import scenes
@@ -239,3 +249,143 @@ def test_mesh_render_on_gpu_matches_the_jax_reference_numbers(gpu):
                  "env_pdf"):
         assert native.LAUNCHES[name] > 0, name
     assert native.LAUNCHES["closest_hit"] == native.LAUNCHES["any_hit"] == 0
+
+
+def _rgl_tables(device, two: bool):
+    """The city's RGL table, or two random materials of different sizes (P = 2, T = 3 padded)."""
+    if not two:
+        return stack_rgl_tables([load_rgl_material(scenes.city_rgl_fields(7))], device)
+    rs = np.random.default_rng(5)
+
+    def pos(*shape):
+        return rs.uniform(0.2, 1.0, size=shape).astype(np.float32)
+
+    mats = [dict(phi_i=np.linspace(-np.pi, np.pi, p).astype(np.float32),
+                 theta_i=np.linspace(0, np.pi / 2, t).astype(np.float32), ndf=pos(hn, hn),
+                 sigma=pos(hn, hn) * 0.4, vndf=pos(p, t, hv, hv), luminance=pos(p, t, hl, hl),
+                 rgb=pos(p, t, 3, hl, hl))
+            for p, t, hv, hl, hn in ((2, 3, 16, 8, 16), (1, 2, 12, 6, 10))]
+    return stack_rgl_tables([load_rgl_material(m) for m in mats], device)
+
+
+def _rgl_random_lanes(n, n_mat, device, seed=6):
+    rs = np.random.default_rng(seed)
+
+    def sphere():
+        x = rs.normal(size=(n, 3))
+        return torch.as_tensor(x / np.linalg.norm(x, axis=-1, keepdims=True), dtype=torch.float32,
+                               device=device)
+
+    return (torch.as_tensor(rs.integers(0, n_mat, n), dtype=torch.int32, device=device), sphere(),
+            sphere(), torch.as_tensor(rs.uniform(size=(n, 2)), dtype=torch.float32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+def test_rgl_kernels_match_plain(gpu, two):
+    tables = _rgl_tables(gpu, two)
+    before = [native.LAUNCHES[k] for k in ("rgl_eval", "rgl_sample")]
+    res = kc.check_rgl(tables, _rgl_random_lanes(1 << 18, tables.count, gpu))
+    torch.cuda.synchronize()
+    assert [native.LAUNCHES[k] for k in ("rgl_eval", "rgl_sample")] == [b + 1 for b in before]
+    assert res["eval_nonzero"] > 0.2 * res["lanes"] and res["sample_ok"] > 0.2 * res["lanes"]
+
+
+@functools.lru_cache(maxsize=None)
+def _city(device):
+    """The city path's scene, city_night(seed=7) at full size, on `device`."""
+    return scenes.city_night(seed=7, device=device)
+
+
+@pytest.mark.cuda
+def test_rgl_kernels_match_plain_on_city_lanes(gpu):
+    city = _city(gpu)
+    res = kc.check_rgl(city.rgl, kc.city_rgl_lanes(city, gpu))
+    assert res["lanes"] == kc.CITY_LANES and res["sample_ok"] > 0.2 * res["lanes"]
+
+
+@pytest.mark.cuda
+def test_row_gather_kernel_matches_plain(gpu):
+    cases = list(kc.probe_gather_inputs(gpu))
+    packed = bsdf.pack_material_table(_city(gpu).materials)     # floats and int bit patterns
+    rs = np.random.default_rng(8)
+    idx = torch.as_tensor(rs.integers(-3, packed.shape[0] + 3, 100000), dtype=torch.int32,
+                          device=gpu)     # out-of-range ids clamp, as XLA's gather does
+    cases += [(packed, idx), (packed.view(torch.int32), idx)]
+    for table, i in cases:
+        before = native.LAUNCHES["row_gather"]
+        kc.check_row_gather(table, i)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["row_gather"] == before + 1
+
+
+def test_rgl_and_row_gather_wrappers_take_the_plain_version_on_cpu():
+    tables = _rgl_tables("cpu", True)
+    lanes = _rgl_random_lanes(512, tables.count, "cpu")
+    counts = dict(native.LAUNCHES)
+    for a, b in zip(rgl_eval(tables, *lanes[:3]), rgl_eval_plain(tables, *lanes[:3])):
+        assert torch.equal(a, b)
+    lanes_s = (lanes[0], lanes[1], lanes[3])
+    for a, b in zip(rgl_sample(tables, *lanes_s), rgl_sample_plain(tables, *lanes_s)):
+        assert torch.equal(a, b)
+    (table, idx), _ = kc.probe_gather_inputs("cpu")
+    assert torch.equal(row_gather(table, idx), table[idx.long()])
+    assert native.LAUNCHES == counts          # no kernel ran
+    with pytest.raises(ValueError):
+        row_gather(table.double(), idx)
+    with pytest.raises(ValueError):
+        row_gather(table, idx.long())
+
+
+@pytest.mark.parametrize("kernel", ["assemble_hit", "bvh_closest_hit", "bvh_any_hit"])
+def test_bounds_read_each_table_once(kernel):
+    """The byte term of a bound counts the lanes' inputs and outputs and each
+    table once, however many lanes read it; the walk's visits count as work."""
+    if kernel == "assemble_hit":
+        ht = intersect.build_hit_tables(_scene("cpu", True))
+        table = sum(x.numel() * x.element_size() for x in ht[:4])
+        work = functools.partial(kc.assemble_hit_work, ht)
+        per_lane = 40 + 61
+    else:
+        bvh = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4).bvh
+        table = sum(x.numel() * x.element_size() for x in (bvh.nodes, bvh.tri_v, bvh.tri_id))
+        any_hit = kernel == "bvh_any_hit"
+        rays = kc.terrain_random_lanes(512, "cpu")
+
+        def work(n):
+            return kc.bvh_work(bvh, tuple(x[:n] for x in rays), any_hit=any_hit)
+
+        per_lane = 32 + (1 if any_hit else 16)
+    for n in (256, 512):
+        n_bytes, flops = work(n)
+        assert n_bytes == n * per_lane + table and flops > 0
+    assert work(512)[1] > work(256)[1]
+
+
+@pytest.mark.parametrize("off", [None, "mean", "stats", "nan", "shape"])
+def test_city_frame_check_holds_the_reference(off):
+    img = torch.full((kc.CITY_HEIGHT, kc.CITY_WIDTH, 3), kc.CITY_REF_MEAN, dtype=torch.float64)
+    stats = torch.tensor(kc.CITY_REF_STATS)
+    if off == "mean":
+        img = img * 1.002
+    elif off == "stats":
+        stats = stats * 1.01
+    elif off == "nan":
+        img[0, 0, 0] = float("nan")
+    elif off == "shape":
+        img = img[: kc.CITY_HEIGHT // 2]
+    if off is None:
+        assert kc.check_city_frame(img, stats) == pytest.approx(kc.CITY_REF_MEAN)
+    else:
+        with pytest.raises(AssertionError):
+            kc.check_city_frame(img, stats)
+
+
+@pytest.mark.cuda
+def test_city_render_on_gpu_matches_the_jax_reference_numbers(gpu):
+    native.reset_launch_counts()
+    img, stats = kc.city_frame(gpu, _city(gpu))()
+    kc.check_city_frame(img, stats)
+    for name in ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
+                 "env_pdf", "rgl_eval", "rgl_sample", "row_gather"):
+        assert native.LAUNCHES[name] > 0, name

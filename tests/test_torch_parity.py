@@ -1,6 +1,7 @@
 """Image parity of the port's wavefront render against the reference renderer.
 
-The bar of tests/test_parity.py, held by ``wurblpt_tpu_torch``: the goldens in
+The bars of tests/test_parity.py and tests/test_parity_city.py, held by
+``wurblpt_tpu_torch``: the goldens in
 parity/golden/ were rendered by the C++ reference (parity/src/parity_cornell.cpp)
 from the scene that utils/cornell_data.py replicates. The reference writes row
 0 at the bottom; the port, like the JAX package, puts row 0 at the top, so
@@ -22,6 +23,7 @@ from wurblpt_tpu_torch import (
     make_camera,
     render_frame_wavefront,
 )
+from wurblpt_tpu_torch.render.camera import SurroundMode
 from wurblpt_tpu_torch.utils import scenes
 
 torch.set_num_threads(2)
@@ -76,4 +78,42 @@ def test_port_cornell_parity_quantiles():
     for q in (0.1, 0.25, 0.5, 0.75, 0.9):
         a = float(np.quantile(ours.sum(-1), q))
         b = float(np.quantile(ref_lo.sum(-1), q))
+        assert abs(a - b) <= 0.10 * max(b, 0.02) + 0.004, (q, a, b)
+
+
+# The bars of tests/test_parity_city.py, held by the port: the golden was
+# rendered by the reference (parity/src/parity_city.cpp) from the same
+# round-tripped OBJ/MTL city, RGL table and night sky.
+
+@functools.lru_cache(maxsize=None)
+def _city_renders():
+    ref = _load_golden("ref_city_64x36_16spp.tgdshim")
+    scene = scenes.city_night(seed=7)
+    pose, vfov = scenes.city_camera()
+    cam = make_camera(pose, vfov, 64, 36, eye_distance=0.065)
+    ours = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam,
+                                  CameraConfig(surround=SurroundMode.S360, stereo=True),
+                                  SensorRGB(), 64, 36, 4,
+                                  params=RenderParams(max_path_components=4), device="cpu")
+    return ref, ours.numpy()
+
+
+def test_port_city_sky_rows_match_reference():
+    """Rows looking straight at the sky are noise-free and pin the equirect orientation."""
+    ref, ours = _city_renders()
+    np.testing.assert_allclose(ours[:4], ref[:4], rtol=2e-2, atol=2e-3)
+
+
+def test_port_city_clipped_mean_matches_reference():
+    ref, ours = _city_renders()
+    r = np.minimum(ref, 0.2).mean()
+    o = np.minimum(ours, 0.2).mean()
+    assert abs(o - r) / r < 0.12, (o, r)
+
+
+def test_port_city_quantiles_match_reference():
+    ref, ours = _city_renders()
+    for q in (0.25, 0.5, 0.75):
+        a = float(np.quantile(ours.sum(-1), q))
+        b = float(np.quantile(ref.sum(-1), q))
         assert abs(a - b) <= 0.10 * max(b, 0.02) + 0.004, (q, a, b)

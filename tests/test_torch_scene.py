@@ -2,6 +2,7 @@
 flattener, the import boundary, and refusal of scenes outside the ported
 slice."""
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -92,6 +93,44 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_port_stands_alone_without_the_jax_package(tmp_path):
+    """The port copied alone, with no wurblpt_tpu beside it and jax blocked,
+    builds its host libraries (g++) and the Cornell, terrain and city scenes."""
+    shutil.copytree(REPO / "wurblpt_tpu_torch", tmp_path / "wurblpt_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'wurblpt_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import wurblpt_tpu_torch\n"
+            "assert wurblpt_tpu_torch.__file__.startswith(sys.argv[1]), wurblpt_tpu_torch.__file__\n"
+            "from wurblpt_tpu_torch.utils import scenes as s\n"
+            "assert s.cornell_box_ref('cpu').n_tris == 36\n"
+            "assert s.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4).has_bvh\n"
+            "c = s.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4)\n"
+            "assert c.has_bvh and c.n_lights == 8 and c.rgl is not None\n")
+    env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert not (tmp_path / "wurblpt_tpu").exists()
+
+
+@pytest.mark.parametrize("name", ["bvh_builder.cpp", "obj_parser.cpp"])
+def test_host_sources_are_copies_of_the_jax_packages(name):
+    """The port's host C++ equals the JAX package's line for line; only a
+    comment line may differ (the builder's header cites the reference
+    renderer by a path relative to that project)."""
+    ours = (REPO / "wurblpt_tpu_torch" / "csrc" / "host" / name).read_text().splitlines()
+    ref = (REPO / "wurblpt_tpu" / "native" / "src" / name).read_text().splitlines()
+    assert len(ours) == len(ref)
+    diff = [(a, b) for a, b in zip(ours, ref) if a != b]
+    assert all(a.startswith("//") and b.startswith("//") for a, b in diff), diff
+    assert len(diff) == (1 if name == "bvh_builder.cpp" else 0)
+
+
 def test_static_of_the_slice():
     st = SceneStatic.from_scene(scenes.cornell_box_ref("cpu"))
     assert st.mat_types == frozenset({1, 7}) and st.n_lights == 2
@@ -115,7 +154,9 @@ def _quad_scene(material, animated=False, **build):
 
 @pytest.mark.parametrize("build, feature", [
     (lambda: jscenes.cornell_box(short_object="glass_sphere").build(), "material types [3]"),
-    (lambda: _quad_scene(B.ModPhong(diffuse=(0.5, 0.5, 0.5))), "material types [5]"),
+    (lambda: _quad_scene(B.LightSpot(radiance=(1.0, 1.0, 1.0))), "material types [8]"),
+    (lambda: _quad_scene(B.ModPhong(diffuse=(0.5, 0.5, 0.5), specular=B.CheckerTexture())),
+     "textures"),
     (lambda: jscenes.envmap_spheres(cube=True, importance_resolution=8).build(),
      "environment map kind 2"),
     (lambda: jscenes.furnace().build(), "environment map kind 3"),

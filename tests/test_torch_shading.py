@@ -12,7 +12,11 @@ GGX and Mirror run on the hits of the mesh path's camera on the small
 terrain_city, with materials drawn per lane from its table (Lambertian,
 GGX, mirror). GGX values and pdfs to rtol 1e-4: the microfacet density
 1/(pi a^2 (...)^2) of a roughness-0.1 lobe magnifies an ulp of the half
-vector."""
+vector. ModPhong (the city's buildings, windows and mirrors) runs on hits of
+random rays on spheres, from outside and inside, opaque and 40 % opaque
+(the pass-through refraction with its total internal reflection), to rtol
+1e-4: XLA's and PyTorch's pow differ in the last bit, and cos^40 magnifies
+it."""
 
 import functools
 
@@ -32,6 +36,9 @@ from wurblpt_tpu.render.camera import camera_rays as jcamera_rays
 from wurblpt_tpu.render.intersect import assemble_hit as jassemble_hit
 from wurblpt_tpu.render.intersect import scene_raw_hit as jscene_raw_hit
 from wurblpt_tpu.render.intersect_mxu import build_mxu_scene, mxu_closest_hit
+from wurblpt_tpu.core.transform import Transformation as JTransformation
+from wurblpt_tpu.scene import builder as B
+from wurblpt_tpu.scene import generator as JG
 from wurblpt_tpu.utils import scenes as jscenes
 from wurblpt_tpu_torch import scene_from_numpy
 from wurblpt_tpu_torch.core.sampler import power_heuristic
@@ -99,7 +106,8 @@ def test_bsdf_sample_matches():
     js = jbsdf.bsdf_sample(jscene, JSceneStatic.from_scene(jscene), jhr, d, jnp.asarray(ior),
                            jnp.asarray(uni), jnp.asarray(uni[:, 2]), jnp.asarray(uni[:, 3]))
     ts = bsdf.bsdf_sample(hr, torch.from_numpy(np.array(d)), torch.from_numpy(ior),
-                          torch.from_numpy(uni), _mrow(scene, hr))
+                          torch.from_numpy(uni), torch.from_numpy(uni[:, 2]),
+                          torch.from_numpy(uni[:, 3]), _mrow(scene, hr))
     np.testing.assert_array_equal(ts.kind.numpy(), np.asarray(js.kind))
     _close(ts.direction, js.direction, atol=1e-5)
     _close(ts.atten, js.atten, atol=1e-5)
@@ -192,7 +200,8 @@ def test_ggx_and_mirror_sample_match():
     js = jbsdf.bsdf_sample(jscene, static, jhr, d, jnp.asarray(ior), jnp.asarray(uni),
                            jnp.asarray(uni[:, 2]), jnp.asarray(uni[:, 3]))
     ts = bsdf.bsdf_sample(hr, torch.from_numpy(np.array(d)), torch.from_numpy(ior),
-                          torch.from_numpy(uni), _mrow(scene, hr), static.mat_types)
+                          torch.from_numpy(uni), torch.from_numpy(uni[:, 2]),
+                          torch.from_numpy(uni[:, 3]), _mrow(scene, hr), static.mat_types)
     np.testing.assert_array_equal(ts.kind.numpy(), np.asarray(js.kind))
     assert (ts.kind.numpy()[typ == 4] == bsdf.ScatterKind.EXPLICIT).all()
     _close(ts.direction, js.direction, atol=1e-5)
@@ -212,3 +221,79 @@ def test_ggx_and_mirror_eval_match():
     _close(p, jp, rtol=1e-4, atol=1e-5)
     typ = np.asarray(jscene.materials.typ)[np.asarray(jhr.mat)] * np.asarray(jhr.hit)
     assert (p.numpy()[typ == 2] > 0).mean() > 0.2 and (p.numpy()[typ == 4] == 0).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _modphong_case():
+    """Tessellated spheres of ModPhong materials (opaque and shiny; 40 %
+    opaque with ior 1.5 and a transmissive colour; emissive), hit from
+    outside and inside: hits with per-lane ModPhong materials, uniforms."""
+    sc = B.Scene()
+    mats = [B.ModPhong(diffuse=(0.6, 0.5, 0.4), specular=(0.3, 0.3, 0.3), shininess=40.0),
+            B.ModPhong(diffuse=(0.2, 0.6, 0.3), specular=(0.1, 0.2, 0.1), shininess=5.0,
+                       opacity=0.4, ior=1.5, transmissive=(0.9, 0.8, 0.7)),
+            B.ModPhong(diffuse=(0.8, 0.8, 0.8), emissive=(5.0, 4.0, 3.0))]
+    for i, m in enumerate(mats):
+        sc.take_mesh_instance(B.MeshInstance(
+            JG.generate_sphere(1.0, slices=16, stacks=12), sc.take_material(m),
+            JTransformation.make(translation=(3.0 * i - 3.0, 0.0, 0.0))))
+    jscene = sc.build(use_bvh=True)
+    scene = scene_from_numpy(jax.tree_util.tree_map(np.asarray, jscene), "cpu")
+    rs = np.random.default_rng(13)
+    n = 4096
+    o = np.stack([rs.uniform(-5, 5, n), rs.uniform(-2, 2, n), rs.uniform(-2, 2, n)], -1)
+    inside = rs.uniform(size=n) < 0.3
+    o[inside] = np.array([[-3.0, 0, 0], [0, 0, 0], [3.0, 0, 0]])[rs.integers(0, 3, inside.sum())]
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = jnp.asarray(o, jnp.float32), jnp.asarray(d, jnp.float32)
+    jhr = jassemble_hit(jscene, o, d, *jscene_raw_hit(jscene, o, d, jnp.full((n,), 1e-4),
+                                                      jnp.full((n,), 3e37)))
+    jhr = jhr._replace(mat=jnp.where(jhr.hit, jnp.asarray(rs.integers(0, 3, n), jnp.int32), 0))
+    uni = rs.uniform(size=(n, 4)).astype(np.float32)
+    wd = rs.normal(size=(n, 3))
+    return jscene, scene, d, jhr, uni, (wd / np.linalg.norm(wd, axis=-1, keepdims=True)).astype(
+        np.float32)
+
+
+def test_modphong_sample_matches_including_pass_through():
+    jscene, scene, d, jhr, uni, _ = _modphong_case()
+    static = JSceneStatic.from_scene(jscene)
+    assert static.mat_types == {5}
+    hr = _port_hr(jhr)
+    n = uni.shape[0]
+    ior = np.ones((n, 4), np.float32)
+    js = jbsdf.bsdf_sample(jscene, static, jhr, d, jnp.asarray(ior), jnp.asarray(uni),
+                           jnp.asarray(uni[:, 2]), jnp.asarray(uni[:, 3]))
+    ts = bsdf.bsdf_sample(hr, torch.from_numpy(np.array(d)), torch.from_numpy(ior),
+                          torch.from_numpy(uni), torch.from_numpy(uni[:, 2]),
+                          torch.from_numpy(uni[:, 3]), _mrow(scene, hr), static.mat_types)
+    kind = ts.kind.numpy()
+    np.testing.assert_array_equal(kind, np.asarray(js.kind))
+    hit = np.asarray(jhr.hit)
+    # pass-through refractions, absorbed backsides and total internal reflection all occur
+    assert (kind[hit] == bsdf.ScatterKind.EXPLICIT).sum() > 100
+    assert (kind[hit] == bsdf.ScatterKind.NONE).sum() > 100
+    assert (np.asarray(jhr.backside) & hit).sum() > 300
+    _close(ts.direction, js.direction, atol=1e-5)
+    _close(ts.atten, js.atten, rtol=1e-4, atol=1e-5)
+    _close(ts.pdf, js.pdf, rtol=1e-4, atol=1e-5)
+    _close(ts.ior, js.ior)
+    assert float(ts.ior.max()) == 1.5
+
+
+def test_modphong_eval_and_emitted_match():
+    jscene, scene, d, jhr, _, wd = _modphong_case()
+    static = JSceneStatic.from_scene(jscene)
+    hr = _port_hr(jhr)
+    jf, jp = jbsdf.bsdf_eval(jscene, static, jhr, d, jnp.asarray(wd))
+    mrow = _mrow(scene, hr)
+    f, p = bsdf.bsdf_eval(hr, torch.from_numpy(np.array(d)), torch.from_numpy(wd), mrow,
+                          static.mat_types)
+    _close(f, jf, rtol=1e-4, atol=1e-5)
+    _close(p, jp, rtol=1e-4, atol=1e-5)
+    assert float((p > 0).float().mean()) > 0.2
+    je = jbsdf.emitted(jscene, static, jhr, -d)
+    e = bsdf.emitted(hr, -torch.from_numpy(np.array(d)), mrow)
+    _close(e, je)
+    assert float(e.max()) == 5.0

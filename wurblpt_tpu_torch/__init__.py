@@ -7,9 +7,11 @@ written by hand for Hopper live in ``csrc/`` and are built at first use
 (:mod:`wurblpt_tpu_torch.native`).
 
 Ported so far: the persistent-lane wavefront render of static scenes with a
-pinhole camera and SensorRGB: Lambertian, GGX, mirror and diffuse-light
-materials, triangle hot spots, an importance-sampled equirect sky, on the
-brute-force intersector or the port's BVH (see ROADMAP.md for the rest).
+pinhole or equirect surround camera (mono or stereo) and SensorRGB:
+Lambertian, GGX, mirror, ModPhong, measured RGL and diffuse-light materials,
+triangle hot spots with mixture or per-light MIS, an importance-sampled
+equirect sky, on the brute-force intersector or the port's BVH, and OBJ/MTL
+export and import (see ROADMAP.md for the rest).
 """
 
 from .core.transform import Transformation, from_lookat  # noqa: F401

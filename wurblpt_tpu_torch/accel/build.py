@@ -1,10 +1,10 @@
 """BVH construction for the K5/K6 kernels (port of ``wurblpt_tpu/accel/build.py``:
 `prim_aabbs` and the SAH build).
 
-The SAH build is the JAX package's host builder
-(``wurblpt_tpu/native/src/bvh_builder.cpp``: binned SAH, binary tree emitted
-in DFS pre-order with miss links), compiled with g++ and called through
-ctypes (:func:`wurblpt_tpu_torch.native.load_bvh_builder`). Its tree is then
+The SAH build is the host builder of ``csrc/host/bvh_builder.cpp`` (binned
+SAH, binary tree emitted in DFS pre-order with miss links; a copy of the JAX
+package's, the same code), compiled with g++ and called through ctypes
+(:func:`wurblpt_tpu_torch.native.load_bvh_builder`). Its tree is then
 packed into the port's own layout, :class:`~wurblpt_tpu_torch.scene.ir.BVHArrays`:
 each node row holds the boxes and links of its two children, so a ray reads
 one 64-byte row and tests both; a leaf holds up to `LEAF_SIZE` triangles

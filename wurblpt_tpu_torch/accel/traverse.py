@@ -4,8 +4,10 @@ Port of ``wurblpt_tpu/accel/traverse.py`` `bvh_closest_hit` / `bvh_any_hit`
 (the wide-BVH path, `_wide_closest_hit` / `_wide_any_hit`). The kernels
 (``csrc/bvh_closest.cu``, ``csrc/bvh_any.cu``) walk the tree one thread per
 ray with a stack of `STACK_DEPTH` entries. The plain versions beside them walk
-the SAME tree in lockstep over all rays, with a per-lane [N, depth] stack and
-no compaction, and take every decision the kernels take, in the same order:
+the SAME tree in lockstep over the rays still walking (finished rays drop out
+of the lockstep tensors when they are half of them), with a per-lane
+[N, depth] stack, and take every decision the kernels take, in the same
+order:
 
 1. at an inner node, slab-test both children against (t_min, min(t_max,
    best t)); descend into the nearer hit child (child 0 on a tie) and push
@@ -53,28 +55,47 @@ def _children(bvh: BVHArrays, node, o, inv_d, t_min, bound):
     return (near <= far) & (links != EMPTY), near, links.long()
 
 
-def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool):
+def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
     n = o.shape[0]
     dev = o.device
     depth = max(bvh.depth, 1)
-    rows = torch.arange(n, device=dev)
     iota = torch.arange(depth, device=dev)
     slot_ids = torch.arange(LEAF_SIZE, device=dev)
     n_slots = bvh.tri_id.shape[0]
     inv_d = _inv_dir(d)
 
+    out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    out_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    out_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    out_occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    lane = torch.arange(n, device=dev)          # the input lane of each row
     cur = torch.zeros((n,), dtype=torch.int64, device=dev)    # the root
     live = t_max > t_min
     sp = torch.zeros((n,), dtype=torch.int64, device=dev)
     stack_l = torch.zeros((n, depth), dtype=torch.int64, device=dev)
     stack_t = torch.full((n, depth), BIG, dtype=torch.float32, device=dev)
-    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
-    best_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
-    occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+    best_t, best_prim, best_u, best_v, occluded = (out_t.clone(), out_prim.clone(), out_u.clone(),
+                                                   out_v.clone(), out_occ.clone())
 
-    while bool(live.any()):
+    def store(sel):
+        out_t[lane[sel]], out_prim[lane[sel]] = best_t[sel], best_prim[sel]
+        out_u[lane[sel]], out_v[lane[sel]] = best_u[sel], best_v[sel]
+        out_occ[lane[sel]] = occluded[sel]
+
+    while True:
+        n_live = int(live.sum())
+        if n_live == 0:
+            break
+        if n_live < lane.shape[0] // 2:
+            # Finished rays drop out of the lockstep; each ray's walk is unchanged.
+            store(~live)
+            keep = live
+            lane, o, d, inv_d, t_min, t_max = (x[keep] for x in (lane, o, d, inv_d, t_min, t_max))
+            cur, live, sp, stack_l, stack_t = (x[keep] for x in (cur, live, sp, stack_l, stack_t))
+            best_t, best_prim, best_u, best_v, occluded = (
+                x[keep] for x in (best_t, best_prim, best_u, best_v, occluded))
+        rows = torch.arange(lane.shape[0], device=dev)
         bound = torch.minimum(t_max, best_t)
         # 1. inner node: descend into the nearer hit child, push the farther
         inner = live & (cur >= 0)
@@ -100,6 +121,9 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool):
         t, u, v, valid = watertight_tri(o[:, None], d[:, None], tv[..., 0:3], tv[..., 3:6],
                                         tv[..., 6:9], t_min[:, None], bound[:, None])
         valid = valid & in_leaf
+        if counts is not None:   # the work this walk does: inner-node visits, leaf triangle tests
+            counts["nodes"] += int(inner.sum())
+            counts["tri_tests"] += int(in_leaf.sum())
         if any_hit:
             occluded = occluded | valid.any(1)
             live = live & ~occluded
@@ -124,9 +148,10 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool):
         cur = torch.where(pop & found, stack_l[rows, torch.clamp_min(top, 0)], cur)
         sp = torch.where(pop, torch.clamp_min(top, 0), sp)
         live = live & ~(pop & ~found)
+    store(torch.ones_like(live))
     if any_hit:
-        return occluded
-    return best_t, best_prim, best_u, best_v
+        return out_occ
+    return out_t, out_prim, out_u, out_v
 
 
 def bvh_closest_hit_plain(bvh: BVHArrays, o, d, t_min, t_max):
@@ -137,6 +162,15 @@ def bvh_closest_hit_plain(bvh: BVHArrays, o, d, t_min, t_max):
 def bvh_any_hit_plain(bvh: BVHArrays, o, d, t_min, t_max):
     """Plain version of K6: True where a triangle is hit in (t_min, t_max)."""
     return _walk(bvh, o, d, t_min, t_max, any_hit=True)
+
+
+def bvh_walk_counts(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool):
+    """{"nodes": inner-node visits, "tri_tests": leaf triangle tests} of the
+    walk that K5 (any_hit False) or K6 takes for these rays: the plain
+    version walks the same tree in the same order."""
+    counts = {"nodes": 0, "tri_tests": 0}
+    _walk(bvh, o, d, t_min, t_max, any_hit, counts)
+    return counts
 
 
 def _check_bvh(bvh: BVHArrays, device):

@@ -37,3 +37,17 @@ def cross(a, b):
 def reflect(d, n):
     """Mirror direction of incident d about normal n (both unit)."""
     return d - 2.0 * dot(d, n, keepdim=True) * n
+
+
+def refract(d, n, eta):
+    """Refract unit direction d at normal n with relative index eta = n_i / n_t [N].
+
+    Returns (direction, total internal reflection mask); on TIR lanes the
+    direction is the reflection."""
+    eta = eta[..., None]
+    cos_i = -dot(d, n, keepdim=True)
+    sin2_t = eta * eta * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    tir = sin2_t >= 1.0
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    refr = eta * d + (eta * cos_i - cos_t) * n
+    return torch.where(tir, reflect(d, n), normalize(refr)), tir[..., 0]

@@ -14,11 +14,15 @@ PyTorch op of its plain version does, so the two can be compared bit for bit.
 `LAUNCHES` counts kernel launches per kernel; each wrapper adds one where it
 launches its kernel and nowhere else.
 
-The BVH build runs on the host: the JAX package's SAH builder
-(``wurblpt_tpu/native/src/bvh_builder.cpp``, plain C++ with a C interface) is
-compiled by file path with g++ into ``_build/host-<hash>/``
-(`load_bvh_builder`). ``-ffp-contract=off`` and no ``-march=native``, so every
-machine builds the same tree from the same triangles.
+Two host libraries, plain C++ with a C interface in ``csrc/host/``, are
+compiled with g++ into ``_build/host-<hash>/``: the SAH BVH builder
+(`load_bvh_builder`) and the OBJ/MTL parser (`load_obj_parser`). They are the
+port's own copies of the JAX package's host sources, byte for byte but for
+one comment line of the builder's header (it cites the reference renderer's
+source by a path relative to that project), so both packages build the same
+tree and read the same floats from the same files.
+``-ffp-contract=off`` and no ``-march=native``, so every machine builds the
+same tree from the same triangles.
 """
 
 from __future__ import annotations
@@ -35,21 +39,24 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
-           "envmap.cu")
+           "envmap.cu", "rgl.cu", "row_gather.cu")
 HEADERS = ("brute_common.cuh", "bvh_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libwpt_kernels.so"
 
-BVH_BUILDER_SRC = _PKG.parent / "wurblpt_tpu" / "native" / "src" / "bvh_builder.cpp"
+BVH_BUILDER_SRC = SRC_DIR / "host" / "bvh_builder.cpp"
+OBJ_PARSER_SRC = SRC_DIR / "host" / "obj_parser.cpp"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-contract=off")
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "bvh_closest_hit": 0,
-            "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0}
+            "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
+            "rgl_sample": 0, "row_gather": 0}
 
 _lock = threading.Lock()
 _lib = None
 _bvh_builder = None
+_obj_parser = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +71,9 @@ _SIGNATURES = {
     "wpt_env_radiance": [_P, _I, _P, _I, _I, _P, _P, _P],
     "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],
+    "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
+    "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
 }
 
 
@@ -173,6 +183,24 @@ def load_bvh_builder():
             fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P]
             _bvh_builder = fn
         return _bvh_builder
+
+
+def load_obj_parser() -> ctypes.CDLL:
+    """The OBJ/MTL parser of obj_parser.cpp (``wobj_*``), built at first use."""
+    global _obj_parser
+    with _lock:
+        if _obj_parser is None:
+            lib = ctypes.CDLL(str(_compile_host(OBJ_PARSER_SRC, "wpt_obj_parser")))
+            lib.wobj_parse.restype = ctypes.c_void_p
+            lib.wobj_parse.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+            lib.wobj_counts.argtypes = [_P, ctypes.POINTER(ctypes.c_longlong)]
+            lib.wobj_vertices.argtypes = [_P, _P, _P, _P]
+            lib.wobj_faces.argtypes = [_P, _P, _P, _P, _P]
+            lib.wobj_material_json.restype = ctypes.c_int
+            lib.wobj_material_json.argtypes = [_P, _I, ctypes.c_char_p, _I]
+            lib.wobj_free.argtypes = [_P]
+            _obj_parser = lib
+        return _obj_parser
 
 
 def check(code: int, name: str) -> None:

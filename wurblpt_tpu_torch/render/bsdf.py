@@ -1,10 +1,16 @@
 """BSDF sampling / evaluation / emission (port of ``wurblpt_tpu/render/bsdf.py``
-for LAMBERTIAN, GGX, MIRROR and LIGHT_DIFFUSE materials).
+for LAMBERTIAN, GGX, MIRROR, MODPHONG, RGL and LIGHT_DIFFUSE materials).
 
 Lobes are evaluated for the material types present in the scene
 (`SceneStatic.mat_types`) and selected per lane, as the JAX package does:
 cosine-sampled Lambertian, anisotropic GGX with Heitz's VNDF sampling
-(material_ggx.hpp:89-171), and the mirror as a delta (EXPLICIT) lobe.
+(material_ggx.hpp:89-171), the mirror as a delta (EXPLICIT) lobe, the
+energy-normalized modified Phong with its opacity pass-through
+(material_modphong.hpp:192-263; constant ks and opacity), and the measured
+RGL BRDF through K7 (:mod:`wurblpt_tpu_torch.materials.rgl`).
+
+Material attributes reach the lanes through one packed row per lane, fetched
+by P0 (:func:`wurblpt_tpu_torch.render.gather.row_gather`).
 
 `SceneStatic` carries the facts about a scene that select code paths; its
 `check_slice` raises NotImplementedError for every feature this port does
@@ -16,20 +22,28 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import sampler
 from ..core.fresnel import fresnel_schlick
-from ..core.onb import onb_from_normal_tangent, to_local, to_world
-from ..core.vecmath import cross, dot, normalize, reflect, safe_sqrt
+from ..core.onb import onb_from_normal, onb_from_normal_tangent, to_local, to_world
+from ..core.vecmath import cross, dot, normalize, reflect, refract, safe_sqrt
 from ..scene.ir import MaterialFlags, MaterialType, SceneArrays
+from .gather import row_gather
 from .intersect import HitRecord
 from .texture import material_albedo, material_emissive
 
 _INV_PI = 1.0 / math.pi
+_TWO_PI = 2.0 * math.pi
+# x / (2 pi) as XLA evaluates it: x times float32(1) / float32(2 pi).
+_INV_TWO_PI = float(np.float32(1.0) / np.float32(_TWO_PI))
 
 SLICE_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
+                             MaterialType.MODPHONG, MaterialType.RGL,
                              MaterialType.LIGHT_DIFFUSE})
+# The lobes evaluated when a caller names no types: all but RGL, which needs tables.
+ANALYTIC_MATERIALS = SLICE_MATERIALS - {MaterialType.RGL}
 PER_LIGHT_MIS_MIN = 8  # lights; from here on the JAX package switches to per-light MIS
 
 
@@ -60,7 +74,8 @@ class SceneStatic(NamedTuple):
     has_bvh: bool
     bvh_spheres: bool       # spheres in a scene with a BVH (the port's BVH holds triangles)
     sphere_lights: bool
-    per_light_mis: bool
+    per_light_mis: bool     # O(1) per-light MIS weights (lights_pdf_at_hit) instead of the mixture
+    rgl_tables: bool        # the scene carries RGL tables
 
     @staticmethod
     def from_scene(scene: SceneArrays) -> "SceneStatic":
@@ -76,7 +91,9 @@ class SceneStatic(NamedTuple):
             has_bvh=bool(scene.has_bvh),
             bvh_spheres=bool(scene.has_bvh and scene.n_spheres > 0),
             sphere_lights=bool((lp >= scene.n_tris).any()),
-            per_light_mis=int(lp.shape[0]) >= PER_LIGHT_MIS_MIN,
+            per_light_mis=(int(lp.shape[0]) >= PER_LIGHT_MIS_MIN
+                           and scene.prim_light_pick is not None),
+            rgl_tables=scene.rgl is not None,
         )
 
     def check_slice(self) -> None:
@@ -92,7 +109,8 @@ class SceneStatic(NamedTuple):
             "participating media": self.has_media,
             "spheres in a BVH scene": self.bvh_spheres,
             "sphere lights": self.sphere_lights,
-            "per-light MIS": self.per_light_mis,
+            "RGL materials without tables":
+                MaterialType.RGL in self.mat_types and not self.rgl_tables,
         }
         bad = [k for k, v in off.items() if v]
         if bad:
@@ -107,26 +125,33 @@ class MatRow(NamedTuple):
     albedo: torch.Tensor    # [N, 4]
     emissive: torch.Tensor  # [N, 4]
     p0: torch.Tensor        # [N, 4]
+    p1: torch.Tensor        # [N, 4]
+    p2: torch.Tensor        # [N, 4]
+    rgl_id: torch.Tensor    # [N] int32
 
 
 def pack_material_table(mt):
-    """(floats [M, 12] = albedo | emissive | p0, ints [M, 2] = typ | flags)."""
-    return (torch.cat([mt.albedo, mt.emissive, mt.p0], -1).contiguous(),
-            torch.stack([mt.typ, mt.flags], -1).to(torch.int32).contiguous())
+    """[M, 23] f32: albedo | emissive | p0 | p1 | p2, then typ, flags and
+    rgl_id as int32 bit patterns (P0 copies words, never reads them as floats)."""
+    ints = torch.stack([mt.typ, mt.flags, mt.rgl_id], -1).to(torch.int32)
+    return torch.cat([mt.albedo, mt.emissive, mt.p0, mt.p1, mt.p2,
+                      ints.view(torch.float32)], -1).contiguous()
 
 
 def gather_material_rows(packed, mat_ids) -> MatRow:
-    """One row gather of each packed table -> every per-lane attribute."""
-    f, i = packed[0][mat_ids], packed[1][mat_ids]
-    return MatRow(typ=i[:, 0], flags=i[:, 1], albedo=f[:, 0:4], emissive=f[:, 4:8],
-                  p0=f[:, 8:12])
+    """One row gather (P0) of the packed table -> every per-lane attribute."""
+    row = row_gather(packed, mat_ids.to(torch.int32).contiguous())
+    ints = row[:, 20:23].view(torch.int32)
+    return MatRow(typ=ints[:, 0], flags=ints[:, 1], albedo=row[:, 0:4], emissive=row[:, 4:8],
+                  p0=row[:, 8:12], p1=row[:, 12:16], p2=row[:, 16:20], rgl_id=ints[:, 2])
 
 
 def emitted(hr: HitRecord, view_dir, mrow: MatRow):
     """Radiance emitted from the hit toward the viewer (material.hpp:182-185).
 
-    view_dir points from the hit toward the previous vertex (= -ray.dir)."""
-    is_emitter = mrow.typ == MaterialType.LIGHT_DIFFUSE
+    view_dir points from the hit toward the previous vertex (= -ray.dir).
+    Diffuse lights and ModPhong surfaces emit."""
+    is_emitter = (mrow.typ == MaterialType.LIGHT_DIFFUSE) | (mrow.typ == MaterialType.MODPHONG)
     two_sided = (mrow.flags & MaterialFlags.TWO_SIDED) > 0
     front_ok = (~hr.backside) | two_sided
     vis = dot(hr.normal, view_dir) > 0.0
@@ -192,14 +217,52 @@ def _ggx_roughness(mrow):
     return torch.clamp_min(mrow.p0[:, 0], 1e-4), torch.clamp_min(mrow.p0[:, 1], 1e-4)
 
 
-def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, mrow: MatRow,
-                mat_types=SLICE_MATERIALS) -> ScatterSample:
+# ---------------------------------------------------------------------------
+# ModPhong (material_modphong.hpp:192-263), constant ks and opacity
+# ---------------------------------------------------------------------------
+
+def _modphong_eval(wo, wd, n, kd, ks, shininess):
+    """(f * cos [N, 4], mixture pdf [N]) of the energy-normalized modified
+    Phong; world space, n front-facing."""
+    cos_i = dot(wd, n)
+    up = cos_i > 1e-6
+    cos_a = torch.clamp(dot(reflect(-wo, n), wd), 0.0, 1.0)
+    s = torch.clamp_min(shininess, 0.0)
+    lobe = torch.pow(cos_a, s)
+    f = kd * _INV_PI + ks * ((s + 2.0) * _INV_TWO_PI * lobe)[:, None]
+    fcos = f * torch.clamp_min(cos_i, 0.0)[:, None]
+    ps = _modphong_spec_prob(kd, ks)
+    pdf = ((1.0 - ps) * (torch.clamp_min(cos_i, 0.0) * _INV_PI)
+           + ps * ((s + 1.0) * _INV_TWO_PI * lobe))
+    return torch.where(up[:, None], fcos, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _modphong_spec_prob(kd, ks):
+    """Probability of the specular lobe: max(ks) / (max(kd) + max(ks))."""
+    kd_max = kd[:, :3].amax(-1)
+    ks_max = ks[:, :3].amax(-1)
+    tot = kd_max + ks_max
+    return torch.where(tot > 0, ks_max / torch.clamp_min(tot, 1e-12), 0.0)
+
+
+def _sample_power_cosine(axis, exponent, u2):
+    """A direction distributed as cos^exponent around `axis`."""
+    ct = torch.pow(torch.clamp_min(u2[:, 0], 1e-12), 1.0 / (exponent + 1.0))
+    st = safe_sqrt(1.0 - ct * ct)
+    phi = _TWO_PI * u2[:, 1]
+    t, b = onb_from_normal(axis)
+    return to_world(torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1), t, b, axis)
+
+
+def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, u_lobe, u_chan, mrow: MatRow,
+                mat_types=ANALYTIC_MATERIALS, rgl=None) -> ScatterSample:
     """Sample the outgoing lobe at each hit (reference Material::scatter).
 
-    u4: [N, 4] uniforms; the first two drive the direction. Lights absorb
-    (kind NONE). Lobes are computed for the types in `mat_types` only. The
-    JAX version's lobe and channel uniforms serve materials outside the
-    slice."""
+    u4: [N, 4] uniforms; the first two drive the direction. `u_lobe` and
+    `u_chan` [N] are independent uniforms for ModPhong's discrete picks
+    (opacity pass-through, specular or diffuse lobe). Lights absorb (kind
+    NONE). Lobes are computed for the types in `mat_types` only; RGL lanes
+    need the scene's tables `rgl`."""
     n = hr.normal
     wo = -ray_dir
     u2 = u4[:, 0:2]
@@ -208,6 +271,7 @@ def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, mrow: MatRow,
     direction = n
     atten = torch.zeros_like(albedo)
     pdf = torch.zeros_like(n[:, 0])
+    ior = ray_ior
     if MaterialType.LAMBERTIAN in mat_types:
         d_cos = sampler.cosine_direction(n, u2)
         p = torch.clamp_min(dot(d_cos, n), 0.0) * _INV_PI
@@ -234,14 +298,51 @@ def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, mrow: MatRow,
         direction = torch.where(sel[:, None], reflect(ray_dir, n), direction)
         atten = torch.where(sel[:, None], albedo, atten)
         pdf = torch.where(sel, 1.0, pdf)
+    if MaterialType.MODPHONG in mat_types:
+        ks, shininess, opacity, mp_ior = mrow.p1, mrow.p0[:, 0], mrow.p0[:, 1], mrow.p0[:, 3]
+        ps = _modphong_spec_prob(albedo, ks)
+        # Opacity pass-through (material_modphong.hpp:241-261): with
+        # probability 1 - opacity refract with the material's index,
+        # attenuated by the transmissive colour; total internal reflection
+        # and opaque backside hits absorb.
+        pass_through = u_lobe > opacity
+        eta = (torch.where(hr.backside, mp_ior, 1.0)
+               / torch.where(hr.backside, 1.0, mp_ior))
+        d_pass, tir = refract(ray_dir, n, eta)
+        d_spec = _sample_power_cosine(reflect(ray_dir, n), shininess, u2)
+        d_mp = torch.where((u_chan < ps)[:, None], d_spec, sampler.cosine_direction(n, u2))
+        fcos, p = _modphong_eval(wo, d_mp, n, albedo, ks, shininess)
+        kind_mp = torch.where(pass_through, ScatterKind.EXPLICIT, ScatterKind.RANDOM)
+        kind_mp = torch.where((pass_through & tir) | (hr.backside & ~pass_through),
+                              ScatterKind.NONE, kind_mp)
+        sel = mrow.typ == MaterialType.MODPHONG
+        kind = torch.where(sel, kind_mp, kind)
+        direction = torch.where(sel[:, None], torch.where(pass_through[:, None], d_pass, d_mp),
+                                direction)
+        atten = torch.where(sel[:, None], torch.where(pass_through[:, None], mrow.p2, fcos),
+                            atten)
+        pdf = torch.where(sel, torch.where(pass_through, 1.0, p), pdf)
+        ior = torch.where((sel & pass_through)[:, None],
+                          torch.where(hr.backside, 1.0, mp_ior)[:, None], ior)
+    if MaterialType.RGL in mat_types:
+        from ..materials.rgl import rgl_sample_lanes
+
+        d_r, fcos_r, p_r, ok_r = rgl_sample_lanes(rgl, hr, wo, u2, mrow.rgl_id)
+        sel = (mrow.typ == MaterialType.RGL) & ok_r
+        kind = torch.where(sel, ScatterKind.RANDOM, kind)
+        direction = torch.where(sel[:, None], d_r, direction)
+        atten = torch.where(sel[:, None], fcos_r, atten)
+        pdf = torch.where(sel, p_r, pdf)
     return ScatterSample(kind=kind.to(torch.int32), direction=direction, atten=atten, pdf=pdf,
-                         ior=ray_ior)
+                         ior=ior)
 
 
-def bsdf_eval(hr: HitRecord, ray_dir, wd, mrow: MatRow, mat_types=SLICE_MATERIALS):
+def bsdf_eval(hr: HitRecord, ray_dir, wd, mrow: MatRow, mat_types=ANALYTIC_MATERIALS,
+              rgl=None):
     """(f * cos [N, 4], pdf [N]) of scattering into direction wd
     (Material::scatterToDirection, material.hpp:173-179); zero for delta
-    lobes (mirror) and lights."""
+    lobes (mirror) and lights. ModPhong evaluates its full lobe whatever its
+    opacity (material_modphong.hpp:310-328)."""
     n = hr.normal
     albedo = material_albedo(mrow)
     fcos = torch.zeros_like(albedo)
@@ -259,4 +360,16 @@ def bsdf_eval(hr: HitRecord, ray_dir, wd, mrow: MatRow, mat_types=SLICE_MATERIAL
         sel = mrow.typ == MaterialType.GGX
         fcos = torch.where(sel[:, None], f_g, fcos)
         pdf = torch.where(sel, p_g, pdf)
+    if MaterialType.MODPHONG in mat_types:
+        f_m, p_m = _modphong_eval(-ray_dir, wd, n, albedo, mrow.p1, mrow.p0[:, 0])
+        sel = mrow.typ == MaterialType.MODPHONG
+        fcos = torch.where(sel[:, None], f_m, fcos)
+        pdf = torch.where(sel, p_m, pdf)
+    if MaterialType.RGL in mat_types:
+        from ..materials.rgl import rgl_eval_lanes
+
+        f_r, p_r, ok_r = rgl_eval_lanes(rgl, hr, -ray_dir, wd, mrow.rgl_id)
+        sel = (mrow.typ == MaterialType.RGL) & ok_r
+        fcos = torch.where(sel[:, None], f_r, fcos)
+        pdf = torch.where(sel, p_r, pdf)
     return fcos, pdf

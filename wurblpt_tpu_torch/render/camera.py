@@ -1,14 +1,21 @@
-"""Cameras (port of ``wurblpt_tpu/render/camera.py``: the pinhole branch).
+"""Cameras (port of ``wurblpt_tpu/render/camera.py``: the pinhole and the
+equirect surround cameras, mono or stereo).
 
 `CameraConfig` keeps the JAX package's switches so that a configuration
-outside the slice (surround, stereo, distortion, depth of field, an animated
-pose) is refused by :func:`check_pinhole` instead of rendered wrong.
+outside the slice (distortion, depth of field, an animated pose) is refused
+by :func:`check_camera` instead of rendered wrong.
+
+Where the JAX package divides by a Python constant, XLA multiplies by the
+float32 reciprocal of the constant; `_recip` gives that factor, so the port
+rounds as the reference does on every device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
+
+import math
 
 import numpy as np
 import torch
@@ -98,11 +105,9 @@ def camera_from_numpy(c, device) -> CameraParams:
                        aperture_diameter=c.aperture_diameter, device=device)
 
 
-def check_pinhole(cfg: CameraConfig) -> None:
-    """Raise NotImplementedError for any camera mode outside the ported pinhole."""
+def check_camera(cfg: CameraConfig) -> None:
+    """Raise NotImplementedError for any camera feature outside the ported slice."""
     off = {
-        "surround": cfg.surround != SurroundMode.OFF,
-        "stereo": cfg.stereo,
         "distortion": cfg.distortion != DistortionModel.NONE,
         "depth of field": cfg.dof,
         "animated camera": cfg.anim_id >= 0,
@@ -112,18 +117,46 @@ def check_pinhole(cfg: CameraConfig) -> None:
         raise NotImplementedError(f"camera features outside the ported slice: {bad}")
 
 
-def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, height: int):
-    """World-space pinhole rays through pixel coords [N, 2] (camera.hpp:123-185).
+def _recip(c) -> float:
+    """float32(1) / float32(c): the factor XLA multiplies by for `x / c`."""
+    return float(np.float32(1.0) / np.float32(c))
 
-    Returns (origin [N, 3], direction [N, 3]). The ray time of the JAX version
-    is left out: the slice has no motion blur and no animation."""
-    check_pinhole(cfg)
+
+def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, height: int):
+    """World-space rays through pixel coords [N, 2] (camera.hpp:123-185).
+
+    Stereo packs the left eye into the top half of the image and the right
+    eye into the bottom half. A surround camera maps the width to [-pi, pi]
+    (S360) or [-pi/2, pi/2] (S180) and the (half) height to [pi/2, -pi/2];
+    its stereo eyes sit on a circle of diameter `eye_distance`, offset
+    perpendicular to each viewing column (ODS, camera.hpp:74-79). Returns
+    (origin [N, 3], direction [N, 3]); the JAX version's ray time is left out
+    (no motion blur, no animation in the slice)."""
+    check_camera(cfg)
     px, py = pixel_xy[..., 0], pixel_xy[..., 1]
-    nx = (px - cam.center_px[0]) / cam.focal_px[0]
-    ny = (py - cam.center_px[1]) / cam.focal_px[1]
-    d_cam = torch.stack([nx, -ny, -torch.ones_like(nx)], -1)
+    eff_height = height // 2 if cfg.stereo else height
+    if cfg.stereo:
+        top = py < eff_height
+        py = torch.where(top, py, py - eff_height)
+        eye_sign = torch.where(top, -1.0, 1.0)
+    else:
+        eye_sign = torch.zeros_like(px)
+    if cfg.surround == SurroundMode.OFF:
+        nx = (px - cam.center_px[0]) / cam.focal_px[0]
+        cy = cam.center_px[1] * (eff_height / height) if cfg.stereo else cam.center_px[1]
+        ny = (py - cy) / cam.focal_px[1]
+        d_cam = torch.stack([nx, -ny, -torch.ones_like(nx)], -1)
+        zero = torch.zeros_like(nx)
+        o_cam = torch.stack([zero + eye_sign * 0.5 * cam.eye_distance, zero, zero], -1)
+    else:
+        span = math.pi if cfg.surround == SurroundMode.S360 else math.pi / 2.0
+        phi = (px * _recip(width) * 2.0 - 1.0) * span
+        theta = (0.5 - py * _recip(eff_height)) * math.pi
+        ct = torch.cos(theta)
+        d_cam = torch.stack([ct * torch.sin(phi), torch.sin(theta), -ct * torch.cos(phi)], -1)
+        offset_dir = torch.stack([torch.cos(phi), torch.zeros_like(phi), torch.sin(phi)], -1)
+        o_cam = eye_sign[..., None] * 0.5 * cam.eye_distance * offset_dir
     tf = cam.transformation
     d_world = quat_rotate(tf.rotation, normalize(d_cam))
-    # The pinhole sits at the camera origin: rotate(0 * scale) + translation.
-    o_world = tf.translation.expand(d_world.shape).contiguous()
+    o_world = quat_rotate(tf.rotation, o_cam * tf.scale) + tf.translation
     return o_world, d_world

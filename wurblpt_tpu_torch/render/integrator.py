@@ -5,11 +5,14 @@ Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
   1. closest hit (K1 brute force, or K5 on a BVH);
   2. on a miss, the environment map's radiance (K8) with its MIS weight
      against the env importance pdf (K8);
-  3. hit assembly (K3), emitted radiance with its MIS weight against the
-     light-mixture pdf;
-  4. BSDF sample;
+  3. hit assembly (K3), the material row (P0), emitted radiance with its MIS
+     weight against the light-mixture pdf, or in scenes with many lights
+     against the hit light's own pdf (`lights_pdf_at_hit`, P0);
+  4. BSDF sample (RGL lanes through K7);
   5. NEE toward a picked hot spot, visibility by an any-hit cast (K2 or K6)
-     shortened by `shadow_identity_eps`, power-heuristic weighted;
+     shortened by `shadow_identity_eps`, power-heuristic weighted against
+     the mixture pdf or, per light, against pick probability x the picked
+     light's pdf;
   6. env NEE: an importance-sampled sky direction (K8), visibility by an
      any-hit cast to BIG, power-heuristic weighted;
   7. throughput update and Russian roulette.
@@ -40,11 +43,17 @@ from .bsdf import (
     gather_material_rows,
     pack_material_table,
 )
-from .camera import CameraConfig, CameraParams, camera_rays, check_pinhole
+from .camera import CameraConfig, CameraParams, camera_rays, check_camera
 from .envmap import env_pdf, env_radiance, env_sample
 from .intersect import assemble_hit, build_hit_tables, scene_any_hit, scene_raw_hit
 from .intersect_brute import BIG, brute_eligible, build_brute_scene
-from .lights import lights_pdf_multi, lights_sample
+from .lights import (
+    light_pick_prob_of,
+    lights_pdf_at_hit,
+    lights_pdf_multi,
+    lights_sample,
+    pick_area_table,
+)
 from .sensor import SensorEvent
 
 
@@ -86,7 +95,7 @@ def _light_emitted_at(scene: SceneArrays, prim, toward, mat_packed):
     pl = prim.long()
     fn = cross(T.e1[pl], T.e2[pl])
     n = fn / torch.clamp_min(torch.sqrt(dot(fn, fn, keepdim=True)), 1e-20)
-    lrow = gather_material_rows(mat_packed, T.mat[pl].long())
+    lrow = gather_material_rows(mat_packed, T.mat[pl])
     two_sided = (lrow.flags & MaterialFlags.TWO_SIDED) > 0
     front = (dot(n, toward) > 0.0) | two_sided
     return torch.where(front[:, None], lrow.emissive, 0.0)
@@ -98,7 +107,10 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
     ht = build_hit_tables(scene)
     mat_packed = pack_material_table(scene.materials)
     mat_types = static.mat_types
+    rgl = scene.rgl
     has_lights = static.n_lights > 0
+    per_light = has_lights and static.per_light_mis
+    pick_area = pick_area_table(scene) if per_light else None
     has_env = static.env_kind != 0
     env_is = has_env and static.env_importance
     env = scene.envmap
@@ -128,15 +140,20 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
                 distance_to_light=zeros, active=st.active & (prim < 0)))
 
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
-        mrow = gather_material_rows(mat_packed, hr.mat.long())
+        mrow = gather_material_rows(mat_packed, hr.mat)
 
         geom_len = torch.where(hit, st.geom_len + t, st.geom_len)
         opt_len = torch.where(hit[:, None], st.opt_len + t[:, None] * st.ior, st.opt_len)
 
         # Emitted, MIS-weighted with the light-mixture pdf of this ray, which
-        # the previous bounce evaluated (st.prev_light_pdf).
+        # the previous bounce evaluated (st.prev_light_pdf); per light, with
+        # the pdf of the light actually hit, from the hit itself.
         e = emitted(hr, -st.d, mrow)
-        if has_lights:
+        if per_light:
+            lp_hit = lights_pdf_at_hit(pick_area, st.d, t, torch.where(hit, prim, -1),
+                                       hr.geom_normal)
+            w_emit = torch.where(st.prev_random, power_heuristic(st.prev_pdf, lp_hit), 1.0)
+        elif has_lights:
             w_emit = torch.where(st.prev_random,
                                  power_heuristic(st.prev_pdf, st.prev_light_pdf), 1.0)
         else:
@@ -148,18 +165,27 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
 
         u4 = uniform4(pixel_id, sample_id, k, Salt.BSDF)
         u_aux = uniform4(pixel_id, sample_id, k, Salt.BSDF_AUX)
-        sr = bsdf_sample(hr, st.d, st.ior, u4, mrow, mat_types)
+        sr = bsdf_sample(hr, st.d, st.ior, u4, u_aux[:, 0], u_aux[:, 1], mrow, mat_types,
+                         rgl=rgl)
         is_random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
         is_explicit = hit & (sr.kind == ScatterKind.EXPLICIT)
 
         if has_lights:
             u3 = uniform4(pixel_id, sample_id, k, Salt.NEE_SAMPLE)[:, :3]
-            ldir, lprim, ldist, _, _ = lights_sample(scene, hr.position, u3)
-            # One mixture evaluation for both directions that need it: the
-            # NEE direction now, the bsdf sample at the next bounce.
-            pdf_pair = lights_pdf_multi(scene, hr.position, torch.stack([ldir, sr.direction], 1))
-            pdf_light, light_pdf_next = pdf_pair[:, 0], pdf_pair[:, 1]
-            f_l, pdf_b = bsdf_eval(hr, st.d, ldir, mrow, mat_types)
+            ldir, lprim, ldist, lpick, pdf_sa = lights_sample(scene, hr.position, u3)
+            if per_light:
+                # The NEE strategy "pick light i, sample its solid angle" has
+                # density pick(i) x pdf_i; the emitted side is weighted at the
+                # next hit (lights_pdf_at_hit above).
+                pdf_light = light_pick_prob_of(scene, lpick) * pdf_sa
+                light_pdf_next = zeros
+            else:
+                # One mixture evaluation for both directions that need it: the
+                # NEE direction now, the bsdf sample at the next bounce.
+                pdf_pair = lights_pdf_multi(scene, hr.position,
+                                            torch.stack([ldir, sr.direction], 1))
+                pdf_light, light_pdf_next = pdf_pair[:, 0], pdf_pair[:, 1]
+            f_l, pdf_b = bsdf_eval(hr, st.d, ldir, mrow, mat_types, rgl=rgl)
             t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps),
                                     params.min_hit_distance)
             occluded = scene_any_hit(accel, hr.position, ldir, t_min,
@@ -180,7 +206,7 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, sensor, params: Ren
         if env_is:
             ue = uniform4(pixel_id, sample_id, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
             edir, epdf = env_sample(env, ue)
-            f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types)
+            f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types, rgl=rgl)
             occluded_e = scene_any_hit(accel, hr.position, edir, t_min,
                                        torch.where(is_random, BIG, 0.0))
             w_e = power_heuristic(epdf, pdf_be)
@@ -326,7 +352,7 @@ def render_frame_wavefront(
     (closest-hit casts, all casts incl. NEE shadow rays)."""
     device = torch.device(device)
     static.check_slice()
-    check_pinhole(cam_cfg)
+    check_camera(cam_cfg)
     if not (scene.has_bvh or brute_eligible(scene)):
         raise NotImplementedError("a scene of more than 2048 primitives needs a BVH "
                                   "(flatten with use_bvh)")

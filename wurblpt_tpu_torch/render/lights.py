@@ -2,8 +2,11 @@
 ``wurblpt_tpu/render/lights.py`` for static triangle hot spots).
 
 The pick is uniform, or power-proportional through the alias table when the
-flattener attached one (`light_weights`); the NEE density is the mixture
-sum_i w_i pdf_i over all hot spots (wurblpt.hpp:181-195).
+flattener attached one (`light_weights`). The NEE density is the mixture
+sum_i w_i pdf_i over all hot spots (wurblpt.hpp:181-195), or, in scenes with
+many lights (per-light MIS), the pick probability times the one relevant
+light's density: `lights_pdf_at_hit` takes it from the hit itself, with the
+per-prim (pick, 1 / area) row fetched by P0.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from ..core import sampler
 from ..core.vecmath import cross, dot
 from ..scene.ir import SceneArrays
+from .gather import row_gather
 
 
 def light_pick_probs(scene: SceneArrays) -> Optional[torch.Tensor]:
@@ -69,6 +73,24 @@ def lights_pdf_multi(scene: SceneArrays, origin, dirs):
     if w is None:
         return per_light.sum(-1) / L
     return dot(per_light, w.expand(per_light.shape))
+
+
+def pick_area_table(scene: SceneArrays):
+    """[P, 2] f32 (pick probability, 1 / area) per prim: the rows of lights_pdf_at_hit."""
+    return torch.stack([scene.prim_light_pick, scene.prim_inv_area], -1).contiguous()
+
+
+def lights_pdf_at_hit(pick_area, d, t, prim, geom_normal):
+    """Per-light NEE density of rays that hit `prim` at distance t (static
+    triangle lights): pick probability x t^2 / (|cos| x area), 0 for prims
+    that are not lights or for misses (prim < 0).
+
+    `pick_area` is `pick_area_table(scene)`; its row per lane is one P0
+    gather (lights.py:204-240, the triangle branch)."""
+    row = row_gather(pick_area, torch.clamp_min(prim, 0).to(torch.int32).contiguous())
+    pp = torch.where(prim >= 0, row[:, 0], 0.0)
+    cos = torch.abs(dot(d, geom_normal))
+    return pp * (t * t * row[:, 1] / torch.clamp_min(cos, 1e-12))
 
 
 def lights_sample(scene: SceneArrays, origin, u3):

@@ -3,11 +3,13 @@ of ``wurblpt_tpu/scene/flatten.py`` and ``scene/geometryproc.py``).
 
 Everything is computed with numpy exactly as the JAX package's flattener does
 it, so a scene built here equals the JAX build field by field, bits included.
-Covered: indexed meshes with texcoords, with or without per-vertex normals
-(missing ones are computed, tangents always are), static instance transforms
-baked into world space; constant Lambertian, GGX, mirror and diffuse-light
-materials; hot-spot triangles and the power-proportional light pick with its
-alias table; the port's BVH and an equirect environment map.
+Covered: indexed meshes with or without texcoords and per-vertex normals
+(missing normals are computed, and tangents wherever there are texcoords),
+static instance transforms baked into world space; constant Lambertian, GGX,
+mirror, ModPhong, RGL and diffuse-light materials; hot-spot triangles, the
+power-proportional light pick with its alias table and the per-prim pick and
+1 / area rows of per-light MIS; the port's BVH, an equirect environment map
+and the RGL tables.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ _i32 = np.int32
 class MeshSpec(NamedTuple):
     positions: np.ndarray            # [V, 3] object space
     normals: Optional[np.ndarray]    # [V, 3]; None: area-weighted smooth normals
-    texcoords: np.ndarray            # [V, 2]
+    texcoords: Optional[np.ndarray]  # [V, 2]; None: no texcoords, no tangents
     indices: np.ndarray              # [F, 3]
     material: int
     hot_spot: bool = False
@@ -84,8 +86,9 @@ def compute_tangents(positions, normals, texcoords, indices) -> np.ndarray:
 
 
 def bake_transform(tf: Optional[Transformation], pos, nrm, tan):
-    """Object-space positions, normals and tangents to world space (scale,
-    rotate, translate; normals by the inverse scale), in float32 numpy."""
+    """Object-space positions, normals and tangents (each may be None) to
+    world space (scale, rotate, translate; normals by the inverse scale), in
+    float32 numpy."""
     if tf is None:
         return pos, nrm, tan
     t, q, s = (np.asarray(x.detach().cpu().numpy(), _f32) for x in tf)
@@ -96,10 +99,12 @@ def bake_transform(tf: Optional[Transformation], pos, nrm, tan):
         return v + w * tq + np.cross(u, tq)
 
     pos = rot(pos * s) + t
-    nn = rot(nrm / s)
-    nrm = nn / np.maximum(np.linalg.norm(nn, axis=-1, keepdims=True), 1e-20)
-    tn = rot(tan * s)
-    tan = tn / np.maximum(np.linalg.norm(tn, axis=-1, keepdims=True), 1e-20)
+    if nrm is not None:
+        nn = rot(nrm / s)
+        nrm = nn / np.maximum(np.linalg.norm(nn, axis=-1, keepdims=True), 1e-20)
+    if tan is not None:
+        tn = rot(tan * s)
+        tan = tn / np.maximum(np.linalg.norm(tn, axis=-1, keepdims=True), 1e-20)
     return pos, nrm, tan
 
 
@@ -140,13 +145,14 @@ def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_emissive):
 
 
 def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=False,
-                   envmap=None) -> SceneArrays:
+                   envmap=None, rgl_tables=None) -> SceneArrays:
     """Static triangle meshes + a material table -> SceneArrays on `device`.
 
     `materials` holds numpy arrays; the light pick is power-proportional, as
     ``flatten_scene(light_sampling="power")`` builds it. `use_bvh` builds the
     port's BVH (:func:`wurblpt_tpu_torch.accel.build.build_bvh`); `envmap` is an
-    :class:`~wurblpt_tpu_torch.render.envmap.EnvironmentMapEquiRect`."""
+    :class:`~wurblpt_tpu_torch.render.envmap.EnvironmentMapEquiRect`;
+    `rgl_tables` the table dicts of the RGL materials, in `rgl_id` order."""
     cols = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                             "tan0", "tan1", "tan2", "mat", "flags", "v1", "v2")}
     light_prims = []
@@ -155,9 +161,12 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         pos = np.asarray(mesh.positions, _f32)
         f = np.asarray(mesh.indices, _i32)
         nrm = compute_normals(pos, f) if mesh.normals is None else np.asarray(mesh.normals, _f32)
-        uv = np.asarray(mesh.texcoords, _f32)
-        tan = compute_tangents(pos, nrm, uv, f)
+        has_uv = mesh.texcoords is not None
+        uv = np.asarray(mesh.texcoords, _f32) if has_uv else np.zeros((len(pos), 2), _f32)
+        tan = compute_tangents(pos, nrm, uv, f) if has_uv else None
         pos, nrm, tan = bake_transform(mesh.transformation, pos, nrm, tan)
+        if tan is None:
+            tan = np.zeros_like(pos)
         v0, v1, v2 = pos[f[:, 0]], pos[f[:, 1]], pos[f[:, 2]]
         cols["p0"].append(v0)
         cols["v1"].append(v1)
@@ -169,7 +178,7 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
             cols[f"uv{k}"].append(uv[f[:, k]])
             cols[f"tan{k}"].append(tan[f[:, k]])
         cols["mat"].append(np.full((len(f),), mesh.material, _i32))
-        cols["flags"].append(np.full((len(f),), 3, _i32))  # texcoords + tangents
+        cols["flags"].append(np.full((len(f),), 3 if has_uv else 0, _i32))  # texcoords, tangents
         if mesh.hot_spot:
             light_prims.extend(range(n, n + len(f)))
         n += len(f)
@@ -185,7 +194,14 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         powers = light_power_weights(light_ids, arr["e1"], arr["e2"], arr["mat"],
                                      np.asarray(materials.emissive))
         prob, alias, w = build_alias_table(powers)
-        picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias))
+        # Per prim: pick probability and 1 / area (zero for non-lights).
+        pick = np.zeros((n,), _f32)
+        inv_area = np.zeros((n,), _f32)
+        pick[light_ids] = w
+        area = 0.5 * np.linalg.norm(np.cross(arr["e1"][light_ids], arr["e2"][light_ids]), axis=-1)
+        inv_area[light_ids] = 1.0 / np.maximum(area, 1e-20)
+        picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias),
+                     prim_light_pick=dev(pick), prim_inv_area=dev(inv_area))
 
     z3 = np.zeros((0, 3), _f32)
     tris = Triangles(**{k: dev(v) for k, v in arr.items()})
@@ -199,6 +215,11 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         from ..render.envmap import build_envmap_arrays
 
         env = build_envmap_arrays(envmap, device)
+    rgl = None
+    if rgl_tables:
+        from ..materials.rgl import stack_rgl_tables
+
+        rgl = stack_rgl_tables(rgl_tables, device)
     return SceneArrays(
         tris=tris,
         spheres=Spheres(dev(z3), dev(np.zeros((0,), _f32)), dev(np.zeros((0,), _i32))),
@@ -206,6 +227,7 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         light_prims=dev(light_ids),
         bvh=bvh,
         envmap=env,
+        rgl=rgl,
         **picks,
     )
 
@@ -214,13 +236,13 @@ def material_table(rows) -> MaterialTable:
     """numpy MaterialTable from [(MaterialType, colour, parameter), ...].
 
     The colour is the albedo of LAMBERTIAN, the F0 of GGX, the tint of MIRROR
-    (None: white) and the radiance of LIGHT_DIFFUSE; the parameter is GGX's
-    roughness (a scalar or (x, y)), None otherwise."""
+    (None: white), the diffuse colour of MODPHONG and the radiance of
+    LIGHT_DIFFUSE. The parameter is GGX's roughness (a scalar or (x, y)),
+    MODPHONG's :class:`ModPhong` and RGL's table index; None otherwise."""
     m = len(rows)
     typ = np.array([r[0] for r in rows], _i32)
-    albedo = np.zeros((m, 4), _f32)
-    emissive = np.zeros((m, 4), _f32)
-    p0 = np.zeros((m, 4), _f32)
+    albedo, emissive, p0, p1, p2 = (np.zeros((m, 4), _f32) for _ in range(5))
+    rgl_id = np.full((m,), -1, _i32)
     for i, (t, c, param) in enumerate(rows):
         if t == MaterialType.LAMBERTIAN:
             albedo[i] = vec4(c)
@@ -230,9 +252,33 @@ def material_table(rows) -> MaterialTable:
             p0[i, 0:2] = np.maximum(np.asarray(r, _f32), 1e-4)
         elif t == MaterialType.MIRROR:
             albedo[i] = vec4((1, 1, 1) if c is None else c)
+        elif t == MaterialType.MODPHONG:
+            # p0 = (shininess, opacity, specular-lobe probability, ior),
+            # p1 = ks, p2 = transmissive (flatten.py _flatten_materials).
+            albedo[i] = vec4(c)
+            p1[i] = vec4(param.specular)
+            kd, ks = float(np.max(albedo[i][:3])), float(np.max(p1[i][:3]))
+            p0[i] = (param.shininess, float(param.opacity), ks / (kd + ks) if kd + ks > 0 else 0.0,
+                     max(float(param.ior), 1.0))
+            p2[i] = vec4(param.transmissive)
+            emissive[i] = vec4(param.emissive)
+        elif t == MaterialType.RGL:
+            rgl_id[i] = param
         elif t == MaterialType.LIGHT_DIFFUSE:
             emissive[i] = vec4(c)
         else:
             raise NotImplementedError(f"material type {t} is outside the ported slice")
     return MaterialTable(typ=typ, flags=np.zeros((m,), _i32), albedo=albedo,
-                         emissive=emissive, p0=p0)
+                         emissive=emissive, p0=p0, p1=p1, p2=p2, rgl_id=rgl_id)
+
+
+class ModPhong(NamedTuple):
+    """The ModPhong parameters of a material_table row (builder.ModPhong,
+    constant colours only)."""
+
+    specular: tuple = (0.0, 0.0, 0.0)
+    shininess: float = 0.0
+    opacity: float = 1.0
+    emissive: tuple = (0.0, 0.0, 0.0)
+    ior: float = 1.0
+    transmissive: tuple = (0.0, 0.0, 0.0)

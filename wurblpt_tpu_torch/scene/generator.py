@@ -1,5 +1,5 @@
 """Procedural meshes (numpy, host side): the subset of
-``wurblpt_tpu/scene/generator.py`` the mesh path's scene uses.
+``wurblpt_tpu/scene/generator.py`` the mesh and city paths' scenes use.
 
 Each generator returns a :class:`~wurblpt_tpu_torch.scene.flatten.MeshSpec`
 with the same vertices, normals, texcoords and indices, bit for bit, as the
@@ -13,6 +13,25 @@ import numpy as np
 from .flatten import MeshSpec
 
 _f32 = np.float32
+
+
+def generate_quad(half_w: float = 1.0, half_h: float = 1.0, slices: int = 1,
+                  material: int = 0) -> MeshSpec:
+    """Quad in the xy plane, +z normal, uv in [0, 1]^2, slices x slices cells."""
+    n = slices + 1
+    xs = np.linspace(-half_w, half_w, n, dtype=_f32)
+    ys = np.linspace(-half_h, half_h, n, dtype=_f32)
+    xx, yy = np.meshgrid(xs, ys, indexing="xy")
+    pos = np.stack([xx, yy, np.zeros_like(xx)], -1).reshape(-1, 3)
+    uv = np.stack([(xx / (2 * half_w) + 0.5).reshape(-1), (yy / (2 * half_h) + 0.5).reshape(-1)],
+                  -1).astype(_f32)
+    nrm = np.tile(np.array([0, 0, 1], _f32), (len(pos), 1))
+    idx = []
+    for j in range(slices):
+        for i in range(slices):
+            a = j * n + i
+            idx += [[a, a + 1, a + n + 1], [a, a + n + 1, a + n]]
+    return MeshSpec(pos.astype(_f32), nrm, uv, np.array(idx, np.int32), material)
 
 
 def generate_cube(half: float = 1.0, material: int = 0) -> MeshSpec:

@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..materials.rgl import RGLTables, rgl_tables_from_numpy
+
 
 class MaterialType:
     NONE = 0
@@ -81,7 +83,11 @@ class MaterialTable(NamedTuple):
     flags: torch.Tensor     # [M] int32 MaterialFlags
     albedo: torch.Tensor    # [M, 4] RGB + NIR
     emissive: torch.Tensor  # [M, 4]
-    p0: torch.Tensor        # [M, 4] type-specific parameters
+    p0: torch.Tensor        # [M, 4] type-specific parameters (ModPhong: shininess,
+                            #   opacity, specular-lobe probability, ior)
+    p1: torch.Tensor        # [M, 4] (ModPhong: specular colour ks)
+    p2: torch.Tensor        # [M, 4] (ModPhong: transmissive colour)
+    rgl_id: torch.Tensor    # [M] int32 row of SceneArrays.rgl (-1: not RGL)
 
     @property
     def count(self):
@@ -145,6 +151,11 @@ class SceneArrays(NamedTuple):
     n_media: int = 0
     bvh: Optional[BVHArrays] = None
     envmap: Optional[EnvMapArrays] = None
+    rgl: Optional[RGLTables] = None                 # measured materials (None: no RGL)
+    # Per-prim pick probability and 1 / area for the per-light MIS weight
+    # (render/lights.lights_pdf_at_hit); zero for prims that are not lights.
+    prim_light_pick: Optional[torch.Tensor] = None  # [P] f32
+    prim_inv_area: Optional[torch.Tensor] = None    # [P] f32
 
     @property
     def has_bvh(self) -> bool:
@@ -185,6 +196,8 @@ def scene_from_numpy(a, device) -> SceneArrays:
     `a` is ``wurblpt_tpu.scene.ir.SceneArrays`` after
     ``jax.tree_util.tree_map(np.asarray, ...)``; it is read by attribute only.
     Where the JAX scene has a BVH, the port builds its own from the triangles.
+    The RGL tables come across where a material is RGL (the JAX scene always
+    carries a placeholder table).
     """
     t, s, m = a.tris, a.spheres, a.materials
     tris = Triangles(*(_f32(getattr(t, f), device) for f in Triangles._fields[:12]),
@@ -194,7 +207,8 @@ def scene_from_numpy(a, device) -> SceneArrays:
                       _f32(np.reshape(s.radius, (-1,)), device), _i32(s.mat, device))
     materials = MaterialTable(_i32(m.typ, device), _i32(m.flags, device),
                               _f32(m.albedo, device), _f32(m.emissive, device),
-                              _f32(m.p0, device))
+                              _f32(m.p0, device), _f32(m.p1, device), _f32(m.p2, device),
+                              _i32(m.rgl_id, device))
     opt = lambda x, conv: None if x is None else conv(x, device)  # noqa: E731
     n_textures = int(np.shape(a.textures.typ)[0])
     e = a.envmap
@@ -219,4 +233,8 @@ def scene_from_numpy(a, device) -> SceneArrays:
         n_media=int(np.shape(a.media.density)[0]),
         bvh=bvh,
         envmap=envmap,
+        rgl=(rgl_tables_from_numpy(a.rgl, device)
+             if bool(np.any(np.asarray(m.typ) == MaterialType.RGL)) else None),
+        prim_light_pick=opt(a.prim_light_pick, _f32),
+        prim_inv_area=opt(a.prim_inv_area, _f32),
     )

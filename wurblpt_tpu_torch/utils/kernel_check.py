@@ -20,12 +20,26 @@ still differ, such as atan2f/asinf against PyTorch's):
   sampled directions atol 1e-6; pdfs equal (a table lookup) on all but
   1e-4 of the lanes (an ulp of atan2f can move a direction across a cell
   edge).
+* K7 RGL eval / sample: f*cos and pdf rtol 1e-5, atol 1e-6; `ok` equal on
+  every lane, sampled directions atol 1e-6 where ok (kernel and plain
+  version take the same row searches in the same order; a margin, not an
+  expected difference).
+* P0 row gather: equal word for word (a copy).
 
-Also the two frames the port renders and their yardsticks: the Cornell
-bench frame and the mesh frame (bench config bvh_100k), each with the JAX
-package's deterministic CPU output at the bench settings, which the port's
-render must meet (mean radiance within 1e-3 relative, cast counters within
-0.5 %).
+Also the three frames the port renders and their yardsticks: the Cornell
+bench frame, the mesh frame (bench config bvh_100k) and the city frame
+(bench config city_many_lights), each with the JAX package's deterministic
+CPU output at the bench settings, which the port's render must meet (mean
+radiance within 1e-3 relative, cast counters within 0.5 %).
+
+`bound_ms` is the least time an H100 could take for a kernel's work on the
+given inputs: the larger of the bytes it must move (each input read once,
+each output written once; a table that many lanes read, such as the BVH or
+the hit rows, counts once) over 3.35 TB/s and its float32 operations over
+67 TFLOP/s (the non-tensor FP32 peak at 700 W). The operation counts are
+tallies of each kernel's arithmetic per unit of work, stated beside each
+`*_work` function; where the work depends on the data (BVH walks, early
+exits) it is counted on these inputs with the plain version.
 """
 
 from __future__ import annotations
@@ -36,9 +50,19 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from ..accel.traverse import bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain
+from ..accel.traverse import (
+    bvh_any_hit,
+    bvh_any_hit_plain,
+    bvh_closest_hit,
+    bvh_closest_hit_plain,
+    bvh_walk_counts,
+)
+from ..core import sampler
+from ..core.onb import onb_from_normal_tangent, to_local
+from ..materials.rgl import rgl_eval, rgl_eval_plain, rgl_sample, rgl_sample_plain
 from ..render.bsdf import SceneStatic
-from ..render.camera import CameraConfig, camera_rays, make_camera
+from ..render.camera import CameraConfig, SurroundMode, camera_rays, make_camera
+from ..render.gather import row_gather, row_gather_plain
 from ..render.envmap import (
     env_pdf,
     env_pdf_plain,
@@ -48,7 +72,7 @@ from ..render.envmap import (
     env_sample_plain,
 )
 from ..render.integrator import RenderParams, render_frame_wavefront
-from ..render.intersect import assemble_hit, assemble_hit_plain
+from ..render.intersect import assemble_hit, assemble_hit_plain, build_hit_tables, scene_raw_hit
 from ..render.intersect_brute import (
     BIG,
     any_hit,
@@ -90,17 +114,41 @@ MESH_LANES = MESH_WIDTH * MESH_HEIGHT * MESH_LANES_M
 MESH_REF_MEAN = 0.345844278874743
 MESH_REF_STATS = (174435, 278267)
 
+# The city frame (bench.py bench_city_many_lights): city_night(seed=7),
+# 249218 triangles, 192 light triangles, 1920 x 1080, 360-degree stereo
+# (eye distance 0.065), 1 spp, 4 path components. The JAX bench's 65536-lane
+# host blocks work around a TPU fault; at 1 spp the image and the counters do
+# not depend on the block size, and the port runs blocks of 1048576 lanes
+# (two blocks per frame).
+CITY_WIDTH = 1920
+CITY_HEIGHT = 1080
+CITY_SSQRT = 1
+CITY_DEPTH = 4
+CITY_EYE_DISTANCE = 0.065
+CITY_CAMERA = CameraConfig(surround=SurroundMode.S360, stereo=True)
+CITY_LANES = 1048576
+# The JAX package's CPU output for it (float64 mean of the f32 image; cast
+# counters): `JAX_PLATFORMS=cpu python jax_frame_reference.py` (host blocks
+# of 131072 lanes).
+CITY_REF_MEAN = 0.06086526045745766
+CITY_REF_STATS = (3917102, 7996412)
 
-def _frame(scene, camera, width, height, ssqrt, depth, device) -> Callable[[], tuple]:
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
+H100_FP32_PER_S = 67e12      # float32 outside the tensor cores, 700 W
+
+
+def _frame(scene, camera, width, height, ssqrt, depth, device, cfg=CameraConfig(),
+           eye_distance=0.0635, max_lanes=131072) -> Callable[[], tuple]:
     static = SceneStatic.from_scene(scene)
     pose, vfov = camera
-    cam = make_camera(pose, vfov, width, height, device=device)
+    cam = make_camera(pose, vfov, width, height, eye_distance=eye_distance, device=device)
     params = RenderParams(max_path_components=depth)
 
     def render():
-        img, stats = render_frame_wavefront(scene, static, cam, CameraConfig(), SensorRGB(),
+        img, stats = render_frame_wavefront(scene, static, cam, cfg, SensorRGB(),
                                             width, height, ssqrt, params=params,
-                                            return_stats=True, device=device)
+                                            max_lanes=max_lanes, return_stats=True,
+                                            device=device)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         return img, stats
@@ -123,6 +171,14 @@ def mesh_frame(device, scene=None) -> Callable[[], tuple]:
                   MESH_DEPTH, device)
 
 
+def city_frame(device, scene=None) -> Callable[[], tuple]:
+    """The same for the city frame; `scene` is city_night(seed=7) on `device`,
+    built here when not given."""
+    scene = scenes.city_night(seed=7, device=device) if scene is None else scene
+    return _frame(scene, scenes.city_camera(device), CITY_WIDTH, CITY_HEIGHT, CITY_SSQRT,
+                  CITY_DEPTH, device, CITY_CAMERA, CITY_EYE_DISTANCE, CITY_LANES)
+
+
 def _check_frame(img, stats, shape, ref_mean, ref_stats) -> float:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), "image has non-finite values"
@@ -142,6 +198,11 @@ def check_bench_frame(img, stats) -> float:
 def check_mesh_frame(img, stats) -> float:
     """Hold a mesh frame to the JAX reference; returns its mean radiance."""
     return _check_frame(img, stats, (MESH_HEIGHT, MESH_WIDTH, 3), MESH_REF_MEAN, MESH_REF_STATS)
+
+
+def check_city_frame(img, stats) -> float:
+    """Hold a city frame to the JAX reference; returns its mean radiance."""
+    return _check_frame(img, stats, (CITY_HEIGHT, CITY_WIDTH, 3), CITY_REF_MEAN, CITY_REF_STATS)
 
 
 def _f32(x, device):
@@ -304,6 +365,154 @@ def check_envmap(env, dirs, u3) -> Dict[str, float]:
                                                       (pdf, ppdf)))
     return {"max_abs_err": err, "lanes": n, "pdf_lanes_off": int((pdf != ppdf).sum()),
             "sample_pdf_lanes_off": int((spdf != pspdf).sum())}
+
+
+def city_rgl_lanes(scene, device):
+    """K7's inputs at the city frame's block width: (mid, wi, wo, u2), CITY_LANES
+    lanes made from numpy seed 4.
+
+    Half of the lanes (at most) are hits of the city frame's camera rays (every
+    other pixel, 360-degree stereo), in the hit's tangent frame: wi toward the
+    camera, wo a cosine-sampled bounce direction. The rest are random
+    tangent-space lanes: wi and wo uniform on the sphere (below-horizon ones
+    included). u2 is uniform; every lane uses material 0."""
+    n = CITY_LANES
+    rs = np.random.default_rng(4)
+    pose, vfov = scenes.city_camera(device)
+    cam = make_camera(pose, vfov, CITY_WIDTH, CITY_HEIGHT, eye_distance=CITY_EYE_DISTANCE,
+                      device=device)
+    pix = np.arange(0, CITY_WIDTH * CITY_HEIGHT, 2)
+    pxy = np.stack([pix % CITY_WIDTH, pix // CITY_WIDTH], -1) + rs.uniform(size=(len(pix), 2))
+    o, d = camera_rays(cam, CITY_CAMERA, _f32(pxy, device), CITY_WIDTH, CITY_HEIGHT)
+    m = o.shape[0]
+    t, prim, u, v = scene_raw_hit(scene.bvh, o.contiguous(), d.contiguous(),
+                                  torch.full((m,), MIN_HIT, device=device),
+                                  torch.full((m,), BIG, device=device))
+    hr = assemble_hit(build_hit_tables(scene), o.contiguous(), d.contiguous(), t, prim, u, v)
+    keep = torch.nonzero(hr.hit)[: n // 2, 0]
+    tb = onb_from_normal_tangent(hr.normal[keep], hr.tangent[keep])
+    nrm = hr.normal[keep]
+    bounce = sampler.cosine_direction(nrm, _f32(rs.uniform(size=(keep.shape[0], 2)), device))
+    wi_c = to_local(-d[keep], *tb, nrm)
+    wo_c = to_local(bounce, *tb, nrm)
+
+    def sphere(k):
+        x = rs.normal(size=(k, 3))
+        return _f32(x / np.linalg.norm(x, axis=-1, keepdims=True), device)
+
+    k = n - keep.shape[0]
+    wi = torch.cat([wi_c, sphere(k)]).contiguous()
+    wo = torch.cat([wo_c, sphere(k)]).contiguous()
+    u2 = _f32(rs.uniform(size=(n, 2)), device)
+    return torch.zeros((n,), dtype=torch.int32, device=device), wi, wo, u2
+
+
+def check_rgl(tables, lanes) -> Dict[str, float]:
+    """K7's two entry points against their plain versions on lanes (mid, wi, wo, u2)."""
+    mid, wi, wo, u2 = lanes
+    (f, p), (pf, pp) = rgl_eval(tables, mid, wi, wo), rgl_eval_plain(tables, mid, wi, wo)
+    sd, sf, sp, ok = rgl_sample(tables, mid, wi, u2)
+    psd, psf, psp, pok = rgl_sample_plain(tables, mid, wi, u2)
+    off = int((ok != pok).sum())
+    assert off == 0, f"rgl_sample: ok differs on {off} lanes"
+    for name, a, b in (("rgl_eval f*cos", f, pf), ("rgl_eval pdf", p, pp),
+                       ("rgl_sample f*cos", sf, psf), ("rgl_sample pdf", sp, psp)):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6), f"{name} differs"
+    assert torch.allclose(sd[ok], psd[ok], rtol=0.0, atol=1e-6), "rgl_sample directions differ"
+    err = max(float((a - b).abs().max()) for a, b in ((f, pf), (p, pp), (sf, psf), (sp, psp),
+                                                       (sd[ok], psd[ok])))
+    return {"max_abs_err": err, "lanes": int(mid.shape[0]), "eval_nonzero": int((p > 0).sum()),
+            "sample_ok": int(ok.sum())}
+
+
+def check_row_gather(table, idx) -> Dict[str, float]:
+    """P0 against its plain version: equal word for word."""
+    out, ref = row_gather(table, idx), row_gather_plain(table, idx)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), "row_gather differs"
+    return {"max_abs_err": 0.0, "rows": int(idx.shape[0]), "cols": int(table.shape[1])}
+
+
+def probe_gather_inputs(device):
+    """The Pallas probe's own shapes (tools/probe_pallas_gather.py): a [512, 128]
+    f32 table with 256 row indices, and a [512] vector (as [512, 1]) with
+    [8, 128] indices (flattened), from numpy seed 0."""
+    rs = np.random.RandomState(0)
+    table = _f32(rs.randn(512, 128), device)
+    idx = rs.randint(0, 512, (8, 128)).astype(np.int32)
+    rows = rs.randint(0, 512, (256,)).astype(np.int32)
+    vec = _f32(rs.randn(512, 1), device)
+    return ((table, torch.as_tensor(rows, device=device)),
+            (vec, torch.as_tensor(idx.reshape(-1), device=device)))
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least time in ms on an H100 at 700 W, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / H100_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _table_bytes(tensors):
+    """Bytes of the tensors among `tensors` (a NamedTuple of tables), each read once."""
+    return sum(x.numel() * x.element_size() for x in tensors if isinstance(x, torch.Tensor))
+
+
+def closest_hit_work(bs, rays):
+    """K1: rays in (o, d, t_min, t_max) and hits out; 40 flops per ray and
+    triangle (four linear functionals of the ray and the division-free
+    predicates), 20 per ray and sphere; the primitive rows read once."""
+    n = rays[0].shape[0]
+    return n * 32 + n * 16 + _table_bytes(bs), n * (40 * bs.n_tris + 20 * bs.n_spheres)
+
+
+def any_hit_work(bs, rays):
+    """K2: as K1 with a bool out, and each lane tests primitives only up to
+    its first blocker (counted on these rays)."""
+    blocked = candidate_t(bs, *rays) < BIG
+    first = torch.where(blocked.any(1), blocked.to(torch.int8).argmax(1) + 1, blocked.shape[1])
+    n = rays[0].shape[0]
+    return n * 33 + _table_bytes(bs), 40 * float(first.sum())
+
+
+def assemble_hit_work(ht, n: int):
+    """K3: o, d, t, prim, u, v in; position, normal, geometric normal,
+    tangent, uv, material, backside out; the hit tables read once (rows
+    shared by many lanes stay in cache); about 120 flops per lane."""
+    return n * 40 + n * (4 * 14 + 4 + 1) + _table_bytes(ht), n * 120.0
+
+
+def bvh_work(bvh, rays, any_hit: bool):
+    """K5/K6: rays in, results out, the node, vertex and id tables read once
+    (rows visited by many rays stay in cache); two slab tests (48 flops) for
+    each inner-node visit of the walk and 60 flops (the watertight test) for
+    each leaf triangle test, counted with the plain walk on these rays."""
+    c = bvh_walk_counts(bvh, *rays, any_hit=any_hit)
+    n = rays[0].shape[0]
+    n_bytes = n * 32 + (n if any_hit else n * 16) + _table_bytes(bvh)
+    return n_bytes, 48.0 * c["nodes"] + 60.0 * c["tri_tests"]
+
+
+def envmap_work(env, n: int):
+    """K8, one call of each entry point: directions and uniforms in, radiance,
+    sampled directions and pdfs out, the image and tables read once; about
+    60 flops per lane and entry point."""
+    return n * (12 + 16) + n * (12 + 12 + 4) + n * (12 + 4) + _table_bytes(env[1:]), n * 180.0
+
+
+def rgl_work(tables, n: int, sample: bool):
+    """K7: mid and wi in, with wo (eval) or u2 (sample), f*cos and pdf out
+    (and wo, ok for sample); the tables read once. About 450 flops per lane
+    for eval (two parameter searches, the vndf inversion, 16 rgb, 8 ndf/sigma
+    and 8 luminance corner fetches) and 900 for sample (two full warps with
+    their marginal and conditional row searches)."""
+    t_bytes = _table_bytes(tables)
+    if sample:
+        return n * (4 + 12 + 8) + n * (12 + 16 + 4 + 1) + t_bytes, n * 900.0
+    return n * (4 + 12 + 12) + n * (16 + 4) + t_bytes, n * 450.0
+
+
+def row_gather_work(table, idx):
+    """P0: the table and the indices read once, the rows written; no arithmetic."""
+    return table.numel() * 4 + idx.numel() * 4 + idx.numel() * table.shape[1] * 4, 0.0
 
 
 def time_ms(fn: Callable[[], object], device, n: int = 20, warmup: int = 3) -> float:

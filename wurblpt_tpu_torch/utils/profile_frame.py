@@ -1,9 +1,10 @@
-"""Where the time of the Cornell bench frame and of the mesh frame goes on the GPU.
+"""Where the time of the port's three frames goes on the GPU.
 
     python -m wurblpt_tpu_torch.utils.profile_frame
 
-For each frame in turn (Cornell first, then the mesh frame of bench config
-bvh_100k): renders it once to warm up, 5 times unprofiled, once under
+For each frame in turn (the Cornell bench frame, the mesh frame of bench
+config bvh_100k, the city frame of bench config city_many_lights): renders
+it once to warm up, 5 times unprofiled, once under
 torch.profiler (CPU + CUDA activities), and 3 times more unprofiled (frames
 after a profiled one run slower), and prints: the wavefront steps,
 the number of kernel launches, the summed device time of all kernels, the
@@ -23,10 +24,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import native
-from .kernel_check import bench_frame, mesh_frame
+from .kernel_check import bench_frame, city_frame, mesh_frame
 
 _OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
-         "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel")
+         "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
+         "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel")
 _TOP = 25
 
 
@@ -83,6 +85,7 @@ def main():
         raise SystemExit("profile_frame: needs a CUDA device")
     profile_one("cornell bench frame", bench_frame("cuda"), "closest_hit")
     profile_one("mesh frame (bvh_100k)", mesh_frame("cuda"), "bvh_closest_hit")
+    profile_one("city frame (city_many_lights)", city_frame("cuda"), "bvh_closest_hit")
 
 
 if __name__ == "__main__":

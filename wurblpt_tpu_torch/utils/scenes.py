@@ -1,39 +1,28 @@
 """Benchmark scenes for the port (subset of ``wurblpt_tpu/utils/scenes.py``).
 
-The Cornell-box vertex data lives in ``wurblpt_tpu/utils/cornell_data.py``,
-which imports only numpy. It is loaded here by file path, so the JAX package's
-``__init__`` (which imports jax) never runs. The mesh path's `terrain_city`
-is built here with numpy alone, draw for draw as the JAX builder builds it.
+Each is built with numpy alone, draw for draw as the JAX builder builds it:
+the Cornell box from the port's copy of the reference vertex data
+(:mod:`.cornell_data`), the mesh path's `terrain_city`, and the city path's
+`city_night` with its OBJ/MTL round trip through :mod:`wurblpt_tpu_torch.io.obj`.
 """
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
+import tempfile
 
 import numpy as np
 
 from ..core.transform import Transformation, from_lookat, quat_from_axis_angle
 from ..render.envmap import EnvironmentMapEquiRect
 from ..scene import generator as G
-from ..scene.flatten import MeshSpec, flatten_meshes, material_table
+from ..scene.flatten import MeshSpec, ModPhong, flatten_meshes, material_table
 from ..scene.ir import MaterialType
-
-_CORNELL_DATA = (Path(__file__).resolve().parents[2]
-                 / "wurblpt_tpu" / "utils" / "cornell_data.py")
-
-
-def _cornell_data():
-    spec = importlib.util.spec_from_file_location("_wurblpt_cornell_data", _CORNELL_DATA)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from . import cornell_data as cd
 
 
 def cornell_box_ref(device="cpu"):
     """The reference Cornell box (wurblpt-cornellbox.cpp:43-229 default config):
     the same arrays as ``wurblpt_tpu.utils.scenes.cornell_box_ref().build()``."""
-    cd = _cornell_data()
     names = ("white", "red", "green")
     rows = [(MaterialType.LAMBERTIAN, cd.ALBEDO[n], None) for n in names]
     rows.append((MaterialType.LIGHT_DIFFUSE, cd.LIGHT_RADIANCE, None))
@@ -131,3 +120,130 @@ def terrain_city(seed: int = 3, terrain_res: int = 192, n_buildings: int = 220,
 def terrain_camera(device="cpu"):
     """The bvh_100k bench viewpoint (bench.py bench_bvh_large): (pose, vfov_deg)."""
     return from_lookat((14.0, 9.0, 14.0), (0.0, 0.5, 0.0), device=device), 45.0
+
+
+def _smooth_positive(shape, seed, lo=0.05, hi=1.0):
+    rs = np.random.RandomState(seed)
+    a = rs.uniform(lo, hi, shape).astype(np.float32)
+    for ax in range(a.ndim):
+        a = 0.5 * a + 0.25 * (np.roll(a, 1, ax) + np.roll(a, -1, ax))
+    return a.astype(np.float32)
+
+
+def city_rgl_fields(seed: int = 7):
+    """The city's measured material: P = 1, T = 4, a 16 x 16 vndf, 8 x 8
+    luminance and rgb tables, smooth positive noise from `seed`."""
+    T = 4
+    return dict(
+        phi_i=np.zeros((1,), np.float32),
+        theta_i=np.linspace(0.0, np.pi / 2, T).astype(np.float32),
+        ndf=_smooth_positive((16, 16), seed + 11),
+        sigma=_smooth_positive((16, 16), seed + 12, 0.2, 0.4),
+        vndf=_smooth_positive((1, T, 16, 16), seed + 13),
+        luminance=_smooth_positive((1, T, 8, 8), seed + 14),
+        rgb=_smooth_positive((1, T, 3, 8, 8), seed + 15),
+    )
+
+
+def city_night(seed: int = 7, terrain_res: int = 320, n_buildings: int = 320,
+               n_windows: int = 96, sphere_slices: int = 32, device="cpu"):
+    """The city path's scene (bench config city_many_lights at the defaults:
+    249218 triangles, 192 light triangles): an fBm terrain, ModPhong box
+    buildings, emissive window quads of powers over two decades, GGX and
+    mirror spheres, all exported to OBJ/MTL and imported again; then a
+    measured-RGL sphere and a dim equirect night sky, behind the port's BVH.
+
+    The same arrays as ``wurblpt_tpu.utils.scenes.city_night(...).build(use_bvh=True)``,
+    random draws in the same order. The round trip turns the windows into
+    emissive ModPhong, the GGX spheres into Lambertian (Kd, no Ks) and the
+    mirrors into ModPhong (Ks), as it does in the JAX package."""
+    from ..io.obj import export_scene_to_obj, import_into_scene
+    from ..materials.rgl import load_rgl_material
+
+    rs = np.random.RandomState(seed)
+    rows = [(MaterialType.LAMBERTIAN, (0.25, 0.28, 0.24), None)]
+    phases = [(rs.uniform(0, 2 * np.pi), rs.uniform(0, 2 * np.pi)) for _ in range(4)]
+
+    def fbm(x, z):
+        out = np.zeros_like(np.asarray(x, np.float32))
+        for octave, (px, pz) in enumerate(phases):
+            f = 0.12 * (2.0 ** octave)
+            a = 0.9 * (0.5 ** octave)
+            out = out + a * np.sin(f * x + px) * np.cos(f * z + pz)
+        return out
+
+    res = terrain_res
+    xs = np.linspace(-24.0, 24.0, res, dtype=np.float32)
+    zs = np.linspace(-24.0, 24.0, res, dtype=np.float32)
+    xx, zz = np.meshgrid(xs, zs, indexing="ij")
+    pos = np.stack([xx, fbm(xx, zz), zz], -1).reshape(-1, 3)
+    idx = []
+    for i in range(res - 1):
+        a0 = i * res + np.arange(res - 1)
+        idx.append(np.stack([a0, a0 + 1, a0 + res], -1))
+        idx.append(np.stack([a0 + 1, a0 + res + 1, a0 + res], -1))
+    idx = np.concatenate(idx, 0).astype(np.int32)
+    uv = np.stack([(xx + 24.0) / 48.0, (zz + 24.0) / 48.0], -1).reshape(-1, 2)
+    meshes = [MeshSpec(pos.astype(np.float32), None, uv.astype(np.float32), idx, 0)]
+
+    cube = G.generate_cube(0.5)
+    building_info = []
+    for _ in range(n_buildings):
+        bx, bz = rs.uniform(-22, 22, 2)
+        bh = rs.uniform(0.8, 4.0)
+        sx, sz = rs.uniform(0.5, 1.6), rs.uniform(0.5, 1.6)
+        col = tuple(0.25 + 0.5 * rs.rand(3))
+        rows.append((MaterialType.MODPHONG, col,
+                     ModPhong(specular=tuple(0.1 + 0.2 * rs.rand(3)),
+                              shininess=float(rs.uniform(20, 160)))))
+        ty = float(fbm(bx, bz)) + bh / 2
+        tf = Transformation.make(translation=(bx, ty, bz), scale=(sx, bh, sz))
+        meshes.append(cube._replace(material=len(rows) - 1, transformation=tf))
+        building_info.append((bx, ty, bz, sx, bh, sz))
+
+    for wi in range(n_windows):
+        bx, ty, bz, sx, bh, sz = building_info[wi % len(building_info)]
+        warm = np.array([1.0, rs.uniform(0.5, 0.9), rs.uniform(0.2, 0.6)])
+        rows.append((MaterialType.LIGHT_DIFFUSE, tuple(warm * rs.uniform(2.0, 120.0)), None))
+        side = 1.0 if wi % 2 == 0 else -1.0
+        wtf = Transformation.make(
+            translation=(bx + side * (sx * 0.5 + 0.01), ty + rs.uniform(-0.3, 0.3) * bh, bz),
+            rotation=quat_from_axis_angle((0, 1, 0), side * np.pi / 2),
+            scale=(0.18, 0.12, 1.0))
+        meshes.append(G.generate_quad(1.0, 1.0)._replace(material=len(rows) - 1,
+                                                         transformation=wtf, hot_spot=True))
+
+    for i in range(20):
+        sx_, sz_ = rs.uniform(-18, 18, 2)
+        if i % 3:
+            rows.append((MaterialType.GGX, (0.8, 0.7, 0.6), 0.08 + 0.2 * rs.rand()))
+        else:
+            rows.append((MaterialType.MIRROR, None, None))
+        tf = Transformation.make(translation=(sx_, float(fbm(sx_, sz_)) + 1.4, sz_),
+                                 scale=(0.8, 0.8, 0.8))
+        meshes.append(G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices)
+                      ._replace(material=len(rows) - 1, transformation=tf))
+
+    with tempfile.TemporaryDirectory(prefix="wurblpt_city_") as workdir:
+        path = f"{workdir}/city_night.obj"
+        export_scene_to_obj(meshes, rows, path)
+        meshes, rows = import_into_scene(path)
+
+    # After the round trip (MTL cannot hold them): the RGL sphere and the sky.
+    rows.append((MaterialType.RGL, None, 0))
+    meshes.append(G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices)._replace(
+        material=len(rows) - 1,
+        transformation=Transformation.make(translation=(0.0, float(fbm(0.0, 4.0)) + 1.6, 4.0),
+                                           scale=(1.2, 1.2, 1.2))))
+    night = procedural_sky(sun_radiance=2.0) * 0.08
+    return flatten_meshes(meshes, material_table(rows), device, use_bvh=True,
+                          envmap=EnvironmentMapEquiRect(night.astype(np.float32),
+                                                        importance_resolution=32),
+                          rgl_tables=[load_rgl_material(city_rgl_fields(seed))])
+
+
+def city_camera(device="cpu"):
+    """The city_many_lights bench viewpoint (bench.py bench_city_many_lights):
+    (pose, vfov_deg); the camera is a 360-degree stereo one with eye distance
+    0.065 (`utils.kernel_check.CITY_*`)."""
+    return from_lookat((0.0, 3.5, 14.0), (0.0, 1.5, 0.0), device=device), 50.0
