@@ -9,7 +9,10 @@ Phases, each a function, any failure exits non-zero and names its phase:
    nvcc per source, all at once; compile the host BVH builder with g++.
 2. scenes - terrain_city(seed=3) (102098 triangles) and city_night(seed=7)
    (249218 triangles after its OBJ/MTL round trip, 192 light triangles, an
-   RGL sphere), each built on the card's host with its BVH.
+   RGL sphere), each built on the card's host with its BVH;
+   envmap_spheres(cube=True) (2 triangles, 3 spheres, a cube-map sky with a
+   64 x 64 importance table) and rtiow() (40 spheres, no triangle, a
+   constant sky).
 3. kernels - each kernel against its plain PyTorch version on the card, at
    its path's shapes, with the tolerances of utils/kernel_check.py; each
    kernel's wrapper-call time beside the plain version's and, where one
@@ -21,7 +24,13 @@ Phases, each a function, any failure exits non-zero and names its phase:
    their first hits and random rays, K8 on the camera directions and on
    uniforms; K7 on 1048576 lanes of the city frame's block (camera hits and
    their bounce directions, random tangent-space lanes); P0 on the Pallas
-   probe's shapes and on the city's material rows at 1048576 lanes.
+   probe's shapes and on the city's material rows at 1048576 lanes. K1-K3
+   also on the rtiow frame's 98304 camera rays (spheres alone, no triangle),
+   K1 and K3 on the envmap frame's 131072 camera rays (triangles and spheres
+   together) and K2 on its env-NEE shadow rays; K8 on the cube map
+   (the envmap frame's 131072 camera directions, random directions, and
+   the axis, diagonal, face-edge and texel-boundary directions) and on the
+   constant map, both bit-equal.
 4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
    components, SensorRGB) through render_frame_wavefront on the GPU. K1, K2
    and K3 must be launched, the image must be finite, its mean within 1e-3
@@ -34,9 +43,18 @@ Phases, each a function, any failure exits non-zero and names its phase:
    stereo, 1 spp, 4 path components, per-light MIS): K3, K5, K6, K7 (eval and
    sample), K8 and P0 must be launched, and the frame held to its JAX
    reference as in phase 4.
+7. envmap path - the envmap_cube_is bench frame (128 x 128, 16 spp, 8 path
+   components; glass, mirror and GGX spheres under the importance-sampled
+   cube-map sky): K1, K2, K3, P0 and K8 (radiance, sample, pdf) must be
+   launched, and the frame held to its JAX reference as in phase 4.
+8. rtiow path - the rtiow_distortion bench frame (192 x 128, 16 spp, 8 path
+   components, OpenCV lens, 40 spheres under a constant sky): K1, K3, P0
+   and K8 radiance must be launched (no shadow ray: no light, no sky
+   importance), and the frame held to its JAX reference as in phase 4.
 
 Each path's counters are set to 0 just before it and read just after; a
-kernel's `launches` in the JSON line is the sum over the three paths.
+kernel's `launches` in the JSON line is the sum over the paths that use
+it (K8's three records each over the paths of their map's kind).
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -55,31 +73,38 @@ import traceback
 DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
-KERNELS = {  # name -> (source, TPU kernel it replaces, launch counters)
+PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path")
+ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
+# name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
+KERNELS = {
     "closest_hit": ("wurblpt_tpu_torch/csrc/closest_hit.cu",
-                    "wurblpt_tpu/render/intersect_mxu.py:164", ("closest_hit",)),
+                    "wurblpt_tpu/render/intersect_mxu.py:164", ("closest_hit",), PATHS),
     "any_hit": ("wurblpt_tpu_torch/csrc/any_hit.cu",
-                "wurblpt_tpu/render/intersect_mxu.py:259", ("any_hit",)),
+                "wurblpt_tpu/render/intersect_mxu.py:259", ("any_hit",), PATHS),
     "assemble_hit": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
-                     "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit",)),
+                     "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit",), PATHS),
     "bvh_closest_hit": ("wurblpt_tpu_torch/csrc/bvh_closest.cu",
-                        "wurblpt_tpu/accel/traverse.py:511", ("bvh_closest_hit",)),
+                        "wurblpt_tpu/accel/traverse.py:511", ("bvh_closest_hit",), PATHS),
     "bvh_any_hit": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
-                    "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",)),
+                    "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",), PATHS),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
-               ("env_radiance", "env_sample", "env_pdf")),
+               ENV_ALL, ("mesh path", "city path")),
+    "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
+                    ENV_ALL, ("envmap path",)),
+    "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
+                        ("env_radiance",), ("rtiow path",)),
     "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
-                 ("rgl_eval",)),
+                 ("rgl_eval",), PATHS),
     "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
-                   ("rgl_sample",)),
+                   ("rgl_sample",), PATHS),
     "row_gather": ("wurblpt_tpu_torch/csrc/row_gather.cu", "tools/probe_pallas_gather.py:20",
-                   ("row_gather",)),
+                   ("row_gather",), PATHS),
 }
 MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit")
-MESH_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
-             "env_pdf")
+MESH_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit") + ENV_ALL
 CITY_PATH = MESH_PATH + ("rgl_eval", "rgl_sample", "row_gather")
-PATHS = ("main path", "mesh path", "city path")
+ENVMAP_PATH = ("closest_hit", "any_hit", "assemble_hit", "row_gather") + ENV_ALL
+RTIOW_PATH = ("closest_hit", "assemble_hit", "row_gather", "env_radiance")
 
 
 def phase_build():
@@ -110,7 +135,7 @@ def _timed_records(timed, errs, lanes):
               f"{'' if library is None else f', library {library_ms:.4f} ms'}; bound "
               f"{bound:.6f} ms by {bound_by} ({work[0]:.4g} bytes, {work[1]:.4g} flops) "
               f"at {lanes} lanes")
-        src, replaces, _ = KERNELS[name]
+        src, replaces, _, _ = KERNELS[name]
         records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": 0, "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -131,11 +156,13 @@ def _run_checks(checks):
     return errs
 
 
-def phase_kernels(mesh_scene, city_scene):
+def phase_kernels(scenes_on_card):
     from wurblpt_tpu_torch.accel import traverse
     from wurblpt_tpu_torch.materials import rgl
     from wurblpt_tpu_torch.render import bsdf, envmap, gather, intersect, intersect_brute
     from wurblpt_tpu_torch.utils import scenes
+
+    mesh_scene, city_scene = scenes_on_card["mesh"], scenes_on_card["city"]
 
     # K1-K3 on the Cornell frame's block.
     scene = scenes.cornell_box_ref(DEVICE)
@@ -144,11 +171,28 @@ def phase_kernels(mesh_scene, city_scene):
     cam = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, DEVICE)
     rnd = kc.random_lanes(cam[0].shape[0], DEVICE)
     shadow = kc.shadow_lanes(scene, bs, cam)
+    # The same on the sphere scenes: rtiow's camera rays (no triangle at all),
+    # and the envmap frame's camera rays (triangles and spheres together) and
+    # env-NEE shadow rays from their first hits.
+    rt_scene, env_scene = scenes_on_card["rtiow"], scenes_on_card["envmap"]
+    rt_bs = intersect_brute.build_brute_scene(rt_scene)
+    rt_ht = intersect.build_hit_tables(rt_scene)
+    rt_cam = kc.rtiow_camera_lanes(DEVICE)
+    env_bs = intersect_brute.build_brute_scene(env_scene)
+    env_ht = intersect.build_hit_tables(env_scene)
+    env_cam = kc.envmap_camera_lanes(DEVICE)
+    env_shadow = kc.env_shadow_lanes(env_scene, env_cam, env_bs)
     errs = _run_checks((
-        ("closest_hit", lambda r: kc.check_closest_hit(bs, r), {"camera": (cam,), "random": (rnd,)}),
-        ("any_hit", lambda r: kc.check_any_hit(bs, r), {"shadow": (shadow,), "random": (rnd,)}),
-        ("assemble_hit", lambda r: kc.check_assemble_hit(bs, ht, r),
-         {"camera": (cam,), "random": (rnd,)})))
+        ("closest_hit", lambda b, r: kc.check_closest_hit(b, r),
+         {"camera": (bs, cam), "random": (bs, rnd), "rtiow camera, spheres only": (rt_bs, rt_cam),
+          "envmap camera": (env_bs, env_cam)}),
+        ("any_hit", lambda b, r: kc.check_any_hit(b, r),
+         {"shadow": (bs, shadow), "random": (bs, rnd),
+          "rtiow camera, spheres only": (rt_bs, rt_cam), "envmap env shadow": (env_bs, env_shadow)}),
+        ("assemble_hit", lambda b, h, r: kc.check_assemble_hit(b, h, r),
+         {"camera": (bs, ht, cam), "random": (bs, ht, rnd),
+          "rtiow camera, spheres only": (rt_bs, rt_ht, rt_cam),
+          "envmap camera": (env_bs, env_ht, env_cam)})))
     t, prim, u, v = intersect_brute.closest_hit_plain(bs, *cam)
     o, d = cam[0], cam[1]
     records = _timed_records({
@@ -179,8 +223,8 @@ def phase_kernels(mesh_scene, city_scene):
         ("envmap", lambda dirs, uni: kc.check_envmap(env, dirs, uni),
          {"camera directions, uniforms": (mcam[1], u3)})))
 
-    def env_all(radiance, sample, pdf):
-        return lambda: (radiance(env, mcam[1]), sample(env, u3), pdf(env, mcam[1]))
+    def env_all(radiance, sample, pdf, env=env, dirs=mcam[1], uni=u3):
+        return lambda: (radiance(env, dirs), sample(env, uni), pdf(env, dirs))
 
     records += _timed_records({
         "bvh_closest_hit": (lambda: traverse.bvh_closest_hit(bvh, *mcam),
@@ -193,6 +237,36 @@ def phase_kernels(mesh_scene, city_scene):
                    env_all(envmap.env_radiance_plain, envmap.env_sample_plain,
                            envmap.env_pdf_plain), kc.envmap_work(env, n), None),
     }, errs, n)
+
+    # K8's cube branch on the envmap frame's sky (with its importance tables)
+    # and its constant branch on rtiow's sky.
+    cube, const = env_scene.envmap, rt_scene.envmap
+    ecam = env_cam[1]
+    ne = ecam.shape[0]
+    eu3 = torch.as_tensor(np.random.default_rng(4).uniform(size=(ne, 3)), dtype=torch.float32,
+                          device=DEVICE)
+    rdirs = kc.random_directions(ne, DEVICE)
+    edges = kc.cube_edge_directions(DEVICE)
+    errs = _run_checks((
+        ("envmap_cube", lambda dirs, uni: kc.check_envmap(cube, dirs, uni),
+         {"envmap camera directions, uniforms": (ecam, eu3), "random directions": (rdirs, eu3),
+          "axes, diagonals, face edges, texel boundaries": (edges, eu3[:edges.shape[0]])}),
+        ("envmap_constant", lambda dirs: kc.check_envmap(const, dirs),
+         {"rtiow camera directions": (rt_cam[1],), "random directions": (rdirs,)})))
+    records += _timed_records({
+        "envmap_cube": (env_all(envmap.env_radiance, envmap.env_sample, envmap.env_pdf, cube, ecam,
+                                eu3),
+                        env_all(envmap.env_radiance_plain, envmap.env_sample_plain,
+                                envmap.env_pdf_plain, cube, ecam, eu3),
+                        kc.envmap_work(cube, ne), None),
+    }, errs, ne)
+    nr = rt_cam[1].shape[0]
+    records += _timed_records({
+        "envmap_constant": (lambda: envmap.env_radiance(const, rt_cam[1]),
+                            lambda: envmap.env_radiance_plain(const, rt_cam[1]),
+                            kc.env_radiance_work(const, nr),
+                            lambda: const.const_radiance.repeat(nr, 1)),
+    }, errs, nr)
 
     # K7 on the city frame's block; P0 on the probe's shapes and the city's material rows.
     tables = city_scene.rgl
@@ -280,18 +354,43 @@ def phase_mesh_path(mesh_scene):
     return launches
 
 
+def phase_envmap_path(env_scene):
+    img, stats, launches, times = _drive("envmap path", kc.envmap_frame(DEVICE, env_scene),
+                                         ENVMAP_PATH)
+    print(f"envmap path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.ENVMAP_REF_MEAN}), stats {stats} "
+          f"(reference {list(kc.ENVMAP_REF_STATS)})")
+    kc.check_envmap_frame(img, stats)
+    _report("envmap path", stats, times, kc.ENVMAP_WIDTH ** 2 * kc.ENVMAP_SSQRT ** 2)
+    return launches
+
+
+def phase_rtiow_path(rt_scene):
+    img, stats, launches, times = _drive("rtiow path", kc.rtiow_frame(DEVICE, rt_scene),
+                                         RTIOW_PATH)
+    print(f"rtiow path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.RTIOW_REF_MEAN}), stats {stats} (reference {list(kc.RTIOW_REF_STATS)})")
+    kc.check_rtiow_frame(img, stats)
+    _report("rtiow path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2)
+    return launches
+
+
 def phase_scenes():
     from wurblpt_tpu_torch.utils import scenes
 
     out = {}
     for label, build in (("mesh", lambda: scenes.terrain_city(seed=3, device=DEVICE)),
-                         ("city", lambda: scenes.city_night(seed=7, device=DEVICE))):
+                         ("city", lambda: scenes.city_night(seed=7, device=DEVICE)),
+                         ("envmap", lambda: scenes.envmap_spheres(cube=True, device=DEVICE)),
+                         ("rtiow", lambda: scenes.rtiow(device=DEVICE))):
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
+        bvh = (f"{scene.bvh.nodes.shape[0]} BVH nodes, depth {scene.bvh.depth}" if scene.has_bvh
+               else "brute force")
         print(f"scenes: {label} scene built for the GPU in {time.perf_counter() - t0:.2f} s: "
-              f"{scene.n_tris} triangles, {scene.n_lights} light triangles, "
-              f"{scene.bvh.nodes.shape[0]} BVH nodes, depth {scene.bvh.depth}")
+              f"{scene.n_tris} triangles, {scene.n_spheres} spheres, {scene.n_lights} light "
+              f"triangles, {bvh}, sky kind {scene.env_kind}")
         out[label] = scene
     return out
 
@@ -328,11 +427,12 @@ def main() -> int:
 
     out = {}
     for name, phase in (("build", phase_build), ("scenes", phase_scenes),
-                        ("kernels", lambda: phase_kernels(out["scenes"]["mesh"],
-                                                          out["scenes"]["city"])),
+                        ("kernels", lambda: phase_kernels(out["scenes"])),
                         ("main path", phase_main_path),
                         ("mesh path", lambda: phase_mesh_path(out["scenes"]["mesh"])),
-                        ("city path", lambda: phase_city_path(out["scenes"]["city"]))):
+                        ("city path", lambda: phase_city_path(out["scenes"]["city"])),
+                        ("envmap path", lambda: phase_envmap_path(out["scenes"]["envmap"])),
+                        ("rtiow path", lambda: phase_rtiow_path(out["scenes"]["rtiow"]))):
         try:
             out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run
@@ -341,7 +441,8 @@ def main() -> int:
             return 1
     records = out["kernels"]
     for r in records:
-        r["launches"] = sum(out[path][c] for path in PATHS for c in KERNELS[r["name"]][2])
+        _, _, counters, paths = KERNELS[r["name"]]
+        r["launches"] = sum(out[path][c] for path in paths for c in counters)
     print(_nvidia_smi())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

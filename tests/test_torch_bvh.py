@@ -50,7 +50,7 @@ def _scenes():
 def _rays(kind):
     rs = np.random.default_rng({"camera": 0, "random": 1, "axis": 2, "dead": 3}[kind])
     if kind == "camera":
-        return kc.camera_lanes(32, 32, 1, "cpu", camera=scenes.terrain_camera())
+        return kc.camera_lanes(32, 32, 1, "cpu", camera=scenes.terrain_camera("cpu"))
     o = rs.uniform((-20.0, -2.0, -20.0), (20.0, 6.0, 20.0), size=(N, 3))
     if kind == "axis":
         d = np.eye(3)[rs.integers(0, 3, N)] * rs.choice([-1.0, 1.0], size=(N, 1))

@@ -70,7 +70,7 @@ def _port_of(jax_scene):
 def small():
     """(JAX scene, the port's scene carried from it, the port's own build)."""
     jscene = jscenes.city_night(seed=7, **SMALL).build(use_bvh=True)
-    return jscene, _port_of(jscene), scenes.city_night(seed=7, **SMALL)
+    return jscene, _port_of(jscene), scenes.city_night(seed=7, **SMALL, device="cpu")
 
 
 def _assert_same(a, b, path="scene"):
@@ -103,7 +103,7 @@ def test_city_night_equals_jax_build_field_by_field(small):
 def test_city_roundtrip_preserves_lights_scale_and_picks():
     kw = dict(terrain_res=60, n_buildings=24, n_windows=66, sphere_slices=8)
     direct = jscenes.city_night(obj_roundtrip=False, **kw).build(use_bvh=False)
-    rt = scenes.city_night(**kw)
+    rt = scenes.city_night(**kw, device="cpu")
     assert rt.n_lights == direct.n_lights == 132
     assert rt.n_tris == direct.n_tris       # the RGL sphere comes after the round trip in both
     w = rt.light_weights.numpy()
@@ -173,8 +173,8 @@ def test_small_city_render_matches_jax(small):
                            JCameraConfig(surround=JSurroundMode.S360, stereo=True), JSensorRGB(),
                            W, H, 1, params=JRenderParams(max_path_components=4),
                            return_stats=True)
-    pose, vfov = scenes.city_camera()
-    cam = make_camera(pose, vfov, W, H, eye_distance=0.065)
+    pose, vfov = scenes.city_camera("cpu")
+    cam = make_camera(pose, vfov, W, H, eye_distance=0.065, device="cpu")
     img, stats = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam,
                                         CameraConfig(surround=SurroundMode.S360, stereo=True),
                                         SensorRGB(), W, H, 1,

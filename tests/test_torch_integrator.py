@@ -3,7 +3,17 @@
 Both draw the same counter-based random numbers, so a path can differ only
 where f32 rounding flips a discrete decision (a hit, a Russian-roulette
 draw): at least 99% of pixels must agree to rtol 1e-3, the image mean to
-1e-4 relative, and the cast counters to 0.5%."""
+1e-4 relative, and the cast counters to 0.5%.
+
+The sphere scenes flip more: a ray leaving a sphere decides whether it
+re-hits its own sphere on the last bits of the re-centred quadratic's
+constant term (the scene centre lies 25 units from rtiow's small spheres),
+and the port's cast and XLA's round those bits differently. One bounce on
+identical states parts only on such lanes
+(test_one_bounce_on_identical_states_matches_jax), but a parted path stays
+parted: at these small sizes at least 97 % of pixels agree, the mean to
+1e-3 relative and the counters to 1 % (the full bench frames, 64 and 256
+times the paths, meet 0.5 %: utils/kernel_check.py)."""
 
 import jax
 import numpy as np
@@ -14,6 +24,7 @@ from wurblpt_tpu import CameraConfig as JCameraConfig, RenderParams as JRenderPa
 from wurblpt_tpu import SceneStatic as JSceneStatic, SensorRGB as JSensorRGB
 from wurblpt_tpu import make_camera as jmake_camera
 from wurblpt_tpu.core.transform import from_lookat as jfrom_lookat
+from wurblpt_tpu.render.camera import DistortionModel as JDistortionModel
 from wurblpt_tpu.render.integrator import render_frame_wavefront as jrender
 from wurblpt_tpu.utils import scenes as jscenes
 from wurblpt_tpu_torch import (
@@ -21,11 +32,19 @@ from wurblpt_tpu_torch import (
     RenderParams,
     SceneStatic,
     SensorRGB,
+    camera_rays,
+    from_lookat,
     make_camera,
     render_frame_wavefront,
     scene_from_numpy,
 )
-from wurblpt_tpu_torch.render.camera import camera_from_numpy
+from wurblpt_tpu_torch.render.camera import DistortionModel, camera_from_numpy
+from wurblpt_tpu_torch.render.envmap import env_radiance_plain
+from wurblpt_tpu_torch.render.intersect_brute import build_brute_scene, closest_hit
+from wurblpt_tpu_torch.scene.flatten import (Glass, MeshSpec, SphereSpec, flatten_meshes,
+                                             material_table)
+from wurblpt_tpu_torch.scene.generator import generate_quad
+from wurblpt_tpu_torch.scene.ir import MaterialType
 from wurblpt_tpu_torch.utils import scenes
 
 torch.set_num_threads(2)
@@ -95,7 +114,7 @@ def test_mesh_frame_matches_jax_per_pixel():
                            return_stats=True)
     jimg, jstats = np.asarray(jimg), np.asarray(jstats)
 
-    scene = scenes.terrain_city(seed=3, **small)
+    scene = scenes.terrain_city(seed=3, **small, device="cpu")
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
     img, stats = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam,
                                         CameraConfig(), SensorRGB(), w, h, 1,
@@ -116,11 +135,193 @@ def test_stats_count_the_casts():
     """Closest casts >= paths (one per path per bounce); shadow casts only on
     pdf-sampled bounces, so fewer than closest casts per path."""
     scene = _port_cornell_ref()
-    pose, vfov = scenes.cornell_ref_camera()
-    cam = make_camera(pose, vfov, 8, 8)
+    pose, vfov = scenes.cornell_ref_camera("cpu")
+    cam = make_camera(pose, vfov, 8, 8, device="cpu")
     _, s1 = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, CameraConfig(),
                                    SensorRGB(), 8, 8, 1, params=RenderParams(max_path_components=1),
                                    return_stats=True, device="cpu")
     closest, total = s1.tolist()
     assert closest == 64                      # depth 1: one closest cast per pixel
     assert 0 < total - closest <= closest     # one shadow cast per diffuse hit
+
+
+SPHERE_CASES = {
+    # name: (JAX scene, port scene, eye, vfov, width, height, JAX lens, port lens)
+    "envmap_cube": (lambda: jscenes.envmap_spheres(cube=True).build(),
+                    lambda: scenes.envmap_spheres(cube=True, device="cpu"),
+                    (0.0, 0.6, 4.0), 40.0, 32, 32, JCameraConfig(), CameraConfig()),
+    "rtiow_opencv": (lambda: jscenes.rtiow().build(), lambda: scenes.rtiow(device="cpu"),
+                     (13.0, 2.0, 3.0), 30.0, 48, 32,
+                     JCameraConfig(distortion=JDistortionModel.OPENCV, undistort_iters=8),
+                     CameraConfig(distortion=DistortionModel.OPENCV, undistort_iters=8)),
+}
+
+RTIOW_LENS = dict(dist_k=(-0.1, 0.02, 0.0, 0.0, 0.0, 0.0), dist_p=(0.001, -0.001))
+
+
+@pytest.mark.parametrize("case", sorted(SPHERE_CASES))
+def test_sphere_frames_match_jax_per_pixel(case):
+    """The two sphere paths built by the port without jax, 4 spp, 8 path
+    components: envmap_spheres(cube=True) at 32 x 32 (glass, mirror, GGX,
+    cube-map sky with importance), rtiow() at 48 x 32 through the OpenCV lens
+    (no triangle, constant sky, no shadow ray)."""
+    jbuild, build, eye, vfov, w, h, jcfg, cfg = SPHERE_CASES[case]
+    jscene = jbuild()
+    jcam = jmake_camera(transformation=jfrom_lookat(eye, (0.0, 0.0, 0.0)), vfov_deg=vfov,
+                        width=w, height=h, **(RTIOW_LENS if case == "rtiow_opencv" else {}))
+    jimg, jstats = jrender(jscene, JSceneStatic.from_scene(jscene), jcam, jcfg, JSensorRGB(),
+                           w, h, SSQRT, params=JRenderParams(max_path_components=DEPTH),
+                           return_stats=True)
+    jimg, jstats = np.asarray(jimg), np.asarray(jstats)
+
+    scene = build()
+    cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
+    img, stats = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, cfg,
+                                        SensorRGB(), w, h, SSQRT,
+                                        params=RenderParams(max_path_components=DEPTH),
+                                        return_stats=True, device="cpu")
+    img, stats = img.numpy(), stats.numpy()
+
+    assert img.shape == (h, w, 3) and np.isfinite(img).all()
+    close = np.isclose(img, jimg, rtol=1e-3, atol=1e-7).all(-1)
+    assert close.mean() >= 0.97, close.mean()
+    assert abs(img.mean() - jimg.mean()) <= 1e-3 * jimg.mean()
+    np.testing.assert_allclose(stats, jstats, rtol=1e-2)
+    if case == "rtiow_opencv":                 # no light, no sky importance: no shadow ray
+        assert stats[0] == stats[1] and jstats[0] == jstats[1]
+    else:                                      # env NEE on the diffuse and glossy bounces
+        assert stats[0] < stats[1] < 2 * stats[0]
+
+
+def test_one_bounce_on_identical_states_matches_jax(monkeypatch):
+    """Where the sphere frames part: rtiow at 48 x 32, 4 spp, OpenCV lens, 8
+    path components. Every state the port's render reaches also goes through
+    one JAX bounce, and its rays through both casts (the port's K1 and the
+    JAX package's feature product).
+
+    On the camera rays (step 0) the casts agree on every lane (prim equal, t
+    to 1e-3 relative) and so do the bounces: active, bounce index, IOR and
+    the cast count equal on every lane; positions to 1e-2, throughput to
+    1e-3 and directions to 0.1 (a grazing hit on a radius-0.2 sphere turns
+    the casts' rounding, t to 4e-4 relative, into a 3.5e-2 turn of the
+    refracted direction). At every step a lane whose outcome (active,
+    bounce index, IOR) differs is a lane whose cast differs: a ray leaving a
+    sphere that re-hits it or not on the last bits of the quadratic. Such
+    casts are fewer than 2 % of the lanes at every step."""
+    from wurblpt_tpu.render import integrator as jintegrator
+    from wurblpt_tpu.render.intersect import scene_raw_hit as jscene_raw_hit
+    from wurblpt_tpu.render.intersect_mxu import build_mxu_scene
+    from wurblpt_tpu_torch.render import integrator
+
+    jbuild, build, eye, vfov, w, h, jcfg, cfg = SPHERE_CASES["rtiow_opencv"]
+    jscene, scene = jbuild(), build()
+    jcam = jmake_camera(transformation=jfrom_lookat(eye, (0.0, 0.0, 0.0)), vfov_deg=vfov,
+                        width=w, height=h, **RTIOW_LENS)
+    n = w * h * SSQRT * SSQRT
+    ms = build_mxu_scene(jscene)
+    jbounce = jax.jit(jintegrator._make_bounce_fn(
+        jscene, JSceneStatic.from_scene(jscene), JSensorRGB(),
+        JRenderParams(max_path_components=DEPTH), None, ms, n))
+    jcast = jax.jit(lambda o, d, t0, t1: jscene_raw_hit(jscene, o, d, t0, t1, ms=ms))
+    bs = build_brute_scene(scene)
+    port_make = integrator._make_bounce_fn
+    steps = []
+
+    def make(*args):
+        body = port_make(*args)
+
+        def bounce_both(st, pixel_id, sample_id):
+            new = body(st, pixel_id, sample_id)
+            a = {f: getattr(st, f).numpy() for f in st._fields}
+            jnew = jbounce(jintegrator._LoopState(
+                bounce=a["bounce"].astype(np.int32), o=a["o"], d=a["d"],
+                time=np.zeros((n,), np.float32), ior=a["ior"], throughput=a["throughput"],
+                active=a["active"], acc=a["acc"], geom_len=a["geom_len"], opt_len=a["opt_len"],
+                prev_pdf=a["prev_pdf"], prev_random=a["prev_random"],
+                prev_light_pdf=a["prev_light_pdf"], stats=np.zeros((2,), np.int32)),
+                pixel_id.numpy().astype(np.int32), sample_id.numpy().astype(np.int32))
+            t_min = torch.full((n,), 1e-4)
+            t_max = torch.where(st.active, 3e37, 0.0)
+            t, prim, _, _ = closest_hit(bs, st.o, st.d, t_min, t_max)
+            jt, jprim, _, _ = jcast(a["o"], a["d"], t_min.numpy(), t_max.numpy())
+            steps.append((a["active"], {f: getattr(new, f).numpy() for f in new._fields},
+                          jax.tree_util.tree_map(np.asarray, jnew._asdict()),
+                          (new.stats - st.stats).numpy(), t.numpy(), prim.numpy(),
+                          np.asarray(jt), np.asarray(jprim)))
+            return new
+        return bounce_both
+
+    monkeypatch.setattr(integrator, "_make_bounce_fn", make)
+    cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
+    render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, cfg, SensorRGB(), w, h,
+                           SSQRT, params=RenderParams(max_path_components=DEPTH), device="cpu")
+
+    assert len(steps) == DEPTH
+    for k, (active, port, jx, cast_count, t, prim, jt, jprim) in enumerate(steps):
+        np.testing.assert_array_equal(cast_count, jx["stats"])
+        with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+            t_rel = np.abs(t - jt) / np.minimum(t, jt)
+        same_cast = (prim == jprim) & ((prim < 0) | (t_rel <= 1e-3))
+        outcome = ((port["active"] != jx["active"]) | (port["bounce"] != jx["bounce"])
+                   | (port["ior"] != jx["ior"]).any(-1))
+        assert not (outcome & same_cast).any(), (k, np.nonzero(outcome & same_cast)[0][:8])
+        assert (active & ~same_cast).sum() < 0.02 * n, (k, int((active & ~same_cast).sum()))
+        if k == 0:
+            assert active.all() and same_cast.all() and not outcome.any()
+            both = port["active"] & jx["active"]
+            for f, atol in (("o", 1e-2), ("throughput", 1e-3), ("d", 0.1)):
+                np.testing.assert_allclose(port[f][both], jx[f][both], rtol=0, atol=atol,
+                                           err_msg=f)
+
+
+@pytest.mark.parametrize("sky", ["constant", "cube"])
+def test_a_miss_without_sky_importance_adds_the_sky_with_weight_one(sky):
+    """Depth 1, pixel centres: a pixel whose ray escapes holds exactly the
+    sky's radiance in its direction (no MIS weight without env importance)."""
+    w = h = 16
+    if sky == "constant":
+        scene, (pose, vfov) = scenes.rtiow(device="cpu"), scenes.rtiow_camera("cpu")
+    else:
+        scene = scenes.envmap_spheres(cube=True, importance_resolution=0, device="cpu")
+        pose, vfov = scenes.envmap_camera("cpu")
+    cam = make_camera(pose, vfov, w, h, device="cpu")
+    img = render_frame_wavefront(
+        scene, SceneStatic.from_scene(scene), cam, CameraConfig(), SensorRGB(), w, h, 1,
+        params=RenderParams(max_path_components=1, randomize_ray_over_pixel=False),
+        device="cpu").reshape(-1, 3)
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    pxy = torch.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1).float()
+    o, d = camera_rays(cam, CameraConfig(), pxy, w, h)
+    n = o.shape[0]
+    _, prim, _, _ = closest_hit(build_brute_scene(scene), o.contiguous(), d.contiguous(),
+                                torch.full((n,), 1e-4), torch.full((n,), 3e37))
+    miss = prim < 0
+    assert 0 < int(miss.sum()) < n
+    sky_rgb = env_radiance_plain(scene.envmap, d)[:, :3]
+    assert torch.equal(img[miss], sky_rgb[miss])
+    assert (img[~miss] == 0).all()                 # nothing emits, depth 1
+
+
+@pytest.mark.parametrize("material", ["glass", "lambertian"])
+def test_glass_lanes_take_no_nee(material):
+    """A sphere under a light quad: on glass (EXPLICIT) no light NEE shadow
+    ray is cast, on a Lambertian sphere one per diffuse bounce."""
+    typ = {"glass": MaterialType.GLASS, "lambertian": MaterialType.LAMBERTIAN}[material]
+    rows = [(typ, None if material == "glass" else (0.5, 0.5, 0.5),
+             Glass(ior=1.5) if material == "glass" else None),
+            (MaterialType.LIGHT_DIFFUSE, (4.0, 4.0, 4.0), None)]
+    quad = generate_quad(0.5, 0.5)
+    light = MeshSpec(quad.positions + np.float32([0.0, 0.0, 3.0]), -quad.normals, quad.texcoords,
+                     quad.indices[:, ::-1].copy(), 1, hot_spot=True)
+    scene = flatten_meshes([light], material_table(rows), "cpu",
+                           spheres=[SphereSpec((0.0, 0.0, 0.0), 1.0, 0)])
+    assert scene.n_lights == 2
+    pose = from_lookat((0.0, -4.0, 0.5), (0.0, 0.0, 0.0), device="cpu")
+    cam = make_camera(pose, 40.0, 16, 16, device="cpu")
+    _, stats = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, CameraConfig(),
+                                      SensorRGB(), 16, 16, 1,
+                                      params=RenderParams(max_path_components=4),
+                                      return_stats=True, device="cpu")
+    closest, total = stats.tolist()
+    assert closest > 16 * 16
+    assert (total == closest) if material == "glass" else (total > closest)

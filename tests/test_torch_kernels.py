@@ -1,7 +1,7 @@
 """The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly,
-K5 BVH closest hit, K6 BVH any hit, K7 RGL eval/sample, K8 envmap, P0 row
-gather) against their plain PyTorch versions, with the tolerances of
-utils/kernel_check.py.
+K5 BVH closest hit, K6 BVH any hit, K7 RGL eval/sample, K8 envmap with its
+equirect, cube and constant branches, P0 row gather) against their plain
+PyTorch versions, with the tolerances of utils/kernel_check.py.
 
 Tests marked `cuda` need an NVIDIA GPU with nvcc and skip without one. This
 file imports no jax, so on such a machine it runs without the repository's
@@ -347,7 +347,8 @@ def test_bounds_read_each_table_once(kernel):
         work = functools.partial(kc.assemble_hit_work, ht)
         per_lane = 40 + 61
     else:
-        bvh = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4).bvh
+        bvh = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,
+                                   device="cpu").bvh
         table = sum(x.numel() * x.element_size() for x in (bvh.nodes, bvh.tri_v, bvh.tri_id))
         any_hit = kernel == "bvh_any_hit"
         rays = kc.terrain_random_lanes(512, "cpu")
@@ -360,6 +361,25 @@ def test_bounds_read_each_table_once(kernel):
         n_bytes, flops = work(n)
         assert n_bytes == n * per_lane + table and flops > 0
     assert work(512)[1] > work(256)[1]
+
+
+@pytest.mark.parametrize("sky", ["constant", "cube"])
+def test_env_radiance_bound_counts_what_the_branch_reads(sky):
+    """The constant map reads no direction and no image: 16 B out per lane and
+    its 16 B radiance once, no arithmetic. The cube map reads the direction
+    (12 B) and writes 16 B per lane, and reads its faces and tables once."""
+    if sky == "constant":
+        env = scenes.rtiow(device="cpu").envmap
+        per_lane, table = 16, 16
+    else:
+        env = scenes.envmap_spheres(cube=True, device="cpu").envmap
+        per_lane = 12 + 16
+        table = sum(x.numel() * x.element_size() for x in env[1:] if isinstance(x, torch.Tensor))
+        assert table >= 6 * 32 * 32 * 4 * 4
+    for n in (1000, 98304):
+        n_bytes, flops = kc.env_radiance_work(env, n)
+        assert n_bytes == n * per_lane + table
+        assert flops == (0.0 if sky == "constant" else 60.0 * n)
 
 
 @pytest.mark.parametrize("off", [None, "mean", "stats", "nan", "shape"])
@@ -388,4 +408,106 @@ def test_city_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     kc.check_city_frame(img, stats)
     for name in ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
                  "env_pdf", "rgl_eval", "rgl_sample", "row_gather"):
+        assert native.LAUNCHES[name] > 0, name
+
+
+@functools.lru_cache(maxsize=None)
+def _sphere_scenes(device):
+    """The sphere paths' scenes: envmap_spheres(cube=True) and rtiow()."""
+    return scenes.envmap_spheres(cube=True, device=device), scenes.rtiow(device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_sphere_only_scene_kernels_match_plain(gpu, kind):
+    """K1, K2 and K3 on rtiow: 40 spheres and no triangle (a null triangle
+    table), the radius-1000 ground among them."""
+    scene = _sphere_scenes(gpu)[1]
+    assert scene.n_tris == 0
+    bs = intersect_brute.build_brute_scene(scene)
+    ht = intersect.build_hit_tables(scene)
+    rays = (kc.rtiow_camera_lanes(gpu) if kind == "camera"
+            else kc.random_lanes(kc.RTIOW_LANES, gpu, lo=(-6.0, -0.5, -4.0), hi=(6.0, 2.5, 4.0)))
+    before = dict(native.LAUNCHES)
+    res = kc.check_closest_hit(bs, rays)
+    assert res["hits"] > 0.2 * res["lanes"]
+    occ = kc.check_any_hit(bs, rays)
+    assert 0 < occ["occluded"]
+    kc.check_assemble_hit(bs, ht, rays)
+    torch.cuda.synchronize()
+    for name in ("closest_hit", "any_hit", "assemble_hit"):
+        assert native.LAUNCHES[name] == before[name] + 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirs", ["camera", "random", "edges"])
+def test_envmap_cube_kernels_match_plain(gpu, dirs):
+    env = _sphere_scenes(gpu)[0].envmap
+    assert env.kind == 2 and env.importance
+    d = {"camera": lambda: kc.envmap_camera_lanes(gpu)[1],
+         "random": lambda: kc.random_directions(kc.ENVMAP_LANES, gpu),
+         "edges": lambda: kc.cube_edge_directions(gpu)}[dirs]()
+    u3 = torch.as_tensor(np.random.default_rng(3).uniform(size=(d.shape[0], 3)),
+                         dtype=torch.float32, device=gpu)
+    before = [native.LAUNCHES[k] for k in ("env_radiance", "env_sample", "env_pdf")]
+    kc.check_envmap(env, d, u3)                       # radiance bit-equal on the cube map
+    torch.cuda.synchronize()
+    assert [native.LAUNCHES[k] for k in ("env_radiance", "env_sample", "env_pdf")] == [
+        b + 1 for b in before]
+
+
+@pytest.mark.cuda
+def test_envmap_constant_kernel_matches_plain(gpu):
+    env = _sphere_scenes(gpu)[1].envmap
+    assert env.kind == 3 and not env.importance
+    before = native.LAUNCHES["env_radiance"]
+    res = kc.check_envmap(env, kc.rtiow_camera_lanes(gpu)[1])
+    torch.cuda.synchronize()
+    assert res["max_abs_err"] == 0.0 and native.LAUNCHES["env_radiance"] == before + 1
+
+
+@pytest.mark.parametrize("frame", ["envmap", "rtiow"])
+@pytest.mark.parametrize("off", [None, "mean", "stats", "nan", "shape"])
+def test_sphere_frame_checks_hold_the_reference(frame, off):
+    if frame == "envmap":
+        shape, ref, ref_stats = ((kc.ENVMAP_WIDTH, kc.ENVMAP_WIDTH, 3), kc.ENVMAP_REF_MEAN,
+                                 kc.ENVMAP_REF_STATS)
+        check = kc.check_envmap_frame
+    else:
+        shape, ref, ref_stats = ((kc.RTIOW_HEIGHT, kc.RTIOW_WIDTH, 3), kc.RTIOW_REF_MEAN,
+                                 kc.RTIOW_REF_STATS)
+        check = kc.check_rtiow_frame
+    img = torch.full(shape, ref, dtype=torch.float64)
+    stats = torch.tensor(ref_stats)
+    if off == "mean":
+        img = img * 1.002
+    elif off == "stats":
+        stats = stats * 1.01
+    elif off == "nan":
+        img[0, 0, 0] = float("nan")
+    elif off == "shape":
+        img = img[:, : shape[1] // 2]
+    if off is None:
+        assert check(img, stats) == pytest.approx(ref)
+    else:
+        with pytest.raises(AssertionError):
+            check(img, stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["envmap", "rtiow"])
+def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):
+    env_scene, rt_scene = _sphere_scenes(gpu)
+    native.reset_launch_counts()
+    if frame == "envmap":
+        img, stats = kc.envmap_frame(gpu, env_scene)()
+        kc.check_envmap_frame(img, stats)
+        need = ("closest_hit", "any_hit", "assemble_hit", "row_gather", "env_radiance",
+                "env_sample", "env_pdf")
+    else:
+        img, stats = kc.rtiow_frame(gpu, rt_scene)()
+        kc.check_rtiow_frame(img, stats)
+        need = ("closest_hit", "assemble_hit", "row_gather", "env_radiance")
+        assert native.LAUNCHES["any_hit"] == 0            # no light, no sky importance
+    for name in need:
         assert native.LAUNCHES[name] > 0, name

@@ -46,8 +46,8 @@ def _load_golden(name):
 @functools.lru_cache(maxsize=None)
 def _render_ours(w=64, h=64, ssqrt=4, max_depth=32):
     scene = scenes.cornell_box_ref("cpu")
-    pose, vfov = scenes.cornell_ref_camera()
-    cam = make_camera(pose, vfov, w, h)
+    pose, vfov = scenes.cornell_ref_camera("cpu")
+    cam = make_camera(pose, vfov, w, h, device="cpu")
     img = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, CameraConfig(),
                                  SensorRGB(), w, h, ssqrt,
                                  params=RenderParams(max_path_components=max_depth),
@@ -88,9 +88,9 @@ def test_port_cornell_parity_quantiles():
 @functools.lru_cache(maxsize=None)
 def _city_renders():
     ref = _load_golden("ref_city_64x36_16spp.tgdshim")
-    scene = scenes.city_night(seed=7)
-    pose, vfov = scenes.city_camera()
-    cam = make_camera(pose, vfov, 64, 36, eye_distance=0.065)
+    scene = scenes.city_night(seed=7, device="cpu")
+    pose, vfov = scenes.city_camera("cpu")
+    cam = make_camera(pose, vfov, 64, 36, eye_distance=0.065, device="cpu")
     ours = render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam,
                                   CameraConfig(surround=SurroundMode.S360, stereo=True),
                                   SensorRGB(), 64, 36, 4,

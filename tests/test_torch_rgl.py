@@ -61,7 +61,7 @@ TABLES = {
 def _tables(name):
     fields = TABLES[name]()
     return (jrgl.stack_rgl_tables([jrgl.load_rgl_material(f) for f in fields]),
-            rgl.stack_rgl_tables([rgl.load_rgl_material(f) for f in fields]))
+            rgl.stack_rgl_tables([rgl.load_rgl_material(f) for f in fields], "cpu"))
 
 
 def _lanes(n, n_mat, seed=3):

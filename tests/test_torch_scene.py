@@ -1,7 +1,8 @@
-"""The port's scene: jax-free Cornell and terrain_city builds against the JAX
-flattener, the import boundary, and refusal of scenes outside the ported
-slice."""
+"""The port's scene: jax-free Cornell, terrain_city, envmap_spheres and rtiow
+builds against the JAX flattener, the import boundary, the builders' GPU
+default, and refusal of scenes outside the ported slice."""
 
+import inspect
 import shutil
 import subprocess
 import sys
@@ -63,7 +64,7 @@ def test_terrain_city_equals_jax_build_field_by_field():
     importance tables come from its own radiance lookup on the CPU: pdf table
     and acceptance probabilities to rtol 1e-5, everything else bit-equal."""
     small = dict(terrain_res=24, n_buildings=8, sphere_slices=6)
-    ours = scenes.terrain_city(seed=3, **small)
+    ours = scenes.terrain_city(seed=3, **small, device="cpu")
     ref = _port_of(jscenes.terrain_city(seed=3, **small).build(use_bvh=True))
     for f in ("pdf_table", "alias_prob"):
         np.testing.assert_allclose(getattr(ours.envmap, f).numpy(),
@@ -75,14 +76,88 @@ def test_terrain_city_equals_jax_build_field_by_field():
     assert not torch.equal(ours.tris.v1, ours.tris.p0 + ours.tris.e1)   # why v1/v2 are kept
 
 
+def test_envmap_spheres_equals_jax_build_field_by_field():
+    """The envmap path's scene (2 triangles, 3 spheres: glass, mirror, GGX)
+    with the cube-map sky.
+    Its importance tables come from the port's own radiance lookup: pdf
+    table to rtol 1e-5, acceptance probabilities to atol 1e-5, the rest
+    bit-equal."""
+    ours = scenes.envmap_spheres(cube=True, device="cpu")
+    ref = _port_of(jscenes.envmap_spheres(cube=True).build())
+    np.testing.assert_allclose(ours.envmap.pdf_table.numpy(), ref.envmap.pdf_table.numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(ours.envmap.alias_prob.numpy(), ref.envmap.alias_prob.numpy(),
+                               rtol=0, atol=1e-5)
+    env = ref.envmap._replace(pdf_table=ours.envmap.pdf_table, alias_prob=ours.envmap.alias_prob)
+    _assert_same(ours, ref._replace(envmap=env))
+    assert ours.n_tris == 2 and ours.n_spheres == 3 and ours.env_kind == 2
+    assert ours.materials.typ.tolist() == [1, 3, 4, 2] and ours.spheres.mat.tolist() == [1, 2, 3]
+    assert ours.envmap.pdf_table.shape == (64, 64)
+
+
+def test_rtiow_equals_jax_build_field_by_field():
+    """The rtiow path's scene: 40 spheres drawn as the JAX builder draws them,
+    no triangle at all, a constant sky."""
+    ours = scenes.rtiow(device="cpu")
+    _assert_same(ours, _port_of(jscenes.rtiow().build()))
+    assert ours.n_tris == 0 and ours.n_spheres == 40 and ours.n_lights == 0
+    assert ours.env_kind == 3 and not ours.envmap.importance
+    assert float(ours.spheres.radius[0]) == 1000.0
+    assert set(ours.materials.typ.tolist()) == {1, 2, 3}
+    for seed, n in ((3, 4), (11, 2)):
+        _assert_same(scenes.rtiow(seed, n, device="cpu"), _port_of(jscenes.rtiow(seed, n).build()))
+
+
+def test_flatten_spheres_with_a_pose_and_no_triangle():
+    """SphereSpec poses bake into the centre (scale, rotate, translate) and
+    the radius (mean scale); sphere j gets prim id T + j."""
+    from wurblpt_tpu_torch.core.transform import Transformation, quat_from_axis_angle
+    from wurblpt_tpu_torch.scene.flatten import Glass, SphereSpec, flatten_meshes, material_table
+    from wurblpt_tpu_torch.scene.ir import MaterialType
+
+    tf = Transformation.make(translation=(1.0, 2.0, 3.0),
+                             rotation=quat_from_axis_angle((0, 0, 1), np.pi / 2), scale=2.0)
+    rows = [(MaterialType.GLASS, None, Glass(ior=(1.4, 1.5, 1.6), absorption=(0.1, 0.2, 0.3)))]
+    scene = flatten_meshes([], material_table(rows), "cpu",
+                           spheres=[SphereSpec((1.0, 0.0, 0.0), 0.5, 0, tf)])
+    assert scene.n_tris == 0 and scene.tris.p0.shape == (0, 3) and scene.tris.uv0.shape == (0, 2)
+    np.testing.assert_allclose(scene.spheres.center.numpy(), [[1.0, 4.0, 3.0]], atol=1e-6)
+    assert float(scene.spheres.radius[0]) == 1.0
+    np.testing.assert_array_equal(scene.materials.p0.numpy(), np.float32([[1.4, 1.5, 1.6, 1.6]]))
+    np.testing.assert_array_equal(scene.materials.p1.numpy(), np.float32([[0.1, 0.2, 0.3, 0.0]]))
+
+
+BUILDERS = ("cornell_box_ref", "cornell_ref_camera", "terrain_city", "terrain_camera",
+            "city_night", "city_camera", "envmap_spheres", "envmap_camera", "rtiow", "rtiow_camera")
+
+
+def test_builders_default_to_the_gpu():
+    """Scene, camera and table builders build on the GPU unless the caller
+    names another device; without one they raise instead of building on the
+    CPU."""
+    from wurblpt_tpu_torch import from_lookat, make_camera
+    from wurblpt_tpu_torch.materials.rgl import stack_rgl_tables
+
+    for fn in [getattr(scenes, n) for n in BUILDERS] + [from_lookat, make_camera,
+                                                         stack_rgl_tables]:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if not torch.cuda.is_available():
+        for call in (lambda: scenes.cornell_box_ref(), lambda: scenes.rtiow_camera(),
+                     lambda: from_lookat((0.0, 0.0, 1.0), (0.0, 0.0, 0.0))):
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
+
+
 def test_port_imports_without_jax():
     code = ("import sys, wurblpt_tpu_torch, wurblpt_tpu_torch.native, "
             "wurblpt_tpu_torch.utils.scenes as s; s.cornell_box_ref('cpu'); "
             "from wurblpt_tpu_torch import SceneStatic, CameraConfig, SensorRGB, make_camera, "
             "RenderParams, render_frame_wavefront as r; "
-            "t = s.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4); "
-            "p, f = s.terrain_camera(); "
-            "img = r(t, SceneStatic.from_scene(t), make_camera(p, f, 8, 6), CameraConfig(), "
+            "t = s.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4, "
+            "device='cpu'); "
+            "p, f = s.terrain_camera('cpu'); "
+            "img = r(t, SceneStatic.from_scene(t), make_camera(p, f, 8, 6, device='cpu'), "
+            "CameraConfig(), "
             "SensorRGB(), 8, 6, 1, params=RenderParams(max_path_components=2), device='cpu'); "
             "assert bool(img.isfinite().all()) and float(img.mean()) > 0; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -108,9 +183,15 @@ def test_port_stands_alone_without_the_jax_package(tmp_path):
             "assert wurblpt_tpu_torch.__file__.startswith(sys.argv[1]), wurblpt_tpu_torch.__file__\n"
             "from wurblpt_tpu_torch.utils import scenes as s\n"
             "assert s.cornell_box_ref('cpu').n_tris == 36\n"
-            "assert s.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4).has_bvh\n"
-            "c = s.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4)\n"
-            "assert c.has_bvh and c.n_lights == 8 and c.rgl is not None\n")
+            "assert s.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,\n"
+            "                      device='cpu').has_bvh\n"
+            "c = s.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4,\n"
+            "                 device='cpu')\n"
+            "assert c.has_bvh and c.n_lights == 8 and c.rgl is not None\n"
+            "e = s.envmap_spheres(cube=True, importance_resolution=8, device='cpu')\n"
+            "assert e.n_tris == 2 and e.n_spheres == 3 and e.env_kind == 2\n"
+            "r = s.rtiow(device='cpu')\n"
+            "assert r.n_tris == 0 and r.n_spheres == 40 and r.env_kind == 3\n")
     env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -136,9 +217,21 @@ def test_static_of_the_slice():
     assert st.mat_types == frozenset({1, 7}) and st.n_lights == 2
     st.check_slice()
     st = SceneStatic.from_scene(scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2,
-                                                    sphere_slices=4))
+                                                    sphere_slices=4, device="cpu"))
     assert st.mat_types == frozenset({1, 2, 4}) and st.n_lights == 0
     assert st.has_bvh and st.env_kind == 1 and st.env_importance
+    st.check_slice()
+    st = SceneStatic.from_scene(scenes.envmap_spheres(cube=True, importance_resolution=8,
+                                                      device="cpu"))
+    assert st.mat_types == frozenset({1, 2, 3, 4}) and st.env_kind == 2 and st.env_importance
+    st.check_slice()
+    st = SceneStatic.from_scene(scenes.envmap_spheres(cube=True, importance_resolution=0,
+                                                      device="cpu"))
+    assert st.env_kind == 2 and not st.env_importance
+    st.check_slice()
+    st = SceneStatic.from_scene(scenes.rtiow(device="cpu"))
+    assert st.mat_types == frozenset({1, 2, 3}) and st.env_kind == 3 and not st.env_importance
+    assert st.n_lights == 0 and not st.sphere_lights
     st.check_slice()
 
 
@@ -153,13 +246,13 @@ def _quad_scene(material, animated=False, **build):
 
 
 @pytest.mark.parametrize("build, feature", [
-    (lambda: jscenes.cornell_box(short_object="glass_sphere").build(), "material types [3]"),
+    (lambda: _quad_scene(B.LightTof()), "material types [9]"),
     (lambda: _quad_scene(B.LightSpot(radiance=(1.0, 1.0, 1.0))), "material types [8]"),
     (lambda: _quad_scene(B.ModPhong(diffuse=(0.5, 0.5, 0.5), specular=B.CheckerTexture())),
      "textures"),
-    (lambda: jscenes.envmap_spheres(cube=True, importance_resolution=8).build(),
-     "environment map kind 2"),
-    (lambda: jscenes.furnace().build(), "environment map kind 3"),
+    (lambda: jscenes.envmap_spheres(cube=False, importance_resolution=0).build(),
+     "environment map kind 1 without importance sampling"),
+    (lambda: jscenes.mis_test().build(), "sphere lights"),
     (lambda: _quad_scene(B.Lambertian(albedo=B.CheckerTexture())), "textures"),
     (lambda: _quad_scene(B.Lambertian(), animated=True), "animation"),
     (lambda: jscenes.cornell_box(short_object="sphere").build(use_bvh=True),
@@ -173,7 +266,7 @@ def test_scenes_outside_the_slice_are_refused(build, feature):
 
 def test_render_refuses_a_non_pinhole_camera():
     scene = scenes.cornell_box_ref("cpu")
-    cam = make_camera(scenes.cornell_ref_camera()[0], 50.0, 8, 8)
+    cam = make_camera(scenes.cornell_ref_camera("cpu")[0], 50.0, 8, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="depth of field"):
         render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam,
                                CameraConfig(dof=True), SensorRGB(), 8, 8, 1,

@@ -7,11 +7,14 @@ written by hand for Hopper live in ``csrc/`` and are built at first use
 (:mod:`wurblpt_tpu_torch.native`).
 
 Ported so far: the persistent-lane wavefront render of static scenes with a
-pinhole or equirect surround camera (mono or stereo) and SensorRGB:
-Lambertian, GGX, mirror, ModPhong, measured RGL and diffuse-light materials,
-triangle hot spots with mixture or per-light MIS, an importance-sampled
-equirect sky, on the brute-force intersector or the port's BVH, and OBJ/MTL
-export and import (see ROADMAP.md for the rest).
+pinhole camera (with lens distortion) or an equirect surround camera (mono
+or stereo) and SensorRGB: Lambertian, GGX, mirror, glass, ModPhong, measured
+RGL and diffuse-light materials, triangles and analytic spheres, triangle
+hot spots with mixture or per-light MIS, an importance-sampled equirect sky,
+a cube-map sky with or without importance sampling, a constant sky, on the
+brute-force intersector or the port's BVH, and OBJ/MTL export and import
+(see ROADMAP.md for the rest). Scene, camera and table builders build on
+the GPU unless told otherwise.
 """
 
 from .core.transform import Transformation, from_lookat  # noqa: F401

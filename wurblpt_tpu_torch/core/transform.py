@@ -68,7 +68,7 @@ def quat_rotate(q, v):
     return v + w * t + cross(u, t)
 
 
-def from_lookat(eye, center, up=(0.0, 1.0, 0.0), device=None) -> Transformation:
+def from_lookat(eye, center, up=(0.0, 1.0, 0.0), device="cuda") -> Transformation:
     """Camera pose looking from eye at center; the camera looks down -z, y is up."""
     eye = torch.as_tensor(eye, dtype=torch.float32, device=device)
     center = torch.as_tensor(center, dtype=torch.float32, device=device)

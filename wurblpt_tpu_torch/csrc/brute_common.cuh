@@ -4,7 +4,10 @@
 // versions in wurblpt_tpu_torch/render/intersect_brute.py, and the library is
 // built with -fmad=false and without --use_fast_math, so each operation
 // rounds exactly as the corresponding PyTorch op does: kernel and plain
-// version agree bit for bit on the same inputs.
+// version agree bit for bit on the same inputs. The sphere test's fused
+// multiply-adds are explicit (__fmaf_rn; the plain version's `fma` rounds
+// once too): they reproduce how XLA's CPU backend rounds the JAX package's
+// feature product, whose last bits decide self-intersections.
 //
 // Primitive tables (built once per scene by build_brute_scene):
 //   triangle row, 16 floats = 4 x float4, coefficients of the four linear
@@ -48,9 +51,9 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float
     r.xx = r.oy * r.dz - r.oz * r.dy;
     r.xy = r.oz * r.dx - r.ox * r.dz;
     r.xz = r.ox * r.dy - r.oy * r.dx;
-    r.od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-    r.oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    r.dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    r.od = __fmaf_rn(r.oz, r.dz, __fmaf_rn(r.oy, r.dy, r.ox * r.dx));
+    r.oo = __fmaf_rn(r.oz, r.oz, __fmaf_rn(r.oy, r.oy, r.ox * r.ox));
+    r.dd = __fmaf_rn(r.dz, r.dz, __fmaf_rn(r.dy, r.dy, r.dx * r.dx));
     r.tmin = tmin[i];
     r.tmax = tmax[i];
     return r;
@@ -73,10 +76,14 @@ __device__ __forceinline__ bool tri_test(const Ray& r, const float4* __restrict_
 
 // Stable sphere quadratic (hitable_sphere.hpp:128-151); true with the entry
 // (or, from inside, exit) distance in `ts` when it lies in (tmin, tmax).
+// half_b and cq accumulate as the feature product's dot does: products
+// fused from the first column on, the constant term first for cq.
 __device__ __forceinline__ bool sphere_test(const Ray& r, const float4 s, float& ts) {
-    const float half_b = r.od - (r.dx * s.x + r.dy * s.y + r.dz * s.z);
-    const float cq = s.w + r.ox * (-2.f * s.x) + r.oy * (-2.f * s.y) + r.oz * (-2.f * s.z) + r.oo;
-    const float disc = half_b * half_b - r.dd * cq;
+    const float half_b = __fmaf_rn(r.dz, -s.z, __fmaf_rn(r.dy, -s.y, r.dx * -s.x)) + r.od;
+    const float cq =
+        __fmaf_rn(r.oz, -2.f * s.z, __fmaf_rn(r.oy, -2.f * s.y, __fmaf_rn(r.ox, -2.f * s.x, s.w))) +
+        r.oo;
+    const float disc = __fmaf_rn(half_b, half_b, -(r.dd * cq));
     const float sq = sqrtf(fmaxf(disc, 1e-20f));
     const float q = -(half_b + sgn(half_b) * sq);
     const float t0 = q / fmaxf(r.dd, 1e-20f);

@@ -1,20 +1,24 @@
-// K8: equirect environment map — radiance lookup, importance sample, pdf.
+// K8: environment maps — radiance lookup (equirect, cube, constant),
+// importance sample, pdf.
 //
-// Replaces wurblpt_tpu/render/envmap.py env_radiance (equirect branch with
-// _equirect_uv and _bilinear_wrap), env_sample and env_pdf. The TPU version
-// read the four bilinear taps from a 16-channel "patch image" so that one
-// descriptor-priced row gather served them, and packed the alias tables into
-// one row per cell; here a thread reads the four texels (float4 each) and
-// the table entries directly.
+// Replaces wurblpt_tpu/render/envmap.py env_radiance (the equirect branch with
+// _equirect_uv and _bilinear_wrap, the cube branch _cube_lookup, the constant
+// branch), env_sample and env_pdf. The TPU version read the four bilinear
+// taps from a 16-channel "patch image" so that one descriptor-priced row
+// gather served them, and packed the alias tables into one row per cell; here
+// a thread reads the four texels (float4 each) and the table entries
+// directly. The radiance kernel takes the map's kind and branches per launch
+// (every lane of a launch takes the same branch).
 //
 // Bound on the card: memory latency of the gathers and the IEEE atan2f /
-// acosf / sinf / cosf calls; the 64x128 image (128 KB) and the 32x32 tables
-// sit in L2. Each lane is independent, one thread per lane.
+// acosf / sinf / cosf calls; the 64x128 equirect image (128 KB), the six
+// 32x32 cube faces (96 KB) and the tables sit in L1/L2. Each lane is
+// independent, one thread per lane.
 //
 // Every expression follows the plain PyTorch version
 // (wurblpt_tpu_torch/render/envmap.py) in the same order, divisions by 2 pi,
-// pi and R stay true divisions as in the JAX package, and the library is
-// built with -fmad=false and without --use_fast_math.
+// pi, R and the cube's major axis stay true divisions as in the JAX package,
+// and the library is built with -fmad=false and without --use_fast_math.
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,12 +54,10 @@ __device__ __forceinline__ float mod1(float x) {
 
 __device__ __forceinline__ float clamp1(float x) { return fminf(fmaxf(x, -1.f), 1.f); }
 
-__global__ void __launch_bounds__(BLOCK)
-env_radiance_kernel(const float* __restrict__ d, int n, const float4* __restrict__ img, int h,
-                    int w, const float* __restrict__ rot, float4* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float3 dm = to_map(rot, d, i);
+// Equirect: u = atan2(x, -z) / 2 pi mod 1, v = acos(y) / pi; bilinear, wrap
+// in u, clamp in v.
+__device__ __forceinline__ float4 equirect_lookup(const float4* __restrict__ img, int h, int w,
+                                                  float3 dm) {
     const float u = mod1(atan2f(dm.x, -dm.z) / TWO_PI);
     const float v = acosf(clamp1(dm.y)) / PI;
     const float x = u * static_cast<float>(w) - 0.5f;
@@ -69,10 +71,71 @@ env_radiance_kernel(const float* __restrict__ d, int n, const float4* __restrict
     const float4 c00 = __ldg(img + y0i * w + x0i), c01 = __ldg(img + y0i * w + x1i);
     const float4 c10 = __ldg(img + y1i * w + x0i), c11 = __ldg(img + y1i * w + x1i);
     const float gx = 1.f - fx, gy = 1.f - fy;
-    out[i] = make_float4((c00.x * gx + c01.x * fx) * gy + (c10.x * gx + c11.x * fx) * fy,
-                         (c00.y * gx + c01.y * fx) * gy + (c10.y * gx + c11.y * fx) * fy,
-                         (c00.z * gx + c01.z * fx) * gy + (c10.z * gx + c11.z * fx) * fy,
-                         (c00.w * gx + c01.w * fx) * gy + (c10.w * gx + c11.w * fx) * fy);
+    return make_float4((c00.x * gx + c01.x * fx) * gy + (c10.x * gx + c11.x * fx) * fy,
+                       (c00.y * gx + c01.y * fx) * gy + (c10.y * gx + c11.y * fx) * fy,
+                       (c00.z * gx + c01.z * fx) * gy + (c10.z * gx + c11.z * fx) * fy,
+                       (c00.w * gx + c01.w * fx) * gy + (c10.w * gx + c11.w * fx) * fy);
+}
+
+// Cube map, faces +x, -x, +y, -y, +z, -z of h x w texels each: the face of
+// the largest |component| (ties to x, then y, as the >= tests order them),
+// the standard per-face (sc, tc), then a bilinear lookup with edge clamp
+// whose texel coordinates are clamped at 0 before the truncation.
+__device__ __forceinline__ float4 cube_lookup(const float4* __restrict__ img, int h, int w,
+                                              float3 dm) {
+    const float ax = fabsf(dm.x), ay = fabsf(dm.y), az = fabsf(dm.z);
+    const bool is_x = ax >= ay && ax >= az;
+    const bool is_y = !is_x && ay >= az;
+    int face;
+    float ma, sc, tc;
+    if (is_x) {
+        face = dm.x > 0.f ? 0 : 1;
+        ma = ax;
+        sc = dm.x > 0.f ? -dm.z : dm.z;
+        tc = -dm.y;
+    } else if (is_y) {
+        face = dm.y > 0.f ? 2 : 3;
+        ma = ay;
+        sc = dm.x;
+        tc = dm.y > 0.f ? dm.z : -dm.z;
+    } else {
+        face = dm.z > 0.f ? 4 : 5;
+        ma = az;
+        sc = dm.z > 0.f ? dm.x : -dm.x;
+        tc = -dm.y;
+    }
+    ma = fmaxf(ma, 1e-20f);
+    const float u = 0.5f * (sc / ma + 1.f);
+    const float v = 0.5f * (tc / ma + 1.f);
+    const float us = fmaxf(u * static_cast<float>(w) - 0.5f, 0.f);
+    const float vs = fmaxf(v * static_cast<float>(h) - 0.5f, 0.f);
+    const int x0 = min(max(static_cast<int>(us), 0), w - 1);
+    const int y0 = min(max(static_cast<int>(vs), 0), h - 1);
+    const float a = us - static_cast<float>(x0), b = vs - static_cast<float>(y0);
+    const int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
+    const float4* f = img + face * h * w;
+    const float4 c00 = __ldg(f + y0 * w + x0), c10 = __ldg(f + y0 * w + x1);
+    const float4 c01 = __ldg(f + y1 * w + x0), c11 = __ldg(f + y1 * w + x1);
+    const float ga = 1.f - a, gb = 1.f - b;
+    return make_float4((c00.x * ga + c10.x * a) * gb + (c01.x * ga + c11.x * a) * b,
+                       (c00.y * ga + c10.y * a) * gb + (c01.y * ga + c11.y * a) * b,
+                       (c00.z * ga + c10.z * a) * gb + (c01.z * ga + c11.z * a) * b,
+                       (c00.w * ga + c10.w * a) * gb + (c01.w * ga + c11.w * a) * b);
+}
+
+// kind: 1 equirect [h, w] image, 2 cube [6, h, w] faces, 3 constant radiance.
+__global__ void __launch_bounds__(BLOCK)
+env_radiance_kernel(const float* __restrict__ d, int n, int kind, const float4* __restrict__ img,
+                    int h, int w, const float* __restrict__ rot,
+                    const float4* __restrict__ const_rad, float4* __restrict__ out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    if (kind == 3) {
+        out[i] = __ldg(const_rad);
+        return;
+    }
+    const float3 dm = to_map(rot, d, i);
+    out[i] = kind == 2 ? cube_lookup(img, h, w, dm) : equirect_lookup(img, h, w, dm);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -120,13 +183,15 @@ env_pdf_kernel(const float* __restrict__ d, int n, const float* __restrict__ pdf
 
 }  // namespace
 
-extern "C" int wpt_env_radiance(const float* d, int n, const float* img, int h, int w,
-                                const float* rot, float* out, void* stream) {
+extern "C" int wpt_env_radiance(const float* d, int n, int kind, const float* img, int h, int w,
+                                const float* rot, const float* const_rad, float* out,
+                                void* stream) {
+    if (kind < 1 || kind > 3) return static_cast<int>(cudaErrorInvalidValue);
     if (n > 0) {
         env_radiance_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-            d, n, reinterpret_cast<const float4*>(img), h, w, rot,
-            reinterpret_cast<float4*>(out));
+            d, n, kind, reinterpret_cast<const float4*>(img), h, w, rot,
+            reinterpret_cast<const float4*>(const_rad), reinterpret_cast<float4*>(out));
     }
     return static_cast<int>(cudaGetLastError());
 }

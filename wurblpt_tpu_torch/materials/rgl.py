@@ -174,7 +174,7 @@ def _pad_to(a: np.ndarray, shape) -> np.ndarray:
     return out
 
 
-def stack_rgl_tables(mats, device="cpu") -> RGLTables:
+def stack_rgl_tables(mats, device="cuda") -> RGLTables:
     """Stack per-material table dicts (`load_rgl_material`) into one RGLTables."""
     mats = list(mats)
     if not mats:

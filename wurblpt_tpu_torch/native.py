@@ -68,7 +68,7 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_bvh_closest_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_bvh_any_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "wpt_env_radiance": [_P, _I, _P, _I, _I, _P, _P, _P],
+    "wpt_env_radiance": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],

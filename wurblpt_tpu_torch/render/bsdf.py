@@ -1,10 +1,11 @@
 """BSDF sampling / evaluation / emission (port of ``wurblpt_tpu/render/bsdf.py``
-for LAMBERTIAN, GGX, MIRROR, MODPHONG, RGL and LIGHT_DIFFUSE materials).
+for LAMBERTIAN, GGX, MIRROR, GLASS, MODPHONG, RGL and LIGHT_DIFFUSE materials).
 
 Lobes are evaluated for the material types present in the scene
 (`SceneStatic.mat_types`) and selected per lane, as the JAX package does:
 cosine-sampled Lambertian, anisotropic GGX with Heitz's VNDF sampling
-(material_ggx.hpp:89-171), the mirror as a delta (EXPLICIT) lobe, the
+(material_ggx.hpp:89-171), the mirror and the dispersive glass
+(material_glass.hpp:97-141) as delta (EXPLICIT) lobes, the
 energy-normalized modified Phong with its opacity pass-through
 (material_modphong.hpp:192-263; constant ks and opacity), and the measured
 RGL BRDF through K7 (:mod:`wurblpt_tpu_torch.materials.rgl`).
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core import sampler
-from ..core.fresnel import fresnel_schlick
+from ..core.fresnel import fresnel_schlick, fresnel_unpolarized
 from ..core.onb import onb_from_normal, onb_from_normal_tangent, to_local, to_world
 from ..core.vecmath import cross, dot, normalize, reflect, refract, safe_sqrt
 from ..scene.ir import MaterialFlags, MaterialType, SceneArrays
@@ -40,7 +41,7 @@ _TWO_PI = 2.0 * math.pi
 _INV_TWO_PI = float(np.float32(1.0) / np.float32(_TWO_PI))
 
 SLICE_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
-                             MaterialType.MODPHONG, MaterialType.RGL,
+                             MaterialType.GLASS, MaterialType.MODPHONG, MaterialType.RGL,
                              MaterialType.LIGHT_DIFFUSE})
 # The lobes evaluated when a caller names no types: all but RGL, which needs tables.
 ANALYTIC_MATERIALS = SLICE_MATERIALS - {MaterialType.RGL}
@@ -105,7 +106,7 @@ class SceneStatic(NamedTuple):
             "animation": self.has_anim,
             f"environment map kind {self.env_kind}"
             f"{'' if self.env_importance else ' without importance sampling'}":
-                self.env_kind != 0 and not (self.env_kind == 1 and self.env_importance),
+                not (self.env_kind in (0, 2, 3) or (self.env_kind == 1 and self.env_importance)),
             "participating media": self.has_media,
             "spheres in a BVH scene": self.bvh_spheres,
             "sphere lights": self.sphere_lights,
@@ -259,10 +260,12 @@ def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, u_lobe, u_chan, mrow: MatRo
     """Sample the outgoing lobe at each hit (reference Material::scatter).
 
     u4: [N, 4] uniforms; the first two drive the direction. `u_lobe` and
-    `u_chan` [N] are independent uniforms for ModPhong's discrete picks
-    (opacity pass-through, specular or diffuse lobe). Lights absorb (kind
-    NONE). Lobes are computed for the types in `mat_types` only; RGL lanes
-    need the scene's tables `rgl`."""
+    `u_chan` [N] are independent uniforms for the discrete picks: glass
+    reflects or refracts by `u_lobe` and picks its dispersion channel by
+    `u_chan`; ModPhong picks opacity pass-through by `u_lobe` and the
+    specular or diffuse lobe by `u_chan`. Lights absorb (kind NONE). Lobes
+    are computed for the types in `mat_types` only; RGL lanes need the
+    scene's tables `rgl`."""
     n = hr.normal
     wo = -ray_dir
     u2 = u4[:, 0:2]
@@ -298,6 +301,34 @@ def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, u_lobe, u_chan, mrow: MatRo
         direction = torch.where(sel[:, None], reflect(ray_dir, n), direction)
         atten = torch.where(sel[:, None], albedo, atten)
         pdf = torch.where(sel, 1.0, pdf)
+    if MaterialType.GLASS in mat_types:
+        # Dielectric with per-channel IOR (material_glass.hpp:97-141): a
+        # dispersive material refracts one channel, picked by u_chan and
+        # weighted x4; Beer-Lambert absorption on backside hits.
+        mat_ior, absorption = mrow.p0, mrow.p1
+        dispersive = ((torch.abs(mat_ior[:, 0] - mat_ior[:, 1]) > 1e-6)
+                      | (torch.abs(mat_ior[:, 1] - mat_ior[:, 2]) > 1e-6)
+                      | (torch.abs(mat_ior[:, 2] - mat_ior[:, 3]) > 1e-6))
+        chan = torch.clamp((u_chan * 4.0).to(torch.int32), 0, 3).long()
+        n_mat = torch.where(dispersive, torch.gather(mat_ior, 1, chan[:, None])[:, 0],
+                            mat_ior[:, 0])
+        n_i = torch.where(hr.backside, n_mat, 1.0)
+        n_t = torch.where(hr.backside, 1.0, n_mat)
+        fres = fresnel_unpolarized(torch.clamp(dot(wo, n), 0.0, 1.0), n_i, n_t)
+        d_refr, tir = refract(ray_dir, n, n_i / torch.clamp_min(n_t, 1e-6))
+        keep = (u_lobe < fres) | tir          # reflect: the Fresnel pick, or TIR
+        a_g = torch.where(dispersive[:, None],
+                          torch.nn.functional.one_hot(chan, 4).to(atten.dtype) * 4.0, 1.0)
+        a_g = a_g * torch.where(hr.backside[:, None], torch.exp(-absorption * hr.t[:, None]), 1.0)
+        sel = mrow.typ == MaterialType.GLASS
+        kind = torch.where(sel, ScatterKind.EXPLICIT, kind)
+        direction = torch.where(sel[:, None],
+                                torch.where(keep[:, None], reflect(ray_dir, n), d_refr), direction)
+        atten = torch.where(sel[:, None], a_g, atten)
+        pdf = torch.where(sel, 1.0, pdf)
+        new_ior = torch.where(keep[:, None], ray_ior,
+                              torch.where(hr.backside[:, None], 1.0, mat_ior))
+        ior = torch.where(sel[:, None], new_ior, ior)
     if MaterialType.MODPHONG in mat_types:
         ks, shininess, opacity, mp_ior = mrow.p1, mrow.p0[:, 0], mrow.p0[:, 1], mrow.p0[:, 3]
         ps = _modphong_spec_prob(albedo, ks)

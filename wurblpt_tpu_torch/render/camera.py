@@ -1,9 +1,10 @@
-"""Cameras (port of ``wurblpt_tpu/render/camera.py``: the pinhole and the
-equirect surround cameras, mono or stereo).
+"""Cameras (port of ``wurblpt_tpu/render/camera.py``: the pinhole with the
+three lens distortion models, and the equirect surround cameras, mono or
+stereo).
 
 `CameraConfig` keeps the JAX package's switches so that a configuration
-outside the slice (distortion, depth of field, an animated pose) is refused
-by :func:`check_camera` instead of rendered wrong.
+outside the slice (depth of field, an animated pose) is refused by
+:func:`check_camera` instead of rendered wrong.
 
 Where the JAX package divides by a Python constant, XLA multiplies by the
 float32 reciprocal of the constant; `_recip` gives that factor, so the port
@@ -39,7 +40,7 @@ class DistortionModel:
 
 @dataclass(frozen=True)
 class CameraConfig:
-    """Static camera switches (the slice renders the default: a pinhole)."""
+    """Static camera switches (camera.CameraConfig)."""
 
     surround: int = SurroundMode.OFF
     stereo: bool = False
@@ -72,7 +73,7 @@ def make_camera(
     eye_distance: float = 0.0635,
     focus_distance: float = 1.0,
     aperture_diameter: float = 0.0,
-    device="cpu",
+    device="cuda",
 ) -> CameraParams:
     """CameraParams from a vertical field of view (optics.hpp:58-65) or raw intrinsics."""
     if transformation is None:
@@ -108,7 +109,9 @@ def camera_from_numpy(c, device) -> CameraParams:
 def check_camera(cfg: CameraConfig) -> None:
     """Raise NotImplementedError for any camera feature outside the ported slice."""
     off = {
-        "distortion": cfg.distortion != DistortionModel.NONE,
+        f"distortion model {cfg.distortion}": cfg.distortion not in (
+            DistortionModel.NONE, DistortionModel.RADIAL_AND_PLANAR, DistortionModel.RADIAL_ONLY,
+            DistortionModel.OPENCV),
         "depth of field": cfg.dof,
         "animated camera": cfg.anim_id >= 0,
     }
@@ -122,6 +125,62 @@ def _recip(c) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
+def distort_normalized(cam: CameraParams, cfg: CameraConfig, xy):
+    """Forward lens distortion of normalized image coordinates xy [N, 2]
+    (camera.py:122-137, optics.hpp:227-246): RADIAL_ONLY scales by the radial
+    polynomial; RADIAL_AND_PLANAR and OPENCV add the tangential terms."""
+    if cfg.distortion == DistortionModel.NONE:
+        return xy
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    k = cam.dist_k
+    p1, p2 = cam.dist_p[0], cam.dist_p[1]
+    radial = 1.0 + k[0] * r2 + k[1] * r2 * r2 + k[2] * r2 * r2 * r2
+    if cfg.distortion == DistortionModel.RADIAL_ONLY:
+        return xy * radial[..., None]
+    dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([x * radial + dx, y * radial + dy], -1)
+
+
+def undistort_normalized(cam: CameraParams, cfg: CameraConfig, xy):
+    """Inverse lens distortion of normalized image coordinates xy [N, 2]
+    (camera.py:140-180): RADIAL_AND_PLANAR by its closed-form first-order
+    inverse (optics.hpp:251-268), RADIAL_ONLY by the Drap-Lefevre inverse
+    series to 4 terms (optics.hpp:269-278), OPENCV by `undistort_iters`
+    fixed-point steps und <- xy - (distort(und) - und) from und = xy."""
+    if cfg.distortion == DistortionModel.NONE:
+        return xy
+    k = cam.dist_k
+    if cfg.distortion == DistortionModel.RADIAL_AND_PLANAR:
+        x, y = xy[..., 0], xy[..., 1]
+        p1, p2 = cam.dist_p[0], cam.dist_p[1]
+        r2 = x * x + y * y
+        r4 = r2 * r2
+        d1 = k[0] * r2 + k[1] * r4
+        d2 = 1.0 / (4.0 * k[0] * r2 + 6.0 * k[1] * r4 + 8.0 * p1 * y + 8.0 * p2 * x + 1.0)
+        ux = x - d2 * (d1 * x + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x))
+        uy = y - d2 * (d1 * y + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y)
+        return torch.stack([ux, uy], -1)
+    if cfg.distortion == DistortionModel.RADIAL_ONLY:
+        # Powers in the product order of JAX's integer_pow: k^3 = k (k k),
+        # k^4 = (k k)(k k).
+        k1, k2, k3 = k[0], k[1], k[2]
+        k1k1 = k1 * k1
+        b1 = -k1
+        b2 = 3.0 * k1k1 - k2
+        b3 = -12.0 * (k1 * k1k1) + 8.0 * k1 * k2 - k3
+        b4 = 55.0 * (k1k1 * k1k1) - 55.0 * k1 * k1 * k2 + 5.0 * k2 * k2 + 10.0 * k1 * k3
+        r2 = (xy * xy).sum(-1)
+        r4 = r2 * r2
+        radial = 1.0 + b1 * r2 + b2 * r4 + b3 * (r2 * r4) + b4 * (r4 * r4)
+        return xy * radial[..., None]
+    und = xy
+    for _ in range(cfg.undistort_iters):
+        und = xy - (distort_normalized(cam, cfg, und) - und)
+    return und
+
+
 def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, height: int):
     """World-space rays through pixel coords [N, 2] (camera.hpp:123-185).
 
@@ -129,8 +188,9 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
     eye into the bottom half. A surround camera maps the width to [-pi, pi]
     (S360) or [-pi/2, pi/2] (S180) and the (half) height to [pi/2, -pi/2];
     its stereo eyes sit on a circle of diameter `eye_distance`, offset
-    perpendicular to each viewing column (ODS, camera.hpp:74-79). Returns
-    (origin [N, 3], direction [N, 3]); the JAX version's ray time is left out
+    perpendicular to each viewing column (ODS, camera.hpp:74-79). The
+    pinhole undistorts its normalized image coordinates with the lens model
+    of `cfg`. Returns (origin [N, 3], direction [N, 3]); the JAX version's ray time is left out
     (no motion blur, no animation in the slice)."""
     check_camera(cfg)
     px, py = pixel_xy[..., 0], pixel_xy[..., 1]
@@ -145,7 +205,8 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
         nx = (px - cam.center_px[0]) / cam.focal_px[0]
         cy = cam.center_px[1] * (eff_height / height) if cfg.stereo else cam.center_px[1]
         ny = (py - cy) / cam.focal_px[1]
-        d_cam = torch.stack([nx, -ny, -torch.ones_like(nx)], -1)
+        und = undistort_normalized(cam, cfg, torch.stack([nx, ny], -1))
+        d_cam = torch.stack([und[..., 0], -und[..., 1], -torch.ones_like(nx)], -1)
         zero = torch.zeros_like(nx)
         o_cam = torch.stack([zero + eye_sign * 0.5 * cam.eye_distance, zero, zero], -1)
     else:

@@ -1,22 +1,26 @@
-"""Environment maps: equirect radiance lookup and importance sampling (port of
-``wurblpt_tpu/render/envmap.py``, the equirect branch).
+"""Environment maps: radiance lookup and importance sampling (port of
+``wurblpt_tpu/render/envmap.py``: the equirect, cube and constant maps).
 
 K8 is three entry points of one hand-written CUDA source
-(``csrc/envmap.cu``): `env_radiance` (bilinear lookup, wrap in u, clamp in
-v), `env_sample` (alias-table pick of a cell of the R x R equal-area grid,
-then a uniform point in it) and `env_pdf` (the pdf table at a direction's
-cell). Each wrapper launches the kernel on CUDA tensors and runs its plain
-PyTorch version (`*_plain`, the JAX formulas op for op) on CPU tensors.
+(``csrc/envmap.cu``): `env_radiance` (the equirect map's bilinear lookup,
+wrap in u, clamp in v; the cube map's face pick and per-face bilinear lookup
+with edge clamp; the constant map's radiance), `env_sample` (alias-table
+pick of a cell of the R x R equal-area grid, then a uniform point in it)
+and `env_pdf` (the pdf table at a direction's cell). Sampling and pdf do not
+depend on the map's parameterization. Each wrapper launches the kernel on
+CUDA tensors and runs its plain PyTorch version (`*_plain`, the JAX formulas
+op for op) on CPU tensors.
 
 The JAX package reads the four bilinear taps from a 16-channel "patch image"
-so that one TPU gather serves them; the kernel reads the four texels
-directly. The cube map (kind 2) and the constant map (kind 3) are not ported.
+so that one TPU gather serves them; the kernel and the plain versions read
+the four texels directly (the same texels: the patch image's neighbours are
+the clamped or wrapped ones read here).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ import torch
 from .. import native
 from ..core.transform import quat_rotate
 from ..core.vecmath import safe_sqrt
+from ..scene.flatten import vec4
 from ..scene.ir import EnvMapArrays
 
 _TWO_PI = 2.0 * math.pi
@@ -35,6 +40,19 @@ class EnvironmentMapEquiRect(NamedTuple):
 
     image: np.ndarray                 # [H, W, 3|4] linear radiance
     importance_resolution: int = 0    # R of the R x R grid; 0: no importance sampling
+
+
+class EnvironmentMapCube(NamedTuple):
+    """Host descriptor of a cube map (builder.EnvironmentMapCube)."""
+
+    faces: Sequence[np.ndarray]       # 6 x [F, F, 3|4], order +x, -x, +y, -y, +z, -z
+    importance_resolution: int = 0    # R of the R x R grid; 0: no importance sampling
+
+
+class EnvironmentMapConstant(NamedTuple):
+    """Host descriptor of a constant sky (builder.EnvironmentMapConstant)."""
+
+    radiance: Sequence[float] = (1.0, 1.0, 1.0)
 
 
 def quat_conjugate(q):
@@ -94,9 +112,46 @@ def _bilinear_wrap(img, u, v):
     return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
 
 
+def _cube_lookup(img, d):
+    """Bilinear cube-map lookup of img [6, H, W, 4] (faces +x, -x, +y, -y, +z,
+    -z) with edge clamp, as envmap.py:118-163 computes it: the face of the
+    largest |component| (ties to x, then y), the standard per-face (sc, tc),
+    texel coordinates clamped at 0 before the truncation."""
+    x, y, z = d[:, 0], d[:, 1], d[:, 2]
+    ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (~is_x) & (ay >= az)
+    face = torch.where(is_x, torch.where(x > 0, 0, 1),
+                       torch.where(is_y, torch.where(y > 0, 2, 3), torch.where(z > 0, 4, 5)))
+    ma = torch.clamp_min(torch.where(is_x, ax, torch.where(is_y, ay, az)), 1e-20)
+    sc = torch.where(is_x, torch.where(x > 0, -z, z),
+                     torch.where(is_y, x, torch.where(z > 0, x, -x)))
+    tc = torch.where(is_x, -y, torch.where(is_y, torch.where(y > 0, z, -z), -y))
+    u = 0.5 * (sc / ma + 1.0)
+    v = 0.5 * (tc / ma + 1.0)
+    h, w = img.shape[1], img.shape[2]
+    us = torch.clamp_min(u * w - 0.5, 0.0)
+    vs = torch.clamp_min(v * h - 0.5, 0.0)
+    x0 = torch.clamp(us.to(torch.int32), 0, w - 1)
+    y0 = torch.clamp(vs.to(torch.int32), 0, h - 1)
+    a = (us - x0.to(torch.float32))[:, None]
+    b = (vs - y0.to(torch.float32))[:, None]
+    face, x0, y0 = face.long(), x0.long(), y0.long()
+    x1 = torch.clamp_max(x0 + 1, w - 1)
+    y1 = torch.clamp_max(y0 + 1, h - 1)
+    c00, c10 = img[face, y0, x0], img[face, y0, x1]
+    c01, c11 = img[face, y1, x0], img[face, y1, x1]
+    return (c00 * (1 - a) + c10 * a) * (1 - b) + (c01 * (1 - a) + c11 * a) * b
+
+
 def env_radiance_plain(env: EnvMapArrays, d):
     """Plain version of K8 radiance: [N, 4] radiance arriving from world directions d [N, 3]."""
-    u, v = _equirect_uv(quat_rotate(quat_conjugate(env.rotation), d))
+    if env.kind == 3:
+        return env.const_radiance.expand(d.shape[0], 4).contiguous()
+    dm = quat_rotate(quat_conjugate(env.rotation), d)
+    if env.kind == 2:
+        return _cube_lookup(env.image, dm)
+    u, v = _equirect_uv(dm)
     return _bilinear_wrap(env.image, u, v)
 
 
@@ -132,8 +187,12 @@ def _check(name, env: EnvMapArrays, x, cols):
     if x.dtype != torch.float32 or tuple(x.shape) != (n, cols) or not x.is_contiguous():
         raise ValueError(f"{name}: need contiguous float32 ({n}, {cols}), got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if env.kind != 1:
-        raise NotImplementedError(f"{name}: only the equirect map (kind 1) is ported")
+    shapes = {1: "[H, W, 4] equirect", 2: "[6, H, W, 4] cube", 3: "[1, 1, 4] constant"}
+    img = env.image
+    ok = {1: img.ndim == 3, 2: img.ndim == 4 and img.shape[0] == 6, 3: True}.get(env.kind)
+    if not ok or img.shape[-1] != 4:
+        raise ValueError(f"{name}: kind {env.kind} needs a {shapes.get(env.kind, 'known kind')} "
+                         f"image, got {tuple(img.shape)}")
     if env.image.device != x.device:
         raise ValueError(f"{name}: envmap on {env.image.device}, rays on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -148,9 +207,10 @@ def env_radiance(env: EnvMapArrays, d):
     lib = native.load_kernels()
     n = d.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=d.device)
-    code = lib.wpt_env_radiance(d.data_ptr(), n, env.image.data_ptr(), env.image.shape[0],
-                                env.image.shape[1], env.rotation.data_ptr(), out.data_ptr(),
-                                native.stream_ptr(d))
+    h, w = env.image.shape[-3], env.image.shape[-2]
+    code = lib.wpt_env_radiance(d.data_ptr(), n, env.kind, env.image.data_ptr(), h, w,
+                                env.rotation.data_ptr(), env.const_radiance.data_ptr(),
+                                out.data_ptr(), native.stream_ptr(d))
     native.check(code, "env_radiance")
     native.LAUNCHES["env_radiance"] += 1
     return out
@@ -215,17 +275,30 @@ def _build_alias_table(weights: np.ndarray):
     return accept.astype(np.float32), alias
 
 
-def build_envmap_arrays(desc: EnvironmentMapEquiRect, device) -> EnvMapArrays:
-    """Equirect descriptor -> EnvMapArrays on `device`.
+def build_envmap_arrays(desc, device) -> EnvMapArrays:
+    """Equirect, cube or constant descriptor -> EnvMapArrays on `device`
+    (envmap.build_envmap_arrays without rotation).
 
     The importance grid evaluates the plain radiance lookup at the cell
     centres of the equal-area map, on the CPU, as the JAX package does on
-    its backend."""
-    img = np.asarray(desc.image, np.float32)
-    if img.shape[-1] == 3:
-        img = np.concatenate([img, img.mean(-1, keepdims=True)], -1)
-    base = EnvMapArrays(1, torch.as_tensor(img), torch.zeros((0, 0)), torch.zeros((0,)),
-                        torch.zeros((0,), dtype=torch.int32), torch.tensor([0.0, 0.0, 0.0, 1.0]))
+    its backend. The constant map gets no tables."""
+    ident = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    no_tables = (torch.zeros((0, 0)), torch.zeros((0,)), torch.zeros((0,), dtype=torch.int32))
+    if isinstance(desc, EnvironmentMapConstant):
+        return EnvMapArrays(3, torch.zeros((1, 1, 4)), *no_tables, ident,
+                            torch.as_tensor(vec4(desc.radiance))).to(device)
+
+    def rgbn(a):
+        a = np.asarray(a, np.float32)
+        return np.concatenate([a, a.mean(-1, keepdims=True)], -1) if a.shape[-1] == 3 else a
+
+    if isinstance(desc, EnvironmentMapCube):
+        kind, img = 2, np.stack([rgbn(f) for f in desc.faces], 0)
+    elif isinstance(desc, EnvironmentMapEquiRect):
+        kind, img = 1, rgbn(desc.image)
+    else:
+        raise TypeError(f"unknown envmap descriptor {desc!r}")
+    base = EnvMapArrays(kind, torch.as_tensor(img), *no_tables, ident, torch.zeros((4,)))
     res = desc.importance_resolution
     if not res:
         return base.to(device)

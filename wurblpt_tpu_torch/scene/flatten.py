@@ -5,11 +5,12 @@ Everything is computed with numpy exactly as the JAX package's flattener does
 it, so a scene built here equals the JAX build field by field, bits included.
 Covered: indexed meshes with or without texcoords and per-vertex normals
 (missing normals are computed, and tangents wherever there are texcoords),
-static instance transforms baked into world space; constant Lambertian, GGX,
-mirror, ModPhong, RGL and diffuse-light materials; hot-spot triangles, the
+static instance transforms baked into world space; analytic spheres (no hot
+spots); scenes of spheres alone; constant Lambertian, GGX, mirror, glass,
+ModPhong, RGL and diffuse-light materials; hot-spot triangles, the
 power-proportional light pick with its alias table and the per-prim pick and
-1 / area rows of per-light MIS; the port's BVH, an equirect environment map
-and the RGL tables.
+1 / area rows of per-light MIS; the port's BVH, an equirect, cube or
+constant environment map and the RGL tables.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ class MeshSpec(NamedTuple):
     indices: np.ndarray              # [F, 3]
     material: int
     hot_spot: bool = False
+    transformation: Optional[Transformation] = None   # static pose, baked at flatten
+
+
+class SphereSpec(NamedTuple):
+    center: tuple                    # object space
+    radius: float
+    material: int
     transformation: Optional[Transformation] = None   # static pose, baked at flatten
 
 
@@ -145,14 +153,17 @@ def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_emissive):
 
 
 def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=False,
-                   envmap=None, rgl_tables=None) -> SceneArrays:
-    """Static triangle meshes + a material table -> SceneArrays on `device`.
+                   envmap=None, rgl_tables=None, spheres=()) -> SceneArrays:
+    """Static triangle meshes and spheres + a material table -> SceneArrays on `device`.
 
     `materials` holds numpy arrays; the light pick is power-proportional, as
     ``flatten_scene(light_sampling="power")`` builds it. `use_bvh` builds the
     port's BVH (:func:`wurblpt_tpu_torch.accel.build.build_bvh`); `envmap` is an
-    :class:`~wurblpt_tpu_torch.render.envmap.EnvironmentMapEquiRect`;
-    `rgl_tables` the table dicts of the RGL materials, in `rgl_id` order."""
+    ``EnvironmentMap{EquiRect,Cube,Constant}`` of :mod:`wurblpt_tpu_torch.render.envmap`;
+    `rgl_tables` the table dicts of the RGL materials, in `rgl_id` order.
+    `spheres` are :class:`SphereSpec`, flattened as flatten.py:550-576 does
+    (centre by scale, rotation, translation; radius by the mean scale);
+    sphere j has prim id T + j."""
     cols = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                             "tan0", "tan1", "tan2", "mat", "flags", "v1", "v2")}
     light_prims = []
@@ -182,28 +193,41 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         if mesh.hot_spot:
             light_prims.extend(range(n, n + len(f)))
         n += len(f)
-    arr = {k: np.concatenate(v) for k, v in cols.items()}
+    empty = {"mat": (0,), "flags": (0,), "uv0": (0, 2), "uv1": (0, 2), "uv2": (0, 2)}
+    arr = {k: (np.concatenate(v) if v else np.zeros(empty.get(k, (0, 3)),
+                                                     _i32 if k in ("mat", "flags") else _f32))
+           for k, v in cols.items()}
     arr = {k: (v if k in ("mat", "flags") else v.astype(_f32)) for k, v in arr.items()}
 
     def dev(x):
         return torch.as_tensor(x, device=device)
 
+    centers, radii = [], []
+    for sph in spheres:
+        center, radius = np.asarray(sph.center, _f32), float(sph.radius)
+        if sph.transformation is not None:
+            t, q, scale = (np.asarray(x.detach().cpu().numpy(), _f32) for x in sph.transformation)
+            center = center * scale
+            tq = 2.0 * np.cross(q[:3], center)
+            center = center + q[3] * tq + np.cross(q[:3], tq) + t
+            radius *= float(np.mean(scale))
+        centers.append(center)
+        radii.append(radius)
     light_ids = np.asarray(sorted(set(light_prims)), _i32)
     picks = {}
     if light_ids.size:
         powers = light_power_weights(light_ids, arr["e1"], arr["e2"], arr["mat"],
                                      np.asarray(materials.emissive))
         prob, alias, w = build_alias_table(powers)
-        # Per prim: pick probability and 1 / area (zero for non-lights).
-        pick = np.zeros((n,), _f32)
-        inv_area = np.zeros((n,), _f32)
+        # Per prim, spheres included: pick probability and 1 / area (zero for non-lights).
+        pick = np.zeros((n + len(radii),), _f32)
+        inv_area = np.zeros((n + len(radii),), _f32)
         pick[light_ids] = w
         area = 0.5 * np.linalg.norm(np.cross(arr["e1"][light_ids], arr["e2"][light_ids]), axis=-1)
         inv_area[light_ids] = 1.0 / np.maximum(area, 1e-20)
         picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias),
                      prim_light_pick=dev(pick), prim_inv_area=dev(inv_area))
 
-    z3 = np.zeros((0, 3), _f32)
     tris = Triangles(**{k: dev(v) for k, v in arr.items()})
     bvh = None
     if use_bvh:
@@ -222,7 +246,8 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         rgl = stack_rgl_tables(rgl_tables, device)
     return SceneArrays(
         tris=tris,
-        spheres=Spheres(dev(z3), dev(np.zeros((0,), _f32)), dev(np.zeros((0,), _i32))),
+        spheres=Spheres(dev(np.asarray(centers, _f32).reshape(-1, 3)), dev(np.asarray(radii, _f32)),
+                        dev(np.asarray([s.material for s in spheres], _i32))),
         materials=MaterialTable(*(dev(np.asarray(x)) for x in materials)),
         light_prims=dev(light_ids),
         bvh=bvh,
@@ -238,7 +263,8 @@ def material_table(rows) -> MaterialTable:
     The colour is the albedo of LAMBERTIAN, the F0 of GGX, the tint of MIRROR
     (None: white), the diffuse colour of MODPHONG and the radiance of
     LIGHT_DIFFUSE. The parameter is GGX's roughness (a scalar or (x, y)),
-    MODPHONG's :class:`ModPhong` and RGL's table index; None otherwise."""
+    GLASS's :class:`Glass`, MODPHONG's :class:`ModPhong` and RGL's table
+    index; None otherwise."""
     m = len(rows)
     typ = np.array([r[0] for r in rows], _i32)
     albedo, emissive, p0, p1, p2 = (np.zeros((m, 4), _f32) for _ in range(5))
@@ -252,6 +278,15 @@ def material_table(rows) -> MaterialTable:
             p0[i, 0:2] = np.maximum(np.asarray(r, _f32), 1e-4)
         elif t == MaterialType.MIRROR:
             albedo[i] = vec4((1, 1, 1) if c is None else c)
+        elif t == MaterialType.GLASS:
+            # p0 = per-channel IOR (a scalar repeated, RGB padded with B),
+            # p1 = absorption (RGB + NIR 0), albedo 1 (flatten.py:182-191).
+            ior = np.asarray(param.ior, _f32).reshape(-1)
+            p0[i] = (np.repeat(ior, 4) if ior.size == 1
+                     else np.concatenate([ior, ior[-1:]]) if ior.size == 3 else ior)
+            ab = np.asarray(param.absorption, _f32).reshape(-1)
+            p1[i] = ab if ab.size == 4 else np.append(vec4(ab)[:3], _f32(0.0))
+            albedo[i] = 1.0
         elif t == MaterialType.MODPHONG:
             # p0 = (shininess, opacity, specular-lobe probability, ior),
             # p1 = ks, p2 = transmissive (flatten.py _flatten_materials).
@@ -270,6 +305,13 @@ def material_table(rows) -> MaterialTable:
             raise NotImplementedError(f"material type {t} is outside the ported slice")
     return MaterialTable(typ=typ, flags=np.zeros((m,), _i32), albedo=albedo,
                          emissive=emissive, p0=p0, p1=p1, p2=p2, rgl_id=rgl_id)
+
+
+class Glass(NamedTuple):
+    """The glass parameters of a material_table row (builder.Glass)."""
+
+    ior: object = 1.5                        # a scalar, RGB, or RGB + NIR
+    absorption: tuple = (0.0, 0.0, 0.0, 0.0)
 
 
 class ModPhong(NamedTuple):

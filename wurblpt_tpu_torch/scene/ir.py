@@ -118,15 +118,16 @@ class EnvMapArrays(NamedTuple):
     """Environment map raster + importance tables (ir.EnvMapArrays).
 
     `kind`: 1 equirect, 2 cube, 3 constant (a scene without a map has
-    none); only 1 renders in the port. The importance tables live on the
-    R x R equal-area grid."""
+    none). The importance tables live on the R x R equal-area grid; the
+    constant map has none."""
 
     kind: int
-    image: torch.Tensor       # equirect [H, W, 4] f32 (cube: [6, H, W, 4])
+    image: torch.Tensor       # equirect [H, W, 4] f32; cube [6, F, F, 4]; constant [1, 1, 4]
     pdf_table: torch.Tensor   # [R, R] f32 solid-angle pdf per cell (R = 0: none)
     alias_prob: torch.Tensor  # [R * R] f32
     alias_idx: torch.Tensor   # [R * R] int32
     rotation: torch.Tensor    # [4] f32 quaternion world-from-map
+    const_radiance: torch.Tensor  # [4] f32 radiance of the constant map (zeros otherwise)
 
     @property
     def importance(self) -> bool:
@@ -216,7 +217,8 @@ def scene_from_numpy(a, device) -> SceneArrays:
     if int(np.asarray(e.kind)) != 0:
         envmap = EnvMapArrays(int(np.asarray(e.kind)), _f32(e.image, device),
                               _f32(e.pdf_table, device), _f32(e.alias_prob, device),
-                              _i32(e.alias_idx, device), _f32(e.rotation, device))
+                              _i32(e.alias_idx, device), _f32(e.rotation, device),
+                              _f32(e.const_radiance, device))
     bvh = None
     if a.bvh is not None:
         from ..accel.build import build_bvh

@@ -19,17 +19,19 @@ still differ, such as atan2f/asinf against PyTorch's):
 * K8 envmap: radiance rtol 1e-5, atol 1e-6 (the sun is 200, the sky ~1);
   sampled directions atol 1e-6; pdfs equal (a table lookup) on all but
   1e-4 of the lanes (an ulp of atan2f can move a direction across a cell
-  edge).
+  edge). The cube and constant branches use no transcendental function:
+  their radiance must be bit-equal.
 * K7 RGL eval / sample: f*cos and pdf rtol 1e-5, atol 1e-6; `ok` equal on
   every lane, sampled directions atol 1e-6 where ok (kernel and plain
   version take the same row searches in the same order; a margin, not an
   expected difference).
 * P0 row gather: equal word for word (a copy).
 
-Also the three frames the port renders and their yardsticks: the Cornell
-bench frame, the mesh frame (bench config bvh_100k) and the city frame
-(bench config city_many_lights), each with the JAX package's deterministic
-CPU output at the bench settings, which the port's render must meet (mean
+Also the five frames the port renders and their yardsticks: the Cornell
+bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
+config city_many_lights), the envmap frame (envmap_cube_is) and the rtiow
+frame (rtiow_distortion), each with the JAX package's deterministic CPU
+output at the bench settings, which the port's render must meet (mean
 radiance within 1e-3 relative, cast counters within 0.5 %).
 
 `bound_ms` is the least time an H100 could take for a kernel's work on the
@@ -61,7 +63,7 @@ from ..core import sampler
 from ..core.onb import onb_from_normal_tangent, to_local
 from ..materials.rgl import rgl_eval, rgl_eval_plain, rgl_sample, rgl_sample_plain
 from ..render.bsdf import SceneStatic
-from ..render.camera import CameraConfig, SurroundMode, camera_rays, make_camera
+from ..render.camera import CameraConfig, DistortionModel, SurroundMode, camera_rays, make_camera
 from ..render.gather import row_gather, row_gather_plain
 from ..render.envmap import (
     env_pdf,
@@ -133,15 +135,48 @@ CITY_LANES = 1048576
 CITY_REF_MEAN = 0.06086526045745766
 CITY_REF_STATS = (3917102, 7996412)
 
+# The envmap frame (bench.py bench_envmap_furnace, bench config
+# envmap_cube_is): envmap_spheres(cube=True), 2 triangles and 3 spheres
+# (glass, mirror, GGX) under the sky resampled to 32 x 32 cube faces with a
+# 64 x 64 importance table, 128 x 128, 16 spp, 8 path components; one
+# wavefront block of 16384 pixels x 8 sample lanes.
+ENVMAP_WIDTH = 128
+ENVMAP_SSQRT = 4
+ENVMAP_DEPTH = 8
+ENVMAP_LANES_M = 8
+ENVMAP_LANES = ENVMAP_WIDTH * ENVMAP_WIDTH * ENVMAP_LANES_M
+# The JAX package's CPU output for it (float64 mean of the f32 image; cast
+# counters): `JAX_PLATFORMS=cpu python jax_frame_reference.py envmap`.
+ENVMAP_REF_MEAN = 0.41563207641555283
+ENVMAP_REF_STATS = (549890, 739419)
+
+# The rtiow frame (bench.py bench_rtiow, bench config rtiow_distortion):
+# rtiow(), 40 spheres and no triangle under a constant sky, 192 x 128,
+# 16 spp, 8 path components, OpenCV lens distortion undistorted in 8
+# fixed-point steps; one wavefront block of 24576 pixels x 4 sample lanes.
+RTIOW_WIDTH = 192
+RTIOW_HEIGHT = 128
+RTIOW_SSQRT = 4
+RTIOW_DEPTH = 8
+RTIOW_LANES_M = 4
+RTIOW_LANES = RTIOW_WIDTH * RTIOW_HEIGHT * RTIOW_LANES_M
+RTIOW_CAMERA = CameraConfig(distortion=DistortionModel.OPENCV, undistort_iters=8)
+RTIOW_LENS = dict(dist_k=(-0.1, 0.02, 0.0, 0.0, 0.0, 0.0), dist_p=(0.001, -0.001))
+# The JAX package's CPU output for it: `JAX_PLATFORMS=cpu python
+# jax_frame_reference.py rtiow`.
+RTIOW_REF_MEAN = 0.5212965367257725
+RTIOW_REF_STATS = (764846, 764846)
+
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FP32_PER_S = 67e12      # float32 outside the tensor cores, 700 W
 
 
 def _frame(scene, camera, width, height, ssqrt, depth, device, cfg=CameraConfig(),
-           eye_distance=0.0635, max_lanes=131072) -> Callable[[], tuple]:
+           eye_distance=0.0635, max_lanes=131072, lens=None) -> Callable[[], tuple]:
     static = SceneStatic.from_scene(scene)
     pose, vfov = camera
-    cam = make_camera(pose, vfov, width, height, eye_distance=eye_distance, device=device)
+    cam = make_camera(pose, vfov, width, height, eye_distance=eye_distance, device=device,
+                      **(lens or {}))
     params = RenderParams(max_path_components=depth)
 
     def render():
@@ -179,6 +214,22 @@ def city_frame(device, scene=None) -> Callable[[], tuple]:
                   CITY_DEPTH, device, CITY_CAMERA, CITY_EYE_DISTANCE, CITY_LANES)
 
 
+def envmap_frame(device, scene=None) -> Callable[[], tuple]:
+    """The same for the envmap frame; `scene` is envmap_spheres(cube=True) on
+    `device`, built here when not given."""
+    scene = scenes.envmap_spheres(cube=True, device=device) if scene is None else scene
+    return _frame(scene, scenes.envmap_camera(device), ENVMAP_WIDTH, ENVMAP_WIDTH, ENVMAP_SSQRT,
+                  ENVMAP_DEPTH, device)
+
+
+def rtiow_frame(device, scene=None) -> Callable[[], tuple]:
+    """The same for the rtiow frame; `scene` is rtiow() on `device`, built
+    here when not given."""
+    scene = scenes.rtiow(device=device) if scene is None else scene
+    return _frame(scene, scenes.rtiow_camera(device), RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT,
+                  RTIOW_DEPTH, device, RTIOW_CAMERA, lens=RTIOW_LENS)
+
+
 def _check_frame(img, stats, shape, ref_mean, ref_stats) -> float:
     assert tuple(img.shape) == shape, img.shape
     assert bool(torch.isfinite(img).all()), "image has non-finite values"
@@ -205,21 +256,35 @@ def check_city_frame(img, stats) -> float:
     return _check_frame(img, stats, (CITY_HEIGHT, CITY_WIDTH, 3), CITY_REF_MEAN, CITY_REF_STATS)
 
 
+def check_envmap_frame(img, stats) -> float:
+    """Hold an envmap frame to the JAX reference; returns its mean radiance."""
+    return _check_frame(img, stats, (ENVMAP_WIDTH, ENVMAP_WIDTH, 3), ENVMAP_REF_MEAN,
+                        ENVMAP_REF_STATS)
+
+
+def check_rtiow_frame(img, stats) -> float:
+    """Hold an rtiow frame to the JAX reference; returns its mean radiance."""
+    return _check_frame(img, stats, (RTIOW_HEIGHT, RTIOW_WIDTH, 3), RTIOW_REF_MEAN,
+                        RTIOW_REF_STATS)
+
+
 def _f32(x, device):
     return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
 
 
-def camera_lanes(width: int, height: int, m: int, device, seed: int = 0, camera=None):
+def camera_lanes(width: int, height: int, m: int, device, seed: int = 0, camera=None,
+                 cfg=CameraConfig(), lens=None):
     """Bounce-0 rays of a bench frame: width x height pixels x m sample lanes
     (the wavefront's block), pixel jitter from numpy; `camera` is (pose,
-    vfov), the Cornell bench camera by default."""
+    vfov), the Cornell bench camera by default; `lens` its distortion
+    coefficients (dist_k, dist_p) for `cfg`'s model."""
     pose, vfov = scenes.cornell_ref_camera(device) if camera is None else camera
-    cam = make_camera(pose, vfov, width, height, device=device)
+    cam = make_camera(pose, vfov, width, height, device=device, **(lens or {}))
     n = width * height * m
     pix = np.arange(n) % (width * height)
     jit = np.random.default_rng(seed).uniform(size=(n, 2))
     pxy = np.stack([pix % width, pix // width], -1) + jit
-    o, d = camera_rays(cam, CameraConfig(), _f32(pxy, device), width, height)
+    o, d = camera_rays(cam, cfg, _f32(pxy, device), width, height)
     return (o.contiguous(), d.contiguous(), torch.full((n,), MIN_HIT, device=device),
             torch.full((n,), BIG, device=device))
 
@@ -313,11 +378,13 @@ def terrain_random_lanes(n: int, device, seed: int = 1):
                         t_far=30.0)
 
 
-def env_shadow_lanes(scene, rays, seed: int = 2):
+def env_shadow_lanes(scene, rays, bs=None, seed: int = 2):
     """Env-NEE shadow rays from the first hits of `rays`, toward sky directions
-    that env_sample draws, to BIG; lanes without a hit get t_max = 0."""
+    that env_sample draws, to BIG; lanes without a hit get t_max = 0. The
+    hits come from the scene's BVH, or from its BruteScene `bs`."""
     o, d, t_min, _ = rays
-    t, prim, _, _ = bvh_closest_hit_plain(scene.bvh, *rays)
+    t, prim, _, _ = (bvh_closest_hit_plain(scene.bvh, *rays) if bs is None
+                     else closest_hit_plain(bs, *rays))
     pos = o + torch.where(prim >= 0, t, 1.0)[:, None] * d
     u3 = _f32(np.random.default_rng(seed).uniform(size=(o.shape[0], 3)), o.device)
     edir, _ = env_sample_plain(scene.envmap, u3)
@@ -349,11 +416,58 @@ def check_bvh_any_hit(bvh, rays) -> Dict[str, float]:
     return {"max_abs_err": 0.0, "lanes": int(occ.shape[0]), "occluded": int(occ.sum())}
 
 
-def check_envmap(env, dirs, u3) -> Dict[str, float]:
-    """K8's three entry points against their plain versions on directions
-    `dirs` [N, 3] and uniforms `u3` [N, 3]; raises AssertionError on disagreement."""
+def envmap_camera_lanes(device, seed: int = 0):
+    """Bounce-0 rays of the envmap frame's block (131072 lanes)."""
+    return camera_lanes(ENVMAP_WIDTH, ENVMAP_WIDTH, ENVMAP_LANES_M, device, seed,
+                        camera=scenes.envmap_camera(device))
+
+
+def rtiow_camera_lanes(device, seed: int = 0):
+    """Bounce-0 rays of the rtiow frame's block (98304 lanes), OpenCV lens."""
+    return camera_lanes(RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_LANES_M, device, seed,
+                        camera=scenes.rtiow_camera(device), cfg=RTIOW_CAMERA, lens=RTIOW_LENS)
+
+
+def random_directions(n: int, device, seed: int = 5):
+    """Unit directions uniform on the sphere."""
+    d = np.random.default_rng(seed).normal(size=(n, 3))
+    return _f32(d / np.linalg.norm(d, axis=-1, keepdims=True), device)
+
+
+def cube_edge_directions(device, face_res: int = 32, seed: int = 6):
+    """Directions where a cube lookup decides by ties and edges: the 6 axes,
+    the 12 edge and 8 corner diagonals (|x| = |y| and the like), directions
+    on the face edges (|x| = |z| > |y|, ...) and on every texel boundary of
+    each face (u * F - 0.5 an integer), in both signs."""
+    rs = np.random.default_rng(seed)
+    axes = np.eye(3)
+    pm = np.array([-1.0, 1.0])
+    diag = [np.array([a, b, 0.0])[list(p)] for a in pm for b in pm for p in
+            ((0, 1, 2), (0, 2, 1), (2, 0, 1))]
+    corners = [np.array([a, b, c]) for a in pm for b in pm for c in pm]
+    t = rs.uniform(-1, 1, 64)
+    edges = [np.array([s1, v, s2])[list(p)] for v in t for s1 in pm for s2 in pm
+             for p in ((0, 1, 2), (1, 0, 2), (0, 2, 1))]
+    k = (np.arange(face_res + 1) + 0.5) / face_res * 2.0 - 1.0      # texel centres in (sc, tc)
+    sc, tc = np.meshgrid(np.concatenate([k, np.linspace(-1, 1, face_res + 1)]),
+                         rs.uniform(-1, 1, 8))
+    grid = np.stack([sc.ravel(), tc.ravel(), np.ones(sc.size)], -1)
+    faces = [grid[:, list(p)] * s for p in ((2, 0, 1), (0, 2, 1), (0, 1, 2)) for s in pm]
+    d = np.concatenate([axes, -axes, np.array(diag), np.array(corners), np.array(edges), *faces])
+    return _f32(d / np.linalg.norm(d, axis=-1, keepdims=True), device)
+
+
+def check_envmap(env, dirs, u3=None) -> Dict[str, float]:
+    """K8 against its plain versions: radiance on directions `dirs` [N, 3],
+    and where the map has importance tables, sample on uniforms `u3` [N, 3]
+    and pdf on `dirs`; raises AssertionError on disagreement."""
     rad, prad = env_radiance(env, dirs), env_radiance_plain(env, dirs)
-    assert torch.allclose(rad, prad, rtol=1e-5, atol=1e-6), "env_radiance differs"
+    if env.kind == 1:
+        assert torch.allclose(rad, prad, rtol=1e-5, atol=1e-6), "env_radiance differs"
+    else:
+        assert torch.equal(rad, prad), f"env_radiance (kind {env.kind}) is not bit-equal"
+    if not env.importance:
+        return {"max_abs_err": float((rad - prad).abs().max()), "lanes": int(dirs.shape[0])}
     (sd, spdf), (psd, pspdf) = env_sample(env, u3), env_sample_plain(env, u3)
     assert torch.allclose(sd, psd, rtol=0.0, atol=1e-6), "env_sample directions differ"
     pdf, ppdf = env_pdf(env, dirs), env_pdf_plain(env, dirs)
@@ -493,9 +607,21 @@ def bvh_work(bvh, rays, any_hit: bool):
 
 def envmap_work(env, n: int):
     """K8, one call of each entry point: directions and uniforms in, radiance,
-    sampled directions and pdfs out, the image and tables read once; about
-    60 flops per lane and entry point."""
+    sampled directions and pdfs out, the image (a 64 x 128 equirect map, or
+    six 32 x 32 cube faces: 96 KiB) and tables read once; about 60 flops per
+    lane and entry point."""
     return n * (12 + 16) + n * (12 + 12 + 4) + n * (12 + 4) + _table_bytes(env[1:]), n * 180.0
+
+
+def env_radiance_work(env, n: int):
+    """K8 radiance alone: 12 B of direction in and 16 B of radiance out per
+    lane, the image read once; about 60 flops per lane on the cube map (the
+    rotation, the face pick and the bilinear blend of four texels). The
+    constant map reads no direction and no image: its 16 B radiance once,
+    16 B out per lane, no arithmetic."""
+    if env.kind == 3:
+        return n * 16 + env.const_radiance.numel() * 4, 0.0
+    return n * (12 + 16) + _table_bytes(env[1:]), n * 60.0
 
 
 def rgl_work(tables, n: int, sample: bool):

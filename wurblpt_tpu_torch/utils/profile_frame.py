@@ -1,9 +1,10 @@
-"""Where the time of the port's three frames goes on the GPU.
+"""Where the time of the port's five frames goes on the GPU.
 
     python -m wurblpt_tpu_torch.utils.profile_frame
 
 For each frame in turn (the Cornell bench frame, the mesh frame of bench
-config bvh_100k, the city frame of bench config city_many_lights): renders
+config bvh_100k, the city frame of bench config city_many_lights, the
+envmap frame of envmap_cube_is, the rtiow frame of rtiow_distortion): renders
 it once to warm up, 5 times unprofiled, once under
 torch.profiler (CPU + CUDA activities), and 3 times more unprofiled (frames
 after a profiled one run slower), and prints: the wavefront steps,
@@ -24,7 +25,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import native
-from .kernel_check import bench_frame, city_frame, mesh_frame
+from .kernel_check import bench_frame, city_frame, envmap_frame, mesh_frame, rtiow_frame
 
 _OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
          "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
@@ -86,6 +87,8 @@ def main():
     profile_one("cornell bench frame", bench_frame("cuda"), "closest_hit")
     profile_one("mesh frame (bvh_100k)", mesh_frame("cuda"), "bvh_closest_hit")
     profile_one("city frame (city_many_lights)", city_frame("cuda"), "bvh_closest_hit")
+    profile_one("envmap frame (envmap_cube_is)", envmap_frame("cuda"), "closest_hit")
+    profile_one("rtiow frame (rtiow_distortion)", rtiow_frame("cuda"), "closest_hit")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 
 Each is built with numpy alone, draw for draw as the JAX builder builds it:
 the Cornell box from the port's copy of the reference vertex data
-(:mod:`.cornell_data`), the mesh path's `terrain_city`, and the city path's
-`city_night` with its OBJ/MTL round trip through :mod:`wurblpt_tpu_torch.io.obj`.
+(:mod:`.cornell_data`), the mesh path's `terrain_city`, the city path's
+`city_night` with its OBJ/MTL round trip through :mod:`wurblpt_tpu_torch.io.obj`,
+and the sphere paths' `envmap_spheres` and `rtiow`. Scenes and cameras are
+built on the GPU unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -13,14 +15,14 @@ import tempfile
 import numpy as np
 
 from ..core.transform import Transformation, from_lookat, quat_from_axis_angle
-from ..render.envmap import EnvironmentMapEquiRect
+from ..render.envmap import EnvironmentMapConstant, EnvironmentMapCube, EnvironmentMapEquiRect
 from ..scene import generator as G
-from ..scene.flatten import MeshSpec, ModPhong, flatten_meshes, material_table
+from ..scene.flatten import Glass, MeshSpec, ModPhong, SphereSpec, flatten_meshes, material_table
 from ..scene.ir import MaterialType
 from . import cornell_data as cd
 
 
-def cornell_box_ref(device="cpu"):
+def cornell_box_ref(device="cuda"):
     """The reference Cornell box (wurblpt-cornellbox.cpp:43-229 default config):
     the same arrays as ``wurblpt_tpu.utils.scenes.cornell_box_ref().build()``."""
     names = ("white", "red", "green")
@@ -36,7 +38,7 @@ def cornell_box_ref(device="cpu"):
     return flatten_meshes(meshes, material_table(rows), device)
 
 
-def cornell_ref_camera(device="cpu"):
+def cornell_ref_camera(device="cuda"):
     """Reference viewpoint (wurblpt-cornellbox.cpp:252-256): (pose, vfov_deg)."""
     return from_lookat((0.0, 1.0, 3.2), (0.0, 1.0, -1.0), device=device), 50.0
 
@@ -60,7 +62,7 @@ def procedural_sky(height: int = 64, sun_dir=(0.4, 0.6, -0.5),
 
 
 def terrain_city(seed: int = 3, terrain_res: int = 192, n_buildings: int = 220,
-                 sphere_slices: int = 24, device="cpu"):
+                 sphere_slices: int = 24, device="cuda"):
     """The mesh path's scene (bench config bvh_100k at the defaults: 102098
     triangles): an fBm heightfield terrain, box buildings and tessellated GGX
     and mirror spheres under an importance-sampled sky, with the port's BVH.
@@ -117,7 +119,7 @@ def terrain_city(seed: int = 3, terrain_res: int = 192, n_buildings: int = 220,
                           envmap=EnvironmentMapEquiRect(procedural_sky(), importance_resolution=32))
 
 
-def terrain_camera(device="cpu"):
+def terrain_camera(device="cuda"):
     """The bvh_100k bench viewpoint (bench.py bench_bvh_large): (pose, vfov_deg)."""
     return from_lookat((14.0, 9.0, 14.0), (0.0, 0.5, 0.0), device=device), 45.0
 
@@ -146,7 +148,7 @@ def city_rgl_fields(seed: int = 7):
 
 
 def city_night(seed: int = 7, terrain_res: int = 320, n_buildings: int = 320,
-               n_windows: int = 96, sphere_slices: int = 32, device="cpu"):
+               n_windows: int = 96, sphere_slices: int = 32, device="cuda"):
     """The city path's scene (bench config city_many_lights at the defaults:
     249218 triangles, 192 light triangles): an fBm terrain, ModPhong box
     buildings, emissive window quads of powers over two decades, GGX and
@@ -242,8 +244,98 @@ def city_night(seed: int = 7, terrain_res: int = 320, n_buildings: int = 320,
                           rgl_tables=[load_rgl_material(city_rgl_fields(seed))])
 
 
-def city_camera(device="cpu"):
+def city_camera(device="cuda"):
     """The city_many_lights bench viewpoint (bench.py bench_city_many_lights):
     (pose, vfov_deg); the camera is a 360-degree stereo one with eye distance
     0.065 (`utils.kernel_check.CITY_*`)."""
     return from_lookat((0.0, 3.5, 14.0), (0.0, 1.5, 0.0), device=device), 50.0
+
+
+def _quad_to(translate, rotation_axis, rotation_angle, half=1.0):
+    """A 2 half x 2 half quad, rotated about `rotation_axis` and moved to `translate`."""
+    tf = Transformation.make(translation=translate,
+                             rotation=quat_from_axis_angle(rotation_axis, rotation_angle))
+    return G.generate_quad(half, half)._replace(transformation=tf)
+
+
+def _equirect_to_cube_faces(img: np.ndarray, face_res: int):
+    """Point-sample an equirect image into 6 cube faces (+x, -x, +y, -y, +z, -z)."""
+    h, w = img.shape[:2]
+    uv = (np.arange(face_res) + 0.5) / face_res * 2.0 - 1.0
+    b, a = np.meshgrid(uv, uv)  # a = row (v), b = col (u)
+    ones = np.ones_like(a)
+    dirs = (np.stack([ones, -a, -b], -1), np.stack([-ones, -a, b], -1),
+            np.stack([b, ones, a], -1), np.stack([b, -ones, -a], -1),
+            np.stack([b, -a, ones], -1), np.stack([-b, -a, -ones], -1))
+    faces = []
+    for d in dirs:
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        theta = np.arcsin(np.clip(d[..., 1], -1, 1))
+        phi = np.arctan2(d[..., 0], -d[..., 2])
+        x = np.clip(((phi / np.pi + 1.0) * 0.5 * w).astype(int), 0, w - 1)
+        y = np.clip(((0.5 - theta / np.pi) * h).astype(int), 0, h - 1)
+        faces.append(img[y, x])
+    return faces
+
+
+def envmap_spheres(cube: bool = False, importance_resolution: int = 64, device="cuda"):
+    """The envmap path's scene (bench config envmap_cube_is with cube=True):
+    glass, mirror and GGX spheres over a 2-triangle ground under the
+    procedural sky, as an equirect map or resampled to 32 x 32 cube faces,
+    importance-sampled on an R x R grid (wurblpt-envmap.cpp:60-116). The same
+    arrays as ``wurblpt_tpu.utils.scenes.envmap_spheres(cube, R).build()``."""
+    rows = [(MaterialType.LAMBERTIAN, (0.4, 0.4, 0.4), None),
+            (MaterialType.GLASS, None, Glass(ior=1.5)),
+            (MaterialType.MIRROR, None, None),
+            (MaterialType.GGX, (0.8, 0.6, 0.3), 0.15)]
+    ground = _quad_to((0.0, -0.5, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=20.0)
+    spheres = [SphereSpec((-1.2, 0.0, 0.0), 0.5, 1), SphereSpec((0.0, 0.0, 0.0), 0.5, 2),
+               SphereSpec((1.2, 0.0, 0.0), 0.5, 3)]
+    sky = procedural_sky()
+    env = (EnvironmentMapCube(_equirect_to_cube_faces(sky, 32), importance_resolution) if cube
+           else EnvironmentMapEquiRect(sky, importance_resolution))
+    return flatten_meshes([ground._replace(material=0)], material_table(rows), device,
+                          envmap=env, spheres=spheres)
+
+
+def envmap_camera(device="cuda"):
+    """The envmap_cube_is bench viewpoint (bench.py bench_envmap_furnace): (pose, vfov_deg)."""
+    return from_lookat((0.0, 0.6, 4.0), (0.0, 0.0, 0.0), device=device), 40.0
+
+
+def rtiow(seed: int = 7, n: int = 6, device="cuda"):
+    """The rtiow path's scene (bench config rtiow_distortion at the defaults:
+    40 spheres, no triangle): a radius-1000 ground sphere, an n x n grid of
+    random Lambertian, GGX and glass spheres and three large ones under a
+    constant sky (wurblpt-rtiow.cpp:84-133). The same arrays as
+    ``wurblpt_tpu.utils.scenes.rtiow(seed, n).build()``, random draws in the
+    same order."""
+    rs = np.random.RandomState(seed)
+    rows = [(MaterialType.LAMBERTIAN, (0.5, 0.5, 0.5), None)]
+    spheres = [SphereSpec((0, -1000, 0), 1000.0, 0)]
+    for a in range(-n // 2, n // 2):
+        for b in range(-n // 2, n // 2):
+            center = (a + 0.9 * rs.rand(), 0.2, b + 0.9 * rs.rand())
+            pick = rs.rand()
+            if pick < 0.6:
+                rows.append((MaterialType.LAMBERTIAN, tuple(rs.rand(3) * rs.rand(3)), None))
+            elif pick < 0.85:
+                col = 0.5 * (1 + rs.rand(3))
+                rows.append((MaterialType.GGX, tuple(col), 0.1 + 0.3 * rs.rand()))
+            else:
+                rows.append((MaterialType.GLASS, None, Glass(ior=1.5)))
+            spheres.append(SphereSpec(center, 0.2, len(rows) - 1))
+    rows += [(MaterialType.GLASS, None, Glass(ior=1.5)),
+             (MaterialType.LAMBERTIAN, (0.4, 0.2, 0.1), None),
+             (MaterialType.GGX, (0.7, 0.6, 0.5), 0.05)]
+    m = len(rows)
+    spheres += [SphereSpec((0, 1, 0), 1.0, m - 3), SphereSpec((-4, 1, 0), 1.0, m - 2),
+                SphereSpec((4, 1, 0), 1.0, m - 1)]
+    return flatten_meshes([], material_table(rows), device, spheres=spheres,
+                          envmap=EnvironmentMapConstant((0.7, 0.8, 1.0)))
+
+
+def rtiow_camera(device="cuda"):
+    """The rtiow_distortion bench viewpoint (bench.py bench_rtiow): (pose, vfov_deg);
+    the camera has OpenCV lens distortion (`utils.kernel_check.RTIOW_*`)."""
+    return from_lookat((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), device=device), 30.0
