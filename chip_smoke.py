@@ -11,8 +11,8 @@ Phases, each a function, any failure exits non-zero and names its phase:
    (249218 triangles after its OBJ/MTL round trip, 192 light triangles, an
    RGL sphere), each built on the card's host with its BVH;
    envmap_spheres(cube=True) (2 triangles, 3 spheres, a cube-map sky with a
-   64 x 64 importance table) and rtiow() (40 spheres, no triangle, a
-   constant sky).
+   64 x 64 importance table), rtiow() (40 spheres, no triangle, a constant
+   sky) and tof_box() (54 triangles, 32 of them the ToF light).
 3. kernels - each kernel against its plain PyTorch version on the card, at
    its path's shapes, with the tolerances of utils/kernel_check.py; each
    kernel's wrapper-call time beside the plain version's and, where one
@@ -32,10 +32,10 @@ Phases, each a function, any failure exits non-zero and names its phase:
    the axis, diagonal, face-edge and texel-boundary directions) and on the
    constant map, both bit-equal.
 4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
-   components, SensorRGB) through render_frame_wavefront on the GPU. K1, K2
-   and K3 must be launched, the image must be finite, its mean within 1e-3
-   relative of the JAX package's deterministic CPU output, and the cast
-   counters within 0.5 % of it.
+   components, SensorRGB) through render_frame_wavefront on the GPU. K1,
+   K2, K3 and K4 must be launched and P0 not, the image must be finite, its
+   mean within 1e-3 relative of the JAX package's deterministic CPU output,
+   and the cast counters within 0.5 % of it.
 5. mesh path - the bvh_100k bench frame (160 x 120, 4 spp, 4 path
    components): K3, K5, K6 and K8 must be launched, and the frame held to
    its JAX reference as in phase 4.
@@ -51,10 +51,29 @@ Phases, each a function, any failure exits non-zero and names its phase:
    components, OpenCV lens, 40 spheres under a constant sky): K1, K3, P0
    and K8 radiance must be launched (no shadow ray: no light, no sky
    importance), and the frame held to its JAX reference as in phase 4.
+9. tof path - the tof_amcw bench frame (96 x 96, 16 spp, 6 path components,
+   SensorTofAmcw, the ToF cone light with per-light MIS) at phase 0: K1,
+   K2, K3 and K4 (regeneration, shade, resolve) must be launched and P0
+   not, and the frame held to its JAX reference (mean energy, the three
+   channel means, counters); phases 1-3 keep the counters and the mean
+   and phase 2 swaps the buckets a and b; the 4-phase distance at depth 1
+   is held to the first-hit distance of the pixel-centre rays (median
+   under 2 mm).
 
-Each path's counters are set to 0 just before it and read just after; a
-kernel's `launches` in the JSON line is the sum over the paths that use
-it (K8's three records each over the paths of their map's kind).
+The Cornell frame (phase 4) and the ToF frame take K4, the diffuse class's
+wavefront step (regeneration, K1, K3, shade, K2, resolve); the other paths
+the torch-op bounce. The kernels phase holds each K4 kernel against its
+plain version on the first block of both frames after 2 steps (lanes live,
+dead and due for regeneration). Every path prints its frame time, paths/s,
+Mrays/s and kernel launches per wavefront step, and apart from them the
+copies and memsets (one more frame under torch.profiler; the scene's
+tables are built once per scene, before the frames); the two K4 paths also
+the launches of one step of the loop and of the frame's set-up, from the
+difference to the same frame at 1 path component, and fail above 12
+kernel launches per step of the frame. Each path's counters are set to 0
+just before it and read just after; a kernel's `launches` in the JSON line
+is the sum over the paths that use it (K8's three records each over the
+paths of their map's kind).
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -73,7 +92,9 @@ import traceback
 DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
-PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path")
+PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
+K4_PATHS = ("main path", "tof path")
+K4_MAX_LAUNCHES_PER_STEP = 12   # kernel launches per step of a K4 frame, set-up included
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
 KERNELS = {
@@ -99,8 +120,16 @@ KERNELS = {
                    ("rgl_sample",), PATHS),
     "row_gather": ("wurblpt_tpu_torch/csrc/row_gather.cu", "tools/probe_pallas_gather.py:20",
                    ("row_gather",), PATHS),
+    "regen_pinhole": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:973",
+                      ("regen_pinhole",), K4_PATHS),
+    "shade_diffuse": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
+                      ("shade_diffuse",), K4_PATHS),
+    "nee_resolve": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:648",
+                    ("nee_resolve",), K4_PATHS),
 }
-MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit")
+K4 = ("regen_pinhole", "shade_diffuse", "nee_resolve")
+MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit") + K4
+TOF_PATH = MAIN_PATH
 MESH_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit") + ENV_ALL
 CITY_PATH = MESH_PATH + ("rgl_eval", "rgl_sample", "row_gather")
 ENVMAP_PATH = ("closest_hit", "any_hit", "assemble_hit", "row_gather") + ENV_ALL
@@ -294,12 +323,44 @@ def phase_kernels(scenes_on_card):
                        kc.row_gather_work(packed, mat_idx),
                        lambda: torch.index_select(packed, 0, mat_idx)),
     }, errs, mid.shape[0])
-    return records
+    return records + _k4_records()
 
 
-def _drive(label, render, names):
-    """Render once with the counters at 0, check that `names` launched, then
-    time 5 more frames; returns (first image, stats, counters, frame times)."""
+def _k4_records():
+    """K4's kernels against their plain versions on the Cornell and the ToF
+    frame's first block after 2 steps; timed on the Cornell block."""
+    from wurblpt_tpu_torch.render import wavefront as wf
+
+    inputs = {frame: kc.k4_inputs(DEVICE, frame) for frame in ("cornell", "tof")}
+    errs = {name: 0.0 for name in K4}
+    for frame, inp in inputs.items():
+        res = kc.check_k4(inp)
+        torch.cuda.synchronize()
+        for name in K4:
+            print(f"kernels: {name} [{frame} block after 2 steps, "
+                  f"{inp.regen[0].active.shape[0]} lanes] ok {res[name]}")
+            errs[name] = max([errs[name]] + [v for k, v in res[name].items()
+                                             if isinstance(v, float)])
+    inp = inputs["cornell"]
+
+    def shade(fn):
+        return lambda: fn(*inp.shade)
+
+    return _timed_records({
+        "regen_pinhole": (lambda: wf.regen_pinhole(*inp.regen), lambda: wf.regen_plain(*inp.regen),
+                          kc.k4_work(inp, "regen_pinhole"), None),
+        "shade_diffuse": (shade(wf.shade_diffuse), shade(wf.shade_diffuse_plain),
+                          kc.k4_work(inp, "shade_diffuse"), None),
+        "nee_resolve": (lambda: wf.nee_resolve(*inp.resolve),
+                        lambda: wf.nee_resolve_plain(*inp.resolve),
+                        kc.k4_work(inp, "nee_resolve"), None),
+    }, errs, inp.regen[0].active.shape[0])
+
+
+def _drive(label, render, names, absent=()):
+    """Render once with the counters at 0, check that `names` launched and
+    `absent` did not, then time 5 more frames; returns (first image, stats,
+    counters, frame times)."""
     from wurblpt_tpu_torch import native
 
     native.reset_launch_counts()
@@ -310,6 +371,8 @@ def _drive(label, render, names):
     print(f"{label}: launches {launches}, first frame {first_s * 1e3:.1f} ms")
     for name in names:
         assert launches[name] > 0, f"kernel {name} was not launched on the {label}"
+    for name in absent:
+        assert launches[name] == 0, f"kernel {name} was launched on the {label}"
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -318,60 +381,128 @@ def _drive(label, render, names):
     return img, [int(x) for x in stats.tolist()], launches, times
 
 
-def _report(label, stats, times, paths):
+def _count_launches(render):
+    """(CUDA kernel launches, copies and memsets, wavefront steps) of one
+    frame rendered under torch.profiler; a step is one closest-hit cast."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wurblpt_tpu_torch import native
+
+    native.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
+    kernels = sum(e.count for e in device) - copies
+    return kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
+
+
+def _report(label, stats, times, paths, render, short=None, max_per_step=None):
+    """Frame time, paths/s, Mrays/s and the kernel launches (and apart from
+    them the copies and memsets) of one more frame per step; with `short`,
+    the same frame at 1 path component, also the launches of one step of
+    the loop, (launches - short's) / (steps - short's), and those of the
+    frame's set-up (the lane state), which a step does not repeat. Fails if
+    the kernel launches per step of the frame exceed `max_per_step`."""
     dt = statistics.median(times)
+    n, c, steps = _count_launches(render)
+    per_step = (f", {n} kernel launches and {c} copies/memsets in {steps} steps "
+                f"({n / max(steps, 1):.2f} and {c / max(steps, 1):.2f} per step")
+    if short is not None:
+        n0, c0, steps0 = _count_launches(short)
+        n1, c1 = (n - n0) / (steps - steps0), (c - c0) / (steps - steps0)
+        per_step += (f"; {n1:.2f} and {c1:.2f} per step of the loop, {n - n1 * steps:.0f} and "
+                     f"{c - c1 * steps:.0f} of set-up")
     print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
           f"{[round(t * 1e3, 2) for t in times]}), {paths / dt:.4g} paths/s, "
-          f"{stats[1] / dt / 1e6:.4g} Mrays/s on {_nvidia_smi()}")
+          f"{stats[1] / dt / 1e6:.4g} Mrays/s{per_step}) on {_nvidia_smi()}")
+    if max_per_step is not None:
+        assert n <= max_per_step * steps, (
+            f"{label}: {n / steps:.2f} kernel launches per step, more than {max_per_step}")
 
 
 def phase_main_path():
-    img, stats, launches, times = _drive("main path", kc.bench_frame(DEVICE), MAIN_PATH)
+    render = kc.bench_frame(DEVICE)
+    img, stats, launches, times = _drive("main path", render, MAIN_PATH, ("row_gather",))
     print(f"main path: mean radiance {float(img.double().mean())!r} (reference {kc.REF_MEAN}), "
           f"stats {stats} (reference {list(kc.REF_STATS)})")
     kc.check_bench_frame(img, stats)
-    _report("main path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2)
+    _report("main path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2, render,
+            kc.bench_frame(DEVICE, depth=1), K4_MAX_LAUNCHES_PER_STEP)
     return launches
 
 
 def phase_city_path(city_scene):
-    img, stats, launches, times = _drive("city path", kc.city_frame(DEVICE, city_scene),
-                                         CITY_PATH)
+    render = kc.city_frame(DEVICE, city_scene)
+    img, stats, launches, times = _drive("city path", render, CITY_PATH)
     print(f"city path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.CITY_REF_MEAN}), stats {stats} (reference {list(kc.CITY_REF_STATS)})")
     kc.check_city_frame(img, stats)
-    _report("city path", stats, times, kc.CITY_WIDTH * kc.CITY_HEIGHT * kc.CITY_SSQRT ** 2)
+    _report("city path", stats, times, kc.CITY_WIDTH * kc.CITY_HEIGHT * kc.CITY_SSQRT ** 2,
+            render)
     return launches
 
 
 def phase_mesh_path(mesh_scene):
-    img, stats, launches, times = _drive("mesh path", kc.mesh_frame(DEVICE, mesh_scene),
-                                         MESH_PATH)
+    render = kc.mesh_frame(DEVICE, mesh_scene)
+    img, stats, launches, times = _drive("mesh path", render, MESH_PATH)
     print(f"mesh path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.MESH_REF_MEAN}), stats {stats} (reference {list(kc.MESH_REF_STATS)})")
     kc.check_mesh_frame(img, stats)
-    _report("mesh path", stats, times, kc.MESH_WIDTH * kc.MESH_HEIGHT * kc.MESH_SSQRT ** 2)
+    _report("mesh path", stats, times, kc.MESH_WIDTH * kc.MESH_HEIGHT * kc.MESH_SSQRT ** 2,
+            render)
     return launches
 
 
 def phase_envmap_path(env_scene):
-    img, stats, launches, times = _drive("envmap path", kc.envmap_frame(DEVICE, env_scene),
-                                         ENVMAP_PATH)
+    render = kc.envmap_frame(DEVICE, env_scene)
+    img, stats, launches, times = _drive("envmap path", render, ENVMAP_PATH)
     print(f"envmap path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.ENVMAP_REF_MEAN}), stats {stats} "
           f"(reference {list(kc.ENVMAP_REF_STATS)})")
     kc.check_envmap_frame(img, stats)
-    _report("envmap path", stats, times, kc.ENVMAP_WIDTH ** 2 * kc.ENVMAP_SSQRT ** 2)
+    _report("envmap path", stats, times, kc.ENVMAP_WIDTH ** 2 * kc.ENVMAP_SSQRT ** 2,
+            render)
     return launches
 
 
 def phase_rtiow_path(rt_scene):
-    img, stats, launches, times = _drive("rtiow path", kc.rtiow_frame(DEVICE, rt_scene),
-                                         RTIOW_PATH)
+    render = kc.rtiow_frame(DEVICE, rt_scene)
+    img, stats, launches, times = _drive("rtiow path", render, RTIOW_PATH)
     print(f"rtiow path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.RTIOW_REF_MEAN}), stats {stats} (reference {list(kc.RTIOW_REF_STATS)})")
     kc.check_rtiow_frame(img, stats)
-    _report("rtiow path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2)
+    _report("rtiow path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2,
+            render)
+    return launches
+
+
+def phase_tof_path(tof_scene):
+    render = kc.tof_frame(DEVICE, tof_scene)
+    img, stats, launches, times = _drive("tof path", render, TOF_PATH, ("row_gather",))
+    channels = [float(img[..., c].double().mean()) for c in range(3)]
+    print(f"tof path: phase 0 mean energy {float(img.double().mean())!r} J (reference "
+          f"{kc.TOF_REF_MEAN}), channels a, b, energy {channels} (reference "
+          f"{list(kc.TOF_REF_CHANNELS)}), stats {stats} (reference {list(kc.TOF_REF_STATS)})")
+    kc.check_tof_frame(img, stats)
+    _report("tof path", stats, times, kc.TOF_WIDTH ** 2 * kc.TOF_SSQRT ** 2, render,
+            kc.tof_frame(DEVICE, tof_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP)
+    # Phases 1-3: the same paths (the counters), the same energy; tau = pi
+    # swaps the two buckets.
+    for i in (1, 2, 3):
+        img_i, stats_i = kc.tof_frame(DEVICE, tof_scene, phase_index=i)()
+        mean_i = float(img_i.double().mean())
+        ch = [float(img_i[..., c].double().mean()) for c in range(3)]
+        print(f"tof path: phase {i} mean energy {mean_i!r} J, channels {ch}, stats "
+              f"{stats_i.tolist()}")
+        assert [int(x) for x in stats_i.tolist()] == stats, f"phase {i}: counters differ"
+        assert abs(mean_i - kc.TOF_REF_MEAN) <= 1e-3 * kc.TOF_REF_MEAN, f"phase {i}: mean"
+        assert abs(ch[2] - channels[2]) <= 1e-6 * channels[2], f"phase {i}: energy differs"
+        if i == 2:
+            for c in (0, 1):
+                assert abs(ch[c] - channels[1 - c]) <= 1e-3 * channels[1 - c], "a, b not swapped"
+    dist = kc.tof_distance_check(DEVICE, tof_scene)
+    print(f"tof path: 4-phase distance at depth 1 against the pixel-centre first hits: {dist}")
     return launches
 
 
@@ -382,7 +513,8 @@ def phase_scenes():
     for label, build in (("mesh", lambda: scenes.terrain_city(seed=3, device=DEVICE)),
                          ("city", lambda: scenes.city_night(seed=7, device=DEVICE)),
                          ("envmap", lambda: scenes.envmap_spheres(cube=True, device=DEVICE)),
-                         ("rtiow", lambda: scenes.rtiow(device=DEVICE))):
+                         ("rtiow", lambda: scenes.rtiow(device=DEVICE)),
+                         ("tof", lambda: scenes.tof_box(device=DEVICE))):
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
@@ -432,7 +564,8 @@ def main() -> int:
                         ("mesh path", lambda: phase_mesh_path(out["scenes"]["mesh"])),
                         ("city path", lambda: phase_city_path(out["scenes"]["city"])),
                         ("envmap path", lambda: phase_envmap_path(out["scenes"]["envmap"])),
-                        ("rtiow path", lambda: phase_rtiow_path(out["scenes"]["rtiow"]))):
+                        ("rtiow path", lambda: phase_rtiow_path(out["scenes"]["rtiow"])),
+                        ("tof path", lambda: phase_tof_path(out["scenes"]["tof"]))):
         try:
             out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run

@@ -5,6 +5,7 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py city      # tens of minutes
     JAX_PLATFORMS=cpu python jax_frame_reference.py envmap    # under a minute
     JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow     # under a minute
+    JAX_PLATFORMS=cpu python jax_frame_reference.py tof       # under a minute
 
 city is bench config city_many_lights (bench.py bench_city_many_lights):
 city_night(seed=7), 1920x1080, 360-degree stereo, 1 spp, 4 path components,
@@ -21,6 +22,16 @@ argument: the envmap frame comes out the same, the rtiow frame at mean
 0.5212673 and counters [765082, 765082], 0.03 % apart, because XLA then
 rounds the re-centred sphere test otherwise and its last bits decide the
 self-intersections on the small spheres.
+
+tof is bench config tof_amcw (bench.py bench_tof): tof_box(), 96x96, 16 spp,
+6 path components, SensorTofAmcw, under jax.jit with the scene as an
+argument as bench.py runs it (the plain call gives mean 1.95638643e-17,
+6e-8 apart, with the same counters). It prints one line per phase image (0-3:
+the mean energy and the channel means a, b, energy, in float64 and, as
+bench.py takes them, numpy's float32 mean; the counters), then the
+4-phase distance at 1 path component (direct light only) against
+get_ground_truth's distance (the first hit of the pixel-centre rays): the
+median, 90th percentile and largest |error| in metres over the lit pixels.
 """
 
 from __future__ import annotations
@@ -87,7 +98,61 @@ def _rtiow():
     return scene, _frame(scene, cam, cfg, 192, 128, 4, 8)
 
 
-FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow}
+def _tof(phase_index=0, depth=6):
+    import jax
+
+    from wurblpt_tpu import CameraConfig, RenderParams, SceneStatic, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.render.integrator import render_frame_wavefront
+    from wurblpt_tpu.render.sensor import SensorTofAmcw
+    from wurblpt_tpu.utils import scenes
+
+    scene = scenes.tof_box().build()
+    cam = make_camera(transformation=from_lookat((0.0, 0.0, 1.19), (0.0, 0.0, 0.0)),
+                      vfov_deg=60.0, width=96, height=96)
+
+    static = SceneStatic.from_scene(scene)
+    fn = jax.jit(lambda s, c: render_frame_wavefront(
+        s, static, c, CameraConfig(), SensorTofAmcw(phase_index=phase_index), 96, 96, 4,
+        params=RenderParams(max_path_components=depth), return_stats=True,
+        max_lanes=MAX_LANES))
+    return scene, cam, lambda: fn(scene, cam)
+
+
+def _tof_report():
+    import numpy as np
+
+    from wurblpt_tpu import CameraConfig, SceneStatic
+    from wurblpt_tpu.render.aov import get_ground_truth
+    from wurblpt_tpu.render.sensor import SensorTofAmcw
+
+    for i in range(4):
+        t0 = time.perf_counter()
+        _, _, render = _tof(i)
+        img, stats = render()
+        img = np.asarray(img)
+        img64 = img.astype(np.float64)
+        print(json.dumps({"frame": "tof", "phase_index": i, "mean": float(img64.mean()),
+                          "channels": [float(img64[..., c].mean()) for c in range(3)],
+                          "mean_f32": float(img.mean()),
+                          "channels_f32": [float(img[..., c].mean()) for c in range(3)],
+                          "stats": [int(x) for x in np.asarray(stats)],
+                          "render_s": time.perf_counter() - t0}))
+    phases = []
+    for i in range(4):
+        scene, cam, render = _tof(i, depth=1)
+        phases.append(SensorTofAmcw(phase_index=i).phase(render()[0]))
+    dist, _, intensity = SensorTofAmcw().result(phases)
+    truth = get_ground_truth(scene, SceneStatic.from_scene(scene), cam, CameraConfig(), 96, 96,
+                             aovs=("distance", "hit_mask"))
+    lit = (np.asarray(intensity) > 0) & (np.asarray(truth["hit_mask"]) > 0)
+    err = np.abs(np.asarray(dist) - np.asarray(truth["distance"]))[lit]
+    print(json.dumps({"frame": "tof", "depth": 1, "median_abs_err_m": float(np.median(err)),
+                      "p90_abs_err_m": float(np.quantile(err, 0.9)),
+                      "max_abs_err_m": float(err.max()), "lit_pixels": int(lit.sum())}))
+
+
+FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None}
 
 
 def main():
@@ -96,6 +161,8 @@ def main():
     name = sys.argv[1] if len(sys.argv) > 1 else "city"
     if name not in FRAMES:
         raise SystemExit(f"usage: jax_frame_reference.py [{'|'.join(FRAMES)}]")
+    if name == "tof":
+        return _tof_report()
     t0 = time.perf_counter()
     scene, render = FRAMES[name]()
     t_build = time.perf_counter() - t0

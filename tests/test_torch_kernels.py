@@ -494,6 +494,28 @@ def test_sphere_frame_checks_hold_the_reference(frame, off):
             check(img, stats)
 
 
+@pytest.mark.parametrize("off", [None, "mean", "channel", "stats", "nan", "shape"])
+def test_tof_frame_check_holds_the_reference(off):
+    img = torch.stack([torch.full((kc.TOF_WIDTH, kc.TOF_WIDTH), c, dtype=torch.float64)
+                       for c in kc.TOF_REF_CHANNELS], -1)
+    stats = torch.tensor(kc.TOF_REF_STATS)
+    if off == "mean":
+        img = img * 1.002
+    elif off == "channel":       # a and b swapped: the mean holds, the channels do not
+        img = img[..., [1, 0, 2]]
+    elif off == "stats":
+        stats = stats * 1.01
+    elif off == "nan":
+        img[0, 0, 0] = float("nan")
+    elif off == "shape":
+        img = img[:, :48]
+    if off is None:
+        assert kc.check_tof_frame(img, stats) == pytest.approx(kc.TOF_REF_MEAN)
+    else:
+        with pytest.raises(AssertionError):
+            kc.check_tof_frame(img, stats)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("frame", ["envmap", "rtiow"])
 def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):

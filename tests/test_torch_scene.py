@@ -1,5 +1,5 @@
-"""The port's scene: jax-free Cornell, terrain_city, envmap_spheres and rtiow
-builds against the JAX flattener, the import boundary, the builders' GPU
+"""The port's scene: jax-free Cornell, terrain_city, envmap_spheres, rtiow and
+tof_box builds against the JAX flattener, the import boundary, the builders' GPU
 default, and refusal of scenes outside the ported slice."""
 
 import inspect
@@ -128,7 +128,8 @@ def test_flatten_spheres_with_a_pose_and_no_triangle():
 
 
 BUILDERS = ("cornell_box_ref", "cornell_ref_camera", "terrain_city", "terrain_camera",
-            "city_night", "city_camera", "envmap_spheres", "envmap_camera", "rtiow", "rtiow_camera")
+            "city_night", "city_camera", "envmap_spheres", "envmap_camera", "rtiow", "rtiow_camera",
+            "tof_box", "tof_camera")
 
 
 def test_builders_default_to_the_gpu():
@@ -191,7 +192,9 @@ def test_port_stands_alone_without_the_jax_package(tmp_path):
             "e = s.envmap_spheres(cube=True, importance_resolution=8, device='cpu')\n"
             "assert e.n_tris == 2 and e.n_spheres == 3 and e.env_kind == 2\n"
             "r = s.rtiow(device='cpu')\n"
-            "assert r.n_tris == 0 and r.n_spheres == 40 and r.env_kind == 3\n")
+            "assert r.n_tris == 0 and r.n_spheres == 40 and r.env_kind == 3\n"
+            "t = s.tof_box(device='cpu')\n"
+            "assert t.n_tris == 54 and t.n_lights == 32\n")
     env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -246,8 +249,7 @@ def _quad_scene(material, animated=False, **build):
 
 
 @pytest.mark.parametrize("build, feature", [
-    (lambda: _quad_scene(B.LightTof()), "material types [9]"),
-    (lambda: _quad_scene(B.LightSpot(radiance=(1.0, 1.0, 1.0))), "material types [8]"),
+    (lambda: _quad_scene(B.PhaseIso()), "material types [6]"),
     (lambda: _quad_scene(B.ModPhong(diffuse=(0.5, 0.5, 0.5), specular=B.CheckerTexture())),
      "textures"),
     (lambda: jscenes.envmap_spheres(cube=False, importance_resolution=0).build(),
@@ -262,6 +264,11 @@ def test_scenes_outside_the_slice_are_refused(build, feature):
     scene = _port_of(build())
     with pytest.raises(NotImplementedError, match=feature.replace("[", r"\[")):
         SceneStatic.from_scene(scene).check_slice()
+
+
+@pytest.mark.parametrize("material", [B.LightTof(), B.LightSpot(radiance=(1.0, 1.0, 1.0))])
+def test_spot_and_tof_lights_are_in_the_slice(material):
+    SceneStatic.from_scene(_port_of(_quad_scene(material))).check_slice()
 
 
 def test_render_refuses_a_non_pinhole_camera():

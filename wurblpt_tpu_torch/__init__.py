@@ -8,18 +8,25 @@ written by hand for Hopper live in ``csrc/`` and are built at first use
 
 Ported so far: the persistent-lane wavefront render of static scenes with a
 pinhole camera (with lens distortion) or an equirect surround camera (mono
-or stereo) and SensorRGB: Lambertian, GGX, mirror, glass, ModPhong, measured
-RGL and diffuse-light materials, triangles and analytic spheres, triangle
-hot spots with mixture or per-light MIS, an importance-sampled equirect sky,
-a cube-map sky with or without importance sampling, a constant sky, on the
-brute-force intersector or the port's BVH, and OBJ/MTL export and import
-(see ROADMAP.md for the rest). Scene, camera and table builders build on
-the GPU unless told otherwise.
+or stereo), SensorRGB and the AMCW time-of-flight sensor SensorTofAmcw:
+Lambertian, GGX, mirror, glass, ModPhong, measured RGL, diffuse-, spot- and
+ToF-light materials, triangles and analytic spheres, triangle hot spots with
+mixture or per-light MIS, an importance-sampled equirect sky, a cube-map sky
+with or without importance sampling, a constant sky, on the brute-force
+intersector or the port's BVH, and OBJ/MTL export and import (see
+ROADMAP.md for the rest). Scenes of the diffuse class (Lambertian surfaces,
+triangle lights, no sky, a pinhole camera without distortion) take one
+wavefront step as hand-written kernels (K4, :mod:`.render.wavefront`).
+Scene, camera and table builders build on the GPU unless told otherwise.
 """
 
 from .core.transform import Transformation, from_lookat  # noqa: F401
 from .render.bsdf import SceneStatic  # noqa: F401
 from .render.camera import CameraConfig, CameraParams, camera_rays, make_camera  # noqa: F401
-from .render.integrator import RenderParams, render_frame_wavefront  # noqa: F401
-from .render.sensor import SensorRGB  # noqa: F401
+from .render.integrator import (  # noqa: F401
+    RenderParams,
+    prepare_scene,
+    render_frame_wavefront,
+)
+from .render.sensor import SensorRGB, SensorTofAmcw  # noqa: F401
 from .scene.ir import SceneArrays, scene_from_numpy  # noqa: F401

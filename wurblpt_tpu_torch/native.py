@@ -39,7 +39,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
-           "envmap.cu", "rgl.cu", "row_gather.cu")
+           "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu")
 HEADERS = ("brute_common.cuh", "bvh_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -51,7 +51,8 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "bvh_closest_hit": 0,
             "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
-            "rgl_sample": 0, "row_gather": 0}
+            "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "shade_diffuse": 0,
+            "nee_resolve": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,6 +62,7 @@ _obj_parser = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "wpt_closest_hit": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P, _P, _P, _P],
     "wpt_any_hit": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P],
@@ -74,6 +76,11 @@ _SIGNATURES = {
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
+    "wpt_regen_pinhole": [_P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _I, _I,
+                          _P],
+    "wpt_shade_diffuse": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    "wpt_nee_resolve": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """BSDF sampling / evaluation / emission (port of ``wurblpt_tpu/render/bsdf.py``
-for LAMBERTIAN, GGX, MIRROR, GLASS, MODPHONG, RGL and LIGHT_DIFFUSE materials).
+for LAMBERTIAN, GGX, MIRROR, GLASS, MODPHONG, RGL and the LIGHT_DIFFUSE,
+LIGHT_SPOT and LIGHT_TOF materials).
 
 Lobes are evaluated for the material types present in the scene
 (`SceneStatic.mat_types`) and selected per lane, as the JAX package does:
@@ -42,7 +43,10 @@ _INV_TWO_PI = float(np.float32(1.0) / np.float32(_TWO_PI))
 
 SLICE_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
                              MaterialType.GLASS, MaterialType.MODPHONG, MaterialType.RGL,
-                             MaterialType.LIGHT_DIFFUSE})
+                             MaterialType.LIGHT_DIFFUSE, MaterialType.LIGHT_SPOT,
+                             MaterialType.LIGHT_TOF})
+LIGHT_MATERIALS = frozenset({MaterialType.LIGHT_DIFFUSE, MaterialType.LIGHT_SPOT,
+                             MaterialType.LIGHT_TOF})
 # The lobes evaluated when a caller names no types: all but RGL, which needs tables.
 ANALYTIC_MATERIALS = SLICE_MATERIALS - {MaterialType.RGL}
 PER_LIGHT_MIS_MIN = 8  # lights; from here on the JAX package switches to per-light MIS
@@ -151,12 +155,17 @@ def emitted(hr: HitRecord, view_dir, mrow: MatRow):
     """Radiance emitted from the hit toward the viewer (material.hpp:182-185).
 
     view_dir points from the hit toward the previous vertex (= -ray.dir).
-    Diffuse lights and ModPhong surfaces emit."""
-    is_emitter = (mrow.typ == MaterialType.LIGHT_DIFFUSE) | (mrow.typ == MaterialType.MODPHONG)
+    Lights and ModPhong surfaces emit; a spot or ToF light only inside its
+    cone, cos(view, normal) >= cos(half angle) = p0.x (light_spot.hpp:32-75,
+    light_tof.hpp:37-89)."""
+    typ = mrow.typ
+    is_cone = (typ == MaterialType.LIGHT_SPOT) | (typ == MaterialType.LIGHT_TOF)
+    is_emitter = (typ == MaterialType.LIGHT_DIFFUSE) | is_cone | (typ == MaterialType.MODPHONG)
     two_sided = (mrow.flags & MaterialFlags.TWO_SIDED) > 0
     front_ok = (~hr.backside) | two_sided
-    vis = dot(hr.normal, view_dir) > 0.0
-    ok = is_emitter & front_ok & vis
+    cos_view = dot(hr.normal, view_dir)
+    in_cone = cos_view >= mrow.p0[:, 0]
+    ok = is_emitter & front_ok & (cos_view > 0.0) & (in_cone | ~is_cone)
     return torch.where(ok[:, None], material_emissive(mrow), 0.0)
 
 

@@ -7,7 +7,7 @@ Covered: indexed meshes with or without texcoords and per-vertex normals
 (missing normals are computed, and tangents wherever there are texcoords),
 static instance transforms baked into world space; analytic spheres (no hot
 spots); scenes of spheres alone; constant Lambertian, GGX, mirror, glass,
-ModPhong, RGL and diffuse-light materials; hot-spot triangles, the
+ModPhong, RGL, diffuse-, spot- and ToF-light materials; hot-spot triangles, the
 power-proportional light pick with its alias table and the per-prim pick and
 1 / area rows of per-light MIS; the port's BVH, an equirect, cube or
 constant environment map and the RGL tables.
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core.transform import Transformation
-from .ir import MaterialTable, MaterialType, SceneArrays, Spheres, Triangles
+from .ir import MaterialFlags, MaterialTable, MaterialType, SceneArrays, Spheres, Triangles
 
 _f32 = np.float32
 _i32 = np.int32
@@ -143,13 +143,18 @@ def build_alias_table(weights: np.ndarray):
     return prob.astype(_f32), alias.astype(_i32), w.astype(_f32)
 
 
-def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_emissive):
-    """Emitted power of each triangle hot spot: area x luminance."""
+def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_typ, mat_emissive, mat_p0):
+    """Emitted power of each triangle hot spot: area x luminance x cone
+    fraction. A spot or ToF light emits only inside its cone, so its power
+    scales with the cone's solid-angle share 0.5 (1 - cos half angle)
+    (flatten.py _light_power_weights, light_spot.hpp:32-75)."""
     ids = np.asarray(light_ids, np.int64)
     area = 0.5 * np.linalg.norm(np.cross(tri_e1[ids], tri_e2[ids]), axis=-1).astype(np.float64)
     mat = tri_mat[ids]
     lum = np.maximum(mat_emissive[mat, :3].max(axis=-1), mat_emissive[mat, 3])
-    return area * lum
+    is_cone = (mat_typ[mat] == MaterialType.LIGHT_SPOT) | (mat_typ[mat] == MaterialType.LIGHT_TOF)
+    cone_frac = np.where(is_cone, 0.5 * (1.0 - mat_p0[mat, 0]), 1.0)
+    return area * lum * np.maximum(cone_frac, 0.0)
 
 
 def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=False,
@@ -217,7 +222,8 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
     picks = {}
     if light_ids.size:
         powers = light_power_weights(light_ids, arr["e1"], arr["e2"], arr["mat"],
-                                     np.asarray(materials.emissive))
+                                     np.asarray(materials.typ), np.asarray(materials.emissive),
+                                     np.asarray(materials.p0))
         prob, alias, w = build_alias_table(powers)
         # Per prim, spheres included: pick probability and 1 / area (zero for non-lights).
         pick = np.zeros((n + len(radii),), _f32)
@@ -261,13 +267,16 @@ def material_table(rows) -> MaterialTable:
     """numpy MaterialTable from [(MaterialType, colour, parameter), ...].
 
     The colour is the albedo of LAMBERTIAN, the F0 of GGX, the tint of MIRROR
-    (None: white), the diffuse colour of MODPHONG and the radiance of
-    LIGHT_DIFFUSE. The parameter is GGX's roughness (a scalar or (x, y)),
-    GLASS's :class:`Glass`, MODPHONG's :class:`ModPhong` and RGL's table
-    index; None otherwise."""
+    (None: white), the diffuse colour of MODPHONG, the radiance of
+    LIGHT_DIFFUSE and LIGHT_SPOT and the radiant power W (a scalar) of
+    LIGHT_TOF. The parameter is GGX's roughness (a scalar or (x, y)),
+    GLASS's :class:`Glass`, MODPHONG's :class:`ModPhong`, RGL's table index
+    and the cone's half angle (radians) of LIGHT_SPOT and LIGHT_TOF; None
+    otherwise."""
     m = len(rows)
     typ = np.array([r[0] for r in rows], _i32)
     albedo, emissive, p0, p1, p2 = (np.zeros((m, 4), _f32) for _ in range(5))
+    flags = np.zeros((m,), _i32)
     rgl_id = np.full((m,), -1, _i32)
     for i, (t, c, param) in enumerate(rows):
         if t == MaterialType.LAMBERTIAN:
@@ -301,9 +310,17 @@ def material_table(rows) -> MaterialTable:
             rgl_id[i] = param
         elif t == MaterialType.LIGHT_DIFFUSE:
             emissive[i] = vec4(c)
+        elif t == MaterialType.LIGHT_SPOT:
+            emissive[i] = vec4(c)
+            p0[i, 0] = np.cos(param)
+        elif t == MaterialType.LIGHT_TOF:
+            # NIR only (light_tof.hpp:37-89); flagged as the ToF light.
+            flags[i] |= MaterialFlags.TOF_LIGHT
+            emissive[i] = (0.0, 0.0, 0.0, c)
+            p0[i, 0] = np.cos(param)
         else:
             raise NotImplementedError(f"material type {t} is outside the ported slice")
-    return MaterialTable(typ=typ, flags=np.zeros((m,), _i32), albedo=albedo,
+    return MaterialTable(typ=typ, flags=flags, albedo=albedo,
                          emissive=emissive, p0=p0, p1=p1, p2=p2, rgl_id=rgl_id)
 
 

@@ -1,5 +1,5 @@
 """Procedural meshes (numpy, host side): the subset of
-``wurblpt_tpu/scene/generator.py`` the mesh and city paths' scenes use.
+``wurblpt_tpu/scene/generator.py`` the port's scenes use.
 
 Each generator returns a :class:`~wurblpt_tpu_torch.scene.flatten.MeshSpec`
 with the same vertices, normals, texcoords and indices, bit for bit, as the
@@ -56,6 +56,18 @@ def generate_cube(half: float = 1.0, material: int = 0) -> MeshSpec:
             idx += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
     return MeshSpec(np.array(pos, _f32), np.array(nrm_l, _f32), np.array(uv, _f32),
                     np.array(idx, np.int32), material)
+
+
+def generate_disk(radius: float = 1.0, slices: int = 32, material: int = 0) -> MeshSpec:
+    """Disk in the xy plane around the origin, +z normal: a centre vertex and
+    `slices` rim vertices, one triangle per slice."""
+    ang = np.linspace(0, 2 * np.pi, slices + 1, dtype=_f32)[:-1]
+    rim = np.stack([radius * np.cos(ang), radius * np.sin(ang), np.zeros_like(ang)], -1)
+    pos = np.concatenate([[[0, 0, 0]], rim]).astype(_f32)
+    uv = 0.5 + 0.5 * pos[:, :2] / radius
+    nrm = np.tile(np.array([0, 0, 1], _f32), (len(pos), 1))
+    idx = [[0, 1 + i, 1 + (i + 1) % slices] for i in range(slices)]
+    return MeshSpec(pos, nrm, uv.astype(_f32), np.array(idx, np.int32), material)
 
 
 def generate_sphere(radius: float = 1.0, slices: int = 32, stacks: int = 16,

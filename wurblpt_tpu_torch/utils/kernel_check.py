@@ -26,13 +26,20 @@ still differ, such as atan2f/asinf against PyTorch's):
   version take the same row searches in the same order; a margin, not an
   expected difference).
 * P0 row gather: equal word for word (a copy).
+* K4 (regeneration, shade, NEE resolve): on a frame's first block after 2
+  steps, every output field compared lane by lane (`check_k4`): discrete
+  fields (active, bounce, prev_random, sample, k_next, shadow cast or not,
+  the loop flag) may differ on at most 0.1 % of the lanes, floats within
+  rtol 1e-4 / atol 1e-6 on the others (cosf/sinf in the cosine sample and
+  the ToF phase are the operations that could part; on the H100 none did).
 
-Also the five frames the port renders and their yardsticks: the Cornell
+Also the six frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
-config city_many_lights), the envmap frame (envmap_cube_is) and the rtiow
-frame (rtiow_distortion), each with the JAX package's deterministic CPU
-output at the bench settings, which the port's render must meet (mean
-radiance within 1e-3 relative, cast counters within 0.5 %).
+config city_many_lights), the envmap frame (envmap_cube_is), the rtiow
+frame (rtiow_distortion) and the ToF frame (tof_amcw), each with the JAX
+package's deterministic CPU output at the bench settings, which the port's
+render must meet (mean radiance, or mean energy, within 1e-3 relative, cast
+counters within 0.5 %); and the ToF distance check at depth 1.
 
 `bound_ms` is the least time an H100 could take for a kernel's work on the
 given inputs: the larger of the bytes it must move (each input read once,
@@ -47,7 +54,7 @@ exits) it is counted on these inputs with the plain version.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -73,18 +80,19 @@ from ..render.envmap import (
     env_sample,
     env_sample_plain,
 )
-from ..render.integrator import RenderParams, render_frame_wavefront
+from ..render.integrator import RenderParams, prepare_scene, render_frame_wavefront
 from ..render.intersect import assemble_hit, assemble_hit_plain, build_hit_tables, scene_raw_hit
 from ..render.intersect_brute import (
     BIG,
     any_hit,
     any_hit_plain,
+    build_brute_scene,
     candidate_t,
     closest_hit,
     closest_hit_plain,
 )
 from ..render.lights import lights_sample
-from ..render.sensor import SensorRGB
+from ..render.sensor import SensorRGB, SensorTofAmcw
 from . import scenes
 
 MIN_HIT = RenderParams().min_hit_distance
@@ -167,23 +175,46 @@ RTIOW_LENS = dict(dist_k=(-0.1, 0.02, 0.0, 0.0, 0.0, 0.0), dist_p=(0.001, -0.001
 RTIOW_REF_MEAN = 0.5212965367257725
 RTIOW_REF_STATS = (764846, 764846)
 
+# The ToF frame (bench.py bench_tof, bench config tof_amcw): tof_box(), 54
+# triangles of which 32 are the ToF light's (per-light MIS), 96 x 96, 16 spp,
+# 6 path components, SensorTofAmcw at phase 0 (a, b, energy in J); one
+# wavefront block of 9216 pixels x 8 sample lanes.
+TOF_WIDTH = 96
+TOF_SSQRT = 4
+TOF_DEPTH = 6
+TOF_LANES_M = 8
+TOF_LANES = TOF_WIDTH * TOF_WIDTH * TOF_LANES_M
+# The JAX package's CPU output for it: `JAX_PLATFORMS=cpu python
+# jax_frame_reference.py tof`: the mean energy as bench.py takes it (numpy's
+# float32 mean of the image; the float64 mean is 1.9563864290773862e-17),
+# the float64 means of the channels a, b and energy, the counters.
+TOF_REF_MEAN = 1.9563865388812146e-17
+TOF_REF_CHANNELS = (8.513312771280554e-18, 2.083248367137625e-17, 2.934579642966479e-17)
+TOF_REF_STATS = (683102, 1279784)
+# The 4-phase distance at depth 1 (direct light only) against the first-hit
+# distance of the pixel-centre camera rays: the JAX package's median |error|
+# is 0.38 mm (p90 1.30 mm); the port must stay under 2 mm.
+TOF_DISTANCE_MEDIAN_MAX = 2e-3
+
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FP32_PER_S = 67e12      # float32 outside the tensor cores, 700 W
 
 
 def _frame(scene, camera, width, height, ssqrt, depth, device, cfg=CameraConfig(),
-           eye_distance=0.0635, max_lanes=131072, lens=None) -> Callable[[], tuple]:
+           eye_distance=0.0635, max_lanes=131072, lens=None, sensor=SensorRGB(),
+           params=None) -> Callable[[], tuple]:
     static = SceneStatic.from_scene(scene)
     pose, vfov = camera
     cam = make_camera(pose, vfov, width, height, eye_distance=eye_distance, device=device,
                       **(lens or {}))
-    params = RenderParams(max_path_components=depth)
+    params = RenderParams(max_path_components=depth) if params is None else params
+    tables = prepare_scene(scene, static)
 
     def render():
-        img, stats = render_frame_wavefront(scene, static, cam, cfg, SensorRGB(),
+        img, stats = render_frame_wavefront(scene, static, cam, cfg, sensor,
                                             width, height, ssqrt, params=params,
                                             max_lanes=max_lanes, return_stats=True,
-                                            device=device)
+                                            device=device, tables=tables)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         return img, stats
@@ -191,11 +222,12 @@ def _frame(scene, camera, width, height, ssqrt, depth, device, cfg=CameraConfig(
     return render
 
 
-def bench_frame(device) -> Callable[[], tuple]:
+def bench_frame(device, depth: int = BENCH_DEPTH) -> Callable[[], tuple]:
     """A function that renders the Cornell bench frame on `device` through
-    render_frame_wavefront and returns (image, stats) once the device is done."""
+    render_frame_wavefront and returns (image, stats) once the device is
+    done; `depth` replaces the bench's 8 path components."""
     return _frame(scenes.cornell_box_ref(device), scenes.cornell_ref_camera(device),
-                  BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, BENCH_DEPTH, device)
+                  BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, depth, device)
 
 
 def mesh_frame(device, scene=None) -> Callable[[], tuple]:
@@ -228,6 +260,62 @@ def rtiow_frame(device, scene=None) -> Callable[[], tuple]:
     scene = scenes.rtiow(device=device) if scene is None else scene
     return _frame(scene, scenes.rtiow_camera(device), RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT,
                   RTIOW_DEPTH, device, RTIOW_CAMERA, lens=RTIOW_LENS)
+
+
+def tof_frame(device, scene=None, phase_index: int = 0, depth: int = TOF_DEPTH,
+              width: int = TOF_WIDTH, ssqrt: int = TOF_SSQRT,
+              randomize: bool = True) -> Callable[[], tuple]:
+    """The same for the ToF frame at one phase image; `scene` is tof_box() on
+    `device`, built here when not given. `depth`, `width` (= height), `ssqrt`
+    and `randomize` (pixel jitter) change the bench settings for the checks
+    below and the tests."""
+    scene = scenes.tof_box(device=device) if scene is None else scene
+    return _frame(scene, scenes.tof_camera(device), width, width, ssqrt, depth, device,
+                  sensor=SensorTofAmcw(phase_index=phase_index),
+                  params=RenderParams(max_path_components=depth,
+                                      randomize_ray_over_pixel=randomize))
+
+
+def pixel_centre_distance(scene, camera, width: int, height: int, device):
+    """[H, W] first-hit distance of the pixel-centre camera rays (K1's t; BIG
+    on a miss): the ground truth of a ToF distance image."""
+    pose, vfov = camera
+    cam = make_camera(pose, vfov, width, height, device=device)
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    pxy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32) + 0.5
+    o, d = camera_rays(cam, CameraConfig(), pxy, width, height)
+    n = o.shape[0]
+    t, _, _, _ = scene_raw_hit(build_brute_scene(scene), o.contiguous(), d.contiguous(),
+                               torch.full((n,), MIN_HIT, device=device),
+                               torch.full((n,), BIG, device=device))
+    return t.reshape(height, width)
+
+
+def tof_distance_check(device, scene=None, width: int = TOF_WIDTH, ssqrt: int = TOF_SSQRT,
+                       randomize: bool = True) -> Dict[str, float]:
+    """The 4-phase ToF reconstruction at depth 1 (direct light only) against
+    the first-hit distance of the pixel-centre camera rays: renders the four
+    phase images of tof_box, converts them to electrons without noise,
+    reconstructs the distance (SensorTofAmcw.result) and returns the median
+    and 90th percentile of |distance - t| in metres over the lit pixels;
+    raises AssertionError if the median exceeds TOF_DISTANCE_MEDIAN_MAX.
+    Without `randomize` every sample takes the pixel centre."""
+    scene = scenes.tof_box(device=device) if scene is None else scene
+    sensor = SensorTofAmcw()
+    phases = [SensorTofAmcw(phase_index=i).phase(
+        tof_frame(device, scene, i, depth=1, width=width, ssqrt=ssqrt, randomize=randomize)()[0])
+        for i in range(4)]
+    dist, _, intensity = sensor.result(phases)
+    truth = pixel_centre_distance(scene, scenes.tof_camera(device), width, width, device)
+    lit = (intensity > 0) & (truth < BIG)
+    err = (dist - truth)[lit].abs().double()
+    res = {"median_abs_err_m": float(err.median()), "p90_abs_err_m": float(err.quantile(0.9)),
+           "max_abs_err_m": float(err.max()), "lit_pixels": int(lit.sum()),
+           "pixels": width * width}
+    assert res["lit_pixels"] > 0.9 * res["pixels"], res
+    assert res["median_abs_err_m"] <= TOF_DISTANCE_MEDIAN_MAX, res
+    return res
 
 
 def _check_frame(img, stats, shape, ref_mean, ref_stats) -> float:
@@ -266,6 +354,17 @@ def check_rtiow_frame(img, stats) -> float:
     """Hold an rtiow frame to the JAX reference; returns its mean radiance."""
     return _check_frame(img, stats, (RTIOW_HEIGHT, RTIOW_WIDTH, 3), RTIOW_REF_MEAN,
                         RTIOW_REF_STATS)
+
+
+def check_tof_frame(img, stats) -> float:
+    """Hold a ToF frame (phase 0) to the JAX reference: its mean and counters
+    as the other frames, and each channel's mean (a, b, energy) within 1e-3
+    relative; returns its mean."""
+    mean = _check_frame(img, stats, (TOF_WIDTH, TOF_WIDTH, 3), TOF_REF_MEAN, TOF_REF_STATS)
+    for c, ref in enumerate(TOF_REF_CHANNELS):
+        got = float(img[..., c].double().mean())
+        assert abs(got - ref) <= 1e-3 * ref, f"channel {c} mean {got} off {ref}"
+    return mean
 
 
 def _f32(x, device):
@@ -557,6 +656,205 @@ def probe_gather_inputs(device):
     vec = _f32(rs.randn(512, 1), device)
     return ((table, torch.as_tensor(rows, device=device)),
             (vec, torch.as_tensor(idx.reshape(-1), device=device)))
+
+
+class K4Inputs(NamedTuple):
+    """Identical inputs of K4's three entry points, from one frame's first block."""
+
+    regen: tuple      # regen_pinhole(*regen)
+    shade: tuple      # shade_diffuse(*shade), st.stats replaced per call
+    resolve: tuple    # nee_resolve(*resolve)
+
+
+def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ssqrt: int = 0,
+              m: int = 0) -> K4Inputs:
+    """The inputs of K4's kernels on the first block of the Cornell bench
+    frame (131072 lanes) or the ToF frame (phase 0, 73728 lanes), after
+    `steps` wavefront steps of the plain route (regen_plain, K1, K3,
+    shade_diffuse_plain, K2, nee_resolve_plain): lanes live, dead and due
+    for regeneration side by side. The regeneration's inputs are that state;
+    the shade's, the state after one more plain regeneration and its casts;
+    the resolve's, the plain shade's pending deposits and their shadow casts.
+    `width` (= height), `ssqrt` and `m` (sample lanes per pixel) replace the
+    frame's own where given."""
+    from ..render import wavefront as wf
+
+    if frame == "cornell":
+        scene, camera = scenes.cornell_box_ref(device), scenes.cornell_ref_camera(device)
+        size = (BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
+        depth, sensor = BENCH_DEPTH, SensorRGB()
+    else:
+        scene, camera = scenes.tof_box(device=device), scenes.tof_camera(device)
+        size = (TOF_WIDTH, TOF_SSQRT, TOF_LANES_M)
+        depth, sensor = TOF_DEPTH, SensorTofAmcw()
+    width, ssqrt, m = (given or own for given, own in zip((width, ssqrt, m), size))
+    static = SceneStatic.from_scene(scene)
+    cfg = CameraConfig()
+    assert wf.diffuse_class(scene, static, cfg)
+    params = RenderParams(max_path_components=depth)
+    cam = make_camera(camera[0], camera[1], width, width, device=device)
+    n_pix = width * width
+    L = n_pix * m
+    lanes = wf.block_lanes(0, n_pix, m, ssqrt * ssqrt // m, width, width, ssqrt, device)
+    prepared = prepare_scene(scene, static)
+    bs, ht, tables = prepared.accel, prepared.hit, prepared.step
+    f32 = dict(dtype=torch.float32, device=device)
+    z = lambda *shape: torch.zeros(shape, **f32)  # noqa: E731
+    st = wf.LoopState(
+        bounce=torch.zeros((L,), dtype=torch.int64, device=device), o=z(L, 3),
+        d=torch.tensor([0.0, 0.0, 1.0], **f32).expand(L, 3).contiguous(), ior=z(L, 4) + 1.0,
+        throughput=z(L, 4), active=torch.zeros((L,), dtype=torch.bool, device=device),
+        acc=z(L, 3), geom_len=z(L), opt_len=z(L, 4), prev_pdf=z(L),
+        prev_random=torch.zeros((L,), dtype=torch.bool, device=device), prev_light_pdf=z(L),
+        stats=torch.zeros((2,), dtype=torch.int64, device=device))
+    sample = torch.zeros((L,), dtype=torch.int64, device=device)
+    k_next = torch.zeros_like(sample)
+    t_min = torch.full((L,), MIN_HIT, **f32)
+
+    for k in range(steps + 1):
+        regen_args = (st, sample, k_next, cam, cfg, lanes, True)
+        st, sample, k_next, t_max = wf.regen_plain(*regen_args)
+        t, prim, u, v = closest_hit(bs, st.o, st.d, t_min, t_max)
+        hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
+        shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
+        st, sd, stmax, pending = wf.shade_diffuse_plain(*shade_args)
+        occ = any_hit(bs, hr.position, sd, t_min, stmax)
+        resolve_args = (st.acc, pending, occ, st.active, k_next, lanes)
+        if k == steps:
+            break
+        acc, _ = wf.nee_resolve_plain(*resolve_args)
+        st = st._replace(acc=acc)
+    return K4Inputs(regen_args, shade_args, resolve_args)
+
+
+def _named(out, names):
+    """name -> tensor of a kernel's outputs; a LoopState contributes its fields."""
+    named = {}
+    for name, x in zip(names, out):
+        if isinstance(x, tuple):
+            named.update({f"{name}.{f}": v for f, v in zip(x._fields, x) if f != "stats"})
+        else:
+            named[name] = x
+    return named
+
+
+def _compare(got, ref, n) -> Dict[str, float]:
+    """Per output field: max |error| of a float field (NaN equal to NaN),
+    the number of lanes on which a bool or integer field differs; and
+    `lanes_discrete_differ`, the lanes on which any discrete field differs.
+    Raises AssertionError if those exceed 0.1 % of the lanes, or a float
+    field exceeds rtol 1e-4 / atol 1e-6 on the other lanes."""
+    res, discrete = {}, torch.zeros((n,), dtype=torch.bool, device=next(iter(got.values())).device)
+    for f, a in got.items():
+        b = ref[f]
+        assert a.shape == b.shape and a.dtype == b.dtype, (f, a.shape, b.shape)
+        if not a.dtype.is_floating_point:
+            diff = (a != b).reshape(a.shape[0], -1).any(-1) if a.shape[:1] == (n,) else (a != b)
+            res[f] = int(diff.sum())
+            if diff.shape == (n,):
+                discrete |= diff
+    res["lanes_discrete_differ"] = int(discrete.sum())
+    assert res["lanes_discrete_differ"] <= 1e-3 * n, res
+    for f, a in got.items():
+        b = ref[f]
+        if a.dtype.is_floating_point:
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            res[f] = float((a - b).abs()[~same].max()) if bool((~same).any()) else 0.0
+            keep = ~discrete if a.shape[:1] == (n,) else torch.ones_like(discrete[:1])
+            ok = torch.isclose(a[keep], b[keep], rtol=1e-4, atol=1e-6, equal_nan=True)
+            assert bool(ok.all()), f"{f} differs beyond rtol 1e-4 on {int((~ok).sum())} lanes"
+    return res
+
+
+def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
+    """Each of K4's kernels against its plain version on `inputs` (see
+    `_compare`): {kernel: {field: max |error| or differing lanes}}. Bit
+    equality shows as 0 everywhere."""
+    from ..render import wavefront as wf
+
+    n = inputs.regen[0].active.shape[0]
+    regen_names = ("state", "sample", "k_next", "t_max")
+    res = {"regen_pinhole": _compare(_named(wf.regen_pinhole(*inputs.regen), regen_names),
+                                     _named(wf.regen_plain(*inputs.regen), regen_names), n)}
+
+    def shade(fn):
+        args = list(inputs.shade)
+        args[3] = args[3]._replace(stats=args[3].stats.clone())
+        out = fn(*args)
+        return _named(out + (args[3].stats,),
+                      ("state", "shadow_d", "shadow_tmax", "pending", "stats"))
+
+    got, ref = shade(wf.shade_diffuse), shade(wf.shade_diffuse_plain)
+    got["shadow_cast"], ref["shadow_cast"] = got["shadow_tmax"] > 0, ref["shadow_tmax"] > 0
+    res["shade_diffuse"] = _compare(got, ref, n)
+    names = ("acc", "work")
+    res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
+                                  _named(wf.nee_resolve_plain(*inputs.resolve), names), n)
+    return res
+
+
+def _lane_bytes(*tensors) -> int:
+    """Bytes one lane holds in the lane-major tensors `tensors` ([N, ...])."""
+    return sum(x.element_size() * (x.numel() // x.shape[0]) for x in tensors)
+
+
+def k4_work(inputs: K4Inputs, kernel: str):
+    """(bytes, flops) of one K4 kernel on `inputs`: what each lane's branch
+    reads, each input once, each output written once, the small tables once;
+    the sizes are those of the tensors the kernel takes. Flops are tallies of
+    the code per lane: the regeneration ~60 per regenerated lane (jitter, the
+    pinhole ray, its rotation); the shade ~250 per lane (emission, the cosine
+    sample, light sample and pdf, the roulette) and 2 x 70 per light on
+    RANDOM lanes of a mixture scene (counted with the plain version); the
+    resolve one add per accumulator channel on unoccluded lanes."""
+    if kernel == "regen_pinhole":
+        st, sample, k_next, cam, _, lanes, _ = inputs.regen
+        n = st.active.shape[0]
+        need = (~st.active) & (k_next < lanes.P) & lanes.valid
+        n_need = int(need.sum())
+        state = [getattr(st, f) for f in st._fields if f not in ("acc", "stats")]
+        kept = [getattr(st, f) for f in st._fields
+                if f not in ("acc", "stats", "active", "prev_random")]
+        tf = cam.transformation
+        camera = (cam.center_px, cam.focal_px, tf.translation, tf.rotation)
+        read = (n * _lane_bytes(st.active, k_next, st.prev_random)
+                + (n - n_need) * _lane_bytes(sample, *kept))
+        written = n * _lane_bytes(*state, sample, k_next, st.geom_len)      # geom_len: t_max
+        return read + written + _table_bytes(camera), 60.0 * n_need
+    if kernel == "shade_diffuse":
+        tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+        n = st.active.shape[0]
+        hit = (prim >= 0) & st.active
+        every_lane = [st.active, st.bounce, st.d, st.throughput, st.ior, st.acc, st.geom_len,
+                      st.opt_len, st.prev_random, st.prev_pdf, pixel, sample, t, prim,
+                      hr.position, hr.normal, hr.backside, hr.mat]
+        if tables.per_light:
+            every_lane.append(hr.geom_normal)
+        read = (n * _lane_bytes(*every_lane) + int((~hit).sum()) * _lane_bytes(st.o)
+                + (0 if tables.per_light
+                   else int(st.prev_random.sum()) * _lane_bytes(st.prev_light_pdf)))
+        written = n * _lane_bytes(*(getattr(st, f) for f in st._fields
+                                    if f not in ("ior", "stats")),
+                                  hr.position, t, st.acc)          # shadow d, t_max, pending
+        rows = [tables.mat, tables.light_tri, tables.light_mat, tables.light_w,
+                tables.alias_prob, tables.alias_idx]
+        if tables.per_light:
+            rows.append(tables.pick_area)
+        per_light = 0.0
+        if not tables.per_light:
+            args = list(inputs.shade)
+            args[3] = st._replace(stats=st.stats.clone())
+            from ..render import wavefront as wf
+
+            rnd = float(wf.shade_diffuse_plain(*args)[0].prev_random.sum())
+            per_light = 140.0 * tables.n_lights * rnd
+        return read + written + _table_bytes(rows) + 16, 250.0 * n + per_light
+    acc, pending, occluded, active, k_next, _ = inputs.resolve
+    n, n_acc = acc.shape
+    n_open = int((~occluded).sum())
+    read = (n * _lane_bytes(acc, occluded, active) + n_open * _lane_bytes(pending)
+            + int((~active).sum()) * _lane_bytes(k_next))
+    return read + n * _lane_bytes(acc) + 4, float(n_open * n_acc)
 
 
 def bound_ms(n_bytes: float, flops: float):

@@ -1,14 +1,16 @@
-"""Where the time of the port's five frames goes on the GPU.
+"""Where the time of the port's six frames goes on the GPU.
 
     python -m wurblpt_tpu_torch.utils.profile_frame
 
 For each frame in turn (the Cornell bench frame, the mesh frame of bench
 config bvh_100k, the city frame of bench config city_many_lights, the
-envmap frame of envmap_cube_is, the rtiow frame of rtiow_distortion): renders
-it once to warm up, 5 times unprofiled, once under
-torch.profiler (CPU + CUDA activities), and 3 times more unprofiled (frames
-after a profiled one run slower), and prints: the wavefront steps,
-the number of kernel launches, the summed device time of all kernels, the
+envmap frame of envmap_cube_is, the rtiow frame of rtiow_distortion, the
+ToF frame of tof_amcw at phase 0): renders it once to warm up, 5 times
+unprofiled, once under torch.profiler (CPU + CUDA activities), and 3 times
+more unprofiled (frames after a profiled one run slower), and prints: the
+wavefront steps, the number of kernel launches (and apart from them the
+copies and memsets, such as each step's read of the loop condition), the
+summed device time of all kernels and copies, the
 profiled frame's wall time and the median unprofiled one, the device's busy
 share of each (kernels run on one stream, so they do not overlap; the
 profiler adds host time, hardly any device time), the device time of the
@@ -25,11 +27,19 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import native
-from .kernel_check import bench_frame, city_frame, envmap_frame, mesh_frame, rtiow_frame
+from .kernel_check import (
+    bench_frame,
+    city_frame,
+    envmap_frame,
+    mesh_frame,
+    rtiow_frame,
+    tof_frame,
+)
 
 _OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
          "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
-         "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel")
+         "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel", "regen_kernel",
+         "shade_kernel", "resolve_kernel")
 _TOP = 25
 
 
@@ -58,9 +68,12 @@ def profile_one(name, frame, step_counter):
 
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+    copies = sum(e.count for e in kernels if e.key.startswith(("Memcpy", "Memset")))
+    launches = sum(e.count for e in kernels) - copies
     print(f"{steps} wavefront steps, {launches} kernel launches "
-          f"({launches / max(steps, 1):.0f} per step), device time {dev_ms:.3f} ms")
+          f"({launches / max(steps, 1):.1f} per step) and {copies} copies and memsets "
+          f"({copies / max(steps, 1):.1f} per step), "
+          f"device time {dev_ms:.3f} ms")
     print(f"profiled frame {wall_ms:.2f} ms wall: busy share {dev_ms / wall_ms:.3f}")
     print(f"unprofiled frame {plain_ms:.2f} ms wall (median of 5: "
           f"{[round(t, 2) for t in plain]}): busy share {dev_ms / plain_ms:.3f}, "
@@ -89,6 +102,7 @@ def main():
     profile_one("city frame (city_many_lights)", city_frame("cuda"), "bvh_closest_hit")
     profile_one("envmap frame (envmap_cube_is)", envmap_frame("cuda"), "closest_hit")
     profile_one("rtiow frame (rtiow_distortion)", rtiow_frame("cuda"), "closest_hit")
+    profile_one("tof frame (tof_amcw, phase 0)", tof_frame("cuda"), "closest_hit")
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ Each is built with numpy alone, draw for draw as the JAX builder builds it:
 the Cornell box from the port's copy of the reference vertex data
 (:mod:`.cornell_data`), the mesh path's `terrain_city`, the city path's
 `city_night` with its OBJ/MTL round trip through :mod:`wurblpt_tpu_torch.io.obj`,
-and the sphere paths' `envmap_spheres` and `rtiow`. Scenes and cameras are
-built on the GPU unless the caller names another device.
+the sphere paths' `envmap_spheres` and `rtiow`, and the ToF path's `tof_box`.
+Scenes and cameras are built on the GPU unless the caller names another
+device.
 """
 
 from __future__ import annotations
@@ -339,3 +340,34 @@ def rtiow_camera(device="cuda"):
     """The rtiow_distortion bench viewpoint (bench.py bench_rtiow): (pose, vfov_deg);
     the camera has OpenCV lens distortion (`utils.kernel_check.RTIOW_*`)."""
     return from_lookat((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), device=device), 30.0
+
+
+def tof_box(room_half: float = 1.2, device="cuda"):
+    """The ToF path's scene (bench config tof_amcw; wurblpt-tof-hcibox.cpp:38-103):
+    a closed white Lambertian room of half size `room_half` (5 quads), a small
+    box on its floor, and the NIR ToF illumination unit, a 32-triangle disk of
+    radius 0.02 at the camera position facing into the room (-z), W = 8 with
+    a 40-degree half angle; 54 triangles, 32 lights (per-light MIS). The same
+    arrays as ``wurblpt_tpu.utils.scenes.tof_box(room_half).build()``."""
+    h = room_half
+    rows = [(MaterialType.LAMBERTIAN, (0.7, 0.7, 0.7), None),
+            (MaterialType.LIGHT_TOF, 8.0, np.deg2rad(40))]
+    meshes = [_quad_to(tr, ax, ang, half=h) for tr, ax, ang in (
+        ((0, 0, -h), (1, 0, 0), 0.0),               # back wall
+        ((-h, 0, 0), (0, 1, 0), np.pi / 2),          # left
+        ((h, 0, 0), (0, 1, 0), -np.pi / 2),          # right
+        ((0, -h, 0), (1, 0, 0), -np.pi / 2),         # floor
+        ((0, h, 0), (1, 0, 0), np.pi / 2),           # ceiling
+    )]
+    meshes.append(G.generate_cube(0.25)._replace(
+        transformation=Transformation.make(translation=(0.3, -h + 0.25, -0.4))))
+    # generate_disk's +z normal turned by pi about y: the light shines into the room.
+    tf = Transformation.make(translation=(0.0, 0.0, h - 0.01),
+                             rotation=quat_from_axis_angle((0, 1, 0), np.pi))
+    meshes.append(G.generate_disk(0.02, material=1)._replace(transformation=tf, hot_spot=True))
+    return flatten_meshes(meshes, material_table(rows), device)
+
+
+def tof_camera(device="cuda"):
+    """The tof_amcw bench viewpoint (bench.py bench_tof), at the light: (pose, vfov_deg)."""
+    return from_lookat((0.0, 0.0, 1.19), (0.0, 0.0, 0.0), device=device), 60.0
