@@ -21,8 +21,9 @@ Phases, each a function, any failure exits non-zero and names its phase:
    for the same work (kernel_check.bound_ms). K1-K3 on the Cornell frame's
    block (128 x 128 pixels x 8 sample lanes = 131072 lanes); K5 on the mesh
    frame's 76800 camera rays and random rays, K6 on env-NEE shadow rays from
-   their first hits and random rays, K8 on the camera directions and on
-   uniforms; K7 on 1048576 lanes of the city frame's block (camera hits and
+   their first hits and random rays; K8's equirect branch on the city
+   frame's night sky, its block's 1048576 camera directions and uniforms;
+   K7 on 1048576 lanes of the city frame's block (camera hits and
    their bounce directions, random tangent-space lanes); P0 on the Pallas
    probe's shapes and on the city's material rows at 1048576 lanes. K1-K3
    also on the rtiow frame's 98304 camera rays (spheres alone, no triangle),
@@ -37,12 +38,15 @@ Phases, each a function, any failure exits non-zero and names its phase:
    mean within 1e-3 relative of the JAX package's deterministic CPU output,
    and the cast counters within 0.5 % of it.
 5. mesh path - the bvh_100k bench frame (160 x 120, 4 spp, 4 path
-   components): K3, K5, K6 and K8 must be launched, and the frame held to
-   its JAX reference as in phase 4.
+   components, GGX and mirror spheres under the importance-sampled equirect
+   sky) through K4's env class: the regeneration, K5, K3, the env shade, K6
+   and the NEE resolve must be launched, and neither P0 nor K8's stand-alone
+   kernels (the shade reads the sky inline); the frame held to its JAX
+   reference as in phase 4.
 6. city path - the city_many_lights bench frame (1920 x 1080, 360-degree
    stereo, 1 spp, 4 path components, per-light MIS): K3, K5, K6, K7 (eval and
-   sample), K8 and P0 must be launched, and the frame held to its JAX
-   reference as in phase 4.
+   sample), K8 (radiance, sample, pdf) and P0 must be launched, and the
+   frame held to its JAX reference as in phase 4.
 7. envmap path - the envmap_cube_is bench frame (128 x 128, 16 spp, 8 path
    components; glass, mirror and GGX spheres under the importance-sampled
    cube-map sky): K1, K2, K3, P0 and K8 (radiance, sample, pdf) must be
@@ -60,20 +64,24 @@ Phases, each a function, any failure exits non-zero and names its phase:
    is held to the first-hit distance of the pixel-centre rays (median
    under 2 mm).
 
-The Cornell frame (phase 4) and the ToF frame take K4, the diffuse class's
-wavefront step (regeneration, K1, K3, shade, K2, resolve); the other paths
-the torch-op bounce. The kernels phase holds each K4 kernel against its
-plain version on the first block of both frames after 2 steps (lanes live,
-dead and due for regeneration). Every path prints its frame time, paths/s,
-Mrays/s and kernel launches per wavefront step, and apart from them the
-copies and memsets (one more frame under torch.profiler; the scene's
-tables are built once per scene, before the frames); the two K4 paths also
-the launches of one step of the loop and of the frame's set-up, from the
-difference to the same frame at 1 path component, and fail above 12
-kernel launches per step of the frame. Each path's counters are set to 0
-just before it and read just after; a kernel's `launches` in the JSON line
-is the sum over the paths that use it (K8's three records each over the
-paths of their map's kind).
+The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
+(regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the mesh frame K4's
+env class (regeneration, K5, K3, wpt_shade_env, K6, resolve); the other
+paths the torch-op bounce. The kernels phase holds each K4 kernel against
+its plain version on the first block of the three frames after 2 steps
+(lanes live, dead and due for regeneration), the env shade also with the
+ToF sensor on the mesh block. Every path prints its frame
+time, paths/s, Mrays/s and kernel launches per wavefront step, and apart
+from them the copies and memsets (one more frame under torch.profiler; the
+scene's tables are built once per scene, before the frames); the three K4
+paths also the launches of one step of the loop and of the frame's set-up,
+from the difference to the same frame at 1 path component. Cornell and ToF
+fail above 12 kernel launches per step of the frame; the mesh frame (4
+steps, so its ~31 launches of set-up alone come to ~8 per step) above 12
+per step of the loop and above 100 per frame. Each path's counters are set
+to 0 just before it and read just after; a kernel's `launches` in the JSON
+line is the sum over the paths that use it (K8's three records each over
+the torch-op paths of their map's kind).
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -93,8 +101,10 @@ DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
 PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
-K4_PATHS = ("main path", "tof path")
+K4_PATHS = ("main path", "mesh path", "tof path")
 K4_MAX_LAUNCHES_PER_STEP = 12   # kernel launches per step of a K4 frame, set-up included
+MESH_MAX_LOOP_LAUNCHES_PER_STEP = 12   # kernel launches per step of the mesh frame's loop
+MESH_MAX_FRAME_LAUNCHES = 100          # kernel launches of one mesh frame
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
 KERNELS = {
@@ -109,7 +119,7 @@ KERNELS = {
     "bvh_any_hit": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
                     "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",), PATHS),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
-               ENV_ALL, ("mesh path", "city path")),
+               ENV_ALL, ("city path",)),
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
                     ENV_ALL, ("envmap path",)),
     "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
@@ -123,15 +133,20 @@ KERNELS = {
     "regen_pinhole": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:973",
                       ("regen_pinhole",), K4_PATHS),
     "shade_diffuse": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
-                      ("shade_diffuse",), K4_PATHS),
+                      ("shade_diffuse",), ("main path", "tof path")),
+    "shade_env": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
+                  ("shade_env",), ("mesh path",)),
     "nee_resolve": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:648",
                     ("nee_resolve",), K4_PATHS),
 }
-K4 = ("regen_pinhole", "shade_diffuse", "nee_resolve")
-MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit") + K4
+K4 = ("regen_pinhole", "shade_diffuse", "shade_env", "nee_resolve")
+MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
+             "nee_resolve")
 TOF_PATH = MAIN_PATH
-MESH_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit") + ENV_ALL
-CITY_PATH = MESH_PATH + ("rgl_eval", "rgl_sample", "row_gather")
+MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit",
+             "nee_resolve")
+CITY_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit") + ENV_ALL + (
+    "rgl_eval", "rgl_sample", "row_gather")
 ENVMAP_PATH = ("closest_hit", "any_hit", "assemble_hit", "row_gather") + ENV_ALL
 RTIOW_PATH = ("closest_hit", "assemble_hit", "row_gather", "env_radiance")
 
@@ -147,9 +162,22 @@ def phase_build():
     t0 = time.perf_counter()
     native.load_bvh_builder()
     print(f"build: host BVH builder {time.perf_counter() - t0:.1f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    lines = (lib.parent / "build.log").read_text().splitlines()
+    entries = [line.split("'")[1] for line in lines if "Compiling entry function" in line]
+    try:   # demangled, without the parameter list: "shade_env_kernel<1>"
+        names = subprocess.run(["c++filt"], input="\n".join(entries), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        names = dict(zip(entries, (n.split("(anonymous namespace)::", 1)[-1].split("(")[0]
+                                   for n in names)))
+    except (OSError, subprocess.CalledProcessError):
+        names = {}
+    entry = ""
+    for line in lines:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line or "spill" in line:
+            print(f"  ptxas: {names.get(entry, entry)}:",
+                  line.split("ptxas info    :")[-1].strip())
 
 
 def _timed_records(timed, errs, lanes):
@@ -236,25 +264,17 @@ def phase_kernels(scenes_on_card):
                          kc.assemble_hit_work(ht, o.shape[0]), None),
     }, errs, cam[0].shape[0])
 
-    # K5, K6, K8 on the mesh frame's block.
-    bvh, env = mesh_scene.bvh, mesh_scene.envmap
+    # K5 and K6 on the mesh frame's block.
+    bvh = mesh_scene.bvh
     mcam = kc.mesh_camera_lanes(DEVICE)
     n = mcam[0].shape[0]
     mrnd = kc.terrain_random_lanes(n, DEVICE)
     eshadow = kc.env_shadow_lanes(mesh_scene, mcam)
-    u3 = torch.as_tensor(np.random.default_rng(3).uniform(size=(n, 3)), dtype=torch.float32,
-                         device=DEVICE)
     errs = _run_checks((
         ("bvh_closest_hit", lambda r: kc.check_bvh_closest_hit(bvh, r),
          {"camera": (mcam,), "random": (mrnd,)}),
         ("bvh_any_hit", lambda r: kc.check_bvh_any_hit(bvh, r),
-         {"env shadow": (eshadow,), "random": (mrnd,)}),
-        ("envmap", lambda dirs, uni: kc.check_envmap(env, dirs, uni),
-         {"camera directions, uniforms": (mcam[1], u3)})))
-
-    def env_all(radiance, sample, pdf, env=env, dirs=mcam[1], uni=u3):
-        return lambda: (radiance(env, dirs), sample(env, uni), pdf(env, dirs))
-
+         {"env shadow": (eshadow,), "random": (mrnd,)})))
     records += _timed_records({
         "bvh_closest_hit": (lambda: traverse.bvh_closest_hit(bvh, *mcam),
                             lambda: traverse.bvh_closest_hit_plain(bvh, *mcam),
@@ -262,10 +282,26 @@ def phase_kernels(scenes_on_card):
         "bvh_any_hit": (lambda: traverse.bvh_any_hit(bvh, *eshadow),
                         lambda: traverse.bvh_any_hit_plain(bvh, *eshadow),
                         kc.bvh_work(bvh, eshadow, any_hit=True), None),
+    }, errs, n)
+
+    # K8's equirect branch on the city frame's block and its night sky (the
+    # only path that launches the stand-alone kernels on an equirect map; the
+    # mesh path's env shade reads its sky inline).
+    env = city_scene.envmap
+    cdirs, cu3 = kc.city_env_lanes(DEVICE)
+    nc = cdirs.shape[0]
+    errs = _run_checks((
+        ("envmap", lambda dirs, uni: kc.check_envmap(env, dirs, uni),
+         {"city camera directions, uniforms": (cdirs, cu3)}),))
+
+    def env_all(radiance, sample, pdf, env=env, dirs=cdirs, uni=cu3):
+        return lambda: (radiance(env, dirs), sample(env, uni), pdf(env, dirs))
+
+    records += _timed_records({
         "envmap": (env_all(envmap.env_radiance, envmap.env_sample, envmap.env_pdf),
                    env_all(envmap.env_radiance_plain, envmap.env_sample_plain,
-                           envmap.env_pdf_plain), kc.envmap_work(env, n), None),
-    }, errs, n)
+                           envmap.env_pdf_plain), kc.envmap_work(env, nc), None),
+    }, errs, nc)
 
     # K8's cube branch on the envmap frame's sky (with its importance tables)
     # and its constant branch on rtiow's sky.
@@ -323,38 +359,48 @@ def phase_kernels(scenes_on_card):
                        kc.row_gather_work(packed, mat_idx),
                        lambda: torch.index_select(packed, 0, mat_idx)),
     }, errs, mid.shape[0])
-    return records + _k4_records()
+    return records + _k4_records(mesh_scene)
 
 
-def _k4_records():
-    """K4's kernels against their plain versions on the Cornell and the ToF
-    frame's first block after 2 steps; timed on the Cornell block."""
+def _k4_records(mesh_scene):
+    """K4's kernels against their plain versions on the Cornell, ToF and mesh
+    frames' first block after 2 steps, and on the mesh block seen by the ToF
+    sensor (the env shade's other instantiation); the regeneration and the
+    resolve timed on the Cornell block, each shade on its own class's block."""
     from wurblpt_tpu_torch.render import wavefront as wf
+    from wurblpt_tpu_torch.render.sensor import SensorTofAmcw
 
-    inputs = {frame: kc.k4_inputs(DEVICE, frame) for frame in ("cornell", "tof")}
+    inputs = {label: kc.k4_inputs(DEVICE, frame, scene=scene, sensor=sensor)
+              for label, frame, scene, sensor in (
+                  ("cornell", "cornell", None, None), ("tof", "tof", None, None),
+                  ("mesh", "mesh", mesh_scene, None),
+                  ("mesh, ToF sensor,", "mesh", mesh_scene, SensorTofAmcw()))}
     errs = {name: 0.0 for name in K4}
     for frame, inp in inputs.items():
         res = kc.check_k4(inp)
         torch.cuda.synchronize()
-        for name in K4:
+        for name, fields in res.items():
             print(f"kernels: {name} [{frame} block after 2 steps, "
-                  f"{inp.regen[0].active.shape[0]} lanes] ok {res[name]}")
-            errs[name] = max([errs[name]] + [v for k, v in res[name].items()
-                                             if isinstance(v, float)])
-    inp = inputs["cornell"]
+                  f"{inp.regen[0].active.shape[0]} lanes] ok {fields}")
+            errs[name] = max([errs[name]] + [v for v in fields.values() if isinstance(v, float)])
+    inp, env_inp = inputs["cornell"], inputs["mesh"]
 
-    def shade(fn):
+    def shade(fn, inp):
         return lambda: fn(*inp.shade)
 
-    return _timed_records({
+    records = _timed_records({
         "regen_pinhole": (lambda: wf.regen_pinhole(*inp.regen), lambda: wf.regen_plain(*inp.regen),
                           kc.k4_work(inp, "regen_pinhole"), None),
-        "shade_diffuse": (shade(wf.shade_diffuse), shade(wf.shade_diffuse_plain),
+        "shade_diffuse": (shade(wf.shade_diffuse, inp), shade(wf.shade_diffuse_plain, inp),
                           kc.k4_work(inp, "shade_diffuse"), None),
         "nee_resolve": (lambda: wf.nee_resolve(*inp.resolve),
                         lambda: wf.nee_resolve_plain(*inp.resolve),
                         kc.k4_work(inp, "nee_resolve"), None),
     }, errs, inp.regen[0].active.shape[0])
+    return records + _timed_records({
+        "shade_env": (shade(wf.shade_env, env_inp), shade(wf.shade_env_plain, env_inp),
+                      kc.k4_work(env_inp, "shade_env"), None),
+    }, errs, env_inp.regen[0].active.shape[0])
 
 
 def _drive(label, render, names, absent=()):
@@ -397,17 +443,21 @@ def _count_launches(render):
     return kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
 
 
-def _report(label, stats, times, paths, render, short=None, max_per_step=None):
+def _report(label, stats, times, paths, render, short=None, max_per_step=None,
+            max_loop_per_step=None, max_frame=None):
     """Frame time, paths/s, Mrays/s and the kernel launches (and apart from
     them the copies and memsets) of one more frame per step; with `short`,
     the same frame at 1 path component, also the launches of one step of
     the loop, (launches - short's) / (steps - short's), and those of the
     frame's set-up (the lane state), which a step does not repeat. Fails if
-    the kernel launches per step of the frame exceed `max_per_step`."""
+    the kernel launches per step of the frame exceed `max_per_step`, those
+    per step of the loop `max_loop_per_step`, or those of the frame
+    `max_frame`."""
     dt = statistics.median(times)
     n, c, steps = _count_launches(render)
     per_step = (f", {n} kernel launches and {c} copies/memsets in {steps} steps "
                 f"({n / max(steps, 1):.2f} and {c / max(steps, 1):.2f} per step")
+    n1 = None
     if short is not None:
         n0, c0, steps0 = _count_launches(short)
         n1, c1 = (n - n0) / (steps - steps0), (c - c0) / (steps - steps0)
@@ -419,6 +469,12 @@ def _report(label, stats, times, paths, render, short=None, max_per_step=None):
     if max_per_step is not None:
         assert n <= max_per_step * steps, (
             f"{label}: {n / steps:.2f} kernel launches per step, more than {max_per_step}")
+    if max_loop_per_step is not None:
+        assert n1 <= max_loop_per_step, (
+            f"{label}: {n1:.2f} kernel launches per step of the loop, more than "
+            f"{max_loop_per_step}")
+    if max_frame is not None:
+        assert n <= max_frame, f"{label}: {n} kernel launches per frame, more than {max_frame}"
 
 
 def phase_main_path():
@@ -445,12 +501,14 @@ def phase_city_path(city_scene):
 
 def phase_mesh_path(mesh_scene):
     render = kc.mesh_frame(DEVICE, mesh_scene)
-    img, stats, launches, times = _drive("mesh path", render, MESH_PATH)
+    img, stats, launches, times = _drive("mesh path", render, MESH_PATH,
+                                         ("row_gather",) + ENV_ALL)
     print(f"mesh path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.MESH_REF_MEAN}), stats {stats} (reference {list(kc.MESH_REF_STATS)})")
     kc.check_mesh_frame(img, stats)
     _report("mesh path", stats, times, kc.MESH_WIDTH * kc.MESH_HEIGHT * kc.MESH_SSQRT ** 2,
-            render)
+            render, kc.mesh_frame(DEVICE, mesh_scene, depth=1),
+            max_loop_per_step=MESH_MAX_LOOP_LAUNCHES_PER_STEP, max_frame=MESH_MAX_FRAME_LAUNCHES)
     return launches
 
 

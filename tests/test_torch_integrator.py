@@ -274,6 +274,68 @@ def test_one_bounce_on_identical_states_matches_jax(monkeypatch):
                                            err_msg=f)
 
 
+# rtiow through the OpenCV lens at sizes (w, h, ssqrt) where the small
+# sphere renders part; the first is the one the test below holds.
+PARTING_SIZES = ((48, 32, 2), (64, 48, 2), (40, 40, 2), (48, 32, 4), (96, 64, 2))
+
+
+def _agree(a, b):
+    """Pixels of two renders (image, stats) that agree (rtol 1e-3, atol 1e-7)."""
+    return np.isclose(a[0], b[0], rtol=1e-3, atol=1e-7).all(-1)
+
+
+def sphere_partings(w, h, ssqrt):
+    """rtiow through the OpenCV lens at w x h, ssqrt^2 spp, 8 path components,
+    rendered three ways on the CPU: the JAX package's plain call, the same
+    under a top-level jax.jit (as bench.py calls it), and the port. Returns
+    the three (image, stats) and the shares of pixels that part: "jax_self"
+    (jit against plain), "port_plain", "port_jit", and "neither" (the port
+    agrees with neither JAX render)."""
+    jbuild, build, eye, vfov, _, _, jcfg, cfg = SPHERE_CASES["rtiow_opencv"]
+    jscene = jbuild()
+    jstatic = JSceneStatic.from_scene(jscene)
+    jcam = jmake_camera(transformation=jfrom_lookat(eye, (0.0, 0.0, 0.0)), vfov_deg=vfov,
+                        width=w, height=h, **RTIOW_LENS)
+    jparams = JRenderParams(max_path_components=DEPTH)
+
+    def jax_render(s, c):
+        return jrender(s, jstatic, c, jcfg, JSensorRGB(), w, h, ssqrt, params=jparams,
+                       return_stats=True)
+
+    plain = [np.asarray(x) for x in jax_render(jscene, jcam)]
+    jitted = [np.asarray(x) for x in jax.jit(jax_render)(jscene, jcam)]
+    scene = build()
+    cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
+    port = [x.numpy() for x in render_frame_wavefront(
+        scene, SceneStatic.from_scene(scene), cam, cfg, SensorRGB(), w, h, ssqrt,
+        params=RenderParams(max_path_components=DEPTH), return_stats=True, device="cpu")]
+    shares = {"jax_self": float((~_agree(jitted, plain)).mean()),
+              "port_plain": float((~_agree(port, plain)).mean()),
+              "port_jit": float((~_agree(port, jitted)).mean()),
+              "neither": float((~_agree(port, plain) & ~_agree(port, jitted)).mean())}
+    return (plain, jitted, port), shares
+
+
+def test_small_sphere_render_parts_no_more_than_jax_from_itself():
+    """At 48 x 32, 4 spp, the JAX package's render under a top-level jax.jit
+    and its plain call part on ~2 % of pixels (XLA rounds the re-centred
+    sphere quadratic differently across the jit boundary, and the
+    self-intersections on the small spheres flip on the last bits). At this
+    size the pixels where the port agrees with neither JAX render are no
+    more than those where the two disagree with each other (rtol 1e-3); its
+    counters are within 0.5 % of both (the bench frames' bar) and its mean
+    within 1e-3 relative of both. This does not hold at every size: the
+    port parts from each JAX render more often than JAX parts from itself,
+    which `python tests/test_torch_integrator.py` prints at PARTING_SIZES
+    (ROADMAP C.1 stays open)."""
+    (plain, jitted, port), shares = sphere_partings(*PARTING_SIZES[0])
+    assert shares["jax_self"] > 0.01, shares            # the reference parts from itself
+    assert shares["neither"] <= shares["jax_self"], shares
+    for ref in (plain, jitted):
+        np.testing.assert_allclose(port[1], ref[1], rtol=5e-3)
+        assert abs(port[0].mean() - ref[0].mean()) <= 1e-3 * ref[0].mean()
+
+
 @pytest.mark.parametrize("sky", ["constant", "cube"])
 def test_a_miss_without_sky_importance_adds_the_sky_with_weight_one(sky):
     """Depth 1, pixel centres: a pixel whose ray escapes holds exactly the
@@ -325,3 +387,24 @@ def test_glass_lanes_take_no_nee(material):
     closest, total = stats.tolist()
     assert closest > 16 * 16
     assert (total == closest) if material == "glass" else (total > closest)
+
+
+def _print_partings():
+    """The shares of sphere_partings at PARTING_SIZES, and the closest-cast
+    counters of each render against JAX's plain call."""
+    for w, h, ssqrt in PARTING_SIZES:
+        (plain, jitted, port), shares = sphere_partings(w, h, ssqrt)
+        c = int(plain[1][0])
+        print(f"{w}x{h}, {ssqrt * ssqrt} spp: JAX plain counters {plain[1].tolist()}; "
+              f"pixels parting: JAX jit vs plain {shares['jax_self']:.5f}, "
+              f"port vs JAX plain {shares['port_plain']:.5f}, "
+              f"port vs JAX jit {shares['port_jit']:.5f}, port vs neither "
+              f"{shares['neither']:.5f}; closest casts against JAX plain: jit "
+              f"{(int(jitted[1][0]) - c) / c:+.5f}, port {(int(port[1][0]) - c) / c:+.5f}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_integrator.py
+    torch.set_num_threads(4)
+    _print_partings()

@@ -252,10 +252,13 @@ def test_params_reach_the_plain_roulette():
 @pytest.mark.parametrize("frame", ["cornell", "tof"])
 def test_k4_bounds_count_what_each_branch_reads(frame):
     """K4's bounds charge each lane what its branch reads: the regeneration
-    reads the old state only on lanes it keeps; the shade reads the geometric
-    normal only with per-light MIS (tof) and the previous mixture pdf only
-    on lanes whose last scatter was sampled (cornell); the resolve reads
-    pending deposits only on unoccluded lanes."""
+    reads the old state only on lanes it keeps; the shade reads the primitive
+    id only on active lanes, the hit record (but the position, which every
+    lane's shadow ray starts from), the ray IOR and the previous bsdf
+    sample's flag only on hit lanes, and the previous bsdf pdf with the
+    geometric normal (per-light MIS, tof) or the previous mixture pdf
+    (cornell) only on hit lanes whose last scatter was sampled; the resolve
+    reads pending deposits only on unoccluded lanes."""
     inp = kc.k4_inputs("cpu", frame, **SMALL)
     st, _, k_next, _, _, lanes, _ = inp.regen
     n = st.active.shape[0]
@@ -268,18 +271,21 @@ def test_k4_bounds_count_what_each_branch_reads(frame):
 
     tables, _, _, sst, _, _, _, prim, _ = inp.shade
     hit = (prim >= 0) & sst.active
-    every = 1 + 8 + 12 + 16 + 16 + 12 + 4 + 16 + 1 + 4 + 8 + 8 + 4 + 4 + 12 + 12 + 1 + 4
+    weighted = int((hit & sst.prev_random).sum())
+    assert 0 < weighted < int(hit.sum()) <= int(sst.active.sum()) <= n
+    every = 1 + 8 + 12 + 16 + 12 + 4 + 16 + 8 + 8 + 12
+    on_hit = 4 + 16 + 12 + 1 + 4 + 1
     if tables.per_light:
-        every += 12
-        prev_light = 0
+        on_weighted = 4 + 12
         rows = [tables.pick_area]
     else:
-        prev_light = 4 * int(sst.prev_random.sum())
+        on_weighted = 4 + 4
         rows = []
     rows += [tables.mat, tables.light_tri, tables.light_mat, tables.light_w, tables.alias_prob,
              tables.alias_idx]
     out = 8 + 12 + 12 + 16 + 1 + 12 + 4 + 16 + 4 + 1 + 4 + 12 + 4 + 12
-    expect = (n * every + 12 * int((~hit).sum()) + prev_light + n * out
+    expect = (n * every + 4 * int(sst.active.sum()) + on_hit * int(hit.sum())
+              + 12 * int((~hit).sum()) + on_weighted * weighted + n * out
               + sum(x.numel() * x.element_size() for x in rows) + 16)
     assert kc.k4_work(inp, "shade_diffuse")[0] == expect
     assert (frame == "tof") == tables.per_light

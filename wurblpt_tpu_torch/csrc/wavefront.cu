@@ -1,14 +1,25 @@
-// K4: one wavefront step of the diffuse class (Lambertian surfaces; diffuse,
-// spot and ToF triangle lights with mixture or per-light MIS; no sky; a
-// pinhole camera without distortion), in three kernels around K1, K3 and K2:
+// K4: one wavefront step, for two classes of scenes seen by a pinhole camera
+// without distortion, in four kernels around the casts (K1/K5 closest hit,
+// K3 hit assembly, K2/K6 any hit):
 //
 //   wpt_regen_pinhole  refill dead lanes with their pixel's next sample
 //                      (wurblpt_tpu/render/integrator.py:973-1013)
-//   wpt_shade_diffuse  emission with its MIS weight, the sensor deposit, the
-//                      Lambertian cosine sample, light NEE up to its shadow
-//                      ray and pending deposit, Russian roulette, the next
-//                      state and the cast counters (integrator.py:456-752
-//                      without the env sections, which need a sky)
+//   wpt_shade_diffuse  the diffuse class (Lambertian surfaces; diffuse, spot
+//                      and ToF triangle lights with mixture or per-light
+//                      MIS; no sky): emission with its MIS weight, the
+//                      sensor deposit, the Lambertian cosine sample, light
+//                      NEE up to its shadow ray and pending deposit, Russian
+//                      roulette, the next state and the cast counters
+//                      (integrator.py:456-752 without the env sections)
+//   wpt_shade_env      the env class (Lambertian, GGX and mirror surfaces
+//                      under an importance-sampled equirect sky; no light):
+//                      the sky on a miss with its MIS weight against env NEE,
+//                      emission, the Lambertian cosine / GGX VNDF / mirror
+//                      sample, env NEE up to its shadow ray (to BIG) and
+//                      pending deposit, Russian roulette, the next state and
+//                      the cast counters (integrator.py:456-752 without light
+//                      NEE); K8's lookups, sample and pdf inline
+//                      (envmap_common.cuh)
 //   wpt_nee_resolve    acc += pending where the shadow ray is not occluded,
 //                      and the loop condition: does any lane have work left
 //
@@ -16,21 +27,29 @@
 // the TPU; in the port they were a chain of ~1000 PyTorch launches per step.
 // One thread per lane, the lane state in structure-of-arrays tensors (each
 // thread reads its lane's fields and writes them to new tensors), material
-// rows, light rows and the alias table read inline from global memory (a
-// few KB, cached). Bound on the card: bytes, the lane state read and written
-// once per kernel (~200 B per lane for the shade); the mixture pdf loops
-// over the L < 8 lights in index order, twice.
+// rows, light rows, the alias tables and the sky's texels read inline from
+// global memory (a few KB, and the sky's 128 KB, cached). Bound on the card:
+// bytes, the lane state read and written once per kernel (~200 B per lane
+// for a shade); the mixture pdf loops over the L < 8 lights in index order,
+// twice. The env shade evaluates only the lane's own material branch (the
+// plain version evaluates every branch and selects), so GGX's VNDF sample
+// and its two evaluations cost only the GGX lanes.
 //
 // Every expression is evaluated in the order of the plain PyTorch versions
-// (render/wavefront.py, render/bsdf.py, render/lights.py, core/rng.py,
-// render/camera.py), and the library is built with -fmad=false and without
-// --use_fast_math, so each operation rounds as the corresponding PyTorch op
-// does. A Python number multiplies or divides as PyTorch's CUDA kernels
-// take it: rounded to float32 first. PCG4D runs in native uint32 and gives
-// the words of core/rng.py. Where bits may still part: cosf and sinf (the
-// cosine sample, the ToF phase) against PyTorch's own build of them.
+// (render/wavefront.py, render/bsdf.py, render/lights.py, render/envmap.py,
+// core/rng.py, core/onb.py, core/vecmath.py, render/camera.py), and the
+// library is built with -fmad=false and without --use_fast_math, so each
+// operation rounds as the corresponding PyTorch op does. A Python number
+// multiplies or divides as PyTorch's CUDA kernels take it: rounded to
+// float32 first; `c / x` is x.reciprocal() * c, exact for c = 1. PCG4D runs
+// in native uint32 and gives the words of core/rng.py. Where bits may still
+// part: cosf and sinf (the cosine sample, the GGX VNDF sample, the env
+// sample, the ToF phase) and atan2f / acosf (the sky's lookup and pdf)
+// against PyTorch's own build of them.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "envmap_common.cuh"
 
 namespace {
 
@@ -39,11 +58,15 @@ constexpr float BIG = 3.0e37f;
 constexpr float INV_PI = static_cast<float>(1.0 / 3.141592653589793);
 constexpr float PI_4 = static_cast<float>(3.141592653589793 / 4.0);
 constexpr float PI_2 = static_cast<float>(3.141592653589793 / 2.0);
+constexpr float PI_F = static_cast<float>(3.141592653589793);
+constexpr float TWO_PI_F = static_cast<float>(2.0 * 3.141592653589793);
 constexpr int MAT_COLS = 23;        // albedo | emissive | p0 | p1 | p2 | typ, flags, rgl_id
-constexpr int LAMBERTIAN = 1, MODPHONG = 5, LIGHT_DIFFUSE = 7, LIGHT_SPOT = 8, LIGHT_TOF = 9;
+constexpr int LAMBERTIAN = 1, GGX = 2, MIRROR = 4, MODPHONG = 5, LIGHT_DIFFUSE = 7,
+              LIGHT_SPOT = 8, LIGHT_TOF = 9;
 constexpr int TWO_SIDED = 1;
+constexpr int KIND_NONE = 0, KIND_RANDOM = 1, KIND_EXPLICIT = 2;   // render/bsdf.py ScatterKind
 constexpr uint32_t SALT_PIXEL_JITTER = 0x01, SALT_BSDF = 0x10, SALT_BSDF_AUX = 0x13,
-                   SALT_NEE_SAMPLE = 0x21;
+                   SALT_NEE_SAMPLE = 0x21, SALT_ENVMAP_SAMPLE = 0x22;
 constexpr int SENSOR_RGB = 0, SENSOR_TOF = 1;
 
 }  // namespace
@@ -106,6 +129,41 @@ __device__ __forceinline__ float power_heuristic(float a, float b) {
     const float a2 = a * a;
     const float denom = a2 + b * b;
     return denom > 0.f ? a2 / denom : 0.f;
+}
+
+// core/vecmath.normalize: a * reciprocal(sqrt(max(a . a, 1e-20)))
+__device__ __forceinline__ void normalize3(const float* a, float* r) {
+    const float inv = 1.0f / sqrtf(clamp_min(dot3(a, a), 1e-20f));
+    for (int c = 0; c < 3; ++c) r[c] = a[c] * inv;
+}
+
+// core/vecmath.reflect: d - (2 (d . n)) n
+__device__ __forceinline__ void reflect3(const float* d, const float* n, float* r) {
+    const float s = 2.0f * dot3(d, n);
+    for (int c = 0; c < 3; ++c) r[c] = d[c] - s * n[c];
+}
+
+// core/onb.onb_from_normal_tangent: Gram-Schmidt of the tangent against n
+__device__ __forceinline__ void onb_from_tangent(const float* n, const float* tg, float* t,
+                                                 float* b) {
+    const float tn = dot3(tg, n);
+    float u[3];
+    for (int c = 0; c < 3; ++c) u[c] = tg[c] - tn * n[c];
+    normalize3(u, t);
+    cross3(n, t, b);
+}
+
+// core/onb.to_local and to_world in the (t, b, n) frame
+__device__ __forceinline__ void to_local(const float* w, const float* t, const float* b,
+                                         const float* n, float* l) {
+    l[0] = dot3(w, t);
+    l[1] = dot3(w, b);
+    l[2] = dot3(w, n);
+}
+
+__device__ __forceinline__ void to_world(const float* l, const float* t, const float* b,
+                                         const float* n, float* w) {
+    for (int c = 0; c < 3; ++c) w[c] = (l[0] * t[c] + l[1] * b[c]) + l[2] * n[c];
 }
 
 // ---- core/rng.py: PCG4D on (pixel, sample, depth, salt) ----------------------
@@ -175,6 +233,160 @@ struct MatRow {
 __device__ __forceinline__ MatRow mat_row(const float* mat, int n_mat, int id) {
     const float* f = mat + static_cast<long long>(min(max(id, 0), n_mat - 1)) * MAT_COLS;
     return MatRow{f, __float_as_int(f[20]), __float_as_int(f[21])};
+}
+
+// render/bsdf.py emitted: the emission seen along d at a hit with its MIS
+// weight w_emit, deposited at once; acc_out = acc_in + the sensor's deposit.
+template <int SENSOR>
+__device__ __forceinline__ void emit_lane(const SensorParams& sp, const MatRow& mr,
+                                          const float* d, const float* n3, bool backside,
+                                          const float* tp, float w_emit, const float* opl,
+                                          float t, bool hit, const float* acc_in,
+                                          float* acc_out) {
+    const float vd[3] = {-d[0], -d[1], -d[2]};
+    const float cos_view = dot3(n3, vd);
+    const bool is_cone = mr.typ == LIGHT_SPOT || mr.typ == LIGHT_TOF;
+    const bool is_emitter = mr.typ == LIGHT_DIFFUSE || is_cone || mr.typ == MODPHONG;
+    const bool front_ok = !backside || (mr.flags & TWO_SIDED) > 0;
+    const bool e_ok = is_emitter && front_ok && cos_view > 0.f &&
+                      (cos_view >= mr.f[8] || !is_cone);
+    float rad[4], dep[3];
+    for (int c = 0; c < 4; ++c) rad[c] = (tp[c] * (e_ok ? mr.f[4 + c] : 0.f)) * w_emit;
+    const bool take = sensor_deposit<SENSOR>(sp, rad, opl, t, hit, dep);
+    for (int c = 0; c < 3; ++c) acc_out[c] = acc_in[c] + (take ? dep[c] : 0.f);
+}
+
+// ---- render/bsdf.py: the Lambertian, GGX and mirror lobes ---------------------
+
+// core/sampler.cosine_direction: concentric disk, lifted, in Duff et al.'s
+// basis around n.
+__device__ __forceinline__ void cosine_direction(const float* n3, float u0, float u1,
+                                                 float* sdir) {
+    // in_unit_disk (concentric map)
+    const float ox = u0 * 2.0f - 1.0f, oy = u1 * 2.0f - 1.0f;
+    const bool use_x = fabsf(ox) > fabsf(oy);
+    const float safe_ox = fabsf(ox) > 0.f ? ox : 1.0f;
+    const float safe_oy = fabsf(oy) > 0.f ? oy : 1.0f;
+    const float theta = use_x ? (oy / safe_ox) * PI_4 : PI_2 - (ox / safe_oy) * PI_4;
+    const float rr = (ox == 0.f && oy == 0.f) ? 0.f : (use_x ? ox : oy);
+    const float lx = rr * cosf(theta), ly = rr * sinf(theta);
+    const float lz = sqrtf(clamp_min((1.0f - lx * lx) - ly * ly, 1e-20f));
+    // onb_from_normal (Duff et al.)
+    const float sign = n3[2] >= 0.f ? 1.0f : -1.0f;
+    const float a = (1.0f / (sign + n3[2])) * -1.0f;
+    const float bvar = (n3[0] * n3[1]) * a;
+    const float tt[3] = {((sign * n3[0]) * n3[0]) * a + 1.0f, sign * bvar, (-sign) * n3[0]};
+    const float bb[3] = {bvar, sign + (n3[1] * n3[1]) * a, -n3[1]};
+    for (int c = 0; c < 3; ++c) sdir[c] = (lx * tt[c] + ly * bb[c]) + lz * n3[c];
+}
+
+// _ggx_ndf: anisotropic GGX D (material_ggx.hpp:89-110)
+__device__ __forceinline__ float ggx_ndf(const float* h, float ax, float ay) {
+    const float hx = h[0] / ax, hy = h[1] / ay;
+    const float denom = (hx * hx + hy * hy) + h[2] * h[2];
+    return h[2] > 0.f ? 1.0f / clamp_min((((PI_F * ax) * ay) * denom) * denom, 1e-12f) : 0.f;
+}
+
+// _ggx_lambda: Smith's Lambda
+__device__ __forceinline__ float ggx_lambda(const float* w, float ax, float ay) {
+    const float wz = clamp_min(fabsf(w[2]), 1e-6f);
+    const float a = ax * w[0], b = ay * w[1];
+    return 0.5f * (sqrtf((a * a + b * b) / (wz * wz) + 1.0f) - 1.0f);
+}
+
+// _ggx_sample_vndf: Heitz 2018 VNDF sampling (material_ggx.hpp:138-171) of
+// the microfacet normal m seen from wo (local, wo.z > 0)
+__device__ __forceinline__ void ggx_sample_vndf(const float* wo, float ax, float ay, float u0,
+                                                float u1, float* m) {
+    const float v[3] = {ax * wo[0], ay * wo[1], wo[2]};
+    float vh[3];
+    normalize3(v, vh);
+    const float lensq = vh[0] * vh[0] + vh[1] * vh[1];
+    const float inv = 1.0f / sqrtf(clamp_min(lensq, 1e-20f));
+    float t1[3] = {1.0f, 0.f, 0.f};
+    if (lensq > 1e-12f) {
+        t1[0] = -vh[1] * inv;
+        t1[1] = vh[0] * inv;
+        t1[2] = 0.f;
+    }
+    float t2[3];
+    cross3(vh, t1, t2);
+    const float r = sqrtf(clamp_min(u0, 1e-20f));
+    const float phi = TWO_PI_F * u1;
+    const float p1 = r * cosf(phi);
+    float p2 = r * sinf(phi);
+    const float s = 0.5f * (1.0f + vh[2]);
+    p2 = (1.0f - s) * sqrtf(clamp_min(1.0f - p1 * p1, 1e-20f)) + s * p2;
+    const float sq = sqrtf(clamp_min((1.0f - p1 * p1) - p2 * p2, 1e-20f));
+    float nh[3];
+    for (int c = 0; c < 3; ++c) nh[c] = (p1 * t1[c] + p2 * t2[c]) + sq * vh[c];
+    const float w[3] = {ax * nh[0], ay * nh[1], clamp_min(nh[2], 1e-6f)};
+    normalize3(w, m);
+}
+
+// _ggx_eval_local: f * cos [4] into fcos, returns the VNDF pdf; zero below
+// the horizon. f0 is the material's albedo (Schlick's F0).
+__device__ __forceinline__ float ggx_eval_local(const float* wo, const float* wd,
+                                                const float* f0, float ax, float ay,
+                                                float* fcos) {
+    const bool up = wo[2] > 1e-6f && wd[2] > 1e-6f;
+    const float hs[3] = {wo[0] + wd[0], wo[1] + wd[1], wo[2] + wd[2]};
+    float h[3];
+    normalize3(hs, h);
+    const float d_term = ggx_ndf(h, ax, ay);
+    const float lam_o = ggx_lambda(wo, ax, ay);
+    const float g2 = 1.0f / ((1.0f + lam_o) + ggx_lambda(wd, ax, ay));
+    const float g1 = 1.0f / (1.0f + lam_o);
+    // fresnel_schlick: c^5 as c * ((c * c) * (c * c))
+    const float cf = clamp(1.0f - clamp_min(dot3(wo, h), 1e-6f), 0.f, 1.f);
+    const float c2 = cf * cf;
+    const float c5 = cf * (c2 * c2);
+    const float woz4 = 4.0f * clamp_min(wo[2], 1e-6f);
+    const float spec = (d_term * g2) / woz4;
+    for (int c = 0; c < 4; ++c) fcos[c] = up ? (f0[c] + (1.0f - f0[c]) * c5) * spec : 0.f;
+    return up ? (g1 * d_term) / woz4 : 0.f;
+}
+
+// render/wavefront.py advance: the throughput update, Russian roulette
+// (wurblpt.hpp:258-273) and the lane's next state, but its previous
+// mixture pdf (the shade's own). `cont` lanes (RANDOM or EXPLICIT) carry
+// on along sdir.
+__device__ __forceinline__ void advance_lane(const WaveState& in, const WaveState& out, int i,
+                                             long long k, bool act, bool hit, const float* p,
+                                             const float* d, const float* tp, const float* sdir,
+                                             const float* atten, float spdf, bool is_random,
+                                             bool is_explicit, float u_rr, float geom,
+                                             const float* opl, int max_depth, int rr_start,
+                                             float rr_threshold) {
+    float ratio[4], ntp[4];
+    const float pdf_c = clamp_min(spdf, 1e-12f);
+    for (int c = 0; c < 4; ++c) {
+        ratio[c] = is_random ? atten[c] / pdf_c : atten[c];
+        ntp[c] = tp[c] * ratio[c];
+    }
+    const bool cont = is_random || is_explicit;
+    const float max_r = max4(ratio);
+    const bool do_rr = k >= rr_start && max_r < rr_threshold && cont;
+    const float q = clamp(1.0f - max_r, 0.f, 0.95f);
+    const bool killed = do_rr && u_rr < q;
+    if (do_rr && !killed) {
+        const float keep = clamp_min(1.0f - q, 0.05f);
+        for (int c = 0; c < 4; ++c) ntp[c] = ntp[c] / keep;
+    }
+    const bool alive = cont && !killed && max4(ntp) > 0.f;
+    out.bounce[i] = act ? k + 1 : k;
+    for (int c = 0; c < 3; ++c) {
+        out.o[3 * i + c] = hit ? p[c] : in.o[3 * i + c];
+        out.d[3 * i + c] = cont ? sdir[c] : d[c];
+    }
+    for (int c = 0; c < 4; ++c) {
+        out.throughput[4 * i + c] = cont ? ntp[c] : tp[c];
+        out.opt_len[4 * i + c] = opl[c];
+    }
+    out.active[i] = act && alive && k + 1 < max_depth;
+    out.geom_len[i] = geom;
+    out.prev_pdf[i] = is_random ? spdf : 0.f;
+    out.prev_random[i] = is_random;
 }
 
 // ---- render/lights.py -------------------------------------------------------
@@ -310,22 +522,24 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     bool act = false, is_random = false;
     if (i < n) {
+        // The hit record, the material and the emission's MIS inputs feed only
+        // hit lanes; the position also the shadow ray of every lane.
         act = in.active[i];
         const long long k = in.bounce[i];
-        const float t = t_hit[i];
-        const int prim = prim_hit[i];
-        const bool hit = prim >= 0 && act;
-        float d[3], n3[3], p[3], tp[4], ior[4];
+        const int prim = act ? prim_hit[i] : -1;
+        const bool hit = prim >= 0;
+        const float t = hit ? t_hit[i] : 0.f;
+        float d[3], n3[3] = {0.f, 0.f, 0.f}, p[3], tp[4], ior[4] = {0.f, 0.f, 0.f, 0.f};
         for (int c = 0; c < 3; ++c) {
             d[c] = in.d[3 * i + c];
-            n3[c] = nrm[3 * i + c];
             p[c] = pos[3 * i + c];
         }
-        for (int c = 0; c < 4; ++c) {
-            tp[c] = in.throughput[4 * i + c];
-            ior[c] = in.ior[4 * i + c];
+        for (int c = 0; c < 4; ++c) tp[c] = in.throughput[4 * i + c];
+        if (hit) {
+            for (int c = 0; c < 3; ++c) n3[c] = nrm[3 * i + c];
+            for (int c = 0; c < 4; ++c) ior[c] = in.ior[4 * i + c];
         }
-        const MatRow mr = mat_row(mat, n_mat, mat_hit[i]);
+        const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
 
         // 1. path lengths (wurblpt.hpp:148-150)
         const float geom = hit ? in.geom_len[i] + t : in.geom_len[i];
@@ -335,34 +549,24 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
             opl[c] = hit ? o_l + t * ior[c] : o_l;
         }
 
-        // 2. emission with its MIS weight, deposited at once (render/bsdf.py emitted)
-        const float vd[3] = {-d[0], -d[1], -d[2]};
-        const float cos_view = dot3(n3, vd);
-        const bool is_cone = mr.typ == LIGHT_SPOT || mr.typ == LIGHT_TOF;
-        const bool is_emitter = mr.typ == LIGHT_DIFFUSE || is_cone || mr.typ == MODPHONG;
-        const bool front_ok = !backside[i] || (mr.flags & TWO_SIDED) > 0;
-        const bool e_ok = is_emitter && front_ok && cos_view > 0.f &&
-                          (cos_view >= mr.f[8] || !is_cone);
-        const bool prev_random = in.prev_random[i];
-        const float prev_pdf = in.prev_pdf[i];
+        // 2. emission with its MIS weight, deposited at once
+        const bool prev_random = hit && in.prev_random[i];
+        const float prev_pdf = prev_random ? in.prev_pdf[i] : 0.f;
         float w_emit = 1.0f;
         if (PER_LIGHT) {
             // lights_pdf_at_hit: pick x t^2 / (|cos| area) of the prim hit
-            const int pm = hit ? prim : -1;
-            const float* row = pick_area + 2 * min(max(pm, 0), n_pick - 1);
-            const float pp = pm >= 0 ? row[0] : 0.f;
-            const float g[3] = {gnrm[3 * i], gnrm[3 * i + 1], gnrm[3 * i + 2]};
-            const float cg = fabsf(dot3(d, g));
-            const float lp_hit = pp * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
-            if (prev_random) w_emit = power_heuristic(prev_pdf, lp_hit);
+            if (prev_random) {
+                const float* row = pick_area + 2 * min(prim, n_pick - 1);
+                const float g[3] = {gnrm[3 * i], gnrm[3 * i + 1], gnrm[3 * i + 2]};
+                const float cg = fabsf(dot3(d, g));
+                const float lp_hit = row[0] * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
+                w_emit = power_heuristic(prev_pdf, lp_hit);
+            }
         } else if (prev_random) {
             w_emit = power_heuristic(prev_pdf, in.prev_light_pdf[i]);
         }
-        float rad[4], dep[3];
-        for (int c = 0; c < 4; ++c) rad[c] = (tp[c] * (e_ok ? mr.f[4 + c] : 0.f)) * w_emit;
-        const bool take = sensor_deposit<SENSOR>(sp, rad, opl, t, hit, dep);
-        for (int c = 0; c < 3; ++c)
-            out.acc[3 * i + c] = in.acc[3 * i + c] + (take ? dep[c] : 0.f);
+        emit_lane<SENSOR>(sp, mr, d, n3, hit && backside[i], tp, w_emit, opl, t, hit,
+                          in.acc + 3 * i, out.acc + 3 * i);
 
         // 3. the Lambertian cosine sample (core/sampler.cosine_direction)
         const long long px_id = pixel[i], smp = in.sample[i];
@@ -374,24 +578,8 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
         float atten[4] = {0.f, 0.f, 0.f, 0.f};
         float spdf = 0.f;
         const bool lamb = mr.typ == LAMBERTIAN;
-        if (lamb) {
-            // in_unit_disk (concentric map)
-            const float ox = u4[0] * 2.0f - 1.0f, oy = u4[1] * 2.0f - 1.0f;
-            const bool use_x = fabsf(ox) > fabsf(oy);
-            const float safe_ox = fabsf(ox) > 0.f ? ox : 1.0f;
-            const float safe_oy = fabsf(oy) > 0.f ? oy : 1.0f;
-            const float theta = use_x ? (oy / safe_ox) * PI_4 : PI_2 - (ox / safe_oy) * PI_4;
-            const float rr = (ox == 0.f && oy == 0.f) ? 0.f : (use_x ? ox : oy);
-            const float lx = rr * cosf(theta), ly = rr * sinf(theta);
-            const float lz = sqrtf(clamp_min((1.0f - lx * lx) - ly * ly, 1e-20f));
-            // onb_from_normal (Duff et al.)
-            const float sign = n3[2] >= 0.f ? 1.0f : -1.0f;
-            const float a = (1.0f / (sign + n3[2])) * -1.0f;
-            const float bvar = (n3[0] * n3[1]) * a;
-            const float tt[3] = {((sign * n3[0]) * n3[0]) * a + 1.0f, sign * bvar,
-                                 (-sign) * n3[0]};
-            const float bb[3] = {bvar, sign + (n3[1] * n3[1]) * a, -n3[1]};
-            for (int c = 0; c < 3; ++c) sdir[c] = (lx * tt[c] + ly * bb[c]) + lz * n3[c];
+        if (hit && lamb) {
+            cosine_direction(n3, u4[0], u4[1], sdir);
             spdf = clamp_min(dot3(sdir, n3), 0.f) * INV_PI;
             for (int c = 0; c < 4; ++c) atten[c] = mr.f[c] * spdf;
         }
@@ -455,36 +643,186 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
         for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
 
         // 5. throughput update, Russian roulette, the next state (wurblpt.hpp:258-273)
-        float ratio[4], ntp[4];
-        const float pdf_c = clamp_min(spdf, 1e-12f);
-        for (int c = 0; c < 4; ++c) {
-            ratio[c] = is_random ? atten[c] / pdf_c : atten[c];
-            ntp[c] = tp[c] * ratio[c];
-        }
-        const bool cont = is_random;
-        const float max_r = max4(ratio);
-        const bool do_rr = k >= rr_start && max_r < rr_threshold && cont;
-        const float q = clamp(1.0f - max_r, 0.f, 0.95f);
-        const bool killed = do_rr && ua[2] < q;
-        if (do_rr && !killed) {
-            const float keep = clamp_min(1.0f - q, 0.05f);
-            for (int c = 0; c < 4; ++c) ntp[c] = ntp[c] / keep;
-        }
-        const bool alive = cont && !killed && max4(ntp) > 0.f;
-        out.bounce[i] = act ? k + 1 : k;
-        for (int c = 0; c < 3; ++c) {
-            out.o[3 * i + c] = hit ? p[c] : in.o[3 * i + c];
-            out.d[3 * i + c] = cont ? sdir[c] : d[c];
-        }
-        for (int c = 0; c < 4; ++c) {
-            out.throughput[4 * i + c] = cont ? ntp[c] : tp[c];
-            out.opt_len[4 * i + c] = opl[c];
-        }
-        out.active[i] = act && alive && k + 1 < max_depth;
-        out.geom_len[i] = geom;
-        out.prev_pdf[i] = is_random ? spdf : 0.f;
-        out.prev_random[i] = is_random;
+        advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random, false,
+                     ua[2], geom, opl, max_depth, rr_start, rr_threshold);
         out.prev_light_pdf[i] = is_random ? light_pdf_next : 0.f;
+    }
+    // the cast counters: one closest cast per active lane, one shadow cast per RANDOM lane
+    const int n_act = __syncthreads_count(act);
+    const int n_rand = __syncthreads_count(is_random);
+    if (threadIdx.x == 0 && n_act > 0) {
+        atomicAdd(stats, static_cast<unsigned long long>(n_act));
+        atomicAdd(stats + 1, static_cast<unsigned long long>(n_act + n_rand));
+    }
+}
+
+// The sky of the env class: an equirect image with its importance tables
+// (render/envmap.py EnvMapArrays, kind 1).
+struct EnvMap {
+    const float4* img;         // [h, w] texels, 4 channels
+    int h, w;
+    const float* pdf;          // [res, res] solid-angle pdf per cell
+    const float* alias_prob;   // [res * res]
+    const int* alias_idx;      // [res * res]
+    int res;
+    const float* rot;          // [4] quaternion world-from-map
+};
+
+__device__ __forceinline__ float4 sky_radiance(const EnvMap& env, float3 d) {
+    return wpt_env::equirect_lookup(env.img, env.h, env.w, wpt_env::to_map(env.rot, d));
+}
+
+template <int SENSOR>
+__global__ void __launch_bounds__(BLOCK)
+shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats, int n,
+                 const long long* __restrict__ pixel, const float* __restrict__ t_hit,
+                 const int* __restrict__ prim_hit, const float* __restrict__ pos,
+                 const float* __restrict__ nrm, const float* __restrict__ tng,
+                 const bool* __restrict__ backside, const int* __restrict__ mat_hit,
+                 const float* __restrict__ mat, int n_mat, EnvMap env, SensorParams sp,
+                 int max_depth, int rr_start, float rr_threshold, float* __restrict__ shadow_d,
+                 float* __restrict__ shadow_tmax, float* __restrict__ pending) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    bool act = false, is_random = false;
+    if (i < n) {
+        // The hit record and the material feed only hit lanes; the previous
+        // bsdf sample's flag and pdf only escaped ones.
+        act = in.active[i];
+        const long long k = in.bounce[i];
+        const int prim = act ? prim_hit[i] : -1;
+        const bool hit = prim >= 0;
+        const float t = hit ? t_hit[i] : 0.f;
+        float d[3], n3[3] = {0.f, 0.f, 0.f}, p[3] = {0.f, 0.f, 0.f}, tp[4],
+              ior[4] = {0.f, 0.f, 0.f, 0.f}, a[3];
+        for (int c = 0; c < 3; ++c) {
+            d[c] = in.d[3 * i + c];
+            a[c] = in.acc[3 * i + c];
+        }
+        for (int c = 0; c < 4; ++c) tp[c] = in.throughput[4 * i + c];
+        if (hit) {
+            for (int c = 0; c < 3; ++c) {
+                n3[c] = nrm[3 * i + c];
+                p[c] = pos[3 * i + c];
+            }
+            for (int c = 0; c < 4; ++c) ior[c] = in.ior[4 * i + c];
+        }
+        const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
+
+        // 1. the sky on a miss, MIS-weighted against env NEE (wavefront.env_miss)
+        {
+            float dep[3];
+            bool take = false;
+            if (act && prim < 0) {
+                const float3 dv = make_float3(d[0], d[1], d[2]);
+                const float4 L = sky_radiance(env, dv);
+                const float Lc[4] = {L.x, L.y, L.z, L.w};
+                const float w_env = in.prev_random[i]
+                    ? power_heuristic(in.prev_pdf[i], wpt_env::pdf(dv, env.pdf, env.res, env.rot))
+                    : 1.0f;
+                float rad[4], opl0[4];
+                for (int c = 0; c < 4; ++c) {
+                    rad[c] = (tp[c] * Lc[c]) * w_env;
+                    opl0[c] = in.opt_len[4 * i + c];
+                }
+                take = sensor_deposit<SENSOR>(sp, rad, opl0, 0.f, true, dep);
+            }
+            for (int c = 0; c < 3; ++c) a[c] = a[c] + (take ? dep[c] : 0.f);
+        }
+
+        // 2. path lengths (wurblpt.hpp:148-150)
+        const float geom = hit ? in.geom_len[i] + t : in.geom_len[i];
+        float opl[4];
+        for (int c = 0; c < 4; ++c) {
+            const float o_l = in.opt_len[4 * i + c];
+            opl[c] = hit ? o_l + t * ior[c] : o_l;
+        }
+
+        // 3. emission (no light, so its MIS weight is 1)
+        emit_lane<SENSOR>(sp, mr, d, n3, hit && backside[i], tp, 1.0f, opl, t, hit, a,
+                          out.acc + 3 * i);
+
+        // 4. the bsdf sample of the lane's own lobe (render/bsdf.py bsdf_sample)
+        const long long px_id = pixel[i], smp = in.sample[i];
+        float u4[4], ua[4], ue[4];
+        uniform4(px_id, smp, k, SALT_BSDF, u4);
+        uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
+        uniform4(px_id, smp, k, SALT_ENVMAP_SAMPLE, ue);
+        float sdir[3] = {n3[0], n3[1], n3[2]};
+        float atten[4] = {0.f, 0.f, 0.f, 0.f};
+        float spdf = 0.f;
+        int kind = KIND_NONE;
+        const bool ggx = mr.typ == GGX;
+        float ax = 0.f, ay = 0.f, tb_t[3], tb_b[3];
+        if (hit) {
+            if (mr.typ == LAMBERTIAN) {
+                cosine_direction(n3, u4[0], u4[1], sdir);
+                spdf = clamp_min(dot3(sdir, n3), 0.f) * INV_PI;
+                for (int c = 0; c < 4; ++c) atten[c] = mr.f[c] * spdf;
+                kind = KIND_RANDOM;
+            } else if (ggx) {
+                ax = clamp_min(mr.f[8], 1e-4f);
+                ay = clamp_min(mr.f[9], 1e-4f);
+                const float tg[3] = {tng[3 * i], tng[3 * i + 1], tng[3 * i + 2]};
+                onb_from_tangent(n3, tg, tb_t, tb_b);
+                const float wo[3] = {-d[0], -d[1], -d[2]};
+                float wl[3];
+                to_local(wo, tb_t, tb_b, n3, wl);
+                wl[2] = clamp_min(wl[2], 1e-4f);
+                float m[3];
+                ggx_sample_vndf(wl, ax, ay, u4[0], u4[1], m);
+                const float nwl[3] = {-wl[0], -wl[1], -wl[2]};
+                float wdl[3];
+                reflect3(nwl, m, wdl);
+                spdf = ggx_eval_local(wl, wdl, mr.f, ax, ay, atten);
+                to_world(wdl, tb_t, tb_b, n3, sdir);
+                kind = KIND_RANDOM;
+            } else if (mr.typ == MIRROR) {
+                reflect3(d, n3, sdir);
+                for (int c = 0; c < 4; ++c) atten[c] = mr.f[c];
+                spdf = 1.0f;
+                kind = KIND_EXPLICIT;
+            }
+        }
+        is_random = hit && kind == KIND_RANDOM && spdf > 0.f;
+        const bool is_explicit = hit && kind == KIND_EXPLICIT;
+
+        // 5. env NEE up to the shadow ray (wavefront.env_nee): a sky sample on
+        //    every lane, its bsdf and weight on the RANDOM ones
+        float3 edir;
+        const float epdf = wpt_env::sample(ue[0], ue[1], ue[2], env.pdf, env.alias_prob,
+                                           env.alias_idx, env.res, env.rot, &edir);
+        const float ed[3] = {edir.x, edir.y, edir.z};
+        for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ed[c];
+        shadow_tmax[i] = is_random ? BIG : 0.f;
+        bool nee_take = false;
+        float ndep[3] = {0.f, 0.f, 0.f};
+        if (is_random) {
+            // bsdf_eval toward the sky sample (RANDOM lanes are Lambertian or GGX)
+            float fe[4], pb;
+            if (ggx) {
+                const float wo[3] = {-d[0], -d[1], -d[2]};
+                float wl[3], wdl[3];
+                to_local(wo, tb_t, tb_b, n3, wl);
+                to_local(ed, tb_t, tb_b, n3, wdl);
+                pb = ggx_eval_local(wl, wdl, mr.f, ax, ay, fe);
+            } else {
+                pb = clamp_min(dot3(ed, n3), 0.f) * INV_PI;
+                for (int c = 0; c < 4; ++c) fe[c] = mr.f[c] * pb;
+            }
+            const float w_e = power_heuristic(epdf, pb);
+            const float scale = w_e / clamp_min(epdf, 1e-12f);
+            const float4 L = sky_radiance(env, edir);
+            const float Lc[4] = {L.x, L.y, L.z, L.w};
+            float contrib[4];
+            for (int c = 0; c < 4; ++c) contrib[c] = ((tp[c] * fe[c]) * Lc[c]) * scale;
+            nee_take = sensor_deposit<SENSOR>(sp, contrib, opl, 0.f, epdf > 1e-12f, ndep);
+        }
+        for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
+
+        // 6. throughput update, Russian roulette, the next state; the previous
+        //    mixture pdf passes through (no light)
+        advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random,
+                     is_explicit, ua[2], geom, opl, max_depth, rr_start, rr_threshold);
     }
     // the cast counters: one closest cast per active lane, one shadow cast per RANDOM lane
     const int n_act = __syncthreads_count(act);
@@ -558,6 +896,32 @@ extern "C" int wpt_shade_diffuse(
             if (per_light) WPT_SHADE(SENSOR_TOF, true); else WPT_SHADE(SENSOR_TOF, false);
         }
 #undef WPT_SHADE
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wpt_shade_env(
+    const WaveState* in, const WaveState* out, long long* stats, int n, const long long* pixel,
+    const float* t, const int* prim, const float* pos, const float* nrm, const float* tng,
+    const bool* backside, const int* mat_hit, const float* mat, int n_mat, const float* img,
+    int h, int w, const float* pdf, const float* alias_prob, const int* alias_idx, int res,
+    const float* rot, int sensor, const float* sensor_params, int max_depth, int rr_start,
+    float rr_threshold, float* shadow_d, float* shadow_tmax, float* pending, void* stream) {
+    if (res < 1 || h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF)) return -1;
+    if (n > 0) {
+        SensorParams sp;
+        for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
+        const EnvMap env{reinterpret_cast<const float4*>(img), h, w, pdf, alias_prob, alias_idx,
+                         res, rot};
+        const int grid = (n + BLOCK - 1) / BLOCK;
+        cudaStream_t s = static_cast<cudaStream_t>(stream);
+        unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
+#define WPT_SHADE_ENV(SENSOR)                                                                  \
+    shade_env_kernel<SENSOR><<<grid, BLOCK, 0, s>>>(                                          \
+        *in, *out, st, n, pixel, t, prim, pos, nrm, tng, backside, mat_hit, mat, n_mat, env,   \
+        sp, max_depth, rr_start, rr_threshold, shadow_d, shadow_tmax, pending)
+        if (sensor == SENSOR_RGB) WPT_SHADE_ENV(SENSOR_RGB); else WPT_SHADE_ENV(SENSOR_TOF);
+#undef WPT_SHADE_ENV
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -18,19 +18,23 @@ Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
   7. throughput update and Russian roulette.
 
 Two routes take a step, chosen once per render from the scene and the
-camera (`wavefront.diffuse_class`):
+camera (`wavefront.diffuse_class`, `wavefront.env_class`):
 
-* the diffuse class (Lambertian surfaces, triangle lights, no sky, a
-  pinhole camera without distortion; the cornell and tof_amcw paths) runs
-  the step as K4's kernels (:mod:`.wavefront`): regeneration, K1, K3, the
-  shade, K2 on its shadow rays and the NEE resolve, ~7 launches;
+* K4 (:mod:`.wavefront`), seen by a pinhole camera without distortion, for
+  two classes of scenes: the diffuse class (Lambertian surfaces, triangle
+  lights, no sky; the cornell and tof_amcw paths) and the env class
+  (Lambertian, GGX and mirror surfaces under an importance-sampled equirect
+  sky, no light, brute force or a BVH; the bvh_100k path). A step is the
+  regeneration, the scene's closest-hit cast (K1 or K5), K3, the class's
+  shade (`shade_diffuse`, `shade_env`), the scene's any-hit cast (K2 or
+  K6) on its shadow rays and the NEE resolve: ~7 launches;
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
-  K8 and P0 inside; it shares its emission, NEE and roulette pieces with
-  K4's plain versions.
+  K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
+  with K4's plain versions.
 
 A scene's tables (the brute-force scene or the BVH, the hit tables, the
-packed material rows, the per-light rows and K4's light rows) are built
+packed material rows, the per-light rows and K4's step tables) are built
 once per scene by `prepare_scene`; a frame rendered with them launches
 only its lane state and its steps.
 
@@ -49,22 +53,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.rng import Salt, uniform4
-from ..core.sampler import power_heuristic
 from ..scene.ir import SceneArrays
-from .bsdf import (
-    ScatterKind,
-    SceneStatic,
-    bsdf_eval,
-    bsdf_sample,
-    gather_material_rows,
-    pack_material_table,
-)
+from .bsdf import ScatterKind, SceneStatic, bsdf_sample, gather_material_rows, pack_material_table
 from .camera import CameraConfig, CameraParams, check_camera
-from .envmap import env_pdf, env_radiance, env_sample
 from .intersect import HitTables, assemble_hit, build_hit_tables, scene_any_hit, scene_raw_hit
-from .intersect_brute import BIG, any_hit, brute_eligible, build_brute_scene, closest_hit
+from .intersect_brute import BIG, brute_eligible, build_brute_scene
 from .lights import pick_area_table
-from .sensor import SensorEvent
 from .wavefront import (
     LoopState,
     StepTables,
@@ -75,12 +69,17 @@ from .wavefront import (
     diffuse_class,
     diffuse_scene,
     emit,
+    env_class,
+    env_miss,
+    env_nee,
+    env_scene,
     light_nee,
     nee_resolve,
     path_lengths,
     regen_pinhole,
     regen_plain,
     shade_diffuse,
+    shade_env,
 )
 
 
@@ -107,7 +106,7 @@ class SceneTables(NamedTuple):
     hit: HitTables
     mat: torch.Tensor                  # [M, 23] packed material rows
     pick_area: Optional[torch.Tensor]  # [P, 2] per-light MIS rows (None: mixture or no light)
-    step: Optional[StepTables]         # K4's tables (None: a scene outside the diffuse class)
+    step: Optional[StepTables]         # K4's tables (None: a scene outside K4's classes)
 
 
 def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
@@ -120,7 +119,7 @@ def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
         accel=scene.bvh if scene.has_bvh else build_brute_scene(scene),
         hit=build_hit_tables(scene), mat=mat, pick_area=pick_area,
         step=(build_step_tables(scene, static, mat, pick_area)
-              if diffuse_scene(scene, static) else None))
+              if diffuse_scene(scene, static) or env_scene(scene, static) else None))
 
 
 def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables, sensor,
@@ -136,7 +135,6 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
     env = scene.envmap
     dev = scene.device
     t_min = torch.full((n,), params.min_hit_distance, dtype=torch.float32, device=dev)
-    zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     def body(st: LoopState, pixel_id, sample_id) -> LoopState:
         k = st.bounce
@@ -145,19 +143,9 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
                                       torch.where(st.active, BIG, 0.0))
         hit = (prim >= 0) & st.active
 
-        # Environment on a miss (wurblpt.hpp:136-146), MIS-weighted against
-        # env NEE with the pdf of the previous bsdf sample.
+        # Environment on a miss, MIS-weighted against env NEE.
         if has_env:
-            L_env = env_radiance(env, st.d)
-            if env_is:
-                w_env = torch.where(st.prev_random,
-                                    power_heuristic(st.prev_pdf, env_pdf(env, st.d)), 1.0)
-            else:
-                w_env = torch.ones_like(t)
-            acc = sensor.accumulate(acc, SensorEvent(
-                radiance=st.throughput * L_env * w_env[:, None], path_component=k,
-                geom_path_length=st.geom_len, optical_path_length=st.opt_len,
-                distance_to_light=zeros, active=st.active & (prim < 0)))
+            acc = env_miss(sensor, acc, st, env, prim, env_is)
 
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
         mrow = gather_material_rows(mat_packed, hr.mat)
@@ -181,21 +169,14 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
             occluded = scene_any_hit(accel, hr.position, ldir, t_min, t_shadow)
             acc = deposit_unoccluded(acc, pending, occluded)
 
-        # Env NEE (wurblpt.hpp:221-252): shadow ray to BIG, unoccluded lanes
-        # see the sky's radiance in the sampled direction.
+        # Env NEE: shadow ray to BIG, unoccluded lanes see the sky's radiance
+        # in the sampled direction.
         if env_is:
             ue = uniform4(pixel_id, sample_id, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
-            edir, epdf = env_sample(env, ue)
-            f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types, rgl=rgl)
-            occluded_e = scene_any_hit(accel, hr.position, edir, t_min,
-                                       torch.where(is_random, BIG, 0.0))
-            w_e = power_heuristic(epdf, pdf_be)
-            contrib_e = (st.throughput * f_e * env_radiance(env, edir)
-                         * (w_e / torch.clamp_min(epdf, 1e-12))[:, None])
-            acc = sensor.accumulate(acc, SensorEvent(
-                radiance=contrib_e, path_component=k, geom_path_length=geom_len,
-                optical_path_length=opt_len, distance_to_light=zeros,
-                active=is_random & ~occluded_e & (epdf > 1e-12)))
+            edir, t_env, pending_e = env_nee(sensor, env, st, hr, mrow, mat_types, rgl, ue,
+                                             is_random, geom_len, opt_len)
+            occluded_e = scene_any_hit(accel, hr.position, edir, t_min, t_env)
+            acc = deposit_unoccluded(acc, pending_e, occluded_e)
 
         new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc,
                       geom_len, opt_len, light_pdf_next)
@@ -224,21 +205,23 @@ def _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
 
 
 def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
-    """The diffuse-class step through K4: regeneration (wpt_regen_pinhole), K1,
-    K3, the shade (wpt_shade_diffuse), K2 on its shadow rays and the NEE
-    resolve (wpt_nee_resolve), which also evaluates the loop condition; one
-    host sync reads it."""
-    bs, ht, step_tables = tables.accel, tables.hit, tables.step
+    """The step through K4: regeneration (wpt_regen_pinhole), the scene's
+    closest-hit cast (K1 or K5), K3, the class's shade (wpt_shade_diffuse or
+    wpt_shade_env), the scene's any-hit cast (K2 or K6) on its shadow rays
+    and the NEE resolve (wpt_nee_resolve), which also evaluates the loop
+    condition; one host sync reads it."""
+    accel, ht, step_tables = tables.accel, tables.hit, tables.step
+    shade = shade_diffuse if step_tables.env is None else shade_env
     t_min = torch.full((L,), params.min_hit_distance, dtype=torch.float32, device=scene.device)
 
     def step(ls, sample, k_next, lanes):
         ls, sample, k_next, t_max = regen_pinhole(ls, sample, k_next, cam, cam_cfg, lanes,
                                                   params.randomize_ray_over_pixel)
-        t, prim, u, v = closest_hit(bs, ls.o, ls.d, t_min, t_max)
+        t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min, t_max)
         hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v)
-        ls, shadow_d, shadow_tmax, pending = shade_diffuse(step_tables, sensor, params, ls,
-                                                           lanes.pixel, sample, t, prim, hr)
-        occluded = any_hit(bs, hr.position, shadow_d, t_min, shadow_tmax)
+        ls, shadow_d, shadow_tmax, pending = shade(step_tables, sensor, params, ls, lanes.pixel,
+                                                   sample, t, prim, hr)
+        occluded = scene_any_hit(accel, hr.position, shadow_d, t_min, shadow_tmax)
         acc, work = nee_resolve(ls.acc, pending, occluded, ls.active, k_next, lanes)
         return ls._replace(acc=acc), sample, k_next, bool(work.item())
 
@@ -329,7 +312,8 @@ def render_frame_wavefront(
 
     if tables is None:
         tables = prepare_scene(scene, static)
-    make_step = _make_k4_step if diffuse_class(scene, static, cam_cfg) else _make_generic_step
+    k4 = diffuse_class(scene, static, cam_cfg) or env_class(scene, static, cam_cfg)
+    make_step = _make_k4_step if k4 else _make_generic_step
     step = make_step(scene, static, tables, sensor, params, cam, cam_cfg, L)
     run_block = _make_run_block(step, sensor, width, height, samples_sqrt, B, m, P, n_pix,
                                 device)

@@ -1,34 +1,44 @@
-"""K4: one wavefront step of the diffuse class as hand-written kernels.
+"""K4: one wavefront step as hand-written kernels, for two classes of scenes.
 
 Port of the JAX package's bounce body (``wurblpt_tpu/render/integrator.py``
-:400-752, `_make_bounce_fn`) and its regeneration (:973-1013) for the
-scenes of the diffuse class (`diffuse_class`): Lambertian surfaces;
-diffuse, spot and ToF triangle lights with mixture or per-light MIS; no
-sky; a pinhole camera without lens distortion. One step is
+:400-752, `_make_bounce_fn`) and its regeneration (:973-1013), seen by a
+pinhole camera without lens distortion, for
+
+* the diffuse class (`diffuse_class`): Lambertian surfaces; diffuse, spot
+  and ToF triangle lights with mixture or per-light MIS; no sky;
+* the env class (`env_class`): Lambertian, GGX and mirror surfaces under an
+  importance-sampled equirect sky; no light; brute force or a BVH.
+
+One step is
 
     wpt_regen_pinhole  refill dead lanes with their pixel's next sample
-    K1 closest hit, K3 hit assembly
-    wpt_shade_diffuse  emission with its MIS weight, the Lambertian sample,
-                       light NEE (the shadow ray and its pending deposit),
+    closest hit        K1 (brute force) or K5 (BVH), then K3 hit assembly
+    the shade          wpt_shade_diffuse: emission with its MIS weight, the
+                       Lambertian sample, light NEE (the shadow ray and its
+                       pending deposit), Russian roulette, the next state,
+                       the cast counters;
+                       wpt_shade_env: the sky on a miss with its MIS weight,
+                       emission, the Lambertian / GGX / mirror sample, env
+                       NEE (the shadow ray to BIG and its pending deposit),
                        Russian roulette, the next state, the cast counters
-    K2 any hit         the shadow rays
+    any hit            K2 or K6 on the shadow rays
     wpt_nee_resolve    add the pending deposits of unoccluded lanes; flag
                        whether any lane still has work (the loop condition)
 
-`regen_pinhole`, `shade_diffuse` and `nee_resolve` launch the kernels of
-``csrc/wavefront.cu`` on CUDA tensors and run their plain versions
-(`regen_plain`, `shade_diffuse_plain`, `nee_resolve_plain`) on CPU tensors.
-The plain versions are built from the helpers of the generic torch-op bounce
-(`emit`, `light_nee`, `advance`, here), which keeps serving the scenes
-outside the diffuse class, so both routes compute the same thing in the
-same order.
+`regen_pinhole`, `shade_diffuse`, `shade_env` and `nee_resolve` launch the
+kernels of ``csrc/wavefront.cu`` on CUDA tensors and run their plain
+versions (`regen_plain`, `shade_diffuse_plain`, `shade_env_plain`,
+`nee_resolve_plain`) on CPU tensors. The plain versions are built from the
+helpers of the generic torch-op bounce (`emit`, `light_nee`, `env_miss`,
+`env_nee`, `advance`, here), which keeps serving the scenes outside both
+classes, so both routes compute the same thing in the same order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,7 +47,7 @@ from .. import native
 from ..core.rng import Salt, uniform2, uniform4
 from ..core.sampler import power_heuristic
 from ..core.vecmath import cross, dot
-from ..scene.ir import MaterialFlags, MaterialType, SceneArrays
+from ..scene.ir import EnvMapArrays, MaterialFlags, MaterialType, SceneArrays
 from .bsdf import (
     LIGHT_MATERIALS,
     ScatterKind,
@@ -48,6 +58,7 @@ from .bsdf import (
     gather_material_rows,
 )
 from .camera import CameraConfig, CameraParams, DistortionModel, SurroundMode, camera_rays
+from .envmap import env_pdf, env_radiance, env_sample
 from .intersect import HitRecord
 from .intersect_brute import BIG
 from .lights import (
@@ -59,6 +70,7 @@ from .lights import (
 from .sensor import SensorEvent, SensorRGB, SensorTofAmcw
 
 DIFFUSE_MATERIALS = frozenset({MaterialType.LAMBERTIAN}) | LIGHT_MATERIALS
+ENV_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR})
 
 class LoopState(NamedTuple):
     """Per-lane path state of the wavefront (the JAX package's integrator._LoopState)."""
@@ -119,14 +131,34 @@ def diffuse_scene(scene: SceneArrays, static: SceneStatic) -> bool:
             and scene.light_weights is not None)
 
 
-def diffuse_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
-    """Whether a scene and camera take K4 (the route is decided once per render):
-    a scene of the diffuse class (`diffuse_scene`) seen by a pinhole camera
-    without distortion."""
-    return (diffuse_scene(scene, static)
-            and cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo
+def env_scene(scene: SceneArrays, static: SceneStatic) -> bool:
+    """Whether a scene is of the env class: Lambertian, GGX and mirror
+    surfaces under an equirect sky with importance tables, no light, no
+    texture, animation or medium; the brute-force intersector or a BVH."""
+    return (static.mat_types <= ENV_MATERIALS and static.n_lights == 0
+            and not (static.has_textures or static.has_anim or static.has_media
+                     or static.bvh_spheres or static.sphere_lights)
+            and static.env_kind == 1 and static.env_importance)
+
+
+def _pinhole(cam_cfg: CameraConfig) -> bool:
+    """A mono pinhole camera without distortion, depth of field or animation."""
+    return (cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo
             and cam_cfg.distortion == DistortionModel.NONE and not cam_cfg.dof
             and cam_cfg.anim_id < 0)
+
+
+def diffuse_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
+    """Whether a scene and camera take K4 with the diffuse shade (the route is
+    decided once per render): a scene of the diffuse class (`diffuse_scene`)
+    seen by a pinhole camera without distortion."""
+    return diffuse_scene(scene, static) and _pinhole(cam_cfg)
+
+
+def env_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
+    """Whether a scene and camera take K4 with the env shade: a scene of the
+    env class (`env_scene`) seen by a pinhole camera without distortion."""
+    return env_scene(scene, static) and _pinhole(cam_cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +250,43 @@ def deposit_unoccluded(acc, pending, occluded):
     return acc + torch.where(occluded[:, None], 0.0, pending)
 
 
+def env_miss(sensor, acc, st: LoopState, env: EnvMapArrays, prim, importance: bool):
+    """Deposit the sky's radiance on the active lanes whose ray escaped
+    (wurblpt.hpp:136-146), MIS-weighted against env NEE with the pdf of the
+    previous bsdf sample when the sky is importance-sampled (the JAX
+    package's integrator.py:456-474)."""
+    L_env = env_radiance(env, st.d)
+    if importance:
+        w_env = torch.where(st.prev_random, power_heuristic(st.prev_pdf, env_pdf(env, st.d)), 1.0)
+    else:
+        w_env = torch.ones_like(st.prev_pdf)
+    return sensor.accumulate(acc, SensorEvent(
+        radiance=st.throughput * L_env * w_env[:, None], path_component=st.bounce,
+        geom_path_length=st.geom_len, optical_path_length=st.opt_len,
+        distance_to_light=torch.zeros_like(st.geom_len), active=st.active & (prim < 0)))
+
+
+def env_nee(sensor, env: EnvMapArrays, st: LoopState, hr: HitRecord, mrow, mat_types, rgl, ue,
+            is_random, geom_len, opt_len):
+    """Env NEE (wurblpt.hpp:221-252; JAX integrator.py:650-693) up to its
+    shadow ray: an importance-sampled sky direction from the uniforms ue
+    [N, 3], the bsdf toward it, the power-heuristic weight.
+
+    Returns (shadow direction [N, 3], shadow t_max [N]: BIG on RANDOM lanes,
+    0 elsewhere, the pending deposit [N, n_acc]: what the sensor takes if the
+    shadow ray is not occluded, 0 on lanes that deposit nothing)."""
+    edir, epdf = env_sample(env, ue)
+    f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types, rgl=rgl)
+    w_e = power_heuristic(epdf, pdf_be)
+    contrib_e = (st.throughput * f_e * env_radiance(env, edir)
+                 * (w_e / torch.clamp_min(epdf, 1e-12))[:, None])
+    dep, ok = sensor.deposit(SensorEvent(
+        radiance=contrib_e, path_component=st.bounce, geom_path_length=geom_len,
+        optical_path_length=opt_len, distance_to_light=torch.zeros_like(geom_len),
+        active=is_random & (epdf > 1e-12)))
+    return edir, torch.where(is_random, BIG, 0.0), torch.where(ok[:, None], dep, 0.0)
+
+
 def advance(params, st: LoopState, hit, hr: HitRecord, sr, is_random, is_explicit, u_rr, acc,
             geom_len, opt_len, light_pdf_next) -> LoopState:
     """Throughput update, Russian roulette (wurblpt.hpp:258-273) and the next
@@ -301,13 +370,14 @@ def regen_plain(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camer
 
 
 # ---------------------------------------------------------------------------
-# The diffuse-class shade (integrator.py:456-752 without the env sections)
+# The shades of the diffuse class (integrator.py:456-752 without the env
+# sections) and of the env class (the same without light NEE)
 # ---------------------------------------------------------------------------
 
 class StepTables(NamedTuple):
-    """Loop-invariant inputs of the diffuse-class shade. The plain version
-    reads the scene's arrays (`scene`, `mat`, `pick_area`), the kernel the
-    packed rows."""
+    """Loop-invariant inputs of K4's shades. The plain versions read the
+    scene's arrays (`scene`, `mat`, `pick_area`, `env`), the kernels the
+    packed rows. The env class has no light: its light rows are empty."""
 
     scene: SceneArrays
     mat: torch.Tensor          # [M, 23] packed material rows (bsdf.pack_material_table)
@@ -317,28 +387,35 @@ class StepTables(NamedTuple):
     light_w: torch.Tensor      # [L] f32 pick probability
     alias_prob: torch.Tensor   # [L] f32
     alias_idx: torch.Tensor    # [L] int32
+    env: Optional[EnvMapArrays]  # the sky (the env class), None for the diffuse class
     mat_types: frozenset
     n_lights: int
     per_light: bool
 
 
 def build_step_tables(scene: SceneArrays, static: SceneStatic, mat, pick_area) -> StepTables:
-    """The step tables of a scene of the diffuse class, from its packed
-    material rows `mat` and its per-light MIS rows `pick_area` (None with
-    mixture MIS)."""
-    lp = scene.light_prims.long()
-    T = scene.tris
+    """The step tables of a scene of the diffuse or the env class, from its
+    packed material rows `mat` and its per-light MIS rows `pick_area` (None
+    with mixture MIS or without lights)."""
+    dev = scene.device
     if pick_area is None:
-        pick_area = torch.zeros((1, 2), dtype=torch.float32, device=scene.device)
-    return StepTables(
-        scene=scene, mat=mat, pick_area=pick_area,
-        light_tri=torch.cat([T.p0[lp], T.e1[lp], T.e2[lp]], -1).contiguous(),
-        light_mat=T.mat[lp].to(torch.int32).contiguous(),
-        light_w=scene.light_weights.contiguous(),
-        alias_prob=scene.light_alias_prob.contiguous(),
-        alias_idx=scene.light_alias_idx.to(torch.int32).contiguous(),
-        mat_types=static.mat_types, n_lights=static.n_lights,
-        per_light=static.per_light_mis)
+        pick_area = torch.zeros((1, 2), dtype=torch.float32, device=dev)
+    if static.n_lights == 0:
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        lights = (torch.zeros((0, 9), **f32), torch.zeros((0,), **i32),
+                  torch.zeros((0,), **f32), torch.zeros((0,), **f32), torch.zeros((0,), **i32))
+    else:
+        lp = scene.light_prims.long()
+        T = scene.tris
+        lights = (torch.cat([T.p0[lp], T.e1[lp], T.e2[lp]], -1).contiguous(),
+                  T.mat[lp].to(torch.int32).contiguous(), scene.light_weights.contiguous(),
+                  scene.light_alias_prob.contiguous(),
+                  scene.light_alias_idx.to(torch.int32).contiguous())
+    return StepTables(scene, mat, pick_area, *lights,
+                      env=scene.envmap if env_scene(scene, static) else None,
+                      mat_types=static.mat_types, n_lights=static.n_lights,
+                      per_light=static.per_light_mis)
 
 
 def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t,
@@ -369,6 +446,35 @@ def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel
     n_closest = st.active.sum()
     st.stats.add_(torch.stack([n_closest, n_closest + is_random.sum()]))
     return new, ldir, t_shadow, pending
+
+
+def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+                    hr: HitRecord):
+    """Plain version of wpt_shade_env: one bounce of the env class after the
+    closest hit (t, prim) and its hit record `hr` (its tangent included).
+
+    Returns (state, shadow direction [N, 3], shadow t_max [N], pending
+    deposit [N, n_acc]); the counters of st.stats grow in place by the
+    closest casts (active lanes) and the env shadow casts (RANDOM lanes)."""
+    k = st.bounce
+    hit = (prim >= 0) & st.active
+    acc = env_miss(sensor, st.acc, st, tables.env, prim, True)
+    mrow = gather_material_rows(tables.mat, hr.mat)
+    geom_len, opt_len = path_lengths(st, hit, t)
+    acc = emit(sensor, acc, st, hr, mrow, t, prim, hit, geom_len, opt_len, 0, None)
+    u4 = uniform4(pixel, sample, k, Salt.BSDF)
+    u_aux = uniform4(pixel, sample, k, Salt.BSDF_AUX)
+    sr = bsdf_sample(hr, st.d, st.ior, u4, u_aux[:, 0], u_aux[:, 1], mrow, tables.mat_types)
+    is_random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
+    is_explicit = hit & (sr.kind == ScatterKind.EXPLICIT)
+    ue = uniform4(pixel, sample, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
+    edir, t_shadow, pending = env_nee(sensor, tables.env, st, hr, mrow, tables.mat_types, None,
+                                      ue, is_random, geom_len, opt_len)
+    new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc, geom_len,
+                  opt_len, None)
+    n_closest = st.active.sum()
+    st.stats.add_(torch.stack([n_closest, n_closest + is_random.sum()]))
+    return new, edir, t_shadow, pending
 
 
 def nee_resolve_plain(acc, pending, occluded, active, k_next, lanes: BlockLanes):
@@ -500,7 +606,21 @@ def sensor_params(sensor):
                       f32(sensor.phase_index * (math.pi / 2.0)), f32(sensor.contrast),
                       f32(sensor.pixel_area), f32(sensor.aperture_factor),
                       f32(sensor.exposure_time), f32(sensor.duty_cycle)]
-    raise ValueError(f"shade_diffuse: no kernel for sensor {type(sensor).__name__}")
+    raise ValueError(f"K4 shade: no kernel for sensor {type(sensor).__name__}")
+
+
+def _check_hit(name, n, dev, pixel, t, prim, hr: HitRecord, fields):
+    """Raise unless the closest hit's tensors and the hit record's `fields`
+    are contiguous, of the kernel's dtype and shape, on `dev`."""
+    shapes = dict(position=(torch.float32, (n, 3)), normal=(torch.float32, (n, 3)),
+                  geom_normal=(torch.float32, (n, 3)), tangent=(torch.float32, (n, 3)),
+                  backside=(torch.bool, (n,)), mat=(torch.int32, (n,)))
+    for f, x, dtype, shape in (("pixel", pixel, torch.int64, (n,)),
+                               ("t", t, torch.float32, (n,)), ("prim", prim, torch.int32, (n,)),
+                               *((f, getattr(hr, f), *shapes[f]) for f in fields)):
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name}: {f} needs contiguous {dtype} {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
@@ -509,16 +629,8 @@ def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, samp
     `shade_diffuse_plain` on CPU tensors): (state, shadow direction, shadow
     t_max, pending deposit); st.stats grows in place."""
     n, dev = _check_state("shade_diffuse", st, sample, sample, sensor.n_acc)
-    for name, x, dtype, shape in (("pixel", pixel, torch.int64, (n,)),
-                                  ("t", t, torch.float32, (n,)), ("prim", prim, torch.int32, (n,)),
-                                  ("position", hr.position, torch.float32, (n, 3)),
-                                  ("normal", hr.normal, torch.float32, (n, 3)),
-                                  ("geom_normal", hr.geom_normal, torch.float32, (n, 3)),
-                                  ("backside", hr.backside, torch.bool, (n,)),
-                                  ("mat", hr.mat, torch.int32, (n,))):
-        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != dev:
-            raise ValueError(f"shade_diffuse: {name} needs contiguous {dtype} {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_hit("shade_diffuse", n, dev, pixel, t, prim, hr,
+               ("position", "normal", "geom_normal", "backside", "mat"))
     if dev.type == "cpu":
         return shade_diffuse_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
     if not tables.mat_types <= DIFFUSE_MATERIALS or tables.n_lights == 0:
@@ -545,6 +657,63 @@ def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, samp
         pending.data_ptr(), native.stream_ptr(t))
     native.check(code, "shade_diffuse")
     native.LAUNCHES["shade_diffuse"] += 1
+    return out, shadow_d, shadow_tmax, pending
+
+
+def _check_env(env: Optional[EnvMapArrays], dev):
+    """Raise unless `env` is an equirect sky with importance tables whose
+    arrays are contiguous float32 (int32 alias indices) on `dev`."""
+    if env is None or env.kind != 1 or not env.importance:
+        raise ValueError("shade_env: the kernel takes an equirect sky (kind 1) with importance "
+                         f"tables, got {'none' if env is None else f'kind {env.kind}'}")
+    res = env.pdf_table.shape[0]
+    for f, x, dtype, shape in (("image", env.image, torch.float32, (*env.image.shape[:2], 4)),
+                               ("pdf_table", env.pdf_table, torch.float32, (res, res)),
+                               ("alias_prob", env.alias_prob, torch.float32, (res * res,)),
+                               ("alias_idx", env.alias_idx, torch.int32, (res * res,)),
+                               ("rotation", env.rotation, torch.float32, (4,))):
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"shade_env: env.{f} needs contiguous {dtype} {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+              hr: HitRecord):
+    """One env-class bounce after the closest hit (wpt_shade_env;
+    `shade_env_plain` on CPU tensors): (state, shadow direction, shadow
+    t_max, pending deposit); st.stats grows in place. The kernel takes an
+    equirect sky with importance tables, Lambertian, GGX and mirror
+    surfaces, and no light."""
+    n, dev = _check_state("shade_env", st, sample, sample, sensor.n_acc)
+    _check_hit("shade_env", n, dev, pixel, t, prim, hr,
+               ("position", "normal", "tangent", "backside", "mat"))
+    if tables.n_lights != 0 or not tables.mat_types <= ENV_MATERIALS:
+        raise ValueError("shade_env: the kernel takes Lambertian, GGX and mirror surfaces "
+                         "and no light")
+    _check_env(tables.env, dev)
+    if dev.type == "cpu":
+        return shade_env_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+    kind, sp = sensor_params(sensor)
+    env = tables.env
+    lib = native.load_kernels()
+    out = _empty_state(st, ior=st.ior, prev_light_pdf=st.prev_light_pdf, stats=st.stats)
+    shadow_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    shadow_tmax = torch.empty((n,), dtype=torch.float32, device=dev)
+    pending = torch.empty((n, sensor.n_acc), dtype=torch.float32, device=dev)
+    s_in, s_out = _state_c(st, sample, sample), _state_c(out, sample, sample)
+    sp_c = (ctypes.c_float * 8)(*sp)
+    code = lib.wpt_shade_env(
+        ctypes.addressof(s_in), ctypes.addressof(s_out), st.stats.data_ptr(), n,
+        pixel.data_ptr(), t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(),
+        hr.normal.data_ptr(), hr.tangent.data_ptr(), hr.backside.data_ptr(), hr.mat.data_ptr(),
+        tables.mat.data_ptr(), tables.mat.shape[0], env.image.data_ptr(), env.image.shape[0],
+        env.image.shape[1], env.pdf_table.data_ptr(), env.alias_prob.data_ptr(),
+        env.alias_idx.data_ptr(), env.pdf_table.shape[0], env.rotation.data_ptr(), kind,
+        ctypes.addressof(sp_c), params.max_path_components, params.rr_start,
+        float(params.rr_threshold), shadow_d.data_ptr(), shadow_tmax.data_ptr(),
+        pending.data_ptr(), native.stream_ptr(t))
+    native.check(code, "shade_env")
+    native.LAUNCHES["shade_env"] += 1
     return out, shadow_d, shadow_tmax, pending
 
 

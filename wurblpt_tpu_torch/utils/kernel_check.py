@@ -30,8 +30,10 @@ still differ, such as atan2f/asinf against PyTorch's):
   steps, every output field compared lane by lane (`check_k4`): discrete
   fields (active, bounce, prev_random, sample, k_next, shadow cast or not,
   the loop flag) may differ on at most 0.1 % of the lanes, floats within
-  rtol 1e-4 / atol 1e-6 on the others (cosf/sinf in the cosine sample and
-  the ToF phase are the operations that could part; on the H100 none did).
+  rtol 1e-4 / atol 1e-6 on the others (cosf/sinf in the cosine sample, the
+  GGX VNDF sample, the env sample and the ToF phase, atan2f/acosf in the
+  sky's lookup and pdf, are the operations that could part; an ulp of
+  atan2f can move a direction across a pdf cell).
 
 Also the six frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
@@ -81,7 +83,13 @@ from ..render.envmap import (
     env_sample_plain,
 )
 from ..render.integrator import RenderParams, prepare_scene, render_frame_wavefront
-from ..render.intersect import assemble_hit, assemble_hit_plain, build_hit_tables, scene_raw_hit
+from ..render.intersect import (
+    assemble_hit,
+    assemble_hit_plain,
+    build_hit_tables,
+    scene_any_hit,
+    scene_raw_hit,
+)
 from ..render.intersect_brute import (
     BIG,
     any_hit,
@@ -230,12 +238,13 @@ def bench_frame(device, depth: int = BENCH_DEPTH) -> Callable[[], tuple]:
                   BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, depth, device)
 
 
-def mesh_frame(device, scene=None) -> Callable[[], tuple]:
+def mesh_frame(device, scene=None, depth: int = MESH_DEPTH) -> Callable[[], tuple]:
     """The same for the mesh frame; `scene` is terrain_city(seed=3) on
-    `device`, built here when not given."""
+    `device`, built here when not given; `depth` replaces the bench's 4 path
+    components."""
     scene = scenes.terrain_city(seed=3, device=device) if scene is None else scene
     return _frame(scene, scenes.terrain_camera(device), MESH_WIDTH, MESH_HEIGHT, MESH_SSQRT,
-                  MESH_DEPTH, device)
+                  depth, device)
 
 
 def city_frame(device, scene=None) -> Callable[[], tuple]:
@@ -620,6 +629,21 @@ def city_rgl_lanes(scene, device):
     return torch.zeros((n,), dtype=torch.int32, device=device), wi, wo, u2
 
 
+def city_env_lanes(device, seed: int = 8):
+    """K8's inputs on the city frame's first block: the bounce-0 directions
+    of its CITY_LANES pixels (360-degree stereo, pixel jitter from numpy),
+    which the sky is looked up and its pdf taken at where they escape, and
+    CITY_LANES uniforms [N, 3] for the sky's sample."""
+    rs = np.random.default_rng(seed)
+    pose, vfov = scenes.city_camera(device)
+    cam = make_camera(pose, vfov, CITY_WIDTH, CITY_HEIGHT, eye_distance=CITY_EYE_DISTANCE,
+                      device=device)
+    pix = np.arange(CITY_LANES)
+    pxy = np.stack([pix % CITY_WIDTH, pix // CITY_WIDTH], -1) + rs.uniform(size=(CITY_LANES, 2))
+    _, d = camera_rays(cam, CITY_CAMERA, _f32(pxy, device), CITY_WIDTH, CITY_HEIGHT)
+    return d.contiguous(), _f32(rs.uniform(size=(CITY_LANES, 3)), device)
+
+
 def check_rgl(tables, lanes) -> Dict[str, float]:
     """K7's two entry points against their plain versions on lanes (mid, wi, wo, u2)."""
     mid, wi, wo, u2 = lanes
@@ -662,42 +686,59 @@ class K4Inputs(NamedTuple):
     """Identical inputs of K4's three entry points, from one frame's first block."""
 
     regen: tuple      # regen_pinhole(*regen)
-    shade: tuple      # shade_diffuse(*shade), st.stats replaced per call
+    shade: tuple      # shade_diffuse(*shade) or shade_env(*shade), st.stats replaced per call
     resolve: tuple    # nee_resolve(*resolve)
 
 
+def k4_shade(inputs: K4Inputs) -> str:
+    """The shade of `inputs`' class: "shade_env" or "shade_diffuse"."""
+    return "shade_diffuse" if inputs.shade[0].env is None else "shade_env"
+
+
 def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ssqrt: int = 0,
-              m: int = 0) -> K4Inputs:
+              m: int = 0, height: int = 0, scene=None, sensor=None) -> K4Inputs:
     """The inputs of K4's kernels on the first block of the Cornell bench
-    frame (131072 lanes) or the ToF frame (phase 0, 73728 lanes), after
-    `steps` wavefront steps of the plain route (regen_plain, K1, K3,
-    shade_diffuse_plain, K2, nee_resolve_plain): lanes live, dead and due
+    frame (131072 lanes), the ToF frame (phase 0, 73728 lanes) or the mesh
+    frame (76800 lanes), after `steps` wavefront steps of the plain route
+    (regen_plain, the scene's closest-hit cast, K3, the class's plain shade,
+    the scene's any-hit cast, nee_resolve_plain): lanes live, dead and due
     for regeneration side by side. The regeneration's inputs are that state;
     the shade's, the state after one more plain regeneration and its casts;
     the resolve's, the plain shade's pending deposits and their shadow casts.
-    `width` (= height), `ssqrt` and `m` (sample lanes per pixel) replace the
-    frame's own where given."""
+    `width`, `height` (= width when only `width` is given), `ssqrt`, `m`
+    (sample lanes per pixel), `scene` and `sensor` replace the frame's own
+    where given."""
     from ..render import wavefront as wf
 
     if frame == "cornell":
-        scene, camera = scenes.cornell_box_ref(device), scenes.cornell_ref_camera(device)
-        size = (BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
-        depth, sensor = BENCH_DEPTH, SensorRGB()
+        own = scenes.cornell_box_ref, scenes.cornell_ref_camera
+        size = (BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
+        depth, own_sensor = BENCH_DEPTH, SensorRGB()
+    elif frame == "tof":
+        own = (lambda dev: scenes.tof_box(device=dev)), scenes.tof_camera
+        size = (TOF_WIDTH, TOF_WIDTH, TOF_SSQRT, TOF_LANES_M)
+        depth, own_sensor = TOF_DEPTH, SensorTofAmcw()
     else:
-        scene, camera = scenes.tof_box(device=device), scenes.tof_camera(device)
-        size = (TOF_WIDTH, TOF_SSQRT, TOF_LANES_M)
-        depth, sensor = TOF_DEPTH, SensorTofAmcw()
-    width, ssqrt, m = (given or own for given, own in zip((width, ssqrt, m), size))
+        own = (lambda dev: scenes.terrain_city(seed=3, device=dev)), scenes.terrain_camera
+        size = (MESH_WIDTH, MESH_HEIGHT, MESH_SSQRT, MESH_LANES_M)
+        depth, own_sensor = MESH_DEPTH, SensorRGB()
+    scene = own[0](device) if scene is None else scene
+    sensor = own_sensor if sensor is None else sensor
+    camera = own[1](device)
+    height = height or (width if width else size[1])
+    width, ssqrt, m = (given or mine for given, mine in zip((width, ssqrt, m),
+                                                             (size[0], *size[2:])))
     static = SceneStatic.from_scene(scene)
     cfg = CameraConfig()
-    assert wf.diffuse_class(scene, static, cfg)
+    assert wf.diffuse_class(scene, static, cfg) or wf.env_class(scene, static, cfg)
     params = RenderParams(max_path_components=depth)
-    cam = make_camera(camera[0], camera[1], width, width, device=device)
-    n_pix = width * width
+    cam = make_camera(camera[0], camera[1], width, height, device=device)
+    n_pix = width * height
     L = n_pix * m
-    lanes = wf.block_lanes(0, n_pix, m, ssqrt * ssqrt // m, width, width, ssqrt, device)
+    lanes = wf.block_lanes(0, n_pix, m, ssqrt * ssqrt // m, width, height, ssqrt, device)
     prepared = prepare_scene(scene, static)
-    bs, ht, tables = prepared.accel, prepared.hit, prepared.step
+    accel, ht, tables = prepared.accel, prepared.hit, prepared.step
+    shade = wf.shade_diffuse_plain if tables.env is None else wf.shade_env_plain
     f32 = dict(dtype=torch.float32, device=device)
     z = lambda *shape: torch.zeros(shape, **f32)  # noqa: E731
     st = wf.LoopState(
@@ -714,11 +755,11 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     for k in range(steps + 1):
         regen_args = (st, sample, k_next, cam, cfg, lanes, True)
         st, sample, k_next, t_max = wf.regen_plain(*regen_args)
-        t, prim, u, v = closest_hit(bs, st.o, st.d, t_min, t_max)
+        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min, t_max)
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
         shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
-        st, sd, stmax, pending = wf.shade_diffuse_plain(*shade_args)
-        occ = any_hit(bs, hr.position, sd, t_min, stmax)
+        st, sd, stmax, pending = shade(*shade_args)
+        occ = scene_any_hit(accel, hr.position, sd, t_min, stmax)
         resolve_args = (st.acc, pending, occ, st.active, k_next, lanes)
         if k == steps:
             break
@@ -768,8 +809,8 @@ def _compare(got, ref, n) -> Dict[str, float]:
 
 def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
     """Each of K4's kernels against its plain version on `inputs` (see
-    `_compare`): {kernel: {field: max |error| or differing lanes}}. Bit
-    equality shows as 0 everywhere."""
+    `_compare`): {kernel: {field: max |error| or differing lanes}}, the shade
+    of `inputs`' class (`k4_shade`). Bit equality shows as 0 everywhere."""
     from ..render import wavefront as wf
 
     n = inputs.regen[0].active.shape[0]
@@ -784,9 +825,10 @@ def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
         return _named(out + (args[3].stats,),
                       ("state", "shadow_d", "shadow_tmax", "pending", "stats"))
 
-    got, ref = shade(wf.shade_diffuse), shade(wf.shade_diffuse_plain)
+    name = k4_shade(inputs)
+    got, ref = shade(getattr(wf, name)), shade(getattr(wf, f"{name}_plain"))
     got["shadow_cast"], ref["shadow_cast"] = got["shadow_tmax"] > 0, ref["shadow_tmax"] > 0
-    res["shade_diffuse"] = _compare(got, ref, n)
+    res[name] = _compare(got, ref, n)
     names = ("acc", "work")
     res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
                                   _named(wf.nee_resolve_plain(*inputs.resolve), names), n)
@@ -803,10 +845,14 @@ def k4_work(inputs: K4Inputs, kernel: str):
     reads, each input once, each output written once, the small tables once;
     the sizes are those of the tensors the kernel takes. Flops are tallies of
     the code per lane: the regeneration ~60 per regenerated lane (jitter, the
-    pinhole ray, its rotation); the shade ~250 per lane (emission, the cosine
-    sample, light sample and pdf, the roulette) and 2 x 70 per light on
-    RANDOM lanes of a mixture scene (counted with the plain version); the
-    resolve one add per accumulator channel on unoccluded lanes."""
+    pinhole ray, its rotation); the diffuse shade ~250 per lane (emission,
+    the cosine sample, light sample and pdf, the roulette) and 2 x 70 per
+    light on RANDOM lanes of a mixture scene (counted with the plain
+    version); the env shade ~250 per lane (emission, the sky sample, the
+    roulette), ~120 per escaped lane (the sky's lookup and pdf), ~60 per
+    Lambertian and ~350 per GGX hit (the VNDF sample and two evaluations)
+    and ~80 per RANDOM lane (the sky's lookup toward the sample, the weight);
+    the resolve one add per accumulator channel on unoccluded lanes."""
     if kernel == "regen_pinhole":
         st, sample, k_next, cam, _, lanes, _ = inputs.regen
         n = st.active.shape[0]
@@ -825,14 +871,15 @@ def k4_work(inputs: K4Inputs, kernel: str):
         tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
         n = st.active.shape[0]
         hit = (prim >= 0) & st.active
-        every_lane = [st.active, st.bounce, st.d, st.throughput, st.ior, st.acc, st.geom_len,
-                      st.opt_len, st.prev_random, st.prev_pdf, pixel, sample, t, prim,
-                      hr.position, hr.normal, hr.backside, hr.mat]
-        if tables.per_light:
-            every_lane.append(hr.geom_normal)
-        read = (n * _lane_bytes(*every_lane) + int((~hit).sum()) * _lane_bytes(st.o)
-                + (0 if tables.per_light
-                   else int(st.prev_random.sum()) * _lane_bytes(st.prev_light_pdf)))
+        weighted = hit & st.prev_random
+        every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
+                      st.opt_len, pixel, sample, hr.position]        # position: the shadow ray
+        read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
+                + int((~hit).sum()) * _lane_bytes(st.o)
+                + int(hit.sum()) * _lane_bytes(t, st.ior, hr.normal, hr.backside, hr.mat,
+                                               st.prev_random)
+                + int(weighted.sum()) * _lane_bytes(st.prev_pdf, hr.geom_normal
+                                                    if tables.per_light else st.prev_light_pdf))
         written = n * _lane_bytes(*(getattr(st, f) for f in st._fields
                                     if f not in ("ior", "stats")),
                                   hr.position, t, st.acc)          # shadow d, t_max, pending
@@ -849,6 +896,38 @@ def k4_work(inputs: K4Inputs, kernel: str):
             rnd = float(wf.shade_diffuse_plain(*args)[0].prev_random.sum())
             per_light = 140.0 * tables.n_lights * rnd
         return read + written + _table_bytes(rows) + 16, 250.0 * n + per_light
+    if kernel == "shade_env":
+        from ..render import wavefront as wf
+        from ..scene.ir import MaterialType
+
+        tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+        env = tables.env
+        n = st.active.shape[0]
+        hit = (prim >= 0) & st.active
+        escaped = st.active & (prim < 0)
+        typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+        ggx = hit & (typ == MaterialType.GGX)
+        lamb = hit & (typ == MaterialType.LAMBERTIAN)
+        args = list(inputs.shade)
+        args[3] = st._replace(stats=st.stats.clone())
+        n_random = float(wf.shade_env_plain(*args)[0].prev_random.sum())
+        every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
+                      st.opt_len, pixel, sample]
+        read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
+                + int((~hit).sum()) * _lane_bytes(st.o)
+                + int(hit.sum()) * _lane_bytes(t, st.ior, hr.position, hr.normal, hr.backside,
+                                               hr.mat)
+                + int(escaped.sum()) * _lane_bytes(st.prev_random)
+                + int((escaped & st.prev_random).sum()) * _lane_bytes(st.prev_pdf)
+                + int(ggx.sum()) * _lane_bytes(hr.tangent))
+        written = n * _lane_bytes(*(getattr(st, f) for f in st._fields
+                                    if f not in ("ior", "prev_light_pdf", "stats")),
+                                  hr.position, t, st.acc)          # shadow d, t_max, pending
+        rows = [tables.mat, env.image, env.pdf_table, env.alias_prob, env.alias_idx,
+                env.rotation]
+        flops = (250.0 * n + 120.0 * int(escaped.sum()) + 60.0 * int(lamb.sum())
+                 + 350.0 * int(ggx.sum()) + 80.0 * n_random)
+        return read + written + _table_bytes(rows) + 16, flops
     acc, pending, occluded, active, k_next, _ = inputs.resolve
     n, n_acc = acc.shape
     n_open = int((~occluded).sum())
