@@ -49,12 +49,17 @@ Phases, each a function, any failure exits non-zero and names its phase:
    frame held to its JAX reference as in phase 4.
 7. envmap path - the envmap_cube_is bench frame (128 x 128, 16 spp, 8 path
    components; glass, mirror and GGX spheres under the importance-sampled
-   cube-map sky): K1, K2, K3, P0 and K8 (radiance, sample, pdf) must be
-   launched, and the frame held to its JAX reference as in phase 4.
+   cube-map sky) through K4's env class: the regeneration, K1, K3, the env
+   shade (its cube-sky and glass instantiation), K2 and the NEE resolve
+   must be launched, and neither P0 nor K8's stand-alone kernels; the frame
+   held to its JAX reference as in phase 4.
 8. rtiow path - the rtiow_distortion bench frame (192 x 128, 16 spp, 8 path
-   components, OpenCV lens, 40 spheres under a constant sky): K1, K3, P0
-   and K8 radiance must be launched (no shadow ray: no light, no sky
-   importance), and the frame held to its JAX reference as in phase 4.
+   components, OpenCV lens, 40 spheres under a constant sky) through K4's
+   env class: the regeneration (with the lens's fixed point), K1, K3, the
+   env shade (its constant-sky and glass instantiation) and the resolve
+   must be launched, and neither K2 (no light, no sky importance: no shadow
+   ray), P0 nor K8's stand-alone kernels; the frame held to its JAX
+   reference as in phase 4.
 9. tof path - the tof_amcw bench frame (96 x 96, 16 spp, 6 path components,
    SensorTofAmcw, the ToF cone light with per-light MIS) at phase 0: K1,
    K2, K3 and K4 (regeneration, shade, resolve) must be launched and P0
@@ -66,22 +71,29 @@ Phases, each a function, any failure exits non-zero and names its phase:
 
 The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
 (regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the mesh frame K4's
-env class (regeneration, K5, K3, wpt_shade_env, K6, resolve); the other
-paths the torch-op bounce. The kernels phase holds each K4 kernel against
-its plain version on the first block of the three frames after 2 steps
-(lanes live, dead and due for regeneration), the env shade also with the
-ToF sensor on the mesh block. Every path prints its frame
-time, paths/s, Mrays/s and kernel launches per wavefront step, and apart
-from them the copies and memsets (one more frame under torch.profiler; the
-scene's tables are built once per scene, before the frames); the three K4
-paths also the launches of one step of the loop and of the frame's set-up,
-from the difference to the same frame at 1 path component. Cornell and ToF
-fail above 12 kernel launches per step of the frame; the mesh frame (4
-steps, so its ~31 launches of set-up alone come to ~8 per step) above 12
-per step of the loop and above 100 per frame. Each path's counters are set
-to 0 just before it and read just after; a kernel's `launches` in the JSON
-line is the sum over the paths that use it (K8's three records each over
-the torch-op paths of their map's kind).
+env class (regeneration, K5, K3, wpt_shade_env, K6, resolve), the envmap
+and rtiow frames the env class on the brute-force casts (regeneration, K1,
+K3, wpt_shade_env, K2 where the sky is importance-sampled, resolve); the
+city frame the torch-op bounce. The kernels phase holds each K4 kernel
+against its plain version on the first block of the five K4 frames after 2
+steps (lanes live, dead and due for regeneration), the env shade also with
+the ToF sensor on the mesh, envmap and rtiow blocks, the regeneration also
+with the RADIAL_ONLY and RADIAL_AND_PLANAR lenses on the rtiow block. Every
+path prints its frame time, paths/s, Mrays/s, device time and kernel
+launches per wavefront step, and apart from them the copies and memsets
+(one more frame under torch.profiler; the scene's tables are built once per
+scene, before the frames); the five K4 paths also the launches of one step
+of the loop and of the frame's set-up, from the difference to the same
+frame at 1 path component. Cornell, ToF, envmap and rtiow fail above 12
+kernel launches per step of the frame; the mesh frame (4 steps, so its ~31
+launches of set-up alone come to ~8 per step) above 100 per frame; every K4
+frame above 12 per step of the loop. Each path's counters are set to 0 just
+before it and read just after; a kernel's `launches` in the JSON line is
+the sum over the paths that use it: the equirect K8 record's over the city
+path, the one torch-op path that launches the stand-alone kernels; the cube
+and constant K8 records' those of the env shade on the envmap and rtiow
+paths, which run the cube and constant branches inline; each env-shade and
+regeneration record's those of its own paths.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -101,9 +113,11 @@ DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
 PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
-K4_PATHS = ("main path", "mesh path", "tof path")
-K4_MAX_LAUNCHES_PER_STEP = 12   # kernel launches per step of a K4 frame, set-up included
-MESH_MAX_LOOP_LAUNCHES_PER_STEP = 12   # kernel launches per step of the mesh frame's loop
+K4_PATHS = ("main path", "mesh path", "envmap path", "rtiow path", "tof path")
+# Kernel launches per step of a K4 frame's loop, and per step of the frame
+# with its set-up (all but the mesh frame, whose 4 steps carry ~31 launches of
+# set-up: it is held to MESH_MAX_FRAME_LAUNCHES instead).
+K4_MAX_LAUNCHES_PER_STEP = 12
 MESH_MAX_FRAME_LAUNCHES = 100          # kernel launches of one mesh frame
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
@@ -121,9 +135,9 @@ KERNELS = {
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
                ENV_ALL, ("city path",)),
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
-                    ENV_ALL, ("envmap path",)),
+                    ("shade_env",), ("envmap path",)),
     "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
-                        ("env_radiance",), ("rtiow path",)),
+                        ("shade_env",), ("rtiow path",)),
     "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
                  ("rgl_eval",), PATHS),
     "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
@@ -131,15 +145,27 @@ KERNELS = {
     "row_gather": ("wurblpt_tpu_torch/csrc/row_gather.cu", "tools/probe_pallas_gather.py:20",
                    ("row_gather",), PATHS),
     "regen_pinhole": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:973",
-                      ("regen_pinhole",), K4_PATHS),
+                      ("regen_pinhole",), ("main path", "mesh path", "envmap path", "tof path")),
+    "regen_lens": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:140",
+                   ("regen_pinhole",), ("rtiow path",)),
     "shade_diffuse": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                       ("shade_diffuse",), ("main path", "tof path")),
     "shade_env": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                   ("shade_env",), ("mesh path",)),
+    "shade_env_glass_cube": ("wurblpt_tpu_torch/csrc/wavefront.cu",
+                             "wurblpt_tpu/render/integrator.py:400", ("shade_env",),
+                             ("envmap path",)),
+    "shade_env_glass_constant": ("wurblpt_tpu_torch/csrc/wavefront.cu",
+                                 "wurblpt_tpu/render/integrator.py:400", ("shade_env",),
+                                 ("rtiow path",)),
     "nee_resolve": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:648",
                     ("nee_resolve",), K4_PATHS),
 }
-K4 = ("regen_pinhole", "shade_diffuse", "shade_env", "nee_resolve")
+# The record of each K4 frame's env shade and of its regeneration, where not
+# the kernel's own name (the mesh, Cornell and ToF frames).
+K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
+              ("shade_env", "rtiow"): "shade_env_glass_constant",
+              ("regen_pinhole", "rtiow"): "regen_lens"}
 MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
              "nee_resolve")
 TOF_PATH = MAIN_PATH
@@ -147,8 +173,9 @@ MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "b
              "nee_resolve")
 CITY_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit") + ENV_ALL + (
     "rgl_eval", "rgl_sample", "row_gather")
-ENVMAP_PATH = ("closest_hit", "any_hit", "assemble_hit", "row_gather") + ENV_ALL
-RTIOW_PATH = ("closest_hit", "assemble_hit", "row_gather", "env_radiance")
+ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit",
+               "nee_resolve")
+RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
 
 
 def phase_build():
@@ -359,48 +386,56 @@ def phase_kernels(scenes_on_card):
                        kc.row_gather_work(packed, mat_idx),
                        lambda: torch.index_select(packed, 0, mat_idx)),
     }, errs, mid.shape[0])
-    return records + _k4_records(mesh_scene)
+    return records + _k4_records(scenes_on_card)
 
 
-def _k4_records(mesh_scene):
-    """K4's kernels against their plain versions on the Cornell, ToF and mesh
-    frames' first block after 2 steps, and on the mesh block seen by the ToF
-    sensor (the env shade's other instantiation); the regeneration and the
-    resolve timed on the Cornell block, each shade on its own class's block."""
+def _k4_records(scenes_on_card):
+    """K4's kernels against their plain versions on the first block after 2
+    steps of the Cornell, ToF, mesh, envmap and rtiow frames; the env shade
+    also seen by the ToF sensor on the mesh, envmap and rtiow blocks (its
+    other instantiations), the regeneration also through the RADIAL_ONLY and
+    RADIAL_AND_PLANAR lenses on the rtiow block. Timed: the regeneration
+    and the resolve on the Cornell block, the regeneration through the
+    OpenCV lens on the rtiow block, each shade on its frames' blocks."""
     from wurblpt_tpu_torch.render import wavefront as wf
+    from wurblpt_tpu_torch.render.camera import CameraConfig, DistortionModel
     from wurblpt_tpu_torch.render.sensor import SensorTofAmcw
 
-    inputs = {label: kc.k4_inputs(DEVICE, frame, scene=scene, sensor=sensor)
-              for label, frame, scene, sensor in (
-                  ("cornell", "cornell", None, None), ("tof", "tof", None, None),
-                  ("mesh", "mesh", mesh_scene, None),
-                  ("mesh, ToF sensor,", "mesh", mesh_scene, SensorTofAmcw()))}
-    errs = {name: 0.0 for name in K4}
-    for frame, inp in inputs.items():
+    tof, rgb = SensorTofAmcw(), None
+    cases = [("cornell", "cornell", rgb, None), ("tof", "tof", rgb, None),
+             ("mesh", "mesh", rgb, None), ("mesh, ToF sensor,", "mesh", tof, None),
+             ("envmap", "envmap", rgb, None), ("envmap, ToF sensor,", "envmap", tof, None),
+             ("rtiow", "rtiow", rgb, None), ("rtiow, ToF sensor,", "rtiow", tof, None)]
+    cases += [(f"rtiow, lens model {model},", "rtiow", rgb,
+               CameraConfig(distortion=model, undistort_iters=kc.RTIOW_CAMERA.undistort_iters))
+              for model in (DistortionModel.RADIAL_ONLY, DistortionModel.RADIAL_AND_PLANAR)]
+    errs, inputs = {}, {}
+    for label, frame, sensor, cfg in cases:
+        inp = kc.k4_inputs(DEVICE, frame, scene=scenes_on_card.get(frame), sensor=sensor, cfg=cfg)
+        inputs.setdefault(frame, inp)
         res = kc.check_k4(inp)
         torch.cuda.synchronize()
         for name, fields in res.items():
-            print(f"kernels: {name} [{frame} block after 2 steps, "
+            print(f"kernels: {name} [{label} block after 2 steps, "
                   f"{inp.regen[0].active.shape[0]} lanes] ok {fields}")
-            errs[name] = max([errs[name]] + [v for v in fields.values() if isinstance(v, float)])
-    inp, env_inp = inputs["cornell"], inputs["mesh"]
-
-    def shade(fn, inp):
-        return lambda: fn(*inp.shade)
-
-    records = _timed_records({
-        "regen_pinhole": (lambda: wf.regen_pinhole(*inp.regen), lambda: wf.regen_plain(*inp.regen),
-                          kc.k4_work(inp, "regen_pinhole"), None),
-        "shade_diffuse": (shade(wf.shade_diffuse, inp), shade(wf.shade_diffuse_plain, inp),
-                          kc.k4_work(inp, "shade_diffuse"), None),
-        "nee_resolve": (lambda: wf.nee_resolve(*inp.resolve),
-                        lambda: wf.nee_resolve_plain(*inp.resolve),
-                        kc.k4_work(inp, "nee_resolve"), None),
-    }, errs, inp.regen[0].active.shape[0])
-    return records + _timed_records({
-        "shade_env": (shade(wf.shade_env, env_inp), shade(wf.shade_env_plain, env_inp),
-                      kc.k4_work(env_inp, "shade_env"), None),
-    }, errs, env_inp.regen[0].active.shape[0])
+            record = K4_RECORDS.get((name, frame), name)
+            errs[record] = max([errs.get(record, 0.0)]
+                               + [v for v in fields.values() if isinstance(v, float)])
+    records = []
+    for record, frame, kernel in (("regen_pinhole", "cornell", "regen_pinhole"),
+                                  ("regen_lens", "rtiow", "regen_pinhole"),
+                                  ("shade_diffuse", "cornell", "shade_diffuse"),
+                                  ("shade_env", "mesh", "shade_env"),
+                                  ("shade_env_glass_cube", "envmap", "shade_env"),
+                                  ("shade_env_glass_constant", "rtiow", "shade_env"),
+                                  ("nee_resolve", "cornell", "nee_resolve")):
+        inp = inputs[frame]
+        args = {"regen_pinhole": inp.regen, "nee_resolve": inp.resolve}.get(kernel, inp.shade)
+        plain = getattr(wf, kernel.replace("_pinhole", "") + "_plain")
+        records += _timed_records({record: (
+            lambda f=getattr(wf, kernel), a=args: f(*a), lambda f=plain, a=args: f(*a),
+            kc.k4_work(inp, kernel), None)}, errs, inp.regen[0].active.shape[0])
+    return records
 
 
 def _drive(label, render, names, absent=()):
@@ -428,8 +463,9 @@ def _drive(label, render, names, absent=()):
 
 
 def _count_launches(render):
-    """(CUDA kernel launches, copies and memsets, wavefront steps) of one
-    frame rendered under torch.profiler; a step is one closest-hit cast."""
+    """(CUDA kernel launches, copies and memsets, wavefront steps, device ms)
+    of one frame rendered under torch.profiler; a step is one closest-hit
+    cast, the device time the sum over its kernels, copies and memsets."""
     from torch.profiler import ProfilerActivity, profile
 
     from wurblpt_tpu_torch import native
@@ -440,7 +476,10 @@ def _count_launches(render):
     device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
     kernels = sum(e.count for e in device) - copies
-    return kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
+    device_ms = sum(getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0) for e in device) / 1e3
+    return (kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"],
+            device_ms)
 
 
 def _report(label, stats, times, paths, render, short=None, max_per_step=None,
@@ -454,12 +493,13 @@ def _report(label, stats, times, paths, render, short=None, max_per_step=None,
     per step of the loop `max_loop_per_step`, or those of the frame
     `max_frame`."""
     dt = statistics.median(times)
-    n, c, steps = _count_launches(render)
-    per_step = (f", {n} kernel launches and {c} copies/memsets in {steps} steps "
+    n, c, steps, device_ms = _count_launches(render)
+    per_step = (f", device time {device_ms:.3f} ms (profiled frame), {n} kernel launches and "
+                f"{c} copies/memsets in {steps} steps "
                 f"({n / max(steps, 1):.2f} and {c / max(steps, 1):.2f} per step")
     n1 = None
     if short is not None:
-        n0, c0, steps0 = _count_launches(short)
+        n0, c0, steps0, _ = _count_launches(short)
         n1, c1 = (n - n0) / (steps - steps0), (c - c0) / (steps - steps0)
         per_step += (f"; {n1:.2f} and {c1:.2f} per step of the loop, {n - n1 * steps:.0f} and "
                      f"{c - c1 * steps:.0f} of set-up")
@@ -484,7 +524,7 @@ def phase_main_path():
           f"stats {stats} (reference {list(kc.REF_STATS)})")
     kc.check_bench_frame(img, stats)
     _report("main path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2, render,
-            kc.bench_frame(DEVICE, depth=1), K4_MAX_LAUNCHES_PER_STEP)
+            kc.bench_frame(DEVICE, depth=1), K4_MAX_LAUNCHES_PER_STEP, K4_MAX_LAUNCHES_PER_STEP)
     return launches
 
 
@@ -508,30 +548,34 @@ def phase_mesh_path(mesh_scene):
     kc.check_mesh_frame(img, stats)
     _report("mesh path", stats, times, kc.MESH_WIDTH * kc.MESH_HEIGHT * kc.MESH_SSQRT ** 2,
             render, kc.mesh_frame(DEVICE, mesh_scene, depth=1),
-            max_loop_per_step=MESH_MAX_LOOP_LAUNCHES_PER_STEP, max_frame=MESH_MAX_FRAME_LAUNCHES)
+            max_loop_per_step=K4_MAX_LAUNCHES_PER_STEP, max_frame=MESH_MAX_FRAME_LAUNCHES)
     return launches
 
 
 def phase_envmap_path(env_scene):
     render = kc.envmap_frame(DEVICE, env_scene)
-    img, stats, launches, times = _drive("envmap path", render, ENVMAP_PATH)
+    img, stats, launches, times = _drive("envmap path", render, ENVMAP_PATH,
+                                         ("row_gather",) + ENV_ALL)
     print(f"envmap path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.ENVMAP_REF_MEAN}), stats {stats} "
           f"(reference {list(kc.ENVMAP_REF_STATS)})")
     kc.check_envmap_frame(img, stats)
     _report("envmap path", stats, times, kc.ENVMAP_WIDTH ** 2 * kc.ENVMAP_SSQRT ** 2,
-            render)
+            render, kc.envmap_frame(DEVICE, env_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
+            K4_MAX_LAUNCHES_PER_STEP)
     return launches
 
 
 def phase_rtiow_path(rt_scene):
     render = kc.rtiow_frame(DEVICE, rt_scene)
-    img, stats, launches, times = _drive("rtiow path", render, RTIOW_PATH)
+    img, stats, launches, times = _drive("rtiow path", render, RTIOW_PATH,
+                                         ("row_gather", "any_hit") + ENV_ALL)
     print(f"rtiow path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.RTIOW_REF_MEAN}), stats {stats} (reference {list(kc.RTIOW_REF_STATS)})")
     kc.check_rtiow_frame(img, stats)
     _report("rtiow path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2,
-            render)
+            render, kc.rtiow_frame(DEVICE, rt_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
+            K4_MAX_LAUNCHES_PER_STEP)
     return launches
 
 
@@ -544,7 +588,8 @@ def phase_tof_path(tof_scene):
           f"{list(kc.TOF_REF_CHANNELS)}), stats {stats} (reference {list(kc.TOF_REF_STATS)})")
     kc.check_tof_frame(img, stats)
     _report("tof path", stats, times, kc.TOF_WIDTH ** 2 * kc.TOF_SSQRT ** 2, render,
-            kc.tof_frame(DEVICE, tof_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP)
+            kc.tof_frame(DEVICE, tof_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
+            K4_MAX_LAUNCHES_PER_STEP)
     # Phases 1-3: the same paths (the counters), the same energy; tau = pi
     # swaps the two buckets.
     for i in (1, 2, 3):

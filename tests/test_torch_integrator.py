@@ -16,6 +16,7 @@ parted: at these small sizes at least 97 % of pixels agree, the mean to
 times the paths, meet 0.5 %: utils/kernel_check.py)."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -252,6 +253,10 @@ def test_one_bounce_on_identical_states_matches_jax(monkeypatch):
         return bounce_both
 
     monkeypatch.setattr(integrator, "_make_bounce_fn", make)
+    # rtiow takes K4's env class, which renders the torch-op bounce's bits on
+    # the CPU (test_torch_wavefront_env.py); the torch-op route is the one
+    # whose bounce can be compared step by step.
+    monkeypatch.setattr(integrator, "env_class", lambda *a: False)
     cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
     render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, cfg, SensorRGB(), w, h,
                            SSQRT, params=RenderParams(max_path_components=DEPTH), device="cpu")
@@ -326,8 +331,10 @@ def test_small_sphere_render_parts_no_more_than_jax_from_itself():
     counters are within 0.5 % of both (the bench frames' bar) and its mean
     within 1e-3 relative of both. This does not hold at every size: the
     port parts from each JAX render more often than JAX parts from itself,
-    which `python tests/test_torch_integrator.py` prints at PARTING_SIZES
-    (ROADMAP C.1 stays open)."""
+    which `python tests/test_torch_integrator.py` prints at PARTING_SIZES.
+    The cause is XLA's own: its cast rounds differently in each context
+    (test_jax_casts_part_by_xla_context_and_the_port_follows_the_eager_one;
+    ROADMAP C.1, closed as a divergence of the reference)."""
     (plain, jitted, port), shares = sphere_partings(*PARTING_SIZES[0])
     assert shares["jax_self"] > 0.01, shares            # the reference parts from itself
     assert shares["neither"] <= shares["jax_self"], shares
@@ -389,6 +396,97 @@ def test_glass_lanes_take_no_nee(material):
     assert (total == closest) if material == "glass" else (total > closest)
 
 
+def cast_partings(w, h, ssqrt):
+    """rtiow through the OpenCV lens at w x h, ssqrt^2 spp, 8 path components:
+    every state of the port's render (the torch-op route, the K4 route's
+    bits) goes through the port's K1 and through the JAX package's cast in
+    two XLA contexts, its eager ops and a stand-alone jit, on the same rays,
+    and through one jitted JAX bounce, a third context. Returns the active
+    casts summed over the steps and the number of them on which the prim
+    ids part: "port_eager", "port_jit", "jit_eager", and "bounce_only", the
+    lanes where the three casts agree and the JAX bounce's outcome (active,
+    bounce index, IOR) still parts from the port's: its own cast parted."""
+    from wurblpt_tpu.render import integrator as jintegrator
+    from wurblpt_tpu.render.intersect import scene_raw_hit as jscene_raw_hit
+    from wurblpt_tpu.render.intersect_mxu import build_mxu_scene
+    from wurblpt_tpu_torch.render import integrator
+
+    jbuild, build, eye, vfov, _, _, jcfg, cfg = SPHERE_CASES["rtiow_opencv"]
+    jscene, scene = jbuild(), build()
+    jcam = jmake_camera(transformation=jfrom_lookat(eye, (0.0, 0.0, 0.0)), vfov_deg=vfov,
+                        width=w, height=h, **RTIOW_LENS)
+    n = w * h * ssqrt * ssqrt
+    ms = build_mxu_scene(jscene)
+    jbounce = jax.jit(jintegrator._make_bounce_fn(
+        jscene, JSceneStatic.from_scene(jscene), JSensorRGB(),
+        JRenderParams(max_path_components=DEPTH), None, ms, n))
+    jcast = jax.jit(lambda o, d, t0, t1: jscene_raw_hit(jscene, o, d, t0, t1, ms=ms))
+    bs = build_brute_scene(scene)
+    counts = dict.fromkeys(("active", "port_eager", "port_jit", "jit_eager", "bounce_only"), 0)
+    port_make = integrator._make_bounce_fn
+
+    def make(*args):
+        body = port_make(*args)
+
+        def bounce_both(st, pixel_id, sample_id):
+            new = body(st, pixel_id, sample_id)
+            a = {f: getattr(st, f).numpy() for f in st._fields}
+            jx = jbounce(jintegrator._LoopState(
+                bounce=a["bounce"].astype(np.int32), o=a["o"], d=a["d"],
+                time=np.zeros((n,), np.float32), ior=a["ior"], throughput=a["throughput"],
+                active=a["active"], acc=a["acc"], geom_len=a["geom_len"], opt_len=a["opt_len"],
+                prev_pdf=a["prev_pdf"], prev_random=a["prev_random"],
+                prev_light_pdf=a["prev_light_pdf"], stats=np.zeros((2,), np.int32)),
+                pixel_id.numpy().astype(np.int32), sample_id.numpy().astype(np.int32))
+            jx = jax.tree_util.tree_map(np.asarray, jx._asdict())
+            t_min = np.full((n,), 1e-4, np.float32)
+            t_max = np.where(a["active"], np.float32(3e37), np.float32(0.0))
+            _, p, _, _ = closest_hit(bs, st.o, st.d, torch.from_numpy(t_min),
+                                     torch.from_numpy(t_max))
+            p = p.numpy()
+            jp = np.asarray(jcast(a["o"], a["d"], t_min, t_max)[1])
+            with jax.disable_jit():
+                ep = np.asarray(jscene_raw_hit(jscene, *(jnp.asarray(x) for x in (
+                    a["o"], a["d"], t_min, t_max)), ms=ms)[1])
+            act = a["active"]
+            outcome = ((new.active.numpy() != jx["active"]) | (new.bounce.numpy() != jx["bounce"])
+                       | (new.ior.numpy() != jx["ior"]).any(-1))
+            counts["active"] += int(act.sum())
+            counts["port_eager"] += int(((p != ep) & act).sum())
+            counts["port_jit"] += int(((p != jp) & act).sum())
+            counts["jit_eager"] += int(((jp != ep) & act).sum())
+            counts["bounce_only"] += int((outcome & act & (p == jp) & (p == ep)).sum())
+            return new
+        return bounce_both
+
+    integrator._make_bounce_fn, env_class = make, integrator.env_class
+    integrator.env_class = lambda *a: False
+    try:
+        cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
+        render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, cfg, SensorRGB(), w, h,
+                               ssqrt, params=RenderParams(max_path_components=DEPTH),
+                               device="cpu")
+    finally:
+        integrator._make_bounce_fn, integrator.env_class = port_make, env_class
+    return counts
+
+
+def test_jax_casts_part_by_xla_context_and_the_port_follows_the_eager_one():
+    """Why the small sphere renders part (ROADMAP C.1): on identical rays
+    (every state of the port's 48 x 32 rtiow render), the JAX package's own
+    cast parts between XLA contexts. Its eager ops and a stand-alone jit
+    give other prim ids on ~0.8 % of the active casts, a ray leaving a small
+    sphere that re-hits it or not on the last bits of the re-centred
+    quadratic. The port parts from the eager cast on fewer lanes than the
+    jit does; and where the port, the eager and the jitted casts all agree,
+    the jitted bounce (the cast inside a larger XLA program) still parts
+    from them on some lanes. No single rounding of the formula is XLA's."""
+    c = cast_partings(*PARTING_SIZES[0])
+    assert c["jit_eager"] > 0.005 * c["active"], c
+    assert c["port_eager"] < c["jit_eager"], c
+    assert c["bounce_only"] > 0, c
+
+
 def _print_partings():
     """The shares of sphere_partings at PARTING_SIZES, and the closest-cast
     counters of each render against JAX's plain call."""
@@ -402,6 +500,11 @@ def _print_partings():
               f"{shares['neither']:.5f}; closest casts against JAX plain: jit "
               f"{(int(jitted[1][0]) - c) / c:+.5f}, port {(int(port[1][0]) - c) / c:+.5f}",
               flush=True)
+        c = cast_partings(w, h, ssqrt)
+        print(f"{w}x{h}, {ssqrt * ssqrt} spp: of {c['active']} active casts the prim ids part: "
+              f"port vs JAX eager {c['port_eager']}, port vs JAX jit {c['port_jit']}, JAX jit "
+              f"vs eager {c['jit_eager']}; the three agree and the JAX bounce parts "
+              f"{c['bounce_only']}", flush=True)
 
 
 if __name__ == "__main__":

@@ -136,12 +136,14 @@ def test_k4_route_gives_the_torch_op_bounce_bits(frame, monkeypatch):
 
 
 def test_only_the_diffuse_class_takes_k4():
+    """Cornell and ToF, also through a lens, take K4's diffuse class; a
+    360-degree camera and the scenes of the env class do not."""
     cpu = "cpu"
     cases = {
         "cornell": (scenes.cornell_box_ref(cpu), CameraConfig(), True),
         "tof": (scenes.tof_box(device=cpu), CameraConfig(), True),
         "cornell, lens": (scenes.cornell_box_ref(cpu),
-                          CameraConfig(distortion=DistortionModel.OPENCV), False),
+                          CameraConfig(distortion=DistortionModel.OPENCV), True),
         "cornell, 360": (scenes.cornell_box_ref(cpu), CameraConfig(surround=SurroundMode.S360),
                          False),
         "mesh": (scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,
@@ -219,7 +221,7 @@ def test_k4_kernels_match_plain(gpu, frame):
 def test_k4_kernels_reject_what_they_do_not_take(gpu):
     inp = kc.k4_inputs(gpu, "cornell", **SMALL)
     with pytest.raises(ValueError):
-        wf.regen_pinhole(*inp.regen[:4], CameraConfig(distortion=DistortionModel.OPENCV),
+        wf.regen_pinhole(*inp.regen[:4], CameraConfig(surround=SurroundMode.S360),
                          *inp.regen[5:])
     with pytest.raises(ValueError):
         wf.shade_diffuse(inp.shade[0], SimpleNamespace(n_acc=3), *inp.shade[2:])
@@ -297,18 +299,22 @@ def test_k4_bounds_count_what_each_branch_reads(frame):
 
 def test_prepared_tables_render_the_frame_of_the_unprepared_scene():
     """A frame rendered with the scene's tables built once (prepare_scene) is
-    bit-equal to one that builds them itself, on both routes."""
+    bit-equal to one that builds them itself, on both routes: the ToF frame
+    on K4, rtiow through a 360-degree camera on the torch-op bounce."""
     from wurblpt_tpu_torch import render_frame_wavefront
     from wurblpt_tpu_torch.render.camera import make_camera
 
-    for scene, camera in ((scenes.tof_box(device="cpu"), scenes.tof_camera("cpu")),
-                          (scenes.rtiow(device="cpu"), scenes.rtiow_camera("cpu"))):
+    for scene, camera, cfg in (
+            (scenes.tof_box(device="cpu"), scenes.tof_camera("cpu"), CameraConfig()),
+            (scenes.rtiow(device="cpu"), scenes.rtiow_camera("cpu"),
+             CameraConfig(surround=SurroundMode.S360))):
         static = SceneStatic.from_scene(scene)
         tables = integrator.prepare_scene(scene, static)
-        assert (tables.step is not None) == wf.diffuse_scene(scene, static)
+        assert (tables.step is not None) == (wf.diffuse_scene(scene, static)
+                                             or wf.env_scene(scene, static))
         cam = make_camera(camera[0], camera[1], 16, 16, device="cpu")
-        sensor = SensorTofAmcw() if tables.step is not None else SensorRGB()
-        args = (scene, static, cam, CameraConfig(), sensor, 16, 16, 2,
+        sensor = SensorTofAmcw() if wf.diffuse_scene(scene, static) else SensorRGB()
+        args = (scene, static, cam, cfg, sensor, 16, 16, 2,
                 RenderParams(max_path_components=3))
         a = integrator.render_frame_wavefront(*args, return_stats=True, device="cpu")
         b = render_frame_wavefront(*args, return_stats=True, device="cpu", tables=tables)

@@ -1,9 +1,13 @@
 // K4: one wavefront step, for two classes of scenes seen by a pinhole camera
-// without distortion, in four kernels around the casts (K1/K5 closest hit,
-// K3 hit assembly, K2/K6 any hit):
+// (with or without lens distortion), in four kernels around the casts (K1/K5
+// closest hit, K3 hit assembly, K2/K6 any hit):
 //
-//   wpt_regen_pinhole  refill dead lanes with their pixel's next sample
-//                      (wurblpt_tpu/render/integrator.py:973-1013)
+//   wpt_regen_pinhole  refill dead lanes with their pixel's next sample: the
+//                      jittered pixel, the lens model's inverse (the OpenCV
+//                      fixed point, RADIAL_ONLY's inverse series or
+//                      RADIAL_AND_PLANAR's closed form) and the ray
+//                      (wurblpt_tpu/render/integrator.py:973-1013,
+//                      camera.py:140-180)
 //   wpt_shade_diffuse  the diffuse class (Lambertian surfaces; diffuse, spot
 //                      and ToF triangle lights with mixture or per-light
 //                      MIS; no sky): emission with its MIS weight, the
@@ -11,41 +15,49 @@
 //                      NEE up to its shadow ray and pending deposit, Russian
 //                      roulette, the next state and the cast counters
 //                      (integrator.py:456-752 without the env sections)
-//   wpt_shade_env      the env class (Lambertian, GGX and mirror surfaces
-//                      under an importance-sampled equirect sky; no light):
-//                      the sky on a miss with its MIS weight against env NEE,
-//                      emission, the Lambertian cosine / GGX VNDF / mirror
-//                      sample, env NEE up to its shadow ray (to BIG) and
-//                      pending deposit, Russian roulette, the next state and
-//                      the cast counters (integrator.py:456-752 without light
-//                      NEE); K8's lookups, sample and pdf inline
-//                      (envmap_common.cuh)
+//   wpt_shade_env      the env class (Lambertian, GGX, mirror and glass
+//                      surfaces, triangles and analytic spheres, under an
+//                      equirect, cube or constant sky, with or without
+//                      importance tables; no light): the sky on a miss (MIS-
+//                      weighted against env NEE when the sky is importance-
+//                      sampled), emission, the Lambertian cosine / GGX VNDF /
+//                      mirror / dispersive glass sample with the glass's new
+//                      ray IOR, env NEE up to its shadow ray (to BIG) and
+//                      pending deposit when the sky has importance tables,
+//                      Russian roulette, the next state and the cast counters
+//                      (integrator.py:456-752 without light NEE); K8's
+//                      lookups, sample and pdf inline (envmap_common.cuh)
 //   wpt_nee_resolve    acc += pending where the shadow ray is not occluded,
 //                      and the loop condition: does any lane have work left
+//                      (the condition alone where the step casts no shadow ray)
 //
 // Replaces the JAX package's bounce body and regeneration, which XLA fuses on
 // the TPU; in the port they were a chain of ~1000 PyTorch launches per step.
 // One thread per lane, the lane state in structure-of-arrays tensors (each
 // thread reads its lane's fields and writes them to new tensors), material
 // rows, light rows, the alias tables and the sky's texels read inline from
-// global memory (a few KB, and the sky's 128 KB, cached). Bound on the card:
-// bytes, the lane state read and written once per kernel (~200 B per lane
-// for a shade); the mixture pdf loops over the L < 8 lights in index order,
-// twice. The env shade evaluates only the lane's own material branch (the
-// plain version evaluates every branch and selects), so GGX's VNDF sample
-// and its two evaluations cost only the GGX lanes.
+// global memory (a few KB, and the sky's 96-128 KB, cached). Bound on the
+// card: bytes, the lane state read and written once per kernel (~200 B per
+// lane for a shade); the mixture pdf loops over the L < 8 lights in index
+// order, twice. The env shade evaluates only the lane's own material branch
+// (the plain version evaluates every branch and selects), so GGX's VNDF
+// sample and its two evaluations cost only the GGX lanes, the glass's
+// Fresnel term and refraction only the glass lanes. The sky's kind, its
+// importance sampling and the glass lobe are template parameters, so a scene
+// without glass (the mesh path) keeps the registers of a kernel without it.
 //
 // Every expression is evaluated in the order of the plain PyTorch versions
 // (render/wavefront.py, render/bsdf.py, render/lights.py, render/envmap.py,
-// core/rng.py, core/onb.py, core/vecmath.py, render/camera.py), and the
-// library is built with -fmad=false and without --use_fast_math, so each
-// operation rounds as the corresponding PyTorch op does. A Python number
-// multiplies or divides as PyTorch's CUDA kernels take it: rounded to
-// float32 first; `c / x` is x.reciprocal() * c, exact for c = 1. PCG4D runs
-// in native uint32 and gives the words of core/rng.py. Where bits may still
-// part: cosf and sinf (the cosine sample, the GGX VNDF sample, the env
-// sample, the ToF phase) and atan2f / acosf (the sky's lookup and pdf)
-// against PyTorch's own build of them.
+// core/rng.py, core/onb.py, core/vecmath.py, core/fresnel.py,
+// render/camera.py), and the library is built with -fmad=false and without
+// --use_fast_math, so each operation rounds as the corresponding PyTorch op
+// does. A Python number multiplies or divides as PyTorch's CUDA kernels take
+// it: rounded to float32 first; `c / x` is x.reciprocal() * c, exact for
+// c = 1. PCG4D runs in native uint32 and gives the words of core/rng.py.
+// Where bits may still part: cosf and sinf (the cosine sample, the GGX VNDF
+// sample, the env sample, the ToF phase), expf (the glass's absorption) and
+// atan2f / acosf (the sky's lookup and pdf) against PyTorch's own build of
+// them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,13 +73,16 @@ constexpr float PI_2 = static_cast<float>(3.141592653589793 / 2.0);
 constexpr float PI_F = static_cast<float>(3.141592653589793);
 constexpr float TWO_PI_F = static_cast<float>(2.0 * 3.141592653589793);
 constexpr int MAT_COLS = 23;        // albedo | emissive | p0 | p1 | p2 | typ, flags, rgl_id
-constexpr int LAMBERTIAN = 1, GGX = 2, MIRROR = 4, MODPHONG = 5, LIGHT_DIFFUSE = 7,
+constexpr int LAMBERTIAN = 1, GGX = 2, GLASS = 3, MIRROR = 4, MODPHONG = 5, LIGHT_DIFFUSE = 7,
               LIGHT_SPOT = 8, LIGHT_TOF = 9;
 constexpr int TWO_SIDED = 1;
 constexpr int KIND_NONE = 0, KIND_RANDOM = 1, KIND_EXPLICIT = 2;   // render/bsdf.py ScatterKind
 constexpr uint32_t SALT_PIXEL_JITTER = 0x01, SALT_BSDF = 0x10, SALT_BSDF_AUX = 0x13,
                    SALT_NEE_SAMPLE = 0x21, SALT_ENVMAP_SAMPLE = 0x22;
 constexpr int SENSOR_RGB = 0, SENSOR_TOF = 1;
+constexpr int SKY_EQUIRECT = 1, SKY_CUBE = 2, SKY_CONSTANT = 3;       // EnvMapArrays.kind
+constexpr int LENS_NONE = 0, LENS_RADIAL_AND_PLANAR = 1, LENS_RADIAL_ONLY = 2,
+              LENS_OPENCV = 3;                                       // camera.DistortionModel
 
 }  // namespace
 
@@ -424,13 +439,78 @@ __device__ float mixture_pdf(const float* o, const float* d, const float* light_
 
 // ---- the kernels -------------------------------------------------------------
 
-// The pinhole camera's parameters (render/camera.py CameraParams).
+// The pinhole camera's parameters (render/camera.py CameraParams) and its
+// lens (CameraConfig.distortion, undistort_iters).
 struct Camera {
     const float* centre;       // [2]
     const float* focal;        // [2]
     const float* translation;  // [3]
     const float* rotation;     // [4] quaternion x, y, z, w
+    const float* dist_k;       // [6] radial coefficients
+    const float* dist_p;       // [2] tangential coefficients
+    int lens;                  // LENS_*
+    int iters;                 // the OpenCV fixed point's steps
 };
+
+// render/camera.py distort_normalized for RADIAL_AND_PLANAR and OPENCV: the
+// radial polynomial and the tangential terms, in the plain version's
+// product order.
+__device__ __forceinline__ void distort_tangential(const Camera& cam, float x, float y,
+                                                   float* dx_out, float* dy_out) {
+    const float k0 = cam.dist_k[0], k1 = cam.dist_k[1], k2 = cam.dist_k[2];
+    const float p1 = cam.dist_p[0], p2 = cam.dist_p[1];
+    const float r2 = x * x + y * y;
+    const float radial = ((1.0f + k0 * r2) + (k1 * r2) * r2) + ((k2 * r2) * r2) * r2;
+    const float dx = (((2.0f * p1) * x) * y) + p2 * (r2 + (2.0f * x) * x);
+    const float dy = p1 * (r2 + (2.0f * y) * y) + ((2.0f * p2) * x) * y;
+    *dx_out = x * radial + dx;
+    *dy_out = y * radial + dy;
+}
+
+// render/camera.py undistort_normalized: the normalized image point (x, y)
+// through the inverse of the lens model, in place.
+__device__ __forceinline__ void undistort(const Camera& cam, float* x, float* y) {
+    const float* k = cam.dist_k;
+    if (cam.lens == LENS_RADIAL_AND_PLANAR) {
+        // the closed-form first-order inverse (optics.hpp:251-268)
+        const float p1 = cam.dist_p[0], p2 = cam.dist_p[1];
+        const float xv = *x, yv = *y;
+        const float r2 = xv * xv + yv * yv;
+        const float r4 = r2 * r2;
+        const float d1 = k[0] * r2 + k[1] * r4;
+        const float d2 = 1.0f / (((((4.0f * k[0]) * r2 + (6.0f * k[1]) * r4) + (8.0f * p1) * yv)
+                                  + (8.0f * p2) * xv) + 1.0f);
+        *x = xv - d2 * ((d1 * xv + ((2.0f * p1) * xv) * yv) + p2 * (r2 + (2.0f * xv) * xv));
+        *y = yv - d2 * ((d1 * yv + p1 * (r2 + (2.0f * yv) * yv)) + ((2.0f * p2) * xv) * yv);
+    } else if (cam.lens == LENS_RADIAL_ONLY) {
+        // the Drap-Lefevre inverse series to 4 terms (optics.hpp:269-278),
+        // powers in the product order of JAX's integer_pow: k^3 = k (k k)
+        const float k1 = k[0], k2 = k[1], k3 = k[2];
+        const float k1k1 = k1 * k1;
+        const float b1 = -k1;
+        const float b2 = 3.0f * k1k1 - k2;
+        const float b3 = (-12.0f * (k1 * k1k1) + (8.0f * k1) * k2) - k3;
+        const float b4 = ((55.0f * (k1k1 * k1k1) - ((55.0f * k1) * k1) * k2) + (5.0f * k2) * k2)
+                         + (10.0f * k1) * k3;
+        const float r2 = *x * *x + *y * *y;
+        const float r4 = r2 * r2;
+        const float radial = (((1.0f + b1 * r2) + b2 * r4) + b3 * (r2 * r4)) + b4 * (r4 * r4);
+        *x = *x * radial;
+        *y = *y * radial;
+    } else if (cam.lens == LENS_OPENCV) {
+        // the fixed point und <- xy - (distort(und) - und) from und = xy
+        const float xv = *x, yv = *y;
+        float ux = xv, uy = yv;
+        for (int it = 0; it < cam.iters; ++it) {
+            float dx, dy;
+            distort_tangential(cam, ux, uy, &dx, &dy);
+            ux = xv - (dx - ux);
+            uy = yv - (dy - uy);
+        }
+        *x = ux;
+        *y = uy;
+    }
+}
 
 __global__ void __launch_bounds__(256)
 regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Camera cam,
@@ -468,8 +548,8 @@ regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Came
         out.prev_light_pdf[i] = in.prev_light_pdf[i];
         return;
     }
-    // Pixel jitter and the pinhole ray (render/camera.py camera_rays, no
-    // distortion, mono).
+    // Pixel jitter and the pinhole ray through the lens (render/camera.py
+    // camera_rays, mono).
     float jx = 0.5f, jy = 0.5f;
     if (randomize) {
         float u[4];
@@ -480,8 +560,9 @@ regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Came
     }
     const float px = static_cast<float>(p_safe % width) + jx;
     const float py = static_cast<float>(p_safe / width) + jy;
-    const float nx = (px - cam.centre[0]) / cam.focal[0];
-    const float ny = (py - cam.centre[1]) / cam.focal[1];
+    float nx = (px - cam.centre[0]) / cam.focal[0];
+    float ny = (py - cam.centre[1]) / cam.focal[1];
+    undistort(cam, &nx, &ny);
     float dc[3] = {nx, -ny, -1.0f};
     const float r = 1.0f / sqrtf(clamp_min(dot3(dc, dc), 1e-20f));
     for (int k = 0; k < 3; ++k) dc[k] = dc[k] * r;
@@ -656,11 +737,13 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
     }
 }
 
-// The sky of the env class: an equirect image with its importance tables
-// (render/envmap.py EnvMapArrays, kind 1).
+// The sky of the env class (render/envmap.py EnvMapArrays): an equirect
+// image or six cube faces with their importance tables (none: res = 0), or
+// a constant radiance.
 struct EnvMap {
-    const float4* img;         // [h, w] texels, 4 channels
+    const float4* img;         // equirect [h, w] or cube [6, h, w] texels, 4 channels
     int h, w;
+    const float4* const_rad;   // the constant sky's radiance
     const float* pdf;          // [res, res] solid-angle pdf per cell
     const float* alias_prob;   // [res * res]
     const int* alias_idx;      // [res * res]
@@ -668,11 +751,69 @@ struct EnvMap {
     const float* rot;          // [4] quaternion world-from-map
 };
 
+// render/envmap.py env_radiance_plain, by the sky's kind.
+template <int SKY>
 __device__ __forceinline__ float4 sky_radiance(const EnvMap& env, float3 d) {
-    return wpt_env::equirect_lookup(env.img, env.h, env.w, wpt_env::to_map(env.rot, d));
+    if (SKY == SKY_CONSTANT) return __ldg(env.const_rad);
+    const float3 dm = wpt_env::to_map(env.rot, d);
+    return SKY == SKY_CUBE ? wpt_env::cube_lookup(env.img, env.h, env.w, dm)
+                           : wpt_env::equirect_lookup(env.img, env.h, env.w, dm);
 }
 
-template <int SENSOR>
+// render/bsdf.py bsdf_sample's glass (material_glass.hpp:97-141) with
+// core/fresnel.py fresnel_unpolarized and core/vecmath.py refract: the
+// dispersion channel picked by u_chan (a dispersive material refracts that
+// channel only, weighted x4), the Fresnel pick by u_lobe or total internal
+// reflection, Beer-Lambert absorption exp(-absorption t) on a backside hit,
+// and the continued ray's per-channel IOR: the ray's own on a reflection,
+// the material's on entering, 1 on leaving.
+__device__ __forceinline__ void glass_lobe(const MatRow& mr, const float* d, const float* n3,
+                                           bool back, float t, const float* ray_ior,
+                                           float u_lobe, float u_chan, float* sdir,
+                                           float* atten, float* ior_out) {
+    const float* mior = mr.f + 8;     // p0: per-channel IOR
+    const float* absorb = mr.f + 12;  // p1: per-channel absorption
+    const bool disp = fabsf(mior[0] - mior[1]) > 1e-6f || fabsf(mior[1] - mior[2]) > 1e-6f ||
+                      fabsf(mior[2] - mior[3]) > 1e-6f;
+    const int chan = min(max(static_cast<int>(u_chan * 4.0f), 0), 3);
+    const float n_mat = disp ? mior[chan] : mior[0];
+    const float n_i = back ? n_mat : 1.0f;
+    const float n_t = back ? 1.0f : n_mat;
+    // fresnel_unpolarized(clamp(dot(wo, n), 0, 1), n_i, n_t)
+    const float wo[3] = {-d[0], -d[1], -d[2]};
+    const float cos_f = clamp(clamp(dot3(wo, n3), 0.f, 1.f), 0.f, 1.f);
+    const float eta_f = n_i / n_t;
+    const float sin2_f = (eta_f * eta_f) * (1.0f - cos_f * cos_f);
+    const float cos_tf = sqrtf(clamp_min(1.0f - sin2_f, 1e-20f));
+    const float r_s = (n_i * cos_f - n_t * cos_tf) / clamp_min(n_i * cos_f + n_t * cos_tf, 1e-12f);
+    const float r_p = (n_i * cos_tf - n_t * cos_f) / clamp_min(n_i * cos_tf + n_t * cos_f, 1e-12f);
+    const float fres = sin2_f >= 1.0f ? 1.0f : 0.5f * (r_s * r_s + r_p * r_p);
+    // refract(d, n, n_i / max(n_t, 1e-6)); reflect on TIR or the Fresnel pick
+    const float eta = n_i / clamp_min(n_t, 1e-6f);
+    const float cos_i = -dot3(d, n3);
+    const float sin2_t = (eta * eta) * clamp_min(1.0f - cos_i * cos_i, 0.f);
+    const bool tir = sin2_t >= 1.0f;
+    const bool keep = u_lobe < fres || tir;
+    if (keep) {
+        reflect3(d, n3, sdir);
+    } else {
+        const float cos_t = sqrtf(clamp_min(1.0f - sin2_t, 1e-20f));
+        const float kn = eta * cos_i - cos_t;
+        float refr[3];
+        for (int c = 0; c < 3; ++c) refr[c] = eta * d[c] + kn * n3[c];
+        normalize3(refr, sdir);
+    }
+    for (int c = 0; c < 4; ++c) {
+        const float a_g = disp ? (c == chan ? 4.0f : 0.f) : 1.0f;
+        atten[c] = a_g * (back ? expf(-absorb[c] * t) : 1.0f);
+        ior_out[c] = keep ? ray_ior[c] : (back ? 1.0f : mior[c]);
+    }
+}
+
+// SKY: the sky's kind; IS: the sky has importance tables (MIS on a miss,
+// env NEE and its shadow ray); HAS_GLASS: the scene has glass (the lobe,
+// and a new ray IOR written on every lane).
+template <int SENSOR, int SKY, bool IS, bool HAS_GLASS>
 __global__ void __launch_bounds__(BLOCK)
 shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats, int n,
                  const long long* __restrict__ pixel, const float* __restrict__ t_hit,
@@ -686,7 +827,9 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
     bool act = false, is_random = false;
     if (i < n) {
         // The hit record and the material feed only hit lanes; the previous
-        // bsdf sample's flag and pdf only escaped ones.
+        // bsdf sample's flag and pdf only escaped ones (with importance
+        // tables); the ray IOR hit lanes, and every lane with glass (it is
+        // written back).
         act = in.active[i];
         const long long k = in.bounce[i];
         const int prim = act ? prim_hit[i] : -1;
@@ -704,21 +847,27 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
                 n3[c] = nrm[3 * i + c];
                 p[c] = pos[3 * i + c];
             }
+        }
+        if (HAS_GLASS || hit) {
             for (int c = 0; c < 4; ++c) ior[c] = in.ior[4 * i + c];
         }
+        const bool back = hit && backside[i];
         const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
 
-        // 1. the sky on a miss, MIS-weighted against env NEE (wavefront.env_miss)
+        // 1. the sky on a miss, MIS-weighted against env NEE when the sky is
+        //    importance-sampled (wavefront.env_miss)
         {
             float dep[3];
             bool take = false;
             if (act && prim < 0) {
                 const float3 dv = make_float3(d[0], d[1], d[2]);
-                const float4 L = sky_radiance(env, dv);
+                const float4 L = sky_radiance<SKY>(env, dv);
                 const float Lc[4] = {L.x, L.y, L.z, L.w};
-                const float w_env = in.prev_random[i]
-                    ? power_heuristic(in.prev_pdf[i], wpt_env::pdf(dv, env.pdf, env.res, env.rot))
-                    : 1.0f;
+                float w_env = 1.0f;
+                if (IS && in.prev_random[i]) {
+                    w_env = power_heuristic(in.prev_pdf[i],
+                                            wpt_env::pdf(dv, env.pdf, env.res, env.rot));
+                }
                 float rad[4], opl0[4];
                 for (int c = 0; c < 4; ++c) {
                     rad[c] = (tp[c] * Lc[c]) * w_env;
@@ -738,17 +887,16 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
         }
 
         // 3. emission (no light, so its MIS weight is 1)
-        emit_lane<SENSOR>(sp, mr, d, n3, hit && backside[i], tp, 1.0f, opl, t, hit, a,
-                          out.acc + 3 * i);
+        emit_lane<SENSOR>(sp, mr, d, n3, back, tp, 1.0f, opl, t, hit, a, out.acc + 3 * i);
 
         // 4. the bsdf sample of the lane's own lobe (render/bsdf.py bsdf_sample)
         const long long px_id = pixel[i], smp = in.sample[i];
-        float u4[4], ua[4], ue[4];
+        float u4[4], ua[4];
         uniform4(px_id, smp, k, SALT_BSDF, u4);
         uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
-        uniform4(px_id, smp, k, SALT_ENVMAP_SAMPLE, ue);
         float sdir[3] = {n3[0], n3[1], n3[2]};
         float atten[4] = {0.f, 0.f, 0.f, 0.f};
+        float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
         float spdf = 0.f;
         int kind = KIND_NONE;
         const bool ggx = mr.typ == GGX;
@@ -781,52 +929,66 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
                 for (int c = 0; c < 4; ++c) atten[c] = mr.f[c];
                 spdf = 1.0f;
                 kind = KIND_EXPLICIT;
+            } else if (HAS_GLASS && mr.typ == GLASS) {
+                glass_lobe(mr, d, n3, back, t, ior, ua[0], ua[1], sdir, atten, new_ior);
+                spdf = 1.0f;
+                kind = KIND_EXPLICIT;
             }
         }
         is_random = hit && kind == KIND_RANDOM && spdf > 0.f;
         const bool is_explicit = hit && kind == KIND_EXPLICIT;
 
-        // 5. env NEE up to the shadow ray (wavefront.env_nee): a sky sample on
-        //    every lane, its bsdf and weight on the RANDOM ones
-        float3 edir;
-        const float epdf = wpt_env::sample(ue[0], ue[1], ue[2], env.pdf, env.alias_prob,
-                                           env.alias_idx, env.res, env.rot, &edir);
-        const float ed[3] = {edir.x, edir.y, edir.z};
-        for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ed[c];
-        shadow_tmax[i] = is_random ? BIG : 0.f;
-        bool nee_take = false;
-        float ndep[3] = {0.f, 0.f, 0.f};
-        if (is_random) {
-            // bsdf_eval toward the sky sample (RANDOM lanes are Lambertian or GGX)
-            float fe[4], pb;
-            if (ggx) {
-                const float wo[3] = {-d[0], -d[1], -d[2]};
-                float wl[3], wdl[3];
-                to_local(wo, tb_t, tb_b, n3, wl);
-                to_local(ed, tb_t, tb_b, n3, wdl);
-                pb = ggx_eval_local(wl, wdl, mr.f, ax, ay, fe);
-            } else {
-                pb = clamp_min(dot3(ed, n3), 0.f) * INV_PI;
-                for (int c = 0; c < 4; ++c) fe[c] = mr.f[c] * pb;
+        // 5. env NEE up to the shadow ray (wavefront.env_nee), with importance
+        //    tables only: a sky sample on every lane, its bsdf and weight on
+        //    the RANDOM ones
+        if (IS) {
+            float ue[4];
+            uniform4(px_id, smp, k, SALT_ENVMAP_SAMPLE, ue);
+            float3 edir;
+            const float epdf = wpt_env::sample(ue[0], ue[1], ue[2], env.pdf, env.alias_prob,
+                                               env.alias_idx, env.res, env.rot, &edir);
+            const float ed[3] = {edir.x, edir.y, edir.z};
+            for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ed[c];
+            shadow_tmax[i] = is_random ? BIG : 0.f;
+            bool nee_take = false;
+            float ndep[3] = {0.f, 0.f, 0.f};
+            if (is_random) {
+                // bsdf_eval toward the sky sample (RANDOM lanes are Lambertian or GGX)
+                float fe[4], pb;
+                if (ggx) {
+                    const float wo[3] = {-d[0], -d[1], -d[2]};
+                    float wl[3], wdl[3];
+                    to_local(wo, tb_t, tb_b, n3, wl);
+                    to_local(ed, tb_t, tb_b, n3, wdl);
+                    pb = ggx_eval_local(wl, wdl, mr.f, ax, ay, fe);
+                } else {
+                    pb = clamp_min(dot3(ed, n3), 0.f) * INV_PI;
+                    for (int c = 0; c < 4; ++c) fe[c] = mr.f[c] * pb;
+                }
+                const float w_e = power_heuristic(epdf, pb);
+                const float scale = w_e / clamp_min(epdf, 1e-12f);
+                const float4 L = sky_radiance<SKY>(env, edir);
+                const float Lc[4] = {L.x, L.y, L.z, L.w};
+                float contrib[4];
+                for (int c = 0; c < 4; ++c) contrib[c] = ((tp[c] * fe[c]) * Lc[c]) * scale;
+                nee_take = sensor_deposit<SENSOR>(sp, contrib, opl, 0.f, epdf > 1e-12f, ndep);
             }
-            const float w_e = power_heuristic(epdf, pb);
-            const float scale = w_e / clamp_min(epdf, 1e-12f);
-            const float4 L = sky_radiance(env, edir);
-            const float Lc[4] = {L.x, L.y, L.z, L.w};
-            float contrib[4];
-            for (int c = 0; c < 4; ++c) contrib[c] = ((tp[c] * fe[c]) * Lc[c]) * scale;
-            nee_take = sensor_deposit<SENSOR>(sp, contrib, opl, 0.f, epdf > 1e-12f, ndep);
+            for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
         }
-        for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
 
         // 6. throughput update, Russian roulette, the next state; the previous
-        //    mixture pdf passes through (no light)
+        //    mixture pdf passes through (no light); the glass's ray IOR
         advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random,
                      is_explicit, ua[2], geom, opl, max_depth, rr_start, rr_threshold);
+        if (HAS_GLASS) {
+            const bool cont = is_random || is_explicit;
+            for (int c = 0; c < 4; ++c) out.ior[4 * i + c] = cont ? new_ior[c] : ior[c];
+        }
     }
-    // the cast counters: one closest cast per active lane, one shadow cast per RANDOM lane
+    // the cast counters: one closest cast per active lane, one shadow cast per
+    // RANDOM lane when the sky is importance-sampled
     const int n_act = __syncthreads_count(act);
-    const int n_rand = __syncthreads_count(is_random);
+    const int n_rand = IS ? __syncthreads_count(is_random) : 0;
     if (threadIdx.x == 0 && n_act > 0) {
         atomicAdd(stats, static_cast<unsigned long long>(n_act));
         atomicAdd(stats + 1, static_cast<unsigned long long>(n_act + n_rand));
@@ -841,10 +1003,12 @@ resolve_kernel(const float* __restrict__ acc, const float* __restrict__ pending,
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     bool busy = false;
     if (i < n) {
-        const bool occ = occluded[i];
-        for (int c = 0; c < n_acc; ++c) {
-            const long long j = static_cast<long long>(i) * n_acc + c;
-            out[j] = acc[j] + (occ ? 0.f : pending[j]);
+        if (pending != nullptr) {
+            const bool occ = occluded[i];
+            for (int c = 0; c < n_acc; ++c) {
+                const long long j = static_cast<long long>(i) * n_acc + c;
+                out[j] = acc[j] + (occ ? 0.f : pending[j]);
+            }
         }
         const long long pixel = blk * B + i % B;
         busy = active[i] || (k_next[i] < P && pixel < n_pix);
@@ -857,11 +1021,13 @@ resolve_kernel(const float* __restrict__ acc, const float* __restrict__ pending,
 extern "C" int wpt_regen_pinhole(const WaveState* in, const WaveState* out, float* t_max, int n,
                                  const float* centre, const float* focal,
                                  const float* translation, const float* rotation,
+                                 const float* dist_k, const float* dist_p, int lens, int iters,
                                  long long blk, int B, int m, long long P, long long n_pix,
                                  int width, int height, int ssqrt, int randomize,
                                  void* stream) {
+    if (lens < LENS_NONE || lens > LENS_OPENCV || iters < 0) return -1;
     if (n > 0) {
-        const Camera cam{centre, focal, translation, rotation};
+        const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters};
         regen_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
             *in, *out, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
     }
@@ -903,24 +1069,43 @@ extern "C" int wpt_shade_diffuse(
 extern "C" int wpt_shade_env(
     const WaveState* in, const WaveState* out, long long* stats, int n, const long long* pixel,
     const float* t, const int* prim, const float* pos, const float* nrm, const float* tng,
-    const bool* backside, const int* mat_hit, const float* mat, int n_mat, const float* img,
-    int h, int w, const float* pdf, const float* alias_prob, const int* alias_idx, int res,
-    const float* rot, int sensor, const float* sensor_params, int max_depth, int rr_start,
-    float rr_threshold, float* shadow_d, float* shadow_tmax, float* pending, void* stream) {
-    if (res < 1 || h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF)) return -1;
+    const bool* backside, const int* mat_hit, const float* mat, int n_mat, int has_glass, int sky,
+    const float* img, int h, int w, const float* const_rad, const float* pdf,
+    const float* alias_prob, const int* alias_idx, int res, const float* rot, int sensor,
+    const float* sensor_params, int max_depth, int rr_start, float rr_threshold, float* shadow_d,
+    float* shadow_tmax, float* pending, void* stream) {
+    // The kinds the route takes: an equirect sky with importance tables, a
+    // cube sky with or without them, a constant sky (which has none).
+    const bool ok_sky = (sky == SKY_EQUIRECT && res > 0) || sky == SKY_CUBE ||
+                        (sky == SKY_CONSTANT && res == 0);
+    if (!ok_sky || res < 0 || h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF))
+        return -1;
     if (n > 0) {
         SensorParams sp;
         for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
-        const EnvMap env{reinterpret_cast<const float4*>(img), h, w, pdf, alias_prob, alias_idx,
+        const EnvMap env{reinterpret_cast<const float4*>(img), h, w,
+                         reinterpret_cast<const float4*>(const_rad), pdf, alias_prob, alias_idx,
                          res, rot};
         const int grid = (n + BLOCK - 1) / BLOCK;
         cudaStream_t s = static_cast<cudaStream_t>(stream);
         unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
-#define WPT_SHADE_ENV(SENSOR)                                                                  \
-    shade_env_kernel<SENSOR><<<grid, BLOCK, 0, s>>>(                                          \
+#define WPT_SHADE_ENV(SENSOR, SKY, IS, GLASS_T)                                                \
+    shade_env_kernel<SENSOR, SKY, IS, GLASS_T><<<grid, BLOCK, 0, s>>>(                        \
         *in, *out, st, n, pixel, t, prim, pos, nrm, tng, backside, mat_hit, mat, n_mat, env,   \
         sp, max_depth, rr_start, rr_threshold, shadow_d, shadow_tmax, pending)
-        if (sensor == SENSOR_RGB) WPT_SHADE_ENV(SENSOR_RGB); else WPT_SHADE_ENV(SENSOR_TOF);
+#define WPT_SHADE_ENV_SKY(SENSOR, GLASS_T)                                                     \
+    if (sky == SKY_EQUIRECT) WPT_SHADE_ENV(SENSOR, SKY_EQUIRECT, true, GLASS_T);               \
+    else if (sky == SKY_CUBE && res > 0) WPT_SHADE_ENV(SENSOR, SKY_CUBE, true, GLASS_T);       \
+    else if (sky == SKY_CUBE) WPT_SHADE_ENV(SENSOR, SKY_CUBE, false, GLASS_T);                 \
+    else WPT_SHADE_ENV(SENSOR, SKY_CONSTANT, false, GLASS_T)
+        if (sensor == SENSOR_RGB) {
+            if (has_glass) { WPT_SHADE_ENV_SKY(SENSOR_RGB, true); }
+            else { WPT_SHADE_ENV_SKY(SENSOR_RGB, false); }
+        } else {
+            if (has_glass) { WPT_SHADE_ENV_SKY(SENSOR_TOF, true); }
+            else { WPT_SHADE_ENV_SKY(SENSOR_TOF, false); }
+        }
+#undef WPT_SHADE_ENV_SKY
 #undef WPT_SHADE_ENV
     }
     return static_cast<int>(cudaGetLastError());

@@ -76,12 +76,12 @@ _SIGNATURES = {
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
-    "wpt_regen_pinhole": [_P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _I, _I,
-                          _P],
+    "wpt_regen_pinhole": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _I,
+                          _I, _I, _I, _P],
     "wpt_shade_diffuse": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
-    "wpt_shade_env": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
-                      _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _P],
+    "wpt_shade_env": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
+                      _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _P],
     "wpt_nee_resolve": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
 }
 

@@ -20,14 +20,16 @@ Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
 Two routes take a step, chosen once per render from the scene and the
 camera (`wavefront.diffuse_class`, `wavefront.env_class`):
 
-* K4 (:mod:`.wavefront`), seen by a pinhole camera without distortion, for
-  two classes of scenes: the diffuse class (Lambertian surfaces, triangle
-  lights, no sky; the cornell and tof_amcw paths) and the env class
-  (Lambertian, GGX and mirror surfaces under an importance-sampled equirect
-  sky, no light, brute force or a BVH; the bvh_100k path). A step is the
-  regeneration, the scene's closest-hit cast (K1 or K5), K3, the class's
-  shade (`shade_diffuse`, `shade_env`), the scene's any-hit cast (K2 or
-  K6) on its shadow rays and the NEE resolve: ~7 launches;
+* K4 (:mod:`.wavefront`), seen by a mono pinhole camera with or without a
+  lens model, for two classes of scenes: the diffuse class (Lambertian
+  surfaces, triangle lights, no sky; the cornell and tof_amcw paths) and
+  the env class (Lambertian, GGX, mirror and glass surfaces, triangles and
+  analytic spheres, under an equirect, cube or constant sky, no light,
+  brute force or a BVH; the bvh_100k, envmap_cube_is and rtiow_distortion
+  paths). A step is the regeneration, the scene's closest-hit cast (K1 or
+  K5), K3, the class's shade (`shade_diffuse`, `shade_env`), the scene's
+  any-hit cast (K2 or K6) on its shadow rays and the NEE resolve: ~7
+  launches, ~6 without shadow rays;
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
   K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
@@ -209,7 +211,9 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
     closest-hit cast (K1 or K5), K3, the class's shade (wpt_shade_diffuse or
     wpt_shade_env), the scene's any-hit cast (K2 or K6) on its shadow rays
     and the NEE resolve (wpt_nee_resolve), which also evaluates the loop
-    condition; one host sync reads it."""
+    condition; one host sync reads it. A scene that casts no shadow ray (no
+    light, a sky without importance tables) skips the any-hit cast, and its
+    resolve evaluates the loop condition alone."""
     accel, ht, step_tables = tables.accel, tables.hit, tables.step
     shade = shade_diffuse if step_tables.env is None else shade_env
     t_min = torch.full((L,), params.min_hit_distance, dtype=torch.float32, device=scene.device)
@@ -221,7 +225,8 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
         hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v)
         ls, shadow_d, shadow_tmax, pending = shade(step_tables, sensor, params, ls, lanes.pixel,
                                                    sample, t, prim, hr)
-        occluded = scene_any_hit(accel, hr.position, shadow_d, t_min, shadow_tmax)
+        occluded = (None if shadow_tmax is None
+                     else scene_any_hit(accel, hr.position, shadow_d, t_min, shadow_tmax))
         acc, work = nee_resolve(ls.acc, pending, occluded, ls.active, k_next, lanes)
         return ls._replace(acc=acc), sample, k_next, bool(work.item())
 

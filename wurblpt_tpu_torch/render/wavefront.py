@@ -2,26 +2,29 @@
 
 Port of the JAX package's bounce body (``wurblpt_tpu/render/integrator.py``
 :400-752, `_make_bounce_fn`) and its regeneration (:973-1013), seen by a
-pinhole camera without lens distortion, for
+mono pinhole camera with or without one of the three lens models, for
 
 * the diffuse class (`diffuse_class`): Lambertian surfaces; diffuse, spot
   and ToF triangle lights with mixture or per-light MIS; no sky;
-* the env class (`env_class`): Lambertian, GGX and mirror surfaces under an
-  importance-sampled equirect sky; no light; brute force or a BVH.
+* the env class (`env_class`): Lambertian, GGX, mirror and glass surfaces,
+  triangles and analytic spheres, under an equirect, cube or constant sky
+  with or without importance tables; no light; brute force or a BVH.
 
 One step is
 
     wpt_regen_pinhole  refill dead lanes with their pixel's next sample
+                       (the lens model's inverse inside)
     closest hit        K1 (brute force) or K5 (BVH), then K3 hit assembly
     the shade          wpt_shade_diffuse: emission with its MIS weight, the
                        Lambertian sample, light NEE (the shadow ray and its
                        pending deposit), Russian roulette, the next state,
                        the cast counters;
                        wpt_shade_env: the sky on a miss with its MIS weight,
-                       emission, the Lambertian / GGX / mirror sample, env
-                       NEE (the shadow ray to BIG and its pending deposit),
+                       emission, the Lambertian / GGX / mirror / glass
+                       sample, env NEE (the shadow ray to BIG and its
+                       pending deposit) when the sky is importance-sampled,
                        Russian roulette, the next state, the cast counters
-    any hit            K2 or K6 on the shadow rays
+    any hit            K2 or K6 on the shadow rays (none without NEE)
     wpt_nee_resolve    add the pending deposits of unoccluded lanes; flag
                        whether any lane still has work (the loop condition)
 
@@ -57,7 +60,7 @@ from .bsdf import (
     emitted,
     gather_material_rows,
 )
-from .camera import CameraConfig, CameraParams, DistortionModel, SurroundMode, camera_rays
+from .camera import CameraConfig, CameraParams, SurroundMode, camera_rays
 from .envmap import env_pdf, env_radiance, env_sample
 from .intersect import HitRecord
 from .intersect_brute import BIG
@@ -70,7 +73,8 @@ from .lights import (
 from .sensor import SensorEvent, SensorRGB, SensorTofAmcw
 
 DIFFUSE_MATERIALS = frozenset({MaterialType.LAMBERTIAN}) | LIGHT_MATERIALS
-ENV_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR})
+ENV_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
+                           MaterialType.GLASS})
 
 class LoopState(NamedTuple):
     """Per-lane path state of the wavefront (the JAX package's integrator._LoopState)."""
@@ -132,32 +136,34 @@ def diffuse_scene(scene: SceneArrays, static: SceneStatic) -> bool:
 
 
 def env_scene(scene: SceneArrays, static: SceneStatic) -> bool:
-    """Whether a scene is of the env class: Lambertian, GGX and mirror
-    surfaces under an equirect sky with importance tables, no light, no
-    texture, animation or medium; the brute-force intersector or a BVH."""
+    """Whether a scene is of the env class: Lambertian, GGX, mirror and glass
+    surfaces (triangles and analytic spheres) under an equirect, cube or
+    constant sky, with or without importance tables (an equirect sky has
+    them: `SceneStatic.check_slice`), no light, no texture, animation or
+    medium; the brute-force intersector or a BVH of triangles."""
     return (static.mat_types <= ENV_MATERIALS and static.n_lights == 0
             and not (static.has_textures or static.has_anim or static.has_media
                      or static.bvh_spheres or static.sphere_lights)
-            and static.env_kind == 1 and static.env_importance)
+            and static.env_kind != 0)
 
 
 def _pinhole(cam_cfg: CameraConfig) -> bool:
-    """A mono pinhole camera without distortion, depth of field or animation."""
-    return (cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo
-            and cam_cfg.distortion == DistortionModel.NONE and not cam_cfg.dof
+    """A mono pinhole camera, with or without a lens model, without depth of
+    field or animation."""
+    return (cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo and not cam_cfg.dof
             and cam_cfg.anim_id < 0)
 
 
 def diffuse_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
     """Whether a scene and camera take K4 with the diffuse shade (the route is
     decided once per render): a scene of the diffuse class (`diffuse_scene`)
-    seen by a pinhole camera without distortion."""
+    seen by a mono pinhole camera (`_pinhole`)."""
     return diffuse_scene(scene, static) and _pinhole(cam_cfg)
 
 
 def env_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
     """Whether a scene and camera take K4 with the env shade: a scene of the
-    env class (`env_scene`) seen by a pinhole camera without distortion."""
+    env class (`env_scene`) seen by a mono pinhole camera (`_pinhole`)."""
     return env_scene(scene, static) and _pinhole(cam_cfg)
 
 
@@ -387,7 +393,10 @@ class StepTables(NamedTuple):
     light_w: torch.Tensor      # [L] f32 pick probability
     alias_prob: torch.Tensor   # [L] f32
     alias_idx: torch.Tensor    # [L] int32
-    env: Optional[EnvMapArrays]  # the sky (the env class), None for the diffuse class
+    # The sky of the env class (None for the diffuse class): its kind, the
+    # equirect image or the cube faces, the constant radiance, and the
+    # importance tables when it has them (`env.importance`).
+    env: Optional[EnvMapArrays]
     mat_types: frozenset
     n_lights: int
     per_light: bool
@@ -454,11 +463,14 @@ def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sa
     closest hit (t, prim) and its hit record `hr` (its tangent included).
 
     Returns (state, shadow direction [N, 3], shadow t_max [N], pending
-    deposit [N, n_acc]); the counters of st.stats grow in place by the
-    closest casts (active lanes) and the env shadow casts (RANDOM lanes)."""
+    deposit [N, n_acc]), the last three None when the sky has no importance
+    tables (no lane casts a shadow ray); the counters of st.stats grow in
+    place by the closest casts (active lanes) and the env shadow casts
+    (RANDOM lanes, with importance tables)."""
     k = st.bounce
     hit = (prim >= 0) & st.active
-    acc = env_miss(sensor, st.acc, st, tables.env, prim, True)
+    importance = tables.env.importance
+    acc = env_miss(sensor, st.acc, st, tables.env, prim, importance)
     mrow = gather_material_rows(tables.mat, hr.mat)
     geom_len, opt_len = path_lengths(st, hit, t)
     acc = emit(sensor, acc, st, hr, mrow, t, prim, hit, geom_len, opt_len, 0, None)
@@ -467,23 +479,28 @@ def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sa
     sr = bsdf_sample(hr, st.d, st.ior, u4, u_aux[:, 0], u_aux[:, 1], mrow, tables.mat_types)
     is_random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
     is_explicit = hit & (sr.kind == ScatterKind.EXPLICIT)
-    ue = uniform4(pixel, sample, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
-    edir, t_shadow, pending = env_nee(sensor, tables.env, st, hr, mrow, tables.mat_types, None,
-                                      ue, is_random, geom_len, opt_len)
+    edir = t_shadow = pending = None
+    if importance:
+        ue = uniform4(pixel, sample, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
+        edir, t_shadow, pending = env_nee(sensor, tables.env, st, hr, mrow, tables.mat_types,
+                                          None, ue, is_random, geom_len, opt_len)
     new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc, geom_len,
                   opt_len, None)
     n_closest = st.active.sum()
-    st.stats.add_(torch.stack([n_closest, n_closest + is_random.sum()]))
+    n_shadow = is_random.sum() if importance else torch.zeros_like(n_closest)
+    st.stats.add_(torch.stack([n_closest, n_closest + n_shadow]))
     return new, edir, t_shadow, pending
 
 
 def nee_resolve_plain(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     """Plain version of wpt_nee_resolve: acc + pending where the shadow ray is
     not occluded, and whether any lane of the block has work left (an active
-    path, or samples to start): the wavefront loop's condition.
+    path, or samples to start): the wavefront loop's condition. A step that
+    casts no shadow ray passes no pending deposit (None) and gets acc back.
 
     Returns (acc, work [1] int32)."""
-    acc = deposit_unoccluded(acc, pending, occluded)
+    if pending is not None:
+        acc = deposit_unoccluded(acc, pending, occluded)
     work = active.any() | ((k_next < lanes.P) & lanes.valid).any()
     return acc, work.to(torch.int32).reshape(1)
 
@@ -549,10 +566,11 @@ def _empty_state(st: LoopState, **keep) -> LoopState:
 
 def _camera_ptrs(cam: CameraParams, device):
     """Device pointers of the camera's centre [2], focal length [2], translation
-    [3] and rotation [4]: float32 tensors on `device`."""
+    [3], rotation [4] and lens coefficients k [6] and p [2]: float32 tensors
+    on `device`."""
     tf = cam.transformation
-    parts = (cam.center_px, cam.focal_px, tf.translation, tf.rotation)
-    for x, numel in zip(parts, (2, 2, 3, 4)):
+    parts = (cam.center_px, cam.focal_px, tf.translation, tf.rotation, cam.dist_k, cam.dist_p)
+    for x, numel in zip(parts, (2, 2, 3, 4, 6, 2)):
         if (x.dtype != torch.float32 or x.numel() != numel or not x.is_contiguous()
                 or x.device != device):
             raise ValueError(f"regen_pinhole: camera tensors need contiguous float32 on "
@@ -563,13 +581,14 @@ def _camera_ptrs(cam: CameraParams, device):
 def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
                   lanes: BlockLanes, randomize: bool):
     """Regenerate dead lanes (wpt_regen_pinhole; `regen_plain` on CPU tensors).
-    The kernel takes a pinhole camera without distortion only."""
+    The kernel takes a mono pinhole camera with or without a lens model
+    (`_pinhole`)."""
     n, dev = _check_state("regen_pinhole", st, sample, k_next, st.acc.shape[1])
     if dev.type == "cpu":
         return regen_plain(st, sample, k_next, cam, cam_cfg, lanes, randomize)
-    if (cam_cfg.surround != SurroundMode.OFF or cam_cfg.stereo
-            or cam_cfg.distortion != DistortionModel.NONE or cam_cfg.dof):
-        raise ValueError("regen_pinhole: the kernel takes a pinhole camera without distortion")
+    if not _pinhole(cam_cfg):
+        raise ValueError("regen_pinhole: the kernel takes a mono pinhole camera (a lens model "
+                         "allowed), no surround, stereo, depth of field or animation")
     if n != lanes.B * lanes.m:
         raise ValueError(f"regen_pinhole: {n} lanes, the block has {lanes.B * lanes.m}")
     lib = native.load_kernels()
@@ -580,8 +599,9 @@ def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Cam
     s_in, s_out = _state_c(st, sample, k_next), _state_c(out, out_sample, out_k)
     code = lib.wpt_regen_pinhole(
         ctypes.addressof(s_in), ctypes.addressof(s_out), t_max.data_ptr(), n, *camera,
-        lanes.blk, lanes.B, lanes.m, lanes.P, lanes.n_pix, lanes.width, lanes.height,
-        lanes.ssqrt, int(randomize), native.stream_ptr(t_max))
+        cam_cfg.distortion, cam_cfg.undistort_iters, lanes.blk, lanes.B, lanes.m, lanes.P,
+        lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt, int(randomize),
+        native.stream_ptr(t_max))
     native.check(code, "regen_pinhole")
     native.LAUNCHES["regen_pinhole"] += 1
     return out, out_sample, out_k, t_max
@@ -661,13 +681,19 @@ def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, samp
 
 
 def _check_env(env: Optional[EnvMapArrays], dev):
-    """Raise unless `env` is an equirect sky with importance tables whose
-    arrays are contiguous float32 (int32 alias indices) on `dev`."""
-    if env is None or env.kind != 1 or not env.importance:
-        raise ValueError("shade_env: the kernel takes an equirect sky (kind 1) with importance "
-                         f"tables, got {'none' if env is None else f'kind {env.kind}'}")
+    """Raise unless `env` is a sky the kernel takes (an equirect sky with
+    importance tables, a cube sky with or without them, a constant sky
+    without them) whose arrays are contiguous float32 (int32 alias indices)
+    on `dev`."""
+    if env is None or not ((env.kind == 1 and env.importance) or env.kind == 2
+                           or (env.kind == 3 and not env.importance)):
+        raise ValueError("shade_env: the kernel takes an equirect sky with importance tables, "
+                         "a cube sky or a constant sky, got "
+                         f"{'none' if env is None else f'kind {env.kind}'}")
     res = env.pdf_table.shape[0]
-    for f, x, dtype, shape in (("image", env.image, torch.float32, (*env.image.shape[:2], 4)),
+    img = {1: (*env.image.shape[:2], 4), 2: (6, *env.image.shape[1:3], 4), 3: (1, 1, 4)}[env.kind]
+    for f, x, dtype, shape in (("image", env.image, torch.float32, img),
+                               ("const_radiance", env.const_radiance, torch.float32, (4,)),
                                ("pdf_table", env.pdf_table, torch.float32, (res, res)),
                                ("alias_prob", env.alias_prob, torch.float32, (res * res,)),
                                ("alias_idx", env.alias_idx, torch.int32, (res * res,)),
@@ -681,49 +707,67 @@ def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, 
               hr: HitRecord):
     """One env-class bounce after the closest hit (wpt_shade_env;
     `shade_env_plain` on CPU tensors): (state, shadow direction, shadow
-    t_max, pending deposit); st.stats grows in place. The kernel takes an
-    equirect sky with importance tables, Lambertian, GGX and mirror
-    surfaces, and no light."""
+    t_max, pending deposit), the last three None when the sky has no
+    importance tables; st.stats grows in place. The kernel takes Lambertian,
+    GGX, mirror and glass surfaces, an equirect sky with importance tables,
+    a cube sky with or without them or a constant sky, and no light."""
     n, dev = _check_state("shade_env", st, sample, sample, sensor.n_acc)
     _check_hit("shade_env", n, dev, pixel, t, prim, hr,
                ("position", "normal", "tangent", "backside", "mat"))
     if tables.n_lights != 0 or not tables.mat_types <= ENV_MATERIALS:
-        raise ValueError("shade_env: the kernel takes Lambertian, GGX and mirror surfaces "
+        raise ValueError("shade_env: the kernel takes Lambertian, GGX, mirror and glass surfaces "
                          "and no light")
+    if tables.scene.has_bvh and tables.scene.n_spheres > 0:
+        raise ValueError("shade_env: spheres in a BVH scene (the BVH holds triangles only)")
     _check_env(tables.env, dev)
     if dev.type == "cpu":
         return shade_env_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
     kind, sp = sensor_params(sensor)
     env = tables.env
+    glass = MaterialType.GLASS in tables.mat_types
     lib = native.load_kernels()
-    out = _empty_state(st, ior=st.ior, prev_light_pdf=st.prev_light_pdf, stats=st.stats)
-    shadow_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    shadow_tmax = torch.empty((n,), dtype=torch.float32, device=dev)
-    pending = torch.empty((n, sensor.n_acc), dtype=torch.float32, device=dev)
+    # Without glass the ray IOR never changes: the next state shares it.
+    out = _empty_state(st, prev_light_pdf=st.prev_light_pdf, stats=st.stats,
+                       **({} if glass else {"ior": st.ior}))
+    shadow_d = shadow_tmax = pending = None
+    if env.importance:
+        shadow_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        shadow_tmax = torch.empty((n,), dtype=torch.float32, device=dev)
+        pending = torch.empty((n, sensor.n_acc), dtype=torch.float32, device=dev)
     s_in, s_out = _state_c(st, sample, sample), _state_c(out, sample, sample)
     sp_c = (ctypes.c_float * 8)(*sp)
     code = lib.wpt_shade_env(
         ctypes.addressof(s_in), ctypes.addressof(s_out), st.stats.data_ptr(), n,
         pixel.data_ptr(), t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(),
         hr.normal.data_ptr(), hr.tangent.data_ptr(), hr.backside.data_ptr(), hr.mat.data_ptr(),
-        tables.mat.data_ptr(), tables.mat.shape[0], env.image.data_ptr(), env.image.shape[0],
-        env.image.shape[1], env.pdf_table.data_ptr(), env.alias_prob.data_ptr(),
-        env.alias_idx.data_ptr(), env.pdf_table.shape[0], env.rotation.data_ptr(), kind,
-        ctypes.addressof(sp_c), params.max_path_components, params.rr_start,
-        float(params.rr_threshold), shadow_d.data_ptr(), shadow_tmax.data_ptr(),
-        pending.data_ptr(), native.stream_ptr(t))
+        tables.mat.data_ptr(), tables.mat.shape[0], int(glass), env.kind, env.image.data_ptr(),
+        env.image.shape[-3], env.image.shape[-2], env.const_radiance.data_ptr(),
+        env.pdf_table.data_ptr(), env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
+        env.pdf_table.shape[0], env.rotation.data_ptr(), kind, ctypes.addressof(sp_c),
+        params.max_path_components, params.rr_start, float(params.rr_threshold),
+        _ptr(shadow_d), _ptr(shadow_tmax), _ptr(pending), native.stream_ptr(t))
     native.check(code, "shade_env")
     native.LAUNCHES["shade_env"] += 1
     return out, shadow_d, shadow_tmax, pending
 
 
+def _ptr(x: Optional[torch.Tensor]):
+    """A tensor's device pointer, or None (NULL) for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
 def nee_resolve(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     """acc + pending where the shadow ray is not occluded, and the loop
-    condition (wpt_nee_resolve; `nee_resolve_plain` on CPU tensors)."""
+    condition (wpt_nee_resolve; `nee_resolve_plain` on CPU tensors). A step
+    without shadow rays passes pending and occluded as None: the loop
+    condition alone, acc returned as it is."""
     n, c = acc.shape
-    for name, x, dtype, shape in (("acc", acc, torch.float32, (n, c)),
-                                  ("pending", pending, torch.float32, (n, c)),
-                                  ("occluded", occluded, torch.bool, (n,)),
+    if (pending is None) != (occluded is None):
+        raise ValueError("nee_resolve: pending and occluded go together")
+    deposits = (() if pending is None else
+                (("pending", pending, torch.float32, (n, c)),
+                 ("occluded", occluded, torch.bool, (n,))))
+    for name, x, dtype, shape in (("acc", acc, torch.float32, (n, c)), *deposits,
                                   ("active", active, torch.bool, (n,)),
                                   ("k_next", k_next, torch.int64, (n,))):
         if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
@@ -736,12 +780,11 @@ def nee_resolve(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     if acc.device.type != "cuda":
         raise ValueError(f"nee_resolve: no kernel for device {acc.device}")
     lib = native.load_kernels()
-    out = torch.empty_like(acc)
+    out = acc if pending is None else torch.empty_like(acc)
     work = torch.empty((1,), dtype=torch.int32, device=acc.device)
-    code = lib.wpt_nee_resolve(acc.data_ptr(), pending.data_ptr(), occluded.data_ptr(),
-                               active.data_ptr(), k_next.data_ptr(), n, c, lanes.blk, lanes.B,
-                               lanes.P, lanes.n_pix, out.data_ptr(), work.data_ptr(),
-                               native.stream_ptr(acc))
+    code = lib.wpt_nee_resolve(acc.data_ptr(), _ptr(pending), _ptr(occluded), active.data_ptr(),
+                               k_next.data_ptr(), n, c, lanes.blk, lanes.B, lanes.P, lanes.n_pix,
+                               out.data_ptr(), work.data_ptr(), native.stream_ptr(acc))
     native.check(code, "nee_resolve")
     native.LAUNCHES["nee_resolve"] += 1
     return out, work

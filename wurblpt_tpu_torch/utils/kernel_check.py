@@ -31,9 +31,11 @@ still differ, such as atan2f/asinf against PyTorch's):
   fields (active, bounce, prev_random, sample, k_next, shadow cast or not,
   the loop flag) may differ on at most 0.1 % of the lanes, floats within
   rtol 1e-4 / atol 1e-6 on the others (cosf/sinf in the cosine sample, the
-  GGX VNDF sample, the env sample and the ToF phase, atan2f/acosf in the
-  sky's lookup and pdf, are the operations that could part; an ulp of
-  atan2f can move a direction across a pdf cell).
+  GGX VNDF sample, the env sample and the ToF phase, expf in the glass's
+  absorption, atan2f/acosf in the sky's lookup and pdf, are the operations
+  that could part; an ulp of atan2f can move a direction across a pdf
+  cell). Outputs a shade does not produce (no shadow ray without sky
+  importance) must be absent from both.
 
 Also the six frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
@@ -255,20 +257,21 @@ def city_frame(device, scene=None) -> Callable[[], tuple]:
                   CITY_DEPTH, device, CITY_CAMERA, CITY_EYE_DISTANCE, CITY_LANES)
 
 
-def envmap_frame(device, scene=None) -> Callable[[], tuple]:
+def envmap_frame(device, scene=None, depth: int = ENVMAP_DEPTH) -> Callable[[], tuple]:
     """The same for the envmap frame; `scene` is envmap_spheres(cube=True) on
-    `device`, built here when not given."""
+    `device`, built here when not given; `depth` replaces the bench's 8 path
+    components."""
     scene = scenes.envmap_spheres(cube=True, device=device) if scene is None else scene
     return _frame(scene, scenes.envmap_camera(device), ENVMAP_WIDTH, ENVMAP_WIDTH, ENVMAP_SSQRT,
-                  ENVMAP_DEPTH, device)
+                  depth, device)
 
 
-def rtiow_frame(device, scene=None) -> Callable[[], tuple]:
+def rtiow_frame(device, scene=None, depth: int = RTIOW_DEPTH) -> Callable[[], tuple]:
     """The same for the rtiow frame; `scene` is rtiow() on `device`, built
-    here when not given."""
+    here when not given; `depth` replaces the bench's 8 path components."""
     scene = scenes.rtiow(device=device) if scene is None else scene
     return _frame(scene, scenes.rtiow_camera(device), RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT,
-                  RTIOW_DEPTH, device, RTIOW_CAMERA, lens=RTIOW_LENS)
+                  depth, device, RTIOW_CAMERA, lens=RTIOW_LENS)
 
 
 def tof_frame(device, scene=None, phase_index: int = 0, depth: int = TOF_DEPTH,
@@ -696,20 +699,24 @@ def k4_shade(inputs: K4Inputs) -> str:
 
 
 def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ssqrt: int = 0,
-              m: int = 0, height: int = 0, scene=None, sensor=None) -> K4Inputs:
+              m: int = 0, height: int = 0, scene=None, sensor=None, cfg=None) -> K4Inputs:
     """The inputs of K4's kernels on the first block of the Cornell bench
-    frame (131072 lanes), the ToF frame (phase 0, 73728 lanes) or the mesh
-    frame (76800 lanes), after `steps` wavefront steps of the plain route
-    (regen_plain, the scene's closest-hit cast, K3, the class's plain shade,
-    the scene's any-hit cast, nee_resolve_plain): lanes live, dead and due
-    for regeneration side by side. The regeneration's inputs are that state;
+    frame (131072 lanes), the ToF frame (phase 0, 73728 lanes), the mesh
+    frame (76800 lanes), the envmap frame (131072 lanes) or the rtiow frame
+    (98304 lanes, through its OpenCV lens), after `steps` wavefront steps of
+    the plain route (regen_plain, the scene's closest-hit cast, K3, the
+    class's plain shade, the scene's any-hit cast where the shade casts
+    shadow rays, nee_resolve_plain): lanes live, dead and due for
+    regeneration side by side. The regeneration's inputs are that state;
     the shade's, the state after one more plain regeneration and its casts;
-    the resolve's, the plain shade's pending deposits and their shadow casts.
-    `width`, `height` (= width when only `width` is given), `ssqrt`, `m`
-    (sample lanes per pixel), `scene` and `sensor` replace the frame's own
-    where given."""
+    the resolve's, the plain shade's pending deposits and their shadow
+    casts. `width`, `height` (= width when only `width` is given), `ssqrt`,
+    `m` (sample lanes per pixel), `scene`, `sensor` and the camera config
+    `cfg` (the lens model) replace the frame's own where given."""
     from ..render import wavefront as wf
 
+    lens = None
+    own_cfg = CameraConfig()
     if frame == "cornell":
         own = scenes.cornell_box_ref, scenes.cornell_ref_camera
         size = (BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
@@ -718,21 +725,31 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
         own = (lambda dev: scenes.tof_box(device=dev)), scenes.tof_camera
         size = (TOF_WIDTH, TOF_WIDTH, TOF_SSQRT, TOF_LANES_M)
         depth, own_sensor = TOF_DEPTH, SensorTofAmcw()
-    else:
+    elif frame == "mesh":
         own = (lambda dev: scenes.terrain_city(seed=3, device=dev)), scenes.terrain_camera
         size = (MESH_WIDTH, MESH_HEIGHT, MESH_SSQRT, MESH_LANES_M)
         depth, own_sensor = MESH_DEPTH, SensorRGB()
+    elif frame == "envmap":
+        own = (lambda dev: scenes.envmap_spheres(cube=True, device=dev)), scenes.envmap_camera
+        size = (ENVMAP_WIDTH, ENVMAP_WIDTH, ENVMAP_SSQRT, ENVMAP_LANES_M)
+        depth, own_sensor = ENVMAP_DEPTH, SensorRGB()
+    elif frame == "rtiow":
+        own = (lambda dev: scenes.rtiow(device=dev)), scenes.rtiow_camera
+        size = (RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT, RTIOW_LANES_M)
+        depth, own_sensor, own_cfg, lens = RTIOW_DEPTH, SensorRGB(), RTIOW_CAMERA, RTIOW_LENS
+    else:
+        raise ValueError(f"k4_inputs: no frame {frame!r}")
     scene = own[0](device) if scene is None else scene
     sensor = own_sensor if sensor is None else sensor
+    cfg = own_cfg if cfg is None else cfg
     camera = own[1](device)
     height = height or (width if width else size[1])
     width, ssqrt, m = (given or mine for given, mine in zip((width, ssqrt, m),
                                                              (size[0], *size[2:])))
     static = SceneStatic.from_scene(scene)
-    cfg = CameraConfig()
     assert wf.diffuse_class(scene, static, cfg) or wf.env_class(scene, static, cfg)
     params = RenderParams(max_path_components=depth)
-    cam = make_camera(camera[0], camera[1], width, height, device=device)
+    cam = make_camera(camera[0], camera[1], width, height, device=device, **(lens or {}))
     n_pix = width * height
     L = n_pix * m
     lanes = wf.block_lanes(0, n_pix, m, ssqrt * ssqrt // m, width, height, ssqrt, device)
@@ -759,7 +776,7 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
         shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
         st, sd, stmax, pending = shade(*shade_args)
-        occ = scene_any_hit(accel, hr.position, sd, t_min, stmax)
+        occ = None if stmax is None else scene_any_hit(accel, hr.position, sd, t_min, stmax)
         resolve_args = (st.acc, pending, occ, st.active, k_next, lanes)
         if k == steps:
             break
@@ -769,9 +786,12 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
 
 
 def _named(out, names):
-    """name -> tensor of a kernel's outputs; a LoopState contributes its fields."""
+    """name -> tensor of a kernel's outputs; a LoopState contributes its
+    fields; an output that is None (no shadow ray) none."""
     named = {}
     for name, x in zip(names, out):
+        if x is None:
+            continue
         if isinstance(x, tuple):
             named.update({f"{name}.{f}": v for f, v in zip(x._fields, x) if f != "stats"})
         else:
@@ -785,6 +805,7 @@ def _compare(got, ref, n) -> Dict[str, float]:
     `lanes_discrete_differ`, the lanes on which any discrete field differs.
     Raises AssertionError if those exceed 0.1 % of the lanes, or a float
     field exceeds rtol 1e-4 / atol 1e-6 on the other lanes."""
+    assert set(got) == set(ref), (sorted(got), sorted(ref))
     res, discrete = {}, torch.zeros((n,), dtype=torch.bool, device=next(iter(got.values())).device)
     for f, a in got.items():
         b = ref[f]
@@ -827,7 +848,9 @@ def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
 
     name = k4_shade(inputs)
     got, ref = shade(getattr(wf, name)), shade(getattr(wf, f"{name}_plain"))
-    got["shadow_cast"], ref["shadow_cast"] = got["shadow_tmax"] > 0, ref["shadow_tmax"] > 0
+    for out in (got, ref):
+        if "shadow_tmax" in out:
+            out["shadow_cast"] = out["shadow_tmax"] > 0
     res[name] = _compare(got, ref, n)
     names = ("acc", "work")
     res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
@@ -840,21 +863,35 @@ def _lane_bytes(*tensors) -> int:
     return sum(x.element_size() * (x.numel() // x.shape[0]) for x in tensors)
 
 
+# Float operations per regenerated lane of the lens models' inverses: the
+# closed form, the 4-term series, one fixed-point step of the OpenCV model.
+LENS_FLOPS = {DistortionModel.NONE: 0.0, DistortionModel.RADIAL_AND_PLANAR: 40.0,
+              DistortionModel.RADIAL_ONLY: 35.0, DistortionModel.OPENCV: 30.0}
+# Float operations per escaped lane of the sky's lookup, by kind (equirect,
+# cube, constant), and of its importance pdf.
+SKY_LOOKUP_FLOPS = {1: 60.0, 2: 60.0, 3: 0.0}
+SKY_PDF_FLOPS = 60.0
+
+
 def k4_work(inputs: K4Inputs, kernel: str):
     """(bytes, flops) of one K4 kernel on `inputs`: what each lane's branch
     reads, each input once, each output written once, the small tables once;
     the sizes are those of the tensors the kernel takes. Flops are tallies of
     the code per lane: the regeneration ~60 per regenerated lane (jitter, the
-    pinhole ray, its rotation); the diffuse shade ~250 per lane (emission,
-    the cosine sample, light sample and pdf, the roulette) and 2 x 70 per
-    light on RANDOM lanes of a mixture scene (counted with the plain
-    version); the env shade ~250 per lane (emission, the sky sample, the
-    roulette), ~120 per escaped lane (the sky's lookup and pdf), ~60 per
-    Lambertian and ~350 per GGX hit (the VNDF sample and two evaluations)
-    and ~80 per RANDOM lane (the sky's lookup toward the sample, the weight);
-    the resolve one add per accumulator channel on unoccluded lanes."""
+    pinhole ray, its rotation) plus the lens model's inverse (`LENS_FLOPS`,
+    per step of the OpenCV fixed point); the diffuse shade ~250 per lane
+    (emission, the cosine sample, light sample and pdf, the roulette) and 2 x
+    70 per light on RANDOM lanes of a mixture scene (counted with the plain
+    version); the env shade ~170 per lane (emission, the roulette) and 80
+    more for the sky sample where the sky is importance-sampled, per escaped
+    lane the sky's lookup (`SKY_LOOKUP_FLOPS`) and its pdf
+    (`SKY_PDF_FLOPS`, importance only), ~60 per Lambertian, ~350 per GGX
+    (the VNDF sample and two evaluations) and ~100 per glass hit (Fresnel,
+    refraction, four absorption exponentials), ~80 per RANDOM lane with
+    importance (the sky's lookup toward the sample, the weight); the resolve
+    one add per accumulator channel on unoccluded lanes."""
     if kernel == "regen_pinhole":
-        st, sample, k_next, cam, _, lanes, _ = inputs.regen
+        st, sample, k_next, cam, cfg, lanes, _ = inputs.regen
         n = st.active.shape[0]
         need = (~st.active) & (k_next < lanes.P) & lanes.valid
         n_need = int(need.sum())
@@ -862,11 +899,16 @@ def k4_work(inputs: K4Inputs, kernel: str):
         kept = [getattr(st, f) for f in st._fields
                 if f not in ("acc", "stats", "active", "prev_random")]
         tf = cam.transformation
-        camera = (cam.center_px, cam.focal_px, tf.translation, tf.rotation)
+        camera = [cam.center_px, cam.focal_px, tf.translation, tf.rotation]
+        lens = LENS_FLOPS[cfg.distortion]
+        if cfg.distortion == DistortionModel.OPENCV:
+            lens *= cfg.undistort_iters
+        if cfg.distortion != DistortionModel.NONE:
+            camera += [cam.dist_k, cam.dist_p]
         read = (n * _lane_bytes(st.active, k_next, st.prev_random)
                 + (n - n_need) * _lane_bytes(sample, *kept))
         written = n * _lane_bytes(*state, sample, k_next, st.geom_len)      # geom_len: t_max
-        return read + written + _table_bytes(camera), 60.0 * n_need
+        return read + written + _table_bytes(camera), (60.0 + lens) * n_need
     if kernel == "shade_diffuse":
         tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
         n = st.active.shape[0]
@@ -902,34 +944,45 @@ def k4_work(inputs: K4Inputs, kernel: str):
 
         tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
         env = tables.env
+        imp = env.importance
+        glass = MaterialType.GLASS in tables.mat_types
         n = st.active.shape[0]
         hit = (prim >= 0) & st.active
         escaped = st.active & (prim < 0)
         typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
         ggx = hit & (typ == MaterialType.GGX)
         lamb = hit & (typ == MaterialType.LAMBERTIAN)
+        n_glass = int((hit & (typ == MaterialType.GLASS)).sum())
         args = list(inputs.shade)
         args[3] = st._replace(stats=st.stats.clone())
-        n_random = float(wf.shade_env_plain(*args)[0].prev_random.sum())
+        n_random = float(wf.shade_env_plain(*args)[0].prev_random.sum()) if imp else 0.0
+        # The ray IOR: read on hit lanes (the optical path length); with glass
+        # on every lane, and written back.
         every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
-                      st.opt_len, pixel, sample]
+                      st.opt_len, pixel, sample] + ([st.ior] if glass else [])
+        on_hit = [t, hr.position, hr.normal, hr.backside, hr.mat] + ([] if glass else [st.ior])
         read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
-                + int((~hit).sum()) * _lane_bytes(st.o)
-                + int(hit.sum()) * _lane_bytes(t, st.ior, hr.position, hr.normal, hr.backside,
-                                               hr.mat)
-                + int(escaped.sum()) * _lane_bytes(st.prev_random)
-                + int((escaped & st.prev_random).sum()) * _lane_bytes(st.prev_pdf)
+                + int((~hit).sum()) * _lane_bytes(st.o) + int(hit.sum()) * _lane_bytes(*on_hit)
                 + int(ggx.sum()) * _lane_bytes(hr.tangent))
-        written = n * _lane_bytes(*(getattr(st, f) for f in st._fields
-                                    if f not in ("ior", "prev_light_pdf", "stats")),
-                                  hr.position, t, st.acc)          # shadow d, t_max, pending
-        rows = [tables.mat, env.image, env.pdf_table, env.alias_prob, env.alias_idx,
-                env.rotation]
-        flops = (250.0 * n + 120.0 * int(escaped.sum()) + 60.0 * int(lamb.sum())
-                 + 350.0 * int(ggx.sum()) + 80.0 * n_random)
-        return read + written + _table_bytes(rows) + 16, flops
+        if imp:     # the previous bsdf sample's flag and pdf: the MIS weight of a miss
+            read += (int(escaped.sum()) * _lane_bytes(st.prev_random)
+                     + int((escaped & st.prev_random).sum()) * _lane_bytes(st.prev_pdf))
+        out = [getattr(st, f) for f in st._fields
+               if f not in ("ior", "prev_light_pdf", "stats")] + ([st.ior] if glass else [])
+        if imp:
+            out += [hr.position, t, st.acc]                   # shadow d, t_max, pending
+        rows = ([env.const_radiance] if env.kind == 3 else [env.image, env.rotation])
+        if imp:
+            rows += [env.pdf_table, env.alias_prob, env.alias_idx]
+        escaped_flops = SKY_LOOKUP_FLOPS[env.kind] + (SKY_PDF_FLOPS if imp else 0.0)
+        flops = ((170.0 + 80.0 * imp) * n + escaped_flops * int(escaped.sum())
+                 + 60.0 * int(lamb.sum()) + 350.0 * int(ggx.sum()) + 100.0 * n_glass
+                 + 80.0 * n_random)
+        return (read + n * _lane_bytes(*out) + _table_bytes([tables.mat] + rows) + 16, flops)
     acc, pending, occluded, active, k_next, _ = inputs.resolve
     n, n_acc = acc.shape
+    if pending is None:         # the loop condition alone
+        return n * _lane_bytes(active) + int((~active).sum()) * _lane_bytes(k_next) + 4, 0.0
     n_open = int((~occluded).sum())
     read = (n * _lane_bytes(acc, occluded, active) + n_open * _lane_bytes(pending)
             + int((~active).sum()) * _lane_bytes(k_next))
