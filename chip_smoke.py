@@ -25,7 +25,9 @@ Phases, each a function, any failure exits non-zero and names its phase:
    frame's night sky, its block's 1048576 camera directions and uniforms;
    K7 on 1048576 lanes of the city frame's block (camera hits and
    their bounce directions, random tangent-space lanes); P0 on the Pallas
-   probe's shapes and on the city's material rows at 1048576 lanes. K1-K3
+   probe's shapes and on the city's material rows at 1048576 lanes (K8's
+   equirect branch, K7 and the material rows now run inside K4's shades;
+   their stand-alone kernels stay checked here). K1-K3
    also on the rtiow frame's 98304 camera rays (spheres alone, no triangle),
    K1 and K3 on the envmap frame's 131072 camera rays (triangles and spheres
    together) and K2 on its env-NEE shadow rays; K8 on the cube map
@@ -44,9 +46,13 @@ Phases, each a function, any failure exits non-zero and names its phase:
    kernels (the shade reads the sky inline); the frame held to its JAX
    reference as in phase 4.
 6. city path - the city_many_lights bench frame (1920 x 1080, 360-degree
-   stereo, 1 spp, 4 path components, per-light MIS): K3, K5, K6, K7 (eval and
-   sample), K8 (radiance, sample, pdf) and P0 must be launched, and the
-   frame held to its JAX reference as in phase 4.
+   stereo, 1 spp, 4 path components; ModPhong, RGL, 192 window triangles
+   under per-light MIS beside the importance-sampled night sky) through
+   K4's lit class: the surround regeneration, K5, K3, the lit shade (RGL,
+   the sky and the material rows inline), K6 (the light and sky shadow
+   rays in one cast) and the NEE resolve must be launched, and neither P0,
+   K7's nor K8's stand-alone kernels; the frame held to its JAX reference
+   as in phase 4.
 7. envmap path - the envmap_cube_is bench frame (128 x 128, 16 spp, 8 path
    components; glass, mirror and GGX spheres under the importance-sampled
    cube-map sky) through K4's env class: the regeneration, K1, K3, the env
@@ -73,27 +79,38 @@ The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
 (regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the mesh frame K4's
 env class (regeneration, K5, K3, wpt_shade_env, K6, resolve), the envmap
 and rtiow frames the env class on the brute-force casts (regeneration, K1,
-K3, wpt_shade_env, K2 where the sky is importance-sampled, resolve); the
-city frame the torch-op bounce. The kernels phase holds each K4 kernel
-against its plain version on the first block of the five K4 frames after 2
-steps (lanes live, dead and due for regeneration), the env shade also with
-the ToF sensor on the mesh, envmap and rtiow blocks, the regeneration also
-with the RADIAL_ONLY and RADIAL_AND_PLANAR lenses on the rtiow block. Every
-path prints its frame time, paths/s, Mrays/s, device time and kernel
-launches per wavefront step, and apart from them the copies and memsets
-(one more frame under torch.profiler; the scene's tables are built once per
-scene, before the frames); the five K4 paths also the launches of one step
-of the loop and of the frame's set-up, from the difference to the same
-frame at 1 path component. Cornell, ToF, envmap and rtiow fail above 12
-kernel launches per step of the frame; the mesh frame (4 steps, so its ~31
-launches of set-up alone come to ~8 per step) above 100 per frame; every K4
-frame above 12 per step of the loop. Each path's counters are set to 0 just
-before it and read just after; a kernel's `launches` in the JSON line is
-the sum over the paths that use it: the equirect K8 record's over the city
-path, the one torch-op path that launches the stand-alone kernels; the cube
-and constant K8 records' those of the env shade on the envmap and rtiow
-paths, which run the cube and constant branches inline; each env-shade and
-regeneration record's those of its own paths.
+K3, wpt_shade_env, K2 where the sky is importance-sampled, resolve), the
+city frame K4's lit class (wpt_regen_surround, K5, K3, wpt_shade_lit, K6 on
+2 x 1048576 shadow rays, the resolve of two pending deposits per lane).
+The kernels phase holds each K4 kernel against its plain version on the
+first block of the six frames after 2 steps (lanes live, dead and, where
+a lane has samples left, due for regeneration) and on the city block as
+the frame starts it (at 1 spp the one step where its lanes regenerate: the
+surround regeneration is checked and timed there), the env shade also
+with the ToF sensor on the mesh, envmap and rtiow blocks, the lit shade
+with the ToF sensor on the city block, the regeneration also with the
+RADIAL_ONLY and RADIAL_AND_PLANAR lenses on the rtiow block; a
+regeneration is timed only on lanes that regenerate. K5 and K6 are also
+timed on the city block's first casts beside their bound there. Every path
+prints its frame time, paths/s, Mrays/s, device time and kernel launches
+per wavefront step, and apart from them the copies and memsets (one more
+frame under torch.profiler; the scene's tables are built once per scene,
+before the frames); every path also the launches of one step of the loop
+and of the frame's set-up, from the difference to the same frame at 1
+path component. Cornell, ToF, envmap and rtiow fail above 12 kernel
+launches per step of the frame; the mesh frame (4 steps, so its ~31
+launches of set-up alone come to ~8 per step) above 100 per frame; every
+frame above 12 per step of the loop (the city's 2 blocks of 4 steps carry
+the set-up of two blocks). Each path's counters are set to 0 just before
+it and read just after; a kernel's `launches` in the JSON line is the sum
+over the paths that use it. The stand-alone K8, K7 and P0 kernels run on
+no path (their work runs inside K4's shades), so their records count 0
+launches, and their `inline_in` lists the shade that does their work, the
+path and its launches there: the equirect K8 record the env shade on the
+mesh path and the lit shade on the city path; the cube and constant K8
+records the env shade on the envmap and rtiow paths; K7's two records and
+P0's (the material rows) the lit shade on the city path. Each shade,
+regeneration and resolve record counts those of its own paths.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -113,7 +130,7 @@ DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
 PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
-K4_PATHS = ("main path", "mesh path", "envmap path", "rtiow path", "tof path")
+K4_PATHS = PATHS
 # Kernel launches per step of a K4 frame's loop, and per step of the frame
 # with its set-up (all but the mesh frame, whose 4 steps carry ~31 launches of
 # set-up: it is held to MESH_MAX_FRAME_LAUNCHES instead).
@@ -132,12 +149,12 @@ KERNELS = {
                         "wurblpt_tpu/accel/traverse.py:511", ("bvh_closest_hit",), PATHS),
     "bvh_any_hit": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
                     "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",), PATHS),
-    "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
-               ENV_ALL, ("city path",)),
+    "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166", ENV_ALL,
+               PATHS),
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
-                    ("shade_env",), ("envmap path",)),
+                    ENV_ALL, PATHS),
     "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
-                        ("shade_env",), ("rtiow path",)),
+                        ENV_ALL, PATHS),
     "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
                  ("rgl_eval",), PATHS),
     "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
@@ -148,6 +165,8 @@ KERNELS = {
                       ("regen_pinhole",), ("main path", "mesh path", "envmap path", "tof path")),
     "regen_lens": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:140",
                    ("regen_pinhole",), ("rtiow path",)),
+    "regen_surround": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:244",
+                       ("regen_surround",), ("city path",)),
     "shade_diffuse": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                       ("shade_diffuse",), ("main path", "tof path")),
     "shade_env": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
@@ -158,21 +177,37 @@ KERNELS = {
     "shade_env_glass_constant": ("wurblpt_tpu_torch/csrc/wavefront.cu",
                                  "wurblpt_tpu/render/integrator.py:400", ("shade_env",),
                                  ("rtiow path",)),
+    "shade_lit": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
+                  ("shade_lit",), ("city path",)),
     "nee_resolve": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:648",
-                    ("nee_resolve",), K4_PATHS),
+                    ("nee_resolve",), tuple(p for p in K4_PATHS if p != "city path")),
+    "nee_resolve_lit": ("wurblpt_tpu_torch/csrc/wavefront.cu",
+                        "wurblpt_tpu/render/integrator.py:648", ("nee_resolve",), ("city path",)),
 }
-# The record of each K4 frame's env shade and of its regeneration, where not
+# The stand-alone kernels whose work a K4 shade does inline: record ->
+# (shade, path) pairs. Their records count their own launches (none on any
+# path) and list in `inline_in` each shade that does their work, on which
+# path, with its launches there.
+INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
+          "envmap_cube": (("shade_env", "envmap path"),),
+          "envmap_constant": (("shade_env", "rtiow path"),),
+          "rgl_eval": (("shade_lit", "city path"),), "rgl_sample": (("shade_lit", "city path"),),
+          "row_gather": (("shade_lit", "city path"),)}
+# The record of each K4 frame's shade, regeneration and resolve, where not
 # the kernel's own name (the mesh, Cornell and ToF frames).
 K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
               ("shade_env", "rtiow"): "shade_env_glass_constant",
-              ("regen_pinhole", "rtiow"): "regen_lens"}
+              ("regen_pinhole", "rtiow"): "regen_lens",
+              ("nee_resolve", "city"): "nee_resolve_lit"}
 MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
              "nee_resolve")
 TOF_PATH = MAIN_PATH
 MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit",
              "nee_resolve")
-CITY_PATH = ("assemble_hit", "bvh_closest_hit", "bvh_any_hit") + ENV_ALL + (
-    "rgl_eval", "rgl_sample", "row_gather")
+CITY_PATH = ("regen_surround", "bvh_closest_hit", "assemble_hit", "shade_lit", "bvh_any_hit",
+             "nee_resolve")
+# The stand-alone kernels whose work the lit shade does inline.
+CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample") + ENV_ALL
 ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit",
                "nee_resolve")
 RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
@@ -312,8 +347,8 @@ def phase_kernels(scenes_on_card):
     }, errs, n)
 
     # K8's equirect branch on the city frame's block and its night sky (the
-    # only path that launches the stand-alone kernels on an equirect map; the
-    # mesh path's env shade reads its sky inline).
+    # mesh path's env shade and the city path's lit shade read their skies
+    # inline; the stand-alone kernels stay checked here).
     env = city_scene.envmap
     cdirs, cu3 = kc.city_env_lanes(DEVICE)
     nc = cdirs.shape[0]
@@ -360,7 +395,8 @@ def phase_kernels(scenes_on_card):
                             lambda: const.const_radiance.repeat(nr, 1)),
     }, errs, nr)
 
-    # K7 on the city frame's block; P0 on the probe's shapes and the city's material rows.
+    # K7 on the city frame's block; P0 on the probe's shapes and the city's
+    # material rows (the lit shade evaluates, samples and reads them inline).
     tables = city_scene.rgl
     mid, wi, wo, u2 = kc.city_rgl_lanes(city_scene, DEVICE)
     packed = bsdf.pack_material_table(city_scene.materials)
@@ -391,51 +427,88 @@ def phase_kernels(scenes_on_card):
 
 def _k4_records(scenes_on_card):
     """K4's kernels against their plain versions on the first block after 2
-    steps of the Cornell, ToF, mesh, envmap and rtiow frames; the env shade
-    also seen by the ToF sensor on the mesh, envmap and rtiow blocks (its
-    other instantiations), the regeneration also through the RADIAL_ONLY and
-    RADIAL_AND_PLANAR lenses on the rtiow block. Timed: the regeneration
-    and the resolve on the Cornell block, the regeneration through the
-    OpenCV lens on the rtiow block, each shade on its frames' blocks."""
+    steps of the Cornell, ToF, mesh, envmap, rtiow and city frames, and on
+    the city block as the frame starts it (at 1 spp only that step
+    regenerates, every lane); the env shade also seen by the ToF sensor on
+    the mesh, envmap and rtiow blocks (its other instantiations), the lit
+    shade by the ToF sensor on the city block, the regeneration also through
+    the RADIAL_ONLY and RADIAL_AND_PLANAR lenses on the rtiow block. Timed:
+    the regeneration and the resolve on the Cornell block, the regeneration
+    through the OpenCV lens on the rtiow block, the surround regeneration on
+    the fresh city block, the lit shade and the resolve of two pending
+    deposits on the city block after 2 steps, each other shade on its
+    frames' blocks; a regeneration is timed only where lanes regenerate.
+    Then K5 and K6 on the city block's first casts against their bound."""
     from wurblpt_tpu_torch.render import wavefront as wf
     from wurblpt_tpu_torch.render.camera import CameraConfig, DistortionModel
     from wurblpt_tpu_torch.render.sensor import SensorTofAmcw
 
     tof, rgb = SensorTofAmcw(), None
-    cases = [("cornell", "cornell", rgb, None), ("tof", "tof", rgb, None),
-             ("mesh", "mesh", rgb, None), ("mesh, ToF sensor,", "mesh", tof, None),
-             ("envmap", "envmap", rgb, None), ("envmap, ToF sensor,", "envmap", tof, None),
-             ("rtiow", "rtiow", rgb, None), ("rtiow, ToF sensor,", "rtiow", tof, None)]
+    cases = [("cornell", "cornell", rgb, None, 2), ("tof", "tof", rgb, None, 2),
+             ("mesh", "mesh", rgb, None, 2), ("mesh, ToF sensor,", "mesh", tof, None, 2),
+             ("envmap", "envmap", rgb, None, 2), ("envmap, ToF sensor,", "envmap", tof, None, 2),
+             ("rtiow", "rtiow", rgb, None, 2), ("rtiow, ToF sensor,", "rtiow", tof, None, 2),
+             ("city", "city", rgb, None, 2), ("city, ToF sensor,", "city", tof, None, 2),
+             # 1 spp: only the block's first step regenerates (every lane)
+             ("city", "city", rgb, None, 0)]
     cases += [(f"rtiow, lens model {model},", "rtiow", rgb,
-               CameraConfig(distortion=model, undistort_iters=kc.RTIOW_CAMERA.undistort_iters))
+               CameraConfig(distortion=model, undistort_iters=kc.RTIOW_CAMERA.undistort_iters), 2)
               for model in (DistortionModel.RADIAL_ONLY, DistortionModel.RADIAL_AND_PLANAR)]
     errs, inputs = {}, {}
-    for label, frame, sensor, cfg in cases:
-        inp = kc.k4_inputs(DEVICE, frame, scene=scenes_on_card.get(frame), sensor=sensor, cfg=cfg)
-        inputs.setdefault(frame, inp)
+    for label, frame, sensor, cfg, steps in cases:
+        inp = kc.k4_inputs(DEVICE, frame, steps=steps, scene=scenes_on_card.get(frame),
+                           sensor=sensor, cfg=cfg)
+        inputs.setdefault((frame, steps), inp)
         res = kc.check_k4(inp)
         torch.cuda.synchronize()
+        regenerated = kc.regenerated_lanes(inp)
         for name, fields in res.items():
-            print(f"kernels: {name} [{label} block after 2 steps, "
-                  f"{inp.regen[0].active.shape[0]} lanes] ok {fields}")
+            print(f"kernels: {name} [{label} block after {steps} steps, "
+                  f"{inp.regen[0].active.shape[0]} lanes"
+                  f"{f', {regenerated} regenerated' if name.startswith('regen') else ''}] "
+                  f"ok {fields}")
             record = K4_RECORDS.get((name, frame), name)
             errs[record] = max([errs.get(record, 0.0)]
                                + [v for v in fields.values() if isinstance(v, float)])
     records = []
-    for record, frame, kernel in (("regen_pinhole", "cornell", "regen_pinhole"),
-                                  ("regen_lens", "rtiow", "regen_pinhole"),
-                                  ("shade_diffuse", "cornell", "shade_diffuse"),
-                                  ("shade_env", "mesh", "shade_env"),
-                                  ("shade_env_glass_cube", "envmap", "shade_env"),
-                                  ("shade_env_glass_constant", "rtiow", "shade_env"),
-                                  ("nee_resolve", "cornell", "nee_resolve")):
+    for record, frame, kernel in (("regen_pinhole", ("cornell", 2), "regen_pinhole"),
+                                  ("regen_lens", ("rtiow", 2), "regen_pinhole"),
+                                  ("regen_surround", ("city", 0), "regen_surround"),
+                                  ("shade_diffuse", ("cornell", 2), "shade_diffuse"),
+                                  ("shade_env", ("mesh", 2), "shade_env"),
+                                  ("shade_env_glass_cube", ("envmap", 2), "shade_env"),
+                                  ("shade_env_glass_constant", ("rtiow", 2), "shade_env"),
+                                  ("shade_lit", ("city", 2), "shade_lit"),
+                                  ("nee_resolve", ("cornell", 2), "nee_resolve"),
+                                  ("nee_resolve_lit", ("city", 2), "nee_resolve")):
         inp = inputs[frame]
-        args = {"regen_pinhole": inp.regen, "nee_resolve": inp.resolve}.get(kernel, inp.shade)
-        plain = getattr(wf, kernel.replace("_pinhole", "") + "_plain")
+        if kernel.startswith("regen"):   # a regeneration timed where no lane regenerates is a copy
+            assert kc.regenerated_lanes(inp) > 0, f"{record}: no lane to regenerate on {frame}"
+        args = {"regen_pinhole": inp.regen, "regen_surround": inp.regen,
+                "nee_resolve": inp.resolve}.get(kernel, inp.shade)
+        plain = getattr(wf, "regen_plain" if kernel.startswith("regen") else kernel + "_plain")
         records += _timed_records({record: (
             lambda f=getattr(wf, kernel), a=args: f(*a), lambda f=plain, a=args: f(*a),
             kc.k4_work(inp, kernel), None)}, errs, inp.regen[0].active.shape[0])
+    _city_cast_bounds(scenes_on_card["city"].bvh, inputs[("city", 0)])
     return records
+
+
+def _city_cast_bounds(bvh, inp):
+    """K5 and K6 on the city block's first casts (its 1048576 camera rays;
+    the 2 x 1048576 light and sky shadow rays of the first shade): the
+    wrapper-call time beside the bound of the same work (kc.bvh_work), where
+    the JSON records hold them on the mesh frame's rays."""
+    from wurblpt_tpu_torch.accel import traverse
+
+    camera, shadow = kc.k4_cast_lanes(inp)
+    for name, rays, any_hit in (("bvh_closest_hit", camera, False),
+                                ("bvh_any_hit", shadow, True)):
+        ms = kc.time_ms(lambda f=getattr(traverse, name), r=rays: f(bvh, *r), DEVICE)
+        bound, bound_by = kc.bound_ms(*kc.bvh_work(bvh, rays, any_hit))
+        print(f"kernels: {name} on the city block's first {'shadow' if any_hit else 'camera'} "
+              f"rays ({rays[0].shape[0]}, {int((rays[3] > 0).sum())} cast): {ms:.4f} ms "
+              f"(wrapper call), bound {bound:.6f} ms by {bound_by}, {ms / bound:.1f}x the bound")
 
 
 def _drive(label, render, names, absent=()):
@@ -530,12 +603,13 @@ def phase_main_path():
 
 def phase_city_path(city_scene):
     render = kc.city_frame(DEVICE, city_scene)
-    img, stats, launches, times = _drive("city path", render, CITY_PATH)
+    img, stats, launches, times = _drive("city path", render, CITY_PATH, CITY_ABSENT)
     print(f"city path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.CITY_REF_MEAN}), stats {stats} (reference {list(kc.CITY_REF_STATS)})")
     kc.check_city_frame(img, stats)
     _report("city path", stats, times, kc.CITY_WIDTH * kc.CITY_HEIGHT * kc.CITY_SSQRT ** 2,
-            render)
+            render, kc.city_frame(DEVICE, city_scene, depth=1),
+            max_loop_per_step=K4_MAX_LAUNCHES_PER_STEP)
     return launches
 
 
@@ -679,6 +753,9 @@ def main() -> int:
     for r in records:
         _, _, counters, paths = KERNELS[r["name"]]
         r["launches"] = sum(out[path][c] for path in paths for c in counters)
+        if r["name"] in INLINE:
+            r["inline_in"] = [{"kernel": c, "path": path, "launches": out[path][c]}
+                              for c, path in INLINE[r["name"]]]
     print(_nvidia_smi())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

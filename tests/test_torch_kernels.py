@@ -406,12 +406,18 @@ def test_city_frame_check_holds_the_reference(off):
 
 @pytest.mark.cuda
 def test_city_render_on_gpu_matches_the_jax_reference_numbers(gpu):
+    """The city frame through K4's lit class: the surround regeneration, K5,
+    K3, the lit shade (RGL, the sky and the material rows inline), K6 and
+    the resolve; no stand-alone K7, K8 or P0 launch."""
     native.reset_launch_counts()
     img, stats = kc.city_frame(gpu, _city(gpu))()
     kc.check_city_frame(img, stats)
-    for name in ("assemble_hit", "bvh_closest_hit", "bvh_any_hit", "env_radiance", "env_sample",
-                 "env_pdf", "rgl_eval", "rgl_sample", "row_gather"):
+    for name in ("regen_surround", "assemble_hit", "bvh_closest_hit", "shade_lit", "bvh_any_hit",
+                 "nee_resolve"):
         assert native.LAUNCHES[name] > 0, name
+    for name in ("env_radiance", "env_sample", "env_pdf", "rgl_eval", "rgl_sample",
+                 "row_gather"):
+        assert native.LAUNCHES[name] == 0, name
 
 
 @functools.lru_cache(maxsize=None)

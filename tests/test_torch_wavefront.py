@@ -50,9 +50,10 @@ def _split_step(inp):
     t, prim, u, v = closest_hit(bs, st.o, st.d, t_min, t_max)
     hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
     st = st._replace(stats=torch.zeros((2,), dtype=torch.int64))
-    new, shadow_d, shadow_tmax, pending = wf.shade_diffuse_plain(
+    new, shadow_o, shadow_d, shadow_tmax, pending = wf.shade_diffuse_plain(
         tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
-    occluded = any_hit(bs, hr.position, shadow_d, t_min, shadow_tmax)
+    assert shadow_o is hr.position
+    occluded = any_hit(bs, shadow_o, shadow_d, t_min, shadow_tmax)
     acc, _ = wf.nee_resolve_plain(new.acc, pending, occluded, new.active, k_next, lanes)
     return st, sample, new._replace(acc=acc), new.stats
 

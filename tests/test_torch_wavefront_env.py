@@ -154,10 +154,11 @@ def _split_step(inp):
     t, prim, u, v = scene_raw_hit(prepared.accel, st.o, st.d, t_min, t_max)
     hr = assemble_hit(prepared.hit, st.o, st.d, t, prim, u, v)
     st = st._replace(stats=torch.zeros((2,), dtype=torch.int64))
-    new, shadow_d, shadow_tmax, pending = wf.shade_env_plain(
+    new, shadow_o, shadow_d, shadow_tmax, pending = wf.shade_env_plain(
         tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
+    assert shadow_o is (None if shadow_tmax is None else hr.position)
     occluded = (None if shadow_tmax is None
-                else scene_any_hit(prepared.accel, hr.position, shadow_d, t_min, shadow_tmax))
+                else scene_any_hit(prepared.accel, shadow_o, shadow_d, t_min, shadow_tmax))
     acc, _ = wf.nee_resolve_plain(new.acc, pending, occluded, new.active, k_next, lanes)
     return st, sample, new._replace(acc=acc), new.stats, pending, occluded
 
@@ -212,7 +213,7 @@ def _materials_met(scene, inp):
 def _split_step_against_jax(jax, name):
     jscene, scene = _scenes(name)
     inp = kc.k4_inputs("cpu", "mesh", scene=scene, **SMALL)
-    assert kc.k4_shade(inp) == "shade_env"
+    assert kc.k4_route(inp).shade is wf.shade_env
     st, sample, new, stats, _, _ = _split_step(inp)
     n = st.active.shape[0]
     assert 0 < int((~inp.regen[0].active).sum()) < n     # lanes due for regeneration
@@ -333,13 +334,13 @@ def test_env_k4_route_gives_the_torch_op_bounce_bits(name, monkeypatch):
         render = kc._frame(_port_scene(name.split(",")[0]), scenes.terrain_camera("cpu"), 24, 18,
                            2, 4, "cpu", sensor=sensor)
     shades = []
-    shade_env = integrator.shade_env
+    shade_env = wf.shade_env
 
     def counting(*args):
         shades.append(1)
         return shade_env(*args)
 
-    monkeypatch.setattr(integrator, "shade_env", counting)
+    monkeypatch.setattr(wf, "shade_env", counting)
     img, stats = render()
     assert len(shades) > 0
     monkeypatch.setattr(integrator, "env_class", lambda *a: False)
@@ -354,18 +355,28 @@ def test_env_k4_route_gives_the_torch_op_bounce_bits(name, monkeypatch):
 def test_each_scene_takes_its_route():
     """mesh, the sphere scenes (envmap with its cube sky, rtiow with its
     constant sky and glass), the mesh through a lens -> K4's env class;
-    Cornell, ToF -> K4's diffuse class; the city, the mesh through a
+    Cornell, ToF -> K4's diffuse class; the city through its 360-degree
+    stereo camera, a 180-degree mono one or a pinhole -> K4's lit class,
+    each with the regeneration, shade and shadow rows `k4_route` names for
+    its tables and camera; just outside it, the city through a stereo pinhole, under a constant
+    sky (no importance tables), with mixture MIS, and the mesh through a
     360-degree camera -> the torch-op bounce."""
     cpu = "cpu"
     mesh = scenes.terrain_city(seed=3, **TERRAIN, device=cpu)
     city = scenes.city_night(seed=7, terrain_res=12, n_buildings=3, n_windows=8,
                              sphere_slices=6, device=cpu)
+    const_sky = scenes.rtiow(device=cpu).envmap
+    city_const = city._replace(envmap=const_sky)
     cases = {
         "mesh": (mesh, CameraConfig(), "env"),
         "cornell": (scenes.cornell_box_ref(cpu), CameraConfig(), "diffuse"),
         "tof": (scenes.tof_box(device=cpu), CameraConfig(), "diffuse"),
-        "city": (city, CameraConfig(surround=SurroundMode.S360, stereo=True), "torch-op"),
-        "city, pinhole": (city, CameraConfig(), "torch-op"),
+        "city": (city, CameraConfig(surround=SurroundMode.S360, stereo=True), "lit"),
+        "city, 180 mono": (city, CameraConfig(surround=SurroundMode.S180), "lit"),
+        "city, pinhole": (city, CameraConfig(), "lit"),
+        "city, stereo pinhole": (city, CameraConfig(stereo=True), "torch-op"),
+        "city, constant sky": (city_const, CameraConfig(surround=SurroundMode.S360), "torch-op"),
+        "city, mixture MIS": (city, CameraConfig(surround=SurroundMode.S360), "torch-op"),
         "envmap": (scenes.envmap_spheres(cube=True, device=cpu), CameraConfig(), "env"),
         "rtiow": (scenes.rtiow(device=cpu), kc.RTIOW_CAMERA, "env"),
         "mesh, lens": (mesh, CameraConfig(distortion=DistortionModel.OPENCV), "env"),
@@ -373,14 +384,28 @@ def test_each_scene_takes_its_route():
     }
     for name, (scene, cfg, route) in cases.items():
         static = SceneStatic.from_scene(scene)
+        if name == "city, mixture MIS":
+            static = static._replace(per_light_mis=False)
         got = ("diffuse" if wf.diffuse_class(scene, static, cfg)
-               else "env" if wf.env_class(scene, static, cfg) else "torch-op")
+               else "env" if wf.env_class(scene, static, cfg)
+               else "lit" if wf.lit_class(scene, static, cfg) else "torch-op")
         assert got == route, name
         tables = integrator.prepare_scene(scene, static)
-        k4_scene = wf.diffuse_scene(scene, static) or wf.env_scene(scene, static)
+        k4_scene = (wf.diffuse_scene(scene, static) or wf.env_scene(scene, static)
+                    or wf.lit_scene(scene, static))
         assert (tables.step is not None) == k4_scene, name
         assert (tables.step is not None and tables.step.env is not None) == (
-            wf.env_scene(scene, static)), name
+            wf.env_scene(scene, static) or wf.lit_scene(scene, static)), name
+        assert (tables.step is not None and tables.step.rgl is not None) == (
+            wf.lit_scene(scene, static)), name
+        if route != "torch-op":     # the step's kernels follow from its tables and camera
+            r = wf.k4_route(tables.step, cfg)
+            assert (r.shade, r.shade_plain, r.shadow_rows) == {
+                "diffuse": (wf.shade_diffuse, wf.shade_diffuse_plain, 1),
+                "env": (wf.shade_env, wf.shade_env_plain, 1),
+                "lit": (wf.shade_lit, wf.shade_lit_plain, 2)}[route], name
+            assert r.regen is (wf.regen_pinhole if cfg.surround == SurroundMode.OFF
+                               else wf.regen_surround), name
 
 
 def _mesh_inputs():

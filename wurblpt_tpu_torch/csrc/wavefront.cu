@@ -1,6 +1,5 @@
-// K4: one wavefront step, for two classes of scenes seen by a pinhole camera
-// (with or without lens distortion), in four kernels around the casts (K1/K5
-// closest hit, K3 hit assembly, K2/K6 any hit):
+// K4: one wavefront step, for three classes of scenes, in five kernels around
+// the casts (K1/K5 closest hit, K3 hit assembly, K2/K6 any hit):
 //
 //   wpt_regen_pinhole  refill dead lanes with their pixel's next sample: the
 //                      jittered pixel, the lens model's inverse (the OpenCV
@@ -8,6 +7,10 @@
 //                      RADIAL_AND_PLANAR's closed form) and the ray
 //                      (wurblpt_tpu/render/integrator.py:973-1013,
 //                      camera.py:140-180)
+//   wpt_regen_surround the same through the 180/360-degree surround camera,
+//                      mono or stereo: the equirect direction of each eye's
+//                      half of the image and the ODS eye offset
+//                      (camera.py:224-262); regen_kernel's other instantiation
 //   wpt_shade_diffuse  the diffuse class (Lambertian surfaces; diffuse, spot
 //                      and ToF triangle lights with mixture or per-light
 //                      MIS; no sky): emission with its MIS weight, the
@@ -27,41 +30,58 @@
 //                      Russian roulette, the next state and the cast counters
 //                      (integrator.py:456-752 without light NEE); K8's
 //                      lookups, sample and pdf inline (envmap_common.cuh)
-//   wpt_nee_resolve    acc += pending where the shadow ray is not occluded,
-//                      and the loop condition: does any lane have work left
-//                      (the condition alone where the step casts no shadow ray)
+//   wpt_shade_lit      the lit class (the env class's surfaces, ModPhong with
+//                      its opacity pass-through and measured RGL, triangle
+//                      lights under per-light MIS beside an equirect or cube
+//                      sky with importance tables): the sky on a miss,
+//                      emission with its per-light MIS weight, the sample of
+//                      the lane's lobe (RGL through K7's arithmetic inline,
+//                      rgl_common.cuh), light NEE and env NEE each up to its
+//                      shadow ray and pending deposit, Russian roulette, the
+//                      next state with the ray IOR and the cast counters
+//                      (integrator.py:400-752)
+//   wpt_nee_resolve    acc += pending where the shadow ray is not occluded
+//                      (the lit class's light deposit, then its sky's), and
+//                      the loop condition: does any lane have work left (the
+//                      condition alone where the step casts no shadow ray)
 //
 // Replaces the JAX package's bounce body and regeneration, which XLA fuses on
-// the TPU; in the port they were a chain of ~1000 PyTorch launches per step.
-// One thread per lane, the lane state in structure-of-arrays tensors (each
-// thread reads its lane's fields and writes them to new tensors), material
-// rows, light rows, the alias tables and the sky's texels read inline from
-// global memory (a few KB, and the sky's 96-128 KB, cached). Bound on the
-// card: bytes, the lane state read and written once per kernel (~200 B per
-// lane for a shade); the mixture pdf loops over the L < 8 lights in index
-// order, twice. The env shade evaluates only the lane's own material branch
-// (the plain version evaluates every branch and selects), so GGX's VNDF
-// sample and its two evaluations cost only the GGX lanes, the glass's
-// Fresnel term and refraction only the glass lanes. The sky's kind, its
-// importance sampling and the glass lobe are template parameters, so a scene
-// without glass (the mesh path) keeps the registers of a kernel without it.
+// the TPU; in the port they were a chain of ~1000-1700 PyTorch launches per
+// step. One thread per lane, the lane state in structure-of-arrays tensors
+// (each thread reads its lane's fields and writes them to new tensors),
+// material rows, light rows, the alias tables, the sky's texels and the RGL
+// tables read inline from global memory (a few KB, the sky's 96-128 KB, the
+// RGL tables' 17 KB, cached). Bound on the card: bytes, the lane state read
+// and written once per kernel (~200 B per lane for a shade, ~320 B for the
+// lit shade with its two shadow rays); the mixture pdf loops over the L < 8
+// lights in index order, twice. The shades evaluate only the lane's own
+// material branch (the plain version evaluates every branch and selects), so
+// GGX's VNDF sample and its two evaluations cost only the GGX lanes, the
+// glass's Fresnel term and refraction only the glass lanes, RGL's two warps
+// and two evaluations only the RGL lanes. The sky's kind, its importance
+// sampling, the glass lobe and RGL are template parameters, so a scene
+// without glass (the mesh path) keeps the registers of a kernel without it,
+// and a lit scene without RGL those of a kernel without K7's arithmetic.
 //
 // Every expression is evaluated in the order of the plain PyTorch versions
 // (render/wavefront.py, render/bsdf.py, render/lights.py, render/envmap.py,
-// core/rng.py, core/onb.py, core/vecmath.py, core/fresnel.py,
-// render/camera.py), and the library is built with -fmad=false and without
-// --use_fast_math, so each operation rounds as the corresponding PyTorch op
-// does. A Python number multiplies or divides as PyTorch's CUDA kernels take
-// it: rounded to float32 first; `c / x` is x.reciprocal() * c, exact for
-// c = 1. PCG4D runs in native uint32 and gives the words of core/rng.py.
-// Where bits may still part: cosf and sinf (the cosine sample, the GGX VNDF
-// sample, the env sample, the ToF phase), expf (the glass's absorption) and
-// atan2f / acosf (the sky's lookup and pdf) against PyTorch's own build of
-// them.
+// materials/rgl.py, core/rng.py, core/onb.py, core/vecmath.py,
+// core/fresnel.py, render/camera.py), and the library is built with
+// -fmad=false and without --use_fast_math, so each operation rounds as the
+// corresponding PyTorch op does. A Python number multiplies or divides as
+// PyTorch's CUDA kernels take it: rounded to float32 first; `c / x` is
+// x.reciprocal() * c, exact for c = 1. PCG4D runs in native uint32 and gives
+// the words of core/rng.py. Where bits may still part: cosf and sinf (the
+// cosine sample, the GGX VNDF and power-cosine samples, the env sample, the
+// surround camera, RGL's sample, the ToF phase), powf (ModPhong's lobe and
+// its sample, as PyTorch's pow of two float tensors), expf (the glass's
+// absorption) and atan2f / acosf / asinf (the sky's lookup and pdf, RGL's
+// frame) against PyTorch's own build of them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "envmap_common.cuh"
+#include "rgl_common.cuh"
 
 namespace {
 
@@ -72,9 +92,10 @@ constexpr float PI_4 = static_cast<float>(3.141592653589793 / 4.0);
 constexpr float PI_2 = static_cast<float>(3.141592653589793 / 2.0);
 constexpr float PI_F = static_cast<float>(3.141592653589793);
 constexpr float TWO_PI_F = static_cast<float>(2.0 * 3.141592653589793);
+constexpr float INV_TWO_PI = 0x1.45f306p-3f;   // float32(1) / float32(2 pi), as XLA divides
 constexpr int MAT_COLS = 23;        // albedo | emissive | p0 | p1 | p2 | typ, flags, rgl_id
 constexpr int LAMBERTIAN = 1, GGX = 2, GLASS = 3, MIRROR = 4, MODPHONG = 5, LIGHT_DIFFUSE = 7,
-              LIGHT_SPOT = 8, LIGHT_TOF = 9;
+              LIGHT_SPOT = 8, LIGHT_TOF = 9, RGL = 10;
 constexpr int TWO_SIDED = 1;
 constexpr int KIND_NONE = 0, KIND_RANDOM = 1, KIND_EXPLICIT = 2;   // render/bsdf.py ScatterKind
 constexpr uint32_t SALT_PIXEL_JITTER = 0x01, SALT_BSDF = 0x10, SALT_BSDF_AUX = 0x13,
@@ -273,6 +294,19 @@ __device__ __forceinline__ void emit_lane(const SensorParams& sp, const MatRow& 
 
 // ---- render/bsdf.py: the Lambertian, GGX and mirror lobes ---------------------
 
+// core/onb.onb_from_normal: Duff et al.'s branch-free basis (t, b) around n
+__device__ __forceinline__ void onb_from_normal(const float* n3, float* tt, float* bb) {
+    const float sign = n3[2] >= 0.f ? 1.0f : -1.0f;
+    const float a = (1.0f / (sign + n3[2])) * -1.0f;
+    const float bvar = (n3[0] * n3[1]) * a;
+    tt[0] = ((sign * n3[0]) * n3[0]) * a + 1.0f;
+    tt[1] = sign * bvar;
+    tt[2] = (-sign) * n3[0];
+    bb[0] = bvar;
+    bb[1] = sign + (n3[1] * n3[1]) * a;
+    bb[2] = -n3[1];
+}
+
 // core/sampler.cosine_direction: concentric disk, lifted, in Duff et al.'s
 // basis around n.
 __device__ __forceinline__ void cosine_direction(const float* n3, float u0, float u1,
@@ -286,12 +320,8 @@ __device__ __forceinline__ void cosine_direction(const float* n3, float u0, floa
     const float rr = (ox == 0.f && oy == 0.f) ? 0.f : (use_x ? ox : oy);
     const float lx = rr * cosf(theta), ly = rr * sinf(theta);
     const float lz = sqrtf(clamp_min((1.0f - lx * lx) - ly * ly, 1e-20f));
-    // onb_from_normal (Duff et al.)
-    const float sign = n3[2] >= 0.f ? 1.0f : -1.0f;
-    const float a = (1.0f / (sign + n3[2])) * -1.0f;
-    const float bvar = (n3[0] * n3[1]) * a;
-    const float tt[3] = {((sign * n3[0]) * n3[0]) * a + 1.0f, sign * bvar, (-sign) * n3[0]};
-    const float bb[3] = {bvar, sign + (n3[1] * n3[1]) * a, -n3[1]};
+    float tt[3], bb[3];
+    onb_from_normal(n3, tt, bb);
     for (int c = 0; c < 3; ++c) sdir[c] = (lx * tt[c] + ly * bb[c]) + lz * n3[c];
 }
 
@@ -362,6 +392,100 @@ __device__ __forceinline__ float ggx_eval_local(const float* wo, const float* wd
     return up ? (g1 * d_term) / woz4 : 0.f;
 }
 
+// max over 3 channels, NaN-propagating like torch.amax
+__device__ __forceinline__ float max3(const float* x) {
+    float m = x[0];
+    for (int c = 1; c < 3; ++c) m = (x[c] > m || x[c] != x[c]) ? x[c] : m;
+    return m;
+}
+
+// _modphong_spec_prob: the specular lobe's share max(ks) / (max(kd) + max(ks))
+__device__ __forceinline__ float modphong_spec_prob(const float* kd, const float* ks) {
+    const float kd_max = max3(kd), ks_max = max3(ks);
+    const float tot = kd_max + ks_max;
+    return tot > 0.f ? ks_max / clamp_min(tot, 1e-12f) : 0.f;
+}
+
+// _modphong_eval: f * cos [4] into fcos and the mixture pdf of the
+// energy-normalized modified Phong (material_modphong.hpp:192-263) from
+// the incident ray direction d (so reflect(-wo, n) = reflect(d, n)) into
+// wd; zero below the horizon. kd is the albedo, ks p1, shin p0.x; pow as
+// PyTorch's of two float tensors (powf).
+__device__ __forceinline__ float modphong_eval(const float* d, const float* wd, const float* n3,
+                                               const float* kd, const float* ks, float shin,
+                                               float* fcos) {
+    const float cos_i = dot3(wd, n3);
+    const bool up = cos_i > 1e-6f;
+    float r[3];
+    reflect3(d, n3, r);
+    const float cos_a = clamp(dot3(r, wd), 0.f, 1.f);
+    const float s = clamp_min(shin, 0.f);
+    const float lobe = powf(cos_a, s);
+    const float spec = ((s + 2.0f) * INV_TWO_PI) * lobe;
+    const float ci = clamp_min(cos_i, 0.f);
+    for (int c = 0; c < 4; ++c) fcos[c] = up ? (kd[c] * INV_PI + ks[c] * spec) * ci : 0.f;
+    const float ps = modphong_spec_prob(kd, ks);
+    return up ? (1.0f - ps) * (ci * INV_PI) + ps * (((s + 1.0f) * INV_TWO_PI) * lobe) : 0.f;
+}
+
+// _sample_power_cosine: a direction distributed as cos^exponent around axis
+__device__ __forceinline__ void power_cosine_direction(const float* axis, float exponent,
+                                                       float u0, float u1, float* w) {
+    const float ct = powf(clamp_min(u0, 1e-12f), 1.0f / (exponent + 1.0f));
+    const float st = sqrtf(clamp_min(1.0f - ct * ct, 1e-20f));
+    const float phi = TWO_PI_F * u1;
+    const float l[3] = {st * cosf(phi), st * sinf(phi), ct};
+    float tt[3], bb[3];
+    onb_from_normal(axis, tt, bb);
+    for (int c = 0; c < 3; ++c) w[c] = (l[0] * tt[c] + l[1] * bb[c]) + l[2] * axis[c];
+}
+
+// render/bsdf.py bsdf_sample's ModPhong (material_modphong.hpp:192-263,
+// constant ks and opacity): opacity pass-through by u_lobe (refraction with
+// the material's index, the transmissive colour p2, the ray's new IOR; total
+// internal reflection absorbs), an opaque backside absorbs, else the
+// specular (power-cosine about the mirror direction) or diffuse (cosine)
+// lobe by u_chan with the mixture's f * cos and pdf. Returns the kind; the
+// outputs are written for the RANDOM and EXPLICIT kinds only (a NONE lane's
+// sample is never read).
+__device__ __forceinline__ int modphong_sample(const MatRow& mr, const float* d, const float* n3,
+                                               bool back, float u0, float u1, float u_lobe,
+                                               float u_chan, float* sdir, float* atten,
+                                               float* pdf, float* ior_out) {
+    const float* kd = mr.f;
+    const float* ks = mr.f + 12;
+    const float shin = mr.f[8], opacity = mr.f[9], mp_ior = mr.f[11];
+    if (u_lobe > opacity) {
+        // core/vecmath.refract(d, n, eta), eta = n_i / n_t a true division
+        const float eta = (back ? mp_ior : 1.0f) / (back ? 1.0f : mp_ior);
+        const float cos_i = -dot3(d, n3);
+        const float sin2_t = (eta * eta) * clamp_min(1.0f - cos_i * cos_i, 0.f);
+        if (sin2_t >= 1.0f) return KIND_NONE;
+        const float cos_t = sqrtf(clamp_min(1.0f - sin2_t, 1e-20f));
+        const float kn = eta * cos_i - cos_t;
+        float refr[3];
+        for (int c = 0; c < 3; ++c) refr[c] = eta * d[c] + kn * n3[c];
+        normalize3(refr, sdir);
+        const float nior = back ? 1.0f : mp_ior;
+        for (int c = 0; c < 4; ++c) {
+            atten[c] = mr.f[16 + c];
+            ior_out[c] = nior;
+        }
+        *pdf = 1.0f;
+        return KIND_EXPLICIT;
+    }
+    if (back) return KIND_NONE;
+    if (u_chan < modphong_spec_prob(kd, ks)) {
+        float axis[3];
+        reflect3(d, n3, axis);
+        power_cosine_direction(axis, shin, u0, u1, sdir);
+    } else {
+        cosine_direction(n3, u0, u1, sdir);
+    }
+    *pdf = modphong_eval(d, sdir, n3, kd, ks, shin, atten);
+    return KIND_RANDOM;
+}
+
 // render/wavefront.py advance: the throughput update, Russian roulette
 // (wurblpt.hpp:258-273) and the lane's next state, but its previous
 // mixture pdf (the shade's own). `cont` lanes (RANDOM or EXPLICIT) carry
@@ -404,6 +528,31 @@ __device__ __forceinline__ void advance_lane(const WaveState& in, const WaveStat
     out.prev_random[i] = is_random;
 }
 
+// The path lengths after the segment to the hit (wurblpt.hpp:148-150): the
+// optical one per channel at the ray's IOR into opl; returns the geometric
+// one. Both grow on hit lanes only.
+__device__ __forceinline__ float path_lengths(const WaveState& in, int i, bool hit, float t,
+                                              const float* ior, float* opl) {
+    const float geom = hit ? in.geom_len[i] + t : in.geom_len[i];
+    for (int c = 0; c < 4; ++c) {
+        const float o_l = in.opt_len[4 * i + c];
+        opl[c] = hit ? o_l + t * ior[c] : o_l;
+    }
+    return geom;
+}
+
+// The cast counters of one block: a closest cast per active lane and
+// N_SHADOW shadow casts per RANDOM lane. Every thread of the block calls it.
+template <int N_SHADOW>
+__device__ __forceinline__ void count_casts(unsigned long long* stats, bool act, bool is_random) {
+    const int n_act = __syncthreads_count(act);
+    const int n_rand = N_SHADOW > 0 ? __syncthreads_count(is_random) : 0;
+    if (threadIdx.x == 0 && n_act > 0) {
+        atomicAdd(stats, static_cast<unsigned long long>(n_act));
+        atomicAdd(stats + 1, static_cast<unsigned long long>(n_act + N_SHADOW * n_rand));
+    }
+}
+
 // ---- render/lights.py -------------------------------------------------------
 
 // lights_pdf_multi for one direction: sum over the lights in index order of
@@ -437,10 +586,60 @@ __device__ float mixture_pdf(const float* o, const float* d, const float* light_
     return s;
 }
 
+// lights_sample for one lane: the hot spot picked by u3[0] through the alias
+// table, a uniform point on it by u3[1] and u3[2]; the unit direction from p
+// toward it and its distance, the triangle's normal (not normalized) and its
+// length, the solid-angle pdf and the shadow ray's t_max, shortened by
+// shadow_scale.
+struct LightSample {
+    int pick;
+    float ldir[3], ldist, fn[3], fn_len, pdf_sa, t_vis;
+};
+
+__device__ __forceinline__ LightSample light_sample(const float* u3, const float* p,
+                                                    const float* light_tri,
+                                                    const float* alias_prob,
+                                                    const int* alias_idx, int n_lights,
+                                                    float shadow_scale, float min_hit) {
+    LightSample ls;
+    const int cell = min(max(static_cast<int>(u3[0] * static_cast<float>(n_lights)), 0),
+                         n_lights - 1);
+    const float frac = u3[0] * static_cast<float>(n_lights) - static_cast<float>(cell);
+    ls.pick = frac >= alias_prob[cell] ? alias_idx[cell] : cell;
+    const float* lt = light_tri + 9 * ls.pick;
+    const float* e1 = lt + 3;
+    const float* e2 = lt + 6;
+    const float su = sqrtf(clamp_min(u3[1], 1e-20f));
+    const float b0 = 1.0f - su, b1 = u3[2] * su;
+    for (int c = 0; c < 3; ++c) ls.ldir[c] = ((lt[c] + b0 * e1[c]) + b1 * e2[c]) - p[c];
+    ls.ldist = sqrtf(dot3(ls.ldir, ls.ldir));
+    for (int c = 0; c < 3; ++c) ls.ldir[c] = ls.ldir[c] / clamp_min(ls.ldist, 1e-12f);
+    cross3(e1, e2, ls.fn);
+    ls.fn_len = sqrtf(dot3(ls.fn, ls.fn));
+    const float area = ls.fn_len * 0.5f;
+    const float cos_tri = fabsf(dot3(ls.ldir, ls.fn)) / clamp_min(ls.fn_len, 1e-20f);
+    ls.pdf_sa = (ls.ldist * ls.ldist) / clamp_min(cos_tri * area, 1e-12f);
+    ls.t_vis = clamp_min(ls.ldist * shadow_scale, min_hit);
+    return ls;
+}
+
+// light_emitted_at's test: whether the picked light (its material row lr)
+// emits toward the receiver, by its side and its cone.
+__device__ __forceinline__ bool light_seen(const LightSample& ls, const MatRow& lr) {
+    float nl[3];
+    for (int c = 0; c < 3; ++c) nl[c] = ls.fn[c] / clamp_min(ls.fn_len, 1e-20f);
+    const float tw[3] = {-ls.ldir[0], -ls.ldir[1], -ls.ldir[2]};
+    const float cos_v = dot3(nl, tw);
+    const bool l_cone = lr.typ == LIGHT_SPOT || lr.typ == LIGHT_TOF;
+    const bool front = cos_v > 0.f || (lr.flags & TWO_SIDED) > 0;
+    return front && (fabsf(cos_v) >= lr.f[8] || !l_cone);
+}
+
 // ---- the kernels -------------------------------------------------------------
 
-// The pinhole camera's parameters (render/camera.py CameraParams) and its
-// lens (CameraConfig.distortion, undistort_iters).
+// The camera's parameters (render/camera.py CameraParams): the pinhole's
+// intrinsics and lens (CameraConfig.distortion, undistort_iters), the
+// surround camera's span, stereo packing and eye offset, and the pose.
 struct Camera {
     const float* centre;       // [2]
     const float* focal;        // [2]
@@ -450,7 +649,15 @@ struct Camera {
     const float* dist_p;       // [2] tangential coefficients
     int lens;                  // LENS_*
     int iters;                 // the OpenCV fixed point's steps
+    const float* scale;        // [3] the pose's scale (the surround camera's eye offset)
+    const float* eye_distance; // [1]
+    float span;                // float32(pi) (S360) or float32(pi / 2) (S180)
+    float inv_width;           // float32(1) / float32(width)
+    float inv_eff_height;      // float32(1) / float32(the height of one eye's half)
+    int stereo;                // top half the left eye, bottom half the right
 };
+
+constexpr int CAM_PINHOLE = 0, CAM_SURROUND = 1;
 
 // render/camera.py distort_normalized for RADIAL_AND_PLANAR and OPENCV: the
 // radial polynomial and the tangential terms, in the plain version's
@@ -512,6 +719,35 @@ __device__ __forceinline__ void undistort(const Camera& cam, float* x, float* y)
     }
 }
 
+// render/camera.py camera_rays' surround branch for the pixel point (px, py):
+// the equirect direction of the eye's half of the image and, in stereo, the
+// eye's offset on the circle of diameter eye_distance (ODS), posed.
+__device__ __forceinline__ void surround_ray(const Camera& cam, int height, float px, float py,
+                                             float* o, float* dw) {
+    const int eff_height = cam.stereo ? height / 2 : height;
+    float eye_sign = 0.f;
+    if (cam.stereo) {
+        const bool top = py < static_cast<float>(eff_height);
+        py = top ? py : py - static_cast<float>(eff_height);
+        eye_sign = top ? -1.0f : 1.0f;
+    }
+    const float phi = ((px * cam.inv_width) * 2.0f - 1.0f) * cam.span;
+    const float theta = (0.5f - py * cam.inv_eff_height) * PI_F;
+    const float ct = cosf(theta);
+    const float sp = sinf(phi), cp = cosf(phi);
+    float dc[3] = {ct * sp, sinf(theta), (-ct) * cp};
+    const float r = 1.0f / sqrtf(clamp_min(dot3(dc, dc), 1e-20f));
+    for (int k = 0; k < 3; ++k) dc[k] = dc[k] * r;
+    quat_rotate(cam.rotation, dc, dw);
+    const float es = (eye_sign * 0.5f) * cam.eye_distance[0];
+    const float oc[3] = {(es * cp) * cam.scale[0], (es * 0.f) * cam.scale[1],
+                         (es * sp) * cam.scale[2]};
+    float orot[3];
+    quat_rotate(cam.rotation, oc, orot);
+    for (int k = 0; k < 3; ++k) o[k] = orot[k] + cam.translation[k];
+}
+
+template <int CAMERA>
 __global__ void __launch_bounds__(256)
 regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Camera cam,
              long long blk, int B, int m, long long P, long long n_pix, int width, int height,
@@ -548,8 +784,8 @@ regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Came
         out.prev_light_pdf[i] = in.prev_light_pdf[i];
         return;
     }
-    // Pixel jitter and the pinhole ray through the lens (render/camera.py
-    // camera_rays, mono).
+    // Pixel jitter and the ray (render/camera.py camera_rays): the mono
+    // pinhole through its lens, or the surround camera.
     float jx = 0.5f, jy = 0.5f;
     if (randomize) {
         float u[4];
@@ -560,21 +796,25 @@ regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Came
     }
     const float px = static_cast<float>(p_safe % width) + jx;
     const float py = static_cast<float>(p_safe / width) + jy;
-    float nx = (px - cam.centre[0]) / cam.focal[0];
-    float ny = (py - cam.centre[1]) / cam.focal[1];
-    undistort(cam, &nx, &ny);
-    float dc[3] = {nx, -ny, -1.0f};
-    const float r = 1.0f / sqrtf(clamp_min(dot3(dc, dc), 1e-20f));
-    for (int k = 0; k < 3; ++k) dc[k] = dc[k] * r;
     float dw[3];
-    quat_rotate(cam.rotation, dc, dw);
-    // A mono pinhole's origin is the camera's: the rotated eye offset (+0 in
-    // every component for a positive scale) plus the translation, so a -0
-    // of the translation becomes +0 as in the plain version's sum.
-    for (int k = 0; k < 3; ++k) {
-        out.o[3 * i + k] = 0.f + cam.translation[k];
-        out.d[3 * i + k] = dw[k];
+    if (CAMERA == CAM_SURROUND) {
+        float o[3];
+        surround_ray(cam, height, px, py, o, dw);
+        for (int k = 0; k < 3; ++k) out.o[3 * i + k] = o[k];
+    } else {
+        float nx = (px - cam.centre[0]) / cam.focal[0];
+        float ny = (py - cam.centre[1]) / cam.focal[1];
+        undistort(cam, &nx, &ny);
+        float dc[3] = {nx, -ny, -1.0f};
+        const float r = 1.0f / sqrtf(clamp_min(dot3(dc, dc), 1e-20f));
+        for (int k = 0; k < 3; ++k) dc[k] = dc[k] * r;
+        quat_rotate(cam.rotation, dc, dw);
+        // A mono pinhole's origin is the camera's: the rotated eye offset (+0
+        // in every component for a positive scale) plus the translation, so
+        // a -0 of the translation becomes +0 as in the plain version's sum.
+        for (int k = 0; k < 3; ++k) out.o[3 * i + k] = 0.f + cam.translation[k];
     }
+    for (int k = 0; k < 3; ++k) out.d[3 * i + k] = dw[k];
     out.bounce[i] = 0;
     for (int c = 0; c < 4; ++c) {
         out.ior[4 * i + c] = 1.0f;
@@ -622,13 +862,9 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
         }
         const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
 
-        // 1. path lengths (wurblpt.hpp:148-150)
-        const float geom = hit ? in.geom_len[i] + t : in.geom_len[i];
+        // 1. path lengths
         float opl[4];
-        for (int c = 0; c < 4; ++c) {
-            const float o_l = in.opt_len[4 * i + c];
-            opl[c] = hit ? o_l + t * ior[c] : o_l;
-        }
+        const float geom = path_lengths(in, i, hit, t, ior, opl);
 
         // 2. emission with its MIS weight, deposited at once
         const bool prev_random = hit && in.prev_random[i];
@@ -667,58 +903,33 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
         is_random = hit && lamb && spdf > 0.f;
 
         // 4. light NEE up to the shadow ray (render/lights.py lights_sample)
-        const int cell = min(max(static_cast<int>(u3[0] * static_cast<float>(n_lights)), 0),
-                             n_lights - 1);
-        const float frac = u3[0] * static_cast<float>(n_lights) - static_cast<float>(cell);
-        const int pick = frac >= alias_prob[cell] ? alias_idx[cell] : cell;
-        const float* lt = light_tri + 9 * pick;
-        const float* e1 = lt + 3;
-        const float* e2 = lt + 6;
-        const float su = sqrtf(clamp_min(u3[1], 1e-20f));
-        const float b0 = 1.0f - su, b1 = u3[2] * su;
-        float ldir[3];
-        for (int c = 0; c < 3; ++c) ldir[c] = ((lt[c] + b0 * e1[c]) + b1 * e2[c]) - p[c];
-        const float ldist = sqrtf(dot3(ldir, ldir));
-        for (int c = 0; c < 3; ++c) ldir[c] = ldir[c] / clamp_min(ldist, 1e-12f);
-        float fn[3];
-        cross3(e1, e2, fn);
-        const float fn_len = sqrtf(dot3(fn, fn));
-        const float area = fn_len * 0.5f;
-        const float cos_tri = fabsf(dot3(ldir, fn)) / clamp_min(fn_len, 1e-20f);
-        const float pdf_sa = (ldist * ldist) / clamp_min(cos_tri * area, 1e-12f);
-        const float t_vis = clamp_min(ldist * shadow_scale, min_hit);
-        for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ldir[c];
-        shadow_tmax[i] = is_random ? t_vis : 0.f;
+        const LightSample ls = light_sample(u3, p, light_tri, alias_prob, alias_idx, n_lights,
+                                            shadow_scale, min_hit);
+        for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ls.ldir[c];
+        shadow_tmax[i] = is_random ? ls.t_vis : 0.f;
         float light_pdf_next = 0.f;
         bool nee_take = false;
         float ndep[3] = {0.f, 0.f, 0.f};
         if (is_random) {
             float pdf_light;
             if (PER_LIGHT) {
-                pdf_light = light_w[pick] * pdf_sa;
+                pdf_light = light_w[ls.pick] * ls.pdf_sa;
             } else {
-                pdf_light = mixture_pdf(p, ldir, light_tri, light_w, n_lights);
+                pdf_light = mixture_pdf(p, ls.ldir, light_tri, light_w, n_lights);
                 light_pdf_next = mixture_pdf(p, sdir, light_tri, light_w, n_lights);
             }
             // bsdf_eval (Lambertian) toward the light
-            const float pb = clamp_min(dot3(ldir, n3), 0.f) * INV_PI;
-            // light_emitted_at: the light's side and cone toward the receiver
-            float nl[3];
-            for (int c = 0; c < 3; ++c) nl[c] = fn[c] / clamp_min(fn_len, 1e-20f);
-            const float tw[3] = {-ldir[0], -ldir[1], -ldir[2]};
-            const float cos_v = dot3(nl, tw);
-            const MatRow lr = mat_row(mat, n_mat, light_mat[pick]);
-            const bool l_cone = lr.typ == LIGHT_SPOT || lr.typ == LIGHT_TOF;
-            const bool front = cos_v > 0.f || (lr.flags & TWO_SIDED) > 0;
-            const bool le_ok = front && (fabsf(cos_v) >= lr.f[8] || !l_cone);
+            const float pb = clamp_min(dot3(ls.ldir, n3), 0.f) * INV_PI;
+            const MatRow lr = mat_row(mat, n_mat, light_mat[ls.pick]);
+            const bool le_ok = light_seen(ls, lr);
             const float w_nee = power_heuristic(pdf_light, pb);
             const float scale = w_nee / clamp_min(pdf_light, 1e-12f);
             float contrib[4], nopl[4];
             for (int c = 0; c < 4; ++c) {
                 contrib[c] = ((tp[c] * (mr.f[c] * pb)) * (le_ok ? lr.f[4 + c] : 0.f)) * scale;
-                nopl[c] = opl[c] + ldist * ior[c];
+                nopl[c] = opl[c] + ls.ldist * ior[c];
             }
-            nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ldist, pdf_light > 1e-12f,
+            nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ls.ldist, pdf_light > 1e-12f,
                                               ndep);
         }
         for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
@@ -728,13 +939,7 @@ shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats
                      ua[2], geom, opl, max_depth, rr_start, rr_threshold);
         out.prev_light_pdf[i] = is_random ? light_pdf_next : 0.f;
     }
-    // the cast counters: one closest cast per active lane, one shadow cast per RANDOM lane
-    const int n_act = __syncthreads_count(act);
-    const int n_rand = __syncthreads_count(is_random);
-    if (threadIdx.x == 0 && n_act > 0) {
-        atomicAdd(stats, static_cast<unsigned long long>(n_act));
-        atomicAdd(stats + 1, static_cast<unsigned long long>(n_act + n_rand));
-    }
+    count_casts<1>(stats, act, is_random);   // one shadow ray per RANDOM lane
 }
 
 // The sky of the env class (render/envmap.py EnvMapArrays): an equirect
@@ -810,6 +1015,189 @@ __device__ __forceinline__ void glass_lobe(const MatRow& mr, const float* d, con
     }
 }
 
+// ---- what the env and lit shades share ----------------------------------------
+
+// wavefront.env_miss: the sky seen by an escaped lane, MIS-weighted against
+// env NEE when the sky is importance-sampled (IS) and the previous bounce
+// was a RANDOM sample; the sensor's deposit added to a.
+template <int SENSOR, int SKY, bool IS>
+__device__ __forceinline__ void miss_lane(const WaveState& in, int i, bool escaped,
+                                          const EnvMap& env, const SensorParams& sp,
+                                          const float* d, const float* tp, float* a) {
+    float dep[3];
+    bool take = false;
+    if (escaped) {
+        const float3 dv = make_float3(d[0], d[1], d[2]);
+        const float4 L = sky_radiance<SKY>(env, dv);
+        const float Lc[4] = {L.x, L.y, L.z, L.w};
+        float w_env = 1.0f;
+        if (IS && in.prev_random[i]) {
+            w_env = power_heuristic(in.prev_pdf[i], wpt_env::pdf(dv, env.pdf, env.res, env.rot));
+        }
+        float rad[4], opl0[4];
+        for (int c = 0; c < 4; ++c) {
+            rad[c] = (tp[c] * Lc[c]) * w_env;
+            opl0[c] = in.opt_len[4 * i + c];
+        }
+        take = sensor_deposit<SENSOR>(sp, rad, opl0, 0.f, true, dep);
+    }
+    for (int c = 0; c < 3; ++c) a[c] = a[c] + (take ? dep[c] : 0.f);
+}
+
+// render/bsdf.py bsdf_sample of a hit lane's own lobe: Lambertian's cosine
+// sample, GGX's VNDF sample, the mirror, and where the flags allow them
+// the glass (glass_lobe, the continued ray's IOR in new_ior), ModPhong
+// (modphong_sample, its pass-through's IOR in new_ior) and RGL
+// (materials/rgl.py rgl_sample_lanes through rgl_common.cuh: the sample in
+// the tangent frame, its direction back in the world). GGX and RGL lanes
+// set the hit's tangent frame (tb_t, tb_b) from its tangent tg, GGX lanes
+// their roughness (ax, ay): random_bsdf_eval reads them. Writes sdir,
+// atten and spdf and returns the kind; a NONE lane's keep what they held.
+template <bool HAS_GLASS, bool HAS_MODPHONG, bool HAS_RGL>
+__device__ __forceinline__ int sample_lobe(const MatRow& mr, const RglTables& rgl,
+                                           const float* tg, const float* d, const float* n3,
+                                           bool back, float t, const float* ior,
+                                           const float* u4, const float* ua, float* sdir,
+                                           float* atten, float* spdf, float* new_ior,
+                                           float* ax, float* ay, float* tb_t, float* tb_b) {
+    int kind = KIND_NONE;
+    if (mr.typ == LAMBERTIAN) {
+        cosine_direction(n3, u4[0], u4[1], sdir);
+        *spdf = clamp_min(dot3(sdir, n3), 0.f) * INV_PI;
+        for (int c = 0; c < 4; ++c) atten[c] = mr.f[c] * *spdf;
+        kind = KIND_RANDOM;
+    } else if (mr.typ == GGX) {
+        *ax = clamp_min(mr.f[8], 1e-4f);
+        *ay = clamp_min(mr.f[9], 1e-4f);
+        const float tgl[3] = {tg[0], tg[1], tg[2]};
+        onb_from_tangent(n3, tgl, tb_t, tb_b);
+        const float wo[3] = {-d[0], -d[1], -d[2]};
+        float wl[3];
+        to_local(wo, tb_t, tb_b, n3, wl);
+        wl[2] = clamp_min(wl[2], 1e-4f);
+        float m[3];
+        ggx_sample_vndf(wl, *ax, *ay, u4[0], u4[1], m);
+        const float nwl[3] = {-wl[0], -wl[1], -wl[2]};
+        float wdl[3];
+        reflect3(nwl, m, wdl);
+        *spdf = ggx_eval_local(wl, wdl, mr.f, *ax, *ay, atten);
+        to_world(wdl, tb_t, tb_b, n3, sdir);
+        kind = KIND_RANDOM;
+    } else if (mr.typ == MIRROR) {
+        reflect3(d, n3, sdir);
+        for (int c = 0; c < 4; ++c) atten[c] = mr.f[c];
+        *spdf = 1.0f;
+        kind = KIND_EXPLICIT;
+    } else if (HAS_GLASS && mr.typ == GLASS) {
+        glass_lobe(mr, d, n3, back, t, ior, ua[0], ua[1], sdir, atten, new_ior);
+        *spdf = 1.0f;
+        kind = KIND_EXPLICIT;
+    } else if (HAS_MODPHONG && mr.typ == MODPHONG) {
+        kind = modphong_sample(mr, d, n3, back, u4[0], u4[1], ua[0], ua[1], sdir, atten, spdf,
+                               new_ior);
+    } else if (HAS_RGL && mr.typ == RGL) {
+        const float tgl[3] = {tg[0], tg[1], tg[2]};
+        onb_from_tangent(n3, tgl, tb_t, tb_b);
+        const float wo[3] = {-d[0], -d[1], -d[2]};
+        float wl[3];
+        to_local(wo, tb_t, tb_b, n3, wl);
+        const int mid = min(max(__float_as_int(mr.f[22]), 0), rgl.M - 1);
+        wpt_rgl::Vec3 wsl;
+        float f[4], pr;
+        const bool ok = wpt_rgl::sample_lane(rgl, mid, {wl[0], wl[1], wl[2]}, u4[0], u4[1], &wsl,
+                                             f, &pr);
+        if (ok && !back) {
+            const float sl[3] = {wsl.x, wsl.y, wsl.z};
+            float w[3];
+            to_world(sl, tb_t, tb_b, n3, w);
+            normalize3(w, sdir);
+            for (int c = 0; c < 4; ++c) atten[c] = f[c];
+            *spdf = pr;
+            kind = KIND_RANDOM;
+        }
+    }
+    return kind;
+}
+
+// render/bsdf.py bsdf_eval toward wd on a RANDOM lane (the lane's lobe is
+// Lambertian, GGX, or where the flags allow them ModPhong or RGL): f * cos
+// [4] into f, returns the pdf. GGX and RGL read the lane's tangent frame
+// (tb_t, tb_b), GGX its roughness; RGL is evaluated inline through
+// rgl_common.cuh, zero toward a direction below the surface or from its
+// backside (materials/rgl.py rgl_eval_lanes).
+template <bool HAS_MODPHONG, bool HAS_RGL>
+__device__ __forceinline__ float random_bsdf_eval(const MatRow& mr, const RglTables& rgl,
+                                                  const float* d, const float* n3,
+                                                  const float* tb_t, const float* tb_b,
+                                                  float ax, float ay, bool back, const float* wd,
+                                                  float* f) {
+    float pdf;
+    if (mr.typ == GGX) {
+        const float wo[3] = {-d[0], -d[1], -d[2]};
+        float wl[3], wdl[3];
+        to_local(wo, tb_t, tb_b, n3, wl);
+        to_local(wd, tb_t, tb_b, n3, wdl);
+        pdf = ggx_eval_local(wl, wdl, mr.f, ax, ay, f);
+    } else if (HAS_MODPHONG && mr.typ == MODPHONG) {
+        pdf = modphong_eval(d, wd, n3, mr.f, mr.f + 12, mr.f[8], f);
+    } else if (HAS_RGL && mr.typ == RGL) {
+        const float wo[3] = {-d[0], -d[1], -d[2]};
+        float wl[3], wdl[3];
+        to_local(wo, tb_t, tb_b, n3, wl);
+        to_local(wd, tb_t, tb_b, n3, wdl);
+        const int mid = min(max(__float_as_int(mr.f[22]), 0), rgl.M - 1);
+        const float p = wpt_rgl::eval_lane(rgl, mid, {wl[0], wl[1], wl[2]},
+                                           {wdl[0], wdl[1], wdl[2]}, f);
+        const bool ok = !back && dot3(wd, n3) > 0.f;
+        for (int c = 0; c < 4; ++c) f[c] = ok ? f[c] : 0.f;
+        pdf = ok ? p : 0.f;
+    } else {   // Lambertian
+        pdf = clamp_min(dot3(wd, n3), 0.f) * INV_PI;
+        for (int c = 0; c < 4; ++c) f[c] = mr.f[c] * pdf;
+    }
+    return pdf;
+}
+
+// wavefront.env_nee up to its shadow ray: a sky sample on every lane, its
+// direction and t_max (BIG on RANDOM lanes, else 0) in row j of shadow_d
+// and shadow_tmax; on RANDOM lanes the bsdf toward it, the power-heuristic
+// weight and the sky's radiance make the pending deposit in row j.
+template <int SENSOR, int SKY, bool HAS_MODPHONG, bool HAS_RGL>
+__device__ __forceinline__ void env_nee_lane(const EnvMap& env, const SensorParams& sp,
+                                             const RglTables& rgl, long long px_id,
+                                             long long smp, long long k, bool is_random,
+                                             const MatRow& mr, const float* d, const float* n3,
+                                             const float* tb_t, const float* tb_b, float ax,
+                                             float ay, bool back, const float* tp,
+                                             const float* opl, int j, float* shadow_d,
+                                             float* shadow_tmax, float* pending) {
+    float ue[4];
+    uniform4(px_id, smp, k, SALT_ENVMAP_SAMPLE, ue);
+    float3 edir;
+    const float epdf = wpt_env::sample(ue[0], ue[1], ue[2], env.pdf, env.alias_prob,
+                                       env.alias_idx, env.res, env.rot, &edir);
+    const float ed[3] = {edir.x, edir.y, edir.z};
+    for (int c = 0; c < 3; ++c) shadow_d[3 * j + c] = ed[c];
+    shadow_tmax[j] = is_random ? BIG : 0.f;
+    bool nee_take = false;
+    float ndep[3] = {0.f, 0.f, 0.f};
+    if (is_random) {
+        float fe[4];
+        const float pb = random_bsdf_eval<HAS_MODPHONG, HAS_RGL>(mr, rgl, d, n3, tb_t, tb_b, ax,
+                                                                 ay, back, ed, fe);
+        const float w_e = power_heuristic(epdf, pb);
+        const float scale = w_e / clamp_min(epdf, 1e-12f);
+        const float4 L = sky_radiance<SKY>(env, edir);
+        const float Lc[4] = {L.x, L.y, L.z, L.w};
+        float contrib[4];
+        for (int c = 0; c < 4; ++c) contrib[c] = ((tp[c] * fe[c]) * Lc[c]) * scale;
+        nee_take = sensor_deposit<SENSOR>(sp, contrib, opl, 0.f, epdf > 1e-12f, ndep);
+    }
+    for (int c = 0; c < 3; ++c) pending[3 * j + c] = nee_take ? ndep[c] : 0.f;
+}
+
+// ---- the env class: a sky and no light ------------------------------------------
+
 // SKY: the sky's kind; IS: the sky has importance tables (MIS on a miss,
 // env NEE and its shadow ray); HAS_GLASS: the scene has glass (the lobe,
 // and a new ray IOR written on every lane).
@@ -853,43 +1241,19 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
         }
         const bool back = hit && backside[i];
         const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
+        const RglTables no_rgl{};
 
-        // 1. the sky on a miss, MIS-weighted against env NEE when the sky is
-        //    importance-sampled (wavefront.env_miss)
-        {
-            float dep[3];
-            bool take = false;
-            if (act && prim < 0) {
-                const float3 dv = make_float3(d[0], d[1], d[2]);
-                const float4 L = sky_radiance<SKY>(env, dv);
-                const float Lc[4] = {L.x, L.y, L.z, L.w};
-                float w_env = 1.0f;
-                if (IS && in.prev_random[i]) {
-                    w_env = power_heuristic(in.prev_pdf[i],
-                                            wpt_env::pdf(dv, env.pdf, env.res, env.rot));
-                }
-                float rad[4], opl0[4];
-                for (int c = 0; c < 4; ++c) {
-                    rad[c] = (tp[c] * Lc[c]) * w_env;
-                    opl0[c] = in.opt_len[4 * i + c];
-                }
-                take = sensor_deposit<SENSOR>(sp, rad, opl0, 0.f, true, dep);
-            }
-            for (int c = 0; c < 3; ++c) a[c] = a[c] + (take ? dep[c] : 0.f);
-        }
+        // 1. the sky on a miss
+        miss_lane<SENSOR, SKY, IS>(in, i, act && prim < 0, env, sp, d, tp, a);
 
-        // 2. path lengths (wurblpt.hpp:148-150)
-        const float geom = hit ? in.geom_len[i] + t : in.geom_len[i];
+        // 2. path lengths
         float opl[4];
-        for (int c = 0; c < 4; ++c) {
-            const float o_l = in.opt_len[4 * i + c];
-            opl[c] = hit ? o_l + t * ior[c] : o_l;
-        }
+        const float geom = path_lengths(in, i, hit, t, ior, opl);
 
         // 3. emission (no light, so its MIS weight is 1)
         emit_lane<SENSOR>(sp, mr, d, n3, back, tp, 1.0f, opl, t, hit, a, out.acc + 3 * i);
 
-        // 4. the bsdf sample of the lane's own lobe (render/bsdf.py bsdf_sample)
+        // 4. the bsdf sample of the lane's own lobe
         const long long px_id = pixel[i], smp = in.sample[i];
         float u4[4], ua[4];
         uniform4(px_id, smp, k, SALT_BSDF, u4);
@@ -897,83 +1261,22 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
         float sdir[3] = {n3[0], n3[1], n3[2]};
         float atten[4] = {0.f, 0.f, 0.f, 0.f};
         float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
-        float spdf = 0.f;
+        float spdf = 0.f, ax = 0.f, ay = 0.f, tb_t[3], tb_b[3];
         int kind = KIND_NONE;
-        const bool ggx = mr.typ == GGX;
-        float ax = 0.f, ay = 0.f, tb_t[3], tb_b[3];
         if (hit) {
-            if (mr.typ == LAMBERTIAN) {
-                cosine_direction(n3, u4[0], u4[1], sdir);
-                spdf = clamp_min(dot3(sdir, n3), 0.f) * INV_PI;
-                for (int c = 0; c < 4; ++c) atten[c] = mr.f[c] * spdf;
-                kind = KIND_RANDOM;
-            } else if (ggx) {
-                ax = clamp_min(mr.f[8], 1e-4f);
-                ay = clamp_min(mr.f[9], 1e-4f);
-                const float tg[3] = {tng[3 * i], tng[3 * i + 1], tng[3 * i + 2]};
-                onb_from_tangent(n3, tg, tb_t, tb_b);
-                const float wo[3] = {-d[0], -d[1], -d[2]};
-                float wl[3];
-                to_local(wo, tb_t, tb_b, n3, wl);
-                wl[2] = clamp_min(wl[2], 1e-4f);
-                float m[3];
-                ggx_sample_vndf(wl, ax, ay, u4[0], u4[1], m);
-                const float nwl[3] = {-wl[0], -wl[1], -wl[2]};
-                float wdl[3];
-                reflect3(nwl, m, wdl);
-                spdf = ggx_eval_local(wl, wdl, mr.f, ax, ay, atten);
-                to_world(wdl, tb_t, tb_b, n3, sdir);
-                kind = KIND_RANDOM;
-            } else if (mr.typ == MIRROR) {
-                reflect3(d, n3, sdir);
-                for (int c = 0; c < 4; ++c) atten[c] = mr.f[c];
-                spdf = 1.0f;
-                kind = KIND_EXPLICIT;
-            } else if (HAS_GLASS && mr.typ == GLASS) {
-                glass_lobe(mr, d, n3, back, t, ior, ua[0], ua[1], sdir, atten, new_ior);
-                spdf = 1.0f;
-                kind = KIND_EXPLICIT;
-            }
+            kind = sample_lobe<HAS_GLASS, false, false>(mr, no_rgl, tng + 3 * i, d, n3, back, t,
+                                                        ior, u4, ua, sdir, atten, &spdf, new_ior,
+                                                        &ax, &ay, tb_t, tb_b);
         }
         is_random = hit && kind == KIND_RANDOM && spdf > 0.f;
         const bool is_explicit = hit && kind == KIND_EXPLICIT;
 
-        // 5. env NEE up to the shadow ray (wavefront.env_nee), with importance
-        //    tables only: a sky sample on every lane, its bsdf and weight on
-        //    the RANDOM ones
+        // 5. env NEE up to the shadow ray, with importance tables only
+        //    (RANDOM lanes are Lambertian or GGX)
         if (IS) {
-            float ue[4];
-            uniform4(px_id, smp, k, SALT_ENVMAP_SAMPLE, ue);
-            float3 edir;
-            const float epdf = wpt_env::sample(ue[0], ue[1], ue[2], env.pdf, env.alias_prob,
-                                               env.alias_idx, env.res, env.rot, &edir);
-            const float ed[3] = {edir.x, edir.y, edir.z};
-            for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ed[c];
-            shadow_tmax[i] = is_random ? BIG : 0.f;
-            bool nee_take = false;
-            float ndep[3] = {0.f, 0.f, 0.f};
-            if (is_random) {
-                // bsdf_eval toward the sky sample (RANDOM lanes are Lambertian or GGX)
-                float fe[4], pb;
-                if (ggx) {
-                    const float wo[3] = {-d[0], -d[1], -d[2]};
-                    float wl[3], wdl[3];
-                    to_local(wo, tb_t, tb_b, n3, wl);
-                    to_local(ed, tb_t, tb_b, n3, wdl);
-                    pb = ggx_eval_local(wl, wdl, mr.f, ax, ay, fe);
-                } else {
-                    pb = clamp_min(dot3(ed, n3), 0.f) * INV_PI;
-                    for (int c = 0; c < 4; ++c) fe[c] = mr.f[c] * pb;
-                }
-                const float w_e = power_heuristic(epdf, pb);
-                const float scale = w_e / clamp_min(epdf, 1e-12f);
-                const float4 L = sky_radiance<SKY>(env, edir);
-                const float Lc[4] = {L.x, L.y, L.z, L.w};
-                float contrib[4];
-                for (int c = 0; c < 4; ++c) contrib[c] = ((tp[c] * fe[c]) * Lc[c]) * scale;
-                nee_take = sensor_deposit<SENSOR>(sp, contrib, opl, 0.f, epdf > 1e-12f, ndep);
-            }
-            for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
+            env_nee_lane<SENSOR, SKY, false, false>(env, sp, no_rgl, px_id, smp, k, is_random, mr,
+                                                    d, n3, tb_t, tb_b, ax, ay, back, tp, opl, i,
+                                                    shadow_d, shadow_tmax, pending);
         }
 
         // 6. throughput update, Russian roulette, the next state; the previous
@@ -985,29 +1288,183 @@ shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ s
             for (int c = 0; c < 4; ++c) out.ior[4 * i + c] = cont ? new_ior[c] : ior[c];
         }
     }
-    // the cast counters: one closest cast per active lane, one shadow cast per
-    // RANDOM lane when the sky is importance-sampled
-    const int n_act = __syncthreads_count(act);
-    const int n_rand = IS ? __syncthreads_count(is_random) : 0;
-    if (threadIdx.x == 0 && n_act > 0) {
-        atomicAdd(stats, static_cast<unsigned long long>(n_act));
-        atomicAdd(stats + 1, static_cast<unsigned long long>(n_act + n_rand));
-    }
+    count_casts<IS ? 1 : 0>(stats, act, is_random);   // env shadow rays with importance only
 }
 
+// ---- the lit class: triangle lights under per-light MIS beside a sky ---------
+
+// Triangle lights with the power-weighted pick (alias table) and per-light
+// MIS (render/lights.py; StepTables' light rows).
+struct Lights {
+    const float* pick_area;   // [P, 2] (pick probability, 1 / area) per prim
+    int n_pick;
+    const float* tri;         // [L, 9] p0 | e1 | e2 of each hot spot, in pick order
+    const int* mat;           // [L] material of each hot spot
+    const float* w;           // [L] pick probability
+    const float* alias_prob;  // [L]
+    const int* alias_idx;     // [L]
+    int n;
+};
+
+// One bounce of the lit class: the sky on a miss (MIS-weighted against env
+// NEE), emission with its per-light MIS weight, the sample of the lane's
+// lobe (Lambertian, GGX, mirror, glass, ModPhong, RGL inline), light NEE
+// toward a picked hot spot and env NEE toward a sky sample, each up to its
+// shadow ray and pending deposit, Russian roulette, the next state (the ray
+// IOR of glass and ModPhong's pass-through) and the cast counters. SKY: the
+// sky's kind (equirect or cube, with importance tables); HAS_RGL: the scene
+// has RGL materials (their tables in rgl). Lane i's light shadow ray is row
+// i of shadow_o / shadow_d / shadow_tmax and of pending, its env shadow ray
+// row n + i; both start at the hit position.
+template <int SENSOR, int SKY, bool HAS_RGL>
+__global__ void __launch_bounds__(BLOCK)
+shade_lit_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats, int n,
+                 const long long* __restrict__ pixel, const float* __restrict__ t_hit,
+                 const int* __restrict__ prim_hit, const float* __restrict__ pos,
+                 const float* __restrict__ nrm, const float* __restrict__ gnrm,
+                 const float* __restrict__ tng, const bool* __restrict__ backside,
+                 const int* __restrict__ mat_hit, const float* __restrict__ mat, int n_mat,
+                 Lights lights, EnvMap env, RglTables rgl, SensorParams sp, int max_depth,
+                 int rr_start, float rr_threshold, float shadow_scale, float min_hit,
+                 float* __restrict__ shadow_o, float* __restrict__ shadow_d,
+                 float* __restrict__ shadow_tmax, float* __restrict__ pending) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    bool act = false, is_random = false;
+    if (i < n) {
+        // The normal and the material feed only hit lanes; the position every
+        // lane's shadow rays; the ray IOR every lane (it is written back).
+        act = in.active[i];
+        const long long k = in.bounce[i];
+        const int prim = act ? prim_hit[i] : -1;
+        const bool hit = prim >= 0;
+        const float t = hit ? t_hit[i] : 0.f;
+        float d[3], n3[3] = {0.f, 0.f, 0.f}, p[3], tp[4], ior[4], a[3];
+        for (int c = 0; c < 3; ++c) {
+            d[c] = in.d[3 * i + c];
+            p[c] = pos[3 * i + c];
+            a[c] = in.acc[3 * i + c];
+        }
+        for (int c = 0; c < 4; ++c) {
+            tp[c] = in.throughput[4 * i + c];
+            ior[c] = in.ior[4 * i + c];
+        }
+        if (hit) {
+            for (int c = 0; c < 3; ++c) n3[c] = nrm[3 * i + c];
+        }
+        const bool back = hit && backside[i];
+        const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
+
+        // 1. the sky on a miss
+        miss_lane<SENSOR, SKY, true>(in, i, act && prim < 0, env, sp, d, tp, a);
+
+        // 2. path lengths
+        float opl[4];
+        const float geom = path_lengths(in, i, hit, t, ior, opl);
+
+        // 3. emission with its per-light MIS weight (wavefront.emit,
+        //    lights_pdf_at_hit: pick x t^2 / (|cos| area) of the prim hit)
+        float w_emit = 1.0f;
+        if (hit && in.prev_random[i]) {
+            const float* row = lights.pick_area + 2 * min(prim, lights.n_pick - 1);
+            const float g[3] = {gnrm[3 * i], gnrm[3 * i + 1], gnrm[3 * i + 2]};
+            const float cg = fabsf(dot3(d, g));
+            const float lp_hit = row[0] * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
+            w_emit = power_heuristic(in.prev_pdf[i], lp_hit);
+        }
+        emit_lane<SENSOR>(sp, mr, d, n3, back, tp, w_emit, opl, t, hit, a, out.acc + 3 * i);
+
+        // 4. the bsdf sample of the lane's own lobe
+        const long long px_id = pixel[i], smp = in.sample[i];
+        float u4[4], ua[4];
+        uniform4(px_id, smp, k, SALT_BSDF, u4);
+        uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
+        float sdir[3] = {n3[0], n3[1], n3[2]};
+        float atten[4] = {0.f, 0.f, 0.f, 0.f};
+        float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
+        float spdf = 0.f, ax = 0.f, ay = 0.f, tb_t[3] = {0.f, 0.f, 0.f},
+              tb_b[3] = {0.f, 0.f, 0.f};
+        int kind = KIND_NONE;
+        if (hit) {
+            kind = sample_lobe<true, true, HAS_RGL>(mr, rgl, tng + 3 * i, d, n3, back, t, ior, u4,
+                                                    ua, sdir, atten, &spdf, new_ior, &ax, &ay,
+                                                    tb_t, tb_b);
+        }
+        is_random = hit && kind == KIND_RANDOM && spdf > 0.f;
+        const bool is_explicit = hit && kind == KIND_EXPLICIT;
+
+        // 5. light NEE up to its shadow ray, row i (wavefront.light_nee, per
+        //    light; render/lights.py lights_sample, light_emitted_at)
+        {
+            float u3[4];
+            uniform4(px_id, smp, k, SALT_NEE_SAMPLE, u3);
+            const LightSample ls = light_sample(u3, p, lights.tri, lights.alias_prob,
+                                                lights.alias_idx, lights.n, shadow_scale,
+                                                min_hit);
+            for (int c = 0; c < 3; ++c) {
+                shadow_o[3 * i + c] = p[c];
+                shadow_d[3 * i + c] = ls.ldir[c];
+            }
+            shadow_tmax[i] = is_random ? ls.t_vis : 0.f;
+            bool nee_take = false;
+            float ndep[3] = {0.f, 0.f, 0.f};
+            if (is_random) {
+                const float pdf_light = lights.w[ls.pick] * ls.pdf_sa;
+                float fl[4];
+                const float pb = random_bsdf_eval<true, HAS_RGL>(mr, rgl, d, n3, tb_t, tb_b, ax,
+                                                                 ay, back, ls.ldir, fl);
+                const MatRow lr = mat_row(mat, n_mat, lights.mat[ls.pick]);
+                const bool le_ok = light_seen(ls, lr);
+                const float w_nee = power_heuristic(pdf_light, pb);
+                const float scale = w_nee / clamp_min(pdf_light, 1e-12f);
+                float contrib[4], nopl[4];
+                for (int c = 0; c < 4; ++c) {
+                    contrib[c] = ((tp[c] * fl[c]) * (le_ok ? lr.f[4 + c] : 0.f)) * scale;
+                    nopl[c] = opl[c] + ls.ldist * ior[c];
+                }
+                nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ls.ldist,
+                                                  pdf_light > 1e-12f, ndep);
+            }
+            for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
+        }
+
+        // 6. env NEE up to its shadow ray, row n + i
+        const int j = n + i;
+        for (int c = 0; c < 3; ++c) shadow_o[3 * j + c] = p[c];
+        env_nee_lane<SENSOR, SKY, true, HAS_RGL>(env, sp, rgl, px_id, smp, k, is_random, mr, d,
+                                                 n3, tb_t, tb_b, ax, ay, back, tp, opl, j,
+                                                 shadow_d, shadow_tmax, pending);
+
+        // 7. throughput update, Russian roulette, the next state; the ray IOR
+        //    of glass and of ModPhong's pass-through; no mixture pdf (per light)
+        advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random,
+                     is_explicit, ua[2], geom, opl, max_depth, rr_start, rr_threshold);
+        const bool cont = is_random || is_explicit;
+        for (int c = 0; c < 4; ++c) out.ior[4 * i + c] = cont ? new_ior[c] : ior[c];
+        out.prev_light_pdf[i] = 0.f;
+    }
+    count_casts<2>(stats, act, is_random);   // the light's and the sky's shadow rays
+}
+
+// n_pend pending deposits per lane (none, one, or the lit class's light and
+// env deposits), lane i's q-th in row q n + i of pending and occluded,
+// added in that order.
 __global__ void __launch_bounds__(256)
 resolve_kernel(const float* __restrict__ acc, const float* __restrict__ pending,
-               const bool* __restrict__ occluded, const bool* __restrict__ active,
+               const bool* __restrict__ occluded, int n_pend, const bool* __restrict__ active,
                const long long* __restrict__ k_next, int n, int n_acc, long long blk, int B,
                long long P, long long n_pix, float* __restrict__ out, int* __restrict__ work) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     bool busy = false;
     if (i < n) {
-        if (pending != nullptr) {
-            const bool occ = occluded[i];
+        if (n_pend > 0) {
             for (int c = 0; c < n_acc; ++c) {
                 const long long j = static_cast<long long>(i) * n_acc + c;
-                out[j] = acc[j] + (occ ? 0.f : pending[j]);
+                float s = acc[j];
+                for (int q = 0; q < n_pend; ++q) {
+                    const long long r = static_cast<long long>(q) * n + i;
+                    s = s + (occluded[r] ? 0.f : pending[r * n_acc + c]);
+                }
+                out[j] = s;
             }
         }
         const long long pixel = blk * B + i % B;
@@ -1027,8 +1484,25 @@ extern "C" int wpt_regen_pinhole(const WaveState* in, const WaveState* out, floa
                                  void* stream) {
     if (lens < LENS_NONE || lens > LENS_OPENCV || iters < 0) return -1;
     if (n > 0) {
-        const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters};
-        regen_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
+                         nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+        regen_kernel<CAM_PINHOLE><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+            *in, *out, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wpt_regen_surround(const WaveState* in, const WaveState* out, float* t_max, int n,
+                                  const float* translation, const float* rotation,
+                                  const float* scale, const float* eye_distance, float span,
+                                  float inv_width, float inv_eff_height, int stereo, long long blk,
+                                  int B, int m, long long P, long long n_pix, int width,
+                                  int height, int ssqrt, int randomize, void* stream) {
+    if (height < (stereo ? 2 : 1) || width < 1) return -1;
+    if (n > 0) {
+        const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
+                         scale, eye_distance, span, inv_width, inv_eff_height, stereo};
+        regen_kernel<CAM_SURROUND><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
             *in, *out, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
     }
     return static_cast<int>(cudaGetLastError());
@@ -1111,15 +1585,66 @@ extern "C" int wpt_shade_env(
     return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int wpt_shade_lit(
+    const WaveState* in, const WaveState* out, long long* stats, int n, const long long* pixel,
+    const float* t, const int* prim, const float* pos, const float* nrm, const float* gnrm,
+    const float* tng, const bool* backside, const int* mat_hit, const float* mat, int n_mat,
+    const float* pick_area, int n_pick, const float* light_tri, const int* light_mat,
+    const float* light_w, const float* alias_prob, const int* alias_idx, int n_lights, int sky,
+    const float* img, int h, int w, const float* pdf, const float* env_alias_prob,
+    const int* env_alias_idx, int res, const float* rot, const RglTables* rgl, int sensor,
+    const float* sensor_params, int max_depth, int rr_start, float rr_threshold,
+    float shadow_scale, float min_hit, float* shadow_o, float* shadow_d, float* shadow_tmax,
+    float* pending, void* stream) {
+    // The class's skies: an equirect or a cube sky with importance tables.
+    if (n_lights < 1 || n_pick < 1 || (sky != SKY_EQUIRECT && sky != SKY_CUBE) || res < 1 ||
+        h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF) ||
+        (rgl != nullptr && rgl->M < 1) || n > (1 << 28))   // rows 3 (n + i) stay in an int
+        return -1;
+    if (n > 0) {
+        SensorParams sp;
+        for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
+        const Lights lights{pick_area, n_pick, light_tri, light_mat, light_w, alias_prob,
+                            alias_idx, n_lights};
+        const EnvMap env{reinterpret_cast<const float4*>(img), h, w, nullptr, pdf, env_alias_prob,
+                         env_alias_idx, res, rot};
+        const RglTables tables = rgl != nullptr ? *rgl : RglTables{};
+        const int grid = (n + BLOCK - 1) / BLOCK;
+        cudaStream_t s = static_cast<cudaStream_t>(stream);
+        unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
+#define WPT_SHADE_LIT(SENSOR, SKY, RGL_T)                                                       \
+    shade_lit_kernel<SENSOR, SKY, RGL_T><<<grid, BLOCK, 0, s>>>(                                \
+        *in, *out, st, n, pixel, t, prim, pos, nrm, gnrm, tng, backside, mat_hit, mat, n_mat,  \
+        lights, env, tables, sp, max_depth, rr_start, rr_threshold, shadow_scale, min_hit,     \
+        shadow_o, shadow_d, shadow_tmax, pending)
+#define WPT_SHADE_LIT_SKY(SENSOR, RGL_T)                                                        \
+    if (sky == SKY_EQUIRECT) WPT_SHADE_LIT(SENSOR, SKY_EQUIRECT, RGL_T);                        \
+    else WPT_SHADE_LIT(SENSOR, SKY_CUBE, RGL_T)
+        if (sensor == SENSOR_RGB) {
+            if (rgl != nullptr) { WPT_SHADE_LIT_SKY(SENSOR_RGB, true); }
+            else { WPT_SHADE_LIT_SKY(SENSOR_RGB, false); }
+        } else {
+            if (rgl != nullptr) { WPT_SHADE_LIT_SKY(SENSOR_TOF, true); }
+            else { WPT_SHADE_LIT_SKY(SENSOR_TOF, false); }
+        }
+#undef WPT_SHADE_LIT_SKY
+#undef WPT_SHADE_LIT
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int wpt_nee_resolve(const float* acc, const float* pending, const bool* occluded,
-                               const bool* active, const long long* k_next, int n, int n_acc,
-                               long long blk, int B, long long P, long long n_pix, float* out,
-                               int* work, void* stream) {
+                               int n_pend, const bool* active, const long long* k_next, int n,
+                               int n_acc, long long blk, int B, long long P, long long n_pix,
+                               float* out, int* work, void* stream) {
+    if (n_pend < 0 || n_pend > 2 || (n_pend > 0) != (pending != nullptr && occluded != nullptr))
+        return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaMemsetAsync(work, 0, sizeof(int), s);
     if (n > 0) {
-        resolve_kernel<<<(n + 255) / 256, 256, 0, s>>>(acc, pending, occluded, active, k_next, n,
-                                                      n_acc, blk, B, P, n_pix, out, work);
+        resolve_kernel<<<(n + 255) / 256, 256, 0, s>>>(acc, pending, occluded, n_pend, active,
+                                                      k_next, n, n_acc, blk, B, P, n_pix, out,
+                                                      work);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -472,14 +472,14 @@ def rgl_sample_plain(tables: RGLTables, mid, wi, u2):
 # ---------------------------------------------------------------------------
 
 class _CTables(ctypes.Structure):
-    """struct RglTables of csrc/rgl.cu: 18 device pointers, then the padded sizes."""
+    """struct RglTables of csrc/rgl_common.cuh: 18 device pointers, then the padded sizes."""
 
     _fields_ = ([(k, ctypes.c_void_p) for k in RGLTables._fields]
                 + [(k, ctypes.c_int) for k in ("M", "P", "T", "Hn", "Wn", "Hs", "Ws", "Hv", "Wv",
                                                "Hl", "Wl")])
 
 
-def _c_tables(t: RGLTables) -> _CTables:
+def c_tables(t: RGLTables) -> _CTables:
     for k, x in zip(RGLTables._fields, t):
         if x.device != t.device or not x.is_contiguous():
             raise ValueError(f"RGL table {k}: need contiguous tensors on one device")
@@ -513,7 +513,7 @@ def rgl_eval(tables: RGLTables, mid, wi, wo):
     n = mid.shape[0]
     fcos = torch.empty((n, 4), dtype=torch.float32, device=mid.device)
     pdf = torch.empty((n,), dtype=torch.float32, device=mid.device)
-    ct = _c_tables(tables)
+    ct = c_tables(tables)
     code = lib.wpt_rgl_eval(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(), wo.data_ptr(),
                             n, fcos.data_ptr(), pdf.data_ptr(), native.stream_ptr(mid))
     native.check(code, "rgl_eval")
@@ -533,7 +533,7 @@ def rgl_sample(tables: RGLTables, mid, wi, u2):
     fcos = torch.empty((n, 4), dtype=torch.float32, device=dev)
     pdf = torch.empty((n,), dtype=torch.float32, device=dev)
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
-    ct = _c_tables(tables)
+    ct = c_tables(tables)
     code = lib.wpt_rgl_sample(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(), u2.data_ptr(),
                               n, wo.data_ptr(), fcos.data_ptr(), pdf.data_ptr(), ok.data_ptr(),
                               native.stream_ptr(mid))

@@ -40,7 +40,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
            "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu")
-HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh")
+HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh", "rgl_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libwpt_kernels.so"
@@ -51,8 +51,8 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "bvh_closest_hit": 0,
             "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
-            "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "shade_diffuse": 0,
-            "shade_env": 0, "nee_resolve": 0}
+            "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
+            "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -78,11 +78,16 @@ _SIGNATURES = {
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
     "wpt_regen_pinhole": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _I,
                           _I, _I, _I, _P],
+    "wpt_regen_surround": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I, _L, _I, _I, _L, _L, _I,
+                           _I, _I, _I, _P],
     "wpt_shade_diffuse": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     "wpt_shade_env": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
                       _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _P],
-    "wpt_nee_resolve": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
+    "wpt_shade_lit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
+                      _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _F,
+                      _F, _F, _P, _P, _P, _P, _P],
+    "wpt_nee_resolve": [_P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
 }
 
 

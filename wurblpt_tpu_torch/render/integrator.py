@@ -18,18 +18,23 @@ Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
   7. throughput update and Russian roulette.
 
 Two routes take a step, chosen once per render from the scene and the
-camera (`wavefront.diffuse_class`, `wavefront.env_class`):
+camera (`wavefront.diffuse_class`, `wavefront.env_class`,
+`wavefront.lit_class`):
 
-* K4 (:mod:`.wavefront`), seen by a mono pinhole camera with or without a
-  lens model, for two classes of scenes: the diffuse class (Lambertian
-  surfaces, triangle lights, no sky; the cornell and tof_amcw paths) and
-  the env class (Lambertian, GGX, mirror and glass surfaces, triangles and
-  analytic spheres, under an equirect, cube or constant sky, no light,
-  brute force or a BVH; the bvh_100k, envmap_cube_is and rtiow_distortion
-  paths). A step is the regeneration, the scene's closest-hit cast (K1 or
-  K5), K3, the class's shade (`shade_diffuse`, `shade_env`), the scene's
-  any-hit cast (K2 or K6) on its shadow rays and the NEE resolve: ~7
-  launches, ~6 without shadow rays;
+* K4 (:mod:`.wavefront`), for three classes of scenes: the diffuse class
+  (Lambertian surfaces, triangle lights, no sky; the cornell and tof_amcw
+  paths), the env class (Lambertian, GGX, mirror and glass surfaces,
+  triangles and analytic spheres, under an equirect, cube or constant sky,
+  no light, brute force or a BVH; the bvh_100k, envmap_cube_is and
+  rtiow_distortion paths), both seen by a mono pinhole camera with or
+  without a lens model, and the lit class (those surfaces, ModPhong and
+  RGL, triangle lights under per-light MIS beside an importance-sampled
+  sky; the city_many_lights path), seen by a pinhole or a surround camera,
+  mono or stereo. A step is the regeneration, the scene's closest-hit cast
+  (K1 or K5), K3, the class's shade (`shade_diffuse`, `shade_env`,
+  `shade_lit`), the scene's any-hit cast (K2 or K6) on its shadow rays
+  (the lit class's light and sky shadow rays in one cast) and the NEE
+  resolve: ~7 launches, ~6 without shadow rays;
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
   K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
@@ -75,13 +80,13 @@ from .wavefront import (
     env_miss,
     env_nee,
     env_scene,
+    k4_route,
     light_nee,
+    lit_class,
+    lit_scene,
     nee_resolve,
     path_lengths,
-    regen_pinhole,
     regen_plain,
-    shade_diffuse,
-    shade_env,
 )
 
 
@@ -121,7 +126,8 @@ def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
         accel=scene.bvh if scene.has_bvh else build_brute_scene(scene),
         hit=build_hit_tables(scene), mat=mat, pick_area=pick_area,
         step=(build_step_tables(scene, static, mat, pick_area)
-              if diffuse_scene(scene, static) or env_scene(scene, static) else None))
+              if (diffuse_scene(scene, static) or env_scene(scene, static)
+                  or lit_scene(scene, static)) else None))
 
 
 def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables, sensor,
@@ -207,26 +213,29 @@ def _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
 
 
 def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
-    """The step through K4: regeneration (wpt_regen_pinhole), the scene's
-    closest-hit cast (K1 or K5), K3, the class's shade (wpt_shade_diffuse or
-    wpt_shade_env), the scene's any-hit cast (K2 or K6) on its shadow rays
+    """The step through K4 (`wavefront.k4_route`): regeneration
+    (wpt_regen_pinhole or wpt_regen_surround), the scene's closest-hit cast
+    (K1 or K5), K3, the class's shade (wpt_shade_diffuse, wpt_shade_env or
+    wpt_shade_lit), the scene's any-hit cast (K2 or K6) on its shadow rays
     and the NEE resolve (wpt_nee_resolve), which also evaluates the loop
-    condition; one host sync reads it. A scene that casts no shadow ray (no
-    light, a sky without importance tables) skips the any-hit cast, and its
-    resolve evaluates the loop condition alone."""
+    condition; one host sync reads it. A scene that casts no shadow ray (no light, a sky without
+    importance tables) skips the any-hit cast, and its resolve evaluates the
+    loop condition alone; the lit class casts its light and sky shadow rays
+    (2 L, from the origins its shade writes) in one any-hit cast."""
     accel, ht, step_tables = tables.accel, tables.hit, tables.step
-    shade = shade_diffuse if step_tables.env is None else shade_env
-    t_min = torch.full((L,), params.min_hit_distance, dtype=torch.float32, device=scene.device)
+    route = k4_route(step_tables, cam_cfg)
+    t_min = torch.full((route.shadow_rows * L,), params.min_hit_distance, dtype=torch.float32,
+                       device=scene.device)
 
     def step(ls, sample, k_next, lanes):
-        ls, sample, k_next, t_max = regen_pinhole(ls, sample, k_next, cam, cam_cfg, lanes,
-                                                  params.randomize_ray_over_pixel)
-        t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min, t_max)
+        ls, sample, k_next, t_max = route.regen(ls, sample, k_next, cam, cam_cfg, lanes,
+                                                params.randomize_ray_over_pixel)
+        t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min[:L], t_max)
         hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v)
-        ls, shadow_d, shadow_tmax, pending = shade(step_tables, sensor, params, ls, lanes.pixel,
-                                                   sample, t, prim, hr)
+        ls, shadow_o, shadow_d, shadow_tmax, pending = route.shade(
+            step_tables, sensor, params, ls, lanes.pixel, sample, t, prim, hr)
         occluded = (None if shadow_tmax is None
-                     else scene_any_hit(accel, hr.position, shadow_d, t_min, shadow_tmax))
+                     else scene_any_hit(accel, shadow_o, shadow_d, t_min, shadow_tmax))
         acc, work = nee_resolve(ls.acc, pending, occluded, ls.active, k_next, lanes)
         return ls._replace(acc=acc), sample, k_next, bool(work.item())
 
@@ -317,7 +326,8 @@ def render_frame_wavefront(
 
     if tables is None:
         tables = prepare_scene(scene, static)
-    k4 = diffuse_class(scene, static, cam_cfg) or env_class(scene, static, cam_cfg)
+    k4 = (diffuse_class(scene, static, cam_cfg) or env_class(scene, static, cam_cfg)
+          or lit_class(scene, static, cam_cfg))
     make_step = _make_k4_step if k4 else _make_generic_step
     step = make_step(scene, static, tables, sensor, params, cam, cam_cfg, L)
     run_block = _make_run_block(step, sensor, width, height, samples_sqrt, B, m, P, n_pix,

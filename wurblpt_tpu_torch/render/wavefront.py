@@ -1,19 +1,26 @@
-"""K4: one wavefront step as hand-written kernels, for two classes of scenes.
+"""K4: one wavefront step as hand-written kernels, for three classes of scenes.
 
 Port of the JAX package's bounce body (``wurblpt_tpu/render/integrator.py``
-:400-752, `_make_bounce_fn`) and its regeneration (:973-1013), seen by a
-mono pinhole camera with or without one of the three lens models, for
+:400-752, `_make_bounce_fn`) and its regeneration (:973-1013), for
 
 * the diffuse class (`diffuse_class`): Lambertian surfaces; diffuse, spot
   and ToF triangle lights with mixture or per-light MIS; no sky;
 * the env class (`env_class`): Lambertian, GGX, mirror and glass surfaces,
   triangles and analytic spheres, under an equirect, cube or constant sky
-  with or without importance tables; no light; brute force or a BVH.
+  with or without importance tables; no light; brute force or a BVH;
+* the lit class (`lit_class`): Lambertian, GGX, mirror, glass, ModPhong
+  and measured-RGL surfaces with triangle lights under per-light MIS beside
+  an equirect or cube sky with importance tables (the city); brute force
+  or a BVH.
 
-One step is
+The diffuse and env classes are seen by a mono pinhole camera with or
+without one of the three lens models; the lit class also by a surround
+camera, mono or stereo. One step is
 
-    wpt_regen_pinhole  refill dead lanes with their pixel's next sample
-                       (the lens model's inverse inside)
+    the regeneration   refill dead lanes with their pixel's next sample:
+                       wpt_regen_pinhole (the lens model's inverse inside)
+                       or wpt_regen_surround (the 180/360-degree camera,
+                       stereo halves and eye offsets)
     closest hit        K1 (brute force) or K5 (BVH), then K3 hit assembly
     the shade          wpt_shade_diffuse: emission with its MIS weight, the
                        Lambertian sample, light NEE (the shadow ray and its
@@ -23,17 +30,26 @@ One step is
                        emission, the Lambertian / GGX / mirror / glass
                        sample, env NEE (the shadow ray to BIG and its
                        pending deposit) when the sky is importance-sampled,
-                       Russian roulette, the next state, the cast counters
-    any hit            K2 or K6 on the shadow rays (none without NEE)
-    wpt_nee_resolve    add the pending deposits of unoccluded lanes; flag
-                       whether any lane still has work (the loop condition)
+                       Russian roulette, the next state, the cast counters;
+                       wpt_shade_lit: the sky on a miss, emission with its
+                       per-light MIS weight, the sample of every lobe above
+                       (ModPhong with its opacity pass-through, RGL through
+                       K7's arithmetic inline), light NEE and env NEE (two
+                       shadow rays and two pending deposits per lane),
+                       Russian roulette, the next state, the counters
+    any hit            K2 or K6 on the shadow rays (none without NEE; the
+                       lit class's two kinds in one cast of 2 N rays)
+    wpt_nee_resolve    add the pending deposits of unoccluded lanes (the
+                       light's, then the sky's); flag whether any lane still
+                       has work (the loop condition)
 
-`regen_pinhole`, `shade_diffuse`, `shade_env` and `nee_resolve` launch the
-kernels of ``csrc/wavefront.cu`` on CUDA tensors and run their plain
-versions (`regen_plain`, `shade_diffuse_plain`, `shade_env_plain`,
+`regen_pinhole`, `regen_surround`, `shade_diffuse`, `shade_env`,
+`shade_lit` and `nee_resolve` launch the kernels of ``csrc/wavefront.cu``
+on CUDA tensors and run their plain versions (`regen_plain`,
+`shade_diffuse_plain`, `shade_env_plain`, `shade_lit_plain`,
 `nee_resolve_plain`) on CPU tensors. The plain versions are built from the
 helpers of the generic torch-op bounce (`emit`, `light_nee`, `env_miss`,
-`env_nee`, `advance`, here), which keeps serving the scenes outside both
+`env_nee`, `advance`, here), which keeps serving the scenes outside the
 classes, so both routes compute the same thing in the same order.
 """
 
@@ -41,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +66,7 @@ from .. import native
 from ..core.rng import Salt, uniform2, uniform4
 from ..core.sampler import power_heuristic
 from ..core.vecmath import cross, dot
+from ..materials.rgl import RGLTables, c_tables
 from ..scene.ir import EnvMapArrays, MaterialFlags, MaterialType, SceneArrays
 from .bsdf import (
     LIGHT_MATERIALS,
@@ -75,6 +92,7 @@ from .sensor import SensorEvent, SensorRGB, SensorTofAmcw
 DIFFUSE_MATERIALS = frozenset({MaterialType.LAMBERTIAN}) | LIGHT_MATERIALS
 ENV_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
                            MaterialType.GLASS})
+LIT_MATERIALS = ENV_MATERIALS | {MaterialType.MODPHONG, MaterialType.RGL} | LIGHT_MATERIALS
 
 class LoopState(NamedTuple):
     """Per-lane path state of the wavefront (the JAX package's integrator._LoopState)."""
@@ -147,11 +165,31 @@ def env_scene(scene: SceneArrays, static: SceneStatic) -> bool:
             and static.env_kind != 0)
 
 
+def lit_scene(scene: SceneArrays, static: SceneStatic) -> bool:
+    """Whether a scene is of the lit class: Lambertian, GGX, mirror, glass,
+    ModPhong and RGL surfaces (RGL with its tables) with triangle lights
+    under per-light MIS and a power-weighted pick, beside an equirect or
+    cube sky with importance tables; no texture, animation or medium; the
+    brute-force intersector or a BVH of triangles."""
+    return (static.mat_types <= LIT_MATERIALS and static.n_lights > 0 and static.per_light_mis
+            and not (static.has_textures or static.has_anim or static.has_media
+                     or static.bvh_spheres or static.sphere_lights)
+            and static.env_kind in (1, 2) and static.env_importance
+            and scene.light_alias_prob is not None and scene.light_weights is not None
+            and (MaterialType.RGL not in static.mat_types or static.rgl_tables))
+
+
 def _pinhole(cam_cfg: CameraConfig) -> bool:
     """A mono pinhole camera, with or without a lens model, without depth of
     field or animation."""
     return (cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo and not cam_cfg.dof
             and cam_cfg.anim_id < 0)
+
+
+def _surround(cam_cfg: CameraConfig) -> bool:
+    """A 180- or 360-degree surround camera, mono or stereo, without depth of
+    field or animation."""
+    return cam_cfg.surround != SurroundMode.OFF and not cam_cfg.dof and cam_cfg.anim_id < 0
 
 
 def diffuse_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
@@ -165,6 +203,13 @@ def env_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) ->
     """Whether a scene and camera take K4 with the env shade: a scene of the
     env class (`env_scene`) seen by a mono pinhole camera (`_pinhole`)."""
     return env_scene(scene, static) and _pinhole(cam_cfg)
+
+
+def lit_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) -> bool:
+    """Whether a scene and camera take K4 with the lit shade: a scene of the
+    lit class (`lit_scene`) seen by a mono pinhole camera (`_pinhole`) or a
+    surround camera, mono or stereo (`_surround`)."""
+    return lit_scene(scene, static) and (_pinhole(cam_cfg) or _surround(cam_cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -382,8 +427,8 @@ def regen_plain(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camer
 
 class StepTables(NamedTuple):
     """Loop-invariant inputs of K4's shades. The plain versions read the
-    scene's arrays (`scene`, `mat`, `pick_area`, `env`), the kernels the
-    packed rows. The env class has no light: its light rows are empty."""
+    scene's arrays (`scene`, `mat`, `pick_area`, `env`, `rgl`), the kernels
+    the packed rows. The env class has no light: its light rows are empty."""
 
     scene: SceneArrays
     mat: torch.Tensor          # [M, 23] packed material rows (bsdf.pack_material_table)
@@ -393,19 +438,21 @@ class StepTables(NamedTuple):
     light_w: torch.Tensor      # [L] f32 pick probability
     alias_prob: torch.Tensor   # [L] f32
     alias_idx: torch.Tensor    # [L] int32
-    # The sky of the env class (None for the diffuse class): its kind, the
-    # equirect image or the cube faces, the constant radiance, and the
-    # importance tables when it has them (`env.importance`).
+    # The sky of the env and lit classes (None for the diffuse class): its
+    # kind, the equirect image or the cube faces, the constant radiance, and
+    # the importance tables when it has them (`env.importance`).
     env: Optional[EnvMapArrays]
     mat_types: frozenset
     n_lights: int
     per_light: bool
+    # The RGL tables of a lit-class scene with RGL materials (else None).
+    rgl: Optional[RGLTables] = None
 
 
 def build_step_tables(scene: SceneArrays, static: SceneStatic, mat, pick_area) -> StepTables:
-    """The step tables of a scene of the diffuse or the env class, from its
-    packed material rows `mat` and its per-light MIS rows `pick_area` (None
-    with mixture MIS or without lights)."""
+    """The step tables of a scene of the diffuse, the env or the lit class,
+    from its packed material rows `mat` and its per-light MIS rows
+    `pick_area` (None with mixture MIS or without lights)."""
     dev = scene.device
     if pick_area is None:
         pick_area = torch.zeros((1, 2), dtype=torch.float32, device=dev)
@@ -421,10 +468,12 @@ def build_step_tables(scene: SceneArrays, static: SceneStatic, mat, pick_area) -
                   T.mat[lp].to(torch.int32).contiguous(), scene.light_weights.contiguous(),
                   scene.light_alias_prob.contiguous(),
                   scene.light_alias_idx.to(torch.int32).contiguous())
+    lit = lit_scene(scene, static)
     return StepTables(scene, mat, pick_area, *lights,
-                      env=scene.envmap if env_scene(scene, static) else None,
+                      env=scene.envmap if lit or env_scene(scene, static) else None,
                       mat_types=static.mat_types, n_lights=static.n_lights,
-                      per_light=static.per_light_mis)
+                      per_light=static.per_light_mis,
+                      rgl=scene.rgl if lit and MaterialType.RGL in static.mat_types else None)
 
 
 def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t,
@@ -432,9 +481,10 @@ def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel
     """Plain version of wpt_shade_diffuse: one bounce of the diffuse class
     after the closest hit (t, prim) and its hit record `hr`.
 
-    Returns (state, shadow direction [N, 3], shadow t_max [N], pending
-    deposit [N, n_acc]); the counters of st.stats grow in place by the
-    closest casts (active lanes) and the shadow casts (RANDOM lanes)."""
+    Returns (state, shadow origin [N, 3] (the hit position), shadow
+    direction [N, 3], shadow t_max [N], pending deposit [N, n_acc]); the
+    counters of st.stats grow in place by the closest casts (active lanes)
+    and the shadow casts (RANDOM lanes)."""
     k = st.bounce
     hit = (prim >= 0) & st.active
     mrow = gather_material_rows(tables.mat, hr.mat)
@@ -454,7 +504,7 @@ def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel
                   opt_len, light_pdf_next)
     n_closest = st.active.sum()
     st.stats.add_(torch.stack([n_closest, n_closest + is_random.sum()]))
-    return new, ldir, t_shadow, pending
+    return new, hr.position, ldir, t_shadow, pending
 
 
 def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
@@ -462,11 +512,12 @@ def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sa
     """Plain version of wpt_shade_env: one bounce of the env class after the
     closest hit (t, prim) and its hit record `hr` (its tangent included).
 
-    Returns (state, shadow direction [N, 3], shadow t_max [N], pending
-    deposit [N, n_acc]), the last three None when the sky has no importance
-    tables (no lane casts a shadow ray); the counters of st.stats grow in
-    place by the closest casts (active lanes) and the env shadow casts
-    (RANDOM lanes, with importance tables)."""
+    Returns (state, shadow origin [N, 3] (the hit position), shadow
+    direction [N, 3], shadow t_max [N], pending deposit [N, n_acc]), the
+    last four None when the sky has no importance tables (no lane casts a
+    shadow ray); the counters of st.stats grow in place by the closest
+    casts (active lanes) and the env shadow casts (RANDOM lanes, with
+    importance tables)."""
     k = st.bounce
     hit = (prim >= 0) & st.active
     importance = tables.env.importance
@@ -479,8 +530,9 @@ def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sa
     sr = bsdf_sample(hr, st.d, st.ior, u4, u_aux[:, 0], u_aux[:, 1], mrow, tables.mat_types)
     is_random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
     is_explicit = hit & (sr.kind == ScatterKind.EXPLICIT)
-    edir = t_shadow = pending = None
+    origin = edir = t_shadow = pending = None
     if importance:
+        origin = hr.position
         ue = uniform4(pixel, sample, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
         edir, t_shadow, pending = env_nee(sensor, tables.env, st, hr, mrow, tables.mat_types,
                                           None, ue, is_random, geom_len, opt_len)
@@ -489,18 +541,64 @@ def shade_env_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sa
     n_closest = st.active.sum()
     n_shadow = is_random.sum() if importance else torch.zeros_like(n_closest)
     st.stats.add_(torch.stack([n_closest, n_closest + n_shadow]))
-    return new, edir, t_shadow, pending
+    return new, origin, edir, t_shadow, pending
+
+
+def shade_lit_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+                    hr: HitRecord):
+    """Plain version of wpt_shade_lit: one bounce of the lit class after the
+    closest hit (t, prim) and its hit record `hr` (its geometric normal and
+    tangent included), as the generic bounce takes it: the sky on a miss,
+    emission with its per-light MIS weight, the bsdf sample, light NEE, env
+    NEE, the roulette and the next state.
+
+    Returns (state, shadow origins [2N, 3], shadow directions [2N, 3],
+    shadow t_max [2N], pending deposits [2N, n_acc]): rows i the light's
+    shadow ray of lane i, rows N + i its sky's. The counters of st.stats
+    grow in place by the closest casts (active lanes) and two shadow casts
+    per RANDOM lane."""
+    k = st.bounce
+    hit = (prim >= 0) & st.active
+    acc = env_miss(sensor, st.acc, st, tables.env, prim, True)
+    mrow = gather_material_rows(tables.mat, hr.mat)
+    geom_len, opt_len = path_lengths(st, hit, t)
+    acc = emit(sensor, acc, st, hr, mrow, t, prim, hit, geom_len, opt_len, tables.n_lights,
+               tables.pick_area)
+    u4 = uniform4(pixel, sample, k, Salt.BSDF)
+    u_aux = uniform4(pixel, sample, k, Salt.BSDF_AUX)
+    sr = bsdf_sample(hr, st.d, st.ior, u4, u_aux[:, 0], u_aux[:, 1], mrow, tables.mat_types,
+                     rgl=tables.rgl)
+    is_random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
+    is_explicit = hit & (sr.kind == ScatterKind.EXPLICIT)
+    u3 = uniform4(pixel, sample, k, Salt.NEE_SAMPLE)[:, :3]
+    ldir, t_light, pend_light, light_pdf_next = light_nee(
+        tables.scene, sensor, params, st, hr, mrow, tables.mat_types, tables.rgl, sr.direction,
+        is_random, geom_len, opt_len, u3, tables.mat, True)
+    ue = uniform4(pixel, sample, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
+    edir, t_env, pend_env = env_nee(sensor, tables.env, st, hr, mrow, tables.mat_types,
+                                    tables.rgl, ue, is_random, geom_len, opt_len)
+    new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc, geom_len,
+                  opt_len, light_pdf_next)
+    n_closest = st.active.sum()
+    st.stats.add_(torch.stack([n_closest, n_closest + 2 * is_random.sum()]))
+    return (new, torch.cat([hr.position, hr.position]), torch.cat([ldir, edir]),
+            torch.cat([t_light, t_env]), torch.cat([pend_light, pend_env]))
 
 
 def nee_resolve_plain(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     """Plain version of wpt_nee_resolve: acc + pending where the shadow ray is
     not occluded, and whether any lane of the block has work left (an active
     path, or samples to start): the wavefront loop's condition. A step that
-    casts no shadow ray passes no pending deposit (None) and gets acc back.
+    casts no shadow ray passes no pending deposit (None) and gets acc back;
+    the lit class passes two per lane (pending [2N, n_acc], occluded [2N]:
+    the light's rows first), added in that order, as the generic bounce
+    adds its light deposit before its sky's.
 
     Returns (acc, work [1] int32)."""
     if pending is not None:
-        acc = deposit_unoccluded(acc, pending, occluded)
+        n = acc.shape[0]
+        for q in range(pending.shape[0] // n):
+            acc = deposit_unoccluded(acc, pending[q * n:(q + 1) * n], occluded[q * n:(q + 1) * n])
     work = active.any() | ((k_next < lanes.P) & lanes.valid).any()
     return acc, work.to(torch.int32).reshape(1)
 
@@ -607,6 +705,52 @@ def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Cam
     return out, out_sample, out_k, t_max
 
 
+def _surround_camera(cam: CameraParams, cam_cfg: CameraConfig, width: int, height: int, device):
+    """The surround camera's arguments of wpt_regen_surround: the device
+    pointers of its translation [3], rotation [4], scale [3] and eye
+    distance [1] (float32 tensors on `device`), then the span, float32(1) /
+    width and float32(1) / the height of one eye's half (the factors
+    camera_rays multiplies by) and the stereo flag."""
+    tf = cam.transformation
+    parts = (tf.translation, tf.rotation, tf.scale, cam.eye_distance)
+    for x, numel in zip(parts, (3, 4, 3, 1)):
+        if (x.dtype != torch.float32 or x.numel() != numel or not x.is_contiguous()
+                or x.device != device):
+            raise ValueError(f"regen_surround: camera tensors need contiguous float32 on "
+                             f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    span = math.pi if cam_cfg.surround == SurroundMode.S360 else math.pi / 2.0
+    eff_height = height // 2 if cam_cfg.stereo else height
+    return ([x.data_ptr() for x in parts]
+            + [float(np.float32(span)), _recip(width), _recip(eff_height), int(cam_cfg.stereo)])
+
+
+def regen_surround(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
+                   lanes: BlockLanes, randomize: bool):
+    """Regenerate dead lanes through a surround camera, mono or stereo
+    (wpt_regen_surround; `regen_plain` on CPU tensors)."""
+    n, dev = _check_state("regen_surround", st, sample, k_next, st.acc.shape[1])
+    if dev.type == "cpu":
+        return regen_plain(st, sample, k_next, cam, cam_cfg, lanes, randomize)
+    if not _surround(cam_cfg):
+        raise ValueError("regen_surround: the kernel takes a surround camera, mono or stereo, "
+                         "without depth of field or animation")
+    if n != lanes.B * lanes.m:
+        raise ValueError(f"regen_surround: {n} lanes, the block has {lanes.B * lanes.m}")
+    lib = native.load_kernels()
+    out = _empty_state(st, acc=st.acc, stats=st.stats)
+    out_sample, out_k = torch.empty_like(sample), torch.empty_like(k_next)
+    t_max = torch.empty((n,), dtype=torch.float32, device=dev)
+    camera = _surround_camera(cam, cam_cfg, lanes.width, lanes.height, dev)
+    s_in, s_out = _state_c(st, sample, k_next), _state_c(out, out_sample, out_k)
+    code = lib.wpt_regen_surround(
+        ctypes.addressof(s_in), ctypes.addressof(s_out), t_max.data_ptr(), n, *camera, lanes.blk,
+        lanes.B, lanes.m, lanes.P, lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt,
+        int(randomize), native.stream_ptr(t_max))
+    native.check(code, "regen_surround")
+    native.LAUNCHES["regen_surround"] += 1
+    return out, out_sample, out_k, t_max
+
+
 _RGB, _TOF = 0, 1
 
 
@@ -646,8 +790,9 @@ def _check_hit(name, n, dev, pixel, t, prim, hr: HitRecord, fields):
 def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
                   hr: HitRecord):
     """One diffuse-class bounce after the closest hit (wpt_shade_diffuse;
-    `shade_diffuse_plain` on CPU tensors): (state, shadow direction, shadow
-    t_max, pending deposit); st.stats grows in place."""
+    `shade_diffuse_plain` on CPU tensors): (state, shadow origin (the hit
+    position), shadow direction, shadow t_max, pending deposit); st.stats
+    grows in place."""
     n, dev = _check_state("shade_diffuse", st, sample, sample, sensor.n_acc)
     _check_hit("shade_diffuse", n, dev, pixel, t, prim, hr,
                ("position", "normal", "geom_normal", "backside", "mat"))
@@ -677,7 +822,7 @@ def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, samp
         pending.data_ptr(), native.stream_ptr(t))
     native.check(code, "shade_diffuse")
     native.LAUNCHES["shade_diffuse"] += 1
-    return out, shadow_d, shadow_tmax, pending
+    return out, hr.position, shadow_d, shadow_tmax, pending
 
 
 def _check_env(env: Optional[EnvMapArrays], dev):
@@ -690,6 +835,10 @@ def _check_env(env: Optional[EnvMapArrays], dev):
         raise ValueError("shade_env: the kernel takes an equirect sky with importance tables, "
                          "a cube sky or a constant sky, got "
                          f"{'none' if env is None else f'kind {env.kind}'}")
+    _check_env_arrays("shade_env", env, dev)
+
+
+def _check_env_arrays(name, env: EnvMapArrays, dev):
     res = env.pdf_table.shape[0]
     img = {1: (*env.image.shape[:2], 4), 2: (6, *env.image.shape[1:3], 4), 3: (1, 1, 4)}[env.kind]
     for f, x, dtype, shape in (("image", env.image, torch.float32, img),
@@ -699,18 +848,19 @@ def _check_env(env: Optional[EnvMapArrays], dev):
                                ("alias_idx", env.alias_idx, torch.int32, (res * res,)),
                                ("rotation", env.rotation, torch.float32, (4,))):
         if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != dev:
-            raise ValueError(f"shade_env: env.{f} needs contiguous {dtype} {shape} on {dev}, "
+            raise ValueError(f"{name}: env.{f} needs contiguous {dtype} {shape} on {dev}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
               hr: HitRecord):
     """One env-class bounce after the closest hit (wpt_shade_env;
-    `shade_env_plain` on CPU tensors): (state, shadow direction, shadow
-    t_max, pending deposit), the last three None when the sky has no
-    importance tables; st.stats grows in place. The kernel takes Lambertian,
-    GGX, mirror and glass surfaces, an equirect sky with importance tables,
-    a cube sky with or without them or a constant sky, and no light."""
+    `shade_env_plain` on CPU tensors): (state, shadow origin (the hit
+    position), shadow direction, shadow t_max, pending deposit), the last
+    four None when the sky has no importance tables; st.stats grows in
+    place. The kernel takes Lambertian, GGX, mirror and glass surfaces, an
+    equirect sky with importance tables, a cube sky with or without them or
+    a constant sky, and no light."""
     n, dev = _check_state("shade_env", st, sample, sample, sensor.n_acc)
     _check_hit("shade_env", n, dev, pixel, t, prim, hr,
                ("position", "normal", "tangent", "backside", "mat"))
@@ -729,8 +879,9 @@ def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, 
     # Without glass the ray IOR never changes: the next state shares it.
     out = _empty_state(st, prev_light_pdf=st.prev_light_pdf, stats=st.stats,
                        **({} if glass else {"ior": st.ior}))
-    shadow_d = shadow_tmax = pending = None
+    shadow_o = shadow_d = shadow_tmax = pending = None
     if env.importance:
+        shadow_o = hr.position
         shadow_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
         shadow_tmax = torch.empty((n,), dtype=torch.float32, device=dev)
         pending = torch.empty((n, sensor.n_acc), dtype=torch.float32, device=dev)
@@ -748,7 +899,86 @@ def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, 
         _ptr(shadow_d), _ptr(shadow_tmax), _ptr(pending), native.stream_ptr(t))
     native.check(code, "shade_env")
     native.LAUNCHES["shade_env"] += 1
-    return out, shadow_d, shadow_tmax, pending
+    return out, shadow_o, shadow_d, shadow_tmax, pending
+
+
+def _check_lit_tables(tables: StepTables, dev):
+    """Raise unless `tables` are of the lit class and lie on `dev`: light
+    rows with per-light MIS, an equirect or cube sky with importance
+    tables, RGL tables where RGL materials are."""
+    if (tables.n_lights == 0 or not tables.per_light
+            or not tables.mat_types <= LIT_MATERIALS):
+        raise ValueError("shade_lit: the kernel takes Lambertian, GGX, mirror, glass, ModPhong "
+                         "and RGL surfaces with triangle lights under per-light MIS")
+    if tables.scene.has_bvh and tables.scene.n_spheres > 0:
+        raise ValueError("shade_lit: spheres in a BVH scene (the BVH holds triangles only)")
+    env = tables.env
+    if env is None or env.kind not in (1, 2) or not env.importance:
+        raise ValueError("shade_lit: the kernel takes an equirect or cube sky with importance "
+                         f"tables, got {'none' if env is None else f'kind {env.kind}'}"
+                         f"{'' if env is None or env.importance else ' without them'}")
+    _check_env_arrays("shade_lit", env, dev)
+    nl, npick = tables.n_lights, tables.pick_area.shape[0]
+    for f, dtype, shape in (("mat", torch.float32, (tables.mat.shape[0], 23)),
+                            ("pick_area", torch.float32, (npick, 2)),
+                            ("light_tri", torch.float32, (nl, 9)),
+                            ("light_mat", torch.int32, (nl,)), ("light_w", torch.float32, (nl,)),
+                            ("alias_prob", torch.float32, (nl,)),
+                            ("alias_idx", torch.int32, (nl,))):
+        x = getattr(tables, f)
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"shade_lit: tables.{f} needs contiguous {dtype} {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if (MaterialType.RGL in tables.mat_types) != (tables.rgl is not None):
+        raise ValueError("shade_lit: RGL tables go with RGL materials")
+    if tables.rgl is not None and tables.rgl.device != dev:
+        raise ValueError(f"shade_lit: RGL tables on {tables.rgl.device}, lanes on {dev}")
+
+
+def shade_lit(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+              hr: HitRecord):
+    """One lit-class bounce after the closest hit (wpt_shade_lit;
+    `shade_lit_plain` on CPU tensors): (state, shadow origins [2N, 3],
+    shadow directions [2N, 3], shadow t_max [2N], pending deposits [2N,
+    n_acc]), the light's shadow rays in rows 0..N-1, the sky's in rows
+    N..2N-1; st.stats grows in place. The kernel takes Lambertian, GGX,
+    mirror, glass, ModPhong and RGL surfaces, triangle lights under
+    per-light MIS and an equirect or cube sky with importance tables."""
+    n, dev = _check_state("shade_lit", st, sample, sample, sensor.n_acc)
+    _check_hit("shade_lit", n, dev, pixel, t, prim, hr,
+               ("position", "normal", "geom_normal", "tangent", "backside", "mat"))
+    _check_lit_tables(tables, dev)
+    if dev.type == "cpu":
+        return shade_lit_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+    kind, sp = sensor_params(sensor)
+    env = tables.env
+    lib = native.load_kernels()
+    out = _empty_state(st, stats=st.stats)
+    f32 = dict(dtype=torch.float32, device=dev)
+    shadow_o, shadow_d = torch.empty((2 * n, 3), **f32), torch.empty((2 * n, 3), **f32)
+    shadow_tmax = torch.empty((2 * n,), **f32)
+    pending = torch.empty((2 * n, sensor.n_acc), **f32)
+    s_in, s_out = _state_c(st, sample, sample), _state_c(out, sample, sample)
+    sp_c = (ctypes.c_float * 8)(*sp)
+    rgl_c = None if tables.rgl is None else c_tables(tables.rgl)
+    code = lib.wpt_shade_lit(
+        ctypes.addressof(s_in), ctypes.addressof(s_out), st.stats.data_ptr(), n,
+        pixel.data_ptr(), t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(),
+        hr.normal.data_ptr(), hr.geom_normal.data_ptr(), hr.tangent.data_ptr(),
+        hr.backside.data_ptr(), hr.mat.data_ptr(), tables.mat.data_ptr(), tables.mat.shape[0],
+        tables.pick_area.data_ptr(), tables.pick_area.shape[0], tables.light_tri.data_ptr(),
+        tables.light_mat.data_ptr(), tables.light_w.data_ptr(), tables.alias_prob.data_ptr(),
+        tables.alias_idx.data_ptr(), tables.n_lights, env.kind, env.image.data_ptr(),
+        env.image.shape[-3], env.image.shape[-2], env.pdf_table.data_ptr(),
+        env.alias_prob.data_ptr(), env.alias_idx.data_ptr(), env.pdf_table.shape[0],
+        env.rotation.data_ptr(), None if rgl_c is None else ctypes.addressof(rgl_c), kind,
+        ctypes.addressof(sp_c), params.max_path_components, params.rr_start,
+        float(params.rr_threshold), float(np.float32(1.0 - params.shadow_identity_eps)),
+        float(params.min_hit_distance), shadow_o.data_ptr(), shadow_d.data_ptr(),
+        shadow_tmax.data_ptr(), pending.data_ptr(), native.stream_ptr(t))
+    native.check(code, "shade_lit")
+    native.LAUNCHES["shade_lit"] += 1
+    return out, shadow_o, shadow_d, shadow_tmax, pending
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -760,13 +990,15 @@ def nee_resolve(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     """acc + pending where the shadow ray is not occluded, and the loop
     condition (wpt_nee_resolve; `nee_resolve_plain` on CPU tensors). A step
     without shadow rays passes pending and occluded as None: the loop
-    condition alone, acc returned as it is."""
+    condition alone, acc returned as it is; the lit class passes two
+    pending deposits per lane ([2N, n_acc] and [2N], the light's first)."""
     n, c = acc.shape
     if (pending is None) != (occluded is None):
         raise ValueError("nee_resolve: pending and occluded go together")
+    n_pend = 0 if pending is None else (2 if pending.shape[0] == 2 * n > 0 else 1)
     deposits = (() if pending is None else
-                (("pending", pending, torch.float32, (n, c)),
-                 ("occluded", occluded, torch.bool, (n,))))
+                (("pending", pending, torch.float32, (n_pend * n, c)),
+                 ("occluded", occluded, torch.bool, (n_pend * n,))))
     for name, x, dtype, shape in (("acc", acc, torch.float32, (n, c)), *deposits,
                                   ("active", active, torch.bool, (n,)),
                                   ("k_next", k_next, torch.int64, (n,))):
@@ -782,9 +1014,33 @@ def nee_resolve(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     lib = native.load_kernels()
     out = acc if pending is None else torch.empty_like(acc)
     work = torch.empty((1,), dtype=torch.int32, device=acc.device)
-    code = lib.wpt_nee_resolve(acc.data_ptr(), _ptr(pending), _ptr(occluded), active.data_ptr(),
-                               k_next.data_ptr(), n, c, lanes.blk, lanes.B, lanes.P, lanes.n_pix,
-                               out.data_ptr(), work.data_ptr(), native.stream_ptr(acc))
+    code = lib.wpt_nee_resolve(acc.data_ptr(), _ptr(pending), _ptr(occluded), n_pend,
+                               active.data_ptr(), k_next.data_ptr(), n, c, lanes.blk, lanes.B,
+                               lanes.P, lanes.n_pix, out.data_ptr(), work.data_ptr(),
+                               native.stream_ptr(acc))
     native.check(code, "nee_resolve")
     native.LAUNCHES["nee_resolve"] += 1
     return out, work
+
+
+class K4Route(NamedTuple):
+    """The kernels of one K4 step (`k4_route`)."""
+
+    regen: Callable         # regen_pinhole or regen_surround
+    shade: Callable         # shade_diffuse, shade_env or shade_lit
+    shade_plain: Callable   # its plain version
+    shadow_rows: int        # shadow rays per lane: 1, or the lit class's 2 (light, sky)
+
+
+def k4_route(tables: StepTables, cam_cfg: CameraConfig) -> K4Route:
+    """The regeneration, the shade and the shadow rows per lane of a K4
+    step on a scene's step tables seen through `cam_cfg`: the class follows
+    from the tables (no sky: diffuse; a sky and no light: env; both: lit),
+    the regeneration from the camera. Every shade returns (state, shadow
+    origins, directions, t_max, pending deposits)."""
+    regen = regen_surround if _surround(cam_cfg) else regen_pinhole
+    if tables.env is None:
+        return K4Route(regen, shade_diffuse, shade_diffuse_plain, 1)
+    if tables.n_lights == 0:
+        return K4Route(regen, shade_env, shade_env_plain, 1)
+    return K4Route(regen, shade_lit, shade_lit_plain, 2)

@@ -27,15 +27,17 @@ still differ, such as atan2f/asinf against PyTorch's):
   expected difference).
 * P0 row gather: equal word for word (a copy).
 * K4 (regeneration, shade, NEE resolve): on a frame's first block after 2
-  steps, every output field compared lane by lane (`check_k4`): discrete
-  fields (active, bounce, prev_random, sample, k_next, shadow cast or not,
-  the loop flag) may differ on at most 0.1 % of the lanes, floats within
-  rtol 1e-4 / atol 1e-6 on the others (cosf/sinf in the cosine sample, the
-  GGX VNDF sample, the env sample and the ToF phase, expf in the glass's
-  absorption, atan2f/acosf in the sky's lookup and pdf, are the operations
-  that could part; an ulp of atan2f can move a direction across a pdf
-  cell). Outputs a shade does not produce (no shadow ray without sky
-  importance) must be absent from both.
+  steps, every output field compared lane by lane (`check_k4`; a lane owns
+  rows i and N + i of the lit shade's shadow rays and pending deposits):
+  discrete fields (active, bounce, prev_random, sample, k_next, shadow cast
+  or not, the loop flag) may differ on at most 0.1 % of the lanes, floats
+  within rtol 1e-4 / atol 1e-6 on the others (cosf/sinf in the cosine
+  sample, the GGX VNDF and power-cosine samples, the env sample, the
+  surround camera, RGL's sample and the ToF phase, powf in ModPhong's lobe,
+  expf in the glass's absorption, atan2f/acosf/asinf in the sky's lookup
+  and pdf and RGL's frame, are the operations that could part; an ulp of
+  atan2f can move a direction across a pdf cell). Outputs a shade does not
+  produce (no shadow ray without sky importance) must be absent from both.
 
 Also the six frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
@@ -103,6 +105,7 @@ from ..render.intersect_brute import (
 )
 from ..render.lights import lights_sample
 from ..render.sensor import SensorRGB, SensorTofAmcw
+from ..scene.ir import MaterialType
 from . import scenes
 
 MIN_HIT = RenderParams().min_hit_distance
@@ -249,12 +252,13 @@ def mesh_frame(device, scene=None, depth: int = MESH_DEPTH) -> Callable[[], tupl
                   depth, device)
 
 
-def city_frame(device, scene=None) -> Callable[[], tuple]:
+def city_frame(device, scene=None, depth: int = CITY_DEPTH) -> Callable[[], tuple]:
     """The same for the city frame; `scene` is city_night(seed=7) on `device`,
-    built here when not given."""
+    built here when not given; `depth` replaces the bench's 4 path
+    components."""
     scene = scenes.city_night(seed=7, device=device) if scene is None else scene
     return _frame(scene, scenes.city_camera(device), CITY_WIDTH, CITY_HEIGHT, CITY_SSQRT,
-                  CITY_DEPTH, device, CITY_CAMERA, CITY_EYE_DISTANCE, CITY_LANES)
+                  depth, device, CITY_CAMERA, CITY_EYE_DISTANCE, CITY_LANES)
 
 
 def envmap_frame(device, scene=None, depth: int = ENVMAP_DEPTH) -> Callable[[], tuple]:
@@ -688,35 +692,50 @@ def probe_gather_inputs(device):
 class K4Inputs(NamedTuple):
     """Identical inputs of K4's three entry points, from one frame's first block."""
 
-    regen: tuple      # regen_pinhole(*regen)
-    shade: tuple      # shade_diffuse(*shade) or shade_env(*shade), st.stats replaced per call
+    regen: tuple      # regen_pinhole(*regen) or regen_surround(*regen)
+    shade: tuple      # shade_diffuse / shade_env / shade_lit(*shade), st.stats replaced per call
     resolve: tuple    # nee_resolve(*resolve)
 
 
-def k4_shade(inputs: K4Inputs) -> str:
-    """The shade of `inputs`' class: "shade_env" or "shade_diffuse"."""
-    return "shade_diffuse" if inputs.shade[0].env is None else "shade_env"
+def k4_route(inputs: K4Inputs):
+    """The regeneration and the shade of `inputs`' class and camera
+    (wavefront.K4Route)."""
+    from ..render import wavefront as wf
+
+    return wf.k4_route(inputs.shade[0], inputs.regen[4])
+
+
+def regenerated_lanes(inputs: K4Inputs) -> int:
+    """How many lanes the regeneration on `inputs` refills: dead lanes whose
+    pixel has samples left. A check or a time of the regeneration on inputs
+    where none is means a copy of the state, not a regeneration."""
+    st, _, k_next, _, _, lanes, _ = inputs.regen
+    return int(((~st.active) & (k_next < lanes.P) & lanes.valid).sum())
 
 
 def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ssqrt: int = 0,
               m: int = 0, height: int = 0, scene=None, sensor=None, cfg=None) -> K4Inputs:
     """The inputs of K4's kernels on the first block of the Cornell bench
     frame (131072 lanes), the ToF frame (phase 0, 73728 lanes), the mesh
-    frame (76800 lanes), the envmap frame (131072 lanes) or the rtiow frame
-    (98304 lanes, through its OpenCV lens), after `steps` wavefront steps of
-    the plain route (regen_plain, the scene's closest-hit cast, K3, the
-    class's plain shade, the scene's any-hit cast where the shade casts
-    shadow rays, nee_resolve_plain): lanes live, dead and due for
-    regeneration side by side. The regeneration's inputs are that state;
-    the shade's, the state after one more plain regeneration and its casts;
-    the resolve's, the plain shade's pending deposits and their shadow
-    casts. `width`, `height` (= width when only `width` is given), `ssqrt`,
-    `m` (sample lanes per pixel), `scene`, `sensor` and the camera config
-    `cfg` (the lens model) replace the frame's own where given."""
+    frame (76800 lanes), the envmap frame (131072 lanes), the rtiow frame
+    (98304 lanes, through its OpenCV lens) or the city frame (1048576 of its
+    2073600 pixels at 1 spp, 360-degree stereo), after `steps` wavefront
+    steps of the plain route (regen_plain, the scene's closest-hit cast, K3,
+    the class's plain shade, the scene's any-hit cast where the shade casts
+    shadow rays, nee_resolve_plain): lanes live, dead and (with more than
+    one sample per lane) due for regeneration side by side. The
+    regeneration's inputs are that state; the shade's, the state after one
+    more plain regeneration and its casts; the resolve's, the plain shade's
+    pending deposits and their shadow casts. `width`, `height` (= width
+    when only `width` is given), `ssqrt`, `m` (sample lanes per pixel),
+    `scene`, `sensor` and the camera config `cfg` (the lens model) replace
+    the frame's own where given; a block holds at most the frame's lanes
+    (131072, the city's 1048576) over m."""
     from ..render import wavefront as wf
 
     lens = None
     own_cfg = CameraConfig()
+    eye_distance, max_lanes = 0.0635, 131072
     if frame == "cornell":
         own = scenes.cornell_box_ref, scenes.cornell_ref_camera
         size = (BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
@@ -737,6 +756,11 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
         own = (lambda dev: scenes.rtiow(device=dev)), scenes.rtiow_camera
         size = (RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT, RTIOW_LANES_M)
         depth, own_sensor, own_cfg, lens = RTIOW_DEPTH, SensorRGB(), RTIOW_CAMERA, RTIOW_LENS
+    elif frame == "city":
+        own = (lambda dev: scenes.city_night(seed=7, device=dev)), scenes.city_camera
+        size = (CITY_WIDTH, CITY_HEIGHT, CITY_SSQRT, 1)
+        depth, own_sensor, own_cfg = CITY_DEPTH, SensorRGB(), CITY_CAMERA
+        eye_distance, max_lanes = CITY_EYE_DISTANCE, CITY_LANES
     else:
         raise ValueError(f"k4_inputs: no frame {frame!r}")
     scene = own[0](device) if scene is None else scene
@@ -747,15 +771,17 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     width, ssqrt, m = (given or mine for given, mine in zip((width, ssqrt, m),
                                                              (size[0], *size[2:])))
     static = SceneStatic.from_scene(scene)
-    assert wf.diffuse_class(scene, static, cfg) or wf.env_class(scene, static, cfg)
+    assert (wf.diffuse_class(scene, static, cfg) or wf.env_class(scene, static, cfg)
+            or wf.lit_class(scene, static, cfg))
     params = RenderParams(max_path_components=depth)
-    cam = make_camera(camera[0], camera[1], width, height, device=device, **(lens or {}))
-    n_pix = width * height
-    L = n_pix * m
-    lanes = wf.block_lanes(0, n_pix, m, ssqrt * ssqrt // m, width, height, ssqrt, device)
+    cam = make_camera(camera[0], camera[1], width, height, eye_distance=eye_distance,
+                      device=device, **(lens or {}))
+    B = min(width * height, max_lanes // m)
+    L = B * m
+    lanes = wf.block_lanes(0, B, m, ssqrt * ssqrt // m, width, height, ssqrt, device)
     prepared = prepare_scene(scene, static)
     accel, ht, tables = prepared.accel, prepared.hit, prepared.step
-    shade = wf.shade_diffuse_plain if tables.env is None else wf.shade_env_plain
+    route = wf.k4_route(tables, cfg)
     f32 = dict(dtype=torch.float32, device=device)
     z = lambda *shape: torch.zeros(shape, **f32)  # noqa: E731
     st = wf.LoopState(
@@ -767,22 +793,40 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
         stats=torch.zeros((2,), dtype=torch.int64, device=device))
     sample = torch.zeros((L,), dtype=torch.int64, device=device)
     k_next = torch.zeros_like(sample)
-    t_min = torch.full((L,), MIN_HIT, **f32)
+    t_min = torch.full((route.shadow_rows * L,), MIN_HIT, **f32)
 
     for k in range(steps + 1):
         regen_args = (st, sample, k_next, cam, cfg, lanes, True)
         st, sample, k_next, t_max = wf.regen_plain(*regen_args)
-        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min, t_max)
+        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min[:L], t_max)
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
         shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
-        st, sd, stmax, pending = shade(*shade_args)
-        occ = None if stmax is None else scene_any_hit(accel, hr.position, sd, t_min, stmax)
+        st, so, sd, stmax, pending = route.shade_plain(*shade_args)
+        occ = None if stmax is None else scene_any_hit(accel, so, sd, t_min, stmax)
         resolve_args = (st.acc, pending, occ, st.active, k_next, lanes)
         if k == steps:
             break
         acc, _ = wf.nee_resolve_plain(*resolve_args)
         st = st._replace(acc=acc)
     return K4Inputs(regen_args, shade_args, resolve_args)
+
+
+def k4_cast_lanes(inputs: K4Inputs):
+    """The rays of the casts of K4's step on `inputs`, each as (o, d, t_min,
+    t_max): the closest-hit cast's (the shade's state, t_max BIG on active
+    lanes, else 0) and the any-hit cast's (the plain shade's shadow rays, 2
+    N of them in the lit class; None where the step casts none)."""
+    st = inputs.shade[3]
+    n = st.active.shape[0]
+    args = list(inputs.shade)
+    args[3] = st._replace(stats=st.stats.clone())
+    _, so, sd, stmax, _ = k4_route(inputs).shade_plain(*args)
+    f32 = dict(dtype=torch.float32, device=st.o.device)
+    closest = (st.o, st.d, torch.full((n,), MIN_HIT, **f32),
+               torch.where(st.active, BIG, 0.0).to(torch.float32))
+    if stmax is None:
+        return closest, None
+    return closest, (so, sd, torch.full(stmax.shape, MIN_HIT, **f32), stmax)
 
 
 def _named(out, names):
@@ -799,22 +843,34 @@ def _named(out, names):
     return named
 
 
+def _rows_per_lane(f, a, n) -> int:
+    """How many rows of output `f` each of the n lanes owns: 1 for a lane
+    field [n, ...], 2 for the lit shade's shadow rays and pending deposits
+    [2 n, ...] (rows i and n + i are lane i's), 0 for the counters and the
+    loop flag."""
+    if f in ("stats", "work") or a.dim() == 0:
+        return 0
+    return a.shape[0] // n if a.shape[0] in (n, 2 * n) else 0
+
+
 def _compare(got, ref, n) -> Dict[str, float]:
     """Per output field: max |error| of a float field (NaN equal to NaN),
-    the number of lanes on which a bool or integer field differs; and
-    `lanes_discrete_differ`, the lanes on which any discrete field differs.
-    Raises AssertionError if those exceed 0.1 % of the lanes, or a float
-    field exceeds rtol 1e-4 / atol 1e-6 on the other lanes."""
+    the number of rows on which a bool or integer field differs; and
+    `lanes_discrete_differ`, the lanes on which any discrete field differs
+    (a lane owns its rows in every field: `_rows_per_lane`). Raises
+    AssertionError if those exceed 0.1 % of the lanes, or a float field
+    exceeds rtol 1e-4 / atol 1e-6 on the other lanes' rows."""
     assert set(got) == set(ref), (sorted(got), sorted(ref))
     res, discrete = {}, torch.zeros((n,), dtype=torch.bool, device=next(iter(got.values())).device)
     for f, a in got.items():
         b = ref[f]
         assert a.shape == b.shape and a.dtype == b.dtype, (f, a.shape, b.shape)
         if not a.dtype.is_floating_point:
-            diff = (a != b).reshape(a.shape[0], -1).any(-1) if a.shape[:1] == (n,) else (a != b)
+            k = _rows_per_lane(f, a, n)
+            diff = (a != b).reshape(a.shape[0], -1).any(-1) if k else (a != b)
             res[f] = int(diff.sum())
-            if diff.shape == (n,):
-                discrete |= diff
+            if k:
+                discrete |= diff.reshape(k, n).any(0)
     res["lanes_discrete_differ"] = int(discrete.sum())
     assert res["lanes_discrete_differ"] <= 1e-3 * n, res
     for f, a in got.items():
@@ -822,7 +878,9 @@ def _compare(got, ref, n) -> Dict[str, float]:
         if a.dtype.is_floating_point:
             same = (a == b) | (torch.isnan(a) & torch.isnan(b))
             res[f] = float((a - b).abs()[~same].max()) if bool((~same).any()) else 0.0
-            keep = ~discrete if a.shape[:1] == (n,) else torch.ones_like(discrete[:1])
+            k = _rows_per_lane(f, a, n)
+            keep = (~discrete).repeat(k) if k else torch.ones(a.shape[:1], dtype=torch.bool,
+                                                             device=a.device)
             ok = torch.isclose(a[keep], b[keep], rtol=1e-4, atol=1e-6, equal_nan=True)
             assert bool(ok.all()), f"{f} differs beyond rtol 1e-4 on {int((~ok).sum())} lanes"
     return res
@@ -830,28 +888,29 @@ def _compare(got, ref, n) -> Dict[str, float]:
 
 def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
     """Each of K4's kernels against its plain version on `inputs` (see
-    `_compare`): {kernel: {field: max |error| or differing lanes}}, the shade
-    of `inputs`' class (`k4_shade`). Bit equality shows as 0 everywhere."""
+    `_compare`): {kernel: {field: max |error| or differing lanes}}, the
+    regeneration and the shade of `inputs`' class and camera (`k4_route`).
+    Bit equality shows as 0 everywhere."""
     from ..render import wavefront as wf
 
     n = inputs.regen[0].active.shape[0]
+    route = k4_route(inputs)
     regen_names = ("state", "sample", "k_next", "t_max")
-    res = {"regen_pinhole": _compare(_named(wf.regen_pinhole(*inputs.regen), regen_names),
-                                     _named(wf.regen_plain(*inputs.regen), regen_names), n)}
+    res = {route.regen.__name__: _compare(_named(route.regen(*inputs.regen), regen_names),
+                                          _named(wf.regen_plain(*inputs.regen), regen_names), n)}
+    names = ("state", "shadow_o", "shadow_d", "shadow_tmax", "pending", "stats")
 
     def shade(fn):
         args = list(inputs.shade)
         args[3] = args[3]._replace(stats=args[3].stats.clone())
         out = fn(*args)
-        return _named(out + (args[3].stats,),
-                      ("state", "shadow_d", "shadow_tmax", "pending", "stats"))
+        return _named(out + (args[3].stats,), names)
 
-    name = k4_shade(inputs)
-    got, ref = shade(getattr(wf, name)), shade(getattr(wf, f"{name}_plain"))
+    got, ref = shade(route.shade), shade(route.shade_plain)
     for out in (got, ref):
         if "shadow_tmax" in out:
             out["shadow_cast"] = out["shadow_tmax"] > 0
-    res[name] = _compare(got, ref, n)
+    res[route.shade.__name__] = _compare(got, ref, n)
     names = ("acc", "work")
     res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
                                   _named(wf.nee_resolve_plain(*inputs.resolve), names), n)
@@ -888,27 +947,32 @@ def k4_work(inputs: K4Inputs, kernel: str):
     (`SKY_PDF_FLOPS`, importance only), ~60 per Lambertian, ~350 per GGX
     (the VNDF sample and two evaluations) and ~100 per glass hit (Fresnel,
     refraction, four absorption exponentials), ~80 per RANDOM lane with
-    importance (the sky's lookup toward the sample, the weight); the resolve
-    one add per accumulator channel on unoccluded lanes."""
-    if kernel == "regen_pinhole":
+    importance (the sky's lookup toward the sample, the weight); the lit
+    shade as `_lit_shade_work` says; the surround regeneration ~180 per
+    regenerated lane (four sines and cosines, two rotations); the resolve
+    one add per accumulator channel on each unoccluded row."""
+    if kernel in ("regen_pinhole", "regen_surround"):
         st, sample, k_next, cam, cfg, lanes, _ = inputs.regen
         n = st.active.shape[0]
-        need = (~st.active) & (k_next < lanes.P) & lanes.valid
-        n_need = int(need.sum())
+        n_need = regenerated_lanes(inputs)
         state = [getattr(st, f) for f in st._fields if f not in ("acc", "stats")]
         kept = [getattr(st, f) for f in st._fields
                 if f not in ("acc", "stats", "active", "prev_random")]
         tf = cam.transformation
-        camera = [cam.center_px, cam.focal_px, tf.translation, tf.rotation]
-        lens = LENS_FLOPS[cfg.distortion]
-        if cfg.distortion == DistortionModel.OPENCV:
-            lens *= cfg.undistort_iters
-        if cfg.distortion != DistortionModel.NONE:
-            camera += [cam.dist_k, cam.dist_p]
+        if kernel == "regen_surround":
+            camera, per_lane = [tf.translation, tf.rotation, tf.scale, cam.eye_distance], 180.0
+        else:
+            camera = [cam.center_px, cam.focal_px, tf.translation, tf.rotation]
+            per_lane = 60.0 + LENS_FLOPS[cfg.distortion] * (
+                cfg.undistort_iters if cfg.distortion == DistortionModel.OPENCV else 1)
+            if cfg.distortion != DistortionModel.NONE:
+                camera += [cam.dist_k, cam.dist_p]
         read = (n * _lane_bytes(st.active, k_next, st.prev_random)
                 + (n - n_need) * _lane_bytes(sample, *kept))
         written = n * _lane_bytes(*state, sample, k_next, st.geom_len)      # geom_len: t_max
-        return read + written + _table_bytes(camera), (60.0 + lens) * n_need
+        return read + written + _table_bytes(camera), per_lane * n_need
+    if kernel == "shade_lit":
+        return _lit_shade_work(inputs)
     if kernel == "shade_diffuse":
         tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
         n = st.active.shape[0]
@@ -940,7 +1004,6 @@ def k4_work(inputs: K4Inputs, kernel: str):
         return read + written + _table_bytes(rows) + 16, 250.0 * n + per_light
     if kernel == "shade_env":
         from ..render import wavefront as wf
-        from ..scene.ir import MaterialType
 
         tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
         env = tables.env
@@ -983,10 +1046,77 @@ def k4_work(inputs: K4Inputs, kernel: str):
     n, n_acc = acc.shape
     if pending is None:         # the loop condition alone
         return n * _lane_bytes(active) + int((~active).sum()) * _lane_bytes(k_next) + 4, 0.0
-    n_open = int((~occluded).sum())
-    read = (n * _lane_bytes(acc, occluded, active) + n_open * _lane_bytes(pending)
-            + int((~active).sum()) * _lane_bytes(k_next))
+    n_open = int((~occluded).sum())       # unoccluded rows (two per lane in the lit class)
+    read = (n * _lane_bytes(acc, active) + occluded.numel() * occluded.element_size()
+            + n_open * _lane_bytes(pending) + int((~active).sum()) * _lane_bytes(k_next))
     return read + n * _lane_bytes(acc) + 4, float(n_open * n_acc)
+
+
+# Float operations of the lit shade: per hit lane of each material type
+# (the sample: Lambertian's cosine, GGX's VNDF sample and evaluation,
+# mirror, glass's Fresnel term and refraction, ModPhong's lobe pick and
+# mixture, RGL's two warps and reflectance), and per RANDOM lane of each
+# type of one bsdf evaluation (two per lane: toward the light and the sky).
+LIT_SAMPLE_FLOPS = {1: 60.0, 2: 350.0, 3: 100.0, 4: 10.0, 5: 150.0, 10: 900.0}
+LIT_EVAL_FLOPS = {1: 10.0, 2: 100.0, 5: 50.0, 10: 450.0}
+
+
+def _lit_shade_work(inputs: K4Inputs):
+    """(bytes, flops) of the lit shade on `inputs`. Bytes: every lane's
+    state, the sample ids, the ray IOR (read and written back) and the hit
+    position (its two shadow rays' origin); the primitive id and the
+    previous sample's flag on active lanes; t, normal, backside and material
+    on hit lanes; the origin where the ray missed; the previous pdf where
+    that flag is set (the MIS weight of a miss or of an emitter), with the
+    geometric normal and the hit prim's (pick, 1 / area) row on hit lanes;
+    the tangent on GGX and RGL hits; out the next state, two shadow rays (origin,
+    direction, t_max) and two pending deposits per lane; the material,
+    light and sky rows and the RGL tables once. Flops: ~330 per lane (four
+    uniforms, emission, the light's sample and pdf, the sky's sample, the
+    roulette), the sky's lookup and pdf per escaped lane, the sample per hit
+    lane and type (`LIT_SAMPLE_FLOPS`), per RANDOM lane ~160 (the light's
+    emission, the sky's lookup toward its sample, two weights) and two bsdf
+    evaluations of its type (`LIT_EVAL_FLOPS`), counted with the plain
+    version."""
+    from ..render import wavefront as wf
+
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    env = tables.env
+    n = st.active.shape[0]
+    hit = (prim >= 0) & st.active
+    escaped = st.active & (prim < 0)
+    typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+    args = list(inputs.shade)
+    args[3] = st._replace(stats=st.stats.clone())
+    random = wf.shade_lit_plain(*args)[0].prev_random
+    framed = hit & ((typ == MaterialType.GGX) | (typ == MaterialType.RGL))
+    weighted = st.active & st.prev_random
+    every_lane = [st.active, st.bounce, st.d, st.throughput, st.ior, st.acc, st.geom_len,
+                  st.opt_len, pixel, sample, hr.position]
+    read = (n * _lane_bytes(*every_lane)
+            + int(st.active.sum()) * _lane_bytes(prim, st.prev_random)
+            + int(hit.sum()) * _lane_bytes(t, hr.normal, hr.backside, hr.mat)
+            + int((~hit).sum()) * _lane_bytes(st.o)
+            + int(weighted.sum()) * _lane_bytes(st.prev_pdf)
+            + int((hit & st.prev_random).sum()) * (_lane_bytes(hr.geom_normal)
+                                                    + _lane_bytes(tables.pick_area))
+            + int(framed.sum()) * _lane_bytes(hr.tangent))
+    out = [getattr(st, f) for f in st._fields if f != "stats"]
+    # two shadow rays (origin, direction, t_max) and two pending deposits
+    shadow = 2 * _lane_bytes(hr.position, hr.position, t, st.acc)
+    rows = [tables.mat, tables.light_tri, tables.light_mat, tables.light_w,
+            tables.alias_prob, tables.alias_idx, env.image, env.rotation, env.pdf_table,
+            env.alias_prob, env.alias_idx]
+    if tables.rgl is not None:
+        rows += list(tables.rgl)
+    n_bytes = read + n * _lane_bytes(*out) + n * shadow + _table_bytes(rows) + 16
+    flops = (330.0 * n + (SKY_LOOKUP_FLOPS[env.kind] + SKY_PDF_FLOPS) * int(escaped.sum())
+             + 160.0 * int(random.sum()))
+    for mt, f in LIT_SAMPLE_FLOPS.items():
+        flops += f * int((hit & (typ == mt)).sum())
+    for mt, f in LIT_EVAL_FLOPS.items():
+        flops += 2.0 * f * int((random & (typ == mt)).sum())
+    return n_bytes, flops
 
 
 def bound_ms(n_bytes: float, flops: float):

@@ -39,7 +39,7 @@ from .kernel_check import (
 _OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
          "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
          "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel", "regen_kernel",
-         "shade_kernel", "shade_env_kernel", "resolve_kernel")
+         "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel")
 _TOP = 25
 
 
