@@ -9,7 +9,8 @@ Phases, each a function, any failure exits non-zero and names its phase:
    nvcc per source, all at once; compile the host BVH builder with g++.
 2. scenes - terrain_city(seed=3) (102098 triangles) and city_night(seed=7)
    (249218 triangles after its OBJ/MTL round trip, 192 light triangles, an
-   RGL sphere), each built on the card's host with its BVH;
+   RGL sphere), each built on the card's host with its BVH (its nodes, leaf
+   rows, depth and table size printed);
    envmap_spheres(cube=True) (2 triangles, 3 spheres, a cube-map sky with a
    64 x 64 importance table), rtiow() (40 spheres, no triangle, a constant
    sky) and tof_box() (54 triangles, 32 of them the ToF light).
@@ -21,7 +22,8 @@ Phases, each a function, any failure exits non-zero and names its phase:
    for the same work (kernel_check.bound_ms). K1-K3 on the Cornell frame's
    block (128 x 128 pixels x 8 sample lanes = 131072 lanes); K5 on the mesh
    frame's 76800 camera rays and random rays, K6 on env-NEE shadow rays from
-   their first hits and random rays; K8's equirect branch on the city
+   their first hits and random rays, both also with every lane dead and on
+   1000 lanes (bit-equal); K8's equirect branch on the city
    frame's night sky, its block's 1048576 camera directions and uniforms;
    K7 on 1048576 lanes of the city frame's block (camera hits and
    their bounce directions, random tangent-space lanes); P0 on the Pallas
@@ -91,7 +93,10 @@ with the ToF sensor on the mesh, envmap and rtiow blocks, the lit shade
 with the ToF sensor on the city block, the regeneration also with the
 RADIAL_ONLY and RADIAL_AND_PLANAR lenses on the rtiow block; a
 regeneration is timed only on lanes that regenerate. K5 and K6 are also
-timed on the city block's first casts beside their bound there. Every path
+held against their plain versions (bit-equal) and timed beside their bound
+at every cast of the mesh frame (4 steps) and the city frame (2 blocks of 4
+steps), on the rays each step gives, with each cast's live lanes
+(`utils/cast_steps.py`). Every path
 prints its frame time, paths/s, Mrays/s, device time and kernel launches
 per wavefront step, and apart from them the copies and memsets (one more
 frame under torch.profiler; the scene's tables are built once per scene,
@@ -136,6 +141,7 @@ K4_PATHS = PATHS
 # set-up: it is held to MESH_MAX_FRAME_LAUNCHES instead).
 K4_MAX_LAUNCHES_PER_STEP = 12
 MESH_MAX_FRAME_LAUNCHES = 100          # kernel launches of one mesh frame
+PROFILE_TRIES = 10                     # profiles of a frame taken while the profiler loses events
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
 KERNELS = {
@@ -332,11 +338,15 @@ def phase_kernels(scenes_on_card):
     n = mcam[0].shape[0]
     mrnd = kc.terrain_random_lanes(n, DEVICE)
     eshadow = kc.env_shadow_lanes(mesh_scene, mcam)
+    dead = mrnd[:3] + (torch.zeros_like(mrnd[3]),)
+    ragged = tuple(x[:1000] for x in mrnd)
     errs = _run_checks((
         ("bvh_closest_hit", lambda r: kc.check_bvh_closest_hit(bvh, r),
-         {"camera": (mcam,), "random": (mrnd,)}),
+         {"camera": (mcam,), "random": (mrnd,), "every lane dead": (dead,),
+          "1000 lanes": (ragged,)}),
         ("bvh_any_hit", lambda r: kc.check_bvh_any_hit(bvh, r),
-         {"env shadow": (eshadow,), "random": (mrnd,)})))
+         {"env shadow": (eshadow,), "random": (mrnd,), "every lane dead": (dead,),
+          "1000 lanes": (ragged,)})))
     records += _timed_records({
         "bvh_closest_hit": (lambda: traverse.bvh_closest_hit(bvh, *mcam),
                             lambda: traverse.bvh_closest_hit_plain(bvh, *mcam),
@@ -438,7 +448,7 @@ def _k4_records(scenes_on_card):
     the fresh city block, the lit shade and the resolve of two pending
     deposits on the city block after 2 steps, each other shade on its
     frames' blocks; a regeneration is timed only where lanes regenerate.
-    Then K5 and K6 on the city block's first casts against their bound."""
+    Then K5 and K6 at every cast of the mesh and city frames."""
     from wurblpt_tpu_torch.render import wavefront as wf
     from wurblpt_tpu_torch.render.camera import CameraConfig, DistortionModel
     from wurblpt_tpu_torch.render.sensor import SensorTofAmcw
@@ -490,25 +500,25 @@ def _k4_records(scenes_on_card):
         records += _timed_records({record: (
             lambda f=getattr(wf, kernel), a=args: f(*a), lambda f=plain, a=args: f(*a),
             kc.k4_work(inp, kernel), None)}, errs, inp.regen[0].active.shape[0])
-    _city_cast_bounds(scenes_on_card["city"].bvh, inputs[("city", 0)])
+    _frame_casts(scenes_on_card)
     return records
 
 
-def _city_cast_bounds(bvh, inp):
-    """K5 and K6 on the city block's first casts (its 1048576 camera rays;
-    the 2 x 1048576 light and sky shadow rays of the first shade): the
-    wrapper-call time beside the bound of the same work (kc.bvh_work), where
-    the JSON records hold them on the mesh frame's rays."""
-    from wurblpt_tpu_torch.accel import traverse
+def _frame_casts(scenes_on_card):
+    """K5 and K6 at every cast of the mesh frame (4 steps) and the city frame
+    (2 blocks of 4 steps), on the rays each step really gives: each cast held
+    against its plain version (bit-equal), its wrapper-call time beside the
+    bound of the same work (kc.bvh_work), with its lanes and live lanes."""
+    from wurblpt_tpu_torch.utils import cast_steps
 
-    camera, shadow = kc.k4_cast_lanes(inp)
-    for name, rays, any_hit in (("bvh_closest_hit", camera, False),
-                                ("bvh_any_hit", shadow, True)):
-        ms = kc.time_ms(lambda f=getattr(traverse, name), r=rays: f(bvh, *r), DEVICE)
-        bound, bound_by = kc.bound_ms(*kc.bvh_work(bvh, rays, any_hit))
-        print(f"kernels: {name} on the city block's first {'shadow' if any_hit else 'camera'} "
-              f"rays ({rays[0].shape[0]}, {int((rays[3] > 0).sum())} cast): {ms:.4f} ms "
-              f"(wrapper call), bound {bound:.6f} ms by {bound_by}, {ms / bound:.1f}x the bound")
+    for frame, make in (("mesh", kc.mesh_frame), ("city", kc.city_frame)):
+        render = make(DEVICE, scenes_on_card[frame])
+        render()
+        rows = cast_steps.cast_rows(frame, render, DEVICE)
+        for r in rows:
+            print(f"kernels: {cast_steps.format_row(r)}, bit-equal to the plain walk")
+        for line in cast_steps.summary(rows):
+            print(f"kernels: {line}")
 
 
 def _drive(label, render, names, absent=()):
@@ -538,15 +548,30 @@ def _drive(label, render, names, absent=()):
 def _count_launches(render):
     """(CUDA kernel launches, copies and memsets, wavefront steps, device ms)
     of one frame rendered under torch.profiler; a step is one closest-hit
-    cast, the device time the sum over its kernels, copies and memsets."""
+    cast, the device time the sum over its kernels, copies and memsets. The
+    profiler at times loses events, most often on short frames: a profile in
+    which it saw another number of the port's kernels than the wrappers
+    launched (native.LAUNCHES) is taken again, up to PROFILE_TRIES times; if
+    none saw them all, the phase fails rather than gate on an undercount."""
     from torch.profiler import ProfilerActivity, profile
 
     from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.utils.profile_frame import OURS
 
-    native.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        render()
-    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        native.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            render()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = sum(e.count for e in device if any(k in e.key for k in OURS))
+        if seen == sum(native.LAUNCHES.values()):
+            break
+        print(f"profiler: saw {seen} of the {sum(native.LAUNCHES.values())} launches of the "
+              f"port's kernels; profiling the frame again")
+    else:
+        raise AssertionError(f"profiler: lost events in all {PROFILE_TRIES} profiles; the "
+                             f"frame's launches and device time are not measured")
     copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
     kernels = sum(e.count for e in device) - copies
     device_ms = sum(getattr(e, "self_device_time_total", None)
@@ -684,7 +709,7 @@ def phase_tof_path(tof_scene):
 
 
 def phase_scenes():
-    from wurblpt_tpu_torch.utils import scenes
+    from wurblpt_tpu_torch.utils import cast_steps, scenes
 
     out = {}
     for label, build in (("mesh", lambda: scenes.terrain_city(seed=3, device=DEVICE)),
@@ -695,8 +720,7 @@ def phase_scenes():
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
-        bvh = (f"{scene.bvh.nodes.shape[0]} BVH nodes, depth {scene.bvh.depth}" if scene.has_bvh
-               else "brute force")
+        bvh = (f"BVH: {cast_steps.tree_summary(scene.bvh)}" if scene.has_bvh else "brute force")
         print(f"scenes: {label} scene built for the GPU in {time.perf_counter() - t0:.2f} s: "
               f"{scene.n_tris} triangles, {scene.n_spheres} spheres, {scene.n_lights} light "
               f"triangles, {bvh}, sky kind {scene.env_kind}")

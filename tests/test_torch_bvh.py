@@ -111,36 +111,49 @@ def test_any_hit_matches_jax_and_the_sweep(kind):
     assert 0 < occ.sum() < N
 
 
-def test_build_layout():
-    """Every triangle sits in exactly one leaf of at most LEAF_SIZE triangles,
-    its absolute vertices copied; every child box holds its subtree's triangles."""
-    _, scene = _scenes()
-    bvh = scene.bvh
-    assert sorted(bvh.tri_id.tolist()) == list(range(scene.n_tris))
+def _check_layout(bvh, tris):
+    """Every triangle sits in exactly one leaf of 1..LEAF_SIZE rows, its
+    absolute vertices copied into a 48-byte row with the prim id in v0's pad
+    and zero pads; every child box holds its subtree's triangles; the depth
+    is the tree's, within the stack."""
+    assert sorted(bvh.tri_id.tolist()) == list(range(tris.count))
     ids = bvh.tri_id.long()
-    T = scene.tris
-    assert torch.equal(bvh.tri_v, torch.cat([T.p0[ids], T.v1[ids], T.v2[ids]], -1))
+    tv = bvh.tri_v
+    assert tv.shape[1] == 12
+    assert torch.equal(tv[:, 0:3], tris.p0[ids]) and torch.equal(tv[:, 4:7], tris.v1[ids])
+    assert torch.equal(tv[:, 8:11], tris.v2[ids])
+    assert (tv[:, 7] == 0).all() and (tv[:, 11] == 0).all()
     links = bvh.links
-    lo = torch.minimum(torch.minimum(bvh.tri_v[:, 0:3], bvh.tri_v[:, 3:6]), bvh.tri_v[:, 6:9])
-    hi = torch.maximum(torch.maximum(bvh.tri_v[:, 0:3], bvh.tri_v[:, 3:6]), bvh.tri_v[:, 6:9])
+    lo = torch.minimum(torch.minimum(tv[:, 0:3], tv[:, 4:7]), tv[:, 8:11])
+    hi = torch.maximum(torch.maximum(tv[:, 0:3], tv[:, 4:7]), tv[:, 8:11])
+    rows_seen = torch.zeros(tv.shape[0], dtype=torch.int64)
 
-    def span(link):   # (lo, hi) of the leaf slots under `link`
+    def span(link):   # (lo, hi, inner levels) of the subtree under `link`
         if link <= -2:
             code = -1 - link
             s, c = code >> 4, code & 15
             assert 1 <= c <= build.LEAF_SIZE
-            return lo[s:s + c].amin(0), hi[s:s + c].amax(0)
-        a = [span(int(x)) for x in links[link] if int(x) != build.EMPTY]
-        return torch.stack([x[0] for x in a]).amin(0), torch.stack([x[1] for x in a]).amax(0)
-
-    for node in range(bvh.nodes.shape[0]):
+            rows_seen[s:s + c] += 1
+            return lo[s:s + c].amin(0), hi[s:s + c].amax(0), 0
+        kids = []
         for c in range(2):
-            link = int(links[node, c])
-            if link != build.EMPTY:
-                smin, smax = span(link)
-                box = bvh.nodes[node, 6 * c:6 * c + 6]
-                assert (box[:3] <= smin).all() and (box[3:] >= smax).all()
-    assert 1 <= bvh.depth <= build.STACK_DEPTH
+            if int(links[link, c]) != build.EMPTY:
+                klo, khi, kd = span(int(links[link, c]))
+                box = bvh.nodes[link, 6 * c:6 * c + 6]
+                assert (box[:3] <= klo).all() and (box[3:] >= khi).all()
+                kids.append((klo, khi, kd))
+        return (torch.stack([k[0] for k in kids]).amin(0), torch.stack([k[1] for k in kids]).amax(0),
+                1 + max(k[2] for k in kids))
+
+    assert span(0)[2] == bvh.depth and 1 <= bvh.depth <= build.STACK_DEPTH
+    assert (rows_seen == 1).all()
+
+
+def test_build_layout():
+    """The small terrain_city's tree (see _check_layout)."""
+    _, scene = _scenes()
+    _check_layout(scene.bvh, scene.tris)
+    assert scene.bvh.depth >= 3
 
 
 def test_build_refuses_a_tree_deeper_than_the_stack(monkeypatch):
@@ -157,10 +170,91 @@ def test_one_leaf_scene():
     bvh = build.build_bvh(tris)
     assert bvh.nodes.shape[0] == 1 and bvh.depth == 1
     assert bvh.links[0, 1] == build.EMPTY
+    _check_layout(bvh, tris)
     rays = _rays("random")
     t, prim, _, _ = traverse.bvh_closest_hit_plain(bvh, *rays)
     sweep = _sweep(scene._replace(tris=tris), *rays)
     assert torch.equal(t, sweep.min(1).values)
+
+
+def _flat_scene():
+    """Axis-aligned flat quads: a 12 x 12 floor at y = 0 and walls at x = 0
+    and z = 3, each a pair of triangles, so many child boxes are flat on one
+    axis (as the terrain's and the city's walls are)."""
+    _, scene = _scenes()
+    g = np.arange(12, dtype=np.float32)
+    cells = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    quads = []
+    for a, b in cells:
+        quads.append([(a, 0, b), (a + 1, 0, b), (a + 1, 0, b + 1), (a, 0, b + 1)])
+        quads.append([(0, a * 0.5, b), (0, a * 0.5 + 0.5, b), (0, a * 0.5 + 0.5, b + 1),
+                      (0, a * 0.5, b + 1)])
+        quads.append([(a, b * 0.5, 3), (a + 1, b * 0.5, 3), (a + 1, b * 0.5 + 0.5, 3),
+                      (a, b * 0.5 + 0.5, 3)])
+    q = np.asarray(quads, np.float32) - np.float32(6.0)
+    v0 = np.concatenate([q[:, 0], q[:, 0]])
+    v1 = np.concatenate([q[:, 1], q[:, 2]])
+    v2 = np.concatenate([q[:, 2], q[:, 3]])
+    n = v0.shape[0]
+    ref = scene.tris
+    fields = {name: getattr(ref, name)[:1].expand(n, *getattr(ref, name).shape[1:]).clone()
+              for name in ref._fields}
+    fields.update(p0=torch.as_tensor(v0), v1=torch.as_tensor(v1), v2=torch.as_tensor(v2),
+                  e1=torch.as_tensor(v1 - v0), e2=torch.as_tensor(v2 - v0))
+    tris = type(ref)(**fields)
+    return scene._replace(tris=tris), build.build_bvh(tris)
+
+
+def _aimed_rays(tris, kind, seed=5):
+    """N rays at points of the triangles (pushed up to 5 % outside them, so
+    some miss) from 1-10 units away: from random directions, along the axes,
+    or from random directions with half the lanes dead (t_max = 0)."""
+    rs = np.random.default_rng(seed)
+    k = rs.integers(0, tris.count, N)
+    a, b = rs.uniform(size=(2, N, 1))
+    a, b = np.where(a + b > 1, 1 - a, a) * 1.1 - 0.05, np.where(a + b > 1, 1 - b, b) * 1.1 - 0.05
+    target = tris.p0.numpy()[k] + a * tris.e1.numpy()[k] + b * tris.e2.numpy()[k]
+    if kind == "axis":
+        d = np.eye(3)[rs.integers(0, 3, N)] * rs.choice([-1.0, 1.0], size=(N, 1))
+    else:
+        d = rs.normal(size=(N, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = target - d * rs.uniform(1.0, 10.0, size=(N, 1))
+    t_max = np.full((N,), BIG)
+    if kind == "dead":
+        t_max[rs.uniform(size=N) < 0.5] = 0.0
+    f32 = dict(dtype=torch.float32)
+    return (torch.as_tensor(o, **f32), torch.as_tensor(d, **f32), torch.full((N,), 1e-4),
+            torch.as_tensor(t_max, **f32))
+
+
+@pytest.mark.parametrize("case", ["flat boxes", "<= 8 triangles"])
+@pytest.mark.parametrize("kind", ["random", "axis", "dead"])
+def test_small_and_flat_trees_match_the_sweep(case, kind):
+    """The walk over flat child boxes (zero extent on one axis, as the
+    terrain's and the city's walls have) and over a one-leaf tree finds the
+    sweep's nearest hit on every lane, and the any-hit walk the sweep's
+    occlusion."""
+    if case == "flat boxes":
+        scene, bvh = _flat_scene()
+        box = bvh.nodes[:, :12].reshape(-1, 2, 6)
+        assert (box[..., 3:] == box[..., :3]).any()     # some child box is flat on an axis
+    else:
+        _, scene = _scenes()
+        scene = scene._replace(tris=type(scene.tris)(*(x[:7] for x in scene.tris)))
+        bvh = build.build_bvh(scene.tris)
+        assert bvh.nodes.shape[0] == 1
+    _check_layout(bvh, scene.tris)
+    o, d, t_min, t_max = rays = _aimed_rays(scene.tris, kind)
+    t, prim, _, _ = traverse.bvh_closest_hit_plain(bvh, *rays)
+    sweep = _sweep(scene, *rays)
+    assert torch.equal(t, sweep.min(1).values)
+    assert ((prim >= 0) == (t < BIG)).all() and 0.2 < (prim >= 0).float().mean() < 1
+    seg = torch.minimum(t_max, torch.as_tensor(
+        np.random.default_rng(4).uniform(0.1, 12.0, size=N), dtype=torch.float32))
+    occ = traverse.bvh_any_hit_plain(bvh, o, d, t_min, seg)
+    assert torch.equal(occ, _sweep(scene, o, d, t_min, seg).min(1).values < BIG)
+    assert occ.any()
 
 
 def test_wrappers_take_the_plain_version_on_cpu_and_check_inputs():

@@ -27,6 +27,7 @@ from wurblpt_tpu_torch.materials.rgl import (
 from wurblpt_tpu_torch.render import bsdf, intersect, intersect_brute
 from wurblpt_tpu_torch.render.gather import row_gather
 from wurblpt_tpu_torch.scene.ir import Spheres
+from wurblpt_tpu_torch.utils import cast_steps
 from wurblpt_tpu_torch.utils import kernel_check as kc
 from wurblpt_tpu_torch.utils import scenes
 
@@ -182,30 +183,66 @@ def _terrain(device):
     return scenes.terrain_city(seed=3, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _city_later_casts(device):
+    """(closest-hit rays, any-hit rays) of the city frame's third step: at 1
+    spp its lanes are never refilled, so the live ones are sparse and
+    incoherent."""
+    casts = cast_steps.record_casts(kc.city_frame(device, _city(device)))
+    closest = [rays for name, _, rays in casts if name == "bvh_closest_hit"]
+    shadow = [rays for name, _, rays in casts if name == "bvh_any_hit"]
+    return closest[2], shadow[2]
+
+
+def _bvh_rays(kind, device, shadow: bool):
+    """(scene, rays) of one K5/K6 case: the mesh frame's camera rays (or their
+    env-NEE shadow rays), random rays over the terrain, a later city step,
+    every lane dead, or a ragged count (not a multiple of 32)."""
+    if kind == "city later step":
+        return _city(device), _city_later_casts(device)[int(shadow)]
+    scene = _terrain(device)
+    if kind == "camera":
+        return scene, kc.mesh_camera_lanes(device)
+    if kind == "env shadow":
+        return scene, kc.env_shadow_lanes(scene, kc.mesh_camera_lanes(device))
+    rays = kc.terrain_random_lanes(kc.MESH_LANES, device)
+    if kind == "every lane dead":
+        return scene, rays[:3] + (torch.zeros_like(rays[3]),)
+    if kind == "ragged":
+        return scene, tuple(x[:1000 + 13] for x in rays)
+    return scene, rays
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["camera", "random"])
+@pytest.mark.parametrize("kind", ["camera", "random", "city later step", "every lane dead",
+                                  "ragged"])
 def test_bvh_closest_hit_kernel_matches_plain(gpu, kind):
-    scene = _terrain(gpu)
-    rays = (kc.mesh_camera_lanes(gpu) if kind == "camera"
-            else kc.terrain_random_lanes(kc.MESH_LANES, gpu))
+    scene, rays = _bvh_rays(kind, gpu, shadow=False)
     before = native.LAUNCHES["bvh_closest_hit"]
     res = kc.check_bvh_closest_hit(scene.bvh, rays)
     torch.cuda.synchronize()
     assert native.LAUNCHES["bvh_closest_hit"] == before + 1
-    assert res["hits"] > 0.2 * res["lanes"]
+    if kind == "every lane dead":
+        assert res["hits"] == 0
+    elif kind == "city later step":
+        assert 0 < res["live"] < 0.5 * res["lanes"] and res["hits"] > 0
+    else:
+        assert res["hits"] > 0.2 * res["lanes"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["env shadow", "random"])
+@pytest.mark.parametrize("kind", ["env shadow", "random", "city later step", "every lane dead",
+                                  "ragged"])
 def test_bvh_any_hit_kernel_matches_plain(gpu, kind):
-    scene = _terrain(gpu)
-    rays = (kc.env_shadow_lanes(scene, kc.mesh_camera_lanes(gpu)) if kind == "env shadow"
-            else kc.terrain_random_lanes(kc.MESH_LANES, gpu))
+    scene, rays = _bvh_rays(kind, gpu, shadow=True)
     before = native.LAUNCHES["bvh_any_hit"]
     res = kc.check_bvh_any_hit(scene.bvh, rays)
     torch.cuda.synchronize()
     assert native.LAUNCHES["bvh_any_hit"] == before + 1
-    assert 0 < res["occluded"] < res["lanes"]
+    if kind == "every lane dead":
+        assert res["occluded"] == 0
+    else:
+        assert 0 < res["occluded"] < res["live"]
 
 
 @pytest.mark.cuda
@@ -343,26 +380,35 @@ def test_rgl_and_row_gather_wrappers_take_the_plain_version_on_cpu():
 @pytest.mark.parametrize("kernel", ["assemble_hit", "bvh_closest_hit", "bvh_any_hit"])
 def test_bounds_read_each_table_once(kernel):
     """The byte term of a bound counts the lanes' inputs and outputs and each
-    table once, however many lanes read it; the walk's visits count as work."""
+    table once, however many lanes read it; the walk's visits count as work.
+    A BVH lane reads its ray (24 B) only where it is live, and a triangle
+    counts its 40 B of vertices and id, not its row's pad."""
     if kernel == "assemble_hit":
         ht = intersect.build_hit_tables(_scene("cpu", True))
         table = sum(x.numel() * x.element_size() for x in ht[:4])
         work = functools.partial(kc.assemble_hit_work, ht)
-        per_lane = 40 + 61
+        per_lane, per_live = 40 + 61, 0
     else:
         bvh = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,
                                    device="cpu").bvh
-        table = sum(x.numel() * x.element_size() for x in (bvh.nodes, bvh.tri_v, bvh.tri_id))
+        table = bvh.nodes.numel() * 4 + 40 * bvh.tri_id.shape[0]
+        assert table < sum(x.numel() * x.element_size() for x in (bvh.nodes, bvh.tri_v))
         any_hit = kernel == "bvh_any_hit"
-        rays = kc.terrain_random_lanes(512, "cpu")
+        o, d, t_min, t_max = kc.terrain_random_lanes(512, "cpu")
+        t_max = torch.where(torch.arange(512) % 3 == 0, t_min, t_max)   # every third lane dead
 
         def work(n):
-            return kc.bvh_work(bvh, tuple(x[:n] for x in rays), any_hit=any_hit)
+            return kc.bvh_work(bvh, (o[:n], d[:n], t_min[:n], t_max[:n]), any_hit=any_hit)
 
-        per_lane = 32 + (1 if any_hit else 16)
+        per_lane, per_live = 8 + (1 if any_hit else 16), 24
     for n in (256, 512):
         n_bytes, flops = work(n)
-        assert n_bytes == n * per_lane + table and flops > 0
+        if kernel == "assemble_hit":
+            live = n
+        else:
+            live = int((t_max[:n] > t_min[:n]).sum())
+            assert 0 < live <= 2 * n // 3 + 1
+        assert n_bytes == n * per_lane + live * per_live + table and flops > 0
     assert work(512)[1] > work(256)[1]
 
 

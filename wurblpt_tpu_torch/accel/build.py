@@ -8,13 +8,18 @@ package's, the same code), compiled with g++ and called through ctypes
 packed into the port's own layout, :class:`~wurblpt_tpu_torch.scene.ir.BVHArrays`:
 each node row holds the boxes and links of its two children, so a ray reads
 one 64-byte row and tests both; a leaf holds up to `LEAF_SIZE` triangles
-stored contiguously with their absolute vertices. The JAX package's W=32
-collapse, octant threading and float-encoded links are TPU gather tricks and
-are not ported.
+stored contiguously, each an aligned 48-byte row of three float4 (v0, v1,
+v2, absolute; the prim id bit-cast into v0's pad), which a thread reads
+with three 16-byte loads. The JAX package's W=32 collapse, octant threading
+and float-encoded links are TPU gather tricks and are not ported; a
+compressed 8-wide collapse (Ylitie et al. 2017: 8-bit child boxes against
+a per-node origin and power-of-two scales) was built and measured against
+this layout on the H100 and walked slower under the kernels' bit-equality
+with their plain versions (PERF.md), so the tree stays binary.
 
-The traversal keeps a per-ray stack of `STACK_DEPTH` entries; a tree with
-more inner nodes on one root-to-leaf path than that is refused here, never
-truncated.
+The traversal pushes at most one entry per inner level, so a walk holds at
+most `depth` stack entries; a tree with more inner nodes on one
+root-to-leaf path than `STACK_DEPTH` is refused here, never truncated.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from .. import native
 from ..scene.ir import BVHArrays, Triangles
 
 LEAF_SIZE = 8        # triangles per leaf at most; a leaf code keeps the count in 4 bits
-STACK_DEPTH = 64     # entries of the traversal stack: BVH_STACK in csrc/bvh_common.cuh
+STACK_DEPTH = 64     # stack entries a walk may need at most (its depth): deeper trees are refused
+TRI_WORDS = 12       # 48 bytes per leaf triangle row
 EMPTY = -1           # link of a missing child
 
 
@@ -66,7 +72,7 @@ def _sah_build(amin, amax, cent, leaf_size):
 
 
 def pack_bvh(built, v0, v1, v2, leaf_size: int = LEAF_SIZE):
-    """Binary pre-order tree -> (nodes [M, 16] f32, tri_v [T, 9], tri_id [T], depth)."""
+    """Binary pre-order tree -> (nodes [M, 16] f32, tri_v [T, 12] f32, depth)."""
     node_min, node_max, prim_start, prim_count, miss_next, prim_order = built
     n = node_min.shape[0]
     inner = prim_start < 0
@@ -99,8 +105,10 @@ def pack_bvh(built, v0, v1, v2, leaf_size: int = LEAF_SIZE):
     nodes = np.zeros((links.shape[0], 16), np.float32)
     nodes[:, :12] = boxes
     nodes.view(np.int32)[:, 12:14] = links
-    tri_v = np.concatenate([v0[tri_id], v1[tri_id], v2[tri_id]], -1).astype(np.float32)
-    return nodes, tri_v, tri_id, max_depth
+    tri_v = np.zeros((tri_id.shape[0], TRI_WORDS), np.float32)
+    tri_v[:, 0:3], tri_v[:, 4:7], tri_v[:, 8:11] = v0[tri_id], v1[tri_id], v2[tri_id]
+    tri_v.view(np.int32)[:, 3] = tri_id
+    return nodes, tri_v, max_depth
 
 
 def build_bvh(tris: Triangles, leaf_size: int = LEAF_SIZE) -> BVHArrays:
@@ -109,7 +117,6 @@ def build_bvh(tris: Triangles, leaf_size: int = LEAF_SIZE) -> BVHArrays:
         raise ValueError("cannot build a BVH over an empty scene")
     v0, v1, v2 = (x.detach().cpu().numpy() for x in (tris.p0, tris.v1, tris.v2))
     built = _sah_build(*prim_aabbs(v0, v1, v2), leaf_size)
-    nodes, tri_v, tri_id, depth = pack_bvh(built, v0, v1, v2, leaf_size)
+    nodes, tri_v, depth = pack_bvh(built, v0, v1, v2, leaf_size)
     dev = tris.p0.device
-    return BVHArrays(torch.as_tensor(nodes, device=dev), torch.as_tensor(tri_v, device=dev),
-                     torch.as_tensor(tri_id, device=dev), depth)
+    return BVHArrays(torch.as_tensor(nodes, device=dev), torch.as_tensor(tri_v, device=dev), depth)

@@ -2,19 +2,22 @@
 
 Port of ``wurblpt_tpu/accel/traverse.py`` `bvh_closest_hit` / `bvh_any_hit`
 (the wide-BVH path, `_wide_closest_hit` / `_wide_any_hit`). The kernels
-(``csrc/bvh_closest.cu``, ``csrc/bvh_any.cu``) walk the tree one thread per
-ray with a stack of `STACK_DEPTH` entries. The plain versions beside them walk
-the SAME tree in lockstep over the rays still walking (finished rays drop out
-of the lockstep tensors when they are half of them), with a per-lane
-[N, depth] stack, and take every decision the kernels take, in the same
-order:
+(``csrc/bvh_closest.cu``, ``csrc/bvh_any.cu``, the walk in
+``csrc/bvh_common.cuh``) run a persistent launch whose warps take only the
+live lanes, each thread's stack in shared memory. The plain versions beside
+them walk the SAME tree in lockstep over the rays still walking (finished
+rays drop out of the lockstep tensors when they are half of them), with a
+per-lane [N, depth] stack, and take every decision the kernels take, in
+the same order:
 
 1. at an inner node, slab-test both children against (t_min, min(t_max,
-   best t)); descend into the nearer hit child (child 0 on a tie) and push
-   the farther one with its entry distance;
+   best t)); descend into the first hit child and push the other with its
+   entry distance: the closest cast takes the nearer first (child 0 on a
+   tie), the any-hit cast child 0 first (its result does not depend on the
+   order, and this order walks less on the bench frames' shadow rays);
 2. at a leaf, test its triangles with `watertight_tri` against the bound of
-   step 1; the closest cast keeps the first strictly nearer hit, the any-hit
-   cast stops at the first valid one;
+   step 1; the closest cast keeps the first strictly nearer hit in the
+   walk's order, the any-hit cast stops at the first valid one;
 3. with no child hit, or after a leaf, pop the topmost stack entry whose
    entry distance is below min(t_max, best t), dropping the entries above it;
    an empty stack ends the walk.
@@ -37,6 +40,8 @@ from ..render.intersect import watertight_tri
 from ..render.intersect_brute import BIG, _check_rays
 from ..scene.ir import BVHArrays
 from .build import EMPTY, LEAF_SIZE, STACK_DEPTH
+
+SHARED_STACK = 16    # stack entries per thread in shared memory: SHORT in csrc/bvh_common.cuh
 
 
 def _inv_dir(d):
@@ -61,7 +66,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
     depth = max(bvh.depth, 1)
     iota = torch.arange(depth, device=dev)
     slot_ids = torch.arange(LEAF_SIZE, device=dev)
-    n_slots = bvh.tri_id.shape[0]
+    n_slots = bvh.tri_v.shape[0]
+    tri_id = bvh.tri_id
     inv_d = _inv_dir(d)
 
     out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
@@ -101,7 +107,7 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
         inner = live & (cur >= 0)
         hit, near, links = _children(bvh, torch.clamp_min(cur, 0), o, inv_d, t_min, bound)
         h0, h1 = hit[:, 0] & inner, hit[:, 1] & inner
-        first1 = h1 & (~h0 | (near[:, 1] < near[:, 0]))
+        first1 = h1 & ~h0 if any_hit else h1 & (~h0 | (near[:, 1] < near[:, 0]))
         push = h0 & h1
         slot = torch.clamp_max(sp, depth - 1)
         stack_l[rows, slot] = torch.where(push, torch.where(first1, links[:, 0], links[:, 1]),
@@ -118,8 +124,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
         slots = (code >> 4)[:, None] + slot_ids
         in_leaf = (slot_ids < (code & 15)[:, None]) & leaf[:, None]
         tv = bvh.tri_v[torch.clamp_max(slots, n_slots - 1)]
-        t, u, v, valid = watertight_tri(o[:, None], d[:, None], tv[..., 0:3], tv[..., 3:6],
-                                        tv[..., 6:9], t_min[:, None], bound[:, None])
+        t, u, v, valid = watertight_tri(o[:, None], d[:, None], tv[..., 0:3], tv[..., 4:7],
+                                        tv[..., 8:11], t_min[:, None], bound[:, None])
         valid = valid & in_leaf
         if counts is not None:   # the work this walk does: inner-node visits, leaf triangle tests
             counts["nodes"] += int(inner.sum())
@@ -134,7 +140,7 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
             tk = t_all[rows, k]
             closer = tk < best_t
             best_t = torch.where(closer, tk, best_t)
-            best_prim = torch.where(closer, bvh.tri_id[torch.clamp_max(slots[rows, k], n_slots - 1)],
+            best_prim = torch.where(closer, tri_id[torch.clamp_max(slots[rows, k], n_slots - 1)],
                                     best_prim)
             best_u = torch.where(closer, u[rows, k], best_u)
             best_v = torch.where(closer, v[rows, k], best_v)
@@ -177,9 +183,38 @@ def _check_bvh(bvh: BVHArrays, device):
     if bvh.nodes.device != device or bvh.tri_v.device != device:
         raise ValueError(f"BVH is on {bvh.nodes.device}, rays on {device}")
     if bvh.depth > STACK_DEPTH:
-        raise ValueError(f"BVH depth {bvh.depth} exceeds the kernels' stack ({STACK_DEPTH})")
+        raise ValueError(f"BVH depth {bvh.depth} exceeds the traversal stack ({STACK_DEPTH})")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no BVH kernel for device {device}")
+
+
+# (entry point, device, stream) -> [threads of a full launch, lane counter,
+# spill rows or None]: made on a stream's first cast, grown with the tree's
+# depth, and reused, since the casts of one stream run one after another.
+_SCRATCH = {}
+
+
+def _scratch(bvh: BVHArrays, device, stream: int, lib, entry: str):
+    """(the persistent launch's lane counter, the stack's spill rows or None):
+    the kernel's first SHARED_STACK entries per thread live in shared
+    memory, the rest of the tree's depth in rows of device memory for every
+    thread of a full launch. The launch zeroes the counter on the stream
+    before it starts; neither needs a kernel of its own, nor, after the
+    stream's first cast, an allocation."""
+    key = (entry, device, stream)
+    if key not in _SCRATCH:
+        threads = getattr(lib, f"wpt_{entry}_threads")()
+        _SCRATCH[key] = [threads, torch.empty((1,), dtype=torch.int32, device=device), None]
+    scratch = _SCRATCH[key]
+    threads, counter, spill = scratch
+    need = threads * max(bvh.depth - SHARED_STACK, 0) * 2
+    if need and (spill is None or spill.numel() < need):
+        spill = scratch[2] = torch.empty((need,), dtype=torch.int32, device=device)
+    return counter, spill if need else None
+
+
+def _ptr(x):
+    return 0 if x is None else x.data_ptr()
 
 
 def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max):
@@ -194,10 +229,12 @@ def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max):
     prim = torch.empty((n,), dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
+    stream = native.stream_ptr(o)
+    counter, spill = _scratch(bvh, o.device, stream, lib, "bvh_closest")
     code = lib.wpt_bvh_closest_hit(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n, bvh.nodes.data_ptr(),
-        bvh.tri_v.data_ptr(), bvh.tri_id.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
-        v.data_ptr(), native.stream_ptr(o))
+        bvh.tri_v.data_ptr(), counter.data_ptr(), _ptr(spill), t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), stream)
     native.check(code, "bvh_closest_hit")
     native.LAUNCHES["bvh_closest_hit"] += 1
     return t, prim, u, v
@@ -212,9 +249,11 @@ def bvh_any_hit(bvh: BVHArrays, o, d, t_min, t_max):
     lib = native.load_kernels()
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
+    stream = native.stream_ptr(o)
+    counter, spill = _scratch(bvh, o.device, stream, lib, "bvh_any")
     code = lib.wpt_bvh_any_hit(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n, bvh.nodes.data_ptr(),
-        bvh.tri_v.data_ptr(), occ.data_ptr(), native.stream_ptr(o))
+        bvh.tri_v.data_ptr(), counter.data_ptr(), _ptr(spill), occ.data_ptr(), stream)
     native.check(code, "bvh_any_hit")
     native.LAUNCHES["bvh_any_hit"] += 1
     return occ

@@ -68,8 +68,10 @@ _SIGNATURES = {
     "wpt_any_hit": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P],
     "wpt_assemble_hit": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P],
-    "wpt_bvh_closest_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "wpt_bvh_any_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "wpt_bvh_closest_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_bvh_closest_threads": [],
+    "wpt_bvh_any_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "wpt_bvh_any_threads": [],
     "wpt_env_radiance": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],

@@ -100,18 +100,24 @@ class BVHArrays(NamedTuple):
     Node row, 16 floats = 4 x float4: child 0 box (min xyz, max xyz), child 1
     box, then the two child links as int32 bit patterns and two pad words.
     A link >= 0 is an inner node; -1 is an empty child; any other negative
-    link is a leaf, ``-1 - link = start * 16 + count``: triangles
-    [start, start + count) of `tri_v` / `tri_id`. Node 0 is the root."""
+    link is a leaf, ``-1 - link = start * 16 + count``: rows
+    [start, start + count) of `tri_v`. Node 0 is the root. Leaf triangle
+    row, 12 floats = 48 bytes = 3 x float4: v0 xyz, the prim id (int32
+    bits), v1 xyz, 0, v2 xyz, 0 (absolute vertices)."""
 
     nodes: torch.Tensor     # [M, 16] f32 (links bit-cast)
-    tri_v: torch.Tensor     # [T, 9] f32 absolute vertices v0 v1 v2, in leaf order
-    tri_id: torch.Tensor    # [T] int32 global prim id of each leaf slot
+    tri_v: torch.Tensor     # [T, 12] f32, in leaf order (prim ids bit-cast)
     depth: int              # inner nodes on the longest root-to-leaf path
 
     @property
     def links(self):
         """[M, 2] int32 child links."""
         return self.nodes.view(torch.int32)[:, 12:14]
+
+    @property
+    def tri_id(self):
+        """[T] int32 global prim id of each leaf row."""
+        return self.tri_v.view(torch.int32)[:, 3]
 
 
 class EnvMapArrays(NamedTuple):

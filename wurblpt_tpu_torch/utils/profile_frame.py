@@ -1,12 +1,13 @@
 """Where the time of the port's six frames goes on the GPU.
 
-    python -m wurblpt_tpu_torch.utils.profile_frame
+    python -m wurblpt_tpu_torch.utils.profile_frame [--frames mesh,city] [--runs N]
 
-For each frame in turn (the Cornell bench frame, the mesh frame of bench
-config bvh_100k, the city frame of bench config city_many_lights, the
-envmap frame of envmap_cube_is, the rtiow frame of rtiow_distortion, the
-ToF frame of tof_amcw at phase 0): renders it once to warm up, 5 times
-unprofiled, once under torch.profiler (CPU + CUDA activities), and 3 times
+For each frame in turn (by default all six: the Cornell bench frame, the
+mesh frame of bench config bvh_100k, the city frame of bench config
+city_many_lights, the envmap frame of envmap_cube_is, the rtiow frame of
+rtiow_distortion, the ToF frame of tof_amcw at phase 0): renders it once to
+warm up, N times (5 by default) unprofiled, once under torch.profiler (CPU
++ CUDA activities), and 3 times
 more unprofiled (frames after a profiled one run slower), and prints: the
 wavefront steps, the number of kernel launches (and apart from them the
 copies and memsets, such as each step's read of the loop condition), the
@@ -20,6 +21,7 @@ name, and the host ops by launch count.
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import time
 
@@ -36,10 +38,11 @@ from .kernel_check import (
     tof_frame,
 )
 
-_OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
-         "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
-         "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel", "regen_kernel",
-         "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel")
+# The hand-written kernels, by the names the profiler's keys contain.
+OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
+        "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
+        "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel", "regen_kernel",
+        "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel")
 _TOP = 25
 
 
@@ -53,12 +56,12 @@ def _wall_ms(frame):
     return (time.perf_counter() - t0) * 1e3
 
 
-def profile_one(name, frame, step_counter):
+def profile_one(name, frame, step_counter, runs: int = 5):
     """Profile one frame function (see the module docstring)."""
     print(f"== {name}")
     frame()
     # Unprofiled frames first: frames after a profiled one run slower.
-    plain = [_wall_ms(frame) for _ in range(5)]
+    plain = [_wall_ms(frame) for _ in range(runs)]
     plain_ms = statistics.median(plain)
     native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -75,12 +78,12 @@ def profile_one(name, frame, step_counter):
           f"({copies / max(steps, 1):.1f} per step), "
           f"device time {dev_ms:.3f} ms")
     print(f"profiled frame {wall_ms:.2f} ms wall: busy share {dev_ms / wall_ms:.3f}")
-    print(f"unprofiled frame {plain_ms:.2f} ms wall (median of 5: "
+    print(f"unprofiled frame {plain_ms:.2f} ms wall (median of {runs}: "
           f"{[round(t, 2) for t in plain]}): busy share {dev_ms / plain_ms:.3f}, "
           f"idle share {1 - dev_ms / plain_ms:.3f}; after profiling "
           f"{[round(t, 2) for t in after]} ms")
     for e in sorted(kernels, key=lambda e: e.key):
-        if any(k in e.key for k in _OURS):
+        if any(k in e.key for k in OURS):
             ms = _device_us(e) / 1e3
             print(f"  hand-written {e.key[:60]}: {ms:.3f} ms in {e.count} launches, "
                   f"{ms / e.count * 1e3:.2f} us each ({ms / plain_ms:.4f} of the frame)")
@@ -94,15 +97,27 @@ def profile_one(name, frame, step_counter):
         print(f"  {e.count:7d} calls  {e.self_cpu_time_total / 1e3:9.3f} ms self  {e.key}")
 
 
-def main():
+FRAMES = {
+    "cornell": ("cornell bench frame", bench_frame, "closest_hit"),
+    "mesh": ("mesh frame (bvh_100k)", mesh_frame, "bvh_closest_hit"),
+    "city": ("city frame (city_many_lights)", city_frame, "bvh_closest_hit"),
+    "envmap": ("envmap frame (envmap_cube_is)", envmap_frame, "closest_hit"),
+    "rtiow": ("rtiow frame (rtiow_distortion)", rtiow_frame, "closest_hit"),
+    "tof": ("tof frame (tof_amcw, phase 0)", tof_frame, "closest_hit"),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", default=",".join(FRAMES),
+                    help=f"comma-separated, of {', '.join(FRAMES)}")
+    ap.add_argument("--runs", type=int, default=5, help="unprofiled frames timed per frame")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
-    profile_one("cornell bench frame", bench_frame("cuda"), "closest_hit")
-    profile_one("mesh frame (bvh_100k)", mesh_frame("cuda"), "bvh_closest_hit")
-    profile_one("city frame (city_many_lights)", city_frame("cuda"), "bvh_closest_hit")
-    profile_one("envmap frame (envmap_cube_is)", envmap_frame("cuda"), "closest_hit")
-    profile_one("rtiow frame (rtiow_distortion)", rtiow_frame("cuda"), "closest_hit")
-    profile_one("tof frame (tof_amcw, phase 0)", tof_frame("cuda"), "closest_hit")
+    for key in args.frames.split(","):
+        name, make, step_counter = FRAMES[key]
+        profile_one(name, make("cuda"), step_counter, args.runs)
 
 
 if __name__ == "__main__":
