@@ -96,7 +96,14 @@ regeneration is timed only on lanes that regenerate. K5 and K6 are also
 held against their plain versions (bit-equal) and timed beside their bound
 at every cast of the mesh frame (4 steps) and the city frame (2 blocks of 4
 steps), on the rays each step gives, with each cast's live lanes
-(`utils/cast_steps.py`). Every path
+(`utils/cast_steps.py`); the lit shade and the surround regeneration at
+every step of the city frame and the regeneration at every step of the
+Cornell, mesh and rtiow frames' first block likewise, with their live and
+regenerated lanes and their bounds in place and copying
+(`utils/k4_steps.py`). The regenerations and the lit shade update the
+lane state in place: each check gives every call its own copy of the
+inputs, and each time restores them before every call, outside the timed
+window (the device's time per call). Every path
 prints its frame time, paths/s, Mrays/s, device time and kernel launches
 per wavefront step, and apart from them the copies and memsets (one more
 frame under torch.profiler; the scene's tables are built once per scene,
@@ -217,6 +224,8 @@ CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample") + ENV_ALL
 ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit",
                "nee_resolve")
 RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
+# The K4 kernels that update the lane state in place (render/wavefront.py).
+IN_PLACE = ("regen_pinhole", "regen_surround", "shade_lit")
 
 
 def phase_build():
@@ -249,14 +258,19 @@ def phase_build():
 
 
 def _timed_records(timed, errs, lanes):
-    """name -> (kernel call, plain call, (bytes, flops) of the work, library call or None)."""
+    """name -> (kernel call, plain call, (bytes, flops) of the work, library call or None).
+    A kernel that writes its inputs comes as (function, arguments): it is
+    timed on the same inputs each call, restored outside the timed window
+    (kc.time_restored_ms: the device's time per call)."""
     records = []
     for name, (kernel, plain, work, library) in timed.items():
-        ms = kc.time_ms(kernel, DEVICE)
+        ms = (kc.time_restored_ms(*kernel, DEVICE) if isinstance(kernel, tuple)
+              else kc.time_ms(kernel, DEVICE))
         plain_ms = kc.time_ms(plain, DEVICE)
         library_ms = None if library is None else kc.time_ms(library, DEVICE)
         bound, bound_by = kc.bound_ms(*work)
-        print(f"kernels: {name} {ms:.4f} ms (wrapper call) vs plain {plain_ms:.4f} ms"
+        how = "device, inputs restored" if isinstance(kernel, tuple) else "wrapper call"
+        print(f"kernels: {name} {ms:.4f} ms ({how}) vs plain {plain_ms:.4f} ms"
               f"{'' if library is None else f', library {library_ms:.4f} ms'}; bound "
               f"{bound:.6f} ms by {bound_by} ({work[0]:.4g} bytes, {work[1]:.4g} flops) "
               f"at {lanes} lanes")
@@ -497,10 +511,14 @@ def _k4_records(scenes_on_card):
         args = {"regen_pinhole": inp.regen, "regen_surround": inp.regen,
                 "nee_resolve": inp.resolve}.get(kernel, inp.shade)
         plain = getattr(wf, "regen_plain" if kernel.startswith("regen") else kernel + "_plain")
+        fn = getattr(wf, kernel)
+        # the in-place kernels on the same inputs each call; the others as they are
+        call = ((fn, args) if kernel in IN_PLACE else lambda f=fn, a=args: f(*a))
         records += _timed_records({record: (
-            lambda f=getattr(wf, kernel), a=args: f(*a), lambda f=plain, a=args: f(*a),
-            kc.k4_work(inp, kernel), None)}, errs, inp.regen[0].active.shape[0])
+            call, lambda f=plain, a=args: f(*a), kc.k4_work(inp, kernel), None)}, errs,
+            inp.regen[0].active.shape[0])
     _frame_casts(scenes_on_card)
+    _frame_k4_steps(scenes_on_card)
     return records
 
 
@@ -518,6 +536,24 @@ def _frame_casts(scenes_on_card):
         for r in rows:
             print(f"kernels: {cast_steps.format_row(r)}, bit-equal to the plain walk")
         for line in cast_steps.summary(rows):
+            print(f"kernels: {line}")
+
+
+def _frame_k4_steps(scenes_on_card):
+    """The lit shade and the surround regeneration at every step of the city
+    frame (2 blocks of 4 steps), and the regeneration at every step of the
+    Cornell, mesh and rtiow frames' first block, on the lanes each step
+    really gives (`utils/k4_steps.py`): each call held against its plain
+    version (bit-equal), its device time per call on restored inputs beside
+    its bounds, in place and copying."""
+    from wurblpt_tpu_torch.utils import k4_steps
+
+    for frame in ("city", "cornell", "mesh", "rtiow"):
+        rows = k4_steps.frame_rows(frame, DEVICE, scenes_on_card.get(frame))
+        for r in rows:
+            assert r["max_abs_err"] == 0.0 and r["discrete_differ"] == 0, r
+            print(f"kernels: {k4_steps.format_row(r)}, bit-equal to the plain version")
+        for line in k4_steps.summary(rows):
             print(f"kernels: {line}")
 
 

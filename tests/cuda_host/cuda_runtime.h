@@ -1,19 +1,26 @@
-// Host stand-in for the CUDA pieces that csrc/bvh_common.cuh uses, so that
-// the walk of K5/K6 compiles with g++ and runs on the CPU: one block at a
-// time, one std::thread per CUDA thread, the warp intrinsics through a
-// barrier per warp (every thread of a warp calls them in the same order).
+// Host stand-in for the CUDA pieces that csrc/bvh_common.cuh and the device
+// code of csrc/wavefront.cu use, so that the walk of K5/K6 and K4's kernels
+// compile with g++ and run on the CPU: one block at a time, one std::thread
+// per CUDA thread, the warp intrinsics through a barrier per warp (every
+// thread of a warp calls them in the same order), __syncthreads through a
+// barrier per block, shared memory as statics of the running block.
 // Arithmetic is the host's IEEE float32 with -ffp-contract=off, as the
-// kernels' -fmad=false.
+// kernels' -fmad=false; sinf, cosf, powf and the like are the host's libm.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #define __device__
 #define __global__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
+#define __launch_bounds__(...)
 
 struct float3 { float x, y, z; };
 struct float4 { float x, y, z, w; };
@@ -21,10 +28,11 @@ struct int2 { int x, y; };
 struct dim3 { unsigned x, y, z; };
 
 inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
 
 extern thread_local dim3 threadIdx, blockIdx;
-extern dim3 gridDim;
+extern dim3 gridDim, blockDim;
 
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
@@ -38,8 +46,21 @@ inline unsigned __fns(unsigned mask, unsigned base, int offset) {   // offset > 
         if (((mask >> b) & 1u) && --offset == 0) return b;
     return 0xffffffffu;
 }
+using std::isfinite;
+using std::max;
 using std::min;
+// CUDA's min and max of two integer types of different widths
+template <class A, class B, class = std::enable_if_t<!std::is_same_v<A, B>>>
+inline std::common_type_t<A, B> min(A a, B b) { return a < b ? a : b; }
+template <class A, class B, class = std::enable_if_t<!std::is_same_v<A, B>>>
+inline std::common_type_t<A, B> max(A a, B b) { return a < b ? b : a; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 struct WarpSync {
     std::barrier<> bar{32};
@@ -65,4 +86,40 @@ inline int __shfl_sync(unsigned, int v, int src) {
     unsigned all[32];
     exchange(static_cast<unsigned>(v), all);
     return static_cast<int>(all[src]);
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+    unsigned all[32], sum = 0;
+    exchange(v, all);
+    for (int i = 0; i < 32; ++i) sum += all[i];
+    return sum;
+}
+
+// The running block's barrier and the word its votes add into.
+struct BlockSync {
+    std::barrier<> bar;
+    std::atomic<int> votes{0};
+    explicit BlockSync(int threads) : bar(threads) {}
+};
+extern BlockSync* g_block;
+
+inline void __syncthreads() { g_block->bar.arrive_and_wait(); }
+inline int __syncthreads_count(bool p) {
+    g_block->votes += p ? 1 : 0;
+    __syncthreads();
+    const int n = g_block->votes;
+    __syncthreads();
+    if (threadIdx.x == 0) g_block->votes = 0;
+    __syncthreads();
+    return n;
+}
+inline bool __syncthreads_or(bool p) { return __syncthreads_count(p) > 0; }
+
+// The launch configuration queries of a persistent launch: one SM here.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, K, int, size_t) {
+    *b = 2;
+    return 0;
 }

@@ -1,0 +1,116 @@
+// K4's in-place kernels of csrc/wavefront.cu on the CPU through
+// cuda_runtime.h: the lit shade as its persistent launch (`grid` blocks one
+// after another, each as LIT_BLOCK threads, sharing one lane counter) and
+// the regenerations, set up as the C entry points of wavefront.cu set them
+// up. wavefront_device.cuh is wavefront.cu up to its launches (the test
+// cuts it there and closes its namespace).
+#include <thread>
+#include <vector>
+
+#include "cuda_runtime.h"
+
+#include "wavefront_device.cuh"
+
+thread_local dim3 threadIdx, blockIdx;
+dim3 gridDim, blockDim;
+WarpSync* g_warps;
+BlockSync* g_block;
+
+template <class Body>
+static void run_blocks(int grid, int block, Body body) {
+    gridDim = {static_cast<unsigned>(grid), 1, 1};
+    blockDim = {static_cast<unsigned>(block), 1, 1};
+    for (int b = 0; b < grid; ++b) {
+        std::vector<WarpSync> warps(block / 32);
+        g_warps = warps.data();
+        BlockSync sync(block);
+        g_block = &sync;
+        std::vector<std::thread> threads;
+        for (int i = 0; i < block; ++i)
+            threads.emplace_back([&, b, i] {
+                threadIdx = {static_cast<unsigned>(i), 0, 0};
+                blockIdx = {static_cast<unsigned>(b), 0, 0};
+                body();
+            });
+        for (auto& th : threads) th.join();
+    }
+}
+
+// wpt_shade_lit's arguments up to its pending deposits, `grid` blocks;
+// returns 0, or -1 for a sky or sensor this build leaves out.
+extern "C" int host_shade_lit(
+    const WaveState* st, long long* stats, int n, const long long* pixel, const float* t,
+    const int* prim, const float* pos, const float* nrm, const float* gnrm, const float* tng,
+    const bool* backside, const int* mat_hit, const float* mat, int n_mat,
+    const float* pick_area, int n_pick, const float* light_tri, const int* light_mat,
+    const float* light_w, const float* alias_prob, const int* alias_idx, int n_lights, int sky,
+    const float* img, int h, int w, const float* pdf, const float* env_alias_prob,
+    const int* env_alias_idx, int res, const float* rot, const RglTables* rgl, int sensor,
+    const float* sensor_params, int max_depth, int rr_start, float rr_threshold,
+    float shadow_scale, float min_hit, float* shadow_o, float* shadow_d, float* shadow_tmax,
+    float* pending, int grid) {
+    if (sky != SKY_EQUIRECT || sensor < 0 || sensor > 1) return -1;
+    SensorParams sp;
+    for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
+    const LitStep step{pixel, t, prim, pos, nrm, gnrm, tng, backside, mat_hit, shadow_o,
+                       shadow_d, shadow_tmax, pending, n, max_depth, rr_start, rr_threshold,
+                       shadow_scale, min_hit};
+    const LitTables tab{mat, n_mat,
+                        Lights{pick_area, n_pick, light_tri, light_mat, light_w, alias_prob,
+                               alias_idx, n_lights},
+                        rgl != nullptr ? *rgl : RglTables{}};
+    const EnvMap env{reinterpret_cast<const float4*>(img), h, w, nullptr, pdf, env_alias_prob,
+                     env_alias_idx, res, rot};
+    int counter = 0;
+    unsigned long long* cnt = reinterpret_cast<unsigned long long*>(stats);
+    const WaveState s = *st;
+    auto launch = [&](auto kernel) {
+        run_blocks(grid, LIT_BLOCK, [&] { kernel(s, step, tab, env, sp, &counter, cnt); });
+    };
+    if (sensor == SENSOR_RGB) {
+        if (rgl != nullptr) launch(shade_lit_kernel<SENSOR_RGB, SKY_EQUIRECT, true>);
+        else launch(shade_lit_kernel<SENSOR_RGB, SKY_EQUIRECT, false>);
+    } else {
+        if (rgl != nullptr) launch(shade_lit_kernel<SENSOR_TOF, SKY_EQUIRECT, true>);
+        else launch(shade_lit_kernel<SENSOR_TOF, SKY_EQUIRECT, false>);
+    }
+    return 0;
+}
+
+template <int CAMERA>
+static void regen(const WaveState* st, float* t_max, int n, const Camera& cam, long long blk,
+                  int B, int m, long long P, long long n_pix, int width, int height, int ssqrt,
+                  int randomize) {
+    const WaveState s = *st;
+    gridDim = {static_cast<unsigned>((n + 255) / 256), 1, 1};
+    blockDim = {256, 1, 1};
+    for (int i = 0; i < n; ++i) {   // no barrier: one thread after another
+        threadIdx = {static_cast<unsigned>(i % 256), 0, 0};
+        blockIdx = {static_cast<unsigned>(i / 256), 0, 0};
+        regen_kernel<CAMERA>(s, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt,
+                             randomize);
+    }
+}
+
+// wpt_regen_pinhole's and wpt_regen_surround's arguments (the stream left out).
+extern "C" void host_regen_pinhole(const WaveState* st, float* t_max, int n, const float* centre,
+                                   const float* focal, const float* translation,
+                                   const float* rotation, const float* dist_k,
+                                   const float* dist_p, int lens, int iters, long long blk, int B,
+                                   int m, long long P, long long n_pix, int width, int height,
+                                   int ssqrt, int randomize) {
+    const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
+                     nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+    regen<CAM_PINHOLE>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+}
+
+extern "C" void host_regen_surround(const WaveState* st, float* t_max, int n,
+                                    const float* translation, const float* rotation,
+                                    const float* scale, const float* eye_distance, float span,
+                                    float inv_width, float inv_eff_height, int stereo,
+                                    long long blk, int B, int m, long long P, long long n_pix,
+                                    int width, int height, int ssqrt, int randomize) {
+    const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
+                     scale, eye_distance, span, inv_width, inv_eff_height, stereo};
+    regen<CAM_SURROUND>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+}

@@ -255,7 +255,10 @@ def test_params_reach_the_plain_roulette():
 @pytest.mark.parametrize("frame", ["cornell", "tof"])
 def test_k4_bounds_count_what_each_branch_reads(frame):
     """K4's bounds charge each lane what its branch reads: the regeneration
-    reads the old state only on lanes it keeps; the shade reads the primitive
+    in place reads every lane's active flag and a dead lane's next sample
+    index and writes every lane's t_max and only a regenerated lane's state,
+    sample id and next index (the earlier regeneration, which wrote every
+    lane's state anew, read the old state on lanes it kept); the shade reads the primitive
     id only on active lanes, the hit record (but the position, which every
     lane's shadow ray starts from), the ray IOR and the previous bsdf
     sample's flag only on hit lanes, and the previous bsdf pdf with the
@@ -270,7 +273,13 @@ def test_k4_bounds_count_what_each_branch_reads(frame):
     kept = 8 + 8 + 12 + 12 + 16 + 16 + 4 + 16 + 4 + 4       # sample, bounce .. prev_light_pdf
     written = 8 + 12 + 12 + 16 + 16 + 1 + 4 + 16 + 4 + 1 + 4 + 8 + 8 + 4
     camera = 4 * (2 + 2 + 3 + 4)
-    assert kc.k4_work(inp, "regen_pinhole")[0] == n * 10 + (n - need) * kept + n * written + camera
+    assert (kc.k4_work(inp, "regen_pinhole", in_place=False)[0]
+            == n * 10 + (n - need) * kept + n * written + camera)
+    dead = int((~st.active).sum())
+    assert need <= dead
+    refill = 8 + 12 + 12 + 16 + 16 + 1 + 4 + 16 + 4 + 1 + 4 + 8 + 8     # state, sample, k_next
+    assert kc.k4_work(inp, "regen_pinhole")[0] == n * (1 + 4) + dead * 8 + need * refill + camera
+    assert kc.k4_work(inp, "regen_pinhole")[1] == kc.k4_work(inp, "regen_pinhole", False)[1]
 
     tables, _, _, sst, _, _, _, prim, _ = inp.shade
     hit = (prim >= 0) & sst.active

@@ -263,6 +263,104 @@ def test_the_city_block_regenerates_every_lane_on_its_first_step_only():
     assert kc.k4_work(later, "regen_surround")[1] == 0.0
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _rows_equal(a, b, rows):
+    return torch.equal(_bits(a)[rows], _bits(b)[rows])
+
+
+def test_in_place_lit_wrappers_leave_alone_what_the_contract_leaves_alone():
+    """On CPU tensors regen_surround and shade_lit keep the kernels' in-place
+    contract: they return the tensors they were given, the lanes and fields
+    the contract does not write keep their bits, and what they write is the
+    plain version's output. The regeneration leaves every lane it does not
+    refill as it was; the shade changes on a dead lane only the previous
+    sample's pdf and flag, on an escaped lane not its origin, direction,
+    ray IOR, throughput or path lengths, and on a hit lane that does not
+    scatter not its direction, throughput or ray IOR."""
+    inp = _small_inputs(ssqrt=2)
+    args = kc.fresh_args(inp.regen)
+    st, sample, k_next = args[:3]
+    before = [x.clone() for x in (*st, sample, k_next)]
+    need = (~st.active) & (k_next < args[5].P) & args[5].valid
+    assert 0 < int(need.sum()) < need.numel()
+    out = wf.regen_surround(*args)
+    assert all(a is b for a, b in zip(out[0], st)) and out[1] is sample and out[2] is k_next
+    ref = wf.regen_plain(*inp.regen)
+    for f, a, b, r in zip((*wf.LoopState._fields, "sample", "k_next"), before,
+                          (*st, sample, k_next), (*ref[0], ref[1], ref[2])):
+        if f != "stats":
+            assert _rows_equal(a, b, ~need), f
+            assert _rows_equal(b, r, need), f
+    assert torch.equal(out[3], ref[3])
+
+    inp = _small_inputs(scene=_mixed_lobes(_small_city()), steps=2)
+    args = kc.fresh_args(inp.shade)
+    st = args[3]
+    before = [x.clone() for x in st]
+    dead, escaped, hit, _, scatters, _ = kc._lit_lanes(inp)
+    kept = hit & ~scatters
+    new, *rows = wf.shade_lit(*args)
+    assert all(a is b for a, b in zip(new, st))
+    ref, *ref_rows = wf.shade_lit_plain(*kc.fresh_args(inp.shade))
+    assert int(dead.sum()) > 0 and int(escaped.sum()) > 0 and int(kept.sum()) > 0
+    for f, a, b, r in zip(wf.LoopState._fields, before, new, ref):
+        if f == "stats":
+            continue
+        assert torch.equal(_bits(b), _bits(r)), f           # the plain version's state
+        if f not in ("prev_pdf", "prev_random"):
+            assert _rows_equal(a, b, dead), f
+        if f in ("o", "d", "ior", "throughput", "geom_len", "opt_len", "prev_light_pdf"):
+            assert _rows_equal(a, b, escaped), f
+        if f in ("d", "ior", "throughput"):
+            assert _rows_equal(a, b, kept), f
+    for got, want in zip(rows, ref_rows):
+        assert torch.equal(got, want)
+
+
+def test_check_k4_leaves_its_inputs_as_they_were():
+    """check_k4 gives each in-place call its own copy of the inputs: after
+    it the inputs keep their bits, where one call of the wrappers on them
+    changes them."""
+    inp = _small_inputs(steps=0)
+    saved = [x.clone() for x in (*inp.regen[0], *inp.regen[1:3], *inp.shade[3])]
+    res = kc.check_k4(inp)
+    assert all(v == 0 for fields in res.values() for v in fields.values()), res
+    now = (*inp.regen[0], *inp.regen[1:3], *inp.shade[3])
+    assert all(torch.equal(a, b) for a, b in zip(saved, now))
+    wf.regen_surround(*inp.regen)
+    wf.shade_lit(*inp.shade)
+    now = (*inp.regen[0], *inp.regen[1:3], *inp.shade[3])
+    assert not all(torch.equal(a, b) for a, b in zip(saved, now))
+
+
+def test_k4_steps_records_and_checks_every_lit_call_of_the_small_city():
+    """utils/k4_steps.py on the small city frame (one block of 1152 lanes, 4
+    steps): a surround regeneration and a lit shade per step, each held to
+    its plain version (0 everywhere on the CPU, where the wrappers run
+    them), with its lanes, live lanes (active at the shade: all at the first
+    step, fewer after) and regenerated lanes (all at the first step, none
+    after, at 1 spp), and bounds in place below the copying ones."""
+    from wurblpt_tpu_torch.utils import k4_steps
+
+    render = kc._frame(_small_city(), scenes.city_camera("cpu"), W, H, 1, 4, "cpu", CITY_CFG,
+                       kc.CITY_EYE_DISTANCE)
+    rows = k4_steps.k4_rows("city", render, "cpu", n=1)
+    assert [(r["kernel"], r["step"]) for r in rows] == [
+        (k, s) for s in range(4) for k in ("regen_surround", "shade_lit")]
+    for r in rows:
+        assert r["lanes"] == W * H and r["max_abs_err"] == 0.0 and r["discrete_differ"] == 0
+        assert r["bound_ms"] <= r["copy_bound_ms"] and r["bytes"] <= r["copy_bytes"]
+    shades = [r for r in rows if r["kernel"] == "shade_lit"]
+    regens = [r for r in rows if r["kernel"] == "regen_surround"]
+    assert shades[0]["live"] == W * H > shades[1]["live"] >= shades[3]["live"] > 0
+    assert regens[0]["regenerated"] == W * H and all(r["regenerated"] == 0 for r in regens[1:])
+    assert regens[1]["bytes"] < regens[1]["copy_bytes"] / 10      # a copying step costs little
+    assert len(k4_steps.summary(rows)) == 2
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device", "geom_normal", "tangent",
                                  "mixture MIS", "no light", "no sky", "constant sky",
                                  "no importance", "RGL without tables", "media material",
@@ -333,17 +431,32 @@ def test_regen_surround_and_resolve_reject_malformed_inputs(bad):
 
 
 def test_lit_k4_bound_counts_what_the_branch_reads():
-    """The lit shade's bound charges every lane its state, the sample ids,
+    """The lit shade's bound in place charges each lane what its branch
+    reads and changes: every lane its active flag; a dead lane its previous
+    sample's pdf and flag and its two idle shadow rows (t_max, pending): 38
+    B; an active lane its primitive id, bounce index, direction, deposits
+    and throughput; an escaped lane its flag and optical path length (the
+    pdf where the flag is set) in and its deposits, bounce index, end, flag,
+    pdf and idle rows out; a hit lane t, normal, position, ray IOR,
+    backside, material, path lengths, flag, pixel and sample id in (the
+    pdf, geometric normal and (pick, 1 / area) row where the flag is set,
+    the tangent on GGX and RGL hits) and its deposits, bounce index,
+    origin, path lengths, end, flag, pdf and mixture pdf out, where it
+    scatters also its direction, throughput and ray IOR, on a RANDOM lane
+    two shadow rays and two pending deposits, else its idle rows. The bound
+    of the earlier lit shade, which wrote every lane's state anew
+    (`in_place=False`), charges every lane its state, the sample ids,
     the ray IOR (read and written back) and the hit position (the origin of
     its two shadow rays); the primitive id and the previous sample's flag on
     active lanes; t, normal, backside and material on hit lanes; the origin
     where the ray missed; the previous pdf where the flag is set; the
     geometric normal and the (pick, 1 / area) row on hit lanes with the flag
     (the emitter's MIS weight); the tangent on GGX and RGL hits; two shadow
-    rays and two pending deposits out per lane; the material, light and sky
-    rows and the RGL tables once. The two-deposit resolve charges both
-    occlusion flags of every lane and each unoccluded row's deposit; the
-    surround regeneration its camera's pose and eye distance."""
+    rays and two pending deposits out per lane; both charge the material,
+    light and sky rows and the RGL tables once. The two-deposit resolve
+    charges both occlusion flags of every lane and each unoccluded row's
+    deposit; the surround regeneration its camera's pose and eye
+    distance."""
     inp = _small_inputs(scene=_mixed_lobes(_small_city()), ssqrt=2)
     tables, _, _, st, _, _, _, prim, hr = inp.shade
     env = tables.env
@@ -365,9 +478,40 @@ def test_lit_k4_bound_counts_what_the_branch_reads():
               + 12 * int((~hit).sum()) + 4 * int(weighted.sum())
               + (12 + 8) * int((hit & st.prev_random).sum()) + 12 * int(framed.sum())
               + n * (out + shadow) + rows + 16)
-    n_bytes, flops = kc.k4_work(inp, "shade_lit")
+    n_bytes, flops = kc.k4_work(inp, "shade_lit", in_place=False)
     assert n_bytes == expect
     assert flops >= 330.0 * n + 900.0 * int((hit & (typ == MaterialType.RGL)).sum())
+
+    # in place, by branch; the kinds of scatter from the plain version's bsdf sample
+    from wurblpt_tpu_torch.core.rng import Salt, uniform4
+    from wurblpt_tpu_torch.render.bsdf import ScatterKind, bsdf_sample, gather_material_rows
+
+    pixel, sample = inp.shade[4], inp.shade[5]
+    sr = bsdf_sample(hr, st.d, st.ior, uniform4(pixel, sample, st.bounce, Salt.BSDF),
+                     *uniform4(pixel, sample, st.bounce, Salt.BSDF_AUX)[:, :2].T,
+                     gather_material_rows(tables.mat, hr.mat), tables.mat_types, rgl=tables.rgl)
+    random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
+    cont = random | (hit & (sr.kind == ScatterKind.EXPLICIT))
+    escaped = st.active & (prim < 0)
+    dead = ~st.active
+    count = lambda m: int(m.sum())  # noqa: E731
+    assert min(count(escaped), count(random), count(cont & ~random), count(hit & ~cont)) > 0
+    idle = 2 * (4 + 12)
+    expect = (n * 1 + count(dead) * (4 + 1 + idle)
+              + count(st.active) * (4 + 8 + 12 + 12 + 16)
+              + count(escaped) * ((1 + 16) + (12 + 8 + 1 + 4 + 1) + idle)
+              + 4 * count(escaped & st.prev_random)
+              + count(hit) * ((4 + 12 + 12 + 16 + 1 + 4 + 4 + 16 + 1 + 8 + 8)
+                              + (12 + 8 + 12 + 16 + 1 + 4 + 4 + 1 + 4))
+              + (4 + 12 + 8) * count(hit & st.prev_random) + 12 * count(framed)
+              + (12 + 16 + 16) * count(cont) + 2 * (12 + 12 + 4 + 12) * count(random)
+              + idle * count(hit & ~random) + rows + 16)
+    assert kc.k4_work(inp, "shade_lit") == (expect, kc.k4_work(inp, "shade_lit")[1])
+    assert kc.k4_work(inp, "shade_lit")[0] < n_bytes
+    # a dead lane costs 38 B
+    st_dead = st._replace(active=torch.zeros_like(st.active))
+    dead_inp = inp._replace(shade=(*inp.shade[:3], st_dead, *inp.shade[4:]))
+    assert kc.k4_work(dead_inp, "shade_lit") == (38 * n + rows + 16, 0.0)
     acc, pending, occluded, active, k_next, _ = inp.resolve
     n_open = int((~occluded).sum())
     assert kc.k4_work(inp, "nee_resolve") == (
@@ -424,6 +568,21 @@ def test_lit_kernels_match_plain_with_every_lobe(gpu, sensor):
     torch.cuda.synchronize()
     for name, fields in res.items():
         assert all(v == 0 for v in fields.values()), (name, fields)
+
+
+@pytest.mark.cuda
+def test_lit_kernels_match_plain_at_every_city_step(gpu):
+    """The surround regeneration and the lit shade against their plain
+    versions at each of the city frame's 8 steps (2 blocks of 1048576
+    lanes), on the lanes each step gives (utils/k4_steps.py): bit-equal on
+    the H100, the later steps' dead lanes included."""
+    from wurblpt_tpu_torch.utils import k4_steps
+
+    rows = k4_steps.frame_rows("city", gpu, n=1)
+    assert [(r["kernel"], r["step"]) for r in rows] == [
+        (k, s) for s in range(8) for k in ("regen_surround", "shade_lit")]
+    assert all(r["max_abs_err"] == 0.0 and r["discrete_differ"] == 0 for r in rows), rows
+    assert min(r["live"] for r in rows if r["live"] is not None) < kc.CITY_LANES // 4
 
 
 @pytest.mark.cuda

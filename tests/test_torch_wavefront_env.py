@@ -566,6 +566,34 @@ def test_regen_through_each_lens_matches_the_jax_camera(model):
     assert float((new.d - straight.d).abs().max()) > 1e-3        # the lens does bend
 
 
+@pytest.mark.parametrize("model", [DistortionModel.NONE, DistortionModel.OPENCV])
+def test_pinhole_regeneration_updates_the_state_in_place(model):
+    """On CPU tensors regen_pinhole keeps the kernel's in-place contract: it
+    returns the state, sample ids and next indices it was given, a lane it
+    does not refill keeps every field's bits, and a refilled lane holds the
+    plain version's ray and state (a small rtiow block, through its lens or
+    none); the shade that follows (env class) still writes new state."""
+    inp = kc.k4_inputs("cpu", "rtiow", **SMALL,
+                       cfg=CameraConfig(distortion=model, undistort_iters=8))
+    args = kc.fresh_args(inp.regen)
+    st, sample, k_next, lanes = args[0], args[1], args[2], args[5]
+    before = [x.clone() for x in (*st, sample, k_next)]
+    need = (~st.active) & (k_next < lanes.P) & lanes.valid
+    assert 0 < int(need.sum()) < need.numel()
+    out = wf.regen_pinhole(*args)
+    assert all(a is b for a, b in zip(out[0], st)) and out[1] is sample and out[2] is k_next
+    ref = wf.regen_plain(*inp.regen)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    for f, a, b, r in zip((*wf.LoopState._fields, "sample", "k_next"), before,
+                          (*st, sample, k_next), (*ref[0], ref[1], ref[2])):
+        if f != "stats":
+            assert torch.equal(bits(a)[~need], bits(b)[~need]), f
+            assert torch.equal(bits(b), bits(r)), f
+    new = wf.shade_env(*inp.shade)[0]
+    assert all(a is not b for f, a, b in zip(wf.LoopState._fields, new, inp.shade[3])
+               if f not in ("ior", "prev_light_pdf", "stats"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sensor", ["rgb", "tof"])
 def test_shade_env_kernel_matches_plain_on_the_mesh_block(gpu, sensor):

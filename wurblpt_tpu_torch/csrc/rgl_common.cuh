@@ -10,6 +10,10 @@
 // included. Every expression follows the plain PyTorch version
 // (wurblpt_tpu_torch/materials/rgl.py) in the same order; the including
 // source is built with -fmad=false and without --use_fast_math.
+//
+// Every function is inlined and every loop over a lane's (phi_i, theta_i)
+// corners runs over the four slots with constant indices, so no per-lane
+// array is indexed at run time and none lands in local memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -100,7 +104,7 @@ struct Frame {
     bool iso;
 };
 
-__device__ inline Frame prepare(const RglTables& t, int mid, Vec3 wi) {
+__device__ __forceinline__ Frame prepare(const RglTables& t, int mid, Vec3 wi) {
     Frame fr;
     fr.mid = mid;
     const float theta_i = elevation(wi);
@@ -125,7 +129,10 @@ __device__ inline Frame prepare(const RglTables& t, int mid, Vec3 wi) {
         fr.cw[2] = wp1 * wt0; cp[2] = pi1; ct[2] = ti;
         fr.cw[3] = wp1 * wt1; cp[3] = pi1; ct[3] = ti1;
     }
-    for (int k = 0; k < fr.nc; ++k) fr.slice[k] = (mid * t.P + cp[k]) * t.T + ct[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if (k < fr.nc) fr.slice[k] = (mid * t.P + cp[k]) * t.T + ct[k];
+    }
     fr.phi_i = phi_i;
     fr.uwi_x = theta2u(theta_i);
     fr.uwi_y = phi2u(phi_i);
@@ -137,7 +144,10 @@ __device__ inline Frame prepare(const RglTables& t, int mid, Vec3 wi) {
 // whose slices are `stride` floats apart.
 __device__ __forceinline__ float gsum(const Frame& fr, const float* arr, int stride, int off) {
     float out = fr.cw[0] * ld(arr + fr.slice[0] * stride + off);
-    for (int k = 1; k < fr.nc; ++k) out = out + fr.cw[k] * ld(arr + fr.slice[k] * stride + off);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+        if (k < fr.nc) out = out + fr.cw[k] * ld(arr + fr.slice[k] * stride + off);
+    }
     return out;
 }
 
@@ -176,7 +186,7 @@ __device__ __forceinline__ void cell(const Warp& wp, float px, float py, int& x0
 }
 
 // Bilinear density at (px, py) (powitacq_rgb.inl:530-583).
-__device__ inline float warp_eval(const Frame& fr, const Warp& wp, float px, float py) {
+__device__ __forceinline__ float warp_eval(const Frame& fr, const Warp& wp, float px, float py) {
     int x0, y0;
     float sx, sy;
     cell(wp, px, py, x0, y0, sx, sy);
@@ -188,7 +198,7 @@ __device__ inline float warp_eval(const Frame& fr, const Warp& wp, float px, flo
 }
 
 // Warped position back to the unit square, and the density (powitacq_rgb.inl:434-527).
-__device__ inline float warp_invert(const Frame& fr, const Warp& wp, float px, float py, float& ux,
+__device__ __forceinline__ float warp_invert(const Frame& fr, const Warp& wp, float px, float py, float& ux,
                              float& uy) {
     int x0, y0;
     float sx, sy;
@@ -209,7 +219,7 @@ __device__ inline float warp_invert(const Frame& fr, const Warp& wp, float px, f
 }
 
 // Warp a uniform sample; returns the density (powitacq_rgb.inl:326-432).
-__device__ inline float warp_sample(const Frame& fr, const Warp& wp, float u0, float u1, float& px,
+__device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, float u0, float u1, float& px,
                              float& py) {
     float ux = clampf(u0, U_LO, U_HI), uy = clampf(u1, U_LO, U_HI);
     int cnt = 0;
@@ -243,7 +253,7 @@ __device__ inline float warp_sample(const Frame& fr, const Warp& wp, float u0, f
 }
 
 // Plain bilinear of a raw [M, H, W] table (Warp2D0, powitacq_rgb.inl:286-312).
-__device__ inline float eval0(const float* arr, const int* hw, int H, int W, int mid, float px, float py) {
+__device__ __forceinline__ float eval0(const float* arr, const int* hw, int H, int W, int mid, float px, float py) {
     const int h = hw[2 * mid], w = hw[2 * mid + 1];
     const float fx = clampf(px, 0.f, 1.f) * static_cast<float>(w - 1);
     const float fy = clampf(py, 0.f, 1.f) * static_cast<float>(h - 1);
@@ -258,7 +268,7 @@ __device__ inline float eval0(const float* arr, const int* hw, int H, int W, int
 }
 
 // Reflectance x ndf / (4 sigma(wi)) at a luminance-warp position (rgb_eval + the tail).
-__device__ inline void fr_common(const RglTables& t, const Frame& fr, const Warp& lum, float px,
+__device__ __forceinline__ void fr_common(const RglTables& t, const Frame& fr, const Warp& lum, float px,
                           float py, float uwm_x, float uwm_y, float f[4]) {
     int x0, y0;
     float sx, sy;
@@ -294,7 +304,7 @@ __device__ __forceinline__ Warp lum_warp(const RglTables& t, int mid) {
 // One lane of rgl_eval: f*cos [4] into f and the pdf of tangent-space wi
 // (toward the viewer) and wo (the scatter direction); zero unless both lie
 // above the surface.
-__device__ inline float eval_lane(const RglTables& t, int mid, Vec3 wi, Vec3 wo, float f[4]) {
+__device__ __forceinline__ float eval_lane(const RglTables& t, int mid, Vec3 wi, Vec3 wo, float f[4]) {
     const bool valid = (wi.z > 0.f) && (wo.z > 0.f);
     const Vec3 wm = normalize3({wi.x + wo.x, wi.y + wo.y, wi.z + wo.z});
     const Frame fr = prepare(t, mid, wi);
@@ -317,7 +327,7 @@ __device__ inline float eval_lane(const RglTables& t, int mid, Vec3 wi, Vec3 wo,
 // into *wo, f*cos [4] into f and the pdf into *pdf (both zero unless ok);
 // returns ok: both directions above the surface, a positive pdf and a
 // finite f.
-__device__ inline bool sample_lane(const RglTables& t, int mid, Vec3 wi, float u0, float u1,
+__device__ __forceinline__ bool sample_lane(const RglTables& t, int mid, Vec3 wi, float u0, float u1,
                                    Vec3* wo, float f[4], float* pdf) {
     const Frame fr = prepare(t, mid, wi);
     const Warp lum = lum_warp(t, mid);

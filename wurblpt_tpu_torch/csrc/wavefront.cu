@@ -47,13 +47,22 @@
 //
 // Replaces the JAX package's bounce body and regeneration, which XLA fuses on
 // the TPU; in the port they were a chain of ~1000-1700 PyTorch launches per
-// step. One thread per lane, the lane state in structure-of-arrays tensors
-// (each thread reads its lane's fields and writes them to new tensors),
-// material rows, light rows, the alias tables, the sky's texels and the RGL
-// tables read inline from global memory (a few KB, the sky's 96-128 KB, the
-// RGL tables' 17 KB, cached). Bound on the card: bytes, the lane state read
-// and written once per kernel (~200 B per lane for a shade, ~320 B for the
-// lit shade with its two shadow rays); the mixture pdf loops over the L < 8
+// step. The lane state lives in structure-of-arrays tensors; material rows,
+// light rows, the alias tables, the sky's texels and the RGL tables are read
+// inline from global memory (a few KB, the sky's 96-128 KB, the RGL tables'
+// 17 KB, cached). The diffuse and env shades run one thread per lane and
+// write each lane's next state to new tensors: bound by bytes, ~200 B per
+// lane. The regenerations and the lit shade update the state in place (JAX's
+// arrays are immutable; this is a storage decision of the port), so a lane
+// pays only for the fields its branch changes: a regeneration step where no
+// lane is refilled reads the flags and writes t_max (~13 B per lane, not the
+// ~230 B of a copy of the state); a lane dead at the lit shade writes 38 B,
+// an escaped one its deposit and flags. Each lane reads every field it
+// needs before it writes any, and the state's pointers carry no
+// __restrict__. The lit shade is a persistent launch whose warps shade only
+// active lanes, binned by what they run (shade_lit_kernel): at 1 spp the
+// city's later steps keep a half, a quarter and a sixth of the lanes
+// active, spread over every warp. The mixture pdf loops over the L < 8
 // lights in index order, twice. The shades evaluate only the lane's own
 // material branch (the plain version evaluates every branch and selects), so
 // GGX's VNDF sample and its two evaluations cost only the GGX lanes, the
@@ -490,20 +499,19 @@ __device__ __forceinline__ int modphong_sample(const MatRow& mr, const float* d,
 // (wurblpt.hpp:258-273) and the lane's next state, but its previous
 // mixture pdf (the shade's own). `cont` lanes (RANDOM or EXPLICIT) carry
 // on along sdir.
-__device__ __forceinline__ void advance_lane(const WaveState& in, const WaveState& out, int i,
-                                             long long k, bool act, bool hit, const float* p,
-                                             const float* d, const float* tp, const float* sdir,
-                                             const float* atten, float spdf, bool is_random,
-                                             bool is_explicit, float u_rr, float geom,
-                                             const float* opl, int max_depth, int rr_start,
-                                             float rr_threshold) {
-    float ratio[4], ntp[4];
+// The throughput update and Russian roulette (wurblpt.hpp:258-273): the
+// throughput after the scatter into ntp, divided by the survival chance
+// where the roulette runs and spares the path; returns whether the path
+// lives on. `cont`: the lane scatters (RANDOM or EXPLICIT).
+__device__ __forceinline__ bool roulette(long long k, const float* tp, const float* atten,
+                                         float spdf, bool is_random, bool cont, float u_rr,
+                                         int rr_start, float rr_threshold, float* ntp) {
+    float ratio[4];
     const float pdf_c = clamp_min(spdf, 1e-12f);
     for (int c = 0; c < 4; ++c) {
         ratio[c] = is_random ? atten[c] / pdf_c : atten[c];
         ntp[c] = tp[c] * ratio[c];
     }
-    const bool cont = is_random || is_explicit;
     const float max_r = max4(ratio);
     const bool do_rr = k >= rr_start && max_r < rr_threshold && cont;
     const float q = clamp(1.0f - max_r, 0.f, 0.95f);
@@ -512,7 +520,20 @@ __device__ __forceinline__ void advance_lane(const WaveState& in, const WaveStat
         const float keep = clamp_min(1.0f - q, 0.05f);
         for (int c = 0; c < 4; ++c) ntp[c] = ntp[c] / keep;
     }
-    const bool alive = cont && !killed && max4(ntp) > 0.f;
+    return cont && !killed && max4(ntp) > 0.f;
+}
+
+__device__ __forceinline__ void advance_lane(const WaveState& in, const WaveState& out, int i,
+                                             long long k, bool act, bool hit, const float* p,
+                                             const float* d, const float* tp, const float* sdir,
+                                             const float* atten, float spdf, bool is_random,
+                                             bool is_explicit, float u_rr, float geom,
+                                             const float* opl, int max_depth, int rr_start,
+                                             float rr_threshold) {
+    float ntp[4];
+    const bool cont = is_random || is_explicit;
+    const bool alive = roulette(k, tp, atten, spdf, is_random, cont, u_rr, rr_start,
+                                rr_threshold, ntp);
     out.bounce[i] = act ? k + 1 : k;
     for (int c = 0; c < 3; ++c) {
         out.o[3 * i + c] = hit ? p[c] : in.o[3 * i + c];
@@ -733,9 +754,10 @@ __device__ __forceinline__ void surround_ray(const Camera& cam, int height, floa
     }
     const float phi = ((px * cam.inv_width) * 2.0f - 1.0f) * cam.span;
     const float theta = (0.5f - py * cam.inv_eff_height) * PI_F;
-    const float ct = cosf(theta);
-    const float sp = sinf(phi), cp = cosf(phi);
-    float dc[3] = {ct * sp, sinf(theta), (-ct) * cp};
+    float st, ct, sp, cp;   // sincosf: the bits of sinf and cosf, one argument reduction
+    sincosf(theta, &st, &ct);
+    sincosf(phi, &sp, &cp);
+    float dc[3] = {ct * sp, st, (-ct) * cp};
     const float r = 1.0f / sqrtf(clamp_min(dot3(dc, dc), 1e-20f));
     for (int k = 0; k < 3; ++k) dc[k] = dc[k] * r;
     quat_rotate(cam.rotation, dc, dw);
@@ -747,43 +769,34 @@ __device__ __forceinline__ void surround_ray(const Camera& cam, int height, floa
     for (int k = 0; k < 3; ++k) o[k] = orot[k] + cam.translation[k];
 }
 
+// The regeneration, in place: every lane writes its closest cast's t_max
+// (BIG on a lane active after the step, else 0); only a dead lane reads its
+// next sample index, and only a regenerated lane writes its state. A lane
+// that stays as it was writes nothing else.
 template <int CAMERA>
 __global__ void __launch_bounds__(256)
-regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Camera cam,
-             long long blk, int B, int m, long long P, long long n_pix, int width, int height,
-             int ssqrt, int randomize) {
+regen_kernel(WaveState st, float* __restrict__ t_max, int n, Camera cam, long long blk, int B,
+             int m, long long P, long long n_pix, int width, int height, int ssqrt,
+             int randomize) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
+    const bool act = st.active[i];
     const long long b_lane = i % B, j_lane = i / B;
     const long long pixel = blk * B + b_lane;
-    const bool valid = pixel < n_pix;
-    const long long p_safe = pixel < n_pix - 1 ? pixel : n_pix - 1;
-    const bool act = in.active[i];
-    const long long kn = in.k_next[i];
-    const bool need = !act && kn < P && valid;
-    const long long s_new = j_lane + kn * m;
-    out.sample[i] = need ? s_new : in.sample[i];
-    out.k_next[i] = kn + (need ? 1 : 0);
-    const bool act_new = act || need;
-    out.active[i] = act_new;
-    t_max[i] = act_new ? BIG : 0.f;
-    out.prev_random[i] = in.prev_random[i] && !need;
-    if (!need) {
-        out.bounce[i] = in.bounce[i];
-        for (int k = 0; k < 3; ++k) {
-            out.o[3 * i + k] = in.o[3 * i + k];
-            out.d[3 * i + k] = in.d[3 * i + k];
-        }
-        for (int c = 0; c < 4; ++c) {
-            out.ior[4 * i + c] = in.ior[4 * i + c];
-            out.throughput[4 * i + c] = in.throughput[4 * i + c];
-            out.opt_len[4 * i + c] = in.opt_len[4 * i + c];
-        }
-        out.geom_len[i] = in.geom_len[i];
-        out.prev_pdf[i] = in.prev_pdf[i];
-        out.prev_light_pdf[i] = in.prev_light_pdf[i];
-        return;
+    long long kn = 0;
+    bool need = false;
+    if (!act) {
+        kn = st.k_next[i];
+        need = kn < P && pixel < n_pix;
     }
+    t_max[i] = act || need ? BIG : 0.f;
+    if (!need) return;
+    const long long p_safe = pixel < n_pix - 1 ? pixel : n_pix - 1;
+    const long long s_new = j_lane + kn * m;
+    st.sample[i] = s_new;
+    st.k_next[i] = kn + 1;
+    st.active[i] = true;
+    st.prev_random[i] = false;
     // Pixel jitter and the ray (render/camera.py camera_rays): the mono
     // pinhole through its lens, or the surround camera.
     float jx = 0.5f, jy = 0.5f;
@@ -800,7 +813,7 @@ regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Came
     if (CAMERA == CAM_SURROUND) {
         float o[3];
         surround_ray(cam, height, px, py, o, dw);
-        for (int k = 0; k < 3; ++k) out.o[3 * i + k] = o[k];
+        for (int k = 0; k < 3; ++k) st.o[3 * i + k] = o[k];
     } else {
         float nx = (px - cam.centre[0]) / cam.focal[0];
         float ny = (py - cam.centre[1]) / cam.focal[1];
@@ -812,18 +825,17 @@ regen_kernel(WaveState in, WaveState out, float* __restrict__ t_max, int n, Came
         // A mono pinhole's origin is the camera's: the rotated eye offset (+0
         // in every component for a positive scale) plus the translation, so
         // a -0 of the translation becomes +0 as in the plain version's sum.
-        for (int k = 0; k < 3; ++k) out.o[3 * i + k] = 0.f + cam.translation[k];
+        for (int k = 0; k < 3; ++k) st.o[3 * i + k] = 0.f + cam.translation[k];
     }
-    for (int k = 0; k < 3; ++k) out.d[3 * i + k] = dw[k];
-    out.bounce[i] = 0;
-    for (int c = 0; c < 4; ++c) {
-        out.ior[4 * i + c] = 1.0f;
-        out.throughput[4 * i + c] = 1.0f;
-        out.opt_len[4 * i + c] = 0.f;
-    }
-    out.geom_len[i] = 0.f;
-    out.prev_pdf[i] = 0.f;
-    out.prev_light_pdf[i] = 0.f;
+    for (int k = 0; k < 3; ++k) st.d[3 * i + k] = dw[k];
+    st.bounce[i] = 0;
+    // the 4-wide fields as one 16-byte store each (the wrapper checks their alignment)
+    reinterpret_cast<float4*>(st.ior)[i] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    reinterpret_cast<float4*>(st.throughput)[i] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    reinterpret_cast<float4*>(st.opt_len)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    st.geom_len[i] = 0.f;
+    st.prev_pdf[i] = 0.f;
+    st.prev_light_pdf[i] = 0.f;
 }
 
 template <int SENSOR, bool PER_LIGHT>
@@ -1306,143 +1318,313 @@ struct Lights {
     int n;
 };
 
-// One bounce of the lit class: the sky on a miss (MIS-weighted against env
-// NEE), emission with its per-light MIS weight, the sample of the lane's
-// lobe (Lambertian, GGX, mirror, glass, ModPhong, RGL inline), light NEE
-// toward a picked hot spot and env NEE toward a sky sample, each up to its
-// shadow ray and pending deposit, Russian roulette, the next state (the ray
-// IOR of glass and ModPhong's pass-through) and the cast counters. SKY: the
-// sky's kind (equirect or cube, with importance tables); HAS_RGL: the scene
-// has RGL materials (their tables in rgl). Lane i's light shadow ray is row
-// i of shadow_o / shadow_d / shadow_tmax and of pending, its env shadow ray
-// row n + i; both start at the hit position.
-template <int SENSOR, int SKY, bool HAS_RGL>
-__global__ void __launch_bounds__(BLOCK)
-shade_lit_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats, int n,
-                 const long long* __restrict__ pixel, const float* __restrict__ t_hit,
-                 const int* __restrict__ prim_hit, const float* __restrict__ pos,
-                 const float* __restrict__ nrm, const float* __restrict__ gnrm,
-                 const float* __restrict__ tng, const bool* __restrict__ backside,
-                 const int* __restrict__ mat_hit, const float* __restrict__ mat, int n_mat,
-                 Lights lights, EnvMap env, RglTables rgl, SensorParams sp, int max_depth,
-                 int rr_start, float rr_threshold, float shadow_scale, float min_hit,
-                 float* __restrict__ shadow_o, float* __restrict__ shadow_d,
-                 float* __restrict__ shadow_tmax, float* __restrict__ pending) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    bool act = false, is_random = false;
-    if (i < n) {
-        // The normal and the material feed only hit lanes; the position every
-        // lane's shadow rays; the ray IOR every lane (it is written back).
-        act = in.active[i];
-        const long long k = in.bounce[i];
-        const int prim = act ? prim_hit[i] : -1;
-        const bool hit = prim >= 0;
-        const float t = hit ? t_hit[i] : 0.f;
-        float d[3], n3[3] = {0.f, 0.f, 0.f}, p[3], tp[4], ior[4], a[3];
-        for (int c = 0; c < 3; ++c) {
-            d[c] = in.d[3 * i + c];
-            p[c] = pos[3 * i + c];
-            a[c] = in.acc[3 * i + c];
-        }
-        for (int c = 0; c < 4; ++c) {
-            tp[c] = in.throughput[4 * i + c];
-            ior[c] = in.ior[4 * i + c];
-        }
-        if (hit) {
-            for (int c = 0; c < 3; ++c) n3[c] = nrm[3 * i + c];
-        }
-        const bool back = hit && backside[i];
-        const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
+// What one lit-class step reads and writes besides the lane state: the
+// closest hit and its record, each lane's two shadow rays and pending
+// deposits (row i the light's, row n + i the sky's), and its parameters.
+struct LitStep {
+    const long long* pixel;
+    const float* t_hit;
+    const int* prim_hit;
+    const float* pos;
+    const float* nrm;
+    const float* gnrm;
+    const float* tng;
+    const bool* backside;
+    const int* mat_hit;
+    float* shadow_o;
+    float* shadow_d;
+    float* shadow_tmax;
+    float* pending;
+    int n, max_depth, rr_start;
+    float rr_threshold, shadow_scale, min_hit;
+};
 
-        // 1. the sky on a miss
-        miss_lane<SENSOR, SKY, true>(in, i, act && prim < 0, env, sp, d, tp, a);
+// The small loop-invariant tables of the lit shade: the material rows, the
+// light rows and the RGL tables (a few KB to tens of KB, read through L1;
+// staged in shared memory they were measured within 2 % and left out:
+// PERF.md).
+struct LitTables {
+    const float* mat;         // [M, MAT_COLS]
+    int n_mat;
+    Lights lights;
+    RglTables rgl;
+};
 
-        // 2. path lengths
-        float opl[4];
-        const float geom = path_lengths(in, i, hit, t, ior, opl);
+constexpr int LIT_BLOCK = 128;                 // threads per block
+constexpr int LIT_MIN_BLOCKS = 4;              // resident blocks per SM the registers must allow
+constexpr int LIT_CHUNK = 4 * LIT_BLOCK;       // lanes a block takes from the counter at once
+constexpr int LIT_BINS = 3;                    // escaped, hit, RGL hit
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-        // 3. emission with its per-light MIS weight (wavefront.emit,
-        //    lights_pdf_at_hit: pick x t^2 / (|cos| area) of the prim hit)
-        float w_emit = 1.0f;
-        if (hit && in.prev_random[i]) {
-            const float* row = lights.pick_area + 2 * min(prim, lights.n_pick - 1);
-            const float g[3] = {gnrm[3 * i], gnrm[3 * i + 1], gnrm[3 * i + 2]};
-            const float cg = fabsf(dot3(d, g));
-            const float lp_hit = row[0] * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
-            w_emit = power_heuristic(in.prev_pdf[i], lp_hit);
-        }
-        emit_lane<SENSOR>(sp, mr, d, n3, back, tp, w_emit, opl, t, hit, a, out.acc + 3 * i);
-
-        // 4. the bsdf sample of the lane's own lobe
-        const long long px_id = pixel[i], smp = in.sample[i];
-        float u4[4], ua[4];
-        uniform4(px_id, smp, k, SALT_BSDF, u4);
-        uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
-        float sdir[3] = {n3[0], n3[1], n3[2]};
-        float atten[4] = {0.f, 0.f, 0.f, 0.f};
-        float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
-        float spdf = 0.f, ax = 0.f, ay = 0.f, tb_t[3] = {0.f, 0.f, 0.f},
-              tb_b[3] = {0.f, 0.f, 0.f};
-        int kind = KIND_NONE;
-        if (hit) {
-            kind = sample_lobe<true, true, HAS_RGL>(mr, rgl, tng + 3 * i, d, n3, back, t, ior, u4,
-                                                    ua, sdir, atten, &spdf, new_ior, &ax, &ay,
-                                                    tb_t, tb_b);
-        }
-        is_random = hit && kind == KIND_RANDOM && spdf > 0.f;
-        const bool is_explicit = hit && kind == KIND_EXPLICIT;
-
-        // 5. light NEE up to its shadow ray, row i (wavefront.light_nee, per
-        //    light; render/lights.py lights_sample, light_emitted_at)
-        {
-            float u3[4];
-            uniform4(px_id, smp, k, SALT_NEE_SAMPLE, u3);
-            const LightSample ls = light_sample(u3, p, lights.tri, lights.alias_prob,
-                                                lights.alias_idx, lights.n, shadow_scale,
-                                                min_hit);
-            for (int c = 0; c < 3; ++c) {
-                shadow_o[3 * i + c] = p[c];
-                shadow_d[3 * i + c] = ls.ldir[c];
-            }
-            shadow_tmax[i] = is_random ? ls.t_vis : 0.f;
-            bool nee_take = false;
-            float ndep[3] = {0.f, 0.f, 0.f};
-            if (is_random) {
-                const float pdf_light = lights.w[ls.pick] * ls.pdf_sa;
-                float fl[4];
-                const float pb = random_bsdf_eval<true, HAS_RGL>(mr, rgl, d, n3, tb_t, tb_b, ax,
-                                                                 ay, back, ls.ldir, fl);
-                const MatRow lr = mat_row(mat, n_mat, lights.mat[ls.pick]);
-                const bool le_ok = light_seen(ls, lr);
-                const float w_nee = power_heuristic(pdf_light, pb);
-                const float scale = w_nee / clamp_min(pdf_light, 1e-12f);
-                float contrib[4], nopl[4];
-                for (int c = 0; c < 4; ++c) {
-                    contrib[c] = ((tp[c] * fl[c]) * (le_ok ? lr.f[4 + c] : 0.f)) * scale;
-                    nopl[c] = opl[c] + ls.ldist * ior[c];
-                }
-                nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ls.ldist,
-                                                  pdf_light > 1e-12f, ndep);
-            }
-            for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
-        }
-
-        // 6. env NEE up to its shadow ray, row n + i
-        const int j = n + i;
-        for (int c = 0; c < 3; ++c) shadow_o[3 * j + c] = p[c];
-        env_nee_lane<SENSOR, SKY, true, HAS_RGL>(env, sp, rgl, px_id, smp, k, is_random, mr, d,
-                                                 n3, tb_t, tb_b, ax, ay, back, tp, opl, j,
-                                                 shadow_d, shadow_tmax, pending);
-
-        // 7. throughput update, Russian roulette, the next state; the ray IOR
-        //    of glass and of ModPhong's pass-through; no mixture pdf (per light)
-        advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random,
-                     is_explicit, ua[2], geom, opl, max_depth, rr_start, rr_threshold);
-        const bool cont = is_random || is_explicit;
-        for (int c = 0; c < 4; ++c) out.ior[4 * i + c] = cont ? new_ior[c] : ior[c];
-        out.prev_light_pdf[i] = 0.f;
+// A lane's two shadow rows and pending deposits where it casts nothing:
+// t_max 0 (K2/K6 read neither origin nor direction there) and no deposit.
+__device__ __forceinline__ void lit_idle_rows(const LitStep& s, int i) {
+    const int j = s.n + i;
+    s.shadow_tmax[i] = 0.f;
+    s.shadow_tmax[j] = 0.f;
+    for (int c = 0; c < 3; ++c) {
+        s.pending[3 * i + c] = 0.f;
+        s.pending[3 * j + c] = 0.f;
     }
-    count_casts<2>(stats, act, is_random);   // the light's and the sky's shadow rays
+}
+
+// A lane dead at entry: of its state only the previous sample's pdf and
+// flag change (to 0 and false); its shadow rows cast nothing.
+__device__ __forceinline__ void lit_dead_lane(const WaveState& st, const LitStep& s, int i) {
+    st.prev_pdf[i] = 0.f;
+    st.prev_random[i] = false;
+    lit_idle_rows(s, i);
+}
+
+// One bounce of an active lane of the lit class, in place: the sky on a
+// miss (MIS-weighted against env NEE), emission with its per-light MIS
+// weight, the sample of the lane's lobe (Lambertian, GGX, mirror, glass,
+// ModPhong, RGL inline), light NEE toward a picked hot spot and env NEE
+// toward a sky sample on RANDOM lanes, each up to its shadow ray and
+// pending deposit, Russian roulette and the next state (the ray IOR of
+// glass and ModPhong's pass-through). An escaped lane writes its deposit,
+// its bounce index, its end and its previous sample's pdf and flag only;
+// a hit lane also its origin, path lengths and, where it scatters, its
+// direction, throughput and ray IOR. Returns whether the lane is RANDOM
+// (it casts both shadow rays).
+template <int SENSOR, int SKY, bool HAS_RGL>
+__device__ __forceinline__ bool lit_live_lane(const WaveState& st, const LitStep& s,
+                                              const LitTables& tab, const EnvMap& env,
+                                              const SensorParams& sp, int i) {
+    const long long k = st.bounce[i];
+    const int prim = s.prim_hit[i];
+    float d[3], tp[4], a[3];
+    for (int c = 0; c < 3; ++c) {
+        d[c] = st.d[3 * i + c];
+        a[c] = st.acc[3 * i + c];
+    }
+    const float4 tp4 = reinterpret_cast<const float4*>(st.throughput)[i];
+    tp[0] = tp4.x, tp[1] = tp4.y, tp[2] = tp4.z, tp[3] = tp4.w;
+    if (prim < 0) {
+        // the sky, then the emission's deposit (none on a miss): a + 0
+        miss_lane<SENSOR, SKY, true>(st, i, true, env, sp, d, tp, a);
+        for (int c = 0; c < 3; ++c) st.acc[3 * i + c] = a[c] + 0.f;
+        st.bounce[i] = k + 1;
+        st.active[i] = false;
+        st.prev_pdf[i] = 0.f;
+        st.prev_random[i] = false;
+        lit_idle_rows(s, i);
+        return false;
+    }
+    const float t = s.t_hit[i];
+    float n3[3], p[3], ior[4];
+    for (int c = 0; c < 3; ++c) {
+        n3[c] = s.nrm[3 * i + c];
+        p[c] = s.pos[3 * i + c];
+        a[c] = a[c] + 0.f;   // the sky's deposit (none on a hit)
+    }
+    const float4 ior4 = reinterpret_cast<const float4*>(st.ior)[i];
+    ior[0] = ior4.x, ior[1] = ior4.y, ior[2] = ior4.z, ior[3] = ior4.w;
+    const bool back = s.backside[i];
+    const MatRow mr = mat_row(tab.mat, tab.n_mat, s.mat_hit[i]);
+
+    // 1. path lengths
+    float opl[4];
+    const float geom = path_lengths(st, i, true, t, ior, opl);
+
+    // 2. emission with its per-light MIS weight (wavefront.emit,
+    //    lights_pdf_at_hit: pick x t^2 / (|cos| area) of the prim hit)
+    float w_emit = 1.0f;
+    if (st.prev_random[i]) {
+        const float* row = tab.lights.pick_area + 2 * min(prim, tab.lights.n_pick - 1);
+        const float g[3] = {s.gnrm[3 * i], s.gnrm[3 * i + 1], s.gnrm[3 * i + 2]};
+        const float cg = fabsf(dot3(d, g));
+        const float lp_hit = row[0] * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
+        w_emit = power_heuristic(st.prev_pdf[i], lp_hit);
+    }
+    emit_lane<SENSOR>(sp, mr, d, n3, back, tp, w_emit, opl, t, true, a, st.acc + 3 * i);
+
+    // 3. the bsdf sample of the lane's own lobe
+    const long long px_id = s.pixel[i], smp = st.sample[i];
+    float u4[4], ua[4];
+    uniform4(px_id, smp, k, SALT_BSDF, u4);
+    uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
+    float sdir[3] = {n3[0], n3[1], n3[2]};
+    float atten[4] = {0.f, 0.f, 0.f, 0.f};
+    float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
+    float spdf = 0.f, ax = 0.f, ay = 0.f, tb_t[3] = {0.f, 0.f, 0.f}, tb_b[3] = {0.f, 0.f, 0.f};
+    const int kind = sample_lobe<true, true, HAS_RGL>(mr, tab.rgl, s.tng + 3 * i, d, n3, back, t,
+                                                      ior, u4, ua, sdir, atten, &spdf, new_ior,
+                                                      &ax, &ay, tb_t, tb_b);
+    const bool is_random = kind == KIND_RANDOM && spdf > 0.f;
+    const bool is_explicit = kind == KIND_EXPLICIT;
+
+    if (is_random) {
+        // 4. light NEE up to its shadow ray, row i (wavefront.light_nee, per
+        //    light; render/lights.py lights_sample, light_emitted_at)
+        float u3[4];
+        uniform4(px_id, smp, k, SALT_NEE_SAMPLE, u3);
+        const LightSample ls = light_sample(u3, p, tab.lights.tri, tab.lights.alias_prob,
+                                            tab.lights.alias_idx, tab.lights.n, s.shadow_scale,
+                                            s.min_hit);
+        for (int c = 0; c < 3; ++c) {
+            s.shadow_o[3 * i + c] = p[c];
+            s.shadow_d[3 * i + c] = ls.ldir[c];
+        }
+        s.shadow_tmax[i] = ls.t_vis;
+        const float pdf_light = tab.lights.w[ls.pick] * ls.pdf_sa;
+        float fl[4];
+        const float pb = random_bsdf_eval<true, HAS_RGL>(mr, tab.rgl, d, n3, tb_t, tb_b, ax, ay,
+                                                         back, ls.ldir, fl);
+        const MatRow lr = mat_row(tab.mat, tab.n_mat, tab.lights.mat[ls.pick]);
+        const bool le_ok = light_seen(ls, lr);
+        const float w_nee = power_heuristic(pdf_light, pb);
+        const float scale = w_nee / clamp_min(pdf_light, 1e-12f);
+        float contrib[4], nopl[4], ndep[3] = {0.f, 0.f, 0.f};
+        for (int c = 0; c < 4; ++c) {
+            contrib[c] = ((tp[c] * fl[c]) * (le_ok ? lr.f[4 + c] : 0.f)) * scale;
+            nopl[c] = opl[c] + ls.ldist * ior[c];
+        }
+        const bool nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ls.ldist,
+                                                     pdf_light > 1e-12f, ndep);
+        for (int c = 0; c < 3; ++c) s.pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
+
+        // 5. env NEE up to its shadow ray, row n + i
+        const int j = s.n + i;
+        for (int c = 0; c < 3; ++c) s.shadow_o[3 * j + c] = p[c];
+        env_nee_lane<SENSOR, SKY, true, HAS_RGL>(env, sp, tab.rgl, px_id, smp, k, true, mr, d, n3,
+                                                 tb_t, tb_b, ax, ay, back, tp, opl, j, s.shadow_d,
+                                                 s.shadow_tmax, s.pending);
+    } else {
+        lit_idle_rows(s, i);
+    }
+
+    // 6. throughput update, Russian roulette, the next state; the ray IOR
+    //    of glass and of ModPhong's pass-through; no mixture pdf (per light)
+    const bool cont = is_random || is_explicit;
+    float ntp[4];
+    const bool alive = roulette(k, tp, atten, spdf, is_random, cont, ua[2], s.rr_start,
+                                s.rr_threshold, ntp);
+    st.bounce[i] = k + 1;
+    for (int c = 0; c < 3; ++c) st.o[3 * i + c] = p[c];
+    if (cont) {
+        for (int c = 0; c < 3; ++c) st.d[3 * i + c] = sdir[c];
+        reinterpret_cast<float4*>(st.throughput)[i] = make_float4(ntp[0], ntp[1], ntp[2], ntp[3]);
+        reinterpret_cast<float4*>(st.ior)[i] =
+            make_float4(new_ior[0], new_ior[1], new_ior[2], new_ior[3]);
+    }
+    reinterpret_cast<float4*>(st.opt_len)[i] = make_float4(opl[0], opl[1], opl[2], opl[3]);
+    st.active[i] = alive && k + 1 < s.max_depth;
+    st.geom_len[i] = geom;
+    st.prev_pdf[i] = is_random ? spdf : 0.f;
+    st.prev_random[i] = is_random;
+    st.prev_light_pdf[i] = 0.f;
+    return is_random;
+}
+
+// Block-wide cast counters: a closest cast per active lane and two shadow
+// casts per RANDOM lane, summed per warp, per block, then once into stats.
+// Every thread of the block calls it, once, at the end.
+__device__ __forceinline__ void lit_count_casts(unsigned long long* stats, unsigned n_act,
+                                                unsigned n_rand, unsigned* s_counts) {
+    n_act = __reduce_add_sync(FULL_MASK, n_act);
+    n_rand = __reduce_add_sync(FULL_MASK, n_rand);
+    if ((threadIdx.x & 31) == 0) {
+        atomicAdd(s_counts, n_act);
+        atomicAdd(s_counts + 1, n_rand);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && s_counts[0] > 0) {
+        atomicAdd(stats, static_cast<unsigned long long>(s_counts[0]));
+        atomicAdd(stats + 1, static_cast<unsigned long long>(s_counts[0]) + 2ull * s_counts[1]);
+    }
+}
+
+// The bin of an active lane, by what it will run: 0 escaped (the sky's
+// lookup and pdf), 1 a hit, 2 an RGL hit (its tables' walks, the longest
+// lobe). Finer bins, by every lobe, cost registers and were slower (PERF.md).
+__device__ __forceinline__ int lit_bin(const LitTables& tab, int prim, int mat_id) {
+    if (prim < 0) return 0;
+    const int typ = __float_as_int(tab.mat[min(max(mat_id, 0), tab.n_mat - 1) * MAT_COLS + 20]);
+    return typ == RGL ? 2 : 1;
+}
+
+// The lit shade as a persistent launch (as many blocks as the SMs hold).
+// Round by round, a block takes LIT_CHUNK lanes from the counter (its
+// threads read them side by side), writes the dead lanes' few fields at
+// once and bins the active ones (lit_bin). Its warps then shade
+// full warps of one bin (32 lanes that take the same branches) and carry
+// the rest of each bin to the next round, until the counter passes n and
+// every lane left is shaded. A lane's result does not depend on its
+// thread, so the kernel is bit-equal to the plain version under any
+// schedule; the counters are integer sums. *counter must be 0 at the
+// launch.
+template <int SENSOR, int SKY, bool HAS_RGL>
+__global__ void __launch_bounds__(LIT_BLOCK, LIT_MIN_BLOCKS)
+shade_lit_kernel(WaveState st, LitStep s, LitTables tab, EnvMap env, SensorParams sp,
+                 int* counter, unsigned long long* stats) {
+    __shared__ int list[LIT_BINS][LIT_CHUNK + 32];
+    __shared__ int count[LIT_BINS];
+    __shared__ int s_base;
+    __shared__ unsigned s_counts[2];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) {
+        for (int b = 0; b < LIT_BINS; ++b) count[b] = 0;
+        s_counts[0] = s_counts[1] = 0;
+    }
+
+    unsigned n_act = 0, n_rand = 0;
+    while (true) {
+        __syncthreads();   // the bins' carried lanes and counts in place
+        if (tid == 0) s_base = atomicAdd(counter, LIT_CHUNK);
+        __syncthreads();
+        const int base = s_base;
+        const bool drained = base >= s.n;
+        if (!drained) {
+#pragma unroll
+            for (int r = 0; r < LIT_CHUNK / LIT_BLOCK; ++r) {
+                const int i = base + r * LIT_BLOCK + tid;
+                if (i < s.n) {
+                    if (!st.active[i]) {
+                        lit_dead_lane(st, s, i);
+                    } else {
+                        ++n_act;
+                        const int prim = s.prim_hit[i];
+                        const int bin = lit_bin(tab, prim, prim >= 0 ? s.mat_hit[i] : 0);
+                        list[bin][atomicAdd(&count[bin], 1)] = i;
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // full warps of each bin; every lane left once the counter has passed n
+        int cnt[LIT_BINS], take[LIT_BINS], first[LIT_BINS + 1];
+        first[0] = 0;
+#pragma unroll
+        for (int b = 0; b < LIT_BINS; ++b) {
+            cnt[b] = count[b];
+            take[b] = drained ? cnt[b] : (cnt[b] & ~31);
+            first[b + 1] = first[b] + (take[b] + 31) / 32;
+        }
+        for (int sl = warp; sl < first[LIT_BINS]; sl += LIT_BLOCK / 32) {
+            int b = 0, f = 0, tk = take[0];
+#pragma unroll
+            for (int q = 1; q < LIT_BINS; ++q) {
+                if (sl >= first[q]) {
+                    b = q;
+                    f = first[q];
+                    tk = take[q];
+                }
+            }
+            const int e = (sl - f) * 32 + lane;
+            if (e < tk) n_rand += lit_live_lane<SENSOR, SKY, HAS_RGL>(st, s, tab, env, sp,
+                                                                      list[b][e]);
+        }
+        if (drained) break;
+        __syncthreads();   // every warp is done with the lists
+#pragma unroll
+        for (int b = 0; b < LIT_BINS; ++b) {
+            // at most 31 lanes, moved from behind a full warp or onto themselves
+            if (tid < cnt[b] - take[b]) list[b][tid] = list[b][take[b] + tid];
+            if (tid == 0) count[b] = cnt[b] - take[b];
+        }
+    }
+    lit_count_casts(stats, n_act, n_rand, s_counts);
 }
 
 // n_pend pending deposits per lane (none, one, or the lit class's light and
@@ -1473,9 +1655,40 @@ resolve_kernel(const float* __restrict__ acc, const float* __restrict__ pending,
     if (__syncthreads_or(busy) && threadIdx.x == 0) *work = 1;
 }
 
+// Blocks of a full persistent launch of `kernel` (LIT_BLOCK threads), cached
+// per kernel.
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+    constexpr int SLOTS = 16;
+    static const void* keys[SLOTS];
+    static int blocks[SLOTS];
+    static int used = 0;
+    const void* key = reinterpret_cast<const void*>(kernel);
+    for (int k = 0; k < used; ++k)
+        if (keys[k] == key) return blocks[k];
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LIT_BLOCK, 0);
+    const int b = max(sms * per_sm, 1);
+    if (used < SLOTS) {
+        keys[used] = key;
+        blocks[used++] = b;
+    }
+    return b;
+}
+
+template <typename Kernel>
+void launch_lit(Kernel kernel, cudaStream_t s, const WaveState& st, const LitStep& step,
+                const LitTables& tab, const EnvMap& env, const SensorParams& sp, int* counter,
+                unsigned long long* stats) {
+    const int grid = min(resident_blocks(kernel), (step.n + LIT_CHUNK - 1) / LIT_CHUNK);
+    kernel<<<grid, LIT_BLOCK, 0, s>>>(st, step, tab, env, sp, counter, stats);
+}
+
 }  // namespace
 
-extern "C" int wpt_regen_pinhole(const WaveState* in, const WaveState* out, float* t_max, int n,
+extern "C" int wpt_regen_pinhole(const WaveState* st, float* t_max, int n,
                                  const float* centre, const float* focal,
                                  const float* translation, const float* rotation,
                                  const float* dist_k, const float* dist_p, int lens, int iters,
@@ -1487,12 +1700,12 @@ extern "C" int wpt_regen_pinhole(const WaveState* in, const WaveState* out, floa
         const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
                          nullptr, nullptr, 0.f, 0.f, 0.f, 0};
         regen_kernel<CAM_PINHOLE><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-            *in, *out, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+            *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int wpt_regen_surround(const WaveState* in, const WaveState* out, float* t_max, int n,
+extern "C" int wpt_regen_surround(const WaveState* st, float* t_max, int n,
                                   const float* translation, const float* rotation,
                                   const float* scale, const float* eye_distance, float span,
                                   float inv_width, float inv_eff_height, int stereo, long long blk,
@@ -1503,7 +1716,7 @@ extern "C" int wpt_regen_surround(const WaveState* in, const WaveState* out, flo
         const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
                          scale, eye_distance, span, inv_width, inv_eff_height, stereo};
         regen_kernel<CAM_SURROUND><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-            *in, *out, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+            *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -1586,16 +1799,16 @@ extern "C" int wpt_shade_env(
 }
 
 extern "C" int wpt_shade_lit(
-    const WaveState* in, const WaveState* out, long long* stats, int n, const long long* pixel,
-    const float* t, const int* prim, const float* pos, const float* nrm, const float* gnrm,
-    const float* tng, const bool* backside, const int* mat_hit, const float* mat, int n_mat,
+    const WaveState* st, long long* stats, int n, const long long* pixel, const float* t,
+    const int* prim, const float* pos, const float* nrm, const float* gnrm, const float* tng,
+    const bool* backside, const int* mat_hit, const float* mat, int n_mat,
     const float* pick_area, int n_pick, const float* light_tri, const int* light_mat,
     const float* light_w, const float* alias_prob, const int* alias_idx, int n_lights, int sky,
     const float* img, int h, int w, const float* pdf, const float* env_alias_prob,
     const int* env_alias_idx, int res, const float* rot, const RglTables* rgl, int sensor,
     const float* sensor_params, int max_depth, int rr_start, float rr_threshold,
     float shadow_scale, float min_hit, float* shadow_o, float* shadow_d, float* shadow_tmax,
-    float* pending, void* stream) {
+    float* pending, int* counter, void* stream) {
     // The class's skies: an equirect or a cube sky with importance tables.
     if (n_lights < 1 || n_pick < 1 || (sky != SKY_EQUIRECT && sky != SKY_CUBE) || res < 1 ||
         h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF) ||
@@ -1604,19 +1817,20 @@ extern "C" int wpt_shade_lit(
     if (n > 0) {
         SensorParams sp;
         for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
-        const Lights lights{pick_area, n_pick, light_tri, light_mat, light_w, alias_prob,
-                            alias_idx, n_lights};
+        const LitStep step{pixel, t, prim, pos, nrm, gnrm, tng, backside, mat_hit, shadow_o,
+                           shadow_d, shadow_tmax, pending, n, max_depth, rr_start, rr_threshold,
+                           shadow_scale, min_hit};
+        const LitTables tab{mat, n_mat,
+                            Lights{pick_area, n_pick, light_tri, light_mat, light_w, alias_prob,
+                                   alias_idx, n_lights},
+                            rgl != nullptr ? *rgl : RglTables{}};
         const EnvMap env{reinterpret_cast<const float4*>(img), h, w, nullptr, pdf, env_alias_prob,
                          env_alias_idx, res, rot};
-        const RglTables tables = rgl != nullptr ? *rgl : RglTables{};
-        const int grid = (n + BLOCK - 1) / BLOCK;
         cudaStream_t s = static_cast<cudaStream_t>(stream);
-        unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
+        unsigned long long* cnt = reinterpret_cast<unsigned long long*>(stats);
+        cudaMemsetAsync(counter, 0, sizeof(int), s);
 #define WPT_SHADE_LIT(SENSOR, SKY, RGL_T)                                                       \
-    shade_lit_kernel<SENSOR, SKY, RGL_T><<<grid, BLOCK, 0, s>>>(                                \
-        *in, *out, st, n, pixel, t, prim, pos, nrm, gnrm, tng, backside, mat_hit, mat, n_mat,  \
-        lights, env, tables, sp, max_depth, rr_start, rr_threshold, shadow_scale, min_hit,     \
-        shadow_o, shadow_d, shadow_tmax, pending)
+    launch_lit(shade_lit_kernel<SENSOR, SKY, RGL_T>, s, *st, step, tab, env, sp, counter, cnt)
 #define WPT_SHADE_LIT_SKY(SENSOR, RGL_T)                                                        \
     if (sky == SKY_EQUIRECT) WPT_SHADE_LIT(SENSOR, SKY_EQUIRECT, RGL_T);                        \
     else WPT_SHADE_LIT(SENSOR, SKY_CUBE, RGL_T)

@@ -78,17 +78,17 @@ _SIGNATURES = {
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
-    "wpt_regen_pinhole": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _I,
-                          _I, _I, _I, _P],
-    "wpt_regen_surround": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I, _L, _I, _I, _L, _L, _I,
-                           _I, _I, _I, _P],
+    "wpt_regen_pinhole": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _I, _I,
+                          _I, _I, _P],
+    "wpt_regen_surround": [_P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I, _L, _I, _I, _L, _L, _I, _I,
+                           _I, _I, _P],
     "wpt_shade_diffuse": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     "wpt_shade_env": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
                       _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _F, _P, _P, _P, _P],
-    "wpt_shade_lit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
-                      _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _F,
-                      _F, _F, _P, _P, _P, _P, _P],
+    "wpt_shade_lit": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                      _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F,
+                      _F, _P, _P, _P, _P, _P, _P],
     "wpt_nee_resolve": [_P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
 }
 

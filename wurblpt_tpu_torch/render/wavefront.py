@@ -51,6 +51,21 @@ on CUDA tensors and run their plain versions (`regen_plain`,
 helpers of the generic torch-op bounce (`emit`, `light_nee`, `env_miss`,
 `env_nee`, `advance`, here), which keeps serving the scenes outside the
 classes, so both routes compute the same thing in the same order.
+
+The lane state is updated in place by the regenerations and the lit shade.
+JAX's arrays are immutable, so its bounce and regeneration return new
+state; the port's `regen_pinhole`, `regen_surround` and `shade_lit` write
+the `LoopState` tensors, `sample` and `k_next` they are given and return
+them, because on the card most lanes of a step keep most of their fields:
+a lane the regeneration does not refill writes only its cast's t_max, a
+lane dead at the lit shade only its previous sample's pdf and flag and its
+two idle shadow rows, an escaped lane its deposit, bounce index, end and
+flags, and the lit shade computes a shadow ray's origin and direction only
+on the rows that cast one (t_max > 0; K2/K6 read no other). The plain
+versions stay pure functions (the generic step uses `regen_plain`); on CPU
+tensors the wrappers run them and copy their result into the inputs, so
+both devices keep the same contract. The diffuse and env shades still
+write new state.
 """
 
 from __future__ import annotations
@@ -656,6 +671,24 @@ def _state_c(st: LoopState, sample, k_next) -> _StateC:
     return _StateC(*(fields[f].data_ptr() for f in _WAVE_STATE))
 
 
+def _check_in_place(name, st: LoopState):
+    """Raise unless the 4-wide fields the in-place kernels store 16 bytes at
+    a time (ior, throughput, opt_len) start on a 16-byte boundary."""
+    for f in ("ior", "throughput", "opt_len"):
+        if getattr(st, f).data_ptr() % 16:
+            raise ValueError(f"{name}: state.{f} must start on a 16-byte boundary")
+
+
+def _copy_into(st: LoopState, new: LoopState) -> LoopState:
+    """Write the plain version's state `new` into the tensors of `st` (the
+    counters excepted, which the plain shades grow in place); returns st."""
+    for f in LoopState._fields:
+        dst, src = getattr(st, f), getattr(new, f)
+        if f != "stats" and dst is not src:
+            dst.copy_(src)
+    return st
+
+
 def _empty_state(st: LoopState, **keep) -> LoopState:
     """New output tensors for every field, but those given in `keep`."""
     return LoopState(**{f: keep[f] if f in keep else torch.empty_like(getattr(st, f))
@@ -676,33 +709,38 @@ def _camera_ptrs(cam: CameraParams, device):
     return [x.data_ptr() for x in parts]
 
 
+def _regen_on_cpu(st: LoopState, sample, k_next, cam, cam_cfg, lanes, randomize):
+    """regen_plain, its result copied into the inputs (the kernels' contract)."""
+    new, new_sample, new_k, t_max = regen_plain(st, sample, k_next, cam, cam_cfg, lanes,
+                                                randomize)
+    sample.copy_(new_sample)
+    k_next.copy_(new_k)
+    return _copy_into(st, new), sample, k_next, t_max
+
+
 def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
                   lanes: BlockLanes, randomize: bool):
-    """Regenerate dead lanes (wpt_regen_pinhole; `regen_plain` on CPU tensors).
-    The kernel takes a mono pinhole camera with or without a lens model
-    (`_pinhole`)."""
+    """Regenerate dead lanes in place (wpt_regen_pinhole; `regen_plain` on
+    CPU tensors, its result copied into the inputs): (st, sample, k_next,
+    t_max), the first three the tensors given. The kernel takes a mono
+    pinhole camera with or without a lens model (`_pinhole`)."""
     n, dev = _check_state("regen_pinhole", st, sample, k_next, st.acc.shape[1])
     if dev.type == "cpu":
-        return regen_plain(st, sample, k_next, cam, cam_cfg, lanes, randomize)
+        return _regen_on_cpu(st, sample, k_next, cam, cam_cfg, lanes, randomize)
     if not _pinhole(cam_cfg):
         raise ValueError("regen_pinhole: the kernel takes a mono pinhole camera (a lens model "
                          "allowed), no surround, stereo, depth of field or animation")
     if n != lanes.B * lanes.m:
         raise ValueError(f"regen_pinhole: {n} lanes, the block has {lanes.B * lanes.m}")
+    _check_in_place("regen_pinhole", st)
     lib = native.load_kernels()
-    out = _empty_state(st, acc=st.acc, stats=st.stats)
-    out_sample, out_k = torch.empty_like(sample), torch.empty_like(k_next)
     t_max = torch.empty((n,), dtype=torch.float32, device=dev)
-    camera = _camera_ptrs(cam, dev)
-    s_in, s_out = _state_c(st, sample, k_next), _state_c(out, out_sample, out_k)
-    code = lib.wpt_regen_pinhole(
-        ctypes.addressof(s_in), ctypes.addressof(s_out), t_max.data_ptr(), n, *camera,
-        cam_cfg.distortion, cam_cfg.undistort_iters, lanes.blk, lanes.B, lanes.m, lanes.P,
-        lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt, int(randomize),
-        native.stream_ptr(t_max))
+    args, keep = regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max)
+    code = lib.wpt_regen_pinhole(*args, native.stream_ptr(t_max))
+    del keep
     native.check(code, "regen_pinhole")
     native.LAUNCHES["regen_pinhole"] += 1
-    return out, out_sample, out_k, t_max
+    return st, sample, k_next, t_max
 
 
 def _surround_camera(cam: CameraParams, cam_cfg: CameraConfig, width: int, height: int, device):
@@ -726,29 +764,44 @@ def _surround_camera(cam: CameraParams, cam_cfg: CameraConfig, width: int, heigh
 
 def regen_surround(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
                    lanes: BlockLanes, randomize: bool):
-    """Regenerate dead lanes through a surround camera, mono or stereo
-    (wpt_regen_surround; `regen_plain` on CPU tensors)."""
+    """Regenerate dead lanes in place through a surround camera, mono or
+    stereo (wpt_regen_surround; `regen_plain` on CPU tensors, its result
+    copied into the inputs): (st, sample, k_next, t_max), the first three
+    the tensors given."""
     n, dev = _check_state("regen_surround", st, sample, k_next, st.acc.shape[1])
     if dev.type == "cpu":
-        return regen_plain(st, sample, k_next, cam, cam_cfg, lanes, randomize)
+        return _regen_on_cpu(st, sample, k_next, cam, cam_cfg, lanes, randomize)
     if not _surround(cam_cfg):
         raise ValueError("regen_surround: the kernel takes a surround camera, mono or stereo, "
                          "without depth of field or animation")
     if n != lanes.B * lanes.m:
         raise ValueError(f"regen_surround: {n} lanes, the block has {lanes.B * lanes.m}")
+    _check_in_place("regen_surround", st)
     lib = native.load_kernels()
-    out = _empty_state(st, acc=st.acc, stats=st.stats)
-    out_sample, out_k = torch.empty_like(sample), torch.empty_like(k_next)
     t_max = torch.empty((n,), dtype=torch.float32, device=dev)
-    camera = _surround_camera(cam, cam_cfg, lanes.width, lanes.height, dev)
-    s_in, s_out = _state_c(st, sample, k_next), _state_c(out, out_sample, out_k)
-    code = lib.wpt_regen_surround(
-        ctypes.addressof(s_in), ctypes.addressof(s_out), t_max.data_ptr(), n, *camera, lanes.blk,
-        lanes.B, lanes.m, lanes.P, lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt,
-        int(randomize), native.stream_ptr(t_max))
+    args, keep = regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max)
+    code = lib.wpt_regen_surround(*args, native.stream_ptr(t_max))
+    del keep
     native.check(code, "regen_surround")
     native.LAUNCHES["regen_surround"] += 1
-    return out, out_sample, out_k, t_max
+    return st, sample, k_next, t_max
+
+
+def regen_args(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
+               lanes: BlockLanes, randomize: bool, t_max):
+    """The arguments of wpt_regen_surround (a surround camera) or
+    wpt_regen_pinhole but their stream, and the ctypes object they point
+    into, which must live until the call returns."""
+    dev = st.active.device
+    s_c = _state_c(st, sample, k_next)
+    if _surround(cam_cfg):
+        camera = _surround_camera(cam, cam_cfg, lanes.width, lanes.height, dev)
+    else:
+        camera = _camera_ptrs(cam, dev) + [cam_cfg.distortion, cam_cfg.undistort_iters]
+    args = [ctypes.addressof(s_c), t_max.data_ptr(), st.active.shape[0], *camera, lanes.blk,
+            lanes.B, lanes.m, lanes.P, lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt,
+            int(randomize)]
+    return args, s_c
 
 
 _RGB, _TOF = 0, 1
@@ -935,34 +988,58 @@ def _check_lit_tables(tables: StepTables, dev):
         raise ValueError(f"shade_lit: RGL tables on {tables.rgl.device}, lanes on {dev}")
 
 
+# (device, stream) -> the lit shade's lane counter, which its launch zeroes
+# on the stream (a memset beside the kernel).
+_LIT_COUNTER = {}
+
+
 def shade_lit(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
               hr: HitRecord):
-    """One lit-class bounce after the closest hit (wpt_shade_lit;
-    `shade_lit_plain` on CPU tensors): (state, shadow origins [2N, 3],
-    shadow directions [2N, 3], shadow t_max [2N], pending deposits [2N,
-    n_acc]), the light's shadow rays in rows 0..N-1, the sky's in rows
-    N..2N-1; st.stats grows in place. The kernel takes Lambertian, GGX,
-    mirror, glass, ModPhong and RGL surfaces, triangle lights under
-    per-light MIS and an equirect or cube sky with importance tables."""
+    """One lit-class bounce after the closest hit, in place (wpt_shade_lit;
+    `shade_lit_plain` on CPU tensors, its state copied into st): (st, shadow
+    origins [2N, 3], shadow directions [2N, 3], shadow t_max [2N], pending
+    deposits [2N, n_acc]), the light's shadow rays in rows 0..N-1, the sky's
+    in rows N..2N-1; st.stats grows in place. The kernel writes a shadow
+    row's origin and direction only where it casts (t_max > 0). It takes
+    Lambertian, GGX, mirror, glass, ModPhong and RGL surfaces, triangle
+    lights under per-light MIS and an equirect or cube sky with importance
+    tables."""
     n, dev = _check_state("shade_lit", st, sample, sample, sensor.n_acc)
     _check_hit("shade_lit", n, dev, pixel, t, prim, hr,
                ("position", "normal", "geom_normal", "tangent", "backside", "mat"))
     _check_lit_tables(tables, dev)
     if dev.type == "cpu":
-        return shade_lit_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+        new, *rows = shade_lit_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+        return (_copy_into(st, new), *rows)
+    _check_in_place("shade_lit", st)
+    lib = native.load_kernels()
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = (torch.empty((2 * n, 3), **f32), torch.empty((2 * n, 3), **f32),
+            torch.empty((2 * n,), **f32), torch.empty((2 * n, sensor.n_acc), **f32))
+    stream = native.stream_ptr(t)
+    counter = _LIT_COUNTER.get((dev, stream))
+    if counter is None:
+        counter = _LIT_COUNTER[(dev, stream)] = torch.empty((1,), dtype=torch.int32, device=dev)
+    args, keep = lit_args(tables, sensor, params, st, pixel, sample, t, prim, hr, *rows)
+    code = lib.wpt_shade_lit(*args, counter.data_ptr(), stream)
+    del keep
+    native.check(code, "shade_lit")
+    native.LAUNCHES["shade_lit"] += 1
+    return (st, *rows)
+
+
+def lit_args(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+             hr: HitRecord, shadow_o, shadow_d, shadow_tmax, pending):
+    """The arguments of wpt_shade_lit up to its pending deposits (its lane
+    counter and stream follow), and the ctypes objects they point into,
+    which must live until the call returns."""
     kind, sp = sensor_params(sensor)
     env = tables.env
-    lib = native.load_kernels()
-    out = _empty_state(st, stats=st.stats)
-    f32 = dict(dtype=torch.float32, device=dev)
-    shadow_o, shadow_d = torch.empty((2 * n, 3), **f32), torch.empty((2 * n, 3), **f32)
-    shadow_tmax = torch.empty((2 * n,), **f32)
-    pending = torch.empty((2 * n, sensor.n_acc), **f32)
-    s_in, s_out = _state_c(st, sample, sample), _state_c(out, sample, sample)
+    s_c = _state_c(st, sample, sample)
     sp_c = (ctypes.c_float * 8)(*sp)
     rgl_c = None if tables.rgl is None else c_tables(tables.rgl)
-    code = lib.wpt_shade_lit(
-        ctypes.addressof(s_in), ctypes.addressof(s_out), st.stats.data_ptr(), n,
+    args = [
+        ctypes.addressof(s_c), st.stats.data_ptr(), st.active.shape[0],
         pixel.data_ptr(), t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(),
         hr.normal.data_ptr(), hr.geom_normal.data_ptr(), hr.tangent.data_ptr(),
         hr.backside.data_ptr(), hr.mat.data_ptr(), tables.mat.data_ptr(), tables.mat.shape[0],
@@ -975,10 +1052,8 @@ def shade_lit(tables: StepTables, sensor, params, st: LoopState, pixel, sample, 
         ctypes.addressof(sp_c), params.max_path_components, params.rr_start,
         float(params.rr_threshold), float(np.float32(1.0 - params.shadow_identity_eps)),
         float(params.min_hit_distance), shadow_o.data_ptr(), shadow_d.data_ptr(),
-        shadow_tmax.data_ptr(), pending.data_ptr(), native.stream_ptr(t))
-    native.check(code, "shade_lit")
-    native.LAUNCHES["shade_lit"] += 1
-    return out, shadow_o, shadow_d, shadow_tmax, pending
+        shadow_tmax.data_ptr(), pending.data_ptr()]
+    return args, (s_c, sp_c, rgl_c)
 
 
 def _ptr(x: Optional[torch.Tensor]):

@@ -38,6 +38,13 @@ still differ, such as atan2f/asinf against PyTorch's):
   and pdf and RGL's frame, are the operations that could part; an ulp of
   atan2f can move a direction across a pdf cell). Outputs a shade does not
   produce (no shadow ray without sky importance) must be absent from both.
+  The regenerations and the lit shade write their inputs (the in-place
+  contract of render/wavefront.py), so each call, the kernel's and the
+  plain version's, gets its own copy of the inputs (`fresh_args`). The lit
+  shade computes a shadow row's origin and direction only where the row
+  casts: its shadow t_max must be bit-equal on every row, and its origins
+  and directions are compared on the rows that cast (t_max > 0), which are
+  the only rows K2/K6 read.
 
 Also the six frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
@@ -869,31 +876,79 @@ def _compare(got, ref, n) -> Dict[str, float]:
     return res
 
 
+def fresh_args(args) -> tuple:
+    """A copy of a K4 call's arguments whose lane state (the LoopState and
+    each tensor argument: sample ids, next sample indices, pixels, the cast)
+    is cloned, so that an in-place kernel writes the copy and not `args`."""
+    from ..render.wavefront import LoopState
+
+    def copy(x):
+        if isinstance(x, LoopState):
+            return LoopState(*(v.clone() for v in x))
+        return x.clone() if isinstance(x, torch.Tensor) else x
+    return tuple(copy(x) for x in args)
+
+
+def restore_args(dst, src) -> None:
+    """Copy the lane state of `src` (a `fresh_args` copy) back into `dst`."""
+    from ..render.wavefront import LoopState
+
+    for a, b in zip(dst, src):
+        if isinstance(a, LoopState):
+            for x, y in zip(a, b):
+                x.copy_(y)
+        elif isinstance(a, torch.Tensor):
+            a.copy_(b)
+
+
+REGEN_OUT = ("state", "sample", "k_next", "t_max")
+SHADE_OUT = ("state", "shadow_o", "shadow_d", "shadow_tmax", "pending", "stats")
+
+
+def check_call(kernel, plain, args, lit_rows: bool = False,
+               exact_rows: bool = True) -> Dict[str, float]:
+    """`kernel` against `plain` (a regeneration or a shade and their plain
+    versions), each on its own copy of `args` (see `_compare`). A shade's
+    counters are compared too; with `lit_rows` (the lit shade) the shadow
+    t_max must be bit-equal on every row (`exact_rows`; else it is held as
+    any float field, for a build whose libm is not the card's) and the
+    shadow origins and directions are compared on the rows that cast only."""
+    regen = len(args) == 7
+    names = REGEN_OUT if regen else SHADE_OUT
+
+    def run(fn):
+        a = fresh_args(args)
+        out = fn(*a)
+        return _named(out if regen else out + (a[3].stats,), names)
+
+    got, ref = run(kernel), run(plain)
+    if "shadow_tmax" in got:
+        if lit_rows and exact_rows:
+            same = ((got["shadow_tmax"] == ref["shadow_tmax"])
+                    | (torch.isnan(got["shadow_tmax"]) & torch.isnan(ref["shadow_tmax"])))
+            assert bool(same.all()), f"shadow t_max differs on {int((~same).sum())} rows"
+        if lit_rows:
+            cast = ((ref["shadow_tmax"] > 0) & (got["shadow_tmax"] > 0))[:, None]
+            for f in ("shadow_o", "shadow_d"):
+                got[f], ref[f] = torch.where(cast, got[f], 0.0), torch.where(cast, ref[f], 0.0)
+        for out in (got, ref):
+            out["shadow_cast"] = out["shadow_tmax"] > 0
+    return _compare(got, ref, args[0].active.shape[0] if regen else args[3].active.shape[0])
+
+
 def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
     """Each of K4's kernels against its plain version on `inputs` (see
-    `_compare`): {kernel: {field: max |error| or differing lanes}}, the
-    regeneration and the shade of `inputs`' class and camera (`k4_route`).
-    Bit equality shows as 0 everywhere."""
+    `check_call`, `_compare`): {kernel: {field: max |error| or differing
+    lanes}}, the regeneration and the shade of `inputs`' class and camera
+    (`k4_route`). Every call gets its own copy of the inputs, which stay as
+    they were. Bit equality shows as 0 everywhere."""
     from ..render import wavefront as wf
 
     n = inputs.regen[0].active.shape[0]
     route = k4_route(inputs)
-    regen_names = ("state", "sample", "k_next", "t_max")
-    res = {route.regen.__name__: _compare(_named(route.regen(*inputs.regen), regen_names),
-                                          _named(wf.regen_plain(*inputs.regen), regen_names), n)}
-    names = ("state", "shadow_o", "shadow_d", "shadow_tmax", "pending", "stats")
-
-    def shade(fn):
-        args = list(inputs.shade)
-        args[3] = args[3]._replace(stats=args[3].stats.clone())
-        out = fn(*args)
-        return _named(out + (args[3].stats,), names)
-
-    got, ref = shade(route.shade), shade(route.shade_plain)
-    for out in (got, ref):
-        if "shadow_tmax" in out:
-            out["shadow_cast"] = out["shadow_tmax"] > 0
-    res[route.shade.__name__] = _compare(got, ref, n)
+    res = {route.regen.__name__: check_call(route.regen, wf.regen_plain, inputs.regen),
+           route.shade.__name__: check_call(route.shade, route.shade_plain, inputs.shade,
+                                            lit_rows=route.shade is wf.shade_lit)}
     names = ("acc", "work")
     res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
                                   _named(wf.nee_resolve_plain(*inputs.resolve), names), n)
@@ -915,10 +970,17 @@ SKY_LOOKUP_FLOPS = {1: 60.0, 2: 60.0, 3: 0.0}
 SKY_PDF_FLOPS = 60.0
 
 
-def k4_work(inputs: K4Inputs, kernel: str):
+def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     """(bytes, flops) of one K4 kernel on `inputs`: what each lane's branch
     reads, each input once, each output written once, the small tables once;
-    the sizes are those of the tensors the kernel takes. Flops are tallies of
+    the sizes are those of the tensors the kernel takes. The regenerations
+    and the lit shade update the lane state in place: a lane pays only the
+    fields its branch reads and changes (`in_place=False`: the bound of the
+    earlier kernels, which wrote every lane's whole state anew; the
+    regeneration: each lane's flags and its old state where it is kept).
+    The regeneration in place reads every lane's active flag and a dead
+    lane's next sample index, writes every lane's t_max and a regenerated
+    lane's state, sample id and next sample index. Flops are tallies of
     the code per lane: the regeneration ~60 per regenerated lane (jitter, the
     pinhole ray, its rotation) plus the lens model's inverse (`LENS_FLOPS`,
     per step of the OpenCV fixed point); the diffuse shade ~250 per lane
@@ -950,12 +1012,18 @@ def k4_work(inputs: K4Inputs, kernel: str):
                 cfg.undistort_iters if cfg.distortion == DistortionModel.OPENCV else 1)
             if cfg.distortion != DistortionModel.NONE:
                 camera += [cam.dist_k, cam.dist_p]
+        if in_place:
+            n_dead = int((~st.active).sum())
+            n_bytes = (n * _lane_bytes(st.active, st.geom_len)          # geom_len: t_max
+                       + n_dead * _lane_bytes(k_next)
+                       + n_need * _lane_bytes(*state, sample, k_next))
+            return n_bytes + _table_bytes(camera), per_lane * n_need
         read = (n * _lane_bytes(st.active, k_next, st.prev_random)
                 + (n - n_need) * _lane_bytes(sample, *kept))
         written = n * _lane_bytes(*state, sample, k_next, st.geom_len)      # geom_len: t_max
         return read + written + _table_bytes(camera), per_lane * n_need
     if kernel == "shade_lit":
-        return _lit_shade_work(inputs)
+        return _lit_shade_work(inputs) if in_place else _lit_shade_copy_work(inputs)
     if kernel == "shade_diffuse":
         tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
         n = st.active.shape[0]
@@ -1044,8 +1112,91 @@ LIT_SAMPLE_FLOPS = {1: 60.0, 2: 350.0, 3: 100.0, 4: 10.0, 5: 150.0, 10: 900.0}
 LIT_EVAL_FLOPS = {1: 10.0, 2: 100.0, 5: 50.0, 10: 450.0}
 
 
+def _lit_lanes(inputs: K4Inputs):
+    """(dead, escaped, hit, RANDOM, scattering, material type) lanes of the
+    lit shade's inputs: the plain version's bsdf sample of every hit lane."""
+    from ..core.rng import Salt, uniform4
+    from ..render.bsdf import ScatterKind, bsdf_sample, gather_material_rows
+
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    hit = (prim >= 0) & st.active
+    mrow = gather_material_rows(tables.mat, hr.mat)
+    u4 = uniform4(pixel, sample, st.bounce, Salt.BSDF)
+    u_aux = uniform4(pixel, sample, st.bounce, Salt.BSDF_AUX)
+    sr = bsdf_sample(hr, st.d, st.ior, u4, u_aux[:, 0], u_aux[:, 1], mrow, tables.mat_types,
+                     rgl=tables.rgl)
+    random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
+    cont = random | (hit & (sr.kind == ScatterKind.EXPLICIT))
+    typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+    return ~st.active, st.active & (prim < 0), hit, random, cont, typ
+
+
 def _lit_shade_work(inputs: K4Inputs):
-    """(bytes, flops) of the lit shade on `inputs`. Bytes: every lane's
+    """(bytes, flops) of the lit shade in place on `inputs`, by branch.
+    Every lane reads its active flag. A dead lane writes its previous
+    sample's pdf and flag and its two idle shadow rows (t_max and pending
+    deposit): 38 B. An active lane reads its primitive id, bounce index,
+    direction, deposits and throughput. An escaped lane reads its previous
+    sample's flag and optical path length (and the pdf where the flag is
+    set: the sky's MIS weight) and writes its deposits, bounce index, end,
+    flag and pdf and its idle rows. A hit lane reads t, the normal, the
+    position, the ray IOR, backside, material, path lengths, the flag,
+    pixel and sample id (and where the flag is set the pdf, the geometric
+    normal and the hit prim's (pick, 1 / area) row; the tangent on GGX and
+    RGL hits) and writes its deposits, bounce index, origin, path lengths,
+    end, flag, pdf and mixture pdf, where it scatters its direction,
+    throughput and ray IOR, and on a RANDOM lane two shadow rays (origin,
+    direction, t_max) and two pending deposits, else its idle rows. The
+    material, light and sky rows and the RGL tables once. Flops: ~160 per
+    hit lane (two uniforms, emission, the roulette), the sky's lookup and
+    pdf per escaped lane, the sample per hit lane and type
+    (`LIT_SAMPLE_FLOPS`), per RANDOM lane ~360 (two uniforms, the light's
+    sample and emission, the sky's sample and lookup toward it, two
+    weights) and two bsdf evaluations of its type (`LIT_EVAL_FLOPS`)."""
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    env = tables.env
+    n = st.active.shape[0]
+    dead, escaped, hit, random, cont, typ = _lit_lanes(inputs)
+    framed = hit & ((typ == MaterialType.GGX) | (typ == MaterialType.RGL))
+    count = lambda m: int(m.sum())  # noqa: E731
+    idle_rows = 2 * _lane_bytes(t, st.acc)                    # t_max and pending, both rows
+    n_bytes = (n * _lane_bytes(st.active)
+               + count(dead) * (_lane_bytes(st.prev_pdf, st.prev_random) + idle_rows)
+               + count(st.active) * _lane_bytes(prim, st.bounce, st.d, st.acc, st.throughput)
+               + count(escaped) * (_lane_bytes(st.prev_random, st.opt_len)
+                                   + _lane_bytes(st.acc, st.bounce, st.active, st.prev_pdf,
+                                                 st.prev_random) + idle_rows)
+               + count(escaped & st.prev_random) * _lane_bytes(st.prev_pdf)
+               + count(hit) * (_lane_bytes(t, hr.normal, hr.position, st.ior, hr.backside,
+                                           hr.mat, st.geom_len, st.opt_len, st.prev_random,
+                                           pixel, sample)
+                               + _lane_bytes(st.acc, st.bounce, st.o, st.opt_len, st.active,
+                                             st.geom_len, st.prev_pdf, st.prev_random,
+                                             st.prev_light_pdf))
+               + count(hit & st.prev_random) * (_lane_bytes(st.prev_pdf, hr.geom_normal)
+                                                + _lane_bytes(tables.pick_area))
+               + count(framed) * _lane_bytes(hr.tangent)
+               + count(cont) * _lane_bytes(st.d, st.throughput, st.ior)
+               + count(random) * 2 * _lane_bytes(hr.position, hr.position, t, st.acc)
+               + count(hit & ~random) * idle_rows)
+    rows = [tables.mat, tables.light_tri, tables.light_mat, tables.light_w,
+            tables.alias_prob, tables.alias_idx, env.image, env.rotation, env.pdf_table,
+            env.alias_prob, env.alias_idx]
+    if tables.rgl is not None:
+        rows += list(tables.rgl)
+    n_bytes += _table_bytes(rows) + 16
+    flops = (160.0 * count(hit) + (SKY_LOOKUP_FLOPS[env.kind] + SKY_PDF_FLOPS) * count(escaped)
+             + 360.0 * count(random))
+    for mt, f in LIT_SAMPLE_FLOPS.items():
+        flops += f * count(hit & (typ == mt))
+    for mt, f in LIT_EVAL_FLOPS.items():
+        flops += 2.0 * f * count(random & (typ == mt))
+    return n_bytes, flops
+
+
+def _lit_shade_copy_work(inputs: K4Inputs):
+    """(bytes, flops) of the lit shade that wrote new state (the kernel
+    before the in-place contract) on `inputs`. Bytes: every lane's
     state, the sample ids, the ray IOR (read and written back) and the hit
     position (its two shadow rays' origin); the primitive id and the
     previous sample's flag on active lanes; t, normal, backside and material
@@ -1188,6 +1339,38 @@ def rgl_work(tables, n: int, sample: bool):
 def row_gather_work(table, idx):
     """P0: the table and the indices read once, the rows written; no arithmetic."""
     return table.numel() * 4 + idx.numel() * 4 + idx.numel() * table.shape[1] * 4, 0.0
+
+
+def time_restored_ms(fn: Callable, args, device, n: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call fn(*args) of an in-place kernel over `n` calls
+    after `warmup`, each on the same inputs: the lane state of `args` is
+    restored from a copy before every call, outside the timed window. On a
+    GPU each call is timed by its own pair of CUDA events, and the card is
+    kept busy (torch.cuda._sleep, ~2 ms, longer than the wrapper's host
+    work) while the host enqueues the call, so the time is the device's;
+    on a CPU the host clock."""
+    saved = fresh_args(args)
+    cuda = torch.device(device).type == "cuda"
+    total = 0.0
+    for k in range(warmup + n):
+        restore_args(args, saved)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(4_000_000)
+            start.record()
+            fn(*args)
+            stop.record()
+            stop.synchronize()
+            dt = start.elapsed_time(stop)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            dt = (time.perf_counter() - t0) * 1e3
+        if k >= warmup:
+            total += dt
+    restore_args(args, saved)
+    return total / n
 
 
 def time_ms(fn: Callable[[], object], device, n: int = 20, warmup: int = 3) -> float:
