@@ -13,7 +13,13 @@ Phases, each a function, any failure exits non-zero and names its phase:
    rows, depth and table size printed);
    envmap_spheres(cube=True) (2 triangles, 3 spheres, a cube-map sky with a
    64 x 64 importance table), rtiow() (40 spheres, no triangle, a constant
-   sky) and tof_box() (54 triangles, 32 of them the ToF light).
+   sky), tof_box() (54 triangles, 32 of them the ToF light),
+   cornell_box_animated() (36 triangles, 4 animation rows: the short box
+   turning, the tall box and the light sliding), the same with two spheres
+   (one riding the short box's turn), and ROADMAP C.1's brute-force fields:
+   sphere_field() with 3000 and 4096 spheres (the K1 form's 6144 and 8192
+   columns) and tri_sphere_field() (2000 triangles and 40 spheres, 8448
+   columns: the sweeps).
 3. kernels - each kernel against its plain PyTorch version on the card, at
    its path's shapes, with the tolerances of utils/kernel_check.py; each
    kernel's wrapper-call time beside the plain version's and, where one
@@ -35,7 +41,16 @@ Phases, each a function, any failure exits non-zero and names its phase:
    together) and K2 on its env-NEE shadow rays; K8 on the cube map
    (the envmap frame's 131072 camera directions, random directions, and
    the axis, diagonal, face-edge and texel-boundary directions) and on the
-   constant map, both bit-equal.
+   constant map, both bit-equal. K1, K2 and K3 also on the C.1 sphere
+   fields' 98304 camera rays (3000 and 4096 spheres; K2 on shadow rays from
+   their first hits to random sky directions). The sweeps KS1 and KS2 and
+   the hit assembly (K3 static, K3a animated) against their plain versions,
+   bit-equal, on three sets of rays: the cornell_animated frame's block
+   (131072 camera rays, random rays, and NEE shadow rays toward the light
+   where it is at t = 0.5), tri_sphere_field's camera rays (static sweeps)
+   and the animated Cornell box with spheres (the camera rays: the sphere
+   branches in object space); KS1, KS2 and K3a timed on the
+   cornell_animated block.
 4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
    components, SensorRGB) through render_frame_wavefront on the GPU. K1,
    K2, K3 and K4 must be launched and P0 not, the image must be finite, its
@@ -76,6 +91,13 @@ Phases, each a function, any failure exits non-zero and names its phase:
    and phase 2 swaps the buckets a and b; the 4-phase distance at depth 1
    is held to the first-hit distance of the pixel-centre rays (median
    under 2 mm).
+10. cornell_animated path - the animated Cornell frame (128 x 128, 16 spp,
+   8 path components, SensorRGB, t0 = t1 = 0.5) through render_frame_wavefront:
+   no K4 class takes an animated scene, so the torch-op bounce runs with
+   KS1, K3a, KS2 and P0 (the material rows) inside, and none of K1, K2, K3
+   or K4's kernels; the frame held to its JAX reference as in phase 4
+   (`jax_frame_reference.py cornell_animated`). Its launches per step are
+   reported, not gated (the torch-op route is hundreds of launches a step).
 
 The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
 (regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the mesh frame K4's
@@ -115,14 +137,17 @@ launches of set-up alone come to ~8 per step) above 100 per frame; every
 frame above 12 per step of the loop (the city's 2 blocks of 4 steps carry
 the set-up of two blocks). Each path's counters are set to 0 just before
 it and read just after; a kernel's `launches` in the JSON line is the sum
-over the paths that use it. The stand-alone K8, K7 and P0 kernels run on
-no path (their work runs inside K4's shades), so their records count 0
-launches, and their `inline_in` lists the shade that does their work, the
-path and its launches there: the equirect K8 record the env shade on the
-mesh path and the lit shade on the city path; the cube and constant K8
-records the env shade on the envmap and rtiow paths; K7's two records and
-P0's (the material rows) the lit shade on the city path. Each shade,
-regeneration and resolve record counts those of its own paths.
+over the paths that use it. The stand-alone K8 and K7 kernels run on no
+path (their work runs inside K4's shades), so their records count 0
+launches, and P0 runs only on the cornell_animated path (its torch-op
+bounce gathers the material rows through it); their `inline_in` lists the
+shade that does their work on a K4 path, the path and its launches there:
+the equirect K8 record the env shade on the mesh path and the lit shade on
+the city path; the cube and constant K8 records the env shade on the
+envmap and rtiow paths; K7's two records and P0's (the material rows) the
+lit shade on the city path. Each shade, regeneration and resolve record
+counts those of its own paths; the sweeps' and K3a's records those of the
+cornell_animated path.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -141,8 +166,8 @@ import traceback
 DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
-PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
-K4_PATHS = PATHS
+K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
+PATHS = K4_PATHS + ("cornell_animated path",)
 # Kernel launches per step of a K4 frame's loop, and per step of the frame
 # with its set-up (all but the mesh frame, whose 4 steps carry ~31 launches of
 # set-up: it is held to MESH_MAX_FRAME_LAUNCHES instead).
@@ -196,6 +221,12 @@ KERNELS = {
                     ("nee_resolve",), tuple(p for p in K4_PATHS if p != "city path")),
     "nee_resolve_lit": ("wurblpt_tpu_torch/csrc/wavefront.cu",
                         "wurblpt_tpu/render/integrator.py:648", ("nee_resolve",), ("city path",)),
+    "sweep_closest": ("wurblpt_tpu_torch/csrc/sweep_closest.cu",
+                      "wurblpt_tpu/render/intersect.py:216", ("sweep_closest",), PATHS),
+    "sweep_any": ("wurblpt_tpu_torch/csrc/sweep_any.cu", "wurblpt_tpu/render/intersect.py:397",
+                  ("sweep_any",), PATHS),
+    "assemble_hit_anim": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
+                          "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_anim",), PATHS),
 }
 # The stand-alone kernels whose work a K4 shade does inline: record ->
 # (shade, path) pairs. Their records count their own launches (none on any
@@ -224,6 +255,11 @@ CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample") + ENV_ALL
 ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit",
                "nee_resolve")
 RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
+# The animated frame's torch-op bounce: the sweeps, K3a and P0's material rows;
+# no K1-K3 (the scene is swept) and no K4 (no class takes animation).
+ANIM_PATH = ("sweep_closest", "assemble_hit_anim", "sweep_any", "row_gather")
+ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
+               "shade_env", "shade_lit", "nee_resolve")
 # The K4 kernels that update the lane state in place (render/wavefront.py).
 IN_PLACE = ("regen_pinhole", "regen_surround", "shade_lit")
 
@@ -321,17 +357,31 @@ def phase_kernels(scenes_on_card):
     env_ht = intersect.build_hit_tables(env_scene)
     env_cam = kc.envmap_camera_lanes(DEVICE)
     env_shadow = kc.env_shadow_lanes(env_scene, env_cam, env_bs)
+    # ROADMAP C.1's sphere fields, the K1 form at 6144 and 8192 columns.
+    fcam = kc.field_camera_lanes(DEVICE)
+    fields = {}
+    for n_sph in (3000, 4096):
+        f_scene = scenes_on_card[f"sphere_field {n_sph}"]
+        f_bs = intersect_brute.build_brute_scene(f_scene)
+        assert intersect_brute.brute_eligible(f_scene), f"{n_sph} spheres: not the K1 form's"
+        f_shadow = kc.sky_shadow_lanes(
+            lambda *r, b=f_bs: intersect_brute.closest_hit_plain(b, *r), fcam)
+        fields[n_sph] = (f_bs, intersect.build_hit_tables(f_scene), f_shadow)
     errs = _run_checks((
         ("closest_hit", lambda b, r: kc.check_closest_hit(b, r),
          {"camera": (bs, cam), "random": (bs, rnd), "rtiow camera, spheres only": (rt_bs, rt_cam),
-          "envmap camera": (env_bs, env_cam)}),
+          "envmap camera": (env_bs, env_cam),
+          **{f"{k}-sphere field camera": (f[0], fcam) for k, f in fields.items()}}),
         ("any_hit", lambda b, r: kc.check_any_hit(b, r),
          {"shadow": (bs, shadow), "random": (bs, rnd),
-          "rtiow camera, spheres only": (rt_bs, rt_cam), "envmap env shadow": (env_bs, env_shadow)}),
+          "rtiow camera, spheres only": (rt_bs, rt_cam), "envmap env shadow": (env_bs, env_shadow),
+          **{f"{k}-sphere field sky shadow": (f[0], f[2]) for k, f in fields.items()}}),
         ("assemble_hit", lambda b, h, r: kc.check_assemble_hit(b, h, r),
          {"camera": (bs, ht, cam), "random": (bs, ht, rnd),
           "rtiow camera, spheres only": (rt_bs, rt_ht, rt_cam),
-          "envmap camera": (env_bs, env_ht, env_cam)})))
+          "envmap camera": (env_bs, env_ht, env_cam),
+          **{f"{k}-sphere field camera": (f[0], f[1], fcam) for k, f in fields.items()}})))
+    sweep_records = _sweep_records(scenes_on_card, fcam, errs)
     t, prim, u, v = intersect_brute.closest_hit_plain(bs, *cam)
     o, d = cam[0], cam[1]
     records = _timed_records({
@@ -344,7 +394,7 @@ def phase_kernels(scenes_on_card):
         "assemble_hit": (lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v),
                          lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v),
                          kc.assemble_hit_work(ht, o.shape[0]), None),
-    }, errs, cam[0].shape[0])
+    }, errs, cam[0].shape[0]) + sweep_records
 
     # K5 and K6 on the mesh frame's block.
     bvh = mesh_scene.bvh
@@ -447,6 +497,58 @@ def phase_kernels(scenes_on_card):
                        lambda: torch.index_select(packed, 0, mat_idx)),
     }, errs, mid.shape[0])
     return records + _k4_records(scenes_on_card)
+
+
+def _sweep_records(scenes_on_card, fcam, errs):
+    """KS1, KS2 and the hit assembly (K3a animated, K3 static: its error joins
+    `errs["assemble_hit"]`) against their plain versions on the
+    cornell_animated block, the animated box with spheres and
+    tri_sphere_field's camera rays; KS1, KS2 and K3a timed on the
+    cornell_animated block."""
+    from wurblpt_tpu_torch.render import intersect, intersect_sweep as sw
+
+    sets = {}
+    for label, key, rays in (("cornell_animated", "cornell_animated", None),
+                             ("animated box with spheres", "cornell_animated spheres", None),
+                             ("tri_sphere_field", "tri_sphere_field", fcam)):
+        scene = scenes_on_card[key]
+        ss, ht = sw.build_sweep_scene(scene), intersect.build_hit_tables(scene)
+        fr = kc.frames_at(scene) if scene.n_anims > 1 else None
+        if rays is None:
+            rays = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, DEVICE)
+        if fr is None:
+            shadow = kc.sky_shadow_lanes(lambda *r, s=ss: sw.closest_sweep_plain(s, *r), rays)
+        else:
+            shadow = kc.anim_shadow_lanes(scene, ss, fr, rays)
+        sets[label] = (ss, ht, fr, rays, shadow)
+    cam = sets["cornell_animated"][3]
+    rnd = kc.random_lanes(cam[0].shape[0], DEVICE)
+    ss, ht, fr, _, shadow = sets["cornell_animated"]
+    sets["cornell_animated random"] = (ss, ht, fr, rnd, rnd)
+    assemble = lambda v: kc.check_assemble_hit_sweep(v[0], v[1], v[3], v[2])  # noqa: E731
+    sweep_errs = _run_checks((
+        ("sweep_closest", lambda v: kc.check_sweep_closest(v[0], v[3], v[2]),
+         {k: (v,) for k, v in sets.items()}),
+        ("sweep_any", lambda v: kc.check_sweep_any(v[0], v[4], v[2]),
+         {(k if k.endswith("random") else k + " shadow"): (v,) for k, v in sets.items()}),
+        ("assemble_hit_anim", assemble,
+         {k: (v,) for k, v in sets.items() if v[2] is not None}),
+        ("assemble_hit", assemble, {"tri_sphere_field, the sweep's winners":
+                                    (sets["tri_sphere_field"],)})))
+    errs["assemble_hit"] = max(errs["assemble_hit"], sweep_errs.pop("assemble_hit"))
+    t, prim, u, v = sw.closest_sweep_plain(ss, *cam, fr)
+    o, d = cam[0], cam[1]
+    return _timed_records({
+        "sweep_closest": (lambda: sw.closest_sweep(ss, *cam, fr),
+                          lambda: sw.closest_sweep_plain(ss, *cam, fr),
+                          kc.sweep_work(ss, cam, fr), None),
+        "sweep_any": (lambda: sw.any_sweep(ss, *shadow, fr),
+                      lambda: sw.any_sweep_plain(ss, *shadow, fr),
+                      kc.sweep_work(ss, shadow, fr, any_hit=True), None),
+        "assemble_hit_anim": (lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v, fr),
+                              lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v, fr),
+                              kc.assemble_hit_work(ht, o.shape[0], fr), None),
+    }, sweep_errs, o.shape[0])
 
 
 def _k4_records(scenes_on_card):
@@ -612,8 +714,8 @@ def _count_launches(render):
     kernels = sum(e.count for e in device) - copies
     device_ms = sum(getattr(e, "self_device_time_total", None)
                     or getattr(e, "self_cuda_time_total", 0) for e in device) / 1e3
-    return (kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"],
-            device_ms)
+    return (kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
+            + native.LAUNCHES["sweep_closest"], device_ms)
 
 
 def _report(label, stats, times, paths, render, short=None, max_per_step=None,
@@ -744,6 +846,17 @@ def phase_tof_path(tof_scene):
     return launches
 
 
+def phase_anim_path(scene):
+    render = kc.cornell_animated_frame(DEVICE, scene)
+    img, stats, launches, times = _drive("cornell_animated path", render, ANIM_PATH, ANIM_ABSENT)
+    print(f"cornell_animated path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.ANIM_REF_MEAN}), stats {stats} (reference {list(kc.ANIM_REF_STATS)})")
+    kc.check_cornell_animated_frame(img, stats)
+    _report("cornell_animated path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2,
+            render, kc.cornell_animated_frame(DEVICE, scene, depth=1))
+    return launches
+
+
 def phase_scenes():
     from wurblpt_tpu_torch.utils import cast_steps, scenes
 
@@ -752,14 +865,20 @@ def phase_scenes():
                          ("city", lambda: scenes.city_night(seed=7, device=DEVICE)),
                          ("envmap", lambda: scenes.envmap_spheres(cube=True, device=DEVICE)),
                          ("rtiow", lambda: scenes.rtiow(device=DEVICE)),
-                         ("tof", lambda: scenes.tof_box(device=DEVICE))):
+                         ("tof", lambda: scenes.tof_box(device=DEVICE)),
+                         ("cornell_animated", lambda: scenes.cornell_box_animated(DEVICE)),
+                         ("cornell_animated spheres",
+                          lambda: scenes.cornell_box_animated(DEVICE, spheres=True)),
+                         ("sphere_field 3000", lambda: scenes.sphere_field(3000, device=DEVICE)),
+                         ("sphere_field 4096", lambda: scenes.sphere_field(4096, device=DEVICE)),
+                         ("tri_sphere_field", lambda: scenes.tri_sphere_field(device=DEVICE))):
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
         bvh = (f"BVH: {cast_steps.tree_summary(scene.bvh)}" if scene.has_bvh else "brute force")
         print(f"scenes: {label} scene built for the GPU in {time.perf_counter() - t0:.2f} s: "
               f"{scene.n_tris} triangles, {scene.n_spheres} spheres, {scene.n_lights} light "
-              f"triangles, {bvh}, sky kind {scene.env_kind}")
+              f"triangles, {bvh}, sky kind {scene.env_kind}, {scene.n_anims} animation rows")
         out[label] = scene
     return out
 
@@ -802,7 +921,9 @@ def main() -> int:
                         ("city path", lambda: phase_city_path(out["scenes"]["city"])),
                         ("envmap path", lambda: phase_envmap_path(out["scenes"]["envmap"])),
                         ("rtiow path", lambda: phase_rtiow_path(out["scenes"]["rtiow"])),
-                        ("tof path", lambda: phase_tof_path(out["scenes"]["tof"]))):
+                        ("tof path", lambda: phase_tof_path(out["scenes"]["tof"])),
+                        ("cornell_animated path",
+                         lambda: phase_anim_path(out["scenes"]["cornell_animated"]))):
         try:
             out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run

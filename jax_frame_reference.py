@@ -6,6 +6,7 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py envmap    # under a minute
     JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow     # under a minute
     JAX_PLATFORMS=cpu python jax_frame_reference.py tof       # under a minute
+    JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated
 
 city is bench config city_many_lights (bench.py bench_city_many_lights):
 city_night(seed=7), 1920x1080, 360-degree stereo, 1 spp, 4 path components,
@@ -32,6 +33,15 @@ bench.py takes them, numpy's float32 mean; the counters), then the
 4-phase distance at 1 path component (direct light only) against
 get_ground_truth's distance (the first hit of the pixel-centre rays): the
 median, 90th percentile and largest |error| in metres over the lit pixels.
+
+cornell_animated is the port's animated Cornell frame: the reference Cornell
+box with the keyframes of the port's `scenes.cornell_animations` (numbers in
+``wurblpt_tpu_torch/utils/kernel_check.py``), built here with the JAX
+package's builder (`jax_cornell_animated`, also the port's tests' JAX
+side), rendered with render_frame_wavefront at t0 = t1 = 0.5 with
+bench.py's Cornell settings: 128x128, 16 spp, 8 path components, the
+reference camera, SensorRGB, 131072 lanes. The JAX package casts it
+through its sweeps with object-space rays (36 triangles, no BVH).
 """
 
 from __future__ import annotations
@@ -46,18 +56,66 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 MAX_LANES = 131072
 
 
-def _frame(scene, cam, cfg, width, height, ssqrt, depth, host_blocks=False):
+def _frame(scene, cam, cfg, width, height, ssqrt, depth, host_blocks=False, t=0.0):
     from wurblpt_tpu import RenderParams, SceneStatic, SensorRGB
     from wurblpt_tpu.render.integrator import render_frame_wavefront
 
     def render():
         return render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam, cfg, SensorRGB(),
-                                      width, height, ssqrt,
+                                      width, height, ssqrt, t, t,
                                       params=RenderParams(max_path_components=depth),
                                       return_stats=True, host_blocks=host_blocks,
                                       max_lanes=MAX_LANES)
 
     return render
+
+
+def jax_cornell_animated(spheres=False):
+    """The animated Cornell box as the JAX package's builder makes it: the
+    reference box (cornell_box_ref) with the port's keyframes
+    (wurblpt_tpu_torch.utils.scenes.cornell_animations), animation ids 1-3
+    for the short box, the tall box and the light; with `spheres`, the
+    port's two spheres (scenes.CORNELL_ANIM_SPHERES). No BVH."""
+    import numpy as np
+
+    from wurblpt_tpu.core.transform import Transformation
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.utils import cornell_data as CD
+    from wurblpt_tpu_torch.utils import scenes as port_scenes
+
+    scene = B.Scene()
+    mats = {name: scene.take_material(B.Lambertian(albedo=CD.ALBEDO[name]), name)
+            for name in ("white", "red", "green")}
+    mats["tall"] = mats["short"] = mats["white"]
+    light = scene.take_material(B.LightDiffuse(radiance=CD.LIGHT_RADIANCE), "light")
+    for a in port_scenes.cornell_animations():
+        scene.take_animation(B.AnimationKeyframes(list(a.times), [
+            Transformation.make(*(np.asarray(x) for x in tf)) for tf in a.transformations]))
+    ids = port_scenes.CORNELL_ANIM_ID
+    for pos, nrm, mat in CD.QUADS:
+        mesh = B.Mesh(np.array(pos, np.float32), np.array(nrm, np.float32), CD.UV,
+                      indices=CD.IDX)
+        scene.take_mesh_instance(B.MeshInstance(mesh, mats[mat], animation=ids.get(mat)))
+    lpos, lnrm = CD.LIGHT_QUAD
+    lmesh = B.Mesh(np.array(lpos, np.float32), np.array(lnrm, np.float32), CD.UV_LIGHT,
+                   indices=CD.IDX)
+    scene.take_mesh_instance(B.MeshInstance(lmesh, light, animation=ids["light"]),
+                             hot_spot=True)
+    if spheres:
+        for c, r, a in port_scenes.CORNELL_ANIM_SPHERES:
+            scene.take_sphere(B.SphereObject(c, r, mats["white"], animation=a or None))
+    return scene.build(use_bvh=False)
+
+
+def _cornell_animated():
+    from wurblpt_tpu import CameraConfig, make_camera
+    from wurblpt_tpu.utils import scenes
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    scene = jax_cornell_animated()
+    pose, vfov = scenes.cornell_ref_camera()
+    cam = make_camera(transformation=pose, vfov_deg=vfov, width=128, height=128)
+    return scene, _frame(scene, cam, CameraConfig(), 128, 128, 4, 8, t=kc.ANIM_TIME)
 
 
 def _city():
@@ -152,7 +210,8 @@ def _tof_report():
                       "max_abs_err_m": float(err.max()), "lit_pixels": int(lit.sum())}))
 
 
-FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None}
+FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
+          "cornell_animated": _cornell_animated}
 
 
 def main():

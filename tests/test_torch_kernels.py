@@ -1,7 +1,8 @@
-"""The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly,
-K5 BVH closest hit, K6 BVH any hit, K7 RGL eval/sample, K8 envmap with its
-equirect, cube and constant branches, P0 row gather) against their plain
-PyTorch versions, with the tolerances of utils/kernel_check.py.
+"""The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly and
+its animated branch K3a, the sweeps KS1/KS2, K5 BVH closest hit, K6 BVH
+any hit, K7 RGL eval/sample, K8 envmap with its equirect, cube and constant
+branches, P0 row gather) against their plain PyTorch versions, with the
+tolerances of utils/kernel_check.py.
 
 Tests marked `cuda` need an NVIDIA GPU with nvcc and skip without one. This
 file imports no jax, so on such a machine it runs without the repository's
@@ -24,7 +25,7 @@ from wurblpt_tpu_torch.materials.rgl import (
     rgl_sample_plain,
     stack_rgl_tables,
 )
-from wurblpt_tpu_torch.render import bsdf, intersect, intersect_brute
+from wurblpt_tpu_torch.render import bsdf, intersect, intersect_brute, intersect_sweep
 from wurblpt_tpu_torch.render.gather import row_gather
 from wurblpt_tpu_torch.scene.ir import Spheres
 from wurblpt_tpu_torch.utils import cast_steps
@@ -589,3 +590,150 @@ def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):
         assert native.LAUNCHES[name] > 0, name
     for name in ("row_gather", "env_radiance", "env_sample", "env_pdf"):
         assert native.LAUNCHES[name] == 0, name          # the shade reads rows and sky inline
+
+
+@functools.lru_cache(maxsize=None)
+def _swept(device, which):
+    """(scene, its SweepScene, HitTables, frames or None, camera rays) of the
+    animated Cornell box (with spheres: the sphere branches) at t = 0.5, or of
+    ROADMAP C.1's field of 2000 triangles and 40 spheres (static sweeps)."""
+    if which == "field":
+        scene = scenes.tri_sphere_field(device=device)
+        rays = kc.field_camera_lanes(device)
+    else:
+        scene = scenes.cornell_box_animated(device, spheres=which == "animated spheres")
+        rays = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device)
+    ss = intersect_sweep.build_sweep_scene(scene)
+    frames = kc.frames_at(scene) if scene.n_anims > 1 else None
+    return scene, ss, intersect.build_hit_tables(scene), frames, rays
+
+
+def _sweep_rays(device, which, kind):
+    scene, ss, _, frames, cam = _swept(device, which)
+    if kind == "camera":
+        return cam
+    if kind == "random":
+        return kc.random_lanes(cam[0].shape[0], device)
+    if frames is None:
+        return kc.sky_shadow_lanes(
+            lambda *r: intersect_sweep.closest_sweep_plain(ss, *r), cam)
+    return kc.anim_shadow_lanes(scene, ss, frames, cam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["animated", "animated spheres", "field"])
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_sweep_closest_kernel_matches_plain(gpu, which, kind):
+    _, ss, _, frames, _ = _swept(gpu, which)
+    before = native.LAUNCHES["sweep_closest"]
+    res = kc.check_sweep_closest(ss, _sweep_rays(gpu, which, kind), frames)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["sweep_closest"] == before + 1 and res["hits"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["animated", "animated spheres", "field"])
+@pytest.mark.parametrize("kind", ["shadow", "random"])
+def test_sweep_any_kernel_matches_plain(gpu, which, kind):
+    _, ss, _, frames, _ = _swept(gpu, which)
+    before = native.LAUNCHES["sweep_any"]
+    res = kc.check_sweep_any(ss, _sweep_rays(gpu, which, kind), frames)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["sweep_any"] == before + 1 and 0 < res["occluded"] < res["lanes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["animated", "animated spheres", "field"])
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_assemble_hit_kernel_matches_plain_on_the_sweeps(gpu, which, kind):
+    """K3a on the animated scenes, K3 on the static field's sweep winners."""
+    _, ss, ht, frames, _ = _swept(gpu, which)
+    counter = "assemble_hit" if frames is None else "assemble_hit_anim"
+    before = native.LAUNCHES[counter]
+    kc.check_assemble_hit_sweep(ss, ht, _sweep_rays(gpu, which, kind), frames)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[counter] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_spheres", [3000, 4096])
+def test_k1_k2_hold_the_k1_forms_largest_sphere_scenes(gpu, n_spheres):
+    """4096 spheres fill the K1 form's 8192 columns: K1 and K2 stage them in
+    chunks, as they stage the Cornell box's 36 triangles."""
+    scene = scenes.sphere_field(n_spheres, device=gpu)
+    assert intersect_brute.brute_eligible(scene)
+    bs = intersect_brute.build_brute_scene(scene)
+    cam = kc.field_camera_lanes(gpu)
+    res = kc.check_closest_hit(bs, cam)
+    assert res["hits"] > 0.3 * res["lanes"]
+    shadow = kc.sky_shadow_lanes(lambda *r: intersect_brute.closest_hit_plain(bs, *r), cam)
+    res = kc.check_any_hit(bs, shadow)
+    assert 0 < res["occluded"] < res["lanes"]
+    kc.check_assemble_hit(bs, intersect.build_hit_tables(scene), cam)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cornell_animated_render_on_gpu_matches_the_jax_reference_numbers(gpu):
+    before = dict(native.LAUNCHES)
+    img, stats = kc.cornell_animated_frame(gpu)()
+    kc.check_cornell_animated_frame(img, stats)
+    for name in ("sweep_closest", "sweep_any", "assemble_hit_anim"):
+        assert native.LAUNCHES[name] > before[name]
+    for name in ("closest_hit", "any_hit", "assemble_hit"):
+        assert native.LAUNCHES[name] == before[name]
+
+
+def test_sweep_and_k3a_wrappers_take_the_plain_version_on_cpu():
+    scene, ss, ht, frames, _ = _swept("cpu", "animated spheres")
+    rays = kc.random_lanes(2048, "cpu")
+    counts = dict(native.LAUNCHES)
+    hit = intersect_sweep.closest_sweep(ss, *rays, frames)
+    for a, b in zip(hit, intersect_sweep.closest_sweep_plain(ss, *rays, frames)):
+        assert torch.equal(a, b)
+    assert torch.equal(intersect_sweep.any_sweep(ss, *rays, frames),
+                       intersect_sweep.any_sweep_plain(ss, *rays, frames))
+    hr = intersect.assemble_hit(ht, rays[0], rays[1], *hit, frames)
+    for a, b in zip(hr, intersect.assemble_hit_plain(ht, rays[0], rays[1], *hit, frames)):
+        assert torch.equal(a, b)
+    assert native.LAUNCHES == counts          # no kernel ran
+    with pytest.raises(ValueError, match="frames"):
+        intersect.assemble_hit(ht, rays[0], rays[1], *hit, frames.double())
+
+
+@pytest.mark.parametrize("off", [None, "mean", "stats", "nan", "shape"])
+def test_cornell_animated_frame_check_holds_the_reference(off):
+    img = torch.full((kc.BENCH_WIDTH, kc.BENCH_WIDTH, 3), kc.ANIM_REF_MEAN, dtype=torch.float64)
+    stats = torch.tensor(kc.ANIM_REF_STATS)
+    if off == "mean":
+        img = img * 1.002
+    elif off == "stats":
+        stats = stats * 1.01
+    elif off == "nan":
+        img[0, 0, 0] = float("nan")
+    elif off == "shape":
+        img = img[:64]
+    if off is None:
+        assert kc.check_cornell_animated_frame(img, stats) == pytest.approx(kc.ANIM_REF_MEAN)
+    else:
+        with pytest.raises(AssertionError):
+            kc.check_cornell_animated_frame(img, stats)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_bounds_count_live_lanes_tables_and_tests(any_hit):
+    """A sweep lane reads its ray (24 B) only where it is live; the tables
+    (40 B a triangle, 20 B a sphere) and the frame rows count once; a live
+    lane's tests count per primitive (KS1), up to its first blocker (KS2)."""
+    _, ss, _, frames, _ = _swept("cpu", "animated spheres")
+    o, d, t_min, t_max = kc.random_lanes(512, "cpu")
+    live = int((t_max > t_min).sum())
+    n_bytes, flops = kc.sweep_work(ss, (o, d, t_min, t_max), frames, any_hit=any_hit)
+    tables = 40 * ss.n_tris + 20 * ss.n_spheres + frames.numel() * 4
+    assert n_bytes == 512 * 8 + live * 24 + (512 if any_hit else 512 * 16) + tables
+    full = live * (kc.SWEEP_TRI_FLOPS * ss.n_tris + kc.SWEEP_SPHERE_FLOPS * ss.n_spheres)
+    obj = kc.OBJECT_RAY_FLOPS * kc._anim_runs(ss) * live
+    if any_hit:
+        assert obj < flops < full + obj
+    else:
+        assert flops == full + obj

@@ -1,6 +1,7 @@
-"""The port's scene: jax-free Cornell, terrain_city, envmap_spheres, rtiow and
-tof_box builds against the JAX flattener, the import boundary, the builders' GPU
-default, and refusal of scenes outside the ported slice."""
+"""The port's scene: jax-free Cornell, terrain_city, envmap_spheres, rtiow,
+tof_box and animated Cornell builds against the JAX flattener, the import
+boundary, the builders' GPU default, and refusal of scenes outside the
+ported slice."""
 
 import inspect
 import shutil
@@ -57,6 +58,21 @@ def test_cornell_box_ref_equals_jax_build_field_by_field():
     _assert_same(ours, ref)
     assert ours.n_tris == 36 and ours.n_spheres == 0
     assert ours.light_prims.tolist() == [34, 35]
+
+
+@pytest.mark.parametrize("spheres", [False, True])
+def test_cornell_box_animated_equals_jax_build_field_by_field(spheres):
+    """The port builds, without JAX, the arrays the JAX builder makes of the
+    animated box: keyframe tables, animation ids, and no per-light MIS rows
+    (the light moves)."""
+    sys.path.insert(0, str(REPO))
+    import jax_frame_reference as jfr
+
+    ours = scenes.cornell_box_animated("cpu", spheres=spheres)
+    ref = _port_of(jfr.jax_cornell_animated(spheres=spheres))
+    _assert_same(ours, ref)
+    assert ours.n_tris == 36 and ours.n_anims == 4 and not ours.has_bvh
+    assert ours.prim_light_pick is None and ours.tris.anim[34:].tolist() == [3, 3]
 
 
 def test_terrain_city_equals_jax_build_field_by_field():
@@ -171,7 +187,8 @@ def test_port_imports_without_jax():
 
 def test_port_stands_alone_without_the_jax_package(tmp_path):
     """The port copied alone, with no wurblpt_tpu beside it and jax blocked,
-    builds its host libraries (g++) and the Cornell, terrain and city scenes."""
+    builds its host libraries (g++) and the Cornell, terrain and city scenes,
+    the animated Cornell box and the C.1 fields."""
     shutil.copytree(REPO / "wurblpt_tpu_torch", tmp_path / "wurblpt_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     code = ("import sys\n"
@@ -194,7 +211,12 @@ def test_port_stands_alone_without_the_jax_package(tmp_path):
             "r = s.rtiow(device='cpu')\n"
             "assert r.n_tris == 0 and r.n_spheres == 40 and r.env_kind == 3\n"
             "t = s.tof_box(device='cpu')\n"
-            "assert t.n_tris == 54 and t.n_lights == 32\n")
+            "assert t.n_tris == 54 and t.n_lights == 32\n"
+            "a = s.cornell_box_animated('cpu', spheres=True)\n"
+            "assert a.n_tris == 36 and a.n_spheres == 2 and a.n_anims == 4\n"
+            "assert s.sphere_field(device='cpu').n_spheres == 3000\n"
+            "f = s.tri_sphere_field(device='cpu')\n"
+            "assert (f.n_tris, f.n_spheres) == (2000, 40)\n")
     env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -256,7 +278,8 @@ def _quad_scene(material, animated=False, **build):
      "environment map kind 1 without importance sampling"),
     (lambda: jscenes.mis_test().build(), "sphere lights"),
     (lambda: _quad_scene(B.Lambertian(albedo=B.CheckerTexture())), "textures"),
-    (lambda: _quad_scene(B.Lambertian(), animated=True), "animation"),
+    # animation without a BVH is in the slice (the sweeps); with one it is not
+    (lambda: _quad_scene(B.Lambertian(), animated=True, use_bvh=True), "animation"),
     (lambda: jscenes.cornell_box(short_object="sphere").build(use_bvh=True),
      "spheres in a BVH scene"),
 ])

@@ -1,5 +1,6 @@
 """TRS poses and quaternions (port of ``wurblpt_tpu/core/transform.py``, the
-subset the camera pose and the scene builder need). Quaternion layout: [x, y, z, w].
+subset the camera pose, the scene builder and keyframe animation need).
+Quaternion layout: [x, y, z, w].
 
 `quat_from_axis_angle` takes sin and cos of the half angle from the C
 library's ``sinf``/``cosf``, which XLA's CPU backend also calls: PyTorch's
@@ -17,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .vecmath import cross, normalize
+from .vecmath import cross, dot, normalize
 
 
 class Transformation(NamedTuple):
@@ -66,6 +67,35 @@ def quat_rotate(q, v):
     w = q[..., 3:4]
     t = 2.0 * cross(u, v)
     return v + w * t + cross(u, t)
+
+
+def quat_slerp(a, b, t):
+    """Spherical lerp with shortest-arc correction; t broadcasts over the
+    batch dims. Nearly parallel keys (sin theta < 1e-4) take the normalised
+    lerp (transform.py:65-80)."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=a.device)[..., None]
+    d = dot(a, b, keepdim=True)
+    b = torch.where(d < 0.0, -b, b)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.acos(d)
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-4
+    den = torch.where(use_lerp, 1.0, sin_theta)
+    wa = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / den)
+    wb = torch.where(use_lerp, t, torch.sin(t * theta) / den)
+    return normalize(wa * a + wb * b)
+
+
+def quat_to_mat3(q):
+    """[..., 4] unit quaternions -> [..., 3, 3] rotation matrices (row major)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+                     2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+                     2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1)
+    return m.reshape(m.shape[:-1] + (3, 3))
 
 
 def from_lookat(eye, center, up=(0.0, 1.0, 0.0), device="cuda") -> Transformation:

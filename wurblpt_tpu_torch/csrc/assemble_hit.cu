@@ -17,6 +17,17 @@
 // Left for later: fusing this into K1's epilogue so t/prim/u/v never leave
 // registers. It stays a separate kernel now so each kernel is tested alone.
 //
+// K3a, the animated branch (ANIM = true, wpt_assemble_hit_anim), replaces
+// intersect.py:510-530 and :605-620: the winner's animation id (its
+// triangle's or sphere's), the ray in that animation's object space (the
+// frame rows of scene/animation.py anim_frames: r_inv, t_inv), the sphere's
+// normal, uv and tangent from the hit point there (a triangle's attributes
+// are object-space already), then the normals back to world by the normal
+// matrix R diag(1/s) and the tangent by the forward map R diag(s), each
+// normalized, before the front-face flip against the world ray. The same
+// memory bound, plus the 120-byte frame row of the winner's animation (the
+// frame's few rows stay in L1).
+//
 // Evaluation order matches intersect.assemble_hit_plain term by term; the
 // library is built with -fmad=false, so both agree to the bit except where
 // atan2f/asinf differ from PyTorch's (sphere uv only).
@@ -26,6 +37,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 constexpr int TRI_F = 27;  // n0 n1 n2 | uv0 uv1 uv2 | tan0 tan1 tan2 | gn
+constexpr int FRAME = 30;  // r_inv | t_inv | m_fwd | m_nrm
 
 struct V3 {
     float x, y, z;
@@ -47,22 +59,36 @@ __device__ __forceinline__ V3 interp3(float w, float u, float v, V3 a, V3 b, V3 
     return {w * a.x + u * b.x + v * c.x, w * a.y + u * b.y + v * c.y, w * a.z + u * b.z + v * c.z};
 }
 
+// m (row major, 9 floats) times v, each row summed left to right (animation.matvec).
+__device__ __forceinline__ V3 matvec(const float* __restrict__ m, V3 v) {
+    return {m[0] * v.x + m[1] * v.y + m[2] * v.z, m[3] * v.x + m[4] * v.y + m[5] * v.z,
+            m[6] * v.x + m[7] * v.y + m[8] * v.z};
+}
+
 __device__ __forceinline__ void store3(float* p, V3 a) {
     p[0] = a.x;
     p[1] = a.y;
     p[2] = a.z;
 }
 
+// The animation rows of a K3a launch (all null for K3).
+struct Anim {
+    const int* tri_anim;
+    const int* sph_anim;
+    const float* frames;   // [A, FRAME]: each animation at the frame's instant
+};
+
+template <bool ANIM>
 __global__ void __launch_bounds__(BLOCK)
 assemble_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t, const int* __restrict__ prim,
                     const float* __restrict__ u_in, const float* __restrict__ v_in, int n,
                     const float* __restrict__ tri_f, const int* __restrict__ tri_i, int n_tris,
                     const float* __restrict__ sph_f, const int* __restrict__ sph_mat,
-                    int n_spheres, float* __restrict__ pos_out, float* __restrict__ nrm_out,
-                    float* __restrict__ gn_out, float* __restrict__ tan_out,
-                    float* __restrict__ uv_out, int* __restrict__ mat_out,
-                    bool* __restrict__ backside_out) {
+                    int n_spheres, Anim anim, float* __restrict__ pos_out,
+                    float* __restrict__ nrm_out, float* __restrict__ gn_out,
+                    float* __restrict__ tan_out, float* __restrict__ uv_out,
+                    int* __restrict__ mat_out, bool* __restrict__ backside_out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const int p = prim[i];
@@ -72,6 +98,19 @@ assemble_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const V3 ro = load3(o + 3 * i), rd = load3(d + 3 * i);
     const float tp = hit ? t[i] : 1.f;
     const V3 pos = {ro.x + tp * rd.x, ro.y + tp * rd.y, ro.z + tp * rd.z};
+    V3 pos_local = pos;
+    const float* frow = nullptr;
+    if (ANIM) {
+        const int aid_t = n_tris > 0 ? __ldg(anim.tri_anim + min(ps, n_tris - 1)) : 0;
+        const int aid_s =
+            n_spheres > 0 ? __ldg(anim.sph_anim + min(max(ps - n_tris, 0), n_spheres - 1)) : 0;
+        const int aid = is_tri ? aid_t : aid_s;
+        frow = anim.frames + aid * FRAME;
+        const V3 tr = load3(frow + 9);
+        const V3 oo = {ro.x - tr.x, ro.y - tr.y, ro.z - tr.z};
+        const V3 oa = matvec(frow, oo), da = matvec(frow, rd);
+        pos_local = {oa.x + tp * da.x, oa.y + tp * da.y, oa.z + tp * da.z};
+    }
 
     V3 nrm = {0.f, 0.f, 0.f}, gn = {0.f, 0.f, 0.f}, tan = {0.f, 0.f, 0.f};
     float uv0 = 0.f, uv1 = 0.f;
@@ -104,7 +143,8 @@ assemble_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
         const float* row = sph_f + 4 * si;
         const float r = fmaxf(__ldg(row + 3), 1e-20f);
         const V3 c = load3(row);
-        const V3 local = {(pos.x - c.x) / r, (pos.y - c.y) / r, (pos.z - c.z) / r};
+        const V3 local = {(pos_local.x - c.x) / r, (pos_local.y - c.y) / r,
+                          (pos_local.z - c.z) / r};
         nrm = normalize3(local);
         gn = nrm;
         uv0 = 0.5f + atan2f(nrm.x, nrm.z) * 0.15915494309189535f;       // 1 / (2 pi)
@@ -118,6 +158,11 @@ assemble_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
             tan = {tr.x / l, tr.y / l, tr.z / l};
         }
         mat = __ldg(sph_mat + si);
+    }
+    if (ANIM) {
+        nrm = normalize3(matvec(frow + 21, nrm));
+        gn = normalize3(matvec(frow + 21, gn));
+        tan = normalize3(matvec(frow + 12, tan));
     }
     const bool backside = dot3(rd, gn) > 0.f;
     const float flip = backside ? -1.f : 1.f;
@@ -141,9 +186,26 @@ extern "C" int wpt_assemble_hit(const float* o, const float* d, const float* t, 
                                 void* stream) {
     if (n > 0) {
         const int grid = (n + BLOCK - 1) / BLOCK;
-        assemble_hit_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            o, d, t, prim, u, v, n, tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres, pos, nrm,
-            gn, tan, uv, mat, backside);
+        assemble_hit_kernel<false><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+            o, d, t, prim, u, v, n, tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres, Anim{}, pos,
+            nrm, gn, tan, uv, mat, backside);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wpt_assemble_hit_anim(const float* o, const float* d, const float* t,
+                                     const int* prim, const float* u, const float* v, int n,
+                                     const float* tri_f, const int* tri_i, int n_tris,
+                                     const float* sph_f, const int* sph_mat, int n_spheres,
+                                     const int* tri_anim, const int* sph_anim,
+                                     const float* frames, float* pos, float* nrm, float* gn,
+                                     float* tan, float* uv, int* mat, bool* backside,
+                                     void* stream) {
+    if (n > 0) {
+        const int grid = (n + BLOCK - 1) / BLOCK;
+        assemble_hit_kernel<true><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+            o, d, t, prim, u, v, n, tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres,
+            Anim{tri_anim, sph_anim, frames}, pos, nrm, gn, tan, uv, mat, backside);
     }
     return static_cast<int>(cudaGetLastError());
 }

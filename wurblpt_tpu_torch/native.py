@@ -39,8 +39,10 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
-           "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu")
-HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh", "rgl_common.cuh")
+           "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu", "sweep_closest.cu",
+           "sweep_any.cu")
+HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh", "rgl_common.cuh",
+           "sweep_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libwpt_kernels.so"
@@ -49,7 +51,8 @@ BVH_BUILDER_SRC = SRC_DIR / "host" / "bvh_builder.cpp"
 OBJ_PARSER_SRC = SRC_DIR / "host" / "obj_parser.cpp"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-contract=off")
 
-LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "bvh_closest_hit": 0,
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_anim": 0,
+            "sweep_closest": 0, "sweep_any": 0, "bvh_closest_hit": 0,
             "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
             "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0}
@@ -68,6 +71,10 @@ _SIGNATURES = {
     "wpt_any_hit": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _F, _F, _F, _P, _P],
     "wpt_assemble_hit": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_assemble_hit_anim": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_sweep_closest": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "wpt_sweep_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P],
     "wpt_bvh_closest_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_bvh_closest_threads": [],
     "wpt_bvh_any_hit": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],

@@ -31,7 +31,7 @@ from ..core import sampler
 from ..core.fresnel import fresnel_schlick, fresnel_unpolarized
 from ..core.onb import onb_from_normal, onb_from_normal_tangent, to_local, to_world
 from ..core.vecmath import cross, dot, normalize, reflect, refract, safe_sqrt
-from ..scene.ir import MaterialFlags, MaterialType, SceneArrays
+from ..scene.ir import MaterialFlags, MaterialType, SceneArrays, anim_ids
 from .gather import row_gather
 from .intersect import HitRecord
 from .texture import material_albedo, material_emissive
@@ -81,10 +81,15 @@ class SceneStatic(NamedTuple):
     sphere_lights: bool
     per_light_mis: bool     # O(1) per-light MIS weights (lights_pdf_at_hit) instead of the mixture
     rgl_tables: bool        # the scene carries RGL tables
+    lights_animated: bool = False   # a hot spot moves: NEE places it at the ray's time
 
     @staticmethod
     def from_scene(scene: SceneArrays) -> "SceneStatic":
         lp = scene.light_prims
+        # global prim order, triangles then spheres, as light_prims counts
+        prim_anim = torch.cat([anim_ids(scene.tris), anim_ids(scene.spheres)])
+        lights_animated = bool(lp.shape[0] > 0 and scene.n_anims > 1
+                               and (prim_anim[lp.long()] != 0).any())
         return SceneStatic(
             mat_types=frozenset(torch.unique(scene.materials.typ).tolist()),
             has_textures=scene.n_textures > 0,
@@ -96,9 +101,10 @@ class SceneStatic(NamedTuple):
             has_bvh=bool(scene.has_bvh),
             bvh_spheres=bool(scene.has_bvh and scene.n_spheres > 0),
             sphere_lights=bool((lp >= scene.n_tris).any()),
-            per_light_mis=(int(lp.shape[0]) >= PER_LIGHT_MIS_MIN
+            per_light_mis=(int(lp.shape[0]) >= PER_LIGHT_MIS_MIN and not lights_animated
                            and scene.prim_light_pick is not None),
             rgl_tables=scene.rgl is not None,
+            lights_animated=lights_animated,
         )
 
     def check_slice(self) -> None:
@@ -107,7 +113,8 @@ class SceneStatic(NamedTuple):
             f"material types {sorted(self.mat_types - SLICE_MATERIALS)}":
                 bool(self.mat_types - SLICE_MATERIALS),
             "textures": self.has_textures,
-            "animation": self.has_anim,
+            # the BVH's leaves test world rays (B.1.3 ports the object-space ones)
+            "animation in a BVH scene": self.has_anim and self.has_bvh,
             f"environment map kind {self.env_kind}"
             f"{'' if self.env_importance else ' without importance sampling'}":
                 not (self.env_kind in (0, 2, 3) or (self.env_kind == 1 and self.env_importance)),

@@ -2,14 +2,14 @@
 the persistent-lane `render_frame_wavefront` and its bounce step).
 
 Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
-  1. closest hit (K1 brute force, or K5 on a BVH);
+  1. closest hit (K1 or the sweep KS1 brute force, or K5 on a BVH);
   2. on a miss, the environment map's radiance (K8) with its MIS weight
      against the env importance pdf (K8);
   3. hit assembly (K3), the material row (P0), emitted radiance with its MIS
      weight against the light-mixture pdf, or in scenes with many lights
      against the hit light's own pdf (`lights_pdf_at_hit`, P0);
   4. BSDF sample (RGL lanes through K7);
-  5. NEE toward a picked hot spot, visibility by an any-hit cast (K2 or K6)
+  5. NEE toward a picked hot spot, visibility by an any-hit cast (K2, KS2 or K6)
      shortened by `shadow_identity_eps`, power-heuristic weighted against
      the mixture pdf or, per light, against pick probability x the picked
      light's pdf;
@@ -38,7 +38,16 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
   K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
-  with K4's plain versions.
+  with K4's plain versions. An animated scene (rigid keyframes, at one
+  instant t0 = t1) takes this route: its casts are the sweeps KS1/KS2 in
+  each primitive's object space and its hit assembly K3a, with the frame's
+  animation rows built once (scene/animation.py), and a moving light is
+  placed at that instant for NEE.
+
+The brute-force cast follows the JAX package (`prepare_scene`): K1/K2 for
+a static scene without a BVH within the matrix form's 8192 columns
+(`intersect_brute.brute_eligible`), the sweeps for every other scene
+without a BVH. Animation in a BVH scene is refused.
 
 A scene's tables (the brute-force scene or the BVH, the hit tables, the
 packed material rows, the per-light rows and K4's step tables) are built
@@ -60,12 +69,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.rng import Salt, uniform4
+from ..scene.animation import anim_frames, make_anim_ctx
 from ..scene.ir import SceneArrays
 from .bsdf import ScatterKind, SceneStatic, bsdf_sample, gather_material_rows, pack_material_table
 from .camera import CameraConfig, CameraParams, check_camera
 from .intersect import HitTables, assemble_hit, build_hit_tables, scene_any_hit, scene_raw_hit
 from .intersect_brute import BIG, brute_eligible, build_brute_scene
-from .lights import pick_area_table
+from .intersect_sweep import build_sweep_scene
+from .lights import light_frames, pick_area_table
 from .wavefront import (
     LoopState,
     StepTables,
@@ -109,7 +120,7 @@ class SceneTables(NamedTuple):
     """A scene's loop-invariant tables, built once by `prepare_scene` and read
     by every frame rendered of the scene."""
 
-    accel: object                      # the BVH's arrays, or the brute-force scene
+    accel: object                      # the BVH's arrays, the K1 form's or the sweeps' scene
     hit: HitTables
     mat: torch.Tensor                  # [M, 23] packed material rows
     pick_area: Optional[torch.Tensor]  # [P, 2] per-light MIS rows (None: mixture or no light)
@@ -122,18 +133,45 @@ def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
     mat = pack_material_table(scene.materials)
     per_light = static.n_lights > 0 and static.per_light_mis
     pick_area = pick_area_table(scene) if per_light else None
+    if scene.has_bvh:
+        accel = scene.bvh
+    else:
+        accel = build_brute_scene(scene) if brute_eligible(scene) else build_sweep_scene(scene)
     return SceneTables(
-        accel=scene.bvh if scene.has_bvh else build_brute_scene(scene),
+        accel=accel,
         hit=build_hit_tables(scene), mat=mat, pick_area=pick_area,
         step=(build_step_tables(scene, static, mat, pick_area)
               if (diffuse_scene(scene, static) or env_scene(scene, static)
                   or lit_scene(scene, static)) else None))
 
 
+class FrameAnim(NamedTuple):
+    """An animated scene's state at the frame's instant: every animation's
+    rows for the casts and the hit assembly, and the hot spots' forward
+    frames where a light moves (None otherwise)."""
+
+    frames: torch.Tensor              # [1, A, 30] scene/animation.anim_frames
+    lights: Optional[tuple]           # lights.light_frames, or None
+
+
+def frame_anim(scene: SceneArrays, static: SceneStatic, t0: float) -> Optional[FrameAnim]:
+    """The animations at t0, evaluated once per frame (None: a static scene);
+    the light frames only when a hot spot moves (integrator.py:856-861)."""
+    if not static.has_anim:
+        return None
+    time = torch.full((1,), t0, dtype=torch.float32, device=scene.device)
+    lights = None
+    if static.lights_animated:
+        lights = light_frames(scene, make_anim_ctx(scene.anims, time, with_forward=True))
+    return FrameAnim(anim_frames(scene.anims, time), lights)
+
+
 def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables, sensor,
-                    params: RenderParams, n):
+                    params: RenderParams, n, anim: Optional[FrameAnim] = None):
     """One generic torch-op wavefront bounce as a function of (state, pixel, sample)."""
     accel, ht, mat_packed, pick_area = tables.accel, tables.hit, tables.mat, tables.pick_area
+    frames = None if anim is None else anim.frames
+    lframes = None if anim is None else anim.lights
     mat_types = static.mat_types
     rgl = scene.rgl
     has_lights = static.n_lights > 0
@@ -148,14 +186,14 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
         k = st.bounce
         acc = st.acc
         t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min,
-                                      torch.where(st.active, BIG, 0.0))
+                                      torch.where(st.active, BIG, 0.0), frames)
         hit = (prim >= 0) & st.active
 
         # Environment on a miss, MIS-weighted against env NEE.
         if has_env:
             acc = env_miss(sensor, acc, st, env, prim, env_is)
 
-        hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
+        hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
         mrow = gather_material_rows(mat_packed, hr.mat)
         geom_len, opt_len = path_lengths(st, hit, t)
         acc = emit(sensor, acc, st, hr, mrow, t, prim, hit, geom_len, opt_len,
@@ -173,8 +211,8 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
             u3 = uniform4(pixel_id, sample_id, k, Salt.NEE_SAMPLE)[:, :3]
             ldir, t_shadow, pending, light_pdf_next = light_nee(
                 scene, sensor, params, st, hr, mrow, mat_types, rgl, sr.direction, is_random,
-                geom_len, opt_len, u3, mat_packed, per_light)
-            occluded = scene_any_hit(accel, hr.position, ldir, t_min, t_shadow)
+                geom_len, opt_len, u3, mat_packed, per_light, lframes)
+            occluded = scene_any_hit(accel, hr.position, ldir, t_min, t_shadow, frames)
             acc = deposit_unoccluded(acc, pending, occluded)
 
         # Env NEE: shadow ray to BIG, unoccluded lanes see the sky's radiance
@@ -183,7 +221,7 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
             ue = uniform4(pixel_id, sample_id, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
             edir, t_env, pending_e = env_nee(sensor, env, st, hr, mrow, mat_types, rgl, ue,
                                              is_random, geom_len, opt_len)
-            occluded_e = scene_any_hit(accel, hr.position, edir, t_min, t_env)
+            occluded_e = scene_any_hit(accel, hr.position, edir, t_min, t_env, frames)
             acc = deposit_unoccluded(acc, pending_e, occluded_e)
 
         new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc,
@@ -197,10 +235,10 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
     return body
 
 
-def _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
+def _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=None):
     """The torch-op step: regeneration, then the generic bounce; the loop
     condition as torch ops and one host sync."""
-    bounce_fn = _make_bounce_fn(scene, static, tables, sensor, params, L)
+    bounce_fn = _make_bounce_fn(scene, static, tables, sensor, params, L, anim)
 
     def step(ls, sample, k_next, lanes):
         ls, sample, k_next, _ = regen_plain(ls, sample, k_next, cam, cam_cfg, lanes,
@@ -293,6 +331,8 @@ def render_frame_wavefront(
     *,
     device,
     tables: Optional[SceneTables] = None,
+    t0: float = 0.0,
+    t1: float = 0.0,
 ):
     """Render a frame with persistent lanes: each lane owns one pixel and a
     fixed subset of its samples, and starts the pixel's next sample the moment
@@ -300,15 +340,18 @@ def render_frame_wavefront(
     one after another.
 
     `scene` and `cam` must live on `device`; `tables` are the scene's own
-    (`prepare_scene`), built here when not given. Returns the image [H, W, n_acc]
-    (row 0 at the top); with `return_stats` also the [2] int64 cast counters
-    (closest-hit casts, all casts incl. NEE shadow rays)."""
+    (`prepare_scene`), built here when not given. An animated scene is
+    rendered at the one instant t0 = t1 (the shutter interval [t0, t1]: the
+    JAX package hands t0 != t1 to its pass renderer, which the port has not
+    yet). Returns the image [H, W, n_acc] (row 0 at the top); with
+    `return_stats` also the [2] int64 cast counters (closest-hit casts, all
+    casts incl. NEE shadow rays)."""
     device = torch.device(device)
     static.check_slice()
     check_camera(cam_cfg)
-    if not (scene.has_bvh or brute_eligible(scene)):
-        raise NotImplementedError("a scene of more than 2048 primitives needs a BVH "
-                                  "(flatten with use_bvh)")
+    if static.has_anim and t0 != t1:
+        raise NotImplementedError("motion blur: an animated scene over a shutter interval "
+                                  "t0 != t1 takes the pass renderer (ROADMAP A.3), not ported yet")
     for name, x in (("scene", scene.tris.p0), ("camera", cam.focal_px)):
         if x.device.type != device.type:
             raise ValueError(f"{name} is on {x.device}, render device is {device}")
@@ -328,8 +371,11 @@ def render_frame_wavefront(
         tables = prepare_scene(scene, static)
     k4 = (diffuse_class(scene, static, cam_cfg) or env_class(scene, static, cam_cfg)
           or lit_class(scene, static, cam_cfg))
-    make_step = _make_k4_step if k4 else _make_generic_step
-    step = make_step(scene, static, tables, sensor, params, cam, cam_cfg, L)
+    if k4:
+        step = _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L)
+    else:
+        step = _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L,
+                                  frame_anim(scene, static, t0))
     run_block = _make_run_block(step, sensor, width, height, samples_sqrt, B, m, P, n_pix,
                                 device)
     img = torch.zeros((n_blocks * B, sensor.n_acc), dtype=torch.float32, device=device)

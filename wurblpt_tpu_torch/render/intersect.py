@@ -1,14 +1,19 @@
-"""Closest/any hit and hit-record assembly (port of ``wurblpt_tpu/render/intersect.py``
-for static scenes).
+"""Closest/any hit and hit-record assembly (port of ``wurblpt_tpu/render/intersect.py``).
 
 `scene_raw_hit` and `scene_any_hit` dispatch on the scene's accelerator: the
-port's BVH (K5/K6, :mod:`wurblpt_tpu_torch.accel.traverse`) or the
-brute-force table (K1/K2, :mod:`.intersect_brute`). `watertight_tri` is the
-leaf test of the BVH path, op for op as the JAX package computes it.
+port's BVH (K5/K6, :mod:`wurblpt_tpu_torch.accel.traverse`), the
+brute-force table of the K1 form (K1/K2, :mod:`.intersect_brute`) or the
+sweeps (KS1/KS2, :mod:`.intersect_sweep`), as `integrator.prepare_scene`
+chose it by the JAX package's rule. An animated scene passes its
+animations' frames (scene/animation.anim_frames), which only the sweeps
+take. `watertight_tri` is the leaf test of the BVH path, op for op as the
+JAX package computes it.
 
-`assemble_hit` is K3: a hand-written CUDA kernel (``csrc/assemble_hit.cu``)
-on CUDA tensors, its plain PyTorch version `assemble_hit_plain` on CPU
-tensors. Both read the winner's row of the packed tables of `HitTables`.
+`assemble_hit` is K3 (``csrc/assemble_hit.cu``; with animation frames its
+animated branch K3a): a hand-written CUDA kernel on CUDA tensors, its plain
+PyTorch version `assemble_hit_plain` on CPU tensors. Both read the
+winner's row of the packed tables of `HitTables`; K3a builds the hit in the
+winner's object space and pushes its frame back to world.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import torch
 from .. import native
 from ..core.onb import onb_from_normal
 from ..core.vecmath import cross, dot, normalize, safe_sqrt
-from ..scene.ir import BVHArrays
+from ..scene.animation import frames_ray_to_object, matvec
+from ..scene.ir import BVHArrays, anim_ids
 from .intersect_brute import BIG, any_hit, closest_hit
+from .intersect_sweep import SweepScene, any_sweep, check_frames, closest_sweep
 
 _INV_2PI = 1.0 / (2.0 * math.pi)
 _INV_PI = 1.0 / math.pi
@@ -52,6 +59,9 @@ class HitTables(NamedTuple):
     sph_mat: torch.Tensor  # [S] int32
     n_tris: int
     n_spheres: int
+    tri_anim: torch.Tensor  # [T] int32 animation id (K3a)
+    sph_anim: torch.Tensor  # [S] int32
+    n_anims: int
 
 
 def build_hit_tables(scene) -> HitTables:
@@ -61,7 +71,9 @@ def build_hit_tables(scene) -> HitTables:
     tri_i = torch.stack([T.mat, T.flags], -1).to(torch.int32)
     sph_f = torch.cat([S.center, S.radius[:, None]], -1)
     return HitTables(tri_f.contiguous(), tri_i.contiguous(), sph_f.contiguous(),
-                     S.mat.to(torch.int32).contiguous(), scene.n_tris, scene.n_spheres)
+                     S.mat.to(torch.int32).contiguous(), scene.n_tris, scene.n_spheres,
+                     anim_ids(T).to(torch.int32).contiguous(),
+                     anim_ids(S).to(torch.int32).contiguous(), scene.n_anims)
 
 
 def _two_prod(a, b):
@@ -137,10 +149,20 @@ def watertight_tri(o, d, v0, v1, v2, t_min, t_max):
     return torch.where(valid, tn * inv_det, BIG), v_e * inv_det, w_e * inv_det, valid
 
 
-def scene_raw_hit(accel, o, d, t_min, t_max):
+def _static_only(accel, frames):
+    if frames is not None:
+        raise ValueError(f"animation frames need the sweeps, not {type(accel).__name__}")
+
+
+def scene_raw_hit(accel, o, d, t_min, t_max, frames=None):
     """Closest hit over all primitives: (t, prim, u, v); prim = -1 on a miss.
 
-    `accel` is the scene's BVHArrays (K5) or its BruteScene (K1)."""
+    `accel` is the scene's BVHArrays (K5), its BruteScene (K1) or its
+    SweepScene (KS1); `frames` the animations' rows of an animated scene
+    (sweeps only)."""
+    if isinstance(accel, SweepScene):
+        return closest_sweep(accel, o, d, t_min, t_max, frames)
+    _static_only(accel, frames)
     if isinstance(accel, BVHArrays):
         from ..accel.traverse import bvh_closest_hit  # imports this module: bind late
 
@@ -148,9 +170,12 @@ def scene_raw_hit(accel, o, d, t_min, t_max):
     return closest_hit(accel, o, d, t_min, t_max)
 
 
-def scene_any_hit(accel, o, d, t_min, t_max):
+def scene_any_hit(accel, o, d, t_min, t_max, frames=None):
     """Occlusion test (shadow rays): True where any primitive is hit in
-    (t_min, t_max); K6 on a BVH, K2 on a BruteScene."""
+    (t_min, t_max); K6 on a BVH, K2 on a BruteScene, KS2 on a SweepScene."""
+    if isinstance(accel, SweepScene):
+        return any_sweep(accel, o, d, t_min, t_max, frames)
+    _static_only(accel, frames)
     if isinstance(accel, BVHArrays):
         from ..accel.traverse import bvh_any_hit
 
@@ -170,17 +195,32 @@ def _sphere_uv_tangent(n):
     return torch.stack([u, v], -1), tangent
 
 
-def assemble_hit_plain(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
-    """Plain version of K3 (intersect.assemble_hit, static scenes).
+def assemble_hit_plain(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
+    """Plain version of K3 (intersect.assemble_hit) and, with the animations'
+    `frames`, of K3a.
 
     Interpolated normal / uv / Gram-Schmidt tangent, front-face flip and
-    backside flag as hitable_triangle.hpp:276-325."""
+    backside flag as hitable_triangle.hpp:276-325. With `frames` the
+    attributes are those of the winner's object space (a sphere's normal
+    from the hit point there), and the normals go back to world by the
+    normal matrix R diag(1/s), the tangent by the forward map R diag(s), each
+    normalized (intersect.py:510-530, :605-620). A miss lane's object-space
+    point uses t = 1, as its position does (the JAX package's uses BIG: a
+    placeholder either way)."""
     hit = prim >= 0
     prim_safe = torch.clamp_min(prim, 0).long()
     is_tri = hit & (prim_safe < ht.n_tris)
     t_pos = torch.where(hit, t, 1.0)
     position = o + t_pos[..., None] * d
     zeros3 = torch.zeros_like(position)
+    pos_local = position
+    if frames is not None:
+        zi = torch.zeros_like(prim)
+        aid_t = ht.tri_anim[torch.clamp(prim_safe, 0, ht.n_tris - 1)] if ht.n_tris else zi
+        aid_s = (ht.sph_anim[torch.clamp(prim_safe - ht.n_tris, 0, ht.n_spheres - 1)]
+                 if ht.n_spheres else zi)
+        o_obj, d_obj, rows = frames_ray_to_object(frames, torch.where(is_tri, aid_t, aid_s), o, d)
+        pos_local = o_obj + t_pos[..., None] * d_obj
 
     if ht.n_tris:
         row = ht.tri_f[torch.clamp(prim_safe, 0, ht.n_tris - 1)]
@@ -209,7 +249,7 @@ def assemble_hit_plain(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
     if ht.n_spheres:
         si = torch.clamp(prim_safe - ht.n_tris, 0, ht.n_spheres - 1)
         srow = ht.sph_f[si]
-        local = (position - srow[:, 0:3]) / torch.clamp_min(srow[:, 3], 1e-20)[:, None]
+        local = (pos_local - srow[:, 0:3]) / torch.clamp_min(srow[:, 3], 1e-20)[:, None]
         n_sph = normalize(local)
         uv_sph, tan_sph = _sphere_uv_tangent(n_sph)
         mat_sph = ht.sph_mat[si]
@@ -224,6 +264,12 @@ def assemble_hit_plain(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
     uv_out = torch.where(sel, uv_tri, uv_sph)
     tangent = torch.where(sel, tan_tri, tan_sph)
     mat = torch.where(is_tri, mat_tri, mat_sph)
+    if frames is not None:
+        m_fwd = rows[:, 12:21].reshape(-1, 3, 3)
+        m_nrm = rows[:, 21:30].reshape(-1, 3, 3)
+        normal = normalize(matvec(m_nrm, normal))
+        geom_normal = normalize(matvec(m_nrm, geom_normal))
+        tangent = normalize(matvec(m_fwd, tangent))
 
     backside = dot(d, geom_normal) > 0.0
     flip = torch.where(backside, -1.0, 1.0)[:, None]
@@ -233,8 +279,9 @@ def assemble_hit_plain(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
                      mat=torch.where(hit, mat, 0).to(torch.int32))
 
 
-def assemble_hit(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
-    """HitRecord of the winners of a closest-hit cast (K3)."""
+def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
+    """HitRecord of the winners of a closest-hit cast (K3; K3a with the
+    animations' `frames`, scene/animation.anim_frames)."""
     n = o.shape[0]
     for name, x, dtype, shape in (("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
                                   ("t", t, torch.float32, (n,)), ("prim", prim, torch.int32, (n,)),
@@ -244,8 +291,9 @@ def assemble_hit(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != o.device or ht.tri_f.device != o.device:
             raise ValueError("assemble_hit: tensors on different devices")
+    check_frames(frames, ht.n_anims, o.device)
     if o.device.type == "cpu":
-        return assemble_hit_plain(ht, o, d, t, prim, u, v)
+        return assemble_hit_plain(ht, o, d, t, prim, u, v, frames)
     if o.device.type != "cuda":
         raise ValueError(f"assemble_hit: no kernel for device {o.device}")
     lib = native.load_kernels()
@@ -254,14 +302,20 @@ def assemble_hit(ht: HitTables, o, d, t, prim, u, v) -> HitRecord:
     uv = torch.empty((n, 2), dtype=torch.float32, device=o.device)
     mat = torch.empty((n,), dtype=torch.int32, device=o.device)
     backside = torch.empty((n,), dtype=torch.bool, device=o.device)
-    code = lib.wpt_assemble_hit(
-        o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        n, ht.tri_f.data_ptr(), ht.tri_i.data_ptr(), ht.n_tris, ht.sph_f.data_ptr(),
-        ht.sph_mat.data_ptr(), ht.n_spheres, pos.data_ptr(), nrm.data_ptr(), gn.data_ptr(),
-        tan.data_ptr(), uv.data_ptr(), mat.data_ptr(), backside.data_ptr(),
-        native.stream_ptr(o))
-    native.check(code, "assemble_hit")
-    native.LAUNCHES["assemble_hit"] += 1
+    args = (o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+            v.data_ptr(), n, ht.tri_f.data_ptr(), ht.tri_i.data_ptr(), ht.n_tris,
+            ht.sph_f.data_ptr(), ht.sph_mat.data_ptr(), ht.n_spheres)
+    outs = (pos.data_ptr(), nrm.data_ptr(), gn.data_ptr(), tan.data_ptr(), uv.data_ptr(),
+            mat.data_ptr(), backside.data_ptr(), native.stream_ptr(o))
+    if frames is None:
+        code = lib.wpt_assemble_hit(*args, *outs)
+        name = "assemble_hit"
+    else:
+        code = lib.wpt_assemble_hit_anim(*args, ht.tri_anim.data_ptr(), ht.sph_anim.data_ptr(),
+                                         frames.data_ptr(), *outs)
+        name = "assemble_hit_anim"
+    native.check(code, name)
+    native.LAUNCHES[name] += 1
     hit = prim >= 0
     return HitRecord(t=t, hit=hit, prim=prim, position=pos, normal=nrm, geom_normal=gn,
                      tangent=tan, uv=uv, backside=backside, mat=mat)

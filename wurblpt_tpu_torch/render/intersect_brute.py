@@ -22,7 +22,11 @@ from .. import native
 from ..core.vecmath import cross, dot
 
 BIG = 3.0e37
-BRUTE_MAX_PRIMS = 2048   # beyond this the JAX package takes its BVH path
+# The JAX package's matrix form takes 4 columns per triangle and 2 per sphere,
+# each kind padded to a multiple of 128, up to 4 x MXU_MAX_PRIMS (2048)
+# (intersect.py:296-306). A scene without a BVH past it is swept
+# (intersect_sweep.py), as is every animated one.
+MAX_COLUMNS = 4 * 2048
 
 
 class BruteScene(NamedTuple):
@@ -35,9 +39,18 @@ class BruteScene(NamedTuple):
     n_spheres: int
 
 
+def feature_columns(n_tris: int, n_spheres: int) -> int:
+    """Columns of the JAX package's feature matrix: 4 per triangle, 2 per
+    sphere, each kind padded to a multiple of 128."""
+    return 4 * (-(-n_tris // 128) * 128) + 2 * (-(-n_spheres // 128) * 128)
+
+
 def brute_eligible(scene) -> bool:
-    """The brute-force path's condition (intersect.mxu_eligible for static scenes)."""
-    return not scene.has_bvh and 0 < scene.n_tris + scene.n_spheres <= BRUTE_MAX_PRIMS
+    """Whether K1/K2 cast the scene: the JAX package's `mxu_eligible` (a
+    static scene, no BVH, 0 < columns <= 8192). Other scenes without a BVH
+    take the sweeps (KS1/KS2)."""
+    return (not scene.has_bvh and scene.n_anims <= 1
+            and 0 < feature_columns(scene.n_tris, scene.n_spheres) <= MAX_COLUMNS)
 
 
 def _window_sums(x):

@@ -1,5 +1,5 @@
 """Next-event-estimation light sampling and pdfs (port of
-``wurblpt_tpu/render/lights.py`` for static triangle hot spots).
+``wurblpt_tpu/render/lights.py`` for triangle hot spots, static or animated).
 
 The pick is uniform, or power-proportional through the alias table when the
 flattener attached one (`light_weights`). The NEE density is the mixture
@@ -7,6 +7,12 @@ sum_i w_i pdf_i over all hot spots (wurblpt.hpp:181-195), or, in scenes with
 many lights (per-light MIS), the pick probability times the one relevant
 light's density: `lights_pdf_at_hit` takes it from the hit itself, with the
 per-prim (pick, 1 / area) row fetched by P0.
+
+Animated hot spots (the JAX package's `light_frames`): each light's forward
+map and translation at the ray's time, from the frame's AnimCtx, move its
+triangle to world space before the pdf, the sample and the emission.
+Per-light MIS needs static lights (its areas are the flattener's), so a
+scene with an animated light takes the mixture (`SceneStatic`).
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import torch
 
 from ..core import sampler
 from ..core.vecmath import cross, dot
-from ..scene.ir import SceneArrays
+from ..scene.animation import AnimCtx, matvec
+from ..scene.ir import SceneArrays, anim_ids
 from .gather import row_gather
 
 
@@ -34,20 +41,38 @@ def light_pick_prob_of(scene: SceneArrays, pick):
     return w[pick.long()]
 
 
-def _light_tris(scene: SceneArrays):
+def light_anim_ids(scene: SceneArrays):
+    """[L] int32 animation id of each hot spot (0: static)."""
+    return anim_ids(scene.tris)[scene.light_prims.long()]
+
+
+def light_frames(scene: SceneArrays, anim_ctx: AnimCtx):
+    """Forward frames of every hot spot's animation at the rays' time:
+    (m [B, L, 3, 3], t [B, L, 3]); the context is built with_forward."""
+    aid = light_anim_ids(scene).long()
+    return anim_ctx.m_fwd[:, aid], anim_ctx.t_inv[:, aid]
+
+
+def _light_tris(scene: SceneArrays, frames=None):
+    """[B, L, 3] p0, e1, e2 of every hot spot; B = 1 for static lights."""
     lp = scene.light_prims.long()
     T = scene.tris
-    return T.p0[lp], T.e1[lp], T.e2[lp]
+    p0, e1, e2 = T.p0[lp][None], T.e1[lp][None], T.e2[lp][None]
+    if frames is not None:
+        m, t = frames
+        p0, e1, e2 = matvec(m, p0) + t, matvec(m, e1), matvec(m, e2)
+    return p0, e1, e2
 
 
-def lights_pdf_multi(scene: SceneArrays, origin, dirs):
+def lights_pdf_multi(scene: SceneArrays, origin, dirs, frames=None):
     """Mixture pdf of each of K directions from `origin`: origin [N, 3], dirs
-    [N, K, 3] -> [N, K]. Direction-independent terms are computed once."""
+    [N, K, 3] -> [N, K]. Direction-independent terms are computed once.
+    `frames` (`light_frames`) places animated lights at the rays' time."""
     L = scene.n_lights
     N, K = dirs.shape[0], dirs.shape[1]
     if L == 0:
         return torch.zeros((N, K), device=dirs.device)
-    p0, e1, e2 = (x[None, None] for x in _light_tris(scene))   # [1, 1, L, 3]
+    p0, e1, e2 = (x[:, None] for x in _light_tris(scene, frames))   # [B, 1, L, 3]
     o = origin[:, None, None, :]                                # [N, 1, 1, 3]
     d = dirs[:, :, None, :]                                     # [N, K, 1, 3]
 
@@ -93,12 +118,13 @@ def lights_pdf_at_hit(pick_area, d, t, prim, geom_normal):
     return pp * (t * t * row[:, 1] / torch.clamp_min(cos, 1e-12))
 
 
-def lights_sample(scene: SceneArrays, origin, u3):
+def lights_sample(scene: SceneArrays, origin, u3, frames=None):
     """Pick a hot spot and sample a direction toward it (wurblpt.hpp:187-190).
 
     Returns (direction [N, 3], picked prim [N], t_expected [N], pick [N],
     pdf_sa [N]): `t_expected` is the distance to the sampled light point and
-    `pdf_sa` the solid-angle density under the picked light alone."""
+    `pdf_sa` the solid-angle density under the picked light alone. `frames`
+    (`light_frames`) places an animated light at the rays' time."""
     L = scene.n_lights
     cell = torch.clamp((u3[:, 0] * L).to(torch.int32), 0, L - 1)
     if scene.light_alias_prob is not None:
@@ -111,6 +137,9 @@ def lights_sample(scene: SceneArrays, origin, u3):
     lp = scene.light_prims[pick.long()]
     T = scene.tris
     p0, e1, e2 = (x[lp.long()] for x in (T.p0, T.e1, T.e2))
+    if frames is not None:
+        m, t = pick_frame(frames, pick)
+        p0, e1, e2 = matvec(m, p0) + t, matvec(m, e1), matvec(m, e2)
     bary = sampler.in_triangle(u3[:, 1:3])
     q = p0 + bary[:, 0:1] * e1 + bary[:, 1:2] * e2
     d_tri = q - origin
@@ -122,3 +151,13 @@ def lights_sample(scene: SceneArrays, origin, u3):
     cos_tri = torch.abs(dot(d_tri, fn)) / torch.clamp_min(fn_len, 1e-20)
     pdf = dist * dist / torch.clamp_min(cos_tri * area, 1e-12)
     return d_tri, lp, dist, pick, pdf
+
+
+def pick_frame(frames, pick):
+    """(m [N, 3, 3], t [N, 3]) of the picked light [N] from `light_frames`."""
+    m, t = frames
+    pick = pick.long()
+    if m.shape[0] == 1:
+        return m[0, pick], t[0, pick]
+    rows = torch.arange(pick.shape[0], device=pick.device)
+    return m[rows, pick], t[rows, pick]

@@ -82,6 +82,7 @@ from ..core.rng import Salt, uniform2, uniform4
 from ..core.sampler import power_heuristic
 from ..core.vecmath import cross, dot
 from ..materials.rgl import RGLTables, c_tables
+from ..scene.animation import matvec
 from ..scene.ir import EnvMapArrays, MaterialFlags, MaterialType, SceneArrays
 from .bsdf import (
     LIGHT_MATERIALS,
@@ -101,6 +102,7 @@ from .lights import (
     lights_pdf_at_hit,
     lights_pdf_multi,
     lights_sample,
+    pick_frame,
 )
 from .sensor import SensorEvent, SensorRGB, SensorTofAmcw
 
@@ -231,14 +233,18 @@ def lit_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) ->
 # Pieces of the torch-op bounce, shared by the generic bounce and the plain versions
 # ---------------------------------------------------------------------------
 
-def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed):
+def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None):
     """Emitted radiance of triangle light `prim` toward unit direction `toward`
     (from the light to the receiver); one-sided unless the material is
     two-sided, and a spot or ToF light only inside its cone, |cos| >= p0.x
-    (the JAX package's integrator.py:241-250)."""
+    (the JAX package's integrator.py:241-250). `frame` (m [N, 3, 3], t) is
+    the light's forward map at the ray's time, for an animated light."""
     T = scene.tris
     pl = prim.long()
-    fn = cross(T.e1[pl], T.e2[pl])
+    e1, e2 = T.e1[pl], T.e2[pl]
+    if frame is not None:
+        e1, e2 = matvec(frame[0], e1), matvec(frame[0], e2)
+    fn = cross(e1, e2)
     n = fn / torch.clamp_min(torch.sqrt(dot(fn, fn, keepdim=True)), 1e-20)
     lrow = gather_material_rows(mat_packed, T.mat[pl])
     cos_v = dot(n, toward)
@@ -279,15 +285,17 @@ def emit(sensor, acc, st: LoopState, hr: HitRecord, mrow, t, prim, hit, geom_len
 
 
 def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, mrow, mat_types,
-              rgl, sr_direction, is_random, geom_len, opt_len, u3, mat_packed, per_light: bool):
-    """NEE toward a picked hot spot (wurblpt.hpp:179-220), up to its shadow ray.
+              rgl, sr_direction, is_random, geom_len, opt_len, u3, mat_packed, per_light: bool,
+              frames=None):
+    """NEE toward a picked hot spot (wurblpt.hpp:179-220), up to its shadow ray;
+    `frames` (lights.light_frames) places animated lights at the ray's time.
 
     Returns (shadow direction [N, 3], shadow t_max [N]: the light's distance
     shortened by `shadow_identity_eps` on RANDOM lanes, 0 elsewhere, the
     pending deposit [N, n_acc]: what the sensor takes if the shadow ray is
     not occluded, 0 on lanes that deposit nothing, and the light-mixture pdf
     of the bsdf sample for the next bounce's emission weight)."""
-    ldir, lprim, ldist, lpick, pdf_sa = lights_sample(scene, hr.position, u3)
+    ldir, lprim, ldist, lpick, pdf_sa = lights_sample(scene, hr.position, u3, frames)
     if per_light:
         # The NEE strategy "pick light i, sample its solid angle" has density
         # pick(i) x pdf_i; the emitted side is weighted at the next hit.
@@ -296,11 +304,13 @@ def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, 
     else:
         # One mixture evaluation for both directions that need it: the NEE
         # direction now, the bsdf sample at the next bounce.
-        pdf_pair = lights_pdf_multi(scene, hr.position, torch.stack([ldir, sr_direction], 1))
+        pdf_pair = lights_pdf_multi(scene, hr.position, torch.stack([ldir, sr_direction], 1),
+                                    frames)
         pdf_light, light_pdf_next = pdf_pair[:, 0], pdf_pair[:, 1]
     f_l, pdf_b = bsdf_eval(hr, st.d, ldir, mrow, mat_types, rgl=rgl)
     t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps), params.min_hit_distance)
-    Le = light_emitted_at(scene, torch.clamp_min(lprim, 0), -ldir, mat_packed)
+    Le = light_emitted_at(scene, torch.clamp_min(lprim, 0), -ldir, mat_packed,
+                          None if frames is None else pick_frame(frames, lpick))
     w_nee = power_heuristic(pdf_light, pdf_b)
     contrib = st.throughput * f_l * Le * (w_nee / torch.clamp_min(pdf_light, 1e-12))[:, None]
     dep, ok = sensor.deposit(SensorEvent(

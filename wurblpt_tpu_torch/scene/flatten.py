@@ -10,7 +10,10 @@ spots); scenes of spheres alone; constant Lambertian, GGX, mirror, glass,
 ModPhong, RGL, diffuse-, spot- and ToF-light materials; hot-spot triangles, the
 power-proportional light pick with its alias table and the per-prim pick and
 1 / area rows of per-light MIS; the port's BVH, an equirect, cube or
-constant environment map and the RGL tables.
+constant environment map and the RGL tables; keyframe animations (the
+tables of flatten.py `_flatten_animations` and each primitive's animation id:
+the instance pose stays baked into the vertices and the keyframes apply on
+top at ray time).
 """
 
 from __future__ import annotations
@@ -21,7 +24,15 @@ import numpy as np
 import torch
 
 from ..core.transform import Transformation
-from .ir import MaterialFlags, MaterialTable, MaterialType, SceneArrays, Spheres, Triangles
+from .ir import (
+    AnimTable,
+    MaterialFlags,
+    MaterialTable,
+    MaterialType,
+    SceneArrays,
+    Spheres,
+    Triangles,
+)
 
 _f32 = np.float32
 _i32 = np.int32
@@ -35,6 +46,7 @@ class MeshSpec(NamedTuple):
     material: int
     hot_spot: bool = False
     transformation: Optional[Transformation] = None   # static pose, baked at flatten
+    anim: int = 0                    # animation id: 0 static, k the (k-1)-th of `animations`
 
 
 class SphereSpec(NamedTuple):
@@ -42,6 +54,44 @@ class SphereSpec(NamedTuple):
     radius: float
     material: int
     transformation: Optional[Transformation] = None   # static pose, baked at flatten
+    anim: int = 0                    # animation id, as MeshSpec.anim
+
+
+class AnimationKeyframes(NamedTuple):
+    """Sorted (time, Transformation) keyframes (builder.AnimationKeyframes,
+    animation_keyframes.hpp:51-216)."""
+
+    times: tuple
+    transformations: tuple
+
+
+def flatten_animations(animations, device) -> Optional[AnimTable]:
+    """The AnimTable of row 0 (the static identity) and `animations` (rows
+    1..), padded to the largest key count (flatten.py `_flatten_animations`);
+    None for a scene without animation."""
+    if not animations:
+        return None
+    anims = [None] + list(animations)
+    n, kmax = len(anims), max(len(a.times) for a in animations)
+    times = np.full((n, kmax), np.inf, _f32)
+    trans = np.zeros((n, kmax, 3), _f32)
+    rot = np.zeros((n, kmax, 4), _f32)
+    rot[..., 3] = 1.0
+    scale = np.ones((n, kmax, 3), _f32)
+    nkeys = np.ones((n,), _i32)
+    times[:, 0] = 0.0
+    for i, a in enumerate(anims[1:], 1):
+        k = len(a.times)
+        nkeys[i] = k
+        times[i, :k] = np.asarray(a.times, _f32)
+        for j, tf in enumerate(a.transformations):
+            trans[i, j], rot[i, j], scale[i, j] = (np.asarray(x.detach().cpu().numpy(), _f32)
+                                                   for x in tf)
+        trans[i, k:] = trans[i, k - 1]     # the last key held, so clamping works
+        rot[i, k:] = rot[i, k - 1]
+        scale[i, k:] = scale[i, k - 1]
+    return AnimTable(*(torch.as_tensor(x, device=device) for x in (times, trans, rot, scale,
+                                                                   nkeys)))
 
 
 def vec4(c) -> np.ndarray:
@@ -158,7 +208,7 @@ def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_typ, mat_emissiv
 
 
 def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=False,
-                   envmap=None, rgl_tables=None, spheres=()) -> SceneArrays:
+                   envmap=None, rgl_tables=None, spheres=(), animations=()) -> SceneArrays:
     """Static triangle meshes and spheres + a material table -> SceneArrays on `device`.
 
     `materials` holds numpy arrays; the light pick is power-proportional, as
@@ -168,9 +218,10 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
     `rgl_tables` the table dicts of the RGL materials, in `rgl_id` order.
     `spheres` are :class:`SphereSpec`, flattened as flatten.py:550-576 does
     (centre by scale, rotation, translation; radius by the mean scale);
-    sphere j has prim id T + j."""
+    sphere j has prim id T + j. `animations` are :class:`AnimationKeyframes`,
+    animation ids 1, 2, ... in order; a mesh or sphere names its own by `anim`."""
     cols = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
-                            "tan0", "tan1", "tan2", "mat", "flags", "v1", "v2")}
+                            "tan0", "tan1", "tan2", "mat", "flags", "v1", "v2", "anim")}
     light_prims = []
     n = 0
     for mesh in meshes:
@@ -195,14 +246,17 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
             cols[f"tan{k}"].append(tan[f[:, k]])
         cols["mat"].append(np.full((len(f),), mesh.material, _i32))
         cols["flags"].append(np.full((len(f),), 3 if has_uv else 0, _i32))  # texcoords, tangents
+        cols["anim"].append(np.full((len(f),), mesh.anim, _i32))
         if mesh.hot_spot:
             light_prims.extend(range(n, n + len(f)))
         n += len(f)
-    empty = {"mat": (0,), "flags": (0,), "uv0": (0, 2), "uv1": (0, 2), "uv2": (0, 2)}
+    ints = ("mat", "flags", "anim")
+    empty = {"mat": (0,), "flags": (0,), "anim": (0,), "uv0": (0, 2), "uv1": (0, 2),
+             "uv2": (0, 2)}
     arr = {k: (np.concatenate(v) if v else np.zeros(empty.get(k, (0, 3)),
-                                                     _i32 if k in ("mat", "flags") else _f32))
+                                                     _i32 if k in ints else _f32))
            for k, v in cols.items()}
-    arr = {k: (v if k in ("mat", "flags") else v.astype(_f32)) for k, v in arr.items()}
+    arr = {k: (v if k in ints else v.astype(_f32)) for k, v in arr.items()}
 
     def dev(x):
         return torch.as_tensor(x, device=device)
@@ -225,14 +279,18 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
                                      np.asarray(materials.typ), np.asarray(materials.emissive),
                                      np.asarray(materials.p0))
         prob, alias, w = build_alias_table(powers)
-        # Per prim, spheres included: pick probability and 1 / area (zero for non-lights).
-        pick = np.zeros((n + len(radii),), _f32)
-        inv_area = np.zeros((n + len(radii),), _f32)
-        pick[light_ids] = w
-        area = 0.5 * np.linalg.norm(np.cross(arr["e1"][light_ids], arr["e2"][light_ids]), axis=-1)
-        inv_area[light_ids] = 1.0 / np.maximum(area, 1e-20)
-        picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias),
-                     prim_light_pick=dev(pick), prim_inv_area=dev(inv_area))
+        picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias))
+        # Per prim, spheres included: pick probability and 1 / area (zero for
+        # non-lights), for per-light MIS; only for static lights, whose areas
+        # are the flattener's.
+        if not np.any(arr["anim"][light_ids] != 0):
+            pick = np.zeros((n + len(radii),), _f32)
+            inv_area = np.zeros((n + len(radii),), _f32)
+            pick[light_ids] = w
+            area = 0.5 * np.linalg.norm(np.cross(arr["e1"][light_ids], arr["e2"][light_ids]),
+                                        axis=-1)
+            inv_area[light_ids] = 1.0 / np.maximum(area, 1e-20)
+            picks.update(prim_light_pick=dev(pick), prim_inv_area=dev(inv_area))
 
     tris = Triangles(**{k: dev(v) for k, v in arr.items()})
     bvh = None
@@ -253,9 +311,11 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
     return SceneArrays(
         tris=tris,
         spheres=Spheres(dev(np.asarray(centers, _f32).reshape(-1, 3)), dev(np.asarray(radii, _f32)),
-                        dev(np.asarray([s.material for s in spheres], _i32))),
+                        dev(np.asarray([s.material for s in spheres], _i32)),
+                        dev(np.asarray([s.anim for s in spheres], _i32))),
         materials=MaterialTable(*(dev(np.asarray(x)) for x in materials)),
         light_prims=dev(light_ids),
+        anims=flatten_animations(animations, device),
         bvh=bvh,
         envmap=env,
         rgl=rgl,

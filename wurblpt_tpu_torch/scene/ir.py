@@ -2,8 +2,9 @@
 
 Port of ``wurblpt_tpu/scene/ir.py``, holding the fields the ported slice
 reads. Integer columns stay int32 tensors (the JAX package float-encodes some
-of them to dodge TPU gather costs; nothing here needs that). Features outside
-the slice are recorded only by their size (`n_textures`, `n_anims`,
+of them to dodge TPU gather costs; nothing here needs that). The keyframe
+tables (`AnimTable`) and each primitive's animation id come across whole.
+Features outside the slice are recorded only by their size (`n_textures`,
 `n_media`), so that :class:`wurblpt_tpu_torch.render.bsdf.SceneStatic` can
 refuse such a scene. The BVH is the port's own layout
 (:mod:`wurblpt_tpu_torch.accel.build`), not the JAX package's W-wide rows.
@@ -40,7 +41,8 @@ class MaterialFlags:
 
 
 class Triangles(NamedTuple):
-    """One record per triangle, world space (static scenes only)."""
+    """One record per triangle: world space, with any static instance pose
+    baked in; an animated triangle's keyframes apply on top at ray time."""
 
     p0: torch.Tensor        # [T, 3] vertex 0
     e1: torch.Tensor        # [T, 3] v1 - v0
@@ -60,6 +62,7 @@ class Triangles(NamedTuple):
     # bit-identical across neighbours, which p0 + e1 (rounded) is not.
     v1: torch.Tensor        # [T, 3]
     v2: torch.Tensor        # [T, 3]
+    anim: Optional[torch.Tensor] = None   # [T] int32 animation id (0: static; None: all 0)
 
     @property
     def count(self):
@@ -70,6 +73,7 @@ class Spheres(NamedTuple):
     center: torch.Tensor    # [S, 3]
     radius: torch.Tensor    # [S]
     mat: torch.Tensor       # [S] int32
+    anim: Optional[torch.Tensor] = None   # [S] int32 animation id (0: static; None: all 0)
 
     @property
     def count(self):
@@ -92,6 +96,31 @@ class MaterialTable(NamedTuple):
     @property
     def count(self):
         return self.typ.shape[0]
+
+
+def anim_ids(prims) -> torch.Tensor:
+    """[count] int32 animation ids of a Triangles or Spheres table (zeros
+    where it carries none)."""
+    if prims.anim is not None:
+        return prims.anim
+    return torch.zeros((prims.count,), dtype=torch.int32, device=prims[0].device)
+
+
+class AnimTable(NamedTuple):
+    """Keyframed TRS animation tables (ir.AnimTable, animation_keyframes.hpp:51-216).
+
+    Row 0 is the static identity. Keyframe arrays are padded to the largest
+    key count: `times` with +inf, the poses with the last key."""
+
+    times: torch.Tensor   # [A, K] f32, sorted, padded +inf
+    trans: torch.Tensor   # [A, K, 3]
+    rot: torch.Tensor     # [A, K, 4] quaternions
+    scale: torch.Tensor   # [A, K, 3]
+    nkeys: torch.Tensor   # [A] int32
+
+    @property
+    def count(self):
+        return self.times.shape[0]
 
 
 class BVHArrays(NamedTuple):
@@ -154,7 +183,7 @@ class SceneArrays(NamedTuple):
     light_alias_prob: Optional[torch.Tensor] = None  # [L] f32
     light_alias_idx: Optional[torch.Tensor] = None   # [L] int32
     n_textures: int = 0
-    n_anims: int = 1        # animation table rows; row 0 is the static identity
+    anims: Optional[AnimTable] = None          # keyframe tables (None: static scene)
     n_media: int = 0
     bvh: Optional[BVHArrays] = None
     envmap: Optional[EnvMapArrays] = None
@@ -171,6 +200,11 @@ class SceneArrays(NamedTuple):
     @property
     def env_kind(self) -> int:
         return 0 if self.envmap is None else self.envmap.kind
+
+    @property
+    def n_anims(self) -> int:
+        """Animation table rows; row 0 is the static identity."""
+        return 1 if self.anims is None else self.anims.count
 
     @property
     def n_tris(self):
@@ -202,16 +236,24 @@ def scene_from_numpy(a, device) -> SceneArrays:
 
     `a` is ``wurblpt_tpu.scene.ir.SceneArrays`` after
     ``jax.tree_util.tree_map(np.asarray, ...)``; it is read by attribute only.
-    Where the JAX scene has a BVH, the port builds its own from the triangles.
+    Where the JAX scene has a BVH, the port builds its own from the triangles
+    (a static tree: the port refuses animation in a BVH scene). The keyframe
+    tables come across where the scene has an animation beyond row 0.
     The RGL tables come across where a material is RGL (the JAX scene always
     carries a placeholder table).
     """
     t, s, m = a.tris, a.spheres, a.materials
     tris = Triangles(*(_f32(getattr(t, f), device) for f in Triangles._fields[:12]),
                      mat=_i32(t.mat, device), flags=_i32(t.flags, device),
-                     v1=_f32(t.v1, device), v2=_f32(t.v2, device))
+                     v1=_f32(t.v1, device), v2=_f32(t.v2, device), anim=_i32(t.anim, device))
     spheres = Spheres(_f32(np.reshape(s.center, (-1, 3)), device),
-                      _f32(np.reshape(s.radius, (-1,)), device), _i32(s.mat, device))
+                      _f32(np.reshape(s.radius, (-1,)), device), _i32(s.mat, device),
+                      _i32(np.reshape(s.anim, (-1,)), device))
+    an = a.anims
+    anims = None
+    if int(np.shape(an.times)[0]) > 1:
+        anims = AnimTable(_f32(an.times, device), _f32(an.trans, device), _f32(an.rot, device),
+                          _f32(an.scale, device), _i32(an.nkeys, device))
     materials = MaterialTable(_i32(m.typ, device), _i32(m.flags, device),
                               _f32(m.albedo, device), _f32(m.emissive, device),
                               _f32(m.p0, device), _f32(m.p1, device), _f32(m.p2, device),
@@ -237,7 +279,7 @@ def scene_from_numpy(a, device) -> SceneArrays:
         light_alias_prob=opt(a.light_alias_prob, _f32),
         light_alias_idx=opt(a.light_alias_idx, _i32),
         n_textures=n_textures,
-        n_anims=int(np.shape(a.anims.times)[0]),
+        anims=anims,
         n_media=int(np.shape(a.media.density)[0]),
         bvh=bvh,
         envmap=envmap,

@@ -26,6 +26,11 @@ still differ, such as atan2f/asinf against PyTorch's):
   version take the same row searches in the same order; a margin, not an
   expected difference).
 * P0 row gather: equal word for word (a copy).
+* KS1/KS2 sweeps (closest and any hit, static or animated): prim ids, t, u,
+  v and the occlusion bit equal bit for bit on every lane (the same walk in
+  the same order with the same roundings).
+* K3a animated hit assembly: as K3 (integer fields equal, float fields
+  atol 1e-5 on hit lanes).
 * K4 (regeneration, shade, NEE resolve): on a frame's first block after 2
   steps, every output field compared lane by lane (`check_k4`; a lane owns
   rows i and N + i of the lit shade's shadow rays and pending deposits):
@@ -46,10 +51,11 @@ still differ, such as atan2f/asinf against PyTorch's):
   and directions are compared on the rows that cast (t_max > 0), which are
   the only rows K2/K6 read.
 
-Also the six frames the port renders and their yardsticks: the Cornell
+Also the seven frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
 config city_many_lights), the envmap frame (envmap_cube_is), the rtiow
-frame (rtiow_distortion) and the ToF frame (tof_amcw), each with the JAX
+frame (rtiow_distortion), the ToF frame (tof_amcw) and the animated Cornell
+frame (cornell_animated, the bench's Cornell settings at t = 0.5), each with the JAX
 package's deterministic CPU output at the bench settings, which the port's
 render must meet (mean radiance, or mean energy, within 1e-3 relative, cast
 counters within 0.5 %); and the ToF distance check at depth 1.
@@ -110,8 +116,17 @@ from ..render.intersect_brute import (
     closest_hit,
     closest_hit_plain,
 )
-from ..render.lights import lights_sample
+from ..render.intersect_sweep import (
+    any_sweep,
+    any_sweep_plain,
+    closest_sweep,
+    closest_sweep_plain,
+    ray_sphere_tile,
+    ray_tri_tile,
+)
+from ..render.lights import light_frames, lights_sample
 from ..render.sensor import SensorRGB, SensorTofAmcw
+from ..scene.animation import anim_frames, frames_ray_to_object, make_anim_ctx
 from ..scene.ir import MaterialType
 from . import scenes
 
@@ -216,13 +231,35 @@ TOF_REF_STATS = (683102, 1279784)
 # is 0.38 mm (p90 1.30 mm); the port must stay under 2 mm.
 TOF_DISTANCE_MEDIAN_MAX = 2e-3
 
+# The animated Cornell frame (cornell_animated): the reference box with three
+# keyframe animations, keys at t = 0 and t = 1 (scenes.cornell_animations):
+# the short box turns about the world's vertical axis (through the origin:
+# its corners stay within 0.92 of the axis, inside the walls at 0.99), the
+# tall box slides along +x, the ceiling light along +z. Rendered at one
+# instant, t0 = t1 = ANIM_TIME, with the Cornell bench settings: 128 x 128,
+# 16 spp, 8 path components, one block of 131072 lanes, SensorRGB.
+ANIM_SHORT_TURN_DEG = 30.0
+ANIM_TALL_SLIDE_X = 0.2
+ANIM_LIGHT_SLIDE_Z = 0.2
+ANIM_TIME = 0.5
+# The JAX package's CPU output for it: `JAX_PLATFORMS=cpu python
+# jax_frame_reference.py cornell_animated`.
+ANIM_REF_MEAN = 0.043838444905687245
+ANIM_REF_STATS = (1130662, 2073670)
+
+# Camera rays over ROADMAP C.1's scenes (scenes.sphere_field,
+# scenes.tri_sphere_field): 128 x 96 pixels x 8 sample lanes.
+FIELD_WIDTH = 128
+FIELD_HEIGHT = 96
+FIELD_LANES_M = 8
+
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM
 H100_FP32_PER_S = 67e12      # float32 outside the tensor cores, 700 W
 
 
 def _frame(scene, camera, width, height, ssqrt, depth, device, cfg=CameraConfig(),
            eye_distance=0.0635, max_lanes=131072, lens=None, sensor=SensorRGB(),
-           params=None) -> Callable[[], tuple]:
+           params=None, t: float = 0.0) -> Callable[[], tuple]:
     static = SceneStatic.from_scene(scene)
     pose, vfov = camera
     cam = make_camera(pose, vfov, width, height, eye_distance=eye_distance, device=device,
@@ -234,7 +271,7 @@ def _frame(scene, camera, width, height, ssqrt, depth, device, cfg=CameraConfig(
         img, stats = render_frame_wavefront(scene, static, cam, cfg, sensor,
                                             width, height, ssqrt, params=params,
                                             max_lanes=max_lanes, return_stats=True,
-                                            device=device, tables=tables)
+                                            device=device, tables=tables, t0=t, t1=t)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         return img, stats
@@ -297,6 +334,18 @@ def tof_frame(device, scene=None, phase_index: int = 0, depth: int = TOF_DEPTH,
                   sensor=SensorTofAmcw(phase_index=phase_index),
                   params=RenderParams(max_path_components=depth,
                                       randomize_ray_over_pixel=randomize))
+
+
+def cornell_animated_frame(device, scene=None, depth: int = BENCH_DEPTH,
+                           width: int = BENCH_WIDTH, ssqrt: int = BENCH_SSQRT,
+                           ) -> Callable[[], tuple]:
+    """The same for the animated Cornell frame at t0 = t1 = ANIM_TIME;
+    `scene` is cornell_box_animated() on `device`, built here when not
+    given; `depth`, `width` (= height) and `ssqrt` change the bench settings
+    for the tests."""
+    scene = scenes.cornell_box_animated(device) if scene is None else scene
+    return _frame(scene, scenes.cornell_ref_camera(device), width, width, ssqrt, depth, device,
+                  t=ANIM_TIME)
 
 
 def pixel_centre_distance(scene, camera, width: int, height: int, device):
@@ -377,6 +426,11 @@ def check_rtiow_frame(img, stats) -> float:
     """Hold an rtiow frame to the JAX reference; returns its mean radiance."""
     return _check_frame(img, stats, (RTIOW_HEIGHT, RTIOW_WIDTH, 3), RTIOW_REF_MEAN,
                         RTIOW_REF_STATS)
+
+
+def check_cornell_animated_frame(img, stats) -> float:
+    """Hold an animated Cornell frame to the JAX reference; returns its mean radiance."""
+    return _check_frame(img, stats, (BENCH_WIDTH, BENCH_WIDTH, 3), ANIM_REF_MEAN, ANIM_REF_STATS)
 
 
 def check_tof_frame(img, stats) -> float:
@@ -486,6 +540,90 @@ def check_assemble_hit(bs, ht, rays) -> Dict[str, float]:
         assert e <= 1e-5, f"assemble_hit: {f} differs by {e}"
         err = max(err, e)
     return {"max_abs_err": err, "lanes": int(o.shape[0]), "hits": int(h.sum())}
+
+
+def frames_at(scene, time: float = ANIM_TIME):
+    """The rows of every animation of `scene` at one instant (anim_frames, B = 1)."""
+    return anim_frames(scene.anims, torch.full((1,), time, dtype=torch.float32,
+                                                device=scene.device))
+
+
+def anim_shadow_lanes(scene, ss, frames, rays, seed: int = 2, time: float = ANIM_TIME):
+    """NEE shadow rays of an animated scene: from the first hits of `rays`
+    (the plain sweep) toward a point sampled on the light where it is at
+    `time`, shortened as the integrator does; lanes without a hit get t_max = 0."""
+    o, d, t_min, t_max = rays
+    t, prim, _, _ = closest_sweep_plain(ss, o, d, t_min, t_max, frames)
+    pos = o + torch.where(prim >= 0, t, 1.0)[:, None] * d
+    u3 = _f32(np.random.default_rng(seed).uniform(size=(o.shape[0], 3)), o.device)
+    ctx = make_anim_ctx(scene.anims, torch.full((1,), time, device=o.device), with_forward=True)
+    ldir, _, ldist, _, _ = lights_sample(scene, pos, u3, light_frames(scene, ctx))
+    t_vis = torch.clamp_min(ldist * (1.0 - SHADOW_EPS), MIN_HIT)
+    return (pos.contiguous(), ldir.contiguous(), t_min, torch.where(prim >= 0, t_vis, 0.0))
+
+
+def field_camera_lanes(device, seed: int = 0):
+    """Bounce-0 rays over a C.1 field (98304 lanes)."""
+    return camera_lanes(FIELD_WIDTH, FIELD_HEIGHT, FIELD_LANES_M, device, seed,
+                        camera=scenes.field_camera(device))
+
+
+def sky_shadow_lanes(cast, rays, seed: int = 3):
+    """Shadow rays from the first hits of `rays` (`cast` gives them: a plain
+    closest hit of the scene) toward random upper-hemisphere directions, to
+    BIG; lanes without a hit get t_max = 0."""
+    o, d, t_min, _ = rays
+    t, prim, _, _ = cast(*rays)
+    pos = o + torch.where(prim >= 0, t, 1.0)[:, None] * d
+    rs = np.random.default_rng(seed)
+    w = rs.normal(size=(o.shape[0], 3))
+    w[:, 1] = np.abs(w[:, 1])
+    w /= np.linalg.norm(w, axis=-1, keepdims=True)
+    return (pos.contiguous(), _f32(w, o.device), t_min,
+            torch.where(prim >= 0, BIG, 0.0).to(torch.float32))
+
+
+def check_sweep_closest(ss, rays, frames=None) -> Dict[str, float]:
+    """KS1 against its plain version, bit for bit on every lane; raises
+    AssertionError on disagreement."""
+    t, prim, u, v = closest_sweep(ss, *rays, frames)
+    pt, pprim, pu, pv = closest_sweep_plain(ss, *rays, frames)
+    bad = int((prim != pprim).sum())
+    assert bad == 0, f"sweep_closest: {bad} prim ids differ"
+    for name, a, b in (("t", t, pt), ("u", u, pu), ("v", v, pv)):
+        diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        assert diff == 0, f"sweep_closest: {name} differs on {diff} lanes"
+    return {"max_abs_err": 0.0, "lanes": int(prim.shape[0]), "hits": int((prim >= 0).sum()),
+            "sphere hits": int((prim >= ss.n_tris).sum())}
+
+
+def check_sweep_any(ss, rays, frames=None) -> Dict[str, float]:
+    """KS2 against its plain version on every lane."""
+    occ = any_sweep(ss, *rays, frames)
+    pocc = any_sweep_plain(ss, *rays, frames)
+    diff = int((occ != pocc).sum())
+    assert diff == 0, f"sweep_any: {diff} lanes differ"
+    return {"max_abs_err": 0.0, "lanes": int(occ.shape[0]), "occluded": int(occ.sum())}
+
+
+def check_assemble_hit_sweep(ss, ht, rays, frames=None) -> Dict[str, float]:
+    """K3 (K3a with `frames`) against its plain version on the winners of a
+    plain sweep; the tolerances of K3."""
+    o, d = rays[0], rays[1]
+    t, prim, u, v = closest_sweep_plain(ss, *rays, frames)
+    hr = assemble_hit(ht, o, d, t, prim, u, v, frames)
+    ph = assemble_hit_plain(ht, o, d, t, prim, u, v, frames)
+    for f in ("hit", "prim", "mat", "backside"):
+        assert torch.equal(getattr(hr, f), getattr(ph, f)), f"assemble_hit: {f} differs"
+    h = ph.hit
+    err = 0.0
+    for f in ("position", "normal", "geom_normal", "tangent", "uv"):
+        a, b = getattr(hr, f)[h], getattr(ph, f)[h]
+        e = float((a - b).abs().max()) if a.numel() else 0.0
+        assert e <= 1e-5, f"assemble_hit: {f} differs by {e}"
+        err = max(err, e)
+    return {"max_abs_err": err, "lanes": int(o.shape[0]), "hits": int(h.sum()),
+            "sphere hits": int((prim >= ss.n_tris).sum())}
 
 
 def mesh_camera_lanes(device, seed: int = 0):
@@ -1281,11 +1419,69 @@ def any_hit_work(bs, rays):
     return n * 33 + _table_bytes(bs), 40 * float(first.sum())
 
 
-def assemble_hit_work(ht, n: int):
+def assemble_hit_work(ht, n: int, frames=None):
     """K3: o, d, t, prim, u, v in; position, normal, geometric normal,
     tangent, uv, material, backside out; the hit tables read once (rows
-    shared by many lanes stay in cache); about 120 flops per lane."""
-    return n * 40 + n * (4 * 14 + 4 + 1) + _table_bytes(ht), n * 120.0
+    shared by many lanes stay in cache); about 120 flops per lane. K3a
+    (`frames`): also the animation ids and the frame rows once, and per lane
+    the object-space ray (30 flops) and the three vectors back to world with
+    their normalizations (3 x 22 flops)."""
+    tables = _table_bytes(ht[:4])
+    if frames is None:
+        return n * 40 + n * (4 * 14 + 4 + 1) + tables, n * 120.0
+    tables += _table_bytes((ht.tri_anim, ht.sph_anim, frames))
+    return n * 40 + n * (4 * 14 + 4 + 1) + tables, n * (120.0 + 30.0 + 66.0)
+
+
+SWEEP_TRI_FLOPS = 46.0     # two crosses, four dots, a division, the predicates
+SWEEP_SPHERE_FLOPS = 31.0  # three dots, the discriminant, a root, two divisions
+OBJECT_RAY_FLOPS = 30.0    # r_inv (o - t_inv) and r_inv d
+
+
+def _anim_runs(ss) -> int:
+    """Runs of one animation id along a lane's walk (triangles, then
+    spheres): the object rays it computes."""
+    ids = torch.cat([ss.tri_anim, ss.sph_anim])
+    return int((ids[1:] != ids[:-1]).sum()) + 1 if ids.numel() else 0
+
+
+def sweep_work(ss, rays, frames=None, any_hit: bool = False):
+    """KS1/KS2: per lane t_min and t_max in (8 B), o and d (24 B) on live
+    lanes (t_max > t_min; a dead lane reads no more), the result out (16 B;
+    1 B of occlusion); the primitive rows (36 B of floats and a 4-B
+    animation id per triangle, 20 B per sphere) and the frame rows read
+    once. Per live lane SWEEP_TRI_FLOPS per triangle and SWEEP_SPHERE_FLOPS
+    per sphere tested, and OBJECT_RAY_FLOPS per run of one animation along
+    the walk (animated). KS2's lanes stop at their first blocker, counted on
+    these rays with the plain tests."""
+    o, d, t_min, t_max = rays
+    n = o.shape[0]
+    live = t_max > t_min
+    n_live = int(live.sum())
+    tables = 40 * ss.n_tris + 20 * ss.n_spheres + (0 if frames is None else _table_bytes([frames]))
+    n_bytes = n * 8 + n_live * 24 + (n if any_hit else n * 16) + tables
+    obj = 0.0 if frames is None else OBJECT_RAY_FLOPS * _anim_runs(ss) * n_live
+    if not any_hit:
+        return n_bytes, n_live * (SWEEP_TRI_FLOPS * ss.n_tris
+                                  + SWEEP_SPHERE_FLOPS * ss.n_spheres) + obj
+    # prims tested per lane: up to and including its first blocker
+    tested = torch.zeros((n,), dtype=torch.float64, device=o.device)
+    done = ~live
+    for kind, rows, aid, flops in (("tri", ss.tri, ss.tri_anim, SWEEP_TRI_FLOPS),
+                                   ("sph", ss.sph, ss.sph_anim, SWEEP_SPHERE_FLOPS)):
+        for s in range(0, rows.shape[0], 64):
+            r, a = rows[s:s + 64], aid[s:s + 64]
+            if frames is None:
+                oi, di = o, d
+            else:
+                oi, di, _ = frames_ray_to_object(frames, a[None, :].expand(n, -1), o, d)
+            valid = (ray_tri_tile(oi, di, r[:, 0:3], r[:, 4:7], r[:, 8:11], t_min, t_max)[3]
+                     if kind == "tri" else ray_sphere_tile(oi, di, r[:, 0:3], r[:, 3], t_min,
+                                                           t_max)[1])
+            first = torch.where(valid.any(1), valid.to(torch.int8).argmax(1) + 1, valid.shape[1])
+            tested += torch.where(done, 0, first).double() * flops
+            done = done | valid.any(1)
+    return n_bytes, float(tested.sum()) + obj
 
 
 def bvh_work(bvh, rays, any_hit: bool):

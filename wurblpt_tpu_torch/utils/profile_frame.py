@@ -1,11 +1,12 @@
-"""Where the time of the port's six frames goes on the GPU.
+"""Where the time of the port's seven frames goes on the GPU.
 
     python -m wurblpt_tpu_torch.utils.profile_frame [--frames mesh,city] [--runs N]
 
-For each frame in turn (by default all six: the Cornell bench frame, the
+For each frame in turn (by default all seven: the Cornell bench frame, the
 mesh frame of bench config bvh_100k, the city frame of bench config
 city_many_lights, the envmap frame of envmap_cube_is, the rtiow frame of
-rtiow_distortion, the ToF frame of tof_amcw at phase 0): renders it once to
+rtiow_distortion, the ToF frame of tof_amcw at phase 0, the animated
+Cornell frame cornell_animated at t = 0.5): renders it once to
 warm up, N times (5 by default) unprofiled, once under torch.profiler (CPU
 + CUDA activities), and 3 times
 more unprofiled (frames after a profiled one run slower), and prints: the
@@ -32,6 +33,7 @@ from .. import native
 from .kernel_check import (
     bench_frame,
     city_frame,
+    cornell_animated_frame,
     envmap_frame,
     mesh_frame,
     rtiow_frame,
@@ -42,7 +44,8 @@ from .kernel_check import (
 OURS = ("closest_hit_kernel", "any_hit_kernel", "assemble_hit_kernel", "bvh_closest_kernel",
         "bvh_any_kernel", "env_radiance_kernel", "env_sample_kernel", "env_pdf_kernel",
         "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel", "regen_kernel",
-        "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel")
+        "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel",
+        "sweep_closest_kernel", "sweep_any_kernel")
 _TOP = 25
 
 
@@ -104,6 +107,8 @@ FRAMES = {
     "envmap": ("envmap frame (envmap_cube_is)", envmap_frame, "closest_hit"),
     "rtiow": ("rtiow frame (rtiow_distortion)", rtiow_frame, "closest_hit"),
     "tof": ("tof frame (tof_amcw, phase 0)", tof_frame, "closest_hit"),
+    "cornell_animated": ("animated cornell frame (t = 0.5)", cornell_animated_frame,
+                         "sweep_closest"),
 }
 
 

@@ -4,9 +4,11 @@ Each is built with numpy alone, draw for draw as the JAX builder builds it:
 the Cornell box from the port's copy of the reference vertex data
 (:mod:`.cornell_data`), the mesh path's `terrain_city`, the city path's
 `city_night` with its OBJ/MTL round trip through :mod:`wurblpt_tpu_torch.io.obj`,
-the sphere paths' `envmap_spheres` and `rtiow`, and the ToF path's `tof_box`.
-Scenes and cameras are built on the GPU unless the caller names another
-device.
+the sphere paths' `envmap_spheres` and `rtiow`, the ToF path's `tof_box`, the
+animated Cornell box (`cornell_box_animated`) and the two brute-force scenes
+past the K1 form's column count and near it (`sphere_field`,
+`tri_sphere_field`). Scenes and cameras are built on the GPU unless the
+caller names another device.
 """
 
 from __future__ import annotations
@@ -18,7 +20,15 @@ import numpy as np
 from ..core.transform import Transformation, from_lookat, quat_from_axis_angle
 from ..render.envmap import EnvironmentMapConstant, EnvironmentMapCube, EnvironmentMapEquiRect
 from ..scene import generator as G
-from ..scene.flatten import Glass, MeshSpec, ModPhong, SphereSpec, flatten_meshes, material_table
+from ..scene.flatten import (
+    AnimationKeyframes,
+    Glass,
+    MeshSpec,
+    ModPhong,
+    SphereSpec,
+    flatten_meshes,
+    material_table,
+)
 from ..scene.ir import MaterialType
 from . import cornell_data as cd
 
@@ -42,6 +52,98 @@ def cornell_box_ref(device="cuda"):
 def cornell_ref_camera(device="cuda"):
     """Reference viewpoint (wurblpt-cornellbox.cpp:252-256): (pose, vfov_deg)."""
     return from_lookat((0.0, 1.0, 3.2), (0.0, 1.0, -1.0), device=device), 50.0
+
+
+def cornell_animations():
+    """The keyframes of the animated Cornell box, animation ids 1-3, keys at
+    t = 0 and t = 1: the short box turns about the world's vertical axis, the
+    tall box slides along +x, the ceiling light along +z, by the amounts of
+    `kernel_check.ANIM_SHORT_TURN_DEG`, `ANIM_TALL_SLIDE_X` and
+    `ANIM_LIGHT_SLIDE_Z`."""
+    from .kernel_check import ANIM_LIGHT_SLIDE_Z, ANIM_SHORT_TURN_DEG, ANIM_TALL_SLIDE_X
+
+    rest = Transformation.make()
+    return (AnimationKeyframes((0.0, 1.0), (rest, Transformation.make(
+                rotation=quat_from_axis_angle((0, 1, 0), np.deg2rad(ANIM_SHORT_TURN_DEG))))),
+            AnimationKeyframes((0.0, 1.0), (rest, Transformation.make(
+                translation=(ANIM_TALL_SLIDE_X, 0.0, 0.0)))),
+            AnimationKeyframes((0.0, 1.0), (rest, Transformation.make(
+                translation=(0.0, 0.0, ANIM_LIGHT_SLIDE_Z)))))
+
+
+CORNELL_ANIM_ID = {"short": 1, "tall": 2, "light": 3}
+# The spheres of cornell_box_animated(spheres=True): (centre, radius, animation id).
+CORNELL_ANIM_SPHERES = (((0.3, 0.85, 0.4), 0.2, 1), ((-0.45, 0.25, 0.55), 0.25, 0))
+
+
+def cornell_box_animated(device="cuda", spheres: bool = False):
+    """The reference Cornell box with three keyframe animations
+    (`cornell_animations`): 36 triangles and 4 animation rows, no BVH. The
+    same arrays as the JAX builder makes of the same box
+    (``jax_frame_reference.jax_cornell_animated``). With `spheres`, two
+    white spheres join it, one riding the short box's turn and one static:
+    the sphere branches of the animated casts and hit assembly."""
+    names = ("white", "red", "green")
+    rows = [(MaterialType.LAMBERTIAN, cd.ALBEDO[n], None) for n in names]
+    rows.append((MaterialType.LIGHT_DIFFUSE, cd.LIGHT_RADIANCE, None))
+    mat_id = {"white": 0, "red": 1, "green": 2, "tall": 0, "short": 0, "light": 3}
+    meshes = [MeshSpec(np.array(pos, np.float32), np.array(nrm, np.float32), cd.UV,
+                       cd.IDX, mat_id[mat], anim=CORNELL_ANIM_ID.get(mat, 0))
+              for pos, nrm, mat in cd.QUADS]
+    lpos, lnrm = cd.LIGHT_QUAD
+    meshes.append(MeshSpec(np.array(lpos, np.float32), np.array(lnrm, np.float32),
+                           cd.UV_LIGHT, cd.IDX, mat_id["light"], hot_spot=True,
+                           anim=CORNELL_ANIM_ID["light"]))
+    sph = [SphereSpec(c, r, 0, anim=a) for c, r, a in CORNELL_ANIM_SPHERES] if spheres else []
+    return flatten_meshes(meshes, material_table(rows), device, spheres=sph,
+                          animations=cornell_animations())
+
+
+def field_spec(n_tris: int, n_spheres: int, seed: int):
+    """numpy draws of a brute-force test field: `n_tris` small triangles
+    ([n_tris, 3, 3] vertices) and `n_spheres` spheres (centres, radii) over
+    a 20 x 20 ground patch, each with one of four material ids; the scene
+    holds the triangles as one mesh per material, in material order."""
+    rs = np.random.RandomState(seed)
+    base = rs.uniform((-10.0, 0.0, -10.0), (10.0, 2.0, 10.0), (n_tris, 1, 3))
+    tris = (base + rs.uniform(-0.35, 0.35, (n_tris, 3, 3))).astype(np.float32)
+    centers = rs.uniform((-10.0, 0.2, -10.0), (10.0, 1.5, 10.0), (n_spheres, 3)).astype(np.float32)
+    radii = rs.uniform(0.08, 0.3, n_spheres).astype(np.float32)
+    return tris, centers, radii, rs.randint(0, 4, n_tris), rs.randint(0, 4, n_spheres)
+
+
+FIELD_ALBEDO = ((0.7, 0.7, 0.7), (0.7, 0.2, 0.2), (0.2, 0.6, 0.2), (0.3, 0.3, 0.8))
+FIELD_SKY = (0.8, 0.9, 1.0)
+
+
+def _field(n_tris, n_spheres, seed, device):
+    tris, centers, radii, tmat, smat = field_spec(n_tris, n_spheres, seed)
+    rows = [(MaterialType.LAMBERTIAN, a, None) for a in FIELD_ALBEDO]
+    meshes = [MeshSpec(tris[tmat == m].reshape(-1, 3), None, None,
+                       np.arange(3 * int((tmat == m).sum()), dtype=np.int32).reshape(-1, 3), m)
+              for m in range(len(FIELD_ALBEDO)) if (tmat == m).any()]
+    sph = [SphereSpec(tuple(c), float(r), int(m)) for c, r, m in zip(centers, radii, smat)]
+    return flatten_meshes(meshes, material_table(rows), device, spheres=sph,
+                          envmap=EnvironmentMapConstant(FIELD_SKY))
+
+
+def sphere_field(n: int = 3000, seed: int = 11, device="cuda"):
+    """ROADMAP C.1's first example: `n` Lambertian spheres under a constant
+    sky and no BVH. At 3000 spheres the JAX package casts it through its
+    matrix form (6144 of 8192 columns): the port through K1."""
+    return _field(0, n, seed, device)
+
+
+def tri_sphere_field(n_tris: int = 2000, n_spheres: int = 40, seed: int = 12, device="cuda"):
+    """ROADMAP C.1's second example: 2000 triangles and 40 spheres, no BVH,
+    8448 columns: the JAX package sweeps its tiles, and so does the port
+    (KS1/KS2)."""
+    return _field(n_tris, n_spheres, seed, device)
+
+
+def field_camera(device="cuda"):
+    """A view over the field: (pose, vfov_deg)."""
+    return from_lookat((0.0, 4.0, 14.0), (0.0, 0.5, 0.0), device=device), 45.0
 
 
 def procedural_sky(height: int = 64, sun_dir=(0.4, 0.6, -0.5),
