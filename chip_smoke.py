@@ -92,22 +92,25 @@ Phases, each a function, any failure exits non-zero and names its phase:
    is held to the first-hit distance of the pixel-centre rays (median
    under 2 mm).
 10. cornell_animated path - the animated Cornell frame (128 x 128, 16 spp,
-   8 path components, SensorRGB, t0 = t1 = 0.5) through render_frame_wavefront:
-   no K4 class takes an animated scene, so the torch-op bounce runs with
-   KS1, K3a, KS2 and P0 (the material rows) inside, and none of K1, K2, K3
-   or K4's kernels; the frame held to its JAX reference as in phase 4
-   (`jax_frame_reference.py cornell_animated`). Its launches per step are
-   reported, not gated (the torch-op route is hundreds of launches a step).
+   8 path components, SensorRGB, t0 = t1 = 0.5) through render_frame_wavefront
+   on K4's diffuse class with the scene's casts: the regeneration, KS1, K3a,
+   the diffuse shade (the moving light placed at t = 0.5 in the frame's step
+   tables), KS2 and the NEE resolve must be launched, and neither K1, K2,
+   K3 nor P0; the frame held to its JAX reference as in phase 4
+   (`jax_frame_reference.py cornell_animated`), at most 12 launches per
+   step of the loop and 400 per frame.
 
 The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
-(regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the mesh frame K4's
+(regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the cornell_animated
+frame the same class around the sweeps (regeneration, KS1, K3a,
+wpt_shade_diffuse, KS2, resolve), the mesh frame K4's
 env class (regeneration, K5, K3, wpt_shade_env, K6, resolve), the envmap
 and rtiow frames the env class on the brute-force casts (regeneration, K1,
 K3, wpt_shade_env, K2 where the sky is importance-sampled, resolve), the
 city frame K4's lit class (wpt_regen_surround, K5, K3, wpt_shade_lit, K6 on
 2 x 1048576 shadow rays, the resolve of two pending deposits per lane).
 The kernels phase holds each K4 kernel against its plain version on the
-first block of the six frames after 2 steps (lanes live, dead and, where
+first block of the seven frames after 2 steps (lanes live, dead and, where
 a lane has samples left, due for regeneration) and on the city block as
 the frame starts it (at 1 spp the one step where its lanes regenerate: the
 surround regeneration is checked and timed there), the env shade also
@@ -133,21 +136,23 @@ before the frames); every path also the launches of one step of the loop
 and of the frame's set-up, from the difference to the same frame at 1
 path component. Cornell, ToF, envmap and rtiow fail above 12 kernel
 launches per step of the frame; the mesh frame (4 steps, so its ~31
-launches of set-up alone come to ~8 per step) above 100 per frame; every
+launches of set-up alone come to ~8 per step) above 100 per frame,
+cornell_animated (the animations' and the moving light's rows, ~180
+launches once per frame) above 400; every
 frame above 12 per step of the loop (the city's 2 blocks of 4 steps carry
 the set-up of two blocks). Each path's counters are set to 0 just before
 it and read just after; a kernel's `launches` in the JSON line is the sum
 over the paths that use it. The stand-alone K8 and K7 kernels run on no
 path (their work runs inside K4's shades), so their records count 0
-launches, and P0 runs only on the cornell_animated path (its torch-op
-bounce gathers the material rows through it); their `inline_in` lists the
+launches, and so does P0's; their `inline_in` lists the
 shade that does their work on a K4 path, the path and its launches there:
 the equirect K8 record the env shade on the mesh path and the lit shade on
 the city path; the cube and constant K8 records the env shade on the
 envmap and rtiow paths; K7's two records and P0's (the material rows) the
 lit shade on the city path. Each shade, regeneration and resolve record
-counts those of its own paths; the sweeps' and K3a's records those of the
-cornell_animated path.
+counts those of its own paths (the diffuse shade, the pinhole regeneration
+and the one-deposit resolve also the cornell_animated path's); the sweeps'
+and K3a's records those of the cornell_animated path.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -166,13 +171,18 @@ import traceback
 DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
-K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path")
-PATHS = K4_PATHS + ("cornell_animated path",)
+K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path",
+            "cornell_animated path")
+PATHS = K4_PATHS
 # Kernel launches per step of a K4 frame's loop, and per step of the frame
 # with its set-up (all but the mesh frame, whose 4 steps carry ~31 launches of
 # set-up: it is held to MESH_MAX_FRAME_LAUNCHES instead).
 K4_MAX_LAUNCHES_PER_STEP = 12
 MESH_MAX_FRAME_LAUNCHES = 100          # kernel launches of one mesh frame
+# kernel launches of one cornell_animated frame: 16 steps, the lane state's
+# set-up and, once per frame, the animations' rows at the frame's instant
+# and the moving light's rows (~180 PyTorch launches)
+ANIM_MAX_FRAME_LAUNCHES = 400
 PROFILE_TRIES = 10                     # profiles of a frame taken while the profiler loses events
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
@@ -200,13 +210,14 @@ KERNELS = {
     "row_gather": ("wurblpt_tpu_torch/csrc/row_gather.cu", "tools/probe_pallas_gather.py:20",
                    ("row_gather",), PATHS),
     "regen_pinhole": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:973",
-                      ("regen_pinhole",), ("main path", "mesh path", "envmap path", "tof path")),
+                      ("regen_pinhole",), ("main path", "mesh path", "envmap path", "tof path",
+                                           "cornell_animated path")),
     "regen_lens": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:140",
                    ("regen_pinhole",), ("rtiow path",)),
     "regen_surround": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:244",
                        ("regen_surround",), ("city path",)),
     "shade_diffuse": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
-                      ("shade_diffuse",), ("main path", "tof path")),
+                      ("shade_diffuse",), ("main path", "tof path", "cornell_animated path")),
     "shade_env": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                   ("shade_env",), ("mesh path",)),
     "shade_env_glass_cube": ("wurblpt_tpu_torch/csrc/wavefront.cu",
@@ -255,11 +266,11 @@ CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample") + ENV_ALL
 ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit",
                "nee_resolve")
 RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
-# The animated frame's torch-op bounce: the sweeps, K3a and P0's material rows;
-# no K1-K3 (the scene is swept) and no K4 (no class takes animation).
-ANIM_PATH = ("sweep_closest", "assemble_hit_anim", "sweep_any", "row_gather")
-ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
-               "shade_env", "shade_lit", "nee_resolve")
+# The animated frame: K4's diffuse class around the sweeps and K3a; no K1-K3
+# (the scene is swept) and no P0 (the shade reads the material rows itself).
+ANIM_PATH = ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse", "sweep_any",
+             "nee_resolve")
+ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "row_gather", "shade_env", "shade_lit")
 # The K4 kernels that update the lane state in place (render/wavefront.py).
 IN_PLACE = ("regen_pinhole", "regen_surround", "shade_lit")
 
@@ -553,7 +564,8 @@ def _sweep_records(scenes_on_card, fcam, errs):
 
 def _k4_records(scenes_on_card):
     """K4's kernels against their plain versions on the first block after 2
-    steps of the Cornell, ToF, mesh, envmap, rtiow and city frames, and on
+    steps of the Cornell, cornell_animated, ToF, mesh, envmap, rtiow and city
+    frames, and on
     the city block as the frame starts it (at 1 spp only that step
     regenerates, every lane); the env shade also seen by the ToF sensor on
     the mesh, envmap and rtiow blocks (its other instantiations), the lit
@@ -570,7 +582,8 @@ def _k4_records(scenes_on_card):
     from wurblpt_tpu_torch.render.sensor import SensorTofAmcw
 
     tof, rgb = SensorTofAmcw(), None
-    cases = [("cornell", "cornell", rgb, None, 2), ("tof", "tof", rgb, None, 2),
+    cases = [("cornell", "cornell", rgb, None, 2),
+             ("cornell_animated", "cornell_animated", rgb, None, 2), ("tof", "tof", rgb, None, 2),
              ("mesh", "mesh", rgb, None, 2), ("mesh, ToF sensor,", "mesh", tof, None, 2),
              ("envmap", "envmap", rgb, None, 2), ("envmap, ToF sensor,", "envmap", tof, None, 2),
              ("rtiow", "rtiow", rgb, None, 2), ("rtiow, ToF sensor,", "rtiow", tof, None, 2),
@@ -853,7 +866,8 @@ def phase_anim_path(scene):
           f"(reference {kc.ANIM_REF_MEAN}), stats {stats} (reference {list(kc.ANIM_REF_STATS)})")
     kc.check_cornell_animated_frame(img, stats)
     _report("cornell_animated path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2,
-            render, kc.cornell_animated_frame(DEVICE, scene, depth=1))
+            render, kc.cornell_animated_frame(DEVICE, scene, depth=1),
+            max_loop_per_step=K4_MAX_LAUNCHES_PER_STEP, max_frame=ANIM_MAX_FRAME_LAUNCHES)
     return launches
 
 

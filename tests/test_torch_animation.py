@@ -164,28 +164,31 @@ def test_one_instant_broadcasts_as_the_per_ray_context():
 
 @pytest.mark.parametrize("b", [1, 257])
 def test_anim_frames_pack_the_context_and_the_forward_frames(b):
-    """The rows the kernels read (r_inv | t_inv | m_fwd | m_nrm) are the
-    context's and anim_forward_frames' at each of B times, and
-    frames_ray_to_object moves a ray by the rows of one instant exactly as
+    """The rows the kernels read (r_inv | t_inv | m_fwd | m_nrm) at an
+    instant are the context's and anim_forward_frames' at that time, at
+    instants drawn from b (`_times`: on a key, before, inside and after the
+    keys), and frames_ray_to_object moves a ray by the rows exactly as
     AnimCtx.ray_to_object does."""
     jt, pt, arrays = _both(8)
-    time = torch.as_tensor(_times(arrays, b, 9))
-    rows = anim.anim_frames(pt, time)
-    assert rows.shape == (b, pt.count, anim.FRAME_WIDTH) and rows.is_contiguous()
-    ctx = anim.make_anim_ctx(pt, time, with_forward=True)
-    aid = torch.arange(pt.count)[None].expand(b, -1)
-    m, mn, _ = anim.anim_forward_frames(pt, aid, time[:, None].expand(b, pt.count))
-    for got, want in ((rows[..., 0:9], ctx.r_inv.reshape(b, -1, 9)), (rows[..., 9:12], ctx.t_inv),
-                      (rows[..., 12:21], m.reshape(b, -1, 9)),
-                      (rows[..., 21:30], mn.reshape(b, -1, 9))):
-        assert torch.equal(got, want)
+    times = _times(arrays, b, 9)
+    aid = torch.arange(pt.count)
+    for time in (float(x) for x in times[:: max(b // 4, 1)]):
+        rows = anim.anim_frames(pt, time)
+        assert rows.shape == (pt.count, anim.FRAME_WIDTH) and rows.is_contiguous()
+        ctx = anim.make_anim_ctx(pt, torch.tensor([time]), with_forward=True)
+        m, mn, _ = anim.anim_forward_frames(pt, aid, torch.full((pt.count,), time))
+        for got, want in ((rows[:, 0:9], ctx.r_inv[0].reshape(-1, 9)),
+                          (rows[:, 9:12], ctx.t_inv[0]), (rows[:, 12:21], m.reshape(-1, 9)),
+                          (rows[:, 21:30], mn.reshape(-1, 9))):
+            assert torch.equal(got, want)
     n = 257
     rs = np.random.default_rng(10)
     o = torch.as_tensor(rs.uniform(-3, 3, (n, 3)).astype(np.float32))
     d = torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32))
     lane_aid = torch.as_tensor(rs.integers(0, pt.count, n).astype(np.int32))
-    oa, da, _ = anim.frames_ray_to_object(rows[:1], lane_aid, o, d)
-    ra, rd = anim.make_anim_ctx(pt, time[:1].expand(n), with_forward=True).ray_to_object(o, d)
+    oa, da, _ = anim.frames_ray_to_object(anim.anim_frames(pt, float(times[0])), lane_aid, o, d)
+    ra, rd = anim.make_anim_ctx(pt, torch.full((n,), float(times[0])),
+                                with_forward=True).ray_to_object(o, d)
     lanes = torch.arange(n)
     assert torch.equal(oa, ra[lanes, lane_aid.long()])
     assert torch.equal(da, rd[lanes, lane_aid.long()])

@@ -678,9 +678,10 @@ def test_cornell_animated_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     before = dict(native.LAUNCHES)
     img, stats = kc.cornell_animated_frame(gpu)()
     kc.check_cornell_animated_frame(img, stats)
-    for name in ("sweep_closest", "sweep_any", "assemble_hit_anim"):
+    for name in ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse",
+                 "sweep_any", "nee_resolve"):
         assert native.LAUNCHES[name] > before[name]
-    for name in ("closest_hit", "any_hit", "assemble_hit"):
+    for name in ("closest_hit", "any_hit", "assemble_hit", "row_gather"):
         assert native.LAUNCHES[name] == before[name]
 
 

@@ -5,16 +5,19 @@ one shutter instant (t0 = t1), against the JAX package.
   the tall box and the light sliding; `jax_frame_reference.jax_cornell_animated`)
   at 24 x 24 pixels, 4 spp, 8 path components, t = 0.5: the JAX package
   casts it through its sweeps with object-space rays, and so does the port
-  (KS1/KS2 plain versions, K3a's), in its torch-op bounce (no K4 class takes
-  animation). The cast counters are equal; pixels agree to rtol 1e-3 /
-  atol 1e-5 (3.3e-6 absolute, 1.9e-4 relative measured: XLA's fused
-  multiply-adds in the object rays and the sweep, ROADMAP C.4).
+  (KS1/KS2 plain versions, K3a's), on K4's diffuse class with the moving
+  light in the frame's step tables. The cast counters are equal; pixels
+  agree to rtol 1e-3 / atol 1e-5 (3.3e-6 absolute, 1.9e-4 relative
+  measured: XLA's fused multiply-adds in the object rays and the sweep,
+  ROADMAP C.4). On the CPU the K4 route (plain versions) renders the
+  torch-op bounce's bits; on the card (marked `cuda`) K4's kernels match
+  their plain versions on the frame's first block.
 * The mirror of tests/test_animated_nee.py's first two tests (its scene):
   the moving lamp at t = 0.5 lights the floor as the static lamp placed
   there does, and the highlight follows the lamp from t = 0 to t = 1; and
   that frame against the JAX package's at t = 0.5 (equal counters).
 * Animated hot spots: NEE samples and weights the light where it is at the
-  ray's time (`lights.light_frames`), with the mixture pdf (per-light MIS
+  frame's instant (`lights.light_frames`), with the mixture pdf (per-light MIS
   needs static lights), against the JAX package's.
 * The refusals: a shutter interval t0 != t1 (motion blur, ROADMAP A.3),
   animation in a BVH scene (B.1.3), an animated camera (A.7).
@@ -54,16 +57,24 @@ from wurblpt_tpu_torch import (  # noqa: E402
     scene_from_numpy,
 )
 from wurblpt_tpu_torch.core.transform import from_lookat  # noqa: E402
-from wurblpt_tpu_torch.render import lights, wavefront  # noqa: E402
+from wurblpt_tpu_torch import native  # noqa: E402
+from wurblpt_tpu_torch.render import integrator, lights, wavefront  # noqa: E402
 from wurblpt_tpu_torch.render.integrator import prepare_scene  # noqa: E402
 from wurblpt_tpu_torch.render.intersect_sweep import SweepScene  # noqa: E402
-from wurblpt_tpu_torch.scene.animation import make_anim_ctx  # noqa: E402
+from wurblpt_tpu_torch.scene.animation import anim_frames  # noqa: E402
 from wurblpt_tpu_torch.utils import kernel_check as kc  # noqa: E402
 from wurblpt_tpu_torch.utils import scenes  # noqa: E402
 
 torch.set_num_threads(2)
 
 W, SSQRT, DEPTH = 24, 2, 8
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    return "cuda"
 
 
 def _port(js):
@@ -100,17 +111,69 @@ def test_cornell_animated_matches_the_jax_frame():
     assert np.abs(still.numpy() - img.numpy()).max() > 0.1 * img.numpy().max()
 
 
-def test_the_animated_frame_takes_the_torch_op_bounce_and_the_sweeps():
+def test_the_animated_frame_takes_k4_and_the_sweeps():
+    """The animated box is of K4's diffuse class, cast by the sweeps; its
+    frame's step tables hold the light where it is at t = 0.5, and the
+    shade refuses the scene's own tables, which hold its rest pose."""
     ps = scenes.cornell_box_animated("cpu")
     static = SceneStatic.from_scene(ps)
     assert static.has_anim and static.lights_animated and not static.per_light_mis
     static.check_slice()
     cfg = CameraConfig()
-    assert not (wavefront.diffuse_class(ps, static, cfg) or wavefront.env_class(ps, static, cfg)
-                or wavefront.lit_class(ps, static, cfg))
+    assert wavefront.diffuse_class(ps, static, cfg)
+    assert not (wavefront.env_class(ps, static, cfg) or wavefront.lit_class(ps, static, cfg))
     tables = prepare_scene(ps, static)
-    assert isinstance(tables.accel, SweepScene) and tables.step is None
+    assert isinstance(tables.accel, SweepScene) and tables.step is not None
     assert tables.accel.n_anims == 4 and tables.hit.n_anims == 4
+    assert tables.step.lights_animated and tables.step.light_frames is None
+    anim = integrator.frame_anim(ps, static, kc.ANIM_TIME)
+    at = wavefront.step_tables_at(tables.step, anim.lights)
+    assert wavefront.k4_route(at, cfg).shade is wavefront.shade_diffuse
+    slid = torch.tensor([0.0, 0.0, kc.ANIM_TIME * kc.ANIM_LIGHT_SLIDE_Z])
+    moved = at.light_tri[:, 0:3] - tables.step.light_tri[:, 0:3]
+    assert torch.allclose(moved, slid.expand_as(moved), atol=1e-6)
+    assert torch.allclose(at.light_tri[:, 3:], tables.step.light_tri[:, 3:], atol=1e-6)
+    inp = kc.k4_inputs("cpu", "cornell_animated", width=8, ssqrt=2, m=2)
+    assert inp.shade[0].light_frames is not None
+    with pytest.raises(ValueError, match="lights move"):
+        wavefront.shade_diffuse(tables.step, *inp.shade[1:])
+
+
+def test_k4_route_gives_the_torch_op_bounce_bits_on_the_animated_frame(monkeypatch):
+    """On the CPU the K4 route (plain versions with the frame's step tables)
+    and the generic torch-op bounce render the animated frame bit for bit."""
+    render = kc.cornell_animated_frame("cpu", width=W, ssqrt=SSQRT, depth=DEPTH)
+    steps = []
+    k4_step = integrator._make_k4_step
+
+    def counting(*args):
+        step = k4_step(*args)
+
+        def run(*a):
+            steps.append(1)
+            return step(*a)
+        return run
+
+    monkeypatch.setattr(integrator, "_make_k4_step", counting)
+    img, stats = render()
+    assert len(steps) > 0
+    monkeypatch.setattr(integrator, "diffuse_class", lambda *a: False)
+    img_g, stats_g = render()
+    assert torch.equal(img, img_g) and torch.equal(stats, stats_g)
+
+
+@pytest.mark.cuda
+def test_k4_kernels_match_plain_on_the_animated_block(gpu):
+    """K4's regeneration, diffuse shade and resolve against their plain
+    versions on the animated frame's first block after 2 steps (the casts
+    KS1/KS2 and K3a, the moving light in the step tables): bit-equal."""
+    inp = kc.k4_inputs(gpu, "cornell_animated")
+    before = {k: native.LAUNCHES[k] for k in ("regen_pinhole", "shade_diffuse", "nee_resolve")}
+    res = kc.check_k4(inp)
+    torch.cuda.synchronize()
+    assert {k: native.LAUNCHES[k] - v for k, v in before.items()} == dict.fromkeys(before, 1)
+    for name, fields in res.items():
+        assert all(v == 0 for v in fields.values()), (name, fields)
 
 
 def _port_room(light_x, animate):
@@ -164,8 +227,7 @@ def test_nee_places_the_moving_light_where_it_is_at_the_rays_time():
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     jctx = jmake_anim_ctx(js.anims, jnp.full((n,), jnp.float32(kc.ANIM_TIME)), with_forward=True)
     jframes = jlights.light_frames(js, jctx)
-    ctx = make_anim_ctx(ps.anims, torch.full((1,), kc.ANIM_TIME), with_forward=True)
-    frames = lights.light_frames(ps, ctx)
+    frames = lights.light_frames(ps, anim_frames(ps.anims, kc.ANIM_TIME))
     assert lights.light_anim_ids(ps).tolist() == [3, 3]
     np.testing.assert_allclose(frames[0].expand(n, -1, -1, -1).numpy(), np.asarray(jframes[0]),
                                rtol=0, atol=2e-6)

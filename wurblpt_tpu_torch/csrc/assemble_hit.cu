@@ -30,20 +30,24 @@
 //
 // Evaluation order matches intersect.assemble_hit_plain term by term; the
 // library is built with -fmad=false, so both agree to the bit except where
-// atan2f/asinf differ from PyTorch's (sphere uv only).
+// atan2f/asinf differ from PyTorch's (sphere uv only). The object-space ray
+// is the sweeps' own (sweep_common.cuh object_ray), so a winner's hit point
+// there is formed from the ray its test took.
 #include <cuda_runtime.h>
+
+#include "sweep_common.cuh"
 
 namespace {
 
+using wpt_sweep::dot3;
+using wpt_sweep::FRAME;   // r_inv | t_inv | m_fwd | m_nrm
+using wpt_sweep::load3;
+using wpt_sweep::matvec;
+using wpt_sweep::object_ray;
+using wpt_sweep::V3;
+
 constexpr int BLOCK = 128;
 constexpr int TRI_F = 27;  // n0 n1 n2 | uv0 uv1 uv2 | tan0 tan1 tan2 | gn
-constexpr int FRAME = 30;  // r_inv | t_inv | m_fwd | m_nrm
-
-struct V3 {
-    float x, y, z;
-};
-
-__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 
 __device__ __forceinline__ V3 scale3(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 
@@ -52,17 +56,9 @@ __device__ __forceinline__ V3 normalize3(V3 a) {
     return scale3(a, inv);
 }
 
-__device__ __forceinline__ V3 load3(const float* p) { return {__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
-
 // w * a + u * b + v * c, left to right.
 __device__ __forceinline__ V3 interp3(float w, float u, float v, V3 a, V3 b, V3 c) {
     return {w * a.x + u * b.x + v * c.x, w * a.y + u * b.y + v * c.y, w * a.z + u * b.z + v * c.z};
-}
-
-// m (row major, 9 floats) times v, each row summed left to right (animation.matvec).
-__device__ __forceinline__ V3 matvec(const float* __restrict__ m, V3 v) {
-    return {m[0] * v.x + m[1] * v.y + m[2] * v.z, m[3] * v.x + m[4] * v.y + m[5] * v.z,
-            m[6] * v.x + m[7] * v.y + m[8] * v.z};
 }
 
 __device__ __forceinline__ void store3(float* p, V3 a) {
@@ -106,9 +102,8 @@ assemble_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
             n_spheres > 0 ? __ldg(anim.sph_anim + min(max(ps - n_tris, 0), n_spheres - 1)) : 0;
         const int aid = is_tri ? aid_t : aid_s;
         frow = anim.frames + aid * FRAME;
-        const V3 tr = load3(frow + 9);
-        const V3 oo = {ro.x - tr.x, ro.y - tr.y, ro.z - tr.z};
-        const V3 oa = matvec(frow, oo), da = matvec(frow, rd);
+        V3 oa, da;
+        object_ray(frow, ro, rd, oa, da);
         pos_local = {oa.x + tp * da.x, oa.y + tp * da.y, oa.z + tp * da.z};
     }
 

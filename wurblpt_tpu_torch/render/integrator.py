@@ -22,27 +22,30 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
 `wavefront.lit_class`):
 
 * K4 (:mod:`.wavefront`), for three classes of scenes: the diffuse class
-  (Lambertian surfaces, triangle lights, no sky; the cornell and tof_amcw
-  paths), the env class (Lambertian, GGX, mirror and glass surfaces,
-  triangles and analytic spheres, under an equirect, cube or constant sky,
-  no light, brute force or a BVH; the bvh_100k, envmap_cube_is and
-  rtiow_distortion paths), both seen by a mono pinhole camera with or
-  without a lens model, and the lit class (those surfaces, ModPhong and
+  (Lambertian surfaces, triangle lights, no sky, static or animated; the
+  cornell, tof_amcw and cornell_animated paths), the env class
+  (Lambertian, GGX, mirror and glass surfaces, triangles and analytic
+  spheres, under an equirect, cube or constant sky, no light, brute force
+  or a BVH; the bvh_100k, envmap_cube_is and rtiow_distortion paths),
+  both seen by a mono pinhole camera with or without a lens model, and
+  the lit class (those surfaces, ModPhong and
   RGL, triangle lights under per-light MIS beside an importance-sampled
   sky; the city_many_lights path), seen by a pinhole or a surround camera,
   mono or stereo. A step is the regeneration, the scene's closest-hit cast
-  (K1 or K5), K3, the class's shade (`shade_diffuse`, `shade_env`,
-  `shade_lit`), the scene's any-hit cast (K2 or K6) on its shadow rays
-  (the lit class's light and sky shadow rays in one cast) and the NEE
-  resolve: ~7 launches, ~6 without shadow rays;
+  (K1, KS1 or K5), K3 (K3a animated), the class's shade (`shade_diffuse`,
+  `shade_env`, `shade_lit`), the scene's any-hit cast (K2, KS2 or K6) on
+  its shadow rays (the lit class's light and sky shadow rays in one cast)
+  and the NEE resolve: ~7 launches, ~6 without shadow rays;
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
   K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
-  with K4's plain versions. An animated scene (rigid keyframes, at one
-  instant t0 = t1) takes this route: its casts are the sweeps KS1/KS2 in
-  each primitive's object space and its hit assembly K3a, with the frame's
-  animation rows built once (scene/animation.py), and a moving light is
-  placed at that instant for NEE.
+  with K4's plain versions.
+
+An animated scene (rigid keyframes, at one instant t0 = t1) is cast by the
+sweeps KS1/KS2 in each primitive's object space and assembled by K3a, with
+the frame's animation rows built once (`frame_anim`); a moving light is
+placed at that instant for NEE (on K4, in the frame's step tables:
+`wavefront.step_tables_at`).
 
 The brute-force cast follows the JAX package (`prepare_scene`): K1/K2 for
 a static scene without a BVH within the matrix form's 8192 columns
@@ -69,7 +72,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.rng import Salt, uniform4
-from ..scene.animation import anim_frames, make_anim_ctx
+from ..scene.animation import anim_frames
 from ..scene.ir import SceneArrays
 from .bsdf import ScatterKind, SceneStatic, bsdf_sample, gather_material_rows, pack_material_table
 from .camera import CameraConfig, CameraParams, check_camera
@@ -98,6 +101,7 @@ from .wavefront import (
     nee_resolve,
     path_lengths,
     regen_plain,
+    step_tables_at,
 )
 
 
@@ -148,9 +152,9 @@ def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
 class FrameAnim(NamedTuple):
     """An animated scene's state at the frame's instant: every animation's
     rows for the casts and the hit assembly, and the hot spots' forward
-    frames where a light moves (None otherwise)."""
+    frames, taken from those rows, where a light moves (None otherwise)."""
 
-    frames: torch.Tensor              # [1, A, 30] scene/animation.anim_frames
+    frames: torch.Tensor              # [A, 30] scene/animation.anim_frames
     lights: Optional[tuple]           # lights.light_frames, or None
 
 
@@ -159,11 +163,8 @@ def frame_anim(scene: SceneArrays, static: SceneStatic, t0: float) -> Optional[F
     the light frames only when a hot spot moves (integrator.py:856-861)."""
     if not static.has_anim:
         return None
-    time = torch.full((1,), t0, dtype=torch.float32, device=scene.device)
-    lights = None
-    if static.lights_animated:
-        lights = light_frames(scene, make_anim_ctx(scene.anims, time, with_forward=True))
-    return FrameAnim(anim_frames(scene.anims, time), lights)
+    frames = anim_frames(scene.anims, t0)
+    return FrameAnim(frames, light_frames(scene, frames) if static.lights_animated else None)
 
 
 def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables, sensor,
@@ -250,17 +251,22 @@ def _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L, a
     return step
 
 
-def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
+def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=None):
     """The step through K4 (`wavefront.k4_route`): regeneration
     (wpt_regen_pinhole or wpt_regen_surround), the scene's closest-hit cast
-    (K1 or K5), K3, the class's shade (wpt_shade_diffuse, wpt_shade_env or
-    wpt_shade_lit), the scene's any-hit cast (K2 or K6) on its shadow rays
-    and the NEE resolve (wpt_nee_resolve), which also evaluates the loop
-    condition; one host sync reads it. A scene that casts no shadow ray (no light, a sky without
+    (K1, KS1 or K5), K3 (K3a with `anim`), the class's shade
+    (wpt_shade_diffuse, wpt_shade_env or wpt_shade_lit), the scene's any-hit
+    cast (K2, KS2 or K6) on its shadow rays and the NEE resolve
+    (wpt_nee_resolve), which also evaluates the loop condition; one host
+    sync reads it. A scene that casts no shadow ray (no light, a sky without
     importance tables) skips the any-hit cast, and its resolve evaluates the
     loop condition alone; the lit class casts its light and sky shadow rays
-    (2 L, from the origins its shade writes) in one any-hit cast."""
-    accel, ht, step_tables = tables.accel, tables.hit, tables.step
+    (2 L, from the origins its shade writes) in one any-hit cast. An
+    animated frame (`anim`) casts and assembles with its animation rows and
+    shades with its step tables (`wavefront.step_tables_at`)."""
+    accel, ht = tables.accel, tables.hit
+    frames = None if anim is None else anim.frames
+    step_tables = step_tables_at(tables.step, None if anim is None else anim.lights)
     route = k4_route(step_tables, cam_cfg)
     t_min = torch.full((route.shadow_rows * L,), params.min_hit_distance, dtype=torch.float32,
                        device=scene.device)
@@ -268,12 +274,12 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L):
     def step(ls, sample, k_next, lanes):
         ls, sample, k_next, t_max = route.regen(ls, sample, k_next, cam, cam_cfg, lanes,
                                                 params.randomize_ray_over_pixel)
-        t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min[:L], t_max)
-        hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v)
+        t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min[:L], t_max, frames)
+        hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v, frames)
         ls, shadow_o, shadow_d, shadow_tmax, pending = route.shade(
             step_tables, sensor, params, ls, lanes.pixel, sample, t, prim, hr)
         occluded = (None if shadow_tmax is None
-                     else scene_any_hit(accel, shadow_o, shadow_d, t_min, shadow_tmax))
+                    else scene_any_hit(accel, shadow_o, shadow_d, t_min, shadow_tmax, frames))
         acc, work = nee_resolve(ls.acc, pending, occluded, ls.active, k_next, lanes)
         return ls._replace(acc=acc), sample, k_next, bool(work.item())
 
@@ -371,11 +377,9 @@ def render_frame_wavefront(
         tables = prepare_scene(scene, static)
     k4 = (diffuse_class(scene, static, cam_cfg) or env_class(scene, static, cam_cfg)
           or lit_class(scene, static, cam_cfg))
-    if k4:
-        step = _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L)
-    else:
-        step = _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L,
-                                  frame_anim(scene, static, t0))
+    make_step = _make_k4_step if k4 else _make_generic_step
+    step = make_step(scene, static, tables, sensor, params, cam, cam_cfg, L,
+                     frame_anim(scene, static, t0))
     run_block = _make_run_block(step, sensor, width, height, samples_sqrt, B, m, P, n_pix,
                                 device)
     img = torch.zeros((n_blocks * B, sensor.n_acc), dtype=torch.float32, device=device)

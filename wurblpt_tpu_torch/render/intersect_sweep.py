@@ -172,14 +172,14 @@ def any_sweep_plain(ss: SweepScene, o, d, t_min, t_max, frames=None):
 
 
 def check_frames(frames: Optional[torch.Tensor], n_anims: int, device):
-    """Validate the animation rows a sweep or K3a reads: [1, A, 30] f32
+    """Validate the animation rows a sweep or K3a reads: [A, 30] f32
     contiguous (every animation at the frame's one instant), A the scene's
     animation rows."""
     if frames is None:
         return
-    if (frames.dtype != torch.float32 or tuple(frames.shape) != (1, n_anims, FRAME_WIDTH)
+    if (frames.dtype != torch.float32 or tuple(frames.shape) != (n_anims, FRAME_WIDTH)
             or not frames.is_contiguous()):
-        raise ValueError(f"frames: need contiguous float32 [1, {n_anims}, {FRAME_WIDTH}], "
+        raise ValueError(f"frames: need contiguous float32 [{n_anims}, {FRAME_WIDTH}], "
                          f"got {frames.dtype} {tuple(frames.shape)}")
     if frames.device != device:
         raise ValueError(f"frames are on {frames.device}, rays on {device}")

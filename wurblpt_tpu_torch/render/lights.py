@@ -9,10 +9,11 @@ light's density: `lights_pdf_at_hit` takes it from the hit itself, with the
 per-prim (pick, 1 / area) row fetched by P0.
 
 Animated hot spots (the JAX package's `light_frames`): each light's forward
-map and translation at the ray's time, from the frame's AnimCtx, move its
-triangle to world space before the pdf, the sample and the emission.
-Per-light MIS needs static lights (its areas are the flattener's), so a
-scene with an animated light takes the mixture (`SceneStatic`).
+map and translation at the frame's instant, from the animations' rows
+(scene/animation.py anim_frames), move its triangle to world space before
+the pdf, the sample and the emission. Per-light MIS needs static lights (its
+areas are the flattener's), so a scene with an animated light takes the
+mixture (`SceneStatic`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from ..core import sampler
 from ..core.vecmath import cross, dot
-from ..scene.animation import AnimCtx, matvec
+from ..scene.animation import matvec
 from ..scene.ir import SceneArrays, anim_ids
 from .gather import row_gather
 
@@ -46,18 +47,20 @@ def light_anim_ids(scene: SceneArrays):
     return anim_ids(scene.tris)[scene.light_prims.long()]
 
 
-def light_frames(scene: SceneArrays, anim_ctx: AnimCtx):
-    """Forward frames of every hot spot's animation at the rays' time:
-    (m [B, L, 3, 3], t [B, L, 3]); the context is built with_forward."""
-    aid = light_anim_ids(scene).long()
-    return anim_ctx.m_fwd[:, aid], anim_ctx.t_inv[:, aid]
+def light_frames(scene: SceneArrays, frames):
+    """Forward frames of every hot spot's animation at the frame's instant:
+    (m [L, 3, 3], t [L, 3]), the m_fwd and t_inv columns of its animation's
+    row in `frames` (scene/animation.anim_frames, [A, 30])."""
+    rows = frames[light_anim_ids(scene).long()]
+    return rows[:, 12:21].reshape(-1, 3, 3), rows[:, 9:12]
 
 
-def _light_tris(scene: SceneArrays, frames=None):
-    """[B, L, 3] p0, e1, e2 of every hot spot; B = 1 for static lights."""
+def light_tris(scene: SceneArrays, frames=None):
+    """[L, 3] p0, e1, e2 of every hot spot, placed by `frames` (`light_frames`)
+    where animated."""
     lp = scene.light_prims.long()
     T = scene.tris
-    p0, e1, e2 = T.p0[lp][None], T.e1[lp][None], T.e2[lp][None]
+    p0, e1, e2 = T.p0[lp], T.e1[lp], T.e2[lp]
     if frames is not None:
         m, t = frames
         p0, e1, e2 = matvec(m, p0) + t, matvec(m, e1), matvec(m, e2)
@@ -67,12 +70,12 @@ def _light_tris(scene: SceneArrays, frames=None):
 def lights_pdf_multi(scene: SceneArrays, origin, dirs, frames=None):
     """Mixture pdf of each of K directions from `origin`: origin [N, 3], dirs
     [N, K, 3] -> [N, K]. Direction-independent terms are computed once.
-    `frames` (`light_frames`) places animated lights at the rays' time."""
+    `frames` (`light_frames`) places animated lights at the frame's instant."""
     L = scene.n_lights
     N, K = dirs.shape[0], dirs.shape[1]
     if L == 0:
         return torch.zeros((N, K), device=dirs.device)
-    p0, e1, e2 = (x[:, None] for x in _light_tris(scene, frames))   # [B, 1, L, 3]
+    p0, e1, e2 = (x[None, None] for x in light_tris(scene, frames))   # [1, 1, L, 3]
     o = origin[:, None, None, :]                                # [N, 1, 1, 3]
     d = dirs[:, :, None, :]                                     # [N, K, 1, 3]
 
@@ -124,7 +127,7 @@ def lights_sample(scene: SceneArrays, origin, u3, frames=None):
     Returns (direction [N, 3], picked prim [N], t_expected [N], pick [N],
     pdf_sa [N]): `t_expected` is the distance to the sampled light point and
     `pdf_sa` the solid-angle density under the picked light alone. `frames`
-    (`light_frames`) places an animated light at the rays' time."""
+    (`light_frames`) places an animated light at the frame's instant."""
     L = scene.n_lights
     cell = torch.clamp((u3[:, 0] * L).to(torch.int32), 0, L - 1)
     if scene.light_alias_prob is not None:
@@ -157,7 +160,4 @@ def pick_frame(frames, pick):
     """(m [N, 3, 3], t [N, 3]) of the picked light [N] from `light_frames`."""
     m, t = frames
     pick = pick.long()
-    if m.shape[0] == 1:
-        return m[0, pick], t[0, pick]
-    rows = torch.arange(pick.shape[0], device=pick.device)
-    return m[rows, pick], t[rows, pick]
+    return m[pick], t[pick]

@@ -4,7 +4,10 @@ Port of the JAX package's bounce body (``wurblpt_tpu/render/integrator.py``
 :400-752, `_make_bounce_fn`) and its regeneration (:973-1013), for
 
 * the diffuse class (`diffuse_class`): Lambertian surfaces; diffuse, spot
-  and ToF triangle lights with mixture or per-light MIS; no sky;
+  and ToF triangle lights with mixture or per-light MIS; no sky; static, or
+  animated by rigid keyframes at the frame's one instant (the casts then
+  the sweeps in object space and K3a, a moving light placed where it is at
+  that instant: `step_tables_at`);
 * the env class (`env_class`): Lambertian, GGX, mirror and glass surfaces,
   triangles and analytic spheres, under an equirect, cube or constant sky
   with or without importance tables; no light; brute force or a BVH;
@@ -21,7 +24,8 @@ camera, mono or stereo. One step is
                        wpt_regen_pinhole (the lens model's inverse inside)
                        or wpt_regen_surround (the 180/360-degree camera,
                        stereo halves and eye offsets)
-    closest hit        K1 (brute force) or K5 (BVH), then K3 hit assembly
+    closest hit        K1 or KS1 (brute force) or K5 (BVH), then K3 (K3a in
+                       an animated scene) hit assembly
     the shade          wpt_shade_diffuse: emission with its MIS weight, the
                        Lambertian sample, light NEE (the shadow ray and its
                        pending deposit), Russian roulette, the next state,
@@ -37,7 +41,7 @@ camera, mono or stereo. One step is
                        K7's arithmetic inline), light NEE and env NEE (two
                        shadow rays and two pending deposits per lane),
                        Russian roulette, the next state, the counters
-    any hit            K2 or K6 on the shadow rays (none without NEE; the
+    any hit            K2, KS2 or K6 on the shadow rays (none without NEE; the
                        lit class's two kinds in one cast of 2 N rays)
     wpt_nee_resolve    add the pending deposits of unoccluded lanes (the
                        light's, then the sky's); flag whether any lane still
@@ -99,6 +103,7 @@ from .intersect import HitRecord
 from .intersect_brute import BIG
 from .lights import (
     light_pick_prob_of,
+    light_tris,
     lights_pdf_at_hit,
     lights_pdf_multi,
     lights_sample,
@@ -162,10 +167,11 @@ def block_lanes(blk, B, m, P, width, height, ssqrt, device) -> BlockLanes:
 def diffuse_scene(scene: SceneArrays, static: SceneStatic) -> bool:
     """Whether a scene is of the diffuse class: Lambertian surfaces, triangle
     lights with a power-weighted pick (mixture or per-light MIS), no sky, no
-    texture, animation or medium, the brute-force intersector."""
+    texture or medium, the brute-force intersector (K1 or the sweeps), static
+    or animated (`SceneStatic.check_slice` refuses animation with a BVH)."""
     return (static.mat_types <= DIFFUSE_MATERIALS and static.n_lights > 0
-            and not (static.has_textures or static.has_anim or static.has_media
-                     or static.has_bvh or static.sphere_lights)
+            and not (static.has_textures or static.has_media or static.has_bvh
+                     or static.sphere_lights)
             and static.env_kind == 0 and scene.light_alias_prob is not None
             and scene.light_weights is not None)
 
@@ -238,7 +244,7 @@ def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None):
     (from the light to the receiver); one-sided unless the material is
     two-sided, and a spot or ToF light only inside its cone, |cos| >= p0.x
     (the JAX package's integrator.py:241-250). `frame` (m [N, 3, 3], t) is
-    the light's forward map at the ray's time, for an animated light."""
+    the light's forward map at the frame's instant, for an animated light."""
     T = scene.tris
     pl = prim.long()
     e1, e2 = T.e1[pl], T.e2[pl]
@@ -288,7 +294,7 @@ def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, 
               rgl, sr_direction, is_random, geom_len, opt_len, u3, mat_packed, per_light: bool,
               frames=None):
     """NEE toward a picked hot spot (wurblpt.hpp:179-220), up to its shadow ray;
-    `frames` (lights.light_frames) places animated lights at the ray's time.
+    `frames` (lights.light_frames) places animated lights at the frame's instant.
 
     Returns (shadow direction [N, 3], shadow t_max [N]: the light's distance
     shortened by `shadow_identity_eps` on RANDOM lanes, 0 elsewhere, the
@@ -472,6 +478,13 @@ class StepTables(NamedTuple):
     per_light: bool
     # The RGL tables of a lit-class scene with RGL materials (else None).
     rgl: Optional[RGLTables] = None
+    # A hot spot moves (SceneStatic.lights_animated): the light rows above
+    # hold the hot spots where they are at the frame's instant, and
+    # light_frames their forward frames (lights.light_frames), which the
+    # plain versions apply per ray as the torch-op bounce does; both are set
+    # per frame by `step_tables_at`.
+    lights_animated: bool = False
+    light_frames: Optional[tuple] = None
 
 
 def build_step_tables(scene: SceneArrays, static: SceneStatic, mat, pick_area) -> StepTables:
@@ -498,7 +511,30 @@ def build_step_tables(scene: SceneArrays, static: SceneStatic, mat, pick_area) -
                       env=scene.envmap if lit or env_scene(scene, static) else None,
                       mat_types=static.mat_types, n_lights=static.n_lights,
                       per_light=static.per_light_mis,
-                      rgl=scene.rgl if lit and MaterialType.RGL in static.mat_types else None)
+                      rgl=scene.rgl if lit and MaterialType.RGL in static.mat_types else None,
+                      lights_animated=static.lights_animated)
+
+
+def step_tables_at(tables: StepTables, light_frames) -> StepTables:
+    """The step tables of one frame of an animated scene: with moving hot
+    spots (`light_frames`, lights.light_frames at the frame's instant; None:
+    the lights are static and the tables serve every frame), their light
+    rows p0 | e1 | e2 in world space at that instant, each the product the
+    plain versions form per ray, so that the shade reads the plain
+    version's bits."""
+    if light_frames is None:
+        return tables
+    p0, e1, e2 = light_tris(tables.scene, light_frames)
+    return tables._replace(light_tri=torch.cat([p0, e1, e2], -1).contiguous(),
+                           light_frames=light_frames)
+
+
+def _check_light_frames(name, tables: StepTables):
+    """Raise if the hot spots move and `tables` are not a frame's
+    (`step_tables_at`): their light rows would be the rest poses."""
+    if tables.lights_animated and tables.light_frames is None:
+        raise ValueError(f"{name}: the scene's lights move; pass the frame's step tables "
+                         "(step_tables_at)")
 
 
 def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t,
@@ -524,7 +560,7 @@ def shade_diffuse_plain(tables: StepTables, sensor, params, st: LoopState, pixel
     u3 = uniform4(pixel, sample, k, Salt.NEE_SAMPLE)[:, :3]
     ldir, t_shadow, pending, light_pdf_next = light_nee(
         tables.scene, sensor, params, st, hr, mrow, tables.mat_types, None, sr.direction,
-        is_random, geom_len, opt_len, u3, tables.mat, tables.per_light)
+        is_random, geom_len, opt_len, u3, tables.mat, tables.per_light, tables.light_frames)
     new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc, geom_len,
                   opt_len, light_pdf_next)
     n_closest = st.active.sum()
@@ -859,6 +895,7 @@ def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, samp
     n, dev = _check_state("shade_diffuse", st, sample, sample, sensor.n_acc)
     _check_hit("shade_diffuse", n, dev, pixel, t, prim, hr,
                ("position", "normal", "geom_normal", "backside", "mat"))
+    _check_light_frames("shade_diffuse", tables)
     if dev.type == "cpu":
         return shade_diffuse_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
     if not tables.mat_types <= DIFFUSE_MATERIALS or tables.n_lights == 0:

@@ -12,7 +12,8 @@ and its frame pushed back to world with the forward and normal matrices
 On the card the casts (KS1, KS2) and the hit assembly (K3a) read the
 animations' frames at the frame's one instant as rows of `anim_frames`
 and move each ray themselves; their plain versions compute the same rows
-the same way.
+the same way. `AnimCtx` and `make_anim_ctx` keep the JAX package's form
+(a batch of ray times) for the comparisons with it.
 """
 
 from __future__ import annotations
@@ -105,24 +106,26 @@ def anim_forward_frames(anims: AnimTable, aid, time):
     return r3 * tf.scale[..., None, :], r3 / torch.clamp_min(tf.scale[..., None, :], 1e-20), tf
 
 
-def anim_frames(anims: AnimTable, time) -> torch.Tensor:
-    """[B, A, 30] f32 rows of every animation at each time [B]: the inverse
-    frame (r_inv, t_inv) that moves a ray to object space, then the forward
-    and normal matrices (m_fwd, m_nrm) that move a hit's frame back. The
-    casts and the hit assembly read the rows of one instant (B = 1)."""
-    n, a = time.shape[0], anims.count
-    aid = torch.arange(a, dtype=torch.int32, device=time.device)[None, :].expand(n, a)
-    m, mn, tf = anim_forward_frames(anims, aid, time[:, None].expand(n, a))
+def anim_frames(anims: AnimTable, time: float) -> torch.Tensor:
+    """[A, 30] f32 rows of every animation at one instant `time`: the
+    inverse frame (r_inv, t_inv) that moves a ray to object space, then the
+    forward and normal matrices (m_fwd, m_nrm) that move a hit's frame back.
+    The casts and the hit assembly read them, and NEE places a moving light
+    by its animation's t_inv and m_fwd (render/lights.py light_frames)."""
+    a = anims.count
+    aid = torch.arange(a, dtype=torch.int32, device=anims.times.device)
+    m, mn, tf = anim_forward_frames(anims, aid, torch.full((a,), time, dtype=torch.float32,
+                                                           device=aid.device))
     r_inv = _inverse(quat_to_mat3(tf.rotation), tf.scale)
-    return torch.cat([r_inv.reshape(n, a, 9), tf.translation, m.reshape(n, a, 9),
-                      mn.reshape(n, a, 9)], -1).contiguous()
+    return torch.cat([r_inv.reshape(a, 9), tf.translation, m.reshape(a, 9),
+                      mn.reshape(a, 9)], -1).contiguous()
 
 
 def frames_ray_to_object(frames, aid, o, d):
     """The object-space rays of animation `aid` [N] (or [N, P]) from the rows
-    of `anim_frames` at one instant [1, A, 30]: o_a = r_inv (o - t_inv),
-    d_a = r_inv d, as the kernels compute them; also the rows."""
-    rows = frames[0][aid.long()]
+    of `anim_frames` [A, 30]: o_a = r_inv (o - t_inv), d_a = r_inv d, as the
+    kernels compute them; also the rows."""
+    rows = frames[aid.long()]
     r = rows[..., 0:9].reshape(rows.shape[:-1] + (3, 3))
     while o.dim() < rows.dim():
         o, d = o[:, None, :], d[:, None, :]

@@ -99,7 +99,7 @@ from ..render.envmap import (
     env_sample,
     env_sample_plain,
 )
-from ..render.integrator import RenderParams, prepare_scene, render_frame_wavefront
+from ..render.integrator import RenderParams, frame_anim, prepare_scene, render_frame_wavefront
 from ..render.intersect import (
     assemble_hit,
     assemble_hit_plain,
@@ -126,7 +126,7 @@ from ..render.intersect_sweep import (
 )
 from ..render.lights import light_frames, lights_sample
 from ..render.sensor import SensorRGB, SensorTofAmcw
-from ..scene.animation import anim_frames, frames_ray_to_object, make_anim_ctx
+from ..scene.animation import anim_frames, frames_ray_to_object
 from ..scene.ir import MaterialType
 from . import scenes
 
@@ -543,21 +543,20 @@ def check_assemble_hit(bs, ht, rays) -> Dict[str, float]:
 
 
 def frames_at(scene, time: float = ANIM_TIME):
-    """The rows of every animation of `scene` at one instant (anim_frames, B = 1)."""
-    return anim_frames(scene.anims, torch.full((1,), time, dtype=torch.float32,
-                                                device=scene.device))
+    """The rows of every animation of `scene` at one instant (anim_frames)."""
+    return anim_frames(scene.anims, time)
 
 
-def anim_shadow_lanes(scene, ss, frames, rays, seed: int = 2, time: float = ANIM_TIME):
+def anim_shadow_lanes(scene, ss, frames, rays, seed: int = 2):
     """NEE shadow rays of an animated scene: from the first hits of `rays`
     (the plain sweep) toward a point sampled on the light where it is at
-    `time`, shortened as the integrator does; lanes without a hit get t_max = 0."""
+    the instant of `frames` (`frames_at`), shortened as the integrator does;
+    lanes without a hit get t_max = 0."""
     o, d, t_min, t_max = rays
     t, prim, _, _ = closest_sweep_plain(ss, o, d, t_min, t_max, frames)
     pos = o + torch.where(prim >= 0, t, 1.0)[:, None] * d
     u3 = _f32(np.random.default_rng(seed).uniform(size=(o.shape[0], 3)), o.device)
-    ctx = make_anim_ctx(scene.anims, torch.full((1,), time, device=o.device), with_forward=True)
-    ldir, _, ldist, _, _ = lights_sample(scene, pos, u3, light_frames(scene, ctx))
+    ldir, _, ldist, _, _ = lights_sample(scene, pos, u3, light_frames(scene, frames))
     t_vis = torch.clamp_min(ldist * (1.0 - SHADOW_EPS), MIN_HIT)
     return (pos.contiguous(), ldir.contiguous(), t_min, torch.where(prim >= 0, t_vis, 0.0))
 
@@ -862,7 +861,9 @@ def regenerated_lanes(inputs: K4Inputs) -> int:
 def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ssqrt: int = 0,
               m: int = 0, height: int = 0, scene=None, sensor=None, cfg=None) -> K4Inputs:
     """The inputs of K4's kernels on the first block of the Cornell bench
-    frame (131072 lanes), the ToF frame (phase 0, 73728 lanes), the mesh
+    frame (131072 lanes), the animated Cornell frame (cornell_animated, the
+    same lanes at t = ANIM_TIME: the sweeps' casts, K3a, the moving light
+    in the step tables), the ToF frame (phase 0, 73728 lanes), the mesh
     frame (76800 lanes), the envmap frame (131072 lanes), the rtiow frame
     (98304 lanes, through its OpenCV lens) or the city frame (1048576 of its
     2073600 pixels at 1 spp, 360-degree stereo), after `steps` wavefront
@@ -882,8 +883,9 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     lens = None
     own_cfg = CameraConfig()
     eye_distance, max_lanes = 0.0635, 131072
-    if frame == "cornell":
-        own = scenes.cornell_box_ref, scenes.cornell_ref_camera
+    if frame in ("cornell", "cornell_animated"):
+        own = ((scenes.cornell_box_ref if frame == "cornell" else scenes.cornell_box_animated),
+               scenes.cornell_ref_camera)
         size = (BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
         depth, own_sensor = BENCH_DEPTH, SensorRGB()
     elif frame == "tof":
@@ -926,7 +928,10 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     L = B * m
     lanes = wf.block_lanes(0, B, m, ssqrt * ssqrt // m, width, height, ssqrt, device)
     prepared = prepare_scene(scene, static)
-    accel, ht, tables = prepared.accel, prepared.hit, prepared.step
+    anim = frame_anim(scene, static, ANIM_TIME)
+    frames = None if anim is None else anim.frames
+    accel, ht = prepared.accel, prepared.hit
+    tables = wf.step_tables_at(prepared.step, None if anim is None else anim.lights)
     route = wf.k4_route(tables, cfg)
     f32 = dict(dtype=torch.float32, device=device)
     z = lambda *shape: torch.zeros(shape, **f32)  # noqa: E731
@@ -944,11 +949,11 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     for k in range(steps + 1):
         regen_args = (st, sample, k_next, cam, cfg, lanes, True)
         st, sample, k_next, t_max = wf.regen_plain(*regen_args)
-        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min[:L], t_max)
-        hr = assemble_hit(ht, st.o, st.d, t, prim, u, v)
+        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min[:L], t_max, frames)
+        hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
         shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
         st, so, sd, stmax, pending = route.shade_plain(*shade_args)
-        occ = None if stmax is None else scene_any_hit(accel, so, sd, t_min, stmax)
+        occ = None if stmax is None else scene_any_hit(accel, so, sd, t_min, stmax, frames)
         resolve_args = (st.acc, pending, occ, st.active, k_next, lanes)
         if k == steps:
             break
