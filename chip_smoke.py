@@ -19,7 +19,10 @@ Phases, each a function, any failure exits non-zero and names its phase:
    (one riding the short box's turn), and ROADMAP C.1's brute-force fields:
    sphere_field() with 3000 and 4096 spheres (the K1 form's 6144 and 8192
    columns) and tri_sphere_field() (2000 triangles and 40 spheres, 8448
-   columns: the sweeps).
+   columns: the sweeps); and the two scenes cast through a BVH with sphere
+   and object-space leaves: rtiow(n=22, use_bvh=True) (the reference's
+   full RTIOW field, 488 spheres) and cornell_box_animated(spheres=True,
+   use_bvh=True) (36 triangles and 2 spheres, the boxes swept at t = 0.5).
 3. kernels - each kernel against its plain PyTorch version on the card, at
    its path's shapes, with the tolerances of utils/kernel_check.py; each
    kernel's wrapper-call time beside the plain version's and, where one
@@ -50,7 +53,12 @@ Phases, each a function, any failure exits non-zero and names its phase:
    where it is at t = 0.5), tri_sphere_field's camera rays (static sweeps)
    and the animated Cornell box with spheres (the camera rays: the sphere
    branches in object space); KS1, KS2 and K3a timed on the
-   cornell_animated block.
+   cornell_animated block. K5 and K6 with sphere rows and object-space
+   rays, bit-equal, on the rtiow_bvh block (98304 camera rays, random rays,
+   sky shadow rays; sphere rows, world rays) and the cornell_animated_bvh
+   block (131072 camera rays, random rays and the moving light's NEE
+   shadow rays, with the frame's animation rows and, on the same rows at
+   rest, without them), each also with every lane dead; timed there.
 4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
    components, SensorRGB) through render_frame_wavefront on the GPU. K1,
    K2, K3 and K4 must be launched and P0 not, the image must be finite, its
@@ -99,18 +107,37 @@ Phases, each a function, any failure exits non-zero and names its phase:
    K3 nor P0; the frame held to its JAX reference as in phase 4
    (`jax_frame_reference.py cornell_animated`), at most 12 launches per
    step of the loop and 400 per frame.
+11. rtiow_bvh path - the full RTIOW field in a BVH (rtiow(n=22,
+   use_bvh=True), rtiow's settings: 192 x 128, 16 spp, 8 path components,
+   the OpenCV lens, the constant sky) through K4's env class: the lens
+   regeneration, K5 (its sphere rows), K3, the env shade (constant sky,
+   glass) and the resolve must be launched, and neither K1, KS1, K6 (no
+   shadow ray), P0 nor K8's stand-alone kernels; the frame held to its JAX
+   reference (`jax_frame_reference.py rtiow_bvh`: the JAX package's BVH
+   route) as in phase 4, at most 12 launches per step of the frame.
+12. cornell_animated_bvh path - the animated box with its two spheres in a
+   BVH swept at t = 0.5, rendered as cornell_animated through K4's diffuse
+   class: the regeneration, K5 and K6 (object-space rays over triangle and
+   sphere rows, static and animated), K3a, the diffuse shade and the
+   resolve must be launched, and neither K1, K2, K3, KS1, KS2 nor P0; the
+   frame held to its JAX reference (`jax_frame_reference.py
+   cornell_animated_bvh`), at most 7.00 launches per step of the loop and
+   400 per frame.
 
 The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
 (regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the cornell_animated
 frame the same class around the sweeps (regeneration, KS1, K3a,
-wpt_shade_diffuse, KS2, resolve), the mesh frame K4's
+wpt_shade_diffuse, KS2, resolve), the cornell_animated_bvh frame around K5
+and K6 in object space (regeneration, K5, K3a, wpt_shade_diffuse, K6,
+resolve), the rtiow_bvh frame the env class around K5's sphere rows
+(regeneration, K5, K3, wpt_shade_env, resolve), the mesh frame K4's
 env class (regeneration, K5, K3, wpt_shade_env, K6, resolve), the envmap
 and rtiow frames the env class on the brute-force casts (regeneration, K1,
 K3, wpt_shade_env, K2 where the sky is importance-sampled, resolve), the
 city frame K4's lit class (wpt_regen_surround, K5, K3, wpt_shade_lit, K6 on
 2 x 1048576 shadow rays, the resolve of two pending deposits per lane).
 The kernels phase holds each K4 kernel against its plain version on the
-first block of the seven frames after 2 steps (lanes live, dead and, where
+first block of the nine frames after 2 steps (lanes live, dead and, where
 a lane has samples left, due for regeneration) and on the city block as
 the frame starts it (at 1 spp the one step where its lanes regenerate: the
 surround regeneration is checked and timed there), the env shade also
@@ -119,8 +146,9 @@ with the ToF sensor on the city block, the regeneration also with the
 RADIAL_ONLY and RADIAL_AND_PLANAR lenses on the rtiow block; a
 regeneration is timed only on lanes that regenerate. K5 and K6 are also
 held against their plain versions (bit-equal) and timed beside their bound
-at every cast of the mesh frame (4 steps) and the city frame (2 blocks of 4
-steps), on the rays each step gives, with each cast's live lanes
+at every cast of the mesh frame (4 steps), the city frame (2 blocks of 4
+steps), the rtiow_bvh frame and the cornell_animated_bvh frame, on the
+rays each step gives, with each cast's live lanes
 (`utils/cast_steps.py`); the lit shade and the surround regeneration at
 every step of the city frame and the regeneration at every step of the
 Cornell, mesh and rtiow frames' first block likewise, with their live and
@@ -151,8 +179,12 @@ the city path; the cube and constant K8 records the env shade on the
 envmap and rtiow paths; K7's two records and P0's (the material rows) the
 lit shade on the city path. Each shade, regeneration and resolve record
 counts those of its own paths (the diffuse shade, the pinhole regeneration
-and the one-deposit resolve also the cornell_animated path's); the sweeps'
-and K3a's records those of the cornell_animated path.
+and the one-deposit resolve also the two animated paths', the lens
+regeneration and the constant-sky env shade also the rtiow_bvh path's);
+the sweeps' records those of the cornell_animated path, K3a's those of
+both animated paths; K5's and K6's static triangle records those of the
+mesh and city paths, their sphere-row record the rtiow_bvh path's and
+their object-space records the cornell_animated_bvh path's.
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -172,7 +204,7 @@ DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
 K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path",
-            "cornell_animated path")
+            "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path")
 PATHS = K4_PATHS
 # Kernel launches per step of a K4 frame's loop, and per step of the frame
 # with its set-up (all but the mesh frame, whose 4 steps carry ~31 launches of
@@ -183,6 +215,10 @@ MESH_MAX_FRAME_LAUNCHES = 100          # kernel launches of one mesh frame
 # set-up and, once per frame, the animations' rows at the frame's instant
 # and the moving light's rows (~180 PyTorch launches)
 ANIM_MAX_FRAME_LAUNCHES = 400
+# kernel launches per step of the cornell_animated_bvh frame's loop: the
+# regeneration, K5, K3a, the diffuse shade, K6 and the resolve, as on
+# cornell_animated (K5's and K6's lane counters are memsets, not kernels)
+ANIM_BVH_LOOP_LAUNCHES = 7.0
 PROFILE_TRIES = 10                     # profiles of a frame taken while the profiler loses events
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
@@ -194,9 +230,21 @@ KERNELS = {
     "assemble_hit": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
                      "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit",), PATHS),
     "bvh_closest_hit": ("wurblpt_tpu_torch/csrc/bvh_closest.cu",
-                        "wurblpt_tpu/accel/traverse.py:511", ("bvh_closest_hit",), PATHS),
+                        "wurblpt_tpu/accel/traverse.py:511", ("bvh_closest_hit",),
+                        ("mesh path", "city path")),
     "bvh_any_hit": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
-                    "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",), PATHS),
+                    "wurblpt_tpu/accel/traverse.py:597", ("bvh_any_hit",),
+                    ("mesh path", "city path")),
+    # B.1.3: the leaf branches, K5's <spheres, animated> instantiations
+    "bvh_closest_hit_spheres": ("wurblpt_tpu_torch/csrc/bvh_closest.cu",
+                                "wurblpt_tpu/accel/traverse.py:165", ("bvh_closest_hit",),
+                                ("rtiow_bvh path",)),
+    "bvh_closest_hit_object": ("wurblpt_tpu_torch/csrc/bvh_closest.cu",
+                               "wurblpt_tpu/accel/traverse.py:152", ("bvh_closest_hit",),
+                               ("cornell_animated_bvh path",)),
+    "bvh_any_hit_object": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
+                           "wurblpt_tpu/accel/traverse.py:152", ("bvh_any_hit",),
+                           ("cornell_animated_bvh path",)),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166", ENV_ALL,
                PATHS),
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
@@ -211,13 +259,15 @@ KERNELS = {
                    ("row_gather",), PATHS),
     "regen_pinhole": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:973",
                       ("regen_pinhole",), ("main path", "mesh path", "envmap path", "tof path",
-                                           "cornell_animated path")),
+                                           "cornell_animated path",
+                                           "cornell_animated_bvh path")),
     "regen_lens": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:140",
-                   ("regen_pinhole",), ("rtiow path",)),
+                   ("regen_pinhole",), ("rtiow path", "rtiow_bvh path")),
     "regen_surround": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:244",
                        ("regen_surround",), ("city path",)),
     "shade_diffuse": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
-                      ("shade_diffuse",), ("main path", "tof path", "cornell_animated path")),
+                      ("shade_diffuse",), ("main path", "tof path", "cornell_animated path",
+                                           "cornell_animated_bvh path")),
     "shade_env": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                   ("shade_env",), ("mesh path",)),
     "shade_env_glass_cube": ("wurblpt_tpu_torch/csrc/wavefront.cu",
@@ -225,7 +275,7 @@ KERNELS = {
                              ("envmap path",)),
     "shade_env_glass_constant": ("wurblpt_tpu_torch/csrc/wavefront.cu",
                                  "wurblpt_tpu/render/integrator.py:400", ("shade_env",),
-                                 ("rtiow path",)),
+                                 ("rtiow path", "rtiow_bvh path")),
     "shade_lit": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                   ("shade_lit",), ("city path",)),
     "nee_resolve": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:648",
@@ -245,14 +295,16 @@ KERNELS = {
 # path, with its launches there.
 INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
           "envmap_cube": (("shade_env", "envmap path"),),
-          "envmap_constant": (("shade_env", "rtiow path"),),
+          "envmap_constant": (("shade_env", "rtiow path"), ("shade_env", "rtiow_bvh path")),
           "rgl_eval": (("shade_lit", "city path"),), "rgl_sample": (("shade_lit", "city path"),),
           "row_gather": (("shade_lit", "city path"),)}
 # The record of each K4 frame's shade, regeneration and resolve, where not
 # the kernel's own name (the mesh, Cornell and ToF frames).
 K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
               ("shade_env", "rtiow"): "shade_env_glass_constant",
+              ("shade_env", "rtiow_bvh"): "shade_env_glass_constant",
               ("regen_pinhole", "rtiow"): "regen_lens",
+              ("regen_pinhole", "rtiow_bvh"): "regen_lens",
               ("nee_resolve", "city"): "nee_resolve_lit"}
 MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
              "nee_resolve")
@@ -271,6 +323,16 @@ RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_
 ANIM_PATH = ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse", "sweep_any",
              "nee_resolve")
 ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "row_gather", "shade_env", "shade_lit")
+# The BVH paths: the full RTIOW field on the env class around K5's sphere
+# rows (no shadow ray: no K6), the animated box with spheres on the diffuse
+# class around K5/K6 in object space and K3a; neither takes K1/K2 or the sweeps.
+RTIOW_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "nee_resolve")
+RTIOW_BVH_ABSENT = ("closest_hit", "any_hit", "sweep_closest", "sweep_any", "bvh_any_hit",
+                    "row_gather") + ENV_ALL
+ANIM_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_anim", "shade_diffuse",
+                 "bvh_any_hit", "nee_resolve")
+ANIM_BVH_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "sweep_closest", "sweep_any",
+                   "row_gather", "shade_env", "shade_lit")
 # The K4 kernels that update the lane state in place (render/wavefront.py).
 IN_PLACE = ("regen_pinhole", "regen_surround", "shade_lit")
 
@@ -430,6 +492,7 @@ def phase_kernels(scenes_on_card):
                         lambda: traverse.bvh_any_hit_plain(bvh, *eshadow),
                         kc.bvh_work(bvh, eshadow, any_hit=True), None),
     }, errs, n)
+    records += _bvh_leaf_records(scenes_on_card)
 
     # K8's equirect branch on the city frame's block and its night sky (the
     # mesh path's env shade and the city path's lit shade read their skies
@@ -562,10 +625,70 @@ def _sweep_records(scenes_on_card, fcam, errs):
     }, sweep_errs, o.shape[0])
 
 
+def _bvh_leaf_records(scenes_on_card):
+    """K5 and K6 with sphere rows and object-space rays (B.1.3) against their
+    plain versions, bit-equal: on the rtiow_bvh block (camera, random and
+    sky shadow rays; sphere rows, world rays) and the cornell_animated_bvh
+    block (camera, random and the moving light's NEE shadow rays, with the
+    frame's animation rows, and without them on the same rows at rest:
+    every instantiation of the walk), each also with every lane dead.
+    Timed: K5 on the rtiow_bvh camera rays, K5 and K6 with animation rows
+    on the cornell_animated_bvh camera and shadow rays."""
+    from wurblpt_tpu_torch.accel import traverse
+
+    rt = scenes_on_card["rtiow_bvh"].bvh
+    an_scene = scenes_on_card["cornell_animated_bvh"]
+    an, fr = an_scene.bvh, kc.frames_at(an_scene)
+    at_rest = an._replace(n_anims=1)     # the same rows as a static tree
+    rt_cam = kc.rtiow_camera_lanes(DEVICE)
+    rt_rnd = kc.rtiow_bvh_random_lanes(rt_cam[0].shape[0], DEVICE)
+    rt_shadow = kc.sky_shadow_lanes(lambda *r: traverse.bvh_closest_hit_plain(rt, *r), rt_cam)
+    an_cam = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, DEVICE)
+    an_rnd = kc.random_lanes(an_cam[0].shape[0], DEVICE)
+    an_shadow = kc.anim_shadow_lanes(an_scene, an, fr, an_cam)
+
+    def dead(rays):
+        return rays[:3] + (torch.zeros_like(rays[3]),)
+
+    spheres = {"rtiow_bvh camera, sphere rows": (rt, rt_cam, None),
+               "rtiow_bvh random": (rt, rt_rnd, None),
+               "rtiow_bvh every lane dead": (rt, dead(rt_rnd), None)}
+    objects = {"cornell_animated_bvh camera, object rays": (an, an_cam, fr),
+               "cornell_animated_bvh random, object rays": (an, an_rnd, fr),
+               "cornell_animated_bvh every lane dead": (an, dead(an_rnd), fr),
+               "cornell_animated_bvh camera, rows at rest": (at_rest, an_cam, None),
+               "cornell_animated_bvh random, rows at rest": (at_rest, an_rnd, None)}
+    any_ = {"rtiow_bvh sky shadow, sphere rows": (rt, rt_shadow, None),
+            "rtiow_bvh random": (rt, rt_rnd, None),
+            "cornell_animated_bvh moving-light shadow, object rays": (an, an_shadow, fr),
+            "cornell_animated_bvh random, object rays": (an, an_rnd, fr),
+            "cornell_animated_bvh every lane dead": (an, dead(an_rnd), fr),
+            "cornell_animated_bvh moving-light shadow, rows at rest": (at_rest, an_shadow, None),
+            "cornell_animated_bvh random, rows at rest": (at_rest, an_rnd, None)}
+    errs = _run_checks((
+        ("bvh_closest_hit_spheres", kc.check_bvh_closest_hit, spheres),
+        ("bvh_closest_hit_object", kc.check_bvh_closest_hit, objects),
+        ("bvh_any_hit_object", kc.check_bvh_any_hit, any_)))
+    records = _timed_records({
+        "bvh_closest_hit_spheres": (lambda: traverse.bvh_closest_hit(rt, *rt_cam),
+                                    lambda: traverse.bvh_closest_hit_plain(rt, *rt_cam),
+                                    kc.bvh_work(rt, rt_cam, any_hit=False), None),
+    }, errs, rt_cam[0].shape[0])
+    records += _timed_records({
+        "bvh_closest_hit_object": (lambda: traverse.bvh_closest_hit(an, *an_cam, fr),
+                                   lambda: traverse.bvh_closest_hit_plain(an, *an_cam, fr),
+                                   kc.bvh_work(an, an_cam, any_hit=False, frames=fr), None),
+        "bvh_any_hit_object": (lambda: traverse.bvh_any_hit(an, *an_shadow, fr),
+                               lambda: traverse.bvh_any_hit_plain(an, *an_shadow, fr),
+                               kc.bvh_work(an, an_shadow, any_hit=True, frames=fr), None),
+    }, errs, an_cam[0].shape[0])
+    return records
+
+
 def _k4_records(scenes_on_card):
     """K4's kernels against their plain versions on the first block after 2
-    steps of the Cornell, cornell_animated, ToF, mesh, envmap, rtiow and city
-    frames, and on
+    steps of the Cornell, cornell_animated, cornell_animated_bvh, rtiow_bvh,
+    ToF, mesh, envmap, rtiow and city frames, and on
     the city block as the frame starts it (at 1 spp only that step
     regenerates, every lane); the env shade also seen by the ToF sensor on
     the mesh, envmap and rtiow blocks (its other instantiations), the lit
@@ -583,7 +706,9 @@ def _k4_records(scenes_on_card):
 
     tof, rgb = SensorTofAmcw(), None
     cases = [("cornell", "cornell", rgb, None, 2),
-             ("cornell_animated", "cornell_animated", rgb, None, 2), ("tof", "tof", rgb, None, 2),
+             ("cornell_animated", "cornell_animated", rgb, None, 2),
+             ("cornell_animated_bvh", "cornell_animated_bvh", rgb, None, 2),
+             ("rtiow_bvh", "rtiow_bvh", rgb, None, 2), ("tof", "tof", rgb, None, 2),
              ("mesh", "mesh", rgb, None, 2), ("mesh, ToF sensor,", "mesh", tof, None, 2),
              ("envmap", "envmap", rgb, None, 2), ("envmap, ToF sensor,", "envmap", tof, None, 2),
              ("rtiow", "rtiow", rgb, None, 2), ("rtiow, ToF sensor,", "rtiow", tof, None, 2),
@@ -638,13 +763,16 @@ def _k4_records(scenes_on_card):
 
 
 def _frame_casts(scenes_on_card):
-    """K5 and K6 at every cast of the mesh frame (4 steps) and the city frame
-    (2 blocks of 4 steps), on the rays each step really gives: each cast held
-    against its plain version (bit-equal), its wrapper-call time beside the
-    bound of the same work (kc.bvh_work), with its lanes and live lanes."""
+    """K5 and K6 at every cast of the mesh frame (4 steps), the city frame
+    (2 blocks of 4 steps), the rtiow_bvh frame and the cornell_animated_bvh
+    frame, on the rays each step really gives: each cast held against its
+    plain version (bit-equal), its wrapper-call time beside the bound of the
+    same work (kc.bvh_work), with its lanes and live lanes."""
     from wurblpt_tpu_torch.utils import cast_steps
 
-    for frame, make in (("mesh", kc.mesh_frame), ("city", kc.city_frame)):
+    for frame, make in (("mesh", kc.mesh_frame), ("city", kc.city_frame),
+                        ("rtiow_bvh", kc.rtiow_bvh_frame),
+                        ("cornell_animated_bvh", kc.cornell_animated_bvh_frame)):
         render = make(DEVICE, scenes_on_card[frame])
         render()
         rows = cast_steps.cast_rows(frame, render, DEVICE)
@@ -871,6 +999,34 @@ def phase_anim_path(scene):
     return launches
 
 
+def phase_rtiow_bvh_path(scene):
+    render = kc.rtiow_bvh_frame(DEVICE, scene)
+    img, stats, launches, times = _drive("rtiow_bvh path", render, RTIOW_BVH_PATH,
+                                         RTIOW_BVH_ABSENT)
+    print(f"rtiow_bvh path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.RTIOW_BVH_REF_MEAN}), stats {stats} "
+          f"(reference {list(kc.RTIOW_BVH_REF_STATS)})")
+    kc.check_rtiow_bvh_frame(img, stats)
+    _report("rtiow_bvh path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2,
+            render, kc.rtiow_bvh_frame(DEVICE, scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
+            K4_MAX_LAUNCHES_PER_STEP)
+    return launches
+
+
+def phase_anim_bvh_path(scene):
+    render = kc.cornell_animated_bvh_frame(DEVICE, scene)
+    img, stats, launches, times = _drive("cornell_animated_bvh path", render, ANIM_BVH_PATH,
+                                         ANIM_BVH_ABSENT)
+    print(f"cornell_animated_bvh path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.ANIM_BVH_REF_MEAN}), stats {stats} "
+          f"(reference {list(kc.ANIM_BVH_REF_STATS)})")
+    kc.check_cornell_animated_bvh_frame(img, stats)
+    _report("cornell_animated_bvh path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2,
+            render, kc.cornell_animated_bvh_frame(DEVICE, scene, depth=1),
+            max_loop_per_step=ANIM_BVH_LOOP_LAUNCHES, max_frame=ANIM_MAX_FRAME_LAUNCHES)
+    return launches
+
+
 def phase_scenes():
     from wurblpt_tpu_torch.utils import cast_steps, scenes
 
@@ -885,7 +1041,11 @@ def phase_scenes():
                           lambda: scenes.cornell_box_animated(DEVICE, spheres=True)),
                          ("sphere_field 3000", lambda: scenes.sphere_field(3000, device=DEVICE)),
                          ("sphere_field 4096", lambda: scenes.sphere_field(4096, device=DEVICE)),
-                         ("tri_sphere_field", lambda: scenes.tri_sphere_field(device=DEVICE))):
+                         ("tri_sphere_field", lambda: scenes.tri_sphere_field(device=DEVICE)),
+                         ("rtiow_bvh", lambda: scenes.rtiow(n=kc.RTIOW_BVH_N, device=DEVICE,
+                                                            use_bvh=True)),
+                         ("cornell_animated_bvh", lambda: scenes.cornell_box_animated(
+                             DEVICE, spheres=True, use_bvh=True))):
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
@@ -937,7 +1097,10 @@ def main() -> int:
                         ("rtiow path", lambda: phase_rtiow_path(out["scenes"]["rtiow"])),
                         ("tof path", lambda: phase_tof_path(out["scenes"]["tof"])),
                         ("cornell_animated path",
-                         lambda: phase_anim_path(out["scenes"]["cornell_animated"]))):
+                         lambda: phase_anim_path(out["scenes"]["cornell_animated"])),
+                        ("rtiow_bvh path", lambda: phase_rtiow_bvh_path(out["scenes"]["rtiow_bvh"])),
+                        ("cornell_animated_bvh path",
+                         lambda: phase_anim_bvh_path(out["scenes"]["cornell_animated_bvh"]))):
         try:
             out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run

@@ -7,6 +7,8 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow     # under a minute
     JAX_PLATFORMS=cpu python jax_frame_reference.py tof       # under a minute
     JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated
+    JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow_bvh
+    JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated_bvh
 
 city is bench config city_many_lights (bench.py bench_city_many_lights):
 city_night(seed=7), 1920x1080, 360-degree stereo, 1 spp, 4 path components,
@@ -42,6 +44,15 @@ side), rendered with render_frame_wavefront at t0 = t1 = 0.5 with
 bench.py's Cornell settings: 128x128, 16 spp, 8 path components, the
 reference camera, SensorRGB, 131072 lanes. The JAX package casts it
 through its sweeps with object-space rays (36 triangles, no BVH).
+
+rtiow_bvh is the reference RTIOW field at its own size, rtiow(seed=7, n=22)
+(484 small spheres, the ground sphere and the three large ones), built
+with use_bvh=True, rendered with rtiow's camera and settings: the JAX
+package casts it through its BVH walk with sphere leaves.
+cornell_animated_bvh is the animated Cornell box with its two spheres
+(`jax_cornell_animated(spheres=True)`), built with use_bvh=True and the
+tree's boxes swept over [0.5, 0.5], rendered as cornell_animated: the JAX
+package casts it through its BVH walk with object-space leaf rays.
 """
 
 from __future__ import annotations
@@ -70,12 +81,13 @@ def _frame(scene, cam, cfg, width, height, ssqrt, depth, host_blocks=False, t=0.
     return render
 
 
-def jax_cornell_animated(spheres=False):
+def jax_cornell_animated(spheres=False, use_bvh=False, t=0.0):
     """The animated Cornell box as the JAX package's builder makes it: the
     reference box (cornell_box_ref) with the port's keyframes
     (wurblpt_tpu_torch.utils.scenes.cornell_animations), animation ids 1-3
     for the short box, the tall box and the light; with `spheres`, the
-    port's two spheres (scenes.CORNELL_ANIM_SPHERES). No BVH."""
+    port's two spheres (scenes.CORNELL_ANIM_SPHERES). No BVH unless
+    `use_bvh`; a BVH's boxes are swept over the build interval [t, t]."""
     import numpy as np
 
     from wurblpt_tpu.core.transform import Transformation
@@ -104,7 +116,7 @@ def jax_cornell_animated(spheres=False):
     if spheres:
         for c, r, a in port_scenes.CORNELL_ANIM_SPHERES:
             scene.take_sphere(B.SphereObject(c, r, mats["white"], animation=a or None))
-    return scene.build(use_bvh=False)
+    return scene.build(use_bvh=use_bvh, t0=t, t1=t)
 
 
 def _cornell_animated():
@@ -113,6 +125,17 @@ def _cornell_animated():
     from wurblpt_tpu_torch.utils import kernel_check as kc
 
     scene = jax_cornell_animated()
+    pose, vfov = scenes.cornell_ref_camera()
+    cam = make_camera(transformation=pose, vfov_deg=vfov, width=128, height=128)
+    return scene, _frame(scene, cam, CameraConfig(), 128, 128, 4, 8, t=kc.ANIM_TIME)
+
+
+def _cornell_animated_bvh():
+    from wurblpt_tpu import CameraConfig, make_camera
+    from wurblpt_tpu.utils import scenes
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    scene = jax_cornell_animated(spheres=True, use_bvh=True, t=kc.ANIM_TIME)
     pose, vfov = scenes.cornell_ref_camera()
     cam = make_camera(transformation=pose, vfov_deg=vfov, width=128, height=128)
     return scene, _frame(scene, cam, CameraConfig(), 128, 128, 4, 8, t=kc.ANIM_TIME)
@@ -142,13 +165,13 @@ def _envmap():
     return scene, _frame(scene, cam, CameraConfig(), 128, 128, 4, 8)
 
 
-def _rtiow():
+def _rtiow(n=6, use_bvh=None):
     from wurblpt_tpu import CameraConfig, make_camera
     from wurblpt_tpu.core.transform import from_lookat
     from wurblpt_tpu.render.camera import DistortionModel
     from wurblpt_tpu.utils import scenes
 
-    scene = scenes.rtiow().build()
+    scene = scenes.rtiow(n=n).build(use_bvh=use_bvh)
     cam = make_camera(transformation=from_lookat((13.0, 2.0, 3.0), (0.0, 0.0, 0.0)),
                       vfov_deg=30.0, width=192, height=128,
                       dist_k=(-0.1, 0.02, 0.0, 0.0, 0.0, 0.0), dist_p=(0.001, -0.001))
@@ -211,7 +234,9 @@ def _tof_report():
 
 
 FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
-          "cornell_animated": _cornell_animated}
+          "cornell_animated": _cornell_animated,
+          "rtiow_bvh": lambda: _rtiow(n=22, use_bvh=True),
+          "cornell_animated_bvh": _cornell_animated_bvh}
 
 
 def main():
@@ -231,6 +256,7 @@ def main():
     print(json.dumps({"frame": name, "n_tris": int(scene.n_tris),
                       "n_spheres": int(scene.n_spheres),
                       "n_lights": int(scene.light_prims.shape[0]),
+                      "bvh": scene.bvh is not None,
                       "mean": float(img.astype(np.float64).mean()),
                       "stats": [int(x) for x in np.asarray(stats)], "max_lanes": MAX_LANES,
                       "build_s": t_build, "render_s": time.perf_counter() - t0}))

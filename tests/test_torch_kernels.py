@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from wurblpt_tpu_torch import native
+from wurblpt_tpu_torch.accel import traverse
 from wurblpt_tpu_torch.materials.rgl import (
     load_rgl_material,
     rgl_eval,
@@ -190,8 +191,8 @@ def _city_later_casts(device):
     spp its lanes are never refilled, so the live ones are sparse and
     incoherent."""
     casts = cast_steps.record_casts(kc.city_frame(device, _city(device)))
-    closest = [rays for name, _, rays in casts if name == "bvh_closest_hit"]
-    shadow = [rays for name, _, rays in casts if name == "bvh_any_hit"]
+    closest = [rays for name, _, rays, _ in casts if name == "bvh_closest_hit"]
+    shadow = [rays for name, _, rays, _ in casts if name == "bvh_any_hit"]
     return closest[2], shadow[2]
 
 
@@ -244,6 +245,81 @@ def test_bvh_any_hit_kernel_matches_plain(gpu, kind):
         assert res["occluded"] == 0
     else:
         assert 0 < res["occluded"] < res["live"]
+
+
+@functools.lru_cache(maxsize=None)
+def _leaf_case(which, device):
+    """(bvh, the frame's animation rows or None, camera rays, random rays,
+    shadow rays) of the two BVH paths' scenes: the full RTIOW field (sphere
+    rows) and the animated box with spheres (triangle and sphere rows,
+    static and animated; the moving light's NEE shadow rays)."""
+    if which == "rtiow_bvh":
+        scene = scenes.rtiow(n=kc.RTIOW_BVH_N, device=device, use_bvh=True)
+        cam = kc.rtiow_camera_lanes(device)
+        rnd = kc.rtiow_bvh_random_lanes(cam[0].shape[0], device)
+        shadow = kc.sky_shadow_lanes(
+            lambda *r: traverse.bvh_closest_hit_plain(scene.bvh, *r), cam)
+        return scene.bvh, None, cam, rnd, shadow
+    scene = scenes.cornell_box_animated(device, spheres=True, use_bvh=True)
+    fr = kc.frames_at(scene)
+    cam = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device)
+    rnd = kc.random_lanes(cam[0].shape[0], device)
+    return scene.bvh, fr, cam, rnd, kc.anim_shadow_lanes(scene, scene.bvh, fr, cam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["rtiow_bvh", "cornell_animated_bvh"])
+@pytest.mark.parametrize("kind", ["camera", "random", "shadow", "every lane dead"])
+def test_bvh_kernels_match_plain_on_sphere_and_object_space_rows(gpu, which, kind):
+    """K5 (and K6 on the same rays) on the two BVH paths' blocks, with and
+    without the animations' rows (the static instantiations on the animated
+    box walk its rows at rest): bit-equal."""
+    bvh, fr, cam, rnd, shadow = _leaf_case(which, gpu)
+    rays = {"camera": cam, "random": rnd, "shadow": shadow,
+            "every lane dead": rnd[:3] + (torch.zeros_like(rnd[3]),)}[kind]
+    for frames in ((None,) if fr is None else (fr, None)):
+        if frames is None and bvh.n_anims > 1:
+            # the tree's object-space rows at rest: the static walk of the same rows
+            bvh_at_rest = bvh._replace(n_anims=1)
+        else:
+            bvh_at_rest = bvh
+        before = dict(native.LAUNCHES)
+        res = kc.check_bvh_closest_hit(bvh_at_rest, rays, frames)
+        occ = kc.check_bvh_any_hit(bvh_at_rest, rays, frames)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["bvh_closest_hit"] == before["bvh_closest_hit"] + 1
+        assert native.LAUNCHES["bvh_any_hit"] == before["bvh_any_hit"] + 1
+        if kind == "every lane dead":
+            assert res["hits"] == 0 and occ["occluded"] == 0
+        else:
+            assert res["hits"] > 0 and res["sphere hits"] > 0
+
+
+def test_bvh_bound_charges_spheres_and_object_rays_by_branch():
+    """kc.bvh_work on the animated box with spheres: its bytes count 44 B
+    per triangle row and 24 B per sphere row with animation ids, and the
+    frame rows; its flops the node visits, the triangle and sphere tests
+    and the object rays the plain walk counts, each at its own price; the
+    same rays without animation rows count no object ray and 40 / 20 B."""
+    scene = scenes.cornell_box_animated("cpu", spheres=True, use_bvh=True)
+    bvh, fr = scene.bvh, kc.frames_at(scene)
+    o, d, t_min, t_max = kc.random_lanes(512, "cpu")
+    rays = (o, d, t_min, t_max)
+    c = traverse.bvh_walk_counts(bvh, *rays, any_hit=False, frames=fr)
+    assert c["nodes"] > 0 and c["tri_tests"] > 0 and c["sphere_tests"] > 0
+    assert 0 < c["object_rays"] <= c["tri_tests"] + c["sphere_tests"]
+    n_bytes, flops = kc.bvh_work(bvh, rays, any_hit=False, frames=fr)
+    live = int((t_max > t_min).sum())
+    table = bvh.nodes.numel() * 4 + 44 * 36 + 24 * 2 + fr.numel() * 4
+    assert n_bytes == live * 24 + 512 * (8 + 16) + table
+    assert flops == (48 * c["nodes"] + kc.BVH_TRI_FLOPS * c["tri_tests"]
+                     + kc.SWEEP_SPHERE_FLOPS * c["sphere_tests"]
+                     + (kc.OBJECT_RAY_FLOPS + kc.SHEAR_FLOPS) * c["object_rays"])
+    static = bvh._replace(n_anims=1)
+    c0 = traverse.bvh_walk_counts(static, *rays, any_hit=True)
+    assert c0["object_rays"] == 0
+    n0, _ = kc.bvh_work(static, rays, any_hit=True)
+    assert n0 == live * 24 + 512 * (8 + 1) + bvh.nodes.numel() * 4 + 40 * 36 + 20 * 2
 
 
 @pytest.mark.cuda
@@ -392,8 +468,8 @@ def test_bounds_read_each_table_once(kernel):
     else:
         bvh = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,
                                    device="cpu").bvh
-        table = bvh.nodes.numel() * 4 + 40 * bvh.tri_id.shape[0]
-        assert table < sum(x.numel() * x.element_size() for x in (bvh.nodes, bvh.tri_v))
+        table = bvh.nodes.numel() * 4 + 40 * bvh.prim_id.shape[0]
+        assert table < sum(x.numel() * x.element_size() for x in (bvh.nodes, bvh.prim_v))
         any_hit = kernel == "bvh_any_hit"
         o, d, t_min, t_max = kc.terrain_random_lanes(512, "cpu")
         t_max = torch.where(torch.arange(512) % 3 == 0, t_min, t_max)   # every third lane dead

@@ -19,8 +19,17 @@ one shutter instant (t0 = t1), against the JAX package.
 * Animated hot spots: NEE samples and weights the light where it is at the
   frame's instant (`lights.light_frames`), with the mixture pdf (per-light MIS
   needs static lights), against the JAX package's.
-* The refusals: a shutter interval t0 != t1 (motion blur, ROADMAP A.3),
-  animation in a BVH scene (B.1.3), an animated camera (A.7).
+* The BVH: cornell_animated_bvh (the animated box with its two spheres,
+  one riding the short box's turn, in a BVH swept at t = 0.5;
+  `jax_frame_reference.jax_cornell_animated(spheres=True, use_bvh=True)`)
+  at 24 x 24, 4 spp, 8 path components, t = 0.5: the JAX package casts it
+  through its BVH walk with object-space leaf rays, and so does the port
+  (K5/K6's plain versions with the frame's animation rows), on K4's diffuse
+  class. The cast counters are equal; pixels agree to rtol 1e-3 / atol
+  1e-5. An animated quad in a BVH is cast where the JAX package casts it.
+* The refusals: a shutter interval t0 != t1 (motion blur, ROADMAP A.3), an
+  animated camera (A.7); an animated scene stays off K4's env and lit
+  classes (the torch-op bounce renders it).
 """
 
 import sys
@@ -258,25 +267,99 @@ def test_motion_blur_is_refused():
                                SensorRGB(), 8, 8, 1, device="cpu", t0=0.0, t1=1.0)
 
 
-def test_animation_in_a_bvh_scene_is_refused():
-    """The port's BVH walks world rays (its object-space leaves are B.1.3):
-    such a scene is refused at render start, never cast brute-force."""
+def test_animation_in_a_bvh_scene_is_cast_and_rendered_as_jax():
+    """An animated quad in a BVH (the scene the slice refused before the
+    BVH's object-space leaves), swept over [0.5, 0.5]: it passes the slice,
+    its camera rays at t = 0.5 hit the moved quad where the JAX package's
+    BVH walk with object-space rays hits it (prim ids and t), and its frame
+    renders as the JAX package's (equal counters; unlit, so black)."""
+    from wurblpt_tpu.accel.traverse import bvh_closest_hit as jbvh_closest_hit
     from wurblpt_tpu.core.transform import Transformation
     from wurblpt_tpu.scene import builder as B
     from wurblpt_tpu.scene.generator import generate_quad
+
+    from wurblpt_tpu_torch.accel import traverse
 
     sc = B.Scene()
     m = sc.take_material(B.Lambertian(albedo=(0.5, 0.5, 0.5)))
     a = sc.take_animation(B.AnimationKeyframes([0.0, 1.0], [
         Transformation.make(translation=(0.0, y, 0.0)) for y in (0.0, 1.0)]))
     sc.take_mesh_instance(B.MeshInstance(generate_quad(), m, animation=a))
-    ps = _port(sc.build(use_bvh=True))
-    assert ps.has_bvh and ps.n_anims == 2
+    js = sc.build(use_bvh=True, t0=0.5, t1=0.5)
+    ps = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu", 0.5, 0.5)
+    assert ps.has_bvh and ps.n_anims == 2 and ps.bvh.n_anims == 2
+    static = SceneStatic.from_scene(ps)
+    static.check_slice()
     pose, vfov = scenes.cornell_ref_camera("cpu")
-    with pytest.raises(NotImplementedError, match="animation in a BVH scene"):
-        render_frame_wavefront(ps, SceneStatic.from_scene(ps),
-                               make_camera(pose, vfov, 8, 8, device="cpu"), CameraConfig(),
-                               SensorRGB(), 8, 8, 1, device="cpu", t0=0.5, t1=0.5)
+    rays = kc.camera_lanes(16, 16, 1, "cpu", camera=(pose, vfov))
+    t, prim, _, _ = traverse.bvh_closest_hit_plain(ps.bvh, *rays, kc.frames_at(ps))
+    ctx = jmake_anim_ctx(js.anims, jnp.full((rays[0].shape[0],), jnp.float32(0.5)))
+    obj = ctx.ray_to_object(jnp.asarray(rays[0].numpy()), jnp.asarray(rays[1].numpy()))
+    jt, jprim, _, _ = jbvh_closest_hit(js, *(jnp.asarray(r.numpy()) for r in rays),
+                                       obj_rays=obj)
+    np.testing.assert_array_equal(prim.numpy(), np.asarray(jprim))
+    hit = prim.numpy() >= 0
+    np.testing.assert_allclose(t.numpy()[hit], np.asarray(jt)[hit], rtol=1e-5)
+    assert 0 < hit.sum() < hit.size
+    # at rest (t = 0) the quad sits lower: another set of pixels hit it
+    still, _, _, _ = traverse.bvh_closest_hit_plain(
+        scene_from_numpy(jax.tree_util.tree_map(np.asarray, sc.build(use_bvh=True)),
+                         "cpu").bvh, *rays, anim_frames(ps.anims, 0.0))
+    assert not torch.equal(still < kc.BIG, t < kc.BIG)
+    jimg, jstats = _jax_frame(js, jscenes.cornell_ref_camera()[0], vfov, 8, 1, 3, 0.5)
+    img, stats = _port_frame(ps, pose, vfov, 8, 1, 3, 0.5)
+    assert stats == jstats and float(np.abs(img - jimg).max()) == 0.0
+
+
+def test_cornell_animated_bvh_matches_the_jax_frame():
+    """The animated box with its two spheres in a BVH swept at t = 0.5,
+    against the JAX package's frame of the same build: equal counters,
+    pixels within rtol 1e-3 / atol 1e-5 (XLA's fused multiply-adds in the
+    object rays, C.4), on K4's diffuse class casting through the BVH."""
+    js = jfr.jax_cornell_animated(spheres=True, use_bvh=True, t=kc.ANIM_TIME)
+    pose, vfov = jscenes.cornell_ref_camera()
+    jimg, jstats = _jax_frame(js, pose, vfov, W, SSQRT, DEPTH, kc.ANIM_TIME)
+    ps = scenes.cornell_box_animated("cpu", spheres=True, use_bvh=True)
+    static = SceneStatic.from_scene(ps)
+    assert ps.has_bvh and wavefront.diffuse_class(ps, static, CameraConfig())
+    assert prepare_scene(ps, static).accel is ps.bvh
+    img, stats = kc.cornell_animated_bvh_frame("cpu", ps, width=W, ssqrt=SSQRT, depth=DEPTH)()
+    assert stats.tolist() == jstats
+    np.testing.assert_allclose(img.numpy(), jimg, rtol=1e-3, atol=1e-5)
+    # the spheres change the frame: the box without them renders otherwise
+    bare, _ = kc.cornell_animated_frame("cpu", width=W, ssqrt=SSQRT, depth=DEPTH)()
+    assert (np.abs(bare.numpy() - img.numpy()) > 1e-2).any(-1).mean() > 0.05
+
+
+@pytest.mark.parametrize("cls", ["env", "lit"])
+def test_animation_keeps_a_scene_off_the_env_and_lit_classes(cls):
+    """K4's env and lit classes take no animation (ROADMAP A.8: only with a
+    bench cell that holds one): a scene of either class with one animated
+    triangle in its BVH leaves the class and renders on the torch-op bounce."""
+    from wurblpt_tpu_torch.render.camera import SurroundMode
+
+    if cls == "env":
+        scene = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,
+                                    device="cpu")
+        cfg = CameraConfig()
+        in_class = wavefront.env_class
+    else:
+        scene = scenes.city_night(seed=7, terrain_res=12, n_buildings=3, n_windows=8,
+                                  sphere_slices=6, device="cpu")
+        cfg = CameraConfig(surround=SurroundMode.S360, stereo=True)
+        in_class = wavefront.lit_class
+    assert in_class(scene, SceneStatic.from_scene(scene), cfg)
+    moving = scene.tris.anim.clone()
+    moving[0] = 1
+    anims = scenes.cornell_box_animated("cpu").anims
+    animated = scene._replace(tris=scene.tris._replace(anim=moving), anims=anims)
+    static = SceneStatic.from_scene(animated)
+    static.check_slice()
+    assert static.has_anim and not in_class(animated, static, cfg)
+    assert not (wavefront.diffuse_class(animated, static, cfg)
+                or wavefront.env_class(animated, static, cfg)
+                or wavefront.lit_class(animated, static, cfg))
+    assert prepare_scene(animated, static).step is None
 
 
 def test_an_animated_camera_is_refused():

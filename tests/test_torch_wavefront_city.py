@@ -364,7 +364,7 @@ def test_k4_steps_records_and_checks_every_lit_call_of_the_small_city():
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device", "geom_normal", "tangent",
                                  "mixture MIS", "no light", "no sky", "constant sky",
                                  "no importance", "RGL without tables", "media material",
-                                 "spheres in a BVH scene", "light rows"])
+                                 "light rows"])
 def test_shade_lit_rejects_what_the_kernel_does_not_take(bad):
     inp = _small_inputs()
     args = list(inp.shade)
@@ -397,15 +397,26 @@ def test_shade_lit_rejects_what_the_kernel_does_not_take(bad):
         args[0] = tables._replace(rgl=None)
     elif bad == "media material":
         args[0] = tables._replace(mat_types=tables.mat_types | {MaterialType.PHASE_ISO})
-    elif bad == "spheres in a BVH scene":
-        sphere = Spheres(torch.zeros((1, 3)), torch.ones((1,)),
-                         torch.zeros((1,), dtype=torch.int32))
-        assert tables.scene.has_bvh
-        args[0] = tables._replace(scene=tables.scene._replace(spheres=sphere))
     else:
         args[0] = tables._replace(light_tri=tables.light_tri[:, :6].contiguous())
     with pytest.raises(ValueError):
         wf.shade_lit(*args)
+
+
+def test_shade_lit_takes_spheres_in_a_bvh_scene():
+    """The lit shade's tables of a BVH scene that holds a sphere (the small
+    city's, with one sphere added): the wrapper takes them and gives its
+    plain version's result on the city block after 2 steps."""
+    inp = _small_inputs()
+    args = list(inp.shade)
+    tables = args[0]
+    sphere = Spheres(torch.zeros((1, 3)), torch.ones((1,)), torch.zeros((1,), dtype=torch.int32))
+    assert tables.scene.has_bvh and tables.scene.n_spheres == 0
+    args[0] = tables._replace(scene=tables.scene._replace(spheres=sphere))
+    counts = dict(native.LAUNCHES)
+    res = kc.check_call(wf.shade_lit, wf.shade_lit_plain, tuple(args), lit_rows=True)
+    assert native.LAUNCHES == counts            # the plain version ran
+    assert all(v == 0 for v in res.values()), res
 
 
 @pytest.mark.parametrize("bad", ["regen dtype", "regen shape", "three pending rows",

@@ -6,14 +6,16 @@ JAX package ``wurblpt_tpu`` is the reference it is tested against. Kernels
 written by hand for Hopper live in ``csrc/`` and are built at first use
 (:mod:`wurblpt_tpu_torch.native`).
 
-Ported so far: the persistent-lane wavefront render of static scenes with a
+Ported so far: the persistent-lane wavefront render of static scenes, and
+of scenes with rigid keyframe animation at one instant, with a
 pinhole camera (with lens distortion) or an equirect surround camera (mono
 or stereo), SensorRGB and the AMCW time-of-flight sensor SensorTofAmcw:
 Lambertian, GGX, mirror, glass, ModPhong, measured RGL, diffuse-, spot- and
 ToF-light materials, triangles and analytic spheres, triangle hot spots with
 mixture or per-light MIS, an importance-sampled equirect sky, a cube-map sky
 with or without importance sampling, a constant sky, on the brute-force
-intersector or the port's BVH, and OBJ/MTL export and import (see
+intersector or the port's BVH (triangle and sphere leaves, static or
+animated), and OBJ/MTL export and import (see
 ROADMAP.md for the rest). Scenes of the diffuse class (Lambertian surfaces,
 triangle lights, no sky, a pinhole camera without distortion) take one
 wavefront step as hand-written kernels (K4, :mod:`.render.wavefront`).

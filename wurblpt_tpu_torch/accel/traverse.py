@@ -15,15 +15,23 @@ the same order:
    entry distance: the closest cast takes the nearer first (child 0 on a
    tie), the any-hit cast child 0 first (its result does not depend on the
    order, and this order walks less on the bench frames' shadow rays);
-2. at a leaf, test its triangles with `watertight_tri` against the bound of
-   step 1; the closest cast keeps the first strictly nearer hit in the
-   walk's order, the any-hit cast stops at the first valid one;
+2. at a leaf, test its rows in order against the bound of step 1: a
+   triangle row with `watertight_tri`, a sphere row (prim id >= n_tris)
+   with the stable quadratic of the sweeps (`ray_sphere_tile`) in the
+   BVH's rounding (the fused multiply-adds of XLA's leaf test); the closest
+   cast keeps the first strictly nearer hit in the walk's order (a sphere
+   with u = v = 0), the any-hit cast stops at the first valid one;
 3. with no child hit, or after a leaf, pop the topmost stack entry whose
    entry distance is below min(t_max, best t), dropping the entries above it;
    an empty stack ends the walk.
 
-Kernel and plain version therefore resolve ties identically, and their prim
-ids can be compared exactly. A lane with t_max <= t_min (dead, or not in this
+With the animations' rows at the frame's instant (`frames`,
+scene/animation.anim_frames) a row is tested with the ray in its
+animation's object space (row 0, the identity, for static primitives;
+`frames_ray_to_object`, the sweeps' expression), while the slab tests stay
+on the world ray against the swept world boxes. Kernel and plain version
+therefore resolve ties identically, and their prim ids can be compared
+exactly. A lane with t_max <= t_min (dead, or not in this
 cast) leaves without reading the tree. A ray direction component with
 |d| <= 1e-20 gets 1/d = BIG, so a slab term is never 0 * inf.
 
@@ -38,6 +46,8 @@ import torch
 from .. import native
 from ..render.intersect import watertight_tri
 from ..render.intersect_brute import BIG, _check_rays
+from ..render.intersect_sweep import ray_sphere_tile
+from ..scene.animation import FRAME_WIDTH, frames_ray_to_object
 from ..scene.ir import BVHArrays
 from .build import EMPTY, LEAF_SIZE, STACK_DEPTH
 
@@ -60,15 +70,46 @@ def _children(bvh: BVHArrays, node, o, inv_d, t_min, bound):
     return (near <= far) & (links != EMPTY), near, links.long()
 
 
-def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
+def _object_runs(aid, in_leaf, last):
+    """Object rays a lane computes at a leaf: the slots whose animation id
+    differs from the one before (the lane's `last` before the first), and
+    the lane's last id after the leaf."""
+    prev = torch.cat([last[:, None], aid[:, :-1]], 1)
+    k = in_leaf.sum(1)
+    new_last = torch.where(k > 0, aid.gather(1, torch.clamp_min(k - 1, 0)[:, None])[:, 0], last)
+    return int(((aid != prev) & in_leaf).sum()), new_last
+
+
+def _leaf_tests(bvh: BVHArrays, rows, o, d, t_min, bound, frames):
+    """(t, u, v, valid) [N, K] of each lane against its leaf rows [N, K, 12]:
+    the watertight test on triangle rows, the sphere quadratic on sphere
+    rows (u = v = 0), each with the world ray or, with `frames`, the ray in
+    the row's animation space."""
+    ids = rows.view(torch.int32)
+    if frames is None:
+        ox, dx = o[:, None], d[:, None]
+    else:
+        ox, dx, _ = frames_ray_to_object(frames, ids[..., 7], o, d)
+    t, u, v, valid = watertight_tri(ox, dx, rows[..., 0:3], rows[..., 4:7], rows[..., 8:11],
+                                    t_min[:, None], bound[:, None])
+    if bvh.n_spheres:
+        sph = ids[..., 3] >= bvh.n_tris
+        ts, vs = ray_sphere_tile(ox, dx, rows[..., 0:3], rows[..., 4], t_min, bound, bvh=True)
+        t, valid = torch.where(sph, ts, t), torch.where(sph, vs, valid)
+        u, v = torch.where(sph, 0.0, u), torch.where(sph, 0.0, v)
+    return t, u, v, valid
+
+
+def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts=None):
     n = o.shape[0]
     dev = o.device
     depth = max(bvh.depth, 1)
     iota = torch.arange(depth, device=dev)
     slot_ids = torch.arange(LEAF_SIZE, device=dev)
-    n_slots = bvh.tri_v.shape[0]
-    tri_id = bvh.tri_id
+    n_slots = bvh.prim_v.shape[0]
+    prim_id = bvh.prim_id
     inv_d = _inv_dir(d)
+    last_aid = torch.full((n,), -1, dtype=torch.int32, device=dev)   # counts only
 
     out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     out_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -97,7 +138,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
             # Finished rays drop out of the lockstep; each ray's walk is unchanged.
             store(~live)
             keep = live
-            lane, o, d, inv_d, t_min, t_max = (x[keep] for x in (lane, o, d, inv_d, t_min, t_max))
+            lane, o, d, inv_d, t_min, t_max, last_aid = (
+                x[keep] for x in (lane, o, d, inv_d, t_min, t_max, last_aid))
             cur, live, sp, stack_l, stack_t = (x[keep] for x in (cur, live, sp, stack_l, stack_t))
             best_t, best_prim, best_u, best_v, occluded = (
                 x[keep] for x in (best_t, best_prim, best_u, best_v, occluded))
@@ -118,18 +160,22 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
         cur = torch.where(h0 | h1, torch.where(first1, links[:, 1], links[:, 0]), cur)
         pop = inner & ~(h0 | h1)
 
-        # 2. leaf: its triangles against this step's bound
+        # 2. leaf: its rows against this step's bound
         leaf = live & (cur <= -2)
         code = torch.clamp_min(-1 - cur, 0)
         slots = (code >> 4)[:, None] + slot_ids
         in_leaf = (slot_ids < (code & 15)[:, None]) & leaf[:, None]
-        tv = bvh.tri_v[torch.clamp_max(slots, n_slots - 1)]
-        t, u, v, valid = watertight_tri(o[:, None], d[:, None], tv[..., 0:3], tv[..., 4:7],
-                                        tv[..., 8:11], t_min[:, None], bound[:, None])
+        rows_k = bvh.prim_v[torch.clamp_max(slots, n_slots - 1)]
+        t, u, v, valid = _leaf_tests(bvh, rows_k, o, d, t_min, bound, frames)
         valid = valid & in_leaf
-        if counts is not None:   # the work this walk does: inner-node visits, leaf triangle tests
+        if counts is not None:   # the work this walk does: node visits, leaf tests, object rays
+            sph = rows_k.view(torch.int32)[..., 3] >= bvh.n_tris
             counts["nodes"] += int(inner.sum())
-            counts["tri_tests"] += int(in_leaf.sum())
+            counts["tri_tests"] += int((in_leaf & ~sph).sum())
+            counts["sphere_tests"] += int((in_leaf & sph).sum())
+            if frames is not None:
+                runs, last_aid = _object_runs(rows_k.view(torch.int32)[..., 7], in_leaf, last_aid)
+                counts["object_rays"] += runs
         if any_hit:
             occluded = occluded | valid.any(1)
             live = live & ~occluded
@@ -140,7 +186,7 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
             tk = t_all[rows, k]
             closer = tk < best_t
             best_t = torch.where(closer, tk, best_t)
-            best_prim = torch.where(closer, tri_id[torch.clamp_max(slots[rows, k], n_slots - 1)],
+            best_prim = torch.where(closer, prim_id[torch.clamp_max(slots[rows, k], n_slots - 1)],
                                     best_prim)
             best_u = torch.where(closer, u[rows, k], best_u)
             best_v = torch.where(closer, v[rows, k], best_v)
@@ -160,50 +206,68 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, counts=None):
     return out_t, out_prim, out_u, out_v
 
 
-def bvh_closest_hit_plain(bvh: BVHArrays, o, d, t_min, t_max):
+def bvh_closest_hit_plain(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
     """Plain version of K5: (t, prim, u, v); prim = -1 and t = BIG on a miss."""
-    return _walk(bvh, o, d, t_min, t_max, any_hit=False)
+    return _walk(bvh, o, d, t_min, t_max, any_hit=False, frames=frames)
 
 
-def bvh_any_hit_plain(bvh: BVHArrays, o, d, t_min, t_max):
-    """Plain version of K6: True where a triangle is hit in (t_min, t_max)."""
-    return _walk(bvh, o, d, t_min, t_max, any_hit=True)
+def bvh_any_hit_plain(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
+    """Plain version of K6: True where a primitive is hit in (t_min, t_max)."""
+    return _walk(bvh, o, d, t_min, t_max, any_hit=True, frames=frames)
 
 
-def bvh_walk_counts(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool):
-    """{"nodes": inner-node visits, "tri_tests": leaf triangle tests} of the
-    walk that K5 (any_hit False) or K6 takes for these rays: the plain
-    version walks the same tree in the same order."""
-    counts = {"nodes": 0, "tri_tests": 0}
-    _walk(bvh, o, d, t_min, t_max, any_hit, counts)
+def bvh_walk_counts(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None):
+    """{"nodes": inner-node visits, "tri_tests": leaf triangle tests,
+    "sphere_tests": leaf sphere tests, "object_rays": object-space rays
+    computed (with `frames`: one wherever a lane's next leaf row has
+    another animation id than its last)} of the walk that K5 (any_hit
+    False) or K6 takes for these rays: the plain version walks the same
+    tree in the same order."""
+    counts = {"nodes": 0, "tri_tests": 0, "sphere_tests": 0, "object_rays": 0}
+    _walk(bvh, o, d, t_min, t_max, any_hit, frames, counts)
     return counts
 
 
-def _check_bvh(bvh: BVHArrays, device):
-    if bvh.nodes.device != device or bvh.tri_v.device != device:
+def _check_bvh(bvh: BVHArrays, device, frames):
+    if bvh.nodes.device != device or bvh.prim_v.device != device:
         raise ValueError(f"BVH is on {bvh.nodes.device}, rays on {device}")
+    if frames is None:
+        if bvh.n_anims > 1:
+            raise ValueError("an animated BVH needs the animations' frames")
+    elif (frames.dtype != torch.float32 or frames.dim() != 2 or frames.shape[1] != FRAME_WIDTH
+          or frames.shape[0] < bvh.n_anims or not frames.is_contiguous()
+          or frames.device != device):
+        raise ValueError(f"frames: need contiguous float32 [>= {bvh.n_anims}, {FRAME_WIDTH}] "
+                         f"on {device}, got {frames.dtype} {tuple(frames.shape)} on "
+                         f"{frames.device}")
     if bvh.depth > STACK_DEPTH:
         raise ValueError(f"BVH depth {bvh.depth} exceeds the traversal stack ({STACK_DEPTH})")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no BVH kernel for device {device}")
 
 
-# (entry point, device, stream) -> [threads of a full launch, lane counter,
-# spill rows or None]: made on a stream's first cast, grown with the tree's
-# depth, and reused, since the casts of one stream run one after another.
+# (entry point, variant, device, stream) -> [threads of a full launch, lane
+# counter, spill rows or None]: made on a stream's first cast, grown with the
+# tree's depth, and reused, since the casts of one stream run one after another.
 _SCRATCH = {}
 
 
-def _scratch(bvh: BVHArrays, device, stream: int, lib, entry: str):
+def variant(bvh: BVHArrays, frames) -> int:
+    """The kernels' instantiation for a cast: bit 0 sphere rows in the tree,
+    bit 1 object-space rays (`frames`)."""
+    return int(bvh.n_spheres > 0) | (int(frames is not None) << 1)
+
+
+def _scratch(bvh: BVHArrays, var: int, device, stream: int, lib, entry: str):
     """(the persistent launch's lane counter, the stack's spill rows or None):
     the kernel's first SHARED_STACK entries per thread live in shared
     memory, the rest of the tree's depth in rows of device memory for every
     thread of a full launch. The launch zeroes the counter on the stream
     before it starts; neither needs a kernel of its own, nor, after the
     stream's first cast, an allocation."""
-    key = (entry, device, stream)
+    key = (entry, var, device, stream)
     if key not in _SCRATCH:
-        threads = getattr(lib, f"wpt_{entry}_threads")()
+        threads = getattr(lib, f"wpt_{entry}_threads")(var)
         _SCRATCH[key] = [threads, torch.empty((1,), dtype=torch.int32, device=device), None]
     scratch = _SCRATCH[key]
     threads, counter, spill = scratch
@@ -217,12 +281,13 @@ def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
-def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max):
-    """Closest hit (t, prim, u, v) of rays [N] in (t_min, t_max) (K5)."""
+def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
+    """Closest hit (t, prim, u, v) of rays [N] in (t_min, t_max) (K5); with
+    `frames`, each primitive tested in its animation's object space."""
     _check_rays(o, d, t_min, t_max)
-    _check_bvh(bvh, o.device)
+    _check_bvh(bvh, o.device, frames)
     if o.device.type == "cpu":
-        return bvh_closest_hit_plain(bvh, o, d, t_min, t_max)
+        return bvh_closest_hit_plain(bvh, o, d, t_min, t_max, frames)
     lib = native.load_kernels()
     n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
@@ -230,30 +295,35 @@ def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max):
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     stream = native.stream_ptr(o)
-    counter, spill = _scratch(bvh, o.device, stream, lib, "bvh_closest")
+    var = variant(bvh, frames)
+    counter, spill = _scratch(bvh, var, o.device, stream, lib, "bvh_closest")
     code = lib.wpt_bvh_closest_hit(
-        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n, bvh.nodes.data_ptr(),
-        bvh.tri_v.data_ptr(), counter.data_ptr(), _ptr(spill), t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), stream)
+        var, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
+        bvh.nodes.data_ptr(), bvh.prim_v.data_ptr(), bvh.n_tris, _ptr(frames),
+        counter.data_ptr(), _ptr(spill), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+        v.data_ptr(), stream)
     native.check(code, "bvh_closest_hit")
     native.LAUNCHES["bvh_closest_hit"] += 1
     return t, prim, u, v
 
 
-def bvh_any_hit(bvh: BVHArrays, o, d, t_min, t_max):
-    """Occlusion of rays [N] in (t_min, t_max) (K6); t_max <= t_min means not occluded."""
+def bvh_any_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
+    """Occlusion of rays [N] in (t_min, t_max) (K6); t_max <= t_min means not
+    occluded; `frames` as bvh_closest_hit."""
     _check_rays(o, d, t_min, t_max)
-    _check_bvh(bvh, o.device)
+    _check_bvh(bvh, o.device, frames)
     if o.device.type == "cpu":
-        return bvh_any_hit_plain(bvh, o, d, t_min, t_max)
+        return bvh_any_hit_plain(bvh, o, d, t_min, t_max, frames)
     lib = native.load_kernels()
     n = o.shape[0]
     occ = torch.empty((n,), dtype=torch.bool, device=o.device)
     stream = native.stream_ptr(o)
-    counter, spill = _scratch(bvh, o.device, stream, lib, "bvh_any")
+    var = variant(bvh, frames)
+    counter, spill = _scratch(bvh, var, o.device, stream, lib, "bvh_any")
     code = lib.wpt_bvh_any_hit(
-        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n, bvh.nodes.data_ptr(),
-        bvh.tri_v.data_ptr(), counter.data_ptr(), _ptr(spill), occ.data_ptr(), stream)
+        var, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
+        bvh.nodes.data_ptr(), bvh.prim_v.data_ptr(), bvh.n_tris, _ptr(frames),
+        counter.data_ptr(), _ptr(spill), occ.data_ptr(), stream)
     native.check(code, "bvh_any_hit")
     native.LAUNCHES["bvh_any_hit"] += 1
     return occ

@@ -2,7 +2,8 @@
 //
 // Replaces the wide-BVH lockstep walk of wurblpt_tpu/accel/traverse.py
 // (_wide_closest_hit / _wide_any_hit with _wide_walk_to_leaf,
-// _wide_children, _stack_push_sorted, _stack_pop, _packed_leaf_tests) and
+// _wide_children, _stack_push_sorted, _stack_pop, and the leaf branches
+// _packed_leaf_tests, triangle and sphere, and _packed_leaf_rays) and
 // intersect.watertight_tri. The TPU walked all rays in lockstep over W=32
 // wide rows, kept each ray's stack as one-hot masked [N, D] arrays and
 // re-packed the live lanes into ever smaller batches, because its gathers
@@ -31,8 +32,8 @@
 //    than that spills to rows of device memory that the wrapper sizes from
 //    the tree's depth (the build refuses a tree past STACK_DEPTH). No
 //    per-thread array is indexed at run time.
-// A leaf triangle is one 48-byte row (three 16-byte loads, the prim id in
-// v0's pad) instead of nine scalar loads. A compressed 8-wide tree (Ylitie
+// A leaf primitive is one 48-byte row (16-byte loads, the prim id in v0's
+// pad) instead of nine scalar loads. A compressed 8-wide tree (Ylitie
 // et al. 2017) was measured in place of the binary one and walked slower:
 // its decode and ordering of 8 children cost more instruction slots than the
 // dependent loads it saves while the tables sit in L2 (PERF.md).
@@ -47,19 +48,37 @@
 // same decisions in the same order, so prim ids agree exactly.
 //
 // Every expression is evaluated in the order of the plain PyTorch version
-// (render/intersect.py watertight_tri for the leaf test) and the library is
-// built with -fmad=false, so kernel and plain version round alike. The
-// Dekker split of two_prod uses the _rn intrinsics, which are never
-// contracted.
+// (render/intersect.py watertight_tri for a triangle row; sweep_common.cuh's
+// sphere_test for a sphere row, in the BVH's rounding: the fused
+// multiply-adds with which XLA evaluates the JAX package's leaf test, whose
+// last bits decide self-intersections on the RTIOW ground sphere; its
+// object_ray for the ray in an animation's space) and the library is built
+// with -fmad=false, so kernel and plain version round alike. The Dekker split of two_prod
+// uses the _rn intrinsics, which are never contracted.
+//
+// Leaf kinds, as template parameters of the walk: SPHERES, a tree with
+// sphere rows (a row whose prim id is >= n_tris is a sphere: the global
+// order, triangles first); ANIMATED, object-space rays: each row is tested
+// with the ray moved into its animation's object space by that animation's
+// frame row (row 0, the identity, for a static primitive), while the slab
+// tests stay on the world ray against the boxes swept over the frame's
+// interval. The watertight permutation and shear depend on the direction,
+// so the object ray's are computed with it, only when a row's animation id
+// differs from the last one the thread used (a mesh's rows share one id).
+// <false, false> is the static triangle walk of the bench paths.
 //
 // Node row (accel/build.py): [child 0 min xyz, max xyz, child 1 min xyz,
 // max xyz, link 0, link 1 (int32 bits), pad, pad]. A link >= 0 is an inner
 // node, -1 an empty child, any other negative value a leaf holding rows
-// [start, start + count) of the triangle table with -1 - link = start * 16
-// + count.
+// [start, start + count) of the leaf table with -1 - link = start * 16 +
+// count. Leaf row: a triangle's [v0 xyz, prim id | v1 xyz, animation id |
+// v2 xyz, 0], a sphere's [centre xyz, prim id | radius, 0, 0, animation id |
+// 0 x 4], the ids as int32 bits.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "sweep_common.cuh"
 
 namespace wpt_bvh {
 
@@ -82,12 +101,8 @@ __device__ __forceinline__ float comp(float3 v, int k) { return k == 0 ? v.x : (
 
 __device__ __forceinline__ float inv_dir(float d) { return fabsf(d) > 1e-20f ? 1.f / d : BIG; }
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
-                                        int i) {
-    Ray r;
-    r.o = make_float3(o[3 * i + 0], o[3 * i + 1], o[3 * i + 2]);
-    r.d = make_float3(d[3 * i + 0], d[3 * i + 1], d[3 * i + 2]);
-    r.inv = make_float3(inv_dir(r.d.x), inv_dir(r.d.y), inv_dir(r.d.z));
+// The watertight permutation and shear of r.d.
+__device__ __forceinline__ void set_shear(Ray& r) {
     // kz = first axis of the largest |d| (argmax); swap kx, ky when d[kz] < 0.
     const float3 ad = make_float3(fabsf(r.d.x), fabsf(r.d.y), fabsf(r.d.z));
     int kz = 0;
@@ -106,8 +121,52 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float
     r.sz = 1.f / dz;
     r.sx = comp(r.d, kx) * r.sz;
     r.sy = comp(r.d, ky) * r.sz;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
+                                        int i) {
+    Ray r;
+    r.o = make_float3(o[3 * i + 0], o[3 * i + 1], o[3 * i + 2]);
+    r.d = make_float3(d[3 * i + 0], d[3 * i + 1], d[3 * i + 2]);
+    r.inv = make_float3(inv_dir(r.d.x), inv_dir(r.d.y), inv_dir(r.d.z));
+    set_shear(r);
     return r;
 }
+
+__device__ __forceinline__ wpt_sweep::V3 v3(float3 v) { return {v.x, v.y, v.z}; }
+
+// The ray a thread tests its leaf rows with: the world ray, or (ANIMATED)
+// the ray in the row's animation space, kept for the next rows of the same
+// animation.
+template <bool ANIMATED>
+struct LeafRay {
+    __device__ __forceinline__ void reset() {}
+    __device__ __forceinline__ const Ray& get(const Ray& world, const float* __restrict__,
+                                              int) {
+        return world;
+    }
+};
+
+template <>
+struct LeafRay<true> {
+    Ray obj;   // o, d, the permutation and shear; inv is not read
+    int aid;   // animation id of obj (-1: none yet)
+
+    __device__ __forceinline__ void reset() { aid = -1; }
+    __device__ __forceinline__ const Ray& get(const Ray& world, const float* __restrict__ frames,
+                                              int id) {
+        if (id != aid) {
+            wpt_sweep::V3 oa, da;
+            wpt_sweep::object_ray(frames + id * wpt_sweep::FRAME, v3(world.o), v3(world.d), oa,
+                                  da);
+            obj.o = make_float3(oa.x, oa.y, oa.z);
+            obj.d = make_float3(da.x, da.y, da.z);
+            set_shear(obj);
+            aid = id;
+        }
+        return obj;
+    }
+};
 
 __device__ __forceinline__ void two_prod(float a, float b, float& p, float& err) {
     p = __fmul_rn(a, b);
@@ -235,16 +294,18 @@ __device__ __forceinline__ int visit(const Ray& r, const float4* __restrict__ no
 }
 
 // The state of one thread's walk; ray < 0 when the thread has no ray.
+template <bool ANIMATED>
 struct Walk {
     Ray r;
+    LeafRay<ANIMATED> leaf;
     int ray, cur;
     float tmin, tmax, best_t, best_u, best_v;
     int best_prim;
     bool occluded;
 };
 
-template <bool ANY>
-__device__ __forceinline__ void write_out(int i, const Walk& w, float* __restrict__ t_out,
+template <bool ANY, class W>
+__device__ __forceinline__ void write_out(int i, const W& w, float* __restrict__ t_out,
                                           int* __restrict__ prim_out, float* __restrict__ u_out,
                                           float* __restrict__ v_out, bool* __restrict__ occ_out) {
     if constexpr (ANY) {
@@ -259,16 +320,27 @@ __device__ __forceinline__ void write_out(int i, const Walk& w, float* __restric
 
 // The leaf with code `code` (-1 - link = first row * 16 + count) against
 // (tmin, bound); ANY: true at the first hit; else the nearest strict
-// improvement in row order into w.best_*, false.
-template <bool ANY>
-__device__ __forceinline__ bool test_leaf(Walk& w, const float4* __restrict__ tris, int code,
-                                          float bound) {
+// improvement in row order into w.best_* (u = v = 0 for a sphere), false.
+template <bool ANY, bool SPHERES, bool ANIMATED>
+__device__ __forceinline__ bool test_leaf(Walk<ANIMATED>& w, const float4* __restrict__ rows,
+                                          int code, float bound, int n_tris,
+                                          const float* __restrict__ frames) {
     const int start = code >> 4, count = code & 15;
     for (int k = 0; k < count; ++k) {
-        const float4* tri = tris + 3 * (start + k);
-        const float4 a = __ldg(tri + 0), b = __ldg(tri + 1), c = __ldg(tri + 2);
+        const float4* row = rows + 3 * (start + k);
+        const float4 a = __ldg(row + 0), b = __ldg(row + 1);
+        const Ray& r = w.leaf.get(w.r, frames, __float_as_int(b.w));
         float t, u, v;
-        if (watertight(w.r, a, b, c, w.tmin, bound, t, u, v)) {
+        bool hit;
+        if (SPHERES && __float_as_int(a.w) >= n_tris) {
+            hit = wpt_sweep::sphere_test<true>(v3(r.o), v3(r.d),
+                                               make_float4(a.x, a.y, a.z, b.x), w.tmin, bound, t);
+            u = v = 0.f;
+        } else {
+            const float4 c = __ldg(row + 2);
+            hit = watertight(r, a, b, c, w.tmin, bound, t, u, v);
+        }
+        if (hit) {
             if (ANY) return true;
             if (t < w.best_t) {
                 w.best_t = t;
@@ -283,13 +355,15 @@ __device__ __forceinline__ bool test_leaf(Walk& w, const float4* __restrict__ tr
 
 // The persistent walk of K5 (ANY = false) and K6 (ANY = true) over lanes
 // [0, n): see the note at the top. *counter must be 0 at the launch; spill
-// holds (tree depth - SHORT) rows of gridDim.x * BLOCK entries, or is unused.
-template <bool ANY>
+// holds (tree depth - SHORT) rows of gridDim.x * BLOCK entries, or is unused;
+// frames holds the animations' rows (ANIMATED) or is unused.
+template <bool ANY, bool SPHERES, bool ANIMATED>
 __device__ __forceinline__ void walk_lanes(const float* __restrict__ o, const float* __restrict__ d,
                                            const float* __restrict__ tmin,
                                            const float* __restrict__ tmax, int n,
                                            const float4* __restrict__ nodes,
-                                           const float4* __restrict__ tris, int* counter,
+                                           const float4* __restrict__ rows, int n_tris,
+                                           const float* __restrict__ frames, int* counter,
                                            int2* spill, float* __restrict__ t_out,
                                            int* __restrict__ prim_out, float* __restrict__ u_out,
                                            float* __restrict__ v_out, bool* __restrict__ occ_out) {
@@ -298,7 +372,7 @@ __device__ __forceinline__ void walk_lanes(const float* __restrict__ o, const fl
     const unsigned below = (1u << lane) - 1u;
     Stack stk{stack_sh + threadIdx.x, spill + blockIdx.x * BLOCK + threadIdx.x,
               static_cast<int>(gridDim.x) * BLOCK, 0};
-    Walk w;
+    Walk<ANIMATED> w;
     w.ray = -1;
     unsigned queue = 0;   // live lanes of the warp's chunk not yet taken (warp-uniform)
     int chunk = 0;        // the chunk's first lane
@@ -322,7 +396,7 @@ __device__ __forceinline__ void walk_lanes(const float* __restrict__ o, const fl
                 if (i < n) {
                     live = tmax[i] > tmin[i];
                     if (!live) {
-                        Walk dead;
+                        Walk<ANIMATED> dead;
                         dead.best_t = BIG;
                         dead.best_prim = -1;
                         dead.best_u = dead.best_v = 0.f;
@@ -340,6 +414,7 @@ __device__ __forceinline__ void walk_lanes(const float* __restrict__ o, const fl
                 const int i = chunk + static_cast<int>(__fns(queue, 0, r + 1));
                 w.ray = i;
                 w.r = load_ray(o, d, i);
+                w.leaf.reset();
                 w.tmin = tmin[i];
                 w.tmax = tmax[i];
                 w.cur = 0;   // the root
@@ -369,7 +444,8 @@ __device__ __forceinline__ void walk_lanes(const float* __restrict__ o, const fl
         }
         // one leaf, then the next entry of the stack
         if (!done) {
-            if (test_leaf<ANY>(w, tris, -1 - w.cur, fminf(w.tmax, w.best_t))) {
+            if (test_leaf<ANY, SPHERES, ANIMATED>(w, rows, -1 - w.cur, fminf(w.tmax, w.best_t),
+                                                  n_tris, frames)) {
                 w.occluded = true;
                 done = true;
             } else if (!stk.pop(fminf(w.tmax, w.best_t), w.cur)) {

@@ -82,16 +82,36 @@ __device__ __forceinline__ bool tri_test(V3 o, V3 d, V3 p0, V3 e1, V3 e2, float 
     return ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t > tmin && t < tmax;
 }
 
+// a . b accumulated with fused multiply-adds from the first component on
+// (intersect_brute.fma_dot).
+__device__ __forceinline__ float fma_dot3(V3 a, V3 b) {
+    return fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x));
+}
+
 // The stable sphere quadratic in world (or object) space (intersect.py:189,
 // hitable_sphere.hpp:128-151); true with the entry (or, from inside, exit)
-// distance in ts when it lies in (tmin, tmax).
+// distance in ts when it lies in (tmin, tmax). The sweeps round each
+// operation; BVH rounds as XLA's CPU backend evaluates the JAX package's BVH
+// leaf test (traverse.py:198-215): the three dot products accumulated with
+// fused multiply-adds, c = fma(-r, r, |oc|^2) and the discriminant
+// fma(half_b, half_b, -(a c)). On the RTIOW ground sphere (radius 1000)
+// c cancels to its last bits, and they decide a ray's self-intersection.
+template <bool BVH = false>
 __device__ __forceinline__ bool sphere_test(V3 o, V3 d, float4 s, float tmin, float tmax,
                                             float& ts) {
     const V3 oc = {o.x - s.x, o.y - s.y, o.z - s.z};
-    const float a = dot3(d, d);
-    const float half_b = dot3(oc, d);
-    const float c = dot3(oc, oc) - s.w * s.w;
-    const float disc = half_b * half_b - a * c;
+    float a, half_b, c, disc;
+    if constexpr (BVH) {
+        a = fma_dot3(d, d);
+        half_b = fma_dot3(oc, d);
+        c = fmaf(-s.w, s.w, fma_dot3(oc, oc));
+        disc = fmaf(half_b, half_b, -(a * c));
+    } else {
+        a = dot3(d, d);
+        half_b = dot3(oc, d);
+        c = dot3(oc, oc) - s.w * s.w;
+        disc = half_b * half_b - a * c;
+    }
     const float sq = sqrtf(clamp_min_(disc, 1e-20f));
     const float q = -(half_b + sign_(half_b) * sq);
     const float t0 = q / clamp_min_(a, 1e-20f);

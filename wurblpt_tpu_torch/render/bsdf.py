@@ -77,7 +77,6 @@ class SceneStatic(NamedTuple):
     env_importance: bool
     has_media: bool
     has_bvh: bool
-    bvh_spheres: bool       # spheres in a scene with a BVH (the port's BVH holds triangles)
     sphere_lights: bool
     per_light_mis: bool     # O(1) per-light MIS weights (lights_pdf_at_hit) instead of the mixture
     rgl_tables: bool        # the scene carries RGL tables
@@ -99,7 +98,6 @@ class SceneStatic(NamedTuple):
             env_importance=scene.envmap is not None and scene.envmap.importance,
             has_media=scene.n_media > 0,
             has_bvh=bool(scene.has_bvh),
-            bvh_spheres=bool(scene.has_bvh and scene.n_spheres > 0),
             sphere_lights=bool((lp >= scene.n_tris).any()),
             per_light_mis=(int(lp.shape[0]) >= PER_LIGHT_MIS_MIN and not lights_animated
                            and scene.prim_light_pick is not None),
@@ -113,13 +111,10 @@ class SceneStatic(NamedTuple):
             f"material types {sorted(self.mat_types - SLICE_MATERIALS)}":
                 bool(self.mat_types - SLICE_MATERIALS),
             "textures": self.has_textures,
-            # the BVH's leaves test world rays (B.1.3 ports the object-space ones)
-            "animation in a BVH scene": self.has_anim and self.has_bvh,
             f"environment map kind {self.env_kind}"
             f"{'' if self.env_importance else ' without importance sampling'}":
                 not (self.env_kind in (0, 2, 3) or (self.env_kind == 1 and self.env_importance)),
             "participating media": self.has_media,
-            "spheres in a BVH scene": self.bvh_spheres,
             "sphere lights": self.sphere_lights,
             "RGL materials without tables":
                 MaterialType.RGL in self.mat_types and not self.rgl_tables,

@@ -42,7 +42,8 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
   with K4's plain versions.
 
 An animated scene (rigid keyframes, at one instant t0 = t1) is cast by the
-sweeps KS1/KS2 in each primitive's object space and assembled by K3a, with
+sweeps KS1/KS2, or through its BVH by K5/K6 (the boxes swept over the build
+interval), in each primitive's object space and assembled by K3a, with
 the frame's animation rows built once (`frame_anim`); a moving light is
 placed at that instant for NEE (on K4, in the frame's step tables:
 `wavefront.step_tables_at`).
@@ -50,7 +51,8 @@ placed at that instant for NEE (on K4, in the frame's step tables:
 The brute-force cast follows the JAX package (`prepare_scene`): K1/K2 for
 a static scene without a BVH within the matrix form's 8192 columns
 (`intersect_brute.brute_eligible`), the sweeps for every other scene
-without a BVH. Animation in a BVH scene is refused.
+without a BVH; a scene with a BVH (triangles and spheres, static or
+animated) is cast by K5/K6.
 
 A scene's tables (the brute-force scene or the BVH, the hit tables, the
 packed material rows, the per-light rows and K4's step tables) are built

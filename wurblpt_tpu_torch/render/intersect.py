@@ -5,8 +5,8 @@ port's BVH (K5/K6, :mod:`wurblpt_tpu_torch.accel.traverse`), the
 brute-force table of the K1 form (K1/K2, :mod:`.intersect_brute`) or the
 sweeps (KS1/KS2, :mod:`.intersect_sweep`), as `integrator.prepare_scene`
 chose it by the JAX package's rule. An animated scene passes its
-animations' frames (scene/animation.anim_frames), which only the sweeps
-take. `watertight_tri` is the leaf test of the BVH path, op for op as the
+animations' frames (scene/animation.anim_frames), which the sweeps and the
+BVH take. `watertight_tri` is the BVH's triangle leaf test, op for op as the
 JAX package computes it.
 
 `assemble_hit` is K3 (``csrc/assemble_hit.cu``; with animation frames its
@@ -151,7 +151,8 @@ def watertight_tri(o, d, v0, v1, v2, t_min, t_max):
 
 def _static_only(accel, frames):
     if frames is not None:
-        raise ValueError(f"animation frames need the sweeps, not {type(accel).__name__}")
+        raise ValueError(f"animation frames need the sweeps or a BVH, not "
+                         f"{type(accel).__name__}")
 
 
 def scene_raw_hit(accel, o, d, t_min, t_max, frames=None):
@@ -159,14 +160,14 @@ def scene_raw_hit(accel, o, d, t_min, t_max, frames=None):
 
     `accel` is the scene's BVHArrays (K5), its BruteScene (K1) or its
     SweepScene (KS1); `frames` the animations' rows of an animated scene
-    (sweeps only)."""
+    (the sweeps and the BVH)."""
     if isinstance(accel, SweepScene):
         return closest_sweep(accel, o, d, t_min, t_max, frames)
-    _static_only(accel, frames)
     if isinstance(accel, BVHArrays):
         from ..accel.traverse import bvh_closest_hit  # imports this module: bind late
 
-        return bvh_closest_hit(accel, o, d, t_min, t_max)
+        return bvh_closest_hit(accel, o, d, t_min, t_max, frames)
+    _static_only(accel, frames)
     return closest_hit(accel, o, d, t_min, t_max)
 
 
@@ -175,11 +176,11 @@ def scene_any_hit(accel, o, d, t_min, t_max, frames=None):
     (t_min, t_max); K6 on a BVH, K2 on a BruteScene, KS2 on a SweepScene."""
     if isinstance(accel, SweepScene):
         return any_sweep(accel, o, d, t_min, t_max, frames)
-    _static_only(accel, frames)
     if isinstance(accel, BVHArrays):
         from ..accel.traverse import bvh_any_hit
 
-        return bvh_any_hit(accel, o, d, t_min, t_max)
+        return bvh_any_hit(accel, o, d, t_min, t_max, frames)
+    _static_only(accel, frames)
     return any_hit(accel, o, d, t_min, t_max)
 
 

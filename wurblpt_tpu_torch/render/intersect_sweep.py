@@ -30,7 +30,7 @@ from .. import native
 from ..core.vecmath import cross, dot
 from ..scene.animation import FRAME_WIDTH, frames_ray_to_object
 from ..scene.ir import anim_ids
-from .intersect_brute import BIG, _check_rays, _first_min
+from .intersect_brute import BIG, _check_rays, _first_min, fma, fma_dot
 
 PLAIN_PAIRS = 1 << 22   # ray/primitive pairs per tile of the plain versions (memory only)
 
@@ -77,17 +77,31 @@ def ray_tri_tile(o, d, p0, e1, e2, t_min, t_max):
     return t, u, v, valid
 
 
-def ray_sphere_tile(o, d, center, radius, t_min, t_max):
+def ray_sphere_tile(o, d, center, radius, t_min, t_max, bvh: bool = False):
     """The stable sphere quadratic (intersect.py:189, hitable_sphere.hpp:128-151)
     of rays [N, 3] or [N, P, 3] against spheres [P]: (t, valid), t = BIG
-    where not valid."""
+    where not valid. The sweeps round each operation. `bvh` rounds as XLA's
+    CPU backend evaluates the JAX package's BVH leaf test (traverse.py:198-215;
+    measured bit for bit on its hits): the dot products accumulated with
+    fused multiply-adds, c = fma(-r, r, |oc|^2) and the discriminant
+    fma(half_b, half_b, -(a c)); on the RTIOW ground sphere (radius 1000) c
+    cancels to its last bits, and they decide a ray's self-intersection
+    (rounded otherwise, the full field's frame parts from the JAX package's by
+    1.5e-3 in its mean and 0.4 % in its casts)."""
     if o.dim() == 2:
         o, d = o[:, None, :], d[:, None, :]
     oc = o - center
-    a = dot(d, d)
-    half_b = dot(oc, d)
-    c = dot(oc, oc) - radius * radius
-    disc = half_b * half_b - a * c
+    if bvh:
+        oc, d = torch.broadcast_tensors(oc, d)
+        a = fma_dot(d, d)
+        half_b = fma_dot(oc, d)
+        c = fma(-radius.expand(a.shape), radius.expand(a.shape), fma_dot(oc, oc))
+        disc = fma(half_b, half_b, -(a * c))
+    else:
+        a = dot(d, d)
+        half_b = dot(oc, d)
+        c = dot(oc, oc) - radius * radius
+        disc = half_b * half_b - a * c
     sq = torch.sqrt(torch.clamp_min(disc, 1e-20))
     q = -(half_b + torch.sign(half_b) * sq)
     t0 = q / torch.clamp_min(a, 1e-20)

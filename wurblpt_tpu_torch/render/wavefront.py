@@ -167,11 +167,10 @@ def block_lanes(blk, B, m, P, width, height, ssqrt, device) -> BlockLanes:
 def diffuse_scene(scene: SceneArrays, static: SceneStatic) -> bool:
     """Whether a scene is of the diffuse class: Lambertian surfaces, triangle
     lights with a power-weighted pick (mixture or per-light MIS), no sky, no
-    texture or medium, the brute-force intersector (K1 or the sweeps), static
-    or animated (`SceneStatic.check_slice` refuses animation with a BVH)."""
+    texture or medium, any intersector (K1, the sweeps or the BVH), static
+    or animated."""
     return (static.mat_types <= DIFFUSE_MATERIALS and static.n_lights > 0
-            and not (static.has_textures or static.has_media or static.has_bvh
-                     or static.sphere_lights)
+            and not (static.has_textures or static.has_media or static.sphere_lights)
             and static.env_kind == 0 and scene.light_alias_prob is not None
             and scene.light_weights is not None)
 
@@ -181,10 +180,10 @@ def env_scene(scene: SceneArrays, static: SceneStatic) -> bool:
     surfaces (triangles and analytic spheres) under an equirect, cube or
     constant sky, with or without importance tables (an equirect sky has
     them: `SceneStatic.check_slice`), no light, no texture, animation or
-    medium; the brute-force intersector or a BVH of triangles."""
+    medium; the brute-force intersector or a BVH."""
     return (static.mat_types <= ENV_MATERIALS and static.n_lights == 0
             and not (static.has_textures or static.has_anim or static.has_media
-                     or static.bvh_spheres or static.sphere_lights)
+                     or static.sphere_lights)
             and static.env_kind != 0)
 
 
@@ -193,10 +192,10 @@ def lit_scene(scene: SceneArrays, static: SceneStatic) -> bool:
     ModPhong and RGL surfaces (RGL with its tables) with triangle lights
     under per-light MIS and a power-weighted pick, beside an equirect or
     cube sky with importance tables; no texture, animation or medium; the
-    brute-force intersector or a BVH of triangles."""
+    brute-force intersector or a BVH."""
     return (static.mat_types <= LIT_MATERIALS and static.n_lights > 0 and static.per_light_mis
             and not (static.has_textures or static.has_anim or static.has_media
-                     or static.bvh_spheres or static.sphere_lights)
+                     or static.sphere_lights)
             and static.env_kind in (1, 2) and static.env_importance
             and scene.light_alias_prob is not None and scene.light_weights is not None
             and (MaterialType.RGL not in static.mat_types or static.rgl_tables))
@@ -967,8 +966,6 @@ def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, 
     if tables.n_lights != 0 or not tables.mat_types <= ENV_MATERIALS:
         raise ValueError("shade_env: the kernel takes Lambertian, GGX, mirror and glass surfaces "
                          "and no light")
-    if tables.scene.has_bvh and tables.scene.n_spheres > 0:
-        raise ValueError("shade_env: spheres in a BVH scene (the BVH holds triangles only)")
     _check_env(tables.env, dev)
     if dev.type == "cpu":
         return shade_env_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
@@ -1010,8 +1007,6 @@ def _check_lit_tables(tables: StepTables, dev):
             or not tables.mat_types <= LIT_MATERIALS):
         raise ValueError("shade_lit: the kernel takes Lambertian, GGX, mirror, glass, ModPhong "
                          "and RGL surfaces with triangle lights under per-light MIS")
-    if tables.scene.has_bvh and tables.scene.n_spheres > 0:
-        raise ValueError("shade_lit: spheres in a BVH scene (the BVH holds triangles only)")
     env = tables.env
     if env is None or env.kind not in (1, 2) or not env.importance:
         raise ValueError("shade_lit: the kernel takes an equirect or cube sky with importance "

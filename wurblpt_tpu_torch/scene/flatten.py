@@ -207,13 +207,17 @@ def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_typ, mat_emissiv
     return area * lum * np.maximum(cone_frac, 0.0)
 
 
-def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=False,
-                   envmap=None, rgl_tables=None, spheres=(), animations=()) -> SceneArrays:
+def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=None,
+                   envmap=None, rgl_tables=None, spheres=(), animations=(), t0: float = 0.0,
+                   t1: float = 0.0) -> SceneArrays:
     """Static triangle meshes and spheres + a material table -> SceneArrays on `device`.
 
     `materials` holds numpy arrays; the light pick is power-proportional, as
     ``flatten_scene(light_sampling="power")`` builds it. `use_bvh` builds the
-    port's BVH (:func:`wurblpt_tpu_torch.accel.build.build_bvh`); `envmap` is an
+    port's BVH (:func:`wurblpt_tpu_torch.accel.build.build_bvh`) over the
+    triangles and spheres; None builds it for 512 primitives or more, the JAX
+    flattener's rule (flatten.py:625-626); an animated primitive's box is
+    swept over the render interval [t0, t1]. `envmap` is an
     ``EnvironmentMap{EquiRect,Cube,Constant}`` of :mod:`wurblpt_tpu_torch.render.envmap`;
     `rgl_tables` the table dicts of the RGL materials, in `rgl_id` order.
     `spheres` are :class:`SphereSpec`, flattened as flatten.py:550-576 does
@@ -293,11 +297,17 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
             picks.update(prim_light_pick=dev(pick), prim_inv_area=dev(inv_area))
 
     tris = Triangles(**{k: dev(v) for k, v in arr.items()})
+    sph = Spheres(dev(np.asarray(centers, _f32).reshape(-1, 3)), dev(np.asarray(radii, _f32)),
+                  dev(np.asarray([s.material for s in spheres], _i32)),
+                  dev(np.asarray([s.anim for s in spheres], _i32)))
+    anims = flatten_animations(animations, device)
+    if use_bvh is None:
+        use_bvh = n + len(radii) >= 512
     bvh = None
-    if use_bvh:
+    if use_bvh and n + len(radii) > 0:
         from ..accel.build import build_bvh
 
-        bvh = build_bvh(tris)
+        bvh = build_bvh(tris, sph, anims, t0, t1)
     env = None
     if envmap is not None:
         from ..render.envmap import build_envmap_arrays
@@ -310,12 +320,10 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         rgl = stack_rgl_tables(rgl_tables, device)
     return SceneArrays(
         tris=tris,
-        spheres=Spheres(dev(np.asarray(centers, _f32).reshape(-1, 3)), dev(np.asarray(radii, _f32)),
-                        dev(np.asarray([s.material for s in spheres], _i32)),
-                        dev(np.asarray([s.anim for s in spheres], _i32))),
+        spheres=sph,
         materials=MaterialTable(*(dev(np.asarray(x)) for x in materials)),
         light_prims=dev(light_ids),
-        anims=flatten_animations(animations, device),
+        anims=anims,
         bvh=bvh,
         envmap=env,
         rgl=rgl,

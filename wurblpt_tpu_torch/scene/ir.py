@@ -130,13 +130,21 @@ class BVHArrays(NamedTuple):
     box, then the two child links as int32 bit patterns and two pad words.
     A link >= 0 is an inner node; -1 is an empty child; any other negative
     link is a leaf, ``-1 - link = start * 16 + count``: rows
-    [start, start + count) of `tri_v`. Node 0 is the root. Leaf triangle
-    row, 12 floats = 48 bytes = 3 x float4: v0 xyz, the prim id (int32
-    bits), v1 xyz, 0, v2 xyz, 0 (absolute vertices)."""
+    [start, start + count) of `prim_v`. Node 0 is the root. Leaf row, 12
+    floats = 48 bytes = 3 x float4, in the global prim order's ids (a prim
+    id >= `n_tris` is a sphere): a triangle's v0 xyz, the prim id (int32
+    bits), v1 xyz, the animation id (int32 bits), v2 xyz, 0 (absolute
+    vertices); a sphere's centre xyz, the prim id, the radius, 0, 0, the
+    animation id, then 0 x 4. An animated primitive's row holds its
+    object-space geometry and its child box the world box swept over the
+    build interval; a static triangle scene's rows have zero pads."""
 
     nodes: torch.Tensor     # [M, 16] f32 (links bit-cast)
-    tri_v: torch.Tensor     # [T, 12] f32, in leaf order (prim ids bit-cast)
+    prim_v: torch.Tensor    # [P, 12] f32, in leaf order (prim and animation ids bit-cast)
     depth: int              # inner nodes on the longest root-to-leaf path
+    n_tris: int             # prim ids below it are triangles, the others spheres
+    n_spheres: int
+    n_anims: int            # 1 + the largest animation id of a row (1: a static tree)
 
     @property
     def links(self):
@@ -144,9 +152,14 @@ class BVHArrays(NamedTuple):
         return self.nodes.view(torch.int32)[:, 12:14]
 
     @property
-    def tri_id(self):
-        """[T] int32 global prim id of each leaf row."""
-        return self.tri_v.view(torch.int32)[:, 3]
+    def prim_id(self):
+        """[P] int32 global prim id of each leaf row."""
+        return self.prim_v.view(torch.int32)[:, 3]
+
+    @property
+    def anim_id(self):
+        """[P] int32 animation id of each leaf row (0: static)."""
+        return self.prim_v.view(torch.int32)[:, 7]
 
 
 class EnvMapArrays(NamedTuple):
@@ -231,14 +244,16 @@ def _i32(x, device):
     return torch.as_tensor(np.array(x, np.int32), device=device)
 
 
-def scene_from_numpy(a, device) -> SceneArrays:
+def scene_from_numpy(a, device, t0: float = 0.0, t1: float = 0.0) -> SceneArrays:
     """The JAX package's flattened scene, with numpy leaves, as a SceneArrays on `device`.
 
     `a` is ``wurblpt_tpu.scene.ir.SceneArrays`` after
     ``jax.tree_util.tree_map(np.asarray, ...)``; it is read by attribute only.
     Where the JAX scene has a BVH, the port builds its own from the triangles
-    (a static tree: the port refuses animation in a BVH scene). The keyframe
-    tables come across where the scene has an animation beyond row 0.
+    and spheres with their animation ids, the animated ones boxed over the
+    JAX build's interval [t0, t1] (the JAX tree keeps no per-prim box to
+    copy). The keyframe tables come across where the scene has an animation
+    beyond row 0.
     The RGL tables come across where a material is RGL (the JAX scene always
     carries a placeholder table).
     """
@@ -271,7 +286,7 @@ def scene_from_numpy(a, device) -> SceneArrays:
     if a.bvh is not None:
         from ..accel.build import build_bvh
 
-        bvh = build_bvh(tris)
+        bvh = build_bvh(tris, spheres, anims, t0, t1)
     return SceneArrays(
         tris=tris, spheres=spheres, materials=materials,
         light_prims=_i32(a.light_prims, device),

@@ -1,11 +1,13 @@
-"""K5 and K6 at every cast of the mesh and city frames, on the rays each step
-really gives: the time of each cast on the card beside its bound.
+"""K5 and K6 at every cast of the frames cast through a BVH, on the rays each
+step really gives: the time of each cast on the card beside its bound.
 
-    python -m wurblpt_tpu_torch.utils.cast_steps [--out FILE]
+    python -m wurblpt_tpu_torch.utils.cast_steps [--frames mesh,city,...] [--out FILE]
 
-Renders each frame once (`kernel_check.mesh_frame`, `city_frame`) with the
-inputs of every `bvh_closest_hit` and `bvh_any_hit` call recorded, then, per
-recorded cast: the kernel held against its plain version on it
+Renders each frame once (`kernel_check.mesh_frame`, `city_frame`,
+`rtiow_bvh_frame`, `cornell_animated_bvh_frame`; all four by default) with
+the inputs of every `bvh_closest_hit` and `bvh_any_hit` call recorded (the
+animations' rows too, where the frame is animated), then, per recorded
+cast: the kernel held against its plain version on it
 (`kernel_check.check_bvh_closest_hit` / `check_bvh_any_hit`), its lanes and
 live lanes (t_max > t_min), the wrapper call's time by CUDA events around
 20 back-to-back calls after warm-up (the card stays busy, so this is the
@@ -34,16 +36,19 @@ from . import scenes
 CASTS = ("bvh_closest_hit", "bvh_any_hit")
 
 
+FRAMES = ("mesh", "city", "rtiow_bvh", "cornell_animated_bvh")
+
+
 def record_casts(render):
-    """[(kernel name, bvh, (o, d, t_min, t_max))] of every K5/K6 call made
-    by one call of `render`, the rays copied as they were passed."""
+    """[(kernel name, bvh, (o, d, t_min, t_max), frames)] of every K5/K6 call
+    made by one call of `render`, the rays copied as they were passed."""
     casts = []
     saved = {name: getattr(traverse, name) for name in CASTS}
 
     def recorder(name):
-        def call(bvh, o, d, t_min, t_max):
-            casts.append((name, bvh, tuple(x.clone() for x in (o, d, t_min, t_max))))
-            return saved[name](bvh, o, d, t_min, t_max)
+        def call(bvh, o, d, t_min, t_max, frames=None):
+            casts.append((name, bvh, tuple(x.clone() for x in (o, d, t_min, t_max)), frames))
+            return saved[name](bvh, o, d, t_min, t_max, frames)
         return call
 
     try:
@@ -61,11 +66,11 @@ def cast_rows(frame: str, render, device, n: int = 20):
     plain version: step, lanes, live lanes, ms per call, bound ms, what
     bounds it, and the bytes and flops of the bound."""
     rows, step = [], {name: 0 for name in CASTS}
-    for name, bvh, rays in record_casts(render):
-        getattr(kc, f"check_{name}")(bvh, rays)
+    for name, bvh, rays, frames in record_casts(render):
+        getattr(kc, f"check_{name}")(bvh, rays, frames)
         fn = getattr(traverse, name)
-        ms = kc.time_ms(lambda f=fn, b=bvh, r=rays: f(b, *r), device, n)
-        work = kc.bvh_work(bvh, rays, any_hit=name == "bvh_any_hit")
+        ms = kc.time_ms(lambda f=fn, b=bvh, r=rays, a=frames: f(b, *r, a), device, n)
+        work = kc.bvh_work(bvh, rays, any_hit=name == "bvh_any_hit", frames=frames)
         bound, bound_by = kc.bound_ms(*work)
         rows.append({"frame": frame, "kernel": name, "step": step[name],
                      "lanes": int(rays[0].shape[0]), "live": int((rays[3] > rays[2]).sum()),
@@ -78,9 +83,10 @@ def cast_rows(frame: str, render, device, n: int = 20):
 def tree_summary(bvh) -> str:
     size = sum(x.numel() * x.element_size() for x in bvh if isinstance(x, torch.Tensor))
     parts = [f"{bvh.nodes.shape[0]} nodes of {bvh.nodes.shape[1] * bvh.nodes.element_size()} B",
-             f"{bvh.tri_v.shape[0]} leaf triangles of "
-             f"{bvh.tri_v.shape[1] * bvh.tri_v.element_size()} B",
-             f"depth {bvh.depth}", f"{size / 2**20:.2f} MiB of tables"]
+             f"{bvh.n_tris} leaf triangles and {bvh.n_spheres} leaf spheres of "
+             f"{bvh.prim_v.shape[1] * bvh.prim_v.element_size()} B",
+             f"{bvh.n_anims - 1} animations", f"depth {bvh.depth}",
+             f"{size / 2**20:.2f} MiB of tables"]
     return ", ".join(parts)
 
 
@@ -105,6 +111,8 @@ def summary(rows):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", default=",".join(FRAMES),
+                    help=f"comma-separated subset of {','.join(FRAMES)}")
     ap.add_argument("--out", default=None, help="also write the rows here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -112,9 +120,13 @@ def main(argv=None) -> int:
         return 2
     device = "cuda"
     build = {"mesh": (lambda: scenes.terrain_city(seed=3, device=device), kc.mesh_frame),
-             "city": (lambda: scenes.city_night(seed=7, device=device), kc.city_frame)}
+             "city": (lambda: scenes.city_night(seed=7, device=device), kc.city_frame),
+             "rtiow_bvh": (lambda: scenes.rtiow(n=kc.RTIOW_BVH_N, device=device, use_bvh=True),
+                           kc.rtiow_bvh_frame),
+             "cornell_animated_bvh": (lambda: scenes.cornell_box_animated(
+                 device, spheres=True, use_bvh=True), kc.cornell_animated_bvh_frame)}
     rows = []
-    for frame in ("mesh", "city"):
+    for frame in args.frames.split(","):
         make_scene, make_frame = build[frame]
         scene = make_scene()
         print(f"{frame}: {tree_summary(scene.bvh)}")

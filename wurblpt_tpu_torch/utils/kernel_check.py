@@ -14,8 +14,10 @@ still differ, such as atan2f/asinf against PyTorch's):
 * K3 hit assembly: integer fields equal, float fields atol 1e-5 on hit lanes.
 * K5 BVH closest hit: prim ids, t, u and v equal bit for bit on every lane
   (kernel and plain version walk the same tree in the same order with the
-  same roundings, so ties resolve alike).
-* K6 BVH any hit: equal on every lane.
+  same roundings, so ties resolve alike), every instantiation: triangle
+  and sphere rows, world rays and (with the animations' `frames`)
+  object-space rays.
+* K6 BVH any hit: equal on every lane, every instantiation.
 * K8 envmap: radiance rtol 1e-5, atol 1e-6 (the sun is 200, the sky ~1);
   sampled directions atol 1e-6; pdfs equal (a table lookup) on all but
   1e-4 of the lanes (an ulp of atan2f can move a direction across a cell
@@ -51,11 +53,14 @@ still differ, such as atan2f/asinf against PyTorch's):
   and directions are compared on the rows that cast (t_max > 0), which are
   the only rows K2/K6 read.
 
-Also the seven frames the port renders and their yardsticks: the Cornell
+Also the nine frames the port renders and their yardsticks: the Cornell
 bench frame, the mesh frame (bench config bvh_100k), the city frame (bench
 config city_many_lights), the envmap frame (envmap_cube_is), the rtiow
-frame (rtiow_distortion), the ToF frame (tof_amcw) and the animated Cornell
-frame (cornell_animated, the bench's Cornell settings at t = 0.5), each with the JAX
+frame (rtiow_distortion), the ToF frame (tof_amcw), the animated Cornell
+frame (cornell_animated, the bench's Cornell settings at t = 0.5), the
+rtiow_bvh frame (the reference's full RTIOW field, 488 spheres in a BVH,
+with rtiow's settings) and the cornell_animated_bvh frame (the animated box
+with two spheres in a BVH swept at t = 0.5, cornell_animated's settings), each with the JAX
 package's deterministic CPU output at the bench settings, which the port's
 render must meet (mean radiance, or mean energy, within 1e-3 relative, cast
 counters within 0.5 %); and the ToF distance check at depth 1.
@@ -127,7 +132,7 @@ from ..render.intersect_sweep import (
 from ..render.lights import light_frames, lights_sample
 from ..render.sensor import SensorRGB, SensorTofAmcw
 from ..scene.animation import anim_frames, frames_ray_to_object
-from ..scene.ir import MaterialType
+from ..scene.ir import BVHArrays, MaterialType
 from . import scenes
 
 MIN_HIT = RenderParams().min_hit_distance
@@ -247,6 +252,24 @@ ANIM_TIME = 0.5
 ANIM_REF_MEAN = 0.043838444905687245
 ANIM_REF_STATS = (1130662, 2073670)
 
+# The rtiow_bvh frame: the reference's RTIOW field at its own size,
+# scenes.rtiow(seed=7, n=22) (484 small spheres, the ground and three large
+# ones: 488 spheres), built with a BVH (use_bvh=True, as the C++ reference
+# always traverses one), seen as the rtiow frame: RTIOW_* settings, lens
+# and camera. The JAX package's CPU output for the same scene through its
+# BVH route: `JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow_bvh`.
+RTIOW_BVH_N = 22
+RTIOW_BVH_REF_MEAN = 0.4680541570162044
+RTIOW_BVH_REF_STATS = (925885, 925885)
+
+# The cornell_animated_bvh frame: scenes.cornell_box_animated(spheres=True)
+# (36 triangles and two spheres, one riding the short box's turn) built
+# with a BVH whose boxes are swept over [ANIM_TIME, ANIM_TIME], rendered as
+# cornell_animated. The JAX package's CPU output for it through its BVH
+# route (`jax_frame_reference.py cornell_animated_bvh`).
+ANIM_BVH_REF_MEAN = 0.042729496972403025
+ANIM_BVH_REF_STATS = (1130169, 2075217)
+
 # Camera rays over ROADMAP C.1's scenes (scenes.sphere_field,
 # scenes.tri_sphere_field): 128 x 96 pixels x 8 sample lanes.
 FIELD_WIDTH = 128
@@ -348,6 +371,28 @@ def cornell_animated_frame(device, scene=None, depth: int = BENCH_DEPTH,
                   t=ANIM_TIME)
 
 
+def rtiow_bvh_frame(device, scene=None, depth: int = RTIOW_DEPTH) -> Callable[[], tuple]:
+    """The same for the rtiow_bvh frame; `scene` is rtiow(n=22,
+    use_bvh=True) on `device`, built here when not given; `depth` replaces
+    the bench's 8 path components."""
+    scene = scenes.rtiow(n=RTIOW_BVH_N, device=device, use_bvh=True) if scene is None else scene
+    return _frame(scene, scenes.rtiow_camera(device), RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT,
+                  depth, device, RTIOW_CAMERA, lens=RTIOW_LENS)
+
+
+def cornell_animated_bvh_frame(device, scene=None, depth: int = BENCH_DEPTH,
+                               width: int = BENCH_WIDTH, ssqrt: int = BENCH_SSQRT,
+                               ) -> Callable[[], tuple]:
+    """The same for the cornell_animated_bvh frame at t0 = t1 = ANIM_TIME;
+    `scene` is cornell_box_animated(spheres=True, use_bvh=True) on
+    `device`, built here when not given; `depth`, `width` (= height) and
+    `ssqrt` change the bench settings for the tests."""
+    scene = (scenes.cornell_box_animated(device, spheres=True, use_bvh=True) if scene is None
+             else scene)
+    return _frame(scene, scenes.cornell_ref_camera(device), width, width, ssqrt, depth, device,
+                  t=ANIM_TIME)
+
+
 def pixel_centre_distance(scene, camera, width: int, height: int, device):
     """[H, W] first-hit distance of the pixel-centre camera rays (K1's t; BIG
     on a miss): the ground truth of a ToF distance image."""
@@ -431,6 +476,18 @@ def check_rtiow_frame(img, stats) -> float:
 def check_cornell_animated_frame(img, stats) -> float:
     """Hold an animated Cornell frame to the JAX reference; returns its mean radiance."""
     return _check_frame(img, stats, (BENCH_WIDTH, BENCH_WIDTH, 3), ANIM_REF_MEAN, ANIM_REF_STATS)
+
+
+def check_rtiow_bvh_frame(img, stats) -> float:
+    """Hold an rtiow_bvh frame to the JAX reference; returns its mean radiance."""
+    return _check_frame(img, stats, (RTIOW_HEIGHT, RTIOW_WIDTH, 3), RTIOW_BVH_REF_MEAN,
+                        RTIOW_BVH_REF_STATS)
+
+
+def check_cornell_animated_bvh_frame(img, stats) -> float:
+    """Hold a cornell_animated_bvh frame to the JAX reference; returns its mean radiance."""
+    return _check_frame(img, stats, (BENCH_WIDTH, BENCH_WIDTH, 3), ANIM_BVH_REF_MEAN,
+                        ANIM_BVH_REF_STATS)
 
 
 def check_tof_frame(img, stats) -> float:
@@ -547,13 +604,15 @@ def frames_at(scene, time: float = ANIM_TIME):
     return anim_frames(scene.anims, time)
 
 
-def anim_shadow_lanes(scene, ss, frames, rays, seed: int = 2):
+def anim_shadow_lanes(scene, accel, frames, rays, seed: int = 2):
     """NEE shadow rays of an animated scene: from the first hits of `rays`
-    (the plain sweep) toward a point sampled on the light where it is at
-    the instant of `frames` (`frames_at`), shortened as the integrator does;
-    lanes without a hit get t_max = 0."""
+    (the plain cast of `accel`, the scene's SweepScene or BVHArrays) toward
+    a point sampled on the light where it is at the instant of `frames`
+    (`frames_at`), shortened as the integrator does; lanes without a hit
+    get t_max = 0."""
     o, d, t_min, t_max = rays
-    t, prim, _, _ = closest_sweep_plain(ss, o, d, t_min, t_max, frames)
+    cast = bvh_closest_hit_plain if isinstance(accel, BVHArrays) else closest_sweep_plain
+    t, prim, _, _ = cast(accel, o, d, t_min, t_max, frames)
     pos = o + torch.where(prim >= 0, t, 1.0)[:, None] * d
     u3 = _f32(np.random.default_rng(seed).uniform(size=(o.shape[0], 3)), o.device)
     ldir, _, ldist, _, _ = lights_sample(scene, pos, u3, light_frames(scene, frames))
@@ -637,6 +696,13 @@ def terrain_random_lanes(n: int, device, seed: int = 1):
                         t_far=30.0)
 
 
+def rtiow_bvh_random_lanes(n: int, device, seed: int = 1):
+    """Random rays over the RTIOW field, from below the small spheres' tops
+    to above the large ones, a third with a finite t_max, a tenth dead."""
+    return random_lanes(n, device, seed, lo=(-11.0, 0.0, -11.0), hi=(11.0, 2.5, 11.0),
+                        t_far=8.0)
+
+
 def env_shadow_lanes(scene, rays, bs=None, seed: int = 2):
     """Env-NEE shadow rays from the first hits of `rays`, toward sky directions
     that env_sample draws, to BIG; lanes without a hit get t_max = 0. The
@@ -651,11 +717,11 @@ def env_shadow_lanes(scene, rays, bs=None, seed: int = 2):
             torch.where(prim >= 0, BIG, 0.0).to(torch.float32))
 
 
-def check_bvh_closest_hit(bvh, rays) -> Dict[str, float]:
-    """K5 against its plain version, bit for bit on every lane; raises
-    AssertionError on disagreement."""
-    t, prim, u, v = bvh_closest_hit(bvh, *rays)
-    pt, pprim, pu, pv = bvh_closest_hit_plain(bvh, *rays)
+def check_bvh_closest_hit(bvh, rays, frames=None) -> Dict[str, float]:
+    """K5 against its plain version, bit for bit on every lane (with
+    `frames`: object-space rays); raises AssertionError on disagreement."""
+    t, prim, u, v = bvh_closest_hit(bvh, *rays, frames)
+    pt, pprim, pu, pv = bvh_closest_hit_plain(bvh, *rays, frames)
     bad = int((prim != pprim).sum())
     assert bad == 0, f"bvh_closest_hit: {bad} prim ids differ"
     for name, a, b in (("t", t, pt), ("u", u, pu), ("v", v, pv)):
@@ -663,13 +729,13 @@ def check_bvh_closest_hit(bvh, rays) -> Dict[str, float]:
         assert diff == 0, f"bvh_closest_hit: {name} differs on {diff} lanes"
     hit = prim >= 0
     return {"max_abs_err": 0.0, "lanes": int(prim.shape[0]), "live": int((rays[3] > rays[2]).sum()),
-            "hits": int(hit.sum())}
+            "hits": int(hit.sum()), "sphere hits": int((prim >= bvh.n_tris).sum())}
 
 
-def check_bvh_any_hit(bvh, rays) -> Dict[str, float]:
+def check_bvh_any_hit(bvh, rays, frames=None) -> Dict[str, float]:
     """K6 against its plain version; raises AssertionError on disagreement."""
-    occ = bvh_any_hit(bvh, *rays)
-    pocc = bvh_any_hit_plain(bvh, *rays)
+    occ = bvh_any_hit(bvh, *rays, frames)
+    pocc = bvh_any_hit_plain(bvh, *rays, frames)
     diff = int((occ != pocc).sum())
     assert diff == 0, f"bvh_any_hit: {diff} lanes differ"
     return {"max_abs_err": 0.0, "lanes": int(occ.shape[0]), "live": int((rays[3] > rays[2]).sum()),
@@ -863,9 +929,11 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     """The inputs of K4's kernels on the first block of the Cornell bench
     frame (131072 lanes), the animated Cornell frame (cornell_animated, the
     same lanes at t = ANIM_TIME: the sweeps' casts, K3a, the moving light
-    in the step tables), the ToF frame (phase 0, 73728 lanes), the mesh
-    frame (76800 lanes), the envmap frame (131072 lanes), the rtiow frame
-    (98304 lanes, through its OpenCV lens) or the city frame (1048576 of its
+    in the step tables; cornell_animated_bvh: with its spheres, cast through
+    its BVH), the ToF frame (phase 0, 73728 lanes), the mesh frame (76800
+    lanes), the envmap frame (131072 lanes), the rtiow frame (98304 lanes,
+    through its OpenCV lens; rtiow_bvh: the 488 spheres of the full field in
+    a BVH, the same lanes) or the city frame (1048576 of its
     2073600 pixels at 1 spp, 360-degree stereo), after `steps` wavefront
     steps of the plain route (regen_plain, the scene's closest-hit cast, K3,
     the class's plain shade, the scene's any-hit cast where the shade casts
@@ -883,9 +951,10 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     lens = None
     own_cfg = CameraConfig()
     eye_distance, max_lanes = 0.0635, 131072
-    if frame in ("cornell", "cornell_animated"):
-        own = ((scenes.cornell_box_ref if frame == "cornell" else scenes.cornell_box_animated),
-               scenes.cornell_ref_camera)
+    if frame in ("cornell", "cornell_animated", "cornell_animated_bvh"):
+        own = ({"cornell": scenes.cornell_box_ref, "cornell_animated": scenes.cornell_box_animated,
+                "cornell_animated_bvh": lambda dev: scenes.cornell_box_animated(
+                    dev, spheres=True, use_bvh=True)}[frame], scenes.cornell_ref_camera)
         size = (BENCH_WIDTH, BENCH_WIDTH, BENCH_SSQRT, BENCH_LANES_M)
         depth, own_sensor = BENCH_DEPTH, SensorRGB()
     elif frame == "tof":
@@ -900,8 +969,10 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
         own = (lambda dev: scenes.envmap_spheres(cube=True, device=dev)), scenes.envmap_camera
         size = (ENVMAP_WIDTH, ENVMAP_WIDTH, ENVMAP_SSQRT, ENVMAP_LANES_M)
         depth, own_sensor = ENVMAP_DEPTH, SensorRGB()
-    elif frame == "rtiow":
-        own = (lambda dev: scenes.rtiow(device=dev)), scenes.rtiow_camera
+    elif frame in ("rtiow", "rtiow_bvh"):
+        own = ((lambda dev: scenes.rtiow(device=dev)) if frame == "rtiow" else
+               (lambda dev: scenes.rtiow(n=RTIOW_BVH_N, device=dev, use_bvh=True)),
+               scenes.rtiow_camera)
         size = (RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT, RTIOW_LANES_M)
         depth, own_sensor, own_cfg, lens = RTIOW_DEPTH, SensorRGB(), RTIOW_CAMERA, RTIOW_LENS
     elif frame == "city":
@@ -1489,21 +1560,34 @@ def sweep_work(ss, rays, frames=None, any_hit: bool = False):
     return n_bytes, float(tested.sum()) + obj
 
 
-def bvh_work(bvh, rays, any_hit: bool):
+BVH_TRI_FLOPS = 60.0      # the watertight test
+SHEAR_FLOPS = 3.0         # an object ray's shear: a reciprocal and two products
+
+
+def bvh_work(bvh, rays, any_hit: bool, frames=None):
     """K5/K6: per lane t_min and t_max in (8 B) and the result out (16 B of t,
     prim, u, v; 1 B of occlusion); o and d in (24 B) only on live lanes
-    (t_max > t_min: a dead lane reads no more); the node table and 40 B per
-    triangle (nine vertex floats and the prim id, not the row's pad words)
-    read once (rows visited by many rays stay in cache); two slab tests (48
-    flops) for each inner-node visit of the walk and 60 flops (the watertight
-    test) for each leaf triangle test, counted with the plain walk on these
-    rays."""
-    c = bvh_walk_counts(bvh, *rays, any_hit=any_hit)
+    (t_max > t_min: a dead lane reads no more); the node table, 40 B per
+    triangle row (nine vertex floats and the prim id, not the row's pad
+    words) and 20 B per sphere row (centre, radius, prim id), 4 B more per
+    row for its animation id and the frame rows with `frames`, read once
+    (rows visited by many rays stay in cache). Charged per branch: two slab
+    tests (48 flops) for each inner-node visit of the walk, BVH_TRI_FLOPS for
+    each leaf triangle test, SWEEP_SPHERE_FLOPS for each leaf sphere test,
+    and with `frames` OBJECT_RAY_FLOPS + SHEAR_FLOPS for each object ray a
+    lane computes (where its next row's animation differs from its last),
+    counted with the plain walk on these rays."""
+    c = bvh_walk_counts(bvh, *rays, any_hit=any_hit, frames=frames)
     n = rays[0].shape[0]
     live = int((rays[3] > rays[2]).sum())
-    tables = _table_bytes([bvh.nodes]) + 40 * bvh.tri_v.shape[0]
+    per_row = 4 if frames is not None else 0
+    tables = (_table_bytes([bvh.nodes]) + (40 + per_row) * bvh.n_tris
+              + (20 + per_row) * bvh.n_spheres
+              + (0 if frames is None else _table_bytes([frames])))
     n_bytes = live * 24 + n * 8 + (n if any_hit else n * 16) + tables
-    return n_bytes, 48.0 * c["nodes"] + 60.0 * c["tri_tests"]
+    return n_bytes, (48.0 * c["nodes"] + BVH_TRI_FLOPS * c["tri_tests"]
+                     + SWEEP_SPHERE_FLOPS * c["sphere_tests"]
+                     + (OBJECT_RAY_FLOPS + SHEAR_FLOPS) * c["object_rays"])
 
 
 def envmap_work(env, n: int):

@@ -1,12 +1,14 @@
-"""Where the time of the port's seven frames goes on the GPU.
+"""Where the time of the port's nine frames goes on the GPU.
 
     python -m wurblpt_tpu_torch.utils.profile_frame [--frames mesh,city] [--runs N]
 
-For each frame in turn (by default all seven: the Cornell bench frame, the
+For each frame in turn (by default all nine: the Cornell bench frame, the
 mesh frame of bench config bvh_100k, the city frame of bench config
 city_many_lights, the envmap frame of envmap_cube_is, the rtiow frame of
 rtiow_distortion, the ToF frame of tof_amcw at phase 0, the animated
-Cornell frame cornell_animated at t = 0.5): renders it once to
+Cornell frame cornell_animated at t = 0.5, and the two frames cast through
+a BVH with sphere and object-space leaves, rtiow_bvh (the full RTIOW
+field) and cornell_animated_bvh): renders it once to
 warm up, N times (5 by default) unprofiled, once under torch.profiler (CPU
 + CUDA activities), and 3 times
 more unprofiled (frames after a profiled one run slower), and prints: the
@@ -33,9 +35,11 @@ from .. import native
 from .kernel_check import (
     bench_frame,
     city_frame,
+    cornell_animated_bvh_frame,
     cornell_animated_frame,
     envmap_frame,
     mesh_frame,
+    rtiow_bvh_frame,
     rtiow_frame,
     tof_frame,
 )
@@ -109,6 +113,9 @@ FRAMES = {
     "tof": ("tof frame (tof_amcw, phase 0)", tof_frame, "closest_hit"),
     "cornell_animated": ("animated cornell frame (t = 0.5)", cornell_animated_frame,
                          "sweep_closest"),
+    "rtiow_bvh": ("rtiow_bvh frame (488 spheres in a BVH)", rtiow_bvh_frame, "bvh_closest_hit"),
+    "cornell_animated_bvh": ("animated cornell frame with spheres in a BVH (t = 0.5)",
+                             cornell_animated_bvh_frame, "bvh_closest_hit"),
 }
 
 

@@ -76,10 +76,12 @@ CORNELL_ANIM_ID = {"short": 1, "tall": 2, "light": 3}
 CORNELL_ANIM_SPHERES = (((0.3, 0.85, 0.4), 0.2, 1), ((-0.45, 0.25, 0.55), 0.25, 0))
 
 
-def cornell_box_animated(device="cuda", spheres: bool = False):
+def cornell_box_animated(device="cuda", spheres: bool = False, use_bvh: bool = False,
+                         t0: float = 0.5, t1: float = 0.5):
     """The reference Cornell box with three keyframe animations
-    (`cornell_animations`): 36 triangles and 4 animation rows, no BVH. The
-    same arrays as the JAX builder makes of the same box
+    (`cornell_animations`): 36 triangles and 4 animation rows, no BVH unless
+    `use_bvh` (its boxes swept over [t0, t1], the frame's instant by
+    default). The same arrays as the JAX builder makes of the same box
     (``jax_frame_reference.jax_cornell_animated``). With `spheres`, two
     white spheres join it, one riding the short box's turn and one static:
     the sphere branches of the animated casts and hit assembly."""
@@ -95,8 +97,8 @@ def cornell_box_animated(device="cuda", spheres: bool = False):
                            cd.UV_LIGHT, cd.IDX, mat_id["light"], hot_spot=True,
                            anim=CORNELL_ANIM_ID["light"]))
     sph = [SphereSpec(c, r, 0, anim=a) for c, r, a in CORNELL_ANIM_SPHERES] if spheres else []
-    return flatten_meshes(meshes, material_table(rows), device, spheres=sph,
-                          animations=cornell_animations())
+    return flatten_meshes(meshes, material_table(rows), device, use_bvh, spheres=sph,
+                          animations=cornell_animations(), t0=t0, t1=t1)
 
 
 def field_spec(n_tris: int, n_spheres: int, seed: int):
@@ -123,20 +125,20 @@ def _field(n_tris, n_spheres, seed, device):
                        np.arange(3 * int((tmat == m).sum()), dtype=np.int32).reshape(-1, 3), m)
               for m in range(len(FIELD_ALBEDO)) if (tmat == m).any()]
     sph = [SphereSpec(tuple(c), float(r), int(m)) for c, r, m in zip(centers, radii, smat)]
-    return flatten_meshes(meshes, material_table(rows), device, spheres=sph,
+    return flatten_meshes(meshes, material_table(rows), device, use_bvh=False, spheres=sph,
                           envmap=EnvironmentMapConstant(FIELD_SKY))
 
 
 def sphere_field(n: int = 3000, seed: int = 11, device="cuda"):
     """ROADMAP C.1's first example: `n` Lambertian spheres under a constant
-    sky and no BVH. At 3000 spheres the JAX package casts it through its
+    sky and no BVH (use_bvh=False, as its JAX build has it). At 3000 spheres the JAX package casts it through its
     matrix form (6144 of 8192 columns): the port through K1."""
     return _field(0, n, seed, device)
 
 
 def tri_sphere_field(n_tris: int = 2000, n_spheres: int = 40, seed: int = 12, device="cuda"):
-    """ROADMAP C.1's second example: 2000 triangles and 40 spheres, no BVH,
-    8448 columns: the JAX package sweeps its tiles, and so does the port
+    """ROADMAP C.1's second example: 2000 triangles and 40 spheres, no BVH
+    (use_bvh=False, as its JAX build has it), 8448 columns: the JAX package sweeps its tiles, and so does the port
     (KS1/KS2)."""
     return _field(n_tris, n_spheres, seed, device)
 
@@ -406,13 +408,15 @@ def envmap_camera(device="cuda"):
     return from_lookat((0.0, 0.6, 4.0), (0.0, 0.0, 0.0), device=device), 40.0
 
 
-def rtiow(seed: int = 7, n: int = 6, device="cuda"):
+def rtiow(seed: int = 7, n: int = 6, device="cuda", use_bvh: bool = False):
     """The rtiow path's scene (bench config rtiow_distortion at the defaults:
     40 spheres, no triangle): a radius-1000 ground sphere, an n x n grid of
     random Lambertian, GGX and glass spheres and three large ones under a
     constant sky (wurblpt-rtiow.cpp:84-133). The same arrays as
-    ``wurblpt_tpu.utils.scenes.rtiow(seed, n).build()``, random draws in the
-    same order."""
+    ``wurblpt_tpu.utils.scenes.rtiow(seed, n).build(use_bvh=use_bvh)``,
+    random draws in the same order. n = 22 is the reference's own field
+    (Shirley's a, b in [-11, 11): 488 spheres), the rtiow_bvh path's with
+    `use_bvh`."""
     rs = np.random.RandomState(seed)
     rows = [(MaterialType.LAMBERTIAN, (0.5, 0.5, 0.5), None)]
     spheres = [SphereSpec((0, -1000, 0), 1000.0, 0)]
@@ -434,7 +438,7 @@ def rtiow(seed: int = 7, n: int = 6, device="cuda"):
     m = len(rows)
     spheres += [SphereSpec((0, 1, 0), 1.0, m - 3), SphereSpec((-4, 1, 0), 1.0, m - 2),
                 SphereSpec((4, 1, 0), 1.0, m - 1)]
-    return flatten_meshes([], material_table(rows), device, spheres=spheres,
+    return flatten_meshes([], material_table(rows), device, use_bvh, spheres=spheres,
                           envmap=EnvironmentMapConstant((0.7, 0.8, 1.0)))
 
 
