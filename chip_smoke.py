@@ -19,7 +19,8 @@ Phases, each a function, any failure exits non-zero and names its phase:
    (one riding the short box's turn), and ROADMAP C.1's brute-force fields:
    sphere_field() with 3000 and 4096 spheres (the K1 form's 6144 and 8192
    columns) and tri_sphere_field() (2000 triangles and 40 spheres, 8448
-   columns: the sweeps); and the two scenes cast through a BVH with sphere
+   columns: the sweeps), and tri_sphere_field(2048, 0) (8192 columns: K1's
+   largest table, 128 KB); and the two scenes cast through a BVH with sphere
    and object-space leaves: rtiow(n=22, use_bvh=True) (the reference's
    full RTIOW field, 488 spheres) and cornell_box_animated(spheres=True,
    use_bvh=True) (36 triangles and 2 spheres, the boxes swept at t = 0.5).
@@ -46,9 +47,18 @@ Phases, each a function, any failure exits non-zero and names its phase:
    the axis, diagonal, face-edge and texel-boundary directions) and on the
    constant map, both bit-equal. K1, K2 and K3 also on the C.1 sphere
    fields' 98304 camera rays (3000 and 4096 spheres; K2 on shadow rays from
-   their first hits to random sky directions). The sweeps KS1 and KS2 and
-   the hit assembly (K3 static, K3a animated) against their plain versions,
-   bit-equal, on three sets of rays: the cornell_animated frame's block
+   their first hits to random sky directions). K1 and K2 also on the
+   2048-triangle field's camera rays (K1 with half of them dead too) and
+   sky shadow rays, and on the Cornell block's camera and shadow rays and
+   rtiow's camera rays with dead lanes scattered at the K1 frames' live
+   shares (kc.scatter_dead: t_max 0, t_min or NaN); K1 and K2 are held bit
+   for bit there and everywhere (no lane's outputs differ in a bit). P0
+   also on [37, C] tables of random words and NaN payloads, C = 1, 3, 23
+   and 128, with indices outside the table; its device time
+   (kernel_check.device_ms) beside index_select's on the city's material
+   rows. The sweeps KS1 and KS2 and the hit assembly (K3 static, K3a
+   animated) against their plain versions, bit-equal, on three sets of
+   rays: the cornell_animated frame's block
    (131072 camera rays, random rays, and NEE shadow rays toward the light
    where it is at t = 0.5), tri_sphere_field's camera rays (static sweeps)
    and the animated Cornell box with spheres (the camera rays: the sphere
@@ -148,8 +158,9 @@ regeneration is timed only on lanes that regenerate. K5 and K6 are also
 held against their plain versions (bit-equal) and timed beside their bound
 at every cast of the mesh frame (4 steps), the city frame (2 blocks of 4
 steps), the rtiow_bvh frame and the cornell_animated_bvh frame, on the
-rays each step gives, with each cast's live lanes
-(`utils/cast_steps.py`); the lit shade and the surround regeneration at
+rays each step gives, with each cast's live lanes (`utils/cast_steps.py`,
+which also times K1 and K2 per cast on the Cornell, ToF, envmap and rtiow
+frames when run alone); the lit shade and the surround regeneration at
 every step of the city frame and the regeneration at every step of the
 Cornell, mesh and rtiow frames' first block likewise, with their live and
 regenerated lanes and their bounds in place and copying
@@ -158,9 +169,10 @@ lane state in place: each check gives every call its own copy of the
 inputs, and each time restores them before every call, outside the timed
 window (the device's time per call). Every path
 prints its frame time, paths/s, Mrays/s, device time and kernel launches
-per wavefront step, and apart from them the copies and memsets (one more
-frame under torch.profiler; the scene's tables are built once per scene,
-before the frames); every path also the launches of one step of the loop
+per wavefront step, and apart from them the copies and memsets, and each
+hand-written kernel's device time per launch (one more frame under
+torch.profiler; the scene's tables are built once per scene, before the
+frames); every path also the launches of one step of the loop
 and of the frame's set-up, from the difference to the same frame at 1
 path component. Cornell, ToF, envmap and rtiow fail above 12 kernel
 launches per step of the frame; the mesh frame (4 steps, so its ~31
@@ -194,6 +206,7 @@ them, one JSON line with the kernels, and as the last line
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -220,6 +233,9 @@ ANIM_MAX_FRAME_LAUNCHES = 400
 # cornell_animated (K5's and K6's lane counters are memsets, not kernels)
 ANIM_BVH_LOOP_LAUNCHES = 7.0
 PROFILE_TRIES = 10                     # profiles of a frame taken while the profiler loses events
+# K1's live shares (t_max > t_min) on the Cornell, ToF, envmap and rtiow
+# frames: closest casts over launches x lanes (PERF.md)
+LIVE_SHARES = (0.54, 0.77, 0.26, 0.24)
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
 KERNELS = {
@@ -391,6 +407,12 @@ def _timed_records(timed, errs, lanes):
     return records
 
 
+def _bit_equal(res):
+    """A K1 or K2 check's result, once no lane's outputs differ in a bit."""
+    assert res["differ"] == 0, f"{res['differ']} lanes differ from the plain version"
+    return res
+
+
 def _run_checks(checks):
     errs = {}
     for name, check, sets in checks:
@@ -440,15 +462,31 @@ def phase_kernels(scenes_on_card):
         f_shadow = kc.sky_shadow_lanes(
             lambda *r, b=f_bs: intersect_brute.closest_hit_plain(b, *r), fcam)
         fields[n_sph] = (f_bs, intersect.build_hit_tables(f_scene), f_shadow)
+    # K1's largest table, 2048 triangles (128 KB, staged whole), and blocks
+    # whose dead lanes are scattered at the live shares of the K1 frames.
+    tri_scene = scenes_on_card["tri_field 2048"]
+    assert intersect_brute.brute_eligible(tri_scene), "2048 triangles: not the K1 form's"
+    tri_bs = intersect_brute.build_brute_scene(tri_scene)
+    tri_shadow = kc.sky_shadow_lanes(
+        lambda *r, b=tri_bs: intersect_brute.closest_hit_plain(b, *r), fcam)
     errs = _run_checks((
-        ("closest_hit", lambda b, r: kc.check_closest_hit(b, r),
+        ("closest_hit", lambda b, r: _bit_equal(kc.check_closest_hit(b, r)),
          {"camera": (bs, cam), "random": (bs, rnd), "rtiow camera, spheres only": (rt_bs, rt_cam),
           "envmap camera": (env_bs, env_cam),
-          **{f"{k}-sphere field camera": (f[0], fcam) for k, f in fields.items()}}),
-        ("any_hit", lambda b, r: kc.check_any_hit(b, r),
+          **{f"{k}-sphere field camera": (f[0], fcam) for k, f in fields.items()},
+          "2048-triangle field camera, 128 KB table": (tri_bs, fcam),
+          "2048-triangle field camera, half the lanes dead": (tri_bs, kc.scatter_dead(fcam, 0.5)),
+          **{f"camera, {round(100 * (1 - x))} % of the lanes dead, scattered":
+             (bs, kc.scatter_dead(cam, 1 - x)) for x in LIVE_SHARES},
+          "rtiow camera, 76 % of the lanes dead, scattered":
+              (rt_bs, kc.scatter_dead(rt_cam, 0.76))}),
+        ("any_hit", lambda b, r: _bit_equal(kc.check_any_hit(b, r)),
          {"shadow": (bs, shadow), "random": (bs, rnd),
           "rtiow camera, spheres only": (rt_bs, rt_cam), "envmap env shadow": (env_bs, env_shadow),
-          **{f"{k}-sphere field sky shadow": (f[0], f[2]) for k, f in fields.items()}}),
+          **{f"{k}-sphere field sky shadow": (f[0], f[2]) for k, f in fields.items()},
+          "2048-triangle field sky shadow": (tri_bs, tri_shadow),
+          **{f"shadow, {round(100 * (1 - x))} % of the lanes dead, scattered":
+             (bs, kc.scatter_dead(shadow, 1 - x)) for x in LIVE_SHARES}}),
         ("assemble_hit", lambda b, h, r: kc.check_assemble_hit(b, h, r),
          {"camera": (bs, ht, cam), "random": (bs, ht, rnd),
           "rtiow camera, spheres only": (rt_bs, rt_ht, rt_cam),
@@ -556,7 +594,9 @@ def phase_kernels(scenes_on_card):
          {"city camera hits and random lanes": ()}),
         ("row_gather", kc.check_row_gather,
          {"probe rows [512, 128] x 256": probe_rows, "probe vector [512] x [8, 128]": probe_vec,
-          "city material rows": (packed, mat_idx)})))
+          "city material rows": (packed, mat_idx),
+          **{f"[37, {c}] NaN payloads, indices out of range": kc.gather_words(c, DEVICE, seed=c)
+             for c in (1, 3, 23, 128)}})))
     errs["rgl_eval"] = errs["rgl_sample"] = errs.pop("rgl")
     records += _timed_records({
         "rgl_eval": (lambda: rgl.rgl_eval(tables, mid, wi, wo),
@@ -570,6 +610,14 @@ def phase_kernels(scenes_on_card):
                        kc.row_gather_work(packed, mat_idx),
                        lambda: torch.index_select(packed, 0, mat_idx)),
     }, errs, mid.shape[0])
+    # P0's device time beside index_select's: the wrapper call above also
+    # times the host's ctypes call and checks.
+    p0 = next(r for r in records if r["name"] == "row_gather")
+    p0["device_ms"] = kc.device_ms(lambda: gather.row_gather(packed, mat_idx))
+    p0["library_device_ms"] = kc.device_ms(lambda: torch.index_select(packed, 0, mat_idx))
+    print(f"kernels: row_gather device {p0['device_ms'] * 1e3:.2f} us per call vs index_select "
+          f"{p0['library_device_ms'] * 1e3:.2f} us (CUDA events, 20 calls behind a spin), city material "
+          f"rows [{packed.shape[0]}, {packed.shape[1]}] x {mat_idx.shape[0]}")
     return records + _k4_records(scenes_on_card)
 
 
@@ -825,9 +873,10 @@ def _drive(label, render, names, absent=()):
 
 
 def _count_launches(render):
-    """(CUDA kernel launches, copies and memsets, wavefront steps, device ms)
-    of one frame rendered under torch.profiler; a step is one closest-hit
-    cast, the device time the sum over its kernels, copies and memsets. The
+    """(CUDA kernel launches, copies and memsets, wavefront steps, device ms,
+    {hand-written kernel: (device us per launch, launches)}) of one frame
+    rendered under torch.profiler; a step is one closest-hit cast, the
+    device time the sum over its kernels, copies and memsets. The
     profiler at times loses events, most often on short frames: a profile in
     which it saw another number of the port's kernels than the wrappers
     launched (native.LAUNCHES) is taken again, up to PROFILE_TRIES times; if
@@ -853,10 +902,13 @@ def _count_launches(render):
                              f"frame's launches and device time are not measured")
     copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
     kernels = sum(e.count for e in device) - copies
-    device_ms = sum(getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0) for e in device) / 1e3
+    device_us = {e.key: (getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0), e.count) for e in device}
+    device_ms = sum(us for us, _ in device_us.values()) / 1e3
+    ours = {re.search(r"\w+_kernel(<[^>]*>)?", key).group(0): (us / count, count)
+            for key, (us, count) in device_us.items() if any(k in key for k in OURS)}
     return (kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
-            + native.LAUNCHES["sweep_closest"], device_ms)
+            + native.LAUNCHES["sweep_closest"], device_ms, ours)
 
 
 def _report(label, stats, times, paths, render, short=None, max_per_step=None,
@@ -870,19 +922,21 @@ def _report(label, stats, times, paths, render, short=None, max_per_step=None,
     per step of the loop `max_loop_per_step`, or those of the frame
     `max_frame`."""
     dt = statistics.median(times)
-    n, c, steps, device_ms = _count_launches(render)
+    n, c, steps, device_ms, ours = _count_launches(render)
     per_step = (f", device time {device_ms:.3f} ms (profiled frame), {n} kernel launches and "
                 f"{c} copies/memsets in {steps} steps "
                 f"({n / max(steps, 1):.2f} and {c / max(steps, 1):.2f} per step")
     n1 = None
     if short is not None:
-        n0, c0, steps0, _ = _count_launches(short)
+        n0, c0, steps0, _, _ = _count_launches(short)
         n1, c1 = (n - n0) / (steps - steps0), (c - c0) / (steps - steps0)
         per_step += (f"; {n1:.2f} and {c1:.2f} per step of the loop, {n - n1 * steps:.0f} and "
                      f"{c - c1 * steps:.0f} of set-up")
     print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
           f"{[round(t * 1e3, 2) for t in times]}), {paths / dt:.4g} paths/s, "
           f"{stats[1] / dt / 1e6:.4g} Mrays/s{per_step}) on {_nvidia_smi()}")
+    print(f"{label}: hand-written kernels, device us per launch (launches): "
+          + ", ".join(f"{k} {us:.2f} ({count})" for k, (us, count) in sorted(ours.items())))
     if max_per_step is not None:
         assert n <= max_per_step * steps, (
             f"{label}: {n / steps:.2f} kernel launches per step, more than {max_per_step}")
@@ -1042,6 +1096,8 @@ def phase_scenes():
                          ("sphere_field 3000", lambda: scenes.sphere_field(3000, device=DEVICE)),
                          ("sphere_field 4096", lambda: scenes.sphere_field(4096, device=DEVICE)),
                          ("tri_sphere_field", lambda: scenes.tri_sphere_field(device=DEVICE)),
+                         ("tri_field 2048",
+                          lambda: scenes.tri_sphere_field(2048, 0, device=DEVICE)),
                          ("rtiow_bvh", lambda: scenes.rtiow(n=kc.RTIOW_BVH_N, device=DEVICE,
                                                             use_bvh=True)),
                          ("cornell_animated_bvh", lambda: scenes.cornell_box_animated(

@@ -1,6 +1,6 @@
-// Host stand-in for the CUDA pieces that csrc/bvh_common.cuh and the device
-// code of csrc/wavefront.cu use, so that the walk of K5/K6 and K4's kernels
-// compile with g++ and run on the CPU: one block at a time, one std::thread
+// Host stand-in for the CUDA pieces that csrc/bvh_common.cuh, the device
+// code of csrc/wavefront.cu and of the brute-force casts and the row gather
+// use, so that these kernels compile with g++ and run on the CPU: one block at a time, one std::thread
 // per CUDA thread, the warp intrinsics through a barrier per warp (every
 // thread of a warp calls them in the same order), __syncthreads through a
 // barrier per block, shared memory as statics of the running block.
@@ -25,11 +25,13 @@
 struct float3 { float x, y, z; };
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
 struct dim3 { unsigned x, y, z; };
 
 inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 
 extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 gridDim, blockDim;
@@ -40,6 +42,7 @@ inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; 
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline unsigned __fns(unsigned mask, unsigned base, int offset) {   // offset > 0 only
     for (unsigned b = base; b < 32; ++b)
@@ -87,6 +90,14 @@ inline int __shfl_sync(unsigned, int v, int src) {
     exchange(static_cast<unsigned>(v), all);
     return static_cast<int>(all[src]);
 }
+inline int __shfl_xor_sync(unsigned, int v, int mask) {
+    unsigned all[32];
+    exchange(static_cast<unsigned>(v), all);
+    return static_cast<int>(all[(threadIdx.x % 32) ^ static_cast<unsigned>(mask)]);
+}
+inline float __shfl_xor_sync(unsigned m, float v, int mask) {
+    return __int_as_float(__shfl_xor_sync(m, __float_as_int(v), mask));
+}
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
     unsigned all[32], sum = 0;
     exchange(v, all);
@@ -123,3 +134,6 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, K, int, size_t)
     *b = 2;
     return 0;
 }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K>
+inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }

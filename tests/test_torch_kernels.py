@@ -436,6 +436,87 @@ def test_row_gather_kernel_matches_plain(gpu):
         assert native.LAUNCHES["row_gather"] == before + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 3, 23, 128])
+def test_row_gather_kernel_matches_plain_word_for_word(gpu, cols):
+    """P0's 16-byte vectors and their tail over rows that are not 16-byte
+    aligned, indices outside the table, NaN payloads; float and int tables."""
+    table, idx = kc.gather_words(cols, gpu, seed=cols)
+    for t in (table, table.view(torch.int32)):
+        before = native.LAUNCHES["row_gather"]
+        kc.check_row_gather(t, idx)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["row_gather"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["block", "1013 lanes", "20 lanes"])
+@pytest.mark.parametrize("share", [0.5, 0.9, 1.0])
+def test_k1_k2_bit_equal_on_blocks_with_scattered_dead_lanes(gpu, share, lanes):
+    """K1 casts only the live lanes of a tile, and writes the dead ones'
+    misses at once: bit-equal to the plain version, as K2 (unchanged) is,
+    with dead lanes scattered (t_max 0, t_min or NaN), also on lane counts
+    that are no multiple of 32 or of the tile."""
+    scene = _scene(gpu, True)
+    bs = intersect_brute.build_brute_scene(scene)
+    cam = _lanes(gpu, scene, bs, "camera")
+    shadow = _lanes(gpu, scene, bs, "shadow")
+    n = {"block": cam[0].shape[0], "1013 lanes": 1013, "20 lanes": 20}[lanes]
+    cam, shadow = (tuple(x[:n].contiguous() for x in r) for r in (cam, shadow))
+    res = kc.check_closest_hit(bs, kc.scatter_dead(cam, share))
+    assert res["differ"] == 0 and (res["hits"] == 0 if share == 1.0 else lanes != "block"
+                                   or res["hits"] > 0)
+    res = kc.check_any_hit(bs, kc.scatter_dead(shadow, share, seed=8))
+    assert res["differ"] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["2048 triangles", "4096 spheres", "2100 triangles, chunked"])
+def test_k1_on_the_largest_tables(gpu, table):
+    """The K1 form's largest tables, staged whole in shared memory: 2048
+    triangles (128 KB) and 4096 spheres (64 KB); past 128 KB (a table the
+    route never gives K1, but the wrapper takes) the chunked walk. Bit-equal,
+    all lanes live and half of them dead; K2 on the same tables."""
+    scene = {"2048 triangles": lambda: scenes.tri_sphere_field(2048, 0, device=gpu),
+             "4096 spheres": lambda: scenes.sphere_field(4096, device=gpu),
+             "2100 triangles, chunked": lambda: scenes.tri_sphere_field(2100, 40, device=gpu)}[
+        table]()
+    assert intersect_brute.brute_eligible(scene) == (table != "2100 triangles, chunked")
+    bs = intersect_brute.build_brute_scene(scene)
+    cam = kc.field_camera_lanes(gpu)
+    for rays in (cam, kc.scatter_dead(cam, 0.5)):
+        res = kc.check_closest_hit(bs, rays)
+        assert res["differ"] == 0 and res["hits"] > 0.1 * res["lanes"]
+    shadow = kc.sky_shadow_lanes(lambda *r: intersect_brute.closest_hit_plain(bs, *r), cam)
+    res = kc.check_any_hit(bs, shadow)
+    assert res["differ"] == 0 and 0 < res["occluded"] < res["lanes"]
+    torch.cuda.synchronize()
+
+
+def test_cast_steps_record_the_brute_force_casts():
+    """cast_steps records K1's and K2's calls of a frame as the render makes
+    them: a closest cast per step, whose live lanes sum to the frame's first
+    counter, each followed by its shadow rays' any-hit cast; their bounds
+    count the live lanes."""
+    scene = _scene("cpu", False)
+    render = kc._frame(scene, scenes.cornell_ref_camera("cpu"), 16, 16, 1, 4, "cpu")
+    _, stats = render()
+    casts = cast_steps.record_casts(render, intersect, cast_steps.BRUTE_CASTS)
+    names = [c[0] for c in casts]
+    assert names == ["closest_hit", "any_hit"] * (len(names) // 2) and len(names) >= 6
+    closest = [c for c in casts if c[0] == "closest_hit"]
+    assert sum(int((r[3] > r[2]).sum()) for _, _, r, _ in closest) == int(stats[0])
+    for name, bs, rays, frames in casts:
+        assert frames is None
+        assert getattr(kc, f"check_{name}")(bs, rays)["differ"] == 0
+        live = int((rays[3] > rays[2]).sum())
+        n = rays[0].shape[0]
+        extra = 16 if name == "closest_hit" else 1
+        assert getattr(kc, f"{name}_work")(bs, rays)[0] == (
+            n * (8 + extra) + live * 24 + bs.tri.numel() * 4 + bs.sph.numel() * 4)
+
+
 def test_rgl_and_row_gather_wrappers_take_the_plain_version_on_cpu():
     tables = _rgl_tables("cpu", True)
     lanes = _rgl_random_lanes(512, tables.count, "cpu")
@@ -454,17 +535,38 @@ def test_rgl_and_row_gather_wrappers_take_the_plain_version_on_cpu():
         row_gather(table, idx.long())
 
 
-@pytest.mark.parametrize("kernel", ["assemble_hit", "bvh_closest_hit", "bvh_any_hit"])
+@pytest.mark.parametrize("kernel", ["assemble_hit", "bvh_closest_hit", "bvh_any_hit",
+                                    "closest_hit", "any_hit"])
 def test_bounds_read_each_table_once(kernel):
     """The byte term of a bound counts the lanes' inputs and outputs and each
     table once, however many lanes read it; the walk's visits count as work.
-    A BVH lane reads its ray (24 B) only where it is live, and a triangle
-    counts its 40 B of vertices and id, not its row's pad."""
+    A BVH or brute-force lane reads its ray (24 B) and tests primitives only
+    where it is live, and a triangle of the BVH counts its 40 B of vertices
+    and id, not its row's pad."""
     if kernel == "assemble_hit":
         ht = intersect.build_hit_tables(_scene("cpu", True))
         table = sum(x.numel() * x.element_size() for x in ht[:4])
         work = functools.partial(kc.assemble_hit_work, ht)
         per_lane, per_live = 40 + 61, 0
+    elif kernel in ("closest_hit", "any_hit"):
+        bs = intersect_brute.build_brute_scene(_scene("cpu", True))
+        table = bs.tri.numel() * 4 + bs.sph.numel() * 4
+        o, d, t_min, t_max = kc.random_lanes(512, "cpu")
+        t_max = torch.where(torch.arange(512) % 3 == 0, t_min, t_max)   # every third lane dead
+        bound = kc.closest_hit_work if kernel == "closest_hit" else kc.any_hit_work
+
+        def work(n):
+            return bound(bs, (o[:n], d[:n], t_min[:n], t_max[:n]))
+
+        per_lane, per_live = 8 + (16 if kernel == "closest_hit" else 1), 24
+        for n in (256, 512):    # arithmetic on live lanes alone
+            live = t_max[:n] > t_min[:n]
+            flops = work(n)[1]
+            if kernel == "closest_hit":
+                assert flops == int(live.sum()) * (40 * bs.n_tris + 20 * bs.n_spheres)
+            else:
+                assert flops == kc.any_hit_work(bs, (o[:n][live], d[:n][live], t_min[:n][live],
+                                                     t_max[:n][live]))[1]
     else:
         bvh = scenes.terrain_city(seed=3, terrain_res=8, n_buildings=2, sphere_slices=4,
                                    device="cpu").bvh
@@ -734,8 +836,9 @@ def test_assemble_hit_kernel_matches_plain_on_the_sweeps(gpu, which, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_spheres", [3000, 4096])
 def test_k1_k2_hold_the_k1_forms_largest_sphere_scenes(gpu, n_spheres):
-    """4096 spheres fill the K1 form's 8192 columns: K1 and K2 stage them in
-    chunks, as they stage the Cornell box's 36 triangles."""
+    """4096 spheres fill the K1 form's 8192 columns: K1 stages their 64 KB
+    in shared memory whole, as it stages the Cornell box's 36 triangles; K2
+    in chunks."""
     scene = scenes.sphere_field(n_spheres, device=gpu)
     assert intersect_brute.brute_eligible(scene)
     bs = intersect_brute.build_brute_scene(scene)

@@ -1,23 +1,29 @@
-"""K5 and K6 at every cast of the frames cast through a BVH, on the rays each
-step really gives: the time of each cast on the card beside its bound.
+"""The casts of the frames at every step, on the rays each step really
+gives: the time of each cast on the card beside its bound.
 
     python -m wurblpt_tpu_torch.utils.cast_steps [--frames mesh,city,...] [--out FILE]
 
-Renders each frame once (`kernel_check.mesh_frame`, `city_frame`,
-`rtiow_bvh_frame`, `cornell_animated_bvh_frame`; all four by default) with
-the inputs of every `bvh_closest_hit` and `bvh_any_hit` call recorded (the
-animations' rows too, where the frame is animated), then, per recorded
-cast: the kernel held against its plain version on it
-(`kernel_check.check_bvh_closest_hit` / `check_bvh_any_hit`), its lanes and
-live lanes (t_max > t_min), the wrapper call's time by CUDA events around
-20 back-to-back calls after warm-up (the card stays busy, so this is the
-device time per call), and its bound (`kernel_check.bvh_work` on the same
-rays: the walk's work counted by the plain version), with the bytes and
-flops it rests on. `chip_smoke.py` runs the same rows; the command line
-prints them (and with `--out` writes them as JSON) with the tree's size,
-and uses nothing but `kernel_check`'s frames, checks, timer and work count,
-so a copy of this file also times an older tree's kernels on the same
-frames. Needs a CUDA device.
+Renders each frame once with the inputs of every cast recorded, then, per
+recorded cast: the kernel held against its plain version on it, its lanes
+and live lanes (t_max > t_min), its time and its bound, with the bytes and
+flops it rests on. The frames cast through a BVH (`kernel_check.mesh_frame`,
+`city_frame`, `rtiow_bvh_frame`, `cornell_animated_bvh_frame`) record
+`bvh_closest_hit` and `bvh_any_hit` (K5/K6; the animations' rows too, where
+the frame is animated), checked by `kernel_check.check_bvh_closest_hit` /
+`check_bvh_any_hit`, timed as the wrapper call by CUDA events around 20
+back-to-back calls after warm-up (the card stays busy, so this is the
+device time per call), bounded by `kernel_check.bvh_work`. The brute-force
+frames (`bench_frame`, `tof_frame`, `envmap_frame`, `rtiow_frame`) record
+`closest_hit` and `any_hit` (K1/K2), checked bit for bit
+(`check_closest_hit` / `check_any_hit`), timed by their device time per
+call (`kernel_check.device_ms`: their wrapper calls take longer on the host
+than the kernels on the card), bounded by `closest_hit_work` /
+`any_hit_work`.
+All eight frames by default. `chip_smoke.py` runs the same rows; the
+command line prints them (and with `--out` writes them as JSON) with the
+tree's size, and uses nothing but `kernel_check`'s frames, checks, timers
+and work counts, so a copy of this file also times an older tree's kernels
+on the same frames. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,47 +36,68 @@ from pathlib import Path
 import torch
 
 from ..accel import traverse
+from ..render import intersect, intersect_brute
 from . import kernel_check as kc
 from . import scenes
 
 CASTS = ("bvh_closest_hit", "bvh_any_hit")
+BRUTE_CASTS = ("closest_hit", "any_hit")
 
 
 FRAMES = ("mesh", "city", "rtiow_bvh", "cornell_animated_bvh")
+BRUTE_FRAMES = ("cornell", "tof", "envmap", "rtiow")
 
 
-def record_casts(render):
-    """[(kernel name, bvh, (o, d, t_min, t_max), frames)] of every K5/K6 call
-    made by one call of `render`, the rays copied as they were passed."""
+def record_casts(render, module=traverse, names=CASTS):
+    """[(kernel name, accel, (o, d, t_min, t_max), frames)] of every call of
+    `module`'s casts `names` (K5/K6 by default; K1/K2 as
+    `render.intersect` calls them) made by one call of `render`, the rays
+    copied as they were passed."""
     casts = []
-    saved = {name: getattr(traverse, name) for name in CASTS}
+    saved = {name: getattr(module, name) for name in names}
 
     def recorder(name):
-        def call(bvh, o, d, t_min, t_max, frames=None):
-            casts.append((name, bvh, tuple(x.clone() for x in (o, d, t_min, t_max)), frames))
-            return saved[name](bvh, o, d, t_min, t_max, frames)
+        def call(accel, o, d, t_min, t_max, *frames):
+            casts.append((name, accel, tuple(x.clone() for x in (o, d, t_min, t_max)),
+                          frames[0] if frames else None))
+            return saved[name](accel, o, d, t_min, t_max, *frames)
         return call
 
     try:
-        for name in CASTS:
-            setattr(traverse, name, recorder(name))
+        for name in names:
+            setattr(module, name, recorder(name))
         render()
     finally:
         for name, fn in saved.items():
-            setattr(traverse, name, fn)
+            setattr(module, name, fn)
     return casts
 
 
+def _bit_equal(res):
+    assert res["differ"] == 0, f"{res['differ']} lanes differ from the plain version"
+
+
 def cast_rows(frame: str, render, device, n: int = 20):
-    """One row per K5/K6 call of one frame, each cast first held against its
-    plain version: step, lanes, live lanes, ms per call, bound ms, what
-    bounds it, and the bytes and flops of the bound."""
-    rows, step = [], {name: 0 for name in CASTS}
-    for name, bvh, rays, frames in record_casts(render):
-        getattr(kc, f"check_{name}")(bvh, rays, frames)
-        fn = getattr(traverse, name)
-        ms = kc.time_ms(lambda f=fn, b=bvh, r=rays, a=frames: f(b, *r, a), device, n)
-        work = kc.bvh_work(bvh, rays, any_hit=name == "bvh_any_hit", frames=frames)
+    """One row per cast of one frame (K5/K6, or K1/K2 on a brute-force
+    frame), each cast first held against its plain version: step, lanes,
+    live lanes, ms per call, bound ms, what bounds it, and the bytes and
+    flops of the bound."""
+    brute = frame in BRUTE_FRAMES
+    names = BRUTE_CASTS if brute else CASTS
+    rows, step = [], {name: 0 for name in names}
+    recorded = (record_casts(render, intersect, BRUTE_CASTS) if brute
+                else record_casts(render))
+    for name, accel, rays, frames in recorded:
+        if brute:
+            _bit_equal(getattr(kc, f"check_{name}")(accel, rays))
+            fn = getattr(intersect_brute, name)
+            ms = kc.device_ms(lambda f=fn, b=accel, r=rays: f(b, *r), n)
+            work = getattr(kc, f"{name}_work")(accel, rays)
+        else:
+            getattr(kc, f"check_{name}")(accel, rays, frames)
+            fn = getattr(traverse, name)
+            ms = kc.time_ms(lambda f=fn, b=accel, r=rays, a=frames: f(b, *r, a), device, n)
+            work = kc.bvh_work(accel, rays, any_hit=name == "bvh_any_hit", frames=frames)
         bound, bound_by = kc.bound_ms(*work)
         rows.append({"frame": frame, "kernel": name, "step": step[name],
                      "lanes": int(rays[0].shape[0]), "live": int((rays[3] > rays[2]).sum()),
@@ -99,7 +126,7 @@ def format_row(r) -> str:
 def summary(rows):
     """One line per kernel over one frame's rows: casts, ms, bound ms."""
     out = []
-    for name in CASTS:
+    for name in CASTS + BRUTE_CASTS:
         sel = [r for r in rows if r["kernel"] == name]
         if sel:
             out.append(f"{sel[0]['frame']} {name}: {len(sel)} casts, "
@@ -111,8 +138,8 @@ def summary(rows):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", default=",".join(FRAMES),
-                    help=f"comma-separated subset of {','.join(FRAMES)}")
+    ap.add_argument("--frames", default=",".join(FRAMES + BRUTE_FRAMES),
+                    help=f"comma-separated subset of {','.join(FRAMES + BRUTE_FRAMES)}")
     ap.add_argument("--out", default=None, help="also write the rows here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -124,12 +151,18 @@ def main(argv=None) -> int:
              "rtiow_bvh": (lambda: scenes.rtiow(n=kc.RTIOW_BVH_N, device=device, use_bvh=True),
                            kc.rtiow_bvh_frame),
              "cornell_animated_bvh": (lambda: scenes.cornell_box_animated(
-                 device, spheres=True, use_bvh=True), kc.cornell_animated_bvh_frame)}
+                 device, spheres=True, use_bvh=True), kc.cornell_animated_bvh_frame),
+             "cornell": (lambda: None, lambda dev, _: kc.bench_frame(dev)),
+             "tof": (lambda: scenes.tof_box(device=device), kc.tof_frame),
+             "envmap": (lambda: scenes.envmap_spheres(cube=True, device=device),
+                        kc.envmap_frame),
+             "rtiow": (lambda: scenes.rtiow(device=device), kc.rtiow_frame)}
     rows = []
     for frame in args.frames.split(","):
         make_scene, make_frame = build[frame]
         scene = make_scene()
-        print(f"{frame}: {tree_summary(scene.bvh)}")
+        if frame in FRAMES:
+            print(f"{frame}: {tree_summary(scene.bvh)}")
         render = make_frame(device, scene)
         render()   # warm-up
         frame_rows = cast_rows(frame, render, device)

@@ -8,9 +8,12 @@ still differ, such as atan2f/asinf against PyTorch's):
 
 * K1 closest hit: prim ids equal wherever the runner-up candidate is farther
   than 1e-5 * t (nearer ones are ties up to rounding); t/u/v rtol 1e-5,
-  atol 1e-6 where both hit the same prim.
+  atol 1e-6 where both hit the same prim. The check also counts the lanes
+  whose prim, t, u or v differ in any bit (`differ`): on the card kernel
+  and plain version walk the table in the same order with the same
+  roundings, and `chip_smoke.py` and the CUDA tests hold that count at 0.
 * K2 any hit: equal wherever the nearest candidate is not within 1e-5 *
-  t_max of t_max.
+  t_max of t_max; `differ` counts every lane that differs.
 * K3 hit assembly: integer fields equal, float fields atol 1e-5 on hit lanes.
 * K5 BVH closest hit: prim ids, t, u and v equal bit for bit on every lane
   (kernel and plain version walk the same tree in the same order with the
@@ -549,6 +552,27 @@ def shadow_lanes(scene, bs, rays, seed: int = 2):
     return (pos.contiguous(), ldir.contiguous(), t_min, torch.where(prim >= 0, t_vis, 0.0))
 
 
+def scatter_dead(rays, share: float, seed: int = 7):
+    """`rays` with `share` of the lanes dead, scattered from numpy `seed`:
+    t_max 0, equal to t_min or NaN, a third each (the brute-force casts'
+    live test is t_max > t_min)."""
+    o, d, t_min, t_max = rays
+    rs = np.random.default_rng(seed)
+    n = o.shape[0]
+    dead = torch.as_tensor(rs.permutation(n) < round(share * n), device=o.device)
+    how = torch.as_tensor(rs.integers(0, 3, n), device=o.device)
+    killed = torch.where(how == 0, 0.0, torch.where(how == 1, t_min, float("nan")))
+    return o, d, t_min, torch.where(dead, killed, t_max).contiguous()
+
+
+def _bits_differ(*pairs):
+    """Lanes where any pair of [N] float32 or int32 tensors differs in a bit."""
+    out = torch.zeros_like(pairs[0][0], dtype=torch.bool)
+    for a, b in pairs:
+        out |= a.view(torch.int32) != b.view(torch.int32)
+    return int(out.sum())
+
+
 def check_closest_hit(bs, rays) -> Dict[str, float]:
     """K1 against its plain version; raises AssertionError on disagreement."""
     t, prim, u, v = closest_hit(bs, *rays)
@@ -565,7 +589,8 @@ def check_closest_hit(bs, rays) -> Dict[str, float]:
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-6), "closest_hit: t/u/v differ"
         err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
     return {"max_abs_err": err, "lanes": int(prim.shape[0]), "hits": int((prim >= 0).sum()),
-            "ties": int((~ok).sum())}
+            "ties": int((~ok).sum()),
+            "differ": _bits_differ((t, pt), (prim, pprim), (u, pu), (v, pv))}
 
 
 def check_any_hit(bs, rays) -> Dict[str, float]:
@@ -578,7 +603,7 @@ def check_any_hit(bs, rays) -> Dict[str, float]:
     diff = (occ != pocc) & ok
     assert not bool(diff.any()), f"any_hit: {int(diff.sum())} lanes differ outside the margin"
     return {"max_abs_err": float(diff.float().max()), "lanes": int(occ.shape[0]),
-            "occluded": int(occ.sum())}
+            "occluded": int(occ.sum()), "differ": int((occ != pocc).sum())}
 
 
 def check_assemble_hit(bs, ht, rays) -> Dict[str, float]:
@@ -885,6 +910,19 @@ def check_row_gather(table, idx) -> Dict[str, float]:
     out, ref = row_gather(table, idx), row_gather_plain(table, idx)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), "row_gather differs"
     return {"max_abs_err": 0.0, "rows": int(idx.shape[0]), "cols": int(table.shape[1])}
+
+
+def gather_words(cols: int, device, seed: int = 0, rows: int = 37, n: int = 1001):
+    """A [rows, cols] float32 table whose words are random floats and, on a
+    fifth of them, quiet and signalling NaNs with payloads, and n indices
+    [n] from 5 below the table to 5 past its end (P0 clamps them)."""
+    rs = np.random.default_rng(seed)
+    words = rs.standard_normal((rows, cols)).astype(np.float32).view(np.int32)
+    nan = rs.random((rows, cols)) < 0.2
+    words[nan] = rs.choice(np.array([0x7FC00001, 0x7FA00000, -0x00400001, 0x7F800001],
+                                    dtype=np.int64), int(nan.sum())).astype(np.int32)
+    table = torch.as_tensor(words, device=device).view(torch.float32)
+    return table, torch.as_tensor(rs.integers(-5, rows + 5, n), dtype=torch.int32, device=device)
 
 
 def probe_gather_inputs(device):
@@ -1479,20 +1517,29 @@ def _table_bytes(tensors):
 
 
 def closest_hit_work(bs, rays):
-    """K1: rays in (o, d, t_min, t_max) and hits out; 40 flops per ray and
-    triangle (four linear functionals of the ray and the division-free
-    predicates), 20 per ray and sphere; the primitive rows read once."""
-    n = rays[0].shape[0]
-    return n * 32 + n * 16 + _table_bytes(bs), n * (40 * bs.n_tris + 20 * bs.n_spheres)
+    """K1: per lane t_min and t_max in (8 B) and the hit out (16 B), o and d
+    (24 B) on live lanes (t_max > t_min; a dead lane reads no more); 40
+    flops per live ray and triangle (four linear functionals of the ray and
+    the division-free predicates), 20 per live ray and sphere; the primitive
+    rows read once. The flops count a multiply and an add as two: built
+    with -fmad=false, K1 issues them unfused, at half the FMA peak that
+    bound_ms divides by."""
+    _, _, t_min, t_max = rays
+    n, n_live = t_max.shape[0], int((t_max > t_min).sum())
+    return (n * (8 + 16) + n_live * 24 + _table_bytes(bs),
+            n_live * (40 * bs.n_tris + 20 * bs.n_spheres))
 
 
 def any_hit_work(bs, rays):
-    """K2: as K1 with a bool out, and each lane tests primitives only up to
-    its first blocker (counted on these rays)."""
+    """K2: as K1 with a bool out, and each live lane tests primitives only up
+    to its first blocker (counted on these rays); a dead lane tests none."""
+    _, _, t_min, t_max = rays
+    live = t_max > t_min
     blocked = candidate_t(bs, *rays) < BIG
     first = torch.where(blocked.any(1), blocked.to(torch.int8).argmax(1) + 1, blocked.shape[1])
-    n = rays[0].shape[0]
-    return n * 33 + _table_bytes(bs), 40 * float(first.sum())
+    n = t_max.shape[0]
+    return (n * (8 + 1) + int(live.sum()) * 24 + _table_bytes(bs),
+            40 * float(torch.where(live, first, 0).sum()))
 
 
 def assemble_hit_work(ht, n: int, frames=None):
@@ -1656,6 +1703,34 @@ def time_restored_ms(fn: Callable, args, device, n: int = 20, warmup: int = 3) -
             total += dt
     restore_args(args, saved)
     return total / n
+
+
+SPIN_HZ = 2e9   # cycles a second of torch.cuda._sleep's spin, at most (the SM clock)
+
+
+def device_ms(fn: Callable[[], object], n: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of `fn` on the GPU, by CUDA events around `n`
+    calls after `warmup`, queued behind a spin kernel (torch.cuda._sleep)
+    that keeps the card busy for four times as long as the host took to
+    enqueue `n` calls: the host's time per call (a wrapper's checks and
+    ctypes call) is left out, the card's gaps between kernels are in."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * max(host_s, 1e-3) * SPIN_HZ))
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
 
 
 def time_ms(fn: Callable[[], object], device, n: int = 20, warmup: int = 3) -> float:
