@@ -161,13 +161,14 @@ steps), the rtiow_bvh frame and the cornell_animated_bvh frame, on the
 rays each step gives, with each cast's live lanes (`utils/cast_steps.py`,
 which also times K1 and K2 per cast on the Cornell, ToF, envmap and rtiow
 frames when run alone); the lit shade and the surround regeneration at
-every step of the city frame and the regeneration at every step of the
-Cornell, mesh and rtiow frames' first block likewise, with their live and
-regenerated lanes and their bounds in place and copying
-(`utils/k4_steps.py`). The regenerations and the lit shade update the
-lane state in place: each check gives every call its own copy of the
-inputs, and each time restores them before every call, outside the timed
-window (the device's time per call). Every path
+every step of the city frame and the regeneration and the diffuse or env
+shade at every step of the other eight frames' first block likewise, with
+their live and regenerated lanes and their bounds in place and copying
+(`utils/k4_steps.py`). The regenerations and
+the shades update the lane state in place: each check gives every call
+its own copy of the inputs, and each time restores them before every
+call, outside the timed window (the device's time per call); a shade's
+shadow directions are compared on the rows that cast (t_max > 0). Every path
 prints its frame time, paths/s, Mrays/s, device time and kernel launches
 per wavefront step, and apart from them the copies and memsets, and each
 hand-written kernel's device time per launch (one more frame under
@@ -350,7 +351,7 @@ ANIM_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_anim", "shade
 ANIM_BVH_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "sweep_closest", "sweep_any",
                    "row_gather", "shade_env", "shade_lit")
 # The K4 kernels that update the lane state in place (render/wavefront.py).
-IN_PLACE = ("regen_pinhole", "regen_surround", "shade_lit")
+IN_PLACE = ("regen_pinhole", "regen_surround", "shade_diffuse", "shade_env", "shade_lit")
 
 
 def phase_build():
@@ -805,6 +806,11 @@ def _k4_records(scenes_on_card):
         records += _timed_records({record: (
             call, lambda f=plain, a=args: f(*a), kc.k4_work(inp, kernel), None)}, errs,
             inp.regen[0].active.shape[0])
+        if kernel in IN_PLACE:
+            copy_work = kc.k4_work(inp, kernel, in_place=False)
+            bound, bound_by = kc.bound_ms(*copy_work)
+            print(f"kernels: {record} copy-contract bound {bound:.6f} ms by {bound_by} "
+                  f"({copy_work[0]:.4g} bytes, {copy_work[1]:.4g} flops)")
     _frame_casts(scenes_on_card)
     _frame_k4_steps(scenes_on_card)
     return records
@@ -832,14 +838,14 @@ def _frame_casts(scenes_on_card):
 
 def _frame_k4_steps(scenes_on_card):
     """The lit shade and the surround regeneration at every step of the city
-    frame (2 blocks of 4 steps), and the regeneration at every step of the
-    Cornell, mesh and rtiow frames' first block, on the lanes each step
-    really gives (`utils/k4_steps.py`): each call held against its plain
-    version (bit-equal), its device time per call on restored inputs beside
-    its bounds, in place and copying."""
+    frame (2 blocks of 4 steps), and the regeneration and the diffuse or env
+    shade at every step of the other eight frames' first block, on the lanes
+    each step really gives (`utils/k4_steps.py`):
+    each call held against its plain version (bit-equal), its device time
+    per call on restored inputs beside its bounds, in place and copying."""
     from wurblpt_tpu_torch.utils import k4_steps
 
-    for frame in ("city", "cornell", "mesh", "rtiow"):
+    for frame in k4_steps.FRAMES:
         rows = k4_steps.frame_rows(frame, DEVICE, scenes_on_card.get(frame))
         for r in rows:
             assert r["max_abs_err"] == 0.0 and r["discrete_differ"] == 0, r

@@ -22,6 +22,7 @@ from wurblpt_tpu_torch.render.camera import DistortionModel, SurroundMode
 from wurblpt_tpu_torch.render.intersect import assemble_hit, build_hit_tables
 from wurblpt_tpu_torch.render.intersect_brute import any_hit, build_brute_scene, closest_hit
 from wurblpt_tpu_torch.render.sensor import SensorRGB, SensorTofAmcw
+from wurblpt_tpu_torch.scene.ir import MaterialType
 from wurblpt_tpu_torch.utils import kernel_check as kc
 from wurblpt_tpu_torch.utils import scenes
 
@@ -299,8 +300,38 @@ def test_k4_bounds_count_what_each_branch_reads(frame):
     expect = (n * every + 4 * int(sst.active.sum()) + on_hit * int(hit.sum())
               + 12 * int((~hit).sum()) + on_weighted * weighted + n * out
               + sum(x.numel() * x.element_size() for x in rows) + 16)
-    assert kc.k4_work(inp, "shade_diffuse")[0] == expect
+    assert kc.k4_work(inp, "shade_diffuse", in_place=False)[0] == expect
     assert (frame == "tof") == tables.per_light
+
+    # In place a lane pays only what its branch reads and changes: a dead
+    # lane its flag and primitive id (read side by side), its
+    # previous-sample fields and idle shadow row; an
+    # escaped one also its deposits and bounce index, read and written; a
+    # hit its state, hit record and pixel and sample id (Lambertian), its
+    # shadow ray and new direction and throughput only where it is RANDOM.
+    hr = inp.shade[8]
+    args = list(inp.shade)
+    args[3] = sst._replace(stats=sst.stats.clone())
+    random = wf.shade_diffuse_plain(*args)[0].prev_random
+    lamb = hit & (tables.scene.materials.typ[hr.mat.long()] == MaterialType.LAMBERTIAN)
+    dead, escaped = ~sst.active, sst.active & (prim < 0)
+    assert 0 < int(random.sum())
+    if frame == "cornell":          # the closed ToF box keeps every lane active here
+        assert int(dead.sum()) > 0 and int(escaped.sum()) > 0
+    flags, idle = 4 + 1 + 4, 4 + 12                 # prev_pdf, prev_random, prev_light_pdf
+    hit_read = 8 + 4 + 12 + 12 + 12 + 12 + 16 + 16 + 1 + 4 + 4 + 16 + 1
+    hit_written = 12 + 8 + 12 + 16 + 4 + 1 + flags
+    count = lambda m: int(m.sum())  # noqa: E731
+    expect = (n * (1 + 4) + count(dead) * (flags + idle)
+              + count(escaped) * (2 * (12 + 8) + 1 + flags + idle)
+              + count(hit) * (hit_read + hit_written) + on_weighted * weighted + 16 * count(lamb)
+              + count(random) * (12 + 16 + 12 + 4 + 12) + count(hit & ~random) * idle
+              + sum(x.numel() * x.element_size() for x in rows) + 16)
+    flops = 150.0 * count(hit) + 100.0 * count(random)
+    if not tables.per_light:
+        flops += 140.0 * tables.n_lights * count(random)
+    assert kc.k4_work(inp, "shade_diffuse") == (expect, flops)
+    assert expect < kc.k4_work(inp, "shade_diffuse", in_place=False)[0]
 
     acc, pending, occluded, active, _, _ = inp.resolve
     expect = n * (12 + 1 + 1) + 12 * int((~occluded).sum()) + 8 * int((~active).sum()) + n * 12 + 4

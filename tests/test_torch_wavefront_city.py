@@ -300,7 +300,7 @@ def test_in_place_lit_wrappers_leave_alone_what_the_contract_leaves_alone():
     args = kc.fresh_args(inp.shade)
     st = args[3]
     before = [x.clone() for x in st]
-    dead, escaped, hit, _, scatters, _ = kc._lit_lanes(inp)
+    dead, escaped, hit, _, scatters, _ = kc._shade_lanes(inp)
     kept = hit & ~scatters
     new, *rows = wf.shade_lit(*args)
     assert all(a is b for a, b in zip(new, st))
@@ -414,7 +414,7 @@ def test_shade_lit_takes_spheres_in_a_bvh_scene():
     assert tables.scene.has_bvh and tables.scene.n_spheres == 0
     args[0] = tables._replace(scene=tables.scene._replace(spheres=sphere))
     counts = dict(native.LAUNCHES)
-    res = kc.check_call(wf.shade_lit, wf.shade_lit_plain, tuple(args), lit_rows=True)
+    res = kc.check_call(wf.shade_lit, wf.shade_lit_plain, tuple(args), cast_rows=True)
     assert native.LAUNCHES == counts            # the plain version ran
     assert all(v == 0 for v in res.values()), res
 

@@ -545,9 +545,11 @@ def test_env_k4_bound_counts_what_the_branch_reads():
               + 12 * int((~hit).sum()) + int(escaped.sum())
               + 4 * int((escaped & st.prev_random).sum()) + 12 * int(ggx.sum()) + n * out
               + rows + 16)
-    n_bytes, flops = kc.k4_work(inp, "shade_env")
+    n_bytes, flops = kc.k4_work(inp, "shade_env", in_place=False)
     assert n_bytes == expect
     assert flops >= 250.0 * n + 350.0 * int(ggx.sum())
+    expect_in = _env_in_place_bytes(inp) + rows + 16
+    assert kc.k4_work(inp, "shade_env")[0] == expect_in < n_bytes
 
 
 @pytest.mark.parametrize("frame", ["envmap", "rtiow"])
@@ -583,9 +585,54 @@ def test_env_k4_bound_charges_glass_and_the_sky_by_branch(frame):
         assert env.kind == 3 and not env.importance
         rows = (tables.mat, env.const_radiance)
     expect += sum(x.numel() * x.element_size() for x in rows)
-    n_bytes, flops = kc.k4_work(inp, "shade_env")
+    n_bytes, flops = kc.k4_work(inp, "shade_env", in_place=False)
     assert n_bytes == expect
     assert flops >= 170.0 * n + 100.0 * int((hit & (typ == MaterialType.GLASS)).sum())
+    expect_in = (_env_in_place_bytes(inp) + sum(x.numel() * x.element_size() for x in rows)
+                 + 16)
+    assert kc.k4_work(inp, "shade_env")[0] == expect_in < n_bytes
+
+
+def _env_in_place_bytes(inp):
+    """The env shade's bytes in place, by branch, but its tables and
+    counters: every lane its active flag and primitive id (read side by
+    side); a dead lane its previous sample's pdf and flag and, with
+    importance tables, its idle shadow row (t_max, pending deposit); an
+    escaped lane its
+    bounce index, direction, throughput, deposits and optical path length
+    read, its deposits, bounce index, end, pdf and flag written (with
+    importance tables the previous sample's flag and, where set, its pdf
+    read, its idle row written); a hit lane its state and hit record read
+    (the tangent on GGX), its deposits, bounce index, origin, path lengths,
+    end, pdf and flag written, its direction and throughput where it
+    scatters, its ray IOR on glass, its shadow ray where RANDOM (else its
+    idle row) with importance tables. The mixture pdf on no lane."""
+    tables, _, _, st, _, _, _, prim, hr = inp.shade
+    imp = tables.env.importance
+    args = list(inp.shade)
+    args[3] = st._replace(stats=st.stats.clone())
+    new = wf.shade_env_plain(*args)[0]
+    hit = (prim >= 0) & st.active
+    typ = tables.scene.materials.typ[hr.mat.long()]
+    random = new.prev_random
+    # glass and mirror always scatter (EXPLICIT), Lambertian and GGX where RANDOM
+    cont = random | (hit & ((typ == MaterialType.GLASS) | (typ == MaterialType.MIRROR)))
+    count = lambda m: int(m.sum())  # noqa: E731
+    dead, escaped = ~st.active, st.active & (prim < 0)
+    assert count(dead) > 0 and count(escaped) > 0 and count(hit) > 0
+    idle = (4 + 12) if imp else 0
+    flags = 4 + 1
+    hit_read = 8 + 4 + 12 + 12 + 12 + 12 + 16 + 16 + 1 + 4 + 4 + 16 + 8 + 8
+    hit_written = 12 + 8 + 12 + 16 + 4 + 1 + flags
+    total = (st.active.shape[0] * (1 + 4) + count(dead) * (flags + idle)
+             + count(escaped) * ((8 + 12 + 16 + 12 + 16) + (12 + 8 + 1) + flags + idle)
+             + count(hit) * (hit_read + hit_written)
+             + 12 * count(hit & (typ == MaterialType.GGX)) + (12 + 16) * count(cont)
+             + 16 * count(hit & (typ == MaterialType.GLASS)))
+    if imp:
+        total += (count(escaped) + 4 * count(escaped & st.prev_random)
+                  + (12 + 4 + 12) * count(random) + idle * count(hit & ~random))
+    return total
 
 
 @pytest.mark.parametrize("model", [DistortionModel.RADIAL_AND_PLANAR, DistortionModel.RADIAL_ONLY,
@@ -638,7 +685,8 @@ def test_pinhole_regeneration_updates_the_state_in_place(model):
     returns the state, sample ids and next indices it was given, a lane it
     does not refill keeps every field's bits, and a refilled lane holds the
     plain version's ray and state (a small rtiow block, through its lens or
-    none); the shade that follows (env class) still writes new state."""
+    none); the shade that follows (env class) updates its state in place
+    too, to the plain version's bits."""
     inp = kc.k4_inputs("cpu", "rtiow", **SMALL,
                        cfg=CameraConfig(distortion=model, undistort_iters=8))
     args = kc.fresh_args(inp.regen)
@@ -655,9 +703,12 @@ def test_pinhole_regeneration_updates_the_state_in_place(model):
         if f != "stats":
             assert torch.equal(bits(a)[~need], bits(b)[~need]), f
             assert torch.equal(bits(b), bits(r)), f
-    new = wf.shade_env(*inp.shade)[0]
-    assert all(a is not b for f, a, b in zip(wf.LoopState._fields, new, inp.shade[3])
-               if f not in ("ior", "prev_light_pdf", "stats"))
+    shade = kc.fresh_args(inp.shade)
+    new = wf.shade_env(*shade)[0]
+    assert all(a is b for a, b in zip(new, shade[3]))
+    ref = wf.shade_env_plain(*kc.fresh_args(inp.shade))[0]
+    assert all(torch.equal(bits(a), bits(b)) for f, a, b in zip(wf.LoopState._fields, new, ref)
+               if f != "stats")
 
 
 @pytest.mark.cuda

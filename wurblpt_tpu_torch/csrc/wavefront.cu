@@ -50,21 +50,25 @@
 // step. The lane state lives in structure-of-arrays tensors; material rows,
 // light rows, the alias tables, the sky's texels and the RGL tables are read
 // inline from global memory (a few KB, the sky's 96-128 KB, the RGL tables'
-// 17 KB, cached). The diffuse and env shades run one thread per lane and
-// write each lane's next state to new tensors: bound by bytes, ~200 B per
-// lane. The regenerations and the lit shade update the state in place (JAX's
-// arrays are immutable; this is a storage decision of the port), so a lane
-// pays only for the fields its branch changes: a regeneration step where no
-// lane is refilled reads the flags and writes t_max (~13 B per lane, not the
-// ~230 B of a copy of the state); a lane dead at the lit shade writes 38 B,
-// an escaped one its deposit and flags. Each lane reads every field it
-// needs before it writes any, and the state's pointers carry no
-// __restrict__. The lit shade is a persistent launch whose warps shade only
-// active lanes, binned by what they run (shade_lit_kernel): at 1 spp the
-// city's later steps keep a half, a quarter and a sixth of the lanes
-// active, spread over every warp. The mixture pdf loops over the L < 8
-// lights in index order, twice. The shades evaluate only the lane's own
-// material branch (the plain version evaluates every branch and selects), so
+// 17 KB, cached). The regenerations and the shades update the state in
+// place (JAX's arrays are immutable; this is a storage decision of the
+// port), so a lane pays only for the fields its branch changes: a
+// regeneration step where no lane is refilled reads the flags and writes
+// t_max (~13 B per lane, not the ~230 B of a copy of the state); a lane
+// dead at a shade writes its previous sample's fields and its idle shadow
+// rows (25 B in the diffuse class, 38 B in the lit class), an escaped one
+// its deposit, bounce index, end and those fields. Each lane reads every
+// field it needs before it writes any, and the state's pointers carry no
+// __restrict__. The shades' warps shade only active lanes, queued by what
+// they run: the diffuse and env shades sort each tile of lanes in shared
+// memory (shade_queued: dead lanes written at once, the rest queued as
+// escaped or hit), the lit shade is a persistent launch that carries its
+// bins from round to round (shade_lit_kernel): at 1 spp the city's later
+// steps keep a half, a quarter and a sixth of the lanes active, spread over
+// every warp, and the small frames' later steps a few percent. The mixture
+// pdf loops over the L < 8 lights in index order, twice. The shades
+// evaluate only the lane's own material branch (the plain version
+// evaluates every branch and selects), so
 // GGX's VNDF sample and its two evaluations cost only the GGX lanes, the
 // glass's Fresnel term and refraction only the glass lanes, RGL's two warps
 // and two evaluations only the RGL lanes. The sky's kind, its importance
@@ -94,7 +98,6 @@
 
 namespace {
 
-constexpr int BLOCK = 128;
 constexpr float BIG = 3.0e37f;
 constexpr float INV_PI = static_cast<float>(1.0 / 3.141592653589793);
 constexpr float PI_4 = static_cast<float>(3.141592653589793 / 4.0);
@@ -495,10 +498,6 @@ __device__ __forceinline__ int modphong_sample(const MatRow& mr, const float* d,
     return KIND_RANDOM;
 }
 
-// render/wavefront.py advance: the throughput update, Russian roulette
-// (wurblpt.hpp:258-273) and the lane's next state, but its previous
-// mixture pdf (the shade's own). `cont` lanes (RANDOM or EXPLICIT) carry
-// on along sdir.
 // The throughput update and Russian roulette (wurblpt.hpp:258-273): the
 // throughput after the scatter into ntp, divided by the survival chance
 // where the roulette runs and spares the path; returns whether the path
@@ -523,32 +522,6 @@ __device__ __forceinline__ bool roulette(long long k, const float* tp, const flo
     return cont && !killed && max4(ntp) > 0.f;
 }
 
-__device__ __forceinline__ void advance_lane(const WaveState& in, const WaveState& out, int i,
-                                             long long k, bool act, bool hit, const float* p,
-                                             const float* d, const float* tp, const float* sdir,
-                                             const float* atten, float spdf, bool is_random,
-                                             bool is_explicit, float u_rr, float geom,
-                                             const float* opl, int max_depth, int rr_start,
-                                             float rr_threshold) {
-    float ntp[4];
-    const bool cont = is_random || is_explicit;
-    const bool alive = roulette(k, tp, atten, spdf, is_random, cont, u_rr, rr_start,
-                                rr_threshold, ntp);
-    out.bounce[i] = act ? k + 1 : k;
-    for (int c = 0; c < 3; ++c) {
-        out.o[3 * i + c] = hit ? p[c] : in.o[3 * i + c];
-        out.d[3 * i + c] = cont ? sdir[c] : d[c];
-    }
-    for (int c = 0; c < 4; ++c) {
-        out.throughput[4 * i + c] = cont ? ntp[c] : tp[c];
-        out.opt_len[4 * i + c] = opl[c];
-    }
-    out.active[i] = act && alive && k + 1 < max_depth;
-    out.geom_len[i] = geom;
-    out.prev_pdf[i] = is_random ? spdf : 0.f;
-    out.prev_random[i] = is_random;
-}
-
 // The path lengths after the segment to the hit (wurblpt.hpp:148-150): the
 // optical one per channel at the ray's IOR into opl; returns the geometric
 // one. Both grow on hit lanes only.
@@ -560,18 +533,6 @@ __device__ __forceinline__ float path_lengths(const WaveState& in, int i, bool h
         opl[c] = hit ? o_l + t * ior[c] : o_l;
     }
     return geom;
-}
-
-// The cast counters of one block: a closest cast per active lane and
-// N_SHADOW shadow casts per RANDOM lane. Every thread of the block calls it.
-template <int N_SHADOW>
-__device__ __forceinline__ void count_casts(unsigned long long* stats, bool act, bool is_random) {
-    const int n_act = __syncthreads_count(act);
-    const int n_rand = N_SHADOW > 0 ? __syncthreads_count(is_random) : 0;
-    if (threadIdx.x == 0 && n_act > 0) {
-        atomicAdd(stats, static_cast<unsigned long long>(n_act));
-        atomicAdd(stats + 1, static_cast<unsigned long long>(n_act + N_SHADOW * n_rand));
-    }
 }
 
 // ---- render/lights.py -------------------------------------------------------
@@ -838,122 +799,6 @@ regen_kernel(WaveState st, float* __restrict__ t_max, int n, Camera cam, long lo
     st.prev_light_pdf[i] = 0.f;
 }
 
-template <int SENSOR, bool PER_LIGHT>
-__global__ void __launch_bounds__(BLOCK)
-shade_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats, int n,
-             const long long* __restrict__ pixel, const float* __restrict__ t_hit,
-             const int* __restrict__ prim_hit, const float* __restrict__ pos,
-             const float* __restrict__ nrm, const float* __restrict__ gnrm,
-             const bool* __restrict__ backside, const int* __restrict__ mat_hit,
-             const float* __restrict__ mat, int n_mat, const float* __restrict__ pick_area,
-             int n_pick, const float* __restrict__ light_tri, const int* __restrict__ light_mat,
-             const float* __restrict__ light_w, const float* __restrict__ alias_prob,
-             const int* __restrict__ alias_idx, int n_lights, SensorParams sp, int max_depth,
-             int rr_start, float rr_threshold, float shadow_scale, float min_hit,
-             float* __restrict__ shadow_d, float* __restrict__ shadow_tmax,
-             float* __restrict__ pending) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    bool act = false, is_random = false;
-    if (i < n) {
-        // The hit record, the material and the emission's MIS inputs feed only
-        // hit lanes; the position also the shadow ray of every lane.
-        act = in.active[i];
-        const long long k = in.bounce[i];
-        const int prim = act ? prim_hit[i] : -1;
-        const bool hit = prim >= 0;
-        const float t = hit ? t_hit[i] : 0.f;
-        float d[3], n3[3] = {0.f, 0.f, 0.f}, p[3], tp[4], ior[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int c = 0; c < 3; ++c) {
-            d[c] = in.d[3 * i + c];
-            p[c] = pos[3 * i + c];
-        }
-        for (int c = 0; c < 4; ++c) tp[c] = in.throughput[4 * i + c];
-        if (hit) {
-            for (int c = 0; c < 3; ++c) n3[c] = nrm[3 * i + c];
-            for (int c = 0; c < 4; ++c) ior[c] = in.ior[4 * i + c];
-        }
-        const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
-
-        // 1. path lengths
-        float opl[4];
-        const float geom = path_lengths(in, i, hit, t, ior, opl);
-
-        // 2. emission with its MIS weight, deposited at once
-        const bool prev_random = hit && in.prev_random[i];
-        const float prev_pdf = prev_random ? in.prev_pdf[i] : 0.f;
-        float w_emit = 1.0f;
-        if (PER_LIGHT) {
-            // lights_pdf_at_hit: pick x t^2 / (|cos| area) of the prim hit
-            if (prev_random) {
-                const float* row = pick_area + 2 * min(prim, n_pick - 1);
-                const float g[3] = {gnrm[3 * i], gnrm[3 * i + 1], gnrm[3 * i + 2]};
-                const float cg = fabsf(dot3(d, g));
-                const float lp_hit = row[0] * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
-                w_emit = power_heuristic(prev_pdf, lp_hit);
-            }
-        } else if (prev_random) {
-            w_emit = power_heuristic(prev_pdf, in.prev_light_pdf[i]);
-        }
-        emit_lane<SENSOR>(sp, mr, d, n3, hit && backside[i], tp, w_emit, opl, t, hit,
-                          in.acc + 3 * i, out.acc + 3 * i);
-
-        // 3. the Lambertian cosine sample (core/sampler.cosine_direction)
-        const long long px_id = pixel[i], smp = in.sample[i];
-        float u4[4], ua[4], u3[4];
-        uniform4(px_id, smp, k, SALT_BSDF, u4);
-        uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
-        uniform4(px_id, smp, k, SALT_NEE_SAMPLE, u3);
-        float sdir[3] = {n3[0], n3[1], n3[2]};
-        float atten[4] = {0.f, 0.f, 0.f, 0.f};
-        float spdf = 0.f;
-        const bool lamb = mr.typ == LAMBERTIAN;
-        if (hit && lamb) {
-            cosine_direction(n3, u4[0], u4[1], sdir);
-            spdf = clamp_min(dot3(sdir, n3), 0.f) * INV_PI;
-            for (int c = 0; c < 4; ++c) atten[c] = mr.f[c] * spdf;
-        }
-        is_random = hit && lamb && spdf > 0.f;
-
-        // 4. light NEE up to the shadow ray (render/lights.py lights_sample)
-        const LightSample ls = light_sample(u3, p, light_tri, alias_prob, alias_idx, n_lights,
-                                            shadow_scale, min_hit);
-        for (int c = 0; c < 3; ++c) shadow_d[3 * i + c] = ls.ldir[c];
-        shadow_tmax[i] = is_random ? ls.t_vis : 0.f;
-        float light_pdf_next = 0.f;
-        bool nee_take = false;
-        float ndep[3] = {0.f, 0.f, 0.f};
-        if (is_random) {
-            float pdf_light;
-            if (PER_LIGHT) {
-                pdf_light = light_w[ls.pick] * ls.pdf_sa;
-            } else {
-                pdf_light = mixture_pdf(p, ls.ldir, light_tri, light_w, n_lights);
-                light_pdf_next = mixture_pdf(p, sdir, light_tri, light_w, n_lights);
-            }
-            // bsdf_eval (Lambertian) toward the light
-            const float pb = clamp_min(dot3(ls.ldir, n3), 0.f) * INV_PI;
-            const MatRow lr = mat_row(mat, n_mat, light_mat[ls.pick]);
-            const bool le_ok = light_seen(ls, lr);
-            const float w_nee = power_heuristic(pdf_light, pb);
-            const float scale = w_nee / clamp_min(pdf_light, 1e-12f);
-            float contrib[4], nopl[4];
-            for (int c = 0; c < 4; ++c) {
-                contrib[c] = ((tp[c] * (mr.f[c] * pb)) * (le_ok ? lr.f[4 + c] : 0.f)) * scale;
-                nopl[c] = opl[c] + ls.ldist * ior[c];
-            }
-            nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ls.ldist, pdf_light > 1e-12f,
-                                              ndep);
-        }
-        for (int c = 0; c < 3; ++c) pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
-
-        // 5. throughput update, Russian roulette, the next state (wurblpt.hpp:258-273)
-        advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random, false,
-                     ua[2], geom, opl, max_depth, rr_start, rr_threshold);
-        out.prev_light_pdf[i] = is_random ? light_pdf_next : 0.f;
-    }
-    count_casts<1>(stats, act, is_random);   // one shadow ray per RANDOM lane
-}
-
 // The sky of the env class (render/envmap.py EnvMapArrays): an equirect
 // image or six cube faces with their importance tables (none: res = 0), or
 // a constant radiance.
@@ -1208,105 +1053,11 @@ __device__ __forceinline__ void env_nee_lane(const EnvMap& env, const SensorPara
     for (int c = 0; c < 3; ++c) pending[3 * j + c] = nee_take ? ndep[c] : 0.f;
 }
 
-// ---- the env class: a sky and no light ------------------------------------------
+// ---- what the in-place shades share -------------------------------------------
 
-// SKY: the sky's kind; IS: the sky has importance tables (MIS on a miss,
-// env NEE and its shadow ray); HAS_GLASS: the scene has glass (the lobe,
-// and a new ray IOR written on every lane).
-template <int SENSOR, int SKY, bool IS, bool HAS_GLASS>
-__global__ void __launch_bounds__(BLOCK)
-shade_env_kernel(WaveState in, WaveState out, unsigned long long* __restrict__ stats, int n,
-                 const long long* __restrict__ pixel, const float* __restrict__ t_hit,
-                 const int* __restrict__ prim_hit, const float* __restrict__ pos,
-                 const float* __restrict__ nrm, const float* __restrict__ tng,
-                 const bool* __restrict__ backside, const int* __restrict__ mat_hit,
-                 const float* __restrict__ mat, int n_mat, EnvMap env, SensorParams sp,
-                 int max_depth, int rr_start, float rr_threshold, float* __restrict__ shadow_d,
-                 float* __restrict__ shadow_tmax, float* __restrict__ pending) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    bool act = false, is_random = false;
-    if (i < n) {
-        // The hit record and the material feed only hit lanes; the previous
-        // bsdf sample's flag and pdf only escaped ones (with importance
-        // tables); the ray IOR hit lanes, and every lane with glass (it is
-        // written back).
-        act = in.active[i];
-        const long long k = in.bounce[i];
-        const int prim = act ? prim_hit[i] : -1;
-        const bool hit = prim >= 0;
-        const float t = hit ? t_hit[i] : 0.f;
-        float d[3], n3[3] = {0.f, 0.f, 0.f}, p[3] = {0.f, 0.f, 0.f}, tp[4],
-              ior[4] = {0.f, 0.f, 0.f, 0.f}, a[3];
-        for (int c = 0; c < 3; ++c) {
-            d[c] = in.d[3 * i + c];
-            a[c] = in.acc[3 * i + c];
-        }
-        for (int c = 0; c < 4; ++c) tp[c] = in.throughput[4 * i + c];
-        if (hit) {
-            for (int c = 0; c < 3; ++c) {
-                n3[c] = nrm[3 * i + c];
-                p[c] = pos[3 * i + c];
-            }
-        }
-        if (HAS_GLASS || hit) {
-            for (int c = 0; c < 4; ++c) ior[c] = in.ior[4 * i + c];
-        }
-        const bool back = hit && backside[i];
-        const MatRow mr = mat_row(mat, n_mat, hit ? mat_hit[i] : 0);
-        const RglTables no_rgl{};
-
-        // 1. the sky on a miss
-        miss_lane<SENSOR, SKY, IS>(in, i, act && prim < 0, env, sp, d, tp, a);
-
-        // 2. path lengths
-        float opl[4];
-        const float geom = path_lengths(in, i, hit, t, ior, opl);
-
-        // 3. emission (no light, so its MIS weight is 1)
-        emit_lane<SENSOR>(sp, mr, d, n3, back, tp, 1.0f, opl, t, hit, a, out.acc + 3 * i);
-
-        // 4. the bsdf sample of the lane's own lobe
-        const long long px_id = pixel[i], smp = in.sample[i];
-        float u4[4], ua[4];
-        uniform4(px_id, smp, k, SALT_BSDF, u4);
-        uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
-        float sdir[3] = {n3[0], n3[1], n3[2]};
-        float atten[4] = {0.f, 0.f, 0.f, 0.f};
-        float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
-        float spdf = 0.f, ax = 0.f, ay = 0.f, tb_t[3], tb_b[3];
-        int kind = KIND_NONE;
-        if (hit) {
-            kind = sample_lobe<HAS_GLASS, false, false>(mr, no_rgl, tng + 3 * i, d, n3, back, t,
-                                                        ior, u4, ua, sdir, atten, &spdf, new_ior,
-                                                        &ax, &ay, tb_t, tb_b);
-        }
-        is_random = hit && kind == KIND_RANDOM && spdf > 0.f;
-        const bool is_explicit = hit && kind == KIND_EXPLICIT;
-
-        // 5. env NEE up to the shadow ray, with importance tables only
-        //    (RANDOM lanes are Lambertian or GGX)
-        if (IS) {
-            env_nee_lane<SENSOR, SKY, false, false>(env, sp, no_rgl, px_id, smp, k, is_random, mr,
-                                                    d, n3, tb_t, tb_b, ax, ay, back, tp, opl, i,
-                                                    shadow_d, shadow_tmax, pending);
-        }
-
-        // 6. throughput update, Russian roulette, the next state; the previous
-        //    mixture pdf passes through (no light); the glass's ray IOR
-        advance_lane(in, out, i, k, act, hit, p, d, tp, sdir, atten, spdf, is_random,
-                     is_explicit, ua[2], geom, opl, max_depth, rr_start, rr_threshold);
-        if (HAS_GLASS) {
-            const bool cont = is_random || is_explicit;
-            for (int c = 0; c < 4; ++c) out.ior[4 * i + c] = cont ? new_ior[c] : ior[c];
-        }
-    }
-    count_casts<IS ? 1 : 0>(stats, act, is_random);   // env shadow rays with importance only
-}
-
-// ---- the lit class: triangle lights under per-light MIS beside a sky ---------
-
-// Triangle lights with the power-weighted pick (alias table) and per-light
-// MIS (render/lights.py; StepTables' light rows).
+// Triangle lights with the power-weighted pick (alias table), mixture or
+// per-light MIS (render/lights.py; StepTables' light rows; none in the env
+// class).
 struct Lights {
     const float* pick_area;   // [P, 2] (pick probability, 1 / area) per prim
     int n_pick;
@@ -1318,10 +1069,13 @@ struct Lights {
     int n;
 };
 
-// What one lit-class step reads and writes besides the lane state: the
-// closest hit and its record, each lane's two shadow rays and pending
-// deposits (row i the light's, row n + i the sky's), and its parameters.
-struct LitStep {
+// What one shade step reads and writes besides the lane state: the closest
+// hit and its record, each lane's shadow rays and pending deposits (the
+// diffuse and env classes: row i; the lit class: row i the light's, row n +
+// i the sky's), and its parameters. The diffuse and env shades write no
+// shadow origin (the wrapper returns the hit positions), the diffuse shade
+// reads no tangent, the env shade no geometric normal.
+struct ShadeStep {
     const long long* pixel;
     const float* t_hit;
     const int* prim_hit;
@@ -1339,38 +1093,441 @@ struct LitStep {
     float rr_threshold, shadow_scale, min_hit;
 };
 
-// The small loop-invariant tables of the lit shade: the material rows, the
+// The small loop-invariant tables of the shades: the material rows, the
 // light rows and the RGL tables (a few KB to tens of KB, read through L1;
 // staged in shared memory they were measured within 2 % and left out:
 // PERF.md).
-struct LitTables {
+struct ShadeTables {
     const float* mat;         // [M, MAT_COLS]
     int n_mat;
     Lights lights;
     RglTables rgl;
 };
 
+constexpr int SH_BLOCK = 128;                  // threads per block of the diffuse and env shades
+constexpr int SH_TILE = 1024;                  // lanes a block queues at most per tile
+constexpr int SH_DEAD = -2, SH_DONE = -1;      // a lane dead at entry; shaded while sorted
 constexpr int LIT_BLOCK = 128;                 // threads per block
 constexpr int LIT_MIN_BLOCKS = 4;              // resident blocks per SM the registers must allow
 constexpr int LIT_CHUNK = 4 * LIT_BLOCK;       // lanes a block takes from the counter at once
 constexpr int LIT_BINS = 3;                    // escaped, hit, RGL hit
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// A lane's two shadow rows and pending deposits where it casts nothing:
-// t_max 0 (K2/K6 read neither origin nor direction there) and no deposit.
-__device__ __forceinline__ void lit_idle_rows(const LitStep& s, int i) {
-    const int j = s.n + i;
-    s.shadow_tmax[i] = 0.f;
+// A shadow row and pending deposit where the lane casts nothing: t_max 0
+// (K2, KS2 and K6 walk nothing for the row, whatever its origin and
+// direction hold) and no deposit.
+__device__ __forceinline__ void idle_row(const ShadeStep& s, int j) {
     s.shadow_tmax[j] = 0.f;
-    for (int c = 0; c < 3; ++c) {
-        s.pending[3 * i + c] = 0.f;
-        s.pending[3 * j + c] = 0.f;
+    for (int c = 0; c < 3; ++c) s.pending[3 * j + c] = 0.f;
+}
+
+// Block-wide cast counters: a closest cast per active lane and N_SHADOW
+// shadow casts per RANDOM lane, summed per warp, per block, then once into
+// stats. Every thread of the block calls it, once, at the end; s_counts is
+// zeroed before the block's first barrier.
+template <int N_SHADOW>
+__device__ __forceinline__ void block_count_casts(unsigned long long* stats, unsigned n_act,
+                                                  unsigned n_rand, unsigned* s_counts) {
+    n_act = __reduce_add_sync(FULL_MASK, n_act);
+    n_rand = __reduce_add_sync(FULL_MASK, n_rand);
+    if ((threadIdx.x & 31) == 0) {
+        atomicAdd(s_counts, n_act);
+        atomicAdd(s_counts + 1, n_rand);
     }
+    __syncthreads();
+    if (threadIdx.x == 0 && s_counts[0] > 0) {
+        atomicAdd(stats, static_cast<unsigned long long>(s_counts[0]));
+        atomicAdd(stats + 1, static_cast<unsigned long long>(s_counts[0]) +
+                                 static_cast<unsigned long long>(N_SHADOW) * s_counts[1]);
+    }
+}
+
+// The block-local lane queue of the diffuse and env shades. The lanes are
+// cut into tiles of `tile` lanes (a multiple of 32, at most SH_TILE), which
+// the wrapper sizes to spread the lanes evenly over the blocks the SMs hold
+// at once (shade_tile: one tile per block, one wave, no lane counter and no
+// memset); block b takes tiles b, b + gridDim.x, ... Its threads read a
+// tile's lanes side by side, `sort(i)` writing a dead lane's few fields
+// (SH_DEAD), shading a lane whose step is a few stores (SH_DONE) or naming
+// the bin of a lane to queue; each warp queues its lanes of a bin in lane
+// order (a __ballot_sync / __popc prefix on the bin's shared count). The
+// warps then shade full warps of one bin, `shade(bin, i)` returning whether
+// the lane is RANDOM: a warp runs only live lanes that take the same
+// branches, at most one warp per bin and tile part full. A lane's result
+// does not depend on its thread; the counters (a closest cast per active
+// lane, N_SHADOW shadow casts per RANDOM lane) are integer sums.
+template <int BINS, int N_SHADOW, class Sort, class Shade>
+__device__ __forceinline__ void shade_queued(int n, int tile, Sort sort, Shade shade,
+                                             unsigned long long* stats) {
+    __shared__ int list[BINS][SH_TILE];
+    __shared__ int count[BINS];
+    __shared__ unsigned s_counts[2];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) {
+        for (int b = 0; b < BINS; ++b) count[b] = 0;
+        s_counts[0] = s_counts[1] = 0;
+    }
+    unsigned n_act = 0, n_rand = 0;
+    const int tiles = (n + tile - 1) / tile;
+    for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+        __syncthreads();   // the counts zeroed, the last tile's lists read
+        for (int r = tid; r < tile; r += SH_BLOCK) {   // warp-uniform: tile is whole warps
+            const int i = tl * tile + r;
+            const int bin = i < n ? sort(i) : SH_DEAD;
+            n_act += bin != SH_DEAD;
+#pragma unroll
+            for (int b = 0; b < BINS; ++b) {
+                const unsigned m = __ballot_sync(FULL_MASK, bin == b);
+                int base = 0;
+                if (lane == 0 && m != 0) base = atomicAdd(&count[b], __popc(m));
+                base = __shfl_sync(FULL_MASK, base, 0);
+                if (bin == b) list[b][base + __popc(m & ((1u << lane) - 1u))] = i;
+            }
+        }
+        __syncthreads();
+        int cnt[BINS], first[BINS + 1];
+        first[0] = 0;
+#pragma unroll
+        for (int b = 0; b < BINS; ++b) {
+            cnt[b] = count[b];
+            first[b + 1] = first[b] + (cnt[b] + 31) / 32;
+        }
+        for (int sl = warp; sl < first[BINS]; sl += SH_BLOCK / 32) {
+            int b = 0, f = 0, c = cnt[0];   // constant indices: no array in local memory
+#pragma unroll
+            for (int q = 1; q < BINS; ++q) {
+                if (sl >= first[q]) {
+                    b = q;
+                    f = first[q];
+                    c = cnt[q];
+                }
+            }
+            const int e = (sl - f) * 32 + lane;
+            if (e < c) n_rand += shade(b, list[b][e]);
+        }
+        __syncthreads();   // every warp is done with the counts and lists
+        if (tid == 0)
+            for (int b = 0; b < BINS; ++b) count[b] = 0;
+    }
+    block_count_casts<N_SHADOW>(stats, n_act, n_rand, s_counts);
+}
+
+// ---- the diffuse class: triangle lights, no sky -------------------------------
+
+// A diffuse-class lane as the block sorts it (its flag and primitive id read
+// side by side, one round trip). Dead at entry: of its state only the
+// previous sample's pdf, flag and mixture pdf change (to 0, false, 0); its
+// shadow row casts nothing; it draws no random number and samples no
+// light. Escaped (its emission deposits nothing: a + 0): its deposit,
+// bounce index, end and previous-sample fields; no origin, direction,
+// throughput, path lengths or ray IOR. A hit is queued (bin 0).
+__device__ __forceinline__ int diffuse_sort(const WaveState& st, const ShadeStep& s, int i) {
+    const bool act = st.active[i];
+    const int prim = s.prim_hit[i];
+    if (!act) {
+        st.prev_pdf[i] = 0.f;
+        st.prev_random[i] = false;
+        st.prev_light_pdf[i] = 0.f;
+        idle_row(s, i);
+        return SH_DEAD;
+    }
+    if (prim >= 0) return 0;
+    const long long k = st.bounce[i];
+    float a[3];
+    for (int c = 0; c < 3; ++c) a[c] = st.acc[3 * i + c];
+    for (int c = 0; c < 3; ++c) st.acc[3 * i + c] = a[c] + 0.f;
+    st.bounce[i] = k + 1;
+    st.active[i] = false;
+    st.prev_pdf[i] = 0.f;
+    st.prev_random[i] = false;
+    st.prev_light_pdf[i] = 0.f;
+    idle_row(s, i);
+    return SH_DONE;
+}
+
+// One bounce of a hit lane of the diffuse class, in place: emission with
+// its MIS weight (mixture or per light), the Lambertian cosine sample,
+// light NEE toward a picked hot spot up to its shadow ray and pending
+// deposit on a RANDOM lane, Russian roulette and the next state (a light
+// hit ends the path). It writes its deposit, bounce index, origin, path
+// lengths, end and previous-sample fields and, where it scatters, its
+// direction and throughput; the ray IOR never changes in the class.
+// Returns whether the lane is RANDOM (it casts its shadow ray).
+template <int SENSOR, bool PER_LIGHT>
+__device__ __forceinline__ bool diffuse_live_lane(const WaveState& st, const ShadeStep& s,
+                                                  const ShadeTables& tab,
+                                                  const SensorParams& sp, int i) {
+    const long long k = st.bounce[i];
+    const int prim = s.prim_hit[i];
+    const float t = s.t_hit[i];
+    const long long px_id = s.pixel[i], smp = st.sample[i];
+    float d[3], n3[3], p[3], tp[4], ior[4], a[3];
+    for (int c = 0; c < 3; ++c) {
+        d[c] = st.d[3 * i + c];
+        a[c] = st.acc[3 * i + c];
+        n3[c] = s.nrm[3 * i + c];
+        p[c] = s.pos[3 * i + c];
+    }
+    const float4 tp4 = reinterpret_cast<const float4*>(st.throughput)[i];
+    tp[0] = tp4.x, tp[1] = tp4.y, tp[2] = tp4.z, tp[3] = tp4.w;
+    const float4 ior4 = reinterpret_cast<const float4*>(st.ior)[i];
+    ior[0] = ior4.x, ior[1] = ior4.y, ior[2] = ior4.z, ior[3] = ior4.w;
+    const bool back = s.backside[i];
+    const MatRow mr = mat_row(tab.mat, tab.n_mat, s.mat_hit[i]);
+
+    // 1. path lengths
+    float opl[4];
+    const float geom = path_lengths(st, i, true, t, ior, opl);
+
+    // 2. emission with its MIS weight, deposited at once
+    float w_emit = 1.0f;
+    if (st.prev_random[i]) {
+        const float prev_pdf = st.prev_pdf[i];
+        if (PER_LIGHT) {
+            // lights_pdf_at_hit: pick x t^2 / (|cos| area) of the prim hit
+            const float* row = tab.lights.pick_area + 2 * min(prim, tab.lights.n_pick - 1);
+            const float g[3] = {s.gnrm[3 * i], s.gnrm[3 * i + 1], s.gnrm[3 * i + 2]};
+            const float cg = fabsf(dot3(d, g));
+            const float lp_hit = row[0] * (((t * t) * row[1]) / clamp_min(cg, 1e-12f));
+            w_emit = power_heuristic(prev_pdf, lp_hit);
+        } else {
+            w_emit = power_heuristic(prev_pdf, st.prev_light_pdf[i]);
+        }
+    }
+    emit_lane<SENSOR>(sp, mr, d, n3, back, tp, w_emit, opl, t, true, a, st.acc + 3 * i);
+    st.bounce[i] = k + 1;
+    for (int c = 0; c < 3; ++c) st.o[3 * i + c] = p[c];
+    reinterpret_cast<float4*>(st.opt_len)[i] = make_float4(opl[0], opl[1], opl[2], opl[3]);
+    st.geom_len[i] = geom;
+    if (mr.typ != LAMBERTIAN) {   // a light: no scatter, the path ends
+        st.active[i] = false;
+        st.prev_pdf[i] = 0.f;
+        st.prev_random[i] = false;
+        st.prev_light_pdf[i] = 0.f;
+        idle_row(s, i);
+        return false;
+    }
+
+    // 3. the Lambertian cosine sample (core/sampler.cosine_direction)
+    float u4[4], ua[4];
+    uniform4(px_id, smp, k, SALT_BSDF, u4);
+    uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
+    float sdir[3], atten[4];
+    cosine_direction(n3, u4[0], u4[1], sdir);
+    const float spdf = clamp_min(dot3(sdir, n3), 0.f) * INV_PI;
+    for (int c = 0; c < 4; ++c) atten[c] = mr.f[c] * spdf;
+    const bool is_random = spdf > 0.f;
+
+    // 4. light NEE up to the shadow ray (render/lights.py lights_sample)
+    float light_pdf_next = 0.f;
+    if (is_random) {
+        float u3[4];
+        uniform4(px_id, smp, k, SALT_NEE_SAMPLE, u3);
+        const Lights& lt = tab.lights;
+        const LightSample ls = light_sample(u3, p, lt.tri, lt.alias_prob, lt.alias_idx, lt.n,
+                                            s.shadow_scale, s.min_hit);
+        for (int c = 0; c < 3; ++c) s.shadow_d[3 * i + c] = ls.ldir[c];
+        s.shadow_tmax[i] = ls.t_vis;
+        float pdf_light;
+        if (PER_LIGHT) {
+            pdf_light = lt.w[ls.pick] * ls.pdf_sa;
+        } else {
+            pdf_light = mixture_pdf(p, ls.ldir, lt.tri, lt.w, lt.n);
+            light_pdf_next = mixture_pdf(p, sdir, lt.tri, lt.w, lt.n);
+        }
+        // bsdf_eval (Lambertian) toward the light
+        const float pb = clamp_min(dot3(ls.ldir, n3), 0.f) * INV_PI;
+        const MatRow lr = mat_row(tab.mat, tab.n_mat, lt.mat[ls.pick]);
+        const bool le_ok = light_seen(ls, lr);
+        const float w_nee = power_heuristic(pdf_light, pb);
+        const float scale = w_nee / clamp_min(pdf_light, 1e-12f);
+        float contrib[4], nopl[4], ndep[3] = {0.f, 0.f, 0.f};
+        for (int c = 0; c < 4; ++c) {
+            contrib[c] = ((tp[c] * (mr.f[c] * pb)) * (le_ok ? lr.f[4 + c] : 0.f)) * scale;
+            nopl[c] = opl[c] + ls.ldist * ior[c];
+        }
+        const bool nee_take = sensor_deposit<SENSOR>(sp, contrib, nopl, ls.ldist,
+                                                     pdf_light > 1e-12f, ndep);
+        for (int c = 0; c < 3; ++c) s.pending[3 * i + c] = nee_take ? ndep[c] : 0.f;
+    } else {
+        idle_row(s, i);
+    }
+
+    // 5. throughput update, Russian roulette, the next state (wurblpt.hpp:258-273)
+    float ntp[4];
+    const bool alive = roulette(k, tp, atten, spdf, is_random, is_random, ua[2], s.rr_start,
+                                s.rr_threshold, ntp);
+    if (is_random) {
+        for (int c = 0; c < 3; ++c) st.d[3 * i + c] = sdir[c];
+        reinterpret_cast<float4*>(st.throughput)[i] = make_float4(ntp[0], ntp[1], ntp[2], ntp[3]);
+    }
+    st.active[i] = alive && k + 1 < s.max_depth;
+    st.prev_pdf[i] = is_random ? spdf : 0.f;
+    st.prev_random[i] = is_random;
+    st.prev_light_pdf[i] = light_pdf_next;
+    return is_random;
+}
+
+template <int SENSOR, bool PER_LIGHT>
+__global__ void __launch_bounds__(SH_BLOCK)
+shade_kernel(WaveState st, ShadeStep s, ShadeTables tab, SensorParams sp, int tile,
+             unsigned long long* stats) {
+    shade_queued<1, 1>(
+        s.n, tile, [&](int i) { return diffuse_sort(st, s, i); },
+        [&](int, int i) { return diffuse_live_lane<SENSOR, PER_LIGHT>(st, s, tab, sp, i); },
+        stats);
+}
+
+// ---- the env class: a sky and no light ----------------------------------------
+
+// An escaped lane of the env class, in place: the sky's deposit (MIS-
+// weighted against env NEE where the sky has importance tables, IS), then
+// the emission's (none on a miss: a + 0); its bounce index, end and
+// previous sample's pdf and flag; with IS its idle shadow row. Its mixture
+// pdf passes through (no light).
+template <int SENSOR, int SKY, bool IS>
+__device__ __forceinline__ void env_escaped_lane(const WaveState& st, const ShadeStep& s,
+                                                 const EnvMap& env, const SensorParams& sp,
+                                                 int i) {
+    const long long k = st.bounce[i];
+    float d[3], tp[4], a[3];
+    for (int c = 0; c < 3; ++c) {
+        d[c] = st.d[3 * i + c];
+        a[c] = st.acc[3 * i + c];
+    }
+    const float4 tp4 = reinterpret_cast<const float4*>(st.throughput)[i];
+    tp[0] = tp4.x, tp[1] = tp4.y, tp[2] = tp4.z, tp[3] = tp4.w;
+    miss_lane<SENSOR, SKY, IS>(st, i, true, env, sp, d, tp, a);
+    for (int c = 0; c < 3; ++c) st.acc[3 * i + c] = a[c] + 0.f;
+    st.bounce[i] = k + 1;
+    st.active[i] = false;
+    st.prev_pdf[i] = 0.f;
+    st.prev_random[i] = false;
+    if (IS) idle_row(s, i);
+}
+
+// One bounce of a hit lane of the env class, in place: emission (no light,
+// so its MIS weight is 1), the sample of the lane's lobe (Lambertian, GGX,
+// mirror, glass with HAS_GLASS), env NEE toward a sky sample on a RANDOM
+// lane up to its shadow ray and pending deposit (IS only), Russian roulette
+// and the next state. It writes its deposit, bounce index, origin, path
+// lengths, end and previous sample's pdf and flag and, where it scatters,
+// its direction and throughput, and a glass lobe's ray IOR. Returns whether
+// the lane is RANDOM.
+template <int SENSOR, int SKY, bool IS, bool HAS_GLASS>
+__device__ __forceinline__ bool env_live_lane(const WaveState& st, const ShadeStep& s,
+                                              const ShadeTables& tab, const EnvMap& env,
+                                              const SensorParams& sp, int i) {
+    const long long k = st.bounce[i];
+    const float t = s.t_hit[i];
+    const long long px_id = s.pixel[i], smp = st.sample[i];
+    float d[3], n3[3], p[3], tp[4], ior[4], a[3];
+    for (int c = 0; c < 3; ++c) {
+        d[c] = st.d[3 * i + c];
+        a[c] = st.acc[3 * i + c] + 0.f;   // the sky's deposit (none on a hit)
+        n3[c] = s.nrm[3 * i + c];
+        p[c] = s.pos[3 * i + c];
+    }
+    const float4 tp4 = reinterpret_cast<const float4*>(st.throughput)[i];
+    tp[0] = tp4.x, tp[1] = tp4.y, tp[2] = tp4.z, tp[3] = tp4.w;
+    const float4 ior4 = reinterpret_cast<const float4*>(st.ior)[i];
+    ior[0] = ior4.x, ior[1] = ior4.y, ior[2] = ior4.z, ior[3] = ior4.w;
+    const bool back = s.backside[i];
+    const MatRow mr = mat_row(tab.mat, tab.n_mat, s.mat_hit[i]);
+    const RglTables no_rgl{};
+
+    // 1. path lengths
+    float opl[4];
+    const float geom = path_lengths(st, i, true, t, ior, opl);
+
+    // 2. emission (no light, so its MIS weight is 1)
+    emit_lane<SENSOR>(sp, mr, d, n3, back, tp, 1.0f, opl, t, true, a, st.acc + 3 * i);
+
+    // 3. the bsdf sample of the lane's own lobe
+    float u4[4], ua[4];
+    uniform4(px_id, smp, k, SALT_BSDF, u4);
+    uniform4(px_id, smp, k, SALT_BSDF_AUX, ua);
+    float sdir[3] = {n3[0], n3[1], n3[2]};
+    float atten[4] = {0.f, 0.f, 0.f, 0.f};
+    float new_ior[4] = {ior[0], ior[1], ior[2], ior[3]};
+    float spdf = 0.f, ax = 0.f, ay = 0.f, tb_t[3] = {0.f, 0.f, 0.f}, tb_b[3] = {0.f, 0.f, 0.f};
+    const int kind = sample_lobe<HAS_GLASS, false, false>(mr, no_rgl, s.tng + 3 * i, d, n3, back,
+                                                          t, ior, u4, ua, sdir, atten, &spdf,
+                                                          new_ior, &ax, &ay, tb_t, tb_b);
+    const bool is_random = kind == KIND_RANDOM && spdf > 0.f;
+    const bool cont = is_random || kind == KIND_EXPLICIT;
+
+    // 4. env NEE up to the shadow ray, with importance tables only
+    //    (RANDOM lanes are Lambertian or GGX)
+    if (IS) {
+        if (is_random) {
+            env_nee_lane<SENSOR, SKY, false, false>(env, sp, no_rgl, px_id, smp, k, true, mr, d,
+                                                    n3, tb_t, tb_b, ax, ay, back, tp, opl, i,
+                                                    s.shadow_d, s.shadow_tmax, s.pending);
+        } else {
+            idle_row(s, i);
+        }
+    }
+
+    // 5. throughput update, Russian roulette, the next state; the previous
+    //    mixture pdf passes through (no light); the glass's ray IOR
+    float ntp[4];
+    const bool alive = roulette(k, tp, atten, spdf, is_random, cont, ua[2], s.rr_start,
+                                s.rr_threshold, ntp);
+    st.bounce[i] = k + 1;
+    for (int c = 0; c < 3; ++c) st.o[3 * i + c] = p[c];
+    if (cont) {
+        for (int c = 0; c < 3; ++c) st.d[3 * i + c] = sdir[c];
+        reinterpret_cast<float4*>(st.throughput)[i] = make_float4(ntp[0], ntp[1], ntp[2], ntp[3]);
+    }
+    if (HAS_GLASS && mr.typ == GLASS)
+        reinterpret_cast<float4*>(st.ior)[i] =
+            make_float4(new_ior[0], new_ior[1], new_ior[2], new_ior[3]);
+    reinterpret_cast<float4*>(st.opt_len)[i] = make_float4(opl[0], opl[1], opl[2], opl[3]);
+    st.active[i] = alive && k + 1 < s.max_depth;
+    st.geom_len[i] = geom;
+    st.prev_pdf[i] = is_random ? spdf : 0.f;
+    st.prev_random[i] = is_random;
+    return is_random;
+}
+
+// SKY: the sky's kind; IS: the sky has importance tables (MIS on a miss,
+// env NEE and its shadow ray); HAS_GLASS: the scene has glass (the lobe and
+// its ray IOR). Bins: 0 escaped (the sky's lookup and pdf), 1 a hit. A dead
+// lane writes its previous sample's pdf and flag (to 0 and false) and, with
+// IS, its idle shadow row; its mixture pdf passes through.
+template <int SENSOR, int SKY, bool IS, bool HAS_GLASS>
+__global__ void __launch_bounds__(SH_BLOCK)
+shade_env_kernel(WaveState st, ShadeStep s, ShadeTables tab, EnvMap env, SensorParams sp,
+                 int tile, unsigned long long* stats) {
+    const auto sort = [&](int i) {
+        const bool act = st.active[i];
+        const int prim = s.prim_hit[i];   // read beside the flag: one round trip
+        if (act) return prim >= 0 ? 1 : 0;
+        st.prev_pdf[i] = 0.f;
+        st.prev_random[i] = false;
+        if (IS) idle_row(s, i);
+        return SH_DEAD;
+    };
+    const auto shade = [&](int bin, int i) {
+        if (bin == 1) return env_live_lane<SENSOR, SKY, IS, HAS_GLASS>(st, s, tab, env, sp, i);
+        env_escaped_lane<SENSOR, SKY, IS>(st, s, env, sp, i);
+        return false;
+    };
+    shade_queued<2, IS ? 1 : 0>(s.n, tile, sort, shade, stats);   // env shadow rays with IS only
+}
+
+// ---- the lit class: triangle lights under per-light MIS beside a sky ---------
+
+// A lane's two shadow rows and pending deposits where it casts nothing.
+__device__ __forceinline__ void lit_idle_rows(const ShadeStep& s, int i) {
+    idle_row(s, i);
+    idle_row(s, s.n + i);
 }
 
 // A lane dead at entry: of its state only the previous sample's pdf and
 // flag change (to 0 and false); its shadow rows cast nothing.
-__device__ __forceinline__ void lit_dead_lane(const WaveState& st, const LitStep& s, int i) {
+__device__ __forceinline__ void lit_dead_lane(const WaveState& st, const ShadeStep& s, int i) {
     st.prev_pdf[i] = 0.f;
     st.prev_random[i] = false;
     lit_idle_rows(s, i);
@@ -1388,8 +1545,8 @@ __device__ __forceinline__ void lit_dead_lane(const WaveState& st, const LitStep
 // direction, throughput and ray IOR. Returns whether the lane is RANDOM
 // (it casts both shadow rays).
 template <int SENSOR, int SKY, bool HAS_RGL>
-__device__ __forceinline__ bool lit_live_lane(const WaveState& st, const LitStep& s,
-                                              const LitTables& tab, const EnvMap& env,
+__device__ __forceinline__ bool lit_live_lane(const WaveState& st, const ShadeStep& s,
+                                              const ShadeTables& tab, const EnvMap& env,
                                               const SensorParams& sp, int i) {
     const long long k = st.bounce[i];
     const int prim = s.prim_hit[i];
@@ -1517,28 +1674,10 @@ __device__ __forceinline__ bool lit_live_lane(const WaveState& st, const LitStep
     return is_random;
 }
 
-// Block-wide cast counters: a closest cast per active lane and two shadow
-// casts per RANDOM lane, summed per warp, per block, then once into stats.
-// Every thread of the block calls it, once, at the end.
-__device__ __forceinline__ void lit_count_casts(unsigned long long* stats, unsigned n_act,
-                                                unsigned n_rand, unsigned* s_counts) {
-    n_act = __reduce_add_sync(FULL_MASK, n_act);
-    n_rand = __reduce_add_sync(FULL_MASK, n_rand);
-    if ((threadIdx.x & 31) == 0) {
-        atomicAdd(s_counts, n_act);
-        atomicAdd(s_counts + 1, n_rand);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0 && s_counts[0] > 0) {
-        atomicAdd(stats, static_cast<unsigned long long>(s_counts[0]));
-        atomicAdd(stats + 1, static_cast<unsigned long long>(s_counts[0]) + 2ull * s_counts[1]);
-    }
-}
-
 // The bin of an active lane, by what it will run: 0 escaped (the sky's
 // lookup and pdf), 1 a hit, 2 an RGL hit (its tables' walks, the longest
 // lobe). Finer bins, by every lobe, cost registers and were slower (PERF.md).
-__device__ __forceinline__ int lit_bin(const LitTables& tab, int prim, int mat_id) {
+__device__ __forceinline__ int lit_bin(const ShadeTables& tab, int prim, int mat_id) {
     if (prim < 0) return 0;
     const int typ = __float_as_int(tab.mat[min(max(mat_id, 0), tab.n_mat - 1) * MAT_COLS + 20]);
     return typ == RGL ? 2 : 1;
@@ -1556,7 +1695,7 @@ __device__ __forceinline__ int lit_bin(const LitTables& tab, int prim, int mat_i
 // launch.
 template <int SENSOR, int SKY, bool HAS_RGL>
 __global__ void __launch_bounds__(LIT_BLOCK, LIT_MIN_BLOCKS)
-shade_lit_kernel(WaveState st, LitStep s, LitTables tab, EnvMap env, SensorParams sp,
+shade_lit_kernel(WaveState st, ShadeStep s, ShadeTables tab, EnvMap env, SensorParams sp,
                  int* counter, unsigned long long* stats) {
     __shared__ int list[LIT_BINS][LIT_CHUNK + 32];
     __shared__ int count[LIT_BINS];
@@ -1624,7 +1763,7 @@ shade_lit_kernel(WaveState st, LitStep s, LitTables tab, EnvMap env, SensorParam
             if (tid == 0) count[b] = cnt[b] - take[b];
         }
     }
-    lit_count_casts(stats, n_act, n_rand, s_counts);
+    block_count_casts<2>(stats, n_act, n_rand, s_counts);
 }
 
 // n_pend pending deposits per lane (none, one, or the lit class's light and
@@ -1655,11 +1794,11 @@ resolve_kernel(const float* __restrict__ acc, const float* __restrict__ pending,
     if (__syncthreads_or(busy) && threadIdx.x == 0) *work = 1;
 }
 
-// Blocks of a full persistent launch of `kernel` (LIT_BLOCK threads), cached
-// per kernel.
+// Blocks of `threads` threads of `kernel` that the SMs hold at once (a full
+// persistent launch), cached per kernel.
 template <typename Kernel>
-int resident_blocks(Kernel kernel) {
-    constexpr int SLOTS = 16;
+int resident_blocks(Kernel kernel, int threads) {
+    constexpr int SLOTS = 32;
     static const void* keys[SLOTS];
     static int blocks[SLOTS];
     static int used = 0;
@@ -1669,7 +1808,7 @@ int resident_blocks(Kernel kernel) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LIT_BLOCK, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
     const int b = max(sms * per_sm, 1);
     if (used < SLOTS) {
         keys[used] = key;
@@ -1678,12 +1817,30 @@ int resident_blocks(Kernel kernel) {
     return b;
 }
 
+// Lanes per tile of the queued shades (shade_queued) on `blocks` resident
+// blocks: the lanes spread evenly over them, in whole warps, at most SH_TILE.
+inline int shade_tile(int n, int blocks) {
+    const long long per_block = (static_cast<long long>(n) + blocks - 1) / blocks;
+    return static_cast<int>(min(static_cast<long long>(SH_TILE), (per_block + 31) / 32 * 32));
+}
+
 template <typename Kernel>
-void launch_lit(Kernel kernel, cudaStream_t s, const WaveState& st, const LitStep& step,
-                const LitTables& tab, const EnvMap& env, const SensorParams& sp, int* counter,
+void launch_lit(Kernel kernel, cudaStream_t s, const WaveState& st, const ShadeStep& step,
+                const ShadeTables& tab, const EnvMap& env, const SensorParams& sp, int* counter,
                 unsigned long long* stats) {
-    const int grid = min(resident_blocks(kernel), (step.n + LIT_CHUNK - 1) / LIT_CHUNK);
+    const int grid =
+        min(resident_blocks(kernel, LIT_BLOCK), (step.n + LIT_CHUNK - 1) / LIT_CHUNK);
     kernel<<<grid, LIT_BLOCK, 0, s>>>(st, step, tab, env, sp, counter, stats);
+}
+
+// A launch of a queued shade over n lanes: one tile per resident block
+// (shade_tile); `args` are the kernel's up to its tile and counters.
+template <typename Kernel, typename... Args>
+void launch_queued(Kernel kernel, cudaStream_t s, int n, unsigned long long* stats,
+                   const Args&... args) {
+    const int blocks = resident_blocks(kernel, SH_BLOCK);
+    const int tile = shade_tile(n, blocks);
+    kernel<<<min(blocks, (n + tile - 1) / tile), SH_BLOCK, 0, s>>>(args..., tile, stats);
 }
 
 }  // namespace
@@ -1722,27 +1879,28 @@ extern "C" int wpt_regen_surround(const WaveState* st, float* t_max, int n,
 }
 
 extern "C" int wpt_shade_diffuse(
-    const WaveState* in, const WaveState* out, long long* stats, int n, const long long* pixel,
-    const float* t, const int* prim, const float* pos, const float* nrm, const float* gnrm,
-    const bool* backside, const int* mat_hit, const float* mat, int n_mat,
-    const float* pick_area, int n_pick, const float* light_tri, const int* light_mat,
-    const float* light_w, const float* alias_prob, const int* alias_idx, int n_lights,
-    int per_light, int sensor, const float* sensor_params, int max_depth, int rr_start,
-    float rr_threshold, float shadow_scale, float min_hit, float* shadow_d, float* shadow_tmax,
-    float* pending, void* stream) {
-    if (n_lights < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF)) return -1;
+    const WaveState* st, long long* stats, int n, const long long* pixel, const float* t,
+    const int* prim, const float* pos, const float* nrm, const float* gnrm, const bool* backside,
+    const int* mat_hit, const float* mat, int n_mat, const float* pick_area, int n_pick,
+    const float* light_tri, const int* light_mat, const float* light_w, const float* alias_prob,
+    const int* alias_idx, int n_lights, int per_light, int sensor, const float* sensor_params,
+    int max_depth, int rr_start, float rr_threshold, float shadow_scale, float min_hit,
+    float* shadow_d, float* shadow_tmax, float* pending, void* stream) {
+    if (n_lights < 1 || n_pick < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF)) return -1;
     if (n > 0) {
         SensorParams sp;
         for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
-        const int grid = (n + BLOCK - 1) / BLOCK;
+        const ShadeStep step{pixel, t, prim, pos, nrm, gnrm, nullptr, backside, mat_hit, nullptr,
+                             shadow_d, shadow_tmax, pending, n, max_depth, rr_start, rr_threshold,
+                             shadow_scale, min_hit};
+        const ShadeTables tab{mat, n_mat,
+                              Lights{pick_area, n_pick, light_tri, light_mat, light_w, alias_prob,
+                                     alias_idx, n_lights},
+                              RglTables{}};
         cudaStream_t s = static_cast<cudaStream_t>(stream);
-        unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
-#define WPT_SHADE(SENSOR, PER_LIGHT)                                                          \
-    shade_kernel<SENSOR, PER_LIGHT><<<grid, BLOCK, 0, s>>>(                                  \
-        *in, *out, st, n, pixel, t, prim, pos, nrm, gnrm, backside, mat_hit, mat, n_mat,      \
-        pick_area, n_pick, light_tri, light_mat, light_w, alias_prob, alias_idx, n_lights,    \
-        sp, max_depth, rr_start, rr_threshold, shadow_scale, min_hit, shadow_d, shadow_tmax,  \
-        pending)
+        unsigned long long* cnt = reinterpret_cast<unsigned long long*>(stats);
+#define WPT_SHADE(SENSOR, PER_LIGHT) \
+    launch_queued(shade_kernel<SENSOR, PER_LIGHT>, s, n, cnt, *st, step, tab, sp)
         if (sensor == SENSOR_RGB) {
             if (per_light) WPT_SHADE(SENSOR_RGB, true); else WPT_SHADE(SENSOR_RGB, false);
         } else {
@@ -1754,18 +1912,19 @@ extern "C" int wpt_shade_diffuse(
 }
 
 extern "C" int wpt_shade_env(
-    const WaveState* in, const WaveState* out, long long* stats, int n, const long long* pixel,
-    const float* t, const int* prim, const float* pos, const float* nrm, const float* tng,
-    const bool* backside, const int* mat_hit, const float* mat, int n_mat, int has_glass, int sky,
-    const float* img, int h, int w, const float* const_rad, const float* pdf,
-    const float* alias_prob, const int* alias_idx, int res, const float* rot, int sensor,
-    const float* sensor_params, int max_depth, int rr_start, float rr_threshold, float* shadow_d,
-    float* shadow_tmax, float* pending, void* stream) {
+    const WaveState* st, long long* stats, int n, const long long* pixel, const float* t,
+    const int* prim, const float* pos, const float* nrm, const float* tng, const bool* backside,
+    const int* mat_hit, const float* mat, int n_mat, int has_glass, int sky, const float* img,
+    int h, int w, const float* const_rad, const float* pdf, const float* alias_prob,
+    const int* alias_idx, int res, const float* rot, int sensor, const float* sensor_params,
+    int max_depth, int rr_start, float rr_threshold, float* shadow_d, float* shadow_tmax,
+    float* pending, void* stream) {
     // The kinds the route takes: an equirect sky with importance tables, a
     // cube sky with or without them, a constant sky (which has none).
     const bool ok_sky = (sky == SKY_EQUIRECT && res > 0) || sky == SKY_CUBE ||
                         (sky == SKY_CONSTANT && res == 0);
-    if (!ok_sky || res < 0 || h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF))
+    if (!ok_sky || res < 0 || h < 1 || w < 1 || (sensor != SENSOR_RGB && sensor != SENSOR_TOF) ||
+        (res > 0) != (shadow_d != nullptr && shadow_tmax != nullptr && pending != nullptr))
         return -1;
     if (n > 0) {
         SensorParams sp;
@@ -1773,13 +1932,14 @@ extern "C" int wpt_shade_env(
         const EnvMap env{reinterpret_cast<const float4*>(img), h, w,
                          reinterpret_cast<const float4*>(const_rad), pdf, alias_prob, alias_idx,
                          res, rot};
-        const int grid = (n + BLOCK - 1) / BLOCK;
+        const ShadeStep step{pixel, t, prim, pos, nrm, nullptr, tng, backside, mat_hit, nullptr,
+                             shadow_d, shadow_tmax, pending, n, max_depth, rr_start, rr_threshold,
+                             0.f, 0.f};
+        const ShadeTables tab{mat, n_mat, Lights{}, RglTables{}};
         cudaStream_t s = static_cast<cudaStream_t>(stream);
-        unsigned long long* st = reinterpret_cast<unsigned long long*>(stats);
-#define WPT_SHADE_ENV(SENSOR, SKY, IS, GLASS_T)                                                \
-    shade_env_kernel<SENSOR, SKY, IS, GLASS_T><<<grid, BLOCK, 0, s>>>(                        \
-        *in, *out, st, n, pixel, t, prim, pos, nrm, tng, backside, mat_hit, mat, n_mat, env,   \
-        sp, max_depth, rr_start, rr_threshold, shadow_d, shadow_tmax, pending)
+        unsigned long long* cnt = reinterpret_cast<unsigned long long*>(stats);
+#define WPT_SHADE_ENV(SENSOR, SKY, IS, GLASS_T) \
+    launch_queued(shade_env_kernel<SENSOR, SKY, IS, GLASS_T>, s, n, cnt, *st, step, tab, env, sp)
 #define WPT_SHADE_ENV_SKY(SENSOR, GLASS_T)                                                     \
     if (sky == SKY_EQUIRECT) WPT_SHADE_ENV(SENSOR, SKY_EQUIRECT, true, GLASS_T);               \
     else if (sky == SKY_CUBE && res > 0) WPT_SHADE_ENV(SENSOR, SKY_CUBE, true, GLASS_T);       \
@@ -1817,10 +1977,10 @@ extern "C" int wpt_shade_lit(
     if (n > 0) {
         SensorParams sp;
         for (int k = 0; k < 8; ++k) sp.v[k] = sensor_params[k];
-        const LitStep step{pixel, t, prim, pos, nrm, gnrm, tng, backside, mat_hit, shadow_o,
+        const ShadeStep step{pixel, t, prim, pos, nrm, gnrm, tng, backside, mat_hit, shadow_o,
                            shadow_d, shadow_tmax, pending, n, max_depth, rr_start, rr_threshold,
                            shadow_scale, min_hit};
-        const LitTables tab{mat, n_mat,
+        const ShadeTables tab{mat, n_mat,
                             Lights{pick_area, n_pick, light_tri, light_mat, light_w, alias_prob,
                                    alias_idx, n_lights},
                             rgl != nullptr ? *rgl : RglTables{}};

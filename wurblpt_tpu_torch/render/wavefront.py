@@ -56,20 +56,20 @@ helpers of the generic torch-op bounce (`emit`, `light_nee`, `env_miss`,
 `env_nee`, `advance`, here), which keeps serving the scenes outside the
 classes, so both routes compute the same thing in the same order.
 
-The lane state is updated in place by the regenerations and the lit shade.
+The lane state is updated in place by the regenerations and the shades.
 JAX's arrays are immutable, so its bounce and regeneration return new
-state; the port's `regen_pinhole`, `regen_surround` and `shade_lit` write
-the `LoopState` tensors, `sample` and `k_next` they are given and return
-them, because on the card most lanes of a step keep most of their fields:
-a lane the regeneration does not refill writes only its cast's t_max, a
-lane dead at the lit shade only its previous sample's pdf and flag and its
-two idle shadow rows, an escaped lane its deposit, bounce index, end and
-flags, and the lit shade computes a shadow ray's origin and direction only
-on the rows that cast one (t_max > 0; K2/K6 read no other). The plain
-versions stay pure functions (the generic step uses `regen_plain`); on CPU
-tensors the wrappers run them and copy their result into the inputs, so
-both devices keep the same contract. The diffuse and env shades still
-write new state.
+state; the port's `regen_pinhole`, `regen_surround`, `shade_diffuse`,
+`shade_env` and `shade_lit` write the `LoopState` tensors, `sample` and
+`k_next` they are given and return them, because on the card most lanes of
+a step keep most of their fields: a lane the regeneration does not refill
+writes only its cast's t_max, a lane dead at a shade only its previous
+sample's fields and its idle shadow rows, an escaped lane its deposit,
+bounce index, end and those fields, and the shades compute a shadow ray's
+direction (the lit shade also its origin) only on the rows that cast one
+(t_max > 0; K2, KS2 and K6 read no other). The plain versions stay pure
+functions (the generic step uses `regen_plain`); on CPU tensors the
+wrappers run them and copy their result into the inputs, so both devices
+keep the same contract.
 """
 
 from __future__ import annotations
@@ -734,12 +734,6 @@ def _copy_into(st: LoopState, new: LoopState) -> LoopState:
     return st
 
 
-def _empty_state(st: LoopState, **keep) -> LoopState:
-    """New output tensors for every field, but those given in `keep`."""
-    return LoopState(**{f: keep[f] if f in keep else torch.empty_like(getattr(st, f))
-                        for f in LoopState._fields})
-
-
 def _camera_ptrs(cam: CameraParams, device):
     """Device pointers of the camera's centre [2], focal length [2], translation
     [3], rotation [4] and lens coefficients k [6] and p [2]: float32 tensors
@@ -887,41 +881,52 @@ def _check_hit(name, n, dev, pixel, t, prim, hr: HitRecord, fields):
 
 def shade_diffuse(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
                   hr: HitRecord):
-    """One diffuse-class bounce after the closest hit (wpt_shade_diffuse;
-    `shade_diffuse_plain` on CPU tensors): (state, shadow origin (the hit
-    position), shadow direction, shadow t_max, pending deposit); st.stats
-    grows in place."""
+    """One diffuse-class bounce after the closest hit, in place
+    (wpt_shade_diffuse; `shade_diffuse_plain` on CPU tensors, its state
+    copied into st): (st, shadow origin (the hit position), shadow
+    direction, shadow t_max, pending deposit); st.stats grows in place. The
+    kernel writes a shadow direction only where the lane casts (t_max > 0)."""
     n, dev = _check_state("shade_diffuse", st, sample, sample, sensor.n_acc)
     _check_hit("shade_diffuse", n, dev, pixel, t, prim, hr,
                ("position", "normal", "geom_normal", "backside", "mat"))
     _check_light_frames("shade_diffuse", tables)
     if dev.type == "cpu":
-        return shade_diffuse_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+        new, *rows = shade_diffuse_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+        return (_copy_into(st, new), *rows)
     if not tables.mat_types <= DIFFUSE_MATERIALS or tables.n_lights == 0:
         raise ValueError("shade_diffuse: the kernel takes the diffuse class only")
-    kind, sp = sensor_params(sensor)
+    _check_in_place("shade_diffuse", st)
     lib = native.load_kernels()
-    out = _empty_state(st, ior=st.ior, stats=st.stats)
-    shadow_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    shadow_tmax = torch.empty((n,), dtype=torch.float32, device=dev)
-    pending = torch.empty((n, sensor.n_acc), dtype=torch.float32, device=dev)
-    s_in, s_out = _state_c(st, sample, sample), _state_c(out, sample, sample)
-    sp_c = (ctypes.c_float * 8)(*sp)
-    code = lib.wpt_shade_diffuse(
-        ctypes.addressof(s_in), ctypes.addressof(s_out), st.stats.data_ptr(), n,
-        pixel.data_ptr(), t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(),
-        hr.normal.data_ptr(), hr.geom_normal.data_ptr(), hr.backside.data_ptr(),
-        hr.mat.data_ptr(), tables.mat.data_ptr(), tables.mat.shape[0],
-        tables.pick_area.data_ptr(), tables.pick_area.shape[0], tables.light_tri.data_ptr(),
-        tables.light_mat.data_ptr(), tables.light_w.data_ptr(), tables.alias_prob.data_ptr(),
-        tables.alias_idx.data_ptr(), tables.n_lights, int(tables.per_light), kind,
-        ctypes.addressof(sp_c), params.max_path_components, params.rr_start,
-        float(params.rr_threshold), float(np.float32(1.0 - params.shadow_identity_eps)),
-        float(params.min_hit_distance), shadow_d.data_ptr(), shadow_tmax.data_ptr(),
-        pending.data_ptr(), native.stream_ptr(t))
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = (torch.empty((n, 3), **f32), torch.empty((n,), **f32),
+            torch.empty((n, sensor.n_acc), **f32))
+    args, keep = diffuse_args(tables, sensor, params, st, pixel, sample, t, prim, hr, *rows)
+    code = lib.wpt_shade_diffuse(*args, native.stream_ptr(t))
+    del keep
     native.check(code, "shade_diffuse")
     native.LAUNCHES["shade_diffuse"] += 1
-    return out, hr.position, shadow_d, shadow_tmax, pending
+    return (st, hr.position, *rows)
+
+
+def diffuse_args(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+                 hr: HitRecord, shadow_d, shadow_tmax, pending):
+    """The arguments of wpt_shade_diffuse but its stream, and the ctypes
+    objects they point into, which must live until the call returns."""
+    kind, sp = sensor_params(sensor)
+    s_c = _state_c(st, sample, sample)
+    sp_c = (ctypes.c_float * 8)(*sp)
+    args = [
+        ctypes.addressof(s_c), st.stats.data_ptr(), st.active.shape[0], pixel.data_ptr(),
+        t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(), hr.normal.data_ptr(),
+        hr.geom_normal.data_ptr(), hr.backside.data_ptr(), hr.mat.data_ptr(),
+        tables.mat.data_ptr(), tables.mat.shape[0], tables.pick_area.data_ptr(),
+        tables.pick_area.shape[0], tables.light_tri.data_ptr(), tables.light_mat.data_ptr(),
+        tables.light_w.data_ptr(), tables.alias_prob.data_ptr(), tables.alias_idx.data_ptr(),
+        tables.n_lights, int(tables.per_light), kind, ctypes.addressof(sp_c),
+        params.max_path_components, params.rr_start, float(params.rr_threshold),
+        float(np.float32(1.0 - params.shadow_identity_eps)), float(params.min_hit_distance),
+        shadow_d.data_ptr(), shadow_tmax.data_ptr(), pending.data_ptr()]
+    return args, (s_c, sp_c)
 
 
 def _check_env(env: Optional[EnvMapArrays], dev):
@@ -953,13 +958,14 @@ def _check_env_arrays(name, env: EnvMapArrays, dev):
 
 def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
               hr: HitRecord):
-    """One env-class bounce after the closest hit (wpt_shade_env;
-    `shade_env_plain` on CPU tensors): (state, shadow origin (the hit
-    position), shadow direction, shadow t_max, pending deposit), the last
-    four None when the sky has no importance tables; st.stats grows in
-    place. The kernel takes Lambertian, GGX, mirror and glass surfaces, an
-    equirect sky with importance tables, a cube sky with or without them or
-    a constant sky, and no light."""
+    """One env-class bounce after the closest hit, in place (wpt_shade_env;
+    `shade_env_plain` on CPU tensors, its state copied into st): (st,
+    shadow origin (the hit position), shadow direction, shadow t_max,
+    pending deposit), the last four None when the sky has no importance
+    tables; st.stats grows in place. The kernel writes a shadow direction
+    only where the lane casts (t_max > 0). It takes Lambertian, GGX, mirror
+    and glass surfaces, an equirect sky with importance tables, a cube sky
+    with or without them or a constant sky, and no light."""
     n, dev = _check_state("shade_env", st, sample, sample, sensor.n_acc)
     _check_hit("shade_env", n, dev, pixel, t, prim, hr,
                ("position", "normal", "tangent", "backside", "mat"))
@@ -968,35 +974,43 @@ def shade_env(tables: StepTables, sensor, params, st: LoopState, pixel, sample, 
                          "and no light")
     _check_env(tables.env, dev)
     if dev.type == "cpu":
-        return shade_env_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
-    kind, sp = sensor_params(sensor)
-    env = tables.env
-    glass = MaterialType.GLASS in tables.mat_types
+        new, *rows = shade_env_plain(tables, sensor, params, st, pixel, sample, t, prim, hr)
+        return (_copy_into(st, new), *rows)
+    _check_in_place("shade_env", st)
     lib = native.load_kernels()
-    # Without glass the ray IOR never changes: the next state shares it.
-    out = _empty_state(st, prev_light_pdf=st.prev_light_pdf, stats=st.stats,
-                       **({} if glass else {"ior": st.ior}))
-    shadow_o = shadow_d = shadow_tmax = pending = None
-    if env.importance:
-        shadow_o = hr.position
-        shadow_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
-        shadow_tmax = torch.empty((n,), dtype=torch.float32, device=dev)
-        pending = torch.empty((n, sensor.n_acc), dtype=torch.float32, device=dev)
-    s_in, s_out = _state_c(st, sample, sample), _state_c(out, sample, sample)
-    sp_c = (ctypes.c_float * 8)(*sp)
-    code = lib.wpt_shade_env(
-        ctypes.addressof(s_in), ctypes.addressof(s_out), st.stats.data_ptr(), n,
-        pixel.data_ptr(), t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(),
-        hr.normal.data_ptr(), hr.tangent.data_ptr(), hr.backside.data_ptr(), hr.mat.data_ptr(),
-        tables.mat.data_ptr(), tables.mat.shape[0], int(glass), env.kind, env.image.data_ptr(),
-        env.image.shape[-3], env.image.shape[-2], env.const_radiance.data_ptr(),
-        env.pdf_table.data_ptr(), env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
-        env.pdf_table.shape[0], env.rotation.data_ptr(), kind, ctypes.addressof(sp_c),
-        params.max_path_components, params.rr_start, float(params.rr_threshold),
-        _ptr(shadow_d), _ptr(shadow_tmax), _ptr(pending), native.stream_ptr(t))
+    rows = (None, None, None)
+    if tables.env.importance:
+        f32 = dict(dtype=torch.float32, device=dev)
+        rows = (torch.empty((n, 3), **f32), torch.empty((n,), **f32),
+                torch.empty((n, sensor.n_acc), **f32))
+    args, keep = env_args(tables, sensor, params, st, pixel, sample, t, prim, hr, *rows)
+    code = lib.wpt_shade_env(*args, native.stream_ptr(t))
+    del keep
     native.check(code, "shade_env")
     native.LAUNCHES["shade_env"] += 1
-    return out, shadow_o, shadow_d, shadow_tmax, pending
+    return (st, hr.position if tables.env.importance else None, *rows)
+
+
+def env_args(tables: StepTables, sensor, params, st: LoopState, pixel, sample, t, prim,
+             hr: HitRecord, shadow_d, shadow_tmax, pending):
+    """The arguments of wpt_shade_env but its stream (the shadow rows None
+    without importance tables), and the ctypes objects they point into,
+    which must live until the call returns."""
+    kind, sp = sensor_params(sensor)
+    env = tables.env
+    s_c = _state_c(st, sample, sample)
+    sp_c = (ctypes.c_float * 8)(*sp)
+    args = [
+        ctypes.addressof(s_c), st.stats.data_ptr(), st.active.shape[0], pixel.data_ptr(),
+        t.data_ptr(), prim.data_ptr(), hr.position.data_ptr(), hr.normal.data_ptr(),
+        hr.tangent.data_ptr(), hr.backside.data_ptr(), hr.mat.data_ptr(), tables.mat.data_ptr(),
+        tables.mat.shape[0], int(MaterialType.GLASS in tables.mat_types), env.kind,
+        env.image.data_ptr(), env.image.shape[-3], env.image.shape[-2],
+        env.const_radiance.data_ptr(), env.pdf_table.data_ptr(), env.alias_prob.data_ptr(),
+        env.alias_idx.data_ptr(), env.pdf_table.shape[0], env.rotation.data_ptr(), kind,
+        ctypes.addressof(sp_c), params.max_path_components, params.rr_start,
+        float(params.rr_threshold), _ptr(shadow_d), _ptr(shadow_tmax), _ptr(pending)]
+    return args, (s_c, sp_c)
 
 
 def _check_lit_tables(tables: StepTables, dev):

@@ -1,15 +1,18 @@
-"""K4's regenerations and lit shade at every step of the frames, on the
-lanes each step really gives: the time of each call on the card beside its
+"""K4's regenerations and shades at every step of the frames, on the lanes
+each step really gives: the time of each call on the card beside its
 bounds.
 
-    python -m wurblpt_tpu_torch.utils.k4_steps [--frames city,cornell,mesh,rtiow] [--out FILE]
+    python -m wurblpt_tpu_torch.utils.k4_steps [--frames city,cornell,...] [--out FILE]
 
 Renders each frame once (`kernel_check.city_frame`, `bench_frame`,
-`mesh_frame`, `rtiow_frame`) with the inputs of its K4 calls recorded: on
-the city every `shade_lit` and `regen_surround` call (2 blocks of 4 steps),
-on the Cornell, mesh and rtiow frames every `regen_pinhole` call of the
-first block. Each input is copied as it was passed (the kernels write their
-inputs: the in-place contract of render/wavefront.py). Then, per recorded
+`tof_frame`, `mesh_frame`, `envmap_frame`, `rtiow_frame`,
+`cornell_animated_frame`, `cornell_animated_bvh_frame`,
+`rtiow_bvh_frame`; all nine by default) with the inputs of its K4 calls
+recorded: on the city every `shade_lit` and `regen_surround` call (2
+blocks of 4 steps), on the other frames every `regen_pinhole` call and
+every `shade_diffuse` or `shade_env` call of the first block. Each input
+is copied as it was passed (the kernels write their inputs: the in-place
+contract of render/wavefront.py). Then, per recorded
 call: the kernel held against its plain version on it
 (`kernel_check.check_call`: bit-equal on the card), its lanes, live lanes
 (active at the shade) and regenerated lanes, its time
@@ -37,24 +40,36 @@ from ..render import wavefront as wf
 from . import kernel_check as kc
 from . import scenes
 
-RECORDED = ("regen_pinhole", "regen_surround", "shade_lit")
+RECORDED = ("regen_pinhole", "regen_surround", "shade_diffuse", "shade_env", "shade_lit")
+SHADES = ("shade_diffuse", "shade_env", "shade_lit")
 FRAMES = {"city": (lambda dev: scenes.city_night(seed=7, device=dev), kc.city_frame),
           "cornell": (lambda dev: None, lambda dev, scene: kc.bench_frame(dev)),
+          "tof": (lambda dev: scenes.tof_box(device=dev), kc.tof_frame),
           "mesh": (lambda dev: scenes.terrain_city(seed=3, device=dev), kc.mesh_frame),
-          "rtiow": (lambda dev: scenes.rtiow(device=dev), kc.rtiow_frame)}
+          "envmap": (lambda dev: scenes.envmap_spheres(cube=True, device=dev), kc.envmap_frame),
+          "rtiow": (lambda dev: scenes.rtiow(device=dev), kc.rtiow_frame),
+          "cornell_animated": (lambda dev: scenes.cornell_box_animated(dev),
+                               kc.cornell_animated_frame),
+          "cornell_animated_bvh": (lambda dev: scenes.cornell_box_animated(
+              dev, spheres=True, use_bvh=True), kc.cornell_animated_bvh_frame),
+          "rtiow_bvh": (lambda dev: scenes.rtiow(n=kc.RTIOW_BVH_N, device=dev, use_bvh=True),
+                        kc.rtiow_bvh_frame)}
 
 
 def record_k4(render, first_block_only: bool = False):
-    """[(kernel name, its arguments)] of every regeneration and lit-shade
-    call made by one call of `render` (with `first_block_only`, those of the
-    frame's first block), the lane state copied as it was passed."""
+    """[(kernel name, its arguments)] of every regeneration and shade call
+    made by one call of `render` (with `first_block_only`, those of the
+    frame's first block: a shade belongs to the block of the regeneration
+    before it), the lane state copied as it was passed."""
     calls = []
     saved = {name: getattr(wf, name) for name in RECORDED}
+    block = [0]
 
     def recorder(name):
         def call(*args):
-            lanes = args[5] if name.startswith("regen") else None
-            if not (first_block_only and lanes is not None and lanes.blk > 0):
+            if name.startswith("regen"):
+                block[0] = args[5].blk
+            if not (first_block_only and block[0] > 0):
                 calls.append((name, kc.fresh_args(args)))
             return saved[name](*args)
         return call
@@ -78,9 +93,9 @@ def k4_rows(frame: str, render, device, n: int = 20, first_block_only: bool = Fa
     rows, step = [], dict.fromkeys(RECORDED, 0)
     for name, args in record_k4(render, first_block_only):
         fn = getattr(wf, name)
-        shade = name == "shade_lit"
-        plain = wf.shade_lit_plain if shade else wf.regen_plain
-        res = kc.check_call(fn, plain, args, lit_rows=shade)
+        shade = name in SHADES
+        plain = getattr(wf, f"{name}_plain") if shade else wf.regen_plain
+        res = kc.check_call(fn, plain, args, cast_rows=shade)
         err = max([0.0] + [v for v in res.values() if isinstance(v, float)])
         discrete = sum(v for v in res.values() if isinstance(v, int))
         ms = kc.time_restored_ms(fn, args, device, n)

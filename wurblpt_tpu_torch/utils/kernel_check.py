@@ -1157,14 +1157,15 @@ REGEN_OUT = ("state", "sample", "k_next", "t_max")
 SHADE_OUT = ("state", "shadow_o", "shadow_d", "shadow_tmax", "pending", "stats")
 
 
-def check_call(kernel, plain, args, lit_rows: bool = False,
+def check_call(kernel, plain, args, cast_rows: bool = False,
                exact_rows: bool = True) -> Dict[str, float]:
     """`kernel` against `plain` (a regeneration or a shade and their plain
     versions), each on its own copy of `args` (see `_compare`). A shade's
-    counters are compared too; with `lit_rows` (the lit shade) the shadow
-    t_max must be bit-equal on every row (`exact_rows`; else it is held as
-    any float field, for a build whose libm is not the card's) and the
-    shadow origins and directions are compared on the rows that cast only."""
+    counters are compared too; with `cast_rows` (the in-place shades, which
+    write a shadow ray only where it casts) the shadow t_max must be
+    bit-equal on every row (`exact_rows`; else it is held as any float
+    field, for a build whose libm is not the card's) and the shadow origins
+    and directions are compared on the rows that cast only."""
     regen = len(args) == 7
     names = REGEN_OUT if regen else SHADE_OUT
 
@@ -1175,11 +1176,11 @@ def check_call(kernel, plain, args, lit_rows: bool = False,
 
     got, ref = run(kernel), run(plain)
     if "shadow_tmax" in got:
-        if lit_rows and exact_rows:
+        if cast_rows and exact_rows:
             same = ((got["shadow_tmax"] == ref["shadow_tmax"])
                     | (torch.isnan(got["shadow_tmax"]) & torch.isnan(ref["shadow_tmax"])))
             assert bool(same.all()), f"shadow t_max differs on {int((~same).sum())} rows"
-        if lit_rows:
+        if cast_rows:
             cast = ((ref["shadow_tmax"] > 0) & (got["shadow_tmax"] > 0))[:, None]
             for f in ("shadow_o", "shadow_d"):
                 got[f], ref[f] = torch.where(cast, got[f], 0.0), torch.where(cast, ref[f], 0.0)
@@ -1200,7 +1201,7 @@ def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
     route = k4_route(inputs)
     res = {route.regen.__name__: check_call(route.regen, wf.regen_plain, inputs.regen),
            route.shade.__name__: check_call(route.shade, route.shade_plain, inputs.shade,
-                                            lit_rows=route.shade is wf.shade_lit)}
+                                            cast_rows=True)}
     names = ("acc", "work")
     res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
                                   _named(wf.nee_resolve_plain(*inputs.resolve), names), n)
@@ -1226,7 +1227,7 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     """(bytes, flops) of one K4 kernel on `inputs`: what each lane's branch
     reads, each input once, each output written once, the small tables once;
     the sizes are those of the tensors the kernel takes. The regenerations
-    and the lit shade update the lane state in place: a lane pays only the
+    and the shades update the lane state in place: a lane pays only the
     fields its branch reads and changes (`in_place=False`: the bound of the
     earlier kernels, which wrote every lane's whole state anew; the
     regeneration: each lane's flags and its old state where it is kept).
@@ -1235,19 +1236,11 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     lane's state, sample id and next sample index. Flops are tallies of
     the code per lane: the regeneration ~60 per regenerated lane (jitter, the
     pinhole ray, its rotation) plus the lens model's inverse (`LENS_FLOPS`,
-    per step of the OpenCV fixed point); the diffuse shade ~250 per lane
-    (emission, the cosine sample, light sample and pdf, the roulette) and 2 x
-    70 per light on RANDOM lanes of a mixture scene (counted with the plain
-    version); the env shade ~170 per lane (emission, the roulette) and 80
-    more for the sky sample where the sky is importance-sampled, per escaped
-    lane the sky's lookup (`SKY_LOOKUP_FLOPS`) and its pdf
-    (`SKY_PDF_FLOPS`, importance only), ~60 per Lambertian, ~350 per GGX
-    (the VNDF sample and two evaluations) and ~100 per glass hit (Fresnel,
-    refraction, four absorption exponentials), ~80 per RANDOM lane with
-    importance (the sky's lookup toward the sample, the weight); the lit
-    shade as `_lit_shade_work` says; the surround regeneration ~180 per
-    regenerated lane (four sines and cosines, two rotations); the resolve
-    one add per accumulator channel on each unoccluded row."""
+    per step of the OpenCV fixed point); the shades as `_diffuse_shade_work`,
+    `_env_shade_work` and `_lit_shade_work` say (in place) and their
+    `_copy_work` twins (the copy contract); the surround regeneration ~180
+    per regenerated lane (four sines and cosines, two rotations); the
+    resolve one add per accumulator channel on each unoccluded row."""
     if kernel in ("regen_pinhole", "regen_surround"):
         st, sample, k_next, cam, cfg, lanes, _ = inputs.regen
         n = st.active.shape[0]
@@ -1277,74 +1270,9 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     if kernel == "shade_lit":
         return _lit_shade_work(inputs) if in_place else _lit_shade_copy_work(inputs)
     if kernel == "shade_diffuse":
-        tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
-        n = st.active.shape[0]
-        hit = (prim >= 0) & st.active
-        weighted = hit & st.prev_random
-        every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
-                      st.opt_len, pixel, sample, hr.position]        # position: the shadow ray
-        read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
-                + int((~hit).sum()) * _lane_bytes(st.o)
-                + int(hit.sum()) * _lane_bytes(t, st.ior, hr.normal, hr.backside, hr.mat,
-                                               st.prev_random)
-                + int(weighted.sum()) * _lane_bytes(st.prev_pdf, hr.geom_normal
-                                                    if tables.per_light else st.prev_light_pdf))
-        written = n * _lane_bytes(*(getattr(st, f) for f in st._fields
-                                    if f not in ("ior", "stats")),
-                                  hr.position, t, st.acc)          # shadow d, t_max, pending
-        rows = [tables.mat, tables.light_tri, tables.light_mat, tables.light_w,
-                tables.alias_prob, tables.alias_idx]
-        if tables.per_light:
-            rows.append(tables.pick_area)
-        per_light = 0.0
-        if not tables.per_light:
-            args = list(inputs.shade)
-            args[3] = st._replace(stats=st.stats.clone())
-            from ..render import wavefront as wf
-
-            rnd = float(wf.shade_diffuse_plain(*args)[0].prev_random.sum())
-            per_light = 140.0 * tables.n_lights * rnd
-        return read + written + _table_bytes(rows) + 16, 250.0 * n + per_light
+        return _diffuse_shade_work(inputs) if in_place else _diffuse_shade_copy_work(inputs)
     if kernel == "shade_env":
-        from ..render import wavefront as wf
-
-        tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
-        env = tables.env
-        imp = env.importance
-        glass = MaterialType.GLASS in tables.mat_types
-        n = st.active.shape[0]
-        hit = (prim >= 0) & st.active
-        escaped = st.active & (prim < 0)
-        typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
-        ggx = hit & (typ == MaterialType.GGX)
-        lamb = hit & (typ == MaterialType.LAMBERTIAN)
-        n_glass = int((hit & (typ == MaterialType.GLASS)).sum())
-        args = list(inputs.shade)
-        args[3] = st._replace(stats=st.stats.clone())
-        n_random = float(wf.shade_env_plain(*args)[0].prev_random.sum()) if imp else 0.0
-        # The ray IOR: read on hit lanes (the optical path length); with glass
-        # on every lane, and written back.
-        every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
-                      st.opt_len, pixel, sample] + ([st.ior] if glass else [])
-        on_hit = [t, hr.position, hr.normal, hr.backside, hr.mat] + ([] if glass else [st.ior])
-        read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
-                + int((~hit).sum()) * _lane_bytes(st.o) + int(hit.sum()) * _lane_bytes(*on_hit)
-                + int(ggx.sum()) * _lane_bytes(hr.tangent))
-        if imp:     # the previous bsdf sample's flag and pdf: the MIS weight of a miss
-            read += (int(escaped.sum()) * _lane_bytes(st.prev_random)
-                     + int((escaped & st.prev_random).sum()) * _lane_bytes(st.prev_pdf))
-        out = [getattr(st, f) for f in st._fields
-               if f not in ("ior", "prev_light_pdf", "stats")] + ([st.ior] if glass else [])
-        if imp:
-            out += [hr.position, t, st.acc]                   # shadow d, t_max, pending
-        rows = ([env.const_radiance] if env.kind == 3 else [env.image, env.rotation])
-        if imp:
-            rows += [env.pdf_table, env.alias_prob, env.alias_idx]
-        escaped_flops = SKY_LOOKUP_FLOPS[env.kind] + (SKY_PDF_FLOPS if imp else 0.0)
-        flops = ((170.0 + 80.0 * imp) * n + escaped_flops * int(escaped.sum())
-                 + 60.0 * int(lamb.sum()) + 350.0 * int(ggx.sum()) + 100.0 * n_glass
-                 + 80.0 * n_random)
-        return (read + n * _lane_bytes(*out) + _table_bytes([tables.mat] + rows) + 16, flops)
+        return _env_shade_work(inputs) if in_place else _env_shade_copy_work(inputs)
     acc, pending, occluded, active, k_next, _ = inputs.resolve
     n, n_acc = acc.shape
     if pending is None:         # the loop condition alone
@@ -1353,6 +1281,212 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     read = (n * _lane_bytes(acc, active) + occluded.numel() * occluded.element_size()
             + n_open * _lane_bytes(pending) + int((~active).sum()) * _lane_bytes(k_next))
     return read + n * _lane_bytes(acc) + 4, float(n_open * n_acc)
+
+
+def _diffuse_shade_copy_work(inputs: K4Inputs):
+    """(bytes, flops) of the diffuse shade that wrote new state (the kernel
+    before the in-place contract) on `inputs`. Bytes: every lane's state,
+    sample id, pixel and hit position (its shadow ray's origin); the
+    primitive id on active lanes; t, the ray IOR, normal, backside,
+    material and the previous sample's flag on hit lanes; the origin where
+    the ray missed; the previous pdf with the geometric normal (per-light
+    MIS) or the previous mixture pdf on hit lanes whose flag is set; out
+    the next state but the ray IOR, and every lane's shadow direction,
+    t_max and pending deposit; the material and light rows once. Flops:
+    ~250 per lane (emission, the cosine sample, the light's sample and pdf,
+    the roulette) and 2 x 70 per light on RANDOM lanes of a mixture scene
+    (counted with the plain version)."""
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    n = st.active.shape[0]
+    hit = (prim >= 0) & st.active
+    weighted = hit & st.prev_random
+    every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
+                  st.opt_len, pixel, sample, hr.position]        # position: the shadow ray
+    read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
+            + int((~hit).sum()) * _lane_bytes(st.o)
+            + int(hit.sum()) * _lane_bytes(t, st.ior, hr.normal, hr.backside, hr.mat,
+                                           st.prev_random)
+            + int(weighted.sum()) * _lane_bytes(st.prev_pdf, hr.geom_normal
+                                                if tables.per_light else st.prev_light_pdf))
+    written = n * _lane_bytes(*(getattr(st, f) for f in st._fields
+                                if f not in ("ior", "stats")),
+                              hr.position, t, st.acc)          # shadow d, t_max, pending
+    rows = [tables.mat, tables.light_tri, tables.light_mat, tables.light_w,
+            tables.alias_prob, tables.alias_idx]
+    if tables.per_light:
+        rows.append(tables.pick_area)
+    per_light = 0.0
+    if not tables.per_light:
+        args = list(inputs.shade)
+        args[3] = st._replace(stats=st.stats.clone())
+        from ..render import wavefront as wf
+
+        rnd = float(wf.shade_diffuse_plain(*args)[0].prev_random.sum())
+        per_light = 140.0 * tables.n_lights * rnd
+    return read + written + _table_bytes(rows) + 16, 250.0 * n + per_light
+
+
+def _env_shade_copy_work(inputs: K4Inputs):
+    """(bytes, flops) of the env shade that wrote new state (the kernel
+    before the in-place contract) on `inputs`. Bytes: every lane's state,
+    sample id and pixel (and ray IOR with glass, read and written back);
+    the primitive id on active lanes; t, position, normal, backside,
+    material (and the ray IOR without glass) on hit lanes, the tangent on
+    GGX hits; the origin where the ray missed; with importance tables the
+    previous sample's flag on escaped lanes and its pdf where the flag is
+    set, and every lane's shadow direction, t_max and pending deposit; out
+    the next state but the mixture pdf; the material rows and the sky once.
+    Flops: ~170 per lane (emission, the roulette) and 80 more for the sky
+    sample with importance tables, per escaped lane the sky's lookup
+    (`SKY_LOOKUP_FLOPS`) and pdf (`SKY_PDF_FLOPS`, importance only), the
+    sample per hit lane (~60 Lambertian, ~350 GGX, ~100 glass) and ~80 per
+    RANDOM lane with importance tables (the sky's lookup toward the sample,
+    the weight)."""
+    from ..render import wavefront as wf
+
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    env = tables.env
+    imp = env.importance
+    glass = MaterialType.GLASS in tables.mat_types
+    n = st.active.shape[0]
+    hit = (prim >= 0) & st.active
+    escaped = st.active & (prim < 0)
+    typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+    ggx = hit & (typ == MaterialType.GGX)
+    lamb = hit & (typ == MaterialType.LAMBERTIAN)
+    n_glass = int((hit & (typ == MaterialType.GLASS)).sum())
+    args = list(inputs.shade)
+    args[3] = st._replace(stats=st.stats.clone())
+    n_random = float(wf.shade_env_plain(*args)[0].prev_random.sum()) if imp else 0.0
+    # The ray IOR: read on hit lanes (the optical path length); with glass
+    # on every lane, and written back.
+    every_lane = [st.active, st.bounce, st.d, st.throughput, st.acc, st.geom_len,
+                  st.opt_len, pixel, sample] + ([st.ior] if glass else [])
+    on_hit = [t, hr.position, hr.normal, hr.backside, hr.mat] + ([] if glass else [st.ior])
+    read = (n * _lane_bytes(*every_lane) + int(st.active.sum()) * _lane_bytes(prim)
+            + int((~hit).sum()) * _lane_bytes(st.o) + int(hit.sum()) * _lane_bytes(*on_hit)
+            + int(ggx.sum()) * _lane_bytes(hr.tangent))
+    if imp:     # the previous bsdf sample's flag and pdf: the MIS weight of a miss
+        read += (int(escaped.sum()) * _lane_bytes(st.prev_random)
+                 + int((escaped & st.prev_random).sum()) * _lane_bytes(st.prev_pdf))
+    out = [getattr(st, f) for f in st._fields
+           if f not in ("ior", "prev_light_pdf", "stats")] + ([st.ior] if glass else [])
+    if imp:
+        out += [hr.position, t, st.acc]                   # shadow d, t_max, pending
+    rows = ([env.const_radiance] if env.kind == 3 else [env.image, env.rotation])
+    if imp:
+        rows += [env.pdf_table, env.alias_prob, env.alias_idx]
+    escaped_flops = SKY_LOOKUP_FLOPS[env.kind] + (SKY_PDF_FLOPS if imp else 0.0)
+    flops = ((170.0 + 80.0 * imp) * n + escaped_flops * int(escaped.sum())
+             + 60.0 * int(lamb.sum()) + 350.0 * int(ggx.sum()) + 100.0 * n_glass
+             + 80.0 * n_random)
+    return (read + n * _lane_bytes(*out) + _table_bytes([tables.mat] + rows) + 16, flops)
+
+
+def _diffuse_shade_work(inputs: K4Inputs):
+    """(bytes, flops) of the diffuse shade in place on `inputs`, by branch.
+    Every lane reads its active flag. A dead lane writes its previous
+    sample's pdf, flag and mixture pdf and its idle shadow row (t_max and
+    pending deposit): 25 B. Every lane reads its primitive id beside the
+    flag (one round trip). An escaped lane reads its deposits and bounce index and writes them, its
+    end, its previous-sample fields and its idle row. A hit lane reads its
+    bounce index, t, direction, deposits, normal, position, throughput,
+    ray IOR, backside, material, path lengths and the previous sample's
+    flag (where it is set the pdf and the geometric normal (per-light MIS)
+    or the mixture pdf), on a Lambertian hit its pixel and sample id; it
+    writes its deposits, bounce index, origin, path lengths, end and
+    previous-sample fields, on a RANDOM lane its direction, throughput and
+    shadow ray (direction, t_max, pending deposit), else its idle row. The
+    material and light rows once. Flops: ~150 per hit lane (emission, two
+    uniforms, the cosine sample, the roulette), ~100 per RANDOM lane (a
+    uniform, the light's sample, its weight and deposit) and 2 x 70 per
+    light there in a mixture scene."""
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    n = st.active.shape[0]
+    dead, escaped, hit, random, _, typ = _shade_lanes(inputs)
+    count = lambda m: int(m.sum())  # noqa: E731
+    flags = _lane_bytes(st.prev_pdf, st.prev_random, st.prev_light_pdf)
+    idle_row = _lane_bytes(t, st.acc)                           # t_max and pending
+    weighted = hit & st.prev_random
+    n_bytes = (n * _lane_bytes(st.active, prim)
+               + count(dead) * (flags + idle_row)
+               + count(escaped) * (2 * _lane_bytes(st.acc, st.bounce)
+                                   + _lane_bytes(st.active) + flags + idle_row)
+               + count(hit) * (_lane_bytes(st.bounce, t, st.d, st.acc, hr.normal, hr.position,
+                                           st.throughput, st.ior, hr.backside, hr.mat,
+                                           st.geom_len, st.opt_len, st.prev_random)
+                               + _lane_bytes(st.acc, st.bounce, st.o, st.opt_len, st.geom_len,
+                                             st.active) + flags)
+               + count(weighted) * _lane_bytes(st.prev_pdf, hr.geom_normal if tables.per_light
+                                               else st.prev_light_pdf)
+               + count(hit & (typ == MaterialType.LAMBERTIAN)) * _lane_bytes(pixel, sample)
+               + count(random) * _lane_bytes(st.d, st.throughput, hr.position, t, st.acc)
+               + count(hit & ~random) * idle_row)
+    rows = [tables.mat, tables.light_tri, tables.light_mat, tables.light_w,
+            tables.alias_prob, tables.alias_idx] + ([tables.pick_area] if tables.per_light else [])
+    flops = (150.0 * count(hit) + 100.0 * count(random)
+             + (0.0 if tables.per_light else 140.0 * tables.n_lights * count(random)))
+    return n_bytes + _table_bytes(rows) + 16, flops
+
+
+def _env_shade_work(inputs: K4Inputs):
+    """(bytes, flops) of the env shade in place on `inputs`, by branch.
+    Every lane reads its active flag and primitive id (side by side). A
+    dead lane writes its previous sample's pdf and flag, with importance
+    tables its idle shadow row. An escaped lane reads its bounce
+    index, direction, throughput, deposits and optical path length, with
+    importance tables the previous sample's flag (and the pdf where it is
+    set: the sky's MIS weight); it writes its deposits, bounce index, end,
+    previous sample's pdf and flag (and its idle row). A hit lane reads its
+    bounce index, t, direction, deposits, normal, position, throughput, ray
+    IOR, backside, material, path lengths, pixel and sample id (the tangent
+    on a GGX hit) and writes its deposits, bounce index, origin, path
+    lengths, end, pdf and flag, where it scatters its direction and
+    throughput, on a glass hit its ray IOR, and with importance tables its
+    shadow ray (direction, t_max, pending deposit) on a RANDOM lane, else
+    its idle row. No lane writes the mixture pdf. The material rows and the
+    sky once. Flops: ~170 per hit lane (emission, two uniforms, the
+    roulette), the sample per hit lane and type (`LIT_SAMPLE_FLOPS`), per
+    escaped lane the sky's lookup (and pdf), per RANDOM lane with
+    importance tables ~160 (the sky's sample, its lookup, the weight) and a
+    bsdf evaluation of its type (`LIT_EVAL_FLOPS`)."""
+    tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
+    env = tables.env
+    imp = env.importance
+    n = st.active.shape[0]
+    dead, escaped, hit, random, cont, typ = _shade_lanes(inputs)
+    count = lambda m: int(m.sum())  # noqa: E731
+    flags = _lane_bytes(st.prev_pdf, st.prev_random)
+    idle_row = _lane_bytes(t, st.acc) if imp else 0            # t_max and pending
+    n_bytes = (n * _lane_bytes(st.active, prim)
+               + count(dead) * (flags + idle_row)
+               + count(escaped) * (_lane_bytes(st.bounce, st.d, st.throughput, st.acc, st.opt_len)
+                                   + _lane_bytes(st.acc, st.bounce, st.active) + flags + idle_row)
+               + count(hit) * (_lane_bytes(st.bounce, t, st.d, st.acc, hr.normal, hr.position,
+                                           st.throughput, st.ior, hr.backside, hr.mat,
+                                           st.geom_len, st.opt_len, pixel, sample)
+                               + _lane_bytes(st.acc, st.bounce, st.o, st.opt_len, st.geom_len,
+                                             st.active) + flags)
+               + count(hit & (typ == MaterialType.GGX)) * _lane_bytes(hr.tangent)
+               + count(cont) * _lane_bytes(st.d, st.throughput)
+               + count(hit & (typ == MaterialType.GLASS)) * _lane_bytes(st.ior))
+    if imp:
+        n_bytes += (count(escaped) * _lane_bytes(st.prev_random)
+                    + count(escaped & st.prev_random) * _lane_bytes(st.prev_pdf)
+                    + count(random) * _lane_bytes(hr.position, t, st.acc)
+                    + count(hit & ~random) * idle_row)
+    rows = [tables.mat] + ([env.const_radiance] if env.kind == 3 else [env.image, env.rotation])
+    if imp:
+        rows += [env.pdf_table, env.alias_prob, env.alias_idx]
+    flops = (170.0 * count(hit)
+             + (SKY_LOOKUP_FLOPS[env.kind] + (SKY_PDF_FLOPS if imp else 0.0)) * count(escaped))
+    for mt, f in LIT_SAMPLE_FLOPS.items():
+        flops += f * count(hit & (typ == mt))
+    if imp:
+        flops += 160.0 * count(random)
+        for mt, f in LIT_EVAL_FLOPS.items():
+            flops += f * count(random & (typ == mt))
+    return n_bytes + _table_bytes(rows) + 16, flops
 
 
 # Float operations of the lit shade: per hit lane of each material type
@@ -1364,9 +1498,9 @@ LIT_SAMPLE_FLOPS = {1: 60.0, 2: 350.0, 3: 100.0, 4: 10.0, 5: 150.0, 10: 900.0}
 LIT_EVAL_FLOPS = {1: 10.0, 2: 100.0, 5: 50.0, 10: 450.0}
 
 
-def _lit_lanes(inputs: K4Inputs):
-    """(dead, escaped, hit, RANDOM, scattering, material type) lanes of the
-    lit shade's inputs: the plain version's bsdf sample of every hit lane."""
+def _shade_lanes(inputs: K4Inputs):
+    """(dead, escaped, hit, RANDOM, scattering, material type) lanes of a
+    shade's inputs: the plain version's bsdf sample of every hit lane."""
     from ..core.rng import Salt, uniform4
     from ..render.bsdf import ScatterKind, bsdf_sample, gather_material_rows
 
@@ -1408,7 +1542,7 @@ def _lit_shade_work(inputs: K4Inputs):
     tables, _, _, st, pixel, sample, t, prim, hr = inputs.shade
     env = tables.env
     n = st.active.shape[0]
-    dead, escaped, hit, random, cont, typ = _lit_lanes(inputs)
+    dead, escaped, hit, random, cont, typ = _shade_lanes(inputs)
     framed = hit & ((typ == MaterialType.GGX) | (typ == MaterialType.RGL))
     count = lambda m: int(m.sum())  # noqa: E731
     idle_rows = 2 * _lane_bytes(t, st.acc)                    # t_max and pending, both rows
