@@ -19,8 +19,9 @@ Phases, each a function, any failure exits non-zero and names its phase:
    (one riding the short box's turn), and ROADMAP C.1's brute-force fields:
    sphere_field() with 3000 and 4096 spheres (the K1 form's 6144 and 8192
    columns) and tri_sphere_field() (2000 triangles and 40 spheres, 8448
-   columns: the sweeps), and tri_sphere_field(2048, 0) (8192 columns: K1's
-   largest table, 128 KB); and the two scenes cast through a BVH with sphere
+   columns: the sweeps), tri_sphere_field(2048, 0) (8192 columns: K1's
+   largest table, 128 KB) and tri_sphere_field(3600, 40) (a sweep table
+   KS1 stages in chunks); and the two scenes cast through a BVH with sphere
    and object-space leaves: rtiow(n=22, use_bvh=True) (the reference's
    full RTIOW field, 488 spheres) and cornell_box_animated(spheres=True,
    use_bvh=True) (36 triangles and 2 spheres, the boxes swept at t = 0.5).
@@ -47,7 +48,15 @@ Phases, each a function, any failure exits non-zero and names its phase:
    the axis, diagonal, face-edge and texel-boundary directions) and on the
    constant map, both bit-equal. K1, K2 and K3 also on the C.1 sphere
    fields' 98304 camera rays (3000 and 4096 spheres; K2 on shadow rays from
-   their first hits to random sky directions). K1 and K2 also on the
+   their first hits to random sky directions). K2 also on its edge cases
+   (kernel_check.k2_edge_sets: every lane dead, one live lane, blockers
+   that are the table's last triangle or last sphere, rays at the tests'
+   edges: triangle edges and corners, |det| about 1e-12, t_max and t_min at
+   a hit's distance or a float either side), and KS1 on its own
+   (kernel_check.ks1_edge_sets: the same lanes, ties across the threads of
+   one ray, animation ids that change at every primitive, 12 animation
+   rows, edges on the static walls) and on a 3600-triangle field that it
+   stages in chunks. K1 and K2 also on the
    2048-triangle field's camera rays (K1 with half of them dead too) and
    sky shadow rays, and on the Cornell block's camera and shadow rays and
    rtiow's camera rays with dead lanes scattered at the K1 frames' live
@@ -158,9 +167,10 @@ regeneration is timed only on lanes that regenerate. K5 and K6 are also
 held against their plain versions (bit-equal) and timed beside their bound
 at every cast of the mesh frame (4 steps), the city frame (2 blocks of 4
 steps), the rtiow_bvh frame and the cornell_animated_bvh frame, on the
-rays each step gives, with each cast's live lanes (`utils/cast_steps.py`,
-which also times K1 and K2 per cast on the Cornell, ToF, envmap and rtiow
-frames when run alone); the lit shade and the surround regeneration at
+rays each step gives, with each cast's live lanes (`utils/cast_steps.py`),
+and so are K1 and K2 at every cast of the Cornell, ToF, envmap and rtiow
+frames and KS1 and KS2 at every cast of the cornell_animated frame; the
+lit shade and the surround regeneration at
 every step of the city frame and the regeneration and the diffuse or env
 shade at every step of the other eight frames' first block likewise, with
 their live and regenerated lanes and their bounds in place and copying
@@ -487,7 +497,8 @@ def phase_kernels(scenes_on_card):
           **{f"{k}-sphere field sky shadow": (f[0], f[2]) for k, f in fields.items()},
           "2048-triangle field sky shadow": (tri_bs, tri_shadow),
           **{f"shadow, {round(100 * (1 - x))} % of the lanes dead, scattered":
-             (bs, kc.scatter_dead(shadow, 1 - x)) for x in LIVE_SHARES}}),
+             (bs, kc.scatter_dead(shadow, 1 - x)) for x in LIVE_SHARES},
+          **{f"edge: {k}": v for k, v in kc.k2_edge_sets(DEVICE).items()}}),
         ("assemble_hit", lambda b, h, r: kc.check_assemble_hit(b, h, r),
          {"camera": (bs, ht, cam), "random": (bs, ht, rnd),
           "rtiow camera, spheres only": (rt_bs, rt_ht, rt_cam),
@@ -649,9 +660,15 @@ def _sweep_records(scenes_on_card, fcam, errs):
     ss, ht, fr, _, shadow = sets["cornell_animated"]
     sets["cornell_animated random"] = (ss, ht, fr, rnd, rnd)
     assemble = lambda v: kc.check_assemble_hit_sweep(v[0], v[1], v[3], v[2])  # noqa: E731
+    # KS1's edges, and a static table past what it stages whole (chunks)
+    edges = {f"edge: {k}": ((ss_, None, fr_, rays_, None),)
+             for k, (ss_, rays_, fr_) in kc.ks1_edge_sets(DEVICE).items()}
+    big = sw.build_sweep_scene(scenes_on_card["tri_field 3600"])
+    edges["3600-triangle field camera, half the lanes dead (chunks)"] = (
+        (big, None, None, kc.scatter_dead(fcam, 0.5), None),)
     sweep_errs = _run_checks((
         ("sweep_closest", lambda v: kc.check_sweep_closest(v[0], v[3], v[2]),
-         {k: (v,) for k, v in sets.items()}),
+         {**{k: (v,) for k, v in sets.items()}, **edges}),
         ("sweep_any", lambda v: kc.check_sweep_any(v[0], v[4], v[2]),
          {(k if k.endswith("random") else k + " shadow"): (v,) for k, v in sets.items()}),
         ("assemble_hit_anim", assemble,
@@ -819,19 +836,26 @@ def _k4_records(scenes_on_card):
 def _frame_casts(scenes_on_card):
     """K5 and K6 at every cast of the mesh frame (4 steps), the city frame
     (2 blocks of 4 steps), the rtiow_bvh frame and the cornell_animated_bvh
-    frame, on the rays each step really gives: each cast held against its
-    plain version (bit-equal), its wrapper-call time beside the bound of the
-    same work (kc.bvh_work), with its lanes and live lanes."""
+    frame, K1 and K2 at every cast of the Cornell, ToF, envmap and rtiow
+    frames, and KS1 and KS2 at every cast of the cornell_animated frame, on
+    the rays each step really gives: each cast held against its plain
+    version (bit-equal), its time beside the bound of the same work
+    (kc.bvh_work, kc.closest_hit_work / any_hit_work, kc.sweep_work), with
+    its lanes and live lanes (K5/K6 by the wrapper call, the others by
+    kc.device_ms)."""
     from wurblpt_tpu_torch.utils import cast_steps
 
     for frame, make in (("mesh", kc.mesh_frame), ("city", kc.city_frame),
                         ("rtiow_bvh", kc.rtiow_bvh_frame),
-                        ("cornell_animated_bvh", kc.cornell_animated_bvh_frame)):
-        render = make(DEVICE, scenes_on_card[frame])
+                        ("cornell_animated_bvh", kc.cornell_animated_bvh_frame),
+                        ("cornell", lambda dev, _: kc.bench_frame(dev)), ("tof", kc.tof_frame),
+                        ("envmap", kc.envmap_frame), ("rtiow", kc.rtiow_frame),
+                        ("cornell_animated", kc.cornell_animated_frame)):
+        render = make(DEVICE, scenes_on_card.get(frame))
         render()
         rows = cast_steps.cast_rows(frame, render, DEVICE)
         for r in rows:
-            print(f"kernels: {cast_steps.format_row(r)}, bit-equal to the plain walk")
+            print(f"kernels: {cast_steps.format_row(r)}, bit-equal to the plain version")
         for line in cast_steps.summary(rows):
             print(f"kernels: {line}")
 
@@ -883,15 +907,19 @@ def _count_launches(render):
     {hand-written kernel: (device us per launch, launches)}) of one frame
     rendered under torch.profiler; a step is one closest-hit cast, the
     device time the sum over its kernels, copies and memsets. The
-    profiler at times loses events, most often on short frames: a profile in
-    which it saw another number of the port's kernels than the wrappers
-    launched (native.LAUNCHES) is taken again, up to PROFILE_TRIES times; if
-    none saw them all, the phase fails rather than gate on an undercount."""
+    profiler at times loses events, most often on short frames and late in
+    a process: a profile in which it saw another number of the port's
+    kernels than the wrappers launched (native.LAUNCHES) is taken again, up
+    to PROFILE_TRIES times, and of two profiles that saw them all the one
+    with more launches counts (a lost event only ever lowers the count, of
+    the port's kernels or PyTorch's); if none saw them all, the phase fails
+    rather than gate on an undercount."""
     from torch.profiler import ProfilerActivity, profile
 
     from wurblpt_tpu_torch import native
     from wurblpt_tpu_torch.utils.profile_frame import OURS
 
+    best, complete = None, 0
     for _ in range(PROFILE_TRIES):
         native.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -899,15 +927,24 @@ def _count_launches(render):
         device = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         seen = sum(e.count for e in device if any(k in e.key for k in OURS))
-        if seen == sum(native.LAUNCHES.values()):
+        if seen != sum(native.LAUNCHES.values()):
+            print(f"profiler: saw {seen} of the {sum(native.LAUNCHES.values())} launches of the "
+                  f"port's kernels; profiling the frame again")
+            continue
+        copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
+        kernels = sum(e.count for e in device) - copies
+        if best is not None and (kernels, copies) != best[:2]:
+            print(f"profiler: {kernels} kernel launches and {copies} copies/memsets against "
+                  f"{best[0]} and {best[1]} in another profile of the frame; the larger counts")
+        if best is None or (kernels, copies) > best[:2]:
+            best = (kernels, copies, device)
+        complete += 1
+        if complete == 2:
             break
-        print(f"profiler: saw {seen} of the {sum(native.LAUNCHES.values())} launches of the "
-              f"port's kernels; profiling the frame again")
-    else:
+    if best is None:
         raise AssertionError(f"profiler: lost events in all {PROFILE_TRIES} profiles; the "
                              f"frame's launches and device time are not measured")
-    copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
-    kernels = sum(e.count for e in device) - copies
+    kernels, copies, device = best
     device_us = {e.key: (getattr(e, "self_device_time_total", None)
                          or getattr(e, "self_cuda_time_total", 0), e.count) for e in device}
     device_ms = sum(us for us, _ in device_us.values()) / 1e3
@@ -1104,6 +1141,8 @@ def phase_scenes():
                          ("tri_sphere_field", lambda: scenes.tri_sphere_field(device=DEVICE)),
                          ("tri_field 2048",
                           lambda: scenes.tri_sphere_field(2048, 0, device=DEVICE)),
+                         ("tri_field 3600",
+                          lambda: scenes.tri_sphere_field(3600, 40, device=DEVICE)),
                          ("rtiow_bvh", lambda: scenes.rtiow(n=kc.RTIOW_BVH_N, device=DEVICE,
                                                             use_bvh=True)),
                          ("cornell_animated_bvh", lambda: scenes.cornell_box_animated(

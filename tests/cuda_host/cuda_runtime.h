@@ -1,9 +1,10 @@
 // Host stand-in for the CUDA pieces that csrc/bvh_common.cuh, the device
-// code of csrc/wavefront.cu and of the brute-force casts and the row gather
-// use, so that these kernels compile with g++ and run on the CPU: one block at a time, one std::thread
-// per CUDA thread, the warp intrinsics through a barrier per warp (every
-// thread of a warp calls them in the same order), __syncthreads through a
-// barrier per block, shared memory as statics of the running block.
+// code of csrc/wavefront.cu, of the brute-force casts and sweeps and of the
+// row gather use, so that these kernels compile with g++ and run on the
+// CPU: one block at a time, one std::thread per CUDA thread, the warp
+// intrinsics through a barrier per warp (every thread of a warp calls them
+// in the same order), __syncthreads through a barrier per block, shared
+// memory as statics of the running block.
 // Arithmetic is the host's IEEE float32 with -ffp-contract=off, as the
 // kernels' -fmad=false; sinf, cosf, powf and the like are the host's libm.
 #pragma once
@@ -85,6 +86,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
     return m;
 }
 inline bool __all_sync(unsigned, bool p) { return __ballot_sync(0xffffffffu, p) == 0xffffffffu; }
+inline bool __any_sync(unsigned, bool p) { return __ballot_sync(0xffffffffu, p) != 0u; }
 inline int __shfl_sync(unsigned, int v, int src) {
     unsigned all[32];
     exchange(static_cast<unsigned>(v), all);

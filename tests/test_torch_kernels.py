@@ -517,6 +517,32 @@ def test_cast_steps_record_the_brute_force_casts():
             n * (8 + extra) + live * 24 + bs.tri.numel() * 4 + bs.sph.numel() * 4)
 
 
+def test_cast_steps_record_the_sweep_casts():
+    """cast_steps records KS1's and KS2's calls of the animated frame as the
+    render makes them, with the frame's animation rows: a closest cast per
+    step, whose live lanes sum to the frame's first counter, each followed
+    by its shadow rays' any-hit cast; their bounds count the live lanes."""
+    scene = scenes.cornell_box_animated("cpu")
+    render = kc.cornell_animated_frame("cpu", scene, depth=4, width=16, ssqrt=1)
+    _, stats = render()
+    assert "cornell_animated" in cast_steps.SWEEP_FRAMES
+    casts = cast_steps.record_casts(render, intersect, cast_steps.SWEEP_CASTS)
+    names = [c[0] for c in casts]
+    assert names == ["closest_sweep", "any_sweep"] * (len(names) // 2) and len(names) >= 6
+    closest = [c for c in casts if c[0] == "closest_sweep"]
+    assert sum(int((r[3] > r[2]).sum()) for _, _, r, _ in closest) == int(stats[0])
+    for name, ss, rays, frames in casts:
+        assert frames is not None and frames.shape[0] == ss.n_anims == 4
+        check = kc.check_sweep_any if name == "any_sweep" else kc.check_sweep_closest
+        check(ss, rays, frames)
+        live = int((rays[3] > rays[2]).sum())
+        n = rays[0].shape[0]
+        extra = 1 if name == "any_sweep" else 16
+        assert kc.sweep_work(ss, rays, frames, any_hit=name == "any_sweep")[0] == (
+            n * (8 + extra) + live * 24 + 40 * ss.n_tris + 20 * ss.n_spheres
+            + frames.numel() * 4)
+
+
 def test_rgl_and_row_gather_wrappers_take_the_plain_version_on_cpu():
     tables = _rgl_tables("cpu", True)
     lanes = _rgl_random_lanes(512, tables.count, "cpu")
@@ -836,9 +862,9 @@ def test_assemble_hit_kernel_matches_plain_on_the_sweeps(gpu, which, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_spheres", [3000, 4096])
 def test_k1_k2_hold_the_k1_forms_largest_sphere_scenes(gpu, n_spheres):
-    """4096 spheres fill the K1 form's 8192 columns: K1 stages their 64 KB
-    in shared memory whole, as it stages the Cornell box's 36 triangles; K2
-    in chunks."""
+    """4096 spheres fill the K1 form's 8192 columns: K1 and K2 stage their
+    64 KB in shared memory whole, as they stage the Cornell box's 36
+    triangles."""
     scene = scenes.sphere_field(n_spheres, device=gpu)
     assert intersect_brute.brute_eligible(scene)
     bs = intersect_brute.build_brute_scene(scene)
@@ -850,6 +876,93 @@ def test_k1_k2_hold_the_k1_forms_largest_sphere_scenes(gpu, n_spheres):
     assert 0 < res["occluded"] < res["lanes"]
     kc.check_assemble_hit(bs, intersect.build_hit_tables(scene), cam)
     torch.cuda.synchronize()
+
+
+K2_EDGES = ("every lane dead", "one live lane", "blocker last, triangle",
+            "blocker last, sphere", "edges")
+KS1_EDGES = ("every lane dead", "one live lane", "ties across split threads",
+             "interleaved animation ids", "12 animation rows", "edges")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_EDGES)
+def test_k2_bit_equal_on_its_edge_cases(gpu, case):
+    """K2's queue, its split threads that stop together at a ray's first
+    blocker, and its range-first test, on the edges of each
+    (kernel_check.k2_edge_sets): the same bit on every lane."""
+    bs, rays = kc.k2_edge_sets(gpu)[case]
+    before = native.LAUNCHES["any_hit"]
+    res = kc.check_any_hit(bs, rays)
+    assert res["differ"] == 0 and native.LAUNCHES["any_hit"] == before + 1
+    if case.startswith("blocker last"):
+        assert res["occluded"] == res["lanes"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KS1_EDGES + ("3600 triangles, chunked",))
+def test_ks1_bit_equal_on_its_edge_cases(gpu, case):
+    """KS1's queue, split walk and object rays on the edges of each
+    (kernel_check.ks1_edge_sets), and a static table too large to stage
+    whole (3600 triangles and 40 spheres, 184 KB: chunks): t, prim, u and v
+    equal bit for bit on every lane."""
+    if case == "3600 triangles, chunked":
+        ss = intersect_sweep.build_sweep_scene(scenes.tri_sphere_field(3600, 40, device=gpu))
+        rays, frames = kc.scatter_dead(kc.field_camera_lanes(gpu), 0.5), None
+    else:
+        ss, rays, frames = kc.ks1_edge_sets(gpu)[case]
+    before = native.LAUNCHES["sweep_closest"]
+    res = kc.check_sweep_closest(ss, rays, frames)
+    assert native.LAUNCHES["sweep_closest"] == before + 1
+    assert (res["hits"] == 0) == (case == "every lane dead")
+    torch.cuda.synchronize()
+
+
+def test_edge_sets_reach_the_edges_they_name():
+    """The edge cases the kernels are held to on the card exist in the rays
+    (checked here with the plain versions): grazing pairs with |det| on
+    both sides of 1e-12, pairs with u or v exactly 0, bounds one float from
+    a hit that keep it or drop it, blockers at the table's end, every lane
+    of the tie set tied, animation ids that change at every primitive."""
+    k2 = kc.k2_edge_sets("cpu", 512)
+    bs, rays = k2["edges"]
+    _, det, _, _, _ = intersect_brute._tri_terms(bs, *rays)
+    ad = det.abs()
+    assert int(((ad > 1e-12) & (ad < 4e-12)).sum()) > 0
+    assert int(((ad <= 1e-12) & (ad > 0.5e-12)).sum()) > 0
+    for case in ("blocker last, triangle", "blocker last, sphere"):
+        bs, rays = k2[case]
+        valid = torch.cat([intersect_brute._tri_terms(bs, *rays)[0],
+                           intersect_brute._sphere_terms(bs, *rays)[0]], 1)
+        last = valid[:, -1] if bs.n_spheres else valid[:, bs.n_tris - 1]
+        assert bool(last.all()) and int((valid.sum(1) == 1).sum()) > 256
+    bs, rays = k2["one live lane"]
+    assert int((rays[3] > 0).sum()) == 1
+    assert int(intersect_brute.any_hit_plain(bs, *rays).sum()) == 1
+    ks1 = kc.ks1_edge_sets("cpu", 512)
+    ss, rays, frames = ks1["edges"]
+    o, d, t_min, t_max = rays
+    obj = intersect_sweep._object_rays(ss, o, d, frames)
+    oi, di = intersect_sweep._rays_of(o, d, obj, ss.tri_anim)
+    _, u, v, _ = intersect_sweep.ray_tri_tile(oi, di, ss.tri[:, 0:3], ss.tri[:, 4:7],
+                                              ss.tri[:, 8:11], t_min, t_max)
+    assert int(((u == 0) | (v == 0)).sum()) > 0
+    free = intersect_sweep.closest_sweep_plain(ss, o, d, torch.full_like(t_min, kc.MIN_HIT),
+                                               torch.full_like(t_max, kc.BIG), frames)[1]
+    bound = intersect_sweep.closest_sweep_plain(ss, *rays, frames)[1]
+    for lanes in (slice(256, 384), slice(384, 512)):   # t_max, then t_min, at a hit's t
+        moved = int((bound[lanes] != free[lanes]).sum())
+        assert 0 < moved < int((free[lanes] >= 0).sum())
+    ss, rays, _ = ks1["ties across split threads"]
+    live = rays[3] > rays[2]
+    t, _, _, valid = intersect_sweep.ray_tri_tile(rays[0], rays[1], ss.tri[:, 0:3],
+                                                  ss.tri[:, 4:7], ss.tri[:, 8:11], *rays[2:])
+    c = torch.sort(torch.where(valid, t, kc.BIG), 1).values
+    assert bool((c[live, 0] == c[live, 1]).all()) and int(live.sum()) == 64
+    ss, _, _ = ks1["interleaved animation ids"]
+    assert bool((ss.tri_anim[1:] != ss.tri_anim[:-1]).all())
+    ss, _, frames = ks1["12 animation rows"]
+    assert ss.n_anims == 12 == frames.shape[0]
 
 
 @pytest.mark.cuda

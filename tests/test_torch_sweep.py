@@ -21,7 +21,10 @@ route of ROADMAP C.1.
   AVX-512 kernel here) is not correctly rounded on ~0.6 % of inputs, the
   host's sqrtf and the card's are, and the sphere uv's atan2f/asinf are the
   host's libm. On the card kernel and plain version agree bit for bit
-  (tests/test_torch_kernels.py).
+  (tests/test_torch_kernels.py). KS1's live-lane queue and split walk also
+  on the cases of `test_ks1_queue_on_the_host_matches_the_plain_version`
+  (triangle winners bit for bit), built as it is and again with a table
+  that never fits (chunks of 16 primitives).
 * C.1's two example scenes, built by the JAX package with use_bvh=False and
   by the port: 3000 spheres (the K1 form, 6144 columns) and 2000 triangles
   with 40 spheres (8448 columns: the sweeps). Each is cast and rendered
@@ -29,6 +32,7 @@ route of ROADMAP C.1.
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 import sys
@@ -218,24 +222,33 @@ def test_plain_assembly_matches_jax_assemble_hit(which):
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     """The kernels' device code built with g++ (tests/cuda_host/sweep.cpp):
-    the sweeps in one library, K3/K3a in another."""
+    the sweeps in one library, K3/K3a in another; "sweep chunked" the
+    sweeps again with KS1's table in chunks of 16 primitives."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++")
-    out = tmp_path_factory.mktemp("sweep")
-    for name in ("sweep_closest", "sweep_any", "assemble_hit"):
-        src = (SRC_DIR / f"{name}.cu").read_text()
-        (out / f"{name}_device.cuh").write_text(src[:src.index('extern "C"')])
+    dynamic = ("extern __shared__ float4 s_rows[];", "static float4 s_rows[131072 / 16];")
+    chunked = (dynamic, ("STAGE_MAX = 131072;", "STAGE_MAX = 1024;"),
+               ("KS1_CHUNK = 256;", "KS1_CHUNK = 16;"))
     libs = {}
-    for key, flags in (("sweep", []), ("k3", ["-DK3A"])):
-        lib = out / f"lib{key}.so"
+    for key, flags, subs in (("sweep", [], (dynamic,)), ("k3", ["-DK3A"], ()),
+                             ("sweep chunked", [], chunked)):
+        out = tmp_path_factory.mktemp(key.replace(" ", "_"))
+        for name in ("sweep_closest", "sweep_any", "assemble_hit"):
+            src = (SRC_DIR / f"{name}.cu").read_text()
+            for old, new in subs if name == "sweep_closest" else ():
+                assert old in src
+                src = src.replace(old, new)
+            (out / f"{name}_device.cuh").write_text(src[:src.index('extern "C"')])
+        lib = out / f"lib{key.replace(' ', '_')}.so"
         subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
                         "-pthread", *flags, f"-I{out}", f"-I{HOST}", f"-I{SRC_DIR}", "-o",
                         str(lib), str(HOST / "sweep.cpp")], check=True)
         libs[key] = ctypes.CDLL(str(lib))
     sig = native._SIGNATURES
-    libs["sweep"].host_sweep_closest.argtypes = sig["wpt_sweep_closest"][:-1]
-    libs["sweep"].host_sweep_any.argtypes = sig["wpt_sweep_any"][:-1]
+    for key in ("sweep", "sweep chunked"):
+        libs[key].host_sweep_closest.argtypes = sig["wpt_sweep_closest"][:-1]
+        libs[key].host_sweep_any.argtypes = sig["wpt_sweep_any"][:-1]
     libs["k3"].host_assemble_hit_anim.argtypes = sig["wpt_assemble_hit_anim"][:-1]
     return libs
 
@@ -287,6 +300,83 @@ def test_device_code_on_the_host_matches_the_plain_versions(host, scene, frames,
     for f, got in zip(("position", "normal", "geom_normal", "tangent", "uv"), out[:5]):
         torch.testing.assert_close(got[h], getattr(ref, f)[h], rtol=1e-6, atol=1e-6, msg=f)
     assert torch.equal(out[5], ref.mat) and torch.equal(out[6], ref.backside)
+
+
+@functools.lru_cache(maxsize=1)
+def _ks1_edge_sets():
+    return kc.ks1_edge_sets("cpu", 1100)
+
+
+def _ks1_case(case):
+    """(SweepScene, rays, frames or None, whether the default build stages
+    the table whole)."""
+    if case in _ks1_edge_sets():
+        return (*_ks1_edge_sets()[case], True)
+    if case.startswith("dead"):
+        anim = scenes.cornell_box_animated("cpu")
+        share = int(case.split()[1]) / 100
+        return (sw.build_sweep_scene(anim), kc.scatter_dead(kc.camera_lanes(40, 30, 1, "cpu"),
+                                                            share, 7), kc.frames_at(anim), True)
+    if case == "spheres, animated":
+        sph = scenes.cornell_box_animated("cpu", spheres=True)
+        rays = kc.scatter_dead(kc.random_lanes(1100, "cpu", seed=8), 0.5, 12)
+        return sw.build_sweep_scene(sph), rays, kc.frames_at(sph), True
+    field = scenes.tri_sphere_field(n_tris=400, n_spheres=40, device="cpu")
+    rays = kc.camera_lanes(20, 15, 1, "cpu", camera=scenes.field_camera("cpu"))
+    return sw.build_sweep_scene(field), kc.scatter_dead(rays, 0.5, 10), None, True
+
+
+@pytest.mark.parametrize("build", ["sweep", "sweep chunked"])
+@pytest.mark.parametrize("case", ["dead 0", "dead 50", "dead 90", "dead 100", "one live lane",
+                                  "ties across split threads", "interleaved animation ids",
+                                  "12 animation rows", "edges", "spheres, animated",
+                                  "static field"])
+def test_ks1_queue_on_the_host_matches_the_plain_version(host, build, case):
+    """KS1's live-lane queue and split walk against its plain
+    version: prim ids equal, t, u, v equal bit for bit where a triangle wins
+    or the lane misses, within rtol 1e-6 where a sphere wins (PyTorch's CPU
+    sqrt); dead lanes written as misses."""
+    ss, rays, fr, whole = _ks1_case(case)
+    n = rays[0].shape[0]
+    t, u, v = (torch.full((n,), -7.0) for _ in range(3))
+    prim = torch.full((n,), -7, dtype=torch.int32)
+    staged = host[build].host_sweep_closest(
+        *(x.data_ptr() for x in rays), n, ss.tri.data_ptr(), ss.tri_anim.data_ptr(), ss.n_tris,
+        ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), t.data_ptr(),
+        prim.data_ptr(), u.data_ptr(), v.data_ptr())
+    assert bool(staged) == (whole and build == "sweep")
+    pt, pp, pu, pv = sw.closest_sweep_plain(ss, *rays, fr)
+    assert torch.equal(prim, pp)
+    tri = pp < ss.n_tris
+    for a, b in ((t, pt), (u, pu), (v, pv)):
+        assert torch.equal(a[tri], b[tri])
+        torch.testing.assert_close(a[~tri], b[~tri], rtol=1e-6, atol=0)
+    dead = ~(rays[3] > rays[2])
+    assert (prim[dead] == -1).all() and (t[dead] == np.float32(kc.BIG)).all()
+    live = int((~dead).sum())
+    if case == "ties across split threads":
+        c = torch.sort(torch.cat([sw.ray_tri_tile(rays[0], rays[1], ss.tri[:, 0:3],
+                                                  ss.tri[:, 4:7], ss.tri[:, 8:11], *rays[2:])[0]
+                                  .where(sw.ray_tri_tile(rays[0], rays[1], ss.tri[:, 0:3],
+                                                         ss.tri[:, 4:7], ss.tri[:, 8:11],
+                                                         *rays[2:])[3], kc.BIG)], 1), 1).values
+        assert bool((c[~dead, 0] == c[~dead, 1]).all()) and set(pp[~dead].tolist()) <= {4, 5}
+    elif case == "one live lane":
+        assert live == 1 and int((pp >= 0).sum()) == 1
+    elif case != "dead 100":
+        assert int((pp >= 0).sum()) > 0.05 * live
+    if case == "edges":   # u or v exactly 0 on some pairs; bounds that take hits away
+        o, d, t_min, t_max = rays
+        obj = sw._object_rays(ss, o, d, fr)
+        oi, di = sw._rays_of(o, d, obj, ss.tri_anim)
+        _, uu, vv, _ = sw.ray_tri_tile(oi, di, ss.tri[:, 0:3], ss.tri[:, 4:7], ss.tri[:, 8:11],
+                                       t_min, t_max)
+        assert int(((uu == 0) | (vv == 0)).sum()) > 0
+        unbounded = sw.closest_sweep_plain(ss, o, d, torch.full_like(t_min, kc.MIN_HIT),
+                                           torch.full_like(t_max, kc.BIG), fr)[1]
+        for lanes in (slice(n // 2, 3 * n // 4), slice(3 * n // 4, n)):
+            moved = pp[lanes] != unbounded[lanes]
+            assert 0 < int(moved.sum()) < int((unbounded[lanes] >= 0).sum())
 
 
 def _jax_field(n_tris, n_spheres, seed):

@@ -1,4 +1,5 @@
-// Shared pieces of the brute-force cast kernels (closest_hit.cu, any_hit.cu).
+// Shared pieces of the brute-force cast kernels (closest_hit.cu, any_hit.cu);
+// their tile queue is live_queue.cuh.
 //
 // Every expression below is evaluated in the same order as the plain PyTorch
 // versions in wurblpt_tpu_torch/render/intersect_brute.py, and the library is
@@ -24,8 +25,8 @@
 namespace wpt {
 
 constexpr float BIG = 3.0e37f;
-constexpr int BLOCK = 128;   // rays per block, one thread each
-constexpr int CHUNK = 256;   // prims staged in shared memory per pass (16 KB of triangles)
+constexpr int STAGE_MAX = 131072;   // bytes of table staged whole in shared memory
+constexpr int CHUNK = 256;          // primitives per pass beyond it (16 KB of triangles)
 
 struct Ray {
     float ox, oy, oz;        // origin minus the scene centre
@@ -91,6 +92,20 @@ __device__ __forceinline__ bool sphere_test(const Ray& r, const float4 s, float&
     const float tlo = fminf(t0, t1), thi = fmaxf(t0, t1);
     ts = tlo > r.tmin ? tlo : thi;
     return disc > 0.f && ts > r.tmin && ts < r.tmax;
+}
+
+// Dynamic shared memory of a cast over this table: all of it, or a chunk.
+inline size_t table_bytes(int n_tris, int n_spheres) {
+    return (4 * static_cast<size_t>(n_tris) + static_cast<size_t>(n_spheres)) * sizeof(float4);
+}
+
+inline bool staged_whole(int n_tris, int n_spheres) {
+    return table_bytes(n_tris, n_spheres) <= static_cast<size_t>(STAGE_MAX);
+}
+
+inline size_t launch_smem(int n_tris, int n_spheres) {
+    return staged_whole(n_tris, n_spheres) ? table_bytes(n_tris, n_spheres)
+                                           : static_cast<size_t>(CHUNK) * 4 * sizeof(float4);
 }
 
 }  // namespace wpt

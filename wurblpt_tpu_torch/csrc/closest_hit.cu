@@ -13,41 +13,39 @@
 // frames 24-77 % of the lanes are live (t_max > t_min), scattered over the
 // block, and a warp runs as long as its slowest lane; so the design issues
 // the walk for live rays only:
-//   - each block takes tiles of lanes (the lanes spread evenly over the
-//     blocks the SMs hold at once, in whole warps, at most K1_BLOCK); each
-//     thread reads its lane, writes a dead lane's miss at once and queues a
-//     live lane's ray in shared memory in lane order (a __ballot_sync /
-//     __popc prefix per warp).
+//   - each block takes tiles of lanes and queues their live rays in shared
+//     memory (the tiles, the split and the launch from live_queue.cuh, with
+//     K2 and KS1); a dead lane's miss is written at once. The queue's steps
+//     are written out in the kernel, with o and d read beside t_min and
+//     t_max (one trip to memory): built through wpt_queue::queue_live, the
+//     kernel took 58 registers for closest_hit_kernel<true>, not 60, and
+//     the envmap frame's casts ran ~1.5 % slower (PERF.md).
 //   - the block's threads then take the queue in order, `split` threads to
-//     a ray (1, 2, 4 or 8: as many as the block has threads for), each
-//     testing every split-th primitive; the split agrees on the first
-//     minimum through warp shuffles. Full warps of live rays, and on sparse
-//     steps, where few rays are live, walks short enough that their latency
-//     does not set the kernel's time. A ray cast by one thread is walked
-//     with a constant stride, which the compiler unrolls.
+//     a ray (1, 2, 4 or 8), each testing every split-th primitive; the split
+//     agrees on the first minimum through warp shuffles. Full warps of live
+//     rays, and on sparse steps, where few rays are live, walks short
+//     enough that their latency does not set the kernel's time. A ray cast
+//     by one thread is walked with a constant stride, which the compiler
+//     unrolls.
 //   - the whole table (at most 64T + 16S = 128 KB at the route's 8192
 //     columns, intersect_brute.brute_eligible) is staged once per block in
-//     dynamic shared memory; a larger table is walked in chunks of K1_CHUNK
+//     dynamic shared memory; a larger table is walked in chunks of CHUNK
 //     primitives per tile.
-// No lane counter in device memory (K5's): it would need a memset before
-// each cast on frames whose time is the host's.
 //
 // Ties go to the lowest primitive id (the strict `<` of each thread's walk
 // keeps its first minimum, and `combine` the lower id at equal t),
 // triangles before spheres, as in _decode_closest. A lane with tmax <= tmin
 // (NaN included) is a miss and does not walk the table.
 #include "brute_common.cuh"
+#include "live_queue.cuh"
 
 namespace {
 
 using namespace wpt;
+using wpt_queue::FULL;
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int K1_BLOCK = 512;              // threads, and lanes per tile at most
-constexpr int K1_WARPS = K1_BLOCK / 32;
-constexpr int STAGE_MAX = 131072;          // bytes of table staged whole
-constexpr int K1_CHUNK = 256;              // primitives per pass beyond it (16 KB of triangles)
-constexpr int K1_SPLIT = 8;                // threads per live ray, at most
+constexpr int K1_BLOCK = wpt_queue::QBLOCK;   // threads, and lanes per tile at most
+constexpr int K1_WARPS = wpt_queue::QWARPS;
 
 struct Best {
     float t = BIG, det = 1.f, un = 0.f, vn = 0.f;
@@ -124,7 +122,7 @@ __device__ __forceinline__ void write_hit(int i, const Best& b, float* __restric
 
 // WHOLE: the table lies in shared memory for the whole launch (its 4 n_tris
 // triangle rows, then its n_spheres sphere rows); otherwise it is staged
-// K1_CHUNK primitives at a time for each tile. A tile is `tile` lanes (a
+// CHUNK primitives at a time for each tile. A tile is `tile` lanes (a
 // multiple of 32, at most K1_BLOCK).
 template <bool WHOLE>
 __global__ void __launch_bounds__(K1_BLOCK)
@@ -136,6 +134,7 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    float* __restrict__ u_out, float* __restrict__ v_out) {
     extern __shared__ float4 s_prim[];
     // the queued live lanes' rays, as load_ray reads them, and lane ids
+    // (wpt_queue::queue_live's steps, written out here)
     __shared__ float s_o[3 * K1_BLOCK], s_d[3 * K1_BLOCK], s_tmin[K1_BLOCK], s_tmax[K1_BLOCK];
     __shared__ int s_lane[K1_BLOCK];
     __shared__ int s_count[K1_WARPS];
@@ -179,8 +178,7 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
         }
         __syncthreads();
         // `split` threads per queued ray, as many as the block has threads for
-        int split = 1;
-        while (split < K1_SPLIT && total * split * 2 <= K1_BLOCK) split *= 2;
+        const int split = wpt_queue::split_for(total);
         const int q = threadIdx.x / split, part = threadIdx.x % split;
         const bool has = q < total;
         Best b;
@@ -198,16 +196,16 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
         } else if (total > 0) {   // block-uniform: no barrier is skipped by a part of it
             Ray r{};
             if (has) r = load_ray(s_o, s_d, s_tmin, s_tmax, q, cx, cy, cz);
-            for (int base = 0; base < n_tris; base += K1_CHUNK) {
-                const int cnt = min(K1_CHUNK, n_tris - base);
+            for (int base = 0; base < n_tris; base += CHUNK) {
+                const int cnt = min(CHUNK, n_tris - base);
                 __syncthreads();
                 for (int j = threadIdx.x; j < cnt * 4; j += K1_BLOCK)
                     s_prim[j] = tri[base * 4 + j];
                 __syncthreads();
                 if (has) walk_tris<false>(r, s_prim, cnt, base, part, split, b);
             }
-            for (int base = 0; base < n_spheres; base += K1_CHUNK) {
-                const int cnt = min(K1_CHUNK, n_spheres - base);
+            for (int base = 0; base < n_spheres; base += CHUNK) {
+                const int cnt = min(CHUNK, n_spheres - base);
                 __syncthreads();
                 for (int j = threadIdx.x; j < cnt; j += K1_BLOCK) s_prim[j] = sph[base + j];
                 __syncthreads();
@@ -219,48 +217,12 @@ closest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     }
 }
 
-// Dynamic shared memory of a launch over this table: all of it, or a chunk.
-inline size_t table_bytes(int n_tris, int n_spheres) {
-    return (4 * static_cast<size_t>(n_tris) + static_cast<size_t>(n_spheres)) * sizeof(float4);
-}
-
-inline bool staged_whole(int n_tris, int n_spheres) {
-    return table_bytes(n_tris, n_spheres) <= static_cast<size_t>(STAGE_MAX);
-}
-
-inline size_t launch_smem(int n_tris, int n_spheres) {
-    return staged_whole(n_tris, n_spheres) ? table_bytes(n_tris, n_spheres)
-                                           : static_cast<size_t>(K1_CHUNK) * 4 * sizeof(float4);
-}
-
-// Blocks the SMs hold at once with this much shared memory (asked once per
-// 16 KB step of it).
+// Blocks the SMs hold at once with this much shared memory.
 int resident_blocks(int n_tris, int n_spheres) {
-    constexpr int STEP = 16384, STEPS = STAGE_MAX / STEP + 1;
-    static int resident[2][STEPS] = {};
-    const bool whole = staged_whole(n_tris, n_spheres);
-    const int step = static_cast<int>((launch_smem(n_tris, n_spheres) + STEP - 1) / STEP);
-    int& blocks = resident[whole][step];
-    if (blocks == 0) {
-        int dev = 0, sms = 0, per_sm = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (whole)
-            cudaFuncSetAttribute(closest_hit_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_MAX);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, whole ? closest_hit_kernel<true> : closest_hit_kernel<false>, K1_BLOCK,
-            static_cast<size_t>(step) * STEP);
-        blocks = sms * (per_sm > 0 ? per_sm : 1);
-    }
-    return blocks;
-}
-
-// Lanes per tile: the lanes spread evenly over the blocks the SMs hold at
-// once, in whole warps, at most K1_BLOCK; beyond that, blocks loop over tiles.
-inline int tile_lanes(int n, int blocks) {
-    const long long per_block = (static_cast<long long>(n) + blocks - 1) / blocks;
-    return static_cast<int>(min(static_cast<long long>(K1_BLOCK), (per_block + 31) / 32 * 32));
+    const size_t smem = launch_smem(n_tris, n_spheres);
+    return staged_whole(n_tris, n_spheres)
+               ? wpt_queue::resident_blocks(closest_hit_kernel<true>, smem, STAGE_MAX)
+               : wpt_queue::resident_blocks(closest_hit_kernel<false>, smem, 0);
 }
 
 }  // namespace
@@ -272,7 +234,7 @@ extern "C" int wpt_closest_hit(const float* o, const float* d, const float* tmin
                                void* stream) {
     if (n > 0) {
         const int blocks = resident_blocks(n_tris, n_spheres);
-        const int tile = tile_lanes(n, blocks);
+        const int tile = wpt_queue::tile_lanes(n, blocks);
         const int grid = min(blocks, (n + tile - 1) / tile);
         const size_t smem = launch_smem(n_tris, n_spheres);
         const auto s = static_cast<cudaStream_t>(stream);

@@ -41,8 +41,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
            "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu", "sweep_closest.cu",
            "sweep_any.cu")
-HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh", "rgl_common.cuh",
-           "sweep_common.cuh")
+HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh", "live_queue.cuh",
+           "rgl_common.cuh", "sweep_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libwpt_kernels.so"

@@ -4,7 +4,9 @@ Port of ``wurblpt_tpu/render/intersect_mxu.py``. The JAX package tests every
 ray against every primitive with one feature-matrix product on the TPU's
 matrix unit. On the GPU the same four linear functionals per triangle (and
 two per sphere) are evaluated by hand-written CUDA kernels
-(``csrc/closest_hit.cu``, ``csrc/any_hit.cu``), one thread per ray.
+(``csrc/closest_hit.cu``, ``csrc/any_hit.cu``) on the live rays of each
+tile, queued in shared memory (``csrc/live_queue.cuh``), up to 8 threads to
+a ray (K2 on a table of at most 16 primitives: a thread per lane).
 
 Each kernel has a plain PyTorch version beside it, term for term the same
 arithmetic. The wrappers `closest_hit` and `any_hit` run the plain version on

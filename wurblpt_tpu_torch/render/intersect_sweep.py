@@ -11,13 +11,14 @@ does not take: an animated scene, or a static one past 8192 columns
 tests its lane's ray in the object space of its own animation (row 0, the
 identity, for static primitives; scene/animation.py).
 
-The kernels (``csrc/sweep_closest.cu``, ``csrc/sweep_any.cu``) take one ray
-per thread and walk the primitives in order; each has a plain PyTorch
-version here, term for term the same arithmetic, which the wrappers run on
-CPU tensors. Ties: the JAX package takes the first minimum within a tile of
-up to 1024 triangles and a strict `<` across tiles, triangles before
-spheres; a walk in prim order with a strict `<` takes the same first
-minimum, so neither version needs the TPU's tiles.
+The kernels (``csrc/sweep_closest.cu``, ``csrc/sweep_any.cu``) walk the
+primitives in order: KS2 one ray per thread, KS1 the live rays of a tile
+queued in shared memory, up to 8 threads to a ray. Each has a plain
+PyTorch version here, term for term the same arithmetic, which the
+wrappers run on CPU tensors. Ties: the JAX package takes the first minimum
+within a tile of up to 1024 triangles and a strict `<` across tiles,
+triangles before spheres; a walk in prim order with a strict `<` takes the
+same first minimum, so neither version needs the TPU's tiles.
 """
 
 from __future__ import annotations

@@ -18,8 +18,11 @@ frames (`bench_frame`, `tof_frame`, `envmap_frame`, `rtiow_frame`) record
 (`check_closest_hit` / `check_any_hit`), timed by their device time per
 call (`kernel_check.device_ms`: their wrapper calls take longer on the host
 than the kernels on the card), bounded by `closest_hit_work` /
-`any_hit_work`.
-All eight frames by default. `chip_smoke.py` runs the same rows; the
+`any_hit_work`; the swept frame (`cornell_animated_frame`) records
+`closest_sweep` and `any_sweep` (KS1/KS2, with the frame's animation rows),
+checked bit for bit (`check_sweep_closest` / `check_sweep_any`), timed so,
+bounded by `sweep_work`.
+All nine frames by default. `chip_smoke.py` runs the same rows; the
 command line prints them (and with `--out` writes them as JSON) with the
 tree's size, and uses nothing but `kernel_check`'s frames, checks, timers
 and work counts, so a copy of this file also times an older tree's kernels
@@ -36,16 +39,18 @@ from pathlib import Path
 import torch
 
 from ..accel import traverse
-from ..render import intersect, intersect_brute
+from ..render import intersect, intersect_brute, intersect_sweep
 from . import kernel_check as kc
 from . import scenes
 
 CASTS = ("bvh_closest_hit", "bvh_any_hit")
 BRUTE_CASTS = ("closest_hit", "any_hit")
+SWEEP_CASTS = ("closest_sweep", "any_sweep")
 
 
 FRAMES = ("mesh", "city", "rtiow_bvh", "cornell_animated_bvh")
 BRUTE_FRAMES = ("cornell", "tof", "envmap", "rtiow")
+SWEEP_FRAMES = ("cornell_animated",)
 
 
 def record_casts(render, module=traverse, names=CASTS):
@@ -78,14 +83,14 @@ def _bit_equal(res):
 
 
 def cast_rows(frame: str, render, device, n: int = 20):
-    """One row per cast of one frame (K5/K6, or K1/K2 on a brute-force
-    frame), each cast first held against its plain version: step, lanes,
-    live lanes, ms per call, bound ms, what bounds it, and the bytes and
-    flops of the bound."""
-    brute = frame in BRUTE_FRAMES
-    names = BRUTE_CASTS if brute else CASTS
+    """One row per cast of one frame (K5/K6, K1/K2 on a brute-force frame,
+    KS1/KS2 on a swept one), each cast first held against its plain version:
+    step, lanes, live lanes, ms per call, bound ms, what bounds it, and the
+    bytes and flops of the bound."""
+    brute, swept = frame in BRUTE_FRAMES, frame in SWEEP_FRAMES
+    names = BRUTE_CASTS if brute else SWEEP_CASTS if swept else CASTS
     rows, step = [], {name: 0 for name in names}
-    recorded = (record_casts(render, intersect, BRUTE_CASTS) if brute
+    recorded = (record_casts(render, intersect, names) if brute or swept
                 else record_casts(render))
     for name, accel, rays, frames in recorded:
         if brute:
@@ -93,6 +98,12 @@ def cast_rows(frame: str, render, device, n: int = 20):
             fn = getattr(intersect_brute, name)
             ms = kc.device_ms(lambda f=fn, b=accel, r=rays: f(b, *r), n)
             work = getattr(kc, f"{name}_work")(accel, rays)
+        elif swept:   # the checks hold every lane bit for bit, or raise
+            any_hit = name == "any_sweep"
+            (kc.check_sweep_any if any_hit else kc.check_sweep_closest)(accel, rays, frames)
+            fn = getattr(intersect_sweep, name)
+            ms = kc.device_ms(lambda f=fn, s=accel, r=rays, a=frames: f(s, *r, a), n)
+            work = kc.sweep_work(accel, rays, frames, any_hit=any_hit)
         else:
             getattr(kc, f"check_{name}")(accel, rays, frames)
             fn = getattr(traverse, name)
@@ -126,7 +137,7 @@ def format_row(r) -> str:
 def summary(rows):
     """One line per kernel over one frame's rows: casts, ms, bound ms."""
     out = []
-    for name in CASTS + BRUTE_CASTS:
+    for name in CASTS + BRUTE_CASTS + SWEEP_CASTS:
         sel = [r for r in rows if r["kernel"] == name]
         if sel:
             out.append(f"{sel[0]['frame']} {name}: {len(sel)} casts, "
@@ -138,8 +149,9 @@ def summary(rows):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", default=",".join(FRAMES + BRUTE_FRAMES),
-                    help=f"comma-separated subset of {','.join(FRAMES + BRUTE_FRAMES)}")
+    every = FRAMES + BRUTE_FRAMES + SWEEP_FRAMES
+    ap.add_argument("--frames", default=",".join(every),
+                    help=f"comma-separated subset of {','.join(every)}")
     ap.add_argument("--out", default=None, help="also write the rows here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -156,7 +168,9 @@ def main(argv=None) -> int:
              "tof": (lambda: scenes.tof_box(device=device), kc.tof_frame),
              "envmap": (lambda: scenes.envmap_spheres(cube=True, device=device),
                         kc.envmap_frame),
-             "rtiow": (lambda: scenes.rtiow(device=device), kc.rtiow_frame)}
+             "rtiow": (lambda: scenes.rtiow(device=device), kc.rtiow_frame),
+             "cornell_animated": (lambda: scenes.cornell_box_animated(device),
+                                  kc.cornell_animated_frame)}
     rows = []
     for frame in args.frames.split(","):
         make_scene, make_frame = build[frame]

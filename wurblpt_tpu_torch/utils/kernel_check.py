@@ -127,6 +127,7 @@ from ..render.intersect_brute import (
 from ..render.intersect_sweep import (
     any_sweep,
     any_sweep_plain,
+    build_sweep_scene,
     closest_sweep,
     closest_sweep_plain,
     ray_sphere_tile,
@@ -135,7 +136,7 @@ from ..render.intersect_sweep import (
 from ..render.lights import light_frames, lights_sample
 from ..render.sensor import SensorRGB, SensorTofAmcw
 from ..scene.animation import anim_frames, frames_ray_to_object
-from ..scene.ir import BVHArrays, MaterialType
+from ..scene.ir import BVHArrays, MaterialType, Spheres
 from . import scenes
 
 MIN_HIT = RenderParams().min_hit_distance
@@ -563,6 +564,179 @@ def scatter_dead(rays, share: float, seed: int = 7):
     how = torch.as_tensor(rs.integers(0, 3, n), device=o.device)
     killed = torch.where(how == 0, 0.0, torch.where(how == 1, t_min, float("nan")))
     return o, d, t_min, torch.where(dead, killed, t_max).contiguous()
+
+
+def last_blocker_lanes(scene, n: int, device, seed: int = 14):
+    """Shadow rays whose blocker is the last primitive of `scene`'s table
+    (its last sphere, or its last triangle where it has no sphere), so that
+    an any-hit walk in table order meets it last: toward the sphere's
+    centre from 0.05 to 0.5 outside it, ending at the centre, or from
+    random points inside the Cornell box toward inner points of the
+    triangle, ending just past it. [n] lanes, all live."""
+    rs = np.random.default_rng(seed)
+    if scene.n_spheres:
+        c = scene.spheres.center[-1].cpu().double().numpy()
+        r = float(scene.spheres.radius[-1])
+        w = rs.normal(size=(n, 3))
+        w /= np.linalg.norm(w, axis=-1, keepdims=True)
+        o = c + w * rs.uniform(r + 0.05, r + 0.5, size=(n, 1))
+        d, reach = c - o, 1.0
+    else:
+        p0, e1, e2 = (x[-1].cpu().double().numpy() for x in (scene.tris.p0, scene.tris.e1,
+                                                             scene.tris.e2))
+        a, b = rs.uniform(0.1, 0.4, size=(2, n, 1))
+        o = rs.uniform((-0.9, 0.1, -0.9), (0.9, 1.8, 0.9), size=(n, 3))
+        d, reach = p0 + a * e1 + b * e2 - o, 1.001
+    dist = np.linalg.norm(d, axis=-1)
+    return (_f32(o, device), _f32(d / dist[:, None], device),
+            torch.full((n,), MIN_HIT, device=device), _f32(dist * reach, device))
+
+
+def _aimed(rs, p0, e1, e2, ab, tris):
+    """Rays from random points toward p0 + a e1 + b e2 of triangles `tris`
+    ((a, b) per lane in `ab`), at a random distance from 0.3 to 2, from the
+    side of each triangle's plane that its random direction sees it from."""
+    n = len(tris)
+    target = p0[tris] + ab[:, :1] * e1[tris] + ab[:, 1:] * e2[tris]
+    nrm = np.cross(e1[tris], e2[tris])
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    along = np.sum(d * nrm, -1, keepdims=True)
+    d = np.where(np.abs(along) < 0.2, d + np.sign(along + 1e-9) * 0.5 * nrm, d)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return target - rs.uniform(0.3, 2.0, size=(n, 1)) * d, d
+
+
+def edge_lanes(p0, e1, e2, cast, n: int, device, seed: int = 15):
+    """Rays at the edges of the casts' exact tests, toward the
+    triangles of p0, e1, e2 (world space, [T, 3] each), in four families of
+    n / 4 lanes: aimed at points on the triangles' edges and corners (u_num
+    or v_num zero, or within a rounding of it); grazing, nearly in the plane
+    of those whose plane is axis-aligned (|det| from 0.5e-12 to 4e-12,
+    either sign; aimed like the first family where no plane is); and aimed
+    at inner points with t_max, then t_min, at the distance of the hit that
+    `cast` (a plain closest hit (o, d, t_min, t_max) -> (t, prim, u, v))
+    finds, or one float either side of it."""
+    rs = np.random.default_rng(seed)
+    p0, e1, e2 = (x.detach().cpu().double().numpy() for x in (p0, e1, e2))
+    m = n // 4
+    lanes = []
+    # 1. edges and corners, exactly or within a few roundings
+    r = rs.uniform(0.05, 0.95, m)
+    on = {0: (0.0 * r, r), 1: (r, 0.0 * r), 2: (1.0 - r, r),    # the three edges
+          3: (0.0 * r, 0.0 * r), 4: (1.0 + 0.0 * r, 0.0 * r), 5: (0.0 * r, 1.0 + 0.0 * r)}
+    which = rs.integers(0, 6, m)
+    ab = np.stack([np.choose(which, [on[k][c] for k in range(6)]) for c in (0, 1)], -1)
+    ab += rs.choice([0.0, 1e-7, -1e-7, 1e-6, -1e-6], size=(m, 2))
+    lanes.append(_aimed(rs, p0, e1, e2, ab, rs.integers(0, len(p0), m)))
+    # 2. grazing: |det| = |d_axis n_axis| near 1e-12 where the plane is axis-aligned
+    flat = [(j, ax) for j in range(len(p0)) for ax in range(3)
+            if e1[j, ax] == 0.0 and e2[j, ax] == 0.0]
+    if flat:
+        pick = [flat[k] for k in rs.integers(0, len(flat), m)]
+        tris = np.array([j for j, _ in pick])
+        axis = np.array([ax for _, ax in pick])
+        nrm = np.abs(np.cross(e1[tris], e2[tris])[np.arange(m), axis])
+        ab = rs.uniform(0.1, 0.4, size=(m, 2))
+        target = p0[tris] + ab[:, :1] * e1[tris] + ab[:, 1:] * e2[tris]
+        theta = rs.uniform(0, 2 * np.pi, m)
+        d = np.zeros((m, 3))
+        d[np.arange(m), (axis + 1) % 3] = np.cos(theta)
+        d[np.arange(m), (axis + 2) % 3] = np.sin(theta)
+        d[np.arange(m), axis] = (rs.choice([-1.0, 1.0], m) * np.geomspace(0.5, 4.0, m)
+                                 * 1e-12 / nrm)
+        lanes.append((target - rs.uniform(0.2, 1.0, size=(m, 1)) * d, d))
+    else:
+        lanes.append(_aimed(rs, p0, e1, e2, rs.uniform(0.0, 0.5, size=(m, 2)),
+                            rs.integers(0, len(p0), m)))
+    o = np.concatenate([x for x, _ in lanes])
+    d = np.concatenate([x for _, x in lanes])
+    k = len(o)
+    rays = [(o, d, np.full(k, MIN_HIT), np.full(k, BIG))]
+    # 3, 4. inner points, t_max or t_min at the hit's distance or a float either side
+    for bound in (3, 2):
+        ao, ad = _aimed(rs, p0, e1, e2, rs.uniform(0.1, 0.4, size=(m, 2)),
+                        rs.integers(0, len(p0), m))
+        t_min, t_max = np.full(m, MIN_HIT, np.float32), np.full(m, BIG, np.float32)
+        t = cast(_f32(ao, device), _f32(ad, device), _f32(t_min, device),
+                 _f32(t_max, device))[0].cpu().numpy()
+        step = rs.integers(-1, 2, m)
+        at = np.where(step == 0, t, np.nextafter(t, np.where(step > 0, np.inf, -np.inf),
+                                                 dtype=np.float32))
+        hit = t < BIG
+        if bound == 3:
+            t_max = np.where(hit, at, t_max)
+        else:
+            t_min = np.where(hit, at, t_min)
+        rays.append((ao, ad, t_min, t_max))
+    return tuple(_f32(np.concatenate([r[i] for r in rays]), device) for i in range(4))
+
+
+def _one_live(rays, hit):
+    """`rays` with every lane dead (t_max 0) but the middle one of those
+    where `hit` ([N] bool) is true, which keeps its t_max."""
+    o, d, t_min, t_max = rays
+    lanes = torch.nonzero(hit)[:, 0]
+    keep = torch.arange(o.shape[0], device=o.device) == lanes[lanes.shape[0] // 2]
+    return o, d, t_min, torch.where(keep, t_max, 0.0).to(torch.float32)
+
+
+def k2_edge_sets(device, n: int = 4096):
+    """{label: (BruteScene, shadow rays)}: the edges of K2's live-lane queue
+    and range-first walk on the Cornell box: every lane dead, one live lane
+    (an occluded one),
+    blockers that are the table's last triangle (the light's) or its last
+    primitive, a sphere in the air above the boxes (`last_blocker_lanes`),
+    and the tests' edges (`edge_lanes`: edges and corners, |det| about
+    1e-12, t_max and t_min at a hit's distance or a float either side)."""
+    ref = scenes.cornell_box_ref(device)
+    f = dict(dtype=torch.float32, device=device)
+    air = ref._replace(spheres=Spheres(torch.tensor([[-0.3, 1.3, 0.4]], **f),
+                                       torch.tensor([0.2], **f),
+                                       torch.tensor([0], dtype=torch.int32, device=device)))
+    bs, air_bs = build_brute_scene(ref), build_brute_scene(air)
+    rnd = random_lanes(n, device, seed=3)
+    t = ref.tris
+    return {"every lane dead": (bs, rnd[:3] + (torch.zeros_like(rnd[3]),)),
+            "one live lane": (bs, _one_live(rnd, any_hit_plain(bs, *rnd))),
+            "blocker last, triangle": (bs, last_blocker_lanes(ref, n, device)),
+            "blocker last, sphere": (air_bs, last_blocker_lanes(air, n, device)),
+            "edges": (bs, edge_lanes(t.p0, t.e1, t.e2,
+                                     lambda *r: closest_hit_plain(bs, *r), n, device))}
+
+
+def ks1_edge_sets(device, n: int = 4096):
+    """{label: (SweepScene, rays, frames or None)}: the edges of KS1's queue,
+    split walk and object rays on the animated Cornell box at
+    ANIM_TIME: every lane dead, one live lane (one that hits), rays down
+    onto the floor where the static box's bottom face lies in its plane
+    (every lane ties;
+    7 of 8 dead, so 8 threads to a ray), a table whose animation ids change
+    at every primitive, 12 animation rows, and the tests' edges on the static
+    walls (`edge_lanes`)."""
+    anim = scenes.cornell_box_animated(device)
+    ss, fr = build_sweep_scene(anim), frames_at(anim)
+    rnd = random_lanes(n, device, seed=6)
+    rs = np.random.default_rng(5)
+    down = (_f32(np.c_[rs.uniform(0.2, 0.4, n), np.full(n, 0.5), rs.uniform(0.25, 0.45, n)],
+                 device), _f32(np.tile([0.0, -1.0, 0.0], (n, 1)), device),
+            torch.full((n,), 1e-4, device=device),
+            torch.where(torch.arange(n, device=device) % 8 == 0, BIG, 0.0).to(torch.float32))
+    ids = (torch.arange(ss.n_tris, dtype=torch.int32, device=device) * 3) % ss.n_anims
+    many = ss._replace(tri_anim=(torch.arange(ss.n_tris, dtype=torch.int32, device=device)
+                                 % 12).contiguous(), n_anims=12)
+    walls = ss.tri[ss.tri_anim == 0]
+    return {"every lane dead": (ss, rnd[:3] + (torch.zeros_like(rnd[3]),), fr),
+            "one live lane": (ss, _one_live(rnd, closest_sweep_plain(ss, *rnd, fr)[1] >= 0), fr),
+            "ties across split threads": (build_sweep_scene(scenes.cornell_box_ref(device)),
+                                          down, None),
+            "interleaved animation ids": (ss._replace(tri_anim=ids.contiguous()),
+                                          scatter_dead(rnd, 0.5, 11), fr),
+            "12 animation rows": (many, scatter_dead(rnd, 0.5, 12), fr.repeat(3, 1)),
+            "edges": (ss, edge_lanes(walls[:, 0:3], walls[:, 4:7], walls[:, 8:11],
+                                     lambda *r: closest_sweep_plain(ss, *r, fr), n, device),
+                      fr)}
 
 
 def _bits_differ(*pairs):
