@@ -56,7 +56,11 @@ Phases, each a function, any failure exits non-zero and names its phase:
    (kernel_check.ks1_edge_sets: the same lanes, ties across the threads of
    one ray, animation ids that change at every primitive, 12 animation
    rows, edges on the static walls) and on a 3600-triangle field that it
-   stages in chunks. K1 and K2 also on the
+   stages in chunks, and KS2 likewise (kernel_check.ks2_edge_sets: a
+   static and an animated table whose last primitive is the only blocker,
+   blockers only in one animation's object space, one live lane, grazing
+   rays, t a float either side of the bounds, dead rows with stale
+   directions; the same field's sky shadow rays in chunks). K1 and K2 also on the
    2048-triangle field's camera rays (K1 with half of them dead too) and
    sky shadow rays, and on the Cornell block's camera and shadow rays and
    rtiow's camera rays with dead lanes scattered at the K1 frames' live
@@ -85,35 +89,35 @@ Phases, each a function, any failure exits non-zero and names its phase:
    and the cast counters within 0.5 % of it.
 5. mesh path - the bvh_100k bench frame (160 x 120, 4 spp, 4 path
    components, GGX and mirror spheres under the importance-sampled equirect
-   sky) through K4's env class: the regeneration, K5, K3, the env shade, K6
-   and the NEE resolve must be launched, and neither P0 nor K8's stand-alone
-   kernels (the shade reads the sky inline); the frame held to its JAX
+   sky) through K4's env class: the regeneration, K5, K3, the env shade
+   and K6 must be launched, and neither P0, the resolve nor K8's
+   stand-alone kernels (the shade reads the sky inline); the frame held to its JAX
    reference as in phase 4.
 6. city path - the city_many_lights bench frame (1920 x 1080, 360-degree
    stereo, 1 spp, 4 path components; ModPhong, RGL, 192 window triangles
    under per-light MIS beside the importance-sampled night sky) through
    K4's lit class: the surround regeneration, K5, K3, the lit shade (RGL,
-   the sky and the material rows inline), K6 (the light and sky shadow
-   rays in one cast) and the NEE resolve must be launched, and neither P0,
-   K7's nor K8's stand-alone kernels; the frame held to its JAX reference
+   the sky and the material rows inline) and K6 (the light and sky shadow
+   rays in one cast) must be launched, and neither P0, the resolve, K7's
+   nor K8's stand-alone kernels; the frame held to its JAX reference
    as in phase 4.
 7. envmap path - the envmap_cube_is bench frame (128 x 128, 16 spp, 8 path
    components; glass, mirror and GGX spheres under the importance-sampled
    cube-map sky) through K4's env class: the regeneration, K1, K3, the env
-   shade (its cube-sky and glass instantiation), K2 and the NEE resolve
-   must be launched, and neither P0 nor K8's stand-alone kernels; the frame
+   shade (its cube-sky and glass instantiation) and K2 must be launched,
+   and neither P0, the resolve nor K8's stand-alone kernels; the frame
    held to its JAX reference as in phase 4.
 8. rtiow path - the rtiow_distortion bench frame (192 x 128, 16 spp, 8 path
    components, OpenCV lens, 40 spheres under a constant sky) through K4's
    env class: the regeneration (with the lens's fixed point), K1, K3, the
-   env shade (its constant-sky and glass instantiation) and the resolve
-   must be launched, and neither K2 (no light, no sky importance: no shadow
-   ray), P0 nor K8's stand-alone kernels; the frame held to its JAX
+   env shade (its constant-sky and glass instantiation) must be launched,
+   and neither K2 (no light, no sky importance: no shadow ray), P0, the
+   resolve nor K8's stand-alone kernels; the frame held to its JAX
    reference as in phase 4.
 9. tof path - the tof_amcw bench frame (96 x 96, 16 spp, 6 path components,
    SensorTofAmcw, the ToF cone light with per-light MIS) at phase 0: K1,
-   K2, K3 and K4 (regeneration, shade, resolve) must be launched and P0
-   not, and the frame held to its JAX reference (mean energy, the three
+   K2, K3 and K4 (regeneration, shade) must be launched and neither P0
+   nor the resolve, and the frame held to its JAX reference (mean energy, the three
    channel means, counters); phases 1-3 keep the counters and the mean
    and phase 2 swaps the buckets a and b; the 4-phase distance at depth 1
    is held to the first-hit distance of the pixel-centre rays (median
@@ -122,39 +126,45 @@ Phases, each a function, any failure exits non-zero and names its phase:
    8 path components, SensorRGB, t0 = t1 = 0.5) through render_frame_wavefront
    on K4's diffuse class with the scene's casts: the regeneration, KS1, K3a,
    the diffuse shade (the moving light placed at t = 0.5 in the frame's step
-   tables), KS2 and the NEE resolve must be launched, and neither K1, K2,
-   K3 nor P0; the frame held to its JAX reference as in phase 4
-   (`jax_frame_reference.py cornell_animated`), at most 12 launches per
-   step of the loop and 400 per frame.
+   tables) and KS2 must be launched, and neither K1, K2, K3, P0 nor the
+   resolve; the frame held to its JAX reference as in phase 4
+   (`jax_frame_reference.py cornell_animated`), at most 6.00 launches per
+   step of the loop and 310 per frame.
 11. rtiow_bvh path - the full RTIOW field in a BVH (rtiow(n=22,
    use_bvh=True), rtiow's settings: 192 x 128, 16 spp, 8 path components,
    the OpenCV lens, the constant sky) through K4's env class: the lens
    regeneration, K5 (its sphere rows), K3, the env shade (constant sky,
-   glass) and the resolve must be launched, and neither K1, KS1, K6 (no
-   shadow ray), P0 nor K8's stand-alone kernels; the frame held to its JAX
+   glass) must be launched, and neither K1, KS1, K6 (no shadow ray), P0,
+   the resolve nor K8's stand-alone kernels; the frame held to its JAX
    reference (`jax_frame_reference.py rtiow_bvh`: the JAX package's BVH
-   route) as in phase 4, at most 12 launches per step of the frame.
+   route) as in phase 4, at most 5.00 launches per step of the loop and 9
+   per step of the frame.
 12. cornell_animated_bvh path - the animated box with its two spheres in a
    BVH swept at t = 0.5, rendered as cornell_animated through K4's diffuse
    class: the regeneration, K5 and K6 (object-space rays over triangle and
-   sphere rows, static and animated), K3a, the diffuse shade and the
-   resolve must be launched, and neither K1, K2, K3, KS1, KS2 nor P0; the
+   sphere rows, static and animated), K3a and the diffuse shade must be
+   launched, and neither K1, K2, K3, KS1, KS2, P0 nor the resolve; the
    frame held to its JAX reference (`jax_frame_reference.py
-   cornell_animated_bvh`), at most 7.00 launches per step of the loop and
-   400 per frame.
+   cornell_animated_bvh`), at most 6.00 launches per step of the loop and
+   310 per frame.
 
-The Cornell frame (phase 4) and the ToF frame take K4's diffuse class
-(regeneration, K1, K3, wpt_shade_diffuse, K2, resolve), the cornell_animated
-frame the same class around the sweeps (regeneration, KS1, K3a,
-wpt_shade_diffuse, KS2, resolve), the cornell_animated_bvh frame around K5
-and K6 in object space (regeneration, K5, K3a, wpt_shade_diffuse, K6,
-resolve), the rtiow_bvh frame the env class around K5's sphere rows
-(regeneration, K5, K3, wpt_shade_env, resolve), the mesh frame K4's
-env class (regeneration, K5, K3, wpt_shade_env, K6, resolve), the envmap
-and rtiow frames the env class on the brute-force casts (regeneration, K1,
-K3, wpt_shade_env, K2 where the sky is importance-sampled, resolve), the
-city frame K4's lit class (wpt_regen_surround, K5, K3, wpt_shade_lit, K6 on
-2 x 1048576 shadow rays, the resolve of two pending deposits per lane).
+A K4 step is the regeneration, which first adds the step before's NEE
+deposits (the NEE resolve, folded in) and flags the loop condition, then
+the closest-hit cast, the hit assembly, the shade and the any-hit cast;
+each block's loop ends at a regeneration that finds no work, and the
+stand-alone resolve (wpt_nee_resolve) launches on no path. The Cornell
+frame (phase 4) and the ToF frame take K4's diffuse class (regeneration,
+K1, K3, wpt_shade_diffuse, K2), the cornell_animated frame the same class
+around the sweeps (regeneration, KS1, K3a, wpt_shade_diffuse, KS2), the
+cornell_animated_bvh frame around K5 and K6 in object space
+(regeneration, K5, K3a, wpt_shade_diffuse, K6), the rtiow_bvh frame the
+env class around K5's sphere rows (regeneration, K5, K3, wpt_shade_env),
+the mesh frame K4's env class (regeneration, K5, K3, wpt_shade_env, K6),
+the envmap and rtiow frames the env class on the brute-force casts
+(regeneration, K1, K3, wpt_shade_env, K2 where the sky is
+importance-sampled), the city frame K4's lit class (wpt_regen_surround
+adding two pending deposits per lane, K5, K3, wpt_shade_lit, K6 on 2 x
+1048576 shadow rays).
 The kernels phase holds each K4 kernel against its plain version on the
 first block of the nine frames after 2 steps (lanes live, dead and, where
 a lane has samples left, due for regeneration) and on the city block as
@@ -185,24 +195,25 @@ hand-written kernel's device time per launch (one more frame under
 torch.profiler; the scene's tables are built once per scene, before the
 frames); every path also the launches of one step of the loop
 and of the frame's set-up, from the difference to the same frame at 1
-path component. Cornell, ToF, envmap and rtiow fail above 12 kernel
-launches per step of the frame; the mesh frame (4 steps, so its ~31
-launches of set-up alone come to ~8 per step) above 100 per frame,
-cornell_animated (the animations' and the moving light's rows, ~180
-launches once per frame) above 400; every
-frame above 12 per step of the loop (the city's 2 blocks of 4 steps carry
-the set-up of two blocks). Each path's counters are set to 0 just before
+path component. Cornell, ToF, envmap, rtiow and rtiow_bvh fail above 9
+kernel launches per step of the frame; the mesh frame (4 steps, so its 32
+launches of set-up alone come to 8 per step) above 60 per frame, the two
+animated frames (the animations' and the moving light's rows, ~171
+launches once per frame) above 310; every frame above 6.00 per step of
+the loop (5.00 on rtiow and rtiow_bvh: no shadow ray; the city's 2 blocks
+of 4 steps carry the set-up of two blocks). Each path's counters are set to 0 just before
 it and read just after; a kernel's `launches` in the JSON line is the sum
 over the paths that use it. The stand-alone K8 and K7 kernels run on no
 path (their work runs inside K4's shades), so their records count 0
-launches, and so does P0's; their `inline_in` lists the
-shade that does their work on a K4 path, the path and its launches there:
+launches, and so do P0's and the resolve's; their `inline_in` lists the
+kernel that does their work on a K4 path, the path and its launches there
+(the resolve's: the regenerations of each path):
 the equirect K8 record the env shade on the mesh path and the lit shade on
 the city path; the cube and constant K8 records the env shade on the
 envmap and rtiow paths; K7's two records and P0's (the material rows) the
-lit shade on the city path. Each shade, regeneration and resolve record
-counts those of its own paths (the diffuse shade, the pinhole regeneration
-and the one-deposit resolve also the two animated paths', the lens
+lit shade on the city path. Each shade and regeneration record counts
+those of its own paths (the diffuse shade and the pinhole regeneration
+also the two animated paths', the lens
 regeneration and the constant-sky env shade also the rtiow_bvh path's);
 the sweeps' records those of the cornell_animated path, K3a's those of
 both animated paths; K5's and K6's static triangle records those of the
@@ -230,19 +241,27 @@ kc = np = torch = None   # bound in main(): nothing is imported before the CUDA 
 K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path",
             "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path")
 PATHS = K4_PATHS
-# Kernel launches per step of a K4 frame's loop, and per step of the frame
-# with its set-up (all but the mesh frame, whose 4 steps carry ~31 launches of
-# set-up: it is held to MESH_MAX_FRAME_LAUNCHES instead).
-K4_MAX_LAUNCHES_PER_STEP = 12
-MESH_MAX_FRAME_LAUNCHES = 100          # kernel launches of one mesh frame
-# kernel launches of one cornell_animated frame: 16 steps, the lane state's
-# set-up and, once per frame, the animations' rows at the frame's instant
-# and the moving light's rows (~180 PyTorch launches)
-ANIM_MAX_FRAME_LAUNCHES = 400
-# kernel launches per step of the cornell_animated_bvh frame's loop: the
-# regeneration, K5, K3a, the diffuse shade, K6 and the resolve, as on
-# cornell_animated (K5's and K6's lane counters are memsets, not kernels)
-ANIM_BVH_LOOP_LAUNCHES = 7.0
+# Kernel launches per step of a K4 frame's loop: the regeneration (which
+# first adds the step before's NEE deposits and flags the loop condition),
+# the closest-hit cast, K3 or K3a, K3's hit mask (`prim >= 0`, a PyTorch
+# kernel), the shade and the any-hit cast; the two rtiow frames cast no
+# shadow ray. Each block's loop ends with one more regeneration, which the
+# frame's set-up counts (K5's and K6's lane counters and the loop flag's
+# clear are memsets, not kernels).
+K4_LOOP_LAUNCHES = 6.0
+K4_LOOP_LAUNCHES_NO_SHADOW = 5.0
+# Kernel launches per step of the frame with its set-up and its blocks'
+# last regenerations (Cornell, envmap 8.00, ToF 8.67, rtiow and rtiow_bvh
+# 6.00; the mesh frame, whose 4 steps carry 32 launches of set-up, is held
+# to MESH_MAX_FRAME_LAUNCHES instead, the animated frames to
+# ANIM_MAX_FRAME_LAUNCHES).
+K4_MAX_LAUNCHES_PER_STEP = 9
+MESH_MAX_FRAME_LAUNCHES = 60           # kernel launches of one mesh frame (56)
+# kernel launches of one cornell_animated (or cornell_animated_bvh) frame
+# (299): 16 steps, the lane state's set-up and, once per frame, the
+# animations' rows at the frame's instant and the moving light's rows (~171
+# PyTorch launches)
+ANIM_MAX_FRAME_LAUNCHES = 310
 PROFILE_TRIES = 10                     # profiles of a frame taken while the profiler loses events
 # K1's live shares (t_max > t_min) on the Cornell, ToF, envmap and rtiow
 # frames: closest casts over launches x lanes (PERF.md)
@@ -316,15 +335,18 @@ KERNELS = {
     "assemble_hit_anim": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
                           "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_anim",), PATHS),
 }
-# The stand-alone kernels whose work a K4 shade does inline: record ->
-# (shade, path) pairs. Their records count their own launches (none on any
-# path) and list in `inline_in` each shade that does their work, on which
-# path, with its launches there.
+# The stand-alone kernels whose work a K4 shade or regeneration does inline:
+# record -> (kernel, path) pairs. Their records count their own launches
+# (none on any path) and list in `inline_in` each kernel that does their
+# work, on which path, with its launches there.
 INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
           "envmap_cube": (("shade_env", "envmap path"),),
           "envmap_constant": (("shade_env", "rtiow path"), ("shade_env", "rtiow_bvh path")),
           "rgl_eval": (("shade_lit", "city path"),), "rgl_sample": (("shade_lit", "city path"),),
-          "row_gather": (("shade_lit", "city path"),)}
+          "row_gather": (("shade_lit", "city path"),),
+          # the NEE resolve: inside the next step's regeneration since PR 16
+          "nee_resolve": tuple(("regen_pinhole", p) for p in K4_PATHS if p != "city path"),
+          "nee_resolve_lit": (("regen_surround", "city path"),)}
 # The record of each K4 frame's shade, regeneration and resolve, where not
 # the kernel's own name (the mesh, Cornell and ToF frames).
 K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
@@ -333,33 +355,30 @@ K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
               ("regen_pinhole", "rtiow"): "regen_lens",
               ("regen_pinhole", "rtiow_bvh"): "regen_lens",
               ("nee_resolve", "city"): "nee_resolve_lit"}
-MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
-             "nee_resolve")
+MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse")
 TOF_PATH = MAIN_PATH
-MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit",
-             "nee_resolve")
-CITY_PATH = ("regen_surround", "bvh_closest_hit", "assemble_hit", "shade_lit", "bvh_any_hit",
-             "nee_resolve")
-# The stand-alone kernels whose work the lit shade does inline.
-CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample") + ENV_ALL
-ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit",
-               "nee_resolve")
-RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
+MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit")
+CITY_PATH = ("regen_surround", "bvh_closest_hit", "assemble_hit", "shade_lit", "bvh_any_hit")
+# The stand-alone kernels whose work the lit shade and the regeneration do
+# inline (the regenerations add the step before's NEE deposits: no resolve).
+CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample", "nee_resolve") + ENV_ALL
+ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit")
+RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env")
 # The animated frame: K4's diffuse class around the sweeps and K3a; no K1-K3
 # (the scene is swept) and no P0 (the shade reads the material rows itself).
-ANIM_PATH = ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse", "sweep_any",
-             "nee_resolve")
-ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "row_gather", "shade_env", "shade_lit")
+ANIM_PATH = ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse", "sweep_any")
+ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "row_gather", "shade_env", "shade_lit",
+               "nee_resolve")
 # The BVH paths: the full RTIOW field on the env class around K5's sphere
 # rows (no shadow ray: no K6), the animated box with spheres on the diffuse
 # class around K5/K6 in object space and K3a; neither takes K1/K2 or the sweeps.
-RTIOW_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "nee_resolve")
+RTIOW_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env")
 RTIOW_BVH_ABSENT = ("closest_hit", "any_hit", "sweep_closest", "sweep_any", "bvh_any_hit",
-                    "row_gather") + ENV_ALL
+                    "row_gather", "nee_resolve") + ENV_ALL
 ANIM_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_anim", "shade_diffuse",
-                 "bvh_any_hit", "nee_resolve")
+                 "bvh_any_hit")
 ANIM_BVH_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "sweep_closest", "sweep_any",
-                   "row_gather", "shade_env", "shade_lit")
+                   "row_gather", "shade_env", "shade_lit", "nee_resolve")
 # The K4 kernels that update the lane state in place (render/wavefront.py).
 IN_PLACE = ("regen_pinhole", "regen_surround", "shade_diffuse", "shade_env", "shade_lit")
 
@@ -666,11 +685,18 @@ def _sweep_records(scenes_on_card, fcam, errs):
     big = sw.build_sweep_scene(scenes_on_card["tri_field 3600"])
     edges["3600-triangle field camera, half the lanes dead (chunks)"] = (
         (big, None, None, kc.scatter_dead(fcam, 0.5), None),)
+    # KS2's edges, and the same table's sky shadow rays in chunks
+    any_edges = {f"edge: {k}": ((ss_, None, fr_, None, rays_),)
+                 for k, (ss_, rays_, fr_) in kc.ks2_edge_sets(DEVICE).items()}
+    big_shadow = kc.sky_shadow_lanes(lambda *r: sw.closest_sweep_plain(big, *r), fcam)
+    any_edges["3600-triangle field sky shadow, half the lanes dead (chunks)"] = (
+        (big, None, None, None, kc.scatter_dead(big_shadow, 0.5)),)
     sweep_errs = _run_checks((
         ("sweep_closest", lambda v: kc.check_sweep_closest(v[0], v[3], v[2]),
          {**{k: (v,) for k, v in sets.items()}, **edges}),
         ("sweep_any", lambda v: kc.check_sweep_any(v[0], v[4], v[2]),
-         {(k if k.endswith("random") else k + " shadow"): (v,) for k, v in sets.items()}),
+         {**{(k if k.endswith("random") else k + " shadow"): (v,) for k, v in sets.items()},
+          **any_edges}),
         ("assemble_hit_anim", assemble,
          {k: (v,) for k, v in sets.items() if v[2] is not None}),
         ("assemble_hit", assemble, {"tri_sphere_field, the sweep's winners":
@@ -853,7 +879,7 @@ def _frame_casts(scenes_on_card):
                         ("cornell_animated", kc.cornell_animated_frame)):
         render = make(DEVICE, scenes_on_card.get(frame))
         render()
-        rows = cast_steps.cast_rows(frame, render, DEVICE)
+        rows = cast_steps.cast_rows(frame, render, DEVICE) + cast_steps.k3_rows(frame, render)
         for r in rows:
             print(f"kernels: {cast_steps.format_row(r)}, bit-equal to the plain version")
         for line in cast_steps.summary(rows):
@@ -993,12 +1019,13 @@ def _report(label, stats, times, paths, render, short=None, max_per_step=None,
 
 def phase_main_path():
     render = kc.bench_frame(DEVICE)
-    img, stats, launches, times = _drive("main path", render, MAIN_PATH, ("row_gather",))
+    img, stats, launches, times = _drive("main path", render, MAIN_PATH,
+                                         ("row_gather", "nee_resolve"))
     print(f"main path: mean radiance {float(img.double().mean())!r} (reference {kc.REF_MEAN}), "
           f"stats {stats} (reference {list(kc.REF_STATS)})")
     kc.check_bench_frame(img, stats)
     _report("main path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2, render,
-            kc.bench_frame(DEVICE, depth=1), K4_MAX_LAUNCHES_PER_STEP, K4_MAX_LAUNCHES_PER_STEP)
+            kc.bench_frame(DEVICE, depth=1), K4_MAX_LAUNCHES_PER_STEP, K4_LOOP_LAUNCHES)
     return launches
 
 
@@ -1010,53 +1037,54 @@ def phase_city_path(city_scene):
     kc.check_city_frame(img, stats)
     _report("city path", stats, times, kc.CITY_WIDTH * kc.CITY_HEIGHT * kc.CITY_SSQRT ** 2,
             render, kc.city_frame(DEVICE, city_scene, depth=1),
-            max_loop_per_step=K4_MAX_LAUNCHES_PER_STEP)
+            max_loop_per_step=K4_LOOP_LAUNCHES)
     return launches
 
 
 def phase_mesh_path(mesh_scene):
     render = kc.mesh_frame(DEVICE, mesh_scene)
     img, stats, launches, times = _drive("mesh path", render, MESH_PATH,
-                                         ("row_gather",) + ENV_ALL)
+                                         ("row_gather", "nee_resolve") + ENV_ALL)
     print(f"mesh path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.MESH_REF_MEAN}), stats {stats} (reference {list(kc.MESH_REF_STATS)})")
     kc.check_mesh_frame(img, stats)
     _report("mesh path", stats, times, kc.MESH_WIDTH * kc.MESH_HEIGHT * kc.MESH_SSQRT ** 2,
             render, kc.mesh_frame(DEVICE, mesh_scene, depth=1),
-            max_loop_per_step=K4_MAX_LAUNCHES_PER_STEP, max_frame=MESH_MAX_FRAME_LAUNCHES)
+            max_loop_per_step=K4_LOOP_LAUNCHES, max_frame=MESH_MAX_FRAME_LAUNCHES)
     return launches
 
 
 def phase_envmap_path(env_scene):
     render = kc.envmap_frame(DEVICE, env_scene)
     img, stats, launches, times = _drive("envmap path", render, ENVMAP_PATH,
-                                         ("row_gather",) + ENV_ALL)
+                                         ("row_gather", "nee_resolve") + ENV_ALL)
     print(f"envmap path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.ENVMAP_REF_MEAN}), stats {stats} "
           f"(reference {list(kc.ENVMAP_REF_STATS)})")
     kc.check_envmap_frame(img, stats)
     _report("envmap path", stats, times, kc.ENVMAP_WIDTH ** 2 * kc.ENVMAP_SSQRT ** 2,
             render, kc.envmap_frame(DEVICE, env_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
-            K4_MAX_LAUNCHES_PER_STEP)
+            K4_LOOP_LAUNCHES)
     return launches
 
 
 def phase_rtiow_path(rt_scene):
     render = kc.rtiow_frame(DEVICE, rt_scene)
     img, stats, launches, times = _drive("rtiow path", render, RTIOW_PATH,
-                                         ("row_gather", "any_hit") + ENV_ALL)
+                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ALL)
     print(f"rtiow path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.RTIOW_REF_MEAN}), stats {stats} (reference {list(kc.RTIOW_REF_STATS)})")
     kc.check_rtiow_frame(img, stats)
     _report("rtiow path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2,
             render, kc.rtiow_frame(DEVICE, rt_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
-            K4_MAX_LAUNCHES_PER_STEP)
+            K4_LOOP_LAUNCHES_NO_SHADOW)
     return launches
 
 
 def phase_tof_path(tof_scene):
     render = kc.tof_frame(DEVICE, tof_scene)
-    img, stats, launches, times = _drive("tof path", render, TOF_PATH, ("row_gather",))
+    img, stats, launches, times = _drive("tof path", render, TOF_PATH,
+                                         ("row_gather", "nee_resolve"))
     channels = [float(img[..., c].double().mean()) for c in range(3)]
     print(f"tof path: phase 0 mean energy {float(img.double().mean())!r} J (reference "
           f"{kc.TOF_REF_MEAN}), channels a, b, energy {channels} (reference "
@@ -1064,7 +1092,7 @@ def phase_tof_path(tof_scene):
     kc.check_tof_frame(img, stats)
     _report("tof path", stats, times, kc.TOF_WIDTH ** 2 * kc.TOF_SSQRT ** 2, render,
             kc.tof_frame(DEVICE, tof_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
-            K4_MAX_LAUNCHES_PER_STEP)
+            K4_LOOP_LAUNCHES)
     # Phases 1-3: the same paths (the counters), the same energy; tau = pi
     # swaps the two buckets.
     for i in (1, 2, 3):
@@ -1092,7 +1120,7 @@ def phase_anim_path(scene):
     kc.check_cornell_animated_frame(img, stats)
     _report("cornell_animated path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2,
             render, kc.cornell_animated_frame(DEVICE, scene, depth=1),
-            max_loop_per_step=K4_MAX_LAUNCHES_PER_STEP, max_frame=ANIM_MAX_FRAME_LAUNCHES)
+            max_loop_per_step=K4_LOOP_LAUNCHES, max_frame=ANIM_MAX_FRAME_LAUNCHES)
     return launches
 
 
@@ -1106,7 +1134,7 @@ def phase_rtiow_bvh_path(scene):
     kc.check_rtiow_bvh_frame(img, stats)
     _report("rtiow_bvh path", stats, times, kc.RTIOW_WIDTH * kc.RTIOW_HEIGHT * kc.RTIOW_SSQRT ** 2,
             render, kc.rtiow_bvh_frame(DEVICE, scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
-            K4_MAX_LAUNCHES_PER_STEP)
+            K4_LOOP_LAUNCHES_NO_SHADOW)
     return launches
 
 
@@ -1120,7 +1148,7 @@ def phase_anim_bvh_path(scene):
     kc.check_cornell_animated_bvh_frame(img, stats)
     _report("cornell_animated_bvh path", stats, times, kc.BENCH_WIDTH ** 2 * kc.BENCH_SSQRT ** 2,
             render, kc.cornell_animated_bvh_frame(DEVICE, scene, depth=1),
-            max_loop_per_step=ANIM_BVH_LOOP_LAUNCHES, max_frame=ANIM_MAX_FRAME_LAUNCHES)
+            max_loop_per_step=K4_LOOP_LAUNCHES, max_frame=ANIM_MAX_FRAME_LAUNCHES)
     return launches
 
 

@@ -165,37 +165,44 @@ extern "C" int host_shade_env(
 template <int CAMERA>
 static void regen(const WaveState* st, float* t_max, int n, const Camera& cam, long long blk,
                   int B, int m, long long P, long long n_pix, int width, int height, int ssqrt,
-                  int randomize) {
+                  int randomize, const Pending& pend, int* work) {
     const WaveState s = *st;
-    gridDim = {static_cast<unsigned>((n + 255) / 256), 1, 1};
-    blockDim = {256, 1, 1};
-    for (int i = 0; i < n; ++i) {   // no barrier: one thread after another
-        threadIdx = {static_cast<unsigned>(i % 256), 0, 0};
-        blockIdx = {static_cast<unsigned>(i / 256), 0, 0};
+    *work = 0;   // the C entry point's memset
+    run_blocks((n + 255) / 256, 256, [&] {
         regen_kernel<CAMERA>(s, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt,
-                             randomize);
-    }
+                             randomize, pend, work);
+    });
 }
 
-// wpt_regen_pinhole's and wpt_regen_surround's arguments (the stream left out).
-extern "C" void host_regen_pinhole(const WaveState* st, float* t_max, int n, const float* centre,
-                                   const float* focal, const float* translation,
-                                   const float* rotation, const float* dist_k,
-                                   const float* dist_p, int lens, int iters, long long blk, int B,
-                                   int m, long long P, long long n_pix, int width, int height,
-                                   int ssqrt, int randomize) {
+// wpt_regen_pinhole's and wpt_regen_surround's arguments (the stream left
+// out); each returns its entry point's code.
+extern "C" int host_regen_pinhole(const WaveState* st, float* t_max, int n, const float* centre,
+                                  const float* focal, const float* translation,
+                                  const float* rotation, const float* dist_k,
+                                  const float* dist_p, int lens, int iters, long long blk, int B,
+                                  int m, long long P, long long n_pix, int width, int height,
+                                  int ssqrt, int randomize, const float* pending,
+                                  const bool* occluded, int n_pend, int n_acc, int* work) {
+    if (!pending_ok(pending, occluded, n_pend)) return -1;
     const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
                      nullptr, nullptr, 0.f, 0.f, 0.f, 0};
-    regen<CAM_PINHOLE>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+    regen<CAM_PINHOLE>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
+                       Pending{pending, occluded, n_pend, n_acc}, work);
+    return 0;
 }
 
-extern "C" void host_regen_surround(const WaveState* st, float* t_max, int n,
-                                    const float* translation, const float* rotation,
-                                    const float* scale, const float* eye_distance, float span,
-                                    float inv_width, float inv_eff_height, int stereo,
-                                    long long blk, int B, int m, long long P, long long n_pix,
-                                    int width, int height, int ssqrt, int randomize) {
+extern "C" int host_regen_surround(const WaveState* st, float* t_max, int n,
+                                   const float* translation, const float* rotation,
+                                   const float* scale, const float* eye_distance, float span,
+                                   float inv_width, float inv_eff_height, int stereo,
+                                   long long blk, int B, int m, long long P, long long n_pix,
+                                   int width, int height, int ssqrt, int randomize,
+                                   const float* pending, const bool* occluded, int n_pend,
+                                   int n_acc, int* work) {
+    if (!pending_ok(pending, occluded, n_pend)) return -1;
     const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
                      scale, eye_distance, span, inv_width, inv_eff_height, stereo};
-    regen<CAM_SURROUND>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+    regen<CAM_SURROUND>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
+                        Pending{pending, occluded, n_pend, n_acc}, work);
+    return 0;
 }

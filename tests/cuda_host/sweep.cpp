@@ -1,11 +1,11 @@
 // The sweeps KS1/KS2 (csrc/sweep_closest.cu, csrc/sweep_any.cu) and the hit
 // assembly K3/K3a (csrc/assemble_hit.cu) on the CPU through cuda_runtime.h:
-// each launch's blocks one after another, each as its threads, KS1 with the
-// layout and grid its C entry point picks (cuda_runtime.h's 2 resident
-// blocks: blocks loop over tiles). The *_device.cuh files are the sources up
-// to their C entry points (the test cuts them there and gives KS1's dynamic
-// shared memory a static array); assemble_hit.cu has names of its own, so
-// it is built apart (K3A defined).
+// each launch's blocks one after another, each as its threads, the sweeps
+// with the layout and grid their C entry points pick (cuda_runtime.h's 2
+// resident blocks: blocks loop over tiles). The *_device.cuh files are the
+// sources up to their C entry points (the test cuts them there and gives the
+// sweeps' dynamic shared memory a static array); assemble_hit.cu has names
+// of its own, so it is built apart (K3A defined).
 #include <thread>
 #include <vector>
 
@@ -65,10 +65,9 @@ extern "C" void host_assemble_hit_anim(const float* o, const float* d, const flo
     });
 }
 #else
-using wpt_sweep::BLOCK;
-
-// wpt_sweep_closest's and wpt_sweep_any's arguments but the stream;
-// host_sweep_closest returns whether the table was staged whole.
+// wpt_sweep_closest's and wpt_sweep_any's arguments but the stream, launched
+// with the layout and grid of their C entry points; each returns whether the
+// table was staged whole.
 extern "C" int host_sweep_closest(const float* o, const float* d, const float* tmin,
                                   const float* tmax, int n, const float* tri,
                                   const int* tri_anim, int n_tris, const float* sph,
@@ -90,14 +89,23 @@ extern "C" int host_sweep_closest(const float* o, const float* d, const float* t
     return whole;
 }
 
-extern "C" void host_sweep_any(const float* o, const float* d, const float* tmin,
-                               const float* tmax, int n, const float* tri, const int* tri_anim,
-                               int n_tris, const float* sph, const int* sph_anim, int n_spheres,
-                               const float* frames, bool* occ) {
-    run_blocks((n + BLOCK - 1) / BLOCK, BLOCK, [&] {
-        sweep_any_kernel(o, d, tmin, tmax, n, reinterpret_cast<const float4*>(tri), tri_anim,
-                         n_tris, reinterpret_cast<const float4*>(sph), sph_anim, n_spheres,
-                         frames, occ);
+extern "C" int host_sweep_any(const float* o, const float* d, const float* tmin,
+                              const float* tmax, int n, const float* tri, const int* tri_anim,
+                              int n_tris, const float* sph, const int* sph_anim, int n_spheres,
+                              const float* frames, bool* occ) {
+    const bool whole = staged_whole(n_tris, n_spheres);
+    const int blocks = any_resident_blocks(n_tris, n_spheres);
+    const int tile = wpt_queue::tile_lanes(n, blocks);
+    const auto* tri4 = reinterpret_cast<const float4*>(tri);
+    const auto* sph4 = reinterpret_cast<const float4*>(sph);
+    run_blocks(min(blocks, (n + tile - 1) / tile), wpt_queue::QBLOCK, [&] {
+        if (whole)
+            sweep_any_kernel<true>(o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4,
+                                   sph_anim, n_spheres, frames, occ);
+        else
+            sweep_any_kernel<false>(o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4,
+                                    sph_anim, n_spheres, frames, occ);
     });
+    return whole;
 }
 #endif

@@ -69,7 +69,7 @@ def k4(tmp_path_factory):
         getattr(lib, f"host_{name}").restype = ctypes.c_int
     for name in ("regen_pinhole", "regen_surround"):
         getattr(lib, f"host_{name}").argtypes = sig[f"wpt_{name}"][:-1]
-        getattr(lib, f"host_{name}").restype = None
+        getattr(lib, f"host_{name}").restype = ctypes.c_int
     return lib
 
 
@@ -127,14 +127,18 @@ def _queued_inputs(case, sensor=None):
 
 
 def _host_regen(lib):
-    """regen_pinhole's and regen_surround's contract through the host build."""
-    def regen(st, sample, k_next, cam, cam_cfg, lanes, randomize):
+    """regen_pinhole's and regen_surround's contract through the host build
+    (the step before's pending deposits added first, the loop flag)."""
+    def regen(st, sample, k_next, cam, cam_cfg, lanes, randomize, pending=None, occluded=None):
         t_max = torch.full((st.active.shape[0],), -1.0)
-        args, keep = wf.regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max)
+        work = torch.full((1,), -1, dtype=torch.int32)
+        n_pend = wf._check_pending("host regen", st.acc, pending, occluded)
+        args, keep = wf.regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max,
+                                   pending, occluded, n_pend, work)
         fn = lib.host_regen_surround if wf._surround(cam_cfg) else lib.host_regen_pinhole
-        fn(*args)
+        assert fn(*args) == 0
         del keep
-        return st, sample, k_next, t_max
+        return st, sample, k_next, t_max, work
     return regen
 
 
@@ -277,19 +281,28 @@ def test_host_diffuse_and_env_shades_write_only_what_the_contract_names(k4, case
 
 
 @pytest.mark.parametrize("case", ["city, fresh block", "city, 4 spp", "rtiow lens, OPENCV",
-                                  "rtiow lens, RADIAL_ONLY"])
+                                  "rtiow lens, RADIAL_ONLY", "cornell"])
 def test_host_regeneration_matches_the_plain_one(k4, case):
-    """The regenerations in place: the regenerated lanes' state, sample ids
-    and next indices, every lane's t_max, the kept lanes untouched."""
+    """The regenerations in place: the step before's pending deposits
+    added to acc (the city's two rows per lane, Cornell's one; none on the
+    fresh block and rtiow), the loop flag, the regenerated lanes' state,
+    sample ids and next indices, every lane's t_max, the kept lanes
+    untouched."""
     if case.startswith("city"):
         inp = _small_inputs(steps=0 if case.endswith("fresh block") else 2,
                             ssqrt=1 if case.endswith("fresh block") else 2)
+    elif case == "cornell":
+        inp, _ = _queued_inputs("cornell")
     else:
         model = DistortionModel.OPENCV if case.endswith("OPENCV") else DistortionModel.RADIAL_ONLY
         inp = kc.k4_inputs("cpu", "rtiow", width=24, height=16, ssqrt=2, m=2,
                            cfg=CameraConfig(distortion=model, undistort_iters=8))
     need = kc.regenerated_lanes(inp)
     assert need > 0
+    pending = inp.regen[7]
+    assert (pending is not None) == (case in ("city, 4 spp", "cornell"))
+    if pending is not None:   # deposits that change acc, and occluded ones
+        assert bool((pending != 0).any()) and bool(inp.regen[8].any())
     st = inp.regen[0]
     before = [x.clone() for x in st]
     _held(kc.check_call(_host_regen(k4), wf.regen_plain, inp.regen))

@@ -359,12 +359,12 @@ def test_mesh_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     native.reset_launch_counts()
     img, stats = kc.mesh_frame(gpu, _terrain(gpu))()
     kc.check_mesh_frame(img, stats)
-    # K4's env class: the shade reads the sky inline, no stand-alone K8 or P0
-    for name in ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit",
-                 "nee_resolve"):
+    # K4's env class: the shade reads the sky inline, no stand-alone K8 or P0;
+    # the regeneration adds the NEE deposits, no resolve
+    for name in ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit"):
         assert native.LAUNCHES[name] > 0, name
     for name in ("closest_hit", "any_hit", "env_radiance", "env_sample", "env_pdf", "row_gather",
-                 "shade_diffuse"):
+                 "shade_diffuse", "nee_resolve"):
         assert native.LAUNCHES[name] == 0, name
 
 
@@ -658,16 +658,16 @@ def test_city_frame_check_holds_the_reference(off):
 @pytest.mark.cuda
 def test_city_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     """The city frame through K4's lit class: the surround regeneration, K5,
-    K3, the lit shade (RGL, the sky and the material rows inline), K6 and
-    the resolve; no stand-alone K7, K8 or P0 launch."""
+    K3, the lit shade (RGL, the sky and the material rows inline) and K6,
+    the NEE deposits added by the next regeneration; no stand-alone K7, K8,
+    P0 or resolve launch."""
     native.reset_launch_counts()
     img, stats = kc.city_frame(gpu, _city(gpu))()
     kc.check_city_frame(img, stats)
-    for name in ("regen_surround", "assemble_hit", "bvh_closest_hit", "shade_lit", "bvh_any_hit",
-                 "nee_resolve"):
+    for name in ("regen_surround", "assemble_hit", "bvh_closest_hit", "shade_lit", "bvh_any_hit"):
         assert native.LAUNCHES[name] > 0, name
     for name in ("env_radiance", "env_sample", "env_pdf", "rgl_eval", "rgl_sample",
-                 "row_gather"):
+                 "row_gather", "nee_resolve"):
         assert native.LAUNCHES[name] == 0, name
 
 
@@ -781,7 +781,7 @@ def test_tof_frame_check_holds_the_reference(off):
 def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):
     env_scene, rt_scene = _sphere_scenes(gpu)
     native.reset_launch_counts()
-    need = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "nee_resolve")
+    need = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env")
     if frame == "envmap":
         img, stats = kc.envmap_frame(gpu, env_scene)()
         kc.check_envmap_frame(img, stats)
@@ -792,7 +792,7 @@ def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):
         assert native.LAUNCHES["any_hit"] == 0            # no light, no sky importance
     for name in need:                                    # K4's env class
         assert native.LAUNCHES[name] > 0, name
-    for name in ("row_gather", "env_radiance", "env_sample", "env_pdf"):
+    for name in ("row_gather", "env_radiance", "env_sample", "env_pdf", "nee_resolve"):
         assert native.LAUNCHES[name] == 0, name          # the shade reads rows and sky inline
 
 
@@ -971,9 +971,9 @@ def test_cornell_animated_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     img, stats = kc.cornell_animated_frame(gpu)()
     kc.check_cornell_animated_frame(img, stats)
     for name in ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse",
-                 "sweep_any", "nee_resolve"):
+                 "sweep_any"):
         assert native.LAUNCHES[name] > before[name]
-    for name in ("closest_hit", "any_hit", "assemble_hit", "row_gather"):
+    for name in ("closest_hit", "any_hit", "assemble_hit", "row_gather", "nee_resolve"):
         assert native.LAUNCHES[name] == before[name]
 
 

@@ -223,23 +223,28 @@ def test_plain_assembly_matches_jax_assemble_hit(which):
 def host(tmp_path_factory):
     """The kernels' device code built with g++ (tests/cuda_host/sweep.cpp):
     the sweeps in one library, K3/K3a in another; "sweep chunked" the
-    sweeps again with KS1's table in chunks of 16 primitives."""
+    sweeps again with their tables in chunks of 16 primitives."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++")
     dynamic = ("extern __shared__ float4 s_rows[];", "static float4 s_rows[131072 / 16];")
-    chunked = (dynamic, ("STAGE_MAX = 131072;", "STAGE_MAX = 1024;"),
-               ("KS1_CHUNK = 256;", "KS1_CHUNK = 16;"))
+    chunked = (("STAGE_MAX = 131072;", "STAGE_MAX = 1024;"), ("CHUNK = 256;", "CHUNK = 16;"))
     libs = {}
-    for key, flags, subs in (("sweep", [], (dynamic,)), ("k3", ["-DK3A"], ()),
-                             ("sweep chunked", [], chunked)):
+    for key, flags, common in (("sweep", [], ()), ("k3", ["-DK3A"], ()),
+                               ("sweep chunked", [], chunked)):
         out = tmp_path_factory.mktemp(key.replace(" ", "_"))
         for name in ("sweep_closest", "sweep_any", "assemble_hit"):
             src = (SRC_DIR / f"{name}.cu").read_text()
-            for old, new in subs if name == "sweep_closest" else ():
-                assert old in src
-                src = src.replace(old, new)
+            if name != "assemble_hit":
+                assert dynamic[0] in src
+                src = src.replace(*dynamic)
             (out / f"{name}_device.cuh").write_text(src[:src.index('extern "C"')])
+        if common:   # the sweeps' staging constants, read before SRC_DIR's copy
+            src = (SRC_DIR / "sweep_common.cuh").read_text()
+            for old, new in common:
+                assert src.count(old) == 1
+                src = src.replace(old, new)
+            (out / "sweep_common.cuh").write_text(src)
         lib = out / f"lib{key.replace(' ', '_')}.so"
         subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
                         "-pthread", *flags, f"-I{out}", f"-I{HOST}", f"-I{SRC_DIR}", "-o",
@@ -377,6 +382,66 @@ def test_ks1_queue_on_the_host_matches_the_plain_version(host, build, case):
         for lanes in (slice(n // 2, 3 * n // 4), slice(3 * n // 4, n)):
             moved = pp[lanes] != unbounded[lanes]
             assert 0 < int(moved.sum()) < int((unbounded[lanes] >= 0).sum())
+
+
+@functools.lru_cache(maxsize=1)
+def _ks2_edge_sets():
+    return kc.ks2_edge_sets("cpu", 1100)
+
+
+def _ks2_case(case):
+    """(SweepScene, rays, frames or None): an edge set, the cornell_animated
+    block's NEE shadow rays with dead lanes scattered, or the static
+    field's sky shadow rays."""
+    if case in _ks2_edge_sets():
+        return _ks2_edge_sets()[case]
+    if case.startswith("dead"):
+        anim = scenes.cornell_box_animated("cpu")
+        ss, fr = sw.build_sweep_scene(anim), kc.frames_at(anim)
+        shadow = kc.anim_shadow_lanes(anim, ss, fr, kc.camera_lanes(40, 30, 1, "cpu"))
+        return ss, kc.scatter_dead(shadow, int(case.split()[1]) / 100, 7), fr
+    field = scenes.tri_sphere_field(n_tris=400, n_spheres=40, device="cpu")
+    ss = sw.build_sweep_scene(field)
+    rays = kc.camera_lanes(20, 15, 1, "cpu", camera=scenes.field_camera("cpu"))
+    shadow = kc.sky_shadow_lanes(lambda *r: sw.closest_sweep_plain(ss, *r), rays)
+    return ss, kc.scatter_dead(shadow, 0.5, 10), None
+
+
+@pytest.mark.parametrize("build", ["sweep", "sweep chunked"])
+@pytest.mark.parametrize("case", ["dead 0", "dead 50", "dead 90", "dead 100",
+                                  "blocker last, triangle, static", "blocker last, sphere",
+                                  "blocker in one animation's object space", "one live lane",
+                                  "edges, grazing", "t a float inside or outside (t_min, t_max)",
+                                  "t_max <= t_min, stale directions", "static field"])
+def test_ks2_queue_on_the_host_matches_the_plain_version(host, build, case):
+    """KS2's live-lane queue, split walk and early stop against its plain
+    version, bit for bit: the occlusion of every lane, dead lanes (t_max <=
+    t_min, NaN included, whatever their directions) unoccluded."""
+    ss, rays, fr = _ks2_case(case)
+    n = rays[0].shape[0]
+    occ = torch.ones((n,), dtype=torch.bool)
+    staged = host[build].host_sweep_any(
+        *(x.data_ptr() for x in rays), n, ss.tri.data_ptr(), ss.tri_anim.data_ptr(), ss.n_tris,
+        ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), occ.data_ptr())
+    assert bool(staged) == (build == "sweep")
+    plain = sw.any_sweep_plain(ss, *rays, fr)
+    assert torch.equal(occ, plain)
+    live = rays[3] > rays[2]
+    assert not bool(occ[~live].any())
+    n_live, n_occ = int(live.sum()), int(occ.sum())
+    if case.startswith("blocker last"):   # every live lane's one blocker is the last row
+        assert n_live > 0.5 * n and bool(occ[live].all())
+    elif case == "blocker in one animation's object space":
+        at_rest = sw.any_sweep_plain(ss, *rays, None)
+        assert int((occ & ~at_rest).sum()) > 0.2 * n
+    elif case == "one live lane":
+        assert n_live == 1 and n_occ == 1
+    elif case == "t_max <= t_min, stale directions":   # dead rows the stale rays would block
+        o, d, t_min, _ = rays
+        stale = sw.any_sweep_plain(ss, o, d, t_min, torch.full_like(t_min, kc.BIG), fr)
+        assert int((stale & ~live).sum()) > 0.2 * n and 0 < n_occ < n_live
+    elif case != "dead 100":
+        assert 0 < n_occ < n_live
 
 
 def _jax_field(n_tris, n_spheres, seed):

@@ -39,10 +39,12 @@ def gpu():
 
 
 def _split_step(inp):
-    """One K4 step on the CPU from the regeneration's inputs: regen_plain, K1,
-    K3, shade_diffuse_plain, K2 and nee_resolve_plain. Returns (the
-    regenerated state, its sample ids, the next state, its cast counts)."""
-    st, sample, k_next, t_max = wf.regen_plain(*inp.regen)
+    """One K4 step on the CPU from the regeneration's inputs: regen_plain
+    (with the step before's deposits), K1, K3, shade_diffuse_plain, K2 and
+    the step's deposits (nee_resolve_plain's, which the next regeneration
+    adds). Returns (the regenerated state, its sample ids, the next state,
+    its cast counts)."""
+    st, sample, k_next, t_max, _ = wf.regen_plain(*inp.regen)
     tables, sensor, params = inp.shade[:3]
     lanes = inp.regen[5]
     n = st.active.shape[0]
@@ -234,10 +236,9 @@ def test_tof_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     native.reset_launch_counts()
     img, stats = kc.tof_frame(gpu)()
     kc.check_tof_frame(img, stats)
-    for name in ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse",
-                 "nee_resolve"):
+    for name in ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse"):
         assert native.LAUNCHES[name] > 0, name
-    assert native.LAUNCHES["row_gather"] == 0
+    assert native.LAUNCHES["row_gather"] == native.LAUNCHES["nee_resolve"] == 0
     assert kc.tof_distance_check(gpu)["median_abs_err_m"] < kc.TOF_DISTANCE_MEDIAN_MAX
 
 
@@ -267,19 +268,28 @@ def test_k4_bounds_count_what_each_branch_reads(frame):
     (cornell) only on hit lanes whose last scatter was sampled; the resolve
     reads pending deposits only on unoccluded lanes."""
     inp = kc.k4_inputs("cpu", frame, **SMALL)
-    st, _, k_next, _, _, lanes, _ = inp.regen
+    st, _, k_next, _, _, lanes, _, pending, occluded = inp.regen
     n = st.active.shape[0]
     need = int(((~st.active) & (k_next < lanes.P) & lanes.valid).sum())
     assert 0 < need < n
     kept = 8 + 8 + 12 + 12 + 16 + 16 + 4 + 16 + 4 + 4       # sample, bounce .. prev_light_pdf
     written = 8 + 12 + 12 + 16 + 16 + 1 + 4 + 16 + 4 + 1 + 4 + 8 + 8 + 4
     camera = 4 * (2 + 2 + 3 + 4)
+    # the step before's deposits: acc and the occlusion flag read on every
+    # lane, the deposit on unoccluded ones, acc written where a bit changes
+    # (every lane's acc under the copy contract), the loop flag
+    n_open = int((~occluded).sum())
+    changed = int((wf.deposit_pending(st.acc, pending, occluded).view(torch.int32)
+                   != st.acc.view(torch.int32)).sum())
+    assert 0 < n_open < n and 0 < changed < 3 * n
+    deposit = n * (12 + 1) + 12 * n_open + 4
     assert (kc.k4_work(inp, "regen_pinhole", in_place=False)[0]
-            == n * 10 + (n - need) * kept + n * written + camera)
+            == n * 10 + (n - need) * kept + n * written + camera + deposit + n * 12)
     dead = int((~st.active).sum())
     assert need <= dead
     refill = 8 + 12 + 12 + 16 + 16 + 1 + 4 + 16 + 4 + 1 + 4 + 8 + 8     # state, sample, k_next
-    assert kc.k4_work(inp, "regen_pinhole")[0] == n * (1 + 4) + dead * 8 + need * refill + camera
+    assert (kc.k4_work(inp, "regen_pinhole")[0]
+            == n * (1 + 4) + dead * 8 + need * refill + camera + deposit + 4 * changed)
     assert kc.k4_work(inp, "regen_pinhole")[1] == kc.k4_work(inp, "regen_pinhole", False)[1]
 
     tables, _, _, sst, _, _, _, prim, _ = inp.shade

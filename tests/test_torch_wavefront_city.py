@@ -88,11 +88,12 @@ def _small_inputs(scene=None, sensor=None, steps=2, ssqrt=1):
 
 def _split_step(inp):
     """One lit-class K4 step on the CPU from the regeneration's inputs:
-    regen_plain, the closest-hit cast, K3, shade_lit_plain, one any-hit cast
-    of the light and sky shadow rays and nee_resolve_plain. Returns (the
-    regenerated state, its sample ids, the next state, its hit record and
-    cast)."""
-    st, sample, k_next, t_max = wf.regen_plain(*inp.regen)
+    regen_plain (with the step before's two deposits per lane), the
+    closest-hit cast, K3, shade_lit_plain, one any-hit cast of the light and
+    sky shadow rays and their deposits (nee_resolve_plain's, which the next
+    regeneration adds). Returns (the regenerated state, its sample ids, the
+    next state, its hit record and cast)."""
+    st, sample, k_next, t_max, _ = wf.regen_plain(*inp.regen)
     tables, sensor, params = inp.shade[:3]
     lanes = inp.regen[5]
     n = st.active.shape[0]
@@ -208,14 +209,14 @@ def test_surround_regen_matches_the_jax_camera(cfg):
 
     ssqrt = 2
     inp = _small_inputs(ssqrt=ssqrt)
-    st, sample, k_next, _, _, lanes, _ = inp.regen
+    st, sample, k_next, _, _, lanes = inp.regen[:6]
     need = ((~st.active) & (k_next < lanes.P) & lanes.valid).numpy()
     assert 0 < need.sum() < need.size
     with jax.default_device(jax.devices("cpu")[0]):
         jcam = jmake_camera(transformation=jfrom_lookat((0.0, 3.5, 14.0), (0.0, 1.5, 0.0)),
                             vfov_deg=50.0, width=W, height=H, eye_distance=kc.CITY_EYE_DISTANCE)
         cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
-        new, new_sample, _, _ = wf.regen_plain(st, sample, k_next, cam, cfg, lanes, True)
+        new, new_sample, _, _, _ = wf.regen_plain(st, sample, k_next, cam, cfg, lanes, True)
         s_new = new_sample.numpy()[need].astype(np.int32)
         uj = np.asarray(juniform2(jnp.asarray(lanes.pixel.numpy()[need].astype(np.int32)),
                                   jnp.asarray(s_new), 0, JSalt.PIXEL_JITTER))
@@ -260,7 +261,8 @@ def test_the_city_block_regenerates_every_lane_on_its_first_step_only():
     res = kc.check_k4(fresh)
     assert all(v == 0 for v in res["regen_surround"].values()), res
     assert kc.k4_work(fresh, "regen_surround")[1] == 180.0 * W * H
-    assert kc.k4_work(later, "regen_surround")[1] == 0.0
+    # later: no refill, only the step before's deposits (3 adds per open row)
+    assert kc.k4_work(later, "regen_surround")[1] == 3.0 * int((~later.regen[8]).sum())
 
 
 def _bits(x):
@@ -275,8 +277,9 @@ def test_in_place_lit_wrappers_leave_alone_what_the_contract_leaves_alone():
     """On CPU tensors regen_surround and shade_lit keep the kernels' in-place
     contract: they return the tensors they were given, the lanes and fields
     the contract does not write keep their bits, and what they write is the
-    plain version's output. The regeneration leaves every lane it does not
-    refill as it was; the shade changes on a dead lane only the previous
+    plain version's output. The regeneration adds the step before's
+    deposits to acc on every lane and leaves every other field of a lane it
+    does not refill as it was; the shade changes on a dead lane only the previous
     sample's pdf and flag, on an escaped lane not its origin, direction,
     ray IOR, throughput or path lengths, and on a hit lane that does not
     scatter not its direction, throughput or ray IOR."""
@@ -291,10 +294,12 @@ def test_in_place_lit_wrappers_leave_alone_what_the_contract_leaves_alone():
     ref = wf.regen_plain(*inp.regen)
     for f, a, b, r in zip((*wf.LoopState._fields, "sample", "k_next"), before,
                           (*st, sample, k_next), (*ref[0], ref[1], ref[2])):
-        if f != "stats":
+        if f == "acc":
+            assert _rows_equal(b, r, torch.ones_like(need)) and not _rows_equal(a, b, ~need)
+        elif f != "stats":
             assert _rows_equal(a, b, ~need), f
             assert _rows_equal(b, r, need), f
-    assert torch.equal(out[3], ref[3])
+    assert torch.equal(out[3], ref[3]) and torch.equal(out[4], ref[4])
 
     inp = _small_inputs(scene=_mixed_lobes(_small_city()), steps=2)
     args = kc.fresh_args(inp.shade)
@@ -338,18 +343,21 @@ def test_check_k4_leaves_its_inputs_as_they_were():
 
 def test_k4_steps_records_and_checks_every_lit_call_of_the_small_city():
     """utils/k4_steps.py on the small city frame (one block of 1152 lanes, 4
-    steps): a surround regeneration and a lit shade per step, each held to
-    its plain version (0 everywhere on the CPU, where the wrappers run
-    them), with its lanes, live lanes (active at the shade: all at the first
-    step, fewer after) and regenerated lanes (all at the first step, none
-    after, at 1 spp), and bounds in place below the copying ones."""
+    steps): a surround regeneration and a lit shade per step and the
+    regeneration that ends the block (it adds the last step's deposits and
+    finds no work), each held to its plain version (0 everywhere on the
+    CPU, where the wrappers run them), with its lanes, live lanes (active at
+    the shade: all at the first step, fewer after) and regenerated lanes
+    (all at the first step, none after, at 1 spp), and bounds in place below
+    the copying ones."""
     from wurblpt_tpu_torch.utils import k4_steps
 
     render = kc._frame(_small_city(), scenes.city_camera("cpu"), W, H, 1, 4, "cpu", CITY_CFG,
                        kc.CITY_EYE_DISTANCE)
     rows = k4_steps.k4_rows("city", render, "cpu", n=1)
     assert [(r["kernel"], r["step"]) for r in rows] == [
-        (k, s) for s in range(4) for k in ("regen_surround", "shade_lit")]
+        (k, s) for s in range(4) for k in ("regen_surround", "shade_lit")] + [
+        ("regen_surround", 4)]
     for r in rows:
         assert r["lanes"] == W * H and r["max_abs_err"] == 0.0 and r["discrete_differ"] == 0
         assert r["bound_ms"] <= r["copy_bound_ms"] and r["bytes"] <= r["copy_bytes"]
@@ -357,7 +365,8 @@ def test_k4_steps_records_and_checks_every_lit_call_of_the_small_city():
     regens = [r for r in rows if r["kernel"] == "regen_surround"]
     assert shades[0]["live"] == W * H > shades[1]["live"] >= shades[3]["live"] > 0
     assert regens[0]["regenerated"] == W * H and all(r["regenerated"] == 0 for r in regens[1:])
-    assert regens[1]["bytes"] < regens[1]["copy_bytes"] / 10      # a copying step costs little
+    # a step that refills nothing: its flags, t_max and the deposits of the step before
+    assert regens[1]["bytes"] < regens[1]["copy_bytes"] / 5
     assert len(k4_steps.summary(rows)) == 2
 
 
@@ -420,16 +429,35 @@ def test_shade_lit_takes_spheres_in_a_bvh_scene():
 
 
 @pytest.mark.parametrize("bad", ["regen dtype", "regen shape", "three pending rows",
-                                 "occluded rows"])
+                                 "occluded rows", "regen: three pending rows",
+                                 "regen: occluded rows", "regen: pending dtype",
+                                 "regen: occluded dtype", "regen: pending alone",
+                                 "regen: pending not contiguous", "regen: occluded device"])
 def test_regen_surround_and_resolve_reject_malformed_inputs(bad):
     inp = _small_inputs()
     if bad.startswith("regen"):
         args = list(inp.regen)
-        st = args[0]
-        args[0] = (st._replace(bounce=st.bounce.to(torch.int32)) if bad == "regen dtype"
-                   else st._replace(o=st.o[:, :2].contiguous()))
+        st, pending, occluded = args[0], args[7], args[8]
+        n = st.acc.shape[0]
+        assert pending.shape[0] == 2 * n == occluded.shape[0]
+        if bad in ("regen dtype", "regen shape"):
+            args[0] = (st._replace(bounce=st.bounce.to(torch.int32)) if bad == "regen dtype"
+                       else st._replace(o=st.o[:, :2].contiguous()))
+        else:
+            args[7], args[8] = {
+                "three pending rows": (torch.cat([pending, pending[:n]]), occluded),
+                "occluded rows": (pending, occluded[:n].contiguous()),
+                "pending dtype": (pending.double(), occluded),
+                "occluded dtype": (pending, occluded.to(torch.uint8)),
+                "pending alone": (pending, None),
+                "pending not contiguous": (pending.t().contiguous().t(), occluded),
+                "occluded device": (pending, occluded.to("meta")),
+            }[bad.split(": ")[1]]
         with pytest.raises(ValueError):
             wf.regen_surround(*args)
+        if ":" in bad:   # the pinhole regeneration checks the same rows
+            with pytest.raises(ValueError):
+                wf.regen_pinhole(*args[:4], kc.RTIOW_CAMERA, *args[5:])
         return
     acc, pending, occluded, active, k_next, lanes = inp.resolve
     assert pending.shape[0] == 2 * acc.shape[0] == occluded.shape[0]
@@ -528,11 +556,18 @@ def test_lit_k4_bound_counts_what_the_branch_reads():
     assert kc.k4_work(inp, "nee_resolve") == (
         n * (12 + 1) + 2 * n + 12 * n_open + 8 * int((~active).sum()) + 12 * n + 4,
         3.0 * n_open)
-    st, _, k_next, _, _, lanes, _ = inp.regen
+    st, _, k_next, _, _, lanes, _, pending, occluded = inp.regen
     n_need = int(((~st.active) & (k_next < lanes.P) & lanes.valid).sum())
     pinhole_bytes = kc.k4_work(inp, "regen_pinhole")[0] - 4 * (2 + 2 + 3 + 4)
+    n_open = int((~occluded).sum())      # the step before's deposits: two rows per lane
     assert n_need > 0 and kc.k4_work(inp, "regen_surround") == (
-        pinhole_bytes + 4 * (3 + 4 + 3 + 1), 180.0 * n_need)
+        pinhole_bytes + 4 * (3 + 4 + 3 + 1), 180.0 * n_need + 3.0 * n_open)
+    added = wf.deposit_pending(st.acc, pending, occluded)
+    changed = int((added.view(torch.int32) != st.acc.view(torch.int32)).sum())
+    assert 0 < n_open < 2 * n and 0 < changed < 3 * n
+    assert kc.k4_work(inp, "regen_surround")[0] - kc.k4_work(
+        inp._replace(regen=(*inp.regen[:7], None, None)), "regen_surround")[0] == (
+        n * (12 + 2) + 12 * n_open + 4 * changed)
 
 
 @pytest.mark.cuda
@@ -585,13 +620,18 @@ def test_lit_kernels_match_plain_with_every_lobe(gpu, sensor):
 def test_lit_kernels_match_plain_at_every_city_step(gpu):
     """The surround regeneration and the lit shade against their plain
     versions at each of the city frame's 8 steps (2 blocks of 1048576
-    lanes), on the lanes each step gives (utils/k4_steps.py): bit-equal on
-    the H100, the later steps' dead lanes included."""
+    lanes) and the regeneration that ends each block, on the lanes each
+    step gives (utils/k4_steps.py): bit-equal on the H100, the later steps'
+    dead lanes and the step before's two deposits per lane included."""
     from wurblpt_tpu_torch.utils import k4_steps
 
     rows = k4_steps.frame_rows("city", gpu, n=1)
-    assert [(r["kernel"], r["step"]) for r in rows] == [
-        (k, s) for s in range(8) for k in ("regen_surround", "shade_lit")]
+    expect = []
+    for blk in range(2):
+        expect += [(k, 4 * blk + s + (blk if k == "regen_surround" else 0))
+                   for s in range(4) for k in ("regen_surround", "shade_lit")]
+        expect.append(("regen_surround", 5 * blk + 4))
+    assert [(r["kernel"], r["step"]) for r in rows] == expect
     assert all(r["max_abs_err"] == 0.0 and r["discrete_differ"] == 0 for r in rows), rows
     assert min(r["live"] for r in rows if r["live"] is not None) < kc.CITY_LANES // 4
 

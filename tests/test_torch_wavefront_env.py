@@ -147,7 +147,7 @@ def _split_step(inp):
     scene's any-hit cast and nee_resolve_plain. Returns (the regenerated
     state, its sample ids, the next state, its cast counts, the pending NEE
     deposits and their shadow casts' occlusion, None without shadow rays)."""
-    st, sample, k_next, t_max = wf.regen_plain(*inp.regen)
+    st, sample, k_next, t_max, _ = wf.regen_plain(*inp.regen)
     tables, sensor, params = inp.shade[:3]
     lanes = inp.regen[5]
     n = st.active.shape[0]
@@ -655,14 +655,14 @@ def test_regen_through_each_lens_matches_the_jax_camera(model):
     w, h, ssqrt = 24, 16, 2
     cfg = CameraConfig(distortion=model, undistort_iters=8)
     inp = kc.k4_inputs("cpu", "rtiow", width=w, height=h, ssqrt=ssqrt, m=2, cfg=cfg)
-    st, sample, k_next, _, _, lanes, _ = inp.regen
+    st, sample, k_next, _, _, lanes = inp.regen[:6]
     need = ((~st.active) & (k_next < lanes.P) & lanes.valid).numpy()
     assert 0 < need.sum() < need.size
     with jax.default_device(jax.devices("cpu")[0]):
         jcam = jmake_camera(transformation=jfrom_lookat((13.0, 2.0, 3.0), (0.0, 0.0, 0.0)),
                             vfov_deg=30.0, width=w, height=h, **kc.RTIOW_LENS)
         cam = camera_from_numpy(jax.tree_util.tree_map(np.asarray, jcam), "cpu")
-        new, new_sample, _, _ = wf.regen_plain(st, sample, k_next, cam, cfg, lanes, True)
+        new, new_sample, _, _, _ = wf.regen_plain(st, sample, k_next, cam, cfg, lanes, True)
         s_new = new_sample.numpy()[need].astype(np.int32)
         uj = np.asarray(juniform2(jnp.asarray(lanes.pixel.numpy()[need].astype(np.int32)),
                                   jnp.asarray(s_new), 0, JSalt.PIXEL_JITTER))
@@ -675,7 +675,8 @@ def test_regen_through_each_lens_matches_the_jax_camera(model):
                                  jnp.zeros((k, 2)))
     np.testing.assert_allclose(new.o.numpy()[need], np.asarray(jo), rtol=0, atol=1e-6)
     np.testing.assert_allclose(new.d.numpy()[need], np.asarray(jd), rtol=0, atol=1e-6)
-    straight, _, _, _ = wf.regen_plain(st, sample, k_next, cam, CameraConfig(), lanes, True)
+    straight, _, _, _, _ = wf.regen_plain(st, sample, k_next, cam, CameraConfig(), lanes,
+                                          True)
     assert float((new.d - straight.d).abs().max()) > 1e-3        # the lens does bend
 
 

@@ -44,12 +44,7 @@ using namespace wpt;
 using wpt_queue::FULL;
 using wpt_queue::QBLOCK;
 using wpt_queue::QWARPS;
-
-// The bits of the `split` neighbouring lanes of this thread's warp that
-// cast its ray (split a power of 2 up to 8).
-__device__ __forceinline__ unsigned ray_lanes(int split) {
-    return ((1u << split) - 1u) << ((threadIdx.x & 31) & ~(split - 1));
-}
+using wpt_queue::ray_lanes;
 
 // tri_test's verdict on one row, the range first: det and t_num, then, where
 // the plane hit lies in (tmin, tmax) for the thread (VOTE: for a thread of

@@ -1,7 +1,7 @@
-// The live-lane tile queue of the brute-force casts K2 (any_hit.cu) and KS1
-// (sweep_closest.cu), and the tiles, the split and the launch size of those
-// and of K1 (closest_hit.cu), which writes the queue's steps out in its
-// kernel (closest_hit.cu says why).
+// The live-lane tile queue of the brute-force casts K2 (any_hit.cu), KS1
+// (sweep_closest.cu) and KS2 (sweep_any.cu), and the tiles, the split and
+// the launch size of those and of K1 (closest_hit.cu), which writes the
+// queue's steps out in its kernel (closest_hit.cu says why).
 //
 // A cast's lanes are cut into tiles, one per block the SMs hold at once (in
 // whole warps, at most QBLOCK lanes; beyond that, blocks loop over tiles).
@@ -83,6 +83,12 @@ __device__ __forceinline__ int queue_live(const Queue& q, int lane, int warp, in
     }
     __syncthreads();
     return total;
+}
+
+// The bits of the `split` neighbouring lanes of this thread's warp that
+// cast its ray (split a power of 2 up to 8).
+__device__ __forceinline__ unsigned ray_lanes(int split) {
+    return ((1u << split) - 1u) << ((threadIdx.x & 31) & ~(split - 1));
 }
 
 // Threads per queued ray: as many as the block has threads for, at most MAX_SPLIT.

@@ -20,7 +20,7 @@
 //     memory (live_queue.cuh, K1's queue); a dead lane writes its miss at
 //     once and reads nothing but t_min and t_max. The table and its
 //     animation ids are staged once per block (whole up to STAGE_MAX, else
-//     KS1_CHUNK primitives at a time per tile).
+//     CHUNK primitives at a time per tile).
 //   - `split` threads per queued ray on sparse steps (1, 2, 4 or 8), each
 //     walking every split-th primitive; the split agrees on the first
 //     minimum (smaller t, then lower prim id) through warp shuffles.
@@ -42,9 +42,6 @@ using namespace wpt_sweep;
 using wpt_queue::FULL;
 using wpt_queue::QBLOCK;
 using wpt_queue::QWARPS;
-
-constexpr int STAGE_MAX = 131072;   // bytes of table (rows and ids) staged whole
-constexpr int KS1_CHUNK = 256;      // primitives per pass beyond it (13 KB)
 
 struct Best {
     float t = BIG, u = 0.f, v = 0.f;
@@ -114,7 +111,7 @@ __device__ __forceinline__ void write_hit(int i, const Best& b, float* __restric
 
 // Dynamic shared memory: the table's rows (triangles' 3 float4, then the
 // spheres'), then their animation ids. WHOLE: the whole table for the whole
-// launch; otherwise KS1_CHUNK primitives at a time for each tile.
+// launch; otherwise CHUNK primitives at a time for each tile.
 template <bool WHOLE>
 __global__ void __launch_bounds__(QBLOCK)
 sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -126,7 +123,7 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      int* __restrict__ prim_out, float* __restrict__ u_out,
                      float* __restrict__ v_out) {
     extern __shared__ float4 s_rows[];
-    int* s_aid = reinterpret_cast<int*>(s_rows + (WHOLE ? 3 * n_tris + n_spheres : 3 * KS1_CHUNK));
+    int* s_aid = reinterpret_cast<int*>(s_rows + (WHOLE ? 3 * n_tris + n_spheres : 3 * CHUNK));
     // the queued live lanes' rays and lane ids (live_queue.cuh)
     __shared__ float s_o[3 * QBLOCK], s_d[3 * QBLOCK], s_tmin[QBLOCK], s_tmax[QBLOCK];
     __shared__ int s_lane[QBLOCK];
@@ -158,8 +155,8 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
         } else if (total > 0) {   // block-uniform: no barrier is skipped by a part of it
             // the ray is taken from the queue again after each barrier: less
             // to keep in registers across them
-            for (int base = 0; base < n_tris; base += KS1_CHUNK) {
-                const int cnt = min(KS1_CHUNK, n_tris - base);
+            for (int base = 0; base < n_tris; base += CHUNK) {
+                const int cnt = min(CHUNK, n_tris - base);
                 __syncthreads();
                 for (int j = threadIdx.x; j < 3 * cnt; j += QBLOCK) s_rows[j] = tri[3 * base + j];
                 for (int j = threadIdx.x; j < cnt; j += QBLOCK) s_aid[j] = tri_anim[base + j];
@@ -169,8 +166,8 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     walk_tris(r, s_rows, s_aid, cnt, base, part, split, b);
                 }
             }
-            for (int base = 0; base < n_spheres; base += KS1_CHUNK) {
-                const int cnt = min(KS1_CHUNK, n_spheres - base);
+            for (int base = 0; base < n_spheres; base += CHUNK) {
+                const int cnt = min(CHUNK, n_spheres - base);
                 __syncthreads();
                 for (int j = threadIdx.x; j < cnt; j += QBLOCK) {
                     s_rows[j] = sph[base + j];
@@ -186,21 +183,6 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
         combine(b, split);
         if (has && part == 0) write_hit(s_lane[qi], b, t_out, prim_out, u_out, v_out);
     }
-}
-
-// Float4s of shared memory for t triangles' and s spheres' rows and ids.
-inline size_t table_float4s(int t, int s) {
-    return static_cast<size_t>(3 * t + s) + (static_cast<size_t>(t + s) + 3) / 4;
-}
-
-inline bool staged_whole(int n_tris, int n_spheres) {
-    return table_float4s(n_tris, n_spheres) * sizeof(float4) <= static_cast<size_t>(STAGE_MAX);
-}
-
-inline size_t launch_smem(int n_tris, int n_spheres) {
-    return (staged_whole(n_tris, n_spheres) ? table_float4s(n_tris, n_spheres)
-                                            : table_float4s(KS1_CHUNK, 0)) *
-           sizeof(float4);
 }
 
 // Blocks the SMs hold at once with this much shared memory.

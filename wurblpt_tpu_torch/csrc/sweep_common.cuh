@@ -1,6 +1,7 @@
 // Shared pieces of the brute-force sweeps KS1 (sweep_closest.cu) and KS2
-// (sweep_any.cu): the ray, the object-space ray of an animation, and the two
-// primitive tests of the JAX package's tiled sweeps.
+// (sweep_any.cu): the ray, the object-space ray of an animation, the two
+// primitive tests of the JAX package's tiled sweeps, and how the table is
+// staged in shared memory.
 //
 // Every expression is evaluated in the order of the plain PyTorch versions
 // in wurblpt_tpu_torch/render/intersect_sweep.py (ray_tri_tile,
@@ -22,9 +23,9 @@
 namespace wpt_sweep {
 
 constexpr float BIG = 3.0e37f;
-constexpr int BLOCK = 128;   // rays per block, one thread each
-constexpr int CHUNK = 256;   // primitives staged in shared memory per pass (12 KB of triangles)
 constexpr int FRAME = 30;
+constexpr int STAGE_MAX = 131072;   // bytes of table (rows and ids) a sweep stages whole
+constexpr int CHUNK = 256;          // primitives per pass beyond it (13 KB)
 
 struct V3 {
     float x, y, z;
@@ -156,6 +157,23 @@ __device__ __forceinline__ Lane load_lane(const float* __restrict__ o, const flo
     l.cur = -1;
     l.frames = frames;
     return l;
+}
+
+// The sweeps' dynamic shared memory: the table's rows (triangles' 3 float4,
+// then the spheres'), then their animation ids; the whole table for the whole
+// launch up to STAGE_MAX bytes, else CHUNK primitives at a time.
+inline size_t table_float4s(int t, int s) {   // float4s of t triangles' and s spheres' rows and ids
+    return static_cast<size_t>(3 * t + s) + (static_cast<size_t>(t + s) + 3) / 4;
+}
+
+inline bool staged_whole(int n_tris, int n_spheres) {
+    return table_float4s(n_tris, n_spheres) * sizeof(float4) <= static_cast<size_t>(STAGE_MAX);
+}
+
+inline size_t launch_smem(int n_tris, int n_spheres) {
+    return (staged_whole(n_tris, n_spheres) ? table_float4s(n_tris, n_spheres)
+                                            : table_float4s(CHUNK, 0)) *
+           sizeof(float4);
 }
 
 }  // namespace wpt_sweep

@@ -1,11 +1,15 @@
 // K4: one wavefront step, for three classes of scenes, in five kernels around
 // the casts (K1/K5 closest hit, K3 hit assembly, K2/K6 any hit):
 //
-//   wpt_regen_pinhole  refill dead lanes with their pixel's next sample: the
-//                      jittered pixel, the lens model's inverse (the OpenCV
-//                      fixed point, RADIAL_ONLY's inverse series or
-//                      RADIAL_AND_PLANAR's closed form) and the ray
-//                      (wurblpt_tpu/render/integrator.py:973-1013,
+//   wpt_regen_pinhole  add the previous step's pending NEE deposits where
+//                      their shadow rays are not occluded (the resolve
+//                      below, folded in), flag whether any lane has work
+//                      left (the loop condition), then refill dead lanes
+//                      with their pixel's next sample: the jittered pixel,
+//                      the lens model's inverse (the OpenCV fixed point,
+//                      RADIAL_ONLY's inverse series or RADIAL_AND_PLANAR's
+//                      closed form) and the ray
+//                      (wurblpt_tpu/render/integrator.py:648, :965-1013,
 //                      camera.py:140-180)
 //   wpt_regen_surround the same through the 180/360-degree surround camera,
 //                      mono or stereo: the equirect direction of each eye's
@@ -43,7 +47,9 @@
 //   wpt_nee_resolve    acc += pending where the shadow ray is not occluded
 //                      (the lit class's light deposit, then its sky's), and
 //                      the loop condition: does any lane have work left (the
-//                      condition alone where the step casts no shadow ray)
+//                      condition alone where the step casts no shadow ray);
+//                      the regenerations do the same work at the start of
+//                      the next step, so no frame launches it
 //
 // Replaces the JAX package's bounce body and regeneration, which XLA fuses on
 // the TPU; in the port they were a chain of ~1000-1700 PyTorch launches per
@@ -730,7 +736,22 @@ __device__ __forceinline__ void surround_ray(const Camera& cam, int height, floa
     for (int k = 0; k < 3; ++k) o[k] = orot[k] + cam.translation[k];
 }
 
-// The regeneration, in place: every lane writes its closest cast's t_max
+// The previous step's pending NEE deposits (none on a block's first step):
+// n_pend rows per lane (one, or the lit class's light and env rows), lane
+// i's q-th in row q n + i of `rows` ([n_pend n, n_acc]) and `occluded`.
+struct Pending {
+    const float* rows;
+    const bool* occluded;
+    int n_pend;
+    int n_acc;
+};
+
+// The regeneration, in place, with the NEE resolve of the step before it:
+// each lane first adds its pending rows to acc in their order, each where
+// its shadow ray is not occluded (acc written only where a bit changes),
+// then decides whether it has work (active, or dead with samples left) and
+// votes that into `work` (zeroed before the launch: the loop condition),
+// and only then regenerates. Every lane writes its closest cast's t_max
 // (BIG on a lane active after the step, else 0); only a dead lane reads its
 // next sample index, and only a regenerated lane writes its state. A lane
 // that stays as it was writes nothing else.
@@ -738,20 +759,36 @@ template <int CAMERA>
 __global__ void __launch_bounds__(256)
 regen_kernel(WaveState st, float* __restrict__ t_max, int n, Camera cam, long long blk, int B,
              int m, long long P, long long n_pix, int width, int height, int ssqrt,
-             int randomize) {
+             int randomize, Pending pend, int* __restrict__ work) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const bool act = st.active[i];
-    const long long b_lane = i % B, j_lane = i / B;
-    const long long pixel = blk * B + b_lane;
+    bool act = false, need = false;
     long long kn = 0;
-    bool need = false;
-    if (!act) {
-        kn = st.k_next[i];
-        need = kn < P && pixel < n_pix;
+    const long long pixel = blk * B + i % B;
+    if (i < n) {
+        if (pend.n_pend > 0) {
+            const bool open0 = !pend.occluded[i], open1 = pend.n_pend > 1 && !pend.occluded[n + i];
+            const float* row0 = pend.rows + static_cast<long long>(i) * pend.n_acc;
+            const float* row1 = pend.rows + (static_cast<long long>(n) + i) * pend.n_acc;
+            float* acc = st.acc + static_cast<long long>(i) * pend.n_acc;
+            for (int c = 0; c < pend.n_acc; ++c) {
+                const float a = acc[c];
+                float s = a + (open0 ? row0[c] : 0.f);
+                if (pend.n_pend > 1) s = s + (open1 ? row1[c] : 0.f);
+                if (__float_as_int(s) != __float_as_int(a)) acc[c] = s;
+            }
+        }
+        act = st.active[i];
+        if (!act) {
+            kn = st.k_next[i];
+            need = kn < P && pixel < n_pix;
+        }
     }
+    // every thread of the block reaches the vote
+    if (__syncthreads_or(act || need) && threadIdx.x == 0) *work = 1;
+    if (i >= n) return;
     t_max[i] = act || need ? BIG : 0.f;
     if (!need) return;
+    const long long j_lane = i / B;
     const long long p_safe = pixel < n_pix - 1 ? pixel : n_pix - 1;
     const long long s_new = j_lane + kn * m;
     st.sample[i] = s_new;
@@ -1794,6 +1831,12 @@ resolve_kernel(const float* __restrict__ acc, const float* __restrict__ pending,
     if (__syncthreads_or(busy) && threadIdx.x == 0) *work = 1;
 }
 
+// None, one or two pending rows per lane, with their occlusion flags.
+inline bool pending_ok(const float* pending, const bool* occluded, int n_pend) {
+    return n_pend >= 0 && n_pend <= 2 &&
+           (n_pend > 0) == (pending != nullptr && occluded != nullptr);
+}
+
 // Blocks of `threads` threads of `kernel` that the SMs hold at once (a full
 // persistent launch), cached per kernel.
 template <typename Kernel>
@@ -1851,13 +1894,19 @@ extern "C" int wpt_regen_pinhole(const WaveState* st, float* t_max, int n,
                                  const float* dist_k, const float* dist_p, int lens, int iters,
                                  long long blk, int B, int m, long long P, long long n_pix,
                                  int width, int height, int ssqrt, int randomize,
-                                 void* stream) {
-    if (lens < LENS_NONE || lens > LENS_OPENCV || iters < 0) return -1;
+                                 const float* pending, const bool* occluded, int n_pend,
+                                 int n_acc, int* work, void* stream) {
+    if (lens < LENS_NONE || lens > LENS_OPENCV || iters < 0 ||
+        !pending_ok(pending, occluded, n_pend))
+        return -1;
+    const auto s = static_cast<cudaStream_t>(stream);
+    cudaMemsetAsync(work, 0, sizeof(int), s);
     if (n > 0) {
         const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
                          nullptr, nullptr, 0.f, 0.f, 0.f, 0};
-        regen_kernel<CAM_PINHOLE><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-            *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+        regen_kernel<CAM_PINHOLE><<<(n + 255) / 256, 256, 0, s>>>(
+            *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
+            Pending{pending, occluded, n_pend, n_acc}, work);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -1867,13 +1916,19 @@ extern "C" int wpt_regen_surround(const WaveState* st, float* t_max, int n,
                                   const float* scale, const float* eye_distance, float span,
                                   float inv_width, float inv_eff_height, int stereo, long long blk,
                                   int B, int m, long long P, long long n_pix, int width,
-                                  int height, int ssqrt, int randomize, void* stream) {
-    if (height < (stereo ? 2 : 1) || width < 1) return -1;
+                                  int height, int ssqrt, int randomize, const float* pending,
+                                  const bool* occluded, int n_pend, int n_acc, int* work,
+                                  void* stream) {
+    if (height < (stereo ? 2 : 1) || width < 1 || !pending_ok(pending, occluded, n_pend))
+        return -1;
+    const auto s = static_cast<cudaStream_t>(stream);
+    cudaMemsetAsync(work, 0, sizeof(int), s);
     if (n > 0) {
         const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
                          scale, eye_distance, span, inv_width, inv_eff_height, stereo};
-        regen_kernel<CAM_SURROUND><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-            *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize);
+        regen_kernel<CAM_SURROUND><<<(n + 255) / 256, 256, 0, s>>>(
+            *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
+            Pending{pending, occluded, n_pend, n_acc}, work);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -2011,8 +2066,7 @@ extern "C" int wpt_nee_resolve(const float* acc, const float* pending, const boo
                                int n_pend, const bool* active, const long long* k_next, int n,
                                int n_acc, long long blk, int B, long long P, long long n_pix,
                                float* out, int* work, void* stream) {
-    if (n_pend < 0 || n_pend > 2 || (n_pend > 0) != (pending != nullptr && occluded != nullptr))
-        return -1;
+    if (!pending_ok(pending, occluded, n_pend)) return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaMemsetAsync(work, 0, sizeof(int), s);
     if (n > 0) {

@@ -86,9 +86,9 @@ _SIGNATURES = {
     "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
     "wpt_regen_pinhole": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _I, _I,
-                          _I, _I, _P],
+                          _I, _I, _P, _P, _I, _I, _P, _P],
     "wpt_regen_surround": [_P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I, _L, _I, _I, _L, _L, _I, _I,
-                           _I, _I, _P],
+                           _I, _I, _P, _P, _I, _I, _P, _P],
     "wpt_shade_diffuse": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     "wpt_shade_env": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I,

@@ -31,11 +31,13 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
   the lit class (those surfaces, ModPhong and
   RGL, triangle lights under per-light MIS beside an importance-sampled
   sky; the city_many_lights path), seen by a pinhole or a surround camera,
-  mono or stereo. A step is the regeneration, the scene's closest-hit cast
-  (K1, KS1 or K5), K3 (K3a animated), the class's shade (`shade_diffuse`,
-  `shade_env`, `shade_lit`), the scene's any-hit cast (K2, KS2 or K6) on
-  its shadow rays (the lit class's light and sky shadow rays in one cast)
-  and the NEE resolve: ~7 launches, ~6 without shadow rays;
+  mono or stereo. A step is the regeneration (which first adds the step
+  before's NEE deposits and flags the loop condition), the scene's
+  closest-hit cast (K1, KS1 or K5), K3 (K3a animated), the class's shade
+  (`shade_diffuse`, `shade_env`, `shade_lit`) and the scene's any-hit cast
+  (K2, KS2 or K6) on its shadow rays (the lit class's light and sky shadow
+  rays in one cast): ~6 launches, ~5 without shadow rays, and one more
+  regeneration that ends the block;
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
   K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
@@ -61,9 +63,11 @@ only its lane state and its steps.
 
 Randomness is counter-based on (pixel, sample, bounce, salt), so the port
 draws the JAX package's random numbers. The JAX `while_loop` condition
-becomes a Python loop with one host sync per step: K4's resolve kernel
-evaluates it, the generic route with torch ops. Replacing that sync with a
-CUDA graph of several steps is a later item.
+becomes a Python loop with one host sync per step: on K4 the regeneration
+evaluates it at the start of the step, after adding the step before's NEE
+deposits, so the block stops without casting once no lane has work; the
+generic route evaluates it with torch ops after its bounce. Replacing that
+sync with a CUDA graph of several steps is a later item.
 """
 
 from __future__ import annotations
@@ -100,7 +104,6 @@ from .wavefront import (
     light_nee,
     lit_class,
     lit_scene,
-    nee_resolve,
     path_lengths,
     regen_plain,
     step_tables_at,
@@ -243,29 +246,32 @@ def _make_generic_step(scene, static, tables, sensor, params, cam, cam_cfg, L, a
     condition as torch ops and one host sync."""
     bounce_fn = _make_bounce_fn(scene, static, tables, sensor, params, L, anim)
 
-    def step(ls, sample, k_next, lanes):
-        ls, sample, k_next, _ = regen_plain(ls, sample, k_next, cam, cam_cfg, lanes,
-                                            params.randomize_ray_over_pixel)
+    def step(ls, sample, k_next, lanes, carry):
+        ls, sample, k_next, _, _ = regen_plain(ls, sample, k_next, cam, cam_cfg, lanes,
+                                               params.randomize_ray_over_pixel)
         ls = bounce_fn(ls, lanes.pixel, sample)
         work = ls.active.any() | ((k_next < lanes.P) & lanes.valid).any()
-        return ls, sample, k_next, bool(work.item())
+        return ls, sample, k_next, None, bool(work.item())
 
     return step
 
 
 def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=None):
-    """The step through K4 (`wavefront.k4_route`): regeneration
-    (wpt_regen_pinhole or wpt_regen_surround), the scene's closest-hit cast
-    (K1, KS1 or K5), K3 (K3a with `anim`), the class's shade
-    (wpt_shade_diffuse, wpt_shade_env or wpt_shade_lit), the scene's any-hit
-    cast (K2, KS2 or K6) on its shadow rays and the NEE resolve
-    (wpt_nee_resolve), which also evaluates the loop condition; one host
-    sync reads it. A scene that casts no shadow ray (no light, a sky without
-    importance tables) skips the any-hit cast, and its resolve evaluates the
-    loop condition alone; the lit class casts its light and sky shadow rays
-    (2 L, from the origins its shade writes) in one any-hit cast. An
-    animated frame (`anim`) casts and assembles with its animation rows and
-    shades with its step tables (`wavefront.step_tables_at`)."""
+    """The step through K4 (`wavefront.k4_route`): the regeneration
+    (wpt_regen_pinhole or wpt_regen_surround), which first adds the pending
+    deposits of the step before where their shadow rays are not occluded
+    (`carry`; None on a block's first step) and evaluates the loop
+    condition, which one host sync reads: without work the block is done,
+    its acc holding every deposit; else the scene's closest-hit cast (K1,
+    KS1 or K5), K3 (K3a with `anim`), the class's shade (wpt_shade_diffuse,
+    wpt_shade_env or wpt_shade_lit) and the scene's any-hit cast (K2, KS2 or
+    K6) on its shadow rays, whose pending deposits and occlusion are the
+    carry of the next step. A scene that casts no shadow ray (no light, a
+    sky without importance tables) skips the any-hit cast and carries
+    nothing; the lit class casts its light and sky shadow rays (2 L, from
+    the origins its shade writes) in one any-hit cast. An animated frame
+    (`anim`) casts and assembles with its animation rows and shades with
+    its step tables (`wavefront.step_tables_at`)."""
     accel, ht = tables.accel, tables.hit
     frames = None if anim is None else anim.frames
     step_tables = step_tables_at(tables.step, None if anim is None else anim.lights)
@@ -273,17 +279,20 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=N
     t_min = torch.full((route.shadow_rows * L,), params.min_hit_distance, dtype=torch.float32,
                        device=scene.device)
 
-    def step(ls, sample, k_next, lanes):
-        ls, sample, k_next, t_max = route.regen(ls, sample, k_next, cam, cam_cfg, lanes,
-                                                params.randomize_ray_over_pixel)
+    def step(ls, sample, k_next, lanes, carry):
+        ls, sample, k_next, t_max, work = route.regen(
+            ls, sample, k_next, cam, cam_cfg, lanes, params.randomize_ray_over_pixel,
+            *(carry or (None, None)))
+        if not bool(work.item()):
+            return ls, sample, k_next, None, False
         t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min[:L], t_max, frames)
         hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v, frames)
         ls, shadow_o, shadow_d, shadow_tmax, pending = route.shade(
             step_tables, sensor, params, ls, lanes.pixel, sample, t, prim, hr)
-        occluded = (None if shadow_tmax is None
-                    else scene_any_hit(accel, shadow_o, shadow_d, t_min, shadow_tmax, frames))
-        acc, work = nee_resolve(ls.acc, pending, occluded, ls.active, k_next, lanes)
-        return ls._replace(acc=acc), sample, k_next, bool(work.item())
+        if shadow_tmax is None:
+            return ls, sample, k_next, None, True
+        occluded = scene_any_hit(accel, shadow_o, shadow_d, t_min, shadow_tmax, frames)
+        return ls, sample, k_next, (pending, occluded), True
 
     return step
 
@@ -313,9 +322,11 @@ def _make_run_block(step, sensor, width, height, samples_sqrt, B, m, P, n_pix, d
         sample = torch.zeros((L,), dtype=torch.int64, device=device)
         k_next = torch.zeros((L,), dtype=torch.int64, device=device)
         # The while_loop of the JAX package; every block has a pixel to start.
-        work = True
+        # `carry`: what a step hands the next (K4: its pending NEE deposits
+        # and their occlusion).
+        work, carry = True, None
         while work:
-            ls, sample, k_next, work = step(ls, sample, k_next, lanes)
+            ls, sample, k_next, carry, work = step(ls, sample, k_next, lanes, carry)
 
         block_img = ls.acc.reshape(m, B, sensor.n_acc).sum(0)
         img_acc[blk * B:(blk + 1) * B] = block_img

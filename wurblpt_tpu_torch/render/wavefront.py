@@ -20,10 +20,14 @@ The diffuse and env classes are seen by a mono pinhole camera with or
 without one of the three lens models; the lit class also by a surround
 camera, mono or stereo. One step is
 
-    the regeneration   refill dead lanes with their pixel's next sample:
-                       wpt_regen_pinhole (the lens model's inverse inside)
-                       or wpt_regen_surround (the 180/360-degree camera,
-                       stereo halves and eye offsets)
+    the regeneration   add the step before's pending NEE deposits where
+                       their shadow rays are not occluded (the light's, then
+                       the sky's), flag whether any lane still has work (the
+                       loop condition, read by the host before the rest of
+                       the step), then refill dead lanes with their pixel's
+                       next sample: wpt_regen_pinhole (the lens model's
+                       inverse inside) or wpt_regen_surround (the
+                       180/360-degree camera, stereo halves and eye offsets)
     closest hit        K1 or KS1 (brute force) or K5 (BVH), then K3 (K3a in
                        an animated scene) hit assembly
     the shade          wpt_shade_diffuse: emission with its MIS weight, the
@@ -42,10 +46,14 @@ camera, mono or stereo. One step is
                        shadow rays and two pending deposits per lane),
                        Russian roulette, the next state, the counters
     any hit            K2, KS2 or K6 on the shadow rays (none without NEE; the
-                       lit class's two kinds in one cast of 2 N rays)
-    wpt_nee_resolve    add the pending deposits of unoccluded lanes (the
-                       light's, then the sky's); flag whether any lane still
-                       has work (the loop condition)
+                       lit class's two kinds in one cast of 2 N rays), whose
+                       pending deposits and occlusion go to the next step's
+                       regeneration
+
+A block's loop ends at a regeneration that finds no lane with work; it has
+added the last step's deposits. `nee_resolve` (wpt_nee_resolve: the
+deposits and the flag alone) stays a kernel of its own, which no frame
+launches.
 
 `regen_pinhole`, `regen_surround`, `shade_diffuse`, `shade_env`,
 `shade_lit` and `nee_resolve` launch the kernels of ``csrc/wavefront.cu``
@@ -331,6 +339,19 @@ def deposit_unoccluded(acc, pending, occluded):
     return acc + torch.where(occluded[:, None], 0.0, pending)
 
 
+def deposit_pending(acc, pending, occluded):
+    """acc + each of a step's pending deposits where its shadow ray is not
+    occluded: none (pending None), one per lane, or the lit class's two
+    ([2N, n_acc] and [2N], the light's rows first), added in that order, as
+    the generic bounce adds its light deposit before its sky's."""
+    if pending is None:
+        return acc
+    n = acc.shape[0]
+    for q in range(pending.shape[0] // n):
+        acc = deposit_unoccluded(acc, pending[q * n:(q + 1) * n], occluded[q * n:(q + 1) * n])
+    return acc
+
+
 def env_miss(sensor, acc, st: LoopState, env: EnvMapArrays, prim, importance: bool):
     """Deposit the sky's radiance on the active lanes whose ray escaped
     (wurblpt.hpp:136-146), MIS-weighted against env NEE with the pdf of the
@@ -414,12 +435,18 @@ def _recip(c) -> float:
 
 
 def regen_plain(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
-                lanes: BlockLanes, randomize: bool):
-    """Plain version of wpt_regen_pinhole, for any camera: regenerate the
-    dead lanes that have samples left with their pixel's next sample.
+                lanes: BlockLanes, randomize: bool, pending=None, occluded=None):
+    """Plain version of wpt_regen_pinhole, for any camera: add the step
+    before's pending NEE deposits where their shadow rays are not occluded
+    (`deposit_pending`: nee_resolve_plain's deposit; none for None), then
+    regenerate the dead lanes that have samples left with their pixel's
+    next sample.
 
-    Returns (state, sample, k_next, t_max): t_max [N] is the closest-hit
-    cast's bound, BIG on active lanes and 0 elsewhere."""
+    Returns (state, sample, k_next, t_max, work): t_max [N] is the
+    closest-hit cast's bound, BIG on active lanes and 0 elsewhere; work [1]
+    int32 the loop condition, whether any lane is active after the
+    regeneration."""
+    st = st._replace(acc=deposit_pending(st.acc, pending, occluded))
     need = (~st.active) & (k_next < lanes.P) & lanes.valid
     s_new = lanes.j_lane + k_next * lanes.m          # global sample id in [0, spp)
     sample = torch.where(need, s_new, sample)
@@ -447,7 +474,8 @@ def regen_plain(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camer
         prev_random=st.prev_random & ~need,
         prev_light_pdf=torch.where(need, 0.0, st.prev_light_pdf),
     )
-    return st, sample, k_next + need.to(torch.int64), torch.where(active, BIG, 0.0)
+    return (st, sample, k_next + need.to(torch.int64), torch.where(active, BIG, 0.0),
+            active.any().to(torch.int32).reshape(1))
 
 
 # ---------------------------------------------------------------------------
@@ -647,20 +675,14 @@ def shade_lit_plain(tables: StepTables, sensor, params, st: LoopState, pixel, sa
 
 def nee_resolve_plain(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     """Plain version of wpt_nee_resolve: acc + pending where the shadow ray is
-    not occluded, and whether any lane of the block has work left (an active
-    path, or samples to start): the wavefront loop's condition. A step that
-    casts no shadow ray passes no pending deposit (None) and gets acc back;
-    the lit class passes two per lane (pending [2N, n_acc], occluded [2N]:
-    the light's rows first), added in that order, as the generic bounce
-    adds its light deposit before its sky's.
+    not occluded (`deposit_pending`), and whether any lane of the block has
+    work left (an active path, or samples to start): the wavefront loop's
+    condition. A step that casts no shadow ray passes no pending deposit
+    (None) and gets acc back; the lit class passes two per lane.
 
     Returns (acc, work [1] int32)."""
-    if pending is not None:
-        n = acc.shape[0]
-        for q in range(pending.shape[0] // n):
-            acc = deposit_unoccluded(acc, pending[q * n:(q + 1) * n], occluded[q * n:(q + 1) * n])
     work = active.any() | ((k_next < lanes.P) & lanes.valid).any()
-    return acc, work.to(torch.int32).reshape(1)
+    return deposit_pending(acc, pending, occluded), work.to(torch.int32).reshape(1)
 
 
 # ---------------------------------------------------------------------------
@@ -748,24 +770,48 @@ def _camera_ptrs(cam: CameraParams, device):
     return [x.data_ptr() for x in parts]
 
 
-def _regen_on_cpu(st: LoopState, sample, k_next, cam, cam_cfg, lanes, randomize):
+def _check_pending(name, acc, pending, occluded) -> int:
+    """Raise unless `pending` and `occluded` are a step's pending deposits
+    for acc [N, n_acc] (both None, or [q N, n_acc] float32 and [q N] bool,
+    q = 1 or 2, contiguous, on acc's device); returns q (0 for None)."""
+    n, c = acc.shape
+    if (pending is None) != (occluded is None):
+        raise ValueError(f"{name}: pending and occluded go together")
+    if pending is None:
+        return 0
+    n_pend = 2 if pending.shape[0] == 2 * n > 0 else 1
+    for f, x, dtype, shape in (("pending", pending, torch.float32, (n_pend * n, c)),
+                               ("occluded", occluded, torch.bool, (n_pend * n,))):
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name}: {f} needs contiguous {dtype} {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != acc.device:
+            raise ValueError(f"{name}: {f} on {x.device}, acc on {acc.device}")
+    return n_pend
+
+
+def _regen_on_cpu(st: LoopState, sample, k_next, cam, cam_cfg, lanes, randomize, pending,
+                  occluded):
     """regen_plain, its result copied into the inputs (the kernels' contract)."""
-    new, new_sample, new_k, t_max = regen_plain(st, sample, k_next, cam, cam_cfg, lanes,
-                                                randomize)
+    new, new_sample, new_k, t_max, work = regen_plain(st, sample, k_next, cam, cam_cfg, lanes,
+                                                      randomize, pending, occluded)
     sample.copy_(new_sample)
     k_next.copy_(new_k)
-    return _copy_into(st, new), sample, k_next, t_max
+    return _copy_into(st, new), sample, k_next, t_max, work
 
 
 def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
-                  lanes: BlockLanes, randomize: bool):
-    """Regenerate dead lanes in place (wpt_regen_pinhole; `regen_plain` on
-    CPU tensors, its result copied into the inputs): (st, sample, k_next,
-    t_max), the first three the tensors given. The kernel takes a mono
-    pinhole camera with or without a lens model (`_pinhole`)."""
+                  lanes: BlockLanes, randomize: bool, pending=None, occluded=None):
+    """Add the step before's pending deposits (None: none) and regenerate
+    dead lanes, in place (wpt_regen_pinhole; `regen_plain` on CPU tensors,
+    its result copied into the inputs): (st, sample, k_next, t_max, work),
+    the first three the tensors given, work the loop condition. The kernel
+    takes a mono pinhole camera with or without a lens model (`_pinhole`)."""
     n, dev = _check_state("regen_pinhole", st, sample, k_next, st.acc.shape[1])
+    n_pend = _check_pending("regen_pinhole", st.acc, pending, occluded)
     if dev.type == "cpu":
-        return _regen_on_cpu(st, sample, k_next, cam, cam_cfg, lanes, randomize)
+        return _regen_on_cpu(st, sample, k_next, cam, cam_cfg, lanes, randomize, pending,
+                             occluded)
     if not _pinhole(cam_cfg):
         raise ValueError("regen_pinhole: the kernel takes a mono pinhole camera (a lens model "
                          "allowed), no surround, stereo, depth of field or animation")
@@ -774,12 +820,14 @@ def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Cam
     _check_in_place("regen_pinhole", st)
     lib = native.load_kernels()
     t_max = torch.empty((n,), dtype=torch.float32, device=dev)
-    args, keep = regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)
+    args, keep = regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max,
+                            pending, occluded, n_pend, work)
     code = lib.wpt_regen_pinhole(*args, native.stream_ptr(t_max))
     del keep
     native.check(code, "regen_pinhole")
     native.LAUNCHES["regen_pinhole"] += 1
-    return st, sample, k_next, t_max
+    return st, sample, k_next, t_max, work
 
 
 def _surround_camera(cam: CameraParams, cam_cfg: CameraConfig, width: int, height: int, device):
@@ -802,14 +850,17 @@ def _surround_camera(cam: CameraParams, cam_cfg: CameraConfig, width: int, heigh
 
 
 def regen_surround(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
-                   lanes: BlockLanes, randomize: bool):
-    """Regenerate dead lanes in place through a surround camera, mono or
-    stereo (wpt_regen_surround; `regen_plain` on CPU tensors, its result
-    copied into the inputs): (st, sample, k_next, t_max), the first three
-    the tensors given."""
+                   lanes: BlockLanes, randomize: bool, pending=None, occluded=None):
+    """Add the step before's pending deposits (None: none) and regenerate
+    dead lanes, in place, through a surround camera, mono or stereo
+    (wpt_regen_surround; `regen_plain` on CPU tensors, its result copied
+    into the inputs): (st, sample, k_next, t_max, work), the first three the
+    tensors given, work the loop condition."""
     n, dev = _check_state("regen_surround", st, sample, k_next, st.acc.shape[1])
+    n_pend = _check_pending("regen_surround", st.acc, pending, occluded)
     if dev.type == "cpu":
-        return _regen_on_cpu(st, sample, k_next, cam, cam_cfg, lanes, randomize)
+        return _regen_on_cpu(st, sample, k_next, cam, cam_cfg, lanes, randomize, pending,
+                             occluded)
     if not _surround(cam_cfg):
         raise ValueError("regen_surround: the kernel takes a surround camera, mono or stereo, "
                          "without depth of field or animation")
@@ -818,19 +869,22 @@ def regen_surround(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Ca
     _check_in_place("regen_surround", st)
     lib = native.load_kernels()
     t_max = torch.empty((n,), dtype=torch.float32, device=dev)
-    args, keep = regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)
+    args, keep = regen_args(st, sample, k_next, cam, cam_cfg, lanes, randomize, t_max,
+                            pending, occluded, n_pend, work)
     code = lib.wpt_regen_surround(*args, native.stream_ptr(t_max))
     del keep
     native.check(code, "regen_surround")
     native.LAUNCHES["regen_surround"] += 1
-    return st, sample, k_next, t_max
+    return st, sample, k_next, t_max, work
 
 
 def regen_args(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: CameraConfig,
-               lanes: BlockLanes, randomize: bool, t_max):
+               lanes: BlockLanes, randomize: bool, t_max, pending, occluded, n_pend: int, work):
     """The arguments of wpt_regen_surround (a surround camera) or
     wpt_regen_pinhole but their stream, and the ctypes object they point
-    into, which must live until the call returns."""
+    into, which must live until the call returns. `pending` and `occluded`
+    are the step before's n_pend deposits per lane (None and 0: none)."""
     dev = st.active.device
     s_c = _state_c(st, sample, k_next)
     if _surround(cam_cfg):
@@ -839,7 +893,8 @@ def regen_args(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camera
         camera = _camera_ptrs(cam, dev) + [cam_cfg.distortion, cam_cfg.undistort_iters]
     args = [ctypes.addressof(s_c), t_max.data_ptr(), st.active.shape[0], *camera, lanes.blk,
             lanes.B, lanes.m, lanes.P, lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt,
-            int(randomize)]
+            int(randomize), _ptr(pending), _ptr(occluded), n_pend, st.acc.shape[1],
+            work.data_ptr()]
     return args, s_c
 
 
@@ -1124,13 +1179,7 @@ def nee_resolve(acc, pending, occluded, active, k_next, lanes: BlockLanes):
     condition alone, acc returned as it is; the lit class passes two
     pending deposits per lane ([2N, n_acc] and [2N], the light's first)."""
     n, c = acc.shape
-    if (pending is None) != (occluded is None):
-        raise ValueError("nee_resolve: pending and occluded go together")
-    n_pend = 0 if pending is None else (2 if pending.shape[0] == 2 * n > 0 else 1)
-    deposits = (() if pending is None else
-                (("pending", pending, torch.float32, (n_pend * n, c)),
-                 ("occluded", occluded, torch.bool, (n_pend * n,))))
-    for name, x, dtype, shape in (("acc", acc, torch.float32, (n, c)), *deposits,
+    for name, x, dtype, shape in (("acc", acc, torch.float32, (n, c)),
                                   ("active", active, torch.bool, (n,)),
                                   ("k_next", k_next, torch.int64, (n,))):
         if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
@@ -1138,6 +1187,7 @@ def nee_resolve(acc, pending, occluded, active, k_next, lanes: BlockLanes):
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != acc.device:
             raise ValueError(f"nee_resolve: {name} on {x.device}, acc on {acc.device}")
+    n_pend = _check_pending("nee_resolve", acc, pending, occluded)
     if acc.device.type == "cpu":
         return nee_resolve_plain(acc, pending, occluded, active, k_next, lanes)
     if acc.device.type != "cuda":

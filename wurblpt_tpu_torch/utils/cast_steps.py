@@ -21,7 +21,10 @@ than the kernels on the card), bounded by `closest_hit_work` /
 `any_hit_work`; the swept frame (`cornell_animated_frame`) records
 `closest_sweep` and `any_sweep` (KS1/KS2, with the frame's animation rows),
 checked bit for bit (`check_sweep_closest` / `check_sweep_any`), timed so,
-bounded by `sweep_work`.
+bounded by `sweep_work`. Every frame also records its hit assemblies (K3,
+K3a where animated), timed by their device time per call and bounded by
+what each launch's data needs (`kernel_check.assemble_hit_work` with the
+launch's hit lanes).
 All nine frames by default. `chip_smoke.py` runs the same rows; the
 command line prints them (and with `--out` writes them as JSON) with the
 tree's size, and uses nothing but `kernel_check`'s frames, checks, timers
@@ -39,13 +42,14 @@ from pathlib import Path
 import torch
 
 from ..accel import traverse
-from ..render import intersect, intersect_brute, intersect_sweep
+from ..render import integrator, intersect, intersect_brute, intersect_sweep
 from . import kernel_check as kc
 from . import scenes
 
 CASTS = ("bvh_closest_hit", "bvh_any_hit")
 BRUTE_CASTS = ("closest_hit", "any_hit")
 SWEEP_CASTS = ("closest_sweep", "any_sweep")
+ASSEMBLY = ("assemble_hit", "assemble_hit_anim")
 
 
 FRAMES = ("mesh", "city", "rtiow_bvh", "cornell_animated_bvh")
@@ -118,6 +122,35 @@ def cast_rows(frame: str, render, device, n: int = 20):
     return rows
 
 
+def k3_rows(frame: str, render, n: int = 20):
+    """One row per hit assembly of one frame (K3, or K3a with the frame's
+    animation rows), on the winners each step's cast gives: step, lanes,
+    hit lanes, device ms per call, and the bound of what the launch's data
+    needs, with its bytes and flops."""
+    calls, saved = [], integrator.assemble_hit
+
+    def record(ht, o, d, t, prim, u, v, frames=None):
+        calls.append((ht, tuple(x.clone() for x in (o, d, t, prim, u, v)), frames))
+        return saved(ht, o, d, t, prim, u, v, frames)
+
+    integrator.assemble_hit = record
+    try:
+        render()
+    finally:
+        integrator.assemble_hit = saved
+    rows = []
+    for step, (ht, hit_args, frames) in enumerate(calls):
+        hits = int((hit_args[3] >= 0).sum())
+        ms = kc.device_ms(lambda h=ht, a=hit_args, f=frames: intersect.assemble_hit(h, *a, f), n)
+        work = kc.assemble_hit_work(ht, hit_args[0].shape[0], frames, hits=hits)
+        bound, bound_by = kc.bound_ms(*work)
+        rows.append({"frame": frame, "kernel": ASSEMBLY[frames is not None], "step": step,
+                     "lanes": int(hit_args[0].shape[0]), "live": hits, "ms": ms,
+                     "bound_ms": bound, "bound_by": bound_by, "bytes": float(work[0]),
+                     "flops": float(work[1])})
+    return rows
+
+
 def tree_summary(bvh) -> str:
     size = sum(x.numel() * x.element_size() for x in bvh if isinstance(x, torch.Tensor))
     parts = [f"{bvh.nodes.shape[0]} nodes of {bvh.nodes.shape[1] * bvh.nodes.element_size()} B",
@@ -129,7 +162,8 @@ def tree_summary(bvh) -> str:
 
 
 def format_row(r) -> str:
-    return (f"{r['frame']} {r['kernel']} step {r['step']}: {r['lanes']} lanes, {r['live']} live, "
+    return (f"{r['frame']} {r['kernel']} step {r['step']}: {r['lanes']} lanes, {r['live']} "
+            f"{'hits' if r['kernel'] in ASSEMBLY else 'live'}, "
             f"{r['ms']:.4f} ms per call, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
             f"({r['ms'] / r['bound_ms']:.1f}x; {r['bytes']:.6g} bytes, {r['flops']:.6g} flops)")
 
@@ -137,7 +171,7 @@ def format_row(r) -> str:
 def summary(rows):
     """One line per kernel over one frame's rows: casts, ms, bound ms."""
     out = []
-    for name in CASTS + BRUTE_CASTS + SWEEP_CASTS:
+    for name in CASTS + BRUTE_CASTS + SWEEP_CASTS + ASSEMBLY:
         sel = [r for r in rows if r["kernel"] == name]
         if sel:
             out.append(f"{sel[0]['frame']} {name}: {len(sel)} casts, "
@@ -179,7 +213,7 @@ def main(argv=None) -> int:
             print(f"{frame}: {tree_summary(scene.bvh)}")
         render = make_frame(device, scene)
         render()   # warm-up
-        frame_rows = cast_rows(frame, render, device)
+        frame_rows = cast_rows(frame, render, device) + k3_rows(frame, render)
         for r in frame_rows:
             print(format_row(r))
         for line in summary(frame_rows):

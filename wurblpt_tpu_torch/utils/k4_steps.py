@@ -10,7 +10,10 @@ Renders each frame once (`kernel_check.city_frame`, `bench_frame`,
 `rtiow_bvh_frame`; all nine by default) with the inputs of its K4 calls
 recorded: on the city every `shade_lit` and `regen_surround` call (2
 blocks of 4 steps), on the other frames every `regen_pinhole` call and
-every `shade_diffuse` or `shade_env` call of the first block. Each input
+every `shade_diffuse` or `shade_env` call of the first block. A
+regeneration first adds the step before's pending NEE deposits (the
+resolve, folded in), so each is timed with them, and each block ends with
+one that only adds the last step's deposits and finds no work. Each input
 is copied as it was passed (the kernels write their inputs: the in-place
 contract of render/wavefront.py). Then, per recorded
 call: the kernel held against its plain version on it
@@ -104,19 +107,28 @@ def k4_rows(frame: str, render, device, n: int = 20, first_block_only: bool = Fa
         row = {"frame": frame, "kernel": name, "step": step[name], "lanes": int(st.active.shape[0]),
                "live": int(st.active.sum()) if shade else None,
                "regenerated": None if shade else kc.regenerated_lanes(inputs),
+               "pending_rows": (None if shade or args[7] is None
+                                else args[7].shape[0] // st.active.shape[0]),
                "ms": ms, "max_abs_err": err, "discrete_differ": discrete}
         for contract, in_place in (("", True), ("copy_", False)):
             work = kc.k4_work(inputs, name, in_place=in_place)
             bound, bound_by = kc.bound_ms(*work)
             row.update({f"{contract}bound_ms": bound, f"{contract}bound_by": bound_by,
                         f"{contract}bytes": float(work[0]), f"{contract}flops": float(work[1])})
+        if not shade:   # the stand-alone resolve's bound on the step it ends (none at a start)
+            start = not bool(st.active.any()) and not bool(args[2].any())
+            resolve = kc.K4Inputs(None, None, (st.acc, args[7], args[8], st.active, args[2],
+                                               args[5]))
+            row["resolve_bound_ms"] = (None if start
+                                       else kc.bound_ms(*kc.k4_work(resolve, "nee_resolve"))[0])
         rows.append(row)
         step[name] += 1
     return rows
 
 
 def format_row(r) -> str:
-    lanes = (f"{r['live']} live" if r["live"] is not None else f"{r['regenerated']} regenerated")
+    lanes = (f"{r['live']} live" if r["live"] is not None else
+             f"{r['regenerated']} regenerated, {r['pending_rows'] or 0} pending rows per lane")
     return (f"{r['frame']} {r['kernel']} step {r['step']}: {r['lanes']} lanes, {lanes}, "
             f"{r['ms']:.4f} ms per call (max abs err {r['max_abs_err']}, "
             f"{r['discrete_differ']} discrete differences), bound {r['bound_ms']:.6f} ms by "
@@ -131,10 +143,14 @@ def summary(rows):
         for name in RECORDED:
             sel = [r for r in rows if r["frame"] == frame and r["kernel"] == name]
             if sel:
+                resolves = [r["resolve_bound_ms"] for r in sel
+                            if r.get("resolve_bound_ms") is not None]
                 out.append(f"{frame} {name}: {len(sel)} calls, "
                            f"{sum(r['ms'] for r in sel):.4f} ms in all, bounds "
                            f"{sum(r['bound_ms'] for r in sel):.6f} ms in place, "
-                           f"{sum(r['copy_bound_ms'] for r in sel):.6f} ms copying")
+                           f"{sum(r['copy_bound_ms'] for r in sel):.6f} ms copying"
+                           + (f"; the stand-alone resolve's bounds over the {len(resolves)} "
+                              f"steps it would end {sum(resolves):.6f} ms" if resolves else ""))
     return out
 
 

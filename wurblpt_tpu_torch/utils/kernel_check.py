@@ -739,6 +739,105 @@ def ks1_edge_sets(device, n: int = 4096):
                       fr)}
 
 
+def _only_last(ss, rays, frames):
+    """`rays` with t_max 0 on the lanes that a primitive other than the
+    table's last one blocks: each live lane's only blocker is then the last
+    primitive (or none)."""
+    o, d, t_min, t_max = rays
+    if ss.n_spheres:
+        rest = ss._replace(sph=ss.sph[:-1], sph_anim=ss.sph_anim[:-1], n_spheres=ss.n_spheres - 1)
+    else:
+        rest = ss._replace(tri=ss.tri[:-1], tri_anim=ss.tri_anim[:-1], n_tris=ss.n_tris - 1)
+    others = any_sweep_plain(rest, o, d, t_min, t_max, frames)
+    return o, d, t_min, torch.where(others, 0.0, t_max).contiguous()
+
+
+def _world_rows(ss, frames):
+    """The triangle rows' p0, e1, e2 in world space at the frames' instant
+    (float64 numpy, [T, 3] each): m_fwd p + t_inv of each row's animation."""
+    f = frames.double().cpu().numpy()[ss.tri_anim.long().cpu().numpy()]
+    m, t = f[:, 12:21].reshape(-1, 3, 3), f[:, 9:12]
+    rows = ss.tri.double().cpu().numpy()
+    p0, e1, e2 = (np.einsum("tij,tj->ti", m, rows[:, c:c + 3]) for c in (0, 4, 8))
+    return p0 + t, e1, e2
+
+
+def ks2_edge_sets(device, n: int = 4096):
+    """{label: (SweepScene, rays, frames or None)}: the edges of KS2's queue,
+    split walk and early stop, on the animated Cornell box with its two
+    spheres at ANIM_TIME unless said: rays whose only blocker is the
+    table's last primitive (the reference box's light triangle, static; a
+    sphere in the air appended to the animated table, `last_blocker_lanes`);
+    rays aimed through the short box where its animation has turned it
+    (blocked in that animation's object space, many of them not at rest);
+    one live lane of the launch (an occluded one: 8 threads to its ray);
+    grazing rays (`edge_lanes`' edges, corners and |det| about 1e-12 on the
+    static walls, and rays tangent to the static sphere within a relative
+    1e-6); t_max and t_min at a wall hit's distance or a float either side;
+    and rows with t_max <= t_min (0, t_min or NaN) whose directions are
+    stale ones that would be blocked (NaN on a fifth of them)."""
+    anim = scenes.cornell_box_animated(device, spheres=True)
+    ss, fr = build_sweep_scene(anim), frames_at(anim)
+    ref = scenes.cornell_box_ref(device)
+    ref_ss = build_sweep_scene(ref)
+    f = dict(dtype=torch.float32, device=device)
+    sph = anim.spheres
+    air = anim._replace(spheres=Spheres(
+        torch.cat([sph.center, torch.tensor([[-0.3, 1.3, 0.4]], **f)]),
+        torch.cat([sph.radius, torch.tensor([0.2], **f)]),
+        torch.cat([sph.mat, sph.mat[:1]]),
+        torch.cat([sph.anim, torch.zeros((1,), dtype=torch.int32, device=device)])))
+    air_ss = build_sweep_scene(air)
+    rs = np.random.default_rng(16)
+    m = n // 4
+    # through the short box (animation 1) as it stands at the frames' instant
+    p0, e1, e2 = _world_rows(ss, fr)
+    tris = rs.choice(np.nonzero(ss.tri_anim.cpu().numpy() == 1)[0], n)
+    ab = rs.uniform(0.1, 0.4, size=(n, 2))
+    _, ad = _aimed(rs, p0, e1, e2, ab, tris)
+    reach = rs.uniform(0.02, 0.2, size=(n, 1))
+    ao = p0[tris] + ab[:, :1] * e1[tris] + ab[:, 1:] * e2[tris] - reach * ad
+    turned = (_f32(ao, device), _f32(ad, device), torch.full((n,), MIN_HIT, **f),
+              _f32(reach[:, 0] * 1.001, device))
+    # tangent to the static sphere (row 1), the distance from its centre a
+    # relative 0 or 1e-7 or 1e-6 either side of its radius
+    c, r = ss.sph[1, :3].double().cpu().numpy(), float(ss.sph[1, 3])
+    td = rs.normal(size=(m, 3))
+    td /= np.linalg.norm(td, axis=-1, keepdims=True)
+    w = rs.normal(size=(m, 3))
+    w -= np.sum(w * td, -1, keepdims=True) * td
+    w /= np.linalg.norm(w, axis=-1, keepdims=True)
+    eps = rs.choice([-1e-6, -1e-7, 0.0, 1e-7, 1e-6], size=(m, 1))
+    to = c + w * r * (1.0 + eps) - td * rs.uniform(0.5, 1.5, size=(m, 1))
+    walls = ss.tri[ss.tri_anim == 0]
+    edges = edge_lanes(walls[:, 0:3], walls[:, 4:7], walls[:, 8:11],
+                       lambda *q: closest_sweep_plain(ss, *q, fr), n, device)
+    k = 2 * (n // 4)
+    grazing = tuple(torch.cat([a[:k], b]) for a, b in zip(
+        edges, (_f32(to, device), _f32(td, device), torch.full((m,), MIN_HIT, **f),
+                torch.full((m,), BIG, **f))))
+    # stale rows: dead lanes whose rays the sweep would find blocked
+    rnd = random_lanes(n, device, seed=17)
+    occ = any_sweep_plain(ss, *rnd, fr).cpu().numpy()
+    dead = occ & (rs.uniform(size=n) < 0.7)
+    how = rs.integers(0, 3, n)
+    t_min = rnd[2].cpu().numpy()
+    t_max = np.where(dead, np.choose(how, [np.zeros(n), t_min, np.full(n, np.nan)]),
+                     rnd[3].cpu().numpy())
+    d = np.where((dead & (rs.uniform(size=n) < 0.2))[:, None], np.nan, rnd[1].cpu().numpy())
+    stale = (rnd[0], _f32(d, device), rnd[2], _f32(t_max, device))
+    return {"blocker last, triangle, static": (ref_ss, _only_last(
+                ref_ss, last_blocker_lanes(ref, n, device), None), None),
+            "blocker last, sphere": (air_ss, _only_last(
+                air_ss, last_blocker_lanes(air, n, device), fr), fr),
+            "blocker in one animation's object space": (ss, turned, fr),
+            "one live lane": (ss, _one_live(rnd, torch.as_tensor(occ, device=device)), fr),
+            "edges, grazing": (ss, grazing, fr),
+            "t a float inside or outside (t_min, t_max)": (
+                ss, tuple(x[k:].contiguous() for x in edges), fr),
+            "t_max <= t_min, stale directions": (ss, stale, fr)}
+
+
 def _bits_differ(*pairs):
     """Lanes where any pair of [N] float32 or int32 tensors differs in a bit."""
     out = torch.zeros_like(pairs[0][0], dtype=torch.bool)
@@ -1115,7 +1214,8 @@ def probe_gather_inputs(device):
 class K4Inputs(NamedTuple):
     """Identical inputs of K4's three entry points, from one frame's first block."""
 
-    regen: tuple      # regen_pinhole(*regen) or regen_surround(*regen)
+    regen: tuple      # regen_pinhole(*regen) or regen_surround(*regen), the step
+                      # before's pending deposits and occlusion last (None at the start)
     shade: tuple      # shade_diffuse / shade_env / shade_lit(*shade), st.stats replaced per call
     resolve: tuple    # nee_resolve(*resolve)
 
@@ -1132,7 +1232,7 @@ def regenerated_lanes(inputs: K4Inputs) -> int:
     """How many lanes the regeneration on `inputs` refills: dead lanes whose
     pixel has samples left. A check or a time of the regeneration on inputs
     where none is means a copy of the state, not a regeneration."""
-    st, _, k_next, _, _, lanes, _ = inputs.regen
+    st, _, k_next, _, _, lanes = inputs.regen[:6]
     return int(((~st.active) & (k_next < lanes.P) & lanes.valid).sum())
 
 
@@ -1147,13 +1247,16 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     through its OpenCV lens; rtiow_bvh: the 488 spheres of the full field in
     a BVH, the same lanes) or the city frame (1048576 of its
     2073600 pixels at 1 spp, 360-degree stereo), after `steps` wavefront
-    steps of the plain route (regen_plain, the scene's closest-hit cast, K3,
-    the class's plain shade, the scene's any-hit cast where the shade casts
-    shadow rays, nee_resolve_plain): lanes live, dead and (with more than
-    one sample per lane) due for regeneration side by side. The
-    regeneration's inputs are that state; the shade's, the state after one
-    more plain regeneration and its casts; the resolve's, the plain shade's
-    pending deposits and their shadow casts. `width`, `height` (= width
+    steps of the plain route (regen_plain with the step before's pending
+    deposits, the scene's closest-hit cast, K3, the class's plain shade, the
+    scene's any-hit cast where the shade casts shadow rays): lanes live,
+    dead and (with more than one sample per lane) due for regeneration side
+    by side. The regeneration's inputs are that state with the last step's
+    pending deposits and their occlusion (none where `steps` is 0 or the
+    step casts no shadow ray); the shade's, the state after that plain
+    regeneration and its casts; the resolve's (the stand-alone
+    nee_resolve), the plain shade's pending deposits and their shadow casts.
+    `width`, `height` (= width
     when only `width` is given), `ssqrt`, `m` (sample lanes per pixel),
     `scene`, `sensor` and the camera config `cfg` (the lens model) replace
     the frame's own where given; a block holds at most the frame's lanes
@@ -1229,20 +1332,16 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     k_next = torch.zeros_like(sample)
     t_min = torch.full((route.shadow_rows * L,), MIN_HIT, **f32)
 
-    for k in range(steps + 1):
-        regen_args = (st, sample, k_next, cam, cfg, lanes, True)
-        st, sample, k_next, t_max = wf.regen_plain(*regen_args)
+    pending = occ = None
+    for _ in range(steps + 1):
+        regen_args = (st, sample, k_next, cam, cfg, lanes, True, pending, occ)
+        st, sample, k_next, t_max, _ = wf.regen_plain(*regen_args)
         t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min[:L], t_max, frames)
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
         shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
         st, so, sd, stmax, pending = route.shade_plain(*shade_args)
         occ = None if stmax is None else scene_any_hit(accel, so, sd, t_min, stmax, frames)
-        resolve_args = (st.acc, pending, occ, st.active, k_next, lanes)
-        if k == steps:
-            break
-        acc, _ = wf.nee_resolve_plain(*resolve_args)
-        st = st._replace(acc=acc)
-    return K4Inputs(regen_args, shade_args, resolve_args)
+    return K4Inputs(regen_args, shade_args, (st.acc, pending, occ, st.active, k_next, lanes))
 
 
 def _named(out, names):
@@ -1327,7 +1426,7 @@ def restore_args(dst, src) -> None:
             a.copy_(b)
 
 
-REGEN_OUT = ("state", "sample", "k_next", "t_max")
+REGEN_OUT = ("state", "sample", "k_next", "t_max", "work")
 SHADE_OUT = ("state", "shadow_o", "shadow_d", "shadow_tmax", "pending", "stats")
 
 
@@ -1340,7 +1439,9 @@ def check_call(kernel, plain, args, cast_rows: bool = False,
     bit-equal on every row (`exact_rows`; else it is held as any float
     field, for a build whose libm is not the card's) and the shadow origins
     and directions are compared on the rows that cast only."""
-    regen = len(args) == 7
+    from ..render.wavefront import LoopState
+
+    regen = isinstance(args[0], LoopState)
     names = REGEN_OUT if regen else SHADE_OUT
 
     def run(fn):
@@ -1414,9 +1515,11 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     `_env_shade_work` and `_lit_shade_work` say (in place) and their
     `_copy_work` twins (the copy contract); the surround regeneration ~180
     per regenerated lane (four sines and cosines, two rotations); the
-    resolve one add per accumulator channel on each unoccluded row."""
+    deposits of the step before, which the regeneration adds first, and
+    the resolve one add per accumulator channel on each unoccluded row
+    (`_deposit_work`)."""
     if kernel in ("regen_pinhole", "regen_surround"):
-        st, sample, k_next, cam, cfg, lanes, _ = inputs.regen
+        st, sample, k_next, cam, cfg, lanes, _, pending, occluded = inputs.regen
         n = st.active.shape[0]
         n_need = regenerated_lanes(inputs)
         state = [getattr(st, f) for f in st._fields if f not in ("acc", "stats")]
@@ -1431,16 +1534,18 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
                 cfg.undistort_iters if cfg.distortion == DistortionModel.OPENCV else 1)
             if cfg.distortion != DistortionModel.NONE:
                 camera += [cam.dist_k, cam.dist_p]
+        dep_bytes, dep_flops = _deposit_work(st.acc, pending, occluded, in_place)
+        flops = per_lane * n_need + dep_flops
         if in_place:
             n_dead = int((~st.active).sum())
             n_bytes = (n * _lane_bytes(st.active, st.geom_len)          # geom_len: t_max
                        + n_dead * _lane_bytes(k_next)
                        + n_need * _lane_bytes(*state, sample, k_next))
-            return n_bytes + _table_bytes(camera), per_lane * n_need
+            return n_bytes + dep_bytes + _table_bytes(camera), flops
         read = (n * _lane_bytes(st.active, k_next, st.prev_random)
                 + (n - n_need) * _lane_bytes(sample, *kept))
         written = n * _lane_bytes(*state, sample, k_next, st.geom_len)      # geom_len: t_max
-        return read + written + _table_bytes(camera), per_lane * n_need
+        return read + written + dep_bytes + _table_bytes(camera), flops
     if kernel == "shade_lit":
         return _lit_shade_work(inputs) if in_place else _lit_shade_copy_work(inputs)
     if kernel == "shade_diffuse":
@@ -1448,13 +1553,29 @@ def k4_work(inputs: K4Inputs, kernel: str, in_place: bool = True):
     if kernel == "shade_env":
         return _env_shade_work(inputs) if in_place else _env_shade_copy_work(inputs)
     acc, pending, occluded, active, k_next, _ = inputs.resolve
+    dep_bytes, dep_flops = _deposit_work(acc, pending, occluded, in_place=False)
+    flag = acc.shape[0] * _lane_bytes(active) + int((~active).sum()) * _lane_bytes(k_next)
+    return flag + dep_bytes, dep_flops
+
+
+def _deposit_work(acc, pending, occluded, in_place: bool):
+    """(bytes, flops) of adding a step's pending deposits to acc (none: 0
+    and the loop flag's 4 bytes): every lane's acc and occlusion flags read,
+    an unoccluded row's deposit read, one add per channel on it; written in
+    place the acc elements whose bits change, else every lane's acc; and
+    the flag."""
+    from ..render.wavefront import deposit_pending
+
+    if pending is None:
+        return 4, 0.0
     n, n_acc = acc.shape
-    if pending is None:         # the loop condition alone
-        return n * _lane_bytes(active) + int((~active).sum()) * _lane_bytes(k_next) + 4, 0.0
     n_open = int((~occluded).sum())       # unoccluded rows (two per lane in the lit class)
-    read = (n * _lane_bytes(acc, active) + occluded.numel() * occluded.element_size()
-            + n_open * _lane_bytes(pending) + int((~active).sum()) * _lane_bytes(k_next))
-    return read + n * _lane_bytes(acc) + 4, float(n_open * n_acc)
+    new = deposit_pending(acc, pending, occluded)
+    written = (int((new.view(torch.int32) != acc.view(torch.int32)).sum()) * acc.element_size()
+               if in_place else n * _lane_bytes(acc))
+    read = (n * _lane_bytes(acc) + occluded.numel() * occluded.element_size()
+            + n_open * _lane_bytes(pending))
+    return read + written + 4, float(n_open * n_acc)
 
 
 def _diffuse_shade_copy_work(inputs: K4Inputs):
@@ -1850,18 +1971,24 @@ def any_hit_work(bs, rays):
             40 * float(torch.where(live, first, 0).sum()))
 
 
-def assemble_hit_work(ht, n: int, frames=None):
+def assemble_hit_work(ht, n: int, frames=None, hits=None):
     """K3: o, d, t, prim, u, v in; position, normal, geometric normal,
     tangent, uv, material, backside out; the hit tables read once (rows
     shared by many lanes stay in cache); about 120 flops per lane. K3a
     (`frames`): also the animation ids and the frame rows once, and per lane
     the object-space ray (30 flops) and the three vectors back to world with
-    their normalizations (3 x 22 flops)."""
+    their normalizations (3 x 22 flops). With `hits` (the launch's hit
+    lanes, prim >= 0): what this launch's data needs, the prim id read on
+    every lane and the rest in and out on hit lanes only (no kernel after K3
+    reads a miss lane's record)."""
     tables = _table_bytes(ht[:4])
-    if frames is None:
-        return n * 40 + n * (4 * 14 + 4 + 1) + tables, n * 120.0
-    tables += _table_bytes((ht.tri_anim, ht.sph_anim, frames))
-    return n * 40 + n * (4 * 14 + 4 + 1) + tables, n * (120.0 + 30.0 + 66.0)
+    per_lane = 120.0
+    if frames is not None:
+        tables += _table_bytes((ht.tri_anim, ht.sph_anim, frames))
+        per_lane += 30.0 + 66.0
+    if hits is None:
+        return n * 40 + n * (4 * 14 + 4 + 1) + tables, n * per_lane
+    return n * 4 + hits * (36 + 4 * 14 + 4 + 1) + tables, hits * per_lane
 
 
 SWEEP_TRI_FLOPS = 46.0     # two crosses, four dots, a division, the predicates
