@@ -82,41 +82,50 @@ Phases, each a function, any failure exits non-zero and names its phase:
    block (131072 camera rays, random rays and the moving light's NEE
    shadow rays, with the frame's animation rows and, on the same rows at
    rest, without them), each also with every lane dead; timed there.
+   K3's K4 form (the fields of one shade class's set, on hit lanes only)
+   with each frame's set on the winners before each K4 frame's shade, and
+   with every set, static and animated, on kernel_check.k3_edge_sets (no
+   hit lane in a tile, one, every lane hit, triangle and sphere winners
+   alternating, degenerate tangents and sphere poles, backside hits,
+   animations side by side, 1111 lanes): its outputs filled first, the
+   set's fields bit-equal to the plain version's on hit lanes and every
+   miss lane as it was filled; timed on the Cornell, mesh, city and
+   cornell_animated blocks.
 4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
    components, SensorRGB) through render_frame_wavefront on the GPU. K1,
-   K2, K3 and K4 must be launched and P0 not, the image must be finite, its
+   K2, K3's K4 form and K4 must be launched and P0 and K3's full form not, the image must be finite, its
    mean within 1e-3 relative of the JAX package's deterministic CPU output,
    and the cast counters within 0.5 % of it.
 5. mesh path - the bvh_100k bench frame (160 x 120, 4 spp, 4 path
    components, GGX and mirror spheres under the importance-sampled equirect
-   sky) through K4's env class: the regeneration, K5, K3, the env shade
+   sky) through K4's env class: the regeneration, K5, K3's K4 form, the env shade
    and K6 must be launched, and neither P0, the resolve nor K8's
    stand-alone kernels (the shade reads the sky inline); the frame held to its JAX
    reference as in phase 4.
 6. city path - the city_many_lights bench frame (1920 x 1080, 360-degree
    stereo, 1 spp, 4 path components; ModPhong, RGL, 192 window triangles
    under per-light MIS beside the importance-sampled night sky) through
-   K4's lit class: the surround regeneration, K5, K3, the lit shade (RGL,
+   K4's lit class: the surround regeneration, K5, K3's K4 form, the lit shade (RGL,
    the sky and the material rows inline) and K6 (the light and sky shadow
    rays in one cast) must be launched, and neither P0, the resolve, K7's
    nor K8's stand-alone kernels; the frame held to its JAX reference
    as in phase 4.
 7. envmap path - the envmap_cube_is bench frame (128 x 128, 16 spp, 8 path
    components; glass, mirror and GGX spheres under the importance-sampled
-   cube-map sky) through K4's env class: the regeneration, K1, K3, the env
+   cube-map sky) through K4's env class: the regeneration, K1, K3's K4 form, the env
    shade (its cube-sky and glass instantiation) and K2 must be launched,
    and neither P0, the resolve nor K8's stand-alone kernels; the frame
    held to its JAX reference as in phase 4.
 8. rtiow path - the rtiow_distortion bench frame (192 x 128, 16 spp, 8 path
    components, OpenCV lens, 40 spheres under a constant sky) through K4's
-   env class: the regeneration (with the lens's fixed point), K1, K3, the
+   env class: the regeneration (with the lens's fixed point), K1, K3's K4 form, the
    env shade (its constant-sky and glass instantiation) must be launched,
    and neither K2 (no light, no sky importance: no shadow ray), P0, the
    resolve nor K8's stand-alone kernels; the frame held to its JAX
    reference as in phase 4.
 9. tof path - the tof_amcw bench frame (96 x 96, 16 spp, 6 path components,
    SensorTofAmcw, the ToF cone light with per-light MIS) at phase 0: K1,
-   K2, K3 and K4 (regeneration, shade) must be launched and neither P0
+   K2, K3's K4 form and K4 (regeneration, shade) must be launched and neither P0
    nor the resolve, and the frame held to its JAX reference (mean energy, the three
    channel means, counters); phases 1-3 keep the counters and the mean
    and phase 2 swaps the buckets a and b; the 4-phase distance at depth 1
@@ -124,7 +133,7 @@ Phases, each a function, any failure exits non-zero and names its phase:
    under 2 mm).
 10. cornell_animated path - the animated Cornell frame (128 x 128, 16 spp,
    8 path components, SensorRGB, t0 = t1 = 0.5) through render_frame_wavefront
-   on K4's diffuse class with the scene's casts: the regeneration, KS1, K3a,
+   on K4's diffuse class with the scene's casts: the regeneration, KS1, K3a's K4 form,
    the diffuse shade (the moving light placed at t = 0.5 in the frame's step
    tables) and KS2 must be launched, and neither K1, K2, K3, P0 nor the
    resolve; the frame held to its JAX reference as in phase 4
@@ -133,24 +142,26 @@ Phases, each a function, any failure exits non-zero and names its phase:
 11. rtiow_bvh path - the full RTIOW field in a BVH (rtiow(n=22,
    use_bvh=True), rtiow's settings: 192 x 128, 16 spp, 8 path components,
    the OpenCV lens, the constant sky) through K4's env class: the lens
-   regeneration, K5 (its sphere rows), K3, the env shade (constant sky,
+   regeneration, K5 (its sphere rows), K3's K4 form, the env shade (constant sky,
    glass) must be launched, and neither K1, KS1, K6 (no shadow ray), P0,
    the resolve nor K8's stand-alone kernels; the frame held to its JAX
    reference (`jax_frame_reference.py rtiow_bvh`: the JAX package's BVH
-   route) as in phase 4, at most 5.00 launches per step of the loop and 9
+   route) as in phase 4, at most 4.00 launches per step of the loop and 8
    per step of the frame.
 12. cornell_animated_bvh path - the animated box with its two spheres in a
    BVH swept at t = 0.5, rendered as cornell_animated through K4's diffuse
    class: the regeneration, K5 and K6 (object-space rays over triangle and
-   sphere rows, static and animated), K3a and the diffuse shade must be
+   sphere rows, static and animated), K3a's K4 form and the diffuse shade must be
    launched, and neither K1, K2, K3, KS1, KS2, P0 nor the resolve; the
    frame held to its JAX reference (`jax_frame_reference.py
-   cornell_animated_bvh`), at most 6.00 launches per step of the loop and
-   310 per frame.
+   cornell_animated_bvh`), at most 5.00 launches per step of the loop and
+   295 per frame.
 
 A K4 step is the regeneration, which first adds the step before's NEE
 deposits (the NEE resolve, folded in) and flags the loop condition, then
-the closest-hit cast, the hit assembly, the shade and the any-hit cast;
+the closest-hit cast, the hit assembly (K3's K4 form: the fields the
+class's shade reads, on hit lanes only; no hit mask), the shade and the
+any-hit cast;
 each block's loop ends at a regeneration that finds no work, and the
 stand-alone resolve (wpt_nee_resolve) launches on no path. The Cornell
 frame (phase 4) and the ToF frame take K4's diffuse class (regeneration,
@@ -195,12 +206,12 @@ hand-written kernel's device time per launch (one more frame under
 torch.profiler; the scene's tables are built once per scene, before the
 frames); every path also the launches of one step of the loop
 and of the frame's set-up, from the difference to the same frame at 1
-path component. Cornell, ToF, envmap, rtiow and rtiow_bvh fail above 9
+path component. Cornell, ToF, envmap, rtiow and rtiow_bvh fail above 8
 kernel launches per step of the frame; the mesh frame (4 steps, so its 32
-launches of set-up alone come to 8 per step) above 60 per frame, the two
+launches of set-up alone come to 8 per step) above 56 per frame, the two
 animated frames (the animations' and the moving light's rows, ~171
-launches once per frame) above 310; every frame above 6.00 per step of
-the loop (5.00 on rtiow and rtiow_bvh: no shadow ray; the city's 2 blocks
+launches once per frame) above 295; every frame above 5.00 per step of
+the loop (4.00 on rtiow and rtiow_bvh: no shadow ray; the city's 2 blocks
 of 4 steps carry the set-up of two blocks). Each path's counters are set to 0 just before
 it and read just after; a kernel's `launches` in the JSON line is the sum
 over the paths that use it. The stand-alone K8 and K7 kernels run on no
@@ -243,25 +254,24 @@ K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", 
 PATHS = K4_PATHS
 # Kernel launches per step of a K4 frame's loop: the regeneration (which
 # first adds the step before's NEE deposits and flags the loop condition),
-# the closest-hit cast, K3 or K3a, K3's hit mask (`prim >= 0`, a PyTorch
-# kernel), the shade and the any-hit cast; the two rtiow frames cast no
-# shadow ray. Each block's loop ends with one more regeneration, which the
-# frame's set-up counts (K5's and K6's lane counters and the loop flag's
-# clear are memsets, not kernels).
-K4_LOOP_LAUNCHES = 6.0
-K4_LOOP_LAUNCHES_NO_SHADOW = 5.0
+# the closest-hit cast, K3's K4 form (K3a's animated; no hit mask: the
+# record's readers test prim themselves), the shade and the any-hit cast; the two rtiow frames cast no shadow ray. Each block's loop ends with
+# one more regeneration, which the frame's set-up counts (K5's and K6's
+# lane counters and the loop flag's clear are memsets, not kernels).
+K4_LOOP_LAUNCHES = 5.0
+K4_LOOP_LAUNCHES_NO_SHADOW = 4.0
 # Kernel launches per step of the frame with its set-up and its blocks'
-# last regenerations (Cornell, envmap 8.00, ToF 8.67, rtiow and rtiow_bvh
-# 6.00; the mesh frame, whose 4 steps carry 32 launches of set-up, is held
+# last regenerations (Cornell, envmap 7.00, ToF 7.67, rtiow and rtiow_bvh
+# 5.00; the mesh frame, whose 4 steps carry 32 launches of set-up, is held
 # to MESH_MAX_FRAME_LAUNCHES instead, the animated frames to
 # ANIM_MAX_FRAME_LAUNCHES).
-K4_MAX_LAUNCHES_PER_STEP = 9
-MESH_MAX_FRAME_LAUNCHES = 60           # kernel launches of one mesh frame (56)
+K4_MAX_LAUNCHES_PER_STEP = 8
+MESH_MAX_FRAME_LAUNCHES = 56           # kernel launches of one mesh frame (52)
 # kernel launches of one cornell_animated (or cornell_animated_bvh) frame
-# (299): 16 steps, the lane state's set-up and, once per frame, the
+# (283): 16 steps, the lane state's set-up and, once per frame, the
 # animations' rows at the frame's instant and the moving light's rows (~171
 # PyTorch launches)
-ANIM_MAX_FRAME_LAUNCHES = 310
+ANIM_MAX_FRAME_LAUNCHES = 295
 PROFILE_TRIES = 10                     # profiles of a frame taken while the profiler loses events
 # K1's live shares (t_max > t_min) on the Cornell, ToF, envmap and rtiow
 # frames: closest casts over launches x lanes (PERF.md)
@@ -334,11 +344,34 @@ KERNELS = {
                   ("sweep_any",), PATHS),
     "assemble_hit_anim": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
                           "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_anim",), PATHS),
+    # K3's K4 form, one record per shade class's field set, and K3a's
+    "assemble_hit_k4_diffuse": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
+                                "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit_k4",),
+                                ("main path", "tof path")),
+    "assemble_hit_k4_env": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
+                            "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit_k4",),
+                            ("mesh path", "envmap path", "rtiow path", "rtiow_bvh path")),
+    "assemble_hit_k4_lit": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
+                            "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit_k4",),
+                            ("city path",)),
+    "assemble_hit_k4_anim": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
+                             "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_k4_anim",),
+                             ("cornell_animated path", "cornell_animated_bvh path")),
 }
-# The stand-alone kernels whose work a K4 shade or regeneration does inline:
-# record -> (kernel, path) pairs. Their records count their own launches
-# (none on any path) and list in `inline_in` each kernel that does their
-# work, on which path, with its launches there.
+# K3's K4 form: the record of each frame's class on the frame's K4 path.
+K3_K4_RECORDS = {"cornell": "assemble_hit_k4_diffuse", "tof": "assemble_hit_k4_diffuse",
+                 "mesh": "assemble_hit_k4_env", "envmap": "assemble_hit_k4_env",
+                 "rtiow": "assemble_hit_k4_env", "rtiow_bvh": "assemble_hit_k4_env",
+                 "city": "assemble_hit_k4_lit", "cornell_animated": "assemble_hit_k4_anim",
+                 "cornell_animated_bvh": "assemble_hit_k4_anim"}
+# The full form of K3 and K3a (every field of every lane), which no K4 path
+# launches: checked and timed in phase 3.
+K3_FULL = ("assemble_hit", "assemble_hit_anim")
+# The stand-alone kernels whose work a K4 shade or regeneration does inline,
+# and K3's and K3a's full forms, whose work the K4 form does on each K4
+# path: record -> (kernel, path) pairs. Their records count their own
+# launches (none on any path) and list in `inline_in` each kernel that does
+# their work, on which path, with its launches there.
 INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
           "envmap_cube": (("shade_env", "envmap path"),),
           "envmap_constant": (("shade_env", "rtiow path"), ("shade_env", "rtiow_bvh path")),
@@ -346,7 +379,12 @@ INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
           "row_gather": (("shade_lit", "city path"),),
           # the NEE resolve: inside the next step's regeneration since PR 16
           "nee_resolve": tuple(("regen_pinhole", p) for p in K4_PATHS if p != "city path"),
-          "nee_resolve_lit": (("regen_surround", "city path"),)}
+          "nee_resolve_lit": (("regen_surround", "city path"),),
+          # K3's and K3a's full forms: their K4 form on every K4 path
+          "assemble_hit": tuple(("assemble_hit_k4", p) for p in K4_PATHS
+                                if p not in ("cornell_animated path", "cornell_animated_bvh path")),
+          "assemble_hit_anim": (("assemble_hit_k4_anim", "cornell_animated path"),
+                                ("assemble_hit_k4_anim", "cornell_animated_bvh path"))}
 # The record of each K4 frame's shade, regeneration and resolve, where not
 # the kernel's own name (the mesh, Cornell and ToF frames).
 K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
@@ -355,30 +393,31 @@ K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
               ("regen_pinhole", "rtiow"): "regen_lens",
               ("regen_pinhole", "rtiow_bvh"): "regen_lens",
               ("nee_resolve", "city"): "nee_resolve_lit"}
-MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse")
+MAIN_PATH = ("closest_hit", "any_hit", "assemble_hit_k4", "regen_pinhole", "shade_diffuse")
 TOF_PATH = MAIN_PATH
-MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit")
-CITY_PATH = ("regen_surround", "bvh_closest_hit", "assemble_hit", "shade_lit", "bvh_any_hit")
+MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4", "shade_env", "bvh_any_hit")
+CITY_PATH = ("regen_surround", "bvh_closest_hit", "assemble_hit_k4", "shade_lit", "bvh_any_hit")
 # The stand-alone kernels whose work the lit shade and the regeneration do
 # inline (the regenerations add the step before's NEE deposits: no resolve).
-CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample", "nee_resolve") + ENV_ALL
-ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env", "any_hit")
-RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env")
+CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample", "nee_resolve") + ENV_ALL + K3_FULL
+ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit_k4", "shade_env", "any_hit")
+RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit_k4", "shade_env")
 # The animated frame: K4's diffuse class around the sweeps and K3a; no K1-K3
 # (the scene is swept) and no P0 (the shade reads the material rows itself).
-ANIM_PATH = ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse", "sweep_any")
-ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "row_gather", "shade_env", "shade_lit",
-               "nee_resolve")
+ANIM_PATH = ("regen_pinhole", "sweep_closest", "assemble_hit_k4_anim", "shade_diffuse",
+             "sweep_any")
+ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit_k4", "row_gather", "shade_env",
+               "shade_lit", "nee_resolve") + K3_FULL
 # The BVH paths: the full RTIOW field on the env class around K5's sphere
 # rows (no shadow ray: no K6), the animated box with spheres on the diffuse
 # class around K5/K6 in object space and K3a; neither takes K1/K2 or the sweeps.
-RTIOW_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env")
+RTIOW_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4", "shade_env")
 RTIOW_BVH_ABSENT = ("closest_hit", "any_hit", "sweep_closest", "sweep_any", "bvh_any_hit",
-                    "row_gather", "nee_resolve") + ENV_ALL
-ANIM_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_anim", "shade_diffuse",
+                    "row_gather", "nee_resolve") + ENV_ALL + K3_FULL
+ANIM_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4_anim", "shade_diffuse",
                  "bvh_any_hit")
-ANIM_BVH_ABSENT = ("closest_hit", "any_hit", "assemble_hit", "sweep_closest", "sweep_any",
-                   "row_gather", "shade_env", "shade_lit", "nee_resolve")
+ANIM_BVH_ABSENT = ("closest_hit", "any_hit", "assemble_hit_k4", "sweep_closest", "sweep_any",
+                   "row_gather", "shade_env", "shade_lit", "nee_resolve") + K3_FULL
 # The K4 kernels that update the lane state in place (render/wavefront.py).
 IN_PLACE = ("regen_pinhole", "regen_surround", "shade_diffuse", "shade_env", "shade_lit")
 
@@ -535,7 +574,7 @@ def phase_kernels(scenes_on_card):
                     kc.any_hit_work(bs, shadow), None),
         "assemble_hit": (lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v),
                          lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v),
-                         kc.assemble_hit_work(ht, o.shape[0]), None),
+                         kc.assemble_hit_work(ht, prim), None),
     }, errs, cam[0].shape[0]) + sweep_records
 
     # K5 and K6 on the mesh frame's block.
@@ -713,7 +752,7 @@ def _sweep_records(scenes_on_card, fcam, errs):
                       kc.sweep_work(ss, shadow, fr, any_hit=True), None),
         "assemble_hit_anim": (lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v, fr),
                               lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v, fr),
-                              kc.assemble_hit_work(ht, o.shape[0], fr), None),
+                              kc.assemble_hit_work(ht, prim, fr), None),
     }, sweep_errs, o.shape[0])
 
 
@@ -826,7 +865,7 @@ def _k4_records(scenes_on_card):
             record = K4_RECORDS.get((name, frame), name)
             errs[record] = max([errs.get(record, 0.0)]
                                + [v for v in fields.values() if isinstance(v, float)])
-    records = []
+    records = _k3_k4_records(inputs, errs)
     for record, frame, kernel in (("regen_pinhole", ("cornell", 2), "regen_pinhole"),
                                   ("regen_lens", ("rtiow", 2), "regen_pinhole"),
                                   ("regen_surround", ("city", 0), "regen_surround"),
@@ -856,6 +895,45 @@ def _k4_records(scenes_on_card):
                   f"({copy_work[0]:.4g} bytes, {copy_work[1]:.4g} flops)")
     _frame_casts(scenes_on_card)
     _frame_k4_steps(scenes_on_card)
+    return records
+
+
+def _k3_k4_records(inputs, errs):
+    """K3's K4 form against its plain version (kc.check_assemble_hit_k4: the
+    set's fields bit-equal on hit lanes, every miss lane as it was filled)
+    with each frame's field set on the winners before each K4 frame's shade
+    (its first block after 2 steps, the city block also as the frame starts
+    it), and with every field set, static and animated, on
+    kc.k3_edge_sets; timed on the Cornell (diffuse), mesh (env), city (lit)
+    and cornell_animated (K3a's, diffuse) blocks."""
+    from wurblpt_tpu_torch.render import intersect
+
+    for (frame, steps), inp in inputs.items():
+        ht, args, frames, fields = inp.assemble
+        record = K3_K4_RECORDS[frame]
+        res = kc.check_assemble_hit_k4(ht, args, frames, fields)
+        torch.cuda.synchronize()
+        print(f"kernels: {record} [{frame} block after {steps} steps, winners before the shade] "
+              f"ok {res}")
+        errs[record] = max(errs.get(record, 0.0), res["max_abs_err"])
+    for label, (ht, args, frames) in kc.k3_edge_sets(DEVICE).items():
+        for cls, fields in intersect.K4_FIELDS.items():
+            for fr in (None, frames):
+                res = kc.check_assemble_hit_k4(ht, args, fr, fields)
+                torch.cuda.synchronize()
+                print(f"kernels: assemble_hit_k4 [edge: {label}, {cls} fields, "
+                      f"{'animated' if fr is not None else 'static'}] ok {res}")
+    records = []
+    for record, frame in (("assemble_hit_k4_diffuse", "cornell"), ("assemble_hit_k4_env", "mesh"),
+                          ("assemble_hit_k4_lit", "city"),
+                          ("assemble_hit_k4_anim", "cornell_animated")):
+        ht, args, frames, fields = inputs[(frame, 2)].assemble
+        n = args[0].shape[0]
+        out = intersect.hit_buffers(fields, n, DEVICE)
+        records += _timed_records({record: (
+            lambda h=ht, a=args, f=frames, b=out: intersect.assemble_hit_k4(h, *a, f, b),
+            lambda h=ht, a=args, f=frames: intersect.assemble_hit_plain(h, *a, f),
+            kc.assemble_hit_work(ht, args[3], frames, fields), None)}, errs, n)
     return records
 
 
@@ -1020,7 +1098,7 @@ def _report(label, stats, times, paths, render, short=None, max_per_step=None,
 def phase_main_path():
     render = kc.bench_frame(DEVICE)
     img, stats, launches, times = _drive("main path", render, MAIN_PATH,
-                                         ("row_gather", "nee_resolve"))
+                                         ("row_gather", "nee_resolve") + K3_FULL)
     print(f"main path: mean radiance {float(img.double().mean())!r} (reference {kc.REF_MEAN}), "
           f"stats {stats} (reference {list(kc.REF_STATS)})")
     kc.check_bench_frame(img, stats)
@@ -1044,7 +1122,7 @@ def phase_city_path(city_scene):
 def phase_mesh_path(mesh_scene):
     render = kc.mesh_frame(DEVICE, mesh_scene)
     img, stats, launches, times = _drive("mesh path", render, MESH_PATH,
-                                         ("row_gather", "nee_resolve") + ENV_ALL)
+                                         ("row_gather", "nee_resolve") + ENV_ALL + K3_FULL)
     print(f"mesh path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.MESH_REF_MEAN}), stats {stats} (reference {list(kc.MESH_REF_STATS)})")
     kc.check_mesh_frame(img, stats)
@@ -1057,7 +1135,7 @@ def phase_mesh_path(mesh_scene):
 def phase_envmap_path(env_scene):
     render = kc.envmap_frame(DEVICE, env_scene)
     img, stats, launches, times = _drive("envmap path", render, ENVMAP_PATH,
-                                         ("row_gather", "nee_resolve") + ENV_ALL)
+                                         ("row_gather", "nee_resolve") + ENV_ALL + K3_FULL)
     print(f"envmap path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.ENVMAP_REF_MEAN}), stats {stats} "
           f"(reference {list(kc.ENVMAP_REF_STATS)})")
@@ -1071,7 +1149,8 @@ def phase_envmap_path(env_scene):
 def phase_rtiow_path(rt_scene):
     render = kc.rtiow_frame(DEVICE, rt_scene)
     img, stats, launches, times = _drive("rtiow path", render, RTIOW_PATH,
-                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ALL)
+                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ALL
+                                         + K3_FULL)
     print(f"rtiow path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.RTIOW_REF_MEAN}), stats {stats} (reference {list(kc.RTIOW_REF_STATS)})")
     kc.check_rtiow_frame(img, stats)
@@ -1084,7 +1163,7 @@ def phase_rtiow_path(rt_scene):
 def phase_tof_path(tof_scene):
     render = kc.tof_frame(DEVICE, tof_scene)
     img, stats, launches, times = _drive("tof path", render, TOF_PATH,
-                                         ("row_gather", "nee_resolve"))
+                                         ("row_gather", "nee_resolve") + K3_FULL)
     channels = [float(img[..., c].double().mean()) for c in range(3)]
     print(f"tof path: phase 0 mean energy {float(img.double().mean())!r} J (reference "
           f"{kc.TOF_REF_MEAN}), channels a, b, energy {channels} (reference "

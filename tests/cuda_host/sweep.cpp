@@ -4,8 +4,9 @@
 // with the layout and grid their C entry points pick (cuda_runtime.h's 2
 // resident blocks: blocks loop over tiles). The *_device.cuh files are the
 // sources up to their C entry points (the test cuts them there and gives the
-// sweeps' dynamic shared memory a static array); assemble_hit.cu has names
-// of its own, so it is built apart (K3A defined).
+// sweeps' dynamic shared memory a static array); assemble_hit.cu (its full
+// form and its K4 form) has names of its own, so it is built apart (K3A
+// defined).
 #include <thread>
 #include <vector>
 
@@ -52,17 +53,59 @@ extern "C" void host_assemble_hit_anim(const float* o, const float* d, const flo
                                        const int* tri_anim, const int* sph_anim,
                                        const float* frames, float* pos, float* nrm, float* gn,
                                        float* tan, float* uv, int* mat, bool* backside) {
-    const Anim anim{tri_anim, sph_anim, frames};
+    const Tables tb{tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres};
+    const Record out{pos, nrm, gn, tan, uv, mat, backside};
     run_blocks((n + BLOCK - 1) / BLOCK, BLOCK, [&] {
         if (frames == nullptr)
-            assemble_hit_kernel<false>(o, d, t, prim, u, v, n, tri_f, tri_i, n_tris, sph_f,
-                                       sph_mat, n_spheres, Anim{}, pos, nrm, gn, tan, uv, mat,
-                                       backside);
+            assemble_hit_kernel<false>(o, d, t, prim, u, v, n, tb, Anim{}, out);
         else
-            assemble_hit_kernel<true>(o, d, t, prim, u, v, n, tri_f, tri_i, n_tris, sph_f,
-                                      sph_mat, n_spheres, anim, pos, nrm, gn, tan, uv, mat,
-                                      backside);
+            assemble_hit_kernel<true>(o, d, t, prim, u, v, n, tb,
+                                      Anim{tri_anim, sph_anim, frames}, out);
     });
+}
+
+// The K4 form with the grid and tile of its C entry.
+template <bool ANIM, int F>
+static void k4_on_host(const float* o, const float* d, const float* t, const int* prim,
+                       const float* u, const float* v, int n, const Tables& tb, const Anim& anim,
+                       const Record& out) {
+    if (n <= 0) return;
+    const Launch l = k4_launch<ANIM, F>(n);
+    run_blocks(l.grid, QBLOCK, [&] {
+        assemble_hit_k4_kernel<ANIM, F>(o, d, t, prim, u, v, n, l.tile, tb, anim, out);
+    });
+}
+
+template <int F>
+static void k4_on_host(bool animated, const float* o, const float* d, const float* t,
+                       const int* prim, const float* u, const float* v, int n, const Tables& tb,
+                       const Anim& anim, const Record& out) {
+    if (animated)
+        k4_on_host<true, F>(o, d, t, prim, u, v, n, tb, anim, out);
+    else
+        k4_on_host<false, F>(o, d, t, prim, u, v, n, tb, anim, out);
+}
+
+// wpt_assemble_hit_k4's arguments but the stream; returns 1 (and runs
+// nothing) for a field set the entry point refuses.
+extern "C" int host_assemble_hit_k4(const float* o, const float* d, const float* t,
+                                    const int* prim, const float* u, const float* v, int n,
+                                    const float* tri_f, const int* tri_i, int n_tris,
+                                    const float* sph_f, const int* sph_mat, int n_spheres,
+                                    const int* tri_anim, const int* sph_anim,
+                                    const float* frames, int fields, float* pos, float* nrm,
+                                    float* gn, float* tan, int* mat, bool* backside) {
+    const Tables tb{tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres};
+    const Anim anim{tri_anim, sph_anim, frames};
+    const Record out{pos, nrm, gn, tan, nullptr, mat, backside};
+    const bool animated = frames != nullptr;
+    switch (fields) {
+        case F_DIFFUSE: k4_on_host<F_DIFFUSE>(animated, o, d, t, prim, u, v, n, tb, anim, out); break;
+        case F_ENV: k4_on_host<F_ENV>(animated, o, d, t, prim, u, v, n, tb, anim, out); break;
+        case F_LIT: k4_on_host<F_LIT>(animated, o, d, t, prim, u, v, n, tb, anim, out); break;
+        default: return 1;
+    }
+    return 0;
 }
 #else
 // wpt_sweep_closest's and wpt_sweep_any's arguments but the stream, launched

@@ -1,5 +1,5 @@
 """The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly and
-its animated branch K3a, the sweeps KS1/KS2, K5 BVH closest hit, K6 BVH
+its animated branch K3a, both also in their K4 form, the sweeps KS1/KS2, K5 BVH closest hit, K6 BVH
 any hit, K7 RGL eval/sample, K8 envmap with its equirect, cube and constant
 branches, P0 row gather) against their plain PyTorch versions, with the
 tolerances of utils/kernel_check.py.
@@ -361,10 +361,11 @@ def test_mesh_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     kc.check_mesh_frame(img, stats)
     # K4's env class: the shade reads the sky inline, no stand-alone K8 or P0;
     # the regeneration adds the NEE deposits, no resolve
-    for name in ("regen_pinhole", "bvh_closest_hit", "assemble_hit", "shade_env", "bvh_any_hit"):
+    for name in ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4", "shade_env",
+                 "bvh_any_hit"):
         assert native.LAUNCHES[name] > 0, name
     for name in ("closest_hit", "any_hit", "env_radiance", "env_sample", "env_pdf", "row_gather",
-                 "shade_diffuse", "nee_resolve"):
+                 "shade_diffuse", "nee_resolve", "assemble_hit"):
         assert native.LAUNCHES[name] == 0, name
 
 
@@ -568,11 +569,23 @@ def test_bounds_read_each_table_once(kernel):
     table once, however many lanes read it; the walk's visits count as work.
     A BVH or brute-force lane reads its ray (24 B) and tests primitives only
     where it is live, and a triangle of the BVH counts its 40 B of vertices
-    and id, not its row's pad."""
+    and id, not its row's pad. K3 counts the hit table by the rows its
+    winners touch, each once (116 B of a triangle's 116, 20 B of a
+    sphere's), not the rows no lane won."""
     if kernel == "assemble_hit":
         ht = intersect.build_hit_tables(_scene("cpu", True))
-        table = sum(x.numel() * x.element_size() for x in ht[:4])
-        work = functools.partial(kc.assemble_hit_work, ht)
+        prim = torch.as_tensor(np.random.default_rng(2).integers(-1, ht.n_tris // 2, 512),
+                               dtype=torch.int32)
+        prim[::7] = ht.n_tris                 # the sphere
+
+        def work(n):
+            return kc.assemble_hit_work(ht, prim[:n])
+
+        def table(n):
+            won = prim[:n][prim[:n] >= 0]
+            tris = torch.unique(won[won < ht.n_tris]).numel()
+            assert 0 < tris < ht.n_tris
+            return tris * 116 + 20
         per_lane, per_live = 40 + 61, 0
     elif kernel in ("closest_hit", "any_hit"):
         bs = intersect_brute.build_brute_scene(_scene("cpu", True))
@@ -613,7 +626,8 @@ def test_bounds_read_each_table_once(kernel):
         else:
             live = int((t_max[:n] > t_min[:n]).sum())
             assert 0 < live <= 2 * n // 3 + 1
-        assert n_bytes == n * per_lane + live * per_live + table and flops > 0
+        tab = table(n) if callable(table) else table
+        assert n_bytes == n * per_lane + live * per_live + tab and flops > 0
     assert work(512)[1] > work(256)[1]
 
 
@@ -658,16 +672,17 @@ def test_city_frame_check_holds_the_reference(off):
 @pytest.mark.cuda
 def test_city_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     """The city frame through K4's lit class: the surround regeneration, K5,
-    K3, the lit shade (RGL, the sky and the material rows inline) and K6,
-    the NEE deposits added by the next regeneration; no stand-alone K7, K8,
-    P0 or resolve launch."""
+    K3's K4 form, the lit shade (RGL, the sky and the material rows inline)
+    and K6, the NEE deposits added by the next regeneration; no stand-alone
+    K7, K8, P0 or resolve launch, and no full-form K3."""
     native.reset_launch_counts()
     img, stats = kc.city_frame(gpu, _city(gpu))()
     kc.check_city_frame(img, stats)
-    for name in ("regen_surround", "assemble_hit", "bvh_closest_hit", "shade_lit", "bvh_any_hit"):
+    for name in ("regen_surround", "assemble_hit_k4", "bvh_closest_hit", "shade_lit",
+                 "bvh_any_hit"):
         assert native.LAUNCHES[name] > 0, name
     for name in ("env_radiance", "env_sample", "env_pdf", "rgl_eval", "rgl_sample",
-                 "row_gather", "nee_resolve"):
+                 "row_gather", "nee_resolve", "assemble_hit"):
         assert native.LAUNCHES[name] == 0, name
 
 
@@ -781,7 +796,7 @@ def test_tof_frame_check_holds_the_reference(off):
 def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):
     env_scene, rt_scene = _sphere_scenes(gpu)
     native.reset_launch_counts()
-    need = ("regen_pinhole", "closest_hit", "assemble_hit", "shade_env")
+    need = ("regen_pinhole", "closest_hit", "assemble_hit_k4", "shade_env")
     if frame == "envmap":
         img, stats = kc.envmap_frame(gpu, env_scene)()
         kc.check_envmap_frame(img, stats)
@@ -792,7 +807,8 @@ def test_sphere_renders_on_gpu_match_the_jax_reference_numbers(gpu, frame):
         assert native.LAUNCHES["any_hit"] == 0            # no light, no sky importance
     for name in need:                                    # K4's env class
         assert native.LAUNCHES[name] > 0, name
-    for name in ("row_gather", "env_radiance", "env_sample", "env_pdf", "nee_resolve"):
+    for name in ("row_gather", "env_radiance", "env_sample", "env_pdf", "nee_resolve",
+                 "assemble_hit"):
         assert native.LAUNCHES[name] == 0, name          # the shade reads rows and sky inline
 
 
@@ -970,10 +986,11 @@ def test_cornell_animated_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     before = dict(native.LAUNCHES)
     img, stats = kc.cornell_animated_frame(gpu)()
     kc.check_cornell_animated_frame(img, stats)
-    for name in ("regen_pinhole", "sweep_closest", "assemble_hit_anim", "shade_diffuse",
+    for name in ("regen_pinhole", "sweep_closest", "assemble_hit_k4_anim", "shade_diffuse",
                  "sweep_any"):
         assert native.LAUNCHES[name] > before[name]
-    for name in ("closest_hit", "any_hit", "assemble_hit", "row_gather", "nee_resolve"):
+    for name in ("closest_hit", "any_hit", "assemble_hit", "assemble_hit_anim", "assemble_hit_k4",
+                 "row_gather", "nee_resolve"):
         assert native.LAUNCHES[name] == before[name]
 
 
@@ -1030,3 +1047,35 @@ def test_sweep_bounds_count_live_lanes_tables_and_tests(any_hit):
         assert obj < flops < full + obj
     else:
         assert flops == full + obj
+
+
+K3_EDGES = ("no hit lane", "one hit lane", "every lane hit", "triangles and spheres interleaved",
+            "degenerate tangents, sphere poles", "backside hits", "animations side by side",
+            "1111 lanes")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_EDGES)
+def test_k4_form_kernel_bit_equal_on_the_edge_sets(gpu, case):
+    """K3's K4 form on kernel_check.k3_edge_sets, every field set, static
+    and animated: the set's fields bit-equal on hit lanes, miss lanes
+    untouched (kernel_check.check_assemble_hit_k4)."""
+    ht, args, frames = kc.k3_edge_sets(gpu)[case]
+    for fields in intersect.K4_FIELDS.values():
+        for fr in (None, frames):
+            counter = "assemble_hit_k4" if fr is None else "assemble_hit_k4_anim"
+            before = native.LAUNCHES[counter]
+            kc.check_assemble_hit_k4(ht, args, fr, fields)
+            torch.cuda.synchronize()
+            assert native.LAUNCHES[counter] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["cornell", "tof", "envmap", "rtiow", "cornell_animated"])
+def test_k4_form_kernel_bit_equal_on_the_frames_first_block(gpu, frame):
+    """K3's K4 form with the frame's field set on the winners before its
+    shade, on the frame's first block after 2 steps."""
+    ht, args, frames, fields = kc.k4_inputs(gpu, frame).assemble
+    res = kc.check_assemble_hit_k4(ht, args, frames, fields)
+    torch.cuda.synchronize()
+    assert 0 < res["hits"] < res["lanes"]

@@ -236,7 +236,7 @@ def test_tof_render_on_gpu_matches_the_jax_reference_numbers(gpu):
     native.reset_launch_counts()
     img, stats = kc.tof_frame(gpu)()
     kc.check_tof_frame(img, stats)
-    for name in ("closest_hit", "any_hit", "assemble_hit", "regen_pinhole", "shade_diffuse"):
+    for name in ("closest_hit", "any_hit", "assemble_hit_k4", "regen_pinhole", "shade_diffuse"):
         assert native.LAUNCHES[name] > 0, name
     assert native.LAUNCHES["row_gather"] == native.LAUNCHES["nee_resolve"] == 0
     assert kc.tof_distance_check(gpu)["median_abs_err_m"] < kc.TOF_DISTANCE_MEDIAN_MAX

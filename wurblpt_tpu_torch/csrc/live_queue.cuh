@@ -1,7 +1,9 @@
 // The live-lane tile queue of the brute-force casts K2 (any_hit.cu), KS1
 // (sweep_closest.cu) and KS2 (sweep_any.cu), and the tiles, the split and
 // the launch size of those and of K1 (closest_hit.cu), which writes the
-// queue's steps out in its kernel (closest_hit.cu says why).
+// queue's steps out in its kernel (closest_hit.cu says why); and the
+// hit-lane queue of K3's K4 form (assemble_hit.cu, `hit_slot`: the same
+// tiles, keyed on the winner's prim instead of the ray's range).
 //
 // A cast's lanes are cut into tiles, one per block the SMs hold at once (in
 // whole warps, at most QBLOCK lanes; beyond that, blocks loop over tiles).
@@ -83,6 +85,36 @@ __device__ __forceinline__ int queue_live(const Queue& q, int lane, int warp, in
     }
     __syncthreads();
     return total;
+}
+
+// The queue slot of this thread's lane among the hit lanes of a tile of the
+// hit assembly (assemble_hit.cu), or -1: two bins, each in lane order,
+// triangle winners (`tri`) from the front, then sphere winners (`sph`);
+// `total` gets the queue's length. Every thread of the block calls it,
+// after it has issued its lane's loads: one barrier (the bins' per-warp
+// counts in `s_count`, 2 * QWARPS), which also orders the block's reads of
+// the last tile's queue before the caller writes this one; the caller
+// writes its slot and meets a barrier of its own before the queue is read.
+__device__ __forceinline__ int hit_slot(int* s_count, int lane, int warp, bool tri, bool sph,
+                                        int& total) {
+    const unsigned mt = __ballot_sync(FULL, tri);
+    const unsigned ms = __ballot_sync(FULL, sph);
+    if (lane == 0) {
+        s_count[warp] = __popc(mt);
+        s_count[QWARPS + warp] = __popc(ms);
+    }
+    __syncthreads();   // the counts; the last tile's queue read
+    const unsigned below = (1u << lane) - 1u;
+    int pt = __popc(mt & below), ps = __popc(ms & below), nt = 0, ns = 0;
+    for (int w = 0; w < QWARPS; ++w) {
+        const int ct = s_count[w], cs = s_count[QWARPS + w];
+        pt += w < warp ? ct : 0;
+        ps += w < warp ? cs : 0;
+        nt += ct;
+        ns += cs;
+    }
+    total = nt + ns;
+    return tri ? pt : (sph ? nt + ps : -1);
 }
 
 // The bits of the `split` neighbouring lanes of this thread's warp that

@@ -52,8 +52,8 @@ OBJ_PARSER_SRC = SRC_DIR / "host" / "obj_parser.cpp"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-contract=off")
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_anim": 0,
-            "sweep_closest": 0, "sweep_any": 0, "bvh_closest_hit": 0,
-            "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
+            "assemble_hit_k4": 0, "assemble_hit_k4_anim": 0, "sweep_closest": 0, "sweep_any": 0,
+            "bvh_closest_hit": 0, "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
             "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0}
 
@@ -73,6 +73,8 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_assemble_hit_anim": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_assemble_hit_k4": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I,
+                            _P, _P, _P, _P, _P, _P, _P],
     "wpt_sweep_closest": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "wpt_sweep_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P],
     "wpt_bvh_closest_hit": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],

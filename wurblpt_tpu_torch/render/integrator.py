@@ -33,10 +33,11 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
   sky; the city_many_lights path), seen by a pinhole or a surround camera,
   mono or stereo. A step is the regeneration (which first adds the step
   before's NEE deposits and flags the loop condition), the scene's
-  closest-hit cast (K1, KS1 or K5), K3 (K3a animated), the class's shade
+  closest-hit cast (K1, KS1 or K5), K3's K4 form (K3a's animated: the
+  fields the class's shade reads, on hit lanes only), the class's shade
   (`shade_diffuse`, `shade_env`, `shade_lit`) and the scene's any-hit cast
   (K2, KS2 or K6) on its shadow rays (the lit class's light and sky shadow
-  rays in one cast): ~6 launches, ~5 without shadow rays, and one more
+  rays in one cast): 5 launches, 4 without shadow rays, and one more
   regeneration that ends the block;
 * every other scene runs the regeneration and the generic bounce above as
   PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
@@ -82,7 +83,15 @@ from ..scene.animation import anim_frames
 from ..scene.ir import SceneArrays
 from .bsdf import ScatterKind, SceneStatic, bsdf_sample, gather_material_rows, pack_material_table
 from .camera import CameraConfig, CameraParams, check_camera
-from .intersect import HitTables, assemble_hit, build_hit_tables, scene_any_hit, scene_raw_hit
+from .intersect import (
+    HitTables,
+    assemble_hit,
+    assemble_hit_k4,
+    build_hit_tables,
+    hit_buffers,
+    scene_any_hit,
+    scene_raw_hit,
+)
 from .intersect_brute import BIG, brute_eligible, build_brute_scene
 from .intersect_sweep import build_sweep_scene
 from .lights import light_frames, pick_area_table
@@ -263,10 +272,12 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=N
     (`carry`; None on a block's first step) and evaluates the loop
     condition, which one host sync reads: without work the block is done,
     its acc holding every deposit; else the scene's closest-hit cast (K1,
-    KS1 or K5), K3 (K3a with `anim`), the class's shade (wpt_shade_diffuse,
-    wpt_shade_env or wpt_shade_lit) and the scene's any-hit cast (K2, KS2 or
-    K6) on its shadow rays, whose pending deposits and occlusion are the
-    carry of the next step. A scene that casts no shadow ray (no light, a
+    KS1 or K5), K3's K4 form (K3a's with `anim`: the class's fields on hit
+    lanes only, into buffers allocated once per frame, which every step of
+    every block reuses: no reader looks at a miss lane's record), the
+    class's shade (wpt_shade_diffuse, wpt_shade_env or wpt_shade_lit) and
+    the scene's any-hit cast (K2, KS2 or K6) on its shadow rays, whose
+    pending deposits and occlusion are the carry of the next step. A scene that casts no shadow ray (no light, a
     sky without importance tables) skips the any-hit cast and carries
     nothing; the lit class casts its light and sky shadow rays (2 L, from
     the origins its shade writes) in one any-hit cast. An animated frame
@@ -278,6 +289,7 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=N
     route = k4_route(step_tables, cam_cfg)
     t_min = torch.full((route.shadow_rows * L,), params.min_hit_distance, dtype=torch.float32,
                        device=scene.device)
+    hit_out = hit_buffers(route.hit_fields, L, scene.device)
 
     def step(ls, sample, k_next, lanes, carry):
         ls, sample, k_next, t_max, work = route.regen(
@@ -286,7 +298,7 @@ def _make_k4_step(scene, static, tables, sensor, params, cam, cam_cfg, L, anim=N
         if not bool(work.item()):
             return ls, sample, k_next, None, False
         t, prim, u, v = scene_raw_hit(accel, ls.o, ls.d, t_min[:L], t_max, frames)
-        hr = assemble_hit(ht, ls.o, ls.d, t, prim, u, v, frames)
+        hr = assemble_hit_k4(ht, ls.o, ls.d, t, prim, u, v, frames, hit_out)
         ls, shadow_o, shadow_d, shadow_tmax, pending = route.shade(
             step_tables, sensor, params, ls, lanes.pixel, sample, t, prim, hr)
         if shadow_tmax is None:

@@ -14,6 +14,10 @@ animated branch K3a): a hand-written CUDA kernel on CUDA tensors, its plain
 PyTorch version `assemble_hit_plain` on CPU tensors. Both read the
 winner's row of the packed tables of `HitTables`; K3a builds the hit in the
 winner's object space and pushes its frame back to world.
+`assemble_hit_k4` is its K4 form, which a K4 step calls: the fields of one
+shade class's set (`K4_FIELDS`) on hit lanes only, into buffers the step
+allocates once (`hit_buffers`); a miss lane's record and the fields outside
+the set are left as they were, and no K4 reader looks at them.
 """
 
 from __future__ import annotations
@@ -74,6 +78,43 @@ def build_hit_tables(scene) -> HitTables:
                      S.mat.to(torch.int32).contiguous(), scene.n_tris, scene.n_spheres,
                      anim_ids(T).to(torch.int32).contiguous(),
                      anim_ids(S).to(torch.int32).contiguous(), scene.n_anims)
+
+
+# The hit record's fields that each K4 shade reads (csrc/wavefront.cu
+# wpt_shade_diffuse, wpt_shade_env, wpt_shade_lit): the K4 form of K3 computes
+# and writes these only. No shade reads uv, the diffuse shade no tangent, the
+# env shade no geometric normal.
+K4_FIELDS = {
+    "diffuse": ("position", "normal", "geom_normal", "backside", "mat"),
+    "env": ("position", "normal", "tangent", "backside", "mat"),
+    "lit": ("position", "normal", "geom_normal", "tangent", "backside", "mat"),
+}
+# A field's bit in wpt_assemble_hit_k4's `fields` (csrc/assemble_hit.cu F_*),
+# its dtype and its width per lane.
+_FIELDS = {"position": (1, torch.float32, 3), "normal": (2, torch.float32, 3),
+           "geom_normal": (4, torch.float32, 3), "tangent": (8, torch.float32, 3),
+           "mat": (32, torch.int32, 0), "backside": (64, torch.bool, 0)}
+
+
+def hit_buffers(fields, n: int, device) -> HitRecord:
+    """The K4 form's output buffers for n lanes and the field set `fields`
+    (one of K4_FIELDS'): an empty tensor for each field of the set, None for
+    every other field (t, hit and prim too)."""
+    _k4_bits(fields)
+    rec = dict.fromkeys(HitRecord._fields)
+    for f in fields:
+        _, dtype, width = _FIELDS[f]
+        rec[f] = torch.empty((n, width) if width else (n,), dtype=dtype, device=device)
+    return HitRecord(**rec)
+
+
+def _k4_bits(fields) -> int:
+    """wpt_assemble_hit_k4's `fields` for a field set; raises unless the set
+    is one of K4_FIELDS'."""
+    if set(fields) not in [set(v) for v in K4_FIELDS.values()]:
+        raise ValueError(f"assemble_hit_k4: no field set {sorted(fields)}; the K4 form takes "
+                         f"those of {sorted(K4_FIELDS)} (K4_FIELDS)")
+    return sum(_FIELDS[f][0] for f in fields)
 
 
 def _two_prod(a, b):
@@ -280,19 +321,33 @@ def assemble_hit_plain(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRe
                      mat=torch.where(hit, mat, 0).to(torch.int32))
 
 
-def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
-    """HitRecord of the winners of a closest-hit cast (K3; K3a with the
-    animations' `frames`, scene/animation.anim_frames)."""
+def _check_hit_inputs(name, ht: HitTables, o, d, t, prim, u, v, frames) -> int:
+    """Raise unless a closest cast's winners are contiguous rows of the
+    kernels' dtypes and shapes on the tables' device; returns n."""
     n = o.shape[0]
-    for name, x, dtype, shape in (("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
-                                  ("t", t, torch.float32, (n,)), ("prim", prim, torch.int32, (n,)),
-                                  ("u", u, torch.float32, (n,)), ("v", v, torch.float32, (n,))):
+    for f, x, dtype, shape in (("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
+                               ("t", t, torch.float32, (n,)), ("prim", prim, torch.int32, (n,)),
+                               ("u", u, torch.float32, (n,)), ("v", v, torch.float32, (n,))):
         if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{name}: need contiguous {dtype} {shape}, got "
+            raise ValueError(f"{f}: need contiguous {dtype} {shape}, got "
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != o.device or ht.tri_f.device != o.device:
-            raise ValueError("assemble_hit: tensors on different devices")
+            raise ValueError(f"{name}: tensors on different devices")
     check_frames(frames, ht.n_anims, o.device)
+    return n
+
+
+def _table_args(ht: HitTables, o, d, t, prim, u, v, n):
+    return (o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+            v.data_ptr(), n, ht.tri_f.data_ptr(), ht.tri_i.data_ptr(), ht.n_tris,
+            ht.sph_f.data_ptr(), ht.sph_mat.data_ptr(), ht.n_spheres)
+
+
+def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
+    """HitRecord of the winners of a closest-hit cast (K3; K3a with the
+    animations' `frames`, scene/animation.anim_frames): every field of every
+    lane (the full form)."""
+    n = _check_hit_inputs("assemble_hit", ht, o, d, t, prim, u, v, frames)
     if o.device.type == "cpu":
         return assemble_hit_plain(ht, o, d, t, prim, u, v, frames)
     if o.device.type != "cuda":
@@ -303,9 +358,7 @@ def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
     uv = torch.empty((n, 2), dtype=torch.float32, device=o.device)
     mat = torch.empty((n,), dtype=torch.int32, device=o.device)
     backside = torch.empty((n,), dtype=torch.bool, device=o.device)
-    args = (o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
-            v.data_ptr(), n, ht.tri_f.data_ptr(), ht.tri_i.data_ptr(), ht.n_tris,
-            ht.sph_f.data_ptr(), ht.sph_mat.data_ptr(), ht.n_spheres)
+    args = _table_args(ht, o, d, t, prim, u, v, n)
     outs = (pos.data_ptr(), nrm.data_ptr(), gn.data_ptr(), tan.data_ptr(), uv.data_ptr(),
             mat.data_ptr(), backside.data_ptr(), native.stream_ptr(o))
     if frames is None:
@@ -320,3 +373,44 @@ def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
     hit = prim >= 0
     return HitRecord(t=t, hit=hit, prim=prim, position=pos, normal=nrm, geom_normal=gn,
                      tangent=tan, uv=uv, backside=backside, mat=mat)
+
+
+def assemble_hit_k4(ht: HitTables, o, d, t, prim, u, v, frames, out: HitRecord) -> HitRecord:
+    """K3's K4 form (wpt_assemble_hit_k4; K3a's with the animations'
+    `frames`): the record of one K4 shade class, written into `out`
+    (`hit_buffers` of one of K4_FIELDS' sets) on hit lanes (prim >= 0) only.
+    Each field a hit lane gets is the full form's to the bit; a miss or dead
+    lane's rows and the fields outside the set are not written (on CPU
+    tensors the plain version's every lane is copied in). Returns the record
+    with t and prim, the set's fields from `out`, and None for `hit` and
+    every other field: a reader tests prim >= 0 itself."""
+    n = _check_hit_inputs("assemble_hit_k4", ht, o, d, t, prim, u, v, frames)
+    fields = [f for f in HitRecord._fields[3:] if getattr(out, f) is not None]
+    bits = _k4_bits(fields)
+    for f in fields:
+        x, (_, dtype, width) = getattr(out, f), _FIELDS[f]
+        shape = (n, width) if width else (n,)
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or \
+                x.device != o.device:
+            raise ValueError(f"assemble_hit_k4: out.{f} needs contiguous {dtype} {shape} on "
+                             f"{o.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    rec = out._replace(t=t, prim=prim, hit=None)
+    if o.device.type == "cpu":
+        plain = assemble_hit_plain(ht, o, d, t, prim, u, v, frames)
+        for f in fields:
+            getattr(out, f).copy_(getattr(plain, f))
+        return rec
+    if o.device.type != "cuda":
+        raise ValueError(f"assemble_hit_k4: no kernel for device {o.device}")
+    lib = native.load_kernels()
+    anim = frames is not None
+    code = lib.wpt_assemble_hit_k4(
+        *_table_args(ht, o, d, t, prim, u, v, n), ht.tri_anim.data_ptr(), ht.sph_anim.data_ptr(),
+        frames.data_ptr() if anim else None, bits,
+        *(None if getattr(out, f) is None else getattr(out, f).data_ptr()
+          for f in ("position", "normal", "geom_normal", "tangent", "mat", "backside")),
+        native.stream_ptr(o))
+    name = "assemble_hit_k4_anim" if anim else "assemble_hit_k4"
+    native.check(code, name)
+    native.LAUNCHES[name] += 1
+    return rec

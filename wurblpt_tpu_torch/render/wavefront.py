@@ -107,7 +107,7 @@ from .bsdf import (
 )
 from .camera import CameraConfig, CameraParams, SurroundMode, camera_rays
 from .envmap import env_pdf, env_radiance, env_sample
-from .intersect import HitRecord
+from .intersect import K4_FIELDS, HitRecord
 from .intersect_brute import BIG
 from .lights import (
     light_pick_prob_of,
@@ -1211,6 +1211,7 @@ class K4Route(NamedTuple):
     shade: Callable         # shade_diffuse, shade_env or shade_lit
     shade_plain: Callable   # its plain version
     shadow_rows: int        # shadow rays per lane: 1, or the lit class's 2 (light, sky)
+    hit_fields: tuple       # the hit record's fields the shade reads (intersect.K4_FIELDS)
 
 
 def k4_route(tables: StepTables, cam_cfg: CameraConfig) -> K4Route:
@@ -1218,10 +1219,11 @@ def k4_route(tables: StepTables, cam_cfg: CameraConfig) -> K4Route:
     step on a scene's step tables seen through `cam_cfg`: the class follows
     from the tables (no sky: diffuse; a sky and no light: env; both: lit),
     the regeneration from the camera. Every shade returns (state, shadow
-    origins, directions, t_max, pending deposits)."""
+    origins, directions, t_max, pending deposits) and reads the hit
+    record's fields of its class's set (the K4 form of K3 writes those)."""
     regen = regen_surround if _surround(cam_cfg) else regen_pinhole
     if tables.env is None:
-        return K4Route(regen, shade_diffuse, shade_diffuse_plain, 1)
+        return K4Route(regen, shade_diffuse, shade_diffuse_plain, 1, K4_FIELDS["diffuse"])
     if tables.n_lights == 0:
-        return K4Route(regen, shade_env, shade_env_plain, 1)
-    return K4Route(regen, shade_lit, shade_lit_plain, 2)
+        return K4Route(regen, shade_env, shade_env_plain, 1, K4_FIELDS["env"])
+    return K4Route(regen, shade_lit, shade_lit_plain, 2, K4_FIELDS["lit"])

@@ -21,10 +21,11 @@ than the kernels on the card), bounded by `closest_hit_work` /
 `any_hit_work`; the swept frame (`cornell_animated_frame`) records
 `closest_sweep` and `any_sweep` (KS1/KS2, with the frame's animation rows),
 checked bit for bit (`check_sweep_closest` / `check_sweep_any`), timed so,
-bounded by `sweep_work`. Every frame also records its hit assemblies (K3,
-K3a where animated), timed by their device time per call and bounded by
-what each launch's data needs (`kernel_check.assemble_hit_work` with the
-launch's hit lanes).
+bounded by `sweep_work`. Every frame also records its hit assemblies (K3's
+K4 form, K3a's where animated), each checked (`check_assemble_hit_k4`),
+timed by its device time per call and bounded by what the launch's data
+needs (`kernel_check.assemble_hit_work` with the launch's winners and the
+class's field set).
 All nine frames by default. `chip_smoke.py` runs the same rows; the
 command line prints them (and with `--out` writes them as JSON) with the
 tree's size, and uses nothing but `kernel_check`'s frames, checks, timers
@@ -49,7 +50,7 @@ from . import scenes
 CASTS = ("bvh_closest_hit", "bvh_any_hit")
 BRUTE_CASTS = ("closest_hit", "any_hit")
 SWEEP_CASTS = ("closest_sweep", "any_sweep")
-ASSEMBLY = ("assemble_hit", "assemble_hit_anim")
+ASSEMBLY = ("assemble_hit_k4", "assemble_hit_k4_anim")
 
 
 FRAMES = ("mesh", "city", "rtiow_bvh", "cornell_animated_bvh")
@@ -123,30 +124,35 @@ def cast_rows(frame: str, render, device, n: int = 20):
 
 
 def k3_rows(frame: str, render, n: int = 20):
-    """One row per hit assembly of one frame (K3, or K3a with the frame's
-    animation rows), on the winners each step's cast gives: step, lanes,
-    hit lanes, device ms per call, and the bound of what the launch's data
-    needs, with its bytes and flops."""
-    calls, saved = [], integrator.assemble_hit
+    """One row per hit assembly of one frame (K3's K4 form, K3a's where the
+    frame is animated), on the winners each step's cast gives, each first
+    held against the plain version (`kernel_check.check_assemble_hit_k4`:
+    the class's fields bit-equal on hit lanes, miss lanes untouched): step,
+    lanes, hit lanes, device ms per call, and the bound of what the launch's
+    data needs, with its bytes and flops."""
+    calls, saved = [], integrator.assemble_hit_k4
 
-    def record(ht, o, d, t, prim, u, v, frames=None):
-        calls.append((ht, tuple(x.clone() for x in (o, d, t, prim, u, v)), frames))
-        return saved(ht, o, d, t, prim, u, v, frames)
+    def record(ht, o, d, t, prim, u, v, frames, out):
+        fields = tuple(f for f in kc.HIT_FIELD_BYTES if getattr(out, f, None) is not None)
+        calls.append((ht, tuple(x.clone() for x in (o, d, t, prim, u, v)), frames, fields))
+        return saved(ht, o, d, t, prim, u, v, frames, out)
 
-    integrator.assemble_hit = record
+    integrator.assemble_hit_k4 = record
     try:
         render()
     finally:
-        integrator.assemble_hit = saved
+        integrator.assemble_hit_k4 = saved
     rows = []
-    for step, (ht, hit_args, frames) in enumerate(calls):
-        hits = int((hit_args[3] >= 0).sum())
-        ms = kc.device_ms(lambda h=ht, a=hit_args, f=frames: intersect.assemble_hit(h, *a, f), n)
-        work = kc.assemble_hit_work(ht, hit_args[0].shape[0], frames, hits=hits)
+    for step, (ht, hit_args, frames, fields) in enumerate(calls):
+        kc.check_assemble_hit_k4(ht, hit_args, frames, fields)
+        out = intersect.hit_buffers(fields, hit_args[0].shape[0], hit_args[0].device)
+        ms = kc.device_ms(lambda h=ht, a=hit_args, f=frames, b=out:
+                          intersect.assemble_hit_k4(h, *a, f, b), n)
+        work = kc.assemble_hit_work(ht, hit_args[3], frames, fields)
         bound, bound_by = kc.bound_ms(*work)
         rows.append({"frame": frame, "kernel": ASSEMBLY[frames is not None], "step": step,
-                     "lanes": int(hit_args[0].shape[0]), "live": hits, "ms": ms,
-                     "bound_ms": bound, "bound_by": bound_by, "bytes": float(work[0]),
+                     "lanes": int(hit_args[0].shape[0]), "live": int((hit_args[3] >= 0).sum()),
+                     "ms": ms, "bound_ms": bound, "bound_by": bound_by, "bytes": float(work[0]),
                      "flops": float(work[1])})
     return rows
 

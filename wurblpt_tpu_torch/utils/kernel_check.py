@@ -36,6 +36,10 @@ still differ, such as atan2f/asinf against PyTorch's):
   the same order with the same roundings).
 * K3a animated hit assembly: as K3 (integer fields equal, float fields
   atol 1e-5 on hit lanes).
+* K3's K4 form (K3a's with animation rows): on hit lanes every field of
+  its set bit-equal to the plain version's (the sets hold no uv, the only
+  field atan2f/asinf reach); on miss lanes every output as it was before
+  the launch (`check_assemble_hit_k4`).
 * K4 (regeneration, shade, NEE resolve): on a frame's first block after 2
   steps, every output field compared lane by lane (`check_k4`; a lane owns
   rows i and N + i of the lit shade's shadow rays and pending deposits):
@@ -81,7 +85,7 @@ exits) it is counted on these inputs with the plain version.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,9 +113,13 @@ from ..render.envmap import (
 )
 from ..render.integrator import RenderParams, frame_anim, prepare_scene, render_frame_wavefront
 from ..render.intersect import (
+    HitRecord,
+    HitTables,
     assemble_hit,
+    assemble_hit_k4,
     assemble_hit_plain,
     build_hit_tables,
+    hit_buffers,
     scene_any_hit,
     scene_raw_hit,
 )
@@ -982,6 +990,142 @@ def check_assemble_hit_sweep(ss, ht, rays, frames=None) -> Dict[str, float]:
             "sphere hits": int((prim >= ss.n_tris).sum())}
 
 
+# What a miss lane of the K4 form must leave as it was: the fill of each
+# output before the launch (float fields NaN).
+K4_FILL_MAT = -123456789
+K4_FILL_BACKSIDE = 0x5A
+
+
+def check_assemble_hit_k4(ht, args, frames, fields) -> Dict[str, float]:
+    """K3's K4 form (`assemble_hit_k4`, K3a's with `frames`) against its
+    plain version on the winners `args` (o, d, t, prim, u, v): its buffers
+    for the field set `fields` are filled first (NaN, K4_FILL_MAT, bytes of
+    K4_FILL_BACKSIDE); then on hit lanes each field of the set must be
+    bit-equal to assemble_hit_plain's, and on every miss lane each must
+    still hold its fill; the record has no hit mask and no field outside
+    the set. Raises AssertionError otherwise. On CUDA tensors (the CPU
+    wrapper copies the plain version's every lane)."""
+    o, prim = args[0], args[3]
+    out = hit_buffers(fields, o.shape[0], o.device)
+    for f in fields:
+        x = getattr(out, f)
+        if f == "mat":
+            x.fill_(K4_FILL_MAT)
+        elif f == "backside":
+            x.view(torch.uint8).fill_(K4_FILL_BACKSIDE)
+        else:
+            x.fill_(float("nan"))
+    rec = assemble_hit_k4(ht, *args, frames, out)
+    ref = assemble_hit_plain(ht, *args, frames)
+    assert rec.hit is None, "assemble_hit_k4: the record has a hit mask"
+    for f in set(HitRecord._fields) - set(fields) - {"t", "hit", "prim"}:
+        assert getattr(rec, f) is None, f"assemble_hit_k4: {f} is outside the set"
+    hit = prim >= 0
+    miss = ~hit
+    for f in fields:
+        got, want = getattr(rec, f), getattr(ref, f)
+        if got.dtype.is_floating_point:
+            bad = int((got.view(torch.int32) != want.view(torch.int32))[hit].sum())
+            kept = bool(torch.isnan(got[miss]).all())
+        elif f == "backside":
+            bad = int((got != want)[hit].sum())
+            kept = bool((got.view(torch.uint8)[miss] == K4_FILL_BACKSIDE).all())
+        else:
+            bad = int((got != want)[hit].sum())
+            kept = bool((got[miss] == K4_FILL_MAT).all())
+        assert bad == 0, f"assemble_hit_k4: {f} differs on {bad} hit lanes"
+        assert kept, f"assemble_hit_k4: {f} written on a miss lane"
+    return {"max_abs_err": 0.0, "lanes": int(o.shape[0]), "hits": int(hit.sum()),
+            "sphere hits": int((prim >= ht.n_tris).sum()), "fields": len(fields)}
+
+
+def k3_edge_sets(device, seed: int = 0):
+    """{label: (HitTables, (o, d, t, prim, u, v), frames)}: the edges of K3's
+    K4 form on synthetic tables (48 triangles, 8 spheres, every row's
+    animation id one of the animated Cornell box with spheres' rows, whose
+    frames at ANIM_TIME come along: pass None for a static launch): a set
+    with no hit lane, one with a single hit lane, one where every lane hit,
+    triangle and sphere winners alternating lane by lane, degenerate
+    tangents (the ONB fallback: a row without the tangent flag, a row with
+    zero tangents) and sphere hits at the poles, backside hits, winners of
+    different animations side by side, and 1111 lanes (no multiple of a
+    tile). At these sizes a tile holds 32 lanes on the card (hundreds of
+    blocks) and 352 or 512 in the host build (tests/cuda_host, two blocks),
+    so the first three sets give tiles without a hit, with one and where
+    all hit on both."""
+    rs = np.random.default_rng(seed)
+    n_t, n_s = 48, 8
+
+    def unit(k):
+        x = rs.normal(size=(k, 3))
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    base = unit(n_t)
+    rows = np.concatenate([base + 0.2 * unit(n_t), base + 0.2 * unit(n_t), base + 0.2 * unit(n_t),
+                           rs.uniform(0, 1, (n_t, 6)), unit(n_t), unit(n_t), unit(n_t), base],
+                          -1)
+    rows[5, 15:24] = 0.0                       # zero tangents with the tangent flag
+    flags = np.where(np.arange(n_t) % 2 == 0, 2, 0)   # odd rows: no tangent (ONB)
+    flags[5] = 2
+    tri_i = np.stack([rs.integers(0, 6, n_t), flags], -1)
+    centres = rs.uniform(-2, 2, (n_s, 3))
+    centres[0] = 0.0                           # sphere 0: the unit sphere, at rest
+    sph = np.concatenate([centres, rs.uniform(0.3, 1.0, (n_s, 1))], -1)
+    sph[0, 3] = 1.0
+    frames = frames_at(scenes.cornell_box_animated(device, spheres=True))
+    a = frames.shape[0]
+    tri_anim = np.arange(n_t) % a
+    sph_anim = np.arange(n_s) % a              # sphere 0 in row 0, the identity
+    i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int32), device=device)  # noqa: E731
+    ht = HitTables(_f32(rows, device), i32(tri_i), _f32(sph, device), i32(rs.integers(0, 6, n_s)),
+                   n_t, n_s, i32(tri_anim), i32(sph_anim), a)
+
+    def lanes(prim, o=None, d=None, t=None):
+        n = prim.shape[0]
+        o = rs.uniform(-3, 3, (n, 3)) if o is None else o
+        d = unit(n) if d is None else d
+        t = rs.uniform(0.1, 5.0, n) if t is None else t
+        u, v = rs.uniform(0, 1, n), rs.uniform(0, 1, n)
+        fold = u + v > 1
+        u, v = np.where(fold, 1 - u, u), np.where(fold, 1 - v, v)
+        return (_f32(o, device), _f32(d, device), _f32(t, device), i32(prim), _f32(u, device),
+                _f32(v, device))
+
+    def winners(n, hit_share=1.0):
+        return np.where(rs.uniform(size=n) < hit_share, rs.integers(0, n_t + n_s, n), -1)
+
+    one = np.full(700, -1)
+    one[300] = 7
+    mixed = np.where(np.arange(512) % 2 == 0, rs.integers(0, n_t, 512),
+                     n_t + rs.integers(0, n_s, 512))
+    # degenerate tangents (rows 5 and 3) and the unit sphere's poles
+    k = 256
+    degen = np.where(np.arange(k) % 4 == 0, 5, np.where(np.arange(k) % 4 == 1, 3, n_t))
+    pole_o = np.zeros((k, 3))
+    pole_o[:, 1] = np.where(np.arange(k) % 8 < 4, 2.0, -2.0)
+    pole_d = -np.sign(pole_o)
+    pole = degen == n_t
+    o_dg = np.where(pole[:, None], pole_o, rs.uniform(-3, 3, (k, 3)))
+    d_dg = np.where(pole[:, None], pole_d, unit(k))
+    t_dg = np.where(pole, 1.0, rs.uniform(0.1, 5.0, k))
+    # backside: along a triangle's geometric normal, or out of a sphere from its centre
+    back = winners(512)
+    sph_i = np.clip(back - n_t, 0, n_s - 1)
+    inside = back >= n_t
+    d_bk = np.where(inside[:, None], unit(512), rows[np.clip(back, 0, n_t - 1), 24:27])
+    o_bk = np.where(inside[:, None], sph[sph_i, :3], rs.uniform(-3, 3, (512, 3)))
+    t_bk = np.where(inside, sph[sph_i, 3], rs.uniform(0.1, 5.0, 512))
+    side = np.arange(512) % (n_t + n_s)        # every lane's neighbour in another animation
+    return {"no hit lane": (ht, lanes(np.full(700, -1)), frames),
+            "one hit lane": (ht, lanes(one), frames),
+            "every lane hit": (ht, lanes(winners(1024)), frames),
+            "triangles and spheres interleaved": (ht, lanes(mixed), frames),
+            "degenerate tangents, sphere poles": (ht, lanes(degen, o_dg, d_dg, t_dg), frames),
+            "backside hits": (ht, lanes(back, o_bk, d_bk, t_bk), frames),
+            "animations side by side": (ht, lanes(side), frames),
+            "1111 lanes": (ht, lanes(winners(1111, 0.7)), frames)}
+
+
 def mesh_camera_lanes(device, seed: int = 0):
     """Bounce-0 rays of the mesh frame's block (76800 lanes)."""
     return camera_lanes(MESH_WIDTH, MESH_HEIGHT, MESH_LANES_M, device, seed,
@@ -1218,6 +1362,8 @@ class K4Inputs(NamedTuple):
                       # before's pending deposits and occlusion last (None at the start)
     shade: tuple      # shade_diffuse / shade_env / shade_lit(*shade), st.stats replaced per call
     resolve: tuple    # nee_resolve(*resolve)
+    assemble: Optional[tuple] = None   # K3's K4 form before the shade: (hit tables,
+                                        # (o, d, t, prim, u, v), frames, field set)
 
 
 def k4_route(inputs: K4Inputs):
@@ -1255,7 +1401,9 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
     pending deposits and their occlusion (none where `steps` is 0 or the
     step casts no shadow ray); the shade's, the state after that plain
     regeneration and its casts; the resolve's (the stand-alone
-    nee_resolve), the plain shade's pending deposits and their shadow casts.
+    nee_resolve), the plain shade's pending deposits and their shadow casts;
+    `assemble`, the hit assembly's before that shade (the tables, the
+    winners, the frames and the class's field set, for K3's K4 form).
     `width`, `height` (= width
     when only `width` is given), `ssqrt`, `m` (sample lanes per pixel),
     `scene`, `sensor` and the camera config `cfg` (the lens model) replace
@@ -1338,10 +1486,12 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
         st, sample, k_next, t_max, _ = wf.regen_plain(*regen_args)
         t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min[:L], t_max, frames)
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
+        assemble = (ht, (st.o, st.d, t, prim, u, v), frames, route.hit_fields)
         shade_args = (tables, sensor, params, st, lanes.pixel, sample, t, prim, hr)
         st, so, sd, stmax, pending = route.shade_plain(*shade_args)
         occ = None if stmax is None else scene_any_hit(accel, so, sd, t_min, stmax, frames)
-    return K4Inputs(regen_args, shade_args, (st.acc, pending, occ, st.active, k_next, lanes))
+    return K4Inputs(regen_args, shade_args, (st.acc, pending, occ, st.active, k_next, lanes),
+                    assemble)
 
 
 def _named(out, names):
@@ -1481,6 +1631,13 @@ def check_k4(inputs: K4Inputs) -> Dict[str, Dict[str, float]]:
     res["nee_resolve"] = _compare(_named(wf.nee_resolve(*inputs.resolve), names),
                                   _named(wf.nee_resolve_plain(*inputs.resolve), names), n)
     return res
+
+
+def _hit_types(tables, hr, prim):
+    """The material type of each lane's winner, -1 on a miss lane: K3's K4
+    form leaves a miss lane's material unwritten (ROADMAP C.6)."""
+    typ = tables.mat[:, 20].contiguous().view(torch.int32)
+    return torch.where(prim >= 0, typ[hr.mat.long().clamp(0, typ.shape[0] - 1)], -1)
 
 
 def _lane_bytes(*tensors) -> int:
@@ -1646,7 +1803,7 @@ def _env_shade_copy_work(inputs: K4Inputs):
     n = st.active.shape[0]
     hit = (prim >= 0) & st.active
     escaped = st.active & (prim < 0)
-    typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+    typ = _hit_types(tables, hr, prim)
     ggx = hit & (typ == MaterialType.GGX)
     lamb = hit & (typ == MaterialType.LAMBERTIAN)
     n_glass = int((hit & (typ == MaterialType.GLASS)).sum())
@@ -1808,7 +1965,7 @@ def _shade_lanes(inputs: K4Inputs):
                      rgl=tables.rgl)
     random = hit & (sr.kind == ScatterKind.RANDOM) & (sr.pdf > 0.0)
     cont = random | (hit & (sr.kind == ScatterKind.EXPLICIT))
-    typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+    typ = _hit_types(tables, hr, prim)
     return ~st.active, st.active & (prim < 0), hit, random, cont, typ
 
 
@@ -1900,7 +2057,7 @@ def _lit_shade_copy_work(inputs: K4Inputs):
     n = st.active.shape[0]
     hit = (prim >= 0) & st.active
     escaped = st.active & (prim < 0)
-    typ = tables.mat[:, 20].contiguous().view(torch.int32)[hr.mat.long()]
+    typ = _hit_types(tables, hr, prim)
     args = list(inputs.shade)
     args[3] = st._replace(stats=st.stats.clone())
     random = wf.shade_lit_plain(*args)[0].prev_random
@@ -1971,24 +2128,51 @@ def any_hit_work(bs, rays):
             40 * float(torch.where(live, first, 0).sum()))
 
 
-def assemble_hit_work(ht, n: int, frames=None, hits=None):
-    """K3: o, d, t, prim, u, v in; position, normal, geometric normal,
-    tangent, uv, material, backside out; the hit tables read once (rows
-    shared by many lanes stay in cache); about 120 flops per lane. K3a
-    (`frames`): also the animation ids and the frame rows once, and per lane
-    the object-space ray (30 flops) and the three vectors back to world with
-    their normalizations (3 x 22 flops). With `hits` (the launch's hit
-    lanes, prim >= 0): what this launch's data needs, the prim id read on
-    every lane and the rest in and out on hit lanes only (no kernel after K3
-    reads a miss lane's record)."""
-    tables = _table_bytes(ht[:4])
-    per_lane = 120.0
+# Bytes per lane of each field of a hit record; float operations per
+# assembled lane: the position, normal, geometric normal and the flip
+# (K3_FLOPS), the tangent, the uv; K3a's object-space ray and each vector
+# brought back to world (normal, geometric normal, tangent) with its
+# normalization.
+HIT_FIELD_BYTES = {"position": 12, "normal": 12, "geom_normal": 12, "tangent": 12, "uv": 8,
+                   "mat": 4, "backside": 1}
+K3_FLOPS, K3_TAN_FLOPS, K3_UV_FLOPS = 60.0, 40.0, 20.0
+K3A_RAY_FLOPS, K3A_VECTOR_FLOPS = 30.0, 22.0
+
+
+def assemble_hit_work(ht, prim, frames=None, fields=None):
+    """K3 on the winners `prim` of one launch (K3a with `frames`): the full
+    form (`fields` None: o, d, t, prim, u, v in and every field out on every
+    lane) or the K4 form with a field set (prim in on every lane; o, d and t
+    in on each hit lane, u and v on triangle winners; the set's fields out
+    on hit lanes). The tables count by the rows the winners touch, each
+    once, and the words the fields read: a triangle's three normals, its
+    geometric normal and material (52 B), its uvs (24 B) with uv, its
+    tangents and flags (40 B) with the tangent; a sphere's centre, radius
+    and material (20 B); K3a also each touched row's animation id (4 B) and
+    each animation row a winner uses (120 B). Flops per assembled lane (every
+    lane of the full form, hit lanes of the K4 form): K3_FLOPS, K3_TAN_FLOPS
+    with the tangent, K3_UV_FLOPS with uv; K3a K3A_RAY_FLOPS and
+    K3A_VECTOR_FLOPS per vector brought back to world."""
+    full = fields is None
+    fields = tuple(HIT_FIELD_BYTES) if full else tuple(fields)
+    n = prim.shape[0]
+    hit = prim >= 0
+    tri = hit & (prim < ht.n_tris)
+    sph = hit & ~tri
+    tri_rows, sph_rows = torch.unique(prim[tri]), torch.unique(prim[sph]) - ht.n_tris
+    row = 52 + (24 if "uv" in fields else 0) + (40 if "tangent" in fields else 0)
+    tables = tri_rows.numel() * row + sph_rows.numel() * 20
+    flops = K3_FLOPS + (K3_TAN_FLOPS if "tangent" in fields else 0.0) + (
+        K3_UV_FLOPS if "uv" in fields else 0.0)
     if frames is not None:
-        tables += _table_bytes((ht.tri_anim, ht.sph_anim, frames))
-        per_lane += 30.0 + 66.0
-    if hits is None:
-        return n * 40 + n * (4 * 14 + 4 + 1) + tables, n * per_lane
-    return n * 4 + hits * (36 + 4 * 14 + 4 + 1) + tables, hits * per_lane
+        ids = torch.unique(torch.cat([ht.tri_anim[tri_rows.long()], ht.sph_anim[sph_rows.long()]]))
+        tables += 4 * (tri_rows.numel() + sph_rows.numel()) + ids.numel() * 4 * frames.shape[1]
+        flops += K3A_RAY_FLOPS + K3A_VECTOR_FLOPS * (3 if "tangent" in fields else 2)
+    out = sum(HIT_FIELD_BYTES[f] for f in fields)
+    if full:
+        return n * (40 + out) + tables, n * flops
+    n_hit, n_tri = int(hit.sum()), int(tri.sum())
+    return n * 4 + n_hit * (28 + out) + n_tri * 8 + tables, n_hit * flops
 
 
 SWEEP_TRI_FLOPS = 46.0     # two crosses, four dots, a division, the predicates
