@@ -81,7 +81,15 @@ Phases, each a function, any failure exits non-zero and names its phase:
    sky shadow rays; sphere rows, world rays) and the cornell_animated_bvh
    block (131072 camera rays, random rays and the moving light's NEE
    shadow rays, with the frame's animation rows and, on the same rows at
-   rest, without them), each also with every lane dead; timed there.
+   rest, without them), each also with every lane dead, and the animated
+   box without spheres (triangle rows in object space and at rest), each
+   on the branch its tree's size picks (all of them staged in shared
+   memory) and again on the L2 walk; and on kernel_check.bvh_leaf_edge_sets
+   on both branches (grazing, inside and tangent rays on the RTIOW field,
+   rays aimed at every row of the animated box, axis rays at vertices with
+   signed zeros, a triangle and a sphere tied, t_max at and a float beyond
+   a hit, one live lane, every lane dead, lane counts about the launch's
+   resident threads, a tree just past the staging budget); timed there.
    K3's K4 form (the fields of one shade class's set, on hit lanes only)
    with each frame's set on the winners before each K4 frame's shade, and
    with every set, static and animated, on kernel_check.k3_edge_sets (no
@@ -592,7 +600,7 @@ def phase_kernels(scenes_on_card):
         ("bvh_any_hit", lambda r: kc.check_bvh_any_hit(bvh, r),
          {"env shadow": (eshadow,), "random": (mrnd,), "every lane dead": (dead,),
           "1000 lanes": (ragged,)})))
-    records += _timed_records({
+    k56 = _timed_records({
         "bvh_closest_hit": (lambda: traverse.bvh_closest_hit(bvh, *mcam),
                             lambda: traverse.bvh_closest_hit_plain(bvh, *mcam),
                             kc.bvh_work(bvh, mcam, any_hit=False), None),
@@ -600,7 +608,9 @@ def phase_kernels(scenes_on_card):
                         lambda: traverse.bvh_any_hit_plain(bvh, *eshadow),
                         kc.bvh_work(bvh, eshadow, any_hit=True), None),
     }, errs, n)
-    records += _bvh_leaf_records(scenes_on_card)
+    for r, entry in zip(k56, ("bvh_closest", "bvh_any")):
+        r["branch"] = traverse.plan(bvh, None, entry)[1]
+    records += k56 + _bvh_leaf_records(scenes_on_card)
 
     # K8's equirect branch on the city frame's block and its night sky (the
     # mesh path's env shade and the city path's lit shade read their skies
@@ -767,10 +777,16 @@ def _bvh_leaf_records(scenes_on_card):
     on the cornell_animated_bvh camera and shadow rays."""
     from wurblpt_tpu_torch.accel import traverse
 
+    from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.utils import scenes
+
     rt = scenes_on_card["rtiow_bvh"].bvh
     an_scene = scenes_on_card["cornell_animated_bvh"]
     an, fr = an_scene.bvh, kc.frames_at(an_scene)
     at_rest = an._replace(n_anims=1)     # the same rows as a static tree
+    # the box without spheres: triangle rows in object space, and at rest
+    box = scenes.cornell_box_animated(DEVICE, use_bvh=True).bvh
+    box_rest = box._replace(n_anims=1)
     rt_cam = kc.rtiow_camera_lanes(DEVICE)
     rt_rnd = kc.rtiow_bvh_random_lanes(rt_cam[0].shape[0], DEVICE)
     rt_shadow = kc.sky_shadow_lanes(lambda *r: traverse.bvh_closest_hit_plain(rt, *r), rt_cam)
@@ -796,10 +812,43 @@ def _bvh_leaf_records(scenes_on_card):
             "cornell_animated_bvh every lane dead": (an, dead(an_rnd), fr),
             "cornell_animated_bvh moving-light shadow, rows at rest": (at_rest, an_shadow, None),
             "cornell_animated_bvh random, rows at rest": (at_rest, an_rnd, None)}
+    box_cam = (box, an_cam, fr)
+    objects.update({"the box without spheres, camera, object rays": box_cam,
+                    "the box without spheres, random, object rays": (box, an_rnd, fr),
+                    "the box without spheres, camera, rows at rest": (box_rest, an_cam, None)})
+    any_.update({"the box without spheres, random, object rays": (box, an_rnd, fr),
+                 "the box without spheres, random, rows at rest": (box_rest, an_rnd, None)})
+    # Each tree takes its branch by its size (all of these: the staged walk);
+    # the same sets again on the L2 walk, so that every instantiation of both
+    # branches is held here.
+    for name, (bvh, _, f) in {**spheres, **objects}.items():
+        assert traverse.plan(bvh, f)[1] == "shared", f"{name}: not staged"
+    for sets in (spheres, objects, any_):
+        sets.update({f"{k}, L2 walk": v + ("L2",) for k, v in list(sets.items())})
+    # The edge sets, on the branch each tree's size picks and on the L2 walk:
+    # lane counts about the resident threads of the cornell_animated_bvh
+    # launches, a tree just past the budget of a static sphere tree.
+    lib = native.load_kernels()
+    waves = []
+    for entry in ("bvh_closest", "bvh_any"):
+        var, _, smem = traverse.plan(an, fr, entry)
+        waves.append(getattr(lib, f"wpt_{entry}_threads")(var, smem))
+    edge = kc.bvh_leaf_edge_sets(
+        rt, an, fr, DEVICE, waves=sorted(set(waves)), budget=lib.wpt_bvh_closest_budget(1),
+        frames_bytes=lambda b: traverse.layout_bytes(b, None, True))
+    past = edge["a tree just past the staging budget"][0]
+    assert traverse.plan(past, None)[1] == "L2", "the tree past the budget is staged"
+    print(f"kernels: B.1.3 staging budgets (B) K5 {[lib.wpt_bvh_closest_budget(v) for v in range(4)]}"
+          f", K6 {[lib.wpt_bvh_any_budget(v) for v in range(4)]}; waves {waves}; the tree past "
+          f"the budget: {traverse.layout_bytes(past, None, True)} B staged")
     errs = _run_checks((
         ("bvh_closest_hit_spheres", kc.check_bvh_closest_hit, spheres),
         ("bvh_closest_hit_object", kc.check_bvh_closest_hit, objects),
-        ("bvh_any_hit_object", kc.check_bvh_any_hit, any_)))
+        ("bvh_any_hit_object", kc.check_bvh_any_hit, any_),
+        ("bvh_leaf_edge_sets", kc.check_bvh_edge_sets, {"by size": (edge,),
+                                                        "L2 walk": (edge, "L2")})))
+    for name in ("bvh_closest_hit_spheres", "bvh_closest_hit_object", "bvh_any_hit_object"):
+        errs[name] = max(errs[name], errs["bvh_leaf_edge_sets"])
     records = _timed_records({
         "bvh_closest_hit_spheres": (lambda: traverse.bvh_closest_hit(rt, *rt_cam),
                                     lambda: traverse.bvh_closest_hit_plain(rt, *rt_cam),
@@ -813,6 +862,9 @@ def _bvh_leaf_records(scenes_on_card):
                                lambda: traverse.bvh_any_hit_plain(an, *an_shadow, fr),
                                kc.bvh_work(an, an_shadow, any_hit=True, frames=fr), None),
     }, errs, an_cam[0].shape[0])
+    for r, (bvh, f, entry) in zip(records, ((rt, None, "bvh_closest"), (an, fr, "bvh_closest"),
+                                            (an, fr, "bvh_any"))):
+        r["branch"] = traverse.plan(bvh, f, entry)[1]
     return records
 
 

@@ -4,7 +4,11 @@ Port of ``wurblpt_tpu/accel/traverse.py`` `bvh_closest_hit` / `bvh_any_hit`
 (the wide-BVH path, `_wide_closest_hit` / `_wide_any_hit`). The kernels
 (``csrc/bvh_closest.cu``, ``csrc/bvh_any.cu``, the walk in
 ``csrc/bvh_common.cuh``) run a persistent launch whose warps take only the
-live lanes, each thread's stack in shared memory. The plain versions beside
+live lanes, each thread's stack in shared memory. A small tree is walked
+from shared memory (`walk_plan`: its node table, leaf rows and
+animations' frames staged per block where they fit the bytes a block may
+take without costing the SM a resident block), a larger one from L2; the
+wrapper names the branch (`plan`). The plain versions beside
 them walk the SAME tree in lockstep over the rays still walking (finished
 rays drop out of the lockstep tensors when they are half of them), with a
 per-lane [N, depth] stack, and take every decision the kernels take, in
@@ -70,14 +74,15 @@ def _children(bvh: BVHArrays, node, o, inv_d, t_min, bound):
     return (near <= far) & (links != EMPTY), near, links.long()
 
 
-def _object_runs(aid, in_leaf, last):
-    """Object rays a lane computes at a leaf: the slots whose animation id
-    differs from the one before (the lane's `last` before the first), and
-    the lane's last id after the leaf."""
-    prev = torch.cat([last[:, None], aid[:, :-1]], 1)
-    k = in_leaf.sum(1)
-    new_last = torch.where(k > 0, aid.gather(1, torch.clamp_min(k - 1, 0)[:, None])[:, 0], last)
-    return int(((aid != prev) & in_leaf).sum()), new_last
+def _new_animations(aid, in_leaf, seen):
+    """Object rays a leaf costs its lanes: the animations other than 0 (the
+    identity, tested with the world ray) among the lane's tested slots that
+    no earlier leaf of its walk used, and each lane's used animations [N, A]
+    after the leaf."""
+    used = torch.zeros(seen.shape, dtype=torch.int32, device=seen.device)
+    used.scatter_add_(1, aid.long(), (in_leaf & (aid != 0)).to(torch.int32))
+    fresh = (used > 0) & ~seen
+    return int(fresh.sum()), seen | fresh
 
 
 def _leaf_tests(bvh: BVHArrays, rows, o, d, t_min, bound, frames):
@@ -109,7 +114,11 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts
     n_slots = bvh.prim_v.shape[0]
     prim_id = bvh.prim_id
     inv_d = _inv_dir(d)
-    last_aid = torch.full((n,), -1, dtype=torch.int32, device=dev)   # counts only
+    # counts only: each lane's lockstep steps, by input lane, and the
+    # animations its walk has used
+    steps = torch.zeros((n,), dtype=torch.int64, device=dev)
+    seen = torch.zeros((n, 0 if frames is None else frames.shape[0]), dtype=torch.bool, device=dev)
+    live_in = t_max > t_min
 
     out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     out_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -138,8 +147,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts
             # Finished rays drop out of the lockstep; each ray's walk is unchanged.
             store(~live)
             keep = live
-            lane, o, d, inv_d, t_min, t_max, last_aid = (
-                x[keep] for x in (lane, o, d, inv_d, t_min, t_max, last_aid))
+            lane, o, d, inv_d, t_min, t_max, seen = (
+                x[keep] for x in (lane, o, d, inv_d, t_min, t_max, seen))
             cur, live, sp, stack_l, stack_t = (x[keep] for x in (cur, live, sp, stack_l, stack_t))
             best_t, best_prim, best_u, best_v, occluded = (
                 x[keep] for x in (best_t, best_prim, best_u, best_v, occluded))
@@ -173,9 +182,10 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts
             counts["nodes"] += int(inner.sum())
             counts["tri_tests"] += int((in_leaf & ~sph).sum())
             counts["sphere_tests"] += int((in_leaf & sph).sum())
+            steps.index_add_(0, lane, live.long())
             if frames is not None:
-                runs, last_aid = _object_runs(rows_k.view(torch.int32)[..., 7], in_leaf, last_aid)
-                counts["object_rays"] += runs
+                fresh, seen = _new_animations(rows_k.view(torch.int32)[..., 7], in_leaf, seen)
+                counts["object_rays"] += fresh
         if any_hit:
             occluded = occluded | valid.any(1)
             live = live & ~occluded
@@ -201,6 +211,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts
         sp = torch.where(pop, torch.clamp_min(top, 0), sp)
         live = live & ~(pop & ~found)
     store(torch.ones_like(live))
+    if counts is not None:
+        counts.update(walk_lengths(steps, live_in))
     if any_hit:
         return out_occ
     return out_t, out_prim, out_u, out_v
@@ -216,13 +228,34 @@ def bvh_any_hit_plain(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
     return _walk(bvh, o, d, t_min, t_max, any_hit=True, frames=frames)
 
 
+WARP = 32   # lanes of a warp's chunk in the kernels' launch
+
+
+def walk_lengths(steps, live):
+    """Lockstep steps of the live lanes' walks (`steps` [N] by input lane,
+    `live` [N]): their mean, 99th percentile and maximum, and the mean over
+    the warps' chunks of 32 lanes (those with a live lane) of the chunk's
+    longest walk, which bounds a launch of one wave."""
+    if not bool(live.any()):
+        return {"steps_mean": 0.0, "steps_p99": 0.0, "steps_max": 0, "warp_steps_mean": 0.0}
+    s = torch.where(live, steps, 0)
+    warps = torch.nn.functional.pad(s, (0, -s.shape[0] % WARP)).view(-1, WARP)
+    has_live = torch.nn.functional.pad(live, (0, -live.shape[0] % WARP)).view(-1, WARP).any(1)
+    per_lane = steps[live].double()
+    return {"steps_mean": float(per_lane.mean()),
+            "steps_p99": float(torch.quantile(per_lane, 0.99)),
+            "steps_max": int(per_lane.max()),
+            "warp_steps_mean": float(warps.amax(1)[has_live].double().mean())}
+
+
 def bvh_walk_counts(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None):
     """{"nodes": inner-node visits, "tri_tests": leaf triangle tests,
     "sphere_tests": leaf sphere tests, "object_rays": object-space rays
-    computed (with `frames`: one wherever a lane's next leaf row has
-    another animation id than its last)} of the walk that K5 (any_hit
-    False) or K6 takes for these rays: the plain version walks the same
-    tree in the same order."""
+    computed (with `frames`: one per lane and animation other than 0 whose
+    rows the lane's walk tests), and walk_lengths' keys} of the walk that
+    K5 (any_hit False) or K6 takes for these rays: the plain version walks
+    the same tree in the same order. A lockstep step visits one inner node,
+    the leaf it may reach and the pop after it."""
     counts = {"nodes": 0, "tri_tests": 0, "sphere_tests": 0, "object_rays": 0}
     _walk(bvh, o, d, t_min, t_max, any_hit, frames, counts)
     return counts
@@ -246,84 +279,142 @@ def _check_bvh(bvh: BVHArrays, device, frames):
         raise ValueError(f"no BVH kernel for device {device}")
 
 
-# (entry point, variant, device, stream) -> [threads of a full launch, lane
-# counter, spill rows or None]: made on a stream's first cast, grown with the
-# tree's depth, and reused, since the casts of one stream run one after another.
+# (entry point, branch asked for, the tree's sizes, device, stream) ->
+# (instantiation, lane counter, spill rows or None): planned and made on a
+# stream's first cast of such a tree, and reused, since the casts of one
+# stream run one after another.
 _SCRATCH = {}
+
+# The kernels' dynamic shared memory (csrc/bvh_common.cuh Layout).
+BLOCK = 128          # threads per block
+SLOTS_MAX = 8        # object-ray cache slots per thread at most
+SLOT_WORDS = 8       # words of a slot
+STAGED_FRAME = 12    # floats of an animation's staged frame row
 
 
 def variant(bvh: BVHArrays, frames) -> int:
-    """The kernels' instantiation for a cast: bit 0 sphere rows in the tree,
-    bit 1 object-space rays (`frames`)."""
+    """The kernels' leaf kind for a cast: bit 0 sphere rows in the tree, bit
+    1 object-space rays (`frames`)."""
     return int(bvh.n_spheres > 0) | (int(frames is not None) << 1)
 
 
-def _scratch(bvh: BVHArrays, var: int, device, stream: int, lib, entry: str):
-    """(the persistent launch's lane counter, the stack's spill rows or None):
-    the kernel's first SHARED_STACK entries per thread live in shared
-    memory, the rest of the tree's depth in rows of device memory for every
-    thread of a full launch. The launch zeroes the counter on the stream
-    before it starts; neither needs a kernel of its own, nor, after the
-    stream's first cast, an allocation."""
-    key = (entry, var, device, stream)
-    if key not in _SCRATCH:
-        threads = getattr(lib, f"wpt_{entry}_threads")(var)
-        _SCRATCH[key] = [threads, torch.empty((1,), dtype=torch.int32, device=device), None]
-    scratch = _SCRATCH[key]
-    threads, counter, spill = scratch
-    need = threads * max(bvh.depth - SHARED_STACK, 0) * 2
-    if need and (spill is None or spill.numel() < need):
-        spill = scratch[2] = torch.empty((need,), dtype=torch.int32, device=device)
-    return counter, spill if need else None
+def cache_slots(bvh: BVHArrays, frames) -> int:
+    """Object-ray cache slots per thread: the animations other than the
+    identity, to a power of two, at most SLOTS_MAX (0 without `frames`)."""
+    if frames is None:
+        return 0
+    want = min(max(bvh.n_anims - 1, 1), SLOTS_MAX)
+    return 1 << (want - 1).bit_length()
+
+
+def layout_bytes(bvh: BVHArrays, frames, staged: bool) -> int:
+    """Bytes of one block's dynamic shared memory (csrc/bvh_common.cuh
+    `layout`): the stack at the tree's depth (staged); the object-ray
+    cache and each thread's world ray (with `frames`); the node table, the
+    leaf rows (32 bytes each in a tree without triangles, else 48) and the
+    animations' inverse frames (staged)."""
+    n = bvh.depth * BLOCK * 8 if staged else 0
+    if frames is not None:
+        n += cache_slots(bvh, frames) * SLOT_WORDS * BLOCK * 4 + 6 * BLOCK * 4
+    if staged:
+        n += bvh.nodes.shape[0] * 64 + bvh.prim_v.shape[0] * (2 if bvh.n_tris == 0 else 3) * 16
+        if frames is not None:
+            n += bvh.n_anims * STAGED_FRAME * 4
+    return n
+
+
+def walk_plan(bvh: BVHArrays, frames, budget: int):
+    """(instantiation, branch, shared-memory bytes) of a cast: the leaf kind
+    of `variant`, with bit 2 set when the tree is walked from shared memory
+    ("shared": its staged layout fits `budget`, the bytes a block may take
+    without costing the SM a resident block), else the L2 walk ("L2")."""
+    var = variant(bvh, frames)
+    staged = layout_bytes(bvh, frames, True)
+    if staged <= budget:
+        return var | 4, "shared", staged
+    return var, "L2", layout_bytes(bvh, frames, False)
+
+
+def plan(bvh: BVHArrays, frames, entry: str = "bvh_closest", branch=None):
+    """walk_plan on the card, with the budget of the entry point's
+    (`bvh_closest` or `bvh_any`) staged kernel; `branch` ("shared" or "L2")
+    names the branch a check wants instead, and a staged layout past the
+    budget raises."""
+    lib = native.load_kernels()
+    budget = getattr(lib, f"wpt_{entry}_budget")(variant(bvh, frames))
+    var, name, smem = walk_plan(bvh, frames, budget)
+    if branch is None or branch == name:
+        return var, name, smem
+    if branch == "L2":
+        return var & 3, "L2", layout_bytes(bvh, frames, False)
+    if branch == "shared":
+        raise ValueError(f"the staged layout ({layout_bytes(bvh, frames, True)} B) passes the "
+                         f"budget of {budget} B")
+    raise ValueError(f"no branch {branch!r}")
 
 
 def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
-def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
+def _launch_args(bvh: BVHArrays, o, d, t_min, t_max, frames, entry: str, branch):
+    """The entry point's arguments from the variant to the spill rows. The
+    cast's plan, the persistent launch's lane counter (zeroed on the stream
+    by the C entry where the lanes pass one wave) and the L2 walk's spill
+    rows (the stack past SHARED_STACK entries, for every thread of a full
+    launch; the staged walk keeps its whole stack in shared memory) are
+    looked up once per tree size and stream."""
+    lib = native.load_kernels()
+    stream = native.stream_ptr(o)
+    key = (entry, branch, variant(bvh, frames), bvh.nodes.shape[0], bvh.prim_v.shape[0],
+           bvh.n_tris, bvh.n_anims, bvh.depth, o.device, stream)
+    if key not in _SCRATCH:
+        var, _, smem = plan(bvh, frames, entry, branch)
+        spill = None
+        if not var & 4 and bvh.depth > SHARED_STACK:
+            threads = getattr(lib, f"wpt_{entry}_threads")(var, smem)
+            spill = torch.empty((threads * (bvh.depth - SHARED_STACK) * 2,), dtype=torch.int32,
+                                device=o.device)
+        _SCRATCH[key] = (var, torch.empty((1,), dtype=torch.int32, device=o.device), spill)
+    var, counter, spill = _SCRATCH[key]
+    return lib, (var, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), o.shape[0],
+                 bvh.nodes.data_ptr(), bvh.nodes.shape[0], bvh.prim_v.data_ptr(),
+                 bvh.prim_v.shape[0], bvh.n_tris, _ptr(frames), bvh.n_anims, bvh.depth,
+                 counter.data_ptr(), _ptr(spill), stream)
+
+
+def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None, branch=None):
     """Closest hit (t, prim, u, v) of rays [N] in (t_min, t_max) (K5); with
-    `frames`, each primitive tested in its animation's object space."""
+    `frames`, each primitive tested in its animation's object space. The
+    walk's branch follows the tree's size (`plan`); `branch` names one for
+    a check of the other."""
     _check_rays(o, d, t_min, t_max)
     _check_bvh(bvh, o.device, frames)
     if o.device.type == "cpu":
         return bvh_closest_hit_plain(bvh, o, d, t_min, t_max, frames)
-    lib = native.load_kernels()
     n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     prim = torch.empty((n,), dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    stream = native.stream_ptr(o)
-    var = variant(bvh, frames)
-    counter, spill = _scratch(bvh, var, o.device, stream, lib, "bvh_closest")
-    code = lib.wpt_bvh_closest_hit(
-        var, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
-        bvh.nodes.data_ptr(), bvh.prim_v.data_ptr(), bvh.n_tris, _ptr(frames),
-        counter.data_ptr(), _ptr(spill), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
-        v.data_ptr(), stream)
+    lib, args = _launch_args(bvh, o, d, t_min, t_max, frames, "bvh_closest", branch)
+    code = lib.wpt_bvh_closest_hit(*args[:-1], t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+                                   v.data_ptr(), args[-1])
     native.check(code, "bvh_closest_hit")
     native.LAUNCHES["bvh_closest_hit"] += 1
     return t, prim, u, v
 
 
-def bvh_any_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None):
+def bvh_any_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None, branch=None):
     """Occlusion of rays [N] in (t_min, t_max) (K6); t_max <= t_min means not
-    occluded; `frames` as bvh_closest_hit."""
+    occluded; `frames` and `branch` as bvh_closest_hit."""
     _check_rays(o, d, t_min, t_max)
     _check_bvh(bvh, o.device, frames)
     if o.device.type == "cpu":
         return bvh_any_hit_plain(bvh, o, d, t_min, t_max, frames)
-    lib = native.load_kernels()
-    n = o.shape[0]
-    occ = torch.empty((n,), dtype=torch.bool, device=o.device)
-    stream = native.stream_ptr(o)
-    var = variant(bvh, frames)
-    counter, spill = _scratch(bvh, var, o.device, stream, lib, "bvh_any")
-    code = lib.wpt_bvh_any_hit(
-        var, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
-        bvh.nodes.data_ptr(), bvh.prim_v.data_ptr(), bvh.n_tris, _ptr(frames),
-        counter.data_ptr(), _ptr(spill), occ.data_ptr(), stream)
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    lib, args = _launch_args(bvh, o, d, t_min, t_max, frames, "bvh_any", branch)
+    code = lib.wpt_bvh_any_hit(*args[:-1], occ.data_ptr(), args[-1])
     native.check(code, "bvh_any_hit")
     native.LAUNCHES["bvh_any_hit"] += 1
     return occ

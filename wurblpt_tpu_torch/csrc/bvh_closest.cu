@@ -6,69 +6,82 @@
 // hit so far bounds the slab tests and the stack pops, so far subtrees are
 // pruned. Ties keep the first primitive found in the walk's order, exactly
 // as the plain version does; a lane with tmax <= tmin is a miss and reads no
-// node. One instantiation per leaf kind (variant bit 0: sphere rows, bit 1:
-// object-space rays), chosen by the wrapper from the tree and the frame.
+// node. One instantiation per leaf kind and branch (variant bit 0: sphere
+// rows, bit 1: object-space rays, bit 2: the tree staged in shared memory),
+// chosen by the wrapper from the tree, the frame and the tree's size.
 #include "bvh_common.cuh"
 
 namespace {
 
 using namespace wpt_bvh;
 
-template <bool SPHERES, bool ANIMATED>
+template <bool SPHERES, bool ANIMATED, bool STAGED>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
-bvh_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
-                   const float4* __restrict__ nodes, const float4* __restrict__ rows, int n_tris,
-                   const float* __restrict__ frames, int* counter, int2* spill,
-                   float* __restrict__ t_out, int* __restrict__ prim_out,
-                   float* __restrict__ u_out, float* __restrict__ v_out) {
-    walk_lanes<false, SPHERES, ANIMATED>(o, d, tmin, tmax, n, nodes, rows, n_tris, frames,
-                                         counter, spill, t_out, prim_out, u_out, v_out, nullptr);
+bvh_closest_kernel(Rays rays, Tree tree, int* counter, int2* spill, Out out) {
+    walk_lanes<false, SPHERES, ANIMATED, STAGED>(rays, tree, counter, spill, out);
 }
 
-using Kernel = decltype(&bvh_closest_kernel<false, false>);
+using Kernel = decltype(&bvh_closest_kernel<false, false, false>);
 
 Kernel kernel_of(int variant) {
-    switch (variant) {
-        case 1: return bvh_closest_kernel<true, false>;
-        case 2: return bvh_closest_kernel<false, true>;
-        case 3: return bvh_closest_kernel<true, true>;
-        default: return bvh_closest_kernel<false, false>;
+    switch (variant & 7) {
+        case 1: return bvh_closest_kernel<true, false, false>;
+        case 2: return bvh_closest_kernel<false, true, false>;
+        case 3: return bvh_closest_kernel<true, true, false>;
+        case 4: return bvh_closest_kernel<false, false, true>;
+        case 5: return bvh_closest_kernel<true, false, true>;
+        case 6: return bvh_closest_kernel<false, true, true>;
+        case 7: return bvh_closest_kernel<true, true, true>;
+        default: return bvh_closest_kernel<false, false, false>;
     }
 }
 
-int resident_threads(int variant) {
-    static int threads[4] = {0, 0, 0, 0};
-    if (threads[variant] == 0) {
-        int dev = 0, sms = 0, blocks = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_of(variant), BLOCK, 0);
-        threads[variant] = sms * blocks * BLOCK;
+// resident_threads of the variant's kernel, asked again only when a cast's
+// shared memory differs from the variant's last one.
+int launch_threads(int variant, int smem) {
+    static int last_smem[8] = {-1, -1, -1, -1, -1, -1, -1, -1}, threads[8] = {};
+    if (last_smem[variant] != smem) {
+        threads[variant] = resident_threads(kernel_of(variant), smem);
+        last_smem[variant] = smem;
     }
     return threads[variant];
 }
 
 }  // namespace
 
-// Threads of a full persistent launch of one variant: the wrapper sizes the
-// spill rows with it.
-extern "C" int wpt_bvh_closest_threads(int variant) { return resident_threads(variant & 3); }
+// The most dynamic shared memory a staged launch of the leaf kind `variant`
+// (bits 0-1) may take without costing the SM a resident block.
+extern "C" int wpt_bvh_closest_budget(int variant) {
+    static int budget[4] = {0, 0, 0, 0};
+    int& b = budget[variant & 3];
+    if (b == 0) b = stage_budget(kernel_of((variant & 3) | 4));
+    return b;
+}
+
+// Threads of a full persistent launch of one variant with `smem` bytes of
+// dynamic shared memory: the wrapper sizes the L2 walk's spill rows with it.
+extern "C" int wpt_bvh_closest_threads(int variant, int smem) {
+    return launch_threads(variant & 7, smem);
+}
 
 extern "C" int wpt_bvh_closest_hit(int variant, const float* o, const float* d,
                                    const float* tmin, const float* tmax, int n,
-                                   const float* nodes, const float* rows, int n_tris,
-                                   const float* frames, int* counter, int* spill, float* t_out,
-                                   int* prim_out, float* u_out, float* v_out, void* stream) {
-    if (variant < 0 || variant > 3) return static_cast<int>(cudaErrorInvalidValue);
+                                   const float* nodes, int n_nodes, const float* rows, int n_rows,
+                                   int n_tris, const float* frames, int n_anims, int depth,
+                                   int* counter, int* spill, float* t_out, int* prim_out,
+                                   float* u_out, float* v_out, void* stream) {
+    if (variant < 0 || variant > 7) return static_cast<int>(cudaErrorInvalidValue);
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        const int grid = min(resident_threads(variant) / BLOCK, (n + BLOCK - 1) / BLOCK);
-        cudaMemsetAsync(counter, 0, sizeof(int), s);
-        kernel_of(variant)<<<grid, BLOCK, 0, s>>>(
-            o, d, tmin, tmax, n, reinterpret_cast<const float4*>(nodes),
-            reinterpret_cast<const float4*>(rows), n_tris, frames, counter,
-            reinterpret_cast<int2*>(spill), t_out, prim_out, u_out, v_out);
+        const Layout lay = layout(variant & 4, variant & 2, n_nodes, n_rows, n_tris, n_anims, depth);
+        const int threads = launch_threads(variant, lay.bytes);
+        const int grid = min(threads / BLOCK, (n + BLOCK - 1) / BLOCK);
+        if (n > grid * BLOCK) cudaMemsetAsync(counter, 0, sizeof(int), s);
+        kernel_of(variant)<<<grid, BLOCK, lay.bytes, s>>>(
+            Rays{o, d, tmin, tmax, n},
+            Tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows),
+                 frames, n_nodes, n_rows, n_tris, n_anims, depth},
+            counter, reinterpret_cast<int2*>(spill), Out{t_out, prim_out, u_out, v_out, nullptr});
     }
     return static_cast<int>(cudaGetLastError());
 }

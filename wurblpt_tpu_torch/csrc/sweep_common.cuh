@@ -97,6 +97,8 @@ __device__ __forceinline__ float fma_dot3(V3 a, V3 b) {
 // fused multiply-adds, c = fma(-r, r, |oc|^2) and the discriminant
 // fma(half_b, half_b, -(a c)). On the RTIOW ground sphere (radius 1000)
 // c cancels to its last bits, and they decide a ray's self-intersection.
+// BVH also takes the root and the two divisions only where disc > 0 (the
+// sweeps compute them on every row; ts is read only on a hit).
 template <bool BVH = false>
 __device__ __forceinline__ bool sphere_test(V3 o, V3 d, float4 s, float tmin, float tmax,
                                             float& ts) {
@@ -107,6 +109,7 @@ __device__ __forceinline__ bool sphere_test(V3 o, V3 d, float4 s, float tmin, fl
         half_b = fma_dot3(oc, d);
         c = fmaf(-s.w, s.w, fma_dot3(oc, oc));
         disc = fmaf(half_b, half_b, -(a * c));
+        if (!(disc > 0.f)) return false;
     } else {
         a = dot3(d, d);
         half_b = dot3(oc, d);

@@ -77,10 +77,13 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P, _P, _P],
     "wpt_sweep_closest": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "wpt_sweep_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P],
-    "wpt_bvh_closest_hit": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "wpt_bvh_closest_threads": [_I],
-    "wpt_bvh_any_hit": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
-    "wpt_bvh_any_threads": [_I],
+    "wpt_bvh_closest_hit": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P,
+                            _P, _P, _P, _P],
+    "wpt_bvh_closest_threads": [_I, _I],
+    "wpt_bvh_closest_budget": [_I],
+    "wpt_bvh_any_hit": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "wpt_bvh_any_threads": [_I, _I],
+    "wpt_bvh_any_budget": [_I],
     "wpt_env_radiance": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],

@@ -12,7 +12,11 @@ flops it rests on. The frames cast through a BVH (`kernel_check.mesh_frame`,
 the frame is animated), checked by `kernel_check.check_bvh_closest_hit` /
 `check_bvh_any_hit`, timed as the wrapper call by CUDA events around 20
 back-to-back calls after warm-up (the card stays busy, so this is the
-device time per call), bounded by `kernel_check.bvh_work`. The brute-force
+device time per call), bounded by `kernel_check.bvh_work`, and shown with
+the walk's branch (`traverse.plan`: staged in shared memory or the L2
+walk), its object rays and its lengths (`traverse.bvh_walk_counts`: the
+mean, 99th percentile and maximum lockstep steps of a live lane, and the
+mean of a warp's longest walk, which bounds a launch of one wave). The brute-force
 frames (`bench_frame`, `tof_frame`, `envmap_frame`, `rtiow_frame`) record
 `closest_hit` and `any_hit` (K1/K2), checked bit for bit
 (`check_closest_hit` / `check_any_hit`), timed by their device time per
@@ -48,6 +52,7 @@ from . import kernel_check as kc
 from . import scenes
 
 CASTS = ("bvh_closest_hit", "bvh_any_hit")
+WALK_KEYS = ("steps_mean", "steps_p99", "steps_max", "warp_steps_mean", "object_rays")
 BRUTE_CASTS = ("closest_hit", "any_hit")
 SWEEP_CASTS = ("closest_sweep", "any_sweep")
 ASSEMBLY = ("assemble_hit_k4", "assemble_hit_k4_anim")
@@ -113,12 +118,19 @@ def cast_rows(frame: str, render, device, n: int = 20):
             getattr(kc, f"check_{name}")(accel, rays, frames)
             fn = getattr(traverse, name)
             ms = kc.time_ms(lambda f=fn, b=accel, r=rays, a=frames: f(b, *r, a), device, n)
-            work = kc.bvh_work(accel, rays, any_hit=name == "bvh_any_hit", frames=frames)
+            counts = traverse.bvh_walk_counts(accel, *rays, any_hit=name == "bvh_any_hit",
+                                              frames=frames)
+            work = kc.bvh_work(accel, rays, any_hit=name == "bvh_any_hit", frames=frames,
+                               counts=counts)
         bound, bound_by = kc.bound_ms(*work)
         rows.append({"frame": frame, "kernel": name, "step": step[name],
                      "lanes": int(rays[0].shape[0]), "live": int((rays[3] > rays[2]).sum()),
                      "ms": ms, "bound_ms": bound, "bound_by": bound_by,
                      "bytes": float(work[0]), "flops": float(work[1])})
+        if not (brute or swept):   # the walk's lengths and branch
+            rows[-1].update({k: counts[k] for k in WALK_KEYS})
+            rows[-1]["branch"] = traverse.plan(
+                accel, frames, "bvh_any" if name == "bvh_any_hit" else "bvh_closest")[1]
         step[name] += 1
     return rows
 
@@ -168,10 +180,16 @@ def tree_summary(bvh) -> str:
 
 
 def format_row(r) -> str:
+    walk = ""
+    if "steps_mean" in r:
+        walk = (f"; {r['branch']} walk, steps a lane mean {r['steps_mean']:.2f}, p99 "
+                f"{r['steps_p99']:.0f}, max {r['steps_max']}, a warp's longest mean "
+                f"{r['warp_steps_mean']:.2f}, object rays {r['object_rays']}")
     return (f"{r['frame']} {r['kernel']} step {r['step']}: {r['lanes']} lanes, {r['live']} "
             f"{'hits' if r['kernel'] in ASSEMBLY else 'live'}, "
             f"{r['ms']:.4f} ms per call, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
-            f"({r['ms'] / r['bound_ms']:.1f}x; {r['bytes']:.6g} bytes, {r['flops']:.6g} flops)")
+            f"({r['ms'] / r['bound_ms']:.1f}x; {r['bytes']:.6g} bytes, {r['flops']:.6g} flops)"
+            f"{walk}")
 
 
 def summary(rows):
@@ -180,10 +198,15 @@ def summary(rows):
     for name in CASTS + BRUTE_CASTS + SWEEP_CASTS + ASSEMBLY:
         sel = [r for r in rows if r["kernel"] == name]
         if sel:
+            walk = ""
+            if "steps_mean" in sel[0]:
+                walk = (f"; mean over the casts of a lane's steps "
+                        f"{sum(r['steps_mean'] for r in sel) / len(sel):.2f}, of a warp's "
+                        f"longest walk {sum(r['warp_steps_mean'] for r in sel) / len(sel):.2f}")
             out.append(f"{sel[0]['frame']} {name}: {len(sel)} casts, "
                        f"{sum(r['ms'] for r in sel):.4f} ms in all, mean "
                        f"{sum(r['ms'] for r in sel) / len(sel):.4f} ms, bounds "
-                       f"{sum(r['bound_ms'] for r in sel):.6f} ms in all")
+                       f"{sum(r['bound_ms'] for r in sel):.6f} ms in all{walk}")
     return out
 
 

@@ -1159,10 +1159,11 @@ def env_shadow_lanes(scene, rays, bs=None, seed: int = 2):
             torch.where(prim >= 0, BIG, 0.0).to(torch.float32))
 
 
-def check_bvh_closest_hit(bvh, rays, frames=None) -> Dict[str, float]:
+def check_bvh_closest_hit(bvh, rays, frames=None, branch=None) -> Dict[str, float]:
     """K5 against its plain version, bit for bit on every lane (with
-    `frames`: object-space rays); raises AssertionError on disagreement."""
-    t, prim, u, v = bvh_closest_hit(bvh, *rays, frames)
+    `frames`: object-space rays; `branch`: the walk's branch, by the tree's
+    size when None); raises AssertionError on disagreement."""
+    t, prim, u, v = bvh_closest_hit(bvh, *rays, frames, branch=branch)
     pt, pprim, pu, pv = bvh_closest_hit_plain(bvh, *rays, frames)
     bad = int((prim != pprim).sum())
     assert bad == 0, f"bvh_closest_hit: {bad} prim ids differ"
@@ -1174,14 +1175,265 @@ def check_bvh_closest_hit(bvh, rays, frames=None) -> Dict[str, float]:
             "hits": int(hit.sum()), "sphere hits": int((prim >= bvh.n_tris).sum())}
 
 
-def check_bvh_any_hit(bvh, rays, frames=None) -> Dict[str, float]:
-    """K6 against its plain version; raises AssertionError on disagreement."""
-    occ = bvh_any_hit(bvh, *rays, frames)
+def check_bvh_any_hit(bvh, rays, frames=None, branch=None) -> Dict[str, float]:
+    """K6 against its plain version (`branch` as check_bvh_closest_hit);
+    raises AssertionError on disagreement."""
+    occ = bvh_any_hit(bvh, *rays, frames, branch=branch)
     pocc = bvh_any_hit_plain(bvh, *rays, frames)
     diff = int((occ != pocc).sum())
     assert diff == 0, f"bvh_any_hit: {diff} lanes differ"
     return {"max_abs_err": 0.0, "lanes": int(occ.shape[0]), "live": int((rays[3] > rays[2]).sum()),
             "occluded": int(occ.sum())}
+
+
+def static_bvh(v0, v1, v2, center, radius, device):
+    """A static BVH (build.build_bvh's tree) over triangles given by their
+    absolute vertices [T, 3] and spheres [S, 3], [S] (numpy)."""
+    from ..accel import build
+
+    v0, v1, v2, center, radius = (np.ascontiguousarray(x, np.float32)
+                                  for x in (v0, v1, v2, center, radius))
+    boxes = [np.concatenate(x) for x in zip(build.prim_aabbs(v0, v1, v2),
+                                            build.sphere_aabbs(center, radius))]
+    rows = build.leaf_rows(v0, v1, v2, center, radius, np.zeros(v0.shape[0], np.int32),
+                           np.zeros(center.shape[0], np.int32))
+    nodes, prim_v, depth = build.pack_bvh(build._sah_build(*boxes, build.LEAF_SIZE), rows)
+    return BVHArrays(torch.as_tensor(nodes, device=device), torch.as_tensor(prim_v, device=device),
+                     depth, v0.shape[0], center.shape[0], 1)
+
+
+def tie_bvh(device, side: int = 6):
+    """A side x side grid of unit spheres (centres (2i, 0, 2j)), each under
+    a triangle in the plane y = 1 that touches its top: a ray straight down
+    through a centre meets both at one t (t_tie_lanes)."""
+    g = np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="ij"), -1).reshape(-1, 2)
+    c = np.stack([2.0 * g[:, 0], np.zeros(len(g)), 2.0 * g[:, 1]], -1)
+    v0, v1, v2 = (c + np.array(off) for off in ((-0.5, 1, -0.5), (0.5, 1, -0.5), (0, 1, 0.5)))
+    return static_bvh(v0, v1, v2, c, np.ones(len(g)), device)
+
+
+def sphere_tree_past(budget: int, frames_bytes, device, seed: int = 21, start: int = 16):
+    """The smallest random field of small spheres (a static BVH) whose
+    staged layout (`frames_bytes(bvh)`: traverse.layout_bytes with the
+    staged flag) passes `budget` bytes: the L2 walk's smallest tree."""
+    rs = np.random.default_rng(seed)
+    pts = rs.uniform(-8.0, 8.0, size=(4096, 3))
+    rad = rs.uniform(0.3, 1.0, size=4096)
+    lo, hi = start, 4096
+    while lo < hi:   # staged bytes grow with the spheres, up to the tree's depth
+        mid = (lo + hi) // 2
+        bvh = static_bvh(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros((0, 3)), pts[:mid],
+                         rad[:mid], device)
+        if frames_bytes(bvh) > budget:
+            hi = mid
+        else:
+            lo = mid + 1
+    return static_bvh(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros((0, 3)), pts[:lo], rad[:lo],
+                      device)
+
+
+def _lanes(o, d, device, t_max=None, t_min=None):
+    o, d = np.asarray(o, np.float32), np.asarray(d, np.float64)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    n = o.shape[0]
+    t_min = torch.full((n,), MIN_HIT, device=device) if t_min is None else t_min
+    t_max = torch.full((n,), BIG, device=device) if t_max is None else t_max
+    return _f32(o, device), _f32(d, device), t_min, t_max
+
+
+def _row_world_points(bvh, frames):
+    """Each leaf row's centroid (a sphere's centre) in world space at the
+    frame's instant, and its animation id: m_fwd p + t_inv."""
+    rows = bvh.prim_v.cpu()
+    ids = rows.view(torch.int32)
+    sph = ids[:, 3] >= bvh.n_tris
+    p = torch.where(sph[:, None], rows[:, 0:3], (rows[:, 0:3] + rows[:, 4:7] + rows[:, 8:11]) / 3)
+    aid = ids[:, 7].long()
+    if frames is None:
+        return p, aid
+    fr = frames.cpu()[aid]
+    m = fr[:, 12:21].reshape(-1, 3, 3)
+    return (m @ p[:, :, None])[:, :, 0] + fr[:, 9:12], aid
+
+
+def signed_zero_lanes(device, frames, seed: int = 0):
+    """(tree, rays, frames): twelve static triangles with a corner at
+    (-0, -0, -0) and legs of +-1 in the planes x, y, z = -0, walked in object
+    space (`frames`: every row the identity), and rays along each axis at
+    that corner and the legs' midpoints, their zero origin and direction
+    components of both signs. Only here do the identity's signed zeros reach
+    the outputs: a product with row 0 turns some -0 components of o and d
+    into +0, and -0 vertex words then give u and v zeros of other signs."""
+    z = np.float32(-0.0)
+    v0, v1, v2 = [], [], []
+    for ax in range(3):
+        a1, a2 = (ax + 1) % 3, (ax + 2) % 3
+        for s1 in (-1.0, 1.0):
+            for s2 in (-1.0, 1.0):
+                p = [np.full(3, z, np.float32) for _ in range(3)]
+                p[1][a1] = s1
+                p[2][a2] = s2
+                v0.append(p[0])
+                v1.append(p[1])
+                v2.append(p[2])
+    bvh = static_bvh(np.array(v0), np.array(v1), np.array(v2), np.zeros((0, 3)), np.zeros(0),
+                     device)
+    rs = np.random.default_rng(seed)
+    n = 768
+    ax = rs.integers(0, 3, size=n)
+    side = rs.choice([-1.0, 1.0], size=n)
+    at = np.zeros((n, 3))
+    leg = rs.integers(0, 3, size=n)           # 0: the corner, 1-2: a leg's midpoint
+    other = (ax + leg) % 3
+    at[leg > 0, other[leg > 0]] = rs.choice([-0.5, 0.5], size=int((leg > 0).sum()))
+    zs = rs.choice([-1.0, 1.0], size=(n, 3))
+    o = np.where(at == 0.0, np.copysign(0.0, zs), at).astype(np.float32)
+    o[np.arange(n), ax] = side * rs.uniform(0.5, 3.0, size=n)
+    zd = rs.choice([-1.0, 1.0], size=(n, 3))
+    d = np.copysign(np.zeros((n, 3)), zd).astype(np.float32)
+    d[np.arange(n), ax] = -side
+    return bvh, (_f32(o, device), _f32(d, device), torch.full((n,), MIN_HIT, device=device),
+                 torch.full((n,), BIG, device=device)), frames
+
+
+def bvh_leaf_edge_sets(rt, an, frames, device, waves=(), budget=None, frames_bytes=None,
+                       seed: int = 0, n: int = 1024):
+    """{name: (tree, rays, frames or None)}: K5/K6's leaf branches at their
+    edges, each set held bit for bit against the plain walk. `rt` is an
+    RTIOW field's BVH (sphere rows, the radius-1000 ground sphere first),
+    `an` the animated box with spheres (cornell_box_animated(spheres=True,
+    use_bvh=True)) with its frame rows `frames`:
+    - grazing rays on the ground sphere, where c cancels to its last bits;
+    - rays from inside spheres (the exit distance); tangent rays (disc
+      about 0);
+    - rays aimed at every leaf row of the animated box (leaves that
+      alternate animation 0 with moving rows);
+    - axis-aligned rays at the static rows' vertices with +0 and -0 in
+      their zero direction and origin components, and `signed_zero_lanes`
+      (signed zeros of the identity);
+    - a triangle and a sphere tied at one t (`tie_bvh`);
+    - t_max one float beyond the plain hit, and at it;
+    - one live lane, and every lane dead;
+    - for each of `waves` (a launch's resident threads), lane counts 37
+      below, at and 1013 above it;
+    - with `budget`, a tree just past the staging budget
+      (`sphere_tree_past` with `frames_bytes`)."""
+    rs = np.random.default_rng(seed)
+    sets = {}
+    # RTIOW: grazing rays on the ground sphere (centre (0, -1000, 0), r 1000)
+    xz = rs.uniform(-10.0, 10.0, size=(n, 2))
+    y = -1000.0 + np.sqrt(1e6 - (xz ** 2).sum(1))
+    h = rs.choice([0.0, 1e-4, -1e-4, 1e-3, 3e-3], size=n)
+    phi = rs.uniform(0, 2 * np.pi, size=n)
+    tilt = rs.choice([0.0, 1e-3, -1e-3, 1e-4, -1e-4, 3e-2], size=n)
+    o = np.stack([xz[:, 0], y + h, xz[:, 1]], -1)
+    d = np.stack([np.cos(phi), tilt, np.sin(phi)], -1)
+    sets["rtiow grazing the ground sphere"] = (rt, _lanes(o, d, device), None)
+    sph = rt.prim_v.cpu().numpy()
+    c, r = sph[:, 0:3].astype(np.float64), sph[:, 4].astype(np.float64)
+    k = rs.integers(0, len(sph), size=n)
+    off = rs.normal(size=(n, 3))
+    off *= (0.5 * r[k] * rs.uniform(0, 1, size=n) / np.linalg.norm(off, axis=-1))[:, None]
+    sets["rtiow from inside spheres"] = (rt, _lanes(c[k] + off, rs.normal(size=(n, 3)), device),
+                                         None)
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    p = np.cross(d, rs.normal(size=(n, 3)))
+    p /= np.linalg.norm(p, axis=-1, keepdims=True)
+    s = r[k] + rs.uniform(0.5, 3.0, size=n)
+    sets["rtiow tangent rays"] = (rt, _lanes(c[k] + r[k, None] * p - s[:, None] * d, d, device),
+                                  None)
+    # The animated box: rays aimed at every leaf row, from inside the box
+    pw, aid = _row_world_points(an, frames)
+    k = rs.integers(0, pw.shape[0], size=n)
+    o = rs.uniform((-1.0, 0.0, -1.0), (1.0, 2.0, 3.0), size=(n, 3))
+    target = pw.numpy()[k] + rs.normal(scale=0.02, size=(n, 3))
+    sets["animated box aimed at every row"] = (an, _lanes(o, target - o, device), frames)
+    # the same rays past the object-ray cache's slots: every other moving
+    # row takes its animation 8 rows further on, moved by 0.01 (the boxes
+    # stay the tree's: both walks walk it alike), so two animations share
+    # each slot
+    a = frames.shape[0]
+    moved = frames[1:].clone()
+    moved[:, 9:12] += 0.01
+    wide = torch.cat([frames, frames[:1].expand(9 - a, -1), moved]).contiguous()
+    rows = an.prim_v.clone()
+    ids = rows.view(torch.int32)[:, 7]
+    ids[torch.nonzero(ids > 0)[:, 0][::2]] += 8
+    sets["animated box, animations sharing cache slots"] = (
+        an._replace(prim_v=rows, n_anims=8 + a), _lanes(o, target - o, device), wide)
+    # axis-aligned rays at the static rows' vertices, zeros of both signs
+    rows = an.prim_v.cpu().numpy()
+    static_tri = np.nonzero((rows.view(np.int32)[:, 3] < an.n_tris) & (aid.numpy() == 0))[0]
+    verts = np.tile(rows[static_tri][:, [0, 1, 2, 4, 5, 6, 8, 9, 10]].reshape(-1, 3), (16, 1))
+    m = verts.shape[0]
+    axis = rs.integers(0, 3, size=m)
+    sign = rs.choice([-1.0, 1.0], size=m)
+    dz = np.zeros((m, 3), np.float32)
+    dz[np.arange(m), axis] = -sign
+    zero_sign = rs.choice([-1.0, 1.0], size=(m, 3)).astype(np.float32)
+    dz = np.where(dz == 0.0, np.copysign(np.float32(0.0), zero_sign), dz).astype(np.float32)
+    o = verts.astype(np.float32).copy()
+    o[np.arange(m), axis] += (sign * rs.uniform(0.5, 2.0, size=m)).astype(np.float32)
+    o = np.where(o == 0.0, np.copysign(np.float32(0.0), -zero_sign), o).astype(np.float32)
+    sets["animated box vertices, signed zeros"] = (
+        an, (_f32(o, device), _f32(dz, device), torch.full((m,), MIN_HIT, device=device),
+             torch.full((m,), BIG, device=device)), frames)
+    sets["identity rows at -0, signed zeros"] = signed_zero_lanes(device, frames, seed)
+    # a triangle and a sphere tied at one t
+    tie = tie_bvh(device)
+    g = tie.prim_v.cpu().numpy()[tie.prim_v.cpu().numpy().view(np.int32)[:, 3] >= tie.n_tris]
+    k = rs.integers(0, g.shape[0], size=n)
+    heights = rs.choice([3.0, 5.0, 9.0, 17.0], size=n)
+    o = g[k, 0:3] + np.stack([np.zeros(n), heights, np.zeros(n)], -1)
+    jit = rs.random(n) < 0.25
+    o[jit, 0] += rs.uniform(-0.3, 0.3, size=int(jit.sum()))
+    sets["a triangle and a sphere tied"] = (tie, _lanes(o, np.tile([0.0, -1.0, 0.0], (n, 1)),
+                                                        device), None)
+    # t_max one float beyond the hit, and at it
+    for name, bvh, fr, rays in (("rtiow", rt, None, rtiow_camera_lanes(device)),
+                                ("animated box", an, frames,
+                                 camera_lanes(32, 32, 1, device))):
+        pick = torch.linspace(0, rays[0].shape[0] - 1, n, device=device).long()
+        rays = tuple(x[pick].contiguous() for x in rays)
+        t, prim, _, _ = bvh_closest_hit_plain(bvh, *rays, fr)
+        hit = prim >= 0
+        beyond = torch.where(hit, torch.nextafter(t, torch.full_like(t, float("inf"))), rays[3])
+        sets[f"{name}, t_max a float beyond the hit"] = (bvh, rays[:3] + (beyond,), fr)
+        sets[f"{name}, t_max at the hit"] = (bvh, rays[:3] + (torch.where(hit, t, rays[3]),), fr)
+    rnd = random_lanes(n, device, seed=seed + 5)
+    hits = torch.nonzero(bvh_closest_hit_plain(an, *rnd, frames)[1] >= 0)[:, 0]
+    one = torch.zeros_like(rnd[3])
+    one[hits[hits.shape[0] // 2]] = rnd[3][hits[hits.shape[0] // 2]]   # a lane that hits
+    sets["animated box, one live lane"] = (an, rnd[:3] + (one,), frames)
+    sets["rtiow, every lane dead"] = (rt, rnd[:3] + (torch.zeros_like(rnd[3]),), None)
+    for w in waves:
+        for m in (w - 37, w, w + 1013):
+            rays = random_lanes(m, device, seed=seed + m)
+            sets[f"animated box, {m} lanes (a wave of {w})"] = (an, rays, frames)
+    if budget is not None:
+        past = sphere_tree_past(budget, frames_bytes, device)
+        rays = random_lanes(n, device, seed=seed + 9, lo=(-8.0, -8.0, -8.0), hi=(8.0, 8.0, 8.0),
+                            t_far=8.0)
+        sets["a tree just past the staging budget"] = (past, rays, None)
+    return sets
+
+
+def check_bvh_edge_sets(sets, branch=None) -> Dict[str, float]:
+    """K5 and K6 on every set of bvh_leaf_edge_sets, bit for bit (`branch`
+    as check_bvh_closest_hit)."""
+    out = {"sets": len(sets), "lanes": 0, "hits": 0, "occluded": 0}
+    for name, (bvh, rays, fr) in sets.items():
+        try:
+            c = check_bvh_closest_hit(bvh, rays, fr, branch)
+            a = check_bvh_any_hit(bvh, rays, fr, branch)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+        out["lanes"] += c["lanes"]
+        out["hits"] += c["hits"]
+        out["occluded"] += a["occluded"]
+    out["max_abs_err"] = 0.0
+    return out
 
 
 def envmap_camera_lanes(device, seed: int = 0):
@@ -2230,7 +2482,7 @@ BVH_TRI_FLOPS = 60.0      # the watertight test
 SHEAR_FLOPS = 3.0         # an object ray's shear: a reciprocal and two products
 
 
-def bvh_work(bvh, rays, any_hit: bool, frames=None):
+def bvh_work(bvh, rays, any_hit: bool, frames=None, counts=None):
     """K5/K6: per lane t_min and t_max in (8 B) and the result out (16 B of t,
     prim, u, v; 1 B of occlusion); o and d in (24 B) only on live lanes
     (t_max > t_min: a dead lane reads no more); the node table, 40 B per
@@ -2241,9 +2493,11 @@ def bvh_work(bvh, rays, any_hit: bool, frames=None):
     tests (48 flops) for each inner-node visit of the walk, BVH_TRI_FLOPS for
     each leaf triangle test, SWEEP_SPHERE_FLOPS for each leaf sphere test,
     and with `frames` OBJECT_RAY_FLOPS + SHEAR_FLOPS for each object ray a
-    lane computes (where its next row's animation differs from its last),
-    counted with the plain walk on these rays."""
-    c = bvh_walk_counts(bvh, *rays, any_hit=any_hit, frames=frames)
+    lane computes (one per animation other than the identity whose rows its
+    walk tests), counted with the plain walk on these rays (`counts`: its
+    bvh_walk_counts, when already taken)."""
+    c = counts if counts is not None else bvh_walk_counts(bvh, *rays, any_hit=any_hit,
+                                                          frames=frames)
     n = rays[0].shape[0]
     live = int((rays[3] > rays[2]).sum())
     per_row = 4 if frames is not None else 0
