@@ -239,6 +239,33 @@ both animated paths; K5's and K6's static triangle records those of the
 mesh and city paths, their sphere-row record the rtiow_bvh path's and
 their object-space records the cornell_animated_bvh path's.
 
+13. grad - the pass renderer and the differentiable render
+   (utils/grad_check.py): first the three backward kernels against their
+   plain versions at a differentiable frame's shapes, each timed (wrapper
+   call, device time a launch, plain version, `index_add_` for P0T)
+   beside its bound: P0T on the Cornell block's material rows after 2
+   bounces, K3T on that block's winners, K8T on the envmap frame's
+   directions on the equirect and the cube map (random cotangents; the
+   scattered tables within 1e-4 of the sum of their terms' magnitudes,
+   the sky's texels 1e-3, the per-lane cotangents within 1e-4 of the
+   largest). Then, with the counters at 0 (the grad path): `render_frame`
+   on the Cornell bench frame (16 samples in one pass) held to its
+   yardstick; the differentiable Cornell frame (128 x 128, 16 spp, depth
+   8), d(mean)/d(emission scale) equal to the loss (rtol 1e-3) and
+   d(mean)/d(white albedo) against a central difference (eps 5e-3, rtol
+   5e-2); the envmap_spheres frame (equirect sky, the same size), d(mean)
+   /d(sky scale) equal to the loss (rtol 5e-2); the sphere-lit floor at
+   128 x 128 and at the JAX test's 12 x 12 (4 spp, depth 4), d(mean)
+   /d(camera height) against a central difference (rtol 0.08; eps 1e-2 at
+   128 x 128, whose shadow rays at the light's silhouette flip at eps
+   1e-3); `fit` recovering the lit quad's albedo at 128 x 128 (4 spp, 40
+   Adam steps) within 0.06, its last loss under a quarter of its first.
+   Each differentiable step prints its forward and backward ms, the
+   port's kernel launches, peak memory and, from a profiled step, the
+   CUDA kernel launches, device ms and busy share of each pass. The JSON
+   line's records of the three backward kernels and of K3's full form,
+   P0 and K1/K2/K8 count the grad path's launches.
+
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. No result is printed without a CUDA device.
@@ -259,7 +286,8 @@ kc = np = torch = None   # bound in main(): nothing is imported before the CUDA 
 
 K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path",
             "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path")
-PATHS = K4_PATHS
+GRAD_PATH = "grad path"
+PATHS = K4_PATHS + (GRAD_PATH,)
 # Kernel launches per step of a K4 frame's loop: the regeneration (which
 # first adds the step before's NEE deposits and flags the loop condition),
 # the closest-hit cast, K3's K4 form (K3a's animated; no hit mask: the
@@ -311,10 +339,11 @@ KERNELS = {
                            ("cornell_animated_bvh path",)),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166", ENV_ALL,
                PATHS),
+    # the grad path's sky is an equirect map: its stand-alone launches count as the record above's
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
-                    ENV_ALL, PATHS),
+                    ENV_ALL, K4_PATHS),
     "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
-                        ENV_ALL, PATHS),
+                        ENV_ALL, K4_PATHS),
     "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
                  ("rgl_eval",), PATHS),
     "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
@@ -366,6 +395,20 @@ KERNELS = {
                              "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_k4_anim",),
                              ("cornell_animated path", "cornell_animated_bvh path")),
 }
+# The backward kernels of a differentiable render (phase `grad`), whose
+# launches count on the grad path.
+GRAD_KERNELS = {
+    "row_scatter": ("wurblpt_tpu_torch/csrc/backward.cu", "tools/probe_pallas_gather.py:20",
+                    ("row_scatter",), (GRAD_PATH,)),
+    "assemble_hit_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
+                         "wurblpt_tpu/render/intersect.py:489", ("assemble_hit_bwd",),
+                         (GRAD_PATH,)),
+    "env_radiance_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
+                         "wurblpt_tpu/render/envmap.py:166", ("env_radiance_bwd",),
+                         (GRAD_PATH,)),
+}
+KERNELS.update(GRAD_KERNELS)
+GRAD_RECORDS = []   # filled by phase_grad
 # K3's K4 form: the record of each frame's class on the frame's K4 path.
 K3_K4_RECORDS = {"cornell": "assemble_hit_k4_diffuse", "tof": "assemble_hit_k4_diffuse",
                  "mesh": "assemble_hit_k4_env", "envmap": "assemble_hit_k4_env",
@@ -1283,6 +1326,179 @@ def phase_anim_bvh_path(scene):
     return launches
 
 
+def _grad_records():
+    """Phase grad, part 1: P0T, K3T and K8T against their plain backward
+    versions at a differentiable frame's shapes (utils/grad_check.py), each
+    timed (wrapper call, device time a launch, plain version, index_add_ for
+    P0T) beside its bound."""
+    from wurblpt_tpu_torch.render import backward as bw
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    lanes = gc.cornell_lanes(DEVICE)
+    rows = lanes["mat_table"].shape[0]
+    g_rows, mat = lanes["g_rows"], lanes["mat"]
+    k3 = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")] + lanes["cot"]
+    skies = {"equirect": gc.sky_lanes(DEVICE, cube=False), "cube": gc.sky_lanes(DEVICE, cube=True)}
+    checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows)}),
+              ("assemble_hit_bwd", gc.check_assemble_hit_bwd, {"cornell block": (lanes,)}),
+              ("env_radiance_bwd", gc.check_env_radiance_bwd, skies)]
+    errs = _run_checks(checks)
+    env, d, g = skies["equirect"]
+    cases = {
+        "row_scatter": (lambda: bw.row_scatter(g_rows, mat, rows),
+                        lambda: bw.row_scatter_plain(g_rows, mat, rows),
+                        gc.row_scatter_work(g_rows, mat, rows),
+                        lambda: torch.zeros((rows, g_rows.shape[1]), device=DEVICE).index_add_(
+                            0, mat.long(), g_rows), g_rows.shape[0]),
+        "assemble_hit_bwd": (lambda: bw.assemble_hit_bwd(*k3),
+                             lambda: bw.assemble_hit_bwd_plain(*k3),
+                             gc.assemble_hit_bwd_work(lanes), None, lanes["o"].shape[0]),
+        "env_radiance_bwd": (lambda: bw.env_radiance_bwd(env, d, g),
+                             lambda: bw.env_radiance_bwd_plain(env, d, g),
+                             gc.env_radiance_bwd_work(env, d), None, d.shape[0]),
+    }
+    for name, (kernel, plain, work, library, n) in cases.items():
+        ms, plain_ms = kc.time_ms(kernel, DEVICE), kc.time_ms(plain, DEVICE)
+        dev_us = kc.device_ms(kernel) * 1e3
+        library_ms = None if library is None else kc.time_ms(library, DEVICE)
+        bound, bound_by = kc.bound_ms(*work)
+        print(f"grad: {name} {ms:.4f} ms (wrapper call), {dev_us:.2f} us device a launch, vs "
+              f"plain {plain_ms:.4f} ms{'' if library is None else f', index_add_ {library_ms:.4f} ms'}"
+              f"; bound {bound:.6f} ms by {bound_by} ({work[0]:.4g} bytes, {work[1]:.4g} flops)"
+              f" at {n} lanes on {_nvidia_smi()}")
+        src, replaces, _, _ = KERNELS[name]
+        GRAD_RECORDS.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                             "launches": 0, "max_abs_err": errs[name], "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                             "library_ms": library_ms, "device_us": dev_us})
+
+
+def _timed_step(label, loss, args):
+    """One differentiable step: (loss value, the args' gradients), with its
+    forward and backward wall ms, the port's kernel launches, the card's
+    peak memory, and from a profiled step each pass's CUDA kernel launches,
+    device ms and busy share, printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wurblpt_tpu_torch import native
+
+    warm = [torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+    loss(*warm).backward()   # the first step's one-time costs left out of the times
+    xs = [torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    value = loss(*xs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    value.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ours = {k: v - before[k] for k, v in native.LAUNCHES.items() if v != before[k]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof_line = []
+    ys = [torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+    for part in ("forward", "backward"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            if part == "forward":
+                out = loss(*ys)
+            else:
+                out.backward()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+        dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset")))
+        dms = sum((getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0)) for e in dev) / 1e3
+        prof_line.append(f"{part} {kern} CUDA kernel launches, {dms:.2f} device ms in "
+                         f"{wall:.2f} wall ms (busy {dms / wall:.3f})")
+    print(f"{label}: forward {(t1 - t0) * 1e3:.2f} ms, backward (recompute included) "
+          f"{(t2 - t1) * 1e3:.2f} ms, peak memory {peak:.3f} GiB, the port's kernel launches "
+          f"{ours}; profiled: {'; '.join(prof_line)}; on {_nvidia_smi()}")
+    return float(value.detach()), [float(x.grad) for x in xs]
+
+
+def phase_grad():
+    """Phase grad: the backward kernels against their plain versions, then,
+    with the launch counters at 0, the pass renderer and the differentiable
+    render driven through render_frame and fit: the Cornell bench frame
+    held to its yardstick, d(mean)/d(emission scale) = the loss at scale 1
+    (rtol 1e-3), d(mean)/d(white albedo) against a central difference (eps
+    5e-3, rtol 5e-2), the equirect sky's d(mean)/d(scale) = the loss (rtol
+    5e-2), the sphere-lit floor's d(mean)/d(camera height) against a
+    central difference (eps 1e-3, rtol 0.08), and fit recovering the lit
+    quad's albedo within 0.06 with its last loss below a quarter of its
+    first. Returns the counters of that run."""
+    from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.render.bsdf import SceneStatic
+    from wurblpt_tpu_torch.render.camera import CameraConfig, make_camera
+    from wurblpt_tpu_torch.render.integrator import RenderParams, render_frame
+    from wurblpt_tpu_torch.render.sensor import SensorRGB
+    from wurblpt_tpu_torch.utils import grad_check as gc
+    from wurblpt_tpu_torch.utils import scenes
+
+    _grad_records()
+    native.reset_launch_counts()
+    # the pass renderer on the Cornell bench frame, 16 samples in one pass
+    scene = scenes.cornell_box_ref(DEVICE)
+    pose, vfov = scenes.cornell_ref_camera(DEVICE)
+    cam = make_camera(pose, vfov, kc.BENCH_WIDTH, kc.BENCH_WIDTH, device=DEVICE)
+    t0 = time.perf_counter()
+    img, stats = render_frame(scene, SceneStatic.from_scene(scene), cam, CameraConfig(),
+                              SensorRGB(), kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_SSQRT,
+                              params=RenderParams(max_path_components=kc.BENCH_DEPTH),
+                              samples_per_pass=kc.BENCH_SSQRT ** 2, return_stats=True,
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    stats = [int(x) for x in stats.tolist()]
+    print(f"grad: render_frame Cornell bench frame {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"(first call), mean radiance {float(img.double().mean())!r} (reference "
+          f"{kc.REF_MEAN}), stats {stats} (reference {list(kc.REF_STATS)})")
+    kc.check_bench_frame(img, stats)
+    # the differentiable Cornell frame: emission scale and white albedo
+    loss = gc.cornell_loss(DEVICE)
+    value, (g_s, g_a) = _timed_step("grad: differentiable Cornell step", loss, (1.0, 0.0))
+    with torch.no_grad():
+        eps = 5e-3
+        fd = (float(loss(torch.tensor(1.0), torch.tensor(eps)))
+              - float(loss(torch.tensor(1.0), torch.tensor(-eps)))) / (2 * eps)
+    print(f"grad: Cornell loss {value!r}, d/d(emission scale) {g_s!r}, d/d(white albedo) "
+          f"{g_a!r} against central difference {fd!r}")
+    assert abs(g_s - value) <= 1e-3 * abs(value), "emission gradient is not the loss"
+    assert g_a > 0 and abs(g_a - fd) <= 5e-2 * abs(fd), "albedo gradient off its difference"
+    # the sky's scale on envmap_spheres (equirect)
+    loss = gc.sky_loss(DEVICE)
+    value, (g_s,) = _timed_step("grad: differentiable envmap step", loss, (1.0,))
+    print(f"grad: envmap loss {value!r}, d/d(sky scale) {g_s!r}")
+    assert abs(g_s - value) <= 5e-2 * abs(value), "sky gradient is not the loss"
+    # the camera's height over the sphere-lit floor (K3T's geometry), at
+    # 128^2 and at the JAX test's 12^2 (utils/grad_check.floor_loss)
+    for width, eps in ((128, gc.FLOOR_EPS), (12, 1e-3)):
+        loss = gc.floor_loss(DEVICE, width)
+        value, (g_y,) = _timed_step(f"grad: differentiable floor step {width}^2", loss, (0.0,))
+        with torch.no_grad():
+            fd = (float(loss(torch.tensor(eps))) - float(loss(torch.tensor(-eps)))) / (2 * eps)
+        print(f"grad: floor {width}^2 loss {value!r}, d/d(camera height) {g_y!r} against "
+              f"central difference {fd!r} (eps {eps})")
+        assert abs(g_y - fd) <= 0.08 * abs(fd) + 1e-4, "camera gradient off its difference"
+    # fit
+    t0 = time.perf_counter()
+    res = gc.fit_albedo(DEVICE)
+    got = res.params["albedo"].tolist()
+    print(f"grad: fit {gc.FIT_STEPS} steps in {time.perf_counter() - t0:.2f} s: albedo {got} "
+          f"(target [0.7, 0.2, 0.5]), loss {res.losses[0]!r} -> {res.losses[-1]!r}")
+    assert max(abs(a - b) for a, b in zip(got, (0.7, 0.2, 0.5))) <= 0.06, "fit missed"
+    assert res.losses[-1] < 0.25 * res.losses[0], "fit's loss did not fall"
+    launches = dict(native.LAUNCHES)
+    print(f"{GRAD_PATH}: launches {launches}")
+    for name in ("row_scatter", "assemble_hit_bwd", "env_radiance_bwd", "assemble_hit",
+                 "row_gather", "closest_hit", "any_hit", "env_radiance"):
+        assert launches[name] > 0, f"kernel {name} was not launched on the {GRAD_PATH}"
+    return launches
+
+
 def phase_scenes():
     from wurblpt_tpu_torch.utils import cast_steps, scenes
 
@@ -1360,14 +1576,15 @@ def main() -> int:
                          lambda: phase_anim_path(out["scenes"]["cornell_animated"])),
                         ("rtiow_bvh path", lambda: phase_rtiow_bvh_path(out["scenes"]["rtiow_bvh"])),
                         ("cornell_animated_bvh path",
-                         lambda: phase_anim_bvh_path(out["scenes"]["cornell_animated_bvh"]))):
+                         lambda: phase_anim_bvh_path(out["scenes"]["cornell_animated_bvh"])),
+                        (GRAD_PATH, phase_grad)):
         try:
             out[name] = phase()
         except Exception as e:  # report which phase failed, then fail the run
             traceback.print_exc()
             print(f"FAILED phase {name}: {type(e).__name__}: {e}", file=sys.stderr)
             return 1
-    records = out["kernels"]
+    records = out["kernels"] + GRAD_RECORDS
     for r in records:
         _, _, counters, paths = KERNELS[r["name"]]
         r["launches"] = sum(out[path][c] for path in paths for c in counters)

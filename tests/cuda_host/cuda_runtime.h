@@ -1,6 +1,6 @@
 // Host stand-in for the CUDA pieces that csrc/bvh_common.cuh, the device
-// code of csrc/wavefront.cu, of the brute-force casts and sweeps and of the
-// row gather use, so that these kernels compile with g++ and run on the
+// code of csrc/wavefront.cu, of the brute-force casts and sweeps, of the
+// row gather and of the backward kernels (backward_common.cuh) use, so that these kernels compile with g++ and run on the
 // CPU: one block at a time, one std::thread per CUDA thread, the warp
 // intrinsics through a barrier per warp (every thread of a warp calls them
 // in the same order), __syncthreads through a barrier per block, shared
@@ -65,6 +65,7 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
     return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 
 struct WarpSync {
     std::barrier<> bar{32};

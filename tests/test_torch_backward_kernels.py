@@ -1,0 +1,310 @@
+"""The plain backward versions of P0T, K3T and K8T (render/backward.py)
+against autograd through a differentiable plain forward of the same
+function, their autograd Functions' wiring, and the differentiable
+render's refusals.
+
+Each plain backward is explicit PyTorch arithmetic; the reference is
+`torch.autograd.grad` through `row_gather_diff_plain` (indexing),
+`assemble_hit_diff_plain` (K3's plain version with the winner's t, u, v
+recomputed on the tape: Moller-Trumbore for a triangle, the quadratic's
+root for a sphere) and K8's plain version `env_radiance_plain`, on
+random cotangents from a seed. Tolerances: 1e-4 of each output's largest
+magnitude (1e-5 where the sums are short; 3e-4 on rtiow, whose grazing
+sphere hits, |cos| down to 0.07, scale float32 rounding by 1 / |cos| in
+the plain version). K3T's reference runs in float64:
+in float32 the sphere root's derivative through the quadratic's
+discriminant cancels (5 % off on grazing rays of rtiow, t ~ 11), which the
+hit equation's derivative does not; and the cast's t of a sphere is
+replaced by the exact root first (the K1 quadratic's is within ~1e-4 of it
+at rtiow's distances, and the two derivatives differ by as much)."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from wurblpt_tpu_torch import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
+from wurblpt_tpu_torch import render_frame, render_frame_wavefront
+from wurblpt_tpu_torch.render import backward as bw
+from wurblpt_tpu_torch.render.bsdf import gather_material_rows, pack_material_table
+from wurblpt_tpu_torch.render.envmap import (EnvironmentMapConstant, build_envmap_arrays,
+                                             env_radiance, env_radiance_plain)
+from wurblpt_tpu_torch.render.gather import row_gather
+from wurblpt_tpu_torch.render.intersect import assemble_hit, build_hit_tables
+from wurblpt_tpu_torch.render.intersect_brute import build_brute_scene, closest_hit
+from wurblpt_tpu_torch.utils import kernel_check as kc
+from wurblpt_tpu_torch.utils import scenes
+
+torch.set_num_threads(2)
+
+REL = 1e-4
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _close(got, ref, what, rel=REL):
+    assert torch.isfinite(ref).all() and torch.isfinite(got).all(), what
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    assert err <= rel * scale + 1e-7, f"{what}: {err} against scale {scale}"
+
+
+# ---------------------------------------------------------------------------
+# P0T
+# ---------------------------------------------------------------------------
+
+def test_p0t_plain_matches_autograd_with_clamped_indices():
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(7, 23, generator=gen, dtype=torch.float32)
+    idx = torch.randint(-3, 10, (5000,), generator=gen, dtype=torch.int32)
+    g = torch.randn(5000, 23, generator=gen)
+    leaf = table.clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad((bw.row_gather_diff_plain(leaf, idx) * g).sum(), leaf)
+    _close(bw.row_scatter_plain(g, idx, 7), ref, "row_scatter_plain", 1e-5)
+    # the autograd Function behind row_gather takes the same backward
+    leaf2 = table.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad((row_gather(leaf2, idx) * g).sum(), leaf2)
+    assert torch.equal(got, bw.row_scatter_plain(g, idx, 7))
+
+
+def test_material_rows_carry_the_float_columns_gradients():
+    """The packed material table keeps its float columns on the tape; the
+    int32 columns (typ, flags, rgl_id bit patterns) get none."""
+    m = scenes.cornell_box_ref("cpu").materials
+    albedo = m.albedo.clone().requires_grad_(True)
+    packed = pack_material_table(m._replace(albedo=albedo))
+    ids = torch.tensor([0, 1, 1, 3, 2, 0], dtype=torch.int32)
+    rows = gather_material_rows(packed, ids)
+    assert torch.equal(rows.typ, m.typ[ids.long()]) and torch.equal(rows.flags, m.flags[ids.long()])
+    (g,) = torch.autograd.grad(rows.albedo.sum(), albedo)
+    expect = torch.zeros_like(m.albedo).index_add_(0, ids.long(), torch.ones(6, 4))
+    assert torch.equal(g, expect)
+
+
+# ---------------------------------------------------------------------------
+# K3T
+# ---------------------------------------------------------------------------
+
+def _lanes(name, side=24):
+    build, camera = {"cornell": (scenes.cornell_box_ref, scenes.cornell_ref_camera),
+                     "envmap": (scenes.envmap_spheres, scenes.envmap_camera),
+                     "rtiow": (scenes.rtiow, scenes.rtiow_camera)}[name]
+    scene = build(device="cpu")
+    o, d, tmin, tmax = kc.camera_lanes(side, side, 1, "cpu", camera=camera("cpu"))
+    t, prim, u, v = closest_hit(build_brute_scene(scene), o, d, tmin, tmax)
+    ht = build_hit_tables(scene)
+    # a sphere winner's exact root (float64), so that the forward point lies on it
+    sph = (prim >= ht.n_tris) & (prim >= 0)
+    if bool(sph.any()):
+        row = ht.sph_f[(prim[sph] - ht.n_tris).long()].double()
+        oc = o[sph].double() - row[:, :3]
+        dd = d[sph].double()
+        a, hb = (dd * dd).sum(-1), (oc * dd).sum(-1)
+        disc = hb * hb - a * ((oc * oc).sum(-1) - row[:, 3] ** 2)
+        r1, r2 = (-hb - disc.clamp_min(0).sqrt()) / a, (-hb + disc.clamp_min(0).sqrt()) / a
+        near = (r1 - t[sph].double()).abs() <= (r2 - t[sph].double()).abs()
+        t = t.clone()
+        t[sph] = torch.where(near, r1, r2).float()
+    return ht, o, d, t, prim, u, v
+
+
+def _cotangents(n, seed, zero=()):
+    gen = torch.Generator().manual_seed(seed)
+    gs = [torch.randn(n, k, generator=gen) for k in (1, 3, 3, 3, 3, 2)]
+    gs[0] = gs[0][:, 0].contiguous()
+    return [torch.zeros_like(g) if i in zero else g for i, g in enumerate(gs)]
+
+
+@pytest.mark.parametrize("name, zero", [
+    ("cornell", ()),                 # triangle winners, ONB tangents, miss lanes
+    ("envmap", ()),                  # triangles and spheres together
+    ("rtiow", ()),                   # spheres alone, their uv and tangent
+    ("rtiow", (5,)),                 # without uv's cotangent (a render's)
+], ids=["cornell", "envmap", "rtiow", "rtiow_no_uv"])
+def test_k3t_plain_matches_autograd(name, zero):
+    ht, o, d, t, prim, u, v = _lanes(name)
+    assert bool((prim < 0).any()) or name == "cornell"
+    gs = _cotangents(o.shape[0], 1, zero)
+    f64 = torch.float64
+    leaves = [x.to(f64).requires_grad_(True) for x in (o, d, ht.tri_g, ht.tri_f, ht.sph_f)]
+    rec = bw.assemble_hit_diff_plain(ht._replace(tri_g=leaves[2], tri_f=leaves[3],
+                                                 sph_f=leaves[4]), leaves[0], leaves[1],
+                                     t.to(f64), prim, u.to(f64), v.to(f64))
+    outs = (rec.t, rec.position, rec.normal, rec.geom_normal, rec.tangent, rec.uv)
+    ref = torch.autograd.grad(sum((a * g.to(f64)).sum() for a, g in zip(outs, gs)), leaves,
+                              allow_unused=True)
+    backside = assemble_hit(ht, o, d, t, prim, u, v).backside
+    assert torch.equal(backside, rec.backside)
+    got = bw.assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *gs)
+    rel = 3e-4 if name == "rtiow" else REL
+    for what, a, b in zip(("g_o", "g_d", "g_tri_g", "g_tri_f", "g_sph_f"), got, ref):
+        _close(a, torch.zeros_like(a) if b is None else b.float(), f"{name} {what}", rel)
+    rec = assemble_hit(ht, o, d, t, prim, u, v)
+    # the Function behind assemble_hit takes the same backward and forward
+    leaves2 = [x.clone().requires_grad_(True) for x in (o, d, ht.tri_g, ht.tri_f, ht.sph_f)]
+    rec2 = assemble_hit(ht._replace(tri_g=leaves2[2], tri_f=leaves2[3], sph_f=leaves2[4]),
+                        leaves2[0], leaves2[1], t, prim, u, v)
+    for f in ("position", "normal", "geom_normal", "tangent", "uv", "mat", "backside"):
+        assert torch.equal(getattr(rec2, f), getattr(rec, f)), f
+    outs2 = (rec2.t, rec2.position, rec2.normal, rec2.geom_normal, rec2.tangent, rec2.uv)
+    got2 = torch.autograd.grad(sum((a * g).sum() for a, g in zip(outs2, gs)), leaves2,
+                               allow_unused=True)
+    for a, b in zip(got2, got):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K8T
+# ---------------------------------------------------------------------------
+
+def _sky_dirs(n, seed):
+    """Random unit directions and the cube's face centres, edges and corners
+    and the equirect map's seam (x = 0, z < 0), the poles left out (atan2's
+    derivative is 0 / 0 there, in both)."""
+    d = torch.randn(n, 3, generator=torch.Generator().manual_seed(seed))
+    edges = torch.tensor([[1.0, 0.0, 0.2], [-1.0, 0.1, 0.0], [0.2, 0.0, 1.0], [0.0, 0.3, -1.0],
+                          [1.0, 1.0, 0.0], [1.0, 1.0, 1.0], [-1.0, 1.0, -1.0], [0.0, -0.2, -1.0],
+                          [1e-4, 0.2, -0.98], [-1e-4, 0.2, -0.98], [0.5, 1.0, 0.0]])
+    d = torch.cat([d, edges])
+    return (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["equirect", "cube", "constant"])
+def test_k8t_plain_matches_autograd(kind):
+    if kind == "constant":
+        env = build_envmap_arrays(EnvironmentMapConstant((0.3, 0.5, 0.7)), "cpu")
+    else:
+        env = scenes.envmap_spheres(cube=kind == "cube", device="cpu").envmap
+    d = _sky_dirs(4096, 2)
+    g = torch.randn(d.shape[0], 4, generator=torch.Generator().manual_seed(3))
+    leaves = [x.clone().requires_grad_(True) for x in (d, env.image, env.const_radiance)]
+    out = env_radiance_plain(env._replace(image=leaves[1], const_radiance=leaves[2]),
+                             leaves[0])
+    ref = torch.autograd.grad((out * g).sum(), leaves, allow_unused=True)
+    got = bw.env_radiance_bwd_plain(env, d, g)
+    for what, a, b in zip(("g_d", "g_image", "g_const"), got, ref):
+        _close(a, torch.zeros_like(a) if b is None else b, f"{kind} {what}")
+    # the Function behind env_radiance
+    leaves2 = [x.clone().requires_grad_(True) for x in (d, env.image, env.const_radiance)]
+    out2 = env_radiance(env._replace(image=leaves2[1], const_radiance=leaves2[2]), leaves2[0])
+    assert torch.equal(out2, out)
+    got2 = torch.autograd.grad((out2 * g).sum(), leaves2, allow_unused=True)
+    for a, b in zip(got2, got):
+        assert torch.equal(torch.zeros_like(b) if a is None else a, b)
+
+
+# ---------------------------------------------------------------------------
+# Refusals and what the port imports
+# ---------------------------------------------------------------------------
+
+DIFF = RenderParams(max_path_components=2, differentiable=True)
+
+
+def _render(scene, **kw):
+    pose, vfov = scenes.cornell_ref_camera("cpu")
+    cam = make_camera(pose, vfov, 4, 4, device="cpu")
+    return render_frame(scene, SceneStatic.from_scene(scene), cam, CameraConfig(), SensorRGB(),
+                        4, 4, 1, device="cpu", **kw)
+
+
+def test_differentiable_mode_refuses_what_it_cannot_take():
+    """RGL materials (A.9), animated scenes (A.8) and a sky rotation that
+    requires grad (A.9) raise in differentiable mode; the wavefront
+    renderer refuses differentiable params."""
+    city = scenes.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="RGL.*A.9"):
+        _render(city, params=DIFF)
+    with pytest.raises(NotImplementedError, match="A.8"):
+        _render(scenes.cornell_box_animated("cpu"), params=DIFF, t0=0.5, t1=0.5)
+    env_scene = scenes.envmap_spheres(device="cpu")
+    rot = env_scene.envmap.rotation.clone().requires_grad_(True)
+    rotated = env_scene._replace(envmap=env_scene.envmap._replace(rotation=rot))
+    with pytest.raises(NotImplementedError, match="rotation.*A.9"):
+        _render(rotated, params=DIFF)
+    with pytest.raises(NotImplementedError, match="rotation.*A.9"):
+        env_radiance(rotated.envmap, torch.tensor([[0.0, 0.0, 1.0]]))
+    cornell = scenes.cornell_box_ref("cpu")
+    pose, vfov = scenes.cornell_ref_camera("cpu")
+    with pytest.raises(ValueError, match="inference only"):
+        render_frame_wavefront(cornell, SceneStatic.from_scene(cornell),
+                               make_camera(pose, vfov, 4, 4, device="cpu"), CameraConfig(),
+                               SensorRGB(), 4, 4, 1, params=DIFF, device="cpu")
+
+
+def test_inference_renders_keep_their_refused_scenes():
+    """The same scenes still render for inference: the refusals are the
+    differentiable mode's."""
+    img = _render(scenes.envmap_spheres(device="cpu"), params=RenderParams(max_path_components=2))
+    assert bool(torch.isfinite(img).all())
+
+
+NEW_MODULES = ("render/backward.py", "render/integrator.py", "render/lights.py", "inverse.py",
+               "utils/grad_check.py")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_modules_import_neither_jax_nor_the_jax_package(module):
+    tree = ast.parse((REPO / "wurblpt_tpu_torch" / module).read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
+              and node.level == 0]
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "wurblpt_tpu")]
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "wurblpt_tpu")]
+
+
+# ---------------------------------------------------------------------------
+# On the card (skipped without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    return "cuda"
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_their_plain_versions_on_the_card(gpu):
+    """P0T, K3T and K8T at a differentiable frame's shapes, with
+    utils/grad_check.py's tolerances (chip_smoke.py's grad phase runs the same)."""
+    from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    lanes = gc.cornell_lanes(gpu)
+    before = dict(native.LAUNCHES)
+    gc.check_row_scatter(lanes["g_rows"], lanes["mat"], lanes["mat_table"].shape[0])
+    gc.check_assemble_hit_bwd(lanes)
+    for cube in (False, True):
+        gc.check_env_radiance_bwd(*gc.sky_lanes(gpu, cube))
+    assert native.LAUNCHES["row_scatter"] == before["row_scatter"] + 1
+    assert native.LAUNCHES["assemble_hit_bwd"] == before["assemble_hit_bwd"] + 1
+    assert native.LAUNCHES["env_radiance_bwd"] == before["env_radiance_bwd"] + 2
+
+
+@pytest.mark.cuda
+def test_a_gradient_on_the_card_is_the_cpus(gpu):
+    """The floor's camera-height gradient (12 x 12, 4 spp, depth 4) on the
+    card, through K1-K3, P0 and their backward kernels, equals the CPU's
+    plain one to rtol 1e-3."""
+    from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    grads = []
+    for device in ("cpu", gpu):
+        x = torch.zeros((), device=device, requires_grad=True)
+        before = native.LAUNCHES["assemble_hit_bwd"]
+        gc.floor_loss(device, 12)(x).backward()
+        grads.append(float(x.grad))
+        assert native.LAUNCHES["assemble_hit_bwd"] > before or device == "cpu"
+    np.testing.assert_allclose(grads[1], grads[0], rtol=1e-3)

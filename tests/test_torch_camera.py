@@ -70,7 +70,7 @@ def test_camera_rays_match_from_the_same_counters():
     tpix, tjx, tjy = _pixels(trng, trng.uniform2, lambda n: torch.arange(n))
     tpxy = torch.stack([(tpix % W) + tjx, (tpix // W) + tjy], -1).to(torch.float32)
     np.testing.assert_allclose(tpxy.numpy(), np.asarray(pxy), rtol=0, atol=1e-6)
-    to, td = camera_rays(tcam, CameraConfig(), tpxy, W, H)
+    to, td, _ = camera_rays(tcam, CameraConfig(), tpxy, W, H)
 
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
@@ -96,7 +96,7 @@ def test_surround_and_stereo_rays_match(surround, stereo):
     pxy = pxy.astype(np.float32)
     jo, jd, _ = jcamera_rays(jcam, JCameraConfig(surround=surround, stereo=stereo),
                              jnp.asarray(pxy), w, h, 0.0, 0.0, jnp.zeros((n,)), jnp.zeros((n, 2)))
-    to, td = camera_rays(tcam, CameraConfig(surround=surround, stereo=stereo),
+    to, td, _ = camera_rays(tcam, CameraConfig(surround=surround, stereo=stereo),
                          torch.from_numpy(pxy), w, h)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
@@ -111,7 +111,7 @@ def test_ods_eye_circle():
     cam = make_camera(pose, 50.0, w, h, eye_distance=ed, device="cpu")
     pxy = torch.stack(torch.meshgrid(torch.arange(w) + 0.5, torch.arange(h) + 0.5,
                                      indexing="xy"), -1).reshape(-1, 2)
-    o, d = camera_rays(cam, CameraConfig(surround=SurroundMode.S360, stereo=True), pxy, w, h)
+    o, d, _ = camera_rays(cam, CameraConfig(surround=SurroundMode.S360, stereo=True), pxy, w, h)
     off = (o - pose.translation).numpy()
     np.testing.assert_allclose(np.linalg.norm(off, axis=-1), 0.5 * ed, rtol=1e-4)
     dh = d.numpy().copy()
@@ -161,10 +161,10 @@ def test_distorted_camera_rays_match_jax(model):
     pxy = (np.random.default_rng(8).uniform(size=(n, 2)) * [192, 128]).astype(np.float32)
     jo, jd, _ = jcamera_rays(jcam, jcfg, jnp.asarray(pxy), 192, 128, 0.0, 0.0, jnp.zeros((n,)),
                              jnp.zeros((n, 2)))
-    o, d = camera_rays(cam, cfg, torch.from_numpy(pxy), 192, 128)
+    o, d, _ = camera_rays(cam, cfg, torch.from_numpy(pxy), 192, 128)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=0, atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
-    _, d0 = camera_rays(cam, CameraConfig(), torch.from_numpy(pxy), 192, 128)
+    _, d0, _ = camera_rays(cam, CameraConfig(), torch.from_numpy(pxy), 192, 128)
     assert float((d - d0).abs().max()) > 1e-3
 
 

@@ -360,7 +360,7 @@ def test_a_miss_without_sky_importance_adds_the_sky_with_weight_one(sky):
         device="cpu").reshape(-1, 3)
     ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     pxy = torch.stack([xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5], -1).float()
-    o, d = camera_rays(cam, CameraConfig(), pxy, w, h)
+    o, d, _ = camera_rays(cam, CameraConfig(), pxy, w, h)
     n = o.shape[0]
     _, prim, _, _ = closest_hit(build_brute_scene(scene), o.contiguous(), d.contiguous(),
                                 torch.full((n,), 1e-4), torch.full((n,), 3e37))

@@ -278,10 +278,7 @@ def _quad_scene(material, animated=False, **build):
      "textures"),
     (lambda: jscenes.envmap_spheres(cube=False, importance_resolution=0).build(),
      "environment map kind 1 without importance sampling"),
-    (lambda: jscenes.mis_test().build(), "sphere lights"),
     (lambda: _quad_scene(B.Lambertian(albedo=B.CheckerTexture())), "textures"),
-    # spheres in a BVH scene are in the slice, sphere lights there are not
-    (lambda: jscenes.mis_test().build(use_bvh=True), "sphere lights"),
 ])
 def test_scenes_outside_the_slice_are_refused(build, feature):
     scene = _port_of(build())

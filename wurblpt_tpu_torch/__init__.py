@@ -11,14 +11,18 @@ of scenes with rigid keyframe animation at one instant, with a
 pinhole camera (with lens distortion) or an equirect surround camera (mono
 or stereo), SensorRGB and the AMCW time-of-flight sensor SensorTofAmcw:
 Lambertian, GGX, mirror, glass, ModPhong, measured RGL, diffuse-, spot- and
-ToF-light materials, triangles and analytic spheres, triangle hot spots with
-mixture or per-light MIS, an importance-sampled equirect sky, a cube-map sky
-with or without importance sampling, a constant sky, on the brute-force
+ToF-light materials, triangles and analytic spheres, triangle and sphere hot
+spots with mixture or per-light MIS, an importance-sampled equirect sky, a
+cube-map sky with or without importance sampling, a constant sky, on the brute-force
 intersector or the port's BVH (triangle and sphere leaves, static or
 animated), and OBJ/MTL export and import (see
 ROADMAP.md for the rest). Scenes of the diffuse class (Lambertian surfaces,
 triangle lights, no sky, a pinhole camera without distortion) take one
 wavefront step as hand-written kernels (K4, :mod:`.render.wavefront`).
+The pass renderer (`render_frame`) renders the same paths, takes sphere
+lights, and with `RenderParams(differentiable=True)` puts the image on the
+autograd tape (backward kernels for P0, K3 and K8); `inverse.fit` fits
+scene or camera parameters to a target image.
 Scene, camera and table builders build on the GPU unless told otherwise.
 """
 
@@ -27,8 +31,12 @@ from .render.bsdf import SceneStatic  # noqa: F401
 from .render.camera import CameraConfig, CameraParams, camera_rays, make_camera  # noqa: F401
 from .render.integrator import (  # noqa: F401
     RenderParams,
+    accumulate_passes,
     prepare_scene,
+    render_frame,
+    render_frame_progressive,
     render_frame_wavefront,
+    trace_paths,
 )
 from .render.sensor import SensorRGB, SensorTofAmcw  # noqa: F401
 from .scene.ir import SceneArrays, scene_from_numpy  # noqa: F401

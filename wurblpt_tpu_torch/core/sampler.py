@@ -46,6 +46,15 @@ def cosine_direction(n, u):
     return to_world(cosine_hemisphere_local(u), t, b, n)
 
 
+def cone_direction_local(cos_theta_max, u):
+    """Uniform direction in the cone of half-angle acos(cos_theta_max) around
+    local +z; pdf = 1 / (2 pi (1 - cos_theta_max)) (sampler.hpp toSphere)."""
+    z = 1.0 + u[..., 0] * (cos_theta_max - 1.0)
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * _PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
 def power_heuristic(pdf_a, pdf_b):
     """MIS power heuristic (beta = 2) weight for strategy a (wurblpt.hpp:101-106)."""
     a2 = pdf_a * pdf_a

@@ -1,0 +1,349 @@
+// The per-lane arithmetic of K3T and K8T, the backward kernels of K3's hit
+// assembly (with the winner's intersection) and of K8's sky radiance.
+// Included by backward.cu (the kernels) and, through tests/cuda_host, by
+// the host build that runs it on the CPU.
+//
+// Each lane function follows the plain PyTorch version
+// (wurblpt_tpu_torch/render/backward.py assemble_hit_bwd_plain,
+// env_radiance_bwd_plain) term by term; the scatter into the tables is an
+// atomicAdd per nonzero term, so sums land in an order that varies from
+// run to run (the checks hold them to a tolerance relative to the sum of
+// the terms' magnitudes).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace wpt_bwd {
+
+constexpr float TWO_PI = 6.28318530717958647692f;
+constexpr float PI = 3.14159265358979323846f;
+constexpr float INV_2PI = 1.f / TWO_PI;
+constexpr float INV_PI = 1.f / PI;
+constexpr int TRI_F = 27;   // n0 n1 n2 | uv0 uv1 uv2 | tan0 tan1 tan2 | gn
+constexpr int TRI_G = 9;    // p0 e1 e2
+
+struct V3 {
+    float x, y, z;
+};
+
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 operator*(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 operator/(V3 a, float s) { return {a.x / s, a.y / s, a.z / s}; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+    return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ void store3(float* p, V3 a) {
+    p[0] = a.x;
+    p[1] = a.y;
+    p[2] = a.z;
+}
+__device__ __forceinline__ void add1(float* p, float v) {
+    if (v != 0.f) atomicAdd(p, v);
+}
+__device__ __forceinline__ void add3(float* p, V3 a) {
+    add1(p, a.x);
+    add1(p + 1, a.y);
+    add1(p + 2, a.z);
+}
+
+// Cotangent of a from that of a * rsqrt(max(a.a, 1e-20)).
+__device__ __forceinline__ V3 normalize_bwd(V3 a, V3 g) {
+    const float aa = dot(a, a);
+    const float inv = 1.f / sqrtf(fmaxf(aa, 1e-20f));
+    if (aa < 1e-20f) return inv * g;
+    const V3 n = inv * a;
+    return inv * (g - dot(n, g) * n);
+}
+
+// Cotangent of n from that of onb_from_normal(n)'s tangent
+// (1 + s nx^2 a, s nx ny a, -s nx), s = sign(nz), a = -1 / (s + nz).
+__device__ __forceinline__ V3 onb_tangent_bwd(V3 n, V3 g) {
+    const float s = n.z >= 0.f ? 1.f : -1.f;
+    const float a = -1.f / (s + n.z);
+    return {g.x * (2.f * s * n.x * a) + g.y * (s * n.y * a) - g.z * s, g.y * (s * n.x * a),
+            (g.x * n.x * n.x + g.y * n.x * n.y) * (s * a * a)};
+}
+
+// K3T's inputs: the cast's winners and K3's backside flags, the tables,
+// the record's cotangents, and the outputs (g_o, g_d per lane; the
+// tables' cotangents, zeroed before the launch, scatter-added).
+struct HitIn {
+    const float *o, *d, *t;
+    const int* prim;
+    const float *u, *v;
+    const bool* backside;
+    int n;
+};
+struct Tables {
+    const float* tri_g;
+    const float* tri_f;
+    const int* tri_i;   // material, flags
+    int n_tris;
+    const float* sph_f;   // centre, radius
+    int n_spheres;
+};
+struct Cot {
+    const float *g_t, *g_pos, *g_nrm, *g_gn, *g_tan, *g_uv;
+};
+struct HitOut {
+    float *g_o, *g_d, *g_tri_g, *g_tri_f, *g_sph_f;
+};
+
+// K3T for lane i (render/backward.py assemble_hit_bwd_plain).
+__device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, const Tables& tb,
+                                                      const Cot& c, const HitOut& out) {
+    const int p = in.prim[i];
+    const bool hit = p >= 0;
+    const int ps = hit ? p : 0;
+    const bool is_tri = hit && ps < tb.n_tris;
+    const float t = in.t[i], u = in.u[i], v = in.v[i];
+    const float tp = hit ? t : 1.f;
+    const V3 o = load3(in.o + 3 * i), d = load3(in.d + 3 * i);
+    const V3 pos = o + tp * d;
+    const float flip = in.backside[i] ? -1.f : 1.f;
+    V3 g_pos = load3(c.g_pos + 3 * i);
+    const V3 g_nrm = load3(c.g_nrm + 3 * i), g_gn = load3(c.g_gn + 3 * i);
+    const V3 g_tan = load3(c.g_tan + 3 * i);
+    const float g_uu = c.g_uv[2 * i], g_uvv = c.g_uv[2 * i + 1];
+    float g_u = 0.f, g_v = 0.f;
+    V3 sc = {0.f, 0.f, 0.f}, g_c = {0.f, 0.f, 0.f};
+    float sr = 0.f, g_r = 0.f;
+    int si = 0;
+    if (is_tri) {
+        const float* row = tb.tri_f + static_cast<long>(ps) * TRI_F;
+        const V3 n0 = load3(row), n1 = load3(row + 3), n2 = load3(row + 6);
+        const V3 t0 = load3(row + 15), t1 = load3(row + 18), t2 = load3(row + 21);
+        const float w = 1.f - u - v;
+        const V3 n_raw = w * n0 + u * n1 + v * n2;
+        const float nn = dot(n_raw, n_raw);
+        const V3 n_i = (1.f / sqrtf(fmaxf(nn, 1e-20f))) * n_raw;
+        const V3 tan_raw = w * t0 + u * t1 + v * t2;
+        const float tdn = dot(tan_raw, n_i);
+        const V3 tan_gs = tan_raw - tdn * n_i;
+        const float tl = sqrtf(fmaxf(dot(tan_gs, tan_gs), 1e-20f));
+        const bool use_gs = (tb.tri_i[2 * ps + 1] & 2) != 0 && tl > 1e-8f;
+        V3 g_ni = flip * g_nrm;
+        V3 g_traw = {0.f, 0.f, 0.f};
+        if (use_gs) {
+            const V3 tan_tri = tan_gs / tl;
+            const V3 g_gs = (g_tan - dot(tan_tri, g_tan) * tan_tri) / tl;
+            const float gsn = dot(g_gs, n_i);
+            g_traw = g_gs - gsn * n_i;
+            g_ni = g_ni - gsn * tan_raw - tdn * g_gs;
+        } else {
+            g_ni = g_ni + onb_tangent_bwd(n_i, g_tan);
+        }
+        const V3 g_nraw = normalize_bwd(n_raw, g_ni);
+        const float du0 = row[11] - row[9], du1 = row[12] - row[10];
+        const float dv0 = row[13] - row[9], dv1 = row[14] - row[10];
+        g_u = dot(g_nraw, n1 - n0) + dot(g_traw, t1 - t0) + (g_uu * du0 + g_uvv * du1);
+        g_v = dot(g_nraw, n2 - n0) + dot(g_traw, t2 - t0) + (g_uu * dv0 + g_uvv * dv1);
+        float* gr = out.g_tri_f + static_cast<long>(ps) * TRI_F;
+        add3(gr, w * g_nraw);
+        add3(gr + 3, u * g_nraw);
+        add3(gr + 6, v * g_nraw);
+        add1(gr + 9, w * g_uu);
+        add1(gr + 10, w * g_uvv);
+        add1(gr + 11, u * g_uu);
+        add1(gr + 12, u * g_uvv);
+        add1(gr + 13, v * g_uu);
+        add1(gr + 14, v * g_uvv);
+        add3(gr + 15, w * g_traw);
+        add3(gr + 18, u * g_traw);
+        add3(gr + 21, v * g_traw);
+        add3(gr + 24, flip * g_gn);
+    } else if (tb.n_spheres > 0) {
+        si = min(max(ps - tb.n_tris, 0), tb.n_spheres - 1);
+        sc = load3(tb.sph_f + 4 * si);
+        sr = tb.sph_f[4 * si + 3];
+        const float rr = fmaxf(sr, 1e-20f);
+        const V3 local = (pos - sc) / rr;
+        const V3 n_s = (1.f / sqrtf(fmaxf(dot(local, local), 1e-20f))) * local;
+        V3 g_ns = flip * (g_nrm + g_gn);
+        // lat/long uv: u = 1/2 + atan2(x, z) / 2 pi, v = 1/2 + asin(y) / pi
+        const float den = n_s.x * n_s.x + n_s.z * n_s.z;
+        if (g_uu != 0.f) {
+            const float tu = g_uu * INV_2PI / den;
+            g_ns.x += tu * n_s.z;
+            g_ns.z -= tu * n_s.x;
+        }
+        if (g_uvv != 0.f && fabsf(n_s.y) <= 1.f) g_ns.y += g_uvv * INV_PI / sqrtf(1.f - n_s.y * n_s.y);
+        // the pole-safe tangent (z, 0, -x) / |(z, -x)|
+        const float ln = sqrtf(fmaxf(den, 1e-20f));
+        if (ln >= 1e-6f) {
+            const float qx = n_s.z / ln, qz = -n_s.x / ln;
+            const float qg = qx * g_tan.x + qz * g_tan.z;
+            const float gqx = (g_tan.x - qx * qg) / ln, gqz = (g_tan.z - qz * qg) / ln;
+            g_ns.x -= gqz;
+            g_ns.z += gqx;
+        }
+        const V3 g_local = normalize_bwd(local, g_ns);
+        g_pos = g_pos + g_local / rr;
+        g_c = (-1.f * g_local) / rr;
+        g_r = sr >= 1e-20f ? -dot(g_local, local) / rr : 0.f;
+    }
+    V3 g_o = g_pos;
+    V3 g_d = tp * g_pos;
+    const float g_tt = hit ? c.g_t[i] + dot(g_pos, d) : 0.f;
+    if (is_tri) {
+        // o + t d = p0 + u e1 + v e2: lambda = [d, -e1, -e2]^-T (g_t, g_u, g_v)
+        const float* geo = tb.tri_g + static_cast<long>(ps) * TRI_G;
+        const V3 e1 = load3(geo + 3), e2 = load3(geo + 6);
+        const V3 nv = cross(e1, e2), pv = cross(d, e2), qv = cross(e1, d);
+        const V3 lam = (g_tt * nv + g_u * pv + g_v * qv) / dot(d, nv);
+        g_o = g_o - lam;
+        g_d = g_d - t * lam;
+        float* gg = out.g_tri_g + static_cast<long>(ps) * TRI_G;
+        add3(gg, lam);
+        add3(gg + 3, u * lam);
+        add3(gg + 6, v * lam);
+    } else if (tb.n_spheres > 0) {
+        if (hit) {   // |o + t d - c| = r
+            const V3 q = pos - sc;
+            const float s = g_tt / dot(q, d);
+            g_o = g_o - s * q;
+            g_d = g_d - (s * t) * q;
+            g_c = g_c + s * q;
+            g_r = g_r + s * sr;
+        }
+        float* gs = out.g_sph_f + 4 * si;
+        add3(gs, g_c);
+        add1(gs + 3, g_r);
+    }
+    store3(out.g_o + 3 * i, g_o);
+    store3(out.g_d + 3 * i, g_d);
+}
+
+// ---------------------------------------------------------------------------
+// K8T
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ V3 quat_rotate(float ux, float uy, float uz, float w, V3 v) {
+    const V3 uu = {ux, uy, uz};
+    const V3 t = 2.f * cross(uu, v);
+    return v + w * t + cross(uu, t);
+}
+
+__device__ __forceinline__ float mod1(float x) {
+    const float r = fmodf(x, 1.f);
+    return (r != 0.f && r < 0.f) ? r + 1.f : r;
+}
+
+__device__ __forceinline__ float dot4(const float* g, float4 a) {
+    return g[0] * a.x + g[1] * a.y + g[2] * a.z + g[3] * a.w;
+}
+
+__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float f) {
+    const float gf = 1.f - f;
+    return make_float4(a.x * gf + b.x * f, a.y * gf + b.y * f, a.z * gf + b.z * f,
+                       a.w * gf + b.w * f);
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+    return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+__device__ __forceinline__ void add4(float* p, const float* g, float s) {
+    for (int k = 0; k < 4; ++k) add1(p + k, g[k] * s);
+}
+
+// The bilinear lookup's backward: taps i00 (1 - fx)(1 - fy), i01 fx (1 - fy),
+// i10 (1 - fx) fy, i11 fx fy scatter-added into g_img; returns the
+// cotangents of fx and fy.
+__device__ __forceinline__ void bilinear_bwd(const float4* img, float* g_img, const float* g,
+                                             int i00, int i01, int i10, int i11, float fx,
+                                             float fy, float* g_fx, float* g_fy) {
+    const float4 c00 = img[i00], c01 = img[i01], c10 = img[i10], c11 = img[i11];
+    const float gx = 1.f - fx, gy = 1.f - fy;
+    add4(g_img + 4 * i00, g, gx * gy);
+    add4(g_img + 4 * i01, g, fx * gy);
+    add4(g_img + 4 * i10, g, gx * fy);
+    add4(g_img + 4 * i11, g, fx * fy);
+    const float4 a = sub4(c01, c00), b = sub4(c11, c10);
+    *g_fx = dot4(g, make_float4(a.x * gy + b.x * fy, a.y * gy + b.y * fy, a.z * gy + b.z * fy,
+                                a.w * gy + b.w * fy));
+    *g_fy = dot4(g, sub4(lerp4(c10, c11, fx), lerp4(c00, c01, fx)));
+}
+
+// K8T for lane i of an equirect (kind 1) or cube (kind 2) map
+// (render/backward.py env_radiance_bwd_plain): the texels' cotangents
+// scatter-added into g_img, the direction's written to g_d.
+__device__ __forceinline__ void env_radiance_bwd_lane(int i, const float* d, int kind,
+                                                      const float4* img, int h, int w,
+                                                      const float* rot, const float* g,
+                                                      float* g_d, float* g_img) {
+    const float* gi = g + 4 * i;
+    const V3 dm = quat_rotate(-rot[0], -rot[1], -rot[2], rot[3], load3(d + 3 * i));
+    V3 g_dm;
+    if (kind == 1) {
+        const float u = mod1(atan2f(dm.x, -dm.z) / TWO_PI);
+        const float v = acosf(fminf(fmaxf(dm.y, -1.f), 1.f)) / PI;
+        const float x = u * static_cast<float>(w) - 0.5f;
+        const float y = v * static_cast<float>(h) - 0.5f;
+        const float x0 = floorf(x), y0 = floorf(y);
+        const int x0i = ((static_cast<int>(x0) % w) + w) % w;
+        const int y0i = min(max(static_cast<int>(y0), 0), h - 1);
+        const int x1i = (x0i + 1) % w;
+        const int y1i = min(y0i + 1, h - 1);
+        float g_fx, g_fy;
+        bilinear_bwd(img, g_img, gi, y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i,
+                     x - x0, y - y0, &g_fx, &g_fy);
+        const float g_u = g_fx * static_cast<float>(w), g_v = g_fy * static_cast<float>(h);
+        const float tu = g_u * INV_2PI / (dm.x * dm.x + dm.z * dm.z);
+        const float tv = fabsf(dm.y) <= 1.f ? -g_v * INV_PI / sqrtf(1.f - dm.y * dm.y) : 0.f;
+        g_dm = {-dm.z * tu, tv, dm.x * tu};
+    } else {
+        const float ax = fabsf(dm.x), ay = fabsf(dm.y), az = fabsf(dm.z);
+        const bool is_x = ax >= ay && ax >= az;
+        const bool is_y = !is_x && ay >= az;
+        int face;
+        float major, sc, tc;
+        if (is_x) {
+            face = dm.x > 0.f ? 0 : 1;
+            major = ax;
+            sc = dm.x > 0.f ? -dm.z : dm.z;
+            tc = -dm.y;
+        } else if (is_y) {
+            face = dm.y > 0.f ? 2 : 3;
+            major = ay;
+            sc = dm.x;
+            tc = dm.y > 0.f ? dm.z : -dm.z;
+        } else {
+            face = dm.z > 0.f ? 4 : 5;
+            major = az;
+            sc = dm.z > 0.f ? dm.x : -dm.x;
+            tc = -dm.y;
+        }
+        const float ma = fmaxf(major, 1e-20f);
+        const float u = 0.5f * (sc / ma + 1.f);
+        const float v = 0.5f * (tc / ma + 1.f);
+        const float us_ = u * static_cast<float>(w) - 0.5f, vs_ = v * static_cast<float>(h) - 0.5f;
+        const float us = fmaxf(us_, 0.f), vs = fmaxf(vs_, 0.f);
+        const int x0 = min(max(static_cast<int>(us), 0), w - 1);
+        const int y0 = min(max(static_cast<int>(vs), 0), h - 1);
+        const int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
+        const int f = face * h * w;
+        float g_a, g_b;
+        bilinear_bwd(img, g_img, gi, f + y0 * w + x0, f + y0 * w + x1, f + y1 * w + x0,
+                     f + y1 * w + x1, us - static_cast<float>(x0), vs - static_cast<float>(y0),
+                     &g_a, &g_b);
+        const float g_u = us_ >= 0.f ? g_a * static_cast<float>(w) : 0.f;
+        const float g_v = vs_ >= 0.f ? g_b * static_cast<float>(h) : 0.f;
+        const float g_sc = 0.5f * g_u / ma, g_tc = 0.5f * g_v / ma;
+        const float g_ma = major >= 1e-20f ? -(g_sc * sc + g_tc * tc) / ma : 0.f;
+        const auto sgn = [](float a) { return a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f); };
+        if (is_x)
+            g_dm = {g_ma * sgn(dm.x), -g_tc, dm.x > 0.f ? -g_sc : g_sc};
+        else if (is_y)
+            g_dm = {g_sc, g_ma * sgn(dm.y), dm.y > 0.f ? g_tc : -g_tc};
+        else
+            g_dm = {dm.z > 0.f ? g_sc : -g_sc, -g_tc, g_ma * sgn(dm.z)};
+    }
+    // dm = R(conj q) d: its adjoint is R(q)
+    store3(g_d + 3 * i, quat_rotate(rot[0], rot[1], rot[2], rot[3], g_dm));
+}
+
+}  // namespace wpt_bwd

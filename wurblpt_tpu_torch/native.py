@@ -40,9 +40,9 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
            "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu", "sweep_closest.cu",
-           "sweep_any.cu")
-HEADERS = ("brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh", "live_queue.cuh",
-           "rgl_common.cuh", "sweep_common.cuh")
+           "sweep_any.cu", "backward.cu")
+HEADERS = ("backward_common.cuh", "brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh",
+           "live_queue.cuh", "rgl_common.cuh", "sweep_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libwpt_kernels.so"
@@ -55,7 +55,8 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_ani
             "assemble_hit_k4": 0, "assemble_hit_k4_anim": 0, "sweep_closest": 0, "sweep_any": 0,
             "bvh_closest_hit": 0, "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
             "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
-            "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0}
+            "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0,
+            "row_scatter": 0, "assemble_hit_bwd": 0, "env_radiance_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -102,6 +103,9 @@ _SIGNATURES = {
                       _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _F,
                       _F, _P, _P, _P, _P, _P, _P],
     "wpt_nee_resolve": [_P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
+    "wpt_row_scatter": [_P, _P, _I, _I, _I, _P, _P],
+    "wpt_assemble_hit_bwd": [_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 12,
+    "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 

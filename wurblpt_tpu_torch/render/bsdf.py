@@ -115,7 +115,6 @@ class SceneStatic(NamedTuple):
             f"{'' if self.env_importance else ' without importance sampling'}":
                 not (self.env_kind in (0, 2, 3) or (self.env_kind == 1 and self.env_importance)),
             "participating media": self.has_media,
-            "sphere lights": self.sphere_lights,
             "RGL materials without tables":
                 MaterialType.RGL in self.mat_types and not self.rgl_tables,
         }

@@ -181,8 +181,10 @@ def undistort_normalized(cam: CameraParams, cfg: CameraConfig, xy):
     return und
 
 
-def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, height: int):
-    """World-space rays through pixel coords [N, 2] (camera.hpp:123-185).
+def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, height: int,
+                t0=0.0, t1=0.0, u_time=None, u_lens=None, anims=None):
+    """World-space rays through pixel coords [N, 2] (camera.hpp:123-185), with
+    the JAX package's signature (camera.py:187-270).
 
     Stereo packs the left eye into the top half of the image and the right
     eye into the bottom half. A surround camera maps the width to [-pi, pi]
@@ -190,10 +192,16 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
     its stereo eyes sit on a circle of diameter `eye_distance`, offset
     perpendicular to each viewing column (ODS, camera.hpp:74-79). The
     pinhole undistorts its normalized image coordinates with the lens model
-    of `cfg`. Returns (origin [N, 3], direction [N, 3]); the JAX version's ray time is left out
-    (no motion blur, no animation in the slice)."""
+    of `cfg`. Each ray's time is t0 + u_time (t1 - t0) (u_time [N]; None:
+    every ray at t0). `u_lens` and `anims` serve depth of field and an
+    animated camera, which `check_camera` refuses. Returns (origin [N, 3],
+    direction [N, 3], time [N])."""
     check_camera(cfg)
     px, py = pixel_xy[..., 0], pixel_xy[..., 1]
+    if u_time is None:
+        time = torch.full(px.shape, float(t0), dtype=torch.float32, device=px.device)
+    else:
+        time = t0 + u_time * (t1 - t0)
     eff_height = height // 2 if cfg.stereo else height
     if cfg.stereo:
         top = py < eff_height
@@ -220,4 +228,4 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
     tf = cam.transformation
     d_world = quat_rotate(tf.rotation, normalize(d_cam))
     o_world = quat_rotate(tf.rotation, o_cam * tf.scale) + tf.translation
-    return o_world, d_world
+    return o_world, d_world, time

@@ -9,7 +9,11 @@ pick of a cell of the R x R equal-area grid, then a uniform point in it)
 and `env_pdf` (the pdf table at a direction's cell). Sampling and pdf do not
 depend on the map's parameterization. Each wrapper launches the kernel on
 CUDA tensors and runs its plain PyTorch version (`*_plain`, the JAX formulas
-op for op) on CPU tensors.
+op for op) on CPU tensors. Where the direction, the image or the constant
+radiance requires grad, `env_radiance` runs on the tape through
+`backward.EnvRadiance` (its backward is K8T); the sample and the pdf carry
+no gradient (the JAX package's importance tables are not re-derived
+inside a loss either).
 
 The JAX package reads the four bilinear taps from a 16-channel "patch image"
 so that one TPU gather serves them; the kernel and the plain versions read
@@ -200,7 +204,23 @@ def _check(name, env: EnvMapArrays, x, cols):
 
 
 def env_radiance(env: EnvMapArrays, d):
-    """Radiance [N, 4] from world directions d [N, 3] (K8)."""
+    """Radiance [N, 4] from world directions d [N, 3] (K8). Where d, the image
+    or the constant radiance requires grad (and grad mode is on), the lookup
+    is on the tape: its backward is K8T (render/backward.py `EnvRadiance`)."""
+    if torch.is_grad_enabled() and (env.rotation.requires_grad or any(
+            x.requires_grad for x in (d, env.image, env.const_radiance))):
+        if env.rotation.requires_grad:
+            raise NotImplementedError("env_radiance: the gradient of an environment map's "
+                                      "rotation (ROADMAP A.9) is not ported yet")
+        from .backward import EnvRadiance
+
+        return EnvRadiance.apply(env, d, env.image, env.const_radiance)
+    return env_radiance_raw(env, d)
+
+
+def env_radiance_raw(env: EnvMapArrays, d):
+    """K8 radiance without a tape: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     _check("env_radiance", env, d, 3)
     if d.device.type == "cpu":
         return env_radiance_plain(env, d)

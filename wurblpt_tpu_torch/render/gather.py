@@ -10,6 +10,8 @@ per-light MIS rows (:func:`wurblpt_tpu_torch.render.lights.lights_pdf_at_hit`).
 tensors and runs `row_gather_plain` on CPU tensors. Both copy 4-byte words:
 a float32 table may hold int32 bit patterns in some columns, and they come
 through unchanged. Indices are clamped to the table, as XLA's gather clamps.
+Where the table requires grad, the gather runs on the tape through
+`backward.RowGather`, whose backward is P0T (`backward.row_scatter`).
 """
 
 from __future__ import annotations
@@ -28,7 +30,18 @@ def row_gather_plain(table, idx):
 
 
 def row_gather(table, idx):
-    """Rows `idx` (int32 [N]) of `table` ([R, C] float32 or int32) -> [N, C] (P0)."""
+    """Rows `idx` (int32 [N]) of `table` ([R, C] float32 or int32) -> [N, C] (P0).
+
+    Where the table requires grad (and grad mode is on), the gather is on
+    the tape: its backward is P0T (render/backward.py `RowGather`)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        from .backward import RowGather
+
+        return RowGather.apply(table, idx)
+    return row_gather_raw(table, idx)
+
+
+def _check(table, idx):
     if table.dtype not in _WORD_TYPES or table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"row_gather: need a contiguous 2-D float32 or int32 table, got "
                          f"{table.dtype} {tuple(table.shape)}")
@@ -39,6 +52,11 @@ def row_gather(table, idx):
         raise ValueError(f"row_gather: table on {table.device}, indices on {idx.device}")
     if table.shape[0] == 0:
         raise ValueError("row_gather: empty table")
+
+
+def row_gather_raw(table, idx):
+    """P0 without a tape: the kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check(table, idx)
     if idx.device.type == "cpu":
         return row_gather_plain(table, idx)
     if idx.device.type != "cuda":

@@ -1,5 +1,7 @@
-"""Wavefront path integrator (port of ``wurblpt_tpu/render/integrator.py``:
-the persistent-lane `render_frame_wavefront` and its bounce step).
+"""Path integrators (port of ``wurblpt_tpu/render/integrator.py``): the
+persistent-lane `render_frame_wavefront` and its bounce step, and the pass
+renderer (`render_frame`, `render_frame_progressive`, `accumulate_passes`,
+`trace_paths`), which is also the differentiable one.
 
 Per bounce, as the reference's tracePath (wurblpt.hpp:108-275):
   1. closest hit (K1 or the sweep KS1 brute force, or K5 on a BVH);
@@ -62,6 +64,17 @@ packed material rows, the per-light rows and K4's step tables) are built
 once per scene by `prepare_scene`; a frame rendered with them launches
 only its lane state and its steps.
 
+The pass renderer traces a pass's samples of every pixel to completion on
+the generic bounce: the same paths as the wavefront (the RNG is keyed on
+pixel and sample, not lane). With `RenderParams.differentiable` its loop
+runs `max_path_components` bounces, each under `torch.utils.checkpoint`,
+and the image is on the autograd tape with the JAX package's attached
+estimator (pdfs and MIS weights on the tape; the light pick, the lobe pick
+and the roulette detached): the casts give no derivative, K3's backward
+(K3T) differentiates the winner's hit equation, and P0's and K8's backwards
+(P0T, K8T) carry the material rows' and the sky's cotangents
+(:mod:`.backward`).
+
 Randomness is counter-based on (pixel, sample, bounce, salt), so the port
 draws the JAX package's random numbers. The JAX `while_loop` condition
 becomes a Python loop with one host sync per step: on K4 the regeneration
@@ -78,11 +91,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.rng import Salt, uniform4
+from ..core.rng import Salt, uniform1, uniform2, uniform4
 from ..scene.animation import anim_frames
-from ..scene.ir import SceneArrays
+from ..scene.ir import MaterialType, SceneArrays
 from .bsdf import ScatterKind, SceneStatic, bsdf_sample, gather_material_rows, pack_material_table
-from .camera import CameraConfig, CameraParams, check_camera
+from .camera import CameraConfig, CameraParams, _recip, camera_rays, check_camera
 from .intersect import (
     HitTables,
     assemble_hit,
@@ -121,13 +134,20 @@ from .wavefront import (
 
 @dataclass(frozen=True)
 class RenderParams:
-    """Reference `Parameters` (wurblpt.hpp:79-96), the fields the slice reads."""
+    """Reference `Parameters` (wurblpt.hpp:79-96), the fields the slice reads.
+
+    `differentiable` (integrator.py:69-92): the pass renderer's bounce loop
+    runs exactly `max_path_components` trips, each under
+    `torch.utils.checkpoint` (recomputed in the backward pass, so the tape
+    holds one bounce at a time), instead of stopping once every path has
+    died; inference keeps the early exit."""
 
     max_path_components: int = 32
     rr_threshold: float = 1.0
     rr_start: int = 5
     min_hit_distance: float = 1e-4
     randomize_ray_over_pixel: bool = True
+    differentiable: bool = False
     # The NEE shadow ray is shortened to ldist * (1 - shadow_identity_eps) so
     # the sampled light never counts as its own blocker (the reference
     # compares blocker identity instead, wurblpt.hpp:203-217).
@@ -145,9 +165,16 @@ class SceneTables(NamedTuple):
     step: Optional[StepTables]         # K4's tables (None: a scene outside K4's classes)
 
 
-def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
+@torch.no_grad()
+def prepare_scene(scene: SceneArrays, static: SceneStatic, step: bool = True) -> SceneTables:
     """The tables every frame of `scene` reads: build them once and pass them
-    to each `render_frame_wavefront` of the scene."""
+    to each `render_frame_wavefront` or `render_frame` of the scene; `step`:
+    K4's step tables too (the pass renderer reads none).
+
+    They carry no gradient: the casts' tables (the BVH, the K1 form's, the
+    sweeps'), the per-light pick rows and K4's tables stay fixed, and a
+    differentiable render rebuilds the packed material rows and the hit
+    tables from the scene's tensors on every call (`live_tables`)."""
     mat = pack_material_table(scene.materials)
     per_light = static.n_lights > 0 and static.per_light_mis
     pick_area = pick_area_table(scene) if per_light else None
@@ -159,8 +186,16 @@ def prepare_scene(scene: SceneArrays, static: SceneStatic) -> SceneTables:
         accel=accel,
         hit=build_hit_tables(scene), mat=mat, pick_area=pick_area,
         step=(build_step_tables(scene, static, mat, pick_area)
-              if (diffuse_scene(scene, static) or env_scene(scene, static)
-                  or lit_scene(scene, static)) else None))
+              if step and (diffuse_scene(scene, static) or env_scene(scene, static)
+                           or lit_scene(scene, static)) else None))
+
+
+def live_tables(scene: SceneArrays, tables: SceneTables) -> SceneTables:
+    """`tables` with the packed material rows and the hit tables rebuilt from
+    the scene's tensors, so that a loss's gradient reaches the materials
+    and the primitives through them (P0's and K3's backward kernels)."""
+    return tables._replace(mat=pack_material_table(scene.materials),
+                           hit=build_hit_tables(scene))
 
 
 class FrameAnim(NamedTuple):
@@ -178,7 +213,20 @@ def frame_anim(scene: SceneArrays, static: SceneStatic, t0: float) -> Optional[F
     if not static.has_anim:
         return None
     frames = anim_frames(scene.anims, t0)
-    return FrameAnim(frames, light_frames(scene, frames) if static.lights_animated else None)
+    return FrameAnim(frames, light_frames(scene, frames, static.sphere_lights)
+                     if static.lights_animated else None)
+
+
+_MOTION_BLUR = ("motion blur: an animated scene over a shutter interval t0 != t1 takes the pass "
+                "renderer (ROADMAP A.3) once KS1, K5 and K3a read each ray's own instant "
+                "(ROADMAP A.8), not ported yet")
+
+
+def _check_device(device, **tensors):
+    """Raise unless each named tensor lives on the render's device."""
+    for name, x in tensors.items():
+        if x.device.type != device.type:
+            raise ValueError(f"{name} is on {x.device}, render device is {device}")
 
 
 def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables, sensor,
@@ -209,10 +257,11 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
             acc = env_miss(sensor, acc, st, env, prim, env_is)
 
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
+        t = hr.t   # the winner's distance, on the tape where o, d or the geometry are
         mrow = gather_material_rows(mat_packed, hr.mat)
         geom_len, opt_len = path_lengths(st, hit, t)
         acc = emit(sensor, acc, st, hr, mrow, t, prim, hit, geom_len, opt_len,
-                   static.n_lights, pick_area)
+                   static.n_lights, pick_area, scene if static.sphere_lights else None)
 
         u4 = uniform4(pixel_id, sample_id, k, Salt.BSDF)
         u_aux = uniform4(pixel_id, sample_id, k, Salt.BSDF_AUX)
@@ -372,20 +421,20 @@ def render_frame_wavefront(
 
     `scene` and `cam` must live on `device`; `tables` are the scene's own
     (`prepare_scene`), built here when not given. An animated scene is
-    rendered at the one instant t0 = t1 (the shutter interval [t0, t1]: the
-    JAX package hands t0 != t1 to its pass renderer, which the port has not
-    yet). Returns the image [H, W, n_acc] (row 0 at the top); with
+    rendered at the one instant t0 = t1 (the JAX package hands t0 != t1 to
+    its pass renderer, whose port, `render_frame`, refuses it for animated
+    scenes too: ROADMAP A.8). Returns the image [H, W, n_acc] (row 0 at the top); with
     `return_stats` also the [2] int64 cast counters (closest-hit casts, all
     casts incl. NEE shadow rays)."""
     device = torch.device(device)
+    if params.differentiable:
+        raise ValueError("render_frame_wavefront renders for inference only; a differentiable "
+                         "render takes render_frame (the JAX package's integrator.py:789-790)")
     static.check_slice()
     check_camera(cam_cfg)
     if static.has_anim and t0 != t1:
-        raise NotImplementedError("motion blur: an animated scene over a shutter interval "
-                                  "t0 != t1 takes the pass renderer (ROADMAP A.3), not ported yet")
-    for name, x in (("scene", scene.tris.p0), ("camera", cam.focal_px)):
-        if x.device.type != device.type:
-            raise ValueError(f"{name} is on {x.device}, render device is {device}")
+        raise NotImplementedError(_MOTION_BLUR)
+    _check_device(device, scene=scene.tris.p0, camera=cam.focal_px)
 
     spp = samples_sqrt * samples_sqrt
     n_pix = width * height
@@ -415,3 +464,198 @@ def render_frame_wavefront(
     if return_stats:
         return img, stats
     return img
+
+
+# ---------------------------------------------------------------------------
+# The pass renderer (integrator.py:253-336, :1023-1207): a batch of camera
+# rays traced to completion per pass, reverse-differentiable
+# ---------------------------------------------------------------------------
+
+def _check_differentiable(scene: SceneArrays, static: SceneStatic):
+    """Raise NotImplementedError for what a differentiable render cannot
+    take yet, naming the ROADMAP item that ports it."""
+    off = {
+        "RGL materials (their backward kernel, K7T: ROADMAP A.9)":
+            MaterialType.RGL in static.mat_types,
+        "animated scenes (K3a's backward kernel and per-ray time: ROADMAP A.8)":
+            static.has_anim,
+        "an environment map rotation that requires grad (ROADMAP A.9)":
+            scene.envmap is not None and scene.envmap.rotation.requires_grad,
+    }
+    bad = [k for k, v in off.items() if v]
+    if bad:
+        raise NotImplementedError(f"differentiable render: {bad}")
+
+
+def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pixel_id, sample_id,
+                params: RenderParams = RenderParams(), return_stats: bool = False, *,
+                device="cuda", tables: Optional[SceneTables] = None):
+    """Trace one batch of camera rays (o, d [N, 3] on `device`, every lane
+    active at bounce 0) to completion; pixel_id and sample_id [N] key the
+    random numbers. Returns acc [N, sensor.n_acc] and, with `return_stats`,
+    the [2] int64 cast counters (closest-hit casts, all casts incl. NEE
+    shadow rays).
+
+    Inference stops once no lane is active (one host sync a bounce);
+    `params.differentiable` runs exactly `max_path_components` bounces, each
+    under `torch.utils.checkpoint` (its tape recomputed in the backward
+    pass), as the JAX package's fori_loop with jax.checkpoint
+    (integrator.py:322-331). The scene's fixed tables are built here unless
+    `tables` (`prepare_scene`) are given; a differentiable trace rebuilds
+    the material rows and the hit tables from the scene (`live_tables`).
+    `time` [N] is each ray's instant: an animated scene is traced at one
+    instant, that of the first ray."""
+    device = torch.device(device)
+    _check_device(device, scene=scene.tris.p0, rays=o)
+    static.check_slice()
+    if params.differentiable:
+        _check_differentiable(scene, static)
+    n = o.shape[0]
+    if tables is None:
+        tables = prepare_scene(scene, static, step=False)
+    if params.differentiable:
+        tables = live_tables(scene, tables)
+    anim = frame_anim(scene, static, float(time[0])) if static.has_anim and n else None
+    bounce_fn = _make_bounce_fn(scene, static, tables, sensor, params, n, anim)
+    f32 = dict(dtype=torch.float32, device=device)
+    st = LoopState(
+        bounce=torch.zeros((n,), dtype=torch.int64, device=device),
+        o=o, d=d,
+        ior=torch.ones((n, 4), **f32),
+        throughput=torch.ones((n, 4), **f32),
+        active=torch.ones((n,), dtype=torch.bool, device=device),
+        acc=torch.zeros((n, sensor.n_acc), **f32),
+        geom_len=torch.zeros((n,), **f32),
+        opt_len=torch.zeros((n, 4), **f32),
+        prev_pdf=torch.zeros((n,), **f32),
+        prev_random=torch.zeros((n,), dtype=torch.bool, device=device),
+        prev_light_pdf=torch.zeros((n,), **f32),
+        stats=torch.zeros((2,), dtype=torch.int64, device=device),
+    )
+    for _ in range(params.max_path_components):
+        if params.differentiable:
+            st = torch.utils.checkpoint.checkpoint(bounce_fn, st, pixel_id, sample_id,
+                                                   use_reentrant=False)
+        elif bool(st.active.any()):
+            st = bounce_fn(st, pixel_id, sample_id)
+        else:
+            break
+    if return_stats:
+        return st.acc, st.stats
+    return st.acc
+
+
+def accumulate_passes(scene: SceneArrays, static: SceneStatic, cam: CameraParams,
+                      cam_cfg: CameraConfig, sensor, width: int, height: int, samples_sqrt: int,
+                      t0: float, t1: float, params: RenderParams, samples_per_pass: int, img_acc,
+                      pass_start: int, n_pass: int, sample_offset=0, return_stats: bool = False,
+                      *, device="cuda", tables: Optional[SceneTables] = None):
+    """Add `n_pass` sample passes, from pass index `pass_start`, to the raw
+    sensor accumulator `img_acc` [n_pix, n_acc] (integrator.py:1118-1207).
+    A pass traces `samples_per_pass` samples of every pixel as one batch;
+    sample s of a pixel is jittered within stratum (s mod ssqrt, s div
+    ssqrt) by Salt.PIXEL_JITTER and draws its ray time and lens sample by
+    Salt.TIME and Salt.LENS. `sample_offset` (an int or an int tensor)
+    shifts every sample id: the differentiable way to draw another sample
+    window per optimisation step. The random numbers are counter-based on
+    (pixel, sample), so any split of a frame's passes into calls gives the
+    same paths. With `return_stats` also the summed [2] cast counters."""
+    device = torch.device(device)
+    check_camera(cam_cfg)
+    if static.has_anim and t0 != t1:
+        raise NotImplementedError(_MOTION_BLUR)
+    _check_device(device, scene=scene.tris.p0, camera=cam.focal_px)
+    if tables is None:
+        tables = prepare_scene(scene, static, step=False)
+    n_pix = width * height
+    pid = torch.arange(n_pix, dtype=torch.int64, device=device).repeat(samples_per_pass)
+    px = (pid % width).to(torch.float32)
+    py = (pid // width).to(torch.float32)
+    s_local = torch.arange(samples_per_pass, dtype=torch.int64,
+                           device=device).repeat_interleave(n_pix)
+    inv = _recip(samples_sqrt)
+    stats = torch.zeros((2,), dtype=torch.int64, device=device)
+    for p in range(pass_start, pass_start + n_pass):
+        s = p * samples_per_pass + s_local + sample_offset
+        if params.randomize_ray_over_pixel:
+            uj = uniform2(pid, s, 0, Salt.PIXEL_JITTER)
+            jx = ((s % samples_sqrt).to(torch.float32) + uj[:, 0]) * inv
+            jy = ((s // samples_sqrt).to(torch.float32) + uj[:, 1]) * inv
+        else:
+            jx = jy = torch.full(px.shape, 0.5, dtype=torch.float32, device=device)
+        o, d, time = camera_rays(cam, cam_cfg, torch.stack([px + jx, py + jy], -1), width,
+                                 height, t0, t1, uniform1(pid, s, 0, Salt.TIME),
+                                 uniform2(pid, s, 0, Salt.LENS), anims=scene.anims)
+        acc, st = trace_paths(scene, static, sensor, o, d, time, pid, s, params, True,
+                              device=device, tables=tables)
+        img_acc = img_acc + acc.reshape(samples_per_pass, n_pix, sensor.n_acc).sum(0)
+        stats = stats + st
+    if return_stats:
+        return img_acc, stats
+    return img_acc
+
+
+def render_frame(scene: SceneArrays, static: SceneStatic, cam: CameraParams,
+                 cam_cfg: CameraConfig, sensor, width: int, height: int, samples_sqrt: int,
+                 t0: float = 0.0, t1: float = 0.0, params: RenderParams = RenderParams(),
+                 samples_per_pass: int = 1, return_stats: bool = False, *, device="cuda",
+                 tables: Optional[SceneTables] = None):
+    """Render a frame with the pass renderer (the mcpt() equivalent,
+    wurblpt.hpp:279-449; integrator.py:1080-1115): samples_sqrt^2
+    stratified samples per pixel in passes of `samples_per_pass`, the
+    sensor's finish at the end. Returns the image [height, width, n_acc]
+    (row 0 at the top), with `return_stats` also the [2] cast counters.
+    With `params.differentiable` the image is on the tape: a loss of it
+    back-propagates to the scene's material table, its triangles' and
+    spheres' geometry and attributes, the sky's image (or constant
+    radiance) and the camera (P0's, K3's and K8's backward kernels on the
+    card). `scene` and `cam` must live on `device`. A static scene takes a
+    shutter interval t0 != t1 (each ray its own time); an animated one is
+    rendered at t0 = t1 only."""
+    spp = samples_sqrt * samples_sqrt
+    if spp % samples_per_pass:
+        raise ValueError(f"samples_per_pass {samples_per_pass} must divide spp {spp}")
+    n_pass = spp // samples_per_pass
+    _check_device(torch.device(device), scene=scene.tris.p0, camera=cam.focal_px)
+    img, stats = accumulate_passes(
+        scene, static, cam, cam_cfg, sensor, width, height, samples_sqrt, t0, t1, params,
+        samples_per_pass, torch.zeros((width * height, sensor.n_acc), dtype=torch.float32,
+                                      device=torch.device(device)),
+        0, n_pass, return_stats=True, device=device, tables=tables)
+    img = sensor.finish(img, 1.0 / spp).reshape(height, width, sensor.n_acc)
+    if return_stats:
+        return img, stats
+    return img
+
+
+def render_frame_progressive(scene: SceneArrays, static: SceneStatic, cam: CameraParams,
+                             cam_cfg: CameraConfig, sensor, width: int, height: int,
+                             samples_sqrt: int, t0: float = 0.0, t1: float = 0.0,
+                             params: RenderParams = RenderParams(), samples_per_pass: int = 1,
+                             passes_per_chunk: int = 1, progress_cb=None, *, device="cuda",
+                             tables: Optional[SceneTables] = None):
+    """`render_frame` in chunks of `passes_per_chunk` passes, calling
+    ``progress_cb(passes_done, n_pass, preview)`` after each chunk with the
+    accumulator finished at the samples done so far (integrator.py:1023-1073).
+    Equal to `render_frame` bit for bit for any chunking: the random numbers
+    are counter-based on (pixel, sample)."""
+    spp = samples_sqrt * samples_sqrt
+    if spp % samples_per_pass:
+        raise ValueError(f"samples_per_pass {samples_per_pass} must divide spp {spp}")
+    n_pass = spp // samples_per_pass
+    _check_device(torch.device(device), scene=scene.tris.p0, camera=cam.focal_px)
+    if tables is None:
+        tables = prepare_scene(scene, static, step=False)
+    img_acc = torch.zeros((width * height, sensor.n_acc), dtype=torch.float32,
+                          device=torch.device(device))
+    done = 0
+    while done < n_pass:
+        chunk = min(passes_per_chunk, n_pass - done)
+        img_acc = accumulate_passes(scene, static, cam, cam_cfg, sensor, width, height,
+                                    samples_sqrt, t0, t1, params, samples_per_pass, img_acc,
+                                    done, chunk, device=device, tables=tables)
+        done += chunk
+        if progress_cb is not None:
+            preview = sensor.finish(img_acc, 1.0 / (done * samples_per_pass))
+            progress_cb(done, n_pass, preview.reshape(height, width, sensor.n_acc))
+    return sensor.finish(img_acc, 1.0 / spp).reshape(height, width, sensor.n_acc)

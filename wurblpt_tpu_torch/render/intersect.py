@@ -14,7 +14,10 @@ animated branch K3a): a hand-written CUDA kernel on CUDA tensors, its plain
 PyTorch version `assemble_hit_plain` on CPU tensors. Both read the
 winner's row of the packed tables of `HitTables`; K3a builds the hit in the
 winner's object space and pushes its frame back to world.
-`assemble_hit_k4` is its K4 form, which a K4 step calls: the fields of one
+Where the ray or the hit tables require grad, `assemble_hit` runs on the
+tape through `backward.AssembleHit` (its backward is K3T, which also
+differentiates the winner's intersection). `assemble_hit_k4` is its K4
+form, which a K4 step calls: the fields of one
 shade class's set (`K4_FIELDS`) on hit lanes only, into buffers the step
 allocates once (`hit_buffers`); a miss lane's record and the fields outside
 the set are left as they were, and no K4 reader looks at them.
@@ -23,7 +26,7 @@ the set are left as they were, and no K4 reader looks at them.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -66,6 +69,7 @@ class HitTables(NamedTuple):
     tri_anim: torch.Tensor  # [T] int32 animation id (K3a)
     sph_anim: torch.Tensor  # [S] int32
     n_anims: int
+    tri_g: Optional[torch.Tensor] = None  # [T, 9] f32: p0 e1 e2, the winners' geometry (K3T)
 
 
 def build_hit_tables(scene) -> HitTables:
@@ -77,7 +81,8 @@ def build_hit_tables(scene) -> HitTables:
     return HitTables(tri_f.contiguous(), tri_i.contiguous(), sph_f.contiguous(),
                      S.mat.to(torch.int32).contiguous(), scene.n_tris, scene.n_spheres,
                      anim_ids(T).to(torch.int32).contiguous(),
-                     anim_ids(S).to(torch.int32).contiguous(), scene.n_anims)
+                     anim_ids(S).to(torch.int32).contiguous(), scene.n_anims,
+                     torch.cat([T.p0, T.e1, T.e2], -1).contiguous())
 
 
 # The hit record's fields that each K4 shade reads (csrc/wavefront.cu
@@ -343,10 +348,36 @@ def _table_args(ht: HitTables, o, d, t, prim, u, v, n):
             ht.sph_f.data_ptr(), ht.sph_mat.data_ptr(), ht.n_spheres)
 
 
+def _needs_grad(ht: HitTables, o, d) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (o, d, ht.tri_f, ht.sph_f, ht.tri_g))
+
+
 def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
     """HitRecord of the winners of a closest-hit cast (K3; K3a with the
     animations' `frames`, scene/animation.anim_frames): every field of every
-    lane (the full form)."""
+    lane (the full form). Where the ray or the hit tables require grad (and
+    grad mode is on), the record and its t are on the tape, differentiated
+    through the winner's intersection too: the backward is K3T
+    (render/backward.py `AssembleHit`; static scenes only)."""
+    if _needs_grad(ht, o, d):
+        if frames is not None:
+            raise NotImplementedError("assemble_hit: the gradient of K3a, the animated "
+                                      "assembly (ROADMAP A.8), is not ported yet")
+        if ht.tri_g is None:
+            raise ValueError("assemble_hit: a differentiable assembly needs HitTables.tri_g")
+        from .backward import AssembleHit
+
+        t_, pos, nrm, gn, tan, uv, mat, backside = AssembleHit.apply(
+            ht, o, d, t, prim, u, v, ht.tri_g, ht.tri_f, ht.sph_f)
+        return HitRecord(t=t_, hit=prim >= 0, prim=prim, position=pos, normal=nrm,
+                         geom_normal=gn, tangent=tan, uv=uv, backside=backside, mat=mat)
+    return assemble_hit_raw(ht, o, d, t, prim, u, v, frames)
+
+
+def assemble_hit_raw(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
+    """K3 (K3a with `frames`) without a tape: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
     n = _check_hit_inputs("assemble_hit", ht, o, d, t, prim, u, v, frames)
     if o.device.type == "cpu":
         return assemble_hit_plain(ht, o, d, t, prim, u, v, frames)

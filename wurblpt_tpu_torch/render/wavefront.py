@@ -246,20 +246,40 @@ def lit_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) ->
 # Pieces of the torch-op bounce, shared by the generic bounce and the plain versions
 # ---------------------------------------------------------------------------
 
-def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None):
-    """Emitted radiance of triangle light `prim` toward unit direction `toward`
-    (from the light to the receiver); one-sided unless the material is
-    two-sided, and a spot or ToF light only inside its cone, |cos| >= p0.x
-    (the JAX package's integrator.py:241-250). `frame` (m [N, 3, 3], t) is
-    the light's forward map at the frame's instant, for an animated light."""
-    T = scene.tris
+def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None, point=None):
+    """Emitted radiance of light `prim` toward unit direction `toward` (from
+    the light to the receiver); one-sided unless the material is two-sided,
+    and a spot or ToF light only inside its cone, |cos| >= p0.x (the JAX
+    package's integrator.py:190-250). `frame` (m [N, 3, 3], t) is the
+    light's forward map at the frame's instant, for an animated light. A
+    sphere light's normal is taken at `point` [N, 3], the sampled point on
+    it (needed where the scene has spheres)."""
+    n_tri = scene.n_tris
     pl = prim.long()
-    e1, e2 = T.e1[pl], T.e2[pl]
-    if frame is not None:
-        e1, e2 = matvec(frame[0], e1), matvec(frame[0], e2)
-    fn = cross(e1, e2)
-    n = fn / torch.clamp_min(torch.sqrt(dot(fn, fn, keepdim=True)), 1e-20)
-    lrow = gather_material_rows(mat_packed, T.mat[pl])
+    if n_tri > 0:
+        T = scene.tris
+        ti = torch.clamp(pl, 0, n_tri - 1) if scene.n_spheres > 0 else pl
+        e1, e2 = T.e1[ti], T.e2[ti]
+        if frame is not None:
+            e1, e2 = matvec(frame[0], e1), matvec(frame[0], e2)
+        fn = cross(e1, e2)
+        n = fn / torch.clamp_min(torch.sqrt(dot(fn, fn, keepdim=True)), 1e-20)
+        mat = T.mat[ti]
+    if scene.n_spheres > 0:
+        S = scene.spheres
+        si = torch.clamp(pl - n_tri, 0, scene.n_spheres - 1)
+        center, radius = S.center[si], S.radius[si]
+        if frame is not None:
+            center = matvec(frame[0], center) + frame[1]
+            radius = radius * torch.linalg.norm(frame[0], dim=-2).mean(-1)
+        n_s = (point - center) / torch.clamp_min(radius, 1e-20)[:, None]
+        if n_tri > 0:
+            is_tri = pl < n_tri
+            n = torch.where(is_tri[:, None], n, n_s)
+            mat = torch.where(is_tri, mat, S.mat[si])
+        else:
+            n, mat = n_s, S.mat[si]
+    lrow = gather_material_rows(mat_packed, mat)
     cos_v = dot(n, toward)
     two_sided = (lrow.flags & MaterialFlags.TWO_SIDED) > 0
     front = (cos_v > 0.0) | two_sided
@@ -276,15 +296,16 @@ def path_lengths(st: LoopState, hit, t):
 
 
 def emit(sensor, acc, st: LoopState, hr: HitRecord, mrow, t, prim, hit, geom_len, opt_len,
-         n_lights: int, pick_area):
+         n_lights: int, pick_area, sphere_scene: Optional[SceneArrays] = None):
     """Deposit the radiance emitted at the hit with its MIS weight: against the
     light-mixture pdf of this ray, which the previous bounce evaluated
     (st.prev_light_pdf), or with per-light MIS (`pick_area` given) against
-    the pdf of the light actually hit (wurblpt.hpp:160-163, 181-185)."""
+    the pdf of the light actually hit (wurblpt.hpp:160-163, 181-185), a
+    sphere light's from `sphere_scene` (a scene with sphere lights)."""
     e = emitted(hr, -st.d, mrow)
     if pick_area is not None:
         lp_hit = lights_pdf_at_hit(pick_area, st.d, t, torch.where(hit, prim, -1),
-                                   hr.geom_normal)
+                                   hr.geom_normal, sphere_scene, st.o)
         w_emit = torch.where(st.prev_random, power_heuristic(st.prev_pdf, lp_hit), 1.0)
     elif n_lights > 0:
         w_emit = torch.where(st.prev_random,
@@ -323,7 +344,8 @@ def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, 
     f_l, pdf_b = bsdf_eval(hr, st.d, ldir, mrow, mat_types, rgl=rgl)
     t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps), params.min_hit_distance)
     Le = light_emitted_at(scene, torch.clamp_min(lprim, 0), -ldir, mat_packed,
-                          None if frames is None else pick_frame(frames, lpick))
+                          None if frames is None else pick_frame(frames, lpick),
+                          hr.position + ldir * ldist[:, None])
     w_nee = power_heuristic(pdf_light, pdf_b)
     contrib = st.throughput * f_l * Le * (w_nee / torch.clamp_min(pdf_light, 1e-12))[:, None]
     dep, ok = sensor.deposit(SensorEvent(
@@ -399,7 +421,9 @@ def advance(params, st: LoopState, hit, hr: HitRecord, sr, is_random, is_explici
                         sr.atten / torch.clamp_min(sr.pdf, 1e-12)[:, None], sr.atten)
     cont = is_random | is_explicit
     new_tp = st.throughput * ratio
-    max_r = ratio.max(-1).values
+    # The roulette's decision is discrete: detached, as the JAX package's
+    # stop_gradient (integrator.py:707).
+    max_r = ratio.detach().max(-1).values
     do_rr = (k >= params.rr_start) & (max_r < params.rr_threshold) & cont
     q = torch.clamp(1.0 - max_r, 0.0, 0.95)
     killed = do_rr & (u_rr < q)
@@ -457,7 +481,7 @@ def regen_plain(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camer
         jy = ((s_new // lanes.ssqrt).to(torch.float32) + uj[:, 1]) * inv
     else:
         jx = jy = torch.full(need.shape, 0.5, dtype=torch.float32, device=need.device)
-    o, d = camera_rays(cam, cam_cfg, torch.stack([lanes.px + jx, lanes.py + jy], -1),
+    o, d, _ = camera_rays(cam, cam_cfg, torch.stack([lanes.px + jx, lanes.py + jy], -1),
                        lanes.width, lanes.height)
     sel = need[:, None]
     active = st.active | need
@@ -551,7 +575,7 @@ def step_tables_at(tables: StepTables, light_frames) -> StepTables:
     version's bits."""
     if light_frames is None:
         return tables
-    p0, e1, e2 = light_tris(tables.scene, light_frames)
+    p0, e1, e2 = light_tris(tables.scene, light_frames, spheres=False)   # K4 has no sphere light
     return tables._replace(light_tri=torch.cat([p0, e1, e2], -1).contiguous(),
                            light_frames=light_frames)
 

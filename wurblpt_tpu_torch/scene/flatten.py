@@ -5,9 +5,9 @@ Everything is computed with numpy exactly as the JAX package's flattener does
 it, so a scene built here equals the JAX build field by field, bits included.
 Covered: indexed meshes with or without texcoords and per-vertex normals
 (missing normals are computed, and tangents wherever there are texcoords),
-static instance transforms baked into world space; analytic spheres (no hot
-spots); scenes of spheres alone; constant Lambertian, GGX, mirror, glass,
-ModPhong, RGL, diffuse-, spot- and ToF-light materials; hot-spot triangles, the
+static instance transforms baked into world space; analytic spheres, hot
+spots among them; scenes of spheres alone; constant Lambertian, GGX, mirror, glass,
+ModPhong, RGL, diffuse-, spot- and ToF-light materials; hot-spot triangles and spheres, the
 power-proportional light pick with its alias table and the per-prim pick and
 1 / area rows of per-light MIS; the port's BVH, an equirect, cube or
 constant environment map and the RGL tables; keyframe animations (the
@@ -55,6 +55,7 @@ class SphereSpec(NamedTuple):
     material: int
     transformation: Optional[Transformation] = None   # static pose, baked at flatten
     anim: int = 0                    # animation id, as MeshSpec.anim
+    hot_spot: bool = False           # sampled by NEE as a light
 
 
 class AnimationKeyframes(NamedTuple):
@@ -193,14 +194,25 @@ def build_alias_table(weights: np.ndarray):
     return prob.astype(_f32), alias.astype(_i32), w.astype(_f32)
 
 
-def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_typ, mat_emissive, mat_p0):
-    """Emitted power of each triangle hot spot: area x luminance x cone
-    fraction. A spot or ToF light emits only inside its cone, so its power
-    scales with the cone's solid-angle share 0.5 (1 - cos half angle)
-    (flatten.py _light_power_weights, light_spot.hpp:32-75)."""
+def light_power_weights(light_ids, tri_e1, tri_e2, tri_mat, mat_typ, mat_emissive, mat_p0,
+                        sph_r=None, sph_mat=None):
+    """Emitted power of each hot spot: area x luminance x cone fraction. A
+    spot or ToF light emits only inside its cone, so its power scales with
+    the cone's solid-angle share 0.5 (1 - cos half angle); a sphere's area
+    is 4 pi r^2 (flatten.py _light_power_weights, light_spot.hpp:32-75).
+    Ids from the triangle count on are spheres."""
     ids = np.asarray(light_ids, np.int64)
-    area = 0.5 * np.linalg.norm(np.cross(tri_e1[ids], tri_e2[ids]), axis=-1).astype(np.float64)
-    mat = tri_mat[ids]
+    n_tri = len(tri_mat)
+    is_tri = ids < n_tri
+    area = np.empty(ids.shape, np.float64)
+    mat = np.empty(ids.shape, np.int64)
+    ti = ids[is_tri]
+    area[is_tri] = 0.5 * np.linalg.norm(np.cross(tri_e1[ti], tri_e2[ti]), axis=-1)
+    mat[is_tri] = tri_mat[ti]
+    if np.any(~is_tri):
+        si = ids[~is_tri] - n_tri
+        area[~is_tri] = 4.0 * np.pi * np.asarray(sph_r)[si] ** 2
+        mat[~is_tri] = np.asarray(sph_mat)[si]
     lum = np.maximum(mat_emissive[mat, :3].max(axis=-1), mat_emissive[mat, 3])
     is_cone = (mat_typ[mat] == MaterialType.LIGHT_SPOT) | (mat_typ[mat] == MaterialType.LIGHT_TOF)
     cone_frac = np.where(is_cone, 0.5 * (1.0 - mat_p0[mat, 0]), 1.0)
@@ -274,31 +286,37 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
             tq = 2.0 * np.cross(q[:3], center)
             center = center + q[3] * tq + np.cross(q[:3], tq) + t
             radius *= float(np.mean(scale))
+        if sph.hot_spot:
+            light_prims.append(n + len(centers))
         centers.append(center)
         radii.append(radius)
     light_ids = np.asarray(sorted(set(light_prims)), _i32)
+    sph_mat = np.asarray([s.material for s in spheres], _i32)
+    prim_anim = np.concatenate([arr["anim"], np.asarray([s.anim for s in spheres], _i32)])
     picks = {}
     if light_ids.size:
         powers = light_power_weights(light_ids, arr["e1"], arr["e2"], arr["mat"],
                                      np.asarray(materials.typ), np.asarray(materials.emissive),
-                                     np.asarray(materials.p0))
+                                     np.asarray(materials.p0), np.asarray(radii, _f32), sph_mat)
         prob, alias, w = build_alias_table(powers)
         picks = dict(light_weights=dev(w), light_alias_prob=dev(prob), light_alias_idx=dev(alias))
         # Per prim, spheres included: pick probability and 1 / area (zero for
-        # non-lights), for per-light MIS; only for static lights, whose areas
-        # are the flattener's.
-        if not np.any(arr["anim"][light_ids] != 0):
+        # non-lights and for sphere lights, whose pdf is their cone's), for
+        # per-light MIS; only for static lights, whose areas are the
+        # flattener's.
+        if not np.any(prim_anim[light_ids] != 0):
             pick = np.zeros((n + len(radii),), _f32)
             inv_area = np.zeros((n + len(radii),), _f32)
             pick[light_ids] = w
-            area = 0.5 * np.linalg.norm(np.cross(arr["e1"][light_ids], arr["e2"][light_ids]),
+            tri_lights = light_ids[light_ids < n]
+            area = 0.5 * np.linalg.norm(np.cross(arr["e1"][tri_lights], arr["e2"][tri_lights]),
                                         axis=-1)
-            inv_area[light_ids] = 1.0 / np.maximum(area, 1e-20)
+            inv_area[tri_lights] = 1.0 / np.maximum(area, 1e-20)
             picks.update(prim_light_pick=dev(pick), prim_inv_area=dev(inv_area))
 
     tris = Triangles(**{k: dev(v) for k, v in arr.items()})
     sph = Spheres(dev(np.asarray(centers, _f32).reshape(-1, 3)), dev(np.asarray(radii, _f32)),
-                  dev(np.asarray([s.material for s in spheres], _i32)),
+                  dev(sph_mat),
                   dev(np.asarray([s.anim for s in spheres], _i32)))
     anims = flatten_animations(animations, device)
     if use_bvh is None:

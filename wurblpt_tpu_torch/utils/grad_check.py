@@ -1,0 +1,333 @@
+"""The differentiable render on the card: the backward kernels held against
+their plain versions at the shapes of a differentiable frame, and the
+gradient checks of ``chip_smoke.py``'s `grad` phase.
+
+* P0T (`row_scatter`) on the Cornell block's material rows after 2
+  bounces, K3T (`assemble_hit_bwd`) on that block's winners, K8T
+  (`env_radiance_bwd`) on the envmap frame's directions (camera lanes and
+  random ones) on the equirect and the cube map, each with random
+  cotangents made by numpy from a seed. The plain versions of K3T and K8T
+  run on the CPU on copies of the same inputs: PyTorch's CUDA ops contract
+  a * b - c into an FMA, which turns terms that cancel to 0 (a
+  Gram-Schmidt residual) into rounding noise that no -fmad=false kernel
+  reproduces. Tolerances: the scattered tables (float atomics, whose order
+  of summation varies) within 1e-4 of the sum of the magnitudes of their
+  terms (`*_plain(..., magnitudes=True)`) plus 1e-30 (a Gram-Schmidt
+  tangent near its normal divides rounding by a small length: 3e-5 seen),
+  the sky's texels within 1e-3 (the card's atan2f and acosf are not the
+  CPU's, and an ulp of the lookup's u moves a tap's weight by the map's
+  width in ulps: 1.5e-4 seen on the 128-wide equirect map); the per-lane outputs
+  (g_o, g_d, the direction's) within 1e-4 of the plain version's largest
+  magnitude, the lanes that differ also counted. Every output finite.
+* `bound_ms`' work of each (kernel_check.bound_ms): the bytes each input
+  is read and each output written once, the tables once each way, and a
+  tally of the float operations per lane stated beside each `*_work`.
+
+The frames: the Cornell bench frame through `render_frame` (the pass
+renderer, 16 samples in one pass), its gradients with respect to the
+emission's scale and the white walls' albedo, the envmap_spheres frame's
+gradient with respect to the sky's scale, the sphere-lit floor's gradient
+with respect to the camera's height, and `fit` recovering the lit quad's
+albedo, each driven through the port's public entry points.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..inverse import fit
+from ..render.backward import (
+    assemble_hit_bwd,
+    assemble_hit_bwd_plain,
+    env_radiance_bwd,
+    env_radiance_bwd_plain,
+    row_scatter,
+    row_scatter_plain,
+)
+from ..render.bsdf import SceneStatic
+from ..render.camera import CameraConfig, make_camera
+from ..render.integrator import (
+    RenderParams,
+    _make_bounce_fn,
+    live_tables,
+    prepare_scene,
+    render_frame,
+)
+from ..render.intersect import assemble_hit_raw, scene_raw_hit
+from ..render.intersect_brute import BIG
+from ..render.sensor import SensorRGB
+from ..render.wavefront import LoopState
+from . import kernel_check as kc
+from . import scenes
+
+SUM_REL = 1e-4      # scattered tables: of the sum of the terms' magnitudes
+SKY_SUM_REL = 1e-3  # the sky's texels: an ulp of atan2f / acosf moves a tap's weight by ~w ulps
+LANE_REL = 1e-4     # per-lane outputs: of the plain version's largest magnitude
+
+GRAD_SSQRT = 4      # the differentiable frames: 128 x 128, 16 spp, depth 8
+GRAD_DEPTH = 8
+FLOOR_SSQRT = 2     # the sphere-lit floor: 128 x 128, 4 spp, its difference's step
+FLOOR_EPS = 1e-2
+FIT_SSQRT = 2       # fit: 128 x 128, 4 spp, FIT_STEPS Adam steps
+FIT_STEPS = 40
+FIT_DEPTH = 2
+
+
+def _f32(rng, shape, device):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+
+
+def cornell_lanes(device, bounces: int = 2, seed: int = 20):
+    """The Cornell block's lanes (kc.camera_lanes at bench size, 131072)
+    after `bounces` bounces of the generic bounce: (hit tables, o, d, t,
+    prim, u, v, backside, material ids, material table), the tables built
+    from the scene's tensors as a differentiable render builds them, and
+    random cotangents of K3's outputs and of the material rows."""
+    scene = scenes.cornell_box_ref(device)
+    static = SceneStatic.from_scene(scene)
+    tables = live_tables(scene, prepare_scene(scene, static, step=False))
+    o, d, t_min, _ = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device)
+    n = o.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    st = LoopState(
+        bounce=torch.zeros((n,), dtype=torch.int64, device=device), o=o, d=d,
+        ior=torch.ones((n, 4), **f32), throughput=torch.ones((n, 4), **f32),
+        active=torch.ones((n,), dtype=torch.bool, device=device),
+        acc=torch.zeros((n, 3), **f32), geom_len=torch.zeros((n,), **f32),
+        opt_len=torch.zeros((n, 4), **f32), prev_pdf=torch.zeros((n,), **f32),
+        prev_random=torch.zeros((n,), dtype=torch.bool, device=device),
+        prev_light_pdf=torch.zeros((n,), **f32),
+        stats=torch.zeros((2,), dtype=torch.int64, device=device))
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    pixel, sample = lane % (kc.BENCH_WIDTH ** 2), lane // (kc.BENCH_WIDTH ** 2)
+    bounce = _make_bounce_fn(scene, static, tables, SensorRGB(),
+                             RenderParams(max_path_components=GRAD_DEPTH), n)
+    with torch.no_grad():
+        for _ in range(bounces):
+            st = bounce(st, pixel, sample)
+        o, d = st.o.contiguous(), st.d.contiguous()
+        t, prim, u, v = scene_raw_hit(tables.accel, o, d, t_min, torch.where(st.active, BIG, 0.0))
+        ht = tables.hit._replace(**{k: getattr(tables.hit, k).detach()
+                                    for k in ("tri_f", "sph_f", "tri_g")})
+        rec = assemble_hit_raw(ht, o, d, t, prim, u, v)
+    rng = np.random.default_rng(seed)
+    cot = [_f32(rng, s, device) for s in ((n,), (n, 3), (n, 3), (n, 3), (n, 3), (n, 2))]
+    return dict(ht=ht, o=o, d=d, t=t, prim=prim, u=u, v=v, backside=rec.backside,
+                mat=rec.mat.contiguous(), mat_table=tables.mat.detach(), cot=cot,
+                g_rows=_f32(rng, (n, tables.mat.shape[1]), device))
+
+
+def sky_lanes(device, cube: bool, seed: int = 21):
+    """(map, directions, cotangents): the envmap frame's camera directions
+    (kc.camera_lanes at its size, 131072) and as many random unit ones, on
+    envmap_spheres' equirect or cube sky, with random cotangents [N, 4]."""
+    env = scenes.envmap_spheres(cube=cube, device=device).envmap
+    _, d, _, _ = kc.camera_lanes(kc.ENVMAP_WIDTH, kc.ENVMAP_WIDTH, kc.ENVMAP_LANES_M, device,
+                                 camera=scenes.envmap_camera(device))
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((d.shape[0], 3))
+    r /= np.linalg.norm(r, axis=-1, keepdims=True)
+    d = torch.cat([d, torch.as_tensor(r.astype(np.float32), device=device)]).contiguous()
+    return env, d, _f32(rng, (d.shape[0], 4), device)
+
+
+def _sum_close(name, got, ref, mag, rel=SUM_REL) -> float:
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite values"
+    err = (got - ref).abs()
+    over = err > rel * mag + 1e-30
+    if bool(over.any()):
+        idx = torch.nonzero(over)[:5].tolist()
+        worst = [(i, float(got[tuple(i)]), float(ref[tuple(i)]), float(mag[tuple(i)]))
+                 for i in idx]
+        raise AssertionError(f"{name}: {int(over.sum())} entries beyond {rel} of their "
+                             f"terms' magnitudes; (entry, kernel, plain, magnitude): {worst}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _lane_close(name, got, ref) -> Dict[str, float]:
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite values"
+    err = (got - ref).abs()
+    tol = LANE_REL * float(ref.abs().max())
+    assert float(err.max()) <= tol, f"{name}: {float(err.max())} beyond {tol}"
+    return {"max_abs_err": float(err.max()), "lanes_differ": int((err > 0).any(-1).sum())}
+
+
+def check_row_scatter(g, idx, rows) -> Dict[str, float]:
+    """P0T against index_add_, within SUM_REL of each entry's |term| sum."""
+    got = row_scatter(g, idx, rows)
+    ref = row_scatter_plain(g, idx, rows)
+    return {"max_abs_err": _sum_close("row_scatter", got, ref,
+                                      row_scatter_plain(g.abs(), idx, rows))}
+
+
+def _cpu(x):
+    """x's tensors (a tensor, a NamedTuple of them or a list) on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cpu(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cpu(v) for v in x)
+    return x
+
+
+def check_assemble_hit_bwd(lanes) -> Dict[str, float]:
+    """K3T against its plain version (on the CPU) on the same lanes and cotangents."""
+    args = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")]
+    got = _cpu(assemble_hit_bwd(*args, *lanes["cot"]))
+    ref = assemble_hit_bwd_plain(*_cpu(args), *_cpu(lanes["cot"]), magnitudes=True)
+    res = {}
+    for name, a, b in zip(("g_o", "g_d"), got[:2], ref[:2]):
+        r = _lane_close(f"assemble_hit_bwd {name}", a, b)
+        res[f"{name}_lanes_differ"] = r["lanes_differ"]
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), r["max_abs_err"])
+    for name, a, b, m in zip(("g_tri_g", "g_tri_f", "g_sph_f"), got[2:], ref[2:5], ref[5:]):
+        res["max_abs_err"] = max(res["max_abs_err"],
+                                 _sum_close(f"assemble_hit_bwd {name}", a, b, m))
+    return res
+
+
+def check_env_radiance_bwd(env, d, g) -> Dict[str, float]:
+    """K8T against its plain version (on the CPU) on the same directions and cotangents."""
+    got = _cpu(env_radiance_bwd(env, d, g))
+    ref = env_radiance_bwd_plain(*_cpu([env, d, g]), magnitudes=True)
+    r = _lane_close("env_radiance_bwd g_d", got[0], ref[0])
+    err = max(r["max_abs_err"],
+              _sum_close("env_radiance_bwd g_image", got[1], ref[1], ref[3], SKY_SUM_REL),
+              _sum_close("env_radiance_bwd g_const", got[2], ref[2], ref[4]))
+    return {"max_abs_err": err, "lanes_differ": r["lanes_differ"]}
+
+
+def row_scatter_work(g, idx, rows):
+    """P0T: the cotangent rows (C words) and an index per lane read, the
+    table's cotangent written once; one add per word."""
+    n, c = g.shape
+    return n * c * 4 + n * 4 + rows * c * 4, n * c
+
+
+def assemble_hit_bwd_work(lanes):
+    """K3T: per lane o, d, t, u, v, prim, backside and the 15 cotangent
+    words read (101 B) and g_o, g_d written (24 B); the hit tables read
+    once and their cotangents written once. ~260 float operations per
+    triangle winner (the interpolated normal, tangent and uv and their
+    Gram-Schmidt or ONB backward, the normalize backward, the rows'
+    terms, Cramer's rule on the hit equation), ~120 per other lane (the
+    sphere's normal, uv and tangent backward, its root's derivative)."""
+    ht, prim = lanes["ht"], lanes["prim"]
+    n = prim.shape[0]
+    n_tri = int(((prim >= 0) & (prim < ht.n_tris)).sum())
+    tables = sum(x.numel() * x.element_size() for x in (ht.tri_g, ht.tri_f, ht.sph_f))
+    return (n * 125 + 2 * tables + ht.tri_i.numel() * 4,
+            n_tri * 260 + (n - n_tri) * 120)
+
+
+def env_radiance_bwd_work(env, d):
+    """K8T: per lane the direction and 4 cotangent words read (28 B), the
+    direction's cotangent written (12 B); the map's image read once and its
+    cotangent written once. ~100 float operations per lane (the rotation
+    and its transpose, the lookup's coordinates and their derivatives, the
+    four taps' 16 products and the two bilinear weights' dot products)."""
+    n = d.shape[0]
+    return n * 40 + 2 * env.image.numel() * 4, n * 100
+
+
+# ---------------------------------------------------------------------------
+# The differentiable frames
+# ---------------------------------------------------------------------------
+
+def _camera(camera, width, device):
+    pose, vfov = camera
+    return make_camera(pose, vfov, width, width, device=device)
+
+
+def cornell_loss(device, depth: int = GRAD_DEPTH):
+    """loss(emission scale, white albedo offset) = mean of the Cornell bench
+    frame rendered differentiably (128 x 128, 16 spp in one pass, `depth`)."""
+    scene = scenes.cornell_box_ref(device)
+    static = SceneStatic.from_scene(scene)
+    cam = _camera(scenes.cornell_ref_camera(device), kc.BENCH_WIDTH, device)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=depth, differentiable=True)
+    sel = torch.zeros_like(scene.materials.albedo)
+    sel[0, :3] = 1.0   # material 0 is the white walls
+
+    def loss(s, a):
+        m = scene.materials
+        sc = scene._replace(materials=m._replace(emissive=m.emissive * s, albedo=m.albedo + sel * a))
+        return render_frame(sc, static, cam, CameraConfig(), SensorRGB(), kc.BENCH_WIDTH,
+                            kc.BENCH_WIDTH, GRAD_SSQRT, params=params,
+                            samples_per_pass=GRAD_SSQRT ** 2, device=device,
+                            tables=tables).mean()
+
+    return loss
+
+
+def sky_loss(device):
+    """loss(sky scale) = mean of the envmap_spheres frame (equirect sky,
+    128 x 128, 16 spp in one pass, depth 8)."""
+    scene = scenes.envmap_spheres(cube=False, device=device)
+    static = SceneStatic.from_scene(scene)
+    cam = _camera(scenes.envmap_camera(device), kc.ENVMAP_WIDTH, device)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=GRAD_DEPTH, differentiable=True)
+
+    def loss(s):
+        sc = scene._replace(envmap=scene.envmap._replace(image=scene.envmap.image * s))
+        return render_frame(sc, static, cam, CameraConfig(), SensorRGB(), kc.ENVMAP_WIDTH,
+                            kc.ENVMAP_WIDTH, GRAD_SSQRT, params=params,
+                            samples_per_pass=GRAD_SSQRT ** 2, device=device,
+                            tables=tables).mean()
+
+    return loss
+
+
+def floor_loss(device, width: int = 128):
+    """loss(camera height offset) = mean of the sphere-lit floor frame
+    (width^2, 4 spp in one pass, depth 4). Its central difference at width
+    128 takes eps 1e-2 (FLOOR_EPS): the NEE shadow rays that graze the
+    sphere light's silhouette flip their visibility as the camera moves (a
+    boundary term, which the attached estimator leaves out), and at eps
+    1e-3 six such flips of one sample's whole contribution dominate the
+    difference (+0.0027 against the gradient's -0.0095 on the CPU); at 1e-2
+    they average to -0.0101. The JAX test's own size (12^2, eps 1e-3) sees
+    none."""
+    scene = scenes.sphere_lit_floor(device)
+    static = SceneStatic.from_scene(scene)
+    cam = _camera(scenes.sphere_lit_floor_camera(device), width, device)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=4, differentiable=True)
+    up = torch.tensor([0.0, 1.0, 0.0], device=device)
+
+    def loss(dy):
+        t = cam.transformation
+        c2 = cam._replace(transformation=t._replace(translation=t.translation + up * dy))
+        return render_frame(scene, static, c2, CameraConfig(), SensorRGB(), width, width,
+                            FLOOR_SSQRT, params=params, samples_per_pass=FLOOR_SSQRT ** 2,
+                            device=device, tables=tables).mean()
+
+    return loss
+
+
+def fit_albedo(device, width: int = 128, steps: int = FIT_STEPS):
+    """`fit` of the lit quad's albedo from (0.4, 0.4, 0.4) to the target
+    rendered with (0.7, 0.2, 0.5) (tests/test_inverse.py:29-53 at width^2,
+    4 spp, depth 2, Adam at 5e-2): the FitResult."""
+    cam = _camera(scenes.lit_quad_camera(device), width, device)
+    params = RenderParams(max_path_components=FIT_DEPTH)
+    target_scene = scenes.lit_quad((0.7, 0.2, 0.5), device=device)
+    target = render_frame(target_scene, SceneStatic.from_scene(target_scene), cam, CameraConfig(),
+                          SensorRGB(), width, width, FIT_SSQRT, params=params, device=device)
+
+    def apply_params(scene, p):
+        m = scene.materials
+        row = torch.cat([p["albedo"], m.albedo[0, 3:]])[None]
+        return scene._replace(materials=m._replace(albedo=torch.cat([row, m.albedo[1:]], 0)))
+
+    return fit(scenes.lit_quad((0.4, 0.4, 0.4), device=device),
+               {"albedo": torch.full((3,), 0.4, device=device)}, apply_params, target,
+               cam=cam, width=width, height=width, samples_sqrt=FIT_SSQRT,
+               render_params=params,
+               optimizer=lambda ps: torch.optim.Adam(ps, lr=5e-2), steps=steps, device=device)

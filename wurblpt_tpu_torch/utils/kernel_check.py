@@ -413,7 +413,7 @@ def pixel_centre_distance(scene, camera, width: int, height: int, device):
     ys, xs = torch.meshgrid(torch.arange(height, device=device),
                             torch.arange(width, device=device), indexing="ij")
     pxy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32) + 0.5
-    o, d = camera_rays(cam, CameraConfig(), pxy, width, height)
+    o, d, _ = camera_rays(cam, CameraConfig(), pxy, width, height)
     n = o.shape[0]
     t, _, _, _ = scene_raw_hit(build_brute_scene(scene), o.contiguous(), d.contiguous(),
                                torch.full((n,), MIN_HIT, device=device),
@@ -529,7 +529,7 @@ def camera_lanes(width: int, height: int, m: int, device, seed: int = 0, camera=
     pix = np.arange(n) % (width * height)
     jit = np.random.default_rng(seed).uniform(size=(n, 2))
     pxy = np.stack([pix % width, pix // width], -1) + jit
-    o, d = camera_rays(cam, cfg, _f32(pxy, device), width, height)
+    o, d, _ = camera_rays(cam, cfg, _f32(pxy, device), width, height)
     return (o.contiguous(), d.contiguous(), torch.full((n,), MIN_HIT, device=device),
             torch.full((n,), BIG, device=device))
 
@@ -1517,7 +1517,7 @@ def city_rgl_lanes(scene, device):
                       device=device)
     pix = np.arange(0, CITY_WIDTH * CITY_HEIGHT, 2)
     pxy = np.stack([pix % CITY_WIDTH, pix // CITY_WIDTH], -1) + rs.uniform(size=(len(pix), 2))
-    o, d = camera_rays(cam, CITY_CAMERA, _f32(pxy, device), CITY_WIDTH, CITY_HEIGHT)
+    o, d, _ = camera_rays(cam, CITY_CAMERA, _f32(pxy, device), CITY_WIDTH, CITY_HEIGHT)
     m = o.shape[0]
     t, prim, u, v = scene_raw_hit(scene.bvh, o.contiguous(), d.contiguous(),
                                   torch.full((m,), MIN_HIT, device=device),
@@ -1552,7 +1552,7 @@ def city_env_lanes(device, seed: int = 8):
                       device=device)
     pix = np.arange(CITY_LANES)
     pxy = np.stack([pix % CITY_WIDTH, pix // CITY_WIDTH], -1) + rs.uniform(size=(CITY_LANES, 2))
-    _, d = camera_rays(cam, CITY_CAMERA, _f32(pxy, device), CITY_WIDTH, CITY_HEIGHT)
+    _, d, _ = camera_rays(cam, CITY_CAMERA, _f32(pxy, device), CITY_WIDTH, CITY_HEIGHT)
     return d.contiguous(), _f32(rs.uniform(size=(CITY_LANES, 3)), device)
 
 

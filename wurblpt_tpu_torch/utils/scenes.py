@@ -477,3 +477,34 @@ def tof_box(room_half: float = 1.2, device="cuda"):
 def tof_camera(device="cuda"):
     """The tof_amcw bench viewpoint (bench.py bench_tof), at the light: (pose, vfov_deg)."""
     return from_lookat((0.0, 0.0, 1.19), (0.0, 0.0, 0.0), device=device), 60.0
+
+
+def sphere_lit_floor(device="cuda"):
+    """An edge-free view for geometry gradients: a 100 x 100 Lambertian floor
+    quad at y = 0 under a diffuse sphere light of radius 1 at (0, 6, 0),
+    radiance 30 (the JAX package's tests/test_gradients.py:113-150)."""
+    rows = [(MaterialType.LAMBERTIAN, (0.6, 0.5, 0.4), None),
+            (MaterialType.LIGHT_DIFFUSE, (30.0, 30.0, 30.0), None)]
+    floor = _quad_to((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=50.0)
+    return flatten_meshes([floor], material_table(rows), device,
+                          spheres=[SphereSpec((0.0, 6.0, 0.0), 1.0, 1, hot_spot=True)])
+
+
+def sphere_lit_floor_camera(device="cuda"):
+    """The floor's camera, 2 above it looking straight down (vfov 50)."""
+    return from_lookat((0.0, 2.0, 0.01), (0.0, 0.0, 0.0), device=device), 50.0
+
+
+def lit_quad(albedo=(0.3, 0.6, 0.4), device="cuda"):
+    """A 3 x 3 Lambertian quad in the xy plane under a diffuse sphere light
+    of radius 0.3 at (0.6, 1.0, 2.4), radiance 16: the scene whose albedo
+    and camera the JAX package's tests/test_inverse.py:18-26 recover."""
+    rows = [(MaterialType.LAMBERTIAN, albedo, None),
+            (MaterialType.LIGHT_DIFFUSE, (16.0, 16.0, 16.0), None)]
+    return flatten_meshes([G.generate_quad(1.5, 1.5)], material_table(rows), device,
+                          spheres=[SphereSpec((0.6, 1.0, 2.4), 0.3, 1, hot_spot=True)])
+
+
+def lit_quad_camera(device="cuda"):
+    """The quad's camera, 2.4 in front of it (vfov 45)."""
+    return from_lookat((0.0, 0.0, 2.4), (0.0, 0.0, 0.0), device=device), 45.0
