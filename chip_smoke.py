@@ -239,16 +239,32 @@ both animated paths; K5's and K6's static triangle records those of the
 mesh and city paths, their sphere-row record the rtiow_bvh path's and
 their object-space records the cornell_animated_bvh path's.
 
-13. grad - the pass renderer and the differentiable render
-   (utils/grad_check.py): first the three backward kernels against their
+13. scene_api - the example apps' three scenes built through the port's
+   Scene on the card (scenes.noise_textures: a checker floor and the five
+   noise textures on spheres, a sphere light, a constant sky;
+   scenes.normalmap: a 256 x 256 brick normal map on a quad; and
+   scenes.material_comparison: a checker floor, anisotropic GGX,
+   dispersive glass, mirror, ModPhong and an RGL sphere), one path each
+   ("scene_api <name>"), rendered with render_frame at the apps' sizes
+   (480 x 200, 320 x 320, 560 x 180; 16 spp in passes of 8; depth 5, 4,
+   8) on the generic bounce with the counters at 0: K1, K2, K3's full
+   form and P0 (the material rows and the texture ids) must launch on
+   each, K8's constant branch on the two with a sky, K7's two kernels on
+   material_comparison; each frame held to its JAX CPU yardstick
+   (kernel_check.EXAMPLE_REFS: mean within 1e-3, counters within 0.5 %);
+   frame ms (median of 5 after the first), and the CUDA kernel launches and
+   device time of one profiled pass printed.
+14. grad - the pass renderer and the differentiable render
+   (utils/grad_check.py): first the four backward kernels against their
    plain versions at a differentiable frame's shapes, each timed (wrapper
    call, device time a launch, plain version, `index_add_` for P0T)
    beside its bound: P0T on the Cornell block's material rows after 2
    bounces, K3T on that block's winners, K8T on the envmap frame's
-   directions on the equirect and the cube map (random cotangents; the
-   scattered tables within 1e-4 of the sum of their terms' magnitudes,
-   the sky's texels 1e-3, the per-lane cotangents within 1e-4 of the
-   largest). Then, with the counters at 0 (the grad path): `render_frame`
+   directions on the equirect and the cube map, K7T on 131072 lanes of two
+   synthetic RGL materials (eval and sample; timed on sample) (random
+   cotangents; the scattered tables within 1e-4 of the sum of their
+   terms' magnitudes, the sky's texels 1e-3, the per-lane cotangents
+   within 1e-4 of the largest). Then, with the counters at 0 (the grad path): `render_frame`
    on the Cornell bench frame (16 samples in one pass) held to its
    yardstick; the differentiable Cornell frame (128 x 128, 16 spp, depth
    8), d(mean)/d(emission scale) equal to the loss (rtol 1e-3) and
@@ -258,13 +274,18 @@ their object-space records the cornell_animated_bvh path's.
    128 x 128 and at the JAX test's 12 x 12 (4 spp, depth 4), d(mean)
    /d(camera height) against a central difference (rtol 0.08; eps 1e-2 at
    128 x 128, whose shadow rays at the light's silhouette flip at eps
-   1e-3); `fit` recovering the lit quad's albedo at 128 x 128 (4 spp, 40
-   Adam steps) within 0.06, its last loss under a quarter of its first.
+   1e-3); the RGL quad's d(mean)/d(rgb table scale) (K7T) and the
+   textured quad's d(mean)/d(one texel) against central differences (eps
+   1e-2 and 1/16, rtol 3e-2 and 8e-2: tests/test_gradients_breadth.py's
+   scenes and tolerances); `fit` recovering the lit quad's albedo at 128 x
+   128 (4 spp, 40 Adam steps) within 0.06, its last loss under a quarter
+   of its first.
    Each differentiable step prints its forward and backward ms, the
    port's kernel launches, peak memory and, from a profiled step, the
    CUDA kernel launches, device ms and busy share of each pass. The JSON
-   line's records of the three backward kernels and of K3's full form,
-   P0 and K1/K2/K8 count the grad path's launches.
+   line's records of the four backward kernels and of K3's full form,
+   P0 and K1/K2/K8 count the grad path's launches (those of K1-K3, P0 and
+   K7 the scene_api paths' too, K8's constant branch the scene_api paths').
 
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
@@ -287,7 +308,16 @@ kc = np = torch = None   # bound in main(): nothing is imported before the CUDA 
 K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path",
             "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path")
 GRAD_PATH = "grad path"
-PATHS = K4_PATHS + (GRAD_PATH,)
+# The example apps' scenes built through the port's Scene, one path each
+# (phase scene_api): render_frame on the generic bounce, and the hand
+# kernels each must launch there.
+SCENE_API = {"noise_textures": ("closest_hit", "any_hit", "assemble_hit", "row_gather",
+                                "env_radiance"),
+             "normalmap": ("closest_hit", "any_hit", "assemble_hit", "row_gather"),
+             "material_comparison": ("closest_hit", "any_hit", "assemble_hit", "row_gather",
+                                     "env_radiance", "rgl_eval", "rgl_sample")}
+SCENE_PATHS = tuple(f"scene_api {name}" for name in SCENE_API)
+PATHS = K4_PATHS + SCENE_PATHS + (GRAD_PATH,)
 # Kernel launches per step of a K4 frame's loop: the regeneration (which
 # first adds the step before's NEE deposits and flags the loop condition),
 # the closest-hit cast, K3's K4 form (K3a's animated; no hit mask: the
@@ -338,12 +368,13 @@ KERNELS = {
                            "wurblpt_tpu/accel/traverse.py:152", ("bvh_any_hit",),
                            ("cornell_animated_bvh path",)),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166", ENV_ALL,
-               PATHS),
-    # the grad path's sky is an equirect map: its stand-alone launches count as the record above's
+               K4_PATHS + (GRAD_PATH,)),
+    # the grad path's sky is an equirect map: its stand-alone launches count as the record
+    # above's; the scene_api paths' skies are constant ones, theirs as the constant record's
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
                     ENV_ALL, K4_PATHS),
     "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
-                        ENV_ALL, K4_PATHS),
+                        ENV_ALL, K4_PATHS + SCENE_PATHS),
     "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
                  ("rgl_eval",), PATHS),
     "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
@@ -406,6 +437,9 @@ GRAD_KERNELS = {
     "env_radiance_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
                          "wurblpt_tpu/render/envmap.py:166", ("env_radiance_bwd",),
                          (GRAD_PATH,)),
+    # K7T: the backward of rgl_eval (:633) and rgl_sample (:650)
+    "rgl_bwd": ("wurblpt_tpu_torch/csrc/backward.cu", "wurblpt_tpu/materials/rgl.py:633",
+                ("rgl_bwd",), (GRAD_PATH,)),
 }
 KERNELS.update(GRAD_KERNELS)
 GRAD_RECORDS = []   # filled by phase_grad
@@ -1327,7 +1361,7 @@ def phase_anim_bvh_path(scene):
 
 
 def _grad_records():
-    """Phase grad, part 1: P0T, K3T and K8T against their plain backward
+    """Phase grad, part 1: P0T, K3T, K8T and K7T against their plain backward
     versions at a differentiable frame's shapes (utils/grad_check.py), each
     timed (wrapper call, device time a launch, plain version, index_add_ for
     P0T) beside its bound."""
@@ -1339,9 +1373,12 @@ def _grad_records():
     g_rows, mat = lanes["g_rows"], lanes["mat"]
     k3 = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")] + lanes["cot"]
     skies = {"equirect": gc.sky_lanes(DEVICE, cube=False), "cube": gc.sky_lanes(DEVICE, cube=True)}
+    rtab, rmid, rwi, rwo, ru2, rg = gc.rgl_lanes(DEVICE)
     checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows)}),
               ("assemble_hit_bwd", gc.check_assemble_hit_bwd, {"cornell block": (lanes,)}),
-              ("env_radiance_bwd", gc.check_env_radiance_bwd, skies)]
+              ("env_radiance_bwd", gc.check_env_radiance_bwd, skies),
+              ("rgl_bwd", gc.check_rgl_bwd, {"eval": (rtab, rmid, rwi, rwo, rg, False),
+                                             "sample": (rtab, rmid, rwi, ru2, rg, True)})]
     errs = _run_checks(checks)
     env, d, g = skies["equirect"]
     cases = {
@@ -1356,6 +1393,10 @@ def _grad_records():
         "env_radiance_bwd": (lambda: bw.env_radiance_bwd(env, d, g),
                              lambda: bw.env_radiance_bwd_plain(env, d, g),
                              gc.env_radiance_bwd_work(env, d), None, d.shape[0]),
+        # the sample's backward: its lanes recompute the two warps' sampling
+        "rgl_bwd": (lambda: bw.rgl_bwd(rtab, rmid, rwi, ru2, rg, True),
+                    lambda: bw.rgl_bwd_plain(rtab, rmid, rwi, ru2, rg, True),
+                    gc.rgl_bwd_work(rtab, rmid.shape[0], True), None, rmid.shape[0]),
     }
     for name, (kernel, plain, work, library, n) in cases.items():
         ms, plain_ms = kc.time_ms(kernel, DEVICE), kc.time_ms(plain, DEVICE)
@@ -1483,6 +1524,20 @@ def phase_grad():
         print(f"grad: floor {width}^2 loss {value!r}, d/d(camera height) {g_y!r} against "
               f"central difference {fd!r} (eps {eps})")
         assert abs(g_y - fd) <= 0.08 * abs(fd) + 1e-4, "camera gradient off its difference"
+    # the measured material's rgb table (K7T) and one texel of an image
+    # albedo (the lookup's gather backward), at tests/test_gradients_breadth.py's
+    # sizes, steps and tolerances
+    for what, loss, x0, eps, rtol in (("RGL rgb table scale", gc.rgl_table_loss(DEVICE), 1.0,
+                                       1e-2, 3e-2),
+                                      ("texel", gc.texel_loss(DEVICE), 0.5, 1.0 / 16, 8e-2)):
+        value, (g_x,) = _timed_step(f"grad: differentiable {what} step", loss, (x0,))
+        with torch.no_grad():
+            fd = (float(loss(torch.tensor(x0 + eps))) - float(loss(torch.tensor(x0 - eps)))) / (
+                2 * eps)
+        print(f"grad: {what}: loss {value!r}, gradient {g_x!r} against central difference "
+              f"{fd!r} (eps {eps})")
+        assert abs(fd) > 1e-6 and abs(g_x - fd) <= rtol * abs(fd), (
+            f"{what} gradient off its difference")
     # fit
     t0 = time.perf_counter()
     res = gc.fit_albedo(DEVICE)
@@ -1493,9 +1548,57 @@ def phase_grad():
     assert res.losses[-1] < 0.25 * res.losses[0], "fit's loss did not fall"
     launches = dict(native.LAUNCHES)
     print(f"{GRAD_PATH}: launches {launches}")
-    for name in ("row_scatter", "assemble_hit_bwd", "env_radiance_bwd", "assemble_hit",
-                 "row_gather", "closest_hit", "any_hit", "env_radiance"):
+    for name in ("row_scatter", "assemble_hit_bwd", "env_radiance_bwd", "rgl_bwd",
+                 "assemble_hit", "row_gather", "closest_hit", "any_hit", "env_radiance"):
         assert launches[name] > 0, f"kernel {name} was not launched on the {GRAD_PATH}"
+    return launches
+
+
+def phase_scene_api(name):
+    """Phase scene_api, one path per example scene: the scene built through
+    the port's Scene on the card, rendered with render_frame at the app's
+    size (kernel_check.EXAMPLE_FRAMES: the generic bounce, passes of 8
+    samples) with the counters at 0, held to its JAX yardstick (mean within
+    1e-3 relative, each counter within 0.5 %), its hand kernels
+    (SCENE_API[name]) required to launch; then frame ms (median of 5 after
+    the first), the CUDA kernel launches of a pass and the device time of a
+    profiled frame. Returns the counters of the first frame."""
+    from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.utils import scenes
+
+    label = f"scene_api {name}"
+    t0 = time.perf_counter()
+    scene = getattr(scenes, name)(device=DEVICE)
+    torch.cuda.synchronize()
+    tt = scene.textures
+    print(f"{label}: built through Scene on the card in {time.perf_counter() - t0:.2f} s: "
+          f"{scene.n_tris} triangles, {scene.n_spheres} spheres, {tt.count} textures (image "
+          f"stack {list(tt.img_data.shape)} {tt.img_data.dtype}), {scene.n_lights} light prims, "
+          f"sky kind {scene.env_kind}, RGL tables {scene.rgl is not None}")
+    width, height, ssqrt, depth, per_pass = kc.EXAMPLE_FRAMES[name]
+    render = kc.example_frame(name, DEVICE, scene)
+    img, stats, launches, times = _drive(label, render, SCENE_API[name])
+    mean = float(img.double().mean())
+    ref_mean, ref_stats = kc.EXAMPLE_REFS[name]
+    print(f"{label}: {width} x {height}, {ssqrt * ssqrt} spp, depth {depth}: mean radiance "
+          f"{mean!r} (JAX yardstick {ref_mean!r}), stats {stats} (JAX {list(ref_stats)})")
+    kc.check_example_frame(name, img, stats)
+    n_pass = ssqrt * ssqrt // per_pass
+    dt = statistics.median(times)
+    t0 = time.perf_counter()
+    render(one_pass=True)
+    pass_s = time.perf_counter() - t0
+    kernels, copies, _, device_ms, ours = _count_launches(lambda: render(one_pass=True))
+    print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
+          f"{[round(t * 1e3, 2) for t in times]}; {n_pass} passes), "
+          f"{width * height * ssqrt * ssqrt / dt:.4g} paths/s, {stats[1] / dt / 1e6:.4g} "
+          f"Mrays/s; a profiled pass: {kernels} CUDA kernel launches and {copies} "
+          f"copies/memsets, device time {device_ms:.3f} ms in {pass_s * 1e3:.2f} ms (busy "
+          f"{device_ms / (pass_s * 1e3):.3f}) on {_nvidia_smi()}")
+    print(f"{label}: hand-written kernels launched {{"
+          + ", ".join(f"{k}: {v}" for k, v in sorted(launches.items()) if v) + "}, device us "
+          "per launch (launches): "
+          + ", ".join(f"{k} {us:.2f} ({count})" for k, (us, count) in sorted(ours.items())))
     return launches
 
 
@@ -1577,6 +1680,7 @@ def main() -> int:
                         ("rtiow_bvh path", lambda: phase_rtiow_bvh_path(out["scenes"]["rtiow_bvh"])),
                         ("cornell_animated_bvh path",
                          lambda: phase_anim_bvh_path(out["scenes"]["cornell_animated_bvh"])),
+                        *((f"scene_api {n}", lambda n=n: phase_scene_api(n)) for n in SCENE_API),
                         (GRAD_PATH, phase_grad)):
         try:
             out[name] = phase()

@@ -9,6 +9,10 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated
     JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow_bvh
     JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated_bvh
+    JAX_PLATFORMS=cpu python jax_frame_reference.py noise_textures
+    JAX_PLATFORMS=cpu python jax_frame_reference.py normalmap
+    JAX_PLATFORMS=cpu python jax_frame_reference.py material_comparison
+    JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables
 
 city is bench config city_many_lights (bench.py bench_city_many_lights):
 city_night(seed=7), 1920x1080, 360-degree stereo, 1 spp, 4 path components,
@@ -53,6 +57,20 @@ cornell_animated_bvh is the animated Cornell box with its two spheres
 (`jax_cornell_animated(spheres=True)`), built with use_bvh=True and the
 tree's boxes swept over [0.5, 0.5], rendered as cornell_animated: the JAX
 package casts it through its BVH walk with object-space leaf rays.
+
+noise_textures, normalmap and material_comparison are the example apps'
+scenes (examples/noise_textures.py, normalmap.py, material_comparison.py),
+built here with the JAX package's builder (`jax_example_scene`, also the
+port's tests' JAX side) and rendered with render_frame as the apps render
+them: 480x200 (16 spp, 5 path components), 320x320 (16 spp, 4) and 560x180
+(16 spp, 8), in passes of 8 samples (examples/_common.py's pick), under
+jax.jit with the scene as an argument (~1-3 minutes each).
+
+rgl_grad_tables is not a frame: it prints, for each table of the RGL
+stack, how many of its entries get a nonzero jax.grad of the mean of
+tests/test_gradients_breadth.py's RGL quad (12 x 12, 4 spp, 3 path
+components, differentiable): the tables a backward of K7 must carry or
+refuse (~1 minute).
 """
 
 from __future__ import annotations
@@ -117,6 +135,126 @@ def jax_cornell_animated(spheres=False, use_bvh=False, t=0.0):
         for c, r, a in port_scenes.CORNELL_ANIM_SPHERES:
             scene.take_sphere(B.SphereObject(c, r, mats["white"], animation=a or None))
     return scene.build(use_bvh=use_bvh, t0=t, t1=t)
+
+
+def jax_example_scene(name, normal_map_size=256):
+    """The example apps' scenes built with the JAX package's builder, as the
+    apps build them (examples/noise_textures.py, normalmap.py,
+    material_comparison.py; the brick normal map and the synthetic RGL
+    dataset are the port's copies, wurblpt_tpu_torch.utils.scenes): the
+    SceneArrays and (eye, center, vfov_deg) of the app's camera."""
+    import numpy as np
+
+    from wurblpt_tpu.materials import rgl
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.scene import generator as G
+    from wurblpt_tpu.scene.ir import TextureType
+    from wurblpt_tpu.utils.scenes import _quad_to
+    from wurblpt_tpu_torch.utils import scenes as port_scenes
+
+    scene = B.Scene()
+    if name == "normalmap":
+        nmap = B.ImageTexture(image=port_scenes.brick_normal_map(normal_map_size,
+                                                                 normal_map_size), srgb=False)
+        scene.take_mesh_instance(B.MeshInstance(
+            G.generate_quad(1.0, 1.0), B.Lambertian(albedo=(0.7, 0.45, 0.3), normal_map=nmap)))
+        light = scene.take_material(B.LightDiffuse(radiance=(20.0,) * 3))
+        scene.take_sphere(B.SphereObject((1.6, 1.2, 2.2), 0.25, light), hot_spot=True)
+        return scene.build(), ((0.0, -0.4, 2.4), (0.0, 0.0, 0.0), 42.0)
+    noise = name == "noise_textures"
+    floor = scene.take_material(B.Lambertian(albedo=B.CheckerTexture(
+        color1=(0.25 if noise else 0.3,) * 3, color2=(0.6 if noise else 0.55,) * 3,
+        squares=(24, 24) if noise else (32, 32))))
+    fm, ftf = _quad_to((0.0, -0.5, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=12.0 if noise else 14.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    if noise:
+        mats = [B.Lambertian(albedo=t) for t in (
+            B.NoiseTexture(kind=TextureType.VALUE_NOISE, octaves=4, frequency=6.0),
+            B.NoiseTexture(kind=TextureType.GRADIENT_NOISE, octaves=4, frequency=6.0),
+            B.NoiseTexture(kind=TextureType.WORLEY_NOISE, frequency=8.0),
+            B.NoiseTexture(kind=TextureType.PERLIN_NOISE, frequency=8.0, turbulence=False,
+                           val_scale=(0.7, 0.7, 0.7, 1.0), val_offset=(0.5, 0.5, 0.5, 0.0)),
+            B.NoiseTexture(kind=TextureType.PERLIN_NOISE, octaves=7, frequency=6.0, gain=0.5,
+                           turbulence=True))]
+        x0, light_sphere, sky = -3.0, ((0.0, 5.0, 3.0), 0.8, (26.0, 24.0, 22.0)), (0.25, 0.28, 0.35)
+        cam = ((0.0, 1.3, 5.2), (0.0, 0.0, 0.0), 32.0)
+    else:
+        scene.take_rgl_table("measured", rgl.load_rgl_material(port_scenes.synthetic_rgl_fields()))
+        mats = [B.Lambertian(albedo=(0.7, 0.3, 0.25)),
+                B.GGX(albedo=(0.9, 0.7, 0.3), roughness=0.25),
+                B.GGX(albedo=(0.9, 0.9, 0.95), roughness=0.03),
+                B.GGX(albedo=(0.8, 0.8, 0.9), roughness=(0.02, 0.3)),
+                B.Glass(ior=(1.50, 1.52, 1.54, 1.52)),
+                B.Mirror(),
+                B.ModPhong(diffuse=(0.2, 0.35, 0.6), specular=(0.4,) * 3, shininess=90.0),
+                B.RGLMaterial(table_name="measured")]
+        x0, light_sphere, sky = -5.25, ((0.0, 6.0, 4.0), 1.0, (30.0,) * 3), (0.35, 0.4, 0.5)
+        cam = ((0.0, 1.6, 9.0), (0.0, 0.0, 0.0), 16.0)
+    for i, m in enumerate(mats):
+        scene.take_sphere(B.SphereObject((x0 + 1.5 * i, 0.1, 0.0), 0.6, m))
+    light = scene.take_material(B.LightDiffuse(radiance=light_sphere[2]))
+    scene.take_sphere(B.SphereObject(light_sphere[0], light_sphere[1], light), hot_spot=True)
+    scene.set_environment_map(B.EnvironmentMapConstant(radiance=sky))
+    return scene.build(), cam
+
+
+def _example(name):
+    import jax
+
+    from wurblpt_tpu import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.render.integrator import render_frame
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    width, height, ssqrt, depth, spp_pass = kc.EXAMPLE_FRAMES[name]
+    scene, (eye, center, vfov) = jax_example_scene(name)
+    cam = make_camera(transformation=from_lookat(eye, center), vfov_deg=vfov, width=width,
+                      height=height)
+    static = SceneStatic.from_scene(scene)
+    fn = jax.jit(lambda s, c: render_frame(
+        s, static, c, CameraConfig(), SensorRGB(), width, height, ssqrt,
+        params=RenderParams(max_path_components=depth), samples_per_pass=spp_pass,
+        return_stats=True))
+    return scene, lambda: fn(scene, cam)
+
+
+def _rgl_grad_tables():
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from wurblpt_tpu import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.materials import rgl
+    from wurblpt_tpu.render.integrator import render_frame
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.scene import generator as G
+    from wurblpt_tpu_torch.utils.scenes import synthetic_rgl_fields
+
+    fields = synthetic_rgl_fields()   # tests/test_gradients_breadth.py's RGL material
+    sc = B.Scene()
+    sc.take_rgl_table("m", rgl.load_rgl_material(fields))
+    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(1.2, 1.2),
+                                         sc.take_material(B.RGLMaterial(table_name="m"))))
+    sc.take_sphere(B.SphereObject((0.4, 0.9, 2.2), 0.3, B.LightDiffuse(radiance=(14.0,) * 3)),
+                   hot_spot=True)
+    scene = sc.build()
+    static = SceneStatic.from_scene(scene)
+    cam = make_camera(transformation=from_lookat((0, 0, 2.2), (0, 0, 0)), vfov_deg=45.0,
+                      width=12, height=12)
+    params = RenderParams(max_path_components=3, differentiable=True)
+    names = [k for k in scene.rgl._fields
+             if jnp.issubdtype(jnp.asarray(getattr(scene.rgl, k)).dtype, jnp.floating)]
+
+    def loss(tabs):
+        return jnp.mean(render_frame(scene._replace(rgl=scene.rgl._replace(**tabs)), static, cam,
+                                     CameraConfig(), SensorRGB(), 12, 12, 2, params=params))
+
+    g = jax.jit(jax.grad(loss))({k: getattr(scene.rgl, k) for k in names})
+    for k in names:
+        a = np.asarray(g[k])
+        print(json.dumps({"table": k, "shape": list(a.shape), "nonzero": int((a != 0).sum()),
+                          "max_abs_grad": float(np.abs(a).max())}))
 
 
 def _cornell_animated():
@@ -236,7 +374,11 @@ def _tof_report():
 FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
           "cornell_animated": _cornell_animated,
           "rtiow_bvh": lambda: _rtiow(n=22, use_bvh=True),
-          "cornell_animated_bvh": _cornell_animated_bvh}
+          "cornell_animated_bvh": _cornell_animated_bvh,
+          "noise_textures": lambda: _example("noise_textures"),
+          "normalmap": lambda: _example("normalmap"),
+          "material_comparison": lambda: _example("material_comparison"),
+          "rgl_grad_tables": None}
 
 
 def main():
@@ -247,6 +389,8 @@ def main():
         raise SystemExit(f"usage: jax_frame_reference.py [{'|'.join(FRAMES)}]")
     if name == "tof":
         return _tof_report()
+    if name == "rgl_grad_tables":
+        return _rgl_grad_tables()
     t0 = time.perf_counter()
     scene, render = FRAMES[name]()
     t_build = time.perf_counter() - t0

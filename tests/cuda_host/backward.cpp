@@ -1,9 +1,9 @@
-// K3T's and K8T's per-lane device code (csrc/backward_common.cuh) on the
-// CPU through cuda_runtime.h: one lane after another, with the entry
+// K3T's, K8T's and K7T's per-lane device code (csrc/backward_common.cuh)
+// on the CPU through cuda_runtime.h: one lane after another, with the entry
 // points' own arguments but the stream (csrc/backward.cu
 // wpt_assemble_hit_bwd, wpt_env_radiance_bwd for the equirect and cube
-// maps; the constant sky's warp sum is the kernel's own and runs on the
-// card only).
+// maps, wpt_rgl_bwd; the constant sky's warp sum is the kernel's own and
+// runs on the card only).
 #include "cuda_runtime.h"
 #include "backward_common.cuh"
 
@@ -37,5 +37,20 @@ extern "C" int host_env_radiance_bwd(const float* d, int n, int kind, const floa
     for (int i = 0; i < n; ++i)
         wpt_bwd::env_radiance_bwd_lane(i, d, kind, reinterpret_cast<const float4*>(img), h, w,
                                        rot, g, g_d, g_img);
+    return 0;
+}
+
+extern "C" int host_rgl_bwd(const RglTables* t, const int* mid, const float* wi, const float* x,
+                            int n, int sample, const float* g_f, float* g_rgb, float* g_ndf,
+                            float* g_sigma) {
+    const wpt_bwd::RglGrads out{g_rgb, g_ndf, g_sigma};
+    for (int i = 0; i < n; ++i) {
+        const int m = wpt_rgl::clampi(mid[i], 0, t->M - 1);
+        const wpt_rgl::Vec3 w{wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]};
+        if (sample)
+            wpt_bwd::rgl_bwd_lane<true>(*t, m, w, x + 2 * i, g_f + 4 * i, out);
+        else
+            wpt_bwd::rgl_bwd_lane<false>(*t, m, w, x + 3 * i, g_f + 4 * i, out);
+    }
     return 0;
 }

@@ -209,13 +209,16 @@ def _render(scene, **kw):
 
 
 def test_differentiable_mode_refuses_what_it_cannot_take():
-    """RGL materials (A.9), animated scenes (A.8) and a sky rotation that
-    requires grad (A.9) raise in differentiable mode; the wavefront
-    renderer refuses differentiable params."""
+    """An RGL material's warp tables that require grad (A.9; its rgb, ndf
+    and sigma tables take K7T), animated scenes (A.8) and a sky
+    rotation that requires grad (A.9) raise in differentiable mode; the
+    wavefront renderer refuses differentiable params."""
     city = scenes.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4,
                              device="cpu")
+    assert bool(torch.isfinite(_render(city, params=DIFF)).all())
+    vndf = city.rgl.vndf_data.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="RGL.*A.9"):
-        _render(city, params=DIFF)
+        _render(city._replace(rgl=city.rgl._replace(vndf_data=vndf)), params=DIFF)
     with pytest.raises(NotImplementedError, match="A.8"):
         _render(scenes.cornell_box_animated("cpu"), params=DIFF, t0=0.5, t1=0.5)
     env_scene = scenes.envmap_spheres(device="cpu")
@@ -241,7 +244,8 @@ def test_inference_renders_keep_their_refused_scenes():
 
 
 NEW_MODULES = ("render/backward.py", "render/integrator.py", "render/lights.py", "inverse.py",
-               "utils/grad_check.py")
+               "utils/grad_check.py", "core/color.py", "scene/builder.py",
+               "scene/geometryproc.py", "render/texture.py", "io/obj.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -116,3 +116,27 @@ def test_k8t_device_code_on_a_rotated_cube(lib):
                                      g_img.data_ptr(), torch.zeros(4).data_ptr()) == 0
     _close(g_d, ref[0], "rotated cube g_d")
     _close(g_img, ref[1], "rotated cube g_image")
+
+
+@pytest.mark.parametrize("sample", [False, True], ids=["eval", "sample"])
+def test_k7t_device_code_matches_its_plain_version(lib, sample):
+    """K7T's lane (backward_common.cuh rgl_bwd_lane, its forward recomputed
+    through rgl_common.cuh) against autograd through K7's plain forward, on
+    grad_check.rgl_lanes' two stacked synthetic materials (4096 lanes, some
+    below the surface): rgb, ndf and sigma within REL of each table's
+    largest entry. The lanes must reach every table."""
+    from wurblpt_tpu_torch.materials.rgl import c_tables
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    tables, mid, wi, wo, u2, g_f = gc.rgl_lanes("cpu", n=4096)
+    x = u2 if sample else wo
+    ref = bw.rgl_bwd_plain(tables, mid, wi, x, g_f, sample)
+    out = [torch.zeros_like(r) for r in ref]
+    lib.host_rgl_bwd.argtypes = native._SIGNATURES["wpt_rgl_bwd"][:-1]
+    ct = c_tables(tables)
+    assert lib.host_rgl_bwd(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(), x.data_ptr(),
+                            mid.shape[0], int(sample), g_f.data_ptr(),
+                            *(o.data_ptr() for o in out)) == 0
+    for what, a, b in zip(("rgb", "ndf", "sigma"), out, ref):
+        assert bool((b != 0).any()), what
+        _close(a, b, f"{'sample' if sample else 'eval'} {what}")

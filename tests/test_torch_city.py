@@ -52,7 +52,7 @@ from wurblpt_tpu_torch.render.camera import SurroundMode
 from wurblpt_tpu_torch.render.intersect import assemble_hit, build_hit_tables, scene_raw_hit
 from wurblpt_tpu_torch.render.intersect_brute import build_brute_scene
 from wurblpt_tpu_torch.scene import generator as G
-from wurblpt_tpu_torch.scene.flatten import flatten_meshes, material_table
+from wurblpt_tpu_torch.scene.flatten import MeshSpec, flatten_meshes, material_table
 from wurblpt_tpu_torch.scene.ir import MaterialType
 from wurblpt_tpu_torch.utils import scenes
 
@@ -130,10 +130,10 @@ def _two_lights(jax_side: bool):
     rows = [(MaterialType.LAMBERTIAN, (0.7,) * 3, None),
             (MaterialType.LIGHT_DIFFUSE, (9.0,) * 3, None),
             (MaterialType.LIGHT_DIFFUSE, (3.0,) * 3, None)]
-    meshes = [G.generate_quad(2.0, 2.0)]
+    meshes = [MeshSpec.of(G.generate_quad(2.0, 2.0))]
     for i, t in enumerate(((-1.0, 0.5, 2.0), (1.2, 0.8, 1.5))):
-        meshes.append(G.generate_quad(0.4, 0.4)._replace(
-            material=i + 1, hot_spot=True, transformation=Transformation.make(translation=t)))
+        meshes.append(MeshSpec.of(G.generate_quad(0.4, 0.4), i + 1, hot_spot=True,
+                                  transformation=Transformation.make(translation=t)))
     return flatten_meshes(meshes, material_table(rows), "cpu")
 
 

@@ -1,8 +1,10 @@
 """The port's gradients against the JAX package's on the cases of
-tests/test_gradients_breadth.py that need no texture and no RGL table: GGX
-roughness, the sky's radiance scale (an importance-sampled equirect map,
-K8T) and ToF geometry (a wall's depth, K3T through the optical path length).
-The method and tolerances are tests/test_torch_gradients.py's."""
+tests/test_gradients_breadth.py: GGX roughness, the sky's radiance scale
+(an importance-sampled equirect map, K8T), ToF geometry (a wall's depth,
+K3T through the optical path length), one texel of an albedo texture (the
+bilinear lookup's gather backward) and the scale of a measured RGL
+material's rgb table (K7T). The method and tolerances are
+tests/test_torch_gradients.py's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -126,8 +128,79 @@ def _tof_geometry():
     return Case(jloss, loss, 0.0, 5e-3, 1.5e-1, fd_atol=1e-3)
 
 
+def _lit_quad(material, table=None):
+    """A 2.4 x 2.4 or 2 x 2 quad of `material` under a sphere light (the
+    scenes of test_grad_texture_texel and test_grad_rgl_table_values)."""
+    sc = B.Scene()
+    if table is not None:
+        sc.take_rgl_table("m", table)
+    sc.take_mesh_instance(B.MeshInstance(mesh=JG.generate_quad(*((1.2, 1.2) if table else (1.0,
+                                                                                          1.0))),
+                                         material=material))
+    sc.take_sphere(B.SphereObject((0.4, 0.9, 2.2) if table else (0.5, 0.8, 2.5), 0.3,
+                                  B.LightDiffuse(radiance=(14.0,) * 3)), hot_spot=True)
+    return sc.build()
+
+
+def _texture_texel():
+    tex = np.full((4, 4, 3), 0.5, np.float32)
+    js = _lit_quad(B.Lambertian(albedo=B.ImageTexture(image=tex, srgb=False)))
+    w = h = 16
+    jcam = jmake_camera(transformation=jfrom_lookat((0, 0, 2.2), (0, 0, 0)), vfov_deg=45.0,
+                        width=w, height=h)
+    jstatic = JSceneStatic.from_scene(js)
+
+    def jloss(s):
+        img_data = js.textures.img_data.at[0, 1, 1, :].set(s)
+        sc = js._replace(textures=js.textures._replace(img_data=img_data))
+        return jnp.mean(jrender_frame(sc, jstatic, jcam, JCameraConfig(), JSensorRGB(), w, h, 2,
+                                      params=JPARAMS3))
+
+    ps, cam = _port(js), _cam(jcam)
+    static = SceneStatic.from_scene(ps)
+
+    def loss(s):
+        img_data = ps.textures.img_data.clone()
+        img_data[0, 1, 1, :] = s.to(torch.float16)
+        sc = ps._replace(textures=ps.textures._replace(img_data=img_data))
+        return render_frame(sc, static, cam, CameraConfig(), SensorRGB(), w, h, 2,
+                            params=PARAMS3, device="cpu").mean()
+
+    # the float16 texel stack quantizes the FD probe: the JAX test's large step
+    return Case(jloss, loss, 0.5, 1.0 / 16, 8e-2)
+
+
+def _rgl_table():
+    from wurblpt_tpu.materials import rgl as jrgl
+
+    from wurblpt_tpu_torch.utils.scenes import synthetic_rgl_fields
+
+    fields = synthetic_rgl_fields()   # the JAX test's tables, seeds 1-5
+    js = _lit_quad(B.RGLMaterial(table_name="m"), jrgl.load_rgl_material(fields))
+    w = h = 12
+    jcam = jmake_camera(transformation=jfrom_lookat((0, 0, 2.2), (0, 0, 0)), vfov_deg=45.0,
+                        width=w, height=h)
+    jstatic = JSceneStatic.from_scene(js)
+
+    def jloss(s):
+        sc = js._replace(rgl=js.rgl._replace(rgb=js.rgl.rgb * s))
+        return jnp.mean(jrender_frame(sc, jstatic, jcam, JCameraConfig(), JSensorRGB(), w, h, 2,
+                                      params=JPARAMS3))
+
+    ps, cam = _port(js), _cam(jcam)
+    static = SceneStatic.from_scene(ps)
+
+    def loss(s):
+        sc = ps._replace(rgl=ps.rgl._replace(rgb=ps.rgl.rgb * s))
+        return render_frame(sc, static, cam, CameraConfig(), SensorRGB(), w, h, 2,
+                            params=PARAMS3, device="cpu").mean()
+
+    return Case(jloss, loss, 1.0, 1e-2, 3e-2)
+
+
 CASES = {"ggx_roughness": _ggx_roughness, "envmap_radiance": _envmap_radiance,
-         "tof_geometry": _tof_geometry}
+         "tof_geometry": _tof_geometry, "texture_texel": _texture_texel,
+         "rgl_table": _rgl_table}
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +218,12 @@ def results():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_gradient_matches_jax_and_its_central_difference(results, name):
     check(results(name))
+
+
+def test_rgl_table_gradient_is_positive(results):
+    """Direct light dominates: the loss grows with the rgb table's scale."""
+    _, _, g, _, _ = results("rgl_table")
+    assert g > 0.0
 
 
 def test_sky_gradient_is_the_loss(results):

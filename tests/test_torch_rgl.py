@@ -237,10 +237,30 @@ def test_pdf_is_a_density():
 
 
 def test_spectral_datasets_are_refused():
+    """Spectral datasets, once refused, are ported: a spectral dataset (the city's
+    tables with 8 wavelength slices from 380 to 900 nm) loads as the JAX
+    package loads it: RGB integrated against D65 x the CIE matching
+    functions, the slice nearest 850 nm as NIR (rtol 1e-6: exp and pow of
+    the weights round an ulp apart in numpy and XLA), every other table
+    equal; a flat unit spectrum integrates to about white."""
+    from wurblpt_tpu.materials import rgl as jrgl
+
     fields = dict(scenes.city_rgl_fields(7))
-    fields["spectra"] = fields.pop("rgb")
-    with pytest.raises(NotImplementedError, match="spectral"):
-        rgl.load_rgl_material(fields)
+    rgb = fields.pop("rgb")
+    fields["spectra"] = np.concatenate([rgb, rgb[:, :, ::-1], rgb, rgb[:, :, :2]], 2)
+    fields["wavelengths"] = np.linspace(380.0, 900.0, 8).astype(np.float32)
+    ours, ref = rgl.load_rgl_material(fields), jrgl.load_rgl_material(fields)
+    assert set(ours) == set(ref)
+    for k in ours:
+        if k == "rgb":
+            np.testing.assert_allclose(ours[k], ref[k], rtol=1e-6, atol=1e-7)
+        else:
+            np.testing.assert_array_equal(np.asarray(ours[k]), np.asarray(ref[k]), k)
+    nearest = int(np.argmin(np.abs(fields["wavelengths"] - 850.0)))
+    np.testing.assert_array_equal(ours["rgb"][:, :, 3],
+                                  np.maximum(fields["spectra"][:, :, nearest], 0.0))
+    flat = rgl.load_rgl_material(dict(fields, spectra=np.ones_like(fields["spectra"])))
+    assert np.all(flat["rgb"][0, 0, :3] > 0.5) and np.all(flat["rgb"][0, 0, :3] < 2.0)
 
 
 def test_wrappers_check_their_inputs():

@@ -32,7 +32,7 @@ from wurblpt_tpu_torch.render.intersect import HitRecord
 from wurblpt_tpu_torch.render.sensor import SensorEvent
 from wurblpt_tpu_torch.render.wavefront import light_emitted_at
 from wurblpt_tpu_torch.scene import generator
-from wurblpt_tpu_torch.scene.flatten import flatten_meshes, material_table
+from wurblpt_tpu_torch.scene.flatten import MeshSpec, flatten_meshes, material_table
 from wurblpt_tpu_torch.scene.ir import MaterialFlags, MaterialType
 from wurblpt_tpu_torch.utils import kernel_check as kc
 from wurblpt_tpu_torch.utils import scenes
@@ -194,11 +194,9 @@ def test_cone_light_rows_and_power_weights_match_jax():
     rows = [(MaterialType.LAMBERTIAN, (0.5, 0.5, 0.5), None),
             (MaterialType.LIGHT_SPOT, (3.0, 2.0, 1.0), 0.3),
             (MaterialType.LIGHT_TOF, 5.0, 0.7)]
-    meshes = [generator.generate_quad(2.0, 2.0),
-              generator.generate_quad(0.5, 0.25, material=1),
-              generator.generate_disk(0.1, 8, material=2)]
-    meshes[1] = meshes[1]._replace(hot_spot=True)
-    meshes[2] = meshes[2]._replace(hot_spot=True)
+    meshes = [MeshSpec.of(generator.generate_quad(2.0, 2.0)),
+              MeshSpec.of(generator.generate_quad(0.5, 0.25), 1, hot_spot=True),
+              MeshSpec.of(generator.generate_disk(0.1, 8), 2, hot_spot=True)]
     p = flatten_meshes(meshes, material_table(rows), "cpu")
     for f in ("typ", "flags", "albedo", "emissive", "p0"):
         np.testing.assert_array_equal(getattr(p.materials, f).numpy(),

@@ -108,7 +108,7 @@ def _icosahedron():
 
 @pytest.mark.parametrize("mesh", ["cube", "icosahedron"])
 def test_no_leaks_through_a_closed_mesh_behind_the_bvh(mesh):
-    spec = generate_cube(1.0) if mesh == "cube" else _icosahedron()
+    spec = MeshSpec.of(generate_cube(1.0)) if mesh == "cube" else _icosahedron()
     scene = flatten_meshes([spec], material_table([(MaterialType.LAMBERTIAN, 0.5, None)]),
                            "cpu", use_bvh=True)
     rs = np.random.default_rng(0)

@@ -21,8 +21,11 @@ triangle lights, no sky, a pinhole camera without distortion) take one
 wavefront step as hand-written kernels (K4, :mod:`.render.wavefront`).
 The pass renderer (`render_frame`) renders the same paths, takes sphere
 lights, and with `RenderParams(differentiable=True)` puts the image on the
-autograd tape (backward kernels for P0, K3 and K8); `inverse.fit` fits
-scene or camera parameters to a target image.
+autograd tape (backward kernels for P0, K3, K7 and K8); `inverse.fit` fits
+scene or camera parameters to a target image. Users build their scenes with
+`Scene` and the builder's descriptors (textures: constant, checker, image,
+noise; every material, normal maps; meshes, instances, spheres, keyframe
+animations, the three environment maps), as with the JAX package.
 Scene, camera and table builders build on the GPU unless told otherwise.
 """
 
@@ -39,4 +42,29 @@ from .render.integrator import (  # noqa: F401
     trace_paths,
 )
 from .render.sensor import SensorRGB, SensorTofAmcw  # noqa: F401
-from .scene.ir import SceneArrays, scene_from_numpy  # noqa: F401
+from .scene.builder import (  # noqa: F401
+    GGX,
+    AnimationKeyframes,
+    CheckerTexture,
+    ConstantTexture,
+    EnvironmentMapConstant,
+    EnvironmentMapCube,
+    EnvironmentMapEquiRect,
+    Glass,
+    ImageTexture,
+    Lambertian,
+    LightDiffuse,
+    LightSpot,
+    LightTof,
+    MediumObject,
+    Mesh,
+    MeshInstance,
+    Mirror,
+    ModPhong,
+    NoiseTexture,
+    PhaseIso,
+    RGLMaterial,
+    Scene,
+    SphereObject,
+)
+from .scene.ir import SceneArrays, TextureType, scene_from_numpy  # noqa: F401

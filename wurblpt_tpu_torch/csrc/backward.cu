@@ -18,6 +18,13 @@
 //   taps' texels scatter-added; a constant sky's radiance cotangent is the
 //   sum of the lanes', reduced per warp by shuffles before one atomicAdd
 //   per warp and channel.
+// K7T, wpt_rgl_bwd: the backward of K7's eval or sample (materials/rgl.py
+//   rgl_eval :633, rgl_sample :650 of the JAX package, through its autodiff)
+//   into the tables of the reflectance tail: rgb (param- and
+//   spatial-bilinear cells), ndf and sigma (bilinear cells). One thread per
+//   lane recomputes its forward up to the warp positions
+//   (backward_common.cuh rgl_bwd_lane) and adds each term with atomicAdd;
+//   a material's few 8 x 8 rgb cells are contended, as K3T's rows are.
 //
 // Bound on the card: bytes (each lane's inputs and cotangents read once,
 // its ray cotangents written once) for K3T and K8T, the atomics' traffic
@@ -89,6 +96,18 @@ env_radiance_bwd_kernel(const float* __restrict__ d, int n, int kind,
         for (int k = 0; k < 4; ++k) wpt_bwd::add1(g_const + k, s[k]);
 }
 
+template <bool SAMPLE>
+__global__ void __launch_bounds__(BLOCK)
+rgl_bwd_kernel(RglTables t, const int* __restrict__ mids, const float* __restrict__ wi,
+               const float* __restrict__ x, int n, const float* __restrict__ g_f,
+               wpt_bwd::RglGrads out) {
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    if (i >= n) return;
+    const int mid = wpt_rgl::clampi(mids[i], 0, t.M - 1);
+    wpt_bwd::rgl_bwd_lane<SAMPLE>(t, mid, {wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]},
+                                  x + (SAMPLE ? 2 : 3) * i, g_f + 4 * i, out);
+}
+
 inline int blocks(long long n) { return static_cast<int>((n + BLOCK - 1) / BLOCK); }
 
 }  // namespace
@@ -137,5 +156,19 @@ extern "C" int wpt_env_radiance_bwd(const float* d, int n, int kind, const float
     if (n > 0)
         env_radiance_bwd_kernel<<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
             d, n, kind, reinterpret_cast<const float4*>(img), h, w, rot, g, g_d, g_img, g_const);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wpt_rgl_bwd(const RglTables* t, const int* mid, const float* wi, const float* x,
+                           int n, int sample, const float* g_f, float* g_rgb, float* g_ndf,
+                           float* g_sigma, void* stream) {
+    if (n > 0) {
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        const wpt_bwd::RglGrads out{g_rgb, g_ndf, g_sigma};
+        if (sample)
+            rgl_bwd_kernel<true><<<blocks(n), BLOCK, 0, s>>>(*t, mid, wi, x, n, g_f, out);
+        else
+            rgl_bwd_kernel<false><<<blocks(n), BLOCK, 0, s>>>(*t, mid, wi, x, n, g_f, out);
+    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,21 @@
-// The per-lane arithmetic of K3T and K8T, the backward kernels of K3's hit
-// assembly (with the winner's intersection) and of K8's sky radiance.
+// The per-lane arithmetic of K3T, K8T and K7T, the backward kernels of K3's
+// hit assembly (with the winner's intersection), of K8's sky radiance and
+// of K7's measured RGL BRDF (eval and sample).
 // Included by backward.cu (the kernels) and, through tests/cuda_host, by
 // the host build that runs it on the CPU.
 //
 // Each lane function follows the plain PyTorch version
 // (wurblpt_tpu_torch/render/backward.py assemble_hit_bwd_plain,
-// env_radiance_bwd_plain) term by term; the scatter into the tables is an
+// env_radiance_bwd_plain; K7T: autograd through materials/rgl.py's
+// rgl_eval_plain / rgl_sample_plain) term by term; the scatter into the tables is an
 // atomicAdd per nonzero term, so sums land in an order that varies from
 // run to run (the checks hold them to a tolerance relative to the sum of
 // the terms' magnitudes).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "rgl_common.cuh"
 
 namespace wpt_bwd {
 
@@ -344,6 +348,128 @@ __device__ __forceinline__ void env_radiance_bwd_lane(int i, const float* d, int
     }
     // dm = R(conj q) d: its adjoint is R(q)
     store3(g_d + 3 * i, quat_rotate(rot[0], rot[1], rot[2], rot[3], g_dm));
+}
+
+// ---------------------------------------------------------------------------
+// K7T: the backward of K7 (rgl_common.cuh eval_lane / sample_lane) into the
+// tables its reflectance tail reads, fr_common's
+//   f_c = max(bilinear(rgb_c), 0) * ndf(u_wm) / max(4 sigma(u_wi), 1e-12):
+// rgb's param-bilinear x spatial-bilinear cells, ndf's and sigma's bilinear
+// cells. The warp positions and the half vector are recomputed as the
+// forward lane computes them (the same functions of rgl_common.cuh); the
+// warp tables (vndf_*, lum_*) and the directions carry no cotangent here
+// (the wrapper refuses them where they require grad).
+// ---------------------------------------------------------------------------
+
+struct RglGrads {
+    float* rgb;     // like RglTables::rgb
+    float* ndf;
+    float* sigma;
+};
+
+// Cotangent g of a bilinear blend of a raw [H, W] plane into its four cells
+// (eval0's weights, its clamped position).
+__device__ __forceinline__ void eval0_bwd(float* g_arr, const int* hw, int H, int W, int mid,
+                                          float px, float py, float g) {
+    const int h = hw[2 * mid], w = hw[2 * mid + 1];
+    const float fx = wpt_rgl::clampf(px, 0.f, 1.f) * static_cast<float>(w - 1);
+    const float fy = wpt_rgl::clampf(py, 0.f, 1.f) * static_cast<float>(h - 1);
+    const int x0 = wpt_rgl::clampi(static_cast<int>(fx), 0, w - 2);
+    const int y0 = wpt_rgl::clampi(static_cast<int>(fy), 0, h - 2);
+    const float sx = fx - static_cast<float>(x0), sy = fy - static_cast<float>(y0);
+    const int y1 = min(y0 + 1, H - 1);
+    float* a = g_arr + mid * H * W;
+    add1(a + y0 * W + x0, g * ((1.f - sy) * (1.f - sx)));
+    add1(a + y0 * W + x0 + 1, g * ((1.f - sy) * sx));
+    add1(a + y1 * W + x0, g * (sy * (1.f - sx)));
+    add1(a + y1 * W + x0 + 1, g * (sy * sx));
+}
+
+// fr_common's backward at luminance-warp position (px, py) and half-vector
+// position (uwm_x, uwm_y), for the cotangent g[4] of its f.
+__device__ __forceinline__ void fr_common_bwd(const RglTables& t, const wpt_rgl::Frame& fr,
+                                              const wpt_rgl::Warp& lum, float px, float py,
+                                              float uwm_x, float uwm_y, const float g[4],
+                                              RglGrads out) {
+    int x0, y0;
+    float sx, sy;
+    wpt_rgl::cell(lum, px, py, x0, y0, sx, sy);
+    const int y1 = min(y0 + 1, lum.H - 1);
+    const int plane = lum.H * lum.W;
+    const float ndf_v = wpt_rgl::eval0(t.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y);
+    const float sig4 = 4.f * wpt_rgl::eval0(t.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x,
+                                            fr.uwi_y);
+    const float denom = wpt_rgl::clampminf(sig4, 1e-12f);
+    const float scale = ndf_v / denom;
+    const int offs[4] = {y0 * lum.W + x0, y0 * lum.W + x0 + 1, y1 * lum.W + x0,
+                         y1 * lum.W + x0 + 1};
+    const float ws[4] = {(1.f - sy) * (1.f - sx), (1.f - sy) * sx, sy * (1.f - sx), sy * sx};
+    float g_scale = 0.f;
+    for (int c = 0; c < 4; ++c) {
+        const int base = c * plane;
+        const float v00 = wpt_rgl::gsum(fr, t.rgb, 4 * plane, base + offs[0]);
+        const float v10 = wpt_rgl::gsum(fr, t.rgb, 4 * plane, base + offs[1]);
+        const float v01 = wpt_rgl::gsum(fr, t.rgb, 4 * plane, base + offs[2]);
+        const float v11 = wpt_rgl::gsum(fr, t.rgb, 4 * plane, base + offs[3]);
+        const float o = (1.f - sy) * ((1.f - sx) * v00 + sx * v10)
+                        + sy * ((1.f - sx) * v01 + sx * v11);
+        g_scale += g[c] * wpt_rgl::clampminf(o, 0.f);
+        if (!(o >= 0.f) || g[c] == 0.f) continue;   // clamp_min passes where o >= 0
+        const float gv = g[c] * scale;
+        for (int k = 0; k < 4; ++k) {
+            if (k >= fr.nc) break;
+            float* slice = out.rgb + static_cast<long long>(fr.slice[k]) * 4 * plane + base;
+            const float gk = gv * fr.cw[k];
+            for (int q = 0; q < 4; ++q) add1(slice + offs[q], gk * ws[q]);
+        }
+    }
+    if (g_scale == 0.f) return;
+    eval0_bwd(out.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y, g_scale / denom);
+    if (sig4 >= 1e-12f)
+        eval0_bwd(out.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x, fr.uwi_y,
+                  -(g_scale * ndf_v / (denom * denom)) * 4.f);
+}
+
+// One lane of K7T: x is wo (eval) or the two uniforms (sample), g_f the
+// cotangent [4] of the lane's f*cos. The lane's forward (eval_lane or
+// sample_lane) is recomputed up to its warp positions; a lane whose f the
+// forward zeroed (below the surface, or a sample that is not ok) adds nothing.
+template <bool SAMPLE>
+__device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, int mid, wpt_rgl::Vec3 wi,
+                                             const float* x, const float* g_f, RglGrads out) {
+    using namespace wpt_rgl;
+    const float g[4] = {g_f[0], g_f[1], g_f[2], g_f[3]};
+    if (g[0] == 0.f && g[1] == 0.f && g[2] == 0.f && g[3] == 0.f) return;
+    const Frame fr = prepare(t, mid, wi);
+    const Warp lum = lum_warp(t, mid);
+    float px, py, uwm_x, uwm_y;
+    if (SAMPLE) {
+        const float lum_pdf = warp_sample(fr, lum, x[1], x[0], px, py);
+        const float ndf_pdf = warp_sample(fr, vndf_warp(t, mid), px, py, uwm_x, uwm_y);
+        float phi_m = (2.f * uwm_y - 1.f) * PI_F;
+        const float theta_m = uwm_x * uwm_x * HALF_PI_F;
+        if (fr.iso) phi_m = phi_m + fr.phi_i;
+        const float sin_t = sinf(theta_m), cos_t = cosf(theta_m);
+        const Vec3 wm = {cosf(phi_m) * sin_t, sinf(phi_m) * sin_t, cos_t};
+        const float d2 = 2.f * dot3(wm, wi);
+        const bool valid = wi.z > 0.f && d2 * wm.z - wi.z > 0.f;
+        float f[4];
+        fr_common(t, fr, lum, px, py, uwm_x, uwm_y, f);
+        const float p = ndf_pdf * lum_pdf / jacobian(wi, wm, uwm_x);
+        bool finite = true;
+        for (int c = 0; c < 4; ++c) finite = finite && isfinite(f[c]);
+        if (!(valid && p > 0.f && finite)) return;
+    } else {
+        const Vec3 wo = {x[0], x[1], x[2]};
+        if (!(wi.z > 0.f && wo.z > 0.f)) return;
+        const Vec3 wm = normalize3({wi.x + wo.x, wi.y + wo.y, wi.z + wo.z});
+        const float phi_m = atan2f(wm.y, wm.x);
+        const float um_y0 = phi2u(fr.iso ? phi_m - fr.phi_i : phi_m);
+        uwm_x = theta2u(elevation(wm));
+        uwm_y = um_y0 - floorf(um_y0);
+        warp_invert(fr, vndf_warp(t, mid), uwm_x, uwm_y, px, py);
+    }
+    fr_common_bwd(t, fr, lum, px, py, uwm_x, uwm_y, g, out);
 }
 
 }  // namespace wpt_bwd

@@ -1,10 +1,10 @@
 """RGL (EPFL) measured BRDFs (port of ``wurblpt_tpu/materials/rgl.py``).
 
 Host side (numpy): the ``tensor_file`` parser, the per-slice CDFs of
-powitacq's Marginal2D constructor, `load_rgl_material` for RGB datasets and
-`stack_rgl_tables`, which stacks every material of a scene, zero-padded, into
-one :class:`RGLTables`. Spectral datasets wait for the colour module
-(NotImplementedError).
+powitacq's Marginal2D constructor, `load_rgl_material` for RGB and spectral
+datasets (a spectral table integrated to RGB + NIR at load time through
+:mod:`wurblpt_tpu_torch.core.color`) and `stack_rgl_tables`, which stacks
+every material of a scene, zero-padded, into one :class:`RGLTables`.
 
 Device side: K7, the measured BRDF's eval (f*cos and pdf for a pair of
 tangent-space directions) and sample (a direction from two uniforms), is a
@@ -101,10 +101,39 @@ def _build_cdfs(data: np.ndarray):
             (cond * norm[..., None]).astype(_f32))
 
 
-def load_rgl_material(source) -> dict:
+def _spectra_to_rgb4(spectra: np.ndarray, wavelengths: np.ndarray,
+                     nir_wavelength: float = 850.0) -> np.ndarray:
+    """Spectral tables [P, T, S, H, W] -> RGB + NIR [P, T, 4, H, W]
+    (MaterialRGLSpectral::toAttenuation, material_rgl.hpp:137-153): the
+    visible samples (360-780 nm) integrated against D65 x the CIE matching
+    functions and taken to RGB, normalized so a flat unit spectrum is white,
+    and the slice nearest `nir_wavelength` as NIR. Linear in the spectra, so
+    exact per texel. The weights are float32, as the JAX package computes
+    them; the sum over wavelengths float64."""
+    from ..core.color import color_matching_function, d65, xyz_to_rgb
+
+    wl = np.asarray(wavelengths, np.float64)
+    first = int(np.argmax(wl >= 360.0)) if np.any(wl >= 360.0) else 0
+    below = np.nonzero(wl <= 780.0)[0]
+    last = int(below[-1]) if below.size else len(wl) - 1
+    nearest = int(np.argmin(np.abs(wl - nir_wavelength)))
+    sel = np.arange(first, last + 1)
+    lam = wl[sel].astype(_f32)
+    illum = np.asarray(d65(lam), np.float64)                           # [S']
+    cmf = np.asarray(color_matching_function(lam), np.float64)         # [S', 3]
+    # the reference's integration factor cancels out of xyz * 100 / N
+    w_xyz = illum[:, None] * cmf * (1.0 / max(float(np.sum(illum * cmf[:, 1])), 1e-30))
+    w_rgb = np.asarray(xyz_to_rgb(w_xyz.astype(_f32)), np.float64)
+    rgb = np.einsum("ptshw,sc->ptchw", spectra[:, :, sel].astype(np.float64), w_rgb)
+    nir = spectra[:, :, nearest:nearest + 1].astype(np.float64)
+    return np.concatenate([rgb, nir], axis=2).astype(_f32)
+
+
+def load_rgl_material(source, nir_wavelength: float = 850.0) -> dict:
     """One RGL dataset (a path or a parsed field dict) as numpy tables ready for
-    stacking (powitacq_rgb.inl:891-1007). RGB datasets only: the NIR channel
-    is the mean of RGB (material_rgl.hpp:45-46)."""
+    stacking (powitacq_rgb.inl:891-1007). An RGB dataset's NIR channel is the
+    mean of RGB (material_rgl.hpp:45-46); a spectral one's tables are taken to
+    RGB + NIR by `_spectra_to_rgb4` (NIR the slice nearest `nir_wavelength`)."""
     fields = read_tensor_file(source) if isinstance(source, str) else dict(source)
     phi_i = np.asarray(fields["phi_i"], _f32).reshape(-1)
     theta_i = np.asarray(fields["theta_i"], _f32).reshape(-1)
@@ -112,12 +141,14 @@ def load_rgl_material(source) -> dict:
     lum = np.asarray(fields["luminance"], _f32)
     if vndf.shape[:2] != (len(phi_i), len(theta_i)):
         raise ValueError("vndf shape does not match phi_i/theta_i grids")
-    if "rgb" not in fields:
-        if "spectra" in fields:
-            raise NotImplementedError("spectral RGL datasets are not ported yet")
+    if "rgb" in fields:
+        rgb = np.asarray(fields["rgb"], _f32)                  # [P, T, 3, H, W]
+        rgb4 = np.concatenate([rgb, rgb.mean(axis=2, keepdims=True)], axis=2)
+    elif "spectra" in fields:
+        rgb4 = _spectra_to_rgb4(np.asarray(fields["spectra"], _f32),
+                                np.asarray(fields["wavelengths"], _f32), nir_wavelength)
+    else:
         raise ValueError("RGL dataset has neither 'rgb' nor 'spectra' field")
-    rgb = np.asarray(fields["rgb"], _f32)                      # [P, T, 3, H, W]
-    rgb4 = np.concatenate([rgb, rgb.mean(axis=2, keepdims=True)], axis=2)
     vndf_d, vndf_m, vndf_c = _build_cdfs(vndf)
     lum_d, lum_m, lum_c = _build_cdfs(lum)
     return dict(phi_i=phi_i, theta_i=theta_i, ndf=np.asarray(fields["ndf"], _f32),
@@ -480,6 +511,7 @@ class _CTables(ctypes.Structure):
 
 
 def c_tables(t: RGLTables) -> _CTables:
+    t = RGLTables(*(x.detach() for x in t))
     for k, x in zip(RGLTables._fields, t):
         if x.device != t.device or not x.is_contiguous():
             raise ValueError(f"RGL table {k}: need contiguous tensors on one device")
@@ -504,8 +536,42 @@ def _check_lanes(name, tables: RGLTables, mid, *lanes):
         raise ValueError(f"{name}: no kernel for device {mid.device}")
 
 
+# The tables the reflectance tail reads, whose gradients K7T carries; the
+# others (the warps' and the parameter grids) are refused where they require grad.
+GRAD_TABLES = ("rgb", "ndf", "sigma")
+
+
+def _on_tape(name, tables: RGLTables, *lanes) -> bool:
+    """Whether a call goes on the autograd tape (an input requires grad and
+    grad mode is on); raises NotImplementedError where what requires grad
+    has no backward yet."""
+    if not torch.is_grad_enabled():
+        return False
+    needs = [k for k in RGLTables._fields if getattr(tables, k).requires_grad]
+    if any(x.requires_grad for x in lanes):
+        raise NotImplementedError(f"{name}: gradients through an RGL lane's directions "
+                                  "(ROADMAP A.9) are not ported yet")
+    off = [k for k in needs if k not in GRAD_TABLES]
+    if off:
+        raise NotImplementedError(f"{name}: gradients of the RGL tables {off} (the warps' "
+                                  "CDFs and parameter grids: ROADMAP A.9) are not ported yet")
+    return bool(needs)
+
+
 def rgl_eval(tables: RGLTables, mid, wi, wo):
-    """(f*cos [N, 4], pdf [N]) of the measured BRDF for tangent-space wi, wo (K7 eval)."""
+    """(f*cos [N, 4], pdf [N]) of the measured BRDF for tangent-space wi, wo
+    (K7 eval). Where the rgb, ndf or sigma table requires grad (and grad
+    mode is on), the call is on the tape: its backward is K7T
+    (render/backward.py `RglEval`); the pdf carries no gradient."""
+    if _on_tape("rgl_eval", tables, wi, wo):
+        from ..render.backward import RglEval
+
+        return RglEval.apply(tables, mid, wi, wo, *(getattr(tables, k) for k in GRAD_TABLES))
+    return rgl_eval_raw(tables, mid, wi, wo)
+
+
+def rgl_eval_raw(tables: RGLTables, mid, wi, wo):
+    """K7 eval without a tape: the kernel on CUDA tensors, the plain version on CPU tensors."""
     _check_lanes("rgl_eval", tables, mid, (wi, 3), (wo, 3))
     if mid.device.type == "cpu":
         return rgl_eval_plain(tables, mid, wi, wo)
@@ -522,7 +588,18 @@ def rgl_eval(tables: RGLTables, mid, wi, wo):
 
 
 def rgl_sample(tables: RGLTables, mid, wi, u2):
-    """(wo [N, 3], f*cos [N, 4], pdf [N], ok [N]) sampled from uniforms u2 (K7 sample)."""
+    """(wo [N, 3], f*cos [N, 4], pdf [N], ok [N]) sampled from uniforms u2
+    (K7 sample); on the tape as `rgl_eval` (render/backward.py
+    `RglSample`): only f*cos carries a gradient."""
+    if _on_tape("rgl_sample", tables, wi):
+        from ..render.backward import RglSample
+
+        return RglSample.apply(tables, mid, wi, u2, *(getattr(tables, k) for k in GRAD_TABLES))
+    return rgl_sample_raw(tables, mid, wi, u2)
+
+
+def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
+    """K7 sample without a tape: the kernel on CUDA tensors, the plain version on CPU tensors."""
     _check_lanes("rgl_sample", tables, mid, (wi, 3), (u2, 2))
     if mid.device.type == "cpu":
         return rgl_sample_plain(tables, mid, wi, u2)

@@ -56,7 +56,7 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_ani
             "bvh_closest_hit": 0, "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
             "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0,
-            "row_scatter": 0, "assemble_hit_bwd": 0, "env_radiance_bwd": 0}
+            "row_scatter": 0, "assemble_hit_bwd": 0, "env_radiance_bwd": 0, "rgl_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -106,6 +106,7 @@ _SIGNATURES = {
     "wpt_row_scatter": [_P, _P, _I, _I, _I, _P, _P],
     "wpt_assemble_hit_bwd": [_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 12,
     "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "wpt_rgl_bwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -8,11 +8,15 @@ cosine-sampled Lambertian, anisotropic GGX with Heitz's VNDF sampling
 (material_ggx.hpp:89-171), the mirror and the dispersive glass
 (material_glass.hpp:97-141) as delta (EXPLICIT) lobes, the
 energy-normalized modified Phong with its opacity pass-through
-(material_modphong.hpp:192-263; constant ks and opacity), and the measured
-RGL BRDF through K7 (:mod:`wurblpt_tpu_torch.materials.rgl`).
+(material_modphong.hpp:192-263), and the measured RGL BRDF through K7
+(:mod:`wurblpt_tpu_torch.materials.rgl`).
 
 Material attributes reach the lanes through one packed row per lane, fetched
-by P0 (:func:`wurblpt_tpu_torch.render.gather.row_gather`).
+by P0 (:func:`wurblpt_tpu_torch.render.gather.row_gather`); a textured scene's
+lanes fetch their texture ids from a second packed table by P0 too, and
+`render.texture.apply_textures` folds the textured colours (albedo,
+emission, ModPhong's specular colour and opacity) into the rows. The normal
+map perturbs the shading frame first (`apply_normal_map`).
 
 `SceneStatic` carries the facts about a scene that select code paths; its
 `check_slice` raises NotImplementedError for every feature this port does
@@ -22,7 +26,7 @@ not render yet, so such a scene is refused instead of rendered wrong.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from ..core.vecmath import cross, dot, normalize, reflect, refract, safe_sqrt
 from ..scene.ir import MaterialFlags, MaterialType, SceneArrays, anim_ids
 from .gather import row_gather
 from .intersect import HitRecord
-from .texture import material_albedo, material_emissive
+from .texture import TexCtx, material_albedo, material_emissive
 
 _INV_PI = 1.0 / math.pi
 _TWO_PI = 2.0 * math.pi
@@ -108,14 +112,13 @@ class SceneStatic(NamedTuple):
     def check_slice(self) -> None:
         """Raise NotImplementedError for any scene feature outside the ported slice."""
         off = {
-            f"material types {sorted(self.mat_types - SLICE_MATERIALS)}":
-                bool(self.mat_types - SLICE_MATERIALS),
-            "textures": self.has_textures,
+            f"material types {sorted(self.mat_types - SLICE_MATERIALS)} (the phase function: "
+            "ROADMAP A.8)": bool(self.mat_types - SLICE_MATERIALS),
             f"environment map kind {self.env_kind}"
-            f"{'' if self.env_importance else ' without importance sampling'}":
+            f"{'' if self.env_importance else ' without importance sampling'} (ROADMAP A.5)":
                 not (self.env_kind in (0, 2, 3) or (self.env_kind == 1 and self.env_importance)),
-            "participating media": self.has_media,
-            "RGL materials without tables":
+            "participating media (ROADMAP A.8)": self.has_media,
+            "RGL materials without tables (materials.rgl.stack_rgl_tables)":
                 MaterialType.RGL in self.mat_types and not self.rgl_tables,
         }
         bad = [k for k, v in off.items() if v]
@@ -124,7 +127,8 @@ class SceneStatic(NamedTuple):
 
 
 class MatRow(NamedTuple):
-    """Per-lane material attributes from one gathered row."""
+    """Per-lane material attributes from one gathered row (and, in a
+    textured scene, the texture ids from a second)."""
 
     typ: torch.Tensor       # [N] int32
     flags: torch.Tensor     # [N] int32
@@ -134,6 +138,11 @@ class MatRow(NamedTuple):
     p1: torch.Tensor        # [N, 4]
     p2: torch.Tensor        # [N, 4]
     rgl_id: torch.Tensor    # [N] int32
+    albedo_tex: Optional[torch.Tensor] = None     # [N] int32 texture ids (None: untextured)
+    emissive_tex: Optional[torch.Tensor] = None
+    normal_tex: Optional[torch.Tensor] = None
+    opacity_tex: Optional[torch.Tensor] = None
+    spec_tex: Optional[torch.Tensor] = None
 
 
 def pack_material_table(mt):
@@ -144,12 +153,41 @@ def pack_material_table(mt):
                       ints.view(torch.float32)], -1).contiguous()
 
 
-def gather_material_rows(packed, mat_ids) -> MatRow:
-    """One row gather (P0) of the packed table -> every per-lane attribute."""
-    row = row_gather(packed, mat_ids.to(torch.int32).contiguous())
+def gather_material_rows(packed, mat_ids, tex_ids=None) -> MatRow:
+    """One row gather (P0) of the packed table -> every per-lane attribute;
+    `tex_ids` (`texture.pack_texture_ids`) adds a second gather of the texture ids."""
+    idx = mat_ids.to(torch.int32).contiguous()
+    row = row_gather(packed, idx)
     ints = row[:, 20:23].view(torch.int32)
-    return MatRow(typ=ints[:, 0], flags=ints[:, 1], albedo=row[:, 0:4], emissive=row[:, 4:8],
+    mrow = MatRow(typ=ints[:, 0], flags=ints[:, 1], albedo=row[:, 0:4], emissive=row[:, 4:8],
                   p0=row[:, 8:12], p1=row[:, 12:16], p2=row[:, 16:20], rgl_id=ints[:, 2])
+    if tex_ids is None:
+        return mrow
+    t = row_gather(tex_ids, idx).view(torch.int32)
+    return mrow._replace(albedo_tex=t[:, 0], emissive_tex=t[:, 1], normal_tex=t[:, 2],
+                         opacity_tex=t[:, 3], spec_tex=t[:, 4])
+
+
+def apply_normal_map(hr: HitRecord, mrow: MatRow, tex: Optional[TexCtx]) -> HitRecord:
+    """Perturb the shading normal by the material's normal map
+    (Material::normalAt / tangentSpaceAt, material.hpp:195-228): the texel
+    t gives nt = normalize(2 t - 1) in the (tangent, bitangent, normal)
+    frame; the tangent is Gram-Schmidted against the mapped normal. The hit
+    record unchanged where no material has a normal map."""
+    if tex is None or "normal" not in tex.static.columns:
+        return hr
+    ntex = mrow.normal_tex
+    has_nm = (ntex >= 0) & hr.hit
+    tex_n = tex.sample(torch.clamp_min(ntex, 0), hr.uv)[:, :3]
+    nt = normalize(tex_n * 2.0 - 1.0)
+    t, b = onb_from_normal_tangent(hr.normal, hr.tangent)
+    mapped = normalize(to_world(nt, t, b, hr.normal))
+    new_n = torch.where(has_nm[:, None], mapped, hr.normal)
+    tan = hr.tangent - dot(hr.tangent, new_n, keepdim=True) * new_n
+    tlen = safe_sqrt(dot(tan, tan))
+    new_t = torch.where((has_nm & (tlen > 1e-8))[:, None],
+                        tan / torch.clamp_min(tlen, 1e-20)[:, None], hr.tangent)
+    return hr._replace(normal=new_n, tangent=new_t)
 
 
 def emitted(hr: HitRecord, view_dir, mrow: MatRow):

@@ -24,7 +24,7 @@ the clamped or wrapped ones read here).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ import torch
 from .. import native
 from ..core.transform import quat_rotate
 from ..core.vecmath import safe_sqrt
-from ..scene.flatten import vec4
+from ..core.color import vec4
 from ..scene.ir import EnvMapArrays
 
 _TWO_PI = 2.0 * math.pi
@@ -40,10 +40,18 @@ _FOUR_PI = 4.0 * math.pi
 
 
 class EnvironmentMapEquiRect(NamedTuple):
-    """Host descriptor of an equirect map (builder.EnvironmentMapEquiRect)."""
+    """Host descriptor of an equirect map (builder.EnvironmentMapEquiRect).
+
+    `x_convention_surround` takes the surround-video x convention
+    (envmap.hpp:235-242): u turned by half a revolution, a cyclic roll of
+    the image by half its width, which needs an even width (an odd one
+    raises ValueError, as in the JAX package). `rotation` is the map's
+    world-from-map quaternion (x, y, z, w)."""
 
     image: np.ndarray                 # [H, W, 3|4] linear radiance
     importance_resolution: int = 0    # R of the R x R grid; 0: no importance sampling
+    x_convention_surround: bool = False
+    rotation: Optional[Sequence[float]] = None   # None: the identity
 
 
 class EnvironmentMapCube(NamedTuple):
@@ -51,6 +59,7 @@ class EnvironmentMapCube(NamedTuple):
 
     faces: Sequence[np.ndarray]       # 6 x [F, F, 3|4], order +x, -x, +y, -y, +z, -z
     importance_resolution: int = 0    # R of the R x R grid; 0: no importance sampling
+    rotation: Optional[Sequence[float]] = None   # world-from-map quaternion; None: the identity
 
 
 class EnvironmentMapConstant(NamedTuple):
@@ -297,11 +306,12 @@ def _build_alias_table(weights: np.ndarray):
 
 def build_envmap_arrays(desc, device) -> EnvMapArrays:
     """Equirect, cube or constant descriptor -> EnvMapArrays on `device`
-    (envmap.build_envmap_arrays without rotation).
+    (envmap.build_envmap_arrays).
 
-    The importance grid evaluates the plain radiance lookup at the cell
-    centres of the equal-area map, on the CPU, as the JAX package does on
-    its backend. The constant map gets no tables."""
+    The importance grid evaluates the plain radiance lookup, the map's
+    rotation included, at the cell centres of the equal-area map, on the
+    CPU, as the JAX package does on its backend. The constant map gets no
+    tables."""
     ident = torch.tensor([0.0, 0.0, 0.0, 1.0])
     no_tables = (torch.zeros((0, 0)), torch.zeros((0,)), torch.zeros((0,), dtype=torch.int32))
     if isinstance(desc, EnvironmentMapConstant):
@@ -316,9 +326,17 @@ def build_envmap_arrays(desc, device) -> EnvMapArrays:
         kind, img = 2, np.stack([rgbn(f) for f in desc.faces], 0)
     elif isinstance(desc, EnvironmentMapEquiRect):
         kind, img = 1, rgbn(desc.image)
+        if desc.x_convention_surround:
+            # A half-turn u offset from the Mitsuba default, not a mirror: a
+            # cyclic roll by half the width, exact for even widths as u wraps.
+            if img.shape[1] % 2:
+                raise ValueError("x_convention_surround needs an even-width equirect image")
+            img = np.roll(img, img.shape[1] // 2, axis=1)
     else:
         raise TypeError(f"unknown envmap descriptor {desc!r}")
-    base = EnvMapArrays(kind, torch.as_tensor(img), *no_tables, ident, torch.zeros((4,)))
+    rot = ident if desc.rotation is None else torch.as_tensor(np.asarray(desc.rotation,
+                                                                         np.float32))
+    base = EnvMapArrays(kind, torch.as_tensor(img), *no_tables, rot, torch.zeros((4,)))
     res = desc.importance_resolution
     if not res:
         return base.to(device)

@@ -41,10 +41,13 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
   (K2, KS2 or K6) on its shadow rays (the lit class's light and sky shadow
   rays in one cast): 5 launches, 4 without shadow rays, and one more
   regeneration that ends the block;
-* every other scene runs the regeneration and the generic bounce above as
-  PyTorch ops (~1000-1700 launches), with the hand-written casts, K3, K7,
-  K8 and P0 inside; it shares its emission, NEE, sky and roulette pieces
-  with K4's plain versions.
+* every other scene (a textured one among them) runs the regeneration and
+  the generic bounce above as PyTorch ops (~1000-1700 launches), with the
+  hand-written casts, K3, K7, K8 and P0 inside; it shares its emission,
+  NEE, sky and roulette pieces with K4's plain versions. A textured scene's
+  bounce gathers its texture ids (P0), perturbs the shading frame by the
+  normal map and folds the textured colours into the material rows once
+  (`render.texture`).
 
 An animated scene (rigid keyframes, at one instant t0 = t1) is cast by the
 sweeps KS1/KS2, or through its BVH by K5/K6 (the boxes swept over the build
@@ -93,8 +96,15 @@ import torch
 
 from ..core.rng import Salt, uniform1, uniform2, uniform4
 from ..scene.animation import anim_frames
-from ..scene.ir import MaterialType, SceneArrays
-from .bsdf import ScatterKind, SceneStatic, bsdf_sample, gather_material_rows, pack_material_table
+from ..scene.ir import SceneArrays
+from .bsdf import (
+    ScatterKind,
+    SceneStatic,
+    apply_normal_map,
+    bsdf_sample,
+    gather_material_rows,
+    pack_material_table,
+)
 from .camera import CameraConfig, CameraParams, _recip, camera_rays, check_camera
 from .intersect import (
     HitTables,
@@ -108,6 +118,7 @@ from .intersect import (
 from .intersect_brute import BIG, brute_eligible, build_brute_scene
 from .intersect_sweep import build_sweep_scene
 from .lights import light_frames, pick_area_table
+from .texture import TexCtx, apply_textures
 from .wavefront import (
     LoopState,
     StepTables,
@@ -163,6 +174,7 @@ class SceneTables(NamedTuple):
     mat: torch.Tensor                  # [M, 23] packed material rows
     pick_area: Optional[torch.Tensor]  # [P, 2] per-light MIS rows (None: mixture or no light)
     step: Optional[StepTables]         # K4's tables (None: a scene outside K4's classes)
+    tex: Optional[TexCtx] = None       # the texture ids' rows and the table (None: untextured)
 
 
 @torch.no_grad()
@@ -187,15 +199,19 @@ def prepare_scene(scene: SceneArrays, static: SceneStatic, step: bool = True) ->
         hit=build_hit_tables(scene), mat=mat, pick_area=pick_area,
         step=(build_step_tables(scene, static, mat, pick_area)
               if step and (diffuse_scene(scene, static) or env_scene(scene, static)
-                           or lit_scene(scene, static)) else None))
+                           or lit_scene(scene, static)) else None),
+        tex=TexCtx.of(scene))
 
 
 def live_tables(scene: SceneArrays, tables: SceneTables) -> SceneTables:
     """`tables` with the packed material rows and the hit tables rebuilt from
     the scene's tensors, so that a loss's gradient reaches the materials
-    and the primitives through them (P0's and K3's backward kernels)."""
+    and the primitives through them (P0's and K3's backward kernels), and
+    the texture table and its descriptor rows the scene's own (a texel's
+    gradient is the lookup's gather backward, a descriptor's P0T)."""
     return tables._replace(mat=pack_material_table(scene.materials),
-                           hit=build_hit_tables(scene))
+                           hit=build_hit_tables(scene),
+                           tex=None if tables.tex is None else TexCtx.of(scene))
 
 
 class FrameAnim(NamedTuple):
@@ -233,6 +249,7 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
                     params: RenderParams, n, anim: Optional[FrameAnim] = None):
     """One generic torch-op wavefront bounce as a function of (state, pixel, sample)."""
     accel, ht, mat_packed, pick_area = tables.accel, tables.hit, tables.mat, tables.pick_area
+    tex = tables.tex
     frames = None if anim is None else anim.frames
     lframes = None if anim is None else anim.lights
     mat_types = static.mat_types
@@ -258,7 +275,12 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
 
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
         t = hr.t   # the winner's distance, on the tape where o, d or the geometry are
-        mrow = gather_material_rows(mat_packed, hr.mat)
+        mrow = gather_material_rows(mat_packed, hr.mat, None if tex is None else tex.ids)
+        # The normal map perturbs the shading frame before any emission,
+        # scatter or evaluation (integrator.py:495); the textured colours
+        # are read once, at the hit's uv.
+        hr = apply_normal_map(hr, mrow, tex)
+        mrow = apply_textures(mrow, tex, hr.uv)
         geom_len, opt_len = path_lengths(st, hit, t)
         acc = emit(sensor, acc, st, hr, mrow, t, prim, hit, geom_len, opt_len,
                    static.n_lights, pick_area, scene if static.sphere_lights else None)
@@ -275,7 +297,7 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
             u3 = uniform4(pixel_id, sample_id, k, Salt.NEE_SAMPLE)[:, :3]
             ldir, t_shadow, pending, light_pdf_next = light_nee(
                 scene, sensor, params, st, hr, mrow, mat_types, rgl, sr.direction, is_random,
-                geom_len, opt_len, u3, mat_packed, per_light, lframes)
+                geom_len, opt_len, u3, mat_packed, per_light, lframes, tex)
             occluded = scene_any_hit(accel, hr.position, ldir, t_min, t_shadow, frames)
             acc = deposit_unoccluded(acc, pending, occluded)
 
@@ -475,8 +497,6 @@ def _check_differentiable(scene: SceneArrays, static: SceneStatic):
     """Raise NotImplementedError for what a differentiable render cannot
     take yet, naming the ROADMAP item that ports it."""
     off = {
-        "RGL materials (their backward kernel, K7T: ROADMAP A.9)":
-            MaterialType.RGL in static.mat_types,
         "animated scenes (K3a's backward kernel and per-ray time: ROADMAP A.8)":
             static.has_anim,
         "an environment map rotation that requires grad (ROADMAP A.9)":

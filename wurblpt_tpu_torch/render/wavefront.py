@@ -118,6 +118,7 @@ from .lights import (
     pick_frame,
 )
 from .sensor import SensorEvent, SensorRGB, SensorTofAmcw
+from .texture import TexCtx, apply_textures
 
 DIFFUSE_MATERIALS = frozenset({MaterialType.LAMBERTIAN}) | LIGHT_MATERIALS
 ENV_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
@@ -246,14 +247,16 @@ def lit_class(scene: SceneArrays, static: SceneStatic, cam_cfg: CameraConfig) ->
 # Pieces of the torch-op bounce, shared by the generic bounce and the plain versions
 # ---------------------------------------------------------------------------
 
-def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None, point=None):
+def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None, point=None,
+                     tex: Optional[TexCtx] = None):
     """Emitted radiance of light `prim` toward unit direction `toward` (from
     the light to the receiver); one-sided unless the material is two-sided,
     and a spot or ToF light only inside its cone, |cos| >= p0.x (the JAX
     package's integrator.py:190-250). `frame` (m [N, 3, 3], t) is the
     light's forward map at the frame's instant, for an animated light. A
     sphere light's normal is taken at `point` [N, 3], the sampled point on
-    it (needed where the scene has spheres)."""
+    it (needed where the scene has spheres). A textured emission (`tex`) is
+    read at uv (0, 0), as the JAX package reads it there."""
     n_tri = scene.n_tris
     pl = prim.long()
     if n_tri > 0:
@@ -279,7 +282,11 @@ def light_emitted_at(scene: SceneArrays, prim, toward, mat_packed, frame=None, p
             mat = torch.where(is_tri, mat, S.mat[si])
         else:
             n, mat = n_s, S.mat[si]
-    lrow = gather_material_rows(mat_packed, mat)
+    if tex is not None and "emissive" in tex.static.columns:
+        lrow = apply_textures(gather_material_rows(mat_packed, mat, tex.ids), tex,
+                              torch.zeros_like(toward[:, :2]), columns=("emissive",))
+    else:
+        lrow = gather_material_rows(mat_packed, mat)
     cos_v = dot(n, toward)
     two_sided = (lrow.flags & MaterialFlags.TWO_SIDED) > 0
     front = (cos_v > 0.0) | two_sided
@@ -320,7 +327,7 @@ def emit(sensor, acc, st: LoopState, hr: HitRecord, mrow, t, prim, hit, geom_len
 
 def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, mrow, mat_types,
               rgl, sr_direction, is_random, geom_len, opt_len, u3, mat_packed, per_light: bool,
-              frames=None):
+              frames=None, tex: Optional[TexCtx] = None):
     """NEE toward a picked hot spot (wurblpt.hpp:179-220), up to its shadow ray;
     `frames` (lights.light_frames) places animated lights at the frame's instant.
 
@@ -345,7 +352,7 @@ def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, 
     t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps), params.min_hit_distance)
     Le = light_emitted_at(scene, torch.clamp_min(lprim, 0), -ldir, mat_packed,
                           None if frames is None else pick_frame(frames, lpick),
-                          hr.position + ldir * ldist[:, None])
+                          hr.position + ldir * ldist[:, None], tex)
     w_nee = power_heuristic(pdf_light, pdf_b)
     contrib = st.throughput * f_l * Le * (w_nee / torch.clamp_min(pdf_light, 1e-12))[:, None]
     dep, ok = sensor.deposit(SensorEvent(

@@ -3,11 +3,13 @@
 Port of ``wurblpt_tpu/scene/ir.py``, holding the fields the ported slice
 reads. Integer columns stay int32 tensors (the JAX package float-encodes some
 of them to dodge TPU gather costs; nothing here needs that). The keyframe
-tables (`AnimTable`) and each primitive's animation id come across whole.
-Features outside the slice are recorded only by their size (`n_textures`,
-`n_media`), so that :class:`wurblpt_tpu_torch.render.bsdf.SceneStatic` can
-refuse such a scene. The BVH is the port's own layout
-(:mod:`wurblpt_tpu_torch.accel.build`), not the JAX package's W-wide rows.
+tables (`AnimTable`), each primitive's animation id, the texture table
+(`TextureTable`, its float16 image stack as the JAX package keeps it) and the
+materials' texture ids come across whole. Media, outside the slice, are
+recorded only by their count (`n_media`), so that
+:class:`wurblpt_tpu_torch.render.bsdf.SceneStatic` can refuse such a scene.
+The BVH is the port's own layout (:mod:`wurblpt_tpu_torch.accel.build`), not
+the JAX package's W-wide rows.
 """
 
 from __future__ import annotations
@@ -38,6 +40,16 @@ class MaterialType:
 class MaterialFlags:
     TWO_SIDED = 1 << 0
     TOF_LIGHT = 1 << 1
+
+
+class TextureType:
+    CONSTANT = 0
+    CHECKER = 1
+    IMAGE = 2
+    VALUE_NOISE = 3
+    GRADIENT_NOISE = 4
+    WORLEY_NOISE = 5
+    PERLIN_NOISE = 6
 
 
 class Triangles(NamedTuple):
@@ -92,6 +104,39 @@ class MaterialTable(NamedTuple):
     p1: torch.Tensor        # [M, 4] (ModPhong: specular colour ks)
     p2: torch.Tensor        # [M, 4] (ModPhong: transmissive colour)
     rgl_id: torch.Tensor    # [M] int32 row of SceneArrays.rgl (-1: not RGL)
+    # Texture ids, rows of SceneArrays.textures (-1: none; None: no column)
+    albedo_tex: Optional[torch.Tensor] = None    # [M] int32 (ModPhong: its diffuse)
+    emissive_tex: Optional[torch.Tensor] = None  # [M] int32
+    normal_tex: Optional[torch.Tensor] = None    # [M] int32 tangent-space normal map
+    opacity_tex: Optional[torch.Tensor] = None   # [M] int32 ModPhong opacity (.r, map_d)
+    spec_tex: Optional[torch.Tensor] = None      # [M] int32 ModPhong specular (map_Ks)
+
+    @property
+    def count(self):
+        return self.typ.shape[0]
+
+    @property
+    def tex_ids(self):
+        """The five texture-id columns in the order `render.bsdf.pack_texture_ids` packs them."""
+        return (self.albedo_tex, self.emissive_tex, self.normal_tex, self.opacity_tex,
+                self.spec_tex)
+
+
+class TextureTable(NamedTuple):
+    """Flattened texture descriptors + one padded image stack
+    (ir.TextureTable): per-texture type, parameters and uv / value affines,
+    the image stack's texels as float16 (widened to float32 at lookup),
+    padded to the largest image, and each image's own (h, w)."""
+
+    typ: torch.Tensor         # [NT] int32 TextureType
+    params: torch.Tensor      # [NT, 8] f32 (CONSTANT colour; CHECKER colours; noise settings)
+    uv_scale: torch.Tensor    # [NT, 2]
+    uv_offset: torch.Tensor   # [NT, 2]
+    val_scale: torch.Tensor   # [NT, 4]
+    val_offset: torch.Tensor  # [NT, 4]
+    image_id: torch.Tensor    # [NT] int32 (-1: none)
+    img_data: torch.Tensor    # [NI, H, W, 4] float16 linear texels
+    img_hw: torch.Tensor      # [NI, 2] int32 each image's (h, w)
 
     @property
     def count(self):
@@ -195,7 +240,7 @@ class SceneArrays(NamedTuple):
     light_weights: Optional[torch.Tensor] = None     # [L] f32 pick probabilities
     light_alias_prob: Optional[torch.Tensor] = None  # [L] f32
     light_alias_idx: Optional[torch.Tensor] = None   # [L] int32
-    n_textures: int = 0
+    textures: Optional[TextureTable] = None    # None or empty: no texture
     anims: Optional[AnimTable] = None          # keyframe tables (None: static scene)
     n_media: int = 0
     bvh: Optional[BVHArrays] = None
@@ -213,6 +258,10 @@ class SceneArrays(NamedTuple):
     @property
     def env_kind(self) -> int:
         return 0 if self.envmap is None else self.envmap.kind
+
+    @property
+    def n_textures(self) -> int:
+        return 0 if self.textures is None else self.textures.count
 
     @property
     def n_anims(self) -> int:
@@ -255,7 +304,8 @@ def scene_from_numpy(a, device, t0: float = 0.0, t1: float = 0.0) -> SceneArrays
     copy). The keyframe tables come across where the scene has an animation
     beyond row 0.
     The RGL tables come across where a material is RGL (the JAX scene always
-    carries a placeholder table).
+    carries a placeholder table); the texture table and the materials'
+    texture ids always.
     """
     t, s, m = a.tris, a.spheres, a.materials
     tris = Triangles(*(_f32(getattr(t, f), device) for f in Triangles._fields[:12]),
@@ -269,12 +319,18 @@ def scene_from_numpy(a, device, t0: float = 0.0, t1: float = 0.0) -> SceneArrays
     if int(np.shape(an.times)[0]) > 1:
         anims = AnimTable(_f32(an.times, device), _f32(an.trans, device), _f32(an.rot, device),
                           _f32(an.scale, device), _i32(an.nkeys, device))
+    opt = lambda x, conv: None if x is None else conv(x, device)  # noqa: E731
     materials = MaterialTable(_i32(m.typ, device), _i32(m.flags, device),
                               _f32(m.albedo, device), _f32(m.emissive, device),
                               _f32(m.p0, device), _f32(m.p1, device), _f32(m.p2, device),
-                              _i32(m.rgl_id, device))
-    opt = lambda x, conv: None if x is None else conv(x, device)  # noqa: E731
-    n_textures = int(np.shape(a.textures.typ)[0])
+                              _i32(m.rgl_id, device), *(opt(getattr(m, k), _i32) for k in (
+                                  "albedo_tex", "emissive_tex", "normal_tex", "opacity_tex",
+                                  "spec_tex")))
+    tt = a.textures
+    textures = TextureTable(*(
+        torch.as_tensor(np.array(getattr(tt, k), np.float16), device=device) if k == "img_data"
+        else _i32(getattr(tt, k), device) if k in ("typ", "image_id", "img_hw")
+        else _f32(getattr(tt, k), device) for k in TextureTable._fields))
     e = a.envmap
     envmap = None
     if int(np.asarray(e.kind)) != 0:
@@ -293,7 +349,7 @@ def scene_from_numpy(a, device, t0: float = 0.0, t1: float = 0.0) -> SceneArrays
         light_weights=opt(a.light_weights, _f32),
         light_alias_prob=opt(a.light_alias_prob, _f32),
         light_alias_idx=opt(a.light_alias_idx, _i32),
-        n_textures=n_textures,
+        textures=textures,
         anims=anims,
         n_media=int(np.shape(a.media.density)[0]),
         bvh=bvh,

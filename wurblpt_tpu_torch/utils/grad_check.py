@@ -23,12 +23,19 @@ gradient checks of ``chip_smoke.py``'s `grad` phase.
   is read and each output written once, the tables once each way, and a
   tally of the float operations per lane stated beside each `*_work`.
 
+* K7T (`rgl_bwd`) on `rgl_lanes` (131072 lanes of two synthetic RGL
+  materials, eval and sample), its plain version autograd through K7's
+  plain forward on the card (`check_rgl_bwd`), each table within 1e-4 of
+  the (bound on the) sum of its entries' |term|.
+
 The frames: the Cornell bench frame through `render_frame` (the pass
 renderer, 16 samples in one pass), its gradients with respect to the
 emission's scale and the white walls' albedo, the envmap_spheres frame's
 gradient with respect to the sky's scale, the sphere-lit floor's gradient
-with respect to the camera's height, and `fit` recovering the lit quad's
-albedo, each driven through the port's public entry points.
+with respect to the camera's height, the RGL quad's with respect to its
+rgb table's scale (K7T) and the textured quad's with respect to one texel,
+and `fit` recovering the lit quad's albedo, each driven through the port's
+public entry points.
 """
 
 from __future__ import annotations
@@ -38,12 +45,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.transform import from_lookat
 from ..inverse import fit
+from ..materials.rgl import load_rgl_material, stack_rgl_tables
 from ..render.backward import (
     assemble_hit_bwd,
     assemble_hit_bwd_plain,
     env_radiance_bwd,
     env_radiance_bwd_plain,
+    rgl_bwd,
+    rgl_bwd_plain,
     row_scatter,
     row_scatter_plain,
 )
@@ -60,6 +71,8 @@ from ..render.intersect import assemble_hit_raw, scene_raw_hit
 from ..render.intersect_brute import BIG
 from ..render.sensor import SensorRGB
 from ..render.wavefront import LoopState
+from ..scene import builder as B
+from ..scene import generator as G
 from . import kernel_check as kc
 from . import scenes
 
@@ -201,6 +214,57 @@ def check_env_radiance_bwd(env, d, g) -> Dict[str, float]:
     return {"max_abs_err": err, "lanes_differ": r["lanes_differ"]}
 
 
+def rgl_lanes(device, n: int = 131072, seed: int = 22):
+    """K7T's inputs at a differentiable pass's width: the synthetic RGL
+    material of the material_comparison scene (scenes.synthetic_rgl_fields)
+    stacked twice (the second with seed 1), and n lanes from numpy: mid
+    alternating 0 and 1, wi and wo uniform on the sphere, mostly above the
+    surface (|z| flipped up on 7 of 8 lanes), u2 uniform, cotangents of
+    f*cos normal. (tables, mid, wi, wo, u2, g_f)."""
+    tables = stack_rgl_tables([load_rgl_material(scenes.synthetic_rgl_fields(s))
+                               for s in (0, 1)], device)
+    rng = np.random.default_rng(seed)
+
+    def dirs():
+        x = rng.standard_normal((n, 3))
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        up = (np.arange(n) % 8) != 7
+        x[up, 2] = np.abs(x[up, 2])
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    mid = torch.as_tensor((np.arange(n) % 2).astype(np.int32), device=device)
+    wi, wo = dirs(), dirs()
+    u2 = torch.as_tensor(rng.uniform(size=(n, 2)).astype(np.float32), device=device)
+    return tables, mid, wi, wo, u2, _f32(rng, (n, 4), device)
+
+
+def check_rgl_bwd(tables, mid, wi, x, g_f, sample: bool) -> Dict[str, float]:
+    """K7T against its plain version (autograd through K7's plain forward)
+    on the same lanes and cotangents, each table within SUM_REL of its
+    entries' |term| sums. The plain version runs on the same device: K7's
+    plain forward is K7's bits there (kernel_check.check_rgl), while on the
+    CPU an ulp of sqrtf or sinf moves a sampled lane's warp position and
+    its cells' weights by ~1e-4 (seen on an H100)."""
+    args = [tables, mid, wi, x, g_f]
+    got = rgl_bwd(*args, sample)
+    ref = rgl_bwd_plain(*args, sample)
+    mag = rgl_bwd_plain(*args, sample, magnitudes=True)
+    err = max(_sum_close(f"rgl_bwd {k}", a, b, m)
+              for k, a, b, m in zip(("rgb", "ndf", "sigma"), got, ref, mag))
+    return {"max_abs_err": err, "nonzero_rgb": int((ref[0] != 0).sum())}
+
+
+def rgl_bwd_work(tables, n: int, sample: bool):
+    """K7T: mid, wi, wo or u2 and the 4 cotangent words read per lane, the
+    tables read once and the rgb, ndf and sigma cotangents written once; the
+    forward's flops (kernel_check.rgl_work's 450 or 900 a lane) and ~150
+    more for the tail's backward (16 corner fetches again, 64 rgb terms, 8
+    ndf and sigma terms)."""
+    t_bytes, flops = kc.rgl_work(tables, n, sample)
+    out = sum(getattr(tables, k).numel() * 4 for k in ("rgb", "ndf", "sigma"))
+    return t_bytes + n * 16 + out, flops + n * 150.0
+
+
 def row_scatter_work(g, idx, rows):
     """P0T: the cotangent rows (C words) and an index per lane read, the
     table's cotangent written once; one add per word."""
@@ -282,6 +346,63 @@ def sky_loss(device):
                             tables=tables).mean()
 
     return loss
+
+
+def _lit_quad(material, half, light_at, rgl_fields=None, device="cuda"):
+    """A 2 half x 2 half quad of `material` in the xy plane under a diffuse
+    sphere light of radius 0.3, radiance 14, at `light_at`, built through
+    the port's Scene (the scenes of the JAX package's
+    tests/test_gradients_breadth.py texel and RGL table cases)."""
+    sc = B.Scene()
+    if rgl_fields is not None:
+        sc.take_rgl_table("m", rgl_fields)
+    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(half, half), material))
+    sc.take_sphere(B.SphereObject(light_at, 0.3, B.LightDiffuse(radiance=(14.0,) * 3)),
+                   hot_spot=True)
+    return sc.build(device=device)
+
+
+def _breadth_loss(scene, width, vfov, replace, device):
+    """loss(x) = mean of `replace(scene, x)` rendered differentiably from
+    (0, 0, 2.2) (width^2, 4 spp, 3 path components, as the JAX test)."""
+    static = SceneStatic.from_scene(scene)
+    cam = make_camera(from_lookat((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), device=device), vfov,
+                      width, width, device=device)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=3, differentiable=True)
+
+    def loss(x):
+        return render_frame(replace(scene, x), static, cam, CameraConfig(), SensorRGB(), width,
+                            width, 2, params=params, samples_per_pass=4, device=device,
+                            tables=tables).mean()
+
+    return loss
+
+
+def rgl_table_loss(device):
+    """loss(rgb scale) = mean of tests/test_gradients_breadth.py's RGL quad
+    (its synthetic measured material is scenes.synthetic_rgl_fields(),
+    12 x 12): its gradient runs through K7T."""
+    fields = scenes.synthetic_rgl_fields()
+    scene = _lit_quad(B.RGLMaterial(table_name="m"), 1.2, (0.4, 0.9, 2.2), fields, device)
+    return _breadth_loss(scene, 12, 45.0,
+                         lambda sc, s: sc._replace(rgl=sc.rgl._replace(rgb=sc.rgl.rgb * s)),
+                         device)
+
+
+def texel_loss(device):
+    """loss(texel) = mean of tests/test_gradients_breadth.py's textured quad
+    (a 4 x 4 image albedo of 0.5, 16 x 16) with texel (1, 1) set to the
+    value (float16, as the stack holds it): the lookup's gather backward."""
+    tex = B.ImageTexture(image=np.full((4, 4, 3), 0.5, np.float32), srgb=False)
+    scene = _lit_quad(B.Lambertian(albedo=tex), 1.0, (0.5, 0.8, 2.5), device=device)
+
+    def replace(sc, s):
+        img = sc.textures.img_data.clone()
+        img[0, 1, 1, :] = s.to(torch.float16)
+        return sc._replace(textures=sc.textures._replace(img_data=img))
+
+    return _breadth_loss(scene, 16, 45.0, replace, device)
 
 
 def floor_loss(device, width: int = 128):

@@ -84,6 +84,7 @@ exits) it is counted on these inputs with the plain version.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -111,7 +112,14 @@ from ..render.envmap import (
     env_sample,
     env_sample_plain,
 )
-from ..render.integrator import RenderParams, frame_anim, prepare_scene, render_frame_wavefront
+from ..render.integrator import (
+    RenderParams,
+    accumulate_passes,
+    frame_anim,
+    prepare_scene,
+    render_frame,
+    render_frame_wavefront,
+)
 from ..render.intersect import (
     HitRecord,
     HitTables,
@@ -282,6 +290,18 @@ RTIOW_BVH_REF_STATS = (925885, 925885)
 ANIM_BVH_REF_MEAN = 0.042729496972403025
 ANIM_BVH_REF_STATS = (1130169, 2075217)
 
+# The example apps' scenes through the port's Scene (scenes.noise_textures,
+# scenes.normalmap, scenes.material_comparison), rendered by render_frame on
+# the generic bounce at the apps' sizes: (width, height, samples_sqrt, path
+# components, samples per pass; examples/_common.py picks 8 a pass). Their
+# JAX yardsticks, the JAX package's CPU render_frame of the same scenes
+# (`JAX_PLATFORMS=cpu python jax_frame_reference.py <name>`): (mean, stats).
+EXAMPLE_FRAMES = {"noise_textures": (480, 200, 4, 5, 8), "normalmap": (320, 320, 4, 4, 8),
+                  "material_comparison": (560, 180, 4, 8, 8)}
+EXAMPLE_REFS = {"noise_textures": (0.24381244771883304, (3227255, 4971874)),
+                "normalmap": (0.03950897025361127, (3268027, 4897654)),
+                "material_comparison": (0.3714994989917606, (3569889, 5225797))}
+
 # Camera rays over ROADMAP C.1's scenes (scenes.sphere_field,
 # scenes.tri_sphere_field): 128 x 96 pixels x 8 sample lanes.
 FIELD_WIDTH = 128
@@ -405,6 +425,42 @@ def cornell_animated_bvh_frame(device, scene=None, depth: int = BENCH_DEPTH,
                   t=ANIM_TIME)
 
 
+def example_frame(name: str, device, scene=None, width=None, height=None, ssqrt=None,
+                  depth=None) -> Callable[[], tuple]:
+    """A function that renders an example app's frame (EXAMPLE_FRAMES[name])
+    on `device` through render_frame, the scene's tables built once, and
+    returns (image, stats) once the device is done (with `one_pass`, the
+    frame's first pass alone: its raw accumulator and counters); `scene` is
+    built here when not given; the other arguments replace the app's
+    settings for the tests."""
+    w0, h0, s0, d0, per_pass = EXAMPLE_FRAMES[name]
+    width, height = width or w0, height or h0
+    ssqrt, depth = ssqrt or s0, depth or d0
+    scene = getattr(scenes, name)(device=device) if scene is None else scene
+    pose, vfov = getattr(scenes, f"{name}_camera")(device)
+    cam = make_camera(pose, vfov, width, height, device=device)
+    static = SceneStatic.from_scene(scene)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=depth)
+    per_pass = math.gcd(per_pass, ssqrt * ssqrt)
+
+    def render(one_pass: bool = False):
+        if one_pass:   # the frame's first pass alone, its raw accumulator
+            acc = torch.zeros((width * height, 3), dtype=torch.float32, device=device)
+            out = accumulate_passes(scene, static, cam, CameraConfig(), SensorRGB(), width,
+                                    height, ssqrt, 0.0, 0.0, params, per_pass, acc, 0, 1,
+                                    return_stats=True, device=device, tables=tables)
+        else:
+            out = render_frame(scene, static, cam, CameraConfig(), SensorRGB(), width, height,
+                               ssqrt, params=params, samples_per_pass=per_pass,
+                               return_stats=True, device=device, tables=tables)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    return render
+
+
 def pixel_centre_distance(scene, camera, width: int, height: int, device):
     """[H, W] first-hit distance of the pixel-centre camera rays (K1's t; BIG
     on a miss): the ground truth of a ToF distance image."""
@@ -461,6 +517,13 @@ def _check_frame(img, stats, shape, ref_mean, ref_stats) -> float:
 def check_bench_frame(img, stats) -> float:
     """Hold a Cornell bench frame to the JAX reference; returns its mean radiance."""
     return _check_frame(img, stats, (BENCH_WIDTH, BENCH_WIDTH, 3), REF_MEAN, REF_STATS)
+
+
+def check_example_frame(name: str, img, stats) -> float:
+    """Hold an example app's frame (EXAMPLE_FRAMES) to its JAX yardstick
+    (EXAMPLE_REFS); returns its mean radiance."""
+    w, h = EXAMPLE_FRAMES[name][:2]
+    return _check_frame(img, stats, (h, w, 3), *EXAMPLE_REFS[name])
 
 
 def check_mesh_frame(img, stats) -> float:

@@ -19,17 +19,11 @@ import numpy as np
 
 from ..core.transform import Transformation, from_lookat, quat_from_axis_angle
 from ..render.envmap import EnvironmentMapConstant, EnvironmentMapCube, EnvironmentMapEquiRect
+from ..scene import builder as B
 from ..scene import generator as G
-from ..scene.flatten import (
-    AnimationKeyframes,
-    Glass,
-    MeshSpec,
-    ModPhong,
-    SphereSpec,
-    flatten_meshes,
-    material_table,
-)
-from ..scene.ir import MaterialType
+from ..scene.builder import AnimationKeyframes, Glass
+from ..scene.flatten import MeshSpec, SphereSpec, flatten_meshes, material_table
+from ..scene.ir import MaterialType, TextureType
 from . import cornell_data as cd
 
 
@@ -208,7 +202,7 @@ def terrain_city(seed: int = 3, terrain_res: int = 192, n_buildings: int = 220,
             translation=(bx, float(fbm(bx, bz)) + bh / 2, bz),
             rotation=quat_from_axis_angle((0, 1, 0), rs.uniform(0, np.pi)),
             scale=(rs.uniform(0.4, 1.5), bh, rs.uniform(0.4, 1.5)))
-        meshes.append(cube._replace(material=len(rows) - 1, transformation=tf))
+        meshes.append(MeshSpec.of(cube, len(rows) - 1, transformation=tf))
 
     for i in range(24):
         sx, sz = rs.uniform(-15, 15, 2)
@@ -218,7 +212,7 @@ def terrain_city(seed: int = 3, terrain_res: int = 192, n_buildings: int = 220,
             rows.append((MaterialType.MIRROR, None, None))
         mesh = G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices)
         tf = Transformation.make(translation=(sx, 2.0 + rs.rand(), sz), scale=(0.8, 0.8, 0.8))
-        meshes.append(mesh._replace(material=len(rows) - 1, transformation=tf))
+        meshes.append(MeshSpec.of(mesh, len(rows) - 1, transformation=tf))
 
     return flatten_meshes(meshes, material_table(rows), device, use_bvh=True,
                           envmap=EnvironmentMapEquiRect(procedural_sky(), importance_resolution=32))
@@ -257,18 +251,19 @@ def city_night(seed: int = 7, terrain_res: int = 320, n_buildings: int = 320,
     """The city path's scene (bench config city_many_lights at the defaults:
     249218 triangles, 192 light triangles): an fBm terrain, ModPhong box
     buildings, emissive window quads of powers over two decades, GGX and
-    mirror spheres, all exported to OBJ/MTL and imported again; then a
-    measured-RGL sphere and a dim equirect night sky, behind the port's BVH.
+    mirror spheres, built as a builder Scene, exported to OBJ/MTL and
+    imported again; then a measured-RGL sphere and a dim equirect night sky,
+    behind the port's BVH.
 
     The same arrays as ``wurblpt_tpu.utils.scenes.city_night(...).build(use_bvh=True)``,
     random draws in the same order. The round trip turns the windows into
     emissive ModPhong, the GGX spheres into Lambertian (Kd, no Ks) and the
     mirrors into ModPhong (Ks), as it does in the JAX package."""
     from ..io.obj import export_scene_to_obj, import_into_scene
-    from ..materials.rgl import load_rgl_material
 
     rs = np.random.RandomState(seed)
-    rows = [(MaterialType.LAMBERTIAN, (0.25, 0.28, 0.24), None)]
+    scene = B.Scene()
+    ground = scene.take_material(B.Lambertian(albedo=(0.25, 0.28, 0.24)))
     phases = [(rs.uniform(0, 2 * np.pi), rs.uniform(0, 2 * np.pi)) for _ in range(4)]
 
     def fbm(x, z):
@@ -291,7 +286,8 @@ def city_night(seed: int = 7, terrain_res: int = 320, n_buildings: int = 320,
         idx.append(np.stack([a0 + 1, a0 + res + 1, a0 + res], -1))
     idx = np.concatenate(idx, 0).astype(np.int32)
     uv = np.stack([(xx + 24.0) / 48.0, (zz + 24.0) / 48.0], -1).reshape(-1, 2)
-    meshes = [MeshSpec(pos.astype(np.float32), None, uv.astype(np.float32), idx, 0)]
+    scene.take_mesh_instance(B.MeshInstance(
+        B.Mesh(pos, None, uv.astype(np.float32), indices=idx), ground))
 
     cube = G.generate_cube(0.5)
     building_info = []
@@ -300,53 +296,52 @@ def city_night(seed: int = 7, terrain_res: int = 320, n_buildings: int = 320,
         bh = rs.uniform(0.8, 4.0)
         sx, sz = rs.uniform(0.5, 1.6), rs.uniform(0.5, 1.6)
         col = tuple(0.25 + 0.5 * rs.rand(3))
-        rows.append((MaterialType.MODPHONG, col,
-                     ModPhong(specular=tuple(0.1 + 0.2 * rs.rand(3)),
-                              shininess=float(rs.uniform(20, 160)))))
+        mat = scene.take_material(B.ModPhong(diffuse=col, specular=tuple(0.1 + 0.2 * rs.rand(3)),
+                                             shininess=float(rs.uniform(20, 160))))
         ty = float(fbm(bx, bz)) + bh / 2
         tf = Transformation.make(translation=(bx, ty, bz), scale=(sx, bh, sz))
-        meshes.append(cube._replace(material=len(rows) - 1, transformation=tf))
+        scene.take_mesh_instance(B.MeshInstance(cube, mat, tf))
         building_info.append((bx, ty, bz, sx, bh, sz))
 
     for wi in range(n_windows):
         bx, ty, bz, sx, bh, sz = building_info[wi % len(building_info)]
         warm = np.array([1.0, rs.uniform(0.5, 0.9), rs.uniform(0.2, 0.6)])
-        rows.append((MaterialType.LIGHT_DIFFUSE, tuple(warm * rs.uniform(2.0, 120.0)), None))
+        lm = scene.take_material(B.LightDiffuse(radiance=tuple(warm * rs.uniform(2.0, 120.0))))
         side = 1.0 if wi % 2 == 0 else -1.0
         wtf = Transformation.make(
             translation=(bx + side * (sx * 0.5 + 0.01), ty + rs.uniform(-0.3, 0.3) * bh, bz),
             rotation=quat_from_axis_angle((0, 1, 0), side * np.pi / 2),
             scale=(0.18, 0.12, 1.0))
-        meshes.append(G.generate_quad(1.0, 1.0)._replace(material=len(rows) - 1,
-                                                         transformation=wtf, hot_spot=True))
+        scene.take_mesh_instance(B.MeshInstance(G.generate_quad(1.0, 1.0), lm, wtf),
+                                 hot_spot=True)
 
     for i in range(20):
         sx_, sz_ = rs.uniform(-18, 18, 2)
-        if i % 3:
-            rows.append((MaterialType.GGX, (0.8, 0.7, 0.6), 0.08 + 0.2 * rs.rand()))
-        else:
-            rows.append((MaterialType.MIRROR, None, None))
+        mat = (scene.take_material(B.GGX(albedo=(0.8, 0.7, 0.6),
+                                         roughness=0.08 + 0.2 * rs.rand()))
+               if i % 3 else scene.take_material(B.Mirror()))
         tf = Transformation.make(translation=(sx_, float(fbm(sx_, sz_)) + 1.4, sz_),
                                  scale=(0.8, 0.8, 0.8))
-        meshes.append(G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices)
-                      ._replace(material=len(rows) - 1, transformation=tf))
+        scene.take_mesh_instance(B.MeshInstance(
+            G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices), mat, tf))
 
     with tempfile.TemporaryDirectory(prefix="wurblpt_city_") as workdir:
         path = f"{workdir}/city_night.obj"
-        export_scene_to_obj(meshes, rows, path)
-        meshes, rows = import_into_scene(path)
+        export_scene_to_obj(scene, path)
+        scene = B.Scene()
+        import_into_scene(scene, path)
 
     # After the round trip (MTL cannot hold them): the RGL sphere and the sky.
-    rows.append((MaterialType.RGL, None, 0))
-    meshes.append(G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices)._replace(
-        material=len(rows) - 1,
-        transformation=Transformation.make(translation=(0.0, float(fbm(0.0, 4.0)) + 1.6, 4.0),
-                                           scale=(1.2, 1.2, 1.2))))
+    scene.take_rgl_table("city_rgl", city_rgl_fields(seed))
+    scene.take_mesh_instance(B.MeshInstance(
+        G.generate_sphere(1.0, slices=sphere_slices, stacks=sphere_slices),
+        scene.take_material(B.RGLMaterial(table_name="city_rgl")),
+        Transformation.make(translation=(0.0, float(fbm(0.0, 4.0)) + 1.6, 4.0),
+                            scale=(1.2, 1.2, 1.2))))
     night = procedural_sky(sun_radiance=2.0) * 0.08
-    return flatten_meshes(meshes, material_table(rows), device, use_bvh=True,
-                          envmap=EnvironmentMapEquiRect(night.astype(np.float32),
-                                                        importance_resolution=32),
-                          rgl_tables=[load_rgl_material(city_rgl_fields(seed))])
+    scene.set_environment_map(EnvironmentMapEquiRect(night.astype(np.float32),
+                                                     importance_resolution=32))
+    return scene.build(use_bvh=True, device=device)
 
 
 def city_camera(device="cuda"):
@@ -357,10 +352,11 @@ def city_camera(device="cuda"):
 
 
 def _quad_to(translate, rotation_axis, rotation_angle, half=1.0):
-    """A 2 half x 2 half quad, rotated about `rotation_axis` and moved to `translate`."""
+    """A 2 half x 2 half quad and the pose that turns it about `rotation_axis`
+    and moves it to `translate`: (Mesh, Transformation)."""
     tf = Transformation.make(translation=translate,
                              rotation=quat_from_axis_angle(rotation_axis, rotation_angle))
-    return G.generate_quad(half, half)._replace(transformation=tf)
+    return G.generate_quad(half, half), tf
 
 
 def _equirect_to_cube_faces(img: np.ndarray, face_res: int):
@@ -393,13 +389,13 @@ def envmap_spheres(cube: bool = False, importance_resolution: int = 64, device="
             (MaterialType.GLASS, None, Glass(ior=1.5)),
             (MaterialType.MIRROR, None, None),
             (MaterialType.GGX, (0.8, 0.6, 0.3), 0.15)]
-    ground = _quad_to((0.0, -0.5, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=20.0)
+    gm, gtf = _quad_to((0.0, -0.5, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=20.0)
     spheres = [SphereSpec((-1.2, 0.0, 0.0), 0.5, 1), SphereSpec((0.0, 0.0, 0.0), 0.5, 2),
                SphereSpec((1.2, 0.0, 0.0), 0.5, 3)]
     sky = procedural_sky()
     env = (EnvironmentMapCube(_equirect_to_cube_faces(sky, 32), importance_resolution) if cube
            else EnvironmentMapEquiRect(sky, importance_resolution))
-    return flatten_meshes([ground._replace(material=0)], material_table(rows), device,
+    return flatten_meshes([MeshSpec.of(gm, 0, transformation=gtf)], material_table(rows), device,
                           envmap=env, spheres=spheres)
 
 
@@ -458,19 +454,21 @@ def tof_box(room_half: float = 1.2, device="cuda"):
     h = room_half
     rows = [(MaterialType.LAMBERTIAN, (0.7, 0.7, 0.7), None),
             (MaterialType.LIGHT_TOF, 8.0, np.deg2rad(40))]
-    meshes = [_quad_to(tr, ax, ang, half=h) for tr, ax, ang in (
-        ((0, 0, -h), (1, 0, 0), 0.0),               # back wall
-        ((-h, 0, 0), (0, 1, 0), np.pi / 2),          # left
-        ((h, 0, 0), (0, 1, 0), -np.pi / 2),          # right
-        ((0, -h, 0), (1, 0, 0), -np.pi / 2),         # floor
-        ((0, h, 0), (1, 0, 0), np.pi / 2),           # ceiling
-    )]
-    meshes.append(G.generate_cube(0.25)._replace(
-        transformation=Transformation.make(translation=(0.3, -h + 0.25, -0.4))))
+    meshes = []
+    for tr, ax, ang in (((0, 0, -h), (1, 0, 0), 0.0),               # back wall
+                        ((-h, 0, 0), (0, 1, 0), np.pi / 2),          # left
+                        ((h, 0, 0), (0, 1, 0), -np.pi / 2),          # right
+                        ((0, -h, 0), (1, 0, 0), -np.pi / 2),         # floor
+                        ((0, h, 0), (1, 0, 0), np.pi / 2)):          # ceiling
+        wall, tf = _quad_to(tr, ax, ang, half=h)
+        meshes.append(MeshSpec.of(wall, transformation=tf))
+    meshes.append(MeshSpec.of(G.generate_cube(0.25),
+                              transformation=Transformation.make(translation=(0.3, -h + 0.25,
+                                                                              -0.4))))
     # generate_disk's +z normal turned by pi about y: the light shines into the room.
     tf = Transformation.make(translation=(0.0, 0.0, h - 0.01),
                              rotation=quat_from_axis_angle((0, 1, 0), np.pi))
-    meshes.append(G.generate_disk(0.02, material=1)._replace(transformation=tf, hot_spot=True))
+    meshes.append(MeshSpec.of(G.generate_disk(0.02), 1, transformation=tf, hot_spot=True))
     return flatten_meshes(meshes, material_table(rows), device)
 
 
@@ -485,7 +483,8 @@ def sphere_lit_floor(device="cuda"):
     radiance 30 (the JAX package's tests/test_gradients.py:113-150)."""
     rows = [(MaterialType.LAMBERTIAN, (0.6, 0.5, 0.4), None),
             (MaterialType.LIGHT_DIFFUSE, (30.0, 30.0, 30.0), None)]
-    floor = _quad_to((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=50.0)
+    fm, ftf = _quad_to((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=50.0)
+    floor = MeshSpec.of(fm, transformation=ftf)
     return flatten_meshes([floor], material_table(rows), device,
                           spheres=[SphereSpec((0.0, 6.0, 0.0), 1.0, 1, hot_spot=True)])
 
@@ -501,10 +500,135 @@ def lit_quad(albedo=(0.3, 0.6, 0.4), device="cuda"):
     and camera the JAX package's tests/test_inverse.py:18-26 recover."""
     rows = [(MaterialType.LAMBERTIAN, albedo, None),
             (MaterialType.LIGHT_DIFFUSE, (16.0, 16.0, 16.0), None)]
-    return flatten_meshes([G.generate_quad(1.5, 1.5)], material_table(rows), device,
+    return flatten_meshes([MeshSpec.of(G.generate_quad(1.5, 1.5))], material_table(rows), device,
                           spheres=[SphereSpec((0.6, 1.0, 2.4), 0.3, 1, hot_spot=True)])
 
 
 def lit_quad_camera(device="cuda"):
     """The quad's camera, 2.4 in front of it (vfov 45)."""
     return from_lookat((0.0, 0.0, 2.4), (0.0, 0.0, 0.0), device=device), 45.0
+
+
+# ---------------------------------------------------------------------------
+# The example apps' scenes, built through the port's Scene (examples/*.py)
+# ---------------------------------------------------------------------------
+
+def noise_textures(device="cuda"):
+    """The noise-texture gallery (examples/noise_textures.py; reference app
+    wurblpt-noise-textures.cpp): one Lambertian sphere per noise type
+    (value, gradient, Worley, signed Perlin remapped to [0, 1], Perlin
+    turbulence) on a 24 x 24 checkered floor, a sphere light and a constant
+    sky. The same arrays as the JAX app's scene."""
+    scene = B.Scene()
+    floor = scene.take_material(B.Lambertian(
+        albedo=B.CheckerTexture(color1=(0.25,) * 3, color2=(0.6,) * 3, squares=(24, 24))))
+    fm, ftf = _quad_to((0.0, -0.5, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=12.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    kinds = [
+        B.NoiseTexture(kind=TextureType.VALUE_NOISE, octaves=4, frequency=6.0),
+        B.NoiseTexture(kind=TextureType.GRADIENT_NOISE, octaves=4, frequency=6.0),
+        B.NoiseTexture(kind=TextureType.WORLEY_NOISE, frequency=8.0),
+        B.NoiseTexture(kind=TextureType.PERLIN_NOISE, frequency=8.0, turbulence=False,
+                       val_scale=(0.7, 0.7, 0.7, 1.0), val_offset=(0.5, 0.5, 0.5, 0.0)),
+        B.NoiseTexture(kind=TextureType.PERLIN_NOISE, octaves=7, frequency=6.0, gain=0.5,
+                       turbulence=True),
+    ]
+    for i, tex in enumerate(kinds):
+        scene.take_sphere(B.SphereObject((-3.0 + 1.5 * i, 0.1, 0.0), 0.6,
+                                         B.Lambertian(albedo=tex)))
+    light = scene.take_material(B.LightDiffuse(radiance=(26.0, 24.0, 22.0)))
+    scene.take_sphere(B.SphereObject((0.0, 5.0, 3.0), 0.8, light), hot_spot=True)
+    scene.set_environment_map(EnvironmentMapConstant(radiance=(0.25, 0.28, 0.35)))
+    return scene.build(device=device)
+
+
+def noise_textures_camera(device="cuda"):
+    """The noise gallery's viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0.0, 1.3, 5.2), (0.0, 0.0, 0.0), device=device), 32.0
+
+
+def brick_normal_map(h=256, w=256, scale=2.5):
+    """Tangent-space normal map of bevelled bricks [h, w, 3] in [0, 1]
+    (examples/normalmap.py)."""
+    ys, xs = np.meshgrid(np.arange(h) / h, np.arange(w) / w, indexing="ij")
+    bricks_y = (ys * 4.0) % 1.0
+    row = np.floor(ys * 4.0).astype(int)
+    bricks_x = (xs * 4.0 + np.where(row % 2 == 0, 0.0, 0.5)) % 1.0
+
+    def roll(v, width=0.08):   # 1 inside a brick, rolling off near the mortar lines
+        return np.clip(np.minimum(v, 1.0 - v) / width, 0.0, 1.0)
+
+    hgt = np.minimum(roll(bricks_x), roll(bricks_y))
+    dhx = np.roll(hgt, -1, 1) - np.roll(hgt, 1, 1)
+    dhy = np.roll(hgt, -1, 0) - np.roll(hgt, 1, 0)
+    n = np.stack([-scale * dhx, -scale * dhy, np.full_like(hgt, 2.0 / w)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return ((n + 1.0) * 0.5).astype(np.float32)
+
+
+def normalmap(map_size: int = 256, device="cuda"):
+    """The normal-mapping demo (examples/normalmap.py; reference app
+    wurblpt-normalmap.cpp): a Lambertian quad with a `map_size`^2 brick
+    normal map (linear texels), lit by a sphere light."""
+    scene = B.Scene()
+    nmap = B.ImageTexture(image=brick_normal_map(map_size, map_size), srgb=False)
+    scene.take_mesh_instance(B.MeshInstance(
+        G.generate_quad(1.0, 1.0), B.Lambertian(albedo=(0.7, 0.45, 0.3), normal_map=nmap)))
+    light = scene.take_material(B.LightDiffuse(radiance=(20.0,) * 3))
+    scene.take_sphere(B.SphereObject((1.6, 1.2, 2.2), 0.25, light), hot_spot=True)
+    return scene.build(device=device)
+
+
+def normalmap_camera(device="cuda"):
+    """The normal-map demo's viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0.0, -0.4, 2.4), (0.0, 0.0, 0.0), device=device), 42.0
+
+
+def synthetic_rgl_fields(seed: int = 0):
+    """A small synthetic RGL dataset (examples/material_comparison.py
+    `_synthetic_rgl`): P = 1, T = 4, smooth positive tables from `seed`."""
+    T = 4
+    return dict(
+        phi_i=np.zeros((1,), np.float32),
+        theta_i=np.linspace(0.0, np.pi / 2, T).astype(np.float32),
+        ndf=_smooth_positive((16, 16), seed + 1),
+        sigma=_smooth_positive((16, 16), seed + 2, 0.2, 0.4),
+        vndf=_smooth_positive((1, T, 16, 16), seed + 3),
+        luminance=_smooth_positive((1, T, 8, 8), seed + 4),
+        rgb=_smooth_positive((1, T, 3, 8, 8), seed + 5),
+    )
+
+
+def material_comparison(device="cuda"):
+    """The material grid (examples/material_comparison.py; reference apps
+    wurblpt-material-comparison / -playground): one sphere per model
+    (Lambertian, rough and smooth GGX, anisotropic GGX, dispersive glass,
+    mirror, ModPhong, a measured RGL table) on a 32 x 32 checkered floor,
+    a sphere light and a constant sky."""
+    scene = B.Scene()
+    floor = scene.take_material(B.Lambertian(
+        albedo=B.CheckerTexture(color1=(0.3,) * 3, color2=(0.55,) * 3, squares=(32, 32))))
+    fm, ftf = _quad_to((0.0, -0.5, 0.0), (1.0, 0.0, 0.0), -np.pi / 2, half=14.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    scene.take_rgl_table("measured", synthetic_rgl_fields())
+    mats = [
+        B.Lambertian(albedo=(0.7, 0.3, 0.25)),
+        B.GGX(albedo=(0.9, 0.7, 0.3), roughness=0.25),
+        B.GGX(albedo=(0.9, 0.9, 0.95), roughness=0.03),
+        B.GGX(albedo=(0.8, 0.8, 0.9), roughness=(0.02, 0.3)),   # anisotropic
+        B.Glass(ior=(1.50, 1.52, 1.54, 1.52)),                   # dispersive
+        B.Mirror(),
+        B.ModPhong(diffuse=(0.2, 0.35, 0.6), specular=(0.4,) * 3, shininess=90.0),
+        B.RGLMaterial(table_name="measured"),
+    ]
+    for i, m in enumerate(mats):
+        scene.take_sphere(B.SphereObject((-5.25 + 1.5 * i, 0.1, 0.0), 0.6, m))
+    light = scene.take_material(B.LightDiffuse(radiance=(30.0,) * 3))
+    scene.take_sphere(B.SphereObject((0.0, 6.0, 4.0), 1.0, light), hot_spot=True)
+    scene.set_environment_map(EnvironmentMapConstant(radiance=(0.35, 0.4, 0.5)))
+    return scene.build(device=device)
+
+
+def material_comparison_camera(device="cuda"):
+    """The material grid's viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0.0, 1.6, 9.0), (0.0, 0.0, 0.0), device=device), 16.0
