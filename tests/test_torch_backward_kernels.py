@@ -27,6 +27,7 @@ import torch
 
 from wurblpt_tpu_torch import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
 from wurblpt_tpu_torch import render_frame, render_frame_wavefront
+from wurblpt_tpu_torch.materials import rgl
 from wurblpt_tpu_torch.render import backward as bw
 from wurblpt_tpu_torch.render.bsdf import gather_material_rows, pack_material_table
 from wurblpt_tpu_torch.render.envmap import (EnvironmentMapConstant, build_envmap_arrays,
@@ -265,6 +266,34 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
              for a in node.names]
     names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
     assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "wurblpt_tpu")]
+
+
+def test_the_materials_layer_imports_nothing_of_the_render_layer():
+    """K7T's wrapper and autograd Functions sit beside K7's in
+    materials/rgl.py (render/backward.py re-exports them): the dependency
+    runs from the render layer to the materials layer only."""
+    for path in sorted((REPO / "wurblpt_tpu_torch" / "materials").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        mods = [node.module or "" for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level > 0]
+        assert not [m for m in mods if m.split(".")[0] == "render"], path.name
+    assert bw.rgl_bwd is rgl.rgl_bwd and bw.rgl_bwd_plain is rgl.rgl_bwd_plain
+
+
+@pytest.mark.parametrize("sample", (False, True), ids=("eval", "sample"))
+def test_k7t_bound_counts_only_what_k7t_moves(sample):
+    """K7T's bound (grad_check.rgl_bwd_work) charges a lane mid, wi, wo or
+    u2 and the 4 cotangent words (44 or 40 B), none of K7's forward outputs,
+    and the tables read once with the rgb, ndf and sigma cotangents written
+    once."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    n = 64
+    tables = gc.rgl_lanes("cpu", n=n)[0]
+    base = gc.rgl_bwd_work(tables, 0, sample)[0]
+    assert base == kc._table_bytes(tables) + sum(getattr(tables, k).numel() * 4
+                                                 for k in rgl.GRAD_TABLES)
+    assert gc.rgl_bwd_work(tables, n, sample)[0] - base == n * (40 if sample else 44)
 
 
 # ---------------------------------------------------------------------------

@@ -237,7 +237,8 @@ def test_pdf_is_a_density():
 
 
 def test_spectral_datasets_are_refused():
-    """Spectral datasets, once refused, are ported: a spectral dataset (the city's
+    """Spectral datasets, once refused, are ported (the test keeps the name it
+    had while they were refused): a spectral dataset (the city's
     tables with 8 wavelength slices from 380 to 900 nm) loads as the JAX
     package loads it: RGB integrated against D65 x the CIE matching
     functions, the slice nearest 850 nm as NIR (rtol 1e-6: exp and pow of

@@ -82,11 +82,9 @@ def test_sample_texture_matches_jax(texture_scenes, tid, name):
     ids = np.full((n,), tid, np.int32)
     ref = np.asarray(jsample_texture(js.textures, jnp.asarray(ids), jnp.asarray(uv)))
     ctx = TexCtx.of(ps)
-    got = sample_texture(ps.textures, torch.from_numpy(ids), torch.from_numpy(uv), ctx.static)
+    got = sample_texture(ps.textures, torch.from_numpy(ids), torch.from_numpy(uv), ctx.static,
+                         ctx.desc)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0.0, atol=1e-6)
-    # without the static facts every branch runs, to the same values
-    full = sample_texture(ps.textures, torch.from_numpy(ids), torch.from_numpy(uv))
-    assert torch.equal(full, got)
 
 
 def _quad_scene(M, material, **build):

@@ -21,6 +21,12 @@ one-hot `_extract` becomes a direct load: exactly one of its terms is
 non-zero; its division by the constant 2 pi is the multiplication by the
 float32 reciprocal that XLA executes.
 
+Backward: where the rgb, ndf or sigma table requires grad, `rgl_eval` and
+`rgl_sample` go on the autograd tape (`RglEval`, `RglSample`), whose
+backward is K7T (`rgl_bwd`, ``csrc/backward.cu``): the cotangents of those
+tables from that of f*cos, scatter-added into their bilinear cells; its
+plain version (`rgl_bwd_plain`) is autograd through the plain forward.
+
 `rgl_sample_lanes` / `rgl_eval_lanes` are the bsdf lane adapters: world
 directions into the hit's tangent frame and back.
 """
@@ -562,10 +568,8 @@ def rgl_eval(tables: RGLTables, mid, wi, wo):
     """(f*cos [N, 4], pdf [N]) of the measured BRDF for tangent-space wi, wo
     (K7 eval). Where the rgb, ndf or sigma table requires grad (and grad
     mode is on), the call is on the tape: its backward is K7T
-    (render/backward.py `RglEval`); the pdf carries no gradient."""
+    (`RglEval`); the pdf carries no gradient."""
     if _on_tape("rgl_eval", tables, wi, wo):
-        from ..render.backward import RglEval
-
         return RglEval.apply(tables, mid, wi, wo, *(getattr(tables, k) for k in GRAD_TABLES))
     return rgl_eval_raw(tables, mid, wi, wo)
 
@@ -589,11 +593,8 @@ def rgl_eval_raw(tables: RGLTables, mid, wi, wo):
 
 def rgl_sample(tables: RGLTables, mid, wi, u2):
     """(wo [N, 3], f*cos [N, 4], pdf [N], ok [N]) sampled from uniforms u2
-    (K7 sample); on the tape as `rgl_eval` (render/backward.py
-    `RglSample`): only f*cos carries a gradient."""
+    (K7 sample); on the tape as `rgl_eval` (`RglSample`): only f*cos carries a gradient."""
     if _on_tape("rgl_sample", tables, wi):
-        from ..render.backward import RglSample
-
         return RglSample.apply(tables, mid, wi, u2, *(getattr(tables, k) for k in GRAD_TABLES))
     return rgl_sample_raw(tables, mid, wi, u2)
 
@@ -617,6 +618,83 @@ def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
     native.check(code, "rgl_sample")
     native.LAUNCHES["rgl_sample"] += 1
     return wo, fcos, pdf, ok
+
+
+# ---------------------------------------------------------------------------
+# K7T: the measured RGL BRDF's reflectance tables
+# ---------------------------------------------------------------------------
+
+def rgl_bwd_plain(tables, mid, wi, x, g_f, sample: bool, magnitudes: bool = False):
+    """Plain version of K7T: the cotangents of `GRAD_TABLES`
+    (rgb, ndf, sigma) from g_f [N, 4], that of K7 eval's (x = wo [N, 3]) or
+    sample's (x = the uniforms [N, 2]) f*cos, by autograd through the plain
+    forward. With `magnitudes`, the same of |g_f| taken in absolute value:
+    a bound on the sums of |term| (every weight and value is positive)."""
+    with torch.enable_grad():
+        leaves = [getattr(tables, k).detach().requires_grad_() for k in GRAD_TABLES]
+        t = tables._replace(**dict(zip(GRAD_TABLES, leaves)))
+        f = (rgl_sample_plain(t, mid, wi, x)[1] if sample
+             else rgl_eval_plain(t, mid, wi, x)[0])
+        g = g_f.abs() if magnitudes else g_f
+        grads = torch.autograd.grad(f, leaves, g, allow_unused=True)
+    out = [torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves)]
+    return [x.abs() for x in out] if magnitudes else out
+
+
+def rgl_bwd(tables, mid, wi, x, g_f, sample: bool):
+    """K7T (``csrc/backward.cu``): `rgl_bwd_plain`'s function, the kernel on
+    CUDA tensors."""
+    g_f = g_f.contiguous()
+    if wi.device.type == "cpu":
+        return rgl_bwd_plain(tables, mid, wi, x, g_f, sample)
+    if wi.device.type != "cuda":
+        raise ValueError(f"rgl_bwd: no kernel for device {wi.device}")
+    lib = native.load_kernels()
+    out = [torch.zeros_like(getattr(tables, k)) for k in GRAD_TABLES]
+    ct = c_tables(tables)
+    code = lib.wpt_rgl_bwd(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(),
+                           x.contiguous().data_ptr(), mid.shape[0], int(sample), g_f.data_ptr(),
+                           *(g.data_ptr() for g in out), native.stream_ptr(wi))
+    native.check(code, "rgl_bwd")
+    native.LAUNCHES["rgl_bwd"] += 1
+    return out
+
+
+class RglEval(torch.autograd.Function):
+    """K7 eval forward, K7T backward (f*cos only: the pdf reads none of the
+    tables K7T carries)."""
+
+    @staticmethod
+    def forward(ctx, tables, mid, wi, wo, rgb, ndf, sigma):
+        fcos, pdf = rgl_eval_raw(tables, mid, wi, wo)
+        ctx.tables = tables
+        ctx.save_for_backward(mid, wi, wo)
+        ctx.mark_non_differentiable(pdf)
+        return fcos, pdf
+
+    @staticmethod
+    def backward(ctx, g_f, _g_pdf):
+        mid, wi, wo = ctx.saved_tensors
+        return (None, None, None, None,
+                *rgl_bwd(ctx.tables, mid, wi, wo, g_f, sample=False))
+
+
+class RglSample(torch.autograd.Function):
+    """K7 sample forward, K7T backward (f*cos only)."""
+
+    @staticmethod
+    def forward(ctx, tables, mid, wi, u2, rgb, ndf, sigma):
+        wo, fcos, pdf, ok = rgl_sample_raw(tables, mid, wi, u2)
+        ctx.tables = tables
+        ctx.save_for_backward(mid, wi, u2)
+        ctx.mark_non_differentiable(wo, pdf, ok)
+        return wo, fcos, pdf, ok
+
+    @staticmethod
+    def backward(ctx, _g_wo, g_f, _g_pdf, _g_ok):
+        mid, wi, u2 = ctx.saved_tensors
+        return (None, None, None, None,
+                *rgl_bwd(ctx.tables, mid, wi, u2, g_f, sample=True))
 
 
 # ---------------------------------------------------------------------------

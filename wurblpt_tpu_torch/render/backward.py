@@ -33,8 +33,10 @@ kernel of its own (``csrc/backward.cu``) with a plain PyTorch version:
   max(rgb, 0) x ndf / max(4 sigma, 1e-12) (`materials.rgl.GRAD_TABLES`),
   scatter-added into their bilinear cells, from that of its f*cos; the
   plain version is autograd through `rgl_eval_plain` / `rgl_sample_plain`.
-  The warp tables and the directions are refused where they require grad
-  (`materials.rgl._on_tape`).
+  Its wrapper and `autograd.Function`s live beside K7's in
+  `materials/rgl.py` and are re-exported here; its kernel is in
+  ``csrc/backward.cu`` with the others. The warp tables and the directions
+  are refused where they require grad (`materials.rgl._on_tape`).
 
 On CPU tensors each backward runs its plain version; on CUDA tensors it
 launches its kernel or raises. The tests hold each plain backward to
@@ -52,8 +54,8 @@ import torch
 
 from .. import native
 from ..core.transform import quat_rotate
-from ..materials import rgl as _rgl
 from ..core.vecmath import cross, dot
+from ..materials.rgl import RglEval, RglSample, rgl_bwd, rgl_bwd_plain  # noqa: F401  (K7T)
 from . import envmap as _env
 from . import intersect as _isect
 from .gather import row_gather_raw
@@ -475,77 +477,3 @@ class EnvRadiance(torch.autograd.Function):
         (d,) = ctx.saved_tensors
         g_d, g_img, g_const = env_radiance_bwd(ctx.env, d, g)
         return None, g_d, g_img, g_const
-
-
-# ---------------------------------------------------------------------------
-# K7T: the measured RGL BRDF's reflectance tables
-# ---------------------------------------------------------------------------
-
-def rgl_bwd_plain(tables, mid, wi, x, g_f, sample: bool, magnitudes: bool = False):
-    """Plain version of K7T: the cotangents of `materials.rgl.GRAD_TABLES`
-    (rgb, ndf, sigma) from g_f [N, 4], that of K7 eval's (x = wo [N, 3]) or
-    sample's (x = the uniforms [N, 2]) f*cos, by autograd through the plain
-    forward. With `magnitudes`, the same of |g_f| taken in absolute value:
-    a bound on the sums of |term| (every weight and value is positive)."""
-    with torch.enable_grad():
-        leaves = [getattr(tables, k).detach().requires_grad_() for k in _rgl.GRAD_TABLES]
-        t = tables._replace(**dict(zip(_rgl.GRAD_TABLES, leaves)))
-        f = (_rgl.rgl_sample_plain(t, mid, wi, x)[1] if sample
-             else _rgl.rgl_eval_plain(t, mid, wi, x)[0])
-        g = g_f.abs() if magnitudes else g_f
-        grads = torch.autograd.grad(f, leaves, g, allow_unused=True)
-    out = [torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves)]
-    return [x.abs() for x in out] if magnitudes else out
-
-
-def rgl_bwd(tables, mid, wi, x, g_f, sample: bool):
-    """K7T: `rgl_bwd_plain`'s function, the kernel on CUDA tensors."""
-    g_f = g_f.contiguous()
-    if wi.device.type == "cpu":
-        return rgl_bwd_plain(tables, mid, wi, x, g_f, sample)
-    lib = _cuda_lib("rgl_bwd", wi)
-    out = [torch.zeros_like(getattr(tables, k)) for k in _rgl.GRAD_TABLES]
-    ct = _rgl.c_tables(tables)
-    code = lib.wpt_rgl_bwd(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(),
-                           x.contiguous().data_ptr(), mid.shape[0], int(sample), g_f.data_ptr(),
-                           *(g.data_ptr() for g in out), native.stream_ptr(wi))
-    native.check(code, "rgl_bwd")
-    native.LAUNCHES["rgl_bwd"] += 1
-    return out
-
-
-class RglEval(torch.autograd.Function):
-    """K7 eval forward, K7T backward (f*cos only: the pdf reads none of the
-    tables K7T carries)."""
-
-    @staticmethod
-    def forward(ctx, tables, mid, wi, wo, rgb, ndf, sigma):
-        fcos, pdf = _rgl.rgl_eval_raw(tables, mid, wi, wo)
-        ctx.tables = tables
-        ctx.save_for_backward(mid, wi, wo)
-        ctx.mark_non_differentiable(pdf)
-        return fcos, pdf
-
-    @staticmethod
-    def backward(ctx, g_f, _g_pdf):
-        mid, wi, wo = ctx.saved_tensors
-        return (None, None, None, None,
-                *rgl_bwd(ctx.tables, mid, wi, wo, g_f, sample=False))
-
-
-class RglSample(torch.autograd.Function):
-    """K7 sample forward, K7T backward (f*cos only)."""
-
-    @staticmethod
-    def forward(ctx, tables, mid, wi, u2, rgb, ndf, sigma):
-        wo, fcos, pdf, ok = _rgl.rgl_sample_raw(tables, mid, wi, u2)
-        ctx.tables = tables
-        ctx.save_for_backward(mid, wi, u2)
-        ctx.mark_non_differentiable(wo, pdf, ok)
-        return wo, fcos, pdf, ok
-
-    @staticmethod
-    def backward(ctx, _g_wo, g_f, _g_pdf, _g_ok):
-        mid, wi, u2 = ctx.saved_tensors
-        return (None, None, None, None,
-                *rgl_bwd(ctx.tables, mid, wi, u2, g_f, sample=True))

@@ -252,17 +252,12 @@ def pack_texture_descriptors(tt: TextureTable) -> torch.Tensor:
                       hw], -1).contiguous()
 
 
-def sample_texture(tt: TextureTable, tex_id, uv, ts: Optional[TextureStatic] = None,
-                   desc: Optional[torch.Tensor] = None):
+def sample_texture(tt: TextureTable, tex_id, uv, ts: TextureStatic, desc: torch.Tensor):
     """Texture values [N, 4] (RGB + NIR, after the value affine) of texture
     ids tex_id [N] (clipped to the table) at texcoords uv [N, 2]: one row
-    gather (P0) of the packed descriptors `desc` (`pack_texture_descriptors`,
-    packed here when not given), the texels by PyTorch indexing. `ts`
-    (`TextureStatic.of`) skips the branches of types the table lacks;
-    without it every branch runs, as in the JAX package."""
-    ts = ts or TextureStatic(frozenset(range(7)), tt.img_data.shape[0] > 0, _MAX_OCTAVES,
-                             frozenset(TEX_COLUMNS))
-    desc = pack_texture_descriptors(tt) if desc is None else desc
+    gather (P0) of the packed descriptors `desc` (`pack_texture_descriptors`),
+    the texels by PyTorch indexing; `ts` (`TextureStatic.of`) skips the
+    branches of types the table lacks. `TexCtx.sample` passes a scene's."""
     tid = torch.clamp(tex_id, 0, tt.count - 1).to(torch.int32).contiguous()
     row = row_gather(desc, tid)
     params, uv_scale, uv_offset = row[:, 0:8], row[:, 8:10], row[:, 10:12]

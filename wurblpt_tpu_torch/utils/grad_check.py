@@ -47,7 +47,7 @@ import torch
 
 from ..core.transform import from_lookat
 from ..inverse import fit
-from ..materials.rgl import load_rgl_material, stack_rgl_tables
+from ..materials.rgl import GRAD_TABLES, load_rgl_material, stack_rgl_tables
 from ..render.backward import (
     assemble_hit_bwd,
     assemble_hit_bwd_plain,
@@ -255,14 +255,16 @@ def check_rgl_bwd(tables, mid, wi, x, g_f, sample: bool) -> Dict[str, float]:
 
 
 def rgl_bwd_work(tables, n: int, sample: bool):
-    """K7T: mid, wi, wo or u2 and the 4 cotangent words read per lane, the
+    """K7T: per lane mid, wi, wo (eval) or u2 (sample) and the 4 cotangent
+    words read (44 or 40 B; K7T writes none of the forward's outputs), the
     tables read once and the rgb, ndf and sigma cotangents written once; the
     forward's flops (kernel_check.rgl_work's 450 or 900 a lane) and ~150
     more for the tail's backward (16 corner fetches again, 64 rgb terms, 8
     ndf and sigma terms)."""
-    t_bytes, flops = kc.rgl_work(tables, n, sample)
-    out = sum(getattr(tables, k).numel() * 4 for k in ("rgb", "ndf", "sigma"))
-    return t_bytes + n * 16 + out, flops + n * 150.0
+    _, flops = kc.rgl_work(tables, n, sample)
+    lane = 4 + 12 + (8 if sample else 12) + 16
+    out = sum(getattr(tables, k).numel() * 4 for k in GRAD_TABLES)
+    return n * lane + kc._table_bytes(tables) + out, flops + n * 150.0
 
 
 def row_scatter_work(g, idx, rows):
