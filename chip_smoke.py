@@ -98,7 +98,17 @@ Phases, each a function, any failure exits non-zero and names its phase:
    animations side by side, 1111 lanes): its outputs filled first, the
    set's fields bit-equal to the plain version's on hit lanes and every
    miss lane as it was filled; timed on the Cornell, mesh, city and
-   cornell_animated blocks.
+   cornell_animated blocks. Motion blur (each lane's own frame rows,
+   anim_frames_per_ray): KS1, KS2 and K3a's full form bit-equal (K3a
+   within K3's tolerance) on the rolling_marbles pass's 518400 camera rays
+   (times in its shutter), random rays and sphere-light shadow rays, and
+   on the cornell_animated block's camera and random rays (times in [0,
+   1]); K5 and K6 on the cornell_animated_blur tree (swept over [0, 1]:
+   camera, random and moving-light shadow rays, every lane dead) on the
+   branch its size picks and on the L2 walk; timed there (records
+   `*_per_ray`, each with its device us a launch). The thin lens in the
+   pinhole regeneration (record `regen_dof`) with the other K4 kernels on
+   the rtiow_dof frame's first block.
 4. main path - the Cornell bench frame (128 x 128, 16 spp, 8 path
    components, SensorRGB) through render_frame_wavefront on the GPU. K1,
    K2, K3's K4 form and K4 must be launched and P0 and K3's full form not, the image must be finite, its
@@ -239,7 +249,28 @@ both animated paths; K5's and K6's static triangle records those of the
 mesh and city paths, their sphere-row record the rtiow_bvh path's and
 their object-space records the cornell_animated_bvh path's.
 
-13. scene_api - the example apps' three scenes built through the port's
+13. rtiow_dof path - examples/rtiow.py's depth-of-field frame (rtiow(),
+   320 x 200, 16 spp, 8 path components, aperture 0.08 focused at 10, 25
+   degrees) through render_frame_wavefront on K4's env class: the pinhole
+   regeneration through the thin lens, K1, K3's K4 form and the env shade
+   must launch, and neither K2, P0, the resolve nor K8's stand-alone
+   kernels; held to its JAX yardstick (`jax_frame_reference.py
+   rtiow_dof`) as in phase 4, at most 4.00 launches per step of the loop
+   and 8 per step of the frame.
+14. motion - the motion-blurred frames (kernel_check.MOTION_FRAMES), one
+   path each: rolling_marbles (examples/rolling_marbles.py frame 0: 320 x
+   180, 9 spp, 8 path components, shutter [0, 1/48], five textured
+   rolling spheres under a sphere light, one pass of 9 samples) and
+   animations (examples/animations.py frame 0: 192 x 144, 16 spp, 6 path
+   components, [0, 0.02]) through render_frame, and cornell_animated_blur
+   (the animated box with its spheres in a BVH swept over [0, 1], the
+   Cornell settings over [0, 1]) through render_frame_wavefront, which
+   hands it to render_frame: KS1/KS2 (K5/K6 on the BVH), K3a's full form
+   and P0 must launch with each lane's own frame rows, and no K4 kernel;
+   each held to its JAX CPU yardstick (kernel_check.MOTION_REFS: mean
+   within 1e-3, counters within 0.5 %); frame ms, peak memory and a
+   profiled frame's launches and device time printed.
+15. scene_api - the example apps' three scenes built through the port's
    Scene on the card (scenes.noise_textures: a checker floor and the five
    noise textures on spheres, a sphere light, a constant sky;
    scenes.normalmap: a 256 x 256 brick normal map on a quad; and
@@ -254,12 +285,14 @@ their object-space records the cornell_animated_bvh path's.
    (kernel_check.EXAMPLE_REFS: mean within 1e-3, counters within 0.5 %);
    frame ms (median of 5 after the first), and the CUDA kernel launches and
    device time of one profiled pass printed.
-14. grad - the pass renderer and the differentiable render
-   (utils/grad_check.py): first the four backward kernels against their
+16. grad - the pass renderer and the differentiable render
+   (utils/grad_check.py): first the five backward kernels against their
    plain versions at a differentiable frame's shapes, each timed (wrapper
    call, device time a launch, plain version, `index_add_` for P0T)
    beside its bound: P0T on the Cornell block's material rows after 2
-   bounces, K3T on that block's winners, K8T on the envmap frame's
+   bounces, K3T on that block's winners, K3aT on the animated box with
+   spheres' 131072 camera winners with the rows of one instant and with
+   per-ray rows (timed per ray), K8T on the envmap frame's
    directions on the equirect and the cube map, K7T on 131072 lanes of two
    synthetic RGL materials (eval and sample; timed on sample) (random
    cotangents; the scattered tables within 1e-4 of the sum of their
@@ -277,8 +310,11 @@ their object-space records the cornell_animated_bvh path's.
    1e-3); the RGL quad's d(mean)/d(rgb table scale) (K7T) and the
    textured quad's d(mean)/d(one texel) against central differences (eps
    1e-2 and 1/16, rtol 3e-2 and 8e-2: tests/test_gradients_breadth.py's
-   scenes and tolerances); `fit` recovering the lit quad's albedo at 128 x
-   128 (4 spp, 40 Adam steps) within 0.06, its last loss under a quarter
+   scenes and tolerances); the moving floor over the shutter [0, 1]
+   (utils/grad_check.moving_floor, 64 x 64, 4 spp, depth 3: per-ray rows,
+   K3a and K3aT) with d(mean)/d(its vertices' y) and d(mean)/d(a keyframe's
+   y translation) against central differences (eps 1e-2, rtol 3e-2);
+   `fit` recovering the lit quad's albedo at 128 x 128 (4 spp, 40 Adam steps) within 0.06, its last loss under a quarter
    of its first.
    Each differentiable step prints its forward and backward ms, the
    port's kernel launches, peak memory and, from a profiled step, the
@@ -306,7 +342,8 @@ DEVICE = "cuda"
 kc = np = torch = None   # bound in main(): nothing is imported before the CUDA check
 
 K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", "tof path",
-            "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path")
+            "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path",
+            "rtiow_dof path")
 GRAD_PATH = "grad path"
 # The example apps' scenes built through the port's Scene, one path each
 # (phase scene_api): render_frame on the generic bounce, and the hand
@@ -317,7 +354,24 @@ SCENE_API = {"noise_textures": ("closest_hit", "any_hit", "assemble_hit", "row_g
              "material_comparison": ("closest_hit", "any_hit", "assemble_hit", "row_gather",
                                      "env_radiance", "rgl_eval", "rgl_sample")}
 SCENE_PATHS = tuple(f"scene_api {name}" for name in SCENE_API)
-PATHS = K4_PATHS + SCENE_PATHS + (GRAD_PATH,)
+# The motion-blurred frames (kernel_check.MOTION_FRAMES), one path each
+# (phase motion): render_frame over the shutter (cornell_animated_blur
+# through render_frame_wavefront, which hands it to render_frame), each ray
+# at its own time, on the generic bounce; the hand kernels each must launch
+# there: the casts and K3a's full form with per-ray rows.
+MOTION = {"rolling_marbles": ("sweep_closest", "sweep_any", "assemble_hit_anim", "row_gather"),
+          "animations": ("sweep_closest", "sweep_any", "assemble_hit_anim", "row_gather"),
+          "cornell_animated_blur": ("bvh_closest_hit", "bvh_any_hit", "assemble_hit_anim",
+                                    "row_gather")}
+MOTION_PATHS = tuple(f"{name} path" for name in MOTION)
+MOTION_ABSENT = ("regen_pinhole", "regen_surround", "shade_diffuse", "shade_env", "shade_lit",
+                 "assemble_hit_k4", "assemble_hit_k4_anim", "assemble_hit", "closest_hit",
+                 "any_hit")
+PATHS = K4_PATHS + SCENE_PATHS + MOTION_PATHS + (GRAD_PATH,)
+# the paths whose animated casts read each ray's own rows (the grad path's
+# animated step is over a shutter too), and the others
+PER_RAY = MOTION_PATHS + (GRAD_PATH,)
+ONE_INSTANT = tuple(p for p in PATHS if p not in PER_RAY)
 # Kernel launches per step of a K4 frame's loop: the regeneration (which
 # first adds the step before's NEE deposits and flags the loop condition),
 # the closest-hit cast, K3's K4 form (K3a's animated; no hit mask: the
@@ -399,7 +453,7 @@ KERNELS = {
                              ("envmap path",)),
     "shade_env_glass_constant": ("wurblpt_tpu_torch/csrc/wavefront.cu",
                                  "wurblpt_tpu/render/integrator.py:400", ("shade_env",),
-                                 ("rtiow path", "rtiow_bvh path")),
+                                 ("rtiow path", "rtiow_bvh path", "rtiow_dof path")),
     "shade_lit": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:400",
                   ("shade_lit",), ("city path",)),
     "nee_resolve": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/integrator.py:648",
@@ -407,18 +461,39 @@ KERNELS = {
     "nee_resolve_lit": ("wurblpt_tpu_torch/csrc/wavefront.cu",
                         "wurblpt_tpu/render/integrator.py:648", ("nee_resolve",), ("city path",)),
     "sweep_closest": ("wurblpt_tpu_torch/csrc/sweep_closest.cu",
-                      "wurblpt_tpu/render/intersect.py:216", ("sweep_closest",), PATHS),
+                      "wurblpt_tpu/render/intersect.py:216", ("sweep_closest",), ONE_INSTANT),
     "sweep_any": ("wurblpt_tpu_torch/csrc/sweep_any.cu", "wurblpt_tpu/render/intersect.py:397",
-                  ("sweep_any",), PATHS),
+                  ("sweep_any",), ONE_INSTANT),
     "assemble_hit_anim": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
-                          "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_anim",), PATHS),
+                          "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_anim",),
+                          ONE_INSTANT),
+    # motion blur: the sweeps, K3a and K5/K6 with each lane's own frame rows
+    "sweep_closest_per_ray": ("wurblpt_tpu_torch/csrc/sweep_closest.cu",
+                              "wurblpt_tpu/render/intersect.py:216", ("sweep_closest",),
+                              ("rolling_marbles path", "animations path", GRAD_PATH)),
+    "sweep_any_per_ray": ("wurblpt_tpu_torch/csrc/sweep_any.cu",
+                          "wurblpt_tpu/render/intersect.py:397", ("sweep_any",),
+                          ("rolling_marbles path", "animations path", GRAD_PATH)),
+    "assemble_hit_anim_per_ray": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
+                                  "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_anim",),
+                                  PER_RAY),
+    "bvh_closest_hit_per_ray": ("wurblpt_tpu_torch/csrc/bvh_closest.cu",
+                                "wurblpt_tpu/accel/traverse.py:152", ("bvh_closest_hit",),
+                                ("cornell_animated_blur path",)),
+    "bvh_any_hit_per_ray": ("wurblpt_tpu_torch/csrc/bvh_any.cu",
+                            "wurblpt_tpu/accel/traverse.py:152", ("bvh_any_hit",),
+                            ("cornell_animated_blur path",)),
+    # the thin lens in the pinhole regeneration (depth of field)
+    "regen_dof": ("wurblpt_tpu_torch/csrc/wavefront.cu", "wurblpt_tpu/render/camera.py:260",
+                  ("regen_pinhole",), ("rtiow_dof path",)),
     # K3's K4 form, one record per shade class's field set, and K3a's
     "assemble_hit_k4_diffuse": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
                                 "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit_k4",),
                                 ("main path", "tof path")),
     "assemble_hit_k4_env": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
                             "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit_k4",),
-                            ("mesh path", "envmap path", "rtiow path", "rtiow_bvh path")),
+                            ("mesh path", "envmap path", "rtiow path", "rtiow_bvh path",
+                             "rtiow_dof path")),
     "assemble_hit_k4_lit": ("wurblpt_tpu_torch/csrc/assemble_hit.cu",
                             "wurblpt_tpu/render/intersect_mxu.py:345", ("assemble_hit_k4",),
                             ("city path",)),
@@ -434,6 +509,10 @@ GRAD_KERNELS = {
     "assemble_hit_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
                          "wurblpt_tpu/render/intersect.py:489", ("assemble_hit_bwd",),
                          (GRAD_PATH,)),
+    # K3aT: the backward of K3a, the animated branch (:489, :505-530, :605-620)
+    "assemble_hit_anim_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
+                              "wurblpt_tpu/render/intersect.py:505", ("assemble_hit_anim_bwd",),
+                              (GRAD_PATH,)),
     "env_radiance_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
                          "wurblpt_tpu/render/envmap.py:166", ("env_radiance_bwd",),
                          (GRAD_PATH,)),
@@ -448,7 +527,8 @@ K3_K4_RECORDS = {"cornell": "assemble_hit_k4_diffuse", "tof": "assemble_hit_k4_d
                  "mesh": "assemble_hit_k4_env", "envmap": "assemble_hit_k4_env",
                  "rtiow": "assemble_hit_k4_env", "rtiow_bvh": "assemble_hit_k4_env",
                  "city": "assemble_hit_k4_lit", "cornell_animated": "assemble_hit_k4_anim",
-                 "cornell_animated_bvh": "assemble_hit_k4_anim"}
+                 "cornell_animated_bvh": "assemble_hit_k4_anim",
+                 "rtiow_dof": "assemble_hit_k4_env"}
 # The full form of K3 and K3a (every field of every lane), which no K4 path
 # launches: checked and timed in phase 3.
 K3_FULL = ("assemble_hit", "assemble_hit_anim")
@@ -459,7 +539,8 @@ K3_FULL = ("assemble_hit", "assemble_hit_anim")
 # their work, on which path, with its launches there.
 INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
           "envmap_cube": (("shade_env", "envmap path"),),
-          "envmap_constant": (("shade_env", "rtiow path"), ("shade_env", "rtiow_bvh path")),
+          "envmap_constant": (("shade_env", "rtiow path"), ("shade_env", "rtiow_bvh path"),
+                              ("shade_env", "rtiow_dof path")),
           "rgl_eval": (("shade_lit", "city path"),), "rgl_sample": (("shade_lit", "city path"),),
           "row_gather": (("shade_lit", "city path"),),
           # the NEE resolve: inside the next step's regeneration since PR 16
@@ -475,6 +556,8 @@ INLINE = {"envmap": (("shade_env", "mesh path"), ("shade_lit", "city path")),
 K4_RECORDS = {("shade_env", "envmap"): "shade_env_glass_cube",
               ("shade_env", "rtiow"): "shade_env_glass_constant",
               ("shade_env", "rtiow_bvh"): "shade_env_glass_constant",
+              ("shade_env", "rtiow_dof"): "shade_env_glass_constant",
+              ("regen_pinhole", "rtiow_dof"): "regen_dof",
               ("regen_pinhole", "rtiow"): "regen_lens",
               ("regen_pinhole", "rtiow_bvh"): "regen_lens",
               ("nee_resolve", "city"): "nee_resolve_lit"}
@@ -775,7 +858,104 @@ def phase_kernels(scenes_on_card):
     print(f"kernels: row_gather device {p0['device_ms'] * 1e3:.2f} us per call vs index_select "
           f"{p0['library_device_ms'] * 1e3:.2f} us (CUDA events, 20 calls behind a spin), city material "
           f"rows [{packed.shape[0]}, {packed.shape[1]}] x {mat_idx.shape[0]}")
-    return records + _k4_records(scenes_on_card)
+    return records + _per_ray_records(scenes_on_card) + _k4_records(scenes_on_card)
+
+
+def _per_ray_records(scenes_on_card):
+    """Motion blur: KS1, KS2, K3a's full form and K5/K6 with each lane's own
+    frame rows (anim_frames_per_ray, [N, A, 30]) against their plain
+    versions, bit-equal (K3a within K3's tolerance): the sweeps and K3a on
+    the rolling_marbles pass's camera rays (320 x 180 x 9 samples, 518400
+    lanes, times in its shutter), their random rays and NEE shadow rays
+    toward its sphere light, and on the cornell_animated block (camera and
+    random rays, times in [0, 1]); K5/K6 on the cornell_animated_blur tree
+    (camera, random and moving-light shadow rays; on the branch its size
+    picks and on the L2 walk, every lane dead too). Timed at those shapes:
+    KS1, KS2 and K3a on the rolling_marbles pass, K5 and K6 on the
+    cornell_animated_blur block."""
+    from wurblpt_tpu_torch.accel import traverse
+    from wurblpt_tpu_torch.render import intersect, intersect_sweep as sw
+
+    rm = scenes_on_card["rolling_marbles"]
+    w, h, ssqrt, _, per_pass, t0, t1 = kc.MOTION_FRAMES["rolling_marbles"]
+    cam = kc.camera_lanes(w, h, per_pass, DEVICE, camera=kc.motion_camera("rolling_marbles",
+                                                                           DEVICE))
+    n = cam[0].shape[0]
+    fr = kc.frames_per_ray_at(rm, n, t0=t0, t1=t1)
+    ss, ht = sw.build_sweep_scene(rm), intersect.build_hit_tables(rm)
+    rnd = kc.random_lanes(n, DEVICE, lo=(-4.0, -0.5, -2.0), hi=(4.0, 2.0, 2.0))
+    shadow = kc.anim_shadow_lanes(rm, ss, fr, cam)
+    an = scenes_on_card["cornell_animated"]
+    acam = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, DEVICE)
+    na = acam[0].shape[0]
+    afr = kc.frames_per_ray_at(an, na)
+    ass, aht = sw.build_sweep_scene(an), intersect.build_hit_tables(an)
+    arnd = kc.random_lanes(na, DEVICE)
+    blur = scenes_on_card["cornell_animated_blur"]
+    bfr = kc.frames_per_ray_at(blur, na)
+    bshadow = kc.anim_shadow_lanes(blur, blur.bvh, bfr, acam)
+
+    def dead(rays):
+        return rays[:3] + (torch.zeros_like(rays[3]),)
+
+    casts = {"rolling_marbles pass camera": (ss, cam, fr), "rolling_marbles random": (ss, rnd, fr),
+             "cornell_animated block camera": (ass, acam, afr),
+             "cornell_animated random": (ass, arnd, afr)}
+    anys = {"rolling_marbles sphere-light shadow": (ss, shadow, fr),
+            "rolling_marbles random": (ss, rnd, fr),
+            "cornell_animated random": (ass, arnd, afr)}
+    bvh = {"cornell_animated_blur camera": (blur.bvh, acam, bfr),
+           "cornell_animated_blur random": (blur.bvh, arnd, bfr),
+           "cornell_animated_blur every lane dead": (blur.bvh, dead(arnd), bfr)}
+    bvh_any = {"cornell_animated_blur moving-light shadow": (blur.bvh, bshadow, bfr),
+               "cornell_animated_blur random": (blur.bvh, arnd, bfr)}
+    for sets in (bvh, bvh_any):
+        sets.update({f"{k}, L2 walk": v + ("L2",) for k, v in list(sets.items())})
+    print(f"kernels: per-ray rows: rolling_marbles {tuple(fr.shape)} "
+          f"({fr.numel() * 4 / 1e6:.1f} MB), cornell_animated_blur {tuple(bfr.shape)}; "
+          f"K5 plan {traverse.plan(blur.bvh, bfr)} against "
+          f"{traverse.plan(blur.bvh, kc.frames_at(blur))} at one instant")
+    errs = _run_checks((
+        ("sweep_closest_per_ray", kc.check_sweep_closest, casts),
+        ("sweep_any_per_ray", kc.check_sweep_any, anys),
+        ("assemble_hit_anim_per_ray", kc.check_assemble_hit_sweep,
+         {"rolling_marbles pass camera": (ss, ht, cam, fr),
+          "cornell_animated block camera": (ass, aht, acam, afr)}),
+        ("bvh_closest_hit_per_ray", kc.check_bvh_closest_hit, bvh),
+        ("bvh_any_hit_per_ray", kc.check_bvh_any_hit, bvh_any)))
+    t, prim, u, v = sw.closest_sweep_plain(ss, *cam, fr)
+    o, d = cam[0], cam[1]
+    records = _timed_records({
+        "sweep_closest_per_ray": (lambda: sw.closest_sweep(ss, *cam, fr),
+                                  lambda: sw.closest_sweep_plain(ss, *cam, fr),
+                                  kc.sweep_work(ss, cam, fr), None),
+        "sweep_any_per_ray": (lambda: sw.any_sweep(ss, *shadow, fr),
+                              lambda: sw.any_sweep_plain(ss, *shadow, fr),
+                              kc.sweep_work(ss, shadow, fr, any_hit=True), None),
+        "assemble_hit_anim_per_ray": (
+            lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v, fr),
+            lambda: intersect.assemble_hit_plain(ht, o, d, t, prim, u, v, fr),
+            kc.assemble_hit_work(ht, prim, fr), None),
+    }, errs, n)
+    records += _timed_records({
+        "bvh_closest_hit_per_ray": (lambda: traverse.bvh_closest_hit(blur.bvh, *acam, bfr),
+                                    lambda: traverse.bvh_closest_hit_plain(blur.bvh, *acam, bfr),
+                                    kc.bvh_work(blur.bvh, acam, any_hit=False, frames=bfr), None),
+        "bvh_any_hit_per_ray": (lambda: traverse.bvh_any_hit(blur.bvh, *bshadow, bfr),
+                                lambda: traverse.bvh_any_hit_plain(blur.bvh, *bshadow, bfr),
+                                kc.bvh_work(blur.bvh, bshadow, any_hit=True, frames=bfr), None),
+    }, errs, na)
+    for r in records:
+        name = r["name"]
+        fn = {"sweep_closest_per_ray": lambda: sw.closest_sweep(ss, *cam, fr),
+              "sweep_any_per_ray": lambda: sw.any_sweep(ss, *shadow, fr),
+              "assemble_hit_anim_per_ray": lambda: intersect.assemble_hit(ht, o, d, t, prim, u, v,
+                                                                          fr),
+              "bvh_closest_hit_per_ray": lambda: traverse.bvh_closest_hit(blur.bvh, *acam, bfr),
+              "bvh_any_hit_per_ray": lambda: traverse.bvh_any_hit(blur.bvh, *bshadow, bfr)}[name]
+        r["device_us"] = kc.device_ms(fn) * 1e3
+        print(f"kernels: {name} device {r['device_us']:.2f} us a launch on {_nvidia_smi()}")
+    return records
 
 
 def _sweep_records(scenes_on_card, fcam, errs):
@@ -972,6 +1152,7 @@ def _k4_records(scenes_on_card):
              ("mesh", "mesh", rgb, None, 2), ("mesh, ToF sensor,", "mesh", tof, None, 2),
              ("envmap", "envmap", rgb, None, 2), ("envmap, ToF sensor,", "envmap", tof, None, 2),
              ("rtiow", "rtiow", rgb, None, 2), ("rtiow, ToF sensor,", "rtiow", tof, None, 2),
+             ("rtiow_dof", "rtiow_dof", rgb, None, 2),
              ("city", "city", rgb, None, 2), ("city, ToF sensor,", "city", tof, None, 2),
              # 1 spp: only the block's first step regenerates (every lane)
              ("city", "city", rgb, None, 0)]
@@ -997,6 +1178,7 @@ def _k4_records(scenes_on_card):
     records = _k3_k4_records(inputs, errs)
     for record, frame, kernel in (("regen_pinhole", ("cornell", 2), "regen_pinhole"),
                                   ("regen_lens", ("rtiow", 2), "regen_pinhole"),
+                                  ("regen_dof", ("rtiow_dof", 2), "regen_pinhole"),
                                   ("regen_surround", ("city", 0), "regen_surround"),
                                   ("shade_diffuse", ("cornell", 2), "shade_diffuse"),
                                   ("shade_env", ("mesh", 2), "shade_env"),
@@ -1360,11 +1542,71 @@ def phase_anim_bvh_path(scene):
     return launches
 
 
+def phase_rtiow_dof_path(rt_scene):
+    """examples/rtiow.py's depth-of-field frame (rtiow(), 320 x 200, 16 spp,
+    8 path components, aperture 0.08 focused at 10) through
+    render_frame_wavefront on K4's env class: the pinhole regeneration
+    through the thin lens, K1, K3's K4 form and the env shade (constant sky,
+    glass) must launch, and neither K2 (no shadow ray), P0, the resolve nor
+    K8's stand-alone kernels; held to its JAX yardstick as in phase 4, at
+    most 4.00 launches per step of the loop and 8 per step of the frame."""
+    render = kc.rtiow_dof_frame(DEVICE, rt_scene)
+    img, stats, launches, times = _drive("rtiow_dof path", render, RTIOW_PATH,
+                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ALL
+                                         + K3_FULL)
+    print(f"rtiow_dof path: mean radiance {float(img.double().mean())!r} "
+          f"(reference {kc.DOF_REF_MEAN}), stats {stats} (reference {list(kc.DOF_REF_STATS)})")
+    kc.check_rtiow_dof_frame(img, stats)
+    _report("rtiow_dof path", stats, times, kc.DOF_WIDTH * kc.DOF_HEIGHT * kc.DOF_SSQRT ** 2,
+            render, kc.rtiow_dof_frame(DEVICE, rt_scene, depth=1), K4_MAX_LAUNCHES_PER_STEP,
+            K4_LOOP_LAUNCHES_NO_SHADOW)
+    return launches
+
+
+def phase_motion_path(name, scene):
+    """Phase motion, one path per motion-blurred frame
+    (kernel_check.MOTION_FRAMES): the scene rendered over its shutter with
+    render_frame on the card (cornell_animated_blur through
+    render_frame_wavefront, which hands it to render_frame), each ray at its
+    own time, with the counters at 0: the casts and K3a's full form with
+    per-ray rows (MOTION[name]) must launch and no K4 kernel; held to its
+    JAX CPU yardstick (mean within 1e-3, each counter within 0.5 %); frame
+    ms (median of 5 after the first), peak memory, and the CUDA kernel
+    launches, device time and each hand-written kernel's device us per
+    launch of one profiled frame. Returns the counters of the first frame."""
+    label = f"{name} path"
+    width, height, ssqrt, depth, per_pass, t0, t1 = kc.MOTION_FRAMES[name]
+    render = kc.motion_frame(name, DEVICE, scene, wavefront=name == "cornell_animated_blur")
+    torch.cuda.reset_peak_memory_stats()
+    img, stats, launches, times = _drive(label, render, MOTION[name], MOTION_ABSENT)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    mean = float(img.double().mean())
+    ref_mean, ref_stats = kc.MOTION_REFS[name]
+    print(f"{label}: {width} x {height}, {ssqrt * ssqrt} spp in passes of {per_pass}, depth "
+          f"{depth}, shutter [{t0}, {t1}]: mean radiance {mean!r} (JAX yardstick {ref_mean!r}), "
+          f"stats {stats} (JAX {list(ref_stats)}); {scene.n_anims} animation rows, per-ray rows "
+          f"{width * height * per_pass * scene.n_anims * 120 / 1e6:.1f} MB a pass, peak memory "
+          f"{peak:.0f} MiB")
+    kc.check_motion_frame(name, img, stats)
+    dt = statistics.median(times)
+    kernels, copies, _, device_ms, ours = _count_launches(render)
+    print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
+          f"{[round(t * 1e3, 2) for t in times]}), {width * height * ssqrt * ssqrt / dt:.4g} "
+          f"paths/s, {stats[1] / dt / 1e6:.4g} Mrays/s; a profiled frame: {kernels} CUDA kernel "
+          f"launches and {copies} copies/memsets, device time {device_ms:.3f} ms (busy "
+          f"{device_ms / (dt * 1e3):.3f} of the median frame) on {_nvidia_smi()}")
+    print(f"{label}: hand-written kernels launched {{"
+          + ", ".join(f"{k}: {v}" for k, v in sorted(launches.items()) if v) + "}, device us "
+          "per launch (launches): "
+          + ", ".join(f"{k} {us:.2f} ({count})" for k, (us, count) in sorted(ours.items())))
+    return launches
+
+
 def _grad_records():
-    """Phase grad, part 1: P0T, K3T, K8T and K7T against their plain backward
-    versions at a differentiable frame's shapes (utils/grad_check.py), each
-    timed (wrapper call, device time a launch, plain version, index_add_ for
-    P0T) beside its bound."""
+    """Phase grad, part 1: P0T, K3T, K3aT (rows of one instant and per ray),
+    K8T and K7T against their plain backward versions at a differentiable
+    frame's shapes (utils/grad_check.py), each timed (wrapper call, device
+    time a launch, plain version, index_add_ for P0T) beside its bound."""
     from wurblpt_tpu_torch.render import backward as bw
     from wurblpt_tpu_torch.utils import grad_check as gc
 
@@ -1374,13 +1616,19 @@ def _grad_records():
     k3 = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")] + lanes["cot"]
     skies = {"equirect": gc.sky_lanes(DEVICE, cube=False), "cube": gc.sky_lanes(DEVICE, cube=True)}
     rtab, rmid, rwi, rwo, ru2, rg = gc.rgl_lanes(DEVICE)
+    anim = {"one instant": gc.anim_lanes(DEVICE, per_ray=False),
+            "per ray": gc.anim_lanes(DEVICE, per_ray=True)}
     checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows)}),
               ("assemble_hit_bwd", gc.check_assemble_hit_bwd, {"cornell block": (lanes,)}),
+              ("assemble_hit_anim_bwd", gc.check_assemble_hit_anim_bwd,
+               {f"animated box with spheres, rows of {k}": (v,) for k, v in anim.items()}),
               ("env_radiance_bwd", gc.check_env_radiance_bwd, skies),
               ("rgl_bwd", gc.check_rgl_bwd, {"eval": (rtab, rmid, rwi, rwo, rg, False),
                                              "sample": (rtab, rmid, rwi, ru2, rg, True)})]
     errs = _run_checks(checks)
     env, d, g = skies["equirect"]
+    k3a = ([anim["per ray"][k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")]
+           + anim["per ray"]["cot"])
     cases = {
         "row_scatter": (lambda: bw.row_scatter(g_rows, mat, rows),
                         lambda: bw.row_scatter_plain(g_rows, mat, rows),
@@ -1390,6 +1638,12 @@ def _grad_records():
         "assemble_hit_bwd": (lambda: bw.assemble_hit_bwd(*k3),
                              lambda: bw.assemble_hit_bwd_plain(*k3),
                              gc.assemble_hit_bwd_work(lanes), None, lanes["o"].shape[0]),
+        # K3aT timed with per-ray rows (the motion-blurred render's)
+        "assemble_hit_anim_bwd": (
+            lambda: bw.assemble_hit_bwd(*k3a, frames=anim["per ray"]["frames"]),
+            lambda: bw.assemble_hit_bwd_plain(*k3a, frames=anim["per ray"]["frames"]),
+            gc.assemble_hit_anim_bwd_work(anim["per ray"]), None,
+            anim["per ray"]["o"].shape[0]),
         "env_radiance_bwd": (lambda: bw.env_radiance_bwd(env, d, g),
                              lambda: bw.env_radiance_bwd_plain(env, d, g),
                              gc.env_radiance_bwd_work(env, d), None, d.shape[0]),
@@ -1538,6 +1792,20 @@ def phase_grad():
               f"{fd!r} (eps {eps})")
         assert abs(fd) > 1e-6 and abs(g_x - fd) <= rtol * abs(fd), (
             f"{what} gradient off its difference")
+    # the animated floor over the shutter [0, 1] (K3aT, per-ray rows): its
+    # vertices and a keyframe translation against central differences
+    loss = gc.moving_floor_loss(gc.moving_floor(DEVICE), DEVICE, 64, 2, 3)
+    value, (g_v, g_k) = _timed_step("grad: differentiable animated step", loss, (0.0, 0.0))
+    eps = 1e-2
+    with torch.no_grad():
+        fd_v = (float(loss(torch.tensor(eps), torch.tensor(0.0)))
+                - float(loss(torch.tensor(-eps), torch.tensor(0.0)))) / (2 * eps)
+        fd_k = (float(loss(torch.tensor(0.0), torch.tensor(eps)))
+                - float(loss(torch.tensor(0.0), torch.tensor(-eps)))) / (2 * eps)
+    print(f"grad: moving floor 64^2 over [0, 1]: loss {value!r}, d/d(vertex y) {g_v!r} against "
+          f"central difference {fd_v!r}, d/d(keyframe y) {g_k!r} against {fd_k!r} (eps {eps})")
+    assert abs(g_v - fd_v) <= 3e-2 * abs(fd_v), "vertex gradient off its difference"
+    assert abs(g_k - fd_k) <= 3e-2 * abs(fd_k), "keyframe gradient off its difference"
     # fit
     t0 = time.perf_counter()
     res = gc.fit_albedo(DEVICE)
@@ -1548,8 +1816,9 @@ def phase_grad():
     assert res.losses[-1] < 0.25 * res.losses[0], "fit's loss did not fall"
     launches = dict(native.LAUNCHES)
     print(f"{GRAD_PATH}: launches {launches}")
-    for name in ("row_scatter", "assemble_hit_bwd", "env_radiance_bwd", "rgl_bwd",
-                 "assemble_hit", "row_gather", "closest_hit", "any_hit", "env_radiance"):
+    for name in ("row_scatter", "assemble_hit_bwd", "assemble_hit_anim_bwd", "env_radiance_bwd",
+                 "rgl_bwd", "assemble_hit", "assemble_hit_anim", "row_gather", "closest_hit",
+                 "any_hit", "env_radiance"):
         assert launches[name] > 0, f"kernel {name} was not launched on the {GRAD_PATH}"
     return launches
 
@@ -1624,7 +1893,9 @@ def phase_scenes():
                          ("rtiow_bvh", lambda: scenes.rtiow(n=kc.RTIOW_BVH_N, device=DEVICE,
                                                             use_bvh=True)),
                          ("cornell_animated_bvh", lambda: scenes.cornell_box_animated(
-                             DEVICE, spheres=True, use_bvh=True))):
+                             DEVICE, spheres=True, use_bvh=True)),
+                         *((name, lambda n=name: kc.motion_scene(n, DEVICE))
+                           for name in kc.MOTION_FRAMES)):
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
@@ -1680,6 +1951,9 @@ def main() -> int:
                         ("rtiow_bvh path", lambda: phase_rtiow_bvh_path(out["scenes"]["rtiow_bvh"])),
                         ("cornell_animated_bvh path",
                          lambda: phase_anim_bvh_path(out["scenes"]["cornell_animated_bvh"])),
+                        ("rtiow_dof path", lambda: phase_rtiow_dof_path(out["scenes"]["rtiow"])),
+                        *((f"{n} path", lambda n=n: phase_motion_path(n, out["scenes"][n]))
+                          for n in MOTION),
                         *((f"scene_api {n}", lambda n=n: phase_scene_api(n)) for n in SCENE_API),
                         (GRAD_PATH, phase_grad)):
         try:

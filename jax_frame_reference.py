@@ -13,6 +13,10 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py normalmap
     JAX_PLATFORMS=cpu python jax_frame_reference.py material_comparison
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables
+    JAX_PLATFORMS=cpu python jax_frame_reference.py rolling_marbles
+    JAX_PLATFORMS=cpu python jax_frame_reference.py animations
+    JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated_blur
+    JAX_PLATFORMS=cpu python jax_frame_reference.py rtiow_dof
 
 city is bench config city_many_lights (bench.py bench_city_many_lights):
 city_night(seed=7), 1920x1080, 360-degree stereo, 1 spp, 4 path components,
@@ -66,6 +70,17 @@ them: 480x200 (16 spp, 5 path components), 320x320 (16 spp, 4) and 560x180
 (16 spp, 8), in passes of 8 samples (examples/_common.py's pick), under
 jax.jit with the scene as an argument (~1-3 minutes each).
 
+rolling_marbles, animations and cornell_animated_blur are the
+motion-blurred frames (kernel_check.MOTION_FRAMES): frame 0 of
+examples/rolling_marbles.py (320x180, 9 spp, 8 path components, shutter
+[0, 1/48]) and of examples/animations.py (192x144, 16 spp, 6, [0, 0.02]),
+their scenes built as the apps build them (`jax_motion_scene`), and the
+animated box with spheres in a BVH swept over [0, 1] at the Cornell
+settings over [0, 1]; render_frame over the shutter under jax.jit, one
+sample a pass. rtiow_dof is examples/rtiow.py's depth-of-field frame:
+rtiow(), 320x200, 16 spp, 8 path components, aperture 0.08 focused at 10,
+25 degrees, through render_frame_wavefront.
+
 rgl_grad_tables is not a frame: it prints, for each table of the RGL
 stack, how many of its entries get a nonzero jax.grad of the mean of
 tests/test_gradients_breadth.py's RGL quad (12 x 12, 4 spp, 3 path
@@ -99,13 +114,14 @@ def _frame(scene, cam, cfg, width, height, ssqrt, depth, host_blocks=False, t=0.
     return render
 
 
-def jax_cornell_animated(spheres=False, use_bvh=False, t=0.0):
+def jax_cornell_animated(spheres=False, use_bvh=False, t=0.0, t1=None):
     """The animated Cornell box as the JAX package's builder makes it: the
     reference box (cornell_box_ref) with the port's keyframes
     (wurblpt_tpu_torch.utils.scenes.cornell_animations), animation ids 1-3
     for the short box, the tall box and the light; with `spheres`, the
     port's two spheres (scenes.CORNELL_ANIM_SPHERES). No BVH unless
-    `use_bvh`; a BVH's boxes are swept over the build interval [t, t]."""
+    `use_bvh`; a BVH's boxes are swept over the build interval [t, t1]
+    (t1 = t unless given)."""
     import numpy as np
 
     from wurblpt_tpu.core.transform import Transformation
@@ -134,7 +150,69 @@ def jax_cornell_animated(spheres=False, use_bvh=False, t=0.0):
     if spheres:
         for c, r, a in port_scenes.CORNELL_ANIM_SPHERES:
             scene.take_sphere(B.SphereObject(c, r, mats["white"], animation=a or None))
-    return scene.build(use_bvh=use_bvh, t0=t, t1=t)
+    return scene.build(use_bvh=use_bvh, t0=t, t1=t if t1 is None else t1)
+
+
+def jax_motion_scene(name):
+    """The motion-blurred frames' scenes built with the JAX package's
+    builder (wurblpt_tpu_torch.utils.kernel_check.MOTION_FRAMES): the
+    example apps' (examples/rolling_marbles.py, animations.py, frame 0) as
+    the apps build them, and the animated box with spheres in a BVH swept
+    over the shutter; with the (eye, center, vfov_deg) of the camera."""
+    import numpy as np
+
+    from wurblpt_tpu.core.transform import Transformation, quat_from_axis_angle
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.scene.ir import TextureType
+    from wurblpt_tpu.utils.scenes import _quad_to
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    t0, t1 = kc.MOTION_FRAMES[name][5:]
+    if name == "cornell_animated_blur":
+        from wurblpt_tpu.utils import scenes
+
+        pose, vfov = scenes.cornell_ref_camera()
+        return jax_cornell_animated(spheres=True, use_bvh=True, t=t0, t1=t1), (pose, vfov)
+    scene = B.Scene()
+    if name == "animations":
+        duration = 4 / 25.0
+        floor = scene.take_material(B.Lambertian(albedo=(0.45, 0.45, 0.45)))
+        fm, ftf = _quad_to((0, -0.5, 0), (1, 0, 0), -np.pi / 2, half=8.0)
+        scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+        light = scene.take_material(B.LightDiffuse(radiance=(10.0,) * 3))
+        scene.take_sphere(B.SphereObject((0, 2.5, 0), 0.5, light), hot_spot=True)
+        aid = scene.take_animation(B.AnimationKeyframes(
+            times=[0.0, duration],
+            transformations=[Transformation.make(translation=(-1.5, 0.0, 0.0)),
+                             Transformation.make(translation=(1.5, 0.0, 0.0))]))
+        red = scene.take_material(B.Lambertian(albedo=(0.8, 0.2, 0.15)))
+        scene.take_sphere(B.SphereObject((0, 0, 0), 0.5, red, animation=aid))
+        return scene.build(t0=t0, t1=t1), (((0, 1.0, 4.0), (0, 0, 0)), 40.0)
+    duration = 4 / 24.0
+    floor = scene.take_material(B.Lambertian(albedo=B.CheckerTexture(
+        color1=(0.5, 0.45, 0.4), color2=(0.25, 0.25, 0.3), squares=(20, 20))))
+    fm, ftf = _quad_to((0, -0.5, 0), (1, 0, 0), -np.pi / 2, half=8.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    light = scene.take_material(B.LightDiffuse(radiance=(18.0,) * 3))
+    scene.take_sphere(B.SphereObject((0, 4.0, 2.0), 0.6, light), hot_spot=True)
+    rng = np.random.default_rng(5)
+    for i in range(5):
+        r, z = 0.3, -1.2 + 0.6 * i
+        x0, x1 = -3.0, 3.0
+        sign = 1.0 if i % 2 == 0 else -1.0
+        roll = sign * (x1 - x0) / r
+        aid = scene.take_animation(B.AnimationKeyframes(
+            times=[0.0, duration],
+            transformations=[
+                Transformation.make(translation=(x0 * sign, -0.5 + r, z)),
+                Transformation.make(translation=(x1 * sign, -0.5 + r, z),
+                                    rotation=quat_from_axis_angle((0, 0, 1), -roll))]))
+        tex = B.NoiseTexture(kind=TextureType.PERLIN_NOISE, frequency=8.0, octaves=5,
+                             turbulence=True, seed=i,
+                             val_scale=tuple(0.6 * rng.random(3) + 0.2) + (1.0,))
+        scene.take_sphere(B.SphereObject((0.0, 0.0, 0.0), r, B.Lambertian(albedo=tex),
+                                         animation=aid))
+    return scene.build(t0=0.0, t1=duration), (((0, 1.8, 5.5), (0, 0, 0)), 38.0)
 
 
 def jax_example_scene(name, normal_map_size=256):
@@ -303,6 +381,42 @@ def _envmap():
     return scene, _frame(scene, cam, CameraConfig(), 128, 128, 4, 8)
 
 
+def _motion(name):
+    import jax
+
+    from wurblpt_tpu import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
+    from wurblpt_tpu.core.transform import Transformation, from_lookat
+    from wurblpt_tpu.render.integrator import render_frame
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    width, height, ssqrt, depth, _, t0, t1 = kc.MOTION_FRAMES[name]
+    scene, (pose, vfov) = jax_motion_scene(name)
+    if not isinstance(pose, Transformation):
+        pose = from_lookat(*pose)
+    cam = make_camera(transformation=pose, vfov_deg=vfov, width=width, height=height)
+    static = SceneStatic.from_scene(scene)
+    # one sample a pass (the image and the counters do not depend on the pass size)
+    fn = jax.jit(lambda s, c: render_frame(
+        s, static, c, CameraConfig(), SensorRGB(), width, height, ssqrt, t0, t1,
+        params=RenderParams(max_path_components=depth), samples_per_pass=1,
+        return_stats=True))
+    return scene, lambda: fn(scene, cam)
+
+
+def _rtiow_dof():
+    from wurblpt_tpu import CameraConfig, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.utils import scenes
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    scene = scenes.rtiow().build()
+    cam = make_camera(transformation=from_lookat((13.0, 2.0, 3.0), (0.0, 0.0, 0.0)),
+                      vfov_deg=25.0, width=kc.DOF_WIDTH, height=kc.DOF_HEIGHT,
+                      focus_distance=kc.DOF_FOCUS, aperture_diameter=kc.DOF_APERTURE)
+    return scene, _frame(scene, cam, CameraConfig(dof=True), kc.DOF_WIDTH, kc.DOF_HEIGHT,
+                         kc.DOF_SSQRT, kc.DOF_DEPTH)
+
+
 def _rtiow(n=6, use_bvh=None):
     from wurblpt_tpu import CameraConfig, make_camera
     from wurblpt_tpu.core.transform import from_lookat
@@ -378,6 +492,10 @@ FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
           "noise_textures": lambda: _example("noise_textures"),
           "normalmap": lambda: _example("normalmap"),
           "material_comparison": lambda: _example("material_comparison"),
+          "rolling_marbles": lambda: _motion("rolling_marbles"),
+          "animations": lambda: _motion("animations"),
+          "cornell_animated_blur": lambda: _motion("cornell_animated_blur"),
+          "rtiow_dof": _rtiow_dof,
           "rgl_grad_tables": None}
 
 

@@ -1,7 +1,7 @@
-// K3T's, K8T's and K7T's per-lane device code (csrc/backward_common.cuh)
+// K3T's, K3aT's, K8T's and K7T's per-lane device code (csrc/backward_common.cuh)
 // on the CPU through cuda_runtime.h: one lane after another, with the entry
 // points' own arguments but the stream (csrc/backward.cu
-// wpt_assemble_hit_bwd, wpt_env_radiance_bwd for the equirect and cube
+// wpt_assemble_hit_bwd, wpt_assemble_hit_anim_bwd, wpt_env_radiance_bwd for the equirect and cube
 // maps, wpt_rgl_bwd; the constant sky's warp sum is the kernel's own and
 // runs on the card only).
 #include "cuda_runtime.h"
@@ -25,7 +25,25 @@ extern "C" int host_assemble_hit_bwd(const float* o, const float* d, const float
     const wpt_bwd::Tables tb{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres};
     const wpt_bwd::Cot c{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv};
     const wpt_bwd::HitOut out{g_o, g_d, g_tri_g, g_tri_f, g_sph_f};
-    for (int i = 0; i < n; ++i) wpt_bwd::assemble_hit_bwd_lane(i, in, tb, c, out);
+    for (int i = 0; i < n; ++i) wpt_bwd::assemble_hit_bwd_lane<false>(i, in, tb, c, out, {});
+    return 0;
+}
+
+// K3aT: wpt_assemble_hit_anim_bwd's arguments but the stream.
+extern "C" int host_assemble_hit_anim_bwd(
+    const float* o, const float* d, const float* t, const int* prim, const float* u,
+    const float* v, const bool* backside, int n, const float* tri_g, const float* tri_f,
+    const int* tri_i, int n_tris, const float* sph_f, int n_spheres, const float* g_t,
+    const float* g_pos, const float* g_nrm, const float* g_gn, const float* g_tan,
+    const float* g_uv, float* g_o, float* g_d, float* g_tri_g, float* g_tri_f, float* g_sph_f,
+    const int* tri_anim, const int* sph_anim, const float* frames, long long fstride,
+    float* g_frames) {
+    const wpt_bwd::HitIn in{o, d, t, prim, u, v, backside, n};
+    const wpt_bwd::Tables tb{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres};
+    const wpt_bwd::Cot c{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv};
+    const wpt_bwd::HitOut out{g_o, g_d, g_tri_g, g_tri_f, g_sph_f};
+    const wpt_bwd::AnimIn an{tri_anim, sph_anim, frames, fstride, g_frames};
+    for (int i = 0; i < n; ++i) wpt_bwd::assemble_hit_bwd_lane<true>(i, in, tb, c, out, an);
     return 0;
 }
 

@@ -179,13 +179,15 @@ static void regen(const WaveState* st, float* t_max, int n, const Camera& cam, l
 extern "C" int host_regen_pinhole(const WaveState* st, float* t_max, int n, const float* centre,
                                   const float* focal, const float* translation,
                                   const float* rotation, const float* dist_k,
-                                  const float* dist_p, int lens, int iters, long long blk, int B,
-                                  int m, long long P, long long n_pix, int width, int height,
-                                  int ssqrt, int randomize, const float* pending,
-                                  const bool* occluded, int n_pend, int n_acc, int* work) {
+                                  const float* dist_p, int lens, int iters, const float* scale,
+                                  const float* focus, const float* aperture, int dof,
+                                  long long blk, int B, int m, long long P, long long n_pix,
+                                  int width, int height, int ssqrt, int randomize,
+                                  const float* pending, const bool* occluded, int n_pend,
+                                  int n_acc, int* work) {
     if (!pending_ok(pending, occluded, n_pend)) return -1;
     const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
-                     nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+                     scale, nullptr, 0.f, 0.f, 0.f, 0, focus, aperture, dof};
     regen<CAM_PINHOLE>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
                        Pending{pending, occluded, n_pend, n_acc}, work);
     return 0;
@@ -201,7 +203,8 @@ extern "C" int host_regen_surround(const WaveState* st, float* t_max, int n,
                                    int n_acc, int* work) {
     if (!pending_ok(pending, occluded, n_pend)) return -1;
     const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
-                     scale, eye_distance, span, inv_width, inv_eff_height, stereo};
+                     scale, eye_distance, span, inv_width, inv_eff_height, stereo,
+                     nullptr, nullptr, 0};
     regen<CAM_SURROUND>(st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
                         Pending{pending, occluded, n_pend, n_acc}, work);
     return 0;

@@ -51,8 +51,9 @@ extern "C" void host_assemble_hit_anim(const float* o, const float* d, const flo
                                        const float* tri_f, const int* tri_i, int n_tris,
                                        const float* sph_f, const int* sph_mat, int n_spheres,
                                        const int* tri_anim, const int* sph_anim,
-                                       const float* frames, float* pos, float* nrm, float* gn,
-                                       float* tan, float* uv, int* mat, bool* backside) {
+                                       const float* frames, long long fstride, float* pos,
+                                       float* nrm, float* gn, float* tan, float* uv, int* mat,
+                                       bool* backside) {
     const Tables tb{tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres};
     const Record out{pos, nrm, gn, tan, uv, mat, backside};
     run_blocks((n + BLOCK - 1) / BLOCK, BLOCK, [&] {
@@ -60,7 +61,7 @@ extern "C" void host_assemble_hit_anim(const float* o, const float* d, const flo
             assemble_hit_kernel<false>(o, d, t, prim, u, v, n, tb, Anim{}, out);
         else
             assemble_hit_kernel<true>(o, d, t, prim, u, v, n, tb,
-                                      Anim{tri_anim, sph_anim, frames}, out);
+                                      Anim{tri_anim, sph_anim, frames, fstride}, out);
     });
 }
 
@@ -115,7 +116,7 @@ extern "C" int host_sweep_closest(const float* o, const float* d, const float* t
                                   const float* tmax, int n, const float* tri,
                                   const int* tri_anim, int n_tris, const float* sph,
                                   const int* sph_anim, int n_spheres, const float* frames,
-                                  float* t, int* prim, float* u, float* v) {
+                                  long long fstride, float* t, int* prim, float* u, float* v) {
     const bool whole = staged_whole(n_tris, n_spheres);
     const int blocks = resident_blocks(n_tris, n_spheres);
     const int tile = wpt_queue::tile_lanes(n, blocks);
@@ -124,10 +125,10 @@ extern "C" int host_sweep_closest(const float* o, const float* d, const float* t
     run_blocks(min(blocks, (n + tile - 1) / tile), wpt_queue::QBLOCK, [&] {
         if (whole)
             sweep_closest_kernel<true>(o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4,
-                                       sph_anim, n_spheres, frames, t, prim, u, v);
+                                       sph_anim, n_spheres, frames, fstride, t, prim, u, v);
         else
             sweep_closest_kernel<false>(o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4,
-                                        sph_anim, n_spheres, frames, t, prim, u, v);
+                                        sph_anim, n_spheres, frames, fstride, t, prim, u, v);
     });
     return whole;
 }
@@ -135,7 +136,7 @@ extern "C" int host_sweep_closest(const float* o, const float* d, const float* t
 extern "C" int host_sweep_any(const float* o, const float* d, const float* tmin,
                               const float* tmax, int n, const float* tri, const int* tri_anim,
                               int n_tris, const float* sph, const int* sph_anim, int n_spheres,
-                              const float* frames, bool* occ) {
+                              const float* frames, long long fstride, bool* occ) {
     const bool whole = staged_whole(n_tris, n_spheres);
     const int blocks = any_resident_blocks(n_tris, n_spheres);
     const int tile = wpt_queue::tile_lanes(n, blocks);
@@ -144,10 +145,10 @@ extern "C" int host_sweep_any(const float* o, const float* d, const float* tmin,
     run_blocks(min(blocks, (n + tile - 1) / tile), wpt_queue::QBLOCK, [&] {
         if (whole)
             sweep_any_kernel<true>(o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4,
-                                   sph_anim, n_spheres, frames, occ);
+                                   sph_anim, n_spheres, frames, fstride, occ);
         else
             sweep_any_kernel<false>(o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4,
-                                    sph_anim, n_spheres, frames, occ);
+                                    sph_anim, n_spheres, frames, fstride, occ);
     });
     return whole;
 }

@@ -154,7 +154,7 @@ def test_full_form_on_the_host_matches_the_plain_version_on_the_edge_sets(host, 
         out = [torch.full((n, 3), float("nan")) for _ in range(4)] + [
             torch.full((n, 2), float("nan")), torch.full((n,), 7, dtype=torch.int32),
             torch.ones(n, dtype=torch.bool)]
-        host.host_assemble_hit_anim(*_table_ptrs(ht, args, n), _ptr(fr),
+        host.host_assemble_hit_anim(*_table_ptrs(ht, args, n), _ptr(fr), 0,
                                     *(x.data_ptr() for x in out))
         ref = intersect.assemble_hit_plain(ht, *args, fr)
         hit = args[3] >= 0

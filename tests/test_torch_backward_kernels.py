@@ -1,4 +1,4 @@
-"""The plain backward versions of P0T, K3T and K8T (render/backward.py)
+"""The plain backward versions of P0T, K3T, K3aT and K8T (render/backward.py)
 against autograd through a differentiable plain forward of the same
 function, their autograd Functions' wiring, and the differentiable
 render's refusals.
@@ -35,6 +35,8 @@ from wurblpt_tpu_torch.render.envmap import (EnvironmentMapConstant, build_envma
 from wurblpt_tpu_torch.render.gather import row_gather
 from wurblpt_tpu_torch.render.intersect import assemble_hit, build_hit_tables
 from wurblpt_tpu_torch.render.intersect_brute import build_brute_scene, closest_hit
+from wurblpt_tpu_torch.render.intersect_sweep import build_sweep_scene, closest_sweep_plain
+from wurblpt_tpu_torch.scene.animation import frames_ray_to_object
 from wurblpt_tpu_torch.utils import kernel_check as kc
 from wurblpt_tpu_torch.utils import scenes
 
@@ -155,6 +157,71 @@ def test_k3t_plain_matches_autograd(name, zero):
         assert torch.equal(a, b)
 
 
+def _anim_lanes(spheres, per_ray):
+    """The animated box (with its two spheres) seen by 24 x 24 camera lanes,
+    cast with the frame's rows at one instant or each lane's own rows at a
+    random time; a sphere winner's t the exact root of its object-space
+    quadratic (float64), so that the forward point lies on it."""
+    scene = scenes.cornell_box_animated("cpu", spheres=spheres)
+    o, d, tmin, tmax = kc.camera_lanes(24, 24, 1, "cpu")
+    fr = kc.frames_per_ray_at(scene, o.shape[0]) if per_ray else kc.frames_at(scene)
+    t, prim, u, v = closest_sweep_plain(build_sweep_scene(scene), o, d, tmin, tmax, fr)
+    ht = build_hit_tables(scene)
+    sph = (prim >= ht.n_tris) & (prim >= 0)
+    if bool(sph.any()):
+        si = (prim[sph] - ht.n_tris).long()
+        oa, da, _ = frames_ray_to_object(fr[sph] if per_ray else fr, ht.sph_anim[si], o[sph],
+                                         d[sph])
+        row = ht.sph_f[si].double()
+        oc, dd = oa.double() - row[:, :3], da.double()
+        a, hb = (dd * dd).sum(-1), (oc * dd).sum(-1)
+        disc = hb * hb - a * ((oc * oc).sum(-1) - row[:, 3] ** 2)
+        r1, r2 = (-hb - disc.clamp_min(0).sqrt()) / a, (-hb + disc.clamp_min(0).sqrt()) / a
+        near = (r1 - t[sph].double()).abs() <= (r2 - t[sph].double()).abs()
+        t = t.clone()
+        t[sph] = torch.where(near, r1, r2).float()
+    return ht, o, d, t, prim, u, v, fr
+
+
+@pytest.mark.parametrize("spheres", [False, True], ids=["box", "box with spheres"])
+@pytest.mark.parametrize("per_ray", [False, True], ids=["one instant", "per ray"])
+def test_k3at_plain_matches_autograd(spheres, per_ray):
+    """K3aT's plain version (the animated assembly's backward, with the
+    frame rows' cotangents) against autograd in float64 through K3a's
+    plain version with the winner's t, u, v recomputed in its object space
+    (`assemble_hit_diff_plain` with frames): 1e-4 of each output's largest
+    (3e-4 with sphere winners, as K3T's on rtiow); and the Function behind
+    assemble_hit takes the same backward and forward."""
+    ht, o, d, t, prim, u, v, fr = _anim_lanes(spheres, per_ray)
+    gs = _cotangents(o.shape[0], 2)
+    f64 = torch.float64
+    leaves = [x.to(f64).requires_grad_(True) for x in (o, d, ht.tri_g, ht.tri_f, ht.sph_f, fr)]
+    rec = bw.assemble_hit_diff_plain(ht._replace(tri_g=leaves[2], tri_f=leaves[3],
+                                                 sph_f=leaves[4]), leaves[0], leaves[1],
+                                     t.to(f64), prim, u.to(f64), v.to(f64), leaves[5])
+    outs = (rec.t, rec.position, rec.normal, rec.geom_normal, rec.tangent, rec.uv)
+    ref = torch.autograd.grad(sum((a * g.to(f64)).sum() for a, g in zip(outs, gs)), leaves,
+                              allow_unused=True)
+    backside = assemble_hit(ht, o, d, t, prim, u, v, fr).backside
+    assert torch.equal(backside, rec.backside)
+    got = bw.assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *gs, frames=fr)
+    rel = 3e-4 if spheres else REL
+    for what, a, b in zip(("g_o", "g_d", "g_tri_g", "g_tri_f", "g_sph_f", "g_frames"), got, ref):
+        _close(a, torch.zeros_like(a) if b is None else b.float(), what, rel)
+    assert float(got[5].abs().sum()) > 0
+    leaves2 = [x.clone().requires_grad_(True) for x in (o, d, ht.tri_g, ht.tri_f, ht.sph_f, fr)]
+    rec2 = assemble_hit(ht._replace(tri_g=leaves2[2], tri_f=leaves2[3], sph_f=leaves2[4]),
+                        leaves2[0], leaves2[1], t, prim, u, v, leaves2[5])
+    ref_rec = assemble_hit(ht, o, d, t, prim, u, v, fr)
+    for f in ("position", "normal", "geom_normal", "tangent", "uv", "mat", "backside"):
+        assert torch.equal(getattr(rec2, f), getattr(ref_rec, f)), f
+    outs2 = (rec2.t, rec2.position, rec2.normal, rec2.geom_normal, rec2.tangent, rec2.uv)
+    got2 = torch.autograd.grad(sum((a * g).sum() for a, g in zip(outs2, gs)), leaves2,
+                               allow_unused=True)
+    for a, b in zip(got2, got):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # K8T
 # ---------------------------------------------------------------------------
@@ -211,17 +278,23 @@ def _render(scene, **kw):
 
 def test_differentiable_mode_refuses_what_it_cannot_take():
     """An RGL material's warp tables that require grad (A.9; its rgb, ndf
-    and sigma tables take K7T), animated scenes (A.8) and a sky
-    rotation that requires grad (A.9) raise in differentiable mode; the
-    wavefront renderer refuses differentiable params."""
+    and sigma tables take K7T) and a sky rotation that requires grad (A.9)
+    raise in differentiable mode; an animated scene, refused before K3aT,
+    renders on the tape (its keyframes get a gradient; the JAX comparison
+    is in tests/test_torch_motion_blur.py); the wavefront renderer refuses
+    differentiable params."""
     city = scenes.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4,
                              device="cpu")
     assert bool(torch.isfinite(_render(city, params=DIFF)).all())
     vndf = city.rgl.vndf_data.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="RGL.*A.9"):
         _render(city._replace(rgl=city.rgl._replace(vndf_data=vndf)), params=DIFF)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        _render(scenes.cornell_box_animated("cpu"), params=DIFF, t0=0.5, t1=0.5)
+    anim = scenes.cornell_box_animated("cpu")
+    trans = anim.anims.trans.clone().requires_grad_(True)
+    img = _render(anim._replace(anims=anim.anims._replace(trans=trans)), params=DIFF, t0=0.0,
+                  t1=1.0)
+    (g,) = torch.autograd.grad(img.mean(), trans)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
     env_scene = scenes.envmap_spheres(device="cpu")
     rot = env_scene.envmap.rotation.clone().requires_grad_(True)
     rotated = env_scene._replace(envmap=env_scene.envmap._replace(rotation=rot))

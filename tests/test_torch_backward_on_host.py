@@ -1,7 +1,7 @@
-"""K3T's and K8T's device code (``csrc/backward_common.cuh``: the per-lane
-backward of the hit assembly with the winner's intersection, and of the
-sky's radiance lookup) compiled with g++ through ``tests/cuda_host`` and
-run on the CPU, held against their plain versions (render/backward.py
+"""K3T's, K3aT's and K8T's device code (``csrc/backward_common.cuh``: the
+per-lane backward of the hit assembly with the winner's intersection,
+static and animated, and of the sky's radiance lookup) compiled with g++
+through ``tests/cuda_host`` and run on the CPU, held against their plain versions (render/backward.py
 `assemble_hit_bwd_plain`, `env_radiance_bwd_plain`) on the same inputs.
 
 The host's libm computes atan2f, acosf and sqrtf, and the scatter-adds land
@@ -22,6 +22,7 @@ from wurblpt_tpu_torch.native import SRC_DIR
 from wurblpt_tpu_torch.render import backward as bw
 from wurblpt_tpu_torch.render.intersect import assemble_hit, build_hit_tables
 from wurblpt_tpu_torch.render.intersect_brute import build_brute_scene, closest_hit
+from wurblpt_tpu_torch.render.intersect_sweep import build_sweep_scene, check_frames, closest_sweep
 from wurblpt_tpu_torch.utils import kernel_check as kc
 from wurblpt_tpu_torch.utils import scenes
 
@@ -83,6 +84,44 @@ def test_k3t_device_code_matches_its_plain_version(lib, name):
         *map(ptr, gs), *map(ptr, out)) == 0
     for what, a, b in zip(("g_o", "g_d", "g_tri_g", "g_tri_f", "g_sph_f"), out, ref):
         _close(a, b, f"{name} {what}")
+
+
+def _anim_lanes(spheres, per_ray):
+    """The animated box (with its two spheres) seen by 24 x 24 camera lanes,
+    cast with the frame's rows at one instant or with each lane's own rows
+    at a random time (the sweeps' plain version)."""
+    scene = scenes.cornell_box_animated("cpu", spheres=spheres)
+    o, d, tmin, tmax = kc.camera_lanes(24, 24, 1, "cpu")
+    fr = kc.frames_per_ray_at(scene, o.shape[0]) if per_ray else kc.frames_at(scene)
+    ss = build_sweep_scene(scene)
+    t, prim, u, v = closest_sweep(ss, o, d, tmin, tmax, fr)
+    return build_hit_tables(scene), o, d, t, prim, u, v, fr
+
+
+@pytest.mark.parametrize("spheres", [False, True], ids=["box", "box with spheres"])
+@pytest.mark.parametrize("per_ray", [False, True], ids=["one instant", "per ray"])
+def test_k3at_device_code_matches_its_plain_version(lib, spheres, per_ray):
+    """K3aT's lane (assemble_hit_bwd_lane<true>) against its plain version:
+    the winners' object-space backward and the frame rows' cotangents,
+    added into [A, 30] at one instant or stored to each lane's own row."""
+    ht, o, d, t, prim, u, v, fr = _anim_lanes(spheres, per_ray)
+    assert bool((prim >= ht.n_tris).any()) == spheres
+    backside = assemble_hit(ht, o, d, t, prim, u, v, fr).backside
+    gs = _cotangents(o.shape[0], 4)
+    ref = bw.assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *gs, frames=fr)
+    out = [torch.zeros_like(x) for x in ref]
+    ptr = lambda x: x.data_ptr()  # noqa: E731
+    lib.host_assemble_hit_anim_bwd.argtypes = native._SIGNATURES["wpt_assemble_hit_anim_bwd"][:-1]
+    stride = check_frames(fr, ht.n_anims, o.device, o.shape[0])
+    assert stride == (ht.n_anims * 30 if per_ray else 0)
+    assert lib.host_assemble_hit_anim_bwd(
+        ptr(o), ptr(d), ptr(t), ptr(prim), ptr(u), ptr(v), ptr(backside), o.shape[0],
+        ptr(ht.tri_g), ptr(ht.tri_f), ptr(ht.tri_i), ht.n_tris, ptr(ht.sph_f), ht.n_spheres,
+        *map(ptr, gs), *map(ptr, out[:5]), ptr(ht.tri_anim), ptr(ht.sph_anim), ptr(fr), stride,
+        ptr(out[5])) == 0
+    for what, a, b in zip(("g_o", "g_d", "g_tri_g", "g_tri_f", "g_sph_f", "g_frames"), out, ref):
+        _close(a, b, f"{what}")
+    assert float(ref[5].abs().sum()) > 0
 
 
 @pytest.mark.parametrize("kind", ["equirect", "cube"])

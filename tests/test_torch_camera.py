@@ -191,10 +191,13 @@ def test_opencv_fixed_point_contracts():
 
 
 def test_lens_models_pass_the_camera_check_and_dof_does_not():
+    """Every lens model, depth of field and an animated pose pass the camera
+    check (the thin lens and the animated pose are ported); an unknown
+    distortion model is still refused."""
     for model in [DistortionModel.NONE] + MODELS:
         tcamera.check_camera(CameraConfig(distortion=model))
-    for bad, feature in ((CameraConfig(dof=True), "depth of field"),
-                         (CameraConfig(anim_id=0), "animated camera"),
-                         (CameraConfig(distortion=7), "distortion model 7")):
-        with pytest.raises(NotImplementedError, match=feature):
-            tcamera.check_camera(bad)
+    tcamera.check_camera(CameraConfig(dof=True))
+    tcamera.check_camera(CameraConfig(anim_id=0))
+    tcamera.check_camera(CameraConfig(dof=True, anim_id=1, distortion=DistortionModel.OPENCV))
+    with pytest.raises(NotImplementedError, match="distortion model 7"):
+        tcamera.check_camera(CameraConfig(distortion=7))

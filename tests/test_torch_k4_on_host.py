@@ -281,11 +281,12 @@ def test_host_diffuse_and_env_shades_write_only_what_the_contract_names(k4, case
 
 
 @pytest.mark.parametrize("case", ["city, fresh block", "city, 4 spp", "rtiow lens, OPENCV",
-                                  "rtiow lens, RADIAL_ONLY", "cornell"])
+                                  "rtiow lens, RADIAL_ONLY", "cornell", "rtiow thin lens",
+                                  "rtiow thin lens, OPENCV"])
 def test_host_regeneration_matches_the_plain_one(k4, case):
     """The regenerations in place: the step before's pending deposits
     added to acc (the city's two rows per lane, Cornell's one; none on the
-    fresh block and rtiow), the loop flag, the regenerated lanes' state,
+    fresh block and rtiow), the loop flag, the thin lens of depth of field, the regenerated lanes' state,
     sample ids and next indices, every lane's t_max, the kept lanes
     untouched."""
     if case.startswith("city"):
@@ -293,6 +294,12 @@ def test_host_regeneration_matches_the_plain_one(k4, case):
                             ssqrt=1 if case.endswith("fresh block") else 2)
     elif case == "cornell":
         inp, _ = _queued_inputs("cornell")
+    elif case.startswith("rtiow thin lens"):   # depth of field: the lens sample by Salt.LENS
+        opencv = case.endswith("OPENCV")
+        inp = kc.k4_inputs("cpu", "rtiow_dof", width=24, height=16, ssqrt=2, m=2,
+                           cfg=CameraConfig(dof=True, distortion=DistortionModel.OPENCV
+                                            if opencv else DistortionModel.NONE,
+                                            undistort_iters=8))
     else:
         model = DistortionModel.OPENCV if case.endswith("OPENCV") else DistortionModel.RADIAL_ONLY
         inp = kc.k4_inputs("cpu", "rtiow", width=24, height=16, ssqrt=2, m=2,

@@ -156,16 +156,26 @@ def _render_t(cornell, t0, t1):
 
 
 def test_an_animated_scene_over_a_shutter_interval_is_refused():
+    """Motion blur, ported: an animated scene over t0 != t1 renders, each ray
+    at its own time (its image is not the instant's), and
+    render_frame_wavefront hands such a frame to render_frame (the same
+    image and counters); the JAX comparisons are in
+    tests/test_torch_motion_blur.py."""
     scene = scenes.cornell_box_animated("cpu")
     pose, vfov = scenes.cornell_ref_camera("cpu")
     cam = make_camera(pose, vfov, 8, 8, device="cpu")
     static = SceneStatic.from_scene(scene)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        render_frame(scene, static, cam, CameraConfig(), SensorRGB(), 8, 8, 1, 0.0, 1.0,
-                     params=PARAMS, device="cpu")
+    blur, stats = render_frame(scene, static, cam, CameraConfig(), SensorRGB(), 8, 8, 1, 0.0,
+                               1.0, params=PARAMS, return_stats=True, device="cpu")
     img = render_frame(scene, static, cam, CameraConfig(), SensorRGB(), 8, 8, 1, kc.ANIM_TIME,
                        kc.ANIM_TIME, params=PARAMS, device="cpu")
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    assert bool(torch.isfinite(blur).all()) and float(blur.mean()) > 0
+    assert not torch.equal(blur, img)
+    wf, wf_stats = render_frame_wavefront(scene, static, cam, CameraConfig(), SensorRGB(), 8, 8,
+                                          1, PARAMS, return_stats=True, device="cpu", t0=0.0,
+                                          t1=1.0)
+    assert torch.equal(wf, blur) and torch.equal(wf_stats, stats)
 
 
 def test_entry_points_default_to_the_card(cornell):

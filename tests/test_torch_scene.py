@@ -372,10 +372,19 @@ def test_spot_and_tof_lights_are_in_the_slice(material):
 
 
 def test_render_refuses_a_non_pinhole_camera():
+    """A camera outside the port (an unknown distortion model) is refused at
+    render start; depth of field, which the port takes since its thin lens
+    was ported, renders (its lens moves the image)."""
     scene = scenes.cornell_box_ref("cpu")
     cam = make_camera(scenes.cornell_ref_camera("cpu")[0], 50.0, 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="depth of field"):
+    with pytest.raises(NotImplementedError, match="distortion model 7"):
         render_frame_wavefront(scene, SceneStatic.from_scene(scene), cam,
-                               CameraConfig(dof=True), SensorRGB(), 8, 8, 1,
+                               CameraConfig(distortion=7), SensorRGB(), 8, 8, 1,
                                params=RenderParams(max_path_components=2), device="cpu")
+    lens = cam._replace(aperture_diameter=torch.tensor(0.3), focus_distance=torch.tensor(3.0))
+    img, sharp = (render_frame_wavefront(scene, SceneStatic.from_scene(scene), lens,
+                                         CameraConfig(dof=dof), SensorRGB(), 8, 8, 1,
+                                         params=RenderParams(max_path_components=2),
+                                         device="cpu") for dof in (True, False))
+    assert bool(torch.isfinite(img).all()) and not torch.equal(img, sharp)
     assert JCameraConfig.__dataclass_fields__.keys() == CameraConfig.__dataclass_fields__.keys()

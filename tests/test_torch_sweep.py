@@ -263,14 +263,19 @@ def _ptr(x):
 
 
 @pytest.mark.parametrize("scene, frames", [("cornell_animated", True), ("animated spheres", True),
-                                           ("animated spheres", False), ("tri_sphere_field", False)])
+                                           ("animated spheres", False), ("tri_sphere_field", False),
+                                           ("cornell_animated", "per ray"),
+                                           ("animated spheres", "per ray")])
 @pytest.mark.parametrize("kind", ["camera", "random"])
 def test_device_code_on_the_host_matches_the_plain_versions(host, scene, frames, kind):
+    """KS1, KS2 and K3a's device code built with g++ against their plain
+    versions: the frame's rows at one instant, none (static), or each
+    lane's own rows at a random time in [0, 1] (motion blur: the kernels'
+    lane stride of A 30 floats)."""
     sc = {"cornell_animated": lambda: scenes.cornell_box_animated("cpu"),
           "animated spheres": lambda: scenes.cornell_box_animated("cpu", spheres=True),
           "tri_sphere_field": lambda: scenes.tri_sphere_field(device="cpu")}[scene]()
     ss, ht = sw.build_sweep_scene(sc), intersect.build_hit_tables(sc)
-    fr = kc.frames_at(sc) if frames else None
     camera = scenes.field_camera("cpu") if scene == "tri_sphere_field" else None
     if kind == "camera":
         rays = kc.camera_lanes(32, 24, 1, "cpu", camera=camera)
@@ -278,11 +283,14 @@ def test_device_code_on_the_host_matches_the_plain_versions(host, scene, frames,
         rays = (kc.random_lanes(1000, "cpu") if camera is None else
                 kc.random_lanes(1000, "cpu", lo=(-10.0, 0.0, -10.0), hi=(10.0, 2.0, 10.0)))
     n = rays[0].shape[0]
+    fr = (kc.frames_per_ray_at(sc, n) if frames == "per ray"
+          else kc.frames_at(sc) if frames else None)
+    stride = sw.check_frames(fr, ss.n_anims, torch.device("cpu"), n)
     t, u, v = torch.empty(n), torch.empty(n), torch.empty(n)
     prim = torch.empty(n, dtype=torch.int32)
     occ = torch.empty(n, dtype=torch.bool)
     common = (*(x.data_ptr() for x in rays), n, ss.tri.data_ptr(), ss.tri_anim.data_ptr(),
-              ss.n_tris, ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr))
+              ss.n_tris, ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), stride)
     host["sweep"].host_sweep_closest(*common, t.data_ptr(), prim.data_ptr(), u.data_ptr(),
                                      v.data_ptr())
     host["sweep"].host_sweep_any(*common, occ.data_ptr())
@@ -299,7 +307,7 @@ def test_device_code_on_the_host_matches_the_plain_versions(host, scene, frames,
         o.data_ptr(), d.data_ptr(), pt.data_ptr(), pp.data_ptr(), pu.data_ptr(), pv.data_ptr(),
         n, ht.tri_f.data_ptr(), ht.tri_i.data_ptr(), ht.n_tris, ht.sph_f.data_ptr(),
         ht.sph_mat.data_ptr(), ht.n_spheres, ht.tri_anim.data_ptr(), ht.sph_anim.data_ptr(),
-        _ptr(fr), *(x.data_ptr() for x in out))
+        _ptr(fr), stride, *(x.data_ptr() for x in out))
     ref = intersect.assemble_hit_plain(ht, o, d, pt, pp, pu, pv, fr)
     h = ref.hit
     for f, got in zip(("position", "normal", "geom_normal", "tangent", "uv"), out[:5]):
@@ -347,7 +355,7 @@ def test_ks1_queue_on_the_host_matches_the_plain_version(host, build, case):
     prim = torch.full((n,), -7, dtype=torch.int32)
     staged = host[build].host_sweep_closest(
         *(x.data_ptr() for x in rays), n, ss.tri.data_ptr(), ss.tri_anim.data_ptr(), ss.n_tris,
-        ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), t.data_ptr(),
+        ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), 0, t.data_ptr(),
         prim.data_ptr(), u.data_ptr(), v.data_ptr())
     assert bool(staged) == (whole and build == "sweep")
     pt, pp, pu, pv = sw.closest_sweep_plain(ss, *rays, fr)
@@ -422,7 +430,7 @@ def test_ks2_queue_on_the_host_matches_the_plain_version(host, build, case):
     occ = torch.ones((n,), dtype=torch.bool)
     staged = host[build].host_sweep_any(
         *(x.data_ptr() for x in rays), n, ss.tri.data_ptr(), ss.tri_anim.data_ptr(), ss.n_tris,
-        ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), occ.data_ptr())
+        ss.sph.data_ptr(), ss.sph_anim.data_ptr(), ss.n_spheres, _ptr(fr), 0, occ.data_ptr())
     assert bool(staged) == (build == "sweep")
     plain = sw.any_sweep_plain(ss, *rays, fr)
     assert torch.equal(occ, plain)
@@ -548,5 +556,7 @@ def test_the_route_follows_the_scene():
     ss = sw.build_sweep_scene(anim)
     with pytest.raises(ValueError, match="frames"):
         sw.closest_sweep(ss, *rays, fr[:, :2].contiguous())
-    with pytest.raises(ValueError, match="frames"):
-        sw.any_sweep(ss, *rays, fr.expand(64, -1, -1).contiguous())   # per ray: not taken
+    with pytest.raises(ValueError, match="frames"):   # per-ray rows: one row set per ray
+        sw.any_sweep(ss, *rays, fr.expand(63, -1, -1).contiguous())
+    per_ray = fr.expand(64, -1, -1).contiguous()   # every ray at the frame's instant
+    assert torch.equal(sw.any_sweep(ss, *rays, per_ray), sw.any_sweep(ss, *rays, fr))

@@ -27,9 +27,12 @@ one shutter instant (t0 = t1), against the JAX package.
   (K5/K6's plain versions with the frame's animation rows), on K4's diffuse
   class. The cast counters are equal; pixels agree to rtol 1e-3 / atol
   1e-5. An animated quad in a BVH is cast where the JAX package casts it.
-* The refusals: a shutter interval t0 != t1 (motion blur, ROADMAP A.3), an
-  animated camera (A.7); an animated scene stays off K4's env and lit
-  classes (the torch-op bounce renders it).
+* What was refused before motion blur and animated cameras were ported: a
+  shutter interval t0 != t1 is handed to render_frame (image and
+  counters), an animated camera at one instant is posed once (the
+  identity animation's frame equals the static camera's); an animated
+  scene stays off K4's env and lit classes (the torch-op bounce renders
+  it).
 """
 
 import sys
@@ -259,12 +262,22 @@ def test_nee_places_the_moving_light_where_it_is_at_the_rays_time():
 
 
 def test_motion_blur_is_refused():
+    """No longer refused: over t0 != t1 render_frame_wavefront returns
+    render_frame's image and counters (passes of integrator.pass_samples
+    samples), as the JAX package's does."""
     ps = scenes.cornell_box_animated("cpu")
     pose, vfov = scenes.cornell_ref_camera("cpu")
-    with pytest.raises(NotImplementedError, match="motion blur.*A.3"):
-        render_frame_wavefront(ps, SceneStatic.from_scene(ps),
-                               make_camera(pose, vfov, 8, 8, device="cpu"), CameraConfig(),
-                               SensorRGB(), 8, 8, 1, device="cpu", t0=0.0, t1=1.0)
+    static, cam = SceneStatic.from_scene(ps), make_camera(pose, vfov, 8, 8, device="cpu")
+    params = RenderParams(max_path_components=3)
+    img, stats = render_frame_wavefront(ps, static, cam, CameraConfig(), SensorRGB(), 8, 8, 2,
+                                        params, return_stats=True, device="cpu", t0=0.0,
+                                        t1=1.0)
+    per_pass = integrator.pass_samples(64, 4, 131072)
+    assert per_pass == 4
+    ref, ref_stats = integrator.render_frame(ps, static, cam, CameraConfig(), SensorRGB(), 8,
+                                             8, 2, 0.0, 1.0, params, per_pass,
+                                             return_stats=True, device="cpu")
+    assert torch.equal(img, ref) and torch.equal(stats, ref_stats)
 
 
 def test_animation_in_a_bvh_scene_is_cast_and_rendered_as_jax():
@@ -363,10 +376,15 @@ def test_animation_keeps_a_scene_off_the_env_and_lit_classes(cls):
 
 
 def test_an_animated_camera_is_refused():
+    """No longer refused: an animated camera at one instant is posed once
+    on the host (camera.static_pose) and the frame keeps K4's route; on the
+    identity animation (row 0) the pose is the static camera's bit for bit,
+    and so is the frame. tests/test_torch_dof.py holds animated cameras to
+    the JAX package's."""
     ps = scenes.cornell_box_animated("cpu")
     pose, vfov = scenes.cornell_ref_camera("cpu")
-    with pytest.raises(NotImplementedError, match="animated camera"):
-        render_frame_wavefront(ps, SceneStatic.from_scene(ps),
-                               make_camera(pose, vfov, 8, 8, device="cpu"),
-                               CameraConfig(anim_id=0), SensorRGB(), 8, 8, 1, device="cpu",
-                               t0=0.5, t1=0.5)
+    static, cam = SceneStatic.from_scene(ps), make_camera(pose, vfov, 8, 8, device="cpu")
+    frames = [render_frame_wavefront(ps, static, cam, CameraConfig(anim_id=a), SensorRGB(), 8,
+                                     8, 1, return_stats=True, device="cpu", t0=0.5, t1=0.5)
+              for a in (0, -1)]
+    assert torch.equal(frames[0][0], frames[1][0]) and torch.equal(frames[0][1], frames[1][1])

@@ -29,8 +29,10 @@ the same order:
    entry distance is below min(t_max, best t), dropping the entries above it;
    an empty stack ends the walk.
 
-With the animations' rows at the frame's instant (`frames`,
-scene/animation.anim_frames) a row is tested with the ray in its
+With the animations' rows (`frames`: scene/animation.anim_frames [A, 30]
+at the frame's instant, or anim_frames_per_ray [N, A, 30] at each ray's
+own instant under motion blur, which the kernels read from device memory
+rather than stage) a row is tested with the ray in its
 animation's object space (row 0, the identity, for static primitives;
 `frames_ray_to_object`, the sweeps' expression), while the slab tests stay
 on the world ray against the swept world boxes. Kernel and plain version
@@ -117,7 +119,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts
     # counts only: each lane's lockstep steps, by input lane, and the
     # animations its walk has used
     steps = torch.zeros((n,), dtype=torch.int64, device=dev)
-    seen = torch.zeros((n, 0 if frames is None else frames.shape[0]), dtype=torch.bool, device=dev)
+    seen = torch.zeros((n, 0 if frames is None else frames.shape[-2]), dtype=torch.bool,
+                       device=dev)
     live_in = t_max > t_min
 
     out_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
@@ -149,6 +152,8 @@ def _walk(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=None, counts
             keep = live
             lane, o, d, inv_d, t_min, t_max, seen = (
                 x[keep] for x in (lane, o, d, inv_d, t_min, t_max, seen))
+            if frames is not None and frames.dim() == 3:   # each ray keeps its own rows
+                frames = frames[keep]
             cur, live, sp, stack_l, stack_t = (x[keep] for x in (cur, live, sp, stack_l, stack_t))
             best_t, best_prim, best_u, best_v, occluded = (
                 x[keep] for x in (best_t, best_prim, best_u, best_v, occluded))
@@ -261,22 +266,32 @@ def bvh_walk_counts(bvh: BVHArrays, o, d, t_min, t_max, any_hit: bool, frames=No
     return counts
 
 
-def _check_bvh(bvh: BVHArrays, device, frames):
+def _check_bvh(bvh: BVHArrays, device, frames, n: int) -> int:
+    """Raise unless the tree and the frame rows suit a cast of n rays on
+    `device`; returns the kernels' lane stride of the rows in floats (0:
+    one instant, or no rows; A 30: [n, A, 30] per-ray rows)."""
     if bvh.nodes.device != device or bvh.prim_v.device != device:
         raise ValueError(f"BVH is on {bvh.nodes.device}, rays on {device}")
+    stride = 0
     if frames is None:
         if bvh.n_anims > 1:
             raise ValueError("an animated BVH needs the animations' frames")
-    elif (frames.dtype != torch.float32 or frames.dim() != 2 or frames.shape[1] != FRAME_WIDTH
-          or frames.shape[0] < bvh.n_anims or not frames.is_contiguous()
-          or frames.device != device):
-        raise ValueError(f"frames: need contiguous float32 [>= {bvh.n_anims}, {FRAME_WIDTH}] "
-                         f"on {device}, got {frames.dtype} {tuple(frames.shape)} on "
-                         f"{frames.device}")
+    else:
+        per_ray = frames.dim() == 3
+        rows = frames.shape[-2] if frames.dim() in (2, 3) else -1
+        if (frames.dtype != torch.float32 or frames.dim() not in (2, 3)
+                or frames.shape[-1] != FRAME_WIDTH or rows < bvh.n_anims
+                or per_ray and frames.shape[0] != n or not frames.is_contiguous()
+                or frames.device != device):
+            raise ValueError(f"frames: need contiguous float32 [>= {bvh.n_anims}, {FRAME_WIDTH}] "
+                             f"or [{n}, >= {bvh.n_anims}, {FRAME_WIDTH}] on {device}, got "
+                             f"{frames.dtype} {tuple(frames.shape)} on {frames.device}")
+        stride = rows * FRAME_WIDTH if per_ray else 0
     if bvh.depth > STACK_DEPTH:
         raise ValueError(f"BVH depth {bvh.depth} exceeds the traversal stack ({STACK_DEPTH})")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no BVH kernel for device {device}")
+    return stride
 
 
 # (entry point, branch asked for, the tree's sizes, device, stream) ->
@@ -294,8 +309,12 @@ STAGED_FRAME = 12    # floats of an animation's staged frame row
 
 def variant(bvh: BVHArrays, frames) -> int:
     """The kernels' leaf kind for a cast: bit 0 sphere rows in the tree, bit
-    1 object-space rays (`frames`)."""
+    1 object-space rays (`frames`, at one instant or per ray)."""
     return int(bvh.n_spheres > 0) | (int(frames is not None) << 1)
+
+
+def _per_ray(frames) -> bool:
+    return frames is not None and frames.dim() == 3
 
 
 def cache_slots(bvh: BVHArrays, frames) -> int:
@@ -312,13 +331,14 @@ def layout_bytes(bvh: BVHArrays, frames, staged: bool) -> int:
     `layout`): the stack at the tree's depth (staged); the object-ray
     cache and each thread's world ray (with `frames`); the node table, the
     leaf rows (32 bytes each in a tree without triangles, else 48) and the
-    animations' inverse frames (staged)."""
+    animations' inverse frames (staged, at one instant: per-ray rows stay in
+    device memory)."""
     n = bvh.depth * BLOCK * 8 if staged else 0
     if frames is not None:
         n += cache_slots(bvh, frames) * SLOT_WORDS * BLOCK * 4 + 6 * BLOCK * 4
     if staged:
         n += bvh.nodes.shape[0] * 64 + bvh.prim_v.shape[0] * (2 if bvh.n_tris == 0 else 3) * 16
-        if frames is not None:
+        if frames is not None and not _per_ray(frames):
             n += bvh.n_anims * STAGED_FRAME * 4
     return n
 
@@ -357,7 +377,7 @@ def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
-def _launch_args(bvh: BVHArrays, o, d, t_min, t_max, frames, entry: str, branch):
+def _launch_args(bvh: BVHArrays, o, d, t_min, t_max, frames, stride: int, entry: str, branch):
     """The entry point's arguments from the variant to the spill rows. The
     cast's plan, the persistent launch's lane counter (zeroed on the stream
     by the C entry where the lanes pass one wave) and the L2 walk's spill
@@ -366,8 +386,8 @@ def _launch_args(bvh: BVHArrays, o, d, t_min, t_max, frames, entry: str, branch)
     looked up once per tree size and stream."""
     lib = native.load_kernels()
     stream = native.stream_ptr(o)
-    key = (entry, branch, variant(bvh, frames), bvh.nodes.shape[0], bvh.prim_v.shape[0],
-           bvh.n_tris, bvh.n_anims, bvh.depth, o.device, stream)
+    key = (entry, branch, variant(bvh, frames), _per_ray(frames), bvh.nodes.shape[0],
+           bvh.prim_v.shape[0], bvh.n_tris, bvh.n_anims, bvh.depth, o.device, stream)
     if key not in _SCRATCH:
         var, _, smem = plan(bvh, frames, entry, branch)
         spill = None
@@ -379,7 +399,7 @@ def _launch_args(bvh: BVHArrays, o, d, t_min, t_max, frames, entry: str, branch)
     var, counter, spill = _SCRATCH[key]
     return lib, (var, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), o.shape[0],
                  bvh.nodes.data_ptr(), bvh.nodes.shape[0], bvh.prim_v.data_ptr(),
-                 bvh.prim_v.shape[0], bvh.n_tris, _ptr(frames), bvh.n_anims, bvh.depth,
+                 bvh.prim_v.shape[0], bvh.n_tris, _ptr(frames), stride, bvh.n_anims, bvh.depth,
                  counter.data_ptr(), _ptr(spill), stream)
 
 
@@ -389,7 +409,7 @@ def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None, branch=None
     walk's branch follows the tree's size (`plan`); `branch` names one for
     a check of the other."""
     _check_rays(o, d, t_min, t_max)
-    _check_bvh(bvh, o.device, frames)
+    stride = _check_bvh(bvh, o.device, frames, o.shape[0])
     if o.device.type == "cpu":
         return bvh_closest_hit_plain(bvh, o, d, t_min, t_max, frames)
     n = o.shape[0]
@@ -397,7 +417,8 @@ def bvh_closest_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None, branch=None
     prim = torch.empty((n,), dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    lib, args = _launch_args(bvh, o, d, t_min, t_max, frames, "bvh_closest", branch)
+    lib, args = _launch_args(bvh, o, d, t_min, t_max, frames, stride, "bvh_closest",
+                             branch)
     code = lib.wpt_bvh_closest_hit(*args[:-1], t.data_ptr(), prim.data_ptr(), u.data_ptr(),
                                    v.data_ptr(), args[-1])
     native.check(code, "bvh_closest_hit")
@@ -409,11 +430,11 @@ def bvh_any_hit(bvh: BVHArrays, o, d, t_min, t_max, frames=None, branch=None):
     """Occlusion of rays [N] in (t_min, t_max) (K6); t_max <= t_min means not
     occluded; `frames` and `branch` as bvh_closest_hit."""
     _check_rays(o, d, t_min, t_max)
-    _check_bvh(bvh, o.device, frames)
+    stride = _check_bvh(bvh, o.device, frames, o.shape[0])
     if o.device.type == "cpu":
         return bvh_any_hit_plain(bvh, o, d, t_min, t_max, frames)
     occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
-    lib, args = _launch_args(bvh, o, d, t_min, t_max, frames, "bvh_any", branch)
+    lib, args = _launch_args(bvh, o, d, t_min, t_max, frames, stride, "bvh_any", branch)
     code = lib.wpt_bvh_any_hit(*args[:-1], occ.data_ptr(), args[-1])
     native.check(code, "bvh_any_hit")
     native.LAUNCHES["bvh_any_hit"] += 1

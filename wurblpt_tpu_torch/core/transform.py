@@ -61,6 +61,16 @@ def quat_from_axis_angle(axis, angle) -> torch.Tensor:
                       torch.tensor([c], dtype=torch.float32)])
 
 
+def quat_mul(a, b):
+    """Hamilton product a b of quaternions [..., 4] (the rotation b, then a)."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([aw * bx + ax * bw + ay * bz - az * by,
+                        aw * by - ax * bz + ay * bw + az * bx,
+                        aw * bz + ax * by - ay * bx + az * bw,
+                        aw * bw - ax * bx - ay * by - az * bz], -1)
+
+
 def quat_rotate(q, v):
     """Rotate v by unit quaternion q (v + 2w(u x v) + 2 u x (u x v))."""
     u = q[..., :3]

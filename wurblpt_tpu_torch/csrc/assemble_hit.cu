@@ -26,7 +26,11 @@
 // matrix R diag(1/s) and the tangent by the forward map R diag(s), each
 // normalized, before the front-face flip against the world ray. The same
 // memory bound, plus the 120-byte frame row of the winner's animation (the
-// frame's few rows stay in L1).
+// frame's few rows stay in L1). Under motion blur each lane reads its own
+// rows (scene/animation.py anim_frames_per_ray: a lane stride of A FRAME
+// floats), the winner's row at lane i A + aid; the K4 form takes the
+// frame's one instant only (a stride of 0), since a frame over a shutter
+// takes the pass renderer.
 //
 // The K4 form (wpt_assemble_hit_k4, `assemble_hit_k4_kernel<ANIM, FIELDS>`):
 // the record one K4 shade reads, on hit lanes only. No kernel after K3 on a
@@ -112,7 +116,8 @@ struct Tables {
 struct Anim {
     const int* tri_anim;
     const int* sph_anim;
-    const float* frames;   // [A, FRAME]: each animation at the frame's instant
+    const float* frames;   // [A, FRAME] at the frame's instant, or [N, A, FRAME] per ray
+    long long stride;      // floats per lane: 0, or A FRAME per ray
 };
 
 // The record's output rows; null outside the launch's field set.
@@ -143,7 +148,7 @@ __device__ __forceinline__ void assemble_lane(int i, int p, bool hit, V3 ro, V3 
                    : (tb.n_spheres > 0
                           ? __ldg(anim.sph_anim + min(max(ps - tb.n_tris, 0), tb.n_spheres - 1))
                           : 0);
-        frow = anim.frames + aid * FRAME;
+        frow = anim.frames + i * anim.stride + aid * FRAME;
         V3 oa, da;
         object_ray(frow, ro, rd, oa, da);
         pos_local = {oa.x + tp * da.x, oa.y + tp * da.y, oa.z + tp * da.z};
@@ -331,14 +336,15 @@ extern "C" int wpt_assemble_hit_anim(const float* o, const float* d, const float
                                      const float* tri_f, const int* tri_i, int n_tris,
                                      const float* sph_f, const int* sph_mat, int n_spheres,
                                      const int* tri_anim, const int* sph_anim,
-                                     const float* frames, float* pos, float* nrm, float* gn,
-                                     float* tan, float* uv, int* mat, bool* backside,
-                                     void* stream) {
+                                     const float* frames, long long fstride, float* pos,
+                                     float* nrm, float* gn, float* tan, float* uv, int* mat,
+                                     bool* backside, void* stream) {
     if (n > 0) {
         const int grid = (n + BLOCK - 1) / BLOCK;
         assemble_hit_kernel<true><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
             o, d, t, prim, u, v, n, Tables{tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres},
-            Anim{tri_anim, sph_anim, frames}, Record{pos, nrm, gn, tan, uv, mat, backside});
+            Anim{tri_anim, sph_anim, frames, fstride},
+            Record{pos, nrm, gn, tan, uv, mat, backside});
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -379,7 +385,7 @@ extern "C" int wpt_assemble_hit_k4(const float* o, const float* d, const float* 
                                    int fields, float* pos, float* nrm, float* gn, float* tan,
                                    int* mat, bool* backside, void* stream) {
     const Tables tb{tri_f, tri_i, n_tris, sph_f, sph_mat, n_spheres};
-    const Anim anim{tri_anim, sph_anim, frames};
+    const Anim anim{tri_anim, sph_anim, frames, 0};
     const Record out{pos, nrm, gn, tan, nullptr, mat, backside};
     const bool animated = frames != nullptr;
     const auto s = static_cast<cudaStream_t>(stream);

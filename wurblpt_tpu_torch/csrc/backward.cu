@@ -13,6 +13,15 @@
 //   (intersect_mxu.py:164-257, the cast's t, u, v as the hit equations
 //   give them); one thread per lane, the winner's rows scatter-added with
 //   atomicAdd (backward_common.cuh assemble_hit_bwd_lane).
+// K3aT, wpt_assemble_hit_anim_bwd: the same for K3a, the animated branch
+//   (intersect.py:505-530, :605-620): the winner's hit recomputed in its
+//   animation's object space from the lane's frame row, the world
+//   normals' and tangent's cotangents taken back through their
+//   normalizations and the normal and forward maps, and the cotangent of
+//   the winner's 30-float frame row: added atomically into the [A, 30]
+//   rows of one instant (a handful of rows: heavy contention, held like
+//   K3T's tables to a tolerance) or stored to the lane's own row of [N, A,
+//   30] per-ray rows.
 // K8T, wpt_env_radiance_bwd: the backward of K8's radiance lookup
 //   (envmap.py:118-201): equirect and cube lanes one thread each, the four
 //   taps' texels scatter-added; a constant sky's radiance cotangent is the
@@ -68,11 +77,12 @@ row_scatter_kernel(const float* __restrict__ g, const int* __restrict__ idx, lon
     }
 }
 
+template <bool ANIM>
 __global__ void __launch_bounds__(BLOCK)
 assemble_hit_bwd_kernel(wpt_bwd::HitIn in, wpt_bwd::Tables tb, wpt_bwd::Cot c,
-                        wpt_bwd::HitOut out) {
+                        wpt_bwd::HitOut out, wpt_bwd::AnimIn an) {
     const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i < in.n) wpt_bwd::assemble_hit_bwd_lane(i, in, tb, c, out);
+    if (i < in.n) wpt_bwd::assemble_hit_bwd_lane<ANIM>(i, in, tb, c, out, an);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -142,11 +152,34 @@ extern "C" int wpt_assemble_hit_bwd(const float* o, const float* d, const float*
                                     float* g_d, float* g_tri_g, float* g_tri_f, float* g_sph_f,
                                     void* stream) {
     if (n > 0)
-        assemble_hit_bwd_kernel<<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
-            wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
-            wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
-            wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f});
+        assemble_hit_bwd_kernel<false>
+            <<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+                wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
+                wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
+                wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
+                wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f}, wpt_bwd::AnimIn{});
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K3aT: wpt_assemble_hit_bwd's arguments, then the winners' animation ids,
+// the frame rows ([A, 30] with fstride 0, or [N, A, 30] with fstride A 30)
+// and their cotangents (zeroed by the caller).
+extern "C" int wpt_assemble_hit_anim_bwd(
+    const float* o, const float* d, const float* t, const int* prim, const float* u,
+    const float* v, const bool* backside, int n, const float* tri_g, const float* tri_f,
+    const int* tri_i, int n_tris, const float* sph_f, int n_spheres, const float* g_t,
+    const float* g_pos, const float* g_nrm, const float* g_gn, const float* g_tan,
+    const float* g_uv, float* g_o, float* g_d, float* g_tri_g, float* g_tri_f, float* g_sph_f,
+    const int* tri_anim, const int* sph_anim, const float* frames, long long fstride,
+    float* g_frames, void* stream) {
+    if (n > 0)
+        assemble_hit_bwd_kernel<true>
+            <<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+                wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
+                wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
+                wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
+                wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f},
+                wpt_bwd::AnimIn{tri_anim, sph_anim, frames, fstride, g_frames});
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -96,9 +96,48 @@ struct HitOut {
     float *g_o, *g_d, *g_tri_g, *g_tri_f, *g_sph_f;
 };
 
-// K3T for lane i (render/backward.py assemble_hit_bwd_plain).
+// K3aT's animation rows: the winners' animation ids, the frame rows
+// (scene/animation.py: r_inv | t_inv | m_fwd | m_nrm, FRAME floats; [A,
+// FRAME] at one instant, stride 0, or [N, A, FRAME] per ray, stride A
+// FRAME) and their cotangents (the rows' shape, zeroed before the launch).
+constexpr int FRAME = 30;
+
+struct AnimIn {
+    const int* tri_anim;
+    const int* sph_anim;
+    const float* frames;
+    long long stride;
+    float* g_frames;
+};
+
+// m v and m^T v for a row-major 3 x 3 m.
+__device__ __forceinline__ V3 matvec(const float* m, V3 a) {
+    return {m[0] * a.x + m[1] * a.y + m[2] * a.z, m[3] * a.x + m[4] * a.y + m[5] * a.z,
+            m[6] * a.x + m[7] * a.y + m[8] * a.z};
+}
+__device__ __forceinline__ V3 matvec_t(const float* m, V3 a) {
+    return {m[0] * a.x + m[3] * a.y + m[6] * a.z, m[1] * a.x + m[4] * a.y + m[7] * a.z,
+            m[2] * a.x + m[5] * a.y + m[8] * a.z};
+}
+
+// r (row major, 9 floats) += a b^T.
+__device__ __forceinline__ void outer_add(float* r, V3 a, V3 b) {
+    const float av[3] = {a.x, a.y, a.z}, bv[3] = {b.x, b.y, b.z};
+    for (int k = 0; k < 3; ++k)
+        for (int j = 0; j < 3; ++j) r[3 * k + j] += av[k] * bv[j];
+}
+
+// K3T for lane i (render/backward.py assemble_hit_bwd_plain); ANIM: K3aT,
+// the winner's hit in its animation's object space (o_s = r_inv (o -
+// t_inv), d_s = r_inv d from the lane's row), its normals pushed to world
+// by m_nrm and its tangent by m_fwd, each normalized: the world
+// cotangents go back through both, the object-space backward runs on
+// (o_s, d_s), and the row's cotangent is added into g_frames (atomically
+// at one instant; the lane's own row under per-ray rows).
+template <bool ANIM>
 __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, const Tables& tb,
-                                                      const Cot& c, const HitOut& out) {
+                                                      const Cot& c, const HitOut& out,
+                                                      const AnimIn& an) {
     const int p = in.prim[i];
     const bool hit = p >= 0;
     const int ps = hit ? p : 0;
@@ -108,37 +147,104 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
     const V3 o = load3(in.o + 3 * i), d = load3(in.d + 3 * i);
     const V3 pos = o + tp * d;
     const float flip = in.backside[i] ? -1.f : 1.f;
-    V3 g_pos = load3(c.g_pos + 3 * i);
+    const V3 g_pw = load3(c.g_pos + 3 * i);   // the world position's cotangent
     const V3 g_nrm = load3(c.g_nrm + 3 * i), g_gn = load3(c.g_gn + 3 * i);
     const V3 g_tan = load3(c.g_tan + 3 * i);
     const float g_uu = c.g_uv[2 * i], g_uvv = c.g_uv[2 * i + 1];
-    float g_u = 0.f, g_v = 0.f;
-    V3 sc = {0.f, 0.f, 0.f}, g_c = {0.f, 0.f, 0.f};
-    float sr = 0.f, g_r = 0.f;
+    // the winner's space: its animation's object space (ANIM) or the world
+    const float* fr = nullptr;
+    float* gfr = nullptr;
+    V3 os = o, ds = d, pos_s = pos, oo = o;
+    if (ANIM) {
+        const int aid =
+            is_tri ? an.tri_anim[ps]
+                   : (tb.n_spheres > 0 ? an.sph_anim[min(max(ps - tb.n_tris, 0), tb.n_spheres - 1)]
+                                       : 0);
+        fr = an.frames + i * an.stride + aid * FRAME;
+        gfr = an.g_frames + i * an.stride + aid * FRAME;
+        oo = o - load3(fr + 9);
+        os = matvec(fr, oo);
+        ds = matvec(fr, d);
+        pos_s = os + tp * ds;
+    }
+    // the winner's frame in its space: a triangle's interpolated normal and
+    // tangent, a sphere's normal at the hit point
+    const float* row = nullptr;
+    V3 n0{}, n1{}, n2{}, t0{}, t1{}, t2{}, n_raw{}, n_i{}, tan_raw{}, tan_gs{};
+    float tdn = 0.f, tl = 1.f;
+    bool use_gs = false;
     int si = 0;
+    V3 sc = {0.f, 0.f, 0.f}, local{}, n_s{};
+    float sr = 0.f, rr = 1.f, den = 0.f, ln = 1.f;
+    const float w = 1.f - u - v;
     if (is_tri) {
-        const float* row = tb.tri_f + static_cast<long>(ps) * TRI_F;
-        const V3 n0 = load3(row), n1 = load3(row + 3), n2 = load3(row + 6);
-        const V3 t0 = load3(row + 15), t1 = load3(row + 18), t2 = load3(row + 21);
-        const float w = 1.f - u - v;
-        const V3 n_raw = w * n0 + u * n1 + v * n2;
-        const float nn = dot(n_raw, n_raw);
-        const V3 n_i = (1.f / sqrtf(fmaxf(nn, 1e-20f))) * n_raw;
-        const V3 tan_raw = w * t0 + u * t1 + v * t2;
-        const float tdn = dot(tan_raw, n_i);
-        const V3 tan_gs = tan_raw - tdn * n_i;
-        const float tl = sqrtf(fmaxf(dot(tan_gs, tan_gs), 1e-20f));
-        const bool use_gs = (tb.tri_i[2 * ps + 1] & 2) != 0 && tl > 1e-8f;
-        V3 g_ni = flip * g_nrm;
+        row = tb.tri_f + static_cast<long>(ps) * TRI_F;
+        n0 = load3(row), n1 = load3(row + 3), n2 = load3(row + 6);
+        t0 = load3(row + 15), t1 = load3(row + 18), t2 = load3(row + 21);
+        n_raw = w * n0 + u * n1 + v * n2;
+        n_i = (1.f / sqrtf(fmaxf(dot(n_raw, n_raw), 1e-20f))) * n_raw;
+        tan_raw = w * t0 + u * t1 + v * t2;
+        tdn = dot(tan_raw, n_i);
+        tan_gs = tan_raw - tdn * n_i;
+        tl = sqrtf(fmaxf(dot(tan_gs, tan_gs), 1e-20f));
+        use_gs = (tb.tri_i[2 * ps + 1] & 2) != 0 && tl > 1e-8f;
+    } else if (tb.n_spheres > 0) {
+        si = min(max(ps - tb.n_tris, 0), tb.n_spheres - 1);
+        sc = load3(tb.sph_f + 4 * si);
+        sr = tb.sph_f[4 * si + 3];
+        rr = fmaxf(sr, 1e-20f);
+        local = (pos_s - sc) / rr;
+        n_s = (1.f / sqrtf(fmaxf(dot(local, local), 1e-20f))) * local;
+        den = n_s.x * n_s.x + n_s.z * n_s.z;
+        ln = sqrtf(fmaxf(den, 1e-20f));
+    }
+    // cotangents of that frame: the record's, unflipped, and (ANIM) back
+    // through the world's normalizations and maps
+    V3 g_no = flip * g_nrm, g_go = flip * g_gn, g_to = g_tan;
+    float grow[FRAME];
+    if (ANIM) {
+        for (int k = 0; k < FRAME; ++k) grow[k] = 0.f;
+        V3 n_obj = {0.f, 0.f, 0.f}, gn_obj = n_obj, tan_obj = n_obj;
+        if (is_tri) {
+            n_obj = n_i;
+            gn_obj = load3(row + 24);
+            if (use_gs) {
+                tan_obj = tan_gs / tl;
+            } else {
+                const float s = n_i.z >= 0.f ? 1.f : -1.f;
+                const float a = -1.f / (s + n_i.z);
+                tan_obj = {1.f + s * n_i.x * n_i.x * a, s * (n_i.x * n_i.y * a), -s * n_i.x};
+            }
+        } else if (tb.n_spheres > 0) {
+            n_obj = gn_obj = n_s;
+            tan_obj = ln < 1e-6f ? V3{1.f, 0.f, 0.f} : V3{n_s.z / ln, 0.f, -n_s.x / ln};
+        }
+        const V3 a_n = normalize_bwd(matvec(fr + 21, n_obj), g_no);
+        const V3 a_g = normalize_bwd(matvec(fr + 21, gn_obj), g_go);
+        const V3 a_t = normalize_bwd(matvec(fr + 12, tan_obj), g_to);
+        g_no = matvec_t(fr + 21, a_n);
+        g_go = matvec_t(fr + 21, a_g);
+        g_to = matvec_t(fr + 12, a_t);
+        outer_add(grow + 12, a_t, tan_obj);
+        outer_add(grow + 21, a_n, n_obj);
+        outer_add(grow + 21, a_g, gn_obj);
+    }
+    // the position's cotangent in the winner's space (K3T: the world's)
+    V3 g_ps = ANIM ? V3{0.f, 0.f, 0.f} : g_pw;
+    float g_u = 0.f, g_v = 0.f;
+    V3 g_c = {0.f, 0.f, 0.f};
+    float g_r = 0.f;
+    if (is_tri) {
+        V3 g_ni = g_no;
         V3 g_traw = {0.f, 0.f, 0.f};
         if (use_gs) {
             const V3 tan_tri = tan_gs / tl;
-            const V3 g_gs = (g_tan - dot(tan_tri, g_tan) * tan_tri) / tl;
+            const V3 g_gs = (g_to - dot(tan_tri, g_to) * tan_tri) / tl;
             const float gsn = dot(g_gs, n_i);
             g_traw = g_gs - gsn * n_i;
             g_ni = g_ni - gsn * tan_raw - tdn * g_gs;
         } else {
-            g_ni = g_ni + onb_tangent_bwd(n_i, g_tan);
+            g_ni = g_ni + onb_tangent_bwd(n_i, g_to);
         }
         const V3 g_nraw = normalize_bwd(n_raw, g_ni);
         const float du0 = row[11] - row[9], du1 = row[12] - row[10];
@@ -158,17 +264,10 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
         add3(gr + 15, w * g_traw);
         add3(gr + 18, u * g_traw);
         add3(gr + 21, v * g_traw);
-        add3(gr + 24, flip * g_gn);
+        add3(gr + 24, g_go);
     } else if (tb.n_spheres > 0) {
-        si = min(max(ps - tb.n_tris, 0), tb.n_spheres - 1);
-        sc = load3(tb.sph_f + 4 * si);
-        sr = tb.sph_f[4 * si + 3];
-        const float rr = fmaxf(sr, 1e-20f);
-        const V3 local = (pos - sc) / rr;
-        const V3 n_s = (1.f / sqrtf(fmaxf(dot(local, local), 1e-20f))) * local;
-        V3 g_ns = flip * (g_nrm + g_gn);
+        V3 g_ns = g_no + g_go;
         // lat/long uv: u = 1/2 + atan2(x, z) / 2 pi, v = 1/2 + asin(y) / pi
-        const float den = n_s.x * n_s.x + n_s.z * n_s.z;
         if (g_uu != 0.f) {
             const float tu = g_uu * INV_2PI / den;
             g_ns.x += tu * n_s.z;
@@ -176,46 +275,66 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
         }
         if (g_uvv != 0.f && fabsf(n_s.y) <= 1.f) g_ns.y += g_uvv * INV_PI / sqrtf(1.f - n_s.y * n_s.y);
         // the pole-safe tangent (z, 0, -x) / |(z, -x)|
-        const float ln = sqrtf(fmaxf(den, 1e-20f));
         if (ln >= 1e-6f) {
             const float qx = n_s.z / ln, qz = -n_s.x / ln;
-            const float qg = qx * g_tan.x + qz * g_tan.z;
-            const float gqx = (g_tan.x - qx * qg) / ln, gqz = (g_tan.z - qz * qg) / ln;
+            const float qg = qx * g_to.x + qz * g_to.z;
+            const float gqx = (g_to.x - qx * qg) / ln, gqz = (g_to.z - qz * qg) / ln;
             g_ns.x -= gqz;
             g_ns.z += gqx;
         }
         const V3 g_local = normalize_bwd(local, g_ns);
-        g_pos = g_pos + g_local / rr;
+        g_ps = g_ps + g_local / rr;
         g_c = (-1.f * g_local) / rr;
         g_r = sr >= 1e-20f ? -dot(g_local, local) / rr : 0.f;
     }
-    V3 g_o = g_pos;
-    V3 g_d = tp * g_pos;
-    const float g_tt = hit ? c.g_t[i] + dot(g_pos, d) : 0.f;
+    V3 g_os = g_ps;
+    V3 g_ds = tp * g_ps;
+    float g_tt = 0.f;
+    if (hit) {
+        g_tt = c.g_t[i] + dot(g_ps, ds);
+        if (ANIM) g_tt = g_tt + dot(g_pw, d);
+    }
     if (is_tri) {
         // o + t d = p0 + u e1 + v e2: lambda = [d, -e1, -e2]^-T (g_t, g_u, g_v)
         const float* geo = tb.tri_g + static_cast<long>(ps) * TRI_G;
         const V3 e1 = load3(geo + 3), e2 = load3(geo + 6);
-        const V3 nv = cross(e1, e2), pv = cross(d, e2), qv = cross(e1, d);
-        const V3 lam = (g_tt * nv + g_u * pv + g_v * qv) / dot(d, nv);
-        g_o = g_o - lam;
-        g_d = g_d - t * lam;
+        const V3 nv = cross(e1, e2), pv = cross(ds, e2), qv = cross(e1, ds);
+        const V3 lam = (g_tt * nv + g_u * pv + g_v * qv) / dot(ds, nv);
+        g_os = g_os - lam;
+        g_ds = g_ds - t * lam;
         float* gg = out.g_tri_g + static_cast<long>(ps) * TRI_G;
         add3(gg, lam);
         add3(gg + 3, u * lam);
         add3(gg + 6, v * lam);
     } else if (tb.n_spheres > 0) {
         if (hit) {   // |o + t d - c| = r
-            const V3 q = pos - sc;
-            const float s = g_tt / dot(q, d);
-            g_o = g_o - s * q;
-            g_d = g_d - (s * t) * q;
+            const V3 q = pos_s - sc;
+            const float s = g_tt / dot(q, ds);
+            g_os = g_os - s * q;
+            g_ds = g_ds - (s * t) * q;
             g_c = g_c + s * q;
             g_r = g_r + s * sr;
         }
         float* gs = out.g_sph_f + 4 * si;
         add3(gs, g_c);
         add1(gs + 3, g_r);
+    }
+    V3 g_o = g_os, g_d = g_ds;
+    if (ANIM) {
+        // o_s = r_inv (o - t_inv), d_s = r_inv d
+        g_o = g_pw + matvec_t(fr, g_os);
+        g_d = tp * g_pw + matvec_t(fr, g_ds);
+        outer_add(grow, g_os, oo);
+        outer_add(grow, g_ds, d);
+        const V3 g_ti = -1.f * matvec_t(fr, g_os);
+        grow[9] = g_ti.x;
+        grow[10] = g_ti.y;
+        grow[11] = g_ti.z;
+        if (an.stride == 0) {
+            for (int k = 0; k < FRAME; ++k) add1(gfr + k, grow[k]);
+        } else {
+            for (int k = 0; k < FRAME; ++k) gfr[k] = grow[k];
+        }
     }
     store3(out.g_o + 3 * i, g_o);
     store3(out.g_d + 3 * i, g_d);

@@ -65,19 +65,20 @@ extern "C" int wpt_bvh_any_threads(int variant, int smem) {
 extern "C" int wpt_bvh_any_hit(int variant, const float* o, const float* d, const float* tmin,
                                const float* tmax, int n, const float* nodes, int n_nodes,
                                const float* rows, int n_rows, int n_tris, const float* frames,
-                               int n_anims, int depth, int* counter, int* spill, bool* occ_out,
-                               void* stream) {
+                               long long lane_stride, int n_anims, int depth, int* counter,
+                               int* spill, bool* occ_out, void* stream) {
     if (variant < 0 || variant > 7) return static_cast<int>(cudaErrorInvalidValue);
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        const Layout lay = layout(variant & 4, variant & 2, n_nodes, n_rows, n_tris, n_anims, depth);
+        const Layout lay = layout(variant & 4, variant & 2, n_nodes, n_rows, n_tris, n_anims,
+                                  depth, lane_stride > 0);
         const int threads = launch_threads(variant, lay.bytes);
         const int grid = min(threads / BLOCK, (n + BLOCK - 1) / BLOCK);
         if (n > grid * BLOCK) cudaMemsetAsync(counter, 0, sizeof(int), s);
         kernel_of(variant)<<<grid, BLOCK, lay.bytes, s>>>(
             Rays{o, d, tmin, tmax, n},
             Tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows),
-                 frames, n_nodes, n_rows, n_tris, n_anims, depth},
+                 frames, n_nodes, n_rows, n_tris, n_anims, depth, lane_stride},
             counter, reinterpret_cast<int2*>(spill), Out{nullptr, nullptr, nullptr, nullptr, occ_out});
     }
     return static_cast<int>(cudaGetLastError());

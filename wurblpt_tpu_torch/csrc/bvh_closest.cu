@@ -67,20 +67,22 @@ extern "C" int wpt_bvh_closest_threads(int variant, int smem) {
 extern "C" int wpt_bvh_closest_hit(int variant, const float* o, const float* d,
                                    const float* tmin, const float* tmax, int n,
                                    const float* nodes, int n_nodes, const float* rows, int n_rows,
-                                   int n_tris, const float* frames, int n_anims, int depth,
-                                   int* counter, int* spill, float* t_out, int* prim_out,
-                                   float* u_out, float* v_out, void* stream) {
+                                   int n_tris, const float* frames, long long lane_stride,
+                                   int n_anims, int depth, int* counter, int* spill,
+                                   float* t_out, int* prim_out, float* u_out, float* v_out,
+                                   void* stream) {
     if (variant < 0 || variant > 7) return static_cast<int>(cudaErrorInvalidValue);
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        const Layout lay = layout(variant & 4, variant & 2, n_nodes, n_rows, n_tris, n_anims, depth);
+        const Layout lay = layout(variant & 4, variant & 2, n_nodes, n_rows, n_tris, n_anims,
+                                  depth, lane_stride > 0);
         const int threads = launch_threads(variant, lay.bytes);
         const int grid = min(threads / BLOCK, (n + BLOCK - 1) / BLOCK);
         if (n > grid * BLOCK) cudaMemsetAsync(counter, 0, sizeof(int), s);
         kernel_of(variant)<<<grid, BLOCK, lay.bytes, s>>>(
             Rays{o, d, tmin, tmax, n},
             Tree{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows),
-                 frames, n_nodes, n_rows, n_tris, n_anims, depth},
+                 frames, n_nodes, n_rows, n_tris, n_anims, depth, lane_stride},
             counter, reinterpret_cast<int2*>(spill), Out{t_out, prim_out, u_out, v_out, nullptr});
     }
     return static_cast<int>(cudaGetLastError());

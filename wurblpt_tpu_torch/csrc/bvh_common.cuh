@@ -45,8 +45,9 @@
 // Small trees (the RTIOW field's 488 spheres, the animated box's 38 rows) are
 // walked from shared memory (STAGED): where the node table, the leaf rows
 // (32 bytes of a sphere-only tree's rows, all 48 of a tree with triangles),
-// the animations' inverse frames, the stack at the tree's depth and the
-// object-ray cache fit the bytes a block may take without costing the SM a
+// the animations' inverse frames (at the frame's one instant; per-ray
+// rows, under motion blur, stay in device memory), the stack at the tree's
+// depth and the object-ray cache fit the bytes a block may take without costing the SM a
 // resident block (`stage_budget`), each block copies the tables once and
 // its walks read no node or row from L2. The wrapper picks the branch from
 // the tree's size; a larger tree (the mesh and city frames') takes the L2
@@ -79,7 +80,11 @@
 // order, triangles first); ANIMATED, object-space rays: each row is tested
 // with the ray moved into its animation's object space by that animation's
 // frame row, while the slab tests stay on the world ray against the boxes
-// swept over the frame's interval. Row 0 is the identity (static
+// swept over the frame's interval. The rows are the animations' at the
+// frame's one instant (a lane stride of 0), or each lane's own at its ray's
+// instant (motion blur: a lane stride of A FRAME floats, read from device
+// memory; the cache below is reset with each ray a thread takes, so a slot
+// never holds another lane's object ray). Row 0 is the identity (static
 // primitives): its rows are tested with the world ray moved through the
 // identity's own arithmetic (`identity`: 1 x + 0 y + 0 z, no load, no
 // division), which is the plain version's product with row 0 bit for bit,
@@ -119,15 +124,17 @@ constexpr unsigned FULL = 0xffffffffu;
 // traverse.layout_bytes mirrors it): the stack at the tree's depth (STAGED); the
 // object-ray cache, `slots` words-major slots per thread, and each thread's
 // world o and d (ANIMATED); the node table, the leaf rows at `row_stride`
-// float4s and the animations' first STAGED_FRAME floats (STAGED). The L2
-// walk keeps its SHORT stack entries in static shared memory.
+// float4s and, at one instant (not `per_ray`), the animations' first
+// STAGED_FRAME floats (STAGED). The L2 walk keeps its SHORT stack entries
+// in static shared memory.
 struct Layout {
     int slots, row_stride;
     int cache, world, nodes, rows, frames, bytes;
 };
 
 __host__ __device__ inline Layout layout(bool staged, bool animated, int n_nodes, int n_rows,
-                                         int n_tris, int n_anims, int depth) {
+                                         int n_tris, int n_anims, int depth,
+                                         bool per_ray = false) {
     Layout l;
     int at = staged ? depth * BLOCK * 8 : 0;
     const int want = n_anims - 1 < 1 ? 1 : (n_anims - 1 > SLOTS_MAX ? SLOTS_MAX : n_anims - 1);
@@ -144,7 +151,7 @@ __host__ __device__ inline Layout layout(bool staged, bool animated, int n_nodes
     l.rows = at;
     at += staged ? n_rows * l.row_stride * 16 : 0;
     l.frames = at;
-    at += staged && animated ? n_anims * STAGED_FRAME * 4 : 0;
+    at += staged && animated && !per_ray ? n_anims * STAGED_FRAME * 4 : 0;
     l.bytes = at;
     return l;
 }
@@ -163,6 +170,7 @@ struct Tree {
     const float4* __restrict__ rows;
     const float* __restrict__ frames;   // the animations' rows (ANIMATED), or unused
     int n_nodes, n_rows, n_tris, n_anims, depth;
+    long long lane_stride;              // floats of frame rows per lane: 0, or A FRAME per ray
 };
 
 struct Out {
@@ -530,8 +538,9 @@ template <bool ANY, bool SPHERES, bool ANIMATED, bool STAGED>
 __device__ __forceinline__ void walk_lanes(const Rays& rays, const Tree& tree, int* counter,
                                            int2* spill, const Out& out) {
     char* dyn = reinterpret_cast<char*>(wpt_bvh_smem);
+    const bool per_ray = tree.lane_stride > 0;
     const Layout lay = layout(STAGED, ANIMATED, tree.n_nodes, tree.n_rows, tree.n_tris,
-                              tree.n_anims, tree.depth);
+                              tree.n_anims, tree.depth, per_ray);
     const float4* __restrict__ nodes = tree.nodes;
     const float4* __restrict__ rows = tree.rows;
     const float* __restrict__ frames = tree.frames;
@@ -544,7 +553,7 @@ __device__ __forceinline__ void walk_lanes(const Rays& rays, const Tree& tree, i
             const int r = i / lay.row_stride;
             s_rows[i] = __ldg(rows + 3 * r + (i - r * lay.row_stride));
         }
-        if constexpr (ANIMATED) {
+        if (ANIMATED && !per_ray) {
             float* s_frames = reinterpret_cast<float*>(dyn + lay.frames);
             for (int i = threadIdx.x; i < STAGED_FRAME * tree.n_anims; i += BLOCK) {
                 const int a = i / STAGED_FRAME;
@@ -561,7 +570,7 @@ __device__ __forceinline__ void walk_lanes(const Rays& rays, const Tree& tree, i
         stack_base = stack_sh;
     }
     const int row_stride = STAGED ? lay.row_stride : 3;
-    const int frame_stride = STAGED ? STAGED_FRAME : wpt_sweep::FRAME;
+    const int frame_stride = STAGED && !per_ray ? STAGED_FRAME : wpt_sweep::FRAME;
     const Cache cache{reinterpret_cast<float*>(dyn + lay.cache) + threadIdx.x,
                       reinterpret_cast<float*>(dyn + lay.world) + threadIdx.x, lay.slots - 1};
     const int lane = threadIdx.x & 31;
@@ -664,7 +673,8 @@ __device__ __forceinline__ void walk_lanes(const Rays& rays, const Tree& tree, i
         if (!done) {
             if (test_leaf<ANY, SPHERES, ANIMATED, STAGED>(w, rows, row_stride, -1 - w.cur,
                                                           fminf(w.tmax, w.best_t), tree.n_tris,
-                                                          frames, frame_stride, cache)) {
+                                                          frames + w.ray * tree.lane_stride,
+                                                          frame_stride, cache)) {
                 w.occluded = true;
                 done = true;
             } else if (!stk.pop(fminf(w.tmax, w.best_t), w.cur)) {

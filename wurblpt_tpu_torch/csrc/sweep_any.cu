@@ -83,7 +83,8 @@ sweep_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ tmin, const float* __restrict__ tmax, int n, int tile,
                  const float4* __restrict__ tri, const int* __restrict__ tri_anim, int n_tris,
                  const float4* __restrict__ sph, const int* __restrict__ sph_anim, int n_spheres,
-                 const float* __restrict__ frames, bool* __restrict__ occluded) {
+                 const float* __restrict__ frames, long long fstride,
+                 bool* __restrict__ occluded) {
     extern __shared__ float4 s_rows[];
     int* s_aid = reinterpret_cast<int*>(s_rows + (WHOLE ? 3 * n_tris + n_spheres : 3 * CHUNK));
     // the queued live lanes' rays and lane ids (live_queue.cuh)
@@ -109,7 +110,8 @@ sweep_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
         bool blocked = !has;
         if (WHOLE) {
             Lane r{};
-            if (has) r = load_lane(s_o, s_d, s_tmin, s_tmax, frames, qi);
+            if (has) r = load_lane(s_o, s_d, s_tmin, s_tmax,
+                                  lane_frames(frames, fstride, s_lane[qi]), qi);
             if (split == 1) {
                 blocked = blocked || walk_alone<false>(r, s_rows, s_aid, n_tris) ||
                           walk_alone<true>(r, s_rows + 3 * n_tris, s_aid + n_tris, n_spheres);
@@ -128,7 +130,8 @@ sweep_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 for (int j = threadIdx.x; j < cnt; j += QBLOCK) s_aid[j] = tri_anim[base + j];
                 __syncthreads();
                 Lane r{};
-                if (has) r = load_lane(s_o, s_d, s_tmin, s_tmax, frames, qi);
+                if (has) r = load_lane(s_o, s_d, s_tmin, s_tmax,
+                                  lane_frames(frames, fstride, s_lane[qi]), qi);
                 blocked = walk<false>(r, s_rows, s_aid, cnt, part, split, lanes, blocked);
             }
             for (int base = 0; base < n_spheres; base += CHUNK) {
@@ -140,7 +143,8 @@ sweep_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 }
                 __syncthreads();
                 Lane r{};
-                if (has) r = load_lane(s_o, s_d, s_tmin, s_tmax, frames, qi);
+                if (has) r = load_lane(s_o, s_d, s_tmin, s_tmax,
+                                  lane_frames(frames, fstride, s_lane[qi]), qi);
                 blocked = walk<true>(r, s_rows, s_aid, cnt, part, split, lanes, blocked);
             }
         }
@@ -161,7 +165,8 @@ int any_resident_blocks(int n_tris, int n_spheres) {
 extern "C" int wpt_sweep_any(const float* o, const float* d, const float* tmin, const float* tmax,
                              int n, const float* tri, const int* tri_anim, int n_tris,
                              const float* sph, const int* sph_anim, int n_spheres,
-                             const float* frames, bool* occluded, void* stream) {
+                             const float* frames, long long fstride, bool* occluded,
+                             void* stream) {
     if (n > 0) {
         const int blocks = any_resident_blocks(n_tris, n_spheres);
         const int tile = wpt_queue::tile_lanes(n, blocks);
@@ -171,13 +176,13 @@ extern "C" int wpt_sweep_any(const float* o, const float* d, const float* tmin, 
         const auto* tri4 = reinterpret_cast<const float4*>(tri);
         const auto* sph4 = reinterpret_cast<const float4*>(sph);
         if (staged_whole(n_tris, n_spheres))
-            sweep_any_kernel<true><<<grid, QBLOCK, smem, s>>>(o, d, tmin, tmax, n, tile, tri4,
-                                                              tri_anim, n_tris, sph4, sph_anim,
-                                                              n_spheres, frames, occluded);
+            sweep_any_kernel<true><<<grid, QBLOCK, smem, s>>>(
+                o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4, sph_anim, n_spheres,
+                frames, fstride, occluded);
         else
-            sweep_any_kernel<false><<<grid, QBLOCK, smem, s>>>(o, d, tmin, tmax, n, tile, tri4,
-                                                               tri_anim, n_tris, sph4, sph_anim,
-                                                               n_spheres, frames, occluded);
+            sweep_any_kernel<false><<<grid, QBLOCK, smem, s>>>(
+                o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4, sph_anim, n_spheres,
+                frames, fstride, occluded);
     }
     return static_cast<int>(cudaGetLastError());
 }

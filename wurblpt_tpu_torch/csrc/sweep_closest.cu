@@ -119,7 +119,8 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      int tile, const float4* __restrict__ tri, const int* __restrict__ tri_anim,
                      int n_tris, const float4* __restrict__ sph,
                      const int* __restrict__ sph_anim, int n_spheres,
-                     const float* __restrict__ frames, float* __restrict__ t_out,
+                     const float* __restrict__ frames, long long fstride,
+                     float* __restrict__ t_out,
                      int* __restrict__ prim_out, float* __restrict__ u_out,
                      float* __restrict__ v_out) {
     extern __shared__ float4 s_rows[];
@@ -147,7 +148,8 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
         Best b;
         if (WHOLE) {
             if (has) {
-                Lane r = load_lane(s_o, s_d, s_tmin, s_tmax, frames, qi);
+                Lane r = load_lane(s_o, s_d, s_tmin, s_tmax,
+                                  lane_frames(frames, fstride, s_lane[qi]), qi);
                 walk_tris(r, s_rows, s_aid, n_tris, 0, part, split, b);
                 walk_spheres(r, s_rows + 3 * n_tris, s_aid + n_tris, n_spheres, n_tris, part,
                              split, b);
@@ -162,7 +164,8 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 for (int j = threadIdx.x; j < cnt; j += QBLOCK) s_aid[j] = tri_anim[base + j];
                 __syncthreads();
                 if (has) {
-                    Lane r = load_lane(s_o, s_d, s_tmin, s_tmax, frames, qi);
+                    Lane r = load_lane(s_o, s_d, s_tmin, s_tmax,
+                                  lane_frames(frames, fstride, s_lane[qi]), qi);
                     walk_tris(r, s_rows, s_aid, cnt, base, part, split, b);
                 }
             }
@@ -175,7 +178,8 @@ sweep_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 }
                 __syncthreads();
                 if (has) {
-                    Lane r = load_lane(s_o, s_d, s_tmin, s_tmax, frames, qi);
+                    Lane r = load_lane(s_o, s_d, s_tmin, s_tmax,
+                                  lane_frames(frames, fstride, s_lane[qi]), qi);
                     walk_spheres(r, s_rows, s_aid, cnt, n_tris + base, part, split, b);
                 }
             }
@@ -198,8 +202,8 @@ int resident_blocks(int n_tris, int n_spheres) {
 extern "C" int wpt_sweep_closest(const float* o, const float* d, const float* tmin,
                                  const float* tmax, int n, const float* tri, const int* tri_anim,
                                  int n_tris, const float* sph, const int* sph_anim, int n_spheres,
-                                 const float* frames, float* t_out, int* prim_out,
-                                 float* u_out, float* v_out, void* stream) {
+                                 const float* frames, long long fstride, float* t_out,
+                                 int* prim_out, float* u_out, float* v_out, void* stream) {
     if (n > 0) {
         const int blocks = resident_blocks(n_tris, n_spheres);
         const int tile = wpt_queue::tile_lanes(n, blocks);
@@ -211,11 +215,11 @@ extern "C" int wpt_sweep_closest(const float* o, const float* d, const float* tm
         if (staged_whole(n_tris, n_spheres))
             sweep_closest_kernel<true><<<grid, QBLOCK, smem, s>>>(
                 o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4, sph_anim, n_spheres,
-                frames, t_out, prim_out, u_out, v_out);
+                frames, fstride, t_out, prim_out, u_out, v_out);
         else
             sweep_closest_kernel<false><<<grid, QBLOCK, smem, s>>>(
                 o, d, tmin, tmax, n, tile, tri4, tri_anim, n_tris, sph4, sph_anim, n_spheres,
-                frames, t_out, prim_out, u_out, v_out);
+                frames, fstride, t_out, prim_out, u_out, v_out);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -14,8 +14,11 @@
 //   triangle row, 12 floats = 3 x float4: p0 xyz, 0 | e1 xyz, 0 | e2 xyz, 0
 //   sphere row, 4 floats: centre xyz, radius
 //   an int32 animation id per primitive, and per animation a frame row of
-//   30 floats at the frame's one instant (scene/animation.py anim_frames):
-//   r_inv (row major) | t_inv | m_fwd | m_nrm, row `aid` for every ray.
+//   30 floats (scene/animation.py): r_inv (row major) | t_inv | m_fwd |
+//   m_nrm. At the frame's one instant (anim_frames, [A, 30]) every lane
+//   reads row `aid` (a lane stride of 0); under motion blur
+//   (anim_frames_per_ray, [N, A, 30]) lane i reads row i A + aid (a lane
+//   stride of A 30 floats).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -147,6 +150,13 @@ struct Lane {
         rd = da;
     }
 };
+
+// Lane `lane`'s frame rows: `frames` plus `stride` floats per lane (0: one
+// instant for every lane), or nullptr for world rays.
+__device__ __forceinline__ const float* lane_frames(const float* frames, long long stride,
+                                                    int lane) {
+    return frames == nullptr ? nullptr : frames + stride * lane;
+}
 
 __device__ __forceinline__ Lane load_lane(const float* __restrict__ o, const float* __restrict__ d,
                                           const float* __restrict__ tmin,

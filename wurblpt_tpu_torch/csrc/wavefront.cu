@@ -8,7 +8,8 @@
 //                      with their pixel's next sample: the jittered pixel,
 //                      the lens model's inverse (the OpenCV fixed point,
 //                      RADIAL_ONLY's inverse series or RADIAL_AND_PLANAR's
-//                      closed form) and the ray
+//                      closed form), the thin lens of depth of field (its
+//                      sample drawn by Salt.LENS) and the ray
 //                      (wurblpt_tpu/render/integrator.py:648, :965-1013,
 //                      camera.py:140-180)
 //   wpt_regen_surround the same through the 180/360-degree surround camera,
@@ -116,8 +117,8 @@ constexpr int LAMBERTIAN = 1, GGX = 2, GLASS = 3, MIRROR = 4, MODPHONG = 5, LIGH
               LIGHT_SPOT = 8, LIGHT_TOF = 9, RGL = 10;
 constexpr int TWO_SIDED = 1;
 constexpr int KIND_NONE = 0, KIND_RANDOM = 1, KIND_EXPLICIT = 2;   // render/bsdf.py ScatterKind
-constexpr uint32_t SALT_PIXEL_JITTER = 0x01, SALT_BSDF = 0x10, SALT_BSDF_AUX = 0x13,
-                   SALT_NEE_SAMPLE = 0x21, SALT_ENVMAP_SAMPLE = 0x22;
+constexpr uint32_t SALT_PIXEL_JITTER = 0x01, SALT_LENS = 0x02, SALT_BSDF = 0x10,
+                   SALT_BSDF_AUX = 0x13, SALT_NEE_SAMPLE = 0x21, SALT_ENVMAP_SAMPLE = 0x22;
 constexpr int SENSOR_RGB = 0, SENSOR_TOF = 1;
 constexpr int SKY_EQUIRECT = 1, SKY_CUBE = 2, SKY_CONSTANT = 3;       // EnvMapArrays.kind
 constexpr int LENS_NONE = 0, LENS_RADIAL_AND_PLANAR = 1, LENS_RADIAL_ONLY = 2,
@@ -325,18 +326,24 @@ __device__ __forceinline__ void onb_from_normal(const float* n3, float* tt, floa
     bb[2] = -n3[1];
 }
 
-// core/sampler.cosine_direction: concentric disk, lifted, in Duff et al.'s
-// basis around n.
-__device__ __forceinline__ void cosine_direction(const float* n3, float u0, float u1,
-                                                 float* sdir) {
-    // in_unit_disk (concentric map)
+// core/sampler.in_unit_disk: the concentric map of (u0, u1) to the unit disk.
+__device__ __forceinline__ void unit_disk(float u0, float u1, float& lx, float& ly) {
     const float ox = u0 * 2.0f - 1.0f, oy = u1 * 2.0f - 1.0f;
     const bool use_x = fabsf(ox) > fabsf(oy);
     const float safe_ox = fabsf(ox) > 0.f ? ox : 1.0f;
     const float safe_oy = fabsf(oy) > 0.f ? oy : 1.0f;
     const float theta = use_x ? (oy / safe_ox) * PI_4 : PI_2 - (ox / safe_oy) * PI_4;
     const float rr = (ox == 0.f && oy == 0.f) ? 0.f : (use_x ? ox : oy);
-    const float lx = rr * cosf(theta), ly = rr * sinf(theta);
+    lx = rr * cosf(theta);
+    ly = rr * sinf(theta);
+}
+
+// core/sampler.cosine_direction: concentric disk, lifted, in Duff et al.'s
+// basis around n.
+__device__ __forceinline__ void cosine_direction(const float* n3, float u0, float u1,
+                                                 float* sdir) {
+    float lx, ly;
+    unit_disk(u0, u1, lx, ly);
     const float lz = sqrtf(clamp_min((1.0f - lx * lx) - ly * ly, 1e-20f));
     float tt[3], bb[3];
     onb_from_normal(n3, tt, bb);
@@ -626,7 +633,8 @@ __device__ __forceinline__ bool light_seen(const LightSample& ls, const MatRow& 
 // ---- the kernels -------------------------------------------------------------
 
 // The camera's parameters (render/camera.py CameraParams): the pinhole's
-// intrinsics and lens (CameraConfig.distortion, undistort_iters), the
+// intrinsics and lens (CameraConfig.distortion, undistort_iters) and thin
+// lens (CameraConfig.dof: the focus distance and aperture diameter), the
 // surround camera's span, stereo packing and eye offset, and the pose.
 struct Camera {
     const float* centre;       // [2]
@@ -637,12 +645,15 @@ struct Camera {
     const float* dist_p;       // [2] tangential coefficients
     int lens;                  // LENS_*
     int iters;                 // the OpenCV fixed point's steps
-    const float* scale;        // [3] the pose's scale (the surround camera's eye offset)
+    const float* scale;        // [3] the pose's scale (the eye offset, the lens point)
     const float* eye_distance; // [1]
     float span;                // float32(pi) (S360) or float32(pi / 2) (S180)
     float inv_width;           // float32(1) / float32(width)
     float inv_eff_height;      // float32(1) / float32(the height of one eye's half)
     int stereo;                // top half the left eye, bottom half the right
+    const float* focus;        // [1] the pinhole's focus distance (dof)
+    const float* aperture;     // [1] its lens diameter (dof)
+    int dof;                   // the thin lens: depth of field
 };
 
 constexpr int CAM_PINHOLE = 0, CAM_SURROUND = 1;
@@ -817,13 +828,39 @@ regen_kernel(WaveState st, float* __restrict__ t_max, int n, Camera cam, long lo
         float ny = (py - cam.centre[1]) / cam.focal[1];
         undistort(cam, &nx, &ny);
         float dc[3] = {nx, -ny, -1.0f};
+        float oc[3] = {0.f, 0.f, 0.f};
+        if (cam.dof) {
+            // the thin lens (camera.py:260-266, optics.hpp:312-335): the
+            // origin moves to the lens sample (drawn by Salt.LENS), the ray
+            // aims at the pixel's point on the focus plane
+            float ul[4];
+            uniform4(pixel, s_new, 0, SALT_LENS, ul);
+            float lx, ly;
+            unit_disk(ul[0], ul[1], lx, ly);
+            const float ap = cam.aperture[0];
+            const float kf = cam.focus[0] / clamp_min(-dc[2], 1e-6f);
+            const float fp[3] = {0.f + dc[0] * kf, 0.f + dc[1] * kf, 0.f + dc[2] * kf};
+            oc[0] = 0.f + (lx * 0.5f) * ap;
+            oc[1] = 0.f + (ly * 0.5f) * ap;
+            oc[2] = 0.f + 0.f;
+            for (int k = 0; k < 3; ++k) dc[k] = fp[k] - oc[k];
+        }
         const float r = 1.0f / sqrtf(clamp_min(dot3(dc, dc), 1e-20f));
         for (int k = 0; k < 3; ++k) dc[k] = dc[k] * r;
         quat_rotate(cam.rotation, dc, dw);
-        // A mono pinhole's origin is the camera's: the rotated eye offset (+0
-        // in every component for a positive scale) plus the translation, so
-        // a -0 of the translation becomes +0 as in the plain version's sum.
-        for (int k = 0; k < 3; ++k) st.o[3 * i + k] = 0.f + cam.translation[k];
+        if (cam.dof) {
+            const float os[3] = {oc[0] * cam.scale[0], oc[1] * cam.scale[1],
+                                 oc[2] * cam.scale[2]};
+            float orot[3];
+            quat_rotate(cam.rotation, os, orot);
+            for (int k = 0; k < 3; ++k) st.o[3 * i + k] = orot[k] + cam.translation[k];
+        } else {
+            // A mono pinhole's origin is the camera's: the rotated eye offset
+            // (+0 in every component for a positive scale) plus the
+            // translation, so a -0 of the translation becomes +0 as in the
+            // plain version's sum.
+            for (int k = 0; k < 3; ++k) st.o[3 * i + k] = 0.f + cam.translation[k];
+        }
     }
     for (int k = 0; k < 3; ++k) st.d[3 * i + k] = dw[k];
     st.bounce[i] = 0;
@@ -1892,7 +1929,8 @@ extern "C" int wpt_regen_pinhole(const WaveState* st, float* t_max, int n,
                                  const float* centre, const float* focal,
                                  const float* translation, const float* rotation,
                                  const float* dist_k, const float* dist_p, int lens, int iters,
-                                 long long blk, int B, int m, long long P, long long n_pix,
+                                 const float* scale, const float* focus, const float* aperture,
+                                 int dof, long long blk, int B, int m, long long P, long long n_pix,
                                  int width, int height, int ssqrt, int randomize,
                                  const float* pending, const bool* occluded, int n_pend,
                                  int n_acc, int* work, void* stream) {
@@ -1903,7 +1941,7 @@ extern "C" int wpt_regen_pinhole(const WaveState* st, float* t_max, int n,
     cudaMemsetAsync(work, 0, sizeof(int), s);
     if (n > 0) {
         const Camera cam{centre, focal, translation, rotation, dist_k, dist_p, lens, iters,
-                         nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+                         scale, nullptr, 0.f, 0.f, 0.f, 0, focus, aperture, dof};
         regen_kernel<CAM_PINHOLE><<<(n + 255) / 256, 256, 0, s>>>(
             *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
             Pending{pending, occluded, n_pend, n_acc}, work);
@@ -1925,7 +1963,8 @@ extern "C" int wpt_regen_surround(const WaveState* st, float* t_max, int n,
     cudaMemsetAsync(work, 0, sizeof(int), s);
     if (n > 0) {
         const Camera cam{nullptr, nullptr, translation, rotation, nullptr, nullptr, LENS_NONE, 0,
-                         scale, eye_distance, span, inv_width, inv_eff_height, stereo};
+                         scale, eye_distance, span, inv_width, inv_eff_height, stereo,
+                         nullptr, nullptr, 0};
         regen_kernel<CAM_SURROUND><<<(n + 255) / 256, 256, 0, s>>>(
             *st, t_max, n, cam, blk, B, m, P, n_pix, width, height, ssqrt, randomize,
             Pending{pending, occluded, n_pend, n_acc}, work);

@@ -56,7 +56,8 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_ani
             "bvh_closest_hit": 0, "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
             "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0,
-            "row_scatter": 0, "assemble_hit_bwd": 0, "env_radiance_bwd": 0, "rgl_bwd": 0}
+            "row_scatter": 0, "assemble_hit_bwd": 0, "assemble_hit_anim_bwd": 0,
+            "env_radiance_bwd": 0, "rgl_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -73,16 +74,18 @@ _SIGNATURES = {
     "wpt_assemble_hit": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_assemble_hit_anim": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                              _P, _P, _P, _P, _P, _P, _P, _P],
+                              _L, _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_assemble_hit_k4": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I,
                             _P, _P, _P, _P, _P, _P, _P],
-    "wpt_sweep_closest": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-    "wpt_sweep_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P],
-    "wpt_bvh_closest_hit": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P,
-                            _P, _P, _P, _P],
+    "wpt_sweep_closest": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P, _P, _P,
+                          _P],
+    "wpt_sweep_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P],
+    "wpt_bvh_closest_hit": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _L, _I, _I, _P, _P,
+                            _P, _P, _P, _P, _P],
     "wpt_bvh_closest_threads": [_I, _I],
     "wpt_bvh_closest_budget": [_I],
-    "wpt_bvh_any_hit": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "wpt_bvh_any_hit": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _L, _I, _I, _P, _P, _P,
+                        _P],
     "wpt_bvh_any_threads": [_I, _I],
     "wpt_bvh_any_budget": [_I],
     "wpt_env_radiance": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
@@ -91,8 +94,8 @@ _SIGNATURES = {
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
-    "wpt_regen_pinhole": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _L, _L, _I, _I,
-                          _I, _I, _P, _P, _I, _I, _P, _P],
+    "wpt_regen_pinhole": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _L, _I, _I,
+                          _L, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "wpt_regen_surround": [_P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _I, _L, _I, _I, _L, _L, _I, _I,
                            _I, _I, _P, _P, _I, _I, _P, _P],
     "wpt_shade_diffuse": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
@@ -105,6 +108,8 @@ _SIGNATURES = {
     "wpt_nee_resolve": [_P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _L, _P, _P, _P],
     "wpt_row_scatter": [_P, _P, _I, _I, _I, _P, _P],
     "wpt_assemble_hit_bwd": [_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 12,
+    "wpt_assemble_hit_anim_bwd": ([_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 11
+                                  + [_P, _P, _P, _L, _P, _P]),
     "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "wpt_rgl_bwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }

@@ -14,7 +14,7 @@ kernel of its own (``csrc/backward.cu``) with a plain PyTorch version:
   is `index_add_`. A table's int32 columns (bit patterns, as in the packed
   material rows) get zero cotangents: their readers reinterpret the words,
   which cuts the tape.
-* K3T (`assemble_hit_bwd`): given each lane's winner (prim, t, u, v) and
+* K3T and K3aT (`assemble_hit_bwd`): given each lane's winner (prim, t, u, v) and
   the cotangents of the record's t, position, shading and geometric
   normal, tangent and uv, the cotangents of the ray (o, d) and,
   scatter-added into the winner's rows, of the triangle's geometry (p0,
@@ -23,7 +23,12 @@ kernel of its own (``csrc/backward.cu``) with a plain PyTorch version:
   The cast gives t, u and v without a tape; their derivatives are those of
   the hit equations: a triangle's o + t d = p0 + u e1 + v e2 (Cramer's rule
   on [d, -e1, -e2], as the Moller-Trumbore formulas of the JAX package's
-  cast differentiate), a sphere's |o + t d - c| = r.
+  cast differentiate), a sphere's |o + t d - c| = r. K3aT, the animated
+  branch, also gives the cotangent of the winner's 30-float frame row
+  (scene/animation.py: r_inv, t_inv, m_fwd, m_nrm), added into the [A, 30]
+  rows of the frame's instant or written to the lane's own row of [N, A,
+  30] per-ray rows; autograd through the rows' construction carries it to
+  the keyframe tables.
 * K8T (`env_radiance_bwd`): the equirect map's bilinear lookup (wrap in u,
   clamp in v), the cube map's per-face bilinear lookup with edge clamp and
   the constant sky: cotangents of the texels (scatter-added) or of the
@@ -53,8 +58,10 @@ import math
 import torch
 
 from .. import native
+from ..core.onb import onb_from_normal
 from ..core.transform import quat_rotate
 from ..core.vecmath import cross, dot
+from ..scene.animation import frame_rows, matvec
 from ..materials.rgl import RglEval, RglSample, rgl_bwd, rgl_bwd_plain  # noqa: F401  (K7T)
 from . import envmap as _env
 from . import intersect as _isect
@@ -160,13 +167,49 @@ class _Scatter:
             self.mag.index_add_(0, idx, terms.abs())
 
 
+def _winner_rows(ht, frames, is_tri, ps):
+    """(the winners' animation ids [N], their frame rows [N, 30]) as K3a
+    takes them: a triangle winner's animation, else the clamped sphere's."""
+    zi = torch.zeros_like(ps)
+    aid_t = ht.tri_anim[torch.clamp(ps, 0, ht.n_tris - 1)].long() if ht.n_tris else zi
+    aid_s = (ht.sph_anim[torch.clamp(ps - ht.n_tris, 0, ht.n_spheres - 1)].long()
+             if ht.n_spheres else zi)
+    aid = torch.where(is_tri, aid_t, aid_s)
+    return aid, frame_rows(frames, aid)
+
+
+def _outer(a, b):
+    """[N, 9] row-major a b^T of a, b [N, 3]."""
+    return (a[:, :, None] * b[:, None, :]).reshape(-1, 9)
+
+
+def _mat(rows, k):
+    return rows[:, k:k + 9].reshape(-1, 3, 3)
+
+
+def _matvec_t(m, v):
+    """m^T v for m [N, 3, 3], v [N, 3]."""
+    return matvec(m.transpose(-1, -2), v)
+
+
 def assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm, g_gn, g_tan,
-                           g_uv, magnitudes: bool = False):
-    """Plain version of K3T; see the module's docstring. Returns (g_o, g_d,
-    g_tri_g [T, 9], g_tri_f [T, 27], g_sph_f [S, 4]), with `magnitudes`
-    also the three tables' sums of |term|. Every lane assembles as K3's
+                           g_uv, magnitudes: bool = False, frames=None):
+    """Plain version of K3T and, with the animations' `frames` ([A, 30] or
+    per ray [N, A, 30]), of K3aT; see the module's docstring. Returns (g_o,
+    g_d, g_tri_g [T, 9], g_tri_f [T, 27], g_sph_f [S, 4]) and, with
+    `frames`, g_frames (frames' shape), with `magnitudes` also the tables'
+    sums of |term| (the frame rows' last). Every lane assembles as K3's
     full form does (a miss lane as if its winner were prim 0 at t = 1);
-    only hit lanes carry t's cotangent into the intersection."""
+    only hit lanes carry t's cotangent into the intersection.
+
+    K3aT: the winner's hit is built in its animation's object space (o_s =
+    r_inv (o - t_inv), d_s = r_inv d, the lane's row) and its normals pushed
+    to world by m_nrm, its tangent by m_fwd, each normalized; so the
+    cotangents of the world normals and tangent go back through those
+    normalizations and maps (their outer products the cotangents of m_nrm
+    and m_fwd), the object-space backward runs on (o_s, d_s), the hit
+    equations hold in object space (t is the same in both), and (o_s, d_s)
+    carry their cotangents to o, d, r_inv and t_inv."""
     zero = torch.zeros_like
     hit = prim >= 0
     ps = torch.clamp_min(prim, 0).long()
@@ -176,10 +219,22 @@ def assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm,
     flip = torch.where(backside, -1.0, 1.0)[:, None]
     g_pos = g_pos.clone()
     g_u = g_v = torch.zeros_like(t)
-    g_o, g_d = zero(o), zero(d)
     g_tri_g = _Scatter(ht.tri_g, magnitudes)
     g_tri_f = _Scatter(ht.tri_f, magnitudes)
     g_sph_f = _Scatter(ht.sph_f, magnitudes)
+    anim = frames is not None
+    if anim:
+        aid, rows = _winner_rows(ht, frames, is_tri, ps)
+        r_inv, t_inv, m_fwd, m_nrm = _mat(rows, 0), rows[:, 9:12], _mat(rows, 12), _mat(rows, 21)
+        oo = o - t_inv
+        o_s, d_s = matvec(r_inv, oo), matvec(r_inv, d)
+        pos_s = o_s + tp[:, None] * d_s
+        g_ps = zero(o)           # the object-space hit point's cotangent
+    else:
+        d_s, pos_s = d, pos
+        g_ps = g_pos
+    # the object-space frame (the world's without animation) and its cotangents
+    n_obj = gn_obj = tan_obj = zero(o)
     if ht.n_tris:
         ti = torch.clamp(ps, 0, ht.n_tris - 1)
         row = ht.tri_f[ti]
@@ -195,13 +250,49 @@ def assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm,
         tan_gs = tan_raw - tdn * n_i
         tan_len = torch.sqrt(torch.clamp_min(dot(tan_gs, tan_gs, keepdim=True), 1e-20))
         use_gs = (has_tan & (tan_len[:, 0] > 1e-8))[:, None]
+        tan_tri = tan_gs / tan_len
         sel = is_tri[:, None]
-        g_ni = torch.where(sel, flip * g_nrm, 0.0)
-        g_gnr = torch.where(sel, flip * g_gn, 0.0)
-        g_tt = torch.where(sel, g_tan, 0.0)
+        if anim:
+            n_obj = torch.where(sel, n_i, n_obj)
+            gn_obj = torch.where(sel, row[:, 24:27], gn_obj)
+            tan_obj = torch.where(sel, torch.where(use_gs, tan_tri, onb_from_normal(n_i)[0]),
+                                  tan_obj)
+    if ht.n_spheres:
+        si = torch.clamp(ps - ht.n_tris, 0, ht.n_spheres - 1)
+        srow = ht.sph_f[si]
+        c, r = srow[:, 0:3], srow[:, 3]
+        rr = torch.clamp_min(r, 1e-20)[:, None]
+        local = (pos_s - c) / rr
+        ll = dot(local, local, keepdim=True)
+        n_s = local * torch.rsqrt(torch.clamp_min(ll, 1e-20))
+        x, y, z = n_s[:, 0], n_s[:, 1], n_s[:, 2]
+        den = x * x + z * z
+        ln = torch.sqrt(torch.clamp_min(den, 1e-20))
+        qx, qz = z / ln, -x / ln
+        sel_s = ~is_tri
+        if anim:
+            t_sph = torch.where((ln < 1e-6)[:, None], torch.tensor([1.0, 0.0, 0.0]).to(o),
+                                torch.stack([qx, zero(x), qz], -1))
+            n_obj = torch.where(sel_s[:, None], n_s, n_obj)
+            gn_obj = torch.where(sel_s[:, None], n_s, gn_obj)
+            tan_obj = torch.where(sel_s[:, None], t_sph, tan_obj)
+    if anim:
+        # world = normalize(m v): back through the normalization and the map
+        wn, wg, wt = matvec(m_nrm, n_obj), matvec(m_nrm, gn_obj), matvec(m_fwd, tan_obj)
+        a_n, a_g, a_t = (_normalize_bwd(wn, flip * g_nrm), _normalize_bwd(wg, flip * g_gn),
+                         _normalize_bwd(wt, g_tan))
+        g_nobj, g_gnobj, g_tobj = _matvec_t(m_nrm, a_n), _matvec_t(m_nrm, a_g), _matvec_t(m_fwd,
+                                                                                        a_t)
+        g_mnrm = _outer(a_n, n_obj) + _outer(a_g, gn_obj)
+        g_mfwd = _outer(a_t, tan_obj)
+    else:
+        g_nobj, g_gnobj, g_tobj = flip * g_nrm, flip * g_gn, g_tan
+    if ht.n_tris:
+        g_ni = torch.where(sel, g_nobj, 0.0)
+        g_gnr = torch.where(sel, g_gnobj, 0.0)
+        g_tt = torch.where(sel, g_tobj, 0.0)
         g_uvt = torch.where(sel, g_uv, 0.0)
         # the Gram-Schmidt tangent, or the normal's ONB where it degenerates
-        tan_tri = tan_gs / tan_len
         g_gs = torch.where(use_gs, (g_tt - tan_tri * dot(tan_tri, g_tt, keepdim=True)) / tan_len,
                            0.0)
         gsn = dot(g_gs, n_i, keepdim=True)
@@ -215,114 +306,143 @@ def assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm,
                            vv * g_uvt, w * g_traw, uu * g_traw, vv * g_traw, g_gnr], -1)
         g_tri_f.add(ti, torch.where(sel, g_row, 0.0))
     if ht.n_spheres:
-        si = torch.clamp(ps - ht.n_tris, 0, ht.n_spheres - 1)
-        srow = ht.sph_f[si]
-        c, r = srow[:, 0:3], srow[:, 3]
-        rr = torch.clamp_min(r, 1e-20)[:, None]
-        local = (pos - c) / rr
-        ll = dot(local, local, keepdim=True)
-        n_s = local * torch.rsqrt(torch.clamp_min(ll, 1e-20))
-        x, y, z = n_s[:, 0], n_s[:, 1], n_s[:, 2]
-        sel = ~is_tri
-        g_ns = torch.where(sel[:, None], flip * (g_nrm + g_gn), 0.0)
+        g_ns = torch.where(sel_s[:, None], g_nobj + g_gnobj, 0.0)
         # lat/long uv: u = 1/2 + atan2(x, z) / 2 pi, v = 1/2 + asin(y) / pi
-        g_us = torch.where(sel, g_uv[:, 0], 0.0)
-        g_vs = torch.where(sel, g_uv[:, 1], 0.0)
-        den = x * x + z * z
+        g_us = torch.where(sel_s, g_uv[:, 0], 0.0)
+        g_vs = torch.where(sel_s, g_uv[:, 1], 0.0)
         tu = torch.where(g_us != 0.0, g_us * _INV_2PI / den, 0.0)
         tv = torch.where((g_vs != 0.0) & (torch.abs(y) <= 1.0),
                          g_vs * _INV_PI / torch.sqrt(1.0 - y * y), 0.0)
         # the pole-safe tangent (z, 0, -x) / |(z, -x)|
-        ln = torch.sqrt(torch.clamp_min(den, 1e-20))
-        g_ts = torch.where((sel & (ln >= 1e-6))[:, None], g_tan, 0.0)
-        qx, qz = z / ln, -x / ln
+        g_ts = torch.where((sel_s & (ln >= 1e-6))[:, None], g_tobj, 0.0)
         qg = qx * g_ts[:, 0] + qz * g_ts[:, 2]
         gqx = (g_ts[:, 0] - qx * qg) / ln
         gqz = (g_ts[:, 2] - qz * qg) / ln
         g_ns = g_ns + torch.stack([tu * z - gqz, tv, gqx - tu * x], -1)
         g_local = _normalize_bwd(local, g_ns)
-        g_pos = g_pos + g_local / rr
+        g_ps = g_ps + g_local / rr
         g_c = (-g_local) / rr
         g_r = torch.where(r >= 1e-20, -dot(g_local, local) / rr[:, 0], 0.0)
         # the sphere's t: |o + t d - c| = r
-        qv = pos - c
+        qv = pos_s - c
         shit = hit & ~is_tri
-    g_o = g_o + g_pos
-    g_d = g_d + tp[:, None] * g_pos
-    g_tt_all = torch.where(hit, g_t + dot(g_pos, d), 0.0)
+    g_os = zero(o) + g_ps
+    g_ds = zero(d) + tp[:, None] * g_ps
+    g_tt_all = g_t + dot(g_ps, d_s)
+    if anim:
+        g_tt_all = g_tt_all + dot(g_pos, d)
+    g_tt_all = torch.where(hit, g_tt_all, 0.0)
     if ht.n_tris:
         p0, e1, e2 = (x for x in ht.tri_g[ti].split(3, -1))
-        nv, pv, qv_t = cross(e1, e2), cross(d, e2), cross(e1, d)
-        den_t = torch.where(is_tri, dot(d, nv), 1.0)
+        nv, pv, qv_t = cross(e1, e2), cross(d_s, e2), cross(e1, d_s)
+        den_t = torch.where(is_tri, dot(d_s, nv), 1.0)
         lam = torch.where(is_tri[:, None], (nv * g_tt_all[:, None] + pv * g_u[:, None]
                                             + qv_t * g_v[:, None]) / den_t[:, None], 0.0)
-        g_o = g_o - lam
-        g_d = g_d - t[:, None] * lam
+        g_os = g_os - lam
+        g_ds = g_ds - t[:, None] * lam
         g_tri_g.add(ti, torch.cat([lam, u[:, None] * lam, v[:, None] * lam], -1))
     if ht.n_spheres:
-        den_s = torch.where(shit, dot(qv, d), 1.0)
+        den_s = torch.where(shit, dot(qv, d_s), 1.0)
         s = torch.where(shit, g_tt_all / den_s, 0.0)[:, None]
-        g_o = g_o - s * qv
-        g_d = g_d - (s * t[:, None]) * qv
+        g_os = g_os - s * qv
+        g_ds = g_ds - (s * t[:, None]) * qv
         g_c = g_c + s * qv
         g_r = g_r + s[:, 0] * r
-        g_sph_f.add(si, torch.where(sel[:, None], torch.cat([g_c, g_r[:, None]], -1), 0.0))
-    tables = (g_tri_g, g_tri_f, g_sph_f)
+        g_sph_f.add(si, torch.where(sel_s[:, None], torch.cat([g_c, g_r[:, None]], -1), 0.0))
+    tables = [g_tri_g, g_tri_f, g_sph_f]
+    if anim:
+        # o_s = r_inv (o - t_inv), d_s = r_inv d
+        g_o = g_pos + _matvec_t(r_inv, g_os)
+        g_d = tp[:, None] * g_pos + _matvec_t(r_inv, g_ds)
+        g_row = torch.cat([_outer(g_os, oo) + _outer(g_ds, d), -_matvec_t(r_inv, g_os),
+                           g_mfwd, g_mnrm], -1)
+        g_frames = _Scatter(frames.reshape(-1, frames.shape[-1]), magnitudes)
+        lane = torch.arange(o.shape[0], device=o.device)
+        g_frames.add(aid if frames.dim() == 2 else lane * frames.shape[1] + aid, g_row)
+        g_frames.out = g_frames.out.view_as(frames)
+        if magnitudes:
+            g_frames.mag = g_frames.mag.view_as(frames)
+        tables.append(g_frames)
+    else:
+        g_o, g_d = g_os, g_ds
     out = (g_o, g_d, *(x.out for x in tables))
     return (*out, *(x.mag for x in tables)) if magnitudes else out
 
 
-def assemble_hit_bwd(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm, g_gn, g_tan, g_uv):
-    """K3T: `assemble_hit_bwd_plain`'s function, the kernel on CUDA tensors."""
+def assemble_hit_bwd(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm, g_gn, g_tan, g_uv,
+                     frames=None):
+    """K3T (K3aT with `frames`): `assemble_hit_bwd_plain`'s function, the
+    kernel on CUDA tensors."""
     n = o.shape[0]
     g = [x.contiguous() for x in (g_t, g_pos, g_nrm, g_gn, g_tan, g_uv)]
     if o.device.type == "cpu":
-        return assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *g)
+        return assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *g, frames=frames)
     lib = _cuda_lib("assemble_hit_bwd", o)
     g_o, g_d = torch.empty_like(o), torch.empty_like(d)
     g_tri_g, g_tri_f, g_sph_f = (torch.zeros_like(x) for x in (ht.tri_g, ht.tri_f, ht.sph_f))
-    code = lib.wpt_assemble_hit_bwd(
-        o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        backside.contiguous().data_ptr(), n, ht.tri_g.detach().contiguous().data_ptr(),
-        ht.tri_f.data_ptr(), ht.tri_i.data_ptr(), ht.n_tris, ht.sph_f.data_ptr(), ht.n_spheres,
-        *(x.data_ptr() for x in g), g_o.data_ptr(), g_d.data_ptr(), g_tri_g.data_ptr(),
-        g_tri_f.data_ptr(), g_sph_f.data_ptr(), native.stream_ptr(o))
-    native.check(code, "assemble_hit_bwd")
-    native.LAUNCHES["assemble_hit_bwd"] += 1
-    return g_o, g_d, g_tri_g, g_tri_f, g_sph_f
+    args = [o.data_ptr(), d.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+            v.data_ptr(), backside.contiguous().data_ptr(), n,
+            ht.tri_g.detach().contiguous().data_ptr(), ht.tri_f.data_ptr(), ht.tri_i.data_ptr(),
+            ht.n_tris, ht.sph_f.data_ptr(), ht.n_spheres, *(x.data_ptr() for x in g),
+            g_o.data_ptr(), g_d.data_ptr(), g_tri_g.data_ptr(), g_tri_f.data_ptr(),
+            g_sph_f.data_ptr()]
+    if frames is None:
+        code = lib.wpt_assemble_hit_bwd(*args, native.stream_ptr(o))
+        name = "assemble_hit_bwd"
+    else:
+        stride = _isect.check_frames(frames.detach(), ht.n_anims, o.device, n)
+        frames = frames.detach().contiguous()
+        g_frames = torch.zeros_like(frames)
+        code = lib.wpt_assemble_hit_anim_bwd(*args, ht.tri_anim.data_ptr(),
+                                             ht.sph_anim.data_ptr(), frames.data_ptr(), stride,
+                                             g_frames.data_ptr(), native.stream_ptr(o))
+        name = "assemble_hit_anim_bwd"
+    native.check(code, name)
+    native.LAUNCHES[name] += 1
+    if frames is None:
+        return g_o, g_d, g_tri_g, g_tri_f, g_sph_f
+    return g_o, g_d, g_tri_g, g_tri_f, g_sph_f, g_frames
 
 
 class AssembleHit(torch.autograd.Function):
-    """K3's full form forward (the winner's t passed through), K3T backward."""
+    """K3's full form forward (the winner's t passed through), K3T backward;
+    with frame rows K3a's full form and K3aT."""
 
     @staticmethod
-    def forward(ctx, ht, o, d, t, prim, u, v, tri_g, tri_f, sph_f):
-        rec = _isect.assemble_hit_raw(ht, o, d, t, prim, u, v)
+    def forward(ctx, ht, o, d, t, prim, u, v, tri_g, tri_f, sph_f, frames=None):
+        rec = _isect.assemble_hit_raw(ht, o, d, t, prim, u, v,
+                                      None if frames is None else frames.detach())
         ctx.ht = ht
-        ctx.save_for_backward(o, d, t, prim, u, v, rec.backside)
+        ctx.save_for_backward(o, d, t, prim, u, v, rec.backside, frames)
         ctx.mark_non_differentiable(rec.mat, rec.backside)
         return (t.clone(), rec.position, rec.normal, rec.geom_normal, rec.tangent, rec.uv,
                 rec.mat, rec.backside)
 
     @staticmethod
     def backward(ctx, g_t, g_pos, g_nrm, g_gn, g_tan, g_uv, _mat, _back):
-        o, d, t, prim, u, v, backside = ctx.saved_tensors
+        o, d, t, prim, u, v, backside, frames = ctx.saved_tensors
         g = [torch.zeros_like(ref) if x is None else x
              for x, ref in ((g_t, t), (g_pos, o), (g_nrm, o), (g_gn, o), (g_tan, o),
                             (g_uv, o[:, :2]))]
-        g_o, g_d, g_tg, g_tf, g_sf = assemble_hit_bwd(ctx.ht, o, d, t, prim, u, v, backside, *g)
-        return None, g_o, g_d, None, None, None, None, g_tg, g_tf, g_sf
+        out = assemble_hit_bwd(ctx.ht, o, d, t, prim, u, v, backside, *g, frames=frames)
+        g_fr = out[5] if frames is not None else None
+        return (None, out[0], out[1], None, None, None, None, out[2], out[3], out[4], g_fr)
 
 
-def assemble_hit_diff_plain(ht, o, d, t, prim, u, v):
-    """K3's plain version with the winner's t, u, v recomputed on the tape
-    (values those of the cast, derivatives those of the triangle's
-    Moller-Trumbore formulas and of the sphere quadratic's root): the
-    reference the tests hold K3T's plain version to."""
+def assemble_hit_diff_plain(ht, o, d, t, prim, u, v, frames=None):
+    """K3's plain version (K3a's with `frames`) with the winner's t, u, v
+    recomputed on the tape (values those of the cast, derivatives those of
+    the triangle's Moller-Trumbore formulas and of the sphere quadratic's
+    root, in the winner's object space with `frames`): the reference the
+    tests hold K3T's and K3aT's plain version to."""
     hit = prim >= 0
     ps = torch.clamp_min(prim, 0).long()
     is_tri = hit & (ps < ht.n_tris)
     t_rec, u_rec, v_rec = t, u, v
+    o_w, d_w = o, d
+    if frames is not None:
+        rows = _winner_rows(ht, frames, is_tri, ps)[1]
+        o, d = matvec(_mat(rows, 0), o - rows[:, 9:12]), matvec(_mat(rows, 0), d)
     if ht.n_tris:
         ti = torch.clamp(ps, 0, ht.n_tris - 1)
         p0, e1, e2 = ht.tri_g[ti].split(3, -1)
@@ -348,7 +468,7 @@ def assemble_hit_diff_plain(ht, o, d, t, prim, u, v):
     t_d = torch.where(hit, t_rec + (t - t_rec).detach(), t)
     u_d = torch.where(is_tri, u_rec + (u - u_rec).detach(), u)
     v_d = torch.where(is_tri, v_rec + (v - v_rec).detach(), v)
-    return _isect.assemble_hit_plain(ht, o, d, t_d, prim, u_d, v_d)
+    return _isect.assemble_hit_plain(ht, o_w, d_w, t_d, prim, u_d, v_d, frames)
 
 
 # ---------------------------------------------------------------------------

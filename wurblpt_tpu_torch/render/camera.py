@@ -1,10 +1,10 @@
 """Cameras (port of ``wurblpt_tpu/render/camera.py``: the pinhole with the
 three lens distortion models, and the equirect surround cameras, mono or
-stereo).
+stereo, each with an optional thin lens (depth of field) and an optional
+keyframe-animated pose).
 
-`CameraConfig` keeps the JAX package's switches so that a configuration
-outside the slice (depth of field, an animated pose) is refused by
-:func:`check_camera` instead of rendered wrong.
+`CameraConfig` keeps the JAX package's switches; :func:`check_camera`
+refuses a distortion model it does not know.
 
 Where the JAX package divides by a Python constant, XLA multiplies by the
 float32 reciprocal of the constant; `_recip` gives that factor, so the port
@@ -13,6 +13,7 @@ rounds as the reference does on every device.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -21,7 +22,8 @@ import math
 import numpy as np
 import torch
 
-from ..core.transform import Transformation, quat_rotate
+from ..core import sampler
+from ..core.transform import Transformation, quat_mul, quat_rotate
 from ..core.vecmath import normalize
 
 
@@ -107,17 +109,40 @@ def camera_from_numpy(c, device) -> CameraParams:
 
 
 def check_camera(cfg: CameraConfig) -> None:
-    """Raise NotImplementedError for any camera feature outside the ported slice."""
-    off = {
-        f"distortion model {cfg.distortion}": cfg.distortion not in (
-            DistortionModel.NONE, DistortionModel.RADIAL_AND_PLANAR, DistortionModel.RADIAL_ONLY,
-            DistortionModel.OPENCV),
-        "depth of field": cfg.dof,
-        "animated camera": cfg.anim_id >= 0,
-    }
-    bad = [k for k, v in off.items() if v]
-    if bad:
-        raise NotImplementedError(f"camera features outside the ported slice: {bad}")
+    """Raise NotImplementedError for a distortion model the port does not know."""
+    if cfg.distortion not in (DistortionModel.NONE, DistortionModel.RADIAL_AND_PLANAR,
+                              DistortionModel.RADIAL_ONLY, DistortionModel.OPENCV):
+        raise NotImplementedError(f"camera features outside the ported slice: "
+                                  f"['distortion model {cfg.distortion}']")
+
+
+def animated_pose(tf: Transformation, anims, anim_id: int, time) -> Transformation:
+    """The pose of an animated camera at each ray's time [N] (camera.py:201-230,
+    camera.hpp:56-111): animation `anim_id` evaluated at `time`, composed
+    with the static pose `tf` as its local offset (world <- animation <-
+    camera), each rotation, translation and scale [N, ...]."""
+    from ..scene.animation import eval_animation   # scene imports render: bind late
+
+    aid = torch.full(time.shape, anim_id, dtype=torch.int32, device=time.device)
+    atf = eval_animation(anims, aid, time)
+    return Transformation(
+        translation=atf.translation + quat_rotate(atf.rotation, tf.translation * atf.scale),
+        rotation=quat_mul(atf.rotation, tf.rotation.expand(atf.rotation.shape)),
+        scale=atf.scale * tf.scale)
+
+
+def static_pose(cam: CameraParams, cfg: CameraConfig, anims, time: float):
+    """(cam, cfg) of an animated camera at one instant `time`: the pose
+    composed once (`animated_pose` of one ray), and the config without the
+    animation; a camera without animation as given. The K4 regenerations
+    take a static pose."""
+    if cfg.anim_id < 0:
+        return cam, cfg
+    tf = animated_pose(cam.transformation, anims, cfg.anim_id,
+                       torch.full((1,), float(time), dtype=torch.float32,
+                                  device=cam.focal_px.device))
+    pose = Transformation(*(x[0].contiguous() for x in tf))
+    return cam._replace(transformation=pose), dataclasses.replace(cfg, anim_id=-1)
 
 
 def _recip(c) -> float:
@@ -193,9 +218,12 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
     perpendicular to each viewing column (ODS, camera.hpp:74-79). The
     pinhole undistorts its normalized image coordinates with the lens model
     of `cfg`. Each ray's time is t0 + u_time (t1 - t0) (u_time [N]; None:
-    every ray at t0). `u_lens` and `anims` serve depth of field and an
-    animated camera, which `check_camera` refuses. Returns (origin [N, 3],
-    direction [N, 3], time [N])."""
+    every ray at t0). With `cfg.dof` the thin lens (optics.hpp:312-335)
+    moves the origin to `u_lens` [N, 2] mapped to the lens disk of diameter
+    `aperture_diameter` and aims the ray at the pixel's point on the focus
+    plane at `focus_distance`; with `cfg.anim_id` >= 0 the pose is that
+    animation of `anims` at each ray's time composed with the static pose
+    (`animated_pose`). Returns (origin [N, 3], direction [N, 3], time [N])."""
     check_camera(cfg)
     px, py = pixel_xy[..., 0], pixel_xy[..., 1]
     if u_time is None:
@@ -225,7 +253,17 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
         d_cam = torch.stack([ct * torch.sin(phi), torch.sin(theta), -ct * torch.cos(phi)], -1)
         offset_dir = torch.stack([torch.cos(phi), torch.zeros_like(phi), torch.sin(phi)], -1)
         o_cam = eye_sign[..., None] * 0.5 * cam.eye_distance * offset_dir
+    if cfg.dof:
+        lens = sampler.in_unit_disk(u_lens) * 0.5 * cam.aperture_diameter
+        focus_pt = o_cam + d_cam * (cam.focus_distance
+                                    / torch.clamp_min(-d_cam[..., 2:3], 1e-6))
+        o_cam = o_cam + torch.cat([lens, torch.zeros_like(lens[..., :1])], -1)
+        d_cam = focus_pt - o_cam
     tf = cam.transformation
+    if cfg.anim_id >= 0:
+        if anims is None:
+            raise ValueError("camera_rays: an animated camera needs the scene's AnimTable")
+        tf = animated_pose(tf, anims, cfg.anim_id, time)
     d_world = quat_rotate(tf.rotation, normalize(d_cam))
     o_world = quat_rotate(tf.rotation, o_cam * tf.scale) + tf.translation
     return o_world, d_world, time

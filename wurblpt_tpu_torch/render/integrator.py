@@ -49,12 +49,20 @@ camera (`wavefront.diffuse_class`, `wavefront.env_class`,
   normal map and folds the textured colours into the material rows once
   (`render.texture`).
 
-An animated scene (rigid keyframes, at one instant t0 = t1) is cast by the
-sweeps KS1/KS2, or through its BVH by K5/K6 (the boxes swept over the build
-interval), in each primitive's object space and assembled by K3a, with
-the frame's animation rows built once (`frame_anim`); a moving light is
-placed at that instant for NEE (on K4, in the frame's step tables:
-`wavefront.step_tables_at`).
+An animated scene (rigid keyframes) is cast by the sweeps KS1/KS2, or
+through its BVH by K5/K6 (the boxes swept over the build interval), in
+each primitive's object space and assembled by K3a. At one instant (t0 =
+t1) the frame's animation rows are built once (`frame_anim`) and a moving
+light is placed at that instant for NEE (on K4, in the frame's step
+tables: `wavefront.step_tables_at`). Over a shutter interval t0 != t1
+(motion blur) each ray has its own time, drawn by Salt.TIME, and keeps it
+along its path: the pass renderer builds every animation's rows at each
+ray's time once per trace (`frame_anim` of the rays' times, [N, A, 30]), and the
+casts, K3a and NEE read each lane's own rows; `render_frame_wavefront`
+hands such a frame to `render_frame`, as the JAX package does. The camera
+takes a thin lens (depth of field) and an animated pose; K4's pinhole
+regeneration takes the lens, and an animated camera at one instant is
+posed once on the host (`camera.static_pose`).
 
 The brute-force cast follows the JAX package (`prepare_scene`): K1/K2 for
 a static scene without a BVH within the matrix form's 8192 columns
@@ -95,7 +103,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.rng import Salt, uniform1, uniform2, uniform4
-from ..scene.animation import anim_frames
+from ..scene.animation import anim_frames, anim_frames_per_ray
 from ..scene.ir import SceneArrays
 from .bsdf import (
     ScatterKind,
@@ -105,7 +113,7 @@ from .bsdf import (
     gather_material_rows,
     pack_material_table,
 )
-from .camera import CameraConfig, CameraParams, _recip, camera_rays, check_camera
+from .camera import CameraConfig, CameraParams, _recip, camera_rays, check_camera, static_pose
 from .intersect import (
     HitTables,
     assemble_hit,
@@ -215,27 +223,36 @@ def live_tables(scene: SceneArrays, tables: SceneTables) -> SceneTables:
 
 
 class FrameAnim(NamedTuple):
-    """An animated scene's state at the frame's instant: every animation's
-    rows for the casts and the hit assembly, and the hot spots' forward
-    frames, taken from those rows, where a light moves (None otherwise)."""
+    """An animated scene's state at the frame's instant, or at each ray's
+    own instant (motion blur): every animation's rows for the casts and the
+    hit assembly, and the hot spots' forward frames, taken from those rows,
+    where a light moves (None otherwise)."""
 
-    frames: torch.Tensor              # [A, 30] scene/animation.anim_frames
+    frames: torch.Tensor              # [A, 30] anim_frames, or [N, A, 30] anim_frames_per_ray
     lights: Optional[tuple]           # lights.light_frames, or None
 
 
-def frame_anim(scene: SceneArrays, static: SceneStatic, t0: float) -> Optional[FrameAnim]:
-    """The animations at t0, evaluated once per frame (None: a static scene);
-    the light frames only when a hot spot moves (integrator.py:856-861)."""
+def frame_anim(scene: SceneArrays, static: SceneStatic, time) -> Optional[FrameAnim]:
+    """The animations at one instant `time` (a number: the [A, 30] rows,
+    evaluated once per frame) or at each ray's time (a tensor [N]: the
+    per-ray rows, N A 120 bytes, evaluated once per trace, since a path
+    keeps its time across its bounces, integrator.py:270-279); None for a
+    static scene. The light frames only when a hot spot moves
+    (integrator.py:856-861)."""
     if not static.has_anim:
         return None
-    frames = anim_frames(scene.anims, t0)
+    frames = (anim_frames_per_ray(scene.anims, time) if isinstance(time, torch.Tensor)
+              else anim_frames(scene.anims, float(time)))
     return FrameAnim(frames, light_frames(scene, frames, static.sphere_lights)
                      if static.lights_animated else None)
 
 
-_MOTION_BLUR = ("motion blur: an animated scene over a shutter interval t0 != t1 takes the pass "
-                "renderer (ROADMAP A.3) once KS1, K5 and K3a read each ray's own instant "
-                "(ROADMAP A.8), not ported yet")
+def pass_samples(n_pix: int, spp: int, max_lanes: int) -> int:
+    """Samples of every pixel per pass where a frame takes the pass
+    renderer in `render_frame_wavefront`'s stead (motion blur): the largest
+    divisor of spp whose pass has at most max_lanes rays (at least 1)."""
+    return next(c for c in range(min(spp, max(max_lanes // max(n_pix, 1), 1)), 0, -1)
+                if spp % c == 0)
 
 
 def _check_device(device, **tensors):
@@ -442,21 +459,27 @@ def render_frame_wavefront(
     one after another.
 
     `scene` and `cam` must live on `device`; `tables` are the scene's own
-    (`prepare_scene`), built here when not given. An animated scene is
-    rendered at the one instant t0 = t1 (the JAX package hands t0 != t1 to
-    its pass renderer, whose port, `render_frame`, refuses it for animated
-    scenes too: ROADMAP A.8). Returns the image [H, W, n_acc] (row 0 at the top); with
-    `return_stats` also the [2] int64 cast counters (closest-hit casts, all
-    casts incl. NEE shadow rays)."""
+    (`prepare_scene`), built here when not given. An animated scene over a
+    shutter interval t0 != t1 (motion blur) is handed to `render_frame`,
+    image and counters, as the JAX package does (integrator.py:795-802),
+    with passes of `pass_samples` samples; at one instant t0 = t1 an
+    animated camera is posed once (`camera.static_pose`). Returns the image
+    [H, W, n_acc] (row 0 at the top); with `return_stats` also the [2]
+    int64 cast counters (closest-hit casts, all casts incl. NEE shadow
+    rays)."""
     device = torch.device(device)
     if params.differentiable:
         raise ValueError("render_frame_wavefront renders for inference only; a differentiable "
                          "render takes render_frame (the JAX package's integrator.py:789-790)")
     static.check_slice()
     check_camera(cam_cfg)
-    if static.has_anim and t0 != t1:
-        raise NotImplementedError(_MOTION_BLUR)
     _check_device(device, scene=scene.tris.p0, camera=cam.focal_px)
+    if static.has_anim and t0 != t1:
+        return render_frame(scene, static, cam, cam_cfg, sensor, width, height, samples_sqrt,
+                            t0, t1, params,
+                            pass_samples(width * height, samples_sqrt ** 2, max_lanes),
+                            return_stats, device=device, tables=tables)
+    cam, cam_cfg = static_pose(cam, cam_cfg, scene.anims, t0)
 
     spp = samples_sqrt * samples_sqrt
     n_pix = width * height
@@ -496,15 +519,9 @@ def render_frame_wavefront(
 def _check_differentiable(scene: SceneArrays, static: SceneStatic):
     """Raise NotImplementedError for what a differentiable render cannot
     take yet, naming the ROADMAP item that ports it."""
-    off = {
-        "animated scenes (K3a's backward kernel and per-ray time: ROADMAP A.8)":
-            static.has_anim,
-        "an environment map rotation that requires grad (ROADMAP A.9)":
-            scene.envmap is not None and scene.envmap.rotation.requires_grad,
-    }
-    bad = [k for k, v in off.items() if v]
-    if bad:
-        raise NotImplementedError(f"differentiable render: {bad}")
+    if scene.envmap is not None and scene.envmap.rotation.requires_grad:
+        raise NotImplementedError("differentiable render: ['an environment map rotation that "
+                                  "requires grad (ROADMAP A.9)']")
 
 
 def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pixel_id, sample_id,
@@ -523,8 +540,11 @@ def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pix
     (integrator.py:322-331). The scene's fixed tables are built here unless
     `tables` (`prepare_scene`) are given; a differentiable trace rebuilds
     the material rows and the hit tables from the scene (`live_tables`).
-    `time` [N] is each ray's instant: an animated scene is traced at one
-    instant, that of the first ray."""
+    `time` [N] is each ray's instant: an animated scene whose rays share one
+    instant is traced with the rows of that instant, else with each ray's
+    own (`frame_anim`, built once: a path keeps its time), which a
+    differentiable trace keeps on the tape (K3aT carries their cotangents
+    to the keyframes)."""
     device = torch.device(device)
     _check_device(device, scene=scene.tris.p0, rays=o)
     static.check_slice()
@@ -535,7 +555,10 @@ def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pix
         tables = prepare_scene(scene, static, step=False)
     if params.differentiable:
         tables = live_tables(scene, tables)
-    anim = frame_anim(scene, static, float(time[0])) if static.has_anim and n else None
+    anim = None
+    if static.has_anim and n:
+        one_instant = not bool((time != time[0]).any())
+        anim = frame_anim(scene, static, float(time[0]) if one_instant else time)
     bounce_fn = _make_bounce_fn(scene, static, tables, sensor, params, n, anim)
     f32 = dict(dtype=torch.float32, device=device)
     st = LoopState(
@@ -582,8 +605,6 @@ def accumulate_passes(scene: SceneArrays, static: SceneStatic, cam: CameraParams
     same paths. With `return_stats` also the summed [2] cast counters."""
     device = torch.device(device)
     check_camera(cam_cfg)
-    if static.has_anim and t0 != t1:
-        raise NotImplementedError(_MOTION_BLUR)
     _check_device(device, scene=scene.tris.p0, camera=cam.focal_px)
     if tables is None:
         tables = prepare_scene(scene, static, step=False)
@@ -629,9 +650,10 @@ def render_frame(scene: SceneArrays, static: SceneStatic, cam: CameraParams,
     back-propagates to the scene's material table, its triangles' and
     spheres' geometry and attributes, the sky's image (or constant
     radiance) and the camera (P0's, K3's and K8's backward kernels on the
-    card). `scene` and `cam` must live on `device`. A static scene takes a
-    shutter interval t0 != t1 (each ray its own time); an animated one is
-    rendered at t0 = t1 only."""
+    card; with an animated scene also K3aT's, to the animations' keyframe
+    tables). `scene` and `cam` must live on `device`. Over a shutter
+    interval t0 != t1 each ray has its own time (motion blur: an animated
+    scene is cast and lit at each ray's instant)."""
     spp = samples_sqrt * samples_sqrt
     if spp % samples_per_pass:
         raise ValueError(f"samples_per_pass {samples_per_pass} must divide spp {spp}")

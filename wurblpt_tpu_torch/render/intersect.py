@@ -13,10 +13,12 @@ JAX package computes it.
 animated branch K3a): a hand-written CUDA kernel on CUDA tensors, its plain
 PyTorch version `assemble_hit_plain` on CPU tensors. Both read the
 winner's row of the packed tables of `HitTables`; K3a builds the hit in the
-winner's object space and pushes its frame back to world.
-Where the ray or the hit tables require grad, `assemble_hit` runs on the
-tape through `backward.AssembleHit` (its backward is K3T, which also
-differentiates the winner's intersection). `assemble_hit_k4` is its K4
+winner's object space and pushes its frame back to world, with the rows at
+the frame's instant or, under motion blur, each lane's own.
+Where the ray, the hit tables or the frame rows require grad,
+`assemble_hit` runs on the tape through `backward.AssembleHit` (its
+backward is K3T, or K3aT with frames, which also differentiate the
+winner's intersection). `assemble_hit_k4` is its K4
 form, which a K4 step calls: the fields of one
 shade class's set (`K4_FIELDS`) on hit lanes only, into buffers the step
 allocates once (`hit_buffers`); a miss lane's record and the fields outside
@@ -338,7 +340,7 @@ def _check_hit_inputs(name, ht: HitTables, o, d, t, prim, u, v, frames) -> int:
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != o.device or ht.tri_f.device != o.device:
             raise ValueError(f"{name}: tensors on different devices")
-    check_frames(frames, ht.n_anims, o.device)
+    check_frames(frames, ht.n_anims, o.device, n)
     return n
 
 
@@ -348,28 +350,26 @@ def _table_args(ht: HitTables, o, d, t, prim, u, v, n):
             ht.sph_f.data_ptr(), ht.sph_mat.data_ptr(), ht.n_spheres)
 
 
-def _needs_grad(ht: HitTables, o, d) -> bool:
+def _needs_grad(ht: HitTables, o, d, frames=None) -> bool:
     return torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in (o, d, ht.tri_f, ht.sph_f, ht.tri_g))
+        x is not None and x.requires_grad for x in (o, d, ht.tri_f, ht.sph_f, ht.tri_g, frames))
 
 
 def assemble_hit(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitRecord:
     """HitRecord of the winners of a closest-hit cast (K3; K3a with the
-    animations' `frames`, scene/animation.anim_frames): every field of every
-    lane (the full form). Where the ray or the hit tables require grad (and
+    animations' `frames`, scene/animation.anim_frames [A, 30] or
+    anim_frames_per_ray [N, A, 30]): every field of every lane (the full
+    form). Where the ray, the hit tables or the frame rows require grad (and
     grad mode is on), the record and its t are on the tape, differentiated
-    through the winner's intersection too: the backward is K3T
-    (render/backward.py `AssembleHit`; static scenes only)."""
-    if _needs_grad(ht, o, d):
-        if frames is not None:
-            raise NotImplementedError("assemble_hit: the gradient of K3a, the animated "
-                                      "assembly (ROADMAP A.8), is not ported yet")
+    through the winner's intersection too: the backward is K3T, K3aT with
+    `frames` (render/backward.py `AssembleHit`)."""
+    if _needs_grad(ht, o, d, frames):
         if ht.tri_g is None:
             raise ValueError("assemble_hit: a differentiable assembly needs HitTables.tri_g")
         from .backward import AssembleHit
 
         t_, pos, nrm, gn, tan, uv, mat, backside = AssembleHit.apply(
-            ht, o, d, t, prim, u, v, ht.tri_g, ht.tri_f, ht.sph_f)
+            ht, o, d, t, prim, u, v, ht.tri_g, ht.tri_f, ht.sph_f, frames)
         return HitRecord(t=t_, hit=prim >= 0, prim=prim, position=pos, normal=nrm,
                          geom_normal=gn, tangent=tan, uv=uv, backside=backside, mat=mat)
     return assemble_hit_raw(ht, o, d, t, prim, u, v, frames)
@@ -379,6 +379,7 @@ def assemble_hit_raw(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitReco
     """K3 (K3a with `frames`) without a tape: the kernel on CUDA tensors, the
     plain version on CPU tensors."""
     n = _check_hit_inputs("assemble_hit", ht, o, d, t, prim, u, v, frames)
+    stride = check_frames(frames, ht.n_anims, o.device, n)
     if o.device.type == "cpu":
         return assemble_hit_plain(ht, o, d, t, prim, u, v, frames)
     if o.device.type != "cuda":
@@ -397,7 +398,7 @@ def assemble_hit_raw(ht: HitTables, o, d, t, prim, u, v, frames=None) -> HitReco
         name = "assemble_hit"
     else:
         code = lib.wpt_assemble_hit_anim(*args, ht.tri_anim.data_ptr(), ht.sph_anim.data_ptr(),
-                                         frames.data_ptr(), *outs)
+                                         frames.data_ptr(), stride, *outs)
         name = "assemble_hit_anim"
     native.check(code, name)
     native.LAUNCHES[name] += 1
@@ -414,8 +415,13 @@ def assemble_hit_k4(ht: HitTables, o, d, t, prim, u, v, frames, out: HitRecord) 
     lane's rows and the fields outside the set are not written (on CPU
     tensors the plain version's every lane is copied in). Returns the record
     with t and prim, the set's fields from `out`, and None for `hit` and
-    every other field: a reader tests prim >= 0 itself."""
+    every other field: a reader tests prim >= 0 itself. The rows are the
+    frame's one instant's ([A, 30]): a frame over a shutter takes the pass
+    renderer."""
     n = _check_hit_inputs("assemble_hit_k4", ht, o, d, t, prim, u, v, frames)
+    if frames is not None and frames.dim() != 2:
+        raise ValueError("assemble_hit_k4: the K4 form takes the frame's one instant's rows "
+                         "[A, 30], not per-ray rows")
     fields = [f for f in HitRecord._fields[3:] if getattr(out, f) is not None]
     bits = _k4_bits(fields)
     for f in fields:

@@ -9,7 +9,10 @@ package casts through them every scene without a BVH that its matrix form
 does not take: an animated scene, or a static one past 8192 columns
 (`intersect_brute.brute_eligible`). In an animated scene every primitive
 tests its lane's ray in the object space of its own animation (row 0, the
-identity, for static primitives; scene/animation.py).
+identity, for static primitives; scene/animation.py), from the animations'
+rows at the frame's one instant ([A, 30]) or at each ray's own instant
+under motion blur ([N, A, 30]: a lane stride of A 30 floats in the
+kernels).
 
 The kernels (``csrc/sweep_closest.cu``, ``csrc/sweep_any.cu``) walk the
 primitives in order: KS2 one ray per thread, KS1 the live rays of a tile
@@ -186,34 +189,41 @@ def any_sweep_plain(ss: SweepScene, o, d, t_min, t_max, frames=None):
     return occ
 
 
-def check_frames(frames: Optional[torch.Tensor], n_anims: int, device):
-    """Validate the animation rows a sweep or K3a reads: [A, 30] f32
-    contiguous (every animation at the frame's one instant), A the scene's
-    animation rows."""
+def check_frames(frames: Optional[torch.Tensor], n_anims: int, device, n: int = -1) -> int:
+    """Validate the animation rows a sweep, K3a or K3aT reads: [A, 30] f32
+    contiguous (every animation at the frame's one instant) or [n, A, 30]
+    (every animation at each of the n rays' own instants), A the scene's
+    animation rows. Returns the kernels' lane stride in floats: 0 for one
+    instant, A 30 per ray (0 without frames too)."""
     if frames is None:
-        return
-    if (frames.dtype != torch.float32 or tuple(frames.shape) != (n_anims, FRAME_WIDTH)
+        return 0
+    per_ray = frames.dim() == 3
+    want = (n, n_anims, FRAME_WIDTH) if per_ray else (n_anims, FRAME_WIDTH)
+    if (frames.dtype != torch.float32 or tuple(frames.shape) != want or n < 0 and per_ray
             or not frames.is_contiguous()):
-        raise ValueError(f"frames: need contiguous float32 [{n_anims}, {FRAME_WIDTH}], "
-                         f"got {frames.dtype} {tuple(frames.shape)}")
+        raise ValueError(f"frames: need contiguous float32 [{n_anims}, {FRAME_WIDTH}] or "
+                         f"[{n}, {n_anims}, {FRAME_WIDTH}], got {frames.dtype} "
+                         f"{tuple(frames.shape)}")
     if frames.device != device:
         raise ValueError(f"frames are on {frames.device}, rays on {device}")
+    return n_anims * FRAME_WIDTH if per_ray else 0
 
 
-def _check(name, ss: SweepScene, o, d, t_min, t_max, frames):
+def _check(name, ss: SweepScene, o, d, t_min, t_max, frames) -> int:
     _check_rays(o, d, t_min, t_max)
     if ss.tri.device != o.device or ss.sph.device != o.device:
         raise ValueError(f"{name}: SweepScene is on {ss.tri.device}, rays on {o.device}")
-    check_frames(frames, ss.n_anims, o.device)
+    stride = check_frames(frames, ss.n_anims, o.device, o.shape[0])
     if o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {o.device}")
+    return stride
 
 
 def closest_sweep(ss: SweepScene, o, d, t_min, t_max, frames=None):
     """Closest hit (t, prim, u, v) of rays [N] by the sweep (KS1); `frames`
-    (scene/animation.anim_frames) takes each primitive's test into its
-    animation's object space."""
-    _check("closest_sweep", ss, o, d, t_min, t_max, frames)
+    (scene/animation.anim_frames [A, 30], or anim_frames_per_ray [N, A,
+    30]) takes each primitive's test into its animation's object space."""
+    stride = _check("closest_sweep", ss, o, d, t_min, t_max, frames)
     if o.device.type == "cpu":
         return closest_sweep_plain(ss, o, d, t_min, t_max, frames)
     lib = native.load_kernels()
@@ -224,7 +234,7 @@ def closest_sweep(ss: SweepScene, o, d, t_min, t_max, frames=None):
     code = lib.wpt_sweep_closest(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n, ss.tri.data_ptr(),
         ss.tri_anim.data_ptr(), ss.n_tris, ss.sph.data_ptr(), ss.sph_anim.data_ptr(),
-        ss.n_spheres, 0 if frames is None else frames.data_ptr(), t.data_ptr(),
+        ss.n_spheres, 0 if frames is None else frames.data_ptr(), stride, t.data_ptr(),
         prim.data_ptr(), u.data_ptr(), v.data_ptr(), native.stream_ptr(o))
     native.check(code, "sweep_closest")
     native.LAUNCHES["sweep_closest"] += 1
@@ -234,7 +244,7 @@ def closest_sweep(ss: SweepScene, o, d, t_min, t_max, frames=None):
 def any_sweep(ss: SweepScene, o, d, t_min, t_max, frames=None):
     """Occlusion of rays [N] in (t_min, t_max) by the sweep (KS2); t_max <=
     t_min means not occluded."""
-    _check("any_sweep", ss, o, d, t_min, t_max, frames)
+    stride = _check("any_sweep", ss, o, d, t_min, t_max, frames)
     if o.device.type == "cpu":
         return any_sweep_plain(ss, o, d, t_min, t_max, frames)
     lib = native.load_kernels()
@@ -243,7 +253,7 @@ def any_sweep(ss: SweepScene, o, d, t_min, t_max, frames=None):
     code = lib.wpt_sweep_any(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n, ss.tri.data_ptr(),
         ss.tri_anim.data_ptr(), ss.n_tris, ss.sph.data_ptr(), ss.sph_anim.data_ptr(),
-        ss.n_spheres, 0 if frames is None else frames.data_ptr(), occ.data_ptr(),
+        ss.n_spheres, 0 if frames is None else frames.data_ptr(), stride, occ.data_ptr(),
         native.stream_ptr(o))
     native.check(code, "sweep_any")
     native.LAUNCHES["sweep_any"] += 1

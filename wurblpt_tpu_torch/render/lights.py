@@ -17,8 +17,9 @@ per light, as the JAX package does (lights.py:89-107, :122, :204, :243).
 
 Animated hot spots (the JAX package's `light_frames`): each light's forward
 map and translation at the frame's instant, from the animations' rows
-(scene/animation.py anim_frames), move its triangle to world space before
-the pdf, the sample and the emission. Per-light MIS needs static lights (its
+(scene/animation.py anim_frames), or at each ray's own instant under motion
+blur (anim_frames_per_ray: frames [N, L, ...]), move its triangle to world
+space before the pdf, the sample and the emission. Per-light MIS needs static lights (its
 areas are the flattener's), so a scene with an animated light takes the
 mixture (`SceneStatic`).
 """
@@ -69,12 +70,13 @@ def light_anim_ids(scene: SceneArrays, spheres: bool = False):
 
 
 def light_frames(scene: SceneArrays, frames, spheres: bool = False):
-    """Forward frames of every hot spot's animation at the frame's instant:
-    (m [L, 3, 3], t [L, 3]), the m_fwd and t_inv columns of its animation's
-    row in `frames` (scene/animation.anim_frames, [A, 30]); `spheres` as
-    `light_anim_ids`'."""
-    rows = frames[light_anim_ids(scene, spheres).long()]
-    return rows[:, 12:21].reshape(-1, 3, 3), rows[:, 9:12]
+    """Forward frames of every hot spot's animation: (m [L, 3, 3], t [L, 3])
+    at the frame's instant from `frames` [A, 30] (scene/animation.anim_frames),
+    or (m [N, L, 3, 3], t [N, L, 3]) at each ray's instant from [N, A, 30]
+    (anim_frames_per_ray): the m_fwd and t_inv columns of its animation's
+    row; `spheres` as `light_anim_ids`'."""
+    rows = frames[..., light_anim_ids(scene, spheres).long(), :]
+    return rows[..., 12:21].reshape(rows.shape[:-1] + (3, 3)), rows[..., 9:12]
 
 
 def light_tris(scene: SceneArrays, frames=None, spheres: bool = True):
@@ -123,6 +125,12 @@ def _sphere_cone(oc, radius):
     return dist2, cos_max, solid, pdf
 
 
+def _per_origin(x, dims: int = 2):
+    """A light table [L, ...] of `dims` dims as [1, 1, L, ...], or one per
+    ray [N, L, ...] as [N, 1, L, ...]."""
+    return x[None, None] if x.dim() == dims else x[:, None]
+
+
 def lights_pdf_multi(scene: SceneArrays, origin, dirs, frames=None):
     """Mixture pdf of each of K directions from `origin`: origin [N, 3], dirs
     [N, K, 3] -> [N, K]. Direction-independent terms are computed once.
@@ -131,7 +139,8 @@ def lights_pdf_multi(scene: SceneArrays, origin, dirs, frames=None):
     N, K = dirs.shape[0], dirs.shape[1]
     if L == 0:
         return torch.zeros((N, K), device=dirs.device)
-    p0, e1, e2 = (x[None, None] for x in light_tris(scene, frames))   # [1, 1, L, 3]
+    # [1, 1, L, 3], or [N, 1, L, 3] with per-ray frames
+    p0, e1, e2 = (_per_origin(x) for x in light_tris(scene, frames))
     o = origin[:, None, None, :]                                # [N, 1, 1, 3]
     d = dirs[:, :, None, :]                                     # [N, K, 1, 3]
 
@@ -156,8 +165,8 @@ def lights_pdf_multi(scene: SceneArrays, origin, dirs, frames=None):
     if scene.n_spheres > 0:
         # Sphere pdf: 1 / the cone's solid angle inside the cone, 0 outside.
         center, radius = light_spheres(scene, frames)
-        oc = center[None, None] - o                              # [N, 1, L, 3]
-        dist2, cos_max, solid, pdf_in = _sphere_cone(oc, radius[None, None])
+        oc = _per_origin(center) - o                             # [N, 1, L, 3]
+        dist2, cos_max, solid, pdf_in = _sphere_cone(oc, _per_origin(radius, 1))
         inv_dist = 1.0 / torch.clamp_min(torch.sqrt(dist2), 1e-12)
         in_cone = dot(d, oc) * inv_dist >= cos_max
         pdf_sph = torch.where(in_cone, pdf_in, 0.0)
@@ -262,7 +271,11 @@ def lights_sample(scene: SceneArrays, origin, u3, frames=None):
 
 
 def pick_frame(frames, pick):
-    """(m [N, 3, 3], t [N, 3]) of the picked light [N] from `light_frames`."""
+    """(m [N, 3, 3], t [N, 3]) of the picked light [N] from `light_frames`
+    (at one instant, or each lane's own under motion blur)."""
     m, t = frames
     pick = pick.long()
-    return m[pick], t[pick]
+    if m.dim() == 3:
+        return m[pick], t[pick]
+    lane = torch.arange(pick.shape[0], device=pick.device)
+    return m[lane, pick], t[lane, pick]

@@ -211,9 +211,10 @@ def lit_scene(scene: SceneArrays, static: SceneStatic) -> bool:
 
 
 def _pinhole(cam_cfg: CameraConfig) -> bool:
-    """A mono pinhole camera, with or without a lens model, without depth of
-    field or animation."""
-    return (cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo and not cam_cfg.dof
+    """A mono pinhole camera, with or without a lens model, with or without
+    depth of field (the thin lens), without animation (an animated camera
+    at one instant is posed once on the host: camera.static_pose)."""
+    return (cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo
             and cam_cfg.anim_id < 0)
 
 
@@ -488,8 +489,10 @@ def regen_plain(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camer
         jy = ((s_new // lanes.ssqrt).to(torch.float32) + uj[:, 1]) * inv
     else:
         jx = jy = torch.full(need.shape, 0.5, dtype=torch.float32, device=need.device)
+    # the lens sample of a depth-of-field camera, as the JAX wavefront draws it
+    u_lens = uniform2(lanes.pixel, s_new, 0, Salt.LENS) if cam_cfg.dof else None
     o, d, _ = camera_rays(cam, cam_cfg, torch.stack([lanes.px + jx, lanes.py + jy], -1),
-                       lanes.width, lanes.height)
+                          lanes.width, lanes.height, u_lens=u_lens)
     sel = need[:, None]
     active = st.active | need
     st = st._replace(
@@ -789,11 +792,12 @@ def _copy_into(st: LoopState, new: LoopState) -> LoopState:
 
 def _camera_ptrs(cam: CameraParams, device):
     """Device pointers of the camera's centre [2], focal length [2], translation
-    [3], rotation [4] and lens coefficients k [6] and p [2]: float32 tensors
-    on `device`."""
+    [3], rotation [4], lens coefficients k [6] and p [2], scale [3], focus
+    distance [1] and aperture diameter [1]: float32 tensors on `device`."""
     tf = cam.transformation
-    parts = (cam.center_px, cam.focal_px, tf.translation, tf.rotation, cam.dist_k, cam.dist_p)
-    for x, numel in zip(parts, (2, 2, 3, 4, 6, 2)):
+    parts = (cam.center_px, cam.focal_px, tf.translation, tf.rotation, cam.dist_k, cam.dist_p,
+             tf.scale, cam.focus_distance, cam.aperture_diameter)
+    for x, numel in zip(parts, (2, 2, 3, 4, 6, 2, 3, 1, 1)):
         if (x.dtype != torch.float32 or x.numel() != numel or not x.is_contiguous()
                 or x.device != device):
             raise ValueError(f"regen_pinhole: camera tensors need contiguous float32 on "
@@ -837,7 +841,9 @@ def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Cam
     dead lanes, in place (wpt_regen_pinhole; `regen_plain` on CPU tensors,
     its result copied into the inputs): (st, sample, k_next, t_max, work),
     the first three the tensors given, work the loop condition. The kernel
-    takes a mono pinhole camera with or without a lens model (`_pinhole`)."""
+    takes a mono pinhole camera with or without a lens model and with or
+    without the thin lens of depth of field (`_pinhole`), whose lens sample
+    it draws by Salt.LENS."""
     n, dev = _check_state("regen_pinhole", st, sample, k_next, st.acc.shape[1])
     n_pend = _check_pending("regen_pinhole", st.acc, pending, occluded)
     if dev.type == "cpu":
@@ -845,7 +851,7 @@ def regen_pinhole(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Cam
                              occluded)
     if not _pinhole(cam_cfg):
         raise ValueError("regen_pinhole: the kernel takes a mono pinhole camera (a lens model "
-                         "allowed), no surround, stereo, depth of field or animation")
+                         "and depth of field allowed), no surround, stereo or animation")
     if n != lanes.B * lanes.m:
         raise ValueError(f"regen_pinhole: {n} lanes, the block has {lanes.B * lanes.m}")
     _check_in_place("regen_pinhole", st)
@@ -921,7 +927,9 @@ def regen_args(st: LoopState, sample, k_next, cam: CameraParams, cam_cfg: Camera
     if _surround(cam_cfg):
         camera = _surround_camera(cam, cam_cfg, lanes.width, lanes.height, dev)
     else:
-        camera = _camera_ptrs(cam, dev) + [cam_cfg.distortion, cam_cfg.undistort_iters]
+        ptrs = _camera_ptrs(cam, dev)
+        camera = ptrs[:6] + [cam_cfg.distortion, cam_cfg.undistort_iters] + ptrs[6:] + [
+            int(cam_cfg.dof)]
     args = [ctypes.addressof(s_c), t_max.data_ptr(), st.active.shape[0], *camera, lanes.blk,
             lanes.B, lanes.m, lanes.P, lanes.n_pix, lanes.width, lanes.height, lanes.ssqrt,
             int(randomize), _ptr(pending), _ptr(occluded), n_pend, st.acc.shape[1],

@@ -9,11 +9,14 @@ same in both spaces. The hit record is built in the winner's object space
 and its frame pushed back to world with the forward and normal matrices
 (`anim_forward_frames`).
 
-On the card the casts (KS1, KS2) and the hit assembly (K3a) read the
-animations' frames at the frame's one instant as rows of `anim_frames`
-and move each ray themselves; their plain versions compute the same rows
-the same way. `AnimCtx` and `make_anim_ctx` keep the JAX package's form
-(a batch of ray times) for the comparisons with it.
+On the card the casts (KS1, KS2, K5, K6) and the hit assembly (K3a) read
+the animations' frames as rows and move each ray themselves; their plain
+versions compute the same rows the same way. The rows come in two forms:
+`anim_frames`, [A, 30], every animation at the frame's one instant (t0 =
+t1), and `anim_frames_per_ray`, [N, A, 30], every animation at each ray's
+own instant (motion blur: a path keeps its time across its bounces, so
+the rows are built once per trace). `AnimCtx` and `make_anim_ctx` keep the
+JAX package's form (a batch of ray times) for the comparisons with it.
 """
 
 from __future__ import annotations
@@ -106,6 +109,27 @@ def anim_forward_frames(anims: AnimTable, aid, time):
     return r3 * tf.scale[..., None, :], r3 / torch.clamp_min(tf.scale[..., None, :], 1e-20), tf
 
 
+def _rows(r3, tf):
+    """[..., 30] frame rows from the rotation matrices [..., 3, 3] and the
+    Transformation batch they belong to."""
+    lead = r3.shape[:-2]
+    m = r3 * tf.scale[..., None, :]
+    mn = r3 / torch.clamp_min(tf.scale[..., None, :], 1e-20)
+    return torch.cat([_inverse(r3, tf.scale).reshape(lead + (9,)), tf.translation,
+                      m.reshape(lead + (9,)), mn.reshape(lead + (9,))], -1).contiguous()
+
+
+def anim_frames_per_ray(anims: AnimTable, time) -> torch.Tensor:
+    """[N, A, 30] f32 rows of every animation at each ray's time [N], packed
+    as `anim_frames`' (r_inv | t_inv | m_fwd | m_nrm): lane i's row a is
+    animation a at time[i], the JAX package's `make_anim_ctx` with its
+    forward frames. N A 120 bytes."""
+    n, a = time.shape[0], anims.count
+    aid = torch.arange(a, dtype=torch.int32, device=time.device)[None, :].expand(n, a)
+    tf = eval_animation(anims, aid, time[:, None].expand(n, a))
+    return _rows(quat_to_mat3(tf.rotation), tf)
+
+
 def anim_frames(anims: AnimTable, time: float) -> torch.Tensor:
     """[A, 30] f32 rows of every animation at one instant `time`: the
     inverse frame (r_inv, t_inv) that moves a ray to object space, then the
@@ -114,18 +138,28 @@ def anim_frames(anims: AnimTable, time: float) -> torch.Tensor:
     by its animation's t_inv and m_fwd (render/lights.py light_frames)."""
     a = anims.count
     aid = torch.arange(a, dtype=torch.int32, device=anims.times.device)
-    m, mn, tf = anim_forward_frames(anims, aid, torch.full((a,), time, dtype=torch.float32,
-                                                           device=aid.device))
-    r_inv = _inverse(quat_to_mat3(tf.rotation), tf.scale)
-    return torch.cat([r_inv.reshape(a, 9), tf.translation, m.reshape(a, 9),
-                      mn.reshape(a, 9)], -1).contiguous()
+    tf = eval_animation(anims, aid, torch.full((a,), time, dtype=torch.float32,
+                                               device=aid.device))
+    return _rows(quat_to_mat3(tf.rotation), tf)
+
+
+def frame_rows(frames, aid):
+    """The rows of animation `aid` [N] (or [N, P]) from `anim_frames` [A, 30]
+    (every lane the same instant) or `anim_frames_per_ray` [N, A, 30] (lane
+    i's own row): [N, 30] (or [N, P, 30])."""
+    aid = aid.long()
+    if frames.dim() == 2:
+        return frames[aid]
+    lane = torch.arange(aid.shape[0], device=aid.device)
+    return frames[lane.view((-1,) + (1,) * (aid.dim() - 1)), aid]
 
 
 def frames_ray_to_object(frames, aid, o, d):
     """The object-space rays of animation `aid` [N] (or [N, P]) from the rows
-    of `anim_frames` [A, 30]: o_a = r_inv (o - t_inv), d_a = r_inv d, as the
-    kernels compute them; also the rows."""
-    rows = frames[aid.long()]
+    of `anim_frames` [A, 30] or `anim_frames_per_ray` [N, A, 30] (`frame_rows`):
+    o_a = r_inv (o - t_inv), d_a = r_inv d, as the kernels compute them; also
+    the rows."""
+    rows = frame_rows(frames, aid)
     r = rows[..., 0:9].reshape(rows.shape[:-1] + (3, 3))
     while o.dim() < rows.dim():
         o, d = o[:, None, :], d[:, None, :]

@@ -3,7 +3,9 @@ their plain versions at the shapes of a differentiable frame, and the
 gradient checks of ``chip_smoke.py``'s `grad` phase.
 
 * P0T (`row_scatter`) on the Cornell block's material rows after 2
-  bounces, K3T (`assemble_hit_bwd`) on that block's winners, K8T
+  bounces, K3T (`assemble_hit_bwd`) on that block's winners, K3aT
+  (`assemble_hit_bwd` with frames) on the animated box with spheres'
+  winners with the rows of one instant and per-ray rows (`anim_lanes`), K8T
   (`env_radiance_bwd`) on the envmap frame's directions (camera lanes and
   random ones) on the equirect and the cube map, each with random
   cotangents made by numpy from a seed. The plain versions of K3T and K8T
@@ -34,8 +36,9 @@ emission's scale and the white walls' albedo, the envmap_spheres frame's
 gradient with respect to the sky's scale, the sphere-lit floor's gradient
 with respect to the camera's height, the RGL quad's with respect to its
 rgb table's scale (K7T) and the textured quad's with respect to one texel,
-and `fit` recovering the lit quad's albedo, each driven through the port's
-public entry points.
+the moving floor's gradients with respect to its vertices and a keyframe
+over a shutter (K3aT, `moving_floor_loss`), and `fit` recovering the lit
+quad's albedo, each driven through the port's public entry points.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.transform import from_lookat
+from ..core.transform import Transformation, from_lookat, quat_from_axis_angle
 from ..inverse import fit
 from ..materials.rgl import GRAD_TABLES, load_rgl_material, stack_rgl_tables
 from ..render.backward import (
@@ -203,6 +206,60 @@ def check_assemble_hit_bwd(lanes) -> Dict[str, float]:
     return res
 
 
+def anim_lanes(device, per_ray: bool, seed: int = 23):
+    """K3aT's inputs: the animated box with its spheres (sweeps) seen by the
+    Cornell block's camera lanes (kc.camera_lanes at bench size, 131072),
+    each cast with the frame's rows at one instant (kc.ANIM_TIME: [A, 30])
+    or, `per_ray`, with each lane's own rows at a random time in [0, 1)
+    ([N, A, 30]), the winners assembled by K3a; random cotangents from a
+    seed. The dict of cornell_lanes with `frames`."""
+    scene = scenes.cornell_box_animated(device, spheres=True)
+    static = SceneStatic.from_scene(scene)
+    tables = prepare_scene(scene, static, step=False)
+    o, d, t_min, t_max = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device)
+    n = o.shape[0]
+    fr = kc.frames_per_ray_at(scene, n) if per_ray else kc.frames_at(scene)
+    with torch.no_grad():
+        t, prim, u, v = scene_raw_hit(tables.accel, o, d, t_min, t_max, fr)
+        rec = assemble_hit_raw(tables.hit, o, d, t, prim, u, v, fr)
+    rng = np.random.default_rng(seed)
+    cot = [_f32(rng, s, device) for s in ((n,), (n, 3), (n, 3), (n, 3), (n, 3), (n, 2))]
+    return dict(ht=tables.hit, o=o, d=d, t=t, prim=prim, u=u, v=v, backside=rec.backside,
+                cot=cot, frames=fr)
+
+
+def check_assemble_hit_anim_bwd(lanes) -> Dict[str, float]:
+    """K3aT against its plain version (on the CPU) on the same lanes,
+    cotangents and frame rows: g_o and g_d per lane within LANE_REL of the
+    plain version's largest, the tables' cotangents and the atomic sums into
+    the [A, 30] rows of one instant within SUM_REL of their terms'
+    magnitudes, the per-ray rows' cotangents (each lane's own row, one term
+    an entry, as g_o's) within LANE_REL of the largest."""
+    args = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")]
+    fr = lanes["frames"]
+    got = _cpu(assemble_hit_bwd(*args, *lanes["cot"], frames=fr))
+    ref = assemble_hit_bwd_plain(*_cpu(args), *_cpu(lanes["cot"]), magnitudes=True,
+                                 frames=_cpu(fr))
+    res = {}
+    for name, a, b in zip(("g_o", "g_d"), got[:2], ref[:2]):
+        r = _lane_close(f"assemble_hit_anim_bwd {name}", a, b)
+        res[f"{name}_lanes_differ"] = r["lanes_differ"]
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), r["max_abs_err"])
+    for name, a, b, m in zip(("g_tri_g", "g_tri_f", "g_sph_f"), got[2:5], ref[2:5], ref[6:9]):
+        res["max_abs_err"] = max(res["max_abs_err"],
+                                 _sum_close(f"assemble_hit_anim_bwd {name}", a, b, m))
+    if fr.dim() == 3:   # each lane's own row: a per-lane output, one term an entry
+        r = _lane_close("assemble_hit_anim_bwd g_frames", got[5].reshape(fr.shape[0], -1),
+                        ref[5].reshape(fr.shape[0], -1))
+        res["g_frames_lanes_differ"] = r["lanes_differ"]
+        err = r["max_abs_err"]
+    else:
+        err = _sum_close("assemble_hit_anim_bwd g_frames", got[5], ref[5], ref[9])
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    res["frame_rows"] = list(fr.shape)
+    return res
+
+
 def check_env_radiance_bwd(env, d, g) -> Dict[str, float]:
     """K8T against its plain version (on the CPU) on the same directions and cotangents."""
     got = _cpu(env_radiance_bwd(env, d, g))
@@ -288,6 +345,19 @@ def assemble_hit_bwd_work(lanes):
     tables = sum(x.numel() * x.element_size() for x in (ht.tri_g, ht.tri_f, ht.sph_f))
     return (n * 125 + 2 * tables + ht.tri_i.numel() * 4,
             n_tri * 260 + (n - n_tri) * 120)
+
+
+def assemble_hit_anim_bwd_work(lanes):
+    """K3aT: K3T's work, and per lane the winner's frame row read (120 B)
+    and, per ray, its cotangent written (120 B; at one instant the [A, 30]
+    cotangents written once); ~200 more float operations per lane (the
+    object-space ray, the three normalize backwards and transposed maps of
+    the world frame, the rows' outer products)."""
+    nbytes, flops = assemble_hit_bwd_work(lanes)
+    fr = lanes["frames"]
+    n = lanes["prim"].shape[0]
+    rows = n * 120 + (n * 120 if fr.dim() == 3 else 2 * fr.numel() * 4)
+    return nbytes + rows, flops + n * 200
 
 
 def env_radiance_bwd_work(env, d):
@@ -454,3 +524,68 @@ def fit_albedo(device, width: int = 128, steps: int = FIT_STEPS):
                cam=cam, width=width, height=width, samples_sqrt=FIT_SSQRT,
                render_params=params,
                optimizer=lambda ps: torch.optim.Adam(ps, lr=5e-2), steps=steps, device=device)
+
+
+# ---------------------------------------------------------------------------
+# A differentiable animated scene over a shutter (K3aT)
+# ---------------------------------------------------------------------------
+
+MOVING_FLOOR_KEY = 1    # the floor's animation id; its keyframe 1's y translation is a parameter
+
+
+def moving_floor(device="cuda"):
+    """A 10 x 10 Lambertian floor keyframed from y = -0.5 at t = 0 to y =
+    -0.3 at t = 1 (animation 1) under a static 0.6 x 0.6 triangle light at
+    y = 1.5 facing down, built through the port's Scene over [0, 1]. The
+    camera (`moving_floor_camera`) sees the floor and the light only: no
+    silhouette moves with the floor, so a frame's mean is smooth in its
+    pose and a central difference agrees with the attached estimator."""
+    sc = B.Scene()
+    up = quat_from_axis_angle((1.0, 0.0, 0.0), -np.pi / 2)
+    down = quat_from_axis_angle((1.0, 0.0, 0.0), np.pi / 2)
+    aid = sc.take_animation(B.AnimationKeyframes([0.0, 1.0], [
+        Transformation.make(translation=(0.0, -0.5, 0.0)),
+        Transformation.make(translation=(0.0, -0.3, 0.0))]))
+    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(5.0, 5.0),
+                                         B.Lambertian(albedo=(0.7, 0.6, 0.5)),
+                                         Transformation.make(rotation=up), animation=aid))
+    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(0.3, 0.3),
+                                         B.LightDiffuse(radiance=(12.0,) * 3),
+                                         Transformation.make(translation=(0.0, 1.5, 0.0),
+                                                             rotation=down)), hot_spot=True)
+    return sc.build(t0=0.0, t1=1.0, device=device)
+
+
+def moving_floor_camera(device="cuda"):
+    """The moving floor's viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0.0, 0.6, 2.5), (0.0, -0.5, 0.0), device=device), 40.0
+
+
+def moving_floor_loss(scene, device, width: int = 16, ssqrt: int = 2, depth: int = 3):
+    """loss(vertex offset, key offset) = mean of `scene` (moving_floor, or
+    the same scene built by the JAX package and carried across) rendered
+    differentiably over the shutter [0, 1] (width^2, ssqrt^2 spp in one
+    pass, `depth` path components): the animated floor's triangles' p0
+    raised by the vertex offset in object space, and its animation's
+    keyframe 1 raised by the key offset. Its gradients reach the triangles'
+    rows through K3aT and the keyframe table through K3aT's frame-row
+    cotangents and autograd through the per-ray rows."""
+    static = SceneStatic.from_scene(scene)
+    cam = _camera(moving_floor_camera(device), width, device)
+    params = RenderParams(max_path_components=depth, differentiable=True)
+    aid = MOVING_FLOOR_KEY
+    vsel = torch.zeros_like(scene.tris.p0)
+    vsel[:, 1] = (scene.tris.anim == aid).to(vsel.dtype)
+    ksel = torch.zeros_like(scene.anims.trans)
+    ksel[aid, 1, 1] = 1.0
+
+    def loss(dv, dk):
+        T = scene.tris
+        tris = T._replace(p0=T.p0 + vsel * dv, v1=T.v1 + vsel * dv, v2=T.v2 + vsel * dv)
+        sc = scene._replace(tris=tris,
+                            anims=scene.anims._replace(trans=scene.anims.trans + ksel * dk))
+        return render_frame(sc, static, cam, CameraConfig(), SensorRGB(), width, width, ssqrt,
+                            0.0, 1.0, params=params, samples_per_pass=ssqrt ** 2,
+                            device=device).mean()
+
+    return loss

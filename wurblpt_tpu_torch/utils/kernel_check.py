@@ -151,7 +151,7 @@ from ..render.intersect_sweep import (
 )
 from ..render.lights import light_frames, lights_sample
 from ..render.sensor import SensorRGB, SensorTofAmcw
-from ..scene.animation import anim_frames, frames_ray_to_object
+from ..scene.animation import anim_frames, anim_frames_per_ray, frames_ray_to_object
 from ..scene.ir import BVHArrays, MaterialType, Spheres
 from . import scenes
 
@@ -459,6 +459,127 @@ def example_frame(name: str, device, scene=None, width=None, height=None, ssqrt=
         return out
 
     return render
+
+
+# The motion-blurred frames: render_frame over a shutter [t0, t1], each ray at
+# its own time (the per-ray rows of every animation: scene/animation.py
+# anim_frames_per_ray, N A 120 bytes a pass), on the generic bounce:
+# rolling_marbles (examples/rolling_marbles.py) frame 0 at the app's size,
+# 9 spp, 8 path components, its 180-degree shutter [0, 1 / 48], one pass of
+# 9 samples (518400 rays, 373 MB of rows: A = 6); animations
+# (examples/animations.py) frame 0 at the app's size, 16 spp, 6 path
+# components, shutter [0, 0.02], one pass (442368 rays, 106 MB: A = 2); and
+# cornell_animated_blur, the animated box with its spheres in a BVH whose
+# boxes are swept over [0, 1], at the Cornell bench's settings over [0, 1]
+# in one pass (262144 rays, 126 MB: A = 4; K5/K6 with per-ray rows).
+# (width, height, samples_sqrt, path components, samples per pass, t0, t1).
+MOTION_FRAMES = {"rolling_marbles": (320, 180, 3, 8, 9, 0.0, 0.5 / 24.0),
+                 "animations": (192, 144, 4, 6, 16, 0.0, 0.5 / 25.0),
+                 "cornell_animated_blur": (128, 128, 4, 8, 16, 0.0, 1.0)}
+# Their JAX yardsticks: the JAX package's CPU render_frame of the same
+# scenes (`JAX_PLATFORMS=cpu python jax_frame_reference.py <name>`): (mean, stats).
+MOTION_REFS = {"rolling_marbles": (0.04478351063669762, (927527, 1337928)),
+               "animations": (0.04735957091448981, (775463, 1109927)),
+               "cornell_animated_blur": (0.0428153183674251, (1129378, 2073276))}
+
+
+def motion_scene(name: str, device):
+    """The scene of a MOTION_FRAMES frame on `device`."""
+    t0, t1 = MOTION_FRAMES[name][5:]
+    if name == "cornell_animated_blur":
+        return scenes.cornell_box_animated(device, spheres=True, use_bvh=True, t0=t0, t1=t1)
+    if name == "animations":
+        return scenes.animations(t0, t1, device=device)
+    return scenes.rolling_marbles(device=device)
+
+
+def motion_camera(name: str, device):
+    """(pose, vfov_deg) of a MOTION_FRAMES frame."""
+    if name == "cornell_animated_blur":
+        return scenes.cornell_ref_camera(device)
+    return getattr(scenes, f"{name}_camera")(device)
+
+
+def motion_frame(name: str, device, scene=None, width=None, height=None, ssqrt=None,
+                 depth=None, per_pass=None, wavefront: bool = False) -> Callable[[], tuple]:
+    """A function that renders a motion-blurred frame (MOTION_FRAMES[name]) on
+    `device` through render_frame over its shutter, the scene's tables
+    built once, and returns (image, stats) once the device is done; with
+    `wavefront`, through render_frame_wavefront, which hands such a frame
+    to render_frame. The other arguments replace the frame's settings for
+    the tests."""
+    w0, h0, s0, d0, p0, t0, t1 = MOTION_FRAMES[name]
+    width, height = width or w0, height or h0
+    ssqrt, depth = ssqrt or s0, depth or d0
+    per_pass = math.gcd(per_pass or p0, ssqrt * ssqrt)
+    scene = motion_scene(name, device) if scene is None else scene
+    pose, vfov = motion_camera(name, device)
+    cam = make_camera(pose, vfov, width, height, device=device)
+    static = SceneStatic.from_scene(scene)
+    tables = prepare_scene(scene, static, step=wavefront)
+    params = RenderParams(max_path_components=depth)
+
+    def render():
+        if wavefront:
+            out = render_frame_wavefront(scene, static, cam, CameraConfig(), SensorRGB(), width,
+                                         height, ssqrt, params, return_stats=True,
+                                         device=device, tables=tables, t0=t0, t1=t1,
+                                         max_lanes=width * height * per_pass)
+        else:
+            out = render_frame(scene, static, cam, CameraConfig(), SensorRGB(), width, height,
+                               ssqrt, t0, t1, params, per_pass, return_stats=True,
+                               device=device, tables=tables)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    return render
+
+
+def check_motion_frame(name: str, img, stats) -> float:
+    """Hold a motion-blurred frame (MOTION_FRAMES) to its JAX yardstick
+    (MOTION_REFS); returns its mean radiance."""
+    w, h = MOTION_FRAMES[name][:2]
+    return _check_frame(img, stats, (h, w, 3), *MOTION_REFS[name])
+
+
+# The depth-of-field frame (examples/rtiow.py): rtiow() at the app's 320 x
+# 200, 16 spp, 8 path components, its thin lens (aperture 0.08, focus 10,
+# 25 degrees), through render_frame_wavefront: K4's env class around K1/K3
+# with the lens in the pinhole regeneration. Its JAX yardstick
+# (`jax_frame_reference.py rtiow_dof`, render_frame_wavefront).
+DOF_WIDTH, DOF_HEIGHT, DOF_SSQRT, DOF_DEPTH = 320, 200, 4, 8
+DOF_LANES_M = 2     # sample lanes per pixel of its 131072-lane blocks (one block)
+DOF_APERTURE, DOF_FOCUS = 0.08, 10.0
+DOF_REF_MEAN = 0.49140949322620764
+DOF_REF_STATS = (2166768, 2166768)
+
+
+def rtiow_dof_frame(device, scene=None, depth: int = DOF_DEPTH, width: int = DOF_WIDTH,
+                    height: int = DOF_HEIGHT, ssqrt: int = DOF_SSQRT) -> Callable[[], tuple]:
+    """The rtiow_dof frame on `device` through render_frame_wavefront (as
+    bench_frame); `scene` is rtiow() on `device`, built here when not given;
+    the other arguments change the app's settings for the tests."""
+    scene = scenes.rtiow(device=device) if scene is None else scene
+    cam, cfg = scenes.rtiow_dof_camera(width, height, DOF_APERTURE, DOF_FOCUS, device)
+    static = SceneStatic.from_scene(scene)
+    params = RenderParams(max_path_components=depth)
+    tables = prepare_scene(scene, static)
+
+    def render():
+        img, stats = render_frame_wavefront(scene, static, cam, cfg, SensorRGB(), width, height,
+                                            ssqrt, params=params, return_stats=True,
+                                            device=device, tables=tables)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return img, stats
+
+    return render
+
+
+def check_rtiow_dof_frame(img, stats) -> float:
+    """Hold the rtiow_dof frame to its JAX yardstick; returns its mean radiance."""
+    return _check_frame(img, stats, (DOF_HEIGHT, DOF_WIDTH, 3), DOF_REF_MEAN, DOF_REF_STATS)
 
 
 def pixel_centre_distance(scene, camera, width: int, height: int, device):
@@ -973,18 +1094,28 @@ def frames_at(scene, time: float = ANIM_TIME):
     return anim_frames(scene.anims, time)
 
 
+def frames_per_ray_at(scene, n: int, seed: int = 13, t0: float = 0.0, t1: float = 1.0):
+    """The rows of every animation of `scene` at n ray times uniform in [t0,
+    t1) from a seed (anim_frames_per_ray, [n, A, 30]): a motion-blurred
+    cast's rows."""
+    u = np.random.default_rng(seed).uniform(size=n).astype(np.float32)
+    times = _f32(np.float32(t0) + u * np.float32(t1 - t0), scene.anims.times.device)
+    return anim_frames_per_ray(scene.anims, times)
+
+
 def anim_shadow_lanes(scene, accel, frames, rays, seed: int = 2):
     """NEE shadow rays of an animated scene: from the first hits of `rays`
     (the plain cast of `accel`, the scene's SweepScene or BVHArrays) toward
     a point sampled on the light where it is at the instant of `frames`
-    (`frames_at`), shortened as the integrator does; lanes without a hit
-    get t_max = 0."""
+    (`frames_at`, or each lane's own with per-ray rows), shortened as the
+    integrator does; lanes without a hit get t_max = 0."""
     o, d, t_min, t_max = rays
     cast = bvh_closest_hit_plain if isinstance(accel, BVHArrays) else closest_sweep_plain
     t, prim, _, _ = cast(accel, o, d, t_min, t_max, frames)
     pos = o + torch.where(prim >= 0, t, 1.0)[:, None] * d
     u3 = _f32(np.random.default_rng(seed).uniform(size=(o.shape[0], 3)), o.device)
-    ldir, _, ldist, _, _ = lights_sample(scene, pos, u3, light_frames(scene, frames))
+    lf = light_frames(scene, frames, SceneStatic.from_scene(scene).sphere_lights)
+    ldir, _, ldist, _, _ = lights_sample(scene, pos, u3, lf)
     t_vis = torch.clamp_min(ldist * (1.0 - SHADOW_EPS), MIN_HIT)
     return (pos.contiguous(), ldir.contiguous(), t_min, torch.where(prim >= 0, t_vis, 0.0))
 
@@ -1700,7 +1831,8 @@ def regenerated_lanes(inputs: K4Inputs) -> int:
 def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ssqrt: int = 0,
               m: int = 0, height: int = 0, scene=None, sensor=None, cfg=None) -> K4Inputs:
     """The inputs of K4's kernels on the first block of the Cornell bench
-    frame (131072 lanes), the animated Cornell frame (cornell_animated, the
+    frame (131072 lanes), the rtiow_dof frame (128000 lanes, through the
+    thin lens), the animated Cornell frame (cornell_animated, the
     same lanes at t = ANIM_TIME: the sweeps' casts, K3a, the moving light
     in the step tables; cornell_animated_bvh: with its spheres, cast through
     its BVH), the ToF frame (phase 0, 73728 lanes), the mesh frame (76800
@@ -1753,6 +1885,12 @@ def k4_inputs(device, frame: str = "cornell", steps: int = 2, width: int = 0, ss
                scenes.rtiow_camera)
         size = (RTIOW_WIDTH, RTIOW_HEIGHT, RTIOW_SSQRT, RTIOW_LANES_M)
         depth, own_sensor, own_cfg, lens = RTIOW_DEPTH, SensorRGB(), RTIOW_CAMERA, RTIOW_LENS
+    elif frame == "rtiow_dof":
+        own = ((lambda dev: scenes.rtiow(device=dev)),
+               lambda dev: (scenes.rtiow_camera(dev)[0], 25.0))
+        size = (DOF_WIDTH, DOF_HEIGHT, DOF_SSQRT, DOF_LANES_M)
+        depth, own_sensor, own_cfg = DOF_DEPTH, SensorRGB(), CameraConfig(dof=True)
+        lens = {"focus_distance": DOF_FOCUS, "aperture_diameter": DOF_APERTURE}
     elif frame == "city":
         own = (lambda dev: scenes.city_night(seed=7, device=dev)), scenes.city_camera
         size = (CITY_WIDTH, CITY_HEIGHT, CITY_SSQRT, 1)
@@ -2480,8 +2618,13 @@ def assemble_hit_work(ht, prim, frames=None, fields=None):
     flops = K3_FLOPS + (K3_TAN_FLOPS if "tangent" in fields else 0.0) + (
         K3_UV_FLOPS if "uv" in fields else 0.0)
     if frames is not None:
-        ids = torch.unique(torch.cat([ht.tri_anim[tri_rows.long()], ht.sph_anim[sph_rows.long()]]))
-        tables += 4 * (tri_rows.numel() + sph_rows.numel()) + ids.numel() * 4 * frames.shape[1]
+        tables += 4 * (tri_rows.numel() + sph_rows.numel())
+        if frames.dim() == 3:   # per-ray rows: each assembled lane reads its winner's own row
+            tables += (n if full else int(hit.sum())) * 4 * frames.shape[-1]
+        else:
+            ids = torch.unique(torch.cat([ht.tri_anim[tri_rows.long()],
+                                          ht.sph_anim[sph_rows.long()]]))
+            tables += ids.numel() * 4 * frames.shape[-1]
         flops += K3A_RAY_FLOPS + K3A_VECTOR_FLOPS * (3 if "tangent" in fields else 2)
     out = sum(HIT_FIELD_BYTES[f] for f in fields)
     if full:
@@ -2507,15 +2650,19 @@ def sweep_work(ss, rays, frames=None, any_hit: bool = False):
     lanes (t_max > t_min; a dead lane reads no more), the result out (16 B;
     1 B of occlusion); the primitive rows (36 B of floats and a 4-B
     animation id per triangle, 20 B per sphere) and the frame rows read
-    once. Per live lane SWEEP_TRI_FLOPS per triangle and SWEEP_SPHERE_FLOPS
-    per sphere tested, and OBJECT_RAY_FLOPS per run of one animation along
-    the walk (animated). KS2's lanes stop at their first blocker, counted on
-    these rays with the plain tests."""
+    once; per-ray rows (motion blur): each live lane's r_inv and t_inv (48
+    B) once per run of one animation along its walk. Per live lane
+    SWEEP_TRI_FLOPS per triangle and SWEEP_SPHERE_FLOPS per sphere tested,
+    and OBJECT_RAY_FLOPS per run of one animation along the walk
+    (animated). KS2's lanes stop at their first blocker, counted on these
+    rays with the plain tests."""
     o, d, t_min, t_max = rays
     n = o.shape[0]
     live = t_max > t_min
     n_live = int(live.sum())
-    tables = 40 * ss.n_tris + 20 * ss.n_spheres + (0 if frames is None else _table_bytes([frames]))
+    rows = (0 if frames is None else 48 * _anim_runs(ss) * n_live if frames.dim() == 3
+            else _table_bytes([frames]))
+    tables = 40 * ss.n_tris + 20 * ss.n_spheres + rows
     n_bytes = n * 8 + n_live * 24 + (n if any_hit else n * 16) + tables
     obj = 0.0 if frames is None else OBJECT_RAY_FLOPS * _anim_runs(ss) * n_live
     if not any_hit:
@@ -2552,7 +2699,8 @@ def bvh_work(bvh, rays, any_hit: bool, frames=None, counts=None):
     triangle row (nine vertex floats and the prim id, not the row's pad
     words) and 20 B per sphere row (centre, radius, prim id), 4 B more per
     row for its animation id and the frame rows with `frames`, read once
-    (rows visited by many rays stay in cache). Charged per branch: two slab
+    (rows visited by many rays stay in cache; per-ray rows, r_inv and t_inv,
+    48 B, for each object ray a lane computes). Charged per branch: two slab
     tests (48 flops) for each inner-node visit of the walk, BVH_TRI_FLOPS for
     each leaf triangle test, SWEEP_SPHERE_FLOPS for each leaf sphere test,
     and with `frames` OBJECT_RAY_FLOPS + SHEAR_FLOPS for each object ray a
@@ -2564,9 +2712,10 @@ def bvh_work(bvh, rays, any_hit: bool, frames=None, counts=None):
     n = rays[0].shape[0]
     live = int((rays[3] > rays[2]).sum())
     per_row = 4 if frames is not None else 0
+    rows = (0 if frames is None else 48 * c["object_rays"] if frames.dim() == 3
+            else _table_bytes([frames]))
     tables = (_table_bytes([bvh.nodes]) + (40 + per_row) * bvh.n_tris
-              + (20 + per_row) * bvh.n_spheres
-              + (0 if frames is None else _table_bytes([frames])))
+              + (20 + per_row) * bvh.n_spheres + rows)
     n_bytes = live * 24 + n * 8 + (n if any_hit else n * 16) + tables
     return n_bytes, (48.0 * c["nodes"] + BVH_TRI_FLOPS * c["tri_tests"]
                      + SWEEP_SPHERE_FLOPS * c["sphere_tests"]

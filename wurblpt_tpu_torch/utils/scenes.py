@@ -632,3 +632,95 @@ def material_comparison(device="cuda"):
 def material_comparison_camera(device="cuda"):
     """The material grid's viewpoint: (pose, vfov_deg)."""
     return from_lookat((0.0, 1.6, 9.0), (0.0, 0.0, 0.0), device=device), 16.0
+
+
+# ---------------------------------------------------------------------------
+# Motion blur, animated cameras and depth of field (examples/rolling_marbles.py,
+# examples/animations.py, examples/rtiow.py)
+# ---------------------------------------------------------------------------
+
+def rolling_marbles(frames: int = 4, fps: float = 24.0, device="cuda"):
+    """The rolling-marbles video's scene (examples/rolling_marbles.py; reference
+    app wurblpt-rolling-marbles): five Perlin-turbulence textured spheres
+    of radius 0.3 rolling across a checkered floor, each a keyframe
+    animation from x = -3 to 3 (alternate rows the other way) with the
+    rotation about z that rolls it, over the video's duration frames /
+    fps, under a sphere light; built over [0, duration]. The same arrays as
+    the JAX app's scene. A frame f renders over the 180-degree shutter
+    [f / fps, f / fps + 1 / (2 fps)]."""
+    duration = frames / fps
+    scene = B.Scene()
+    floor = scene.take_material(B.Lambertian(
+        albedo=B.CheckerTexture(color1=(0.5, 0.45, 0.4), color2=(0.25, 0.25, 0.3),
+                                squares=(20, 20))))
+    fm, ftf = _quad_to((0, -0.5, 0), (1, 0, 0), -np.pi / 2, half=8.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    light = scene.take_material(B.LightDiffuse(radiance=(18.0,) * 3))
+    scene.take_sphere(B.SphereObject((0, 4.0, 2.0), 0.6, light), hot_spot=True)
+    rng = np.random.default_rng(5)
+    for i in range(5):
+        r = 0.3
+        z = -1.2 + 0.6 * i
+        x0, x1 = -3.0, 3.0
+        sign = 1.0 if i % 2 == 0 else -1.0
+        roll = sign * (x1 - x0) / r
+        aid = scene.take_animation(AnimationKeyframes(
+            times=[0.0, duration],
+            transformations=[
+                Transformation.make(translation=(x0 * sign, -0.5 + r, z)),
+                Transformation.make(translation=(x1 * sign, -0.5 + r, z),
+                                    rotation=quat_from_axis_angle((0, 0, 1), -roll))]))
+        tex = B.NoiseTexture(kind=TextureType.PERLIN_NOISE, frequency=8.0, octaves=5,
+                             turbulence=True, seed=i,
+                             val_scale=tuple(0.6 * rng.random(3) + 0.2) + (1.0,))
+        scene.take_sphere(B.SphereObject((0.0, 0.0, 0.0), r, B.Lambertian(albedo=tex),
+                                         animation=aid))
+    return scene.build(t0=0.0, t1=duration, device=device)
+
+
+def rolling_marbles_camera(device="cuda"):
+    """The rolling-marbles viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0, 1.8, 5.5), (0, 0, 0), device=device), 38.0
+
+
+def animations(t0: float = 0.0, t1: float = 0.02, fps: float = 25.0, frames: int = 4,
+               device="cuda"):
+    """The keyframe-animation video's scene (examples/animations.py; reference
+    app wurblpt-animations): a red Lambertian sphere keyframed from x = -1.5
+    to 1.5 over the video's duration frames / fps, on a grey floor under a
+    sphere light; built over the frame's shutter [t0, t1] (frame 0 of the
+    app at its half shutter: [0, 0.5 / 25]). The same arrays as the JAX
+    app's scene."""
+    duration = frames / fps
+    scene = B.Scene()
+    floor = scene.take_material(B.Lambertian(albedo=(0.45, 0.45, 0.45)))
+    fm, ftf = _quad_to((0, -0.5, 0), (1, 0, 0), -np.pi / 2, half=8.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    light = scene.take_material(B.LightDiffuse(radiance=(10.0,) * 3))
+    scene.take_sphere(B.SphereObject((0, 2.5, 0), 0.5, light), hot_spot=True)
+    aid = scene.take_animation(AnimationKeyframes(
+        times=[0.0, duration],
+        transformations=[Transformation.make(translation=(-1.5, 0.0, 0.0)),
+                         Transformation.make(translation=(1.5, 0.0, 0.0))]))
+    red = scene.take_material(B.Lambertian(albedo=(0.8, 0.2, 0.15)))
+    scene.take_sphere(B.SphereObject((0, 0, 0), 0.5, red, animation=aid))
+    return scene.build(t0=t0, t1=t1, device=device)
+
+
+def animations_camera(device="cuda"):
+    """The keyframe-animation viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0, 1.0, 4.0), (0, 0, 0), device=device), 40.0
+
+
+def rtiow_dof_camera(width: int, height: int, aperture: float = 0.08,
+                     focus_distance: float = 10.0, device="cuda"):
+    """examples/rtiow.py's camera over `rtiow()`: (CameraParams, CameraConfig)
+    looking from (13, 2, 3) at the origin, 25 degrees vertical, with the
+    thin lens of diameter `aperture` focused at `focus_distance` (depth of
+    field where aperture > 0)."""
+    from ..render.camera import CameraConfig, make_camera
+
+    pose = from_lookat((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), device=device)
+    cam = make_camera(pose, 25.0, width, height, focus_distance=focus_distance,
+                      aperture_diameter=aperture, device=device)
+    return cam, CameraConfig(dof=aperture > 0.0)
