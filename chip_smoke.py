@@ -286,18 +286,25 @@ their object-space records the cornell_animated_bvh path's.
    frame ms (median of 5 after the first), and the CUDA kernel launches and
    device time of one profiled pass printed.
 16. grad - the pass renderer and the differentiable render
-   (utils/grad_check.py): first the five backward kernels against their
+   (utils/grad_check.py): first the backward kernels against their
    plain versions at a differentiable frame's shapes, each timed (wrapper
    call, device time a launch, plain version, `index_add_` for P0T)
    beside its bound: P0T on the Cornell block's material rows after 2
    bounces, K3T on that block's winners, K3aT on the animated box with
    spheres' 131072 camera winners with the rows of one instant and with
    per-ray rows (timed per ray), K8T on the envmap frame's
-   directions on the equirect and the cube map, K7T on 131072 lanes of two
-   synthetic RGL materials (eval and sample; timed on sample) (random
-   cotangents; the scattered tables within 1e-4 of the sum of their
-   terms' magnitudes, the sky's texels 1e-3, the per-lane cotangents
-   within 1e-4 of the largest). Then, with the counters at 0 (the grad path): `render_frame`
+   directions on the equirect and the cube map, K8T with its rotation
+   term on the equirect, cube and constant skies turned by
+   grad_check.SKY_ROTATION (timed on the equirect), K8T's sample backward
+   on 262144 uniforms of the turned equirect sky, K7T's tail form on
+   131072 lanes of two synthetic RGL materials (eval and sample; timed on
+   sample) and its full form on the same lanes with cotangents of the pdf
+   and of sample's direction too (eval and sample; timed on sample, eval
+   printed) (random cotangents; the scattered tables within 1e-4 of the
+   sum of their terms' magnitudes, the sky's texels and rotation 1e-3,
+   the per-lane cotangents within 1e-4 of the largest; K7T's full form
+   against its plain version in float64, each table within 2e-3 of its
+   largest |entry|). Then, with the counters at 0 (the grad path): `render_frame`
    on the Cornell bench frame (16 samples in one pass) held to its
    yardstick; the differentiable Cornell frame (128 x 128, 16 spp, depth
    8), d(mean)/d(emission scale) equal to the loss (rtol 1e-3) and
@@ -313,13 +320,24 @@ their object-space records the cornell_animated_bvh path's.
    scenes and tolerances); the moving floor over the shutter [0, 1]
    (utils/grad_check.moving_floor, 64 x 64, 4 spp, depth 3: per-ray rows,
    K3a and K3aT) with d(mean)/d(its vertices' y) and d(mean)/d(a keyframe's
-   y translation) against central differences (eps 1e-2, rtol 3e-2);
-   `fit` recovering the lit quad's albedo at 128 x 128 (4 spp, 40 Adam steps) within 0.06, its last loss under a quarter
-   of its first.
+   y translation) against central differences (eps 1e-2, rtol 3e-2); the
+   sky's yaw on envmap_spheres' equirect from grad_check.SKY_YAW_VIEW
+   (128 x 128, 16 spp, depth 8: K8T's rotation term and the sample's
+   backward), its mean within 1e-3 and d(mean)/d(yaw) within 2e-2 of the
+   JAX CPU yardstick (grad_check.SKY_YAW_REF); every float table of the
+   RGL quad on the tape (K7T's full form), each table's digest against
+   jax.grad's (grad_check.RGL_TABLE_REFS: the count of entries above 1e-6
+   of its largest equal, sum, sum of |entry| and largest within 1e-2); the
+   RGL quad's d(mean)/d(camera height) (the lane directions: K7T's full
+   form with K3T) within 2e-2 of JAX's and 3e-2 of its central difference
+   (eps 1e-3); `fit` recovering the lit quad's albedo at 128 x 128 (4 spp,
+   40 Adam steps) within 0.06, and the sky's yaw from 8 degrees away
+   (128 x 128, 4 spp, depth 2, 40 steps) within 1 degree, each with its
+   last loss under a quarter of its first.
    Each differentiable step prints its forward and backward ms, the
    port's kernel launches, peak memory and, from a profiled step, the
    CUDA kernel launches, device ms and busy share of each pass. The JSON
-   line's records of the four backward kernels and of K3's full form,
+   line's records of the backward kernels and of K3's full form,
    P0 and K1/K2/K8 count the grad path's launches (those of K1-K3, P0 and
    K7 the scene_api paths' too, K8's constant branch the scene_api paths').
 
@@ -516,9 +534,19 @@ GRAD_KERNELS = {
     "env_radiance_bwd": ("wurblpt_tpu_torch/csrc/backward.cu",
                          "wurblpt_tpu/render/envmap.py:166", ("env_radiance_bwd",),
                          (GRAD_PATH,)),
-    # K7T: the backward of rgl_eval (:633) and rgl_sample (:650)
+    # K8T with the map's rotation on the tape (its rotation term, reduced per block)
+    "env_radiance_bwd_rot": ("wurblpt_tpu_torch/csrc/backward.cu",
+                             "wurblpt_tpu/render/envmap.py:166", ("env_radiance_bwd_rot",),
+                             (GRAD_PATH,)),
+    # K8T's sample backward: the rotation's cotangent from the sampled directions'
+    "env_sample_bwd": ("wurblpt_tpu_torch/csrc/backward.cu", "wurblpt_tpu/render/envmap.py:201",
+                       ("env_sample_bwd",), (GRAD_PATH,)),
+    # K7T: the backward of rgl_eval (:633) and rgl_sample (:650), its tail form
     "rgl_bwd": ("wurblpt_tpu_torch/csrc/backward.cu", "wurblpt_tpu/materials/rgl.py:633",
                 ("rgl_bwd",), (GRAD_PATH,)),
+    # K7T's full form: every table and the lane directions (timed on sample)
+    "rgl_bwd_full": ("wurblpt_tpu_torch/csrc/backward.cu", "wurblpt_tpu/materials/rgl.py:650",
+                     ("rgl_bwd_full",), (GRAD_PATH,)),
 }
 KERNELS.update(GRAD_KERNELS)
 GRAD_RECORDS = []   # filled by phase_grad
@@ -1604,9 +1632,11 @@ def phase_motion_path(name, scene):
 
 def _grad_records():
     """Phase grad, part 1: P0T, K3T, K3aT (rows of one instant and per ray),
-    K8T and K7T against their plain backward versions at a differentiable
-    frame's shapes (utils/grad_check.py), each timed (wrapper call, device
-    time a launch, plain version, index_add_ for P0T) beside its bound."""
+    K8T (with and without its rotation term), its sample's backward and
+    K7T (its tail and its full form) against their plain backward versions
+    at a differentiable frame's shapes (utils/grad_check.py), each timed
+    (wrapper call, device time a launch, plain version, index_add_ for
+    P0T) beside its bound."""
     from wurblpt_tpu_torch.render import backward as bw
     from wurblpt_tpu_torch.utils import grad_check as gc
 
@@ -1615,7 +1645,12 @@ def _grad_records():
     g_rows, mat = lanes["g_rows"], lanes["mat"]
     k3 = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")] + lanes["cot"]
     skies = {"equirect": gc.sky_lanes(DEVICE, cube=False), "cube": gc.sky_lanes(DEVICE, cube=True)}
+    rotated = {f"{kind}, rotated": gc.sky_lanes(DEVICE, cube=kind == "cube", kind=kind,
+                                                rotated=True) + (True,)
+               for kind in ("equirect", "cube", "constant")}
+    senv, su3, sgd = gc.env_sample_lanes(DEVICE)
     rtab, rmid, rwi, rwo, ru2, rg = gc.rgl_lanes(DEVICE)
+    rgp, rgwo = gc.rgl_full_cotangents(rmid.shape[0], DEVICE)
     anim = {"one instant": gc.anim_lanes(DEVICE, per_ray=False),
             "per ray": gc.anim_lanes(DEVICE, per_ray=True)}
     checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows)}),
@@ -1623,10 +1658,16 @@ def _grad_records():
               ("assemble_hit_anim_bwd", gc.check_assemble_hit_anim_bwd,
                {f"animated box with spheres, rows of {k}": (v,) for k, v in anim.items()}),
               ("env_radiance_bwd", gc.check_env_radiance_bwd, skies),
+              ("env_radiance_bwd_rot", gc.check_env_radiance_bwd, rotated),
+              ("env_sample_bwd", gc.check_env_sample_bwd, {"equirect, rotated": (senv, su3, sgd)}),
               ("rgl_bwd", gc.check_rgl_bwd, {"eval": (rtab, rmid, rwi, rwo, rg, False),
-                                             "sample": (rtab, rmid, rwi, ru2, rg, True)})]
+                                             "sample": (rtab, rmid, rwi, ru2, rg, True)}),
+              ("rgl_bwd_full", gc.check_rgl_bwd_full,
+               {"eval": (rtab, rmid, rwi, rwo, rg, False, rgp, None),
+                "sample": (rtab, rmid, rwi, ru2, rg, True, rgp, rgwo)})]
     errs = _run_checks(checks)
     env, d, g = skies["equirect"]
+    renv, rd, rgg, _ = rotated["equirect, rotated"]
     k3a = ([anim["per ray"][k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")]
            + anim["per ray"]["cot"])
     cases = {
@@ -1644,14 +1685,39 @@ def _grad_records():
             lambda: bw.assemble_hit_bwd_plain(*k3a, frames=anim["per ray"]["frames"]),
             gc.assemble_hit_anim_bwd_work(anim["per ray"]), None,
             anim["per ray"]["o"].shape[0]),
-        "env_radiance_bwd": (lambda: bw.env_radiance_bwd(env, d, g),
+        "env_radiance_bwd": (lambda: bw.env_radiance_bwd(env, d, g, rotation=False),
                              lambda: bw.env_radiance_bwd_plain(env, d, g),
                              gc.env_radiance_bwd_work(env, d), None, d.shape[0]),
+        "env_radiance_bwd_rot": (
+            lambda: bw.env_radiance_bwd(renv, rd, rgg, rotation=True),
+            lambda: bw.env_radiance_bwd_plain(renv, rd, rgg),
+            gc.env_radiance_bwd_work(renv, rd, rotation=True), None, rd.shape[0]),
+        "env_sample_bwd": (lambda: bw.env_sample_bwd(senv, su3, sgd),
+                           lambda: bw.env_sample_bwd_plain(senv, su3, sgd),
+                           gc.env_sample_bwd_work(senv, su3), None, su3.shape[0]),
         # the sample's backward: its lanes recompute the two warps' sampling
         "rgl_bwd": (lambda: bw.rgl_bwd(rtab, rmid, rwi, ru2, rg, True),
                     lambda: bw.rgl_bwd_plain(rtab, rmid, rwi, ru2, rg, True),
                     gc.rgl_bwd_work(rtab, rmid.shape[0], True), None, rmid.shape[0]),
+        "rgl_bwd_full": (
+            lambda: bw.rgl_bwd(rtab, rmid, rwi, ru2, rg, True, full=True, g_pdf=rgp, g_wo=rgwo),
+            lambda: bw.rgl_bwd_plain(rtab, rmid, rwi, ru2, rg, True, full=True, g_pdf=rgp,
+                                     g_wo=rgwo),
+            gc.rgl_bwd_work(rtab, rmid.shape[0], True, full=True), None, rmid.shape[0]),
     }
+    # K8T's rotation term's cost: both kernels on the turned equirect sky's
+    # lanes, device time a launch in turns (without, with, with, without)
+    turns = [kc.device_ms(lambda r=r: bw.env_radiance_bwd(renv, rd, rgg, rotation=r)) * 1e3
+             for r in (False, True, True, False)]
+    print(f"grad: env_radiance_bwd on the turned equirect sky, device us a launch in turns: "
+          f"without the rotation term {turns[0]:.2f}, {turns[3]:.2f}; with it {turns[1]:.2f}, "
+          f"{turns[2]:.2f} at {rd.shape[0]} lanes on {_nvidia_smi()}")
+    # K7T's full form on eval's lanes: timed beside the record (sample's)
+    eval_full = lambda: bw.rgl_bwd(rtab, rmid, rwi, rwo, rg, False, full=True, g_pdf=rgp)  # noqa: E731
+    bound, bound_by = kc.bound_ms(*gc.rgl_bwd_work(rtab, rmid.shape[0], False, full=True))
+    print(f"grad: rgl_bwd_full eval {kc.time_ms(eval_full, DEVICE):.4f} ms (wrapper call), "
+          f"{kc.device_ms(eval_full) * 1e3:.2f} us device a launch; bound {bound:.6f} ms by "
+          f"{bound_by} at {rmid.shape[0]} lanes on {_nvidia_smi()}")
     for name, (kernel, plain, work, library, n) in cases.items():
         ms, plain_ms = kc.time_ms(kernel, DEVICE), kc.time_ms(plain, DEVICE)
         dev_us = kc.device_ms(kernel) * 1e3
@@ -1677,9 +1743,13 @@ def _timed_step(label, loss, args):
 
     from wurblpt_tpu_torch import native
 
-    warm = [torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+    def leaves():
+        return [a.detach().clone().requires_grad_(True) if isinstance(a, torch.Tensor)
+                else torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+
+    warm = leaves()
     loss(*warm).backward()   # the first step's one-time costs left out of the times
-    xs = [torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+    xs = leaves()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(native.LAUNCHES)
@@ -1693,7 +1763,7 @@ def _timed_step(label, loss, args):
     ours = {k: v - before[k] for k, v in native.LAUNCHES.items() if v != before[k]}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof_line = []
-    ys = [torch.tensor(a, device=DEVICE, requires_grad=True) for a in args]
+    ys = leaves()
     for part in ("forward", "backward"):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
@@ -1712,7 +1782,7 @@ def _timed_step(label, loss, args):
     print(f"{label}: forward {(t1 - t0) * 1e3:.2f} ms, backward (recompute included) "
           f"{(t2 - t1) * 1e3:.2f} ms, peak memory {peak:.3f} GiB, the port's kernel launches "
           f"{ours}; profiled: {'; '.join(prof_line)}; on {_nvidia_smi()}")
-    return float(value.detach()), [float(x.grad) for x in xs]
+    return float(value.detach()), [x.grad if x.dim() else float(x.grad) for x in xs]
 
 
 def phase_grad():
@@ -1723,10 +1793,14 @@ def phase_grad():
     (rtol 1e-3), d(mean)/d(white albedo) against a central difference (eps
     5e-3, rtol 5e-2), the equirect sky's d(mean)/d(scale) = the loss (rtol
     5e-2), the sphere-lit floor's d(mean)/d(camera height) against a
-    central difference (eps 1e-3, rtol 0.08), and fit recovering the lit
-    quad's albedo within 0.06 with its last loss below a quarter of its
-    first. Returns the counters of that run."""
+    central difference (eps 1e-3, rtol 0.08), the RGL rgb table's and one
+    texel's gradients and the moving floor's against their differences,
+    the sky's yaw gradient and the RGL tables' and camera height's against
+    the JAX CPU yardsticks, and fit recovering the lit quad's albedo within
+    0.06 and the sky's yaw within 1 degree, each with its last loss below
+    a quarter of its first. Returns the counters of that run."""
     from wurblpt_tpu_torch import native
+    from wurblpt_tpu_torch.materials import rgl
     from wurblpt_tpu_torch.render.bsdf import SceneStatic
     from wurblpt_tpu_torch.render.camera import CameraConfig, make_camera
     from wurblpt_tpu_torch.render.integrator import RenderParams, render_frame
@@ -1792,6 +1866,35 @@ def phase_grad():
               f"{fd!r} (eps {eps})")
         assert abs(fd) > 1e-6 and abs(g_x - fd) <= rtol * abs(fd), (
             f"{what} gradient off its difference")
+    # the sky's yaw (K8T's rotation term, the sample's backward) against the
+    # JAX CPU yardstick (grad_check.SKY_YAW_REF)
+    loss = gc.sky_yaw_loss(DEVICE)
+    value, (g_y,) = _timed_step("grad: differentiable sky yaw step", loss, (gc.SKY_YAW,))
+    ref = gc.SKY_YAW_REF
+    print(f"grad: sky yaw {gc.SKY_YAW}: loss {value!r} (JAX {ref['mean']!r}), d/d(yaw) {g_y!r} "
+          f"(JAX {ref['grad']!r})")
+    assert abs(value - ref["mean"]) <= 1e-3 * abs(ref["mean"]), "yaw frame off its yardstick"
+    assert abs(g_y - ref["grad"]) <= gc.SCALAR_REL * abs(ref["grad"]), "yaw gradient off JAX's"
+    # every RGL table on the tape (K7T's full form) against the JAX digests
+    # (grad_check.RGL_TABLE_REFS), and the RGL quad's camera height (the lane
+    # directions: K7T's full form with K3T) against JAX and its difference
+    quad = gc.rgl_quad(DEVICE)
+    tabs = [getattr(quad.rgl, k) for k in rgl.GRAD_TABLES]
+    value, grads = _timed_step("grad: differentiable RGL tables step", gc.rgl_tables_loss(DEVICE),
+                               tabs)
+    rel = gc.check_rgl_table_grads(dict(zip(rgl.GRAD_TABLES, grads)))
+    print(f"grad: RGL tables: loss {value!r}, each table's digest against JAX's (largest "
+          f"relative difference) {rel}")
+    loss = gc.rgl_camera_loss(DEVICE)
+    value, (g_c,) = _timed_step("grad: differentiable RGL camera step", loss, (0.0,))
+    eps = 1e-3
+    with torch.no_grad():
+        fd = (float(loss(torch.tensor(eps))) - float(loss(torch.tensor(-eps)))) / (2 * eps)
+    ref = gc.RGL_CAMERA_REF
+    print(f"grad: RGL quad camera height: loss {value!r} (JAX {ref['mean']!r}), gradient {g_c!r} "
+          f"(JAX {ref['grad']!r}) against central difference {fd!r} (eps {eps})")
+    assert abs(g_c - ref["grad"]) <= gc.SCALAR_REL * abs(ref["grad"]), "RGL camera gradient off JAX's"
+    assert abs(g_c - fd) <= 3e-2 * abs(fd), "RGL camera gradient off its difference"
     # the animated floor over the shutter [0, 1] (K3aT, per-ray rows): its
     # vertices and a keyframe translation against central differences
     loss = gc.moving_floor_loss(gc.moving_floor(DEVICE), DEVICE, 64, 2, 3)
@@ -1814,11 +1917,22 @@ def phase_grad():
           f"(target [0.7, 0.2, 0.5]), loss {res.losses[0]!r} -> {res.losses[-1]!r}")
     assert max(abs(a - b) for a, b in zip(got, (0.7, 0.2, 0.5))) <= 0.06, "fit missed"
     assert res.losses[-1] < 0.25 * res.losses[0], "fit's loss did not fall"
+    # fit of the sky's yaw from 8 degrees away
+    t0 = time.perf_counter()
+    res = gc.fit_yaw(DEVICE)
+    yaw = float(res.params["yaw"])
+    print(f"grad: fit of the sky's yaw, {gc.FIT_STEPS} steps in {time.perf_counter() - t0:.2f} s: "
+          f"{yaw!r} from {gc.FIT_YAW_START!r} (target {gc.SKY_YAW}, "
+          f"{np.rad2deg(abs(yaw - gc.SKY_YAW)):.4f} degrees off), loss {res.losses[0]!r} -> "
+          f"{res.losses[-1]!r}")
+    assert abs(yaw - gc.SKY_YAW) <= np.deg2rad(1.0), "yaw fit missed"
+    assert res.losses[-1] < 0.25 * res.losses[0], "yaw fit's loss did not fall"
     launches = dict(native.LAUNCHES)
     print(f"{GRAD_PATH}: launches {launches}")
     for name in ("row_scatter", "assemble_hit_bwd", "assemble_hit_anim_bwd", "env_radiance_bwd",
-                 "rgl_bwd", "assemble_hit", "assemble_hit_anim", "row_gather", "closest_hit",
-                 "any_hit", "env_radiance"):
+                 "env_radiance_bwd_rot", "env_sample_bwd", "rgl_bwd", "rgl_bwd_full",
+                 "assemble_hit", "assemble_hit_anim", "row_gather", "closest_hit", "any_hit",
+                 "env_radiance"):
         assert launches[name] > 0, f"kernel {name} was not launched on the {GRAD_PATH}"
     return launches
 

@@ -13,6 +13,8 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py normalmap
     JAX_PLATFORMS=cpu python jax_frame_reference.py material_comparison
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables
+    JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_camera_grad
+    JAX_PLATFORMS=cpu python jax_frame_reference.py sky_yaw_grad
     JAX_PLATFORMS=cpu python jax_frame_reference.py rolling_marbles
     JAX_PLATFORMS=cpu python jax_frame_reference.py animations
     JAX_PLATFORMS=cpu python jax_frame_reference.py cornell_animated_blur
@@ -84,8 +86,16 @@ rtiow(), 320x200, 16 spp, 8 path components, aperture 0.08 focused at 10,
 rgl_grad_tables is not a frame: it prints, for each table of the RGL
 stack, how many of its entries get a nonzero jax.grad of the mean of
 tests/test_gradients_breadth.py's RGL quad (12 x 12, 4 spp, 3 path
-components, differentiable): the tables a backward of K7 must carry or
-refuse (~1 minute).
+components, differentiable) and the digest of that gradient the card's
+check reads (``wurblpt_tpu_torch/utils/grad_check.py`` RGL_TABLE_REFS): the
+count of entries above 1e-6 of the table's largest |entry|, their sum, the
+sum of their |.| and the largest |.| (~1 minute). rgl_camera_grad prints
+the same quad's mean and its jax.grad with respect to the camera's height
+(the lane directions' gradients; grad_check.RGL_CAMERA_REF), sky_yaw_grad
+envmap_spheres' equirect frame (128 x 128, 16 spp in one pass, 8 path
+components, grad_check.SKY_YAW_VIEW: the sun in the frame) with the sky
+turned by a yaw of grad_check.SKY_YAW about +y: its mean and jax.grad with
+respect to the yaw (grad_check.SKY_YAW_REF; several minutes).
 """
 
 from __future__ import annotations
@@ -301,25 +311,10 @@ def _rgl_grad_tables():
     import jax.numpy as jnp
     import numpy as np
 
-    from wurblpt_tpu import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
-    from wurblpt_tpu.core.transform import from_lookat
-    from wurblpt_tpu.materials import rgl
+    from wurblpt_tpu import CameraConfig, RenderParams, SensorRGB
     from wurblpt_tpu.render.integrator import render_frame
-    from wurblpt_tpu.scene import builder as B
-    from wurblpt_tpu.scene import generator as G
-    from wurblpt_tpu_torch.utils.scenes import synthetic_rgl_fields
 
-    fields = synthetic_rgl_fields()   # tests/test_gradients_breadth.py's RGL material
-    sc = B.Scene()
-    sc.take_rgl_table("m", rgl.load_rgl_material(fields))
-    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(1.2, 1.2),
-                                         sc.take_material(B.RGLMaterial(table_name="m"))))
-    sc.take_sphere(B.SphereObject((0.4, 0.9, 2.2), 0.3, B.LightDiffuse(radiance=(14.0,) * 3)),
-                   hot_spot=True)
-    scene = sc.build()
-    static = SceneStatic.from_scene(scene)
-    cam = make_camera(transformation=from_lookat((0, 0, 2.2), (0, 0, 0)), vfov_deg=45.0,
-                      width=12, height=12)
+    scene, static, cam = _rgl_quad()
     params = RenderParams(max_path_components=3, differentiable=True)
     names = [k for k in scene.rgl._fields
              if jnp.issubdtype(jnp.asarray(getattr(scene.rgl, k)).dtype, jnp.floating)]
@@ -330,9 +325,83 @@ def _rgl_grad_tables():
 
     g = jax.jit(jax.grad(loss))({k: getattr(scene.rgl, k) for k in names})
     for k in names:
-        a = np.asarray(g[k])
+        a = np.asarray(g[k]).astype(np.float64)
+        big = np.abs(a) > 1e-6 * np.abs(a).max()
         print(json.dumps({"table": k, "shape": list(a.shape), "nonzero": int((a != 0).sum()),
-                          "max_abs_grad": float(np.abs(a).max())}))
+                          "max_abs_grad": float(np.abs(a).max()), "above_1e-6": int(big.sum()),
+                          "sum": float(a.sum()), "sum_abs": float(np.abs(a).sum())}))
+
+
+def _rgl_quad():
+    """tests/test_gradients_breadth.py's RGL quad, its static part and camera."""
+    from wurblpt_tpu import SceneStatic, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.materials import rgl
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.scene import generator as G
+    from wurblpt_tpu_torch.utils.scenes import synthetic_rgl_fields
+
+    sc = B.Scene()
+    sc.take_rgl_table("m", rgl.load_rgl_material(synthetic_rgl_fields()))
+    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(1.2, 1.2),
+                                         sc.take_material(B.RGLMaterial(table_name="m"))))
+    sc.take_sphere(B.SphereObject((0.4, 0.9, 2.2), 0.3, B.LightDiffuse(radiance=(14.0,) * 3)),
+                   hot_spot=True)
+    scene = sc.build()
+    cam = make_camera(transformation=from_lookat((0, 0, 2.2), (0, 0, 0)), vfov_deg=45.0,
+                      width=12, height=12)
+    return scene, SceneStatic.from_scene(scene), cam
+
+
+def _rgl_camera_grad():
+    import jax
+    import jax.numpy as jnp
+
+    from wurblpt_tpu import CameraConfig, RenderParams, SensorRGB
+    from wurblpt_tpu.render.integrator import render_frame
+
+    scene, static, cam = _rgl_quad()
+    params = RenderParams(max_path_components=3, differentiable=True)
+
+    def loss(dy):
+        t = cam.transformation
+        c2 = cam._replace(transformation=t._replace(
+            translation=t.translation + jnp.array([0.0, 1.0, 0.0]) * dy))
+        return jnp.mean(render_frame(scene, static, c2, CameraConfig(), SensorRGB(), 12, 12, 2,
+                                     params=params))
+
+    value, g = jax.jit(jax.value_and_grad(loss))(jnp.float32(0.0))
+    print(json.dumps({"loss": "rgl_camera", "mean": float(value), "grad": float(g)}))
+
+
+def _sky_yaw_grad():
+    import jax
+    import jax.numpy as jnp
+
+    from wurblpt_tpu import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.render.integrator import render_frame
+    from wurblpt_tpu.utils import scenes
+
+    scene = scenes.envmap_spheres(cube=False).build()
+    static = SceneStatic.from_scene(scene)
+    from wurblpt_tpu_torch.utils.grad_check import SKY_YAW, SKY_YAW_VIEW
+
+    eye, target, vfov = SKY_YAW_VIEW
+    cam = make_camera(transformation=from_lookat(eye, target), vfov_deg=vfov, width=128,
+                      height=128)
+    params = RenderParams(max_path_components=8, differentiable=True)
+
+    def loss(yaw):
+        q = jnp.stack([0.0 * yaw, jnp.sin(0.5 * yaw), 0.0 * yaw, jnp.cos(0.5 * yaw)])
+        sc = scene._replace(envmap=scene.envmap._replace(rotation=q))
+        return jnp.mean(render_frame(sc, static, cam, CameraConfig(), SensorRGB(), 128, 128, 4,
+                                     params=params, samples_per_pass=16))
+
+    t0 = time.perf_counter()
+    value, g = jax.jit(jax.value_and_grad(loss))(jnp.float32(SKY_YAW))
+    print(json.dumps({"loss": "sky_yaw", "yaw": SKY_YAW, "mean": float(value), "grad": float(g),
+                      "seconds": time.perf_counter() - t0}))
 
 
 def _cornell_animated():
@@ -496,7 +565,7 @@ FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
           "animations": lambda: _motion("animations"),
           "cornell_animated_blur": lambda: _motion("cornell_animated_blur"),
           "rtiow_dof": _rtiow_dof,
-          "rgl_grad_tables": None}
+          "rgl_grad_tables": None, "rgl_camera_grad": None, "sky_yaw_grad": None}
 
 
 def main():
@@ -509,6 +578,10 @@ def main():
         return _tof_report()
     if name == "rgl_grad_tables":
         return _rgl_grad_tables()
+    if name == "rgl_camera_grad":
+        return _rgl_camera_grad()
+    if name == "sky_yaw_grad":
+        return _sky_yaw_grad()
     t0 = time.perf_counter()
     scene, render = FRAMES[name]()
     t_build = time.perf_counter() - t0

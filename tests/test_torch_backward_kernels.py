@@ -1,7 +1,8 @@
-"""The plain backward versions of P0T, K3T, K3aT and K8T (render/backward.py)
-against autograd through a differentiable plain forward of the same
-function, their autograd Functions' wiring, and the differentiable
-render's refusals.
+"""The plain backward versions of P0T, K3T, K3aT and K8T (render/backward.py,
+K8T's rotation term and its sample's backward too) against autograd
+through a differentiable plain forward of the same function, their and
+K7T's autograd Functions' wiring, and what the differentiable render
+refuses.
 
 Each plain backward is explicit PyTorch arithmetic; the reference is
 `torch.autograd.grad` through `row_gather_diff_plain` (indexing),
@@ -27,11 +28,13 @@ import torch
 
 from wurblpt_tpu_torch import CameraConfig, RenderParams, SceneStatic, SensorRGB, make_camera
 from wurblpt_tpu_torch import render_frame, render_frame_wavefront
+from wurblpt_tpu_torch.core.transform import from_lookat
 from wurblpt_tpu_torch.materials import rgl
 from wurblpt_tpu_torch.render import backward as bw
 from wurblpt_tpu_torch.render.bsdf import gather_material_rows, pack_material_table
 from wurblpt_tpu_torch.render.envmap import (EnvironmentMapConstant, build_envmap_arrays,
-                                             env_radiance, env_radiance_plain)
+                                             env_radiance, env_radiance_plain, env_sample,
+                                             env_sample_plain)
 from wurblpt_tpu_torch.render.gather import row_gather
 from wurblpt_tpu_torch.render.intersect import assemble_hit, build_hit_tables
 from wurblpt_tpu_torch.render.intersect_brute import build_brute_scene, closest_hit
@@ -238,28 +241,108 @@ def _sky_dirs(n, seed):
     return (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
 
 
-@pytest.mark.parametrize("kind", ["equirect", "cube", "constant"])
-def test_k8t_plain_matches_autograd(kind):
+def _sky(kind, rotated):
     if kind == "constant":
         env = build_envmap_arrays(EnvironmentMapConstant((0.3, 0.5, 0.7)), "cpu")
     else:
         env = scenes.envmap_spheres(cube=kind == "cube", device="cpu").envmap
+    if rotated:   # grad_check.SKY_ROTATION, normalized
+        q = torch.tensor([0.1, 0.3, -0.2, 0.9])
+        env = env._replace(rotation=q / torch.linalg.norm(q))
+    return env
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["identity", "rotated"])
+@pytest.mark.parametrize("kind", ["equirect", "cube", "constant"])
+def test_k8t_plain_matches_autograd(kind, rotated):
+    """K8T's plain version against autograd through env_radiance_plain: the
+    cotangents of the direction, the image, the constant radiance and the
+    map's rotation (1e-4 of each output's largest; the rotation's, a sum
+    over the lanes, of the sum of its terms' magnitudes)."""
+    env = _sky(kind, rotated)
     d = _sky_dirs(4096, 2)
     g = torch.randn(d.shape[0], 4, generator=torch.Generator().manual_seed(3))
-    leaves = [x.clone().requires_grad_(True) for x in (d, env.image, env.const_radiance)]
-    out = env_radiance_plain(env._replace(image=leaves[1], const_radiance=leaves[2]),
-                             leaves[0])
+    fields = (d, env.image, env.const_radiance, env.rotation)
+    leaves = [x.clone().requires_grad_(True) for x in fields]
+    out = env_radiance_plain(env._replace(image=leaves[1], const_radiance=leaves[2],
+                                          rotation=leaves[3]), leaves[0])
     ref = torch.autograd.grad((out * g).sum(), leaves, allow_unused=True)
-    got = bw.env_radiance_bwd_plain(env, d, g)
+    got = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
     for what, a, b in zip(("g_d", "g_image", "g_const"), got, ref):
         _close(a, torch.zeros_like(a) if b is None else b, f"{kind} {what}")
+    g_rot = torch.zeros(4) if ref[3] is None else ref[3]
+    assert float((got[3] - g_rot).abs().max()) <= REL * float(got[6].max()) + 1e-7, (got[3], g_rot)
+    assert (kind == "constant") == (float(got[6].max()) == 0.0)
     # the Function behind env_radiance
-    leaves2 = [x.clone().requires_grad_(True) for x in (d, env.image, env.const_radiance)]
-    out2 = env_radiance(env._replace(image=leaves2[1], const_radiance=leaves2[2]), leaves2[0])
+    leaves2 = [x.clone().requires_grad_(True) for x in fields]
+    out2 = env_radiance(env._replace(image=leaves2[1], const_radiance=leaves2[2],
+                                     rotation=leaves2[3]), leaves2[0])
     assert torch.equal(out2, out)
     got2 = torch.autograd.grad((out2 * g).sum(), leaves2, allow_unused=True)
-    for a, b in zip(got2, got):
+    for a, b in zip(got2, got[:4]):
         assert torch.equal(torch.zeros_like(b) if a is None else a, b)
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["identity", "rotated"])
+def test_k8t_sample_plain_matches_autograd(rotated):
+    """K8T's sample backward (the rotation's cotangent from that of the
+    sampled directions) against autograd through env_sample_plain, and the
+    Function behind env_sample (its pdf carries no gradient)."""
+    env = _sky("equirect", rotated)
+    u3 = torch.rand(8192, 3, generator=torch.Generator().manual_seed(4))
+    g = torch.randn(8192, 3, generator=torch.Generator().manual_seed(5))
+    leaf = env.rotation.clone().requires_grad_(True)
+    d, pdf = env_sample_plain(env._replace(rotation=leaf), u3)
+    (ref,) = torch.autograd.grad((d * g).sum(), leaf)
+    got, mag = bw.env_sample_bwd_plain(env, u3, g, magnitudes=True)
+    assert float((got - ref).abs().max()) <= REL * float(mag.max()), (got, ref)
+    leaf2 = env.rotation.clone().requires_grad_(True)
+    d2, pdf2 = env_sample(env._replace(rotation=leaf2), u3)
+    assert torch.equal(d2, d) and torch.equal(pdf2, pdf) and not pdf2.requires_grad
+    (got2,) = torch.autograd.grad((d2 * g).sum(), leaf2)
+    assert torch.equal(got2, bw.env_sample_bwd_plain(env, u3, g))
+
+
+@pytest.mark.parametrize("sample", [False, True], ids=["eval", "sample"])
+def test_k7t_functions_take_every_table_and_direction(sample):
+    """rgl_eval / rgl_sample with every float table and the lane directions
+    on the tape (K7T's full form; the plain version on CPU tensors): their
+    gradients, from the cotangents of f*cos, the pdf and sample's wo, are
+    autograd's through the plain forward (within 1e-5 of each output's
+    largest); the pdf is on the tape. With only rgb, ndf and sigma on the tape (the tail form) the pdf
+    and wo are not."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    tables, mid, wi, wo, u2, g_f = gc.rgl_lanes("cpu", n=2048)
+    g_pdf, g_wo = gc.rgl_full_cotangents(2048, "cpu")
+    x = u2 if sample else wo
+    names = rgl.GRAD_TABLES
+    leaves = {k: getattr(tables, k).clone().requires_grad_(True) for k in names}
+    leaves["wi"] = wi.clone().requires_grad_(True)
+    if not sample:
+        leaves["wo"] = x.clone().requires_grad_(True)
+    t = tables._replace(**{k: leaves[k] for k in names})
+    if sample:
+        wo_s, f, pdf, _ = rgl.rgl_sample(t, mid, leaves["wi"], x)
+        loss = (f * g_f).sum() + (pdf * g_pdf).sum() + (wo_s * g_wo).sum()
+    else:
+        f, pdf = rgl.rgl_eval(t, mid, leaves["wi"], leaves["wo"])
+        loss = (f * g_f).sum() + (pdf * g_pdf).sum()
+    assert pdf.requires_grad
+    got = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)))
+    ref = rgl.rgl_bwd_plain(tables, mid, wi, x, g_f, sample, full=True, g_pdf=g_pdf,
+                            g_wo=g_wo if sample else None)
+    for k, b in ref.items():   # the scatter-adds' order varies with the threads: not bits
+        _close(torch.zeros_like(b) if got[k] is None else got[k], b, k, 1e-5)
+    # phi_i: P = 1, no gradient; eval reads the luminance warp's density only
+    unread = ("phi_i",) if sample else ("phi_i", "lum_marg", "lum_cond")
+    for k in rgl.GRAD_TABLES:
+        assert (float(ref[k].abs().max()) > 0) == (k not in unread), k
+    tail = {k: getattr(tables, k).clone().requires_grad_(True) for k in rgl.TAIL_TABLES}
+    t = tables._replace(**tail)
+    out = rgl.rgl_sample(t, mid, wi, x) if sample else rgl.rgl_eval(t, mid, wi, x)
+    assert out[1 if sample else 0].requires_grad
+    assert not out[2 if sample else 1].requires_grad and not out[0 if sample else 1].requires_grad
 
 
 # ---------------------------------------------------------------------------
@@ -277,18 +360,33 @@ def _render(scene, **kw):
 
 
 def test_differentiable_mode_refuses_what_it_cannot_take():
-    """An RGL material's warp tables that require grad (A.9; its rgb, ndf
-    and sigma tables take K7T) and a sky rotation that requires grad (A.9)
-    raise in differentiable mode; an animated scene, refused before K3aT,
-    renders on the tape (its keyframes get a gradient; the JAX comparison
-    is in tests/test_torch_motion_blur.py); the wavefront renderer refuses
-    differentiable params."""
+    """Everything the JAX package differentiates renders on the tape: an RGL
+    material's warp tables and parameter grids (K7T's full form; its rgb,
+    ndf and sigma take the tail form), a sky rotation (K8T's rotation term
+    and the sample's backward) and an animated scene (K3aT; the JAX
+    comparison is in tests/test_torch_motion_blur.py and
+    test_torch_gradients_breadth.py), each with a finite, nonzero gradient.
+    The wavefront renderer refuses differentiable params."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    # the city: lanes of other materials hand K7T zero directions (finite: no 0 x NaN)
     city = scenes.city_night(terrain_res=8, n_buildings=3, n_windows=4, sphere_slices=4,
                              device="cpu")
     assert bool(torch.isfinite(_render(city, params=DIFF)).all())
     vndf = city.rgl.vndf_data.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="RGL.*A.9"):
-        _render(city._replace(rgl=city.rgl._replace(vndf_data=vndf)), params=DIFF)
+    img = _render(city._replace(rgl=city.rgl._replace(vndf_data=vndf)), params=DIFF)
+    (g,) = torch.autograd.grad(img.mean(), vndf)
+    assert bool(torch.isfinite(g).all())
+    quad = gc.rgl_quad("cpu")
+    vndf = quad.rgl.vndf_data.clone().requires_grad_(True)
+    theta = quad.rgl.theta_i.clone().requires_grad_(True)
+    cam = make_camera(from_lookat((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), device="cpu"), 45.0, 4, 4,
+                      device="cpu")
+    sc = quad._replace(rgl=quad.rgl._replace(vndf_data=vndf, theta_i=theta))
+    img = render_frame(sc, SceneStatic.from_scene(sc), cam, CameraConfig(), SensorRGB(), 4, 4, 1,
+                       params=DIFF, device="cpu")
+    for leaf in torch.autograd.grad(img.mean(), (vndf, theta)):
+        assert bool(torch.isfinite(leaf).all()) and float(leaf.abs().sum()) > 0
     anim = scenes.cornell_box_animated("cpu")
     trans = anim.anims.trans.clone().requires_grad_(True)
     img = _render(anim._replace(anims=anim.anims._replace(trans=trans)), params=DIFF, t0=0.0,
@@ -298,16 +396,19 @@ def test_differentiable_mode_refuses_what_it_cannot_take():
     env_scene = scenes.envmap_spheres(device="cpu")
     rot = env_scene.envmap.rotation.clone().requires_grad_(True)
     rotated = env_scene._replace(envmap=env_scene.envmap._replace(rotation=rot))
-    with pytest.raises(NotImplementedError, match="rotation.*A.9"):
-        _render(rotated, params=DIFF)
-    with pytest.raises(NotImplementedError, match="rotation.*A.9"):
-        env_radiance(rotated.envmap, torch.tensor([[0.0, 0.0, 1.0]]))
+    (g,) = torch.autograd.grad(_render(rotated, params=DIFF).mean(), rot)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    (g,) = torch.autograd.grad(env_radiance(rotated.envmap, torch.tensor([[0.6, 0.0, 0.8]])).sum(),
+                               rot)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
     cornell = scenes.cornell_box_ref("cpu")
     pose, vfov = scenes.cornell_ref_camera("cpu")
     with pytest.raises(ValueError, match="inference only"):
         render_frame_wavefront(cornell, SceneStatic.from_scene(cornell),
                                make_camera(pose, vfov, 4, 4, device="cpu"), CameraConfig(),
                                SensorRGB(), 4, 4, 1, params=DIFF, device="cpu")
+    assert not [p for p in (REPO / "wurblpt_tpu_torch").rglob("*.py")
+                if "ROADMAP A.9" in p.read_text()]
 
 
 def test_inference_renders_keep_their_refused_scenes():
@@ -353,20 +454,24 @@ def test_the_materials_layer_imports_nothing_of_the_render_layer():
     assert bw.rgl_bwd is rgl.rgl_bwd and bw.rgl_bwd_plain is rgl.rgl_bwd_plain
 
 
+@pytest.mark.parametrize("full", (False, True), ids=("tail", "full"))
 @pytest.mark.parametrize("sample", (False, True), ids=("eval", "sample"))
-def test_k7t_bound_counts_only_what_k7t_moves(sample):
+def test_k7t_bound_counts_only_what_k7t_moves(sample, full):
     """K7T's bound (grad_check.rgl_bwd_work) charges a lane mid, wi, wo or
     u2 and the 4 cotangent words (44 or 40 B), none of K7's forward outputs,
-    and the tables read once with the rgb, ndf and sigma cotangents written
-    once."""
+    and the tables read once with the cotangents of its form's tables
+    written once (the tail form's rgb, ndf and sigma; the full form's every
+    float table), and the full form a lane's pdf cotangent and sample's wo
+    cotangent read and wi's (and eval's wo's) written (28 B more)."""
     from wurblpt_tpu_torch.utils import grad_check as gc
 
     n = 64
     tables = gc.rgl_lanes("cpu", n=n)[0]
-    base = gc.rgl_bwd_work(tables, 0, sample)[0]
-    assert base == kc._table_bytes(tables) + sum(getattr(tables, k).numel() * 4
-                                                 for k in rgl.GRAD_TABLES)
-    assert gc.rgl_bwd_work(tables, n, sample)[0] - base == n * (40 if sample else 44)
+    base = gc.rgl_bwd_work(tables, 0, sample, full)[0]
+    names = rgl.GRAD_TABLES if full else rgl.TAIL_TABLES
+    assert base == kc._table_bytes(tables) + sum(getattr(tables, k).numel() * 4 for k in names)
+    lane = (40 if sample else 44) + (28 if full else 0)
+    assert gc.rgl_bwd_work(tables, n, sample, full)[0] - base == n * lane
 
 
 # ---------------------------------------------------------------------------
@@ -382,8 +487,10 @@ def gpu():
 
 @pytest.mark.cuda
 def test_backward_kernels_match_their_plain_versions_on_the_card(gpu):
-    """P0T, K3T and K8T at a differentiable frame's shapes, with
-    utils/grad_check.py's tolerances (chip_smoke.py's grad phase runs the same)."""
+    """P0T, K3T, K8T (with its rotation term on the three kinds of sky, and
+    its sample's backward) and K7T's full form (eval and sample) at a
+    differentiable frame's shapes, with utils/grad_check.py's tolerances
+    (chip_smoke.py's grad phase runs the same)."""
     from wurblpt_tpu_torch import native
     from wurblpt_tpu_torch.utils import grad_check as gc
 
@@ -393,9 +500,20 @@ def test_backward_kernels_match_their_plain_versions_on_the_card(gpu):
     gc.check_assemble_hit_bwd(lanes)
     for cube in (False, True):
         gc.check_env_radiance_bwd(*gc.sky_lanes(gpu, cube))
+    for kind in ("equirect", "cube", "constant"):
+        gc.check_env_radiance_bwd(*gc.sky_lanes(gpu, kind == "cube", kind=kind, rotated=True),
+                                  rotation=True)
+    gc.check_env_sample_bwd(*gc.env_sample_lanes(gpu))
+    tables, mid, wi, wo, u2, g_f = gc.rgl_lanes(gpu)
+    g_pdf, g_wo = gc.rgl_full_cotangents(mid.shape[0], gpu)
+    gc.check_rgl_bwd_full(tables, mid, wi, wo, g_f, False, g_pdf, None)
+    gc.check_rgl_bwd_full(tables, mid, wi, u2, g_f, True, g_pdf, g_wo)
     assert native.LAUNCHES["row_scatter"] == before["row_scatter"] + 1
     assert native.LAUNCHES["assemble_hit_bwd"] == before["assemble_hit_bwd"] + 1
     assert native.LAUNCHES["env_radiance_bwd"] == before["env_radiance_bwd"] + 2
+    assert native.LAUNCHES["env_radiance_bwd_rot"] == before["env_radiance_bwd_rot"] + 3
+    assert native.LAUNCHES["env_sample_bwd"] == before["env_sample_bwd"] + 1
+    assert native.LAUNCHES["rgl_bwd_full"] == before["rgl_bwd_full"] + 2
 
 
 @pytest.mark.cuda

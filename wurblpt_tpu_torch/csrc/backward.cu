@@ -26,14 +26,29 @@
 //   (envmap.py:118-201): equirect and cube lanes one thread each, the four
 //   taps' texels scatter-added; a constant sky's radiance cotangent is the
 //   sum of the lanes', reduced per warp by shuffles before one atomicAdd
-//   per warp and channel.
+//   per warp and channel. Where the map's rotation is on the tape, each
+//   lane's term of its cotangent (that of dm = R(conj q) d with respect to
+//   q) is summed per warp by shuffles and per block in shared memory, then
+//   added with one atomicAdd per block and component: four floats over
+//   ~10^5 lanes, ~10^3 atomics onto one address instead of ~10^6.
+// K8T's sample, wpt_env_sample_bwd: the backward of K8's sample
+//   (envmap.py:201-234) into the rotation, dir = R(q) d_map with d_map
+//   recomputed from the uniforms, reduced as above; the pdf carries none.
 // K7T, wpt_rgl_bwd: the backward of K7's eval or sample (materials/rgl.py
-//   rgl_eval :633, rgl_sample :650 of the JAX package, through its autodiff)
-//   into the tables of the reflectance tail: rgb (param- and
-//   spatial-bilinear cells), ndf and sigma (bilinear cells). One thread per
-//   lane recomputes its forward up to the warp positions
-//   (backward_common.cuh rgl_bwd_lane) and adds each term with atomicAdd;
-//   a material's few 8 x 8 rgb cells are contended, as K3T's rows are.
+//   rgl_eval :633, rgl_sample :650 of the JAX package, through its autodiff).
+//   One thread per lane (rgl_bwd_kernel<SAMPLE, FULL>, backward_common.cuh
+//   rgl_bwd_lane). Its tail form (FULL false), where only the reflectance
+//   tail's tables are on the tape: rgb (param- and spatial-bilinear cells),
+//   ndf and sigma (bilinear cells); the lane recomputes its forward up to
+//   the warp positions and adds each term with atomicAdd; a material's few
+//   8 x 8 rgb cells are contended, as K3T's rows are. Its full form (FULL
+//   true), where a warp table, a parameter grid or a lane direction is on
+//   the tape: the lane runs reverse mode by hand through the whole forward
+//   (the parameter weights, both warps' inversion or sampling and density,
+//   the tail's terms shared with the tail form, the jacobian, the half
+//   vector or the sampled direction), each table term by atomicAdd onto the
+//   cells the forward's searches found (16 x 16 warp cells, more contended
+//   still), the lane's wi (and eval's wo) cotangents written.
 //
 // Bound on the card: bytes (each lane's inputs and cotangents read once,
 // its ray cotangents written once) for K3T and K8T, the atomics' traffic
@@ -85,18 +100,48 @@ assemble_hit_bwd_kernel(wpt_bwd::HitIn in, wpt_bwd::Tables tb, wpt_bwd::Cot c,
     if (i < in.n) wpt_bwd::assemble_hit_bwd_lane<ANIM>(i, in, tb, c, out, an);
 }
 
+// Adds v, summed over the block, to out[0..3]: shuffles within each warp,
+// the warps' sums in shared memory, one atomicAdd per component from thread
+// 0. Every thread of the block calls it.
+__device__ __forceinline__ void block_add4(float4 v, float* out) {
+    __shared__ float4 part[BLOCK / 32];
+    for (int off = 16; off > 0; off >>= 1) {
+        v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+        v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+        v.z += __shfl_xor_sync(0xffffffffu, v.z, off);
+        v.w += __shfl_xor_sync(0xffffffffu, v.w, off);
+    }
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    float4 s = part[0];
+    for (int k = 1; k < BLOCK / 32; ++k) {
+        s.x += part[k].x;
+        s.y += part[k].y;
+        s.z += part[k].z;
+        s.w += part[k].w;
+    }
+    wpt_bwd::add1(out, s.x);
+    wpt_bwd::add1(out + 1, s.y);
+    wpt_bwd::add1(out + 2, s.z);
+    wpt_bwd::add1(out + 3, s.w);
+}
+
+template <bool ROT>
 __global__ void __launch_bounds__(BLOCK)
 env_radiance_bwd_kernel(const float* __restrict__ d, int n, int kind,
                         const float4* __restrict__ img, int h, int w,
                         const float* __restrict__ rot, const float* __restrict__ g,
                         float* __restrict__ g_d, float* __restrict__ g_img,
-                        float* __restrict__ g_const) {
+                        float* __restrict__ g_const, float* __restrict__ g_rot) {
     const int i = blockIdx.x * BLOCK + threadIdx.x;
     if (kind != 3) {
-        if (i < n) wpt_bwd::env_radiance_bwd_lane(i, d, kind, img, h, w, rot, g, g_d, g_img);
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < n) q = wpt_bwd::env_radiance_bwd_lane<ROT>(i, d, kind, img, h, w, rot, g, g_d, g_img);
+        if (ROT) block_add4(q, g_rot);
         return;
     }
-    // constant sky: g_d = 0, g_const = sum over lanes of g
+    // constant sky: g_d = 0, g_const = sum over lanes of g (g_rot stays 0)
     float s[4];
     for (int k = 0; k < 4; ++k) s[k] = i < n ? g[4 * i + k] : 0.f;
     if (i < n) wpt_bwd::store3(g_d + 3 * i, {0.f, 0.f, 0.f});
@@ -106,16 +151,30 @@ env_radiance_bwd_kernel(const float* __restrict__ d, int n, int kind,
         for (int k = 0; k < 4; ++k) wpt_bwd::add1(g_const + k, s[k]);
 }
 
-template <bool SAMPLE>
 __global__ void __launch_bounds__(BLOCK)
-rgl_bwd_kernel(RglTables t, const int* __restrict__ mids, const float* __restrict__ wi,
-               const float* __restrict__ x, int n, const float* __restrict__ g_f,
-               wpt_bwd::RglGrads out) {
+env_sample_bwd_kernel(const float* __restrict__ u3, int n, const float* __restrict__ pdf,
+                      const float* __restrict__ alias_prob, const int* __restrict__ alias_idx,
+                      int res, const float* __restrict__ rot, const float* __restrict__ g_dir,
+                      float* __restrict__ g_rot) {
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < n) q = wpt_bwd::env_sample_bwd_lane(i, u3, pdf, alias_prob, alias_idx, res, rot, g_dir);
+    block_add4(q, g_rot);
+}
+
+template <bool SAMPLE, bool FULL>
+__global__ void __launch_bounds__(BLOCK)
+rgl_bwd_kernel(RglTables t, RglOut out, const int* __restrict__ mids,
+               const float* __restrict__ wi, const float* __restrict__ x, int n,
+               const float* __restrict__ g_f, const float* __restrict__ g_pdf,
+               const float* __restrict__ g_wo) {
     const int i = blockIdx.x * BLOCK + threadIdx.x;
     if (i >= n) return;
     const int mid = wpt_rgl::clampi(mids[i], 0, t.M - 1);
-    wpt_bwd::rgl_bwd_lane<SAMPLE>(t, mid, {wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]},
-                                  x + (SAMPLE ? 2 : 3) * i, g_f + 4 * i, out);
+    wpt_bwd::rgl_bwd_lane<SAMPLE, FULL>(t, out, i, mid, {wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]},
+                                        x + (SAMPLE ? 2 : 3) * i, g_f + 4 * i,
+                                        FULL ? g_pdf[i] : 0.f,
+                                        SAMPLE && FULL ? g_wo + 3 * i : nullptr);
 }
 
 inline int blocks(long long n) { return static_cast<int>((n + BLOCK - 1) / BLOCK); }
@@ -183,25 +242,53 @@ extern "C" int wpt_assemble_hit_anim_bwd(
     return static_cast<int>(cudaGetLastError());
 }
 
+// g_rot: the rotation's cotangent [4] (zeroed by the caller), or null where
+// the rotation carries none: then the launch skips the rotation's term and
+// its reduction.
 extern "C" int wpt_env_radiance_bwd(const float* d, int n, int kind, const float* img, int h,
                                     int w, const float* rot, const float* g, float* g_d,
-                                    float* g_img, float* g_const, void* stream) {
-    if (n > 0)
-        env_radiance_bwd_kernel<<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            d, n, kind, reinterpret_cast<const float4*>(img), h, w, rot, g, g_d, g_img, g_const);
+                                    float* g_img, float* g_const, float* g_rot, void* stream) {
+    if (n > 0) {
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        const float4* im = reinterpret_cast<const float4*>(img);
+        if (g_rot != nullptr)
+            env_radiance_bwd_kernel<true><<<blocks(n), BLOCK, 0, s>>>(d, n, kind, im, h, w, rot, g,
+                                                                      g_d, g_img, g_const, g_rot);
+        else
+            env_radiance_bwd_kernel<false><<<blocks(n), BLOCK, 0, s>>>(
+                d, n, kind, im, h, w, rot, g, g_d, g_img, g_const, g_rot);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int wpt_rgl_bwd(const RglTables* t, const int* mid, const float* wi, const float* x,
-                           int n, int sample, const float* g_f, float* g_rgb, float* g_ndf,
-                           float* g_sigma, void* stream) {
+// The sample's backward: the rotation's cotangent g_rot [4] (zeroed by the
+// caller) from that of the sampled directions g_dir [N, 3].
+extern "C" int wpt_env_sample_bwd(const float* u3, int n, const float* pdf,
+                                  const float* alias_prob, const int* alias_idx, int res,
+                                  const float* rot, const float* g_dir, float* g_rot,
+                                  void* stream) {
+    if (n > 0)
+        env_sample_bwd_kernel<<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+            u3, n, pdf, alias_prob, alias_idx, res, rot, g_dir, g_rot);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K7T: the tail form (full 0: rgb, ndf and sigma from g_f alone; g_pdf and
+// g_wo unread) or the full form (full 1: every table of RglOut, the lanes'
+// wi and eval's wo cotangents, from g_f, g_pdf and sample's g_wo).
+extern "C" int wpt_rgl_bwd(const RglTables* t, const RglOut* out, const int* mid, const float* wi,
+                           const float* x, int n, int sample, int full, const float* g_f,
+                           const float* g_pdf, const float* g_wo, void* stream) {
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        const wpt_bwd::RglGrads out{g_rgb, g_ndf, g_sigma};
-        if (sample)
-            rgl_bwd_kernel<true><<<blocks(n), BLOCK, 0, s>>>(*t, mid, wi, x, n, g_f, out);
-        else
-            rgl_bwd_kernel<false><<<blocks(n), BLOCK, 0, s>>>(*t, mid, wi, x, n, g_f, out);
+        const dim3 g(blocks(n));
+#define WPT_RGL_BWD(S, F) \
+    rgl_bwd_kernel<S, F><<<g, BLOCK, 0, s>>>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo)
+        if (full && sample) WPT_RGL_BWD(true, true);
+        else if (full) WPT_RGL_BWD(false, true);
+        else if (sample) WPT_RGL_BWD(true, false);
+        else WPT_RGL_BWD(false, false);
+#undef WPT_RGL_BWD
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,7 @@
 
 #include <cuda_runtime.h>
 
+#include "envmap_common.cuh"
 #include "rgl_common.cuh"
 
 namespace wpt_bwd {
@@ -350,6 +351,15 @@ __device__ __forceinline__ V3 quat_rotate(float ux, float uy, float uz, float w,
     return v + w * t + cross(uu, t);
 }
 
+// Cotangent of q = (u, w) from that g of quat_rotate(q, v) = v + w t + u x t,
+// t = 2 u x v (for s = a x b: g_a = b x g_s, g_b = g_s x a).
+__device__ __forceinline__ float4 quat_rotate_bwd_q(V3 u, float w, V3 v, V3 g) {
+    const V3 t = 2.f * cross(u, v);
+    const V3 g_t = w * g + cross(g, u);
+    const V3 g_u = cross(t, g) + 2.f * cross(v, g_t);
+    return make_float4(g_u.x, g_u.y, g_u.z, dot(g, t));
+}
+
 __device__ __forceinline__ float mod1(float x) {
     const float r = fmodf(x, 1.f);
     return (r != 0.f && r < 0.f) ? r + 1.f : r;
@@ -393,13 +403,17 @@ __device__ __forceinline__ void bilinear_bwd(const float4* img, float* g_img, co
 
 // K8T for lane i of an equirect (kind 1) or cube (kind 2) map
 // (render/backward.py env_radiance_bwd_plain): the texels' cotangents
-// scatter-added into g_img, the direction's written to g_d.
-__device__ __forceinline__ void env_radiance_bwd_lane(int i, const float* d, int kind,
-                                                      const float4* img, int h, int w,
-                                                      const float* rot, const float* g,
-                                                      float* g_d, float* g_img) {
+// scatter-added into g_img, the direction's written to g_d; returns the
+// lane's term of the rotation's cotangent (ROT; zero otherwise), that of
+// dm = quat_rotate(conj(q), d) with respect to q.
+template <bool ROT>
+__device__ __forceinline__ float4 env_radiance_bwd_lane(int i, const float* d, int kind,
+                                                        const float4* img, int h, int w,
+                                                        const float* rot, const float* g,
+                                                        float* g_d, float* g_img) {
     const float* gi = g + 4 * i;
-    const V3 dm = quat_rotate(-rot[0], -rot[1], -rot[2], rot[3], load3(d + 3 * i));
+    const V3 di = load3(d + 3 * i);
+    const V3 dm = quat_rotate(-rot[0], -rot[1], -rot[2], rot[3], di);
     V3 g_dm;
     if (kind == 1) {
         const float u = mod1(atan2f(dm.x, -dm.z) / TWO_PI);
@@ -467,29 +481,171 @@ __device__ __forceinline__ void env_radiance_bwd_lane(int i, const float* d, int
     }
     // dm = R(conj q) d: its adjoint is R(q)
     store3(g_d + 3 * i, quat_rotate(rot[0], rot[1], rot[2], rot[3], g_dm));
+    if (!ROT) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 gc = quat_rotate_bwd_q({-rot[0], -rot[1], -rot[2]}, rot[3], di, g_dm);
+    return make_float4(-gc.x, -gc.y, -gc.z, gc.w);
+}
+
+// The sample's backward for lane i (render/backward.py env_sample_bwd_plain):
+// the lane's term of the rotation's cotangent, that of dir = quat_rotate(q,
+// d_map) with respect to q, d_map the sample's map-space direction
+// recomputed from the uniforms u3 (envmap_common.cuh sample_map); the pdf
+// carries none.
+__device__ __forceinline__ float4 env_sample_bwd_lane(int i, const float* u3, const float* pdf,
+                                                      const float* alias_prob,
+                                                      const int* alias_idx, int res,
+                                                      const float* rot, const float* g_dir) {
+    float3 dm;
+    wpt_env::sample_map(u3[3 * i], u3[3 * i + 1], u3[3 * i + 2], pdf, alias_prob, alias_idx, res,
+                        &dm);
+    return quat_rotate_bwd_q({rot[0], rot[1], rot[2]}, rot[3], {dm.x, dm.y, dm.z},
+                             load3(g_dir + 3 * i));
 }
 
 // ---------------------------------------------------------------------------
-// K7T: the backward of K7 (rgl_common.cuh eval_lane / sample_lane) into the
-// tables its reflectance tail reads, fr_common's
-//   f_c = max(bilinear(rgb_c), 0) * ndf(u_wm) / max(4 sigma(u_wi), 1e-12):
-// rgb's param-bilinear x spatial-bilinear cells, ndf's and sigma's bilinear
-// cells. The warp positions and the half vector are recomputed as the
-// forward lane computes them (the same functions of rgl_common.cuh); the
-// warp tables (vndf_*, lum_*) and the directions carry no cotangent here
-// (the wrapper refuses them where they require grad).
+// K7T: the backward of K7 (rgl_common.cuh eval_lane / sample_lane; the
+// JAX package's rgl_eval :633 and rgl_sample :650, as materials/rgl.py
+// rgl_eval_plain / rgl_sample_plain follow them), one lane at a time in
+// rgl_bwd_lane<SAMPLE, FULL>. K7's forward is recomputed with the functions
+// of rgl_common.cuh. Searches are discrete: a cotangent lands only on the
+// entries read at the cell the forward found; each table entry's term is
+// added with atomicAdd.
+//   The tail form (FULL false), where only rgb, ndf and sigma are on the
+// tape: the forward up to the warp positions and the half vector, then
+// fr_common's backward from the cotangent of f*cos,
+//   f_c = max(bilinear(rgb_c), 0) * ndf(u_wm) / max(4 sigma(u_wi), 1e-12),
+// into rgb's param-bilinear x spatial-bilinear cells and ndf's and sigma's
+// bilinear cells.
+//   The full form (FULL true) runs reverse mode by hand through the whole
+// forward, from the cotangents of f*cos, the pdf and sample's wo: the
+// parameter weights in theta_i and phi_i (_param_weights :338) and wi's
+// angles, the warps' bilinear density (_Warp2.eval :413), the inversion
+// (:429-458: the cond row pair and the marginal value at the found cell),
+// the sampling (:459-505: the marginal and cond rows' values at the found
+// cell, both quadratic inversions), _u_wm, _fr_common (the tail's terms and
+// those of the positions and corner weights) and _jacobian (:609-632), the
+// half vector and the sampled direction; the lane's wi (and eval's wo)
+// cotangents are written.
 // ---------------------------------------------------------------------------
 
-struct RglGrads {
-    float* rgb;     // like RglTables::rgb
-    float* ndf;
-    float* sigma;
+}  // namespace wpt_bwd
+
+// At file scope, as RglTables: the C entry takes it (materials/rgl.py
+// _CGrads, field for field). The tables' cotangents in RglTables' order,
+// zeroed before the launch and scatter-added, then the lanes' direction
+// cotangents [N, 3], written (wo: eval's; the tail form writes rgb, ndf and
+// sigma only).
+struct RglOut {
+    float *phi_i, *theta_i, *ndf, *sigma, *vndf_data, *vndf_marg, *vndf_cond, *lum_data,
+        *lum_marg, *lum_cond, *rgb, *wi, *wo;
 };
 
-// Cotangent g of a bilinear blend of a raw [H, W] plane into its four cells
-// (eval0's weights, its clamped position).
-__device__ __forceinline__ void eval0_bwd(float* g_arr, const int* hw, int H, int W, int mid,
-                                          float px, float py, float g) {
+namespace wpt_bwd {
+
+// The cotangents a lane gathers on its parameter frame: of the corner
+// weights (cw) and of the incident angles.
+struct FrameBwd {
+    float cw[4];
+    float phi_i, theta_i;
+};
+
+struct WarpG {      // a warp's tables' cotangents
+    float *data, *marg, *cond;
+};
+
+// gsum's backward: the term g cw[k] into each corner's entry and, with CW,
+// g times the entry into the corner weight's cotangent.
+template <bool CW = true>
+__device__ __forceinline__ void gsum_bwd(const wpt_rgl::Frame& fr, const float* arr, float* g_arr,
+                                         int stride, int off, float g, FrameBwd& b) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        if (k < fr.nc) {
+            const long long e = static_cast<long long>(fr.slice[k]) * stride + off;
+            add1(g_arr + e, g * fr.cw[k]);
+            if constexpr (CW) b.cw[k] += g * wpt_rgl::ld(arr + e);
+        }
+    }
+}
+__device__ __forceinline__ void gd_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
+                                       const WarpG& wg, int y, int x, float g, FrameBwd& b) {
+    gsum_bwd(fr, wp.data, wg.data, wp.H * wp.W, y * wp.W + x, g, b);
+}
+__device__ __forceinline__ void gc_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
+                                       const WarpG& wg, int y, int x, float g, FrameBwd& b) {
+    gsum_bwd(fr, wp.cond, wg.cond, wp.H * wp.W, y * wp.W + x, g, b);
+}
+__device__ __forceinline__ void gm_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
+                                       const WarpG& wg, int y, float g, FrameBwd& b) {
+    gsum_bwd(fr, wp.marg, wg.marg, wp.H, y, g, b);
+}
+
+// The backward of (1 - sy) ((1 - sx) v00 + sx v10) + sy ((1 - sx) v01 + sx v11):
+// the taps' cotangents into gv[4] (v00, v10, v01, v11) and sx's, sy's added.
+__device__ __forceinline__ void bilerp_bwd(float v00, float v10, float v01, float v11, float sx,
+                                           float sy, float g, float gv[4], float& g_sx,
+                                           float& g_sy) {
+    gv[0] = g * ((1.f - sy) * (1.f - sx));
+    gv[1] = g * ((1.f - sy) * sx);
+    gv[2] = g * (sy * (1.f - sx));
+    gv[3] = g * (sy * sx);
+    g_sx += g * ((1.f - sy) * (v10 - v00) + sy * (v11 - v01));
+    g_sy += g * (((1.f - sx) * v01 + sx * v11) - ((1.f - sx) * v00 + sx * v10));
+}
+
+// Cotangent of d from that g of elevation(d) = 2 asin(clamp(|d - z|/2, -1, 1)).
+__device__ __forceinline__ V3 elevation_bwd(wpt_rgl::Vec3 d, float g) {
+    const float dz = d.z - 1.f;
+    const float s = sqrtf(d.x * d.x + d.y * d.y + dz * dz);
+    const float c = 0.5f * s;
+    if (g == 0.f || !(c >= -1.f && c <= 1.f)) return {0.f, 0.f, 0.f};
+    const float g_s = 0.5f * (g * 2.f / sqrtf(1.f - c * c));
+    return {g_s * d.x / s, g_s * d.y / s, g_s * dz / s};
+}
+
+// Cotangents of (x, y) from that g of atan2(y, x), as (x, y, 0).
+__device__ __forceinline__ V3 atan2_bwd(float y, float x, float g) {
+    if (g == 0.f) return {0.f, 0.f, 0.f};
+    const float r = x * x + y * y;
+    return {-g * y / r, g * x / r, 0.f};
+}
+
+// Cotangent of theta from that g of theta2u(theta) = sqrt(max(theta, 0) 2 / pi) = u.
+__device__ __forceinline__ float theta2u_bwd(float theta, float u, float g) {
+    return (g != 0.f && theta >= 0.f) ? g / (2.f * u) * wpt_rgl::TWO_OVER_PI_F : 0.f;
+}
+
+// Cotangent of param_weights' w1 (g) into the row's entries (atomically)
+// and, returned, into x.
+__device__ __forceinline__ float param_weights_bwd(const float* row, float* g_row, int n, float x,
+                                                   float g) {
+    if (n <= 1 || g == 0.f) return 0.f;
+    int cnt = 0;
+    for (int j = 0; j < n; ++j) cnt += wpt_rgl::ld(row + j) <= x;
+    const int i0 = wpt_rgl::clip_count(cnt, n), i1 = min(i0 + 1, max(n - 1, 0));
+    const float p0 = wpt_rgl::ld(row + i0), p1 = wpt_rgl::ld(row + i1);
+    const bool same = p1 == p0;
+    const float den = same ? 1.f : p1 - p0;
+    const float q = (x - p0) / den;
+    if (!(q >= 0.f && q <= 1.f)) return 0.f;   // clamp passes inside [0, 1]
+    const float g_num = g / den;
+    add1(g_row + i0, -g_num);
+    if (!same) {
+        const float g_den = -g * q / den;
+        add1(g_row + i1, g_den);
+        add1(g_row + i0, -g_den);
+    }
+    return g_num;
+}
+
+// Cotangent of eval0's bilinear value (g) into its raw [H, W] plane's four
+// cells and, with FULL, into the position (px, py), added (clamped to
+// [0, 1]: passes inside).
+template <bool FULL>
+__device__ __forceinline__ void eval0_bwd(const float* arr, float* g_arr, const int* hw, int H,
+                                          int W, int mid, float px, float py, float g,
+                                          float& g_px, float& g_py) {
+    if (g == 0.f) return;
     const int h = hw[2 * mid], w = hw[2 * mid + 1];
     const float fx = wpt_rgl::clampf(px, 0.f, 1.f) * static_cast<float>(w - 1);
     const float fy = wpt_rgl::clampf(py, 0.f, 1.f) * static_cast<float>(h - 1);
@@ -497,19 +653,226 @@ __device__ __forceinline__ void eval0_bwd(float* g_arr, const int* hw, int H, in
     const int y0 = wpt_rgl::clampi(static_cast<int>(fy), 0, h - 2);
     const float sx = fx - static_cast<float>(x0), sy = fy - static_cast<float>(y0);
     const int y1 = min(y0 + 1, H - 1);
-    float* a = g_arr + mid * H * W;
-    add1(a + y0 * W + x0, g * ((1.f - sy) * (1.f - sx)));
-    add1(a + y0 * W + x0 + 1, g * ((1.f - sy) * sx));
-    add1(a + y1 * W + x0, g * (sy * (1.f - sx)));
-    add1(a + y1 * W + x0 + 1, g * (sy * sx));
+    float* ga = g_arr + mid * H * W;
+    const int offs[4] = {y0 * W + x0, y0 * W + x0 + 1, y1 * W + x0, y1 * W + x0 + 1};
+    float v[4] = {0.f, 0.f, 0.f, 0.f};   // read only where the position's terms are
+    if constexpr (FULL)
+        for (int q = 0; q < 4; ++q) v[q] = wpt_rgl::ld(arr + mid * H * W + offs[q]);
+    float gv[4], g_sx = 0.f, g_sy = 0.f;
+    bilerp_bwd(v[0], v[1], v[2], v[3], sx, sy, g, gv, g_sx, g_sy);
+    for (int q = 0; q < 4; ++q) add1(ga + offs[q], gv[q]);
+    if constexpr (FULL) {
+        if (px >= 0.f && px <= 1.f) g_px += g_sx * static_cast<float>(w - 1);
+        if (py >= 0.f && py <= 1.f) g_py += g_sy * static_cast<float>(h - 1);
+    }
+}
+// warp_eval's backward: the density's cotangent g into the data cells and
+// the corner weights, and into the position, added to (g_px, g_py).
+__device__ __forceinline__ void warp_eval_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
+                                              const WarpG& wg, float px, float py, float g,
+                                              float& g_px, float& g_py, FrameBwd& b) {
+    if (g == 0.f) return;
+    int x0, y0;
+    float sx, sy;
+    wpt_rgl::cell(wp, px, py, x0, y0, sx, sy);
+    const int y1 = min(y0 + 1, wp.H - 1);
+    const float v00 = wpt_rgl::gd(fr, wp, y0, x0), v10 = wpt_rgl::gd(fr, wp, y0, x0 + 1);
+    const float v01 = wpt_rgl::gd(fr, wp, y1, x0), v11 = wpt_rgl::gd(fr, wp, y1, x0 + 1);
+    float gv[4], g_sx = 0.f, g_sy = 0.f;
+    bilerp_bwd(v00, v10, v01, v11, sx, sy, g * wpt_rgl::area(wp), gv, g_sx, g_sy);
+    gd_bwd(fr, wp, wg, y0, x0, gv[0], b);
+    gd_bwd(fr, wp, wg, y0, x0 + 1, gv[1], b);
+    gd_bwd(fr, wp, wg, y1, x0, gv[2], b);
+    gd_bwd(fr, wp, wg, y1, x0 + 1, gv[3], b);
+    g_px += g_sx * static_cast<float>(wp.w - 1);
+    g_py += g_sy * static_cast<float>(wp.h - 1);
+}
+
+// warp_invert's backward at the position (px, py): the cotangents of its
+// outputs (g_ux, g_uy) and of its density g_pdf into the data, cond and
+// marg entries read at the found cell and the corner weights, and into the
+// position, added to (g_px, g_py).
+__device__ __forceinline__ void warp_invert_bwd(const wpt_rgl::Frame& fr,
+                                                const wpt_rgl::Warp& wp, const WarpG& wg,
+                                                float px, float py, float g_ux, float g_uy,
+                                                float g_pdf, float& g_px, float& g_py,
+                                                FrameBwd& b) {
+    using namespace wpt_rgl;
+    int x0, y0;
+    float sx, sy;
+    cell(wp, px, py, x0, y0, sx, sy);
+    const int y1 = min(y0 + 1, wp.H - 1);
+    const float v00 = gd(fr, wp, y0, x0), v10 = gd(fr, wp, y0, x0 + 1);
+    const float v01 = gd(fr, wp, y1, x0), v11 = gd(fr, wp, y1, x0 + 1);
+    const float c0 = (1.f - sy) * v00 + sy * v01;
+    const float c1 = (1.f - sy) * v10 + sy * v11;
+    const float k0 = gc(fr, wp, y0, x0), k1 = gc(fr, wp, y1, x0);
+    const float x = sx * (c0 + 0.5f * sx * (c1 - c0)) + ((1.f - sy) * k0 + sy * k1);
+    const int wlast = max(wp.w - 1, 0);
+    const float r0 = gc(fr, wp, y0, wlast), r1 = gc(fr, wp, y1, wlast);
+    const float dn_raw = (1.f - sy) * r0 + sy * r1;
+    const float dn = clampminf(dn_raw, 1e-20f);
+    // uy = sy (r0 + sy (r1 - r0) / 2) + marg(y0)
+    float g_sx = 0.f;
+    float g_sy = g_uy * ((r0 + 0.5f * sy * (r1 - r0)) + sy * 0.5f * (r1 - r0));
+    float g_r0 = g_uy * sy * (1.f - 0.5f * sy), g_r1 = g_uy * sy * (0.5f * sy);
+    gm_bwd(fr, wp, wg, y0, g_uy, b);
+    // ux = x / max((1 - sy) r0 + sy r1, 1e-20)
+    const float g_x = g_ux / dn;
+    const float g_dn = dn_raw >= 1e-20f ? -g_ux * (x / dn) / dn : 0.f;
+    g_r0 += g_dn * (1.f - sy);
+    g_r1 += g_dn * sy;
+    g_sy += g_dn * (r1 - r0);
+    gc_bwd(fr, wp, wg, y0, wlast, g_r0, b);
+    gc_bwd(fr, wp, wg, y1, wlast, g_r1, b);
+    // x = sx (c0 + sx (c1 - c0) / 2) + (1 - sy) k0 + sy k1
+    gc_bwd(fr, wp, wg, y0, x0, g_x * (1.f - sy), b);
+    gc_bwd(fr, wp, wg, y1, x0, g_x * sy, b);
+    g_sy += g_x * (k1 - k0);
+    g_sx += g_x * (c0 + sx * (c1 - c0));
+    float g_c0 = g_x * sx * (1.f - 0.5f * sx), g_c1 = g_x * sx * (0.5f * sx);
+    // pdf = ((1 - sx) c0 + sx c1) area
+    const float g_p = g_pdf * area(wp);
+    g_c0 += g_p * (1.f - sx);
+    g_c1 += g_p * sx;
+    g_sx += g_p * (c1 - c0);
+    // c0 = (1 - sy) v00 + sy v01, c1 = (1 - sy) v10 + sy v11
+    gd_bwd(fr, wp, wg, y0, x0, g_c0 * (1.f - sy), b);
+    gd_bwd(fr, wp, wg, y1, x0, g_c0 * sy, b);
+    gd_bwd(fr, wp, wg, y0, x0 + 1, g_c1 * (1.f - sy), b);
+    gd_bwd(fr, wp, wg, y1, x0 + 1, g_c1 * sy, b);
+    g_sy += g_c0 * (v01 - v00) + g_c1 * (v11 - v10);
+    g_px += g_sx * static_cast<float>(wp.w - 1);
+    g_py += g_sy * static_cast<float>(wp.h - 1);
+}
+
+// The backward of a quadratic inversion t = 2 A / max(a + b, 1e-20) where
+// |a - b| < 1e-4 (a + b), else (a - sqrt(max(a^2 - 2 A (a - b), 0))) / (a -
+// b or 1): t's cotangent g into those of A, a and b, added. Where the root
+// is real (D > 0) the derivative is taken through the same function's
+// rationalized form, t = 2 A / (a + sqrt(D)): the formula itself cancels
+// as a approaches b (at |a - b| ~ 1e-3 (a + b) its float32 derivative by
+// the chain rule keeps no correct digit; the JAX package's autodiff and
+// the plain version take it so), the rationalized form does not.
+__device__ __forceinline__ void quad_inv_bwd(bool is_const, float A, float a, float b, float t,
+                                             float g, float& g_A, float& g_a, float& g_b) {
+    if (is_const) {
+        const float den = wpt_rgl::clampminf(a + b, 1e-20f);
+        g_A += g * 2.f / den;
+        if (a + b >= 1e-20f) {
+            const float g_den = -g * (t / den);
+            g_a += g_den;
+            g_b += g_den;
+        }
+        return;
+    }
+    const float D = a * a - 2.f * A * (a - b);
+    if (D > 0.f) {
+        const float disc = sqrtf(D);
+        const float den = a + disc;
+        const float g_den = -g * (t / den);
+        g_A += g * 2.f / den;
+        g_a += g_den;
+        const float g_D = g_den / (2.f * disc);
+        g_a += g_D * (2.f * a - 2.f * A);
+        g_b += g_D * (2.f * A);
+        g_A += g_D * (-2.f * (a - b));
+        return;
+    }
+    // no real root: t = a / (a - b or 1), D clamped (no cotangent)
+    const bool flat = a == b;
+    const float den = flat ? 1.f : a - b;
+    g_a += g / den;
+    if (!flat) {
+        const float g_den = -g * (t / den);
+        g_a += g_den;
+        g_b -= g_den;
+    }
+}
+
+// warp_sample's backward from the uniforms (u0, u1): the cotangents of its
+// position (g_px, g_py) and density g_pdf into the marg, cond and data
+// entries read at the found row and column and the corner weights, and
+// into (u0, u1) (clamped: passes inside), added to (g_u0, g_u1).
+__device__ __forceinline__ void warp_sample_bwd(const wpt_rgl::Frame& fr,
+                                                const wpt_rgl::Warp& wp, const WarpG& wg,
+                                                float u0, float u1, float g_px, float g_py,
+                                                float g_pdf, float& g_u0, float& g_u1,
+                                                FrameBwd& b) {
+    using namespace wpt_rgl;
+    // the forward (rgl_common.cuh warp_sample), its intermediates kept
+    const float ux0 = clampf(u0, U_LO, U_HI), uy0 = clampf(u1, U_LO, U_HI);
+    int cnt = 0;
+    for (int j = 0; j < wp.h; ++j) cnt += gm(fr, wp, j) < uy0;
+    const int row = clip_count(cnt, wp.h);
+    const float uy1 = uy0 - gm(fr, wp, row);
+    const int row1 = min(row + 1, wp.H - 1);
+    const int wlast = max(wp.w - 1, 0);
+    const float r0 = gc(fr, wp, row, wlast), r1 = gc(fr, wp, row1, wlast);
+    const bool is_const = fabsf(r0 - r1) < 1e-4f * (r0 + r1);
+    const float disc = sqrtf(clampminf(r0 * r0 - 2.f * uy1 * (r0 - r1), 0.f));
+    const float uy2 = is_const ? 2.f * uy1 / clampminf(r0 + r1, 1e-20f)
+                               : (r0 - disc) / ((is_const || r0 == r1) ? 1.f : r0 - r1);
+    const float L = (1.f - uy2) * r0 + uy2 * r1;
+    const float ux1 = ux0 * L;
+    cnt = 0;
+    for (int j = 0; j < wp.w; ++j)
+        cnt += (1.f - uy2) * gc(fr, wp, row, j) + uy2 * gc(fr, wp, row1, j) < ux1;
+    const int col = clip_count(cnt, wp.w);
+    const float q0 = gc(fr, wp, row, col), q1 = gc(fr, wp, row1, col);
+    const float ux2 = ux1 - ((1.f - uy2) * q0 + uy2 * q1);
+    const float v00 = gd(fr, wp, row, col), v10 = gd(fr, wp, row, col + 1);
+    const float v01 = gd(fr, wp, row1, col), v11 = gd(fr, wp, row1, col + 1);
+    const float c0 = (1.f - uy2) * v00 + uy2 * v01;
+    const float c1 = (1.f - uy2) * v10 + uy2 * v11;
+    const bool is_const2 = fabsf(c0 - c1) < 1e-4f * (c0 + c1);
+    const float disc2 = sqrtf(clampminf(c0 * c0 - 2.f * ux2 * (c0 - c1), 0.f));
+    const float ux3 = is_const2 ? 2.f * ux2 / clampminf(c0 + c1, 1e-20f)
+                                : (c0 - disc2) / ((is_const2 || c0 == c1) ? 1.f : c0 - c1);
+    // reverse: pdf = ((1 - ux3) c0 + ux3 c1) area, px = (col + ux3) / (w - 1),
+    // py = (row + uy2) / (h - 1)
+    const float g_p = g_pdf * area(wp);
+    float g_ux3 = g_px / static_cast<float>(wp.w - 1) + g_p * (c1 - c0);
+    float g_c0 = g_p * (1.f - ux3), g_c1 = g_p * ux3;
+    float g_uy2 = g_py / static_cast<float>(wp.h - 1);
+    float g_ux2 = 0.f;
+    quad_inv_bwd(is_const2, ux2, c0, c1, ux3, g_ux3, g_ux2, g_c0, g_c1);
+    gd_bwd(fr, wp, wg, row, col, g_c0 * (1.f - uy2), b);
+    gd_bwd(fr, wp, wg, row1, col, g_c0 * uy2, b);
+    gd_bwd(fr, wp, wg, row, col + 1, g_c1 * (1.f - uy2), b);
+    gd_bwd(fr, wp, wg, row1, col + 1, g_c1 * uy2, b);
+    g_uy2 += g_c0 * (v01 - v00) + g_c1 * (v11 - v10);
+    // ux2 = ux1 - ((1 - uy2) q0 + uy2 q1)
+    gc_bwd(fr, wp, wg, row, col, -g_ux2 * (1.f - uy2), b);
+    gc_bwd(fr, wp, wg, row1, col, -g_ux2 * uy2, b);
+    g_uy2 -= g_ux2 * (q1 - q0);
+    // ux1 = ux0 ((1 - uy2) r0 + uy2 r1)
+    const float g_L = g_ux2 * ux0;
+    float g_r0 = g_L * (1.f - uy2), g_r1 = g_L * uy2;
+    g_uy2 += g_L * (r1 - r0);
+    float g_uy1 = 0.f;
+    quad_inv_bwd(is_const, uy1, r0, r1, uy2, g_uy2, g_uy1, g_r0, g_r1);
+    gc_bwd(fr, wp, wg, row, wlast, g_r0, b);
+    gc_bwd(fr, wp, wg, row1, wlast, g_r1, b);
+    // uy1 = uy0 - marg(row)
+    gm_bwd(fr, wp, wg, row, -g_uy1, b);
+    if (u0 >= U_LO && u0 <= U_HI) g_u0 += g_ux2 * L;
+    if (u1 >= U_LO && u1 <= U_HI) g_u1 += g_uy1;
 }
 
 // fr_common's backward at luminance-warp position (px, py) and half-vector
-// position (uwm_x, uwm_y), for the cotangent g[4] of its f.
-__device__ __forceinline__ void fr_common_bwd(const RglTables& t, const wpt_rgl::Frame& fr,
+// position (uwm_x, uwm_y), for the cotangent g[4] of its f: into rgb's,
+// ndf's and sigma's cells and, with FULL, into the cotangents of (px, py),
+// of u_wm and of u_wi, added, and of the corner weights (b).
+template <bool FULL>
+__device__ __forceinline__ void fr_common_bwd(const RglTables& t, const RglOut& out,
+                                              const wpt_rgl::Frame& fr,
                                               const wpt_rgl::Warp& lum, float px, float py,
                                               float uwm_x, float uwm_y, const float g[4],
-                                              RglGrads out) {
+                                              float& g_px, float& g_py, float& g_uwm_x,
+                                              float& g_uwm_y, float& g_uwi_x, float& g_uwi_y,
+                                              FrameBwd& b) {
+    if (g[0] == 0.f && g[1] == 0.f && g[2] == 0.f && g[3] == 0.f) return;
     int x0, y0;
     float sx, sy;
     wpt_rgl::cell(lum, px, py, x0, y0, sx, sy);
@@ -522,8 +885,7 @@ __device__ __forceinline__ void fr_common_bwd(const RglTables& t, const wpt_rgl:
     const float scale = ndf_v / denom;
     const int offs[4] = {y0 * lum.W + x0, y0 * lum.W + x0 + 1, y1 * lum.W + x0,
                          y1 * lum.W + x0 + 1};
-    const float ws[4] = {(1.f - sy) * (1.f - sx), (1.f - sy) * sx, sy * (1.f - sx), sy * sx};
-    float g_scale = 0.f;
+    float g_scale = 0.f, g_sx = 0.f, g_sy = 0.f;
     for (int c = 0; c < 4; ++c) {
         const int base = c * plane;
         const float v00 = wpt_rgl::gsum(fr, t.rgb, 4 * plane, base + offs[0]);
@@ -534,61 +896,192 @@ __device__ __forceinline__ void fr_common_bwd(const RglTables& t, const wpt_rgl:
                         + sy * ((1.f - sx) * v01 + sx * v11);
         g_scale += g[c] * wpt_rgl::clampminf(o, 0.f);
         if (!(o >= 0.f) || g[c] == 0.f) continue;   // clamp_min passes where o >= 0
-        const float gv = g[c] * scale;
-        for (int k = 0; k < 4; ++k) {
-            if (k >= fr.nc) break;
-            float* slice = out.rgb + static_cast<long long>(fr.slice[k]) * 4 * plane + base;
-            const float gk = gv * fr.cw[k];
-            for (int q = 0; q < 4; ++q) add1(slice + offs[q], gk * ws[q]);
-        }
+        float gv[4];
+        bilerp_bwd(v00, v10, v01, v11, sx, sy, g[c] * scale, gv, g_sx, g_sy);
+        for (int q = 0; q < 4; ++q)
+            gsum_bwd<FULL>(fr, t.rgb, out.rgb, 4 * plane, base + offs[q], gv[q], b);
+    }
+    if constexpr (FULL) {
+        g_px += g_sx * static_cast<float>(lum.w - 1);
+        g_py += g_sy * static_cast<float>(lum.h - 1);
     }
     if (g_scale == 0.f) return;
-    eval0_bwd(out.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y, g_scale / denom);
+    eval0_bwd<FULL>(t.ndf, out.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y, g_scale / denom,
+                    g_uwm_x, g_uwm_y);
     if (sig4 >= 1e-12f)
-        eval0_bwd(out.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x, fr.uwi_y,
-                  -(g_scale * ndf_v / (denom * denom)) * 4.f);
+        eval0_bwd<FULL>(t.sigma, out.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x, fr.uwi_y,
+                        -(g_scale * ndf_v / (denom * denom)) * 4.f, g_uwi_x, g_uwi_y);
+}
+// jacobian's backward (J = max(2 pi^2 u_x sin theta_m, 1e-6) 4 (wi . wm)):
+// the cotangent g_J into wi's, wm's and u_wm.x's, added.
+__device__ __forceinline__ void jacobian_bwd(wpt_rgl::Vec3 wi, wpt_rgl::Vec3 wm, float uwm_x,
+                                             float g_J, V3& g_wi, V3& g_wm, float& g_uwm_x) {
+    if (g_J == 0.f) return;
+    const float sin_tm = sqrtf(wm.x * wm.x + wm.y * wm.y);
+    const float m_raw = wpt_rgl::TWO_PI2_F * uwm_x * sin_tm;
+    const float m4 = wpt_rgl::clampminf(m_raw, 1e-6f) * 4.f;
+    const float dd = wpt_rgl::dot3(wi, wm);
+    const float g_dd = g_J * m4;
+    g_wi = g_wi + g_dd * V3{wm.x, wm.y, wm.z};
+    g_wm = g_wm + g_dd * V3{wi.x, wi.y, wi.z};
+    if (m_raw >= 1e-6f) {
+        const float g_m = g_J * dd * 4.f;
+        g_uwm_x += g_m * sin_tm * wpt_rgl::TWO_PI2_F;
+        const float g_s = g_m * (wpt_rgl::TWO_PI2_F * uwm_x);
+        g_wm.x += g_s * wm.x / sin_tm;
+        g_wm.y += g_s * wm.y / sin_tm;
+    }
 }
 
-// One lane of K7T: x is wo (eval) or the two uniforms (sample), g_f the
-// cotangent [4] of the lane's f*cos. The lane's forward (eval_lane or
-// sample_lane) is recomputed up to its warp positions; a lane whose f the
-// forward zeroed (below the surface, or a sample that is not ok) adds nothing.
-template <bool SAMPLE>
-__device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, int mid, wpt_rgl::Vec3 wi,
-                                             const float* x, const float* g_f, RglGrads out) {
+// prepare's backward: the corner weights' and the angles' cotangents (b,
+// u_wi's) into the parameter grids' entries and wi's, added.
+__device__ __forceinline__ void prepare_bwd(const RglTables& t, const RglOut& out,
+                                            const wpt_rgl::Frame& fr, wpt_rgl::Vec3 wi,
+                                            const FrameBwd& b, float g_uwi_x, float g_uwi_y,
+                                            V3& g_wi) {
+    using namespace wpt_rgl;
+    const int mid = fr.mid;
+    const float theta_i = elevation(wi);
+    float g_theta = b.theta_i + theta2u_bwd(theta_i, fr.uwi_x, g_uwi_x);
+    float g_phi = b.phi_i + g_uwi_y * INV_TWO_PI_F;
+    int pi, ti;
+    float wp1, wt1;
+    param_weights(t.phi_i + mid * t.P, t.n_phi[mid], fr.phi_i, pi, wp1);
+    param_weights(t.theta_i + mid * t.T, t.n_theta[mid], theta_i, ti, wt1);
+    const float wp0 = 1.f - wp1, wt0 = 1.f - wt1;
+    float g_wp1 = 0.f, g_wt1 = 0.f;
+    if (t.P == 1 && t.T == 1) {
+    } else if (t.T == 1) {
+        g_wp1 = b.cw[1] - b.cw[0];
+    } else if (t.P == 1) {
+        g_wt1 = b.cw[1] - b.cw[0];
+    } else {
+        g_wp1 = (b.cw[2] * wt0 + b.cw[3] * wt1) - (b.cw[0] * wt0 + b.cw[1] * wt1);
+        g_wt1 = (b.cw[1] * wp0 + b.cw[3] * wp1) - (b.cw[0] * wp0 + b.cw[2] * wp1);
+    }
+    g_phi += param_weights_bwd(t.phi_i + mid * t.P, out.phi_i + mid * t.P, t.n_phi[mid], fr.phi_i,
+                               g_wp1);
+    g_theta += param_weights_bwd(t.theta_i + mid * t.T, out.theta_i + mid * t.T, t.n_theta[mid],
+                                 theta_i, g_wt1);
+    g_wi = g_wi + elevation_bwd(wi, g_theta) + atan2_bwd(wi.y, wi.x, g_phi);
+}
+
+// One lane of K7T: x is wo (eval) or the two uniforms (sample), g_f [4] the
+// cotangent of the lane's f*cos. The tail form (FULL false) recomputes the
+// forward up to its warp positions; a lane whose f the forward zeroed
+// (below the surface, or a sample that is not ok) adds nothing, and g_pdf
+// and g_wo are not read. The full form also takes g_pdf and (sample) g_wo
+// [3], the cotangents of the lane's pdf and sampled direction, and writes
+// the lane's wi cotangent (and eval's wo's) to out.wi + 3 i (out.wo + 3 i).
+template <bool SAMPLE, bool FULL>
+__device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& out, int i,
+                                             int mid, wpt_rgl::Vec3 wi, const float* x,
+                                             const float* g_f, float g_pdf, const float* g_wo) {
     using namespace wpt_rgl;
     const float g[4] = {g_f[0], g_f[1], g_f[2], g_f[3]};
-    if (g[0] == 0.f && g[1] == 0.f && g[2] == 0.f && g[3] == 0.f) return;
+    if (!FULL && g[0] == 0.f && g[1] == 0.f && g[2] == 0.f && g[3] == 0.f) return;
     const Frame fr = prepare(t, mid, wi);
-    const Warp lum = lum_warp(t, mid);
-    float px, py, uwm_x, uwm_y;
-    if (SAMPLE) {
+    const Warp lum = lum_warp(t, mid), vndf = vndf_warp(t, mid);
+    const WarpG lg{out.lum_data, out.lum_marg, out.lum_cond};
+    const WarpG vg{out.vndf_data, out.vndf_marg, out.vndf_cond};
+    FrameBwd b = {{0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
+    V3 g_wi = {0.f, 0.f, 0.f}, g_wm = {0.f, 0.f, 0.f};
+    float g_px = 0.f, g_py = 0.f, g_uwm_x = 0.f, g_uwm_y = 0.f, g_uwi_x = 0.f, g_uwi_y = 0.f;
+    if constexpr (SAMPLE) {
+        float px, py, uwm_x, uwm_y;
         const float lum_pdf = warp_sample(fr, lum, x[1], x[0], px, py);
-        const float ndf_pdf = warp_sample(fr, vndf_warp(t, mid), px, py, uwm_x, uwm_y);
+        const float ndf_pdf = warp_sample(fr, vndf, px, py, uwm_x, uwm_y);
         float phi_m = (2.f * uwm_y - 1.f) * PI_F;
         const float theta_m = uwm_x * uwm_x * HALF_PI_F;
         if (fr.iso) phi_m = phi_m + fr.phi_i;
         const float sin_t = sinf(theta_m), cos_t = cosf(theta_m);
-        const Vec3 wm = {cosf(phi_m) * sin_t, sinf(phi_m) * sin_t, cos_t};
+        const float sin_p = sinf(phi_m), cos_p = cosf(phi_m);
+        const Vec3 wm = {cos_p * sin_t, sin_p * sin_t, cos_t};
         const float d2 = 2.f * dot3(wm, wi);
         const bool valid = wi.z > 0.f && d2 * wm.z - wi.z > 0.f;
         float f[4];
         fr_common(t, fr, lum, px, py, uwm_x, uwm_y, f);
-        const float p = ndf_pdf * lum_pdf / jacobian(wi, wm, uwm_x);
+        const float J = jacobian(wi, wm, uwm_x);
+        const float p = ndf_pdf * lum_pdf / J;
         bool finite = true;
         for (int c = 0; c < 4; ++c) finite = finite && isfinite(f[c]);
-        if (!(valid && p > 0.f && finite)) return;
+        const bool ok = valid && p > 0.f && finite;
+        if constexpr (!FULL) {
+            if (ok)
+                fr_common_bwd<false>(t, out, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py,
+                                     g_uwm_x, g_uwm_y, g_uwi_x, g_uwi_y, b);
+            return;
+        } else {
+            float gf[4];
+            for (int c = 0; c < 4; ++c) gf[c] = ok ? g[c] : 0.f;
+            const float gp = ok ? g_pdf : 0.f;
+            const float g_num = gp != 0.f ? gp / J : 0.f;   // J = 0 on lanes that are not ok
+            const float g_ndf_pdf = g_num * lum_pdf, g_lum_pdf = g_num * ndf_pdf;
+            jacobian_bwd(wi, wm, uwm_x, gp != 0.f ? -gp * (p / J) : 0.f, g_wi, g_wm, g_uwm_x);
+            fr_common_bwd<true>(t, out, fr, lum, px, py, uwm_x, uwm_y, gf, g_px, g_py, g_uwm_x,
+                                g_uwm_y, g_uwi_x, g_uwi_y, b);
+            // wo = 2 (wm . wi) wm - wi
+            const V3 gwo = load3(g_wo);
+            const float g_d2 = 2.f * (gwo.x * wm.x + gwo.y * wm.y + gwo.z * wm.z);
+            g_wm = g_wm + d2 * gwo + g_d2 * V3{wi.x, wi.y, wi.z};
+            g_wi = g_wi + g_d2 * V3{wm.x, wm.y, wm.z} - gwo;
+            // wm from theta_m = u_x^2 pi / 2 and phi_m = (2 u_y - 1) pi (+ phi_i)
+            const float g_theta =
+                g_wm.x * (cos_p * cos_t) + g_wm.y * (sin_p * cos_t) - g_wm.z * sin_t;
+            const float g_phi = -g_wm.x * (sin_p * sin_t) + g_wm.y * (cos_p * sin_t);
+            g_uwm_x += g_theta * HALF_PI_F * 2.f * uwm_x;
+            g_uwm_y += g_phi * PI_F * 2.f;
+            if (fr.iso) b.phi_i += g_phi;
+            warp_sample_bwd(fr, vndf, vg, px, py, g_uwm_x, g_uwm_y, g_ndf_pdf, g_px, g_py, b);
+            float g_u0 = 0.f, g_u1 = 0.f;   // the uniforms carry none
+            warp_sample_bwd(fr, lum, lg, x[1], x[0], g_px, g_py, g_lum_pdf, g_u0, g_u1, b);
+        }
     } else {
         const Vec3 wo = {x[0], x[1], x[2]};
-        if (!(wi.z > 0.f && wo.z > 0.f)) return;
-        const Vec3 wm = normalize3({wi.x + wo.x, wi.y + wo.y, wi.z + wo.z});
-        const float phi_m = atan2f(wm.y, wm.x);
-        const float um_y0 = phi2u(fr.iso ? phi_m - fr.phi_i : phi_m);
-        uwm_x = theta2u(elevation(wm));
-        uwm_y = um_y0 - floorf(um_y0);
-        warp_invert(fr, vndf_warp(t, mid), uwm_x, uwm_y, px, py);
+        V3 g_wo_out = {0.f, 0.f, 0.f};
+        if (wi.z > 0.f && wo.z > 0.f) {
+            const V3 s = {wi.x + wo.x, wi.y + wo.y, wi.z + wo.z};
+            const Vec3 wm = normalize3({s.x, s.y, s.z});
+            const float theta_m = elevation(wm);
+            const float phi_m = atan2f(wm.y, wm.x);
+            const float um_y0 = phi2u(fr.iso ? phi_m - fr.phi_i : phi_m);
+            const float uwm_x = theta2u(theta_m), uwm_y = um_y0 - floorf(um_y0);
+            float px, py;
+            const float vndf_pdf = warp_invert(fr, vndf, uwm_x, uwm_y, px, py);
+            if constexpr (!FULL) {
+                fr_common_bwd<false>(t, out, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py,
+                                     g_uwm_x, g_uwm_y, g_uwi_x, g_uwi_y, b);
+                return;
+            } else {
+                const float lum_pdf = warp_eval(fr, lum, px, py);
+                const float J = jacobian(wi, wm, uwm_x);
+                const float pdf_raw = vndf_pdf * lum_pdf / J;
+                const float gp = pdf_raw >= 0.f ? g_pdf : 0.f;   // clamp_min passes where >= 0
+                const float g_num = gp != 0.f ? gp / J : 0.f;
+                jacobian_bwd(wi, wm, uwm_x, gp != 0.f ? -gp * (pdf_raw / J) : 0.f, g_wi, g_wm,
+                             g_uwm_x);
+                warp_eval_bwd(fr, lum, lg, px, py, g_num * vndf_pdf, g_px, g_py, b);
+                fr_common_bwd<true>(t, out, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py,
+                                    g_uwm_x, g_uwm_y, g_uwi_x, g_uwi_y, b);
+                warp_invert_bwd(fr, vndf, vg, uwm_x, uwm_y, g_px, g_py, g_num * lum_pdf,
+                                g_uwm_x, g_uwm_y, b);
+                // u_wm = (theta2u(theta_m), phi2u(phi_m - iso phi_i) mod 1)
+                const float g_a = g_uwm_y * INV_TWO_PI_F;
+                if (fr.iso) b.phi_i -= g_a;
+                g_wm = g_wm + elevation_bwd(wm, theta2u_bwd(theta_m, uwm_x, g_uwm_x))
+                       + atan2_bwd(wm.y, wm.x, g_a);
+                // wm = normalize(wi + wo)
+                const V3 g_s = normalize_bwd(s, g_wm);
+                g_wi = g_wi + g_s;
+                g_wo_out = g_s;
+            }
+        }
+        if constexpr (FULL) store3(out.wo + 3 * i, g_wo_out);
     }
-    fr_common_bwd(t, fr, lum, px, py, uwm_x, uwm_y, g, out);
+    if constexpr (FULL) {
+        prepare_bwd(t, out, fr, wi, b, g_uwi_x, g_uwi_y, g_wi);
+        store3(out.wi + 3 * i, g_wi);
+    }
 }
 
 }  // namespace wpt_bwd

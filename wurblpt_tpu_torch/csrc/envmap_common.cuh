@@ -111,15 +111,16 @@ __device__ __forceinline__ float4 cube_lookup(const float4* __restrict__ img, in
                        (c00.w * ga + c10.w * a) * gb + (c01.w * ga + c11.w * a) * b);
 }
 
-// One importance sample (render/envmap.py env_sample_plain): the alias
-// pick of a cell of the res x res equal-area grid by u0, a uniform point in
-// it by (u1, u2), mapped to the sphere and rotated into the world. Writes
-// the world direction to `dir` and returns the cell's solid-angle pdf.
-__device__ __forceinline__ float sample(float u0, float u1, float u2,
-                                        const float* __restrict__ pdf_flat,
-                                        const float* __restrict__ alias_prob,
-                                        const int* __restrict__ alias_idx, int res,
-                                        const float* __restrict__ rot, float3* dir) {
+// One importance sample in map space (render/envmap.py env_sample_plain
+// before its rotation): the alias pick of a cell of the res x res equal-area
+// grid by u0, a uniform point in it by (u1, u2), mapped to the sphere.
+// Writes the map-space direction to `dm` and returns the cell's solid-angle
+// pdf.
+__device__ __forceinline__ float sample_map(float u0, float u1, float u2,
+                                            const float* __restrict__ pdf_flat,
+                                            const float* __restrict__ alias_prob,
+                                            const int* __restrict__ alias_idx, int res,
+                                            float3* dm) {
     const int cells = res * res;
     const float a = u0 * static_cast<float>(cells);
     int cell = min(max(static_cast<int>(a), 0), cells - 1);
@@ -134,7 +135,19 @@ __device__ __forceinline__ float sample(float u0, float u1, float u2,
     const float phi = TWO_PI * su;
     const float y = 2.f * sv - 1.f;
     const float r = sqrtf(fmaxf(1.f - y * y, 1e-20f));
-    const float3 dm = make_float3(r * cosf(phi), y, r * sinf(phi));
+    *dm = make_float3(r * cosf(phi), y, r * sinf(phi));
+    return pdf;
+}
+
+// One importance sample: `sample_map`'s direction rotated into the world
+// (written to `dir`); returns the cell's solid-angle pdf.
+__device__ __forceinline__ float sample(float u0, float u1, float u2,
+                                        const float* __restrict__ pdf_flat,
+                                        const float* __restrict__ alias_prob,
+                                        const int* __restrict__ alias_idx, int res,
+                                        const float* __restrict__ rot, float3* dir) {
+    float3 dm;
+    const float pdf = sample_map(u0, u1, u2, pdf_flat, alias_prob, alias_idx, res, &dm);
     *dir = quat_rotate(rot[0], rot[1], rot[2], rot[3], dm);
     return pdf;
 }

@@ -21,11 +21,19 @@ one-hot `_extract` becomes a direct load: exactly one of its terms is
 non-zero; its division by the constant 2 pi is the multiplication by the
 float32 reciprocal that XLA executes.
 
-Backward: where the rgb, ndf or sigma table requires grad, `rgl_eval` and
-`rgl_sample` go on the autograd tape (`RglEval`, `RglSample`), whose
-backward is K7T (`rgl_bwd`, ``csrc/backward.cu``): the cotangents of those
-tables from that of f*cos, scatter-added into their bilinear cells; its
-plain version (`rgl_bwd_plain`) is autograd through the plain forward.
+Backward: where a float table or a lane direction requires grad, `rgl_eval`
+and `rgl_sample` go on the autograd tape (`RglEval`, `RglSample`), whose
+backward is K7T (`rgl_bwd`, ``csrc/backward.cu``). Where only the
+reflectance tail's tables (rgb, ndf, sigma: `TAIL_TABLES`) are on the
+tape, its tail form gives their cotangents from that of f*cos,
+scatter-added into their bilinear cells. Otherwise its full form runs
+reverse mode through the whole forward: every float table (`GRAD_TABLES`,
+the warps' and the parameter grids' too) and the directions (eval's wi and
+wo, sample's wi) from the cotangents of f*cos, the pdf and sample's wo,
+as `jax.grad` differentiates the JAX package's rgl_eval / rgl_sample
+(searches are discrete: a cotangent lands on the entries read at the cell
+found). Its plain version (`rgl_bwd_plain`) is autograd through the plain
+forward.
 
 `rgl_sample_lanes` / `rgl_eval_lanes` are the bsdf lane adapters: world
 directions into the hit's tangent frame and back.
@@ -36,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -255,10 +263,34 @@ def _search_row(rowvals, n, u, strict: bool):
     return torch.minimum(torch.clamp_min(cnt - 1, 0), torch.clamp_min(n - 2, 0))
 
 
+# While `rgl_bwd_plain` records the sums of |term| of each table's
+# cotangent, the id of each leaf table -> its buffer of those sums.
+_MAGS: Optional[Dict[int, torch.Tensor]] = None
+
+
+def _read(arr, idx):
+    """arr[idx]: a table read of the plain version. While `rgl_bwd_plain`
+    records magnitudes, the read's |cotangent| is scatter-added into the
+    table's buffer: the sum of |term| over the terms K7T's atomics add into
+    each entry."""
+    v = arr[idx]
+    mag = None if _MAGS is None else _MAGS.get(id(arr))
+    if mag is not None and v.requires_grad:
+        if any(isinstance(i, slice) for i in idx):   # a whole axis: index it explicitly
+            idx = tuple(torch.arange(arr.shape[k], device=arr.device)[None, :]
+                        if isinstance(i, slice) else i[:, None] for k, i in enumerate(idx))
+
+        def hook(g):
+            mag.index_put_(idx, g.abs(), accumulate=True)
+
+        v.register_hook(hook)
+    return v
+
+
 def _param_weights(vals, nvals, mid, x):
     """Grid cell and lerp weight of x in a material's sorted parameter grid
     (powitacq_rgb.inl:335-355)."""
-    row = vals[mid]
+    row = _read(vals, (mid,))
     n = nvals[mid].long()
     i0 = _search_row(row, n, x, strict=False)
     p0 = row.gather(1, i0[:, None])[:, 0]
@@ -320,7 +352,7 @@ def _g(fr: _Frame, arr, *idx):
     """Param-bilinear fetch: sum over the corners of arr[mid, p, t, *idx]."""
     out = None
     for w, p, t in fr.corners:
-        v = arr[(fr.mid, p, t) + idx]
+        v = _read(arr, (fr.mid, p, t) + idx)
         w = w.reshape(w.shape + (1,) * (v.dim() - 1))
         out = w * v if out is None else out + w * v
     return out
@@ -431,8 +463,8 @@ def _eval0(arr, hw, mid, pos):
     y0 = torch.minimum(torch.clamp_min(fy.to(torch.int32).long(), 0), h - 2)
     sx, sy = fx - x0.to(torch.float32), fy - y0.to(torch.float32)
     y1 = torch.clamp_max(y0 + 1, arr.shape[1] - 1)
-    v00, v10 = arr[mid, y0, x0], arr[mid, y0, x0 + 1]
-    v01, v11 = arr[mid, y1, x0], arr[mid, y1, x0 + 1]
+    v00, v10 = _read(arr, (mid, y0, x0)), _read(arr, (mid, y0, x0 + 1))
+    v01, v11 = _read(arr, (mid, y1, x0)), _read(arr, (mid, y1, x0 + 1))
     return (1.0 - sy) * ((1.0 - sx) * v00 + sx * v10) + sy * ((1.0 - sx) * v01 + sx * v11)
 
 
@@ -542,35 +574,37 @@ def _check_lanes(name, tables: RGLTables, mid, *lanes):
         raise ValueError(f"{name}: no kernel for device {mid.device}")
 
 
-# The tables the reflectance tail reads, whose gradients K7T carries; the
-# others (the warps' and the parameter grids) are refused where they require grad.
-GRAD_TABLES = ("rgb", "ndf", "sigma")
+# The tables the reflectance tail reads: a tape with only these on it takes
+# K7T's tail form.
+TAIL_TABLES = ("rgb", "ndf", "sigma")
+# Every float table, in RGLTables' order: those K7T's full form carries
+# (the integer fields take no gradient).
+GRAD_TABLES = ("phi_i", "theta_i", "ndf", "sigma", "vndf_data", "vndf_marg", "vndf_cond",
+               "lum_data", "lum_marg", "lum_cond", "rgb")
 
 
-def _on_tape(name, tables: RGLTables, *lanes) -> bool:
-    """Whether a call goes on the autograd tape (an input requires grad and
-    grad mode is on); raises NotImplementedError where what requires grad
-    has no backward yet."""
+def _tape(tables: RGLTables, *lanes) -> Optional[str]:
+    """The form of K7T a call's backward takes: None (no input requires
+    grad, or grad mode is off), "tail" (only `TAIL_TABLES` require grad) or
+    "full" (another table or a lane direction does)."""
     if not torch.is_grad_enabled():
-        return False
-    needs = [k for k in RGLTables._fields if getattr(tables, k).requires_grad]
-    if any(x.requires_grad for x in lanes):
-        raise NotImplementedError(f"{name}: gradients through an RGL lane's directions "
-                                  "(ROADMAP A.9) are not ported yet")
-    off = [k for k in needs if k not in GRAD_TABLES]
-    if off:
-        raise NotImplementedError(f"{name}: gradients of the RGL tables {off} (the warps' "
-                                  "CDFs and parameter grids: ROADMAP A.9) are not ported yet")
-    return bool(needs)
+        return None
+    needs = {k for k in GRAD_TABLES if getattr(tables, k).requires_grad}
+    if any(x.requires_grad for x in lanes) or needs - set(TAIL_TABLES):
+        return "full"
+    return "tail" if needs else None
 
 
 def rgl_eval(tables: RGLTables, mid, wi, wo):
     """(f*cos [N, 4], pdf [N]) of the measured BRDF for tangent-space wi, wo
-    (K7 eval). Where the rgb, ndf or sigma table requires grad (and grad
-    mode is on), the call is on the tape: its backward is K7T
-    (`RglEval`); the pdf carries no gradient."""
-    if _on_tape("rgl_eval", tables, wi, wo):
-        return RglEval.apply(tables, mid, wi, wo, *(getattr(tables, k) for k in GRAD_TABLES))
+    (K7 eval). Where a float table, wi or wo requires grad (and grad mode is
+    on), the call is on the tape: its backward is K7T (`RglEval`); the pdf
+    carries a gradient where K7T's full form runs (only the warps, the
+    parameter grids and the directions reach it)."""
+    form = _tape(tables, wi, wo)
+    if form:
+        return RglEval.apply(tables, mid, wi, wo, form == "full",
+                             *(getattr(tables, k) for k in GRAD_TABLES))
     return rgl_eval_raw(tables, mid, wi, wo)
 
 
@@ -593,9 +627,12 @@ def rgl_eval_raw(tables: RGLTables, mid, wi, wo):
 
 def rgl_sample(tables: RGLTables, mid, wi, u2):
     """(wo [N, 3], f*cos [N, 4], pdf [N], ok [N]) sampled from uniforms u2
-    (K7 sample); on the tape as `rgl_eval` (`RglSample`): only f*cos carries a gradient."""
-    if _on_tape("rgl_sample", tables, wi):
-        return RglSample.apply(tables, mid, wi, u2, *(getattr(tables, k) for k in GRAD_TABLES))
+    (K7 sample); on the tape as `rgl_eval` (`RglSample`): f*cos carries a
+    gradient, and where K7T's full form runs wo and the pdf do too."""
+    form = _tape(tables, wi)
+    if form:
+        return RglSample.apply(tables, mid, wi, u2, form == "full",
+                               *(getattr(tables, k) for k in GRAD_TABLES))
     return rgl_sample_raw(tables, mid, wi, u2)
 
 
@@ -621,80 +658,144 @@ def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
 
 
 # ---------------------------------------------------------------------------
-# K7T: the measured RGL BRDF's reflectance tables
+# K7T: the measured RGL BRDF's backward
 # ---------------------------------------------------------------------------
 
-def rgl_bwd_plain(tables, mid, wi, x, g_f, sample: bool, magnitudes: bool = False):
-    """Plain version of K7T: the cotangents of `GRAD_TABLES`
-    (rgb, ndf, sigma) from g_f [N, 4], that of K7 eval's (x = wo [N, 3]) or
-    sample's (x = the uniforms [N, 2]) f*cos, by autograd through the plain
-    forward. With `magnitudes`, the same of |g_f| taken in absolute value:
-    a bound on the sums of |term| (every weight and value is positive)."""
+def rgl_bwd_plain(tables, mid, wi, x, g_f, sample: bool, magnitudes: bool = False,
+                  full: bool = False, g_pdf=None, g_wo=None):
+    """Plain version of K7T, autograd through the plain forward of K7 eval (x
+    = wo [N, 3]) or sample (x = the uniforms [N, 2]): a dict of cotangents.
+    The tail form: those of `TAIL_TABLES` from g_f [N, 4], that of f*cos.
+    With `full`: those of every table of `GRAD_TABLES` and of wi (eval: and
+    of wo, "wo") from g_f, g_pdf [N] and (sample) g_wo [N, 3], the
+    cotangents of f*cos, the pdf and the sampled direction (None: zeros).
+    With `magnitudes`, also a dict of each table's sums of |term| over the
+    terms its entries receive (each table read's |cotangent|, `_read`).
+
+    The full form takes a lane whose cotangents are all zero at a stand-in
+    direction (its terms are zero wherever they are taken): the chain rule
+    at the lane's own directions can give 0 x NaN there (atan2's derivative
+    at a zero direction, as a render hands the lanes of other materials,
+    and a division by a zero jacobian)."""
+    global _MAGS
+    names = GRAD_TABLES if full else TAIL_TABLES
     with torch.enable_grad():
-        leaves = [getattr(tables, k).detach().requires_grad_() for k in GRAD_TABLES]
-        t = tables._replace(**dict(zip(GRAD_TABLES, leaves)))
-        f = (rgl_sample_plain(t, mid, wi, x)[1] if sample
-             else rgl_eval_plain(t, mid, wi, x)[0])
-        g = g_f.abs() if magnitudes else g_f
-        grads = torch.autograd.grad(f, leaves, g, allow_unused=True)
-    out = [torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves)]
-    return [x.abs() for x in out] if magnitudes else out
+        leaves = {k: getattr(tables, k).detach().requires_grad_() for k in names}
+        t = tables._replace(**leaves)
+        if full:
+            g_pdf = torch.zeros_like(g_f[:, 0]) if g_pdf is None else g_pdf
+            g_wo = torch.zeros_like(wi) if g_wo is None else g_wo
+            quiet = (g_f == 0).all(-1) & (g_pdf == 0) & ((g_wo == 0).all(-1) | (not sample))
+            stand = torch.tensor([0.6, 0.0, 0.8], dtype=wi.dtype, device=wi.device)
+            leaves["wi"] = wi.detach().requires_grad_()
+            wi = torch.where(quiet[:, None], stand, leaves["wi"])
+            if not sample:
+                leaves["wo"] = x.detach().requires_grad_()
+                x = torch.where(quiet[:, None], stand, leaves["wo"])
+        _MAGS = {id(leaves[k]): torch.zeros_like(leaves[k]) for k in names} if magnitudes else None
+        try:
+            if sample:
+                wo, f, pdf, _ = rgl_sample_plain(t, mid, wi, x)
+            else:
+                f, pdf = rgl_eval_plain(t, mid, wi, x)
+            mags = _MAGS
+        finally:
+            _MAGS = None
+        outs, cots = [f], [g_f]
+        if full:
+            outs.append(pdf)
+            cots.append(g_pdf)
+            if sample:
+                outs.append(wo)
+                cots.append(g_wo)
+        grads = torch.autograd.grad(outs, list(leaves.values()), cots, allow_unused=True)
+    out = {k: torch.zeros_like(v) if gr is None else gr
+           for (k, v), gr in zip(leaves.items(), grads)}
+    if magnitudes:
+        return out, {k: mags[id(leaves[k])] for k in names}
+    return out
 
 
-def rgl_bwd(tables, mid, wi, x, g_f, sample: bool):
-    """K7T (``csrc/backward.cu``): `rgl_bwd_plain`'s function, the kernel on
-    CUDA tensors."""
+class _CGrads(ctypes.Structure):
+    """struct RglOut of csrc/backward_common.cuh: the cotangents of `GRAD_TABLES`,
+    then of the lanes' wi and wo (null where a launch writes none)."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in GRAD_TABLES + ("wi", "wo")]
+
+
+def rgl_bwd(tables, mid, wi, x, g_f, sample: bool, full: bool = False, g_pdf=None, g_wo=None):
+    """K7T (``csrc/backward.cu``): `rgl_bwd_plain`'s function (without
+    magnitudes), the kernel on CUDA tensors: its tail form, or with `full`
+    its full form."""
     g_f = g_f.contiguous()
+    n = mid.shape[0]
+    if full:
+        g_pdf = torch.zeros_like(g_f[:, 0]) if g_pdf is None else g_pdf.contiguous()
+        if sample:
+            g_wo = torch.zeros_like(g_f[:, :3]) if g_wo is None else g_wo.contiguous()
     if wi.device.type == "cpu":
-        return rgl_bwd_plain(tables, mid, wi, x, g_f, sample)
+        return rgl_bwd_plain(tables, mid, wi, x, g_f, sample, full=full, g_pdf=g_pdf, g_wo=g_wo)
     if wi.device.type != "cuda":
         raise ValueError(f"rgl_bwd: no kernel for device {wi.device}")
     lib = native.load_kernels()
-    out = [torch.zeros_like(getattr(tables, k)) for k in GRAD_TABLES]
+    names = GRAD_TABLES if full else TAIL_TABLES
+    out = {k: torch.zeros_like(getattr(tables, k)) for k in names}
+    if full:
+        out["wi"] = torch.empty_like(wi)
+        if not sample:
+            out["wo"] = torch.empty_like(x)
+    co = _CGrads(*(out[k].data_ptr() if k in out else None for k, _ in _CGrads._fields_))
     ct = c_tables(tables)
-    code = lib.wpt_rgl_bwd(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(),
-                           x.contiguous().data_ptr(), mid.shape[0], int(sample), g_f.data_ptr(),
-                           *(g.data_ptr() for g in out), native.stream_ptr(wi))
+    code = lib.wpt_rgl_bwd(ctypes.addressof(ct), ctypes.addressof(co), mid.data_ptr(),
+                           wi.detach().contiguous().data_ptr(),
+                           x.detach().contiguous().data_ptr(), n, int(sample), int(full),
+                           g_f.data_ptr(), None if g_pdf is None else g_pdf.data_ptr(),
+                           g_wo.data_ptr() if full and sample else None,
+                           native.stream_ptr(wi))
     native.check(code, "rgl_bwd")
-    native.LAUNCHES["rgl_bwd"] += 1
+    native.LAUNCHES["rgl_bwd_full" if full else "rgl_bwd"] += 1
     return out
 
 
 class RglEval(torch.autograd.Function):
-    """K7 eval forward, K7T backward (f*cos only: the pdf reads none of the
-    tables K7T carries)."""
+    """K7 eval forward, K7T backward: its tail form where only `TAIL_TABLES`
+    are on the tape (the pdf reads none of them: not differentiable), else
+    its full form (f*cos and the pdf into every table and wi, wo)."""
 
     @staticmethod
-    def forward(ctx, tables, mid, wi, wo, rgb, ndf, sigma):
+    def forward(ctx, tables, mid, wi, wo, full, *grad_tables):
         fcos, pdf = rgl_eval_raw(tables, mid, wi, wo)
-        ctx.tables = tables
+        ctx.tables, ctx.full = tables, full
         ctx.save_for_backward(mid, wi, wo)
-        ctx.mark_non_differentiable(pdf)
+        if not full:
+            ctx.mark_non_differentiable(pdf)
         return fcos, pdf
 
     @staticmethod
-    def backward(ctx, g_f, _g_pdf):
+    def backward(ctx, g_f, g_pdf):
         mid, wi, wo = ctx.saved_tensors
-        return (None, None, None, None,
-                *rgl_bwd(ctx.tables, mid, wi, wo, g_f, sample=False))
+        g = rgl_bwd(ctx.tables, mid, wi, wo, g_f, sample=False, full=ctx.full, g_pdf=g_pdf)
+        return (None, None, g.get("wi"), g.get("wo"), None, *(g.get(k) for k in GRAD_TABLES))
 
 
 class RglSample(torch.autograd.Function):
-    """K7 sample forward, K7T backward (f*cos only)."""
+    """K7 sample forward, K7T backward: the tail form (f*cos only) or the
+    full form (f*cos, the pdf and wo into every table and wi)."""
 
     @staticmethod
-    def forward(ctx, tables, mid, wi, u2, rgb, ndf, sigma):
+    def forward(ctx, tables, mid, wi, u2, full, *grad_tables):
         wo, fcos, pdf, ok = rgl_sample_raw(tables, mid, wi, u2)
-        ctx.tables = tables
+        ctx.tables, ctx.full = tables, full
         ctx.save_for_backward(mid, wi, u2)
-        ctx.mark_non_differentiable(wo, pdf, ok)
+        ctx.mark_non_differentiable(ok, *(() if full else (wo, pdf)))
         return wo, fcos, pdf, ok
 
     @staticmethod
-    def backward(ctx, _g_wo, g_f, _g_pdf, _g_ok):
+    def backward(ctx, g_wo, g_f, g_pdf, _g_ok):
         mid, wi, u2 = ctx.saved_tensors
-        return (None, None, None, None,
-                *rgl_bwd(ctx.tables, mid, wi, u2, g_f, sample=True))
+        g = rgl_bwd(ctx.tables, mid, wi, u2, g_f, sample=True, full=ctx.full, g_pdf=g_pdf,
+                    g_wo=g_wo)
+        return (None, None, g.get("wi"), None, None, *(g.get(k) for k in GRAD_TABLES))
 
 
 # ---------------------------------------------------------------------------

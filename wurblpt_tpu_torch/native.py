@@ -57,7 +57,8 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_ani
             "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0,
             "row_scatter": 0, "assemble_hit_bwd": 0, "assemble_hit_anim_bwd": 0,
-            "env_radiance_bwd": 0, "rgl_bwd": 0}
+            "env_radiance_bwd": 0, "env_radiance_bwd_rot": 0, "env_sample_bwd": 0, "rgl_bwd": 0,
+            "rgl_bwd_full": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -110,8 +111,9 @@ _SIGNATURES = {
     "wpt_assemble_hit_bwd": [_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 12,
     "wpt_assemble_hit_anim_bwd": ([_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 11
                                   + [_P, _P, _P, _L, _P, _P]),
-    "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "wpt_rgl_bwd": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_env_sample_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "wpt_rgl_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

@@ -1,6 +1,6 @@
 """Backward passes of the kernels on a differentiable render's path: P0's row
-gather, K3's hit assembly with the winner's intersection, and K8's sky
-radiance.
+gather, K3's hit assembly with the winner's intersection, K8's sky
+radiance and importance sample, and (re-exported) K7's measured BRDF.
 
 The JAX package differentiates its render by autodiff through every
 gather, the intersection arithmetic and the sky's bilinear lookup. Here the
@@ -32,22 +32,29 @@ kernel of its own (``csrc/backward.cu``) with a plain PyTorch version:
 * K8T (`env_radiance_bwd`): the equirect map's bilinear lookup (wrap in u,
   clamp in v), the cube map's per-face bilinear lookup with edge clamp and
   the constant sky: cotangents of the texels (scatter-added) or of the
-  constant radiance, and of the direction.
-* K7T (`rgl_bwd`): K7's eval or sample (the measured RGL BRDF): the
-  cotangents of the tables its reflectance tail reads,
-  max(rgb, 0) x ndf / max(4 sigma, 1e-12) (`materials.rgl.GRAD_TABLES`),
-  scatter-added into their bilinear cells, from that of its f*cos; the
-  plain version is autograd through `rgl_eval_plain` / `rgl_sample_plain`.
-  Its wrapper and `autograd.Function`s live beside K7's in
-  `materials/rgl.py` and are re-exported here; its kernel is in
-  ``csrc/backward.cu`` with the others. The warp tables and the directions
-  are refused where they require grad (`materials.rgl._on_tape`).
+  constant radiance, of the direction and, where it is on the tape, of the
+  map's rotation (each lane's term of dm = R(conj q) d, summed). Its
+  sample's backward (`env_sample_bwd`): the cotangent of the rotation from
+  that of env_sample's direction R(q) d_map (the pdf carries none).
+* K7T (`rgl_bwd`): K7's eval or sample (the measured RGL BRDF). Its tail
+  form, where only the tables its reflectance tail reads are on the tape,
+  max(rgb, 0) x ndf / max(4 sigma, 1e-12) (`materials.rgl.TAIL_TABLES`):
+  their cotangents, scatter-added into their bilinear cells, from that of
+  its f*cos. Its full form, where a warp table, a parameter grid or a lane
+  direction is on the tape: every float table's cotangent
+  (`materials.rgl.GRAD_TABLES`) and the directions' (eval's wi and wo,
+  sample's wi) from those of f*cos, the pdf and sample's wo. The plain
+  version is autograd through `rgl_eval_plain` / `rgl_sample_plain`. Its
+  wrapper and `autograd.Function`s live beside K7's in `materials/rgl.py`
+  and are re-exported here; its kernel is in ``csrc/backward.cu`` with the
+  others.
 
 On CPU tensors each backward runs its plain version; on CUDA tensors it
 launches its kernel or raises. The tests hold each plain backward to
 autograd through a differentiable plain forward (`row_gather_diff_plain`,
-`assemble_hit_diff_plain`, and K8's own plain version, `envmap.env_radiance_plain`),
-and the card holds each kernel to its plain backward (utils/grad_check.py).
+`assemble_hit_diff_plain`, and K8's own plain versions, `envmap.env_radiance_plain`
+and `envmap.env_sample_plain`), and the card holds each kernel to its plain
+backward (utils/grad_check.py).
 """
 
 from __future__ import annotations
@@ -485,14 +492,33 @@ def _bilinear_bwd(g, fx, fy, c00, c01, c10, c11):
     return taps, g_fx, g_fy
 
 
+def quat_rotate_bwd_q(q, v, g):
+    """Per-lane cotangent [N, 4] of q from that g [N, 3] of quat_rotate(q, v)
+    = v + w t + u x t, t = 2 u x v (q = (u, w))."""
+    u, w = q[..., :3], q[..., 3:4]
+    t = 2.0 * cross(u, v)
+    g_t = w * g + cross(g, u)
+    g_u = cross(t, g) + 2.0 * cross(v, g_t)
+    return torch.cat([g_u, dot(g, t, keepdim=True)], -1)
+
+
+def _conj_rotate_bwd_q(q, d, g_dm):
+    """Per-lane cotangent [N, 4] of q from that g_dm of quat_rotate(conj(q), d)."""
+    gc = quat_rotate_bwd_q(_env.quat_conjugate(q), d, g_dm)
+    return torch.cat([-gc[:, :3], gc[:, 3:]], -1)
+
+
 def env_radiance_bwd_plain(env, d, g, magnitudes: bool = False):
-    """Plain version of K8T: (g_d [N, 3], g_image like env.image, g_const [4])
-    from the cotangent g [N, 4] of env_radiance(env, d); with `magnitudes`
-    also the image's and the constant's sums of |term|."""
+    """Plain version of K8T: (g_d [N, 3], g_image like env.image, g_const
+    [4], g_rotation [4]) from the cotangent g [N, 4] of env_radiance(env, d);
+    with `magnitudes` also the image's, the constant's and the rotation's
+    sums of |term|."""
     g_img = _Scatter(env.image.reshape(-1, 4), magnitudes)
     if env.kind == 3:
-        out = (torch.zeros_like(d), g_img.out.view_as(env.image), g.sum(0))
-        return (*out, g_img.mag.view_as(env.image), g.abs().sum(0)) if magnitudes else out
+        zero = torch.zeros_like(env.rotation)
+        out = (torch.zeros_like(d), g_img.out.view_as(env.image), g.sum(0), zero)
+        return ((*out, g_img.mag.view_as(env.image), g.abs().sum(0), zero) if magnitudes
+                else out)
     g_const = torch.zeros_like(env.const_radiance)
     q = env.rotation
     dm = quat_rotate(_env.quat_conjugate(q), d)
@@ -559,35 +585,45 @@ def env_radiance_bwd_plain(env, d, g, magnitudes: bool = False):
                           torch.where(is_y, torch.where(y > 0, g_tc, -g_tc),
                                       g_ma * torch.sign(z)))
         g_dm = torch.stack([gxx, gyy, gzz], -1)
-    # dm = R(conj q) d: its adjoint is R(q) (the transpose of the conjugate's map)
-    out = (quat_rotate(q, g_dm), g_img.out.view_as(env.image), g_const)
-    return (*out, g_img.mag.view_as(env.image), g_const) if magnitudes else out
+    # dm = R(conj q) d: its adjoint in d is R(q) (the transpose of the
+    # conjugate's map); in q, the rotation formula's own derivative
+    g_q = _conj_rotate_bwd_q(q, d, g_dm)
+    out = (quat_rotate(q, g_dm), g_img.out.view_as(env.image), g_const, g_q.sum(0))
+    if magnitudes:
+        return (*out, g_img.mag.view_as(env.image), g_const, g_q.abs().sum(0))
+    return out
 
 
-def env_radiance_bwd(env, d, g):
-    """K8T: `env_radiance_bwd_plain`'s function, the kernel on CUDA tensors."""
+def env_radiance_bwd(env, d, g, *, rotation: bool):
+    """K8T: `env_radiance_bwd_plain`'s function, the kernel on CUDA tensors:
+    with `rotation` its rotation term too (counter env_radiance_bwd_rot),
+    without it the kernel that skips that term (g_rotation None)."""
     g = g.contiguous()
     if d.device.type == "cpu":
-        return env_radiance_bwd_plain(env, d, g)
+        out = env_radiance_bwd_plain(env, d, g)
+        return out if rotation else (*out[:3], None)
     lib = _cuda_lib("env_radiance_bwd", d)
     n = d.shape[0]
     g_d = torch.empty_like(d)
     g_img = torch.zeros_like(env.image)
     g_const = torch.zeros_like(env.const_radiance)
+    g_rot = torch.zeros((4,), dtype=torch.float32, device=d.device) if rotation else None
     h, w = env.image.shape[-3], env.image.shape[-2]
     code = lib.wpt_env_radiance_bwd(d.data_ptr(), n, env.kind, env.image.data_ptr(), h, w,
-                                    env.rotation.data_ptr(), g.data_ptr(), g_d.data_ptr(),
-                                    g_img.data_ptr(), g_const.data_ptr(), native.stream_ptr(d))
+                                    env.rotation.detach().contiguous().data_ptr(), g.data_ptr(),
+                                    g_d.data_ptr(), g_img.data_ptr(), g_const.data_ptr(),
+                                    None if g_rot is None else g_rot.data_ptr(),
+                                    native.stream_ptr(d))
     native.check(code, "env_radiance_bwd")
-    native.LAUNCHES["env_radiance_bwd"] += 1
-    return g_d, g_img, g_const
+    native.LAUNCHES["env_radiance_bwd_rot" if rotation else "env_radiance_bwd"] += 1
+    return g_d, g_img, g_const, g_rot
 
 
 class EnvRadiance(torch.autograd.Function):
     """K8 radiance forward, K8T backward."""
 
     @staticmethod
-    def forward(ctx, env, d, image, const_radiance):
+    def forward(ctx, env, d, image, const_radiance, rotation):
         ctx.env = env
         ctx.save_for_backward(d)
         return _env.env_radiance_raw(env, d)
@@ -595,5 +631,54 @@ class EnvRadiance(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (d,) = ctx.saved_tensors
-        g_d, g_img, g_const = env_radiance_bwd(ctx.env, d, g)
-        return None, g_d, g_img, g_const
+        g_d, g_img, g_const, g_rot = env_radiance_bwd(ctx.env, d, g,
+                                                      rotation=ctx.needs_input_grad[4])
+        return None, g_d, g_img, g_const, g_rot
+
+
+def env_sample_bwd_plain(env, u3, g_dir, magnitudes: bool = False):
+    """Plain version of K8T's sample backward: the rotation's cotangent [4]
+    from that g_dir [N, 3] of env_sample's direction quat_rotate(q, d_map),
+    d_map recomputed from the uniforms u3 (the pdf carries none); with
+    `magnitudes` also its sum of |term|."""
+    rot = env.rotation
+    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype, device=rot.device)
+    d_map, _ = _env.env_sample_plain(env._replace(rotation=ident), u3)
+    g_q = quat_rotate_bwd_q(rot, d_map, g_dir)
+    return (g_q.sum(0), g_q.abs().sum(0)) if magnitudes else g_q.sum(0)
+
+
+def env_sample_bwd(env, u3, g_dir):
+    """K8T's sample backward: `env_sample_bwd_plain`'s function, the kernel
+    on CUDA tensors."""
+    g_dir = g_dir.contiguous()
+    if u3.device.type == "cpu":
+        return env_sample_bwd_plain(env, u3, g_dir)
+    lib = _cuda_lib("env_sample_bwd", u3)
+    g_rot = torch.zeros((4,), dtype=torch.float32, device=u3.device)
+    code = lib.wpt_env_sample_bwd(u3.data_ptr(), u3.shape[0], env.pdf_table.data_ptr(),
+                                  env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
+                                  env.pdf_table.shape[0],
+                                  env.rotation.detach().contiguous().data_ptr(), g_dir.data_ptr(),
+                                  g_rot.data_ptr(), native.stream_ptr(u3))
+    native.check(code, "env_sample_bwd")
+    native.LAUNCHES["env_sample_bwd"] += 1
+    return g_rot
+
+
+class EnvSample(torch.autograd.Function):
+    """K8 sample forward, K8T's sample backward: the direction's cotangent
+    into the rotation; the pdf, a table lookup, carries none."""
+
+    @staticmethod
+    def forward(ctx, env, u3, rotation):
+        d, pdf = _env.env_sample_raw(env, u3)
+        ctx.env = env
+        ctx.save_for_backward(u3)
+        ctx.mark_non_differentiable(pdf)
+        return d, pdf
+
+    @staticmethod
+    def backward(ctx, g_dir, _g_pdf):
+        (u3,) = ctx.saved_tensors
+        return None, None, env_sample_bwd(ctx.env, u3, g_dir)

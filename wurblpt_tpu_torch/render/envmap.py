@@ -9,11 +9,14 @@ pick of a cell of the R x R equal-area grid, then a uniform point in it)
 and `env_pdf` (the pdf table at a direction's cell). Sampling and pdf do not
 depend on the map's parameterization. Each wrapper launches the kernel on
 CUDA tensors and runs its plain PyTorch version (`*_plain`, the JAX formulas
-op for op) on CPU tensors. Where the direction, the image or the constant
-radiance requires grad, `env_radiance` runs on the tape through
-`backward.EnvRadiance` (its backward is K8T); the sample and the pdf carry
-no gradient (the JAX package's importance tables are not re-derived
-inside a loss either).
+op for op) on CPU tensors. Where the direction, the image, the constant
+radiance or the map's rotation requires grad, `env_radiance` runs on the
+tape through `backward.EnvRadiance` (its backward is K8T); where the
+rotation requires grad, so does `env_sample`'s direction
+(`backward.EnvSample`). The pdfs carry no gradient: the sample's is a
+lookup in the importance tables, which are not re-derived inside a loss
+(nor are the JAX package's), and `env_pdf` is piecewise constant in its
+direction.
 
 The JAX package reads the four bilinear taps from a 16-channel "patch image"
 so that one TPU gather serves them; the kernel and the plain versions read
@@ -213,17 +216,15 @@ def _check(name, env: EnvMapArrays, x, cols):
 
 
 def env_radiance(env: EnvMapArrays, d):
-    """Radiance [N, 4] from world directions d [N, 3] (K8). Where d, the image
-    or the constant radiance requires grad (and grad mode is on), the lookup
-    is on the tape: its backward is K8T (render/backward.py `EnvRadiance`)."""
-    if torch.is_grad_enabled() and (env.rotation.requires_grad or any(
-            x.requires_grad for x in (d, env.image, env.const_radiance))):
-        if env.rotation.requires_grad:
-            raise NotImplementedError("env_radiance: the gradient of an environment map's "
-                                      "rotation (ROADMAP A.9) is not ported yet")
+    """Radiance [N, 4] from world directions d [N, 3] (K8). Where d, the
+    image, the constant radiance or the rotation requires grad (and grad
+    mode is on), the lookup is on the tape: its backward is K8T
+    (render/backward.py `EnvRadiance`)."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (d, env.image, env.const_radiance, env.rotation)):
         from .backward import EnvRadiance
 
-        return EnvRadiance.apply(env, d, env.image, env.const_radiance)
+        return EnvRadiance.apply(env, d, env.image, env.const_radiance, env.rotation)
     return env_radiance_raw(env, d)
 
 
@@ -246,7 +247,20 @@ def env_radiance_raw(env: EnvMapArrays, d):
 
 
 def env_sample(env: EnvMapArrays, u3):
-    """Importance-sampled world direction [N, 3] and its pdf [N] from uniforms u3 [N, 3] (K8)."""
+    """Importance-sampled world direction [N, 3] and its pdf [N] from uniforms
+    u3 [N, 3] (K8). Where the rotation requires grad (and grad mode is on),
+    the direction R(q) d_map is on the tape: its backward is K8T's sample
+    backward (render/backward.py `EnvSample`); the pdf carries none."""
+    if torch.is_grad_enabled() and env.rotation.requires_grad:
+        from .backward import EnvSample
+
+        return EnvSample.apply(env, u3, env.rotation)
+    return env_sample_raw(env, u3)
+
+
+def env_sample_raw(env: EnvMapArrays, u3):
+    """K8 sample without a tape: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     _check("env_sample", env, u3, 3)
     if not env.importance:
         raise ValueError("env_sample: the envmap has no importance tables")
@@ -258,7 +272,8 @@ def env_sample(env: EnvMapArrays, u3):
     pdf = torch.empty((n,), dtype=torch.float32, device=u3.device)
     code = lib.wpt_env_sample(u3.data_ptr(), n, env.pdf_table.data_ptr(),
                               env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
-                              env.pdf_table.shape[0], env.rotation.data_ptr(), d.data_ptr(),
+                              env.pdf_table.shape[0], env.rotation.detach().contiguous().data_ptr(),
+                              d.data_ptr(),
                               pdf.data_ptr(), native.stream_ptr(u3))
     native.check(code, "env_sample")
     native.LAUNCHES["env_sample"] += 1
@@ -266,7 +281,10 @@ def env_sample(env: EnvMapArrays, u3):
 
 
 def env_pdf(env: EnvMapArrays, d):
-    """Solid-angle pdf [N] of env_sample having produced world directions d [N, 3] (K8)."""
+    """Solid-angle pdf [N] of env_sample having produced world directions d
+    [N, 3] (K8). Piecewise constant in d (the pdf table at d's cell), so it
+    carries no gradient to d or to the rotation, in either package: never
+    on the tape."""
     _check("env_pdf", env, d, 3)
     if not env.importance:
         raise ValueError("env_pdf: the envmap has no importance tables")

@@ -516,14 +516,6 @@ def render_frame_wavefront(
 # rays traced to completion per pass, reverse-differentiable
 # ---------------------------------------------------------------------------
 
-def _check_differentiable(scene: SceneArrays, static: SceneStatic):
-    """Raise NotImplementedError for what a differentiable render cannot
-    take yet, naming the ROADMAP item that ports it."""
-    if scene.envmap is not None and scene.envmap.rotation.requires_grad:
-        raise NotImplementedError("differentiable render: ['an environment map rotation that "
-                                  "requires grad (ROADMAP A.9)']")
-
-
 def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pixel_id, sample_id,
                 params: RenderParams = RenderParams(), return_stats: bool = False, *,
                 device="cuda", tables: Optional[SceneTables] = None):
@@ -548,8 +540,6 @@ def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pix
     device = torch.device(device)
     _check_device(device, scene=scene.tris.p0, rays=o)
     static.check_slice()
-    if params.differentiable:
-        _check_differentiable(scene, static)
     n = o.shape[0]
     if tables is None:
         tables = prepare_scene(scene, static, step=False)

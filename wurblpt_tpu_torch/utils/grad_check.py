@@ -26,9 +26,19 @@ gradient checks of ``chip_smoke.py``'s `grad` phase.
   tally of the float operations per lane stated beside each `*_work`.
 
 * K7T (`rgl_bwd`) on `rgl_lanes` (131072 lanes of two synthetic RGL
-  materials, eval and sample), its plain version autograd through K7's
-  plain forward on the card (`check_rgl_bwd`), each table within 1e-4 of
-  the (bound on the) sum of its entries' |term|.
+  materials, eval and sample): its tail form against its plain version,
+  autograd through K7's plain forward on the card (`check_rgl_bwd`), each
+  table within 1e-4 of the sum of its entries' |term|; its full form, with
+  random cotangents of the pdf and of sample's direction too
+  (`rgl_full_cotangents`), against its plain version in float64
+  (`check_rgl_bwd_full`, `rgl_full_reference`): each table entry within
+  RGL_FULL_REL of its sum of |term| (the float64 plain version's), the
+  lanes' direction cotangents within LANE_REL of the largest.
+* K8T with its rotation term (`check_env_radiance_bwd(..., rotation=True)`)
+  on the equirect, cube and constant skies turned by SKY_ROTATION, and its
+  sample's backward (`check_env_sample_bwd`, `env_sample_lanes`: 262144
+  uniforms of the turned equirect sky), the rotation's four sums within
+  SKY_SUM_REL and SUM_REL of their terms' magnitudes.
 
 The frames: the Cornell bench frame through `render_frame` (the pass
 renderer, 16 samples in one pass), its gradients with respect to the
@@ -37,8 +47,13 @@ gradient with respect to the sky's scale, the sphere-lit floor's gradient
 with respect to the camera's height, the RGL quad's with respect to its
 rgb table's scale (K7T) and the textured quad's with respect to one texel,
 the moving floor's gradients with respect to its vertices and a keyframe
-over a shutter (K3aT, `moving_floor_loss`), and `fit` recovering the lit
-quad's albedo, each driven through the port's public entry points.
+over a shutter (K3aT, `moving_floor_loss`), the sky's yaw (`sky_yaw_loss`:
+K8T's rotation term and the sample's backward), every RGL table of the
+RGL quad (`rgl_tables_loss`) and its camera's height (`rgl_camera_loss`:
+the lane directions), the last three against the JAX package's CPU
+yardsticks kept here (SKY_YAW_REF, RGL_TABLE_REFS, RGL_CAMERA_REF), and
+`fit` recovering the lit quad's albedo and the sky's yaw (`fit_yaw`), each
+driven through the port's public entry points.
 """
 
 from __future__ import annotations
@@ -49,18 +64,22 @@ import numpy as np
 import torch
 
 from ..core.transform import Transformation, from_lookat, quat_from_axis_angle
-from ..inverse import fit
-from ..materials.rgl import GRAD_TABLES, load_rgl_material, stack_rgl_tables
+from ..inverse import fit, render_loss
+from ..materials.rgl import (GRAD_TABLES, TAIL_TABLES, RGLTables, load_rgl_material,
+                             stack_rgl_tables)
 from ..render.backward import (
     assemble_hit_bwd,
     assemble_hit_bwd_plain,
     env_radiance_bwd,
     env_radiance_bwd_plain,
+    env_sample_bwd,
+    env_sample_bwd_plain,
     rgl_bwd,
     rgl_bwd_plain,
     row_scatter,
     row_scatter_plain,
 )
+from ..render.envmap import EnvironmentMapConstant, build_envmap_arrays
 from ..render.bsdf import SceneStatic
 from ..render.camera import CameraConfig, make_camera
 from ..render.integrator import (
@@ -80,6 +99,9 @@ from . import kernel_check as kc
 from . import scenes
 
 SUM_REL = 1e-4      # scattered tables: of the sum of the terms' magnitudes
+RGL_FULL_REL = 1e-2  # K7T's full form against its plain version in float64: of each entry's
+                     # sum of |term| (float32 and float64 forwards part at the sample's searches
+                     # and quadratic inversions: 4.6e-3 seen on the host build)
 SKY_SUM_REL = 1e-3  # the sky's texels: an ulp of atan2f / acosf moves a tap's weight by ~w ulps
 LANE_REL = 1e-4     # per-lane outputs: of the plain version's largest magnitude
 
@@ -136,11 +158,23 @@ def cornell_lanes(device, bounces: int = 2, seed: int = 20):
                 g_rows=_f32(rng, (n, tables.mat.shape[1]), device))
 
 
-def sky_lanes(device, cube: bool, seed: int = 21):
+# A rotation of the sky for K8T's rotation term (the host tests' rotated cube map's).
+SKY_ROTATION = (0.1, 0.3, -0.2, 0.9)
+
+
+def sky_lanes(device, cube: bool, seed: int = 21, kind: str = None, rotated: bool = False):
     """(map, directions, cotangents): the envmap frame's camera directions
     (kc.camera_lanes at its size, 131072) and as many random unit ones, on
-    envmap_spheres' equirect or cube sky, with random cotangents [N, 4]."""
-    env = scenes.envmap_spheres(cube=cube, device=device).envmap
+    envmap_spheres' equirect or cube sky (kind "constant": a constant sky of
+    radiance (0.3, 0.5, 0.7)), turned by SKY_ROTATION if `rotated`, with
+    random cotangents [N, 4]."""
+    if kind == "constant":
+        env = build_envmap_arrays(EnvironmentMapConstant((0.3, 0.5, 0.7)), device)
+    else:
+        env = scenes.envmap_spheres(cube=cube, device=device).envmap
+    if rotated:
+        q = torch.tensor(SKY_ROTATION, dtype=torch.float32)
+        env = env._replace(rotation=(q / torch.linalg.norm(q)).to(device))
     _, d, _, _ = kc.camera_lanes(kc.ENVMAP_WIDTH, kc.ENVMAP_WIDTH, kc.ENVMAP_LANES_M, device,
                                  camera=scenes.envmap_camera(device))
     rng = np.random.default_rng(seed)
@@ -260,15 +294,44 @@ def check_assemble_hit_anim_bwd(lanes) -> Dict[str, float]:
     return res
 
 
-def check_env_radiance_bwd(env, d, g) -> Dict[str, float]:
-    """K8T against its plain version (on the CPU) on the same directions and cotangents."""
-    got = _cpu(env_radiance_bwd(env, d, g))
+def check_env_radiance_bwd(env, d, g, rotation: bool = False) -> Dict[str, float]:
+    """K8T against its plain version (on the CPU) on the same directions and
+    cotangents; with `rotation`, its rotation term too (the lanes' terms
+    summed per block: within SKY_SUM_REL of their magnitudes, as the
+    texels', whose lookup cells they share)."""
+    got = _cpu(env_radiance_bwd(env, d, g, rotation=rotation))
     ref = env_radiance_bwd_plain(*_cpu([env, d, g]), magnitudes=True)
     r = _lane_close("env_radiance_bwd g_d", got[0], ref[0])
     err = max(r["max_abs_err"],
-              _sum_close("env_radiance_bwd g_image", got[1], ref[1], ref[3], SKY_SUM_REL),
-              _sum_close("env_radiance_bwd g_const", got[2], ref[2], ref[4]))
-    return {"max_abs_err": err, "lanes_differ": r["lanes_differ"]}
+              _sum_close("env_radiance_bwd g_image", got[1], ref[1], ref[4], SKY_SUM_REL),
+              _sum_close("env_radiance_bwd g_const", got[2], ref[2], ref[5]))
+    out = {"lanes_differ": r["lanes_differ"]}
+    if rotation:
+        err = max(err, _sum_close("env_radiance_bwd g_rotation", got[3], ref[3], ref[6],
+                                  SKY_SUM_REL))
+        out["g_rotation"] = got[3].tolist()
+    out["max_abs_err"] = err
+    return out
+
+
+def env_sample_lanes(device, n: int = 262144, seed: int = 24):
+    """K8T's sample backward's inputs: envmap_spheres' equirect sky with its
+    importance tables turned by SKY_ROTATION, n uniforms [N, 3] and random
+    cotangents of the sampled directions [N, 3], from numpy."""
+    env = sky_lanes(device, False, rotated=True)[0]
+    rng = np.random.default_rng(seed)
+    u3 = torch.as_tensor(rng.uniform(size=(n, 3)).astype(np.float32), device=device)
+    return env, u3, _f32(rng, (n, 3), device)
+
+
+def check_env_sample_bwd(env, u3, g_dir) -> Dict[str, float]:
+    """K8T's sample backward against its plain version (on the CPU) on the
+    same uniforms and cotangents: the rotation's cotangent within SUM_REL of
+    its terms' magnitudes."""
+    got = env_sample_bwd(env, u3, g_dir).cpu()
+    ref, mag = env_sample_bwd_plain(*_cpu([env, u3, g_dir]), magnitudes=True)
+    return {"max_abs_err": _sum_close("env_sample_bwd g_rotation", got, ref, mag),
+            "g_rotation": got.tolist()}
 
 
 def rgl_lanes(device, n: int = 131072, seed: int = 22):
@@ -296,32 +359,98 @@ def rgl_lanes(device, n: int = 131072, seed: int = 22):
 
 
 def check_rgl_bwd(tables, mid, wi, x, g_f, sample: bool) -> Dict[str, float]:
-    """K7T against its plain version (autograd through K7's plain forward)
-    on the same lanes and cotangents, each table within SUM_REL of its
-    entries' |term| sums. The plain version runs on the same device: K7's
-    plain forward is K7's bits there (kernel_check.check_rgl), while on the
-    CPU an ulp of sqrtf or sinf moves a sampled lane's warp position and
-    its cells' weights by ~1e-4 (seen on an H100)."""
+    """K7T's tail form against its plain version (autograd through K7's
+    plain forward) on the same lanes and cotangents, each table within
+    SUM_REL of its entries' |term| sums. The plain version runs on the same
+    device: K7's plain forward is K7's bits there (kernel_check.check_rgl),
+    while on the CPU an ulp of sqrtf or sinf moves a sampled lane's warp
+    position and its cells' weights by ~1e-4 (seen on an H100)."""
     args = [tables, mid, wi, x, g_f]
     got = rgl_bwd(*args, sample)
-    ref = rgl_bwd_plain(*args, sample)
-    mag = rgl_bwd_plain(*args, sample, magnitudes=True)
-    err = max(_sum_close(f"rgl_bwd {k}", a, b, m)
-              for k, a, b, m in zip(("rgb", "ndf", "sigma"), got, ref, mag))
-    return {"max_abs_err": err, "nonzero_rgb": int((ref[0] != 0).sum())}
+    ref, mag = rgl_bwd_plain(*args, sample, magnitudes=True)
+    err = max(_sum_close(f"rgl_bwd {k}", got[k], ref[k], mag[k]) for k in TAIL_TABLES)
+    return {"max_abs_err": err, "nonzero_rgb": int((ref["rgb"] != 0).sum())}
 
 
-def rgl_bwd_work(tables, n: int, sample: bool):
+def rgl_full_cotangents(n: int, device, seed: int = 25):
+    """Random cotangents of K7's pdf [N] and sampled direction [N, 3] for
+    K7T's full form, from numpy."""
+    rng = np.random.default_rng(seed)
+    return _f32(rng, (n,), device), _f32(rng, (n, 3), device)
+
+
+def rgl_full_reference(tables, mid, wi, x, g_f, sample: bool, g_pdf, g_wo):
+    """K7T's full form's plain version in float64 on the float32 inputs
+    (autograd through K7's plain forward): the yardstick K7T's full form is
+    held to, (cotangents, each table's per-entry sums of |term|). In float32 the plain version differentiates the sample's
+    quadratic inversions (a - sqrt(a^2 - 2 A (a - b))) / (a - b) by the
+    chain rule, which keeps no correct digit where a approaches b (seen at
+    |a - b| ~ 1e-3 (a + b): 100 % off its float64 value on a lane); K7T
+    takes that derivative through the rationalized form 2 A / (a + sqrt(D)),
+    within ~1e-5 of the float64 chain rule there."""
+    f64 = torch.float64
+    t64 = RGLTables(*(v.to(f64) if v.is_floating_point() else v for v in tables))
+    return rgl_bwd_plain(t64, mid, wi.to(f64), x.to(f64), g_f.to(f64), sample, magnitudes=True,
+                         full=True, g_pdf=g_pdf.to(f64),
+                         g_wo=None if g_wo is None else g_wo.to(f64))
+
+
+def check_rgl_bwd_full(tables, mid, wi, x, g_f, sample: bool, g_pdf, g_wo) -> Dict[str, float]:
+    """K7T's full form (every table and the directions, from the cotangents
+    of f*cos, the pdf and sample's wo) against its plain version in float64
+    (`rgl_full_reference`) on the same lanes: each table entry within
+    RGL_FULL_REL of its sum of |term|, the lanes' wi (and eval's wo)
+    cotangents within LANE_REL of the largest (the lanes that differ
+    counted). Every output finite. Reported: each table's largest
+    difference over its entry's sum of |term| and the entries beyond 1e-3
+    of it."""
+    got = rgl_bwd(tables, mid, wi, x, g_f, sample, full=True, g_pdf=g_pdf, g_wo=g_wo)
+    ref, mag = rgl_full_reference(tables, mid, wi, x, g_f, sample, g_pdf, g_wo)
+    rel, beyond, bad, res = {}, {}, [], {"max_abs_err": 0.0}
+    for k, b in ref.items():
+        a = got[k].to(b.dtype)
+        if not bool(torch.isfinite(a).all()):
+            bad.append(f"{k}: non-finite values")
+        err = (a - b).abs()
+        if k in ("wi", "wo"):
+            lanes = err.max(-1).values
+            limit = LANE_REL * float(b.abs().max()) + 1e-30
+            res[f"g_{k}_lanes_differ"] = int((lanes > 0).sum())
+            if bool((lanes > limit).any()):
+                bad.append(f"{k}: {int((lanes > limit).sum())} lanes beyond {limit}")
+        else:
+            r = err / (mag[k] + 1e-30)
+            rel[k], beyond[k] = float(r.max()), int((r > 1e-3).sum())
+            if bool((r > RGL_FULL_REL).any()):
+                bad.append(f"{k}: {int((r > RGL_FULL_REL).sum())} entries beyond {RGL_FULL_REL} "
+                           "of their sums of |term|")
+        res["max_abs_err"] = max(res["max_abs_err"], float(err.max()))
+    assert not bad, (f"rgl_bwd full: {bad}; each table's largest difference over its entry's "
+                     f"sum of |term|: {rel}")
+    res["rel"], res["entries_beyond_1e-3"] = rel, beyond
+    return res
+
+
+def rgl_bwd_work(tables, n: int, sample: bool, full: bool = False):
     """K7T: per lane mid, wi, wo (eval) or u2 (sample) and the 4 cotangent
     words read (44 or 40 B; K7T writes none of the forward's outputs), the
-    tables read once and the rgb, ndf and sigma cotangents written once; the
-    forward's flops (kernel_check.rgl_work's 450 or 900 a lane) and ~150
-    more for the tail's backward (16 corner fetches again, 64 rgb terms, 8
-    ndf and sigma terms)."""
+    tables read once and their cotangents written once: the tail form's
+    rgb, ndf and sigma, the full form's every float table (`GRAD_TABLES`),
+    and per lane also the pdf's and sample's wo cotangents read (4 or 16 B)
+    and wi's (and eval's wo's) written (12 or 24 B). Flops: the forward's
+    (kernel_check.rgl_work's 450 or 900 a lane) and ~150 more for the
+    tail's backward (16 corner fetches again, 64 rgb terms, 8 ndf and sigma
+    terms); the full form ~700 (eval) or ~1500 (sample) more: the forward's
+    reverse mode, every warp read's cotangent into its corners and its
+    corner weights, the quadratic inversions' derivatives."""
     _, flops = kc.rgl_work(tables, n, sample)
     lane = 4 + 12 + (8 if sample else 12) + 16
-    out = sum(getattr(tables, k).numel() * 4 for k in GRAD_TABLES)
-    return n * lane + kc._table_bytes(tables) + out, flops + n * 150.0
+    names = GRAD_TABLES if full else TAIL_TABLES
+    out = sum(getattr(tables, k).numel() * 4 for k in names)
+    if not full:
+        return n * lane + kc._table_bytes(tables) + out, flops + n * 150.0
+    lane += (16 + 12) if sample else (4 + 24)
+    return n * lane + kc._table_bytes(tables) + out, flops + n * (1500.0 if sample else 700.0)
 
 
 def row_scatter_work(g, idx, rows):
@@ -360,14 +489,30 @@ def assemble_hit_anim_bwd_work(lanes):
     return nbytes + rows, flops + n * 200
 
 
-def env_radiance_bwd_work(env, d):
+def env_radiance_bwd_work(env, d, rotation: bool = False):
     """K8T: per lane the direction and 4 cotangent words read (28 B), the
     direction's cotangent written (12 B); the map's image read once and its
-    cotangent written once. ~100 float operations per lane (the rotation
-    and its transpose, the lookup's coordinates and their derivatives, the
-    four taps' 16 products and the two bilinear weights' dot products)."""
+    cotangent written once; with `rotation` the rotation's four floats read
+    and their cotangent written (32 B). ~100 float operations per lane (the
+    rotation and its transpose, the lookup's coordinates and their
+    derivatives, the four taps' 16 products and the two bilinear weights'
+    dot products), ~40 more with the rotation's term (the rotation formula's
+    backward and the lane's four terms summed)."""
     n = d.shape[0]
-    return n * 40 + 2 * env.image.numel() * 4, n * 100
+    return (n * 40 + 2 * env.image.numel() * 4 + (32 if rotation else 0),
+            n * (140 if rotation else 100))
+
+
+def env_sample_bwd_work(env, u3):
+    """K8T's sample backward: per lane 3 uniforms and the direction's 3
+    cotangent words read (24 B), the alias and pdf tables read once, the
+    rotation read and its cotangent written (32 B). ~60 float operations a
+    lane (the sample's map-space direction again, the rotation formula's
+    backward, the lane's four terms summed)."""
+    n = u3.shape[0]
+    tables = sum(x.numel() * x.element_size() for x in (env.pdf_table, env.alias_prob,
+                                                        env.alias_idx))
+    return n * 24 + tables + 32, n * 60
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +565,140 @@ def sky_loss(device):
     return loss
 
 
+SKY_YAW = 0.2                          # the sky's yaw (rad) of its gradient and the fit's target
+FIT_YAW_START = SKY_YAW + np.deg2rad(8.0)  # the yaw fit's start, 8 degrees away
+FIT_YAW_LR = 1e-2
+FIT_YAW_BETAS = (0.5, 0.99)   # Adam's momentum kept short: the default 0.9 overshoots the target
+# The yaw's view of envmap_spheres: from the far side of the spheres, (0,
+# 0.6, -4) toward (0, 1.5, 0), vfov 70, so that `procedural_sky`'s sun disk
+# stands in the frame beside the spheres and a yaw moves it across the
+# frame. From the bench view the sun stands behind the camera and a yaw
+# shows only through the shadows, whose moving edges the attached gradient
+# leaves out (its estimator has no boundary term, as the JAX package's).
+SKY_YAW_VIEW = ((0.0, 0.6, -4.0), (0.0, 1.5, 0.0), 70.0)
+
+
+# The JAX package's CPU yardsticks of the card's new gradients, from
+# jax_frame_reference.py (jax.grad on the CPU, float32): sky_yaw_grad (the
+# yaw frame's mean and d(mean)/d(yaw) at SKY_YAW, 128 x 128, 16 spp, depth
+# 8), rgl_camera_grad (the RGL quad's mean and d(mean)/d(camera height), 12
+# x 12, 4 spp, depth 3) and rgl_grad_tables (per RGL table of the quad:
+# entries above 1e-6 of its largest |entry|, sum, sum of |entry|, largest
+# |entry|; phi_i gets none: P = 1).
+SKY_YAW_REF = {"mean": 1.35687255859375, "grad": 2.2581355571746826}
+RGL_CAMERA_REF = {"mean": 0.0921129360795021, "grad": 0.014084098860621452}
+RGL_TABLE_REFS = {
+    'theta_i': (2, 0.011507331859320402, 0.011507331859320402, 0.007175865583121777),
+    'ndf': (102, 0.18540481523268681, 0.18540481523268681, 0.012892350554466248),
+    'sigma': (117, -0.310621315492142, 0.310621315492142, 0.01557885017246008),
+    'vndf_data': (204, 0.037425041337158405, 0.23201810889956676, 0.016493987292051315),
+    'vndf_marg': (30, 0.011095859948909492, 0.017983252027988783, 0.003545051207765937),
+    'vndf_cond': (194, 0.010378599632986152, 0.5212195931567294, 0.03555300459265709),
+    'lum_data': (70, -0.014555646199819972, 0.014666192606906048, 0.0032676830887794495),
+    'lum_marg': (6, -0.00022868864687097812, 0.00023553026551326184, 0.00013423842028714716),
+    'lum_cond': (24, -0.031657191650083405, 0.035909328993511735, 0.012205570936203003),
+    'rgb': (210, 0.18242696100861622, 0.18242696100861622, 0.00734799075871706),
+}
+SCALAR_REL = 2e-2   # the card's gradients against the JAX yardsticks
+TABLE_REL = 1e-2    # a table's digest: of its sum of |entry| (sum) or largest |entry|
+
+
+def check_rgl_table_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The RGL quad's table gradients (name -> tensor) against RGL_TABLE_REFS:
+    per table the count of entries above 1e-6 of its largest |entry| equal,
+    its sum and sum of |entry| within TABLE_REL of the reference's sum of
+    |entry|, its largest |entry| within TABLE_REL of the reference's; phi_i
+    zero. Returns each table's largest relative difference."""
+    assert float(grads["phi_i"].abs().max()) == 0.0, "phi_i got a gradient (P = 1)"
+    out = {}
+    for k, (above, total, total_abs, largest) in RGL_TABLE_REFS.items():
+        g = grads[k].double()
+        m = float(g.abs().max())
+        n_above = int((g.abs() > 1e-6 * m).sum())
+        d_sum = abs(float(g.sum()) - total) / total_abs
+        d_abs = abs(float(g.abs().sum()) - total_abs) / total_abs
+        d_max = abs(m - largest) / largest
+        assert n_above == above, f"RGL {k}: {n_above} entries above 1e-6 of the largest, JAX {above}"
+        assert max(d_sum, d_abs, d_max) <= TABLE_REL, (
+            f"RGL {k}: sum {float(g.sum())}, sum |.| {float(g.abs().sum())}, largest {m} "
+            f"against JAX's {total}, {total_abs}, {largest}")
+        out[k] = max(d_sum, d_abs, d_max)
+    return out
+
+
+def sky_yaw_camera(width: int, device):
+    eye, target, vfov = SKY_YAW_VIEW
+    return make_camera(from_lookat(eye, target, device=device), vfov, width, width, device=device)
+
+
+def yaw_rotation(yaw):
+    """The world-from-map quaternion [4] (x, y, z, w) of a turn by `yaw`
+    (radians, a tensor) about +y, differentiable in yaw."""
+    half = 0.5 * yaw
+    return torch.stack([0.0 * yaw, torch.sin(half), 0.0 * yaw, torch.cos(half)])
+
+
+def sky_yaw_loss(device, width: int = 128, ssqrt: int = GRAD_SSQRT, depth: int = GRAD_DEPTH):
+    """loss(yaw) = mean of the envmap_spheres frame (equirect sky turned by
+    `yaw` about +y: `procedural_sky`'s sun disk moves with it, and with it
+    the spheres' shadows and reflections) from SKY_YAW_VIEW, width^2,
+    ssqrt^2 spp in one pass, `depth` path components: its gradient runs
+    through K8T's rotation term and the sample's backward."""
+    scene = scenes.envmap_spheres(cube=False, device=device)
+    static = SceneStatic.from_scene(scene)
+    cam = sky_yaw_camera(width, device)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=depth, differentiable=True)
+
+    def loss(yaw):
+        sc = scene._replace(envmap=scene.envmap._replace(rotation=yaw_rotation(yaw)))
+        return render_frame(sc, static, cam, CameraConfig(), SensorRGB(), width, width, ssqrt,
+                            params=params, samples_per_pass=ssqrt ** 2, device=device,
+                            tables=tables).mean()
+
+    return loss
+
+
+def blurred_mse(img, target):
+    """The mean squared error of the two images [H, W, C] after a box blur a
+    quarter of the frame wide (stride 1, zero padded): the sun disk (5
+    degrees across, 9 pixels of a 128-wide frame at vfov 70) has left its
+    target's footprint at a start 8 degrees away, where a plain squared
+    error has no slope toward it; blurred, the two disks overlap."""
+    k = max(img.shape[1] // 4, 1) | 1
+
+    def blur(x):
+        return torch.nn.functional.avg_pool2d(x.permute(2, 0, 1)[None], k, 1, k // 2)
+
+    return torch.mean((blur(img) - blur(target)) ** 2)
+
+
+def fit_yaw(device, width: int = 128, steps: int = FIT_STEPS, lr: float = FIT_YAW_LR):
+    """`fit` of envmap_spheres' sky yaw from FIT_YAW_START to the target
+    rendered at SKY_YAW from SKY_YAW_VIEW (width^2, 4 spp, depth 2, Adam at
+    `lr`): the FitResult."""
+    scene = scenes.envmap_spheres(cube=False, device=device)
+    cam = sky_yaw_camera(width, device)
+    params = RenderParams(max_path_components=FIT_DEPTH)
+
+    def apply_params(sc, p):
+        return sc._replace(envmap=sc.envmap._replace(rotation=yaw_rotation(p["yaw"])))
+
+    # the target with the samples every step draws (`fit`'s first window):
+    # at the target's yaw the loss is 0, without the noise of other samples
+    target_scene = apply_params(scene, {"yaw": torch.tensor(SKY_YAW, device=device)})
+    zero = torch.zeros((width, width, 3), device=device)
+    with torch.no_grad():
+        target = render_loss(target_scene, SceneStatic.from_scene(target_scene), cam, zero,
+                             width=width, height=width, samples_sqrt=FIT_SSQRT,
+                             render_params=params, device=device)[1]
+    return fit(scene, {"yaw": torch.tensor(FIT_YAW_START, dtype=torch.float32, device=device)},
+               apply_params, target, cam=cam, width=width, height=width, samples_sqrt=FIT_SSQRT,
+               render_params=params,
+               optimizer=lambda ps: torch.optim.Adam(ps, lr=lr, betas=FIT_YAW_BETAS),
+               steps=steps, loss_fn=blurred_mse, sample_offset_per_step=False, device=device)
+
+
 def _lit_quad(material, half, light_at, rgl_fields=None, device="cuda"):
     """A 2 half x 2 half quad of `material` in the xy plane under a diffuse
     sphere light of radius 0.3, radiance 14, at `light_at`, built through
@@ -435,18 +714,19 @@ def _lit_quad(material, half, light_at, rgl_fields=None, device="cuda"):
 
 
 def _breadth_loss(scene, width, vfov, replace, device):
-    """loss(x) = mean of `replace(scene, x)` rendered differentiably from
-    (0, 0, 2.2) (width^2, 4 spp, 3 path components, as the JAX test)."""
+    """loss(*x) = mean of `replace(scene, x)` (one x: `replace(scene, x)`)
+    rendered differentiably from (0, 0, 2.2) (width^2, 4 spp, 3 path
+    components, as the JAX test)."""
     static = SceneStatic.from_scene(scene)
     cam = make_camera(from_lookat((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), device=device), vfov,
                       width, width, device=device)
     tables = prepare_scene(scene, static, step=False)
     params = RenderParams(max_path_components=3, differentiable=True)
 
-    def loss(x):
-        return render_frame(replace(scene, x), static, cam, CameraConfig(), SensorRGB(), width,
-                            width, 2, params=params, samples_per_pass=4, device=device,
-                            tables=tables).mean()
+    def loss(*x):
+        return render_frame(replace(scene, x[0] if len(x) == 1 else x), static, cam,
+                            CameraConfig(), SensorRGB(), width, width, 2, params=params,
+                            samples_per_pass=4, device=device, tables=tables).mean()
 
     return loss
 
@@ -455,11 +735,48 @@ def rgl_table_loss(device):
     """loss(rgb scale) = mean of tests/test_gradients_breadth.py's RGL quad
     (its synthetic measured material is scenes.synthetic_rgl_fields(),
     12 x 12): its gradient runs through K7T."""
-    fields = scenes.synthetic_rgl_fields()
-    scene = _lit_quad(B.RGLMaterial(table_name="m"), 1.2, (0.4, 0.9, 2.2), fields, device)
-    return _breadth_loss(scene, 12, 45.0,
+    return _breadth_loss(rgl_quad(device), 12, 45.0,
                          lambda sc, s: sc._replace(rgl=sc.rgl._replace(rgb=sc.rgl.rgb * s)),
                          device)
+
+
+def rgl_quad(device):
+    """tests/test_gradients_breadth.py's RGL quad (its synthetic measured
+    material scenes.synthetic_rgl_fields() on a 2.4 x 2.4 quad under a
+    sphere light), built through the port's Scene."""
+    return _lit_quad(B.RGLMaterial(table_name="m"), 1.2, (0.4, 0.9, 2.2),
+                     scenes.synthetic_rgl_fields(), device)
+
+
+def rgl_tables_loss(device):
+    """loss(*tables) = mean of the RGL quad (12 x 12, 4 spp, 3 path
+    components) with its float tables (`GRAD_TABLES`, in that order)
+    replaced: every table on the tape, K7T's full form."""
+    return _breadth_loss(rgl_quad(device), 12, 45.0,
+                         lambda sc, tabs: sc._replace(rgl=sc.rgl._replace(
+                             **dict(zip(GRAD_TABLES, tabs)))), device)
+
+
+def rgl_camera_loss(device, width: int = 12):
+    """loss(camera height offset) = mean of the RGL quad seen from (0, dy,
+    2.2) (width^2, 4 spp, 3 path components): the lane directions on the
+    tape (K7T's full form, with K3T)."""
+    scene = rgl_quad(device)
+    static = SceneStatic.from_scene(scene)
+    cam = make_camera(from_lookat((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), device=device), 45.0, width,
+                      width, device=device)
+    tables = prepare_scene(scene, static, step=False)
+    params = RenderParams(max_path_components=3, differentiable=True)
+    up = torch.tensor([0.0, 1.0, 0.0], device=device)
+
+    def loss(dy):
+        t = cam.transformation
+        c2 = cam._replace(transformation=t._replace(translation=t.translation + up * dy))
+        return render_frame(scene, static, c2, CameraConfig(), SensorRGB(), width, width, 2,
+                            params=params, samples_per_pass=4, device=device,
+                            tables=tables).mean()
+
+    return loss
 
 
 def texel_loss(device):
