@@ -290,12 +290,19 @@ their object-space records the cornell_animated_bvh path's.
    plain versions at a differentiable frame's shapes, each timed (wrapper
    call, device time a launch, plain version, `index_add_` for P0T)
    beside its bound: P0T on the Cornell block's material rows after 2
-   bounces, K3T on that block's winners, K3aT on the animated box with
-   spheres' 131072 camera winners with the rows of one instant and with
+   bounces, K3T on that block's winners, on the floor step's 65536 camera
+   winners (2 triangles) and on tri_sphere_field(2048, 40)'s 131072 camera
+   lanes (tables past the 48 KB shared path: global atomics), K3aT on the
+   animated box with spheres' 131072 camera winners and on the field
+   animated by the box's rows, each with the rows of one instant and with
    per-ray rows (timed per ray), K8T on the envmap frame's
-   directions on the equirect and the cube map, K8T with its rotation
-   term on the equirect, cube and constant skies turned by
-   grad_check.SKY_ROTATION (timed on the equirect), K8T's sample backward
+   directions on the equirect, the cube and the constant sky and a 512 x
+   1024 procedural sky, K8T with its rotation term on the same skies
+   turned by grad_check.SKY_ROTATION (timed on the equirect); K3T, K3aT
+   and K8T timed on every one of those shapes beside their bounds, with
+   the instantiation a profiled call launched (K3T and K3aT must each run
+   both <ANIM, SHARED>: the tables in shared memory and global atomics)
+   and the constant sky's g.sum(0), K8T's sample backward
    on 262144 uniforms of the turned equirect sky, K7T's tail form on
    131072 lanes of two synthetic RGL materials (eval and sample; timed on
    sample) and its full form on the same lanes with cotangents of the pdf
@@ -336,7 +343,8 @@ their object-space records the cornell_animated_bvh path's.
    last loss under a quarter of its first.
    Each differentiable step prints its forward and backward ms, the
    port's kernel launches, peak memory and, from a profiled step, the
-   CUDA kernel launches, device ms and busy share of each pass. The JSON
+   CUDA kernel launches, device ms and busy share of each pass, with the
+   backward kernels' launches and device ms (BWD_KERNELS). The JSON
    line's records of the backward kernels and of K3's full form,
    P0 and K1/K2/K8 count the grad path's launches (those of K1-K3, P0 and
    K7 the scene_api paths' too, K8's constant branch the scene_api paths').
@@ -348,6 +356,7 @@ them, one JSON line with the kernels, and as the last line
 
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -363,6 +372,13 @@ K4_PATHS = ("main path", "mesh path", "city path", "envmap path", "rtiow path", 
             "cornell_animated path", "rtiow_bvh path", "cornell_animated_bvh path",
             "rtiow_dof path")
 GRAD_PATH = "grad path"
+# The backward kernels by name (their share of a differentiable step's device time).
+BWD_KERNELS = ("row_scatter_kernel", "assemble_hit_bwd_kernel", "env_radiance_bwd_kernel",
+               "env_sample_bwd_kernel", "rgl_bwd_kernel")
+# The grad phase's K8T sky beside envmap_spheres' (a user's HDR sky, wider
+# than the frames') and its K3T/K3aT tables past their shared path.
+LARGE_SKY = "equirect 512 x 1024"
+FIELD = "tri_sphere_field 2048 + 40"
 # The example apps' scenes built through the port's Scene, one path each
 # (phase scene_api): render_frame on the generic bounce, and the hand
 # kernels each must launch there.
@@ -1345,56 +1361,79 @@ def _drive(label, render, names, absent=()):
     return img, [int(x) for x in stats.tolist()], launches, times
 
 
-def _count_launches(render):
+def _count_launches(render, setup=None):
     """(CUDA kernel launches, copies and memsets, wavefront steps, device ms,
-    {hand-written kernel: (device us per launch, launches)}) of one frame
-    rendered under torch.profiler; a step is one closest-hit cast, the
-    device time the sum over its kernels, copies and memsets. The
-    profiler at times loses events, most often on short frames and late in
-    a process: a profile in which it saw another number of the port's
-    kernels than the wrappers launched (native.LAUNCHES) is taken again, up
-    to PROFILE_TRIES times, and of two profiles that saw them all the one
-    with more launches counts (a lost event only ever lowers the count, of
-    the port's kernels or PyTorch's); if none saw them all, the phase fails
-    rather than gate on an undercount."""
+    {hand-written kernel: (device us per launch, launches)}, {other kernel:
+    launches}) of one frame rendered under torch.profiler; a step is one
+    closest-hit cast, the device time the sum over its kernels, copies and
+    memsets. The profiler at times loses events, most often on short frames
+    and late in a process: a profile in which it saw another number of the
+    port's kernels than the wrappers launched (native.LAUNCHES) is taken
+    again, up to PROFILE_TRIES times, and each kernel counts its largest
+    number over the profiles that saw them all (a lost event only ever
+    lowers a count, of the port's kernels or PyTorch's); if none saw them
+    all, the phase fails rather than gate on an undercount. At least two
+    such profiles are taken, and more, up to PROFILE_TRIES, while a set-up
+    kernel counts fewer than in the full frame: `setup` is the full frame's
+    ({other kernel: launches}, steps), and a set-up kernel is one of those
+    that the first complete profile here saw short of its full-frame count
+    by fewer launches than the frames differ in steps (a kernel of the loop
+    falls short by one a step; a lost event by one); a line names those
+    still short after PROFILE_TRIES. The device ms and the port's kernels'
+    device us are those of the complete profile that saw the most events,
+    the counts each kernel's largest over all of them."""
     from torch.profiler import ProfilerActivity, profile
 
     from wurblpt_tpu_torch import native
     from wurblpt_tpu_torch.utils.profile_frame import OURS
 
-    best, complete = None, 0
+    def steps():
+        return (native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
+                + native.LAUNCHES["sweep_closest"])
+
+    counts, device, complete, want = collections.Counter(), None, 0, {}
     for _ in range(PROFILE_TRIES):
         native.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             render()
-        device = [e for e in prof.key_averages()
+        events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = sum(e.count for e in device if any(k in e.key for k in OURS))
+        seen = sum(e.count for e in events if any(k in e.key for k in OURS))
         if seen != sum(native.LAUNCHES.values()):
             print(f"profiler: saw {seen} of the {sum(native.LAUNCHES.values())} launches of the "
                   f"port's kernels; profiling the frame again")
             continue
-        copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
-        kernels = sum(e.count for e in device) - copies
-        if best is not None and (kernels, copies) != best[:2]:
-            print(f"profiler: {kernels} kernel launches and {copies} copies/memsets against "
-                  f"{best[0]} and {best[1]} in another profile of the frame; the larger counts")
-        if best is None or (kernels, copies) > best[:2]:
-            best = (kernels, copies, device)
+        here = collections.Counter({e.key: e.count for e in events})
+        if complete and here != counts:
+            print(f"profiler: {sum(here.values())} launches, copies and memsets against "
+                  f"{sum(counts.values())} in another profile of the frame; each kernel's "
+                  f"largest count counts")
+        if device is None or sum(here.values()) > sum(e.count for e in device):
+            device = events
+        counts |= here
         complete += 1
-        if complete == 2:
+        if complete == 1 and setup is not None:
+            full, full_steps = setup
+            want = {k: v for k, v in full.items() if v - here[k] < full_steps - steps()}
+        if complete >= 2 and all(counts[k] >= v for k, v in want.items()):
             break
-    if best is None:
+    if device is None:
         raise AssertionError(f"profiler: lost events in all {PROFILE_TRIES} profiles; the "
                              f"frame's launches and device time are not measured")
-    kernels, copies, device = best
+    short = sorted(k for k, v in want.items() if counts[k] < v)
+    if short:
+        print(f"profiler: after {PROFILE_TRIES} profiles {len(short)} set-up kernels count fewer "
+              f"than in the full frame: {[(k[:60], counts[k], want[k]) for k in short[:3]]}")
+    is_copy = lambda key: key.startswith(("Memcpy", "Memset"))  # noqa: E731
+    copies = sum(v for k, v in counts.items() if is_copy(k))
+    kernels = sum(counts.values()) - copies
+    others = {k: v for k, v in counts.items() if not is_copy(k) and not any(o in k for o in OURS)}
     device_us = {e.key: (getattr(e, "self_device_time_total", None)
                          or getattr(e, "self_cuda_time_total", 0), e.count) for e in device}
     device_ms = sum(us for us, _ in device_us.values()) / 1e3
     ours = {re.search(r"\w+_kernel(<[^>]*>)?", key).group(0): (us / count, count)
             for key, (us, count) in device_us.items() if any(k in key for k in OURS)}
-    return (kernels, copies, native.LAUNCHES["closest_hit"] + native.LAUNCHES["bvh_closest_hit"]
-            + native.LAUNCHES["sweep_closest"], device_ms, ours)
+    return kernels, copies, steps(), device_ms, ours, others
 
 
 def _report(label, stats, times, paths, render, short=None, max_per_step=None,
@@ -1408,13 +1447,13 @@ def _report(label, stats, times, paths, render, short=None, max_per_step=None,
     per step of the loop `max_loop_per_step`, or those of the frame
     `max_frame`."""
     dt = statistics.median(times)
-    n, c, steps, device_ms, ours = _count_launches(render)
+    n, c, steps, device_ms, ours, others = _count_launches(render)
     per_step = (f", device time {device_ms:.3f} ms (profiled frame), {n} kernel launches and "
                 f"{c} copies/memsets in {steps} steps "
                 f"({n / max(steps, 1):.2f} and {c / max(steps, 1):.2f} per step")
     n1 = None
     if short is not None:
-        n0, c0, steps0, _, _ = _count_launches(short)
+        n0, c0, steps0, _, _, _ = _count_launches(short, setup=(others, steps))
         n1, c1 = (n - n0) / (steps - steps0), (c - c0) / (steps - steps0)
         per_step += (f"; {n1:.2f} and {c1:.2f} per step of the loop, {n - n1 * steps:.0f} and "
                      f"{c - c1 * steps:.0f} of set-up")
@@ -1617,7 +1656,7 @@ def phase_motion_path(name, scene):
           f"{peak:.0f} MiB")
     kc.check_motion_frame(name, img, stats)
     dt = statistics.median(times)
-    kernels, copies, _, device_ms, ours = _count_launches(render)
+    kernels, copies, _, device_ms, ours, _ = _count_launches(render)
     print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
           f"{[round(t * 1e3, 2) for t in times]}), {width * height * ssqrt * ssqrt / dt:.4g} "
           f"paths/s, {stats[1] / dt / 1e6:.4g} Mrays/s; a profiled frame: {kernels} CUDA kernel "
@@ -1644,19 +1683,29 @@ def _grad_records():
     rows = lanes["mat_table"].shape[0]
     g_rows, mat = lanes["g_rows"], lanes["mat"]
     k3 = [lanes[k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")] + lanes["cot"]
-    skies = {"equirect": gc.sky_lanes(DEVICE, cube=False), "cube": gc.sky_lanes(DEVICE, cube=True)}
+    skies = {"equirect": gc.sky_lanes(DEVICE, cube=False), "cube": gc.sky_lanes(DEVICE, cube=True),
+             "constant": gc.sky_lanes(DEVICE, cube=False, kind="constant"),
+             # held to the plain version on the card (CUDA's atan2f and acosf:
+             # grad_check.check_env_radiance_bwd)
+             LARGE_SKY: gc.sky_lanes(DEVICE, cube=False, kind="large") + (False, True)}
     rotated = {f"{kind}, rotated": gc.sky_lanes(DEVICE, cube=kind == "cube", kind=kind,
                                                 rotated=True) + (True,)
                for kind in ("equirect", "cube", "constant")}
+    rotated[f"{LARGE_SKY}, rotated"] = gc.sky_lanes(DEVICE, cube=False, kind="large",
+                                                    rotated=True) + (True, True)
+    floor, field = gc.floor_lanes(DEVICE), gc.field_lanes(DEVICE)
+    field_anim = {k: gc.field_lanes(DEVICE, anim=k) for k in ("one instant", "per ray")}
     senv, su3, sgd = gc.env_sample_lanes(DEVICE)
     rtab, rmid, rwi, rwo, ru2, rg = gc.rgl_lanes(DEVICE)
     rgp, rgwo = gc.rgl_full_cotangents(rmid.shape[0], DEVICE)
     anim = {"one instant": gc.anim_lanes(DEVICE, per_ray=False),
             "per ray": gc.anim_lanes(DEVICE, per_ray=True)}
     checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows)}),
-              ("assemble_hit_bwd", gc.check_assemble_hit_bwd, {"cornell block": (lanes,)}),
+              ("assemble_hit_bwd", gc.check_assemble_hit_bwd,
+               {"cornell block": (lanes,), "floor step": (floor,), FIELD: (field,)}),
               ("assemble_hit_anim_bwd", gc.check_assemble_hit_anim_bwd,
-               {f"animated box with spheres, rows of {k}": (v,) for k, v in anim.items()}),
+               {**{f"animated box with spheres, rows of {k}": (v,) for k, v in anim.items()},
+                **{f"animated {FIELD}, rows of {k}": (v,) for k, v in field_anim.items()}}),
               ("env_radiance_bwd", gc.check_env_radiance_bwd, skies),
               ("env_radiance_bwd_rot", gc.check_env_radiance_bwd, rotated),
               ("env_sample_bwd", gc.check_env_sample_bwd, {"equirect, rotated": (senv, su3, sgd)}),
@@ -1712,6 +1761,38 @@ def _grad_records():
     print(f"grad: env_radiance_bwd on the turned equirect sky, device us a launch in turns: "
           f"without the rotation term {turns[0]:.2f}, {turns[3]:.2f}; with it {turns[1]:.2f}, "
           f"{turns[2]:.2f} at {rd.shape[0]} lanes on {_nvidia_smi()}")
+    # K3T, K3aT and K8T at every shape checked above: device us a launch
+    # beside the bound and the instantiation that ran; a constant sky's also
+    # beside g.sum(0), the one PyTorch call of its function. K3T and K3aT
+    # must each have run both of their paths: the block's tables in shared
+    # memory (assemble_hit_bwd_kernel<ANIM, true>) and the warps' sums added
+    # to the tables (<ANIM, false>).
+    keys = ("ht", "o", "d", "t", "prim", "u", "v", "backside")
+    k3_cases = {"assemble_hit_bwd cornell block": lanes, "assemble_hit_bwd floor step": floor,
+                f"assemble_hit_bwd {FIELD}": field,
+                **{f"assemble_hit_anim_bwd animated box, rows of {k}": v for k, v in anim.items()},
+                **{f"assemble_hit_anim_bwd animated {FIELD}, rows of {k}": v
+                   for k, v in field_anim.items()}}
+    shared = collections.defaultdict(set)   # ANIM -> the SHARED values that ran
+    for label, ln in k3_cases.items():
+        fr = ln.get("frames")
+        work = gc.assemble_hit_bwd_work(ln) if fr is None else gc.assemble_hit_anim_bwd_work(ln)
+        args = [ln[k] for k in keys] + ln["cot"]
+        for name in _bwd_case(label, lambda a=args, f=fr: bw.assemble_hit_bwd(*a, frames=f),
+                              work, ln["o"].shape[0]):
+            m = re.fullmatch(r"assemble_hit_bwd_kernel<(\w+), (\w+)>", name)
+            shared[m.group(1)].add(m.group(2))
+    for label, (sky, sky_d, sky_g, *flags) in {**skies, **rotated}.items():
+        rot = bool(flags and flags[0])
+        _bwd_case(f"env_radiance_bwd {label}",
+                  lambda e=sky, a=sky_d, b=sky_g, r=rot: bw.env_radiance_bwd(e, a, b, rotation=r),
+                  gc.env_radiance_bwd_work(sky, sky_d, rotation=rot), sky_d.shape[0],
+                  (lambda b=sky_g: b.sum(0)) if sky.kind == 3 else None)
+    print(f"grad: assemble_hit_bwd_kernel<ANIM, SHARED> ran SHARED "
+          f"{({k: sorted(v) for k, v in shared.items()})}")
+    for anim_, name in (("false", "assemble_hit_bwd"), ("true", "assemble_hit_anim_bwd")):
+        assert shared[anim_] == {"true", "false"}, (
+            f"{name} ran only SHARED {sorted(shared[anim_])}: one of its paths did not launch")
     # K7T's full form on eval's lanes: timed beside the record (sample's)
     eval_full = lambda: bw.rgl_bwd(rtab, rmid, rwi, rwo, rg, False, full=True, g_pdf=rgp)  # noqa: E731
     bound, bound_by = kc.bound_ms(*gc.rgl_bwd_work(rtab, rmid.shape[0], False, full=True))
@@ -1732,6 +1813,34 @@ def _grad_records():
                              "launches": 0, "max_abs_err": errs[name], "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                              "library_ms": library_ms, "device_us": dev_us})
+
+
+def _bwd_case(label, kernel, work, n, library=None):
+    """Prints a backward kernel's device us a launch (kc.device_ms) on one
+    case beside its bound, the instantiation that ran and, where given, the
+    device time of the library call of the same function; returns the names
+    (`<name>_bwd_kernel<...>`) of the kernels a profiled call launched
+    (profiled again, up to PROFILE_TRIES times, while the profiler saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ran = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        ran = sorted({m.group(0) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and (m := re.search(r"\w+_bwd_kernel<[^>]*>", e.key))})
+        if ran:
+            break
+    assert ran, f"profiler: no backward kernel seen in {PROFILE_TRIES} profiles of {label}"
+    dev_us = kc.device_ms(kernel) * 1e3
+    bound, bound_by = kc.bound_ms(*work)
+    lib = "" if library is None else f", g.sum(0) {kc.device_ms(library) * 1e3:.2f} us device"
+    print(f"grad: {label} ({', '.join(ran)}): {dev_us:.2f} us device a launch{lib}; bound "
+          f"{bound * 1e3:.2f} us by {bound_by} ({dev_us / (bound * 1e3):.1f}x) at {n} lanes on "
+          f"{_nvidia_smi()}")
+    return ran
 
 
 def _timed_step(label, loss, args):
@@ -1775,10 +1884,20 @@ def _timed_step(label, loss, args):
             wall = (time.perf_counter() - w0) * 1e3
         dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         kern = sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset")))
-        dms = sum((getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0)) for e in dev) / 1e3
+
+        def device_ms(events):
+            return sum((getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0)) for e in events) / 1e3
+
+        dms = device_ms(dev)
+        # the backward kernels' share: launches and device ms by kernel
+        mine = {k: [e for e in dev if f"{k}<" in e.key or f"{k}(" in e.key]
+                for k in BWD_KERNELS}
+        share = {k: (sum(e.count for e in es), round(device_ms(es), 4))
+                 for k, es in mine.items() if es}
         prof_line.append(f"{part} {kern} CUDA kernel launches, {dms:.2f} device ms in "
-                         f"{wall:.2f} wall ms (busy {dms / wall:.3f})")
+                         f"{wall:.2f} wall ms (busy {dms / wall:.3f})"
+                         f"{f', of which {share}' if share else ''}")
     print(f"{label}: forward {(t1 - t0) * 1e3:.2f} ms, backward (recompute included) "
           f"{(t2 - t1) * 1e3:.2f} ms, peak memory {peak:.3f} GiB, the port's kernel launches "
           f"{ours}; profiled: {'; '.join(prof_line)}; on {_nvidia_smi()}")
@@ -1971,7 +2090,7 @@ def phase_scene_api(name):
     t0 = time.perf_counter()
     render(one_pass=True)
     pass_s = time.perf_counter() - t0
-    kernels, copies, _, device_ms, ours = _count_launches(lambda: render(one_pass=True))
+    kernels, copies, _, device_ms, ours, _ = _count_launches(lambda: render(one_pass=True))
     print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
           f"{[round(t * 1e3, 2) for t in times]}; {n_pass} passes), "
           f"{width * height * ssqrt * ssqrt / dt:.4g} paths/s, {stats[1] / dt / 1e6:.4g} "

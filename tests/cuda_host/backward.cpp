@@ -1,10 +1,17 @@
-// K3T's, K3aT's, K8T's and K7T's per-lane device code (csrc/backward_common.cuh)
-// on the CPU through cuda_runtime.h: one lane after another, with the entry
-// points' own arguments but the stream (csrc/backward.cu
-// wpt_assemble_hit_bwd, wpt_assemble_hit_anim_bwd, wpt_env_radiance_bwd for the equirect and cube
-// maps, wpt_env_sample_bwd, wpt_rgl_bwd's tail and full forms; the constant
-// sky's warp sum and the rotation's block sums are the kernels' own and
-// run on the card only: here the lanes' terms are summed in lane order).
+// K3T's, K3aT's, K8T's and K7T's device code (csrc/backward_common.cuh)
+// on the CPU through cuda_runtime.h, with the entry points' own arguments
+// but the stream (csrc/backward.cu). K3T, K3aT and K8T run as their kernels
+// do: the launch's blocks one after another, each as its threads, over the
+// chunks of a persistent grid of 2 resident blocks (cuda_runtime.h's one
+// SM), each block's dynamic shared memory a fresh array; K3T and K3aT
+// choose their path by the kernels' own rule (hit_takes_shared) under the
+// limit in words given in place of the card's (below 0: the card's,
+// HIT_SMEM_WORDS; 0 forces the global path, a large one the shared). The
+// K8T sample and K7T run one lane after another (wpt_env_sample_bwd's
+// rotation terms summed in lane order).
+#include <thread>
+#include <vector>
+
 #include "cuda_runtime.h"
 #include "backward_common.cuh"
 
@@ -13,6 +20,56 @@ dim3 gridDim, blockDim;
 WarpSync* g_warps;
 BlockSync* g_block;
 
+constexpr int RESIDENT = 2;
+
+// The launch's blocks in turn, each with `smem_words` floats of dynamic
+// shared memory, filled with NaN (the kernel zeroes it), handed to body(acc).
+template <class Body>
+static void run_blocks(int grid, int block, long long smem_words, Body body) {
+    gridDim = {static_cast<unsigned>(grid), 1, 1};
+    blockDim = {static_cast<unsigned>(block), 1, 1};
+    for (int b = 0; b < grid; ++b) {
+        std::vector<float4> smem((smem_words + 3) / 4 + 1);
+        float* acc = reinterpret_cast<float*>(smem.data());
+        for (long long k = 0; k < smem_words; ++k) acc[k] = std::nanf("");   // the kernel zeroes it
+        std::vector<WarpSync> warps(block / 32);
+        g_warps = warps.data();
+        BlockSync sync(block);
+        g_block = &sync;
+        std::vector<std::thread> threads;
+        for (int i = 0; i < block; ++i)
+            threads.emplace_back([&, b, i] {
+                threadIdx = {static_cast<unsigned>(i), 0, 0};
+                blockIdx = {static_cast<unsigned>(b), 0, 0};
+                body(acc);
+            });
+        for (auto& th : threads) th.join();
+    }
+}
+
+template <bool ANIM>
+static int hit_bwd(const wpt_bwd::HitIn& in, const wpt_bwd::Tables& tb, const wpt_bwd::Cot& c,
+                   const wpt_bwd::HitOut& out, const wpt_bwd::AnimIn& an, int n_anims,
+                   long long limit_words) {
+    if (in.n <= 0) return 0;
+    const int rows = ANIM && an.stride == 0 ? n_anims : 0;
+    const long long words = wpt_bwd::hit_table_words(tb.n_tris, tb.n_spheres, rows);
+    const bool shared = wpt_bwd::hit_takes_shared(
+        tb.n_tris, tb.n_spheres, rows, limit_words < 0 ? wpt_bwd::HIT_SMEM_WORDS : limit_words);
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(in.n, RESIDENT, wpt_bwd::HIT_BLOCK, &chunk);
+    run_blocks(grid, wpt_bwd::HIT_BLOCK, shared ? words : 0, [&](float* acc) {
+        if (shared)
+            wpt_bwd::assemble_hit_bwd_lanes<ANIM, true>(in, tb, c, out, an, n_anims, chunk, acc);
+        else
+            wpt_bwd::assemble_hit_bwd_lanes<ANIM, false>(in, tb, c, out, an, n_anims, chunk, acc);
+    });
+    return shared;
+}
+
+// wpt_assemble_hit_bwd's arguments but the stream, then the shared path's
+// limit in words (below 0: the card's); returns 1 where the tables were
+// summed in shared memory, 0 where with global atomics.
 extern "C" int host_assemble_hit_bwd(const float* o, const float* d, const float* t,
                                      const int* prim, const float* u, const float* v,
                                      const bool* backside, int n, const float* tri_g,
@@ -21,16 +78,15 @@ extern "C" int host_assemble_hit_bwd(const float* o, const float* d, const float
                                      const float* g_pos, const float* g_nrm, const float* g_gn,
                                      const float* g_tan, const float* g_uv, float* g_o,
                                      float* g_d, float* g_tri_g, float* g_tri_f,
-                                     float* g_sph_f) {
-    const wpt_bwd::HitIn in{o, d, t, prim, u, v, backside, n};
-    const wpt_bwd::Tables tb{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres};
-    const wpt_bwd::Cot c{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv};
-    const wpt_bwd::HitOut out{g_o, g_d, g_tri_g, g_tri_f, g_sph_f};
-    for (int i = 0; i < n; ++i) wpt_bwd::assemble_hit_bwd_lane<false>(i, in, tb, c, out, {});
-    return 0;
+                                     float* g_sph_f, long long limit_words) {
+    return hit_bwd<false>(wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
+                          wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
+                          wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
+                          wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f},
+                          wpt_bwd::AnimIn{}, 0, limit_words);
 }
 
-// K3aT: wpt_assemble_hit_anim_bwd's arguments but the stream.
+// K3aT: wpt_assemble_hit_anim_bwd's arguments but the stream, then the limit.
 extern "C" int host_assemble_hit_anim_bwd(
     const float* o, const float* d, const float* t, const int* prim, const float* u,
     const float* v, const bool* backside, int n, const float* tri_g, const float* tri_f,
@@ -38,36 +94,31 @@ extern "C" int host_assemble_hit_anim_bwd(
     const float* g_pos, const float* g_nrm, const float* g_gn, const float* g_tan,
     const float* g_uv, float* g_o, float* g_d, float* g_tri_g, float* g_tri_f, float* g_sph_f,
     const int* tri_anim, const int* sph_anim, const float* frames, long long fstride,
-    float* g_frames) {
-    const wpt_bwd::HitIn in{o, d, t, prim, u, v, backside, n};
-    const wpt_bwd::Tables tb{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres};
-    const wpt_bwd::Cot c{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv};
-    const wpt_bwd::HitOut out{g_o, g_d, g_tri_g, g_tri_f, g_sph_f};
-    const wpt_bwd::AnimIn an{tri_anim, sph_anim, frames, fstride, g_frames};
-    for (int i = 0; i < n; ++i) wpt_bwd::assemble_hit_bwd_lane<true>(i, in, tb, c, out, an);
-    return 0;
+    int n_anims, float* g_frames, long long limit_words) {
+    return hit_bwd<true>(wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
+                         wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
+                         wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
+                         wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f},
+                         wpt_bwd::AnimIn{tri_anim, sph_anim, frames, fstride, g_frames}, n_anims,
+                         limit_words);
 }
 
-// wpt_env_radiance_bwd's arguments but the stream; g_rot (the rotation's
-// cotangent, the lanes' terms summed in lane order) may be null.
+// wpt_env_radiance_bwd's arguments but the stream; g_rot may be null.
 extern "C" int host_env_radiance_bwd(const float* d, int n, int kind, const float* img, int h,
                                      int w, const float* rot, const float* g, float* g_d,
                                      float* g_img, float* g_const, float* g_rot) {
-    if (kind != 1 && kind != 2) return 1;
-    (void)g_const;
-    for (int i = 0; i < n; ++i) {
-        const float4* im = reinterpret_cast<const float4*>(img);
-        if (g_rot == nullptr) {
-            wpt_bwd::env_radiance_bwd_lane<false>(i, d, kind, im, h, w, rot, g, g_d, g_img);
-            continue;
-        }
-        const float4 q = wpt_bwd::env_radiance_bwd_lane<true>(i, d, kind, im, h, w, rot, g, g_d,
-                                                              g_img);
-        g_rot[0] += q.x;
-        g_rot[1] += q.y;
-        g_rot[2] += q.z;
-        g_rot[3] += q.w;
-    }
+    if (n <= 0) return 0;
+    const float4* im = reinterpret_cast<const float4*>(img);
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(n, RESIDENT, wpt_bwd::SKY_BLOCK, &chunk);
+    run_blocks(grid, wpt_bwd::SKY_BLOCK, 0, [&](float*) {
+        if (g_rot != nullptr && kind != 3)
+            wpt_bwd::env_radiance_bwd_lanes<true>(d, n, kind, im, h, w, rot, g, g_d, g_img,
+                                                  g_const, g_rot, chunk);
+        else
+            wpt_bwd::env_radiance_bwd_lanes<false>(d, n, kind, im, h, w, rot, g, g_d, g_img,
+                                                   g_const, g_rot, chunk);
+    });
     return 0;
 }
 

@@ -1,10 +1,11 @@
 // Host stand-in for the CUDA pieces that csrc/bvh_common.cuh, the device
 // code of csrc/wavefront.cu, of the brute-force casts and sweeps, of the
-// row gather and of the backward kernels (backward_common.cuh) use, so that these kernels compile with g++ and run on the
-// CPU: one block at a time, one std::thread per CUDA thread, the warp
-// intrinsics through a barrier per warp (every thread of a warp calls them
-// in the same order), __syncthreads through a barrier per block, shared
-// memory as statics of the running block.
+// row gather and of the backward kernels (backward_common.cuh) use, so
+// that these kernels compile with g++ and run on the CPU: one block at a
+// time, one std::thread per CUDA thread, the warp intrinsics through a
+// barrier per warp (every thread of a warp calls them in the same order),
+// __syncthreads through a barrier per block, shared memory as statics of
+// the running block.
 // Arithmetic is the host's IEEE float32 with -ffp-contract=off, as the
 // kernels' -fmad=false; sinf, cosf, powf and the like are the host's libm.
 #pragma once
@@ -66,6 +67,11 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
     return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+// sm_90's vector atomic on global memory: each word added atomically
+inline float4 atomicAdd(float4* p, float4 v) {
+    return {atomicAdd(&p->x, v.x), atomicAdd(&p->y, v.y), atomicAdd(&p->z, v.z),
+            atomicAdd(&p->w, v.w)};
+}
 
 struct WarpSync {
     std::barrier<> bar{32};
@@ -101,6 +107,23 @@ inline int __shfl_xor_sync(unsigned, int v, int mask) {
 inline float __shfl_xor_sync(unsigned m, float v, int mask) {
     return __int_as_float(__shfl_xor_sync(m, __float_as_int(v), mask));
 }
+inline float __shfl_sync(unsigned m, float v, int src) {
+    return __int_as_float(__shfl_sync(m, __float_as_int(v), src));
+}
+inline unsigned __match_any_sync(unsigned, int key) {
+    unsigned all[32], m = 0;
+    exchange(static_cast<unsigned>(key), all);
+    for (int i = 0; i < 32; ++i) m |= all[i] == static_cast<unsigned>(key) ? (1u << i) : 0u;
+    return m;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+    unsigned all[32];
+    exchange(static_cast<unsigned>(v), all);
+    int most = static_cast<int>(all[0]);
+    for (int i = 1; i < 32; ++i) most = std::max(most, static_cast<int>(all[i]));
+    return most;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
     unsigned all[32], sum = 0;
     exchange(v, all);

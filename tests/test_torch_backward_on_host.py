@@ -1,17 +1,24 @@
 """K3T's, K3aT's, K8T's and K7T's device code (``csrc/backward_common.cuh``:
-the per-lane backward of the hit assembly with the winner's intersection,
-static and animated, of the sky's radiance lookup with its rotation term
-and of its importance sample, and of the measured RGL BRDF, its tail form
-and its full form) compiled with g++ through ``tests/cuda_host`` and run
-on the CPU, held against their plain versions (render/backward.py
+the backward of the hit assembly with the winner's intersection, static
+and animated, of the sky's radiance lookup with its rotation term and of
+its importance sample, and of the measured RGL BRDF, its tail form and its
+full form) compiled with g++ through ``tests/cuda_host`` and run on the
+CPU, held against their plain versions (render/backward.py
 `assemble_hit_bwd_plain`, `env_radiance_bwd_plain`, `env_sample_bwd_plain`,
-materials/rgl.py `rgl_bwd_plain`) on the same inputs.
+materials/rgl.py `rgl_bwd_plain`) on the same inputs. K3T, K3aT and K8T
+run whole, as their kernels launch them (`tests/cuda_host/backward.cpp`):
+persistent blocks of the kernels' threads, each lane's terms summed over
+its warp's lanes of one row or texel cell (`group_sum`), then K3T's per
+block in shared memory where its tables fit the limit passed (the card's
+by default, a large one forces it) and with global atomics where they do
+not (a limit of 0), K8T's with atomics onto the map.
 
-The host's libm computes atan2f, acosf and sqrtf, and the scatter-adds land
-in lane order rather than the card's, so floats are held to a tolerance
+The host's libm computes atan2f, acosf and sqrtf, and the sums land in
+another order than the plain version's, so floats are held to a tolerance
 relative to each output's largest magnitude (1e-4), not to bits."""
 
 import ctypes
+import ctypes.util
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,6 +40,9 @@ torch.set_num_threads(2)
 
 HOST = Path(__file__).parent / "cuda_host"
 REL = 1e-4
+# K3T's shared-memory limit in words passed to the host build: one that
+# forces each path (below 0: the card's, HIT_SMEM_WORDS)
+LIMITS = {"shared": 1 << 40, "global": 0}
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +57,9 @@ def lib(tmp_path_factory):
                     str(HOST / "backward.cpp")], check=True)
     lib = ctypes.CDLL(str(out))
     sig = native._SIGNATURES
-    lib.host_assemble_hit_bwd.argtypes = sig["wpt_assemble_hit_bwd"][:-1]
+    lib.host_assemble_hit_bwd.argtypes = sig["wpt_assemble_hit_bwd"][:-1] + [ctypes.c_longlong]
+    lib.host_assemble_hit_anim_bwd.argtypes = (sig["wpt_assemble_hit_anim_bwd"][:-1]
+                                               + [ctypes.c_longlong])
     lib.host_env_radiance_bwd.argtypes = sig["wpt_env_radiance_bwd"][:-1]
     lib.host_env_sample_bwd.argtypes = sig["wpt_env_sample_bwd"][:-1]
     lib.host_rgl_bwd.argtypes = sig["wpt_rgl_bwd"][:-1]
@@ -64,31 +76,53 @@ def _close(got, ref, what):
 def _lanes(name):
     scene, camera = {"cornell": (scenes.cornell_box_ref, scenes.cornell_ref_camera),
                      "envmap": (scenes.envmap_spheres, scenes.envmap_camera),
-                     "rtiow": (scenes.rtiow, scenes.rtiow_camera)}[name]
+                     "rtiow": (scenes.rtiow, scenes.rtiow_camera),
+                     "floor": (scenes.sphere_lit_floor, scenes.sphere_lit_floor_camera)}[name]
     scene = scene(device="cpu")
     o, d, tmin, tmax = kc.camera_lanes(24, 24, 1, "cpu", camera=camera("cpu"))
     t, prim, u, v = closest_hit(build_brute_scene(scene), o, d, tmin, tmax)
     return build_hit_tables(scene), o, d, t, prim, u, v
 
 
-@pytest.mark.parametrize("name", ["cornell", "envmap", "rtiow"])
-def test_k3t_device_code_matches_its_plain_version(lib, name):
-    """Triangle winners (the Cornell box, its ONB tangents), triangles and
-    spheres (envmap_spheres), spheres alone (rtiow), with miss lanes; every
-    cotangent random, uv's too."""
+def _check_k3t(lib, name, limit):
+    """K3T's kernel on `name`'s lanes with random cotangents, the tables
+    summed under the shared-memory `limit` in words (-1: the card's),
+    against its plain version; returns the path taken (1 shared, 0 global)."""
     ht, o, d, t, prim, u, v = _lanes(name)
-    assert bool((prim < 0).any()) or name == "cornell"
     backside = assemble_hit(ht, o, d, t, prim, u, v).backside
     gs = _cotangents(o.shape[0], 3)
     ref = bw.assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *gs)
     out = [torch.zeros_like(x) for x in ref]
     ptr = lambda x: x.data_ptr()  # noqa: E731
-    assert lib.host_assemble_hit_bwd(
+    path = lib.host_assemble_hit_bwd(
         ptr(o), ptr(d), ptr(t), ptr(prim), ptr(u), ptr(v), ptr(backside), o.shape[0],
         ptr(ht.tri_g), ptr(ht.tri_f), ptr(ht.tri_i), ht.n_tris, ptr(ht.sph_f), ht.n_spheres,
-        *map(ptr, gs), *map(ptr, out)) == 0
+        *map(ptr, gs), *map(ptr, out), limit)
     for what, a, b in zip(("g_o", "g_d", "g_tri_g", "g_tri_f", "g_sph_f"), out, ref):
         _close(a, b, f"{name} {what}")
+    return path
+
+
+@pytest.mark.parametrize("name", ["cornell", "envmap", "rtiow"])
+def test_k3t_device_code_matches_its_plain_version(lib, name):
+    """Triangle winners (the Cornell box, its ONB tangents), triangles and
+    spheres (envmap_spheres), spheres alone (rtiow), with miss lanes; every
+    cotangent random, uv's too; the tables summed in shared memory."""
+    assert bool((_lanes(name)[4] < 0).any()) or name == "cornell"
+    assert _check_k3t(lib, name, -1) == 1
+
+
+@pytest.mark.parametrize("path", list(LIMITS))
+@pytest.mark.parametrize("name", ["cornell", "floor", "envmap"])
+def test_k3t_kernel_sums_on_both_paths(lib, name, path):
+    """The whole kernel on each path: the block's tables in shared memory,
+    or the warps' sums added to the tables with global atomics. The floor's
+    lanes all win on its 2 triangles (groups of 32: every step of the
+    shuffle tree), the Cornell box's on a few of its walls' triangles,
+    envmap_spheres' on triangles and spheres mixed within warps."""
+    if name == "floor":
+        assert int((_lanes(name)[4] >= 0).sum()) == 24 * 24
+    assert _check_k3t(lib, name, LIMITS[path]) == (path == "shared")
 
 
 def _anim_lanes(spheres, per_ray):
@@ -106,9 +140,24 @@ def _anim_lanes(spheres, per_ray):
 @pytest.mark.parametrize("spheres", [False, True], ids=["box", "box with spheres"])
 @pytest.mark.parametrize("per_ray", [False, True], ids=["one instant", "per ray"])
 def test_k3at_device_code_matches_its_plain_version(lib, spheres, per_ray):
-    """K3aT's lane (assemble_hit_bwd_lane<true>) against its plain version:
-    the winners' object-space backward and the frame rows' cotangents,
-    added into [A, 30] at one instant or stored to each lane's own row."""
+    """K3aT's kernel (assemble_hit_bwd_lanes<true, true>) against its plain
+    version: the winners' object-space backward and the frame rows'
+    cotangents, summed into [A, 30] at one instant (in shared memory beside
+    the tables) or stored to each lane's own row."""
+    _check_k3at(lib, spheres, per_ray, -1)
+
+
+@pytest.mark.parametrize("per_ray", [False, True], ids=["one instant", "per ray"])
+def test_k3at_kernel_sums_on_the_global_path(lib, per_ray):
+    """K3aT on the animated box with spheres, its tables and rows of one
+    instant summed by the warps and added with global atomics."""
+    _check_k3at(lib, True, per_ray, LIMITS["global"])
+
+
+def _check_k3at(lib, spheres, per_ray, limit):
+    """K3aT's kernel on the animated box's lanes under the shared-memory
+    `limit` in words (-1: the card's, under which its tables take the
+    shared path) against its plain version."""
     ht, o, d, t, prim, u, v, fr = _anim_lanes(spheres, per_ray)
     assert bool((prim >= ht.n_tris).any()) == spheres
     backside = assemble_hit(ht, o, d, t, prim, u, v, fr).backside
@@ -116,28 +165,29 @@ def test_k3at_device_code_matches_its_plain_version(lib, spheres, per_ray):
     ref = bw.assemble_hit_bwd_plain(ht, o, d, t, prim, u, v, backside, *gs, frames=fr)
     out = [torch.zeros_like(x) for x in ref]
     ptr = lambda x: x.data_ptr()  # noqa: E731
-    lib.host_assemble_hit_anim_bwd.argtypes = native._SIGNATURES["wpt_assemble_hit_anim_bwd"][:-1]
     stride = check_frames(fr, ht.n_anims, o.device, o.shape[0])
     assert stride == (ht.n_anims * 30 if per_ray else 0)
     assert lib.host_assemble_hit_anim_bwd(
         ptr(o), ptr(d), ptr(t), ptr(prim), ptr(u), ptr(v), ptr(backside), o.shape[0],
         ptr(ht.tri_g), ptr(ht.tri_f), ptr(ht.tri_i), ht.n_tris, ptr(ht.sph_f), ht.n_spheres,
         *map(ptr, gs), *map(ptr, out[:5]), ptr(ht.tri_anim), ptr(ht.sph_anim), ptr(fr), stride,
-        ptr(out[5])) == 0
+        ht.n_anims, ptr(out[5]), limit) == (limit != 0)
     for what, a, b in zip(("g_o", "g_d", "g_tri_g", "g_tri_f", "g_sph_f", "g_frames"), out, ref):
         _close(a, b, f"{what}")
     assert float(ref[5].abs().sum()) > 0
 
 
-def _host_k8t(lib, env, d, g):
-    """(g_d, g_image, g_rotation) of the host build of K8T's lanes."""
-    g_d, g_img, g_rot = torch.zeros_like(d), torch.zeros_like(env.image), torch.zeros(4)
+def _host_k8t(lib, env, d, g, rotation=True):
+    """(g_d, g_image, g_rotation, g_const) of the host build of K8T's
+    kernel, its rotation term where `rotation`."""
+    g_d = torch.full_like(d, float("nan"))
+    g_img, g_rot, g_const = torch.zeros_like(env.image), torch.zeros(4), torch.zeros(4)
     h, w = env.image.shape[-3], env.image.shape[-2]
     assert lib.host_env_radiance_bwd(d.data_ptr(), d.shape[0], env.kind, env.image.data_ptr(),
                                      h, w, env.rotation.data_ptr(), g.data_ptr(), g_d.data_ptr(),
-                                     g_img.data_ptr(), torch.zeros(4).data_ptr(),
-                                     g_rot.data_ptr()) == 0
-    return g_d, g_img, g_rot
+                                     g_img.data_ptr(), g_const.data_ptr(),
+                                     g_rot.data_ptr() if rotation else None) == 0
+    return g_d, g_img, g_rot, g_const
 
 
 def _sums_close(got, ref, mag, what):
@@ -155,7 +205,7 @@ def test_k8t_device_code_matches_its_plain_version(lib, kind):
     d = _sky_dirs(4096, 5)
     g = torch.randn(d.shape[0], 4, generator=torch.Generator().manual_seed(6))
     ref = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
-    g_d, g_img, g_rot = _host_k8t(lib, env, d, g)
+    g_d, g_img, g_rot, _ = _host_k8t(lib, env, d, g)
     _close(g_d, ref[0], f"{kind} g_d")
     _close(g_img, ref[1], f"{kind} g_image")
     _sums_close(g_rot, ref[3], ref[6], f"{kind} g_rotation")
@@ -170,10 +220,131 @@ def test_k8t_device_code_on_a_rotated_cube(lib):
     d = _sky_dirs(2048, 7)
     g = torch.randn(d.shape[0], 4, generator=torch.Generator().manual_seed(8))
     ref = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
-    g_d, g_img, g_rot = _host_k8t(lib, env, d, g)
+    g_d, g_img, g_rot, _ = _host_k8t(lib, env, d, g)
     _close(g_d, ref[0], "rotated cube g_d")
     _close(g_img, ref[1], "rotated cube g_image")
     _sums_close(g_rot, ref[3], ref[6], "rotated cube g_rotation")
+
+
+def _sky_block(env, seed, escaping=False):
+    """K8T's lanes as a render gives them: 48 x 48 camera directions of the
+    envmap frame (a warp's neighbouring pixels share lookup cells) and 1792
+    random ones, every seventh lane's cotangent zero (a lane that adds
+    nothing, in a warp with lanes that do); `escaping`: only the lanes that
+    look up (y > 0.2) keep one, as if the rest had hit a floor, so that
+    whole warps and runs of lanes within one add nothing."""
+    cam = scenes.envmap_camera("cpu")
+    d = torch.cat([kc.camera_lanes(48, 48, 1, "cpu", camera=cam)[1], _sky_dirs(1792 - 11, seed)])
+    g = torch.randn(d.shape[0], 4, generator=torch.Generator().manual_seed(seed + 1))
+    g[::7] = 0.0
+    if escaping:
+        g[d[:, 1] <= 0.2] = 0.0
+    return d.contiguous(), g
+
+
+@pytest.mark.parametrize("escaping", [False, True], ids=["every lane", "escaping lanes"])
+@pytest.mark.parametrize("rotated", [False, True], ids=["identity", "rotated"])
+@pytest.mark.parametrize("kind", ["equirect", "cube"])
+def test_k8t_kernel_sums_warp_groups(lib, kind, rotated, escaping):
+    """The whole kernel with and without its rotation term, each warp's
+    lanes of one lookup cell summed before one float4 atomic a texel, on
+    cotangents on every lane or only on the escaping ones: the texels
+    within REL of the largest, the rotation's sums within REL of its terms'
+    magnitudes, and with the term off g_rotation untouched."""
+    from test_torch_backward_kernels import _sky
+
+    env = _sky(kind, rotated)
+    d, g = _sky_block(env, 9, escaping)
+    ref = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
+    g_d, g_img, g_rot, g_const = _host_k8t(lib, env, d, g, rotation=rotated)
+    _close(g_d, ref[0], f"{kind} g_d")
+    _close(g_img, ref[1], f"{kind} g_image")
+    assert not bool(g_const.any())
+    if rotated:
+        _sums_close(g_rot, ref[3], ref[6], f"{kind} g_rotation")
+    else:
+        assert not bool(g_rot.any())
+
+
+@pytest.mark.parametrize("height", [4, 8], ids=["4x8", "8x16"])
+def test_k8t_kernel_on_low_resolution_skies(lib, height):
+    """8192 lanes on a 4 x 8 sky (256 lanes a texel) and an 8 x 16 one (64):
+    most of a warp's lanes share a lookup cell, so its groups run every step
+    of the shuffle tree; within REL of the plain version."""
+    from wurblpt_tpu_torch.render.envmap import EnvironmentMapEquiRect, build_envmap_arrays
+
+    env = build_envmap_arrays(EnvironmentMapEquiRect(scenes.procedural_sky(height)), "cpu")
+    d = torch.cat([_sky_block(env, 13)[0]] * 2).contiguous()
+    g = torch.randn(d.shape[0], 4, generator=torch.Generator().manual_seed(14))
+    ref = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
+    g_d, g_img, g_rot, _ = _host_k8t(lib, env, d, g)
+    _close(g_d, ref[0], f"{height} g_d")
+    _close(g_img, ref[1], f"{height} g_image")
+    _sums_close(g_rot, ref[3], ref[6], f"{height} g_rotation")
+
+
+def _libm_differs(dm):
+    """Per lane, whether the C library's atan2f(x, -z) or acosf(y), which
+    the host build calls, differs from PyTorch's torch.atan2 / torch.acos on
+    the CPU, which the plain version calls, for map directions dm [N, 3]."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.atan2f.restype = libm.acosf.restype = ctypes.c_float
+    libm.atan2f.argtypes = [ctypes.c_float, ctypes.c_float]
+    libm.acosf.argtypes = [ctypes.c_float]
+    x, y, z = dm[:, 0], dm[:, 1], dm[:, 2]
+    a = torch.tensor([libm.atan2f(p, -r) for p, r in zip(x.tolist(), z.tolist())])
+    c = torch.tensor([libm.acosf(q) for q in torch.clamp(y, -1.0, 1.0).tolist()])
+    return (a != torch.atan2(x, -z)) | (c != torch.acos(torch.clamp(y, -1.0, 1.0)))
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["identity", "rotated"])
+def test_k8t_kernel_on_a_wide_sky(lib, rotated):
+    """The 512 x 1024 sky of the card's check (`grad_check.sky_lanes(kind=
+    "large")`) on 8192 of its lanes, against the plain version on the CPU.
+    Where a lane's atan2f or acosf from the C library differs from
+    PyTorch's by an ulp, its x = u w moves by ~w ulps of u, which a tap of
+    small weight feels a thousandfold: the texels of such lanes' taps may
+    part by more than SKY_SUM_REL of their magnitudes. Every other texel
+    holds to SKY_SUM_REL, and those lanes are a few per cent."""
+    from wurblpt_tpu_torch.core.transform import quat_rotate
+    from wurblpt_tpu_torch.render import envmap as E
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    env, d, g = gc.sky_lanes("cpu", cube=False, kind="large", rotated=rotated)
+    sel = torch.cat([torch.arange(0, 131072, 32), 131072 + torch.arange(4096)])
+    d, g = d[sel].contiguous(), g[sel].contiguous()
+    ref = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
+    g_d, g_img, g_rot, _ = _host_k8t(lib, env, d, g, rotation=rotated)
+    _close(g_d, ref[0], "wide sky g_d")
+    if rotated:
+        _sums_close(g_rot, ref[3], ref[6], "wide sky g_rotation")
+    dm = quat_rotate(E.quat_conjugate(env.rotation), d)
+    off = _libm_differs(dm)
+    assert 0 < int(off.sum()) < 0.05 * d.shape[0]
+    h, w = env.image.shape[0], env.image.shape[1]
+    u, v = E._equirect_uv(dm)
+    x0, y0 = torch.floor(u * w - 0.5).long() % w, torch.floor(v * h - 0.5).long().clamp(0, h - 1)
+    x1, y1 = (x0 + 1) % w, (y0 + 1).clamp(max=h - 1)
+    exempt = torch.zeros(h * w, dtype=torch.bool)
+    for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)):
+        exempt[(yy * w + xx)[off]] = True
+    keep = ~exempt.view(h, w)
+    gc._sum_close("wide sky g_image", g_img[keep], ref[1][keep], ref[4][keep], gc.SKY_SUM_REL)
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["identity", "rotated"])
+def test_k8t_kernel_on_a_constant_sky(lib, rotated):
+    """A constant sky: g_d zero on every lane, the radiance's cotangent the
+    lanes' sum (per thread, then per block) within REL of its terms'
+    magnitudes, the rotation's cotangent untouched."""
+    from test_torch_backward_kernels import _sky
+
+    env = _sky("constant", rotated)
+    d, g = _sky_block(env, 11)
+    ref = bw.env_radiance_bwd_plain(env, d, g, magnitudes=True)
+    g_d, g_img, g_rot, g_const = _host_k8t(lib, env, d, g, rotation=rotated)
+    assert not bool(g_d.any()) and not bool(g_img.any()) and not bool(g_rot.any())
+    _sums_close(g_const, ref[2], ref[5], "constant g_const")
 
 
 def test_k8t_sample_device_code_matches_its_plain_version(lib):

@@ -5,14 +5,30 @@ card: each call times the ``wurblpt_tpu_torch`` of the tree it is given.
     python tools/bwd_turns.py --tree DIR [--label NAME]
 
 DIR is the root of a checkout whose ``wurblpt_tpu_torch`` is timed (its
-kernels built from its own sources into its own ``_build``). Timed, each
-with the variant named: K7T's tail form on the sample and the eval lanes of
-`grad_check.rgl_lanes`; K8T without its rotation term on the equirect
-sky's `grad_check.sky_lanes` (a tree whose `env_radiance_bwd` takes no
-``rotation`` has only that kernel), and with it where the tree has it.
-Prints one JSON line: the card, its power limit and each kernel's device
+kernels built from its own sources into its own ``_build``). The inputs come
+from the tree's `utils/grad_check.py`; a tree older than `floor_lanes`,
+`field_lanes` and `sky_lanes(kind="large")` times the same inputs once this
+tree's ``wurblpt_tpu_torch/utils/grad_check.py`` is copied over its own (it
+calls only wrappers such a tree has). Timed, each with the variant named:
+
+* K7T's tail form on the sample and the eval lanes of `grad_check.rgl_lanes`;
+* K8T on `grad_check.sky_lanes`' 262144 lanes of the equirect, cube and
+  constant skies and of the 512 x 1024 procedural sky, without its
+  rotation term, and on the equirect and the 512 x 1024 sky with it too (a
+  tree whose `env_radiance_bwd` takes no ``rotation`` has only the kernel
+  without it);
+* K3T on the Cornell block's 131072 winners after 2 bounces
+  (`cornell_lanes`), the floor step's 65536 (`floor_lanes`) and
+  tri_sphere_field's 131072 camera lanes (`field_lanes`, tables past
+  K3T's shared memory);
+* K3aT on the animated box with spheres (`anim_lanes`) and the animated
+  field (`field_lanes(anim=...)`), each with the rows of one instant and
+  per ray.
+
+Prints one JSON line: the card, its power limit, each kernel's device
 microseconds a launch (`kernel_check.device_ms`, CUDA events around 20
-launches queued behind a spin kernel). Needs a CUDA device."""
+launches queued behind a spin kernel) and its bound in microseconds by the
+tree's `*_work` (`kernel_check.bound_ms`). Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -40,20 +56,46 @@ def main() -> int:
     from wurblpt_tpu_torch.utils import kernel_check as kc
 
     native.build_kernels()
-    tables, mid, wi, wo, u2, g_f = gc.rgl_lanes("cuda")
-    env, d, g = gc.sky_lanes("cuda", cube=False)[:3]
-    calls = {"rgl_bwd tail, sample": lambda: bw.rgl_bwd(tables, mid, wi, u2, g_f, True),
-             "rgl_bwd tail, eval": lambda: bw.rgl_bwd(tables, mid, wi, wo, g_f, False)}
-    if "rotation" in inspect.signature(bw.env_radiance_bwd).parameters:
-        for rot in (False, True):
-            calls[f"env_radiance_bwd equirect, rotation {rot}"] = (
-                lambda rot=rot: bw.env_radiance_bwd(env, d, g, rotation=rot))
-    else:
-        calls["env_radiance_bwd equirect, rotation False"] = lambda: bw.env_radiance_bwd(env, d, g)
+    dev = "cuda"
+    tables, mid, wi, wo, u2, g_f = gc.rgl_lanes(dev)
+    # name -> (call, (bytes, flops) of its work)
+    calls = {"rgl_bwd tail, sample": (lambda: bw.rgl_bwd(tables, mid, wi, u2, g_f, True),
+                                      gc.rgl_bwd_work(tables, mid.shape[0], True)),
+             "rgl_bwd tail, eval": (lambda: bw.rgl_bwd(tables, mid, wi, wo, g_f, False),
+                                    gc.rgl_bwd_work(tables, mid.shape[0], False))}
+    has_rot = "rotation" in inspect.signature(bw.env_radiance_bwd).parameters
+
+    def sky_case(label, env, d, g, rot):
+        kw = {"rotation": rot} if has_rot else {}
+        calls[label] = (lambda: bw.env_radiance_bwd(env, d, g, **kw),
+                        gc.env_radiance_bwd_work(env, d, **kw))
+
+    skies = (("equirect", False, None, (False, True)), ("cube", True, None, (False,)),
+             ("constant", False, "constant", (False,)),
+             ("equirect 512 x 1024", False, "large", (False, True)))
+    for label, cube, kind, rots in skies:
+        env, d, g = gc.sky_lanes(dev, cube=cube, kind=kind)[:3]
+        for rot in rots if has_rot else (False,):
+            sky_case(f"env_radiance_bwd {label}, rotation {rot}", env, d, g, rot)
+    keys = ("ht", "o", "d", "t", "prim", "u", "v", "backside")
+    hits = {"assemble_hit_bwd cornell block": gc.cornell_lanes(dev),
+            "assemble_hit_bwd floor step": gc.floor_lanes(dev),
+            "assemble_hit_bwd tri_sphere_field": gc.field_lanes(dev)}
+    for k in ("one instant", "per ray"):
+        hits[f"assemble_hit_anim_bwd animated box, rows of {k}"] = gc.anim_lanes(
+            dev, per_ray=k == "per ray")
+        hits[f"assemble_hit_anim_bwd animated tri_sphere_field, rows of {k}"] = gc.field_lanes(
+            dev, anim=k)
+    for name, ln in hits.items():
+        fr = ln.get("frames")
+        a = [ln[k] for k in keys] + ln["cot"]
+        work = gc.assemble_hit_bwd_work(ln) if fr is None else gc.assemble_hit_anim_bwd_work(ln)
+        calls[name] = (lambda a=a, f=fr: bw.assemble_hit_bwd(*a, frames=f), work)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     out = {"tree": args.tree, "label": args.label, "package": native.__file__, "card": smi,
-           "device_us": {k: kc.device_ms(f) * 1e3 for k, f in calls.items()}}
+           "device_us": {k: kc.device_ms(f) * 1e3 for k, (f, _) in calls.items()},
+           "bound_us": {k: kc.bound_ms(*w)[0] * 1e3 for k, (_, w) in calls.items()}}
     print(json.dumps(out))
     return 0
 

@@ -11,26 +11,42 @@
 // K3T, wpt_assemble_hit_bwd: the backward of K3's full form
 //   (intersect.py:489-632) and of the winner's intersection
 //   (intersect_mxu.py:164-257, the cast's t, u, v as the hit equations
-//   give them); one thread per lane, the winner's rows scatter-added with
-//   atomicAdd (backward_common.cuh assemble_hit_bwd_lane).
+//   give them). A lane's 36 terms (a triangle's tri_f and tri_g rows, a
+//   sphere's 4 words) land on a few rows: 131072 Cornell lanes on 36
+//   triangles once made ~3600 float atomics per table word, which
+//   serialize. So the launch is persistent (as many blocks as fit, each a
+//   contiguous chunk of lanes), the warp's lanes with one winner sum their
+//   terms by shuffles first (backward_common.cuh group_sum: __match_any_sync
+//   on the row), and one lane of each group adds the sums into the block's
+//   copy of the tables in shared memory (up to 48 KB of them, every
+//   differentiable frame's scene), whose nonzero words the block adds to
+//   the tables at its end; larger tables (a mesh) take the same warp sums
+//   with global atomics (assemble_hit_bwd_lanes<ANIM, SHARED>).
 // K3aT, wpt_assemble_hit_anim_bwd: the same for K3a, the animated branch
 //   (intersect.py:505-530, :605-620): the winner's hit recomputed in its
 //   animation's object space from the lane's frame row, the world
 //   normals' and tangent's cotangents taken back through their
 //   normalizations and the normal and forward maps, and the cotangent of
-//   the winner's 30-float frame row: added atomically into the [A, 30]
-//   rows of one instant (a handful of rows: heavy contention, held like
-//   K3T's tables to a tolerance) or stored to the lane's own row of [N, A,
-//   30] per-ray rows.
+//   the winner's 30-float frame row: summed like the rows into the [A, 30]
+//   rows of one instant (warp groups on the animation id, then the block's
+//   shared copy beside the tables) or stored to the lane's own row of [N,
+//   A, 30] per-ray rows.
 // K8T, wpt_env_radiance_bwd: the backward of K8's radiance lookup
-//   (envmap.py:118-201): equirect and cube lanes one thread each, the four
-//   taps' texels scatter-added; a constant sky's radiance cotangent is the
-//   sum of the lanes', reduced per warp by shuffles before one atomicAdd
-//   per warp and channel. Where the map's rotation is on the tape, each
-//   lane's term of its cotangent (that of dm = R(conj q) d with respect to
-//   q) is summed per warp by shuffles and per block in shared memory, then
-//   added with one atomicAdd per block and component: four floats over
-//   ~10^5 lanes, ~10^3 atomics onto one address instead of ~10^6.
+//   (envmap.py:118-201), equirect and cube lanes one thread each. A warp's
+//   lanes are neighbouring pixels whose four taps fall on a few texels of a
+//   small sky, so the taps' float atomics once serialized by the dozen per
+//   address (32-40x the kernel's byte bound). Now the launch is
+//   persistent, one chunk of lanes a block; the warp's lanes of one lookup
+//   cell sum their 16 tap words by shuffles (group_sum on the cell), and one
+//   lane a group adds each tap's 4 words to the map's cotangent with one of
+//   sm_90's float4 atomics (env_radiance_bwd_lanes<ROT>). A block's copy of
+//   the map in shared memory lost to this on the skies the frames render:
+//   float adds in shared memory are compare-and-swap loops, which a sky's
+//   few texels under a warp contend on. A constant sky's radiance cotangent
+//   is the lanes' sum: per thread, then per block (one atomicAdd per block
+//   and channel). Where the map's rotation is on the tape, each lane's term
+//   of its cotangent (that of dm = R(conj q) d with respect to q) is summed
+//   per thread and per block in the same way.
 // K8T's sample, wpt_env_sample_bwd: the backward of K8's sample
 //   (envmap.py:201-234) into the rotation, dir = R(q) d_map with d_map
 //   recomputed from the uniforms, reduced as above; the pdf carries none.
@@ -51,9 +67,10 @@
 //   still), the lane's wi (and eval's wo) cotangents written.
 //
 // Bound on the card: bytes (each lane's inputs and cotangents read once,
-// its ray cotangents written once) for K3T and K8T, the atomics' traffic
-// for P0T. Built with the other kernels: -fmad=false, no fast math. Float
-// atomics make the sums' order vary from run to run: the checks
+// its ray cotangents written once, the tables read and written once) for
+// K3T and K8T, the atomics' traffic for P0T. Built with the other kernels:
+// -fmad=false, no fast math. Float atomics make the sums' order vary from
+// run to run: the checks
 // (utils/grad_check.py) hold the kernels to their plain versions relative
 // to the sum of the terms' magnitudes.
 #include <cuda_runtime.h>
@@ -92,63 +109,23 @@ row_scatter_kernel(const float* __restrict__ g, const int* __restrict__ idx, lon
     }
 }
 
-template <bool ANIM>
-__global__ void __launch_bounds__(BLOCK)
+template <bool ANIM, bool SHARED>
+__global__ void __launch_bounds__(wpt_bwd::HIT_BLOCK)
 assemble_hit_bwd_kernel(wpt_bwd::HitIn in, wpt_bwd::Tables tb, wpt_bwd::Cot c,
-                        wpt_bwd::HitOut out, wpt_bwd::AnimIn an) {
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i < in.n) wpt_bwd::assemble_hit_bwd_lane<ANIM>(i, in, tb, c, out, an);
-}
-
-// Adds v, summed over the block, to out[0..3]: shuffles within each warp,
-// the warps' sums in shared memory, one atomicAdd per component from thread
-// 0. Every thread of the block calls it.
-__device__ __forceinline__ void block_add4(float4 v, float* out) {
-    __shared__ float4 part[BLOCK / 32];
-    for (int off = 16; off > 0; off >>= 1) {
-        v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
-        v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
-        v.z += __shfl_xor_sync(0xffffffffu, v.z, off);
-        v.w += __shfl_xor_sync(0xffffffffu, v.w, off);
-    }
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    float4 s = part[0];
-    for (int k = 1; k < BLOCK / 32; ++k) {
-        s.x += part[k].x;
-        s.y += part[k].y;
-        s.z += part[k].z;
-        s.w += part[k].w;
-    }
-    wpt_bwd::add1(out, s.x);
-    wpt_bwd::add1(out + 1, s.y);
-    wpt_bwd::add1(out + 2, s.z);
-    wpt_bwd::add1(out + 3, s.w);
+                        wpt_bwd::HitOut out, wpt_bwd::AnimIn an, int n_anims, int chunk) {
+    extern __shared__ float acc[];
+    wpt_bwd::assemble_hit_bwd_lanes<ANIM, SHARED>(in, tb, c, out, an, n_anims, chunk, acc);
 }
 
 template <bool ROT>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(wpt_bwd::SKY_BLOCK)
 env_radiance_bwd_kernel(const float* __restrict__ d, int n, int kind,
                         const float4* __restrict__ img, int h, int w,
                         const float* __restrict__ rot, const float* __restrict__ g,
                         float* __restrict__ g_d, float* __restrict__ g_img,
-                        float* __restrict__ g_const, float* __restrict__ g_rot) {
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (kind != 3) {
-        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i < n) q = wpt_bwd::env_radiance_bwd_lane<ROT>(i, d, kind, img, h, w, rot, g, g_d, g_img);
-        if (ROT) block_add4(q, g_rot);
-        return;
-    }
-    // constant sky: g_d = 0, g_const = sum over lanes of g (g_rot stays 0)
-    float s[4];
-    for (int k = 0; k < 4; ++k) s[k] = i < n ? g[4 * i + k] : 0.f;
-    if (i < n) wpt_bwd::store3(g_d + 3 * i, {0.f, 0.f, 0.f});
-    for (int off = 16; off > 0; off >>= 1)
-        for (int k = 0; k < 4; ++k) s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
-    if ((threadIdx.x & 31) == 0)
-        for (int k = 0; k < 4; ++k) wpt_bwd::add1(g_const + k, s[k]);
+                        float* __restrict__ g_const, float* __restrict__ g_rot, int chunk) {
+    wpt_bwd::env_radiance_bwd_lanes<ROT>(d, n, kind, img, h, w, rot, g, g_d, g_img, g_const,
+                                         g_rot, chunk);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -159,7 +136,7 @@ env_sample_bwd_kernel(const float* __restrict__ u3, int n, const float* __restri
     const int i = blockIdx.x * BLOCK + threadIdx.x;
     float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
     if (i < n) q = wpt_bwd::env_sample_bwd_lane(i, u3, pdf, alias_prob, alias_idx, res, rot, g_dir);
-    block_add4(q, g_rot);
+    wpt_bwd::block_add4<BLOCK>(q, g_rot);
 }
 
 template <bool SAMPLE, bool FULL>
@@ -178,6 +155,55 @@ rgl_bwd_kernel(RglTables t, RglOut out, const int* __restrict__ mids,
 }
 
 inline int blocks(long long n) { return static_cast<int>((n + BLOCK - 1) / BLOCK); }
+
+// The blocks of `kernel` (`threads` each, `smem` bytes of dynamic shared
+// memory, at most 48 KB) resident on the device at once: a persistent
+// launch's grid.
+template <class K>
+int resident_blocks(K kernel, int threads, long long smem) {
+    int dev = 0, sms = 1, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
+                                                  static_cast<size_t>(smem));
+    return max(per, 1) * sms;   // none fit: the launch fails and reports it
+}
+
+// K3T (K3aT with ANIM): its tables (and K3aT's rows of one instant) summed
+// in shared memory where they fit HIT_SMEM_WORDS, else with global atomics.
+template <bool ANIM>
+int launch_assemble_hit_bwd(const wpt_bwd::HitIn& in, const wpt_bwd::Tables& tb,
+                            const wpt_bwd::Cot& c, const wpt_bwd::HitOut& out,
+                            const wpt_bwd::AnimIn& an, int n_anims, cudaStream_t s) {
+    const int rows = ANIM && an.stride == 0 ? n_anims : 0;
+    constexpr int T = wpt_bwd::HIT_BLOCK;
+    int chunk = 0;
+    if (wpt_bwd::hit_takes_shared(tb.n_tris, tb.n_spheres, rows, wpt_bwd::HIT_SMEM_WORDS)) {
+        const long long smem = wpt_bwd::hit_table_words(tb.n_tris, tb.n_spheres, rows) * 4;
+        const int grid = wpt_bwd::chunked_grid(
+            in.n, resident_blocks(assemble_hit_bwd_kernel<ANIM, true>, T, smem), T, &chunk);
+        assemble_hit_bwd_kernel<ANIM, true>
+            <<<grid, T, smem, s>>>(in, tb, c, out, an, n_anims, chunk);
+    } else {
+        const int grid = wpt_bwd::chunked_grid(
+            in.n, resident_blocks(assemble_hit_bwd_kernel<ANIM, false>, T, 0), T, &chunk);
+        assemble_hit_bwd_kernel<ANIM, false>
+            <<<grid, T, 0, s>>>(in, tb, c, out, an, n_anims, chunk);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROT>
+void launch_env_radiance_bwd(const float* d, int n, int kind, const float4* img, int h, int w,
+                             const float* rot, const float* g, float* g_d, float* g_img,
+                             float* g_const, float* g_rot, cudaStream_t s) {
+    constexpr int T = wpt_bwd::SKY_BLOCK;
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(
+        n, resident_blocks(env_radiance_bwd_kernel<ROT>, T, 0), T, &chunk);
+    env_radiance_bwd_kernel<ROT><<<grid, T, 0, s>>>(d, n, kind, img, h, w, rot, g, g_d, g_img,
+                                                    g_const, g_rot, chunk);
+}
 
 }  // namespace
 
@@ -201,6 +227,7 @@ extern "C" int wpt_row_scatter(const float* g, const int* idx, int n, int cols, 
     return static_cast<int>(cudaGetLastError());
 }
 
+// The tables' cotangents are zeroed by the caller.
 extern "C" int wpt_assemble_hit_bwd(const float* o, const float* d, const float* t,
                                     const int* prim, const float* u, const float* v,
                                     const bool* backside, int n, const float* tri_g,
@@ -210,19 +237,18 @@ extern "C" int wpt_assemble_hit_bwd(const float* o, const float* d, const float*
                                     const float* g_tan, const float* g_uv, float* g_o,
                                     float* g_d, float* g_tri_g, float* g_tri_f, float* g_sph_f,
                                     void* stream) {
-    if (n > 0)
-        assemble_hit_bwd_kernel<false>
-            <<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-                wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
-                wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
-                wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
-                wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f}, wpt_bwd::AnimIn{});
-    return static_cast<int>(cudaGetLastError());
+    if (n <= 0) return static_cast<int>(cudaGetLastError());
+    return launch_assemble_hit_bwd<false>(
+        wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
+        wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
+        wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
+        wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f}, wpt_bwd::AnimIn{}, 0,
+        static_cast<cudaStream_t>(stream));
 }
 
 // K3aT: wpt_assemble_hit_bwd's arguments, then the winners' animation ids,
-// the frame rows ([A, 30] with fstride 0, or [N, A, 30] with fstride A 30)
-// and their cotangents (zeroed by the caller).
+// the frame rows ([A, 30] with fstride 0, or [N, A, 30] with fstride A 30),
+// A and the rows' cotangents (zeroed by the caller).
 extern "C" int wpt_assemble_hit_anim_bwd(
     const float* o, const float* d, const float* t, const int* prim, const float* u,
     const float* v, const bool* backside, int n, const float* tri_g, const float* tri_f,
@@ -230,33 +256,32 @@ extern "C" int wpt_assemble_hit_anim_bwd(
     const float* g_pos, const float* g_nrm, const float* g_gn, const float* g_tan,
     const float* g_uv, float* g_o, float* g_d, float* g_tri_g, float* g_tri_f, float* g_sph_f,
     const int* tri_anim, const int* sph_anim, const float* frames, long long fstride,
-    float* g_frames, void* stream) {
-    if (n > 0)
-        assemble_hit_bwd_kernel<true>
-            <<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-                wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
-                wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
-                wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
-                wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f},
-                wpt_bwd::AnimIn{tri_anim, sph_anim, frames, fstride, g_frames});
-    return static_cast<int>(cudaGetLastError());
+    int n_anims, float* g_frames, void* stream) {
+    if (n <= 0) return static_cast<int>(cudaGetLastError());
+    return launch_assemble_hit_bwd<true>(
+        wpt_bwd::HitIn{o, d, t, prim, u, v, backside, n},
+        wpt_bwd::Tables{tri_g, tri_f, tri_i, n_tris, sph_f, n_spheres},
+        wpt_bwd::Cot{g_t, g_pos, g_nrm, g_gn, g_tan, g_uv},
+        wpt_bwd::HitOut{g_o, g_d, g_tri_g, g_tri_f, g_sph_f},
+        wpt_bwd::AnimIn{tri_anim, sph_anim, frames, fstride, g_frames}, n_anims,
+        static_cast<cudaStream_t>(stream));
 }
 
-// g_rot: the rotation's cotangent [4] (zeroed by the caller), or null where
-// the rotation carries none: then the launch skips the rotation's term and
-// its reduction.
+// g_img and g_const are zeroed by the caller; g_rot: the rotation's
+// cotangent [4] (zeroed by the caller), or null where the rotation carries
+// none: then the launch skips the rotation's term and its reduction.
 extern "C" int wpt_env_radiance_bwd(const float* d, int n, int kind, const float* img, int h,
                                     int w, const float* rot, const float* g, float* g_d,
                                     float* g_img, float* g_const, float* g_rot, void* stream) {
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
         const float4* im = reinterpret_cast<const float4*>(img);
-        if (g_rot != nullptr)
-            env_radiance_bwd_kernel<true><<<blocks(n), BLOCK, 0, s>>>(d, n, kind, im, h, w, rot, g,
-                                                                      g_d, g_img, g_const, g_rot);
+        if (g_rot != nullptr && kind != 3)
+            launch_env_radiance_bwd<true>(d, n, kind, im, h, w, rot, g, g_d, g_img, g_const,
+                                          g_rot, s);
         else
-            env_radiance_bwd_kernel<false><<<blocks(n), BLOCK, 0, s>>>(
-                d, n, kind, im, h, w, rot, g, g_d, g_img, g_const, g_rot);
+            launch_env_radiance_bwd<false>(d, n, kind, im, h, w, rot, g, g_d, g_img, g_const,
+                                           g_rot, s);
     }
     return static_cast<int>(cudaGetLastError());
 }

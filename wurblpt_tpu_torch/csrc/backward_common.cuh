@@ -7,10 +7,17 @@
 // Each lane function follows the plain PyTorch version
 // (wurblpt_tpu_torch/render/backward.py assemble_hit_bwd_plain,
 // env_radiance_bwd_plain; K7T: autograd through materials/rgl.py's
-// rgl_eval_plain / rgl_sample_plain) term by term; the scatter into the tables is an
-// atomicAdd per nonzero term, so sums land in an order that varies from
-// run to run (the checks hold them to a tolerance relative to the sum of
-// the terms' magnitudes).
+// rgl_eval_plain / rgl_sample_plain) term by term. K7T scatters each
+// nonzero term into its table with an atomicAdd. K3T and K8T hand their
+// lane's terms to their block functions (assemble_hit_bwd_lanes,
+// env_radiance_bwd_lanes), which first sum them over the lanes of a warp
+// that add to the same row or texel cell (group_sum: __match_any_sync and a
+// shuffle tree), then add each group's sums: K3T into a block-private copy
+// of its tables in shared memory where they fit (its nonzero words added to
+// the tables at the end), else into the tables; K8T into the map with one
+// float4 atomic a texel.
+// Float atomics make the sums' order vary from run to run (the checks hold
+// them to a tolerance relative to the sum of the terms' magnitudes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -111,6 +118,19 @@ struct AnimIn {
     float* g_frames;
 };
 
+// One lane's terms of the tables (K3T, K3aT), which the block function
+// sums over the lanes that share a row: the winner's row (a triangle's
+// prim id, a sphere's n_tris + its index; -1: none) and its terms (a
+// triangle's TRI_F words of tri_f, then its TRI_G words of tri_g; a
+// sphere's 4 words of sph_f), and at one instant (K3aT) the winner's frame
+// row (-1: none) and its FRAME terms.
+struct HitTerms {
+    int row;
+    float v[TRI_F + TRI_G];
+    int frame;
+    float f[FRAME];
+};
+
 // m v and m^T v for a row-major 3 x 3 m.
 __device__ __forceinline__ V3 matvec(const float* m, V3 a) {
     return {m[0] * a.x + m[1] * a.y + m[2] * a.z, m[3] * a.x + m[4] * a.y + m[5] * a.z,
@@ -128,17 +148,19 @@ __device__ __forceinline__ void outer_add(float* r, V3 a, V3 b) {
         for (int j = 0; j < 3; ++j) r[3 * k + j] += av[k] * bv[j];
 }
 
-// K3T for lane i (render/backward.py assemble_hit_bwd_plain); ANIM: K3aT,
-// the winner's hit in its animation's object space (o_s = r_inv (o -
-// t_inv), d_s = r_inv d from the lane's row), its normals pushed to world
-// by m_nrm and its tangent by m_fwd, each normalized: the world
-// cotangents go back through both, the object-space backward runs on
-// (o_s, d_s), and the row's cotangent is added into g_frames (atomically
-// at one instant; the lane's own row under per-ray rows).
+// K3T for lane i (render/backward.py assemble_hit_bwd_plain): g_o and g_d
+// written, the tables' terms left in h (h.row and h.frame -1 where there
+// are none; the caller zeroes h.v and h.f). ANIM: K3aT, the winner's hit in
+// its animation's object space (o_s = r_inv (o - t_inv), d_s = r_inv d
+// from the lane's row), its normals pushed to world by m_nrm and its
+// tangent by m_fwd, each normalized: the world cotangents go back through
+// both, the object-space backward runs on (o_s, d_s), and the row's
+// cotangent goes to h.f at one instant, to the lane's own row of g_frames
+// under per-ray rows.
 template <bool ANIM>
 __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, const Tables& tb,
                                                       const Cot& c, const HitOut& out,
-                                                      const AnimIn& an) {
+                                                      const AnimIn& an, HitTerms& h) {
     const int p = in.prim[i];
     const bool hit = p >= 0;
     const int ps = hit ? p : 0;
@@ -156,8 +178,9 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
     const float* fr = nullptr;
     float* gfr = nullptr;
     V3 os = o, ds = d, pos_s = pos, oo = o;
+    int aid = 0;
     if (ANIM) {
-        const int aid =
+        aid =
             is_tri ? an.tri_anim[ps]
                    : (tb.n_spheres > 0 ? an.sph_anim[min(max(ps - tb.n_tris, 0), tb.n_spheres - 1)]
                                        : 0);
@@ -252,20 +275,21 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
         const float dv0 = row[13] - row[9], dv1 = row[14] - row[10];
         g_u = dot(g_nraw, n1 - n0) + dot(g_traw, t1 - t0) + (g_uu * du0 + g_uvv * du1);
         g_v = dot(g_nraw, n2 - n0) + dot(g_traw, t2 - t0) + (g_uu * dv0 + g_uvv * dv1);
-        float* gr = out.g_tri_f + static_cast<long>(ps) * TRI_F;
-        add3(gr, w * g_nraw);
-        add3(gr + 3, u * g_nraw);
-        add3(gr + 6, v * g_nraw);
-        add1(gr + 9, w * g_uu);
-        add1(gr + 10, w * g_uvv);
-        add1(gr + 11, u * g_uu);
-        add1(gr + 12, u * g_uvv);
-        add1(gr + 13, v * g_uu);
-        add1(gr + 14, v * g_uvv);
-        add3(gr + 15, w * g_traw);
-        add3(gr + 18, u * g_traw);
-        add3(gr + 21, v * g_traw);
-        add3(gr + 24, g_go);
+        float* gr = h.v;
+        h.row = ps;
+        store3(gr, w * g_nraw);
+        store3(gr + 3, u * g_nraw);
+        store3(gr + 6, v * g_nraw);
+        gr[9] = w * g_uu;
+        gr[10] = w * g_uvv;
+        gr[11] = u * g_uu;
+        gr[12] = u * g_uvv;
+        gr[13] = v * g_uu;
+        gr[14] = v * g_uvv;
+        store3(gr + 15, w * g_traw);
+        store3(gr + 18, u * g_traw);
+        store3(gr + 21, v * g_traw);
+        store3(gr + 24, g_go);
     } else if (tb.n_spheres > 0) {
         V3 g_ns = g_no + g_go;
         // lat/long uv: u = 1/2 + atan2(x, z) / 2 pi, v = 1/2 + asin(y) / pi
@@ -303,10 +327,10 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
         const V3 lam = (g_tt * nv + g_u * pv + g_v * qv) / dot(ds, nv);
         g_os = g_os - lam;
         g_ds = g_ds - t * lam;
-        float* gg = out.g_tri_g + static_cast<long>(ps) * TRI_G;
-        add3(gg, lam);
-        add3(gg + 3, u * lam);
-        add3(gg + 6, v * lam);
+        float* gg = h.v + TRI_F;
+        store3(gg, lam);
+        store3(gg + 3, u * lam);
+        store3(gg + 6, v * lam);
     } else if (tb.n_spheres > 0) {
         if (hit) {   // |o + t d - c| = r
             const V3 q = pos_s - sc;
@@ -316,9 +340,9 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
             g_c = g_c + s * q;
             g_r = g_r + s * sr;
         }
-        float* gs = out.g_sph_f + 4 * si;
-        add3(gs, g_c);
-        add1(gs + 3, g_r);
+        h.row = tb.n_tris + si;
+        store3(h.v, g_c);
+        h.v[3] = g_r;
     }
     V3 g_o = g_os, g_d = g_ds;
     if (ANIM) {
@@ -332,7 +356,8 @@ __device__ __forceinline__ void assemble_hit_bwd_lane(int i, const HitIn& in, co
         grow[10] = g_ti.y;
         grow[11] = g_ti.z;
         if (an.stride == 0) {
-            for (int k = 0; k < FRAME; ++k) add1(gfr + k, grow[k]);
+            h.frame = aid;
+            for (int k = 0; k < FRAME; ++k) h.f[k] = grow[k];
         } else {
             for (int k = 0; k < FRAME; ++k) gfr[k] = grow[k];
         }
@@ -379,22 +404,34 @@ __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
     return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
 }
 
-__device__ __forceinline__ void add4(float* p, const float* g, float s) {
-    for (int k = 0; k < 4; ++k) add1(p + k, g[k] * s);
+// One lane's terms of the map's cotangent (K8T): its four taps' texels
+// (tap[0] also names the lookup's cell: the other three follow from it)
+// and their 4 words each, v[4 k + c] for tap k and channel c.
+struct SkyTaps {
+    int tap[4];
+    float v[16];
+};
+
+__device__ __forceinline__ void scale4(float* p, const float* g, float s) {
+    for (int k = 0; k < 4; ++k) p[k] = g[k] * s;
 }
 
 // The bilinear lookup's backward: taps i00 (1 - fx)(1 - fy), i01 fx (1 - fy),
-// i10 (1 - fx) fy, i11 fx fy scatter-added into g_img; returns the
+// i10 (1 - fx) fy, i11 fx fy and their cotangents left in t; returns the
 // cotangents of fx and fy.
-__device__ __forceinline__ void bilinear_bwd(const float4* img, float* g_img, const float* g,
+__device__ __forceinline__ void bilinear_bwd(const float4* img, SkyTaps& t, const float* g,
                                              int i00, int i01, int i10, int i11, float fx,
                                              float fy, float* g_fx, float* g_fy) {
     const float4 c00 = img[i00], c01 = img[i01], c10 = img[i10], c11 = img[i11];
     const float gx = 1.f - fx, gy = 1.f - fy;
-    add4(g_img + 4 * i00, g, gx * gy);
-    add4(g_img + 4 * i01, g, fx * gy);
-    add4(g_img + 4 * i10, g, gx * fy);
-    add4(g_img + 4 * i11, g, fx * fy);
+    t.tap[0] = i00;
+    t.tap[1] = i01;
+    t.tap[2] = i10;
+    t.tap[3] = i11;
+    scale4(t.v, g, gx * gy);
+    scale4(t.v + 4, g, fx * gy);
+    scale4(t.v + 8, g, gx * fy);
+    scale4(t.v + 12, g, fx * fy);
     const float4 a = sub4(c01, c00), b = sub4(c11, c10);
     *g_fx = dot4(g, make_float4(a.x * gy + b.x * fy, a.y * gy + b.y * fy, a.z * gy + b.z * fy,
                                 a.w * gy + b.w * fy));
@@ -402,15 +439,15 @@ __device__ __forceinline__ void bilinear_bwd(const float4* img, float* g_img, co
 }
 
 // K8T for lane i of an equirect (kind 1) or cube (kind 2) map
-// (render/backward.py env_radiance_bwd_plain): the texels' cotangents
-// scatter-added into g_img, the direction's written to g_d; returns the
-// lane's term of the rotation's cotangent (ROT; zero otherwise), that of
-// dm = quat_rotate(conj(q), d) with respect to q.
+// (render/backward.py env_radiance_bwd_plain): the texels' cotangents left
+// in t, the direction's written to g_d; returns the lane's term of the
+// rotation's cotangent (ROT; zero otherwise), that of dm =
+// quat_rotate(conj(q), d) with respect to q.
 template <bool ROT>
 __device__ __forceinline__ float4 env_radiance_bwd_lane(int i, const float* d, int kind,
                                                         const float4* img, int h, int w,
                                                         const float* rot, const float* g,
-                                                        float* g_d, float* g_img) {
+                                                        float* g_d, SkyTaps& t) {
     const float* gi = g + 4 * i;
     const V3 di = load3(d + 3 * i);
     const V3 dm = quat_rotate(-rot[0], -rot[1], -rot[2], rot[3], di);
@@ -426,7 +463,7 @@ __device__ __forceinline__ float4 env_radiance_bwd_lane(int i, const float* d, i
         const int x1i = (x0i + 1) % w;
         const int y1i = min(y0i + 1, h - 1);
         float g_fx, g_fy;
-        bilinear_bwd(img, g_img, gi, y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i,
+        bilinear_bwd(img, t, gi, y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i,
                      x - x0, y - y0, &g_fx, &g_fy);
         const float g_u = g_fx * static_cast<float>(w), g_v = g_fy * static_cast<float>(h);
         const float tu = g_u * INV_2PI / (dm.x * dm.x + dm.z * dm.z);
@@ -464,7 +501,7 @@ __device__ __forceinline__ float4 env_radiance_bwd_lane(int i, const float* d, i
         const int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
         const int f = face * h * w;
         float g_a, g_b;
-        bilinear_bwd(img, g_img, gi, f + y0 * w + x0, f + y0 * w + x1, f + y1 * w + x0,
+        bilinear_bwd(img, t, gi, f + y0 * w + x0, f + y0 * w + x1, f + y1 * w + x0,
                      f + y1 * w + x1, us - static_cast<float>(x0), vs - static_cast<float>(y0),
                      &g_a, &g_b);
         const float g_u = us_ >= 0.f ? g_a * static_cast<float>(w) : 0.f;
@@ -500,6 +537,226 @@ __device__ __forceinline__ float4 env_sample_bwd_lane(int i, const float* u3, co
                         &dm);
     return quat_rotate_bwd_q({rot[0], rot[1], rot[2]}, rot[3], {dm.x, dm.y, dm.z},
                              load3(g_dir + 3 * i));
+}
+
+// ---------------------------------------------------------------------------
+// K3T's and K8T's block functions: each lane's terms summed over the lanes
+// of its warp that add to the same row or cell, then per block
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int HIT_BLOCK = 256;          // K3T's and K3aT's threads a block
+constexpr int SKY_BLOCK = 1024;         // K8T's (at most 64 registers a thread)
+constexpr int HIT_SMEM_WORDS = 12288;   // 48 KB: the largest hit tables summed in shared memory
+
+// Sums v over the lanes of the warp whose key equals this lane's. Every
+// thread of the warp calls it, each with its own key; a key below 0 is no
+// group and sums nothing. A group's lanes, ranked in lane order, sum as a
+// tree: at step s = 1, 2, 4, ... rank r (a multiple of 2 s) adds the
+// partial sum of rank r + s, an order fixed by the group's lanes. Returns
+// true in the group's first lane, which then holds the group's sums.
+template <int N>
+__device__ __forceinline__ bool group_sum(int key, float (&v)[N]) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned peers = __match_any_sync(FULL_MASK, key);
+    const unsigned below = peers & ((1u << lane) - 1u);
+    unsigned above = peers & ~below & ~(1u << lane);   // at step s: less its first s - 1
+    const int rank = __popc(below);
+    const int size = key >= 0 ? __popc(peers) : 1;
+    const int most = __reduce_max_sync(FULL_MASK, size);
+    for (int s = 1; s < most; s <<= 1) {
+        const bool take = (rank & (2 * s - 1)) == 0 && rank + s < size;
+        const int src = take ? __ffs(above) - 1 : static_cast<int>(lane);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            const float o = __shfl_sync(FULL_MASK, v[j], src);
+            if (take) v[j] += o;
+        }
+        for (int k = 0; k < s; ++k) above &= above - 1u;
+    }
+    return key >= 0 && rank == 0;
+}
+
+// Adds v, summed over the block of B threads, to out[0..3]: shuffles within
+// each warp, the warps' sums in shared memory, one atomicAdd per nonzero
+// component from thread 0. Every thread of the block calls it, last.
+template <int B>
+__device__ __forceinline__ void block_add4(float4 v, float* out) {
+    __shared__ float4 part[B / 32];
+    for (int off = 16; off > 0; off >>= 1) {
+        v.x += __shfl_xor_sync(FULL_MASK, v.x, off);
+        v.y += __shfl_xor_sync(FULL_MASK, v.y, off);
+        v.z += __shfl_xor_sync(FULL_MASK, v.z, off);
+        v.w += __shfl_xor_sync(FULL_MASK, v.w, off);
+    }
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    float4 s = part[0];
+    for (int k = 1; k < B / 32; ++k) {
+        s.x += part[k].x;
+        s.y += part[k].y;
+        s.z += part[k].z;
+        s.w += part[k].w;
+    }
+    add1(out, s.x);
+    add1(out + 1, s.y);
+    add1(out + 2, s.z);
+    add1(out + 3, s.w);
+}
+
+// Adds v to a texel's 4 words in global memory (16-byte aligned) where any
+// is nonzero: one vector atomic (sm_90's float4 atomicAdd, each word added
+// atomically), a quarter of the scalar atomics' operations.
+__device__ __forceinline__ void add_texel(float* p, float4 v) {
+    if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+        atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// A persistent launch over n lanes with at most `resident` blocks: each
+// block takes a contiguous chunk of lanes, a multiple of `block`, so that
+// its loop makes the same trips in every thread and its terms land on a
+// local part of the tables. Returns the grid and sets *chunk.
+inline int chunked_grid(long long n, int resident, int block, int* chunk) {
+    const long long per = (n + resident - 1) / resident;
+    const long long c = (per + block - 1) / block * block;
+    *chunk = static_cast<int>(c);
+    return static_cast<int>((n + c - 1) / c);
+}
+
+// K3T's and K3aT's tables summed in shared memory, in words: tri_f, tri_g,
+// sph_f and (K3aT at one instant) the [A, FRAME] frame rows, in that order.
+__host__ __device__ inline long long hit_table_words(int n_tris, int n_spheres, int frame_rows) {
+    return static_cast<long long>(n_tris) * (TRI_F + TRI_G) + 4LL * n_spheres +
+           static_cast<long long>(FRAME) * frame_rows;
+}
+
+// Whether K3T (frame_rows 0) or K3aT (frame_rows A at one instant, 0 per
+// ray) sums its tables in shared memory: where they fit `limit_words`
+// (HIT_SMEM_WORDS on the card).
+inline bool hit_takes_shared(int n_tris, int n_spheres, int frame_rows, long long limit_words) {
+    return hit_table_words(n_tris, n_spheres, frame_rows) <= limit_words;
+}
+
+// Where a block adds its groups' sums: its tables in shared memory, or the
+// tables' cotangents themselves.
+struct HitSink {
+    float *tri_f, *tri_g, *sph_f, *frames;
+};
+
+// K3T (ANIM: K3aT) over the block's chunk of lanes [blockIdx.x chunk, +
+// chunk): each lane's terms (assemble_hit_bwd_lane) summed over the warp's
+// lanes of one row (group_sum on the row; K3aT's rows of one instant on the
+// frame row), each group's sums added by its first lane into the block's
+// tables in shared memory (SHARED: `acc`, hit_table_words of them with the
+// n_anims rows of one instant, zeroed here and their nonzero words added to
+// the tables at the end) or into the tables. Every thread calls it.
+template <bool ANIM, bool SHARED>
+__device__ __forceinline__ void assemble_hit_bwd_lanes(const HitIn& in, const Tables& tb,
+                                                       const Cot& c, const HitOut& out,
+                                                       const AnimIn& an, int n_anims, int chunk,
+                                                       float* acc) {
+    const bool one_instant = ANIM && an.stride == 0;
+    const long long f_words = static_cast<long long>(tb.n_tris) * TRI_F;
+    const long long t_words = static_cast<long long>(tb.n_tris) * (TRI_F + TRI_G);
+    const long long s_words = t_words + 4LL * tb.n_spheres;
+    const long long words = hit_table_words(tb.n_tris, tb.n_spheres, one_instant ? n_anims : 0);
+    HitSink sink{out.g_tri_f, out.g_tri_g, out.g_sph_f, an.g_frames};
+    if (SHARED) {
+        for (long long k = threadIdx.x; k < words; k += HIT_BLOCK) acc[k] = 0.f;
+        sink = HitSink{acc, acc + f_words, acc + t_words, acc + s_words};
+        __syncthreads();
+    }
+    const int start = blockIdx.x * chunk;
+    const int end = min(in.n, start + chunk);
+    for (int base = start; base < end; base += HIT_BLOCK) {
+        const int i = base + static_cast<int>(threadIdx.x);
+        HitTerms h;
+        h.row = -1;
+        h.frame = -1;
+        for (int j = 0; j < TRI_F + TRI_G; ++j) h.v[j] = 0.f;
+        for (int k = 0; k < FRAME; ++k) h.f[k] = 0.f;
+        if (i < end) assemble_hit_bwd_lane<ANIM>(i, in, tb, c, out, an, h);
+        if (group_sum(h.row, h.v)) {
+            if (h.row < tb.n_tris) {
+                float* rf = sink.tri_f + static_cast<long long>(h.row) * TRI_F;
+                float* rg = sink.tri_g + static_cast<long long>(h.row) * TRI_G;
+                for (int j = 0; j < TRI_F; ++j) add1(rf + j, h.v[j]);
+                for (int j = 0; j < TRI_G; ++j) add1(rg + j, h.v[TRI_F + j]);
+            } else {
+                float* rs = sink.sph_f + 4LL * (h.row - tb.n_tris);
+                for (int j = 0; j < 4; ++j) add1(rs + j, h.v[j]);
+            }
+        }
+        if (one_instant && group_sum(h.frame, h.f)) {
+            float* rf = sink.frames + static_cast<long long>(h.frame) * FRAME;
+            for (int k = 0; k < FRAME; ++k) add1(rf + k, h.f[k]);
+        }
+    }
+    if (SHARED) {
+        __syncthreads();
+        for (long long k = threadIdx.x; k < words; k += HIT_BLOCK) {
+            const float s = acc[k];
+            if (s == 0.f) continue;
+            float* dst = k < f_words   ? out.g_tri_f + k
+                         : k < t_words ? out.g_tri_g + (k - f_words)
+                         : k < s_words ? out.g_sph_f + (k - t_words)
+                                       : an.g_frames + (k - s_words);
+            atomicAdd(dst, s);
+        }
+    }
+}
+
+// K8T over the block's chunk of lanes [blockIdx.x chunk, + chunk). An
+// equirect or cube map: each lane's taps (env_radiance_bwd_lane) summed over
+// the warp's lanes of one lookup cell (group_sum; a lane whose cotangent is
+// zero adds nothing), each group's sums added by its first lane to g_img, a
+// texel's 4 words by one vector atomic. ROT: the lanes' rotation terms
+// summed per thread, then per block (block_add4). A constant sky (kind 3):
+// g_d = 0 and the lanes' cotangents summed per thread, then per block into
+// g_const. Every thread calls it.
+template <bool ROT>
+__device__ __forceinline__ void env_radiance_bwd_lanes(const float* d, int n, int kind,
+                                                       const float4* img, int h, int w,
+                                                       const float* rot, const float* g,
+                                                       float* g_d, float* g_img, float* g_const,
+                                                       float* g_rot, int chunk) {
+    const int start = blockIdx.x * chunk;
+    const int end = min(n, start + chunk);
+    if (kind == 3) {   // g_rot stays 0
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = start + static_cast<int>(threadIdx.x); i < end; i += SKY_BLOCK) {
+            s.x += g[4 * i];
+            s.y += g[4 * i + 1];
+            s.z += g[4 * i + 2];
+            s.w += g[4 * i + 3];
+            store3(g_d + 3 * i, {0.f, 0.f, 0.f});
+        }
+        block_add4<SKY_BLOCK>(s, g_const);
+        return;
+    }
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int base = start; base < end; base += SKY_BLOCK) {
+        const int i = base + static_cast<int>(threadIdx.x);
+        SkyTaps t;
+        for (int j = 0; j < 16; ++j) t.v[j] = 0.f;
+        int cell = -1;
+        if (i < end) {
+            const float4 qi = env_radiance_bwd_lane<ROT>(i, d, kind, img, h, w, rot, g, g_d, t);
+            q.x += qi.x;
+            q.y += qi.y;
+            q.z += qi.z;
+            q.w += qi.w;
+            const float* gi = g + 4 * i;
+            if (gi[0] != 0.f || gi[1] != 0.f || gi[2] != 0.f || gi[3] != 0.f) cell = t.tap[0];
+        }
+        if (group_sum(cell, t.v))
+            for (int k = 0; k < 4; ++k) {
+                const float* v = t.v + 4 * k;
+                add_texel(g_img + 4LL * t.tap[k], make_float4(v[0], v[1], v[2], v[3]));
+            }
+    }
+    if (ROT) block_add4<SKY_BLOCK>(q, g_rot);
 }
 
 // ---------------------------------------------------------------------------

@@ -110,7 +110,7 @@ _SIGNATURES = {
     "wpt_row_scatter": [_P, _P, _I, _I, _I, _P, _P],
     "wpt_assemble_hit_bwd": [_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 12,
     "wpt_assemble_hit_anim_bwd": ([_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 11
-                                  + [_P, _P, _P, _L, _P, _P]),
+                                  + [_P, _P, _P, _L, _I, _P, _P]),
     "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "wpt_env_sample_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_rgl_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],

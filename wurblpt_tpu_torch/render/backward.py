@@ -33,9 +33,12 @@ kernel of its own (``csrc/backward.cu``) with a plain PyTorch version:
   clamp in v), the cube map's per-face bilinear lookup with edge clamp and
   the constant sky: cotangents of the texels (scatter-added) or of the
   constant radiance, of the direction and, where it is on the tape, of the
-  map's rotation (each lane's term of dm = R(conj q) d, summed). Its
-  sample's backward (`env_sample_bwd`): the cotangent of the rotation from
-  that of env_sample's direction R(q) d_map (the pdf carries none).
+  map's rotation (each lane's term of dm = R(conj q) d, summed). K3T's and
+  K8T's kernels sum a warp's terms for one row or texel cell before adding
+  them: K3T per block in shared memory where its tables fit 48 KB, else to
+  the tables; K8T to the map. K8T's sample backward (`env_sample_bwd`):
+  the cotangent of the rotation from that of env_sample's direction R(q)
+  d_map (the pdf carries none).
 * K7T (`rgl_bwd`): K7's eval or sample (the measured RGL BRDF). Its tail
   form, where only the tables its reflectance tail reads are on the tape,
   max(rgb, 0) x ndf / max(4 sigma, 1e-12) (`materials.rgl.TAIL_TABLES`):
@@ -402,7 +405,8 @@ def assemble_hit_bwd(ht, o, d, t, prim, u, v, backside, g_t, g_pos, g_nrm, g_gn,
         g_frames = torch.zeros_like(frames)
         code = lib.wpt_assemble_hit_anim_bwd(*args, ht.tri_anim.data_ptr(),
                                              ht.sph_anim.data_ptr(), frames.data_ptr(), stride,
-                                             g_frames.data_ptr(), native.stream_ptr(o))
+                                             ht.n_anims, g_frames.data_ptr(),
+                                             native.stream_ptr(o))
         name = "assemble_hit_anim_bwd"
     native.check(code, name)
     native.LAUNCHES[name] += 1

@@ -8,7 +8,11 @@ gradient checks of ``chip_smoke.py``'s `grad` phase.
   winners with the rows of one instant and per-ray rows (`anim_lanes`), K8T
   (`env_radiance_bwd`) on the envmap frame's directions (camera lanes and
   random ones) on the equirect and the cube map, each with random
-  cotangents made by numpy from a seed. The plain versions of K3T and K8T
+  cotangents made by numpy from a seed. Beside those, shapes that take each
+  of K3T's and K8T's paths: K3T on the floor step's lanes (`floor_lanes`)
+  and on tables past its shared memory (`field_lanes`, also animated for
+  K3aT), K8T on a constant and a 512 x 1024 sky (`sky_lanes`' kinds
+  "constant", "large"). The plain versions of K3T and K8T
   run on the CPU on copies of the same inputs: PyTorch's CUDA ops contract
   a * b - c into an FMA, which turns terms that cancel to 0 (a
   Gram-Schmidt residual) into rounding noise that no -fmad=false kernel
@@ -79,7 +83,7 @@ from ..render.backward import (
     row_scatter,
     row_scatter_plain,
 )
-from ..render.envmap import EnvironmentMapConstant, build_envmap_arrays
+from ..render.envmap import EnvironmentMapConstant, EnvironmentMapEquiRect, build_envmap_arrays
 from ..render.bsdf import SceneStatic
 from ..render.camera import CameraConfig, make_camera
 from ..render.integrator import (
@@ -94,6 +98,8 @@ from ..render.intersect_brute import BIG
 from ..render.sensor import SensorRGB
 from ..render.wavefront import LoopState
 from ..scene import builder as B
+from ..scene.flatten import MeshSpec, SphereSpec, flatten_meshes, material_table
+from ..scene.ir import MaterialType
 from ..scene import generator as G
 from . import kernel_check as kc
 from . import scenes
@@ -162,14 +168,23 @@ def cornell_lanes(device, bounces: int = 2, seed: int = 20):
 SKY_ROTATION = (0.1, 0.3, -0.2, 0.9)
 
 
+# A user's HDR sky, wider than the frames' 64 x 128: `procedural_sky` at 512 x
+# 1024 (a texel or two a lane).
+LARGE_SKY_HEIGHT = 512
+
+
 def sky_lanes(device, cube: bool, seed: int = 21, kind: str = None, rotated: bool = False):
     """(map, directions, cotangents): the envmap frame's camera directions
     (kc.camera_lanes at its size, 131072) and as many random unit ones, on
     envmap_spheres' equirect or cube sky (kind "constant": a constant sky of
-    radiance (0.3, 0.5, 0.7)), turned by SKY_ROTATION if `rotated`, with
-    random cotangents [N, 4]."""
+    radiance (0.3, 0.5, 0.7); kind "large": `procedural_sky` at
+    LARGE_SKY_HEIGHT rows, twice as many columns),
+    turned by SKY_ROTATION if `rotated`, with random cotangents [N, 4]."""
     if kind == "constant":
         env = build_envmap_arrays(EnvironmentMapConstant((0.3, 0.5, 0.7)), device)
+    elif kind == "large":
+        env = build_envmap_arrays(EnvironmentMapEquiRect(scenes.procedural_sky(LARGE_SKY_HEIGHT)),
+                                  device)
     else:
         env = scenes.envmap_spheres(cube=cube, device=device).envmap
     if rotated:
@@ -240,6 +255,63 @@ def check_assemble_hit_bwd(lanes) -> Dict[str, float]:
     return res
 
 
+def hit_lanes(scene, camera, width: int, m: int, device, seed: int, frames=None):
+    """K3T's inputs (K3aT's with `frames`, [A, 30] or [N, A, 30]): `camera`'s
+    (None: the Cornell bench camera's) width^2 x m camera lanes
+    (kc.camera_lanes) over `scene`, cast and assembled by K3 (K3a with the
+    frame rows), with random cotangents from a seed: the dict of
+    cornell_lanes' K3T keys and `frames`."""
+    tables = prepare_scene(scene, SceneStatic.from_scene(scene), step=False)
+    o, d, t_min, t_max = kc.camera_lanes(width, width, m, device, camera=camera)
+    n = o.shape[0]
+    with torch.no_grad():
+        t, prim, u, v = scene_raw_hit(tables.accel, o, d, t_min, t_max, frames)
+        rec = assemble_hit_raw(tables.hit, o, d, t, prim, u, v, frames)
+    rng = np.random.default_rng(seed)
+    cot = [_f32(rng, s, device) for s in ((n,), (n, 3), (n, 3), (n, 3), (n, 3), (n, 2))]
+    return dict(ht=tables.hit, o=o, d=d, t=t, prim=prim, u=u, v=v, backside=rec.backside, cot=cot,
+                frames=frames)
+
+
+def floor_lanes(device, seed: int = 26):
+    """K3T's inputs at the differentiable floor step's shape (`floor_loss`:
+    128 x 128, 4 spp, 65536 lanes): the sphere-lit floor's camera lanes, all
+    of whose winners are the floor's 2 triangles."""
+    return hit_lanes(scenes.sphere_lit_floor(device), scenes.sphere_lit_floor_camera(device),
+                     128, FLOOR_SSQRT ** 2, device, seed)
+
+
+# Tables past K3T's 48 KB of shared memory: 2048 triangles and 40 spheres
+# (tri_sphere_field, 73888 words), also animated (per material, by the
+# Cornell box's 4 animation rows).
+FIELD_TRIS, FIELD_SPHERES = 2048, 40
+
+
+def field_lanes(device, anim: str = None, seed: int = 27):
+    """K3T's inputs on tables too large for its shared path (the global one):
+    tri_sphere_field's 256 x 256 x 2 camera lanes (131072); with `anim` ("one
+    instant" or "per ray") K3aT's, the field's meshes animated by
+    `scenes.cornell_animations` (mesh m by row m) and cast with the rows of
+    kc.ANIM_TIME or each lane's own."""
+    cam = scenes.field_camera(device)
+    if anim is None:
+        return hit_lanes(scenes.tri_sphere_field(FIELD_TRIS, FIELD_SPHERES, device=device), cam,
+                         256, 2, device, seed)
+    tris, centers, radii, tmat, smat = scenes.field_spec(FIELD_TRIS, FIELD_SPHERES, 12)
+    rows = [(MaterialType.LAMBERTIAN, a, None) for a in scenes.FIELD_ALBEDO]
+    meshes = [MeshSpec(tris[tmat == m].reshape(-1, 3), None, None,
+                       np.arange(3 * int((tmat == m).sum()), dtype=np.int32).reshape(-1, 3), m,
+                       anim=m) for m in range(len(scenes.FIELD_ALBEDO)) if (tmat == m).any()]
+    sph = [SphereSpec(tuple(c), float(r), int(m), anim=int(m)) for c, r, m in
+           zip(centers, radii, smat)]
+    scene = flatten_meshes(meshes, material_table(rows), device, use_bvh=False, spheres=sph,
+                           animations=scenes.cornell_animations(), t0=kc.ANIM_TIME,
+                           t1=kc.ANIM_TIME)
+    frames = (kc.frames_per_ray_at(scene, 256 * 256 * 2) if anim == "per ray"
+              else kc.frames_at(scene))
+    return hit_lanes(scene, cam, 256, 2, device, seed, frames)
+
+
 def anim_lanes(device, per_ray: bool, seed: int = 23):
     """K3aT's inputs: the animated box with its spheres (sweeps) seen by the
     Cornell block's camera lanes (kc.camera_lanes at bench size, 131072),
@@ -248,18 +320,9 @@ def anim_lanes(device, per_ray: bool, seed: int = 23):
     ([N, A, 30]), the winners assembled by K3a; random cotangents from a
     seed. The dict of cornell_lanes with `frames`."""
     scene = scenes.cornell_box_animated(device, spheres=True)
-    static = SceneStatic.from_scene(scene)
-    tables = prepare_scene(scene, static, step=False)
-    o, d, t_min, t_max = kc.camera_lanes(kc.BENCH_WIDTH, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device)
-    n = o.shape[0]
+    n = kc.BENCH_WIDTH ** 2 * kc.BENCH_LANES_M
     fr = kc.frames_per_ray_at(scene, n) if per_ray else kc.frames_at(scene)
-    with torch.no_grad():
-        t, prim, u, v = scene_raw_hit(tables.accel, o, d, t_min, t_max, fr)
-        rec = assemble_hit_raw(tables.hit, o, d, t, prim, u, v, fr)
-    rng = np.random.default_rng(seed)
-    cot = [_f32(rng, s, device) for s in ((n,), (n, 3), (n, 3), (n, 3), (n, 3), (n, 2))]
-    return dict(ht=tables.hit, o=o, d=d, t=t, prim=prim, u=u, v=v, backside=rec.backside,
-                cot=cot, frames=fr)
+    return hit_lanes(scene, None, kc.BENCH_WIDTH, kc.BENCH_LANES_M, device, seed, fr)
 
 
 def check_assemble_hit_anim_bwd(lanes) -> Dict[str, float]:
@@ -294,13 +357,23 @@ def check_assemble_hit_anim_bwd(lanes) -> Dict[str, float]:
     return res
 
 
-def check_env_radiance_bwd(env, d, g, rotation: bool = False) -> Dict[str, float]:
+def check_env_radiance_bwd(env, d, g, rotation: bool = False,
+                           plain_on_card: bool = False) -> Dict[str, float]:
     """K8T against its plain version (on the CPU) on the same directions and
     cotangents; with `rotation`, its rotation term too (the lanes' terms
     summed per block: within SKY_SUM_REL of their magnitudes, as the
-    texels', whose lookup cells they share)."""
+    texels', whose lookup cells they share). `plain_on_card`: the plain
+    version runs on the inputs' device, for a map wider than SKY_SUM_REL
+    covers against the CPU: where PyTorch's CPU acosf or atan2f differs
+    from CUDA's by an ulp, x = u w moves by ~w ulps of u, which a tap of
+    small weight feels a thousandfold (the host build of the kernel, with
+    the C library's, parts from the CPU plain version so on exactly the
+    texels of such lanes: tests/test_torch_backward_on_host.py
+    test_k8t_kernel_on_a_wide_sky); on the card the plain version calls
+    CUDA's, as the kernel does, in unfused elementwise ops."""
     got = _cpu(env_radiance_bwd(env, d, g, rotation=rotation))
-    ref = env_radiance_bwd_plain(*_cpu([env, d, g]), magnitudes=True)
+    ref = (_cpu(env_radiance_bwd_plain(env, d, g, magnitudes=True)) if plain_on_card
+           else env_radiance_bwd_plain(*_cpu([env, d, g]), magnitudes=True))
     r = _lane_close("env_radiance_bwd g_d", got[0], ref[0])
     err = max(r["max_abs_err"],
               _sum_close("env_radiance_bwd g_image", got[1], ref[1], ref[4], SKY_SUM_REL),
@@ -497,8 +570,12 @@ def env_radiance_bwd_work(env, d, rotation: bool = False):
     rotation and its transpose, the lookup's coordinates and their
     derivatives, the four taps' 16 products and the two bilinear weights'
     dot products), ~40 more with the rotation's term (the rotation formula's
-    backward and the lane's four terms summed)."""
+    backward and the lane's four terms summed). A constant sky: per lane the
+    4 cotangent words read and the direction's zero cotangent written (28
+    B), the constant's cotangent written once; 4 additions per lane."""
     n = d.shape[0]
+    if env.kind == 3:
+        return n * 28 + 16, n * 4
     return (n * 40 + 2 * env.image.numel() * 4 + (32 if rotation else 0),
             n * (140 if rotation else 100))
 
