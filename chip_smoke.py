@@ -375,6 +375,7 @@ GRAD_PATH = "grad path"
 # The backward kernels by name (their share of a differentiable step's device time).
 BWD_KERNELS = ("row_scatter_kernel", "assemble_hit_bwd_kernel", "env_radiance_bwd_kernel",
                "env_sample_bwd_kernel", "rgl_bwd_kernel")
+BWD_NAME = r"(?:row_scatter|\w+_bwd)_kernel<[^>]*>"   # an instantiation's name in a profile
 # The grad phase's K8T sky beside envmap_spheres' (a user's HDR sky, wider
 # than the frames') and its K3T/K3aT tables past their shared path.
 LARGE_SKY = "equirect 512 x 1024"
@@ -1675,7 +1676,11 @@ def _grad_records():
     K7T (its tail and its full form) against their plain backward versions
     at a differentiable frame's shapes (utils/grad_check.py), each timed
     (wrapper call, device time a launch, plain version, index_add_ for
-    P0T) beside its bound."""
+    P0T) beside its bound. P0T on each of its three paths (a copy of the
+    table per warp, the block's copy, global atomics) and K7T on both of
+    its (the block's copy, global atomics), also on the lanes the 128^2 RGL
+    tables step hands K7T, each path's instantiation read from a profiled
+    call's kernel name."""
     from wurblpt_tpu_torch.render import backward as bw
     from wurblpt_tpu_torch.utils import grad_check as gc
 
@@ -1698,9 +1703,34 @@ def _grad_records():
     senv, su3, sgd = gc.env_sample_lanes(DEVICE)
     rtab, rmid, rwi, rwo, ru2, rg = gc.rgl_lanes(DEVICE)
     rgp, rgwo = gc.rgl_full_cotangents(rmid.shape[0], DEVICE)
+    # K7T's global path: the same lanes on a stack of materials whose tables
+    # pass its shared memory; and the lanes the 128^2 RGL tables step hands
+    # it (its first bounce's eval and sample: a render's cotangents)
+    rtab_g = gc.rgl_lanes(DEVICE, stacked=gc.RGL_STACK_GLOBAL)[0]
+    quad = gc.rgl_quad_lanes(DEVICE)
+    # P0T past the material rows: the block's one copy, and global atomics
+    scatter = {f"table of {r} x 23": gc.scatter_lanes(DEVICE, r)
+               for r in (gc.SCATTER_ROWS_BLOCK, gc.SCATTER_ROWS_GLOBAL)}
     anim = {"one instant": gc.anim_lanes(DEVICE, per_ray=False),
             "per ray": gc.anim_lanes(DEVICE, per_ray=True)}
-    checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows)}),
+    rgl_sets = {"eval": (rtab, rmid, rwi, rwo, rg, False),
+                "sample": (rtab, rmid, rwi, ru2, rg, True),
+                f"eval, {gc.RGL_STACK_GLOBAL} materials stacked": (rtab_g, rmid, rwi, rwo, rg,
+                                                                    False),
+                f"sample, {gc.RGL_STACK_GLOBAL} materials stacked": (rtab_g, rmid, rwi, ru2, rg,
+                                                                      True),
+                **{f"RGL quad 128^2 {k} lanes": (*v[:5], k == "sample") for k, v in quad.items()}}
+    rgl_full_sets = {"eval": (rtab, rmid, rwi, rwo, rg, False, rgp, None),
+                     "sample": (rtab, rmid, rwi, ru2, rg, True, rgp, rgwo),
+                     f"eval, {gc.RGL_STACK_GLOBAL} materials stacked": (rtab_g, rmid, rwi, rwo, rg,
+                                                                        False, rgp, None),
+                     f"sample, {gc.RGL_STACK_GLOBAL} materials stacked": (rtab_g, rmid, rwi, ru2,
+                                                                          rg, True, rgp, rgwo),
+                     **{f"RGL quad 128^2 {k} lanes": (*v[:5], k == "sample", *v[5:],
+                                                       gc.RGL_FULL_REL)
+                        for k, v in quad.items()}}
+    checks = [("row_scatter", gc.check_row_scatter, {"cornell material rows": (g_rows, mat, rows),
+                                                    **scatter}),
               ("assemble_hit_bwd", gc.check_assemble_hit_bwd,
                {"cornell block": (lanes,), "floor step": (floor,), FIELD: (field,)}),
               ("assemble_hit_anim_bwd", gc.check_assemble_hit_anim_bwd,
@@ -1709,11 +1739,8 @@ def _grad_records():
               ("env_radiance_bwd", gc.check_env_radiance_bwd, skies),
               ("env_radiance_bwd_rot", gc.check_env_radiance_bwd, rotated),
               ("env_sample_bwd", gc.check_env_sample_bwd, {"equirect, rotated": (senv, su3, sgd)}),
-              ("rgl_bwd", gc.check_rgl_bwd, {"eval": (rtab, rmid, rwi, rwo, rg, False),
-                                             "sample": (rtab, rmid, rwi, ru2, rg, True)}),
-              ("rgl_bwd_full", gc.check_rgl_bwd_full,
-               {"eval": (rtab, rmid, rwi, rwo, rg, False, rgp, None),
-                "sample": (rtab, rmid, rwi, ru2, rg, True, rgp, rgwo)})]
+              ("rgl_bwd", gc.check_rgl_bwd, rgl_sets),
+              ("rgl_bwd_full", gc.check_rgl_bwd_full, rgl_full_sets)]
     errs = _run_checks(checks)
     env, d, g = skies["equirect"]
     renv, rd, rgg, _ = rotated["equirect, rotated"]
@@ -1761,6 +1788,37 @@ def _grad_records():
     print(f"grad: env_radiance_bwd on the turned equirect sky, device us a launch in turns: "
           f"without the rotation term {turns[0]:.2f}, {turns[3]:.2f}; with it {turns[1]:.2f}, "
           f"{turns[2]:.2f} at {rd.shape[0]} lanes on {_nvidia_smi()}")
+    # K7T and P0T at every shape checked above, device us a launch beside
+    # the bound and the instantiation a profiled call launched, read from
+    # one profiled session of all their calls (`_launched_kernels`: many
+    # short sessions in one process lose events): K7T must
+    # have run each form on both of its paths (rgl_bwd_kernel<SAMPLE, FULL,
+    # SHARED>: the block's copy of the tables in shared memory, or the warps'
+    # sums added to the tables), P0T its three (row_scatter_kernel<COPIES>:
+    # a copy per warp, the block's copy, the table)
+    bcases = []   # (label, call, work, lanes)
+    for label, (tb, md, w, x, gf, smp) in rgl_sets.items():
+        for full in (False, True):
+            a = rgl_full_sets[label][6:8]
+            bcases.append((
+                f"rgl_bwd {'full' if full else 'tail'} {label}",
+                lambda tb=tb, md=md, w=w, x=x, gf=gf, smp=smp, full=full, a=a: bw.rgl_bwd(
+                    tb, md, w, x, gf, smp, full=full, g_pdf=a[0] if full else None,
+                    g_wo=a[1] if full else None),
+                gc.rgl_bwd_work(tb, md.shape[0], smp, full=full, live=gc.rgl_live(
+                    gf, *(a if full else (None, None)))), md.shape[0]))
+    for label, (sg, si, sr) in {"cornell material rows": (g_rows, mat, rows), **scatter}.items():
+        bcases.append((f"row_scatter {label}",
+                       lambda sg=sg, si=si, sr=sr: bw.row_scatter(sg, si, sr),
+                       gc.row_scatter_work(sg, si, sr), sg.shape[0]))
+    names = _launched_kernels([c for _, c, _, _ in bcases])
+    for (label, call, work, n), name in zip(bcases, names):
+        _bwd_case(label, call, work, n, ran=[name])
+    print(f"grad: K7T and P0T ran {sorted(set(names))}")
+    want = {f"rgl_bwd_kernel<{s_}, {f_}, {h_}>" for s_ in ("true", "false")
+            for f_ in ("true", "false") for h_ in ("true", "false")}
+    want |= {f"row_scatter_kernel<{c}>" for c in (8, 1, 0)}
+    assert want <= set(names), f"{sorted(want - set(names))} did not launch"
     # K3T, K3aT and K8T at every shape checked above: device us a launch
     # beside the bound and the instantiation that ran; a constant sky's also
     # beside g.sum(0), the one PyTorch call of its function. K3T and K3aT
@@ -1815,22 +1873,43 @@ def _grad_records():
                              "library_ms": library_ms, "device_us": dev_us})
 
 
-def _bwd_case(label, kernel, work, n, library=None):
+def _launched_kernels(calls):
+    """The backward kernel (`<name>_bwd_kernel<...>`, `row_scatter_kernel<...>`)
+    each of `calls` launched, one each, in the order of the calls: read from
+    one profiled session of them all, profiled again, up to PROFILE_TRIES
+    times, while it saw another number of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for call in calls:
+                call()
+                torch.cuda.synchronize()
+        seen = sorted((e.time_range.start, m.group(0)) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and (m := re.search(BWD_NAME, e.name)))
+        if len(seen) == len(calls):
+            return [name for _, name in seen]
+    raise AssertionError(f"profiler: {len(seen)} backward kernels seen of {len(calls)} calls "
+                         f"in each of {PROFILE_TRIES} profiles")
+
+
+def _bwd_case(label, kernel, work, n, library=None, ran=None):
     """Prints a backward kernel's device us a launch (kc.device_ms) on one
     case beside its bound, the instantiation that ran and, where given, the
     device time of the library call of the same function; returns the names
     (`<name>_bwd_kernel<...>`) of the kernels a profiled call launched
-    (profiled again, up to PROFILE_TRIES times, while the profiler saw none)."""
+    (profiled again, up to PROFILE_TRIES times, while the profiler saw none),
+    or `ran` where given."""
     from torch.profiler import ProfilerActivity, profile
 
-    ran = []
-    for _ in range(PROFILE_TRIES):
+    for _ in range(0 if ran else PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             kernel()
             torch.cuda.synchronize()
         ran = sorted({m.group(0) for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA
-                      and (m := re.search(r"\w+_bwd_kernel<[^>]*>", e.key))})
+                      and (m := re.search(BWD_NAME, e.key))})
         if ran:
             break
     assert ran, f"profiler: no backward kernel seen in {PROFILE_TRIES} profiles of {label}"
@@ -1893,11 +1972,12 @@ def _timed_step(label, loss, args):
         # the backward kernels' share: launches and device ms by kernel
         mine = {k: [e for e in dev if f"{k}<" in e.key or f"{k}(" in e.key]
                 for k in BWD_KERNELS}
-        share = {k: (sum(e.count for e in es), round(device_ms(es), 4))
+        share = {k: (sum(e.count for e in es), round(device_ms(es), 4),
+                     round(device_ms(es) * 1e3 / max(sum(e.count for e in es), 1), 2))
                  for k, es in mine.items() if es}
+        of = f", of which (launches, device ms, us a launch) {share}" if share else ""
         prof_line.append(f"{part} {kern} CUDA kernel launches, {dms:.2f} device ms in "
-                         f"{wall:.2f} wall ms (busy {dms / wall:.3f})"
-                         f"{f', of which {share}' if share else ''}")
+                         f"{wall:.2f} wall ms (busy {dms / wall:.3f}){of}")
     print(f"{label}: forward {(t1 - t0) * 1e3:.2f} ms, backward (recompute included) "
           f"{(t2 - t1) * 1e3:.2f} ms, peak memory {peak:.3f} GiB, the port's kernel launches "
           f"{ours}; profiled: {'; '.join(prof_line)}; on {_nvidia_smi()}")
@@ -1915,9 +1995,12 @@ def phase_grad():
     central difference (eps 1e-3, rtol 0.08), the RGL rgb table's and one
     texel's gradients and the moving floor's against their differences,
     the sky's yaw gradient and the RGL tables' and camera height's against
-    the JAX CPU yardsticks, and fit recovering the lit quad's albedo within
-    0.06 and the sky's yaw within 1 degree, each with its last loss below
-    a quarter of its first. Returns the counters of that run."""
+    the JAX CPU yardsticks, the RGL quad at 128^2 and 16 spp (its mean and
+    d(mean)/d(rgb scale), K7T's tail form, within 2e-2 of jax.grad's, every
+    table's digest, its full form, within 1e-2), and fit recovering the lit
+    quad's albedo within 0.06 and the sky's yaw within 1 degree, each with
+    its last loss below a quarter of its first. Returns the counters of that
+    run."""
     from wurblpt_tpu_torch import native
     from wurblpt_tpu_torch.materials import rgl
     from wurblpt_tpu_torch.render.bsdf import SceneStatic
@@ -2004,6 +2087,27 @@ def phase_grad():
     rel = gc.check_rgl_table_grads(dict(zip(rgl.GRAD_TABLES, grads)))
     print(f"grad: RGL tables: loss {value!r}, each table's digest against JAX's (largest "
           f"relative difference) {rel}")
+    # the RGL quad at the grad phase's size (128^2, 16 spp in one pass):
+    # d(mean)/d(rgb scale) through K7T's tail form, every table through its
+    # full form, against jax.grad on the CPU (grad_check.RGL_QUAD_128_REF)
+    ref = gc.RGL_QUAD_128_REF
+    size = (DEVICE, gc.RGL_QUAD_WIDTH, gc.RGL_QUAD_SSQRT)
+    value, (g_s,) = _timed_step("grad: differentiable RGL rgb scale step 128^2",
+                                gc.rgl_table_loss(*size), (1.0,))
+    print(f"grad: RGL quad 128^2 rgb scale: loss {value!r} (JAX {ref['mean']!r}), gradient "
+          f"{g_s!r} (JAX {ref['grad']!r})")
+    assert abs(value - ref["mean"]) <= gc.SCALAR_REL * abs(ref["mean"]), "RGL 128^2 mean off JAX's"
+    assert abs(g_s - ref["grad"]) <= gc.SCALAR_REL * abs(ref["grad"]), (
+        "RGL 128^2 rgb scale gradient off JAX's")
+    value, grads = _timed_step("grad: differentiable RGL tables step 128^2",
+                               gc.rgl_tables_loss(*size), tabs)
+    got = dict(zip(rgl.GRAD_TABLES, grads))
+    counts = {k: int((g.abs() > 1e-6 * g.abs().max()).sum()) for k, g in got.items()}
+    print(f"grad: RGL quad 128^2 tables: entries above 1e-6 of the largest {counts} (JAX "
+          f"{ {k: v[0] for k, v in ref['tables'].items()} })")
+    rel = gc.check_rgl_table_grads(got, ref["tables"], count_rel=gc.TABLE_REL)
+    print(f"grad: RGL quad 128^2 tables: loss {value!r} (JAX {ref['mean']!r}), each table's digest "
+          f"against JAX's (largest relative difference) {rel}")
     loss = gc.rgl_camera_loss(DEVICE)
     value, (g_c,) = _timed_step("grad: differentiable RGL camera step", loss, (0.0,))
     eps = 1e-3

@@ -13,6 +13,7 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py normalmap
     JAX_PLATFORMS=cpu python jax_frame_reference.py material_comparison
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables
+    JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables_128
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_camera_grad
     JAX_PLATFORMS=cpu python jax_frame_reference.py sky_yaw_grad
     JAX_PLATFORMS=cpu python jax_frame_reference.py rolling_marbles
@@ -89,7 +90,11 @@ tests/test_gradients_breadth.py's RGL quad (12 x 12, 4 spp, 3 path
 components, differentiable) and the digest of that gradient the card's
 check reads (``wurblpt_tpu_torch/utils/grad_check.py`` RGL_TABLE_REFS): the
 count of entries above 1e-6 of the table's largest |entry|, their sum, the
-sum of their |.| and the largest |.| (~1 minute). rgl_camera_grad prints
+sum of their |.| and the largest |.| (~1 minute); before them a line with
+the quad's mean and d(mean)/d(rgb scale), the rgb table's gradient
+contracted with the table. rgl_grad_tables_128 prints the same for the quad
+at the grad phase's size, 128 x 128 and 16 spp in one pass
+(grad_check.RGL_QUAD_128_REF). rgl_camera_grad prints
 the same quad's mean and its jax.grad with respect to the camera's height
 (the lane directions' gradients; grad_check.RGL_CAMERA_REF), sky_yaw_grad
 envmap_spheres' equirect frame (128 x 128, 16 spp in one pass, 8 path
@@ -306,7 +311,7 @@ def _example(name):
     return scene, lambda: fn(scene, cam)
 
 
-def _rgl_grad_tables():
+def _rgl_grad_tables(width=12, ssqrt=2, spp_pass=None):
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -314,16 +319,25 @@ def _rgl_grad_tables():
     from wurblpt_tpu import CameraConfig, RenderParams, SensorRGB
     from wurblpt_tpu.render.integrator import render_frame
 
-    scene, static, cam = _rgl_quad()
+    scene, static, cam = _rgl_quad(width)
     params = RenderParams(max_path_components=3, differentiable=True)
     names = [k for k in scene.rgl._fields
              if jnp.issubdtype(jnp.asarray(getattr(scene.rgl, k)).dtype, jnp.floating)]
 
     def loss(tabs):
         return jnp.mean(render_frame(scene._replace(rgl=scene.rgl._replace(**tabs)), static, cam,
-                                     CameraConfig(), SensorRGB(), 12, 12, 2, params=params))
+                                     CameraConfig(), SensorRGB(), width, width, ssqrt,
+                                     params=params,
+                                     **({} if spp_pass is None else
+                                        {"samples_per_pass": spp_pass})))
 
-    g = jax.jit(jax.grad(loss))({k: getattr(scene.rgl, k) for k in names})
+    t0 = time.perf_counter()
+    value, g = jax.jit(jax.value_and_grad(loss))({k: getattr(scene.rgl, k) for k in names})
+    rgb = np.asarray(scene.rgl.rgb).astype(np.float64)
+    # d(mean)/d(s) of rgb * s at s = 1, by the chain rule through the rgb table's gradient
+    print(json.dumps({"loss": f"rgl_quad {width}x{width} {ssqrt ** 2} spp", "mean": float(value),
+                      "grad_rgb_scale": float((rgb * np.asarray(g["rgb"])).sum()),
+                      "seconds": time.perf_counter() - t0}))
     for k in names:
         a = np.asarray(g[k]).astype(np.float64)
         big = np.abs(a) > 1e-6 * np.abs(a).max()
@@ -332,8 +346,9 @@ def _rgl_grad_tables():
                           "sum": float(a.sum()), "sum_abs": float(np.abs(a).sum())}))
 
 
-def _rgl_quad():
-    """tests/test_gradients_breadth.py's RGL quad, its static part and camera."""
+def _rgl_quad(width=12):
+    """tests/test_gradients_breadth.py's RGL quad, its static part and camera
+    (width^2 pixels)."""
     from wurblpt_tpu import SceneStatic, make_camera
     from wurblpt_tpu.core.transform import from_lookat
     from wurblpt_tpu.materials import rgl
@@ -349,7 +364,7 @@ def _rgl_quad():
                    hot_spot=True)
     scene = sc.build()
     cam = make_camera(transformation=from_lookat((0, 0, 2.2), (0, 0, 0)), vfov_deg=45.0,
-                      width=12, height=12)
+                      width=width, height=width)
     return scene, SceneStatic.from_scene(scene), cam
 
 
@@ -565,7 +580,8 @@ FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
           "animations": lambda: _motion("animations"),
           "cornell_animated_blur": lambda: _motion("cornell_animated_blur"),
           "rtiow_dof": _rtiow_dof,
-          "rgl_grad_tables": None, "rgl_camera_grad": None, "sky_yaw_grad": None}
+          "rgl_grad_tables": None, "rgl_grad_tables_128": None, "rgl_camera_grad": None,
+          "sky_yaw_grad": None}
 
 
 def main():
@@ -578,6 +594,8 @@ def main():
         return _tof_report()
     if name == "rgl_grad_tables":
         return _rgl_grad_tables()
+    if name == "rgl_grad_tables_128":
+        return _rgl_grad_tables(128, 4, 16)
     if name == "rgl_camera_grad":
         return _rgl_camera_grad()
     if name == "sky_yaw_grad":

@@ -1,14 +1,15 @@
-// K3T's, K3aT's, K8T's and K7T's device code (csrc/backward_common.cuh)
-// on the CPU through cuda_runtime.h, with the entry points' own arguments
-// but the stream (csrc/backward.cu). K3T, K3aT and K8T run as their kernels
-// do: the launch's blocks one after another, each as its threads, over the
-// chunks of a persistent grid of 2 resident blocks (cuda_runtime.h's one
-// SM), each block's dynamic shared memory a fresh array; K3T and K3aT
-// choose their path by the kernels' own rule (hit_takes_shared) under the
-// limit in words given in place of the card's (below 0: the card's,
-// HIT_SMEM_WORDS; 0 forces the global path, a large one the shared). The
-// K8T sample and K7T run one lane after another (wpt_env_sample_bwd's
-// rotation terms summed in lane order).
+// K3T's, K3aT's, K8T's, K7T's and P0T's device code
+// (csrc/backward_common.cuh) on the CPU through cuda_runtime.h, with the
+// entry points' own arguments but the stream (csrc/backward.cu). K3T,
+// K3aT, K8T, K7T and P0T run as their kernels do: the launch's blocks one
+// after another, each as its threads, over the chunks of a persistent grid
+// of 2 resident blocks (cuda_runtime.h's one SM), each block's dynamic
+// shared memory a fresh array; K3T, K3aT, K7T and P0T choose their path by
+// the kernels' own rule (hit_takes_shared, rgl_takes_shared,
+// scatter_copies) under the limit in words given in place of the card's
+// (below 0: the card's; 0 forces the global path, a large one the shared
+// one). The K8T sample runs one lane after another (its rotation terms
+// summed in lane order).
 #include <thread>
 #include <vector>
 
@@ -136,25 +137,53 @@ extern "C" int host_env_sample_bwd(const float* u3, int n, const float* pdf,
     return 0;
 }
 
-// wpt_rgl_bwd's arguments but the stream.
+// wpt_rgl_bwd's arguments but the stream, then the shared path's limit in
+// words (below 0: the card's, RGL_SMEM_WORDS); returns 1 where the tables
+// were summed in shared memory, 0 where with global atomics.
 extern "C" int host_rgl_bwd(const RglTables* t, const RglOut* out, const int* mid, const float* wi,
                             const float* x, int n, int sample, int full, const float* g_f,
-                            const float* g_pdf, const float* g_wo) {
-    for (int i = 0; i < n; ++i) {
-        const int m = wpt_rgl::clampi(mid[i], 0, t->M - 1);
-        const wpt_rgl::Vec3 w{wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]};
-        if (full && sample)
-            wpt_bwd::rgl_bwd_lane<true, true>(*t, *out, i, m, w, x + 2 * i, g_f + 4 * i,
-                                              g_pdf[i], g_wo + 3 * i);
-        else if (full)
-            wpt_bwd::rgl_bwd_lane<false, true>(*t, *out, i, m, w, x + 3 * i, g_f + 4 * i,
-                                               g_pdf[i], nullptr);
-        else if (sample)
-            wpt_bwd::rgl_bwd_lane<true, false>(*t, *out, i, m, w, x + 2 * i, g_f + 4 * i, 0.f,
-                                               nullptr);
+                            const float* g_pdf, const float* g_wo, long long limit_words) {
+    if (n <= 0) return 0;
+    long long words[wpt_bwd::RGL_TABLES];
+    const long long total = wpt_bwd::rgl_table_words(*t, full != 0, words);
+    const bool shared = wpt_bwd::rgl_takes_shared(
+        *t, full != 0, limit_words < 0 ? wpt_bwd::RGL_SMEM_WORDS : limit_words);
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(n, RESIDENT, wpt_bwd::RGL_BLOCK, &chunk);
+    run_blocks(grid, wpt_bwd::RGL_BLOCK, shared ? total : 0, [&](float* acc) {
+#define WPT_HOST_RGL(S, F)                                                                      \
+    (shared ? wpt_bwd::rgl_bwd_lanes<S, F, true>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo,  \
+                                                  chunk, acc)                                \
+            : wpt_bwd::rgl_bwd_lanes<S, F, false>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo, \
+                                                   chunk, acc))
+        if (full && sample) WPT_HOST_RGL(true, true);
+        else if (full) WPT_HOST_RGL(false, true);
+        else if (sample) WPT_HOST_RGL(true, false);
+        else WPT_HOST_RGL(false, false);
+#undef WPT_HOST_RGL
+    });
+    return shared;
+}
+
+// wpt_row_scatter's arguments but the stream, then the shared path's limit
+// in words (below 0: the card's, SCATTER_SMEM_WORDS); returns the copies
+// summed in shared memory (SCATTER_WARPS, 1, or 0: global atomics).
+extern "C" int host_row_scatter(const float* g, const int* idx, int n, int cols, int rows,
+                                float* out, long long limit_words) {
+    const int copies = wpt_bwd::scatter_copies(
+        rows, cols, limit_words < 0 ? wpt_bwd::SCATTER_SMEM_WORDS : limit_words);
+    if (n <= 0 || cols <= 0) return copies;
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(n, RESIDENT, wpt_bwd::SCATTER_BLOCK, &chunk);
+    const long long smem = static_cast<long long>(rows) * cols * copies;
+    run_blocks(grid, wpt_bwd::SCATTER_BLOCK, smem, [&](float* acc) {
+        if (copies == wpt_bwd::SCATTER_WARPS)
+            wpt_bwd::row_scatter_lanes<wpt_bwd::SCATTER_WARPS>(g, idx, n, cols, rows, out, chunk,
+                                                               acc);
+        else if (copies == 1)
+            wpt_bwd::row_scatter_lanes<1>(g, idx, n, cols, rows, out, chunk, acc);
         else
-            wpt_bwd::rgl_bwd_lane<false, false>(*t, *out, i, m, w, x + 3 * i, g_f + 4 * i, 0.f,
-                                                nullptr);
-    }
-    return 0;
+            wpt_bwd::row_scatter_lanes<0>(g, idx, n, cols, rows, out, chunk, acc);
+    });
+    return copies;
 }

@@ -123,6 +123,10 @@ inline int __reduce_max_sync(unsigned, int v) {
     for (int i = 1; i < 32; ++i) most = std::max(most, static_cast<int>(all[i]));
     return most;
 }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    unsigned all[32];
+    exchange(0u, all);
+}
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
     unsigned all[32], sum = 0;

@@ -1,17 +1,19 @@
-"""K3T's, K3aT's, K8T's and K7T's device code (``csrc/backward_common.cuh``:
-the backward of the hit assembly with the winner's intersection, static
-and animated, of the sky's radiance lookup with its rotation term and of
-its importance sample, and of the measured RGL BRDF, its tail form and its
-full form) compiled with g++ through ``tests/cuda_host`` and run on the
-CPU, held against their plain versions (render/backward.py
-`assemble_hit_bwd_plain`, `env_radiance_bwd_plain`, `env_sample_bwd_plain`,
-materials/rgl.py `rgl_bwd_plain`) on the same inputs. K3T, K3aT and K8T
-run whole, as their kernels launch them (`tests/cuda_host/backward.cpp`):
-persistent blocks of the kernels' threads, each lane's terms summed over
-its warp's lanes of one row or texel cell (`group_sum`), then K3T's per
-block in shared memory where its tables fit the limit passed (the card's
+"""K3T's, K3aT's, K8T's, K7T's and P0T's device code
+(``csrc/backward_common.cuh``: the backward of the hit assembly with the
+winner's intersection, static and animated, of the sky's radiance lookup
+with its rotation term and of its importance sample, of the measured RGL
+BRDF, its tail form and its full form, and of the row gather) compiled with
+g++ through ``tests/cuda_host`` and run on the CPU, held against their
+plain versions (render/backward.py `assemble_hit_bwd_plain`,
+`env_radiance_bwd_plain`, `env_sample_bwd_plain`, `row_scatter_plain`,
+materials/rgl.py `rgl_bwd_plain`) on the same inputs. The kernels run
+whole, as they launch (`tests/cuda_host/backward.cpp`): persistent blocks
+of the kernels' threads, each lane's terms summed over its warp's lanes of
+one row, texel cell or table cell (`group_sum`), then K3T's and K7T's per
+block in shared memory where their tables fit the limit passed (the card's
 by default, a large one forces it) and with global atomics where they do
-not (a limit of 0), K8T's with atomics onto the map.
+not (a limit of 0), K8T's with atomics onto the map, P0T's into a copy of
+the table per warp, the block's one copy or the table.
 
 The host's libm computes atan2f, acosf and sqrtf, and the sums land in
 another order than the plain version's, so floats are held to a tolerance
@@ -62,7 +64,8 @@ def lib(tmp_path_factory):
                                                + [ctypes.c_longlong])
     lib.host_env_radiance_bwd.argtypes = sig["wpt_env_radiance_bwd"][:-1]
     lib.host_env_sample_bwd.argtypes = sig["wpt_env_sample_bwd"][:-1]
-    lib.host_rgl_bwd.argtypes = sig["wpt_rgl_bwd"][:-1]
+    lib.host_rgl_bwd.argtypes = sig["wpt_rgl_bwd"][:-1] + [ctypes.c_longlong]
+    lib.host_row_scatter.argtypes = sig["wpt_row_scatter"][:-1] + [ctypes.c_longlong]
     return lib
 
 
@@ -363,9 +366,12 @@ def test_k8t_sample_device_code_matches_its_plain_version(lib):
     _sums_close(g_rot, ref, mag, "sample g_rotation")
 
 
-def _host_k7t(lib, tables, mid, wi, x, g_f, sample, full, g_pdf=None, g_wo=None):
-    """The host build of K7T's lanes (wpt_rgl_bwd's arguments): a dict of
-    cotangents, the tail form's or the full form's."""
+def _host_k7t(lib, tables, mid, wi, x, g_f, sample, full, g_pdf=None, g_wo=None, limit=-1,
+              path=None):
+    """The host build of K7T's kernel (wpt_rgl_bwd's arguments, the tables
+    summed under the shared-memory `limit` in words, -1 the card's): a dict
+    of cotangents, the tail form's or the full form's. `path`: the path it
+    must take ("shared" or "global")."""
     from wurblpt_tpu_torch.materials.rgl import GRAD_TABLES, TAIL_TABLES, _CGrads, c_tables
 
     out = {k: torch.zeros_like(getattr(tables, k)) for k in (GRAD_TABLES if full else TAIL_TABLES)}
@@ -378,9 +384,10 @@ def _host_k7t(lib, tables, mid, wi, x, g_f, sample, full, g_pdf=None, g_wo=None)
     n = mid.shape[0]
     g_pdf = torch.zeros(n) if g_pdf is None else g_pdf
     g_wo = torch.zeros(n, 3) if g_wo is None else g_wo
-    assert lib.host_rgl_bwd(ctypes.addressof(ct), ctypes.addressof(co), mid.data_ptr(),
-                            wi.data_ptr(), x.data_ptr(), n, int(sample), int(full),
-                            g_f.data_ptr(), g_pdf.data_ptr(), g_wo.data_ptr()) == 0
+    shared = lib.host_rgl_bwd(ctypes.addressof(ct), ctypes.addressof(co), mid.data_ptr(),
+                              wi.data_ptr(), x.data_ptr(), n, int(sample), int(full),
+                              g_f.data_ptr(), g_pdf.data_ptr(), g_wo.data_ptr(), limit)
+    assert path is None or shared == (path == "shared"), f"K7T took the other path than {path}"
     return out
 
 
@@ -433,3 +440,133 @@ def test_k7t_full_device_code_matches_its_plain_version_in_float64(lib, sample):
         else:
             over = err > gc.RGL_FULL_REL * mag[k] + 1e-30
             assert not bool(over.any()), f"{k}: {int(over.sum())} entries beyond their sums"
+
+
+# ---------------------------------------------------------------------------
+# K7T's and P0T's whole kernels on both paths (warp groups, block copies)
+# ---------------------------------------------------------------------------
+
+def _k7t_inputs(kind, sample, n=2048):
+    """K7T's lanes of `kind`: "random" (grad_check.rgl_lanes' directions,
+    the least coherent), "one cell" (every lane one material, wi, wo and
+    u2: every warp one group on every cell) or "large" (the random lanes
+    on a stack of grad_check.RGL_STACK_GLOBAL materials: tables past the
+    shared memory in both forms). (tables, mid, wi, x, g_f, g_pdf, g_wo)."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    tables, mid, wi, wo, u2, g_f = gc.rgl_lanes(
+        "cpu", n=n, stacked=gc.RGL_STACK_GLOBAL if kind == "large" else 2)
+    g_pdf, g_wo = gc.rgl_full_cotangents(n, "cpu")
+    if kind == "one cell":
+        mid = torch.zeros_like(mid)
+        wi, wo, u2 = (a[:1].expand_as(a).contiguous() for a in (wi, wo, u2))
+        assert float(wi[0, 2]) > 0 and float(wo[0, 2]) > 0
+    return tables, mid, wi, u2 if sample else wo, g_f, g_pdf, g_wo if sample else None
+
+
+def _check_k7t_kernel(lib, kind, sample, full, path):
+    """K7T's kernel on _k7t_inputs' lanes under the limit that takes `path`
+    (the card's where the tables fit or not) against its plain version: the
+    tail form within REL of each table's largest entry, the full form within
+    grad_check.RGL_FULL_REL of each entry's sum of |term| (float64)."""
+    from wurblpt_tpu_torch.materials.rgl import TAIL_TABLES
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    tables, mid, wi, x, g_f, g_pdf, g_wo = _k7t_inputs(kind, sample)
+    limit = -1 if kind == "large" else LIMITS[path]
+    out = _host_k7t(lib, tables, mid, wi, x, g_f, sample, full, g_pdf, g_wo, limit, path)
+    if not full:
+        ref = bw.rgl_bwd_plain(tables, mid, wi, x, g_f, sample)
+        for k in TAIL_TABLES:
+            assert bool((ref[k] != 0).any()), k
+            _close(out[k], ref[k], f"{kind} {k}")
+        return
+    ref, mag = gc.rgl_full_reference(tables, mid, wi, x, g_f, sample, g_pdf, g_wo)
+    for k, b in ref.items():
+        a = out[k].double()
+        assert bool(torch.isfinite(a).all()), k
+        err = (a - b).abs()
+        if k in ("wi", "wo"):
+            assert float(err.max()) <= REL * float(b.abs().max()), k
+        else:
+            over = err > gc.RGL_FULL_REL * mag[k] + 1e-30
+            assert not bool(over.any()), f"{kind} {k}: {int(over.sum())} entries beyond"
+
+
+@pytest.mark.parametrize("path", list(LIMITS))
+@pytest.mark.parametrize("kind", ["random", "one cell"])
+@pytest.mark.parametrize("full", [False, True], ids=["tail", "full"])
+@pytest.mark.parametrize("sample", [False, True], ids=["eval", "sample"])
+def test_k7t_kernel_sums_on_both_paths(lib, sample, full, kind, path):
+    """K7T's whole kernel (rgl_bwd_lanes<SAMPLE, FULL, SHARED>), each form
+    on each path: the form's tables in the block's copy in shared memory or
+    the warps' sums added with global atomics; on random lanes (few groups
+    of more than one lane) and on lanes of one cell (every warp one group:
+    every step of the shuffle tree)."""
+    _check_k7t_kernel(lib, "random" if kind == "random" else "one cell", sample, full, path)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["tail", "full"])
+@pytest.mark.parametrize("sample", [False, True], ids=["eval", "sample"])
+def test_k7t_kernel_on_tables_past_the_shared_limit(lib, sample, full):
+    """The random lanes on a stack of grad_check.RGL_STACK_GLOBAL synthetic
+    materials: under the card's limit the form's tables do not fit the
+    block's shared memory, and the kernel takes its global path by its own
+    rule."""
+    _check_k7t_kernel(lib, "large", sample, full, "global")
+
+
+def _p0t_inputs(kind, seed=3):
+    """P0T's (g [N, C], idx [N], rows) of `kind`: "material rows" (grad_check.
+    cornell_lanes' material rows of the Cornell block, 4096 of its lanes),
+    "one row" (every lane the same row: every warp one group), "random" (a
+    random row per lane of 16 x 23, zero rows and out-of-range indices
+    among them: clamped) or "large" (1024 x 23 words, past the shared
+    limit)."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "material rows":
+        lanes = gc.cornell_lanes("cpu")
+        return (lanes["g_rows"][:4096].contiguous(), lanes["mat"][:4096].contiguous(),
+                lanes["mat_table"].shape[0])
+    rows = {"one row": 5, "random": 16, "large": 1024}[kind]
+    n = 4096
+    g = torch.randn(n, 23, generator=gen)
+    g[torch.rand(n, generator=gen) < 0.3] = 0.0
+    g[:, 5] = 0.0
+    if kind == "one row":
+        idx = torch.full((n,), 3, dtype=torch.int32)
+    else:
+        idx = torch.randint(-2, rows + 2, (n,), generator=gen, dtype=torch.int32)
+    return g, idx, rows
+
+
+SCATTER_LIMITS = {"warp copies": -1, "block copy": 1 << 40, "global": 0}
+
+
+@pytest.mark.parametrize("path", list(SCATTER_LIMITS))
+@pytest.mark.parametrize("kind", ["material rows", "one row", "random", "large"])
+def test_p0t_kernel_sums_on_every_path(lib, kind, path):
+    """P0T's whole kernel (row_scatter_lanes<COPIES>) against its plain
+    version, within REL of the table's largest entry: each warp's groups of
+    one row summed into its own copy of the table in shared memory (the
+    card's limit on a table that fits 8 copies), the block's one copy (a
+    limit that one copy fits and 8 do not), or the table itself with
+    global atomics (limit 0); a table past the card's limit takes the global
+    path by the kernel's own rule."""
+    g, idx, rows = _p0t_inputs(kind)
+    cols = g.shape[1]
+    limit = SCATTER_LIMITS[path]
+    if path == "block copy":
+        limit = rows * cols   # one copy fits, 8 do not
+    ref = bw.row_scatter_plain(g, idx, rows)
+    out = torch.zeros_like(ref)
+    copies = lib.host_row_scatter(g.data_ptr(), idx.data_ptr(), g.shape[0], cols, rows,
+                                  out.data_ptr(), limit)
+    expect = {"warp copies": 8, "block copy": 1, "global": 0}[path]
+    if kind == "large" and path == "warp copies":
+        expect = 0   # past the card's limit
+    assert copies == expect
+    assert bool((ref != 0).any())
+    _close(out, ref, f"{kind} {path}")

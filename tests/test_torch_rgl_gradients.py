@@ -18,7 +18,13 @@ package's.
   largest equal to jax.grad's: theta_i 2, ndf 102, sigma 117, vndf_data 204,
   vndf_marg 30, vndf_cond 194, lum_data 70, lum_marg 6, lum_cond 24, rgb
   210 (jax_frame_reference.py rgl_grad_tables); no entry is allowed to part.
-  The JAX side is jitted once (a module fixture)."""
+  The JAX side is jitted once (a module fixture).
+* The grad phase's RGL steps (grad_check.rgl_table_loss, rgl_tables_loss,
+  built at 128 x 128 and 16 spp on the card) at this quad's 12 x 12 and 4
+  spp: the mean and d(mean)/d(rgb scale) (jax.grad's rgb gradient
+  contracted with the table) within grad_check.SCALAR_REL, every table
+  entry by entry and by grad_check.check_rgl_table_grads' digest against
+  jax.grad's, and grad_check.rgl_quad_lanes' capture of K7T's inputs."""
 
 import functools
 
@@ -93,7 +99,7 @@ def _quad():
 @pytest.fixture(scope="module")
 def quad_grads():
     """(jax.grad, the port's gradient) of the RGL quad's mean with respect to
-    every float table, name -> numpy array."""
+    every float table, name -> numpy array, and JAX's mean."""
     js, ps, jcam, cam = _quad()
     jstatic = JSceneStatic.from_scene(js)
     jp = JRenderParams(max_path_components=3, differentiable=True)
@@ -102,14 +108,15 @@ def quad_grads():
         return jnp.mean(jrender_frame(js._replace(rgl=js.rgl._replace(**tabs)), jstatic, jcam,
                                       JCameraConfig(), JSensorRGB(), 12, 12, 2, params=jp))
 
-    jg = jax.jit(jax.grad(jloss))({k: getattr(js.rgl, k) for k in rgl.GRAD_TABLES})
+    jmean, jg = jax.jit(jax.value_and_grad(jloss))({k: getattr(js.rgl, k)
+                                                     for k in rgl.GRAD_TABLES})
     leaves = {k: getattr(ps.rgl, k).clone().requires_grad_(True) for k in rgl.GRAD_TABLES}
     sc = ps._replace(rgl=ps.rgl._replace(**leaves))
     render_frame(sc, SceneStatic.from_scene(sc), cam, CameraConfig(), SensorRGB(), 12, 12, 2,
                  params=RenderParams(max_path_components=3, differentiable=True),
                  device="cpu").mean().backward()
     return ({k: np.asarray(v) for k, v in jg.items()},
-            {k: v.grad.numpy() for k, v in leaves.items()})
+            {k: v.grad.numpy() for k, v in leaves.items()}, float(jmean))
 
 
 @pytest.mark.parametrize("name", rgl.GRAD_TABLES)
@@ -122,3 +129,66 @@ def test_quad_table_gradient_matches_jax_entry_by_entry(quad_grads, name):
     np.testing.assert_allclose(g, jg, rtol=0, atol=1e-2 * scale)
     assert int((np.abs(jg) > 1e-6 * scale).sum()) == JAX_COUNTS[name]
     assert int((np.abs(g) > 1e-6 * scale).sum()) == JAX_COUNTS[name]
+
+
+def _digest(jg):
+    """RGL_TABLE_REFS' digest of jax.grad's tables (phi_i apart)."""
+    out = {}
+    for k, a in jg.items():
+        a = np.asarray(a, np.float64)
+        m = np.abs(a).max()
+        if k != "phi_i":
+            out[k] = (int((np.abs(a) > 1e-6 * m).sum()), float(a.sum()), float(np.abs(a).sum()),
+                      float(m))
+    return out
+
+
+def test_rgl_scale_step_matches_jax(quad_grads):
+    """grad_check.rgl_table_loss, the tail-form step the card runs at 128 x
+    128: its mean and d(mean)/d(rgb scale) at 12 x 12 against JAX's."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    jg, _, jmean = quad_grads
+    ref = float((np.asarray(_quad()[1].rgl.rgb, np.float64) * jg["rgb"]).sum())
+    s = torch.tensor(1.0, requires_grad=True)
+    value = gc.rgl_table_loss("cpu", 12, 2)(s)
+    value.backward()
+    assert abs(float(value) - jmean) <= gc.SCALAR_REL * abs(jmean)
+    assert abs(float(s.grad) - ref) <= gc.SCALAR_REL * abs(ref)
+
+
+def test_rgl_tables_step_matches_jax(quad_grads):
+    """grad_check.rgl_tables_loss, the full-form step the card runs at 128 x
+    128: every table's gradient at 12 x 12 entry by entry (1e-2 of its
+    largest |entry|) and by check_rgl_table_grads' digest against jax.grad."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    jg = quad_grads[0]
+    quad = _quad()[1]
+    leaves = [getattr(quad.rgl, k).clone().requires_grad_(True) for k in rgl.GRAD_TABLES]
+    gc.rgl_tables_loss("cpu", 12, 2)(*leaves).backward()
+    got = {k: x.grad for k, x in zip(rgl.GRAD_TABLES, leaves)}
+    for k, g in got.items():
+        np.testing.assert_allclose(g.numpy(), jg[k], rtol=0, atol=1e-2 * np.abs(jg[k]).max(),
+                                   err_msg=k)
+    rel = gc.check_rgl_table_grads(got, _digest(jg))
+    assert max(rel.values()) <= gc.TABLE_REL
+
+
+def test_rgl_quad_lanes_capture_k7t_inputs():
+    """grad_check.rgl_quad_lanes at 12 x 12: K7T's eval and sample inputs of
+    the first bounce, a lane per sample of the pass (576), with the full
+    form's cotangents, some lanes of each carrying one; the plain full
+    form on them finite."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    calls = gc.rgl_quad_lanes("cpu", 12, 2)
+    assert set(calls) == {"eval", "sample"}
+    for kind, (tables, mid, wi, x, g_f, g_pdf, g_wo) in calls.items():
+        sample = kind == "sample"
+        assert mid.shape == (576,) and x.shape == (576, 2 if sample else 3)
+        assert (g_wo is not None) == sample and g_pdf.shape == (576,)
+        carry = (g_f != 0).any(-1) | (g_pdf != 0)
+        assert bool(carry.any()), kind
+        out = rgl.rgl_bwd(tables, mid, wi, x, g_f, sample, full=True, g_pdf=g_pdf, g_wo=g_wo)
+        assert all(bool(torch.isfinite(v).all()) for v in out.values()), kind

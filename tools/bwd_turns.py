@@ -6,12 +6,23 @@ card: each call times the ``wurblpt_tpu_torch`` of the tree it is given.
 
 DIR is the root of a checkout whose ``wurblpt_tpu_torch`` is timed (its
 kernels built from its own sources into its own ``_build``). The inputs come
-from the tree's `utils/grad_check.py`; a tree older than `floor_lanes`,
-`field_lanes` and `sky_lanes(kind="large")` times the same inputs once this
-tree's ``wurblpt_tpu_torch/utils/grad_check.py`` is copied over its own (it
-calls only wrappers such a tree has). Timed, each with the variant named:
+from the tree's `utils/grad_check.py`; a tree older than `rgl_quad_lanes`,
+`scatter_lanes` and `rgl_lanes(stacked=...)` times the same inputs once
+this tree's ``wurblpt_tpu_torch/utils/grad_check.py`` is copied over its own
+(it calls only wrappers such a tree has). Timed, each with the variant
+named:
 
-* K7T's tail form on the sample and the eval lanes of `grad_check.rgl_lanes`;
+* K7T's tail and full forms on the sample and the eval lanes of
+  `grad_check.rgl_lanes` (131072 random lanes of two synthetic materials:
+  the tables in shared memory), on the same lanes over a stack of
+  `RGL_STACK_GLOBAL` materials (the tables past it: global atomics), and on
+  the lanes the 128 x 128, 16 spp RGL tables step hands it
+  (`rgl_quad_lanes`: its first bounce's eval and sample, a render's
+  coherent directions and sparse cotangents);
+* P0T on the Cornell block's material rows (`cornell_lanes`: 131072 x 23
+  words onto 4 rows) and on tables of `SCATTER_ROWS_BLOCK` and
+  `SCATTER_ROWS_GLOBAL` rows (`scatter_lanes`: past a copy per warp, and
+  past the shared memory);
 * K8T on `grad_check.sky_lanes`' 262144 lanes of the equirect, cube and
   constant skies and of the 512 x 1024 procedural sky, without its
   rotation term, and on the equirect and the 512 x 1024 sky with it too (a
@@ -58,11 +69,32 @@ def main() -> int:
     native.build_kernels()
     dev = "cuda"
     tables, mid, wi, wo, u2, g_f = gc.rgl_lanes(dev)
+    g_pdf, g_wo = gc.rgl_full_cotangents(mid.shape[0], dev)
+    stacked = gc.rgl_lanes(dev, stacked=gc.RGL_STACK_GLOBAL)[0]
     # name -> (call, (bytes, flops) of its work)
-    calls = {"rgl_bwd tail, sample": (lambda: bw.rgl_bwd(tables, mid, wi, u2, g_f, True),
-                                      gc.rgl_bwd_work(tables, mid.shape[0], True)),
-             "rgl_bwd tail, eval": (lambda: bw.rgl_bwd(tables, mid, wi, wo, g_f, False),
-                                    gc.rgl_bwd_work(tables, mid.shape[0], False))}
+    calls = {}
+
+    def rgl_case(label, tb, md, w, x, gf, sample, gp, gw):
+        for full in (False, True):
+            kw = {"full": True, "g_pdf": gp, "g_wo": gw if sample else None} if full else {}
+            calls[f"rgl_bwd {'full' if full else 'tail'}, {label}"] = (
+                lambda kw=kw: bw.rgl_bwd(tb, md, w, x, gf, sample, **kw),
+                gc.rgl_bwd_work(tb, md.shape[0], sample, full=full, live=gc.rgl_live(
+                    gf, gp if full else None, gw if full and sample else None)))
+
+    for label, tb in (("", tables), (f", {gc.RGL_STACK_GLOBAL} stacked", stacked)):
+        rgl_case(f"sample{label}", tb, mid, wi, u2, g_f, True, g_pdf, g_wo)
+        rgl_case(f"eval{label}", tb, mid, wi, wo, g_f, False, g_pdf, None)
+    for kind, (tb, md, w, x, gf, gp, gw) in gc.rgl_quad_lanes(dev).items():
+        rgl_case(f"RGL quad 128^2 {kind} lanes", tb, md, w, x, gf, kind == "sample", gp, gw)
+    cornell = gc.cornell_lanes(dev)
+    for label, (g, idx, rows) in {
+            "cornell material rows": (cornell["g_rows"], cornell["mat"],
+                                      cornell["mat_table"].shape[0]),
+            **{f"table of {r} x 23": gc.scatter_lanes(dev, r)
+               for r in (gc.SCATTER_ROWS_BLOCK, gc.SCATTER_ROWS_GLOBAL)}}.items():
+        calls[f"row_scatter {label}"] = (lambda g=g, idx=idx, rows=rows: bw.row_scatter(g, idx, rows),
+                                         gc.row_scatter_work(g, idx, rows))
     has_rot = "rotation" in inspect.signature(bw.env_radiance_bwd).parameters
 
     def sky_case(label, env, d, g, rot):
@@ -78,7 +110,7 @@ def main() -> int:
         for rot in rots if has_rot else (False,):
             sky_case(f"env_radiance_bwd {label}, rotation {rot}", env, d, g, rot)
     keys = ("ht", "o", "d", "t", "prim", "u", "v", "backside")
-    hits = {"assemble_hit_bwd cornell block": gc.cornell_lanes(dev),
+    hits = {"assemble_hit_bwd cornell block": cornell,
             "assemble_hit_bwd floor step": gc.floor_lanes(dev),
             "assemble_hit_bwd tri_sphere_field": gc.field_lanes(dev)}
     for k in ("one instant", "per ray"):

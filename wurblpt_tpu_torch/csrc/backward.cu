@@ -3,11 +3,19 @@
 // P0T, wpt_row_scatter: grad_table[clamp(idx[i]), c] += grad_out[i, c], the
 //   transpose of P0's row gather (tools/probe_pallas_gather.py:20 and the
 //   packed-row gathers of the render path), which JAX's autodiff makes of
-//   every gather. A table that fits in shared memory (the material rows:
-//   a few rows of 23 words) is summed per block there first, each block
-//   then adding its nonzero sums to the global table: few global atomics
-//   where every lane of a frame lands on a handful of rows. A larger table
-//   takes a global atomicAdd per element.
+//   every gather. A frame's lanes land on a handful of rows (the material
+//   rows: a few rows of 23 words), so element-wise float adds, into shared
+//   memory (compare-and-swap loops on sm_90) or global memory, once
+//   serialized on ~100 words. Now a thread takes a lane: the warp's lanes of
+//   one row sum their cotangent rows by shuffles (group_sum on the row, 8
+//   columns at a time, rows of zeros skipped), and one lane a group adds the
+//   sums with plain adds into its warp's own copy of the table in shared
+//   memory (no other thread writes it meanwhile; a table of up to 1536
+//   words, 8 copies), with shared atomics into the block's copy (up to
+//   12288 words) or with global atomics into the table, a row's columns
+//   together; a block adds its copies' nonzero sums to the table at its end
+//   (row_scatter_lanes<COPIES>, persistent blocks over contiguous chunks of
+//   lanes; a lane's group found once, its columns summed 8 at a time).
 // K3T, wpt_assemble_hit_bwd: the backward of K3's full form
 //   (intersect.py:489-632) and of the winner's intersection
 //   (intersect_mxu.py:164-257, the cast's t, u, v as the hit equations
@@ -52,19 +60,27 @@
 //   recomputed from the uniforms, reduced as above; the pdf carries none.
 // K7T, wpt_rgl_bwd: the backward of K7's eval or sample (materials/rgl.py
 //   rgl_eval :633, rgl_sample :650 of the JAX package, through its autodiff).
-//   One thread per lane (rgl_bwd_kernel<SAMPLE, FULL>, backward_common.cuh
-//   rgl_bwd_lane). Its tail form (FULL false), where only the reflectance
-//   tail's tables are on the tape: rgb (param- and spatial-bilinear cells),
-//   ndf and sigma (bilinear cells); the lane recomputes its forward up to
-//   the warp positions and adds each term with atomicAdd; a material's few
-//   8 x 8 rgb cells are contended, as K3T's rows are. Its full form (FULL
+//   A thread per lane (rgl_bwd_kernel<SAMPLE, FULL, SHARED>,
+//   backward_common.cuh rgl_bwd_lanes). Its tail form (FULL false), where
+//   only the reflectance tail's tables are on the tape: rgb (param- and
+//   spatial-bilinear cells), ndf and sigma (bilinear cells); the lane
+//   recomputes its forward up to the warp positions. Its full form (FULL
 //   true), where a warp table, a parameter grid or a lane direction is on
 //   the tape: the lane runs reverse mode by hand through the whole forward
 //   (the parameter weights, both warps' inversion or sampling and density,
 //   the tail's terms shared with the tail form, the jacobian, the half
-//   vector or the sampled direction), each table term by atomicAdd onto the
-//   cells the forward's searches found (16 x 16 warp cells, more contended
-//   still), the lane's wi (and eval's wo) cotangents written.
+//   vector or the sampled direction), and writes its wi (and eval's wo)
+//   cotangents. Each lane's table terms land on a few cells of tiny tables
+//   (a synthetic material's rgb 8 x 8 cells a slice, 16 x 16 warps): one
+//   float atomic a term once serialized by the thousand per word. Now the
+//   lane leaves its terms per cell (rgl_bwd_lane's RglTerms), the warp's
+//   lanes of one corner slice and cell sum them by shuffles (group_sum),
+//   and one lane a group adds the sums into the block's copy of the form's
+//   tables in shared memory where they fit 48 KB (two synthetic materials'
+//   every table: 33.5 KB), its nonzero words added to the tables at the
+//   block's end; larger tables (a measured dataset's 128 x 128 warps) take
+//   the warps' sums with global atomics. Persistent blocks over contiguous
+//   chunks of lanes, so every warp reaches every vote.
 //
 // Bound on the card: bytes (each lane's inputs and cotangents read once,
 // its ray cotangents written once, the tables read and written once) for
@@ -80,33 +96,13 @@
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int SMEM_WORDS = 12288;   // 48 KB: the largest table summed in shared memory
 
-template <bool SHARED>
-__global__ void __launch_bounds__(BLOCK)
-row_scatter_kernel(const float* __restrict__ g, const int* __restrict__ idx, long long total,
-                   int cols, int rows, float* __restrict__ out) {
+template <int COPIES>
+__global__ void __launch_bounds__(wpt_bwd::SCATTER_BLOCK)
+row_scatter_kernel(const float* __restrict__ g, const int* __restrict__ idx, int n, int cols,
+                   int rows, float* __restrict__ out, int chunk) {
     extern __shared__ float acc[];
-    const int words = rows * cols;
-    if (SHARED) {
-        for (int k = threadIdx.x; k < words; k += BLOCK) acc[k] = 0.f;
-        __syncthreads();
-    }
-    const long long stride = static_cast<long long>(gridDim.x) * BLOCK;
-    for (long long e = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x; e < total;
-         e += stride) {
-        const long long i = e / cols;
-        const int c = static_cast<int>(e - i * cols);
-        const float v = __ldg(g + e);
-        if (v == 0.f) continue;
-        const int r = min(max(__ldg(idx + i), 0), rows - 1);
-        atomicAdd((SHARED ? acc : out) + static_cast<long long>(r) * cols + c, v);
-    }
-    if (SHARED) {
-        __syncthreads();
-        for (int k = threadIdx.x; k < words; k += BLOCK)
-            if (acc[k] != 0.f) atomicAdd(out + k, acc[k]);
-    }
+    wpt_bwd::row_scatter_lanes<COPIES>(g, idx, n, cols, rows, out, chunk, acc);
 }
 
 template <bool ANIM, bool SHARED>
@@ -139,19 +135,15 @@ env_sample_bwd_kernel(const float* __restrict__ u3, int n, const float* __restri
     wpt_bwd::block_add4<BLOCK>(q, g_rot);
 }
 
-template <bool SAMPLE, bool FULL>
-__global__ void __launch_bounds__(BLOCK)
+template <bool SAMPLE, bool FULL, bool SHARED>
+__global__ void __launch_bounds__(wpt_bwd::RGL_BLOCK)
 rgl_bwd_kernel(RglTables t, RglOut out, const int* __restrict__ mids,
                const float* __restrict__ wi, const float* __restrict__ x, int n,
                const float* __restrict__ g_f, const float* __restrict__ g_pdf,
-               const float* __restrict__ g_wo) {
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i >= n) return;
-    const int mid = wpt_rgl::clampi(mids[i], 0, t.M - 1);
-    wpt_bwd::rgl_bwd_lane<SAMPLE, FULL>(t, out, i, mid, {wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]},
-                                        x + (SAMPLE ? 2 : 3) * i, g_f + 4 * i,
-                                        FULL ? g_pdf[i] : 0.f,
-                                        SAMPLE && FULL ? g_wo + 3 * i : nullptr);
+               const float* __restrict__ g_wo, int chunk) {
+    extern __shared__ float acc[];
+    wpt_bwd::rgl_bwd_lanes<SAMPLE, FULL, SHARED>(t, out, mids, wi, x, n, g_f, g_pdf, g_wo, chunk,
+                                                 acc);
 }
 
 inline int blocks(long long n) { return static_cast<int>((n + BLOCK - 1) / BLOCK); }
@@ -205,23 +197,57 @@ void launch_env_radiance_bwd(const float* d, int n, int kind, const float4* img,
                                                     g_const, g_rot, chunk);
 }
 
+template <int COPIES>
+void launch_row_scatter(const float* g, const int* idx, int n, int cols, int rows, float* out,
+                        cudaStream_t s) {
+    constexpr int T = wpt_bwd::SCATTER_BLOCK;
+    const long long smem = static_cast<long long>(rows) * cols * COPIES * 4;
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(
+        n, resident_blocks(row_scatter_kernel<COPIES>, T, smem), T, &chunk);
+    row_scatter_kernel<COPIES><<<grid, T, smem, s>>>(g, idx, n, cols, rows, out, chunk);
+}
+
+// K7T: the form's tables summed in shared memory where they fit
+// RGL_SMEM_WORDS, else with global atomics.
+template <bool SAMPLE, bool FULL>
+void launch_rgl_bwd(const RglTables& t, const RglOut& out, const int* mid, const float* wi,
+                    const float* x, int n, const float* g_f, const float* g_pdf,
+                    const float* g_wo, cudaStream_t s) {
+    constexpr int T = wpt_bwd::RGL_BLOCK;
+    int chunk = 0;
+    if (wpt_bwd::rgl_takes_shared(t, FULL, wpt_bwd::RGL_SMEM_WORDS)) {
+        long long words[wpt_bwd::RGL_TABLES];
+        const long long smem = wpt_bwd::rgl_table_words(t, FULL, words) * 4;
+        // the copy beside the kernel's static queue: up to 48 KB of it
+        cudaFuncSetAttribute(rgl_bwd_kernel<SAMPLE, FULL, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        const int grid = wpt_bwd::chunked_grid(
+            n, resident_blocks(rgl_bwd_kernel<SAMPLE, FULL, true>, T, smem), T, &chunk);
+        rgl_bwd_kernel<SAMPLE, FULL, true>
+            <<<grid, T, smem, s>>>(t, out, mid, wi, x, n, g_f, g_pdf, g_wo, chunk);
+    } else {
+        const int grid = wpt_bwd::chunked_grid(
+            n, resident_blocks(rgl_bwd_kernel<SAMPLE, FULL, false>, T, 0), T, &chunk);
+        rgl_bwd_kernel<SAMPLE, FULL, false>
+            <<<grid, T, 0, s>>>(t, out, mid, wi, x, n, g_f, g_pdf, g_wo, chunk);
+    }
+}
+
 }  // namespace
 
+// P0T: out [rows, cols] (zeroed by the caller) += the rows of g [n, cols]
+// at clamp(idx).
 extern "C" int wpt_row_scatter(const float* g, const int* idx, int n, int cols, int rows,
                                float* out, void* stream) {
-    const long long total = static_cast<long long>(n) * cols;
-    if (total > 0) {
+    if (n > 0 && cols > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        if (static_cast<long long>(rows) * cols <= SMEM_WORDS) {
-            int dev = 0, sms = 1;
-            cudaGetDevice(&dev);
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-            const int grid = min(blocks(total), 2 * sms);
-            row_scatter_kernel<true><<<grid, BLOCK, rows * cols * sizeof(float), s>>>(
-                g, idx, total, cols, rows, out);
-        } else {
-            row_scatter_kernel<false><<<min(blocks(total), 65535 * 16), BLOCK, 0, s>>>(
-                g, idx, total, cols, rows, out);
+        switch (wpt_bwd::scatter_copies(rows, cols, wpt_bwd::SCATTER_SMEM_WORDS)) {
+        case wpt_bwd::SCATTER_WARPS:
+            launch_row_scatter<wpt_bwd::SCATTER_WARPS>(g, idx, n, cols, rows, out, s);
+            break;
+        case 1: launch_row_scatter<1>(g, idx, n, cols, rows, out, s); break;
+        default: launch_row_scatter<0>(g, idx, n, cols, rows, out, s);
         }
     }
     return static_cast<int>(cudaGetLastError());
@@ -306,14 +332,10 @@ extern "C" int wpt_rgl_bwd(const RglTables* t, const RglOut* out, const int* mid
                            const float* g_pdf, const float* g_wo, void* stream) {
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        const dim3 g(blocks(n));
-#define WPT_RGL_BWD(S, F) \
-    rgl_bwd_kernel<S, F><<<g, BLOCK, 0, s>>>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo)
-        if (full && sample) WPT_RGL_BWD(true, true);
-        else if (full) WPT_RGL_BWD(false, true);
-        else if (sample) WPT_RGL_BWD(true, false);
-        else WPT_RGL_BWD(false, false);
-#undef WPT_RGL_BWD
+        if (full && sample) launch_rgl_bwd<true, true>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo, s);
+        else if (full) launch_rgl_bwd<false, true>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo, s);
+        else if (sample) launch_rgl_bwd<true, false>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo, s);
+        else launch_rgl_bwd<false, false>(*t, *out, mid, wi, x, n, g_f, g_pdf, g_wo, s);
     }
     return static_cast<int>(cudaGetLastError());
 }

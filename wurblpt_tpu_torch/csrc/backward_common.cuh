@@ -7,15 +7,15 @@
 // Each lane function follows the plain PyTorch version
 // (wurblpt_tpu_torch/render/backward.py assemble_hit_bwd_plain,
 // env_radiance_bwd_plain; K7T: autograd through materials/rgl.py's
-// rgl_eval_plain / rgl_sample_plain) term by term. K7T scatters each
-// nonzero term into its table with an atomicAdd. K3T and K8T hand their
-// lane's terms to their block functions (assemble_hit_bwd_lanes,
-// env_radiance_bwd_lanes), which first sum them over the lanes of a warp
-// that add to the same row or texel cell (group_sum: __match_any_sync and a
-// shuffle tree), then add each group's sums: K3T into a block-private copy
-// of its tables in shared memory where they fit (its nonzero words added to
-// the tables at the end), else into the tables; K8T into the map with one
-// float4 atomic a texel.
+// rgl_eval_plain / rgl_sample_plain) term by term and hands its lane's
+// terms to the kernel's block function (assemble_hit_bwd_lanes,
+// env_radiance_bwd_lanes, rgl_bwd_lanes), which first sums them over the
+// lanes of a warp that add to the same row, texel cell or table cell
+// (group_sum: __match_any_sync and a shuffle tree), then adds each group's
+// sums: K3T and K7T into a block-private copy of their tables in shared
+// memory where they fit (its nonzero words added to the tables at the
+// end), else into the tables; K8T into the map with one float4 atomic a
+// texel.
 // Float atomics make the sums' order vary from run to run (the checks hold
 // them to a tolerance relative to the sum of the terms' magnitudes).
 #pragma once
@@ -549,23 +549,39 @@ constexpr int HIT_BLOCK = 256;          // K3T's and K3aT's threads a block
 constexpr int SKY_BLOCK = 1024;         // K8T's (at most 64 registers a thread)
 constexpr int HIT_SMEM_WORDS = 12288;   // 48 KB: the largest hit tables summed in shared memory
 
-// Sums v over the lanes of the warp whose key equals this lane's. Every
-// thread of the warp calls it, each with its own key; a key below 0 is no
-// group and sums nothing. A group's lanes, ranked in lane order, sum as a
-// tree: at step s = 1, 2, 4, ... rank r (a multiple of 2 s) adds the
-// partial sum of rank r + s, an order fixed by the group's lanes. Returns
-// true in the group's first lane, which then holds the group's sums.
-template <int N>
-__device__ __forceinline__ bool group_sum(int key, float (&v)[N]) {
+// The lanes of the warp whose key equals this lane's (a key below 0: no
+// group), ranked in lane order: this lane's rank, the group's size and
+// peers, and the largest group of the warp. Every thread of the warp calls
+// it, each with its own key.
+struct WarpGroup {
+    unsigned above;   // the group's lanes after this one
+    int rank, size, most;
+    bool first;       // the group's first lane (of a key >= 0)
+};
+__device__ __forceinline__ WarpGroup group_of(int key) {
     const unsigned lane = threadIdx.x & 31u;
     const unsigned peers = __match_any_sync(FULL_MASK, key);
     const unsigned below = peers & ((1u << lane) - 1u);
-    unsigned above = peers & ~below & ~(1u << lane);   // at step s: less its first s - 1
-    const int rank = __popc(below);
-    const int size = key >= 0 ? __popc(peers) : 1;
-    const int most = __reduce_max_sync(FULL_MASK, size);
-    for (int s = 1; s < most; s <<= 1) {
-        const bool take = (rank & (2 * s - 1)) == 0 && rank + s < size;
+    WarpGroup gr;
+    gr.above = peers & ~below & ~(1u << lane);
+    gr.rank = __popc(below);
+    gr.size = key >= 0 ? __popc(peers) : 1;
+    gr.most = __reduce_max_sync(FULL_MASK, gr.size);
+    gr.first = key >= 0 && gr.rank == 0;
+    return gr;
+}
+
+// Sums v over the lanes of this lane's group (group_of): a shuffle tree over
+// the group's ranks, at step s = 1, 2, 4, ... rank r (a multiple of 2 s)
+// adding the partial sum of rank r + s, an order fixed by the group's
+// lanes. Every thread of the warp calls it; returns true in the group's
+// first lane, which then holds the group's sums.
+template <int N>
+__device__ __forceinline__ bool group_add(const WarpGroup& gr, float (&v)[N]) {
+    const unsigned lane = threadIdx.x & 31u;
+    unsigned above = gr.above;   // at step s: less its first s - 1
+    for (int s = 1; s < gr.most; s <<= 1) {
+        const bool take = (gr.rank & (2 * s - 1)) == 0 && gr.rank + s < gr.size;
         const int src = take ? __ffs(above) - 1 : static_cast<int>(lane);
 #pragma unroll
         for (int j = 0; j < N; ++j) {
@@ -574,7 +590,18 @@ __device__ __forceinline__ bool group_sum(int key, float (&v)[N]) {
         }
         for (int k = 0; k < s; ++k) above &= above - 1u;
     }
-    return key >= 0 && rank == 0;
+    return gr.first;
+}
+
+// Sums v over the lanes of the warp whose key equals this lane's
+// (group_of, group_add). Every thread of the warp calls it, each with its
+// own key; a key below 0 is no group and sums nothing (a warp without a
+// key returns at its first vote). Returns true in the group's first lane,
+// which then holds the group's sums.
+template <int N>
+__device__ __forceinline__ bool group_sum(int key, float (&v)[N]) {
+    if (!__any_sync(FULL_MASK, key >= 0)) return false;   // a render's sparse cotangents
+    return group_add(group_of(key), v);
 }
 
 // Adds v, summed over the block of B threads, to out[0..3]: shuffles within
@@ -760,13 +787,137 @@ __device__ __forceinline__ void env_radiance_bwd_lanes(const float* d, int n, in
 }
 
 // ---------------------------------------------------------------------------
+// P0T: the row gather's backward, out[clamp(idx[i]), c] += g[i, c]
+// ---------------------------------------------------------------------------
+
+constexpr int SCATTER_BLOCK = 256;           // P0T's threads a block
+constexpr int SCATTER_WARPS = SCATTER_BLOCK / 32;
+constexpr int SCATTER_COLS = 8;              // the columns a warp's groups sum at once
+constexpr int SCATTER_SMEM_WORDS = 12288;    // 48 KB: the most P0T sums in shared memory
+
+// Where P0T sums a table of rows x cols words: in a copy per warp of the
+// block in shared memory (SCATTER_WARPS) where they fit `limit_words`
+// (SCATTER_SMEM_WORDS on the card), else in one copy for the block (1)
+// where that fits, else in the table (0).
+inline int scatter_copies(long long rows, int cols, long long limit_words) {
+    const long long words = rows * cols;
+    return words * SCATTER_WARPS <= limit_words ? SCATTER_WARPS : words <= limit_words ? 1 : 0;
+}
+
+// P0T over the block's chunk of lanes [blockIdx.x chunk, + chunk), a thread
+// a lane: the warp's lanes of one row (idx clamped to [0, rows); group_of,
+// once a lane) sum their cotangent rows SCATTER_COLS columns at a time
+// (group_add; columns where the warp's lanes are all zero skipped), and
+// each group's first lane adds the sums into the warp's own copy of the
+// table in shared memory (COPIES SCATTER_WARPS: no other thread writes
+// those words then, so plain adds) or the block's copy (COPIES 1: atomics);
+// the copies (`acc`, COPIES rows x cols words, zeroed here) are summed at
+// the end and their nonzero words added to the table. On the global path
+// (COPIES 0) the warp reads its lanes' 8 columns through a stage in shared
+// memory, 4 rows' 32 bytes at a time (a lane's own 8 loads would each
+// touch 32 rows), and the groups' sums go back to the stage, from which the
+// warp adds them to the table together, a row's columns after another's
+// (a leader's own adds would each cover one column of 32 rows). Every
+// thread calls it.
+template <int COPIES>
+__device__ __forceinline__ void row_scatter_lanes(const float* g, const int* idx, int n, int cols,
+                                                  int rows, float* out, int chunk, float* acc) {
+    constexpr int S = SCATTER_COLS + 1;   // a staged lane's stride: no bank conflicts
+    __shared__ float stage[COPIES == 0 ? SCATTER_WARPS : 1][32 * S];
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    float* st = stage[COPIES == 0 ? threadIdx.x >> 5 : 0];
+    const long long words = static_cast<long long>(rows) * cols;
+    float* sink = out;
+    if (COPIES > 0) {
+        for (long long k = threadIdx.x; k < words * COPIES; k += SCATTER_BLOCK) acc[k] = 0.f;
+        sink = acc + (COPIES == 1 ? 0 : (threadIdx.x >> 5) * words);
+        __syncthreads();
+    }
+    const int start = blockIdx.x * chunk;
+    const int end = min(n, start + chunk);
+    for (int base = start; base < end; base += SCATTER_BLOCK) {
+        const int i = base + static_cast<int>(threadIdx.x);
+        const bool live = i < end;
+        const int r = live ? min(max(__ldg(idx + i), 0), rows - 1) : 0;
+        const float* gi = g + static_cast<long long>(live ? i : 0) * cols;
+        const WarpGroup gr = group_of(live ? r : -1);
+        const int first = i - lane, lanes = min(32, end - first);   // the warp's lanes
+        for (int c0 = 0; c0 < cols; c0 += SCATTER_COLS) {
+            float v[SCATTER_COLS];
+            if (COPIES == 0) {   // the warp's 32 rows' 8 columns read 4 rows at a time
+#pragma unroll
+                for (int e = lane; e < 32 * SCATTER_COLS; e += 32) {
+                    const int l = e / SCATTER_COLS, j = e - l * SCATTER_COLS;
+                    st[l * S + j] = l < lanes && c0 + j < cols
+                                        ? __ldg(g + static_cast<long long>(first + l) * cols + c0 + j)
+                                        : 0.f;
+                }
+                __syncwarp();
+            }
+            bool any = false;
+#pragma unroll
+            for (int j = 0; j < SCATTER_COLS; ++j) {
+                if (COPIES == 0)
+                    v[j] = st[lane * S + j];
+                else
+                    v[j] = live && c0 + j < cols ? __ldg(gi + c0 + j) : 0.f;
+                any = any || v[j] != 0.f;
+            }
+            if (COPIES == 0) __syncwarp();   // the stage read before the sums land in it
+            if (!__any_sync(FULL_MASK, any)) continue;   // a render's rows are mostly zero
+            const bool lead = group_add(gr, v);
+            if (COPIES > 0) {
+                if (lead) {
+                    float* p = sink + static_cast<long long>(r) * cols + c0;
+#pragma unroll
+                    for (int j = 0; j < SCATTER_COLS; ++j) {
+                        if (c0 + j >= cols || v[j] == 0.f) continue;
+                        if (COPIES == SCATTER_WARPS)
+                            p[j] += v[j];
+                        else
+                            atomicAdd(p + j, v[j]);
+                    }
+                }
+                if (COPIES == SCATTER_WARPS) __syncwarp();   // the adds seen by the next group
+                continue;
+            }
+#pragma unroll
+            for (int j = 0; j < SCATTER_COLS; ++j) st[lane * S + j] = lead ? v[j] : 0.f;
+            __syncwarp();
+#pragma unroll
+            for (int e = lane; e < 32 * SCATTER_COLS; e += 32) {   // lane l's column j
+                const int l = e / SCATTER_COLS, j = e - l * SCATTER_COLS;
+                const int rl = __shfl_sync(FULL_MASK, r, l);
+                const float sum = st[l * S + j];
+                if (sum != 0.f) atomicAdd(out + static_cast<long long>(rl) * cols + c0 + j, sum);
+            }
+            __syncwarp();   // the stage read before the next columns land in it
+        }
+    }
+    if (COPIES > 0) {
+        __syncthreads();
+        for (long long k = threadIdx.x; k < words; k += SCATTER_BLOCK) {
+            float s = acc[k];
+            for (int w = 1; w < COPIES; ++w) s += acc[w * words + k];
+            if (s != 0.f) atomicAdd(out + k, s);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // K7T: the backward of K7 (rgl_common.cuh eval_lane / sample_lane; the
 // JAX package's rgl_eval :633 and rgl_sample :650, as materials/rgl.py
 // rgl_eval_plain / rgl_sample_plain follow them), one lane at a time in
-// rgl_bwd_lane<SAMPLE, FULL>. K7's forward is recomputed with the functions
-// of rgl_common.cuh. Searches are discrete: a cotangent lands only on the
-// entries read at the cell the forward found; each table entry's term is
-// added with atomicAdd.
+// rgl_bwd_lane<SAMPLE, FULL>, over a block's chunk of lanes in
+// rgl_bwd_lanes<SAMPLE, FULL, SHARED>. K7's forward is recomputed with the
+// functions of rgl_common.cuh. Searches are discrete: a cotangent lands only
+// on the entries read at the cell the forward found. The lane leaves its
+// table terms to the block function in RglTerms, a few cells each, before
+// its parameter corners' weights (a lane reads each table at one cell of up
+// to four (phi_i, theta_i) corners): the block function weights them per
+// corner, sums them over the warp's lanes that add to the same corner and
+// cell (group_sum) and adds each group's sums, into the block's copy of the
+// tables in shared memory where they fit, else into the tables.
 //   The tail form (FULL false), where only rgb, ndf and sigma are on the
 // tape: the forward up to the warp positions and the half vector, then
 // fr_common's backward from the cotangent of f*cos,
@@ -799,6 +950,36 @@ struct RglOut {
 
 namespace wpt_bwd {
 
+constexpr int RGL_BLOCK = 256;           // K7T's threads a block
+constexpr int RGL_SMEM_WORDS = 12288;    // 48 KB: the largest tables summed in shared memory
+constexpr int RGL_TABLES = 11;           // RglOut's tables, phi_i .. rgb
+
+// The words of each of RglOut's tables (phi_i .. rgb, RglTables' order)
+// that the form's cotangents fill: the full form every one, the tail form
+// ndf, sigma and rgb (the others 0). Returns their sum.
+__host__ __device__ inline long long rgl_table_words(const RglTables& t, bool full,
+                                                     long long* words) {
+    const long long s = static_cast<long long>(t.M) * t.P * t.T;
+    const long long all[RGL_TABLES] = {
+        static_cast<long long>(t.M) * t.P, static_cast<long long>(t.M) * t.T,
+        static_cast<long long>(t.M) * t.Hn * t.Wn, static_cast<long long>(t.M) * t.Hs * t.Ws,
+        s * t.Hv * t.Wv, s * t.Hv, s * t.Hv * t.Wv, s * t.Hl * t.Wl, s * t.Hl, s * t.Hl * t.Wl,
+        s * 4 * t.Hl * t.Wl};
+    long long sum = 0;
+    for (int k = 0; k < RGL_TABLES; ++k) {
+        words[k] = full || k == 2 || k == 3 || k == 10 ? all[k] : 0;
+        sum += words[k];
+    }
+    return sum;
+}
+
+// Whether K7T sums the form's tables in shared memory: where they fit
+// `limit_words` (RGL_SMEM_WORDS on the card).
+inline bool rgl_takes_shared(const RglTables& t, bool full, long long limit_words) {
+    long long words[RGL_TABLES];
+    return rgl_table_words(t, full, words) <= limit_words;
+}
+
 // The cotangents a lane gathers on its parameter frame: of the corner
 // weights (cw) and of the incident angles.
 struct FrameBwd {
@@ -806,35 +987,59 @@ struct FrameBwd {
     float phi_i, theta_i;
 };
 
-struct WarpG {      // a warp's tables' cotangents
-    float *data, *marg, *cond;
+// One lane's table terms, before its corners' weights (rgl_bwd_lanes
+// weights them per corner of the lane's Frame). A cell below 0: no terms.
+//   rgb: fr_common's luminance-warp cell y0 Wl + x0, its four channels'
+// taps (00, 10, 01, 11) channel by channel; ndf, sig: eval0's cell y0 W +
+// x0 of the material's plane, its taps.
+//   The full form also: lum, vndf: the warp's cell row W + col (eval's
+// luminance warp: fr_common's cell), its data taps (00, 10, 01, 11), cond
+// at (row, col), (row + 1, col), (row, w - 1) and (row + 1, w - 1), marg
+// at row (WARP_* below); phi, theta: param_weights' interval i0 of the
+// material's grid, the terms of its entries i0 and i1.
+struct RglTerms {
+    int rgb_cell, ndf_cell, sig_cell, lum_cell, vndf_cell, phi_i0, theta_i0;
+    float rgb[16], ndf[4], sig[4], lum[9], vndf[9], phi[2], theta[2];
 };
+enum { WARP_D00, WARP_D10, WARP_D01, WARP_D11, WARP_C0, WARP_C1, WARP_R0, WARP_R1, WARP_M };
 
-// gsum's backward: the term g cw[k] into each corner's entry and, with CW,
-// g times the entry into the corner weight's cotangent.
-template <bool CW = true>
-__device__ __forceinline__ void gsum_bwd(const wpt_rgl::Frame& fr, const float* arr, float* g_arr,
-                                         int stride, int off, float g, FrameBwd& b) {
+__device__ __forceinline__ void clear_terms(RglTerms& tm) {
+    tm.rgb_cell = tm.ndf_cell = tm.sig_cell = tm.lum_cell = tm.vndf_cell = -1;
+    tm.phi_i0 = tm.theta_i0 = -1;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        if (k < fr.nc) {
-            const long long e = static_cast<long long>(fr.slice[k]) * stride + off;
-            add1(g_arr + e, g * fr.cw[k]);
-            if constexpr (CW) b.cw[k] += g * wpt_rgl::ld(arr + e);
-        }
+    for (int j = 0; j < 16; ++j) tm.rgb[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tm.ndf[j] = tm.sig[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) tm.lum[j] = tm.vndf[j] = 0.f;
+    tm.phi[0] = tm.phi[1] = tm.theta[0] = tm.theta[1] = 0.f;
+}
+
+// A param-bilinear read's backward (gsum): its cotangent g into the lane's
+// term tv and, with CW, g times each corner's entry into that corner
+// weight's cotangent.
+template <bool CW = true>
+__device__ __forceinline__ void gsum_bwd(const wpt_rgl::Frame& fr, const float* arr, int stride,
+                                         int off, float g, float& tv, FrameBwd& b) {
+    tv += g;
+    if constexpr (CW) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            if (k < fr.nc)
+                b.cw[k] += g * wpt_rgl::ld(arr + static_cast<long long>(fr.slice[k]) * stride + off);
     }
 }
-__device__ __forceinline__ void gd_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
-                                       const WarpG& wg, int y, int x, float g, FrameBwd& b) {
-    gsum_bwd(fr, wp.data, wg.data, wp.H * wp.W, y * wp.W + x, g, b);
+__device__ __forceinline__ void gd_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp, int y,
+                                       int x, float g, float& tv, FrameBwd& b) {
+    gsum_bwd(fr, wp.data, wp.H * wp.W, y * wp.W + x, g, tv, b);
 }
-__device__ __forceinline__ void gc_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
-                                       const WarpG& wg, int y, int x, float g, FrameBwd& b) {
-    gsum_bwd(fr, wp.cond, wg.cond, wp.H * wp.W, y * wp.W + x, g, b);
+__device__ __forceinline__ void gc_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp, int y,
+                                       int x, float g, float& tv, FrameBwd& b) {
+    gsum_bwd(fr, wp.cond, wp.H * wp.W, y * wp.W + x, g, tv, b);
 }
-__device__ __forceinline__ void gm_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
-                                       const WarpG& wg, int y, float g, FrameBwd& b) {
-    gsum_bwd(fr, wp.marg, wg.marg, wp.H, y, g, b);
+__device__ __forceinline__ void gm_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp, int y,
+                                       float g, float& tv, FrameBwd& b) {
+    gsum_bwd(fr, wp.marg, wp.H, y, g, tv, b);
 }
 
 // The backward of (1 - sy) ((1 - sx) v00 + sx v10) + sy ((1 - sx) v01 + sx v11):
@@ -872,10 +1077,10 @@ __device__ __forceinline__ float theta2u_bwd(float theta, float u, float g) {
     return (g != 0.f && theta >= 0.f) ? g / (2.f * u) * wpt_rgl::TWO_OVER_PI_F : 0.f;
 }
 
-// Cotangent of param_weights' w1 (g) into the row's entries (atomically)
-// and, returned, into x.
-__device__ __forceinline__ float param_weights_bwd(const float* row, float* g_row, int n, float x,
-                                                   float g) {
+// Cotangent of param_weights' w1 (g) into the terms of the row's entries
+// i0 and i1 (tv[0], tv[1]; the interval into *i0) and, returned, into x.
+__device__ __forceinline__ float param_weights_bwd(const float* row, int n, float x, float g,
+                                                   int* i0_out, float tv[2]) {
     if (n <= 1 || g == 0.f) return 0.f;
     int cnt = 0;
     for (int j = 0; j < n; ++j) cnt += wpt_rgl::ld(row + j) <= x;
@@ -886,22 +1091,23 @@ __device__ __forceinline__ float param_weights_bwd(const float* row, float* g_ro
     const float q = (x - p0) / den;
     if (!(q >= 0.f && q <= 1.f)) return 0.f;   // clamp passes inside [0, 1]
     const float g_num = g / den;
-    add1(g_row + i0, -g_num);
+    *i0_out = i0;
+    tv[0] -= g_num;
     if (!same) {
         const float g_den = -g * q / den;
-        add1(g_row + i1, g_den);
-        add1(g_row + i0, -g_den);
+        tv[1] += g_den;
+        tv[0] -= g_den;
     }
     return g_num;
 }
 
-// Cotangent of eval0's bilinear value (g) into its raw [H, W] plane's four
-// cells and, with FULL, into the position (px, py), added (clamped to
-// [0, 1]: passes inside).
+// Cotangent of eval0's bilinear value (g) into the terms of its raw [H, W]
+// plane's four taps (tv, the cell into *cell) and, with FULL, into the
+// position (px, py), added (clamped to [0, 1]: passes inside).
 template <bool FULL>
-__device__ __forceinline__ void eval0_bwd(const float* arr, float* g_arr, const int* hw, int H,
-                                          int W, int mid, float px, float py, float g,
-                                          float& g_px, float& g_py) {
+__device__ __forceinline__ void eval0_bwd(const float* arr, const int* hw, int H, int W, int mid,
+                                          float px, float py, float g, float& g_px, float& g_py,
+                                          int* cell, float tv[4]) {
     if (g == 0.f) return;
     const int h = hw[2 * mid], w = hw[2 * mid + 1];
     const float fx = wpt_rgl::clampf(px, 0.f, 1.f) * static_cast<float>(w - 1);
@@ -909,56 +1115,58 @@ __device__ __forceinline__ void eval0_bwd(const float* arr, float* g_arr, const 
     const int x0 = wpt_rgl::clampi(static_cast<int>(fx), 0, w - 2);
     const int y0 = wpt_rgl::clampi(static_cast<int>(fy), 0, h - 2);
     const float sx = fx - static_cast<float>(x0), sy = fy - static_cast<float>(y0);
-    const int y1 = min(y0 + 1, H - 1);
-    float* ga = g_arr + mid * H * W;
-    const int offs[4] = {y0 * W + x0, y0 * W + x0 + 1, y1 * W + x0, y1 * W + x0 + 1};
+    // y0 <= h - 2 <= H - 2: the taps' rows y0 and y0 + 1
+    const int offs[4] = {y0 * W + x0, y0 * W + x0 + 1, (y0 + 1) * W + x0, (y0 + 1) * W + x0 + 1};
     float v[4] = {0.f, 0.f, 0.f, 0.f};   // read only where the position's terms are
     if constexpr (FULL)
         for (int q = 0; q < 4; ++q) v[q] = wpt_rgl::ld(arr + mid * H * W + offs[q]);
     float gv[4], g_sx = 0.f, g_sy = 0.f;
     bilerp_bwd(v[0], v[1], v[2], v[3], sx, sy, g, gv, g_sx, g_sy);
-    for (int q = 0; q < 4; ++q) add1(ga + offs[q], gv[q]);
+    *cell = offs[0];
+    for (int q = 0; q < 4; ++q) tv[q] += gv[q];
     if constexpr (FULL) {
         if (px >= 0.f && px <= 1.f) g_px += g_sx * static_cast<float>(w - 1);
         if (py >= 0.f && py <= 1.f) g_py += g_sy * static_cast<float>(h - 1);
     }
 }
-// warp_eval's backward: the density's cotangent g into the data cells and
-// the corner weights, and into the position, added to (g_px, g_py).
+// warp_eval's backward: the density's cotangent g into the data taps' terms
+// (tv, the cell into *cell) and the corner weights, and into the position,
+// added to (g_px, g_py).
 __device__ __forceinline__ void warp_eval_bwd(const wpt_rgl::Frame& fr, const wpt_rgl::Warp& wp,
-                                              const WarpG& wg, float px, float py, float g,
-                                              float& g_px, float& g_py, FrameBwd& b) {
+                                              float px, float py, float g, float& g_px,
+                                              float& g_py, FrameBwd& b, int* cell, float* tv) {
     if (g == 0.f) return;
     int x0, y0;
     float sx, sy;
     wpt_rgl::cell(wp, px, py, x0, y0, sx, sy);
-    const int y1 = min(y0 + 1, wp.H - 1);
+    const int y1 = y0 + 1;   // y0 <= h - 2 <= H - 2
     const float v00 = wpt_rgl::gd(fr, wp, y0, x0), v10 = wpt_rgl::gd(fr, wp, y0, x0 + 1);
     const float v01 = wpt_rgl::gd(fr, wp, y1, x0), v11 = wpt_rgl::gd(fr, wp, y1, x0 + 1);
     float gv[4], g_sx = 0.f, g_sy = 0.f;
     bilerp_bwd(v00, v10, v01, v11, sx, sy, g * wpt_rgl::area(wp), gv, g_sx, g_sy);
-    gd_bwd(fr, wp, wg, y0, x0, gv[0], b);
-    gd_bwd(fr, wp, wg, y0, x0 + 1, gv[1], b);
-    gd_bwd(fr, wp, wg, y1, x0, gv[2], b);
-    gd_bwd(fr, wp, wg, y1, x0 + 1, gv[3], b);
+    *cell = y0 * wp.W + x0;
+    gd_bwd(fr, wp, y0, x0, gv[0], tv[WARP_D00], b);
+    gd_bwd(fr, wp, y0, x0 + 1, gv[1], tv[WARP_D10], b);
+    gd_bwd(fr, wp, y1, x0, gv[2], tv[WARP_D01], b);
+    gd_bwd(fr, wp, y1, x0 + 1, gv[3], tv[WARP_D11], b);
     g_px += g_sx * static_cast<float>(wp.w - 1);
     g_py += g_sy * static_cast<float>(wp.h - 1);
 }
 
 // warp_invert's backward at the position (px, py): the cotangents of its
-// outputs (g_ux, g_uy) and of its density g_pdf into the data, cond and
-// marg entries read at the found cell and the corner weights, and into the
-// position, added to (g_px, g_py).
+// outputs (g_ux, g_uy) and of its density g_pdf into the terms of the
+// data, cond and marg entries read at the found cell (tv, the cell into
+// *cell) and the corner weights, and into the position, added to (g_px,
+// g_py).
 __device__ __forceinline__ void warp_invert_bwd(const wpt_rgl::Frame& fr,
-                                                const wpt_rgl::Warp& wp, const WarpG& wg,
-                                                float px, float py, float g_ux, float g_uy,
-                                                float g_pdf, float& g_px, float& g_py,
-                                                FrameBwd& b) {
+                                                const wpt_rgl::Warp& wp, float px, float py,
+                                                float g_ux, float g_uy, float g_pdf, float& g_px,
+                                                float& g_py, FrameBwd& b, int* cell, float* tv) {
     using namespace wpt_rgl;
     int x0, y0;
     float sx, sy;
-    cell(wp, px, py, x0, y0, sx, sy);
-    const int y1 = min(y0 + 1, wp.H - 1);
+    wpt_rgl::cell(wp, px, py, x0, y0, sx, sy);
+    const int y1 = y0 + 1;   // y0 <= h - 2 <= H - 2
     const float v00 = gd(fr, wp, y0, x0), v10 = gd(fr, wp, y0, x0 + 1);
     const float v01 = gd(fr, wp, y1, x0), v11 = gd(fr, wp, y1, x0 + 1);
     const float c0 = (1.f - sy) * v00 + sy * v01;
@@ -969,22 +1177,23 @@ __device__ __forceinline__ void warp_invert_bwd(const wpt_rgl::Frame& fr,
     const float r0 = gc(fr, wp, y0, wlast), r1 = gc(fr, wp, y1, wlast);
     const float dn_raw = (1.f - sy) * r0 + sy * r1;
     const float dn = clampminf(dn_raw, 1e-20f);
+    *cell = y0 * wp.W + x0;
     // uy = sy (r0 + sy (r1 - r0) / 2) + marg(y0)
     float g_sx = 0.f;
     float g_sy = g_uy * ((r0 + 0.5f * sy * (r1 - r0)) + sy * 0.5f * (r1 - r0));
     float g_r0 = g_uy * sy * (1.f - 0.5f * sy), g_r1 = g_uy * sy * (0.5f * sy);
-    gm_bwd(fr, wp, wg, y0, g_uy, b);
+    gm_bwd(fr, wp, y0, g_uy, tv[WARP_M], b);
     // ux = x / max((1 - sy) r0 + sy r1, 1e-20)
     const float g_x = g_ux / dn;
     const float g_dn = dn_raw >= 1e-20f ? -g_ux * (x / dn) / dn : 0.f;
     g_r0 += g_dn * (1.f - sy);
     g_r1 += g_dn * sy;
     g_sy += g_dn * (r1 - r0);
-    gc_bwd(fr, wp, wg, y0, wlast, g_r0, b);
-    gc_bwd(fr, wp, wg, y1, wlast, g_r1, b);
+    gc_bwd(fr, wp, y0, wlast, g_r0, tv[WARP_R0], b);
+    gc_bwd(fr, wp, y1, wlast, g_r1, tv[WARP_R1], b);
     // x = sx (c0 + sx (c1 - c0) / 2) + (1 - sy) k0 + sy k1
-    gc_bwd(fr, wp, wg, y0, x0, g_x * (1.f - sy), b);
-    gc_bwd(fr, wp, wg, y1, x0, g_x * sy, b);
+    gc_bwd(fr, wp, y0, x0, g_x * (1.f - sy), tv[WARP_C0], b);
+    gc_bwd(fr, wp, y1, x0, g_x * sy, tv[WARP_C1], b);
     g_sy += g_x * (k1 - k0);
     g_sx += g_x * (c0 + sx * (c1 - c0));
     float g_c0 = g_x * sx * (1.f - 0.5f * sx), g_c1 = g_x * sx * (0.5f * sx);
@@ -994,10 +1203,10 @@ __device__ __forceinline__ void warp_invert_bwd(const wpt_rgl::Frame& fr,
     g_c1 += g_p * sx;
     g_sx += g_p * (c1 - c0);
     // c0 = (1 - sy) v00 + sy v01, c1 = (1 - sy) v10 + sy v11
-    gd_bwd(fr, wp, wg, y0, x0, g_c0 * (1.f - sy), b);
-    gd_bwd(fr, wp, wg, y1, x0, g_c0 * sy, b);
-    gd_bwd(fr, wp, wg, y0, x0 + 1, g_c1 * (1.f - sy), b);
-    gd_bwd(fr, wp, wg, y1, x0 + 1, g_c1 * sy, b);
+    gd_bwd(fr, wp, y0, x0, g_c0 * (1.f - sy), tv[WARP_D00], b);
+    gd_bwd(fr, wp, y1, x0, g_c0 * sy, tv[WARP_D01], b);
+    gd_bwd(fr, wp, y0, x0 + 1, g_c1 * (1.f - sy), tv[WARP_D10], b);
+    gd_bwd(fr, wp, y1, x0 + 1, g_c1 * sy, tv[WARP_D11], b);
     g_sy += g_c0 * (v01 - v00) + g_c1 * (v11 - v10);
     g_px += g_sx * static_cast<float>(wp.w - 1);
     g_py += g_sy * static_cast<float>(wp.h - 1);
@@ -1047,23 +1256,23 @@ __device__ __forceinline__ void quad_inv_bwd(bool is_const, float A, float a, fl
     }
 }
 
-// warp_sample's backward from the uniforms (u0, u1): the cotangents of its
-// position (g_px, g_py) and density g_pdf into the marg, cond and data
-// entries read at the found row and column and the corner weights, and
-// into (u0, u1) (clamped: passes inside), added to (g_u0, g_u1).
+// warp_sample's backward from the uniforms (u0, u1) at the row and column
+// its searches found (`found`): the cotangents of its position (g_px,
+// g_py) and density g_pdf into the terms of the marg, cond and data entries
+// read there (tv, the cell into *cell) and the corner weights, and into
+// (u0, u1) (clamped: passes inside), added to (g_u0, g_u1).
 __device__ __forceinline__ void warp_sample_bwd(const wpt_rgl::Frame& fr,
-                                                const wpt_rgl::Warp& wp, const WarpG& wg,
-                                                float u0, float u1, float g_px, float g_py,
+                                                const wpt_rgl::Warp& wp, float u0, float u1,
+                                                const int found[2], float g_px, float g_py,
                                                 float g_pdf, float& g_u0, float& g_u1,
-                                                FrameBwd& b) {
+                                                FrameBwd& b, int* cell, float* tv) {
     using namespace wpt_rgl;
-    // the forward (rgl_common.cuh warp_sample), its intermediates kept
+    // the forward (rgl_common.cuh warp_sample) at the row and column its
+    // searches found, its intermediates kept
     const float ux0 = clampf(u0, U_LO, U_HI), uy0 = clampf(u1, U_LO, U_HI);
-    int cnt = 0;
-    for (int j = 0; j < wp.h; ++j) cnt += gm(fr, wp, j) < uy0;
-    const int row = clip_count(cnt, wp.h);
+    const int row = found[0], col = found[1];
     const float uy1 = uy0 - gm(fr, wp, row);
-    const int row1 = min(row + 1, wp.H - 1);
+    const int row1 = row + 1;   // row <= h - 2 <= H - 2
     const int wlast = max(wp.w - 1, 0);
     const float r0 = gc(fr, wp, row, wlast), r1 = gc(fr, wp, row1, wlast);
     const bool is_const = fabsf(r0 - r1) < 1e-4f * (r0 + r1);
@@ -1072,10 +1281,6 @@ __device__ __forceinline__ void warp_sample_bwd(const wpt_rgl::Frame& fr,
                                : (r0 - disc) / ((is_const || r0 == r1) ? 1.f : r0 - r1);
     const float L = (1.f - uy2) * r0 + uy2 * r1;
     const float ux1 = ux0 * L;
-    cnt = 0;
-    for (int j = 0; j < wp.w; ++j)
-        cnt += (1.f - uy2) * gc(fr, wp, row, j) + uy2 * gc(fr, wp, row1, j) < ux1;
-    const int col = clip_count(cnt, wp.w);
     const float q0 = gc(fr, wp, row, col), q1 = gc(fr, wp, row1, col);
     const float ux2 = ux1 - ((1.f - uy2) * q0 + uy2 * q1);
     const float v00 = gd(fr, wp, row, col), v10 = gd(fr, wp, row, col + 1);
@@ -1086,6 +1291,7 @@ __device__ __forceinline__ void warp_sample_bwd(const wpt_rgl::Frame& fr,
     const float disc2 = sqrtf(clampminf(c0 * c0 - 2.f * ux2 * (c0 - c1), 0.f));
     const float ux3 = is_const2 ? 2.f * ux2 / clampminf(c0 + c1, 1e-20f)
                                 : (c0 - disc2) / ((is_const2 || c0 == c1) ? 1.f : c0 - c1);
+    *cell = row * wp.W + col;
     // reverse: pdf = ((1 - ux3) c0 + ux3 c1) area, px = (col + ux3) / (w - 1),
     // py = (row + uy2) / (h - 1)
     const float g_p = g_pdf * area(wp);
@@ -1094,14 +1300,14 @@ __device__ __forceinline__ void warp_sample_bwd(const wpt_rgl::Frame& fr,
     float g_uy2 = g_py / static_cast<float>(wp.h - 1);
     float g_ux2 = 0.f;
     quad_inv_bwd(is_const2, ux2, c0, c1, ux3, g_ux3, g_ux2, g_c0, g_c1);
-    gd_bwd(fr, wp, wg, row, col, g_c0 * (1.f - uy2), b);
-    gd_bwd(fr, wp, wg, row1, col, g_c0 * uy2, b);
-    gd_bwd(fr, wp, wg, row, col + 1, g_c1 * (1.f - uy2), b);
-    gd_bwd(fr, wp, wg, row1, col + 1, g_c1 * uy2, b);
+    gd_bwd(fr, wp, row, col, g_c0 * (1.f - uy2), tv[WARP_D00], b);
+    gd_bwd(fr, wp, row1, col, g_c0 * uy2, tv[WARP_D01], b);
+    gd_bwd(fr, wp, row, col + 1, g_c1 * (1.f - uy2), tv[WARP_D10], b);
+    gd_bwd(fr, wp, row1, col + 1, g_c1 * uy2, tv[WARP_D11], b);
     g_uy2 += g_c0 * (v01 - v00) + g_c1 * (v11 - v10);
     // ux2 = ux1 - ((1 - uy2) q0 + uy2 q1)
-    gc_bwd(fr, wp, wg, row, col, -g_ux2 * (1.f - uy2), b);
-    gc_bwd(fr, wp, wg, row1, col, -g_ux2 * uy2, b);
+    gc_bwd(fr, wp, row, col, -g_ux2 * (1.f - uy2), tv[WARP_C0], b);
+    gc_bwd(fr, wp, row1, col, -g_ux2 * uy2, tv[WARP_C1], b);
     g_uy2 -= g_ux2 * (q1 - q0);
     // ux1 = ux0 ((1 - uy2) r0 + uy2 r1)
     const float g_L = g_ux2 * ux0;
@@ -1109,31 +1315,31 @@ __device__ __forceinline__ void warp_sample_bwd(const wpt_rgl::Frame& fr,
     g_uy2 += g_L * (r1 - r0);
     float g_uy1 = 0.f;
     quad_inv_bwd(is_const, uy1, r0, r1, uy2, g_uy2, g_uy1, g_r0, g_r1);
-    gc_bwd(fr, wp, wg, row, wlast, g_r0, b);
-    gc_bwd(fr, wp, wg, row1, wlast, g_r1, b);
+    gc_bwd(fr, wp, row, wlast, g_r0, tv[WARP_R0], b);
+    gc_bwd(fr, wp, row1, wlast, g_r1, tv[WARP_R1], b);
     // uy1 = uy0 - marg(row)
-    gm_bwd(fr, wp, wg, row, -g_uy1, b);
+    gm_bwd(fr, wp, row, -g_uy1, tv[WARP_M], b);
     if (u0 >= U_LO && u0 <= U_HI) g_u0 += g_ux2 * L;
     if (u1 >= U_LO && u1 <= U_HI) g_u1 += g_uy1;
 }
 
 // fr_common's backward at luminance-warp position (px, py) and half-vector
-// position (uwm_x, uwm_y), for the cotangent g[4] of its f: into rgb's,
-// ndf's and sigma's cells and, with FULL, into the cotangents of (px, py),
-// of u_wm and of u_wi, added, and of the corner weights (b).
+// position (uwm_x, uwm_y), for the cotangent g[4] of its f: into the terms
+// of rgb's, ndf's and sigma's cells (tm) and, with FULL, into the
+// cotangents of (px, py), of u_wm and of u_wi, added, and of the corner
+// weights (b).
 template <bool FULL>
-__device__ __forceinline__ void fr_common_bwd(const RglTables& t, const RglOut& out,
-                                              const wpt_rgl::Frame& fr,
+__device__ __forceinline__ void fr_common_bwd(const RglTables& t, const wpt_rgl::Frame& fr,
                                               const wpt_rgl::Warp& lum, float px, float py,
                                               float uwm_x, float uwm_y, const float g[4],
                                               float& g_px, float& g_py, float& g_uwm_x,
                                               float& g_uwm_y, float& g_uwi_x, float& g_uwi_y,
-                                              FrameBwd& b) {
+                                              FrameBwd& b, RglTerms& tm) {
     if (g[0] == 0.f && g[1] == 0.f && g[2] == 0.f && g[3] == 0.f) return;
     int x0, y0;
     float sx, sy;
     wpt_rgl::cell(lum, px, py, x0, y0, sx, sy);
-    const int y1 = min(y0 + 1, lum.H - 1);
+    const int y1 = y0 + 1;   // y0 <= h - 2 <= H - 2
     const int plane = lum.H * lum.W;
     const float ndf_v = wpt_rgl::eval0(t.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y);
     const float sig4 = 4.f * wpt_rgl::eval0(t.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x,
@@ -1142,7 +1348,9 @@ __device__ __forceinline__ void fr_common_bwd(const RglTables& t, const RglOut& 
     const float scale = ndf_v / denom;
     const int offs[4] = {y0 * lum.W + x0, y0 * lum.W + x0 + 1, y1 * lum.W + x0,
                          y1 * lum.W + x0 + 1};
+    tm.rgb_cell = offs[0];
     float g_scale = 0.f, g_sx = 0.f, g_sy = 0.f;
+#pragma unroll
     for (int c = 0; c < 4; ++c) {
         const int base = c * plane;
         const float v00 = wpt_rgl::gsum(fr, t.rgb, 4 * plane, base + offs[0]);
@@ -1155,19 +1363,21 @@ __device__ __forceinline__ void fr_common_bwd(const RglTables& t, const RglOut& 
         if (!(o >= 0.f) || g[c] == 0.f) continue;   // clamp_min passes where o >= 0
         float gv[4];
         bilerp_bwd(v00, v10, v01, v11, sx, sy, g[c] * scale, gv, g_sx, g_sy);
+#pragma unroll
         for (int q = 0; q < 4; ++q)
-            gsum_bwd<FULL>(fr, t.rgb, out.rgb, 4 * plane, base + offs[q], gv[q], b);
+            gsum_bwd<FULL>(fr, t.rgb, 4 * plane, base + offs[q], gv[q], tm.rgb[4 * c + q], b);
     }
     if constexpr (FULL) {
         g_px += g_sx * static_cast<float>(lum.w - 1);
         g_py += g_sy * static_cast<float>(lum.h - 1);
     }
     if (g_scale == 0.f) return;
-    eval0_bwd<FULL>(t.ndf, out.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y, g_scale / denom,
-                    g_uwm_x, g_uwm_y);
+    eval0_bwd<FULL>(t.ndf, t.ndf_hw, t.Hn, t.Wn, fr.mid, uwm_x, uwm_y, g_scale / denom, g_uwm_x,
+                    g_uwm_y, &tm.ndf_cell, tm.ndf);
     if (sig4 >= 1e-12f)
-        eval0_bwd<FULL>(t.sigma, out.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x, fr.uwi_y,
-                        -(g_scale * ndf_v / (denom * denom)) * 4.f, g_uwi_x, g_uwi_y);
+        eval0_bwd<FULL>(t.sigma, t.sigma_hw, t.Hs, t.Ws, fr.mid, fr.uwi_x, fr.uwi_y,
+                        -(g_scale * ndf_v / (denom * denom)) * 4.f, g_uwi_x, g_uwi_y,
+                        &tm.sig_cell, tm.sig);
 }
 // jacobian's backward (J = max(2 pi^2 u_x sin theta_m, 1e-6) 4 (wi . wm)):
 // the cotangent g_J into wi's, wm's and u_wm.x's, added.
@@ -1191,11 +1401,10 @@ __device__ __forceinline__ void jacobian_bwd(wpt_rgl::Vec3 wi, wpt_rgl::Vec3 wm,
 }
 
 // prepare's backward: the corner weights' and the angles' cotangents (b,
-// u_wi's) into the parameter grids' entries and wi's, added.
-__device__ __forceinline__ void prepare_bwd(const RglTables& t, const RglOut& out,
-                                            const wpt_rgl::Frame& fr, wpt_rgl::Vec3 wi,
-                                            const FrameBwd& b, float g_uwi_x, float g_uwi_y,
-                                            V3& g_wi) {
+// u_wi's) into the parameter grids' terms (tm) and wi's, added.
+__device__ __forceinline__ void prepare_bwd(const RglTables& t, const wpt_rgl::Frame& fr,
+                                            wpt_rgl::Vec3 wi, const FrameBwd& b, float g_uwi_x,
+                                            float g_uwi_y, V3& g_wi, RglTerms& tm) {
     using namespace wpt_rgl;
     const int mid = fr.mid;
     const float theta_i = elevation(wi);
@@ -1216,38 +1425,41 @@ __device__ __forceinline__ void prepare_bwd(const RglTables& t, const RglOut& ou
         g_wp1 = (b.cw[2] * wt0 + b.cw[3] * wt1) - (b.cw[0] * wt0 + b.cw[1] * wt1);
         g_wt1 = (b.cw[1] * wp0 + b.cw[3] * wp1) - (b.cw[0] * wp0 + b.cw[2] * wp1);
     }
-    g_phi += param_weights_bwd(t.phi_i + mid * t.P, out.phi_i + mid * t.P, t.n_phi[mid], fr.phi_i,
-                               g_wp1);
-    g_theta += param_weights_bwd(t.theta_i + mid * t.T, out.theta_i + mid * t.T, t.n_theta[mid],
-                                 theta_i, g_wt1);
+    g_phi += param_weights_bwd(t.phi_i + mid * t.P, t.n_phi[mid], fr.phi_i, g_wp1, &tm.phi_i0,
+                               tm.phi);
+    g_theta += param_weights_bwd(t.theta_i + mid * t.T, t.n_theta[mid], theta_i, g_wt1,
+                                 &tm.theta_i0, tm.theta);
     g_wi = g_wi + elevation_bwd(wi, g_theta) + atan2_bwd(wi.y, wi.x, g_phi);
 }
 
 // One lane of K7T: x is wo (eval) or the two uniforms (sample), g_f [4] the
-// cotangent of the lane's f*cos. The tail form (FULL false) recomputes the
-// forward up to its warp positions; a lane whose f the forward zeroed
-// (below the surface, or a sample that is not ok) adds nothing, and g_pdf
-// and g_wo are not read. The full form also takes g_pdf and (sample) g_wo
-// [3], the cotangents of the lane's pdf and sampled direction, and writes
-// the lane's wi cotangent (and eval's wo's) to out.wi + 3 i (out.wo + 3 i).
+// cotangent of the lane's f*cos. The lane's parameter frame goes to fr and
+// its table terms to tm (both as the caller set them where the lane adds
+// nothing). The tail form (FULL false) recomputes the forward up to its
+// warp positions; a lane whose f the forward zeroed (below the surface, or
+// a sample that is not ok) adds nothing, and g_pdf and g_wo are not read.
+// The full form also takes g_pdf and (sample) g_wo [3], the cotangents of
+// the lane's pdf and sampled direction, and writes the lane's wi cotangent
+// (and eval's wo's) to out.wi + 3 i (out.wo + 3 i). The block function
+// hands it only lanes that carry a cotangent (rgl_carries). The sample's
+// backward reuses the rows and columns its forward's searches found.
 template <bool SAMPLE, bool FULL>
 __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& out, int i,
                                              int mid, wpt_rgl::Vec3 wi, const float* x,
-                                             const float* g_f, float g_pdf, const float* g_wo) {
+                                             const float* g_f, float g_pdf, const float* g_wo,
+                                             wpt_rgl::Frame& fr, RglTerms& tm) {
     using namespace wpt_rgl;
     const float g[4] = {g_f[0], g_f[1], g_f[2], g_f[3]};
-    if (!FULL && g[0] == 0.f && g[1] == 0.f && g[2] == 0.f && g[3] == 0.f) return;
-    const Frame fr = prepare(t, mid, wi);
+    fr = prepare(t, mid, wi);
     const Warp lum = lum_warp(t, mid), vndf = vndf_warp(t, mid);
-    const WarpG lg{out.lum_data, out.lum_marg, out.lum_cond};
-    const WarpG vg{out.vndf_data, out.vndf_marg, out.vndf_cond};
     FrameBwd b = {{0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
     V3 g_wi = {0.f, 0.f, 0.f}, g_wm = {0.f, 0.f, 0.f};
     float g_px = 0.f, g_py = 0.f, g_uwm_x = 0.f, g_uwm_y = 0.f, g_uwi_x = 0.f, g_uwi_y = 0.f;
     if constexpr (SAMPLE) {
         float px, py, uwm_x, uwm_y;
-        const float lum_pdf = warp_sample(fr, lum, x[1], x[0], px, py);
-        const float ndf_pdf = warp_sample(fr, vndf, px, py, uwm_x, uwm_y);
+        int lum_rc[2], vndf_rc[2];
+        const float lum_pdf = warp_sample(fr, lum, x[1], x[0], px, py, lum_rc);
+        const float ndf_pdf = warp_sample(fr, vndf, px, py, uwm_x, uwm_y, vndf_rc);
         float phi_m = (2.f * uwm_y - 1.f) * PI_F;
         const float theta_m = uwm_x * uwm_x * HALF_PI_F;
         if (fr.iso) phi_m = phi_m + fr.phi_i;
@@ -1265,8 +1477,8 @@ __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& o
         const bool ok = valid && p > 0.f && finite;
         if constexpr (!FULL) {
             if (ok)
-                fr_common_bwd<false>(t, out, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py,
-                                     g_uwm_x, g_uwm_y, g_uwi_x, g_uwi_y, b);
+                fr_common_bwd<false>(t, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py, g_uwm_x,
+                                     g_uwm_y, g_uwi_x, g_uwi_y, b, tm);
             return;
         } else {
             float gf[4];
@@ -1275,8 +1487,8 @@ __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& o
             const float g_num = gp != 0.f ? gp / J : 0.f;   // J = 0 on lanes that are not ok
             const float g_ndf_pdf = g_num * lum_pdf, g_lum_pdf = g_num * ndf_pdf;
             jacobian_bwd(wi, wm, uwm_x, gp != 0.f ? -gp * (p / J) : 0.f, g_wi, g_wm, g_uwm_x);
-            fr_common_bwd<true>(t, out, fr, lum, px, py, uwm_x, uwm_y, gf, g_px, g_py, g_uwm_x,
-                                g_uwm_y, g_uwi_x, g_uwi_y, b);
+            fr_common_bwd<true>(t, fr, lum, px, py, uwm_x, uwm_y, gf, g_px, g_py, g_uwm_x,
+                                g_uwm_y, g_uwi_x, g_uwi_y, b, tm);
             // wo = 2 (wm . wi) wm - wi
             const V3 gwo = load3(g_wo);
             const float g_d2 = 2.f * (gwo.x * wm.x + gwo.y * wm.y + gwo.z * wm.z);
@@ -1289,9 +1501,11 @@ __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& o
             g_uwm_x += g_theta * HALF_PI_F * 2.f * uwm_x;
             g_uwm_y += g_phi * PI_F * 2.f;
             if (fr.iso) b.phi_i += g_phi;
-            warp_sample_bwd(fr, vndf, vg, px, py, g_uwm_x, g_uwm_y, g_ndf_pdf, g_px, g_py, b);
+            warp_sample_bwd(fr, vndf, px, py, vndf_rc, g_uwm_x, g_uwm_y, g_ndf_pdf, g_px, g_py,
+                            b, &tm.vndf_cell, tm.vndf);
             float g_u0 = 0.f, g_u1 = 0.f;   // the uniforms carry none
-            warp_sample_bwd(fr, lum, lg, x[1], x[0], g_px, g_py, g_lum_pdf, g_u0, g_u1, b);
+            warp_sample_bwd(fr, lum, x[1], x[0], lum_rc, g_px, g_py, g_lum_pdf, g_u0, g_u1, b,
+                            &tm.lum_cell, tm.lum);
         }
     } else {
         const Vec3 wo = {x[0], x[1], x[2]};
@@ -1306,8 +1520,8 @@ __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& o
             float px, py;
             const float vndf_pdf = warp_invert(fr, vndf, uwm_x, uwm_y, px, py);
             if constexpr (!FULL) {
-                fr_common_bwd<false>(t, out, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py,
-                                     g_uwm_x, g_uwm_y, g_uwi_x, g_uwi_y, b);
+                fr_common_bwd<false>(t, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py, g_uwm_x,
+                                     g_uwm_y, g_uwi_x, g_uwi_y, b, tm);
                 return;
             } else {
                 const float lum_pdf = warp_eval(fr, lum, px, py);
@@ -1317,11 +1531,12 @@ __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& o
                 const float g_num = gp != 0.f ? gp / J : 0.f;
                 jacobian_bwd(wi, wm, uwm_x, gp != 0.f ? -gp * (pdf_raw / J) : 0.f, g_wi, g_wm,
                              g_uwm_x);
-                warp_eval_bwd(fr, lum, lg, px, py, g_num * vndf_pdf, g_px, g_py, b);
-                fr_common_bwd<true>(t, out, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py,
-                                    g_uwm_x, g_uwm_y, g_uwi_x, g_uwi_y, b);
-                warp_invert_bwd(fr, vndf, vg, uwm_x, uwm_y, g_px, g_py, g_num * lum_pdf,
-                                g_uwm_x, g_uwm_y, b);
+                warp_eval_bwd(fr, lum, px, py, g_num * vndf_pdf, g_px, g_py, b, &tm.lum_cell,
+                              tm.lum);
+                fr_common_bwd<true>(t, fr, lum, px, py, uwm_x, uwm_y, g, g_px, g_py, g_uwm_x,
+                                    g_uwm_y, g_uwi_x, g_uwi_y, b, tm);
+                warp_invert_bwd(fr, vndf, uwm_x, uwm_y, g_px, g_py, g_num * lum_pdf, g_uwm_x,
+                                g_uwm_y, b, &tm.vndf_cell, tm.vndf);
                 // u_wm = (theta2u(theta_m), phi2u(phi_m - iso phi_i) mod 1)
                 const float g_a = g_uwm_y * INV_TWO_PI_F;
                 if (fr.iso) b.phi_i -= g_a;
@@ -1336,8 +1551,238 @@ __device__ __forceinline__ void rgl_bwd_lane(const RglTables& t, const RglOut& o
         if constexpr (FULL) store3(out.wo + 3 * i, g_wo_out);
     }
     if constexpr (FULL) {
-        prepare_bwd(t, out, fr, wi, b, g_uwi_x, g_uwi_y, g_wi);
+        prepare_bwd(t, fr, wi, b, g_uwi_x, g_uwi_y, g_wi, tm);
         store3(out.wi + 3 * i, g_wi);
+    }
+}
+
+// A cell's terms weighted by w into v, summed over the warp's lanes of the
+// same key (group_sum; every thread of the warp calls it); true in the
+// group's first lane, which then holds the sums.
+template <int N>
+__device__ __forceinline__ bool group_terms(int key, const float (&tv)[N], float w,
+                                            float (&v)[N]) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = tv[j] * w;
+    return group_sum(key, v);
+}
+
+// A warp's terms of one corner (slice s, weight w: v = tv w) summed over the
+// warp's lanes of the same slice and cell, the group's sums added to the
+// data taps, the cond entries and the marg entry (WARP_*) of the warp's
+// tables in sk (data, marg, cond; [slices, H, W] and [slices, H]) at the
+// cell row W + col, the material's last column wlast.
+__device__ __forceinline__ void add_warp_terms(float* data, float* marg, float* cond, int H,
+                                               int W, int wlast, int s, bool on, int cell,
+                                               const float (&tv)[9], float w) {
+    float v[9];
+    const int key = on && cell >= 0 ? s * H * W + cell : -1;
+    if (!group_terms(key, tv, w, v)) return;
+    const int row = cell / W;
+    add1(data + key, v[WARP_D00]);
+    add1(data + key + 1, v[WARP_D10]);
+    add1(data + key + W, v[WARP_D01]);
+    add1(data + key + W + 1, v[WARP_D11]);
+    add1(cond + key, v[WARP_C0]);
+    add1(cond + key + W, v[WARP_C1]);
+    const int last = s * H * W + row * W + wlast;
+    add1(cond + last, v[WARP_R0]);
+    add1(cond + last + W, v[WARP_R1]);
+    add1(marg + s * H + row, v[WARP_M]);
+}
+
+// A lane's terms (tm, on its frame fr: nc 0 where it adds nothing), each
+// cell's summed over the warp's lanes of the same corner slice (or
+// material) and cell, added by each group's first lane to the tables of sk
+// (the block's copy in shared memory, or the tables). Every thread of the
+// warp calls it.
+template <bool FULL>
+__device__ __forceinline__ void add_rgl_terms(const RglTables& t, const RglOut& sk,
+                                              const wpt_rgl::Frame& fr, const RglTerms& tm) {
+    const int pl = t.Hl * t.Wl;
+    const int mid = fr.nc > 0 ? fr.mid : 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const bool on = k < fr.nc;
+        const int s = on ? fr.slice[k] : 0;
+        const float w = on ? fr.cw[k] : 0.f;
+        float v[16];
+        const int key = on && tm.rgb_cell >= 0 ? s * 4 * pl + tm.rgb_cell : -1;
+        if (group_terms(key, tm.rgb, w, v)) {
+            const int taps[4] = {0, 1, t.Wl, t.Wl + 1};
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) add1(sk.rgb + key + c * pl + taps[q], v[4 * c + q]);
+        }
+        if constexpr (FULL) {
+            add_warp_terms(sk.lum_data, sk.lum_marg, sk.lum_cond, t.Hl, t.Wl,
+                           t.lum_hw[2 * mid + 1] - 1, s, on, tm.lum_cell, tm.lum, w);
+            add_warp_terms(sk.vndf_data, sk.vndf_marg, sk.vndf_cond, t.Hv, t.Wv,
+                           t.vndf_hw[2 * mid + 1] - 1, s, on, tm.vndf_cell, tm.vndf, w);
+        }
+    }
+    float v[4];
+    int key = tm.ndf_cell >= 0 ? mid * t.Hn * t.Wn + tm.ndf_cell : -1;
+    if (group_terms(key, tm.ndf, 1.f, v)) {
+        add1(sk.ndf + key, v[0]);
+        add1(sk.ndf + key + 1, v[1]);
+        add1(sk.ndf + key + t.Wn, v[2]);
+        add1(sk.ndf + key + t.Wn + 1, v[3]);
+    }
+    key = tm.sig_cell >= 0 ? mid * t.Hs * t.Ws + tm.sig_cell : -1;
+    if (group_terms(key, tm.sig, 1.f, v)) {
+        add1(sk.sigma + key, v[0]);
+        add1(sk.sigma + key + 1, v[1]);
+        add1(sk.sigma + key + t.Ws, v[2]);
+        add1(sk.sigma + key + t.Ws + 1, v[3]);
+    }
+    if constexpr (FULL) {
+        float p[2];
+        key = tm.phi_i0 >= 0 ? mid * t.P + tm.phi_i0 : -1;
+        if (group_terms(key, tm.phi, 1.f, p)) {
+            add1(sk.phi_i + key, p[0]);
+            add1(sk.phi_i + mid * t.P + min(tm.phi_i0 + 1, max(t.n_phi[mid] - 1, 0)), p[1]);
+        }
+        key = tm.theta_i0 >= 0 ? mid * t.T + tm.theta_i0 : -1;
+        if (group_terms(key, tm.theta, 1.f, p)) {
+            add1(sk.theta_i + key, p[0]);
+            add1(sk.theta_i + mid * t.T + min(tm.theta_i0 + 1, max(t.n_theta[mid] - 1, 0)),
+                 p[1]);
+        }
+    }
+}
+
+// The block's copy of the form's tables in shared memory: RglOut's tables
+// (phi_i .. rgb) at their offsets in acc, `words` of each.
+__device__ __forceinline__ RglOut shared_tables(float* acc, const long long* words) {
+    RglOut s;
+    float* p = acc;
+    s.phi_i = p;
+    s.theta_i = p += words[0];
+    s.ndf = p += words[1];
+    s.sigma = p += words[2];
+    s.vndf_data = p += words[3];
+    s.vndf_marg = p += words[4];
+    s.vndf_cond = p += words[5];
+    s.lum_data = p += words[6];
+    s.lum_marg = p += words[7];
+    s.lum_cond = p += words[8];
+    s.rgb = p += words[9];
+    s.wi = s.wo = nullptr;
+    return s;
+}
+
+// Adds the block's nonzero sums src[0, n) to dst[0, n).
+__device__ __forceinline__ void add_block_sums(const float* src, float* dst, long long n) {
+    for (long long e = threadIdx.x; e < n; e += RGL_BLOCK) {
+        const float s = src[e];
+        if (s != 0.f) atomicAdd(dst + e, s);
+    }
+}
+
+// Whether K7T's lane i carries a cotangent: of its f*cos or, in the full
+// form, of its pdf or sample's wo. A lane that carries none adds nothing
+// (every term is a product with a zero cotangent; the plain version takes
+// such a lane so too) and, in the full form, has zero direction cotangents.
+template <bool SAMPLE, bool FULL>
+__device__ __forceinline__ bool rgl_carries(int i, const float* g_f, const float* g_pdf,
+                                            const float* g_wo) {
+    const float* g = g_f + 4 * i;
+    bool carry = g[0] != 0.f || g[1] != 0.f || g[2] != 0.f || g[3] != 0.f;
+    if (FULL) carry = carry || g_pdf[i] != 0.f;
+    if (FULL && SAMPLE)
+        carry = carry || g_wo[3 * i] != 0.f || g_wo[3 * i + 1] != 0.f || g_wo[3 * i + 2] != 0.f;
+    return carry;
+}
+
+// K7T over the block's chunk of lanes [blockIdx.x chunk, + chunk): the
+// lanes that carry a cotangent (rgl_carries; the full form writes the
+// others' zero direction cotangents) queued in shared memory in lane
+// order (a __ballot_sync / __popc prefix per warp), so that a round of the
+// block's threads takes RGL_BLOCK of them (the rest at the chunk's end): a
+// render's cotangents are sparse, and a warp with one such lane among 32
+// would take a whole lane's time. Each queued lane's terms (rgl_bwd_lane)
+// are summed over the warp's lanes of one corner and cell and added by
+// each group's first lane (add_rgl_terms) into the block's copy of the
+// form's tables in shared memory (SHARED: `acc`, rgl_table_words of them in
+// RglOut's order, zeroed here and their nonzero words added to the tables
+// at the end) or into the tables. The lanes' direction cotangents (FULL)
+// are written to out. Every thread calls it.
+template <bool SAMPLE, bool FULL, bool SHARED>
+__device__ __forceinline__ void rgl_bwd_lanes(const RglTables& t, const RglOut& out,
+                                              const int* mids, const float* wi, const float* x,
+                                              int n, const float* g_f, const float* g_pdf,
+                                              const float* g_wo, int chunk, float* acc) {
+    __shared__ int s_lane[2 * RGL_BLOCK];     // the queue: at most a round and a scan's lanes
+    __shared__ int s_count[RGL_BLOCK / 32];
+    const int lane = static_cast<int>(threadIdx.x & 31u), warp = static_cast<int>(threadIdx.x >> 5);
+    long long words[RGL_TABLES];
+    const long long total = rgl_table_words(t, FULL, words);
+    RglOut sk = out;
+    if (SHARED) {
+        for (long long k = threadIdx.x; k < total; k += RGL_BLOCK) acc[k] = 0.f;
+        sk = shared_tables(acc, words);
+        __syncthreads();
+    }
+    const int start = blockIdx.x * chunk;
+    const int end = min(n, start + chunk);
+    int queued = 0;   // the same in every thread
+    for (int base = start; base < end || queued > 0; base += RGL_BLOCK) {
+        if (base < end) {   // scan RGL_BLOCK lanes into the queue
+            const int i = base + static_cast<int>(threadIdx.x);
+            const bool carry = i < end && rgl_carries<SAMPLE, FULL>(i, g_f, g_pdf, g_wo);
+            if (FULL && i < end && !carry) {
+                store3(out.wi + 3 * i, {0.f, 0.f, 0.f});
+                if (!SAMPLE) store3(out.wo + 3 * i, {0.f, 0.f, 0.f});
+            }
+            const unsigned m = __ballot_sync(FULL_MASK, carry);
+            if (lane == 0) s_count[warp] = __popc(m);
+            __syncthreads();
+            int pos = queued + __popc(m & ((1u << lane) - 1u)), scanned = 0;
+            for (int w = 0; w < RGL_BLOCK / 32; ++w) {
+                const int c = s_count[w];
+                pos += w < warp ? c : 0;
+                scanned += c;
+            }
+            if (carry) s_lane[pos] = i;
+            queued += scanned;
+            __syncthreads();
+            if (queued < RGL_BLOCK && base + RGL_BLOCK < end) continue;   // a whole round first
+        }
+        const int take = min(queued, RGL_BLOCK);   // a round
+        const int q = static_cast<int>(threadIdx.x) < take ? s_lane[threadIdx.x] : -1;
+        wpt_rgl::Frame fr;
+        fr.nc = 0;
+        fr.mid = 0;
+        RglTerms tm;
+        clear_terms(tm);
+        if (q >= 0) {
+            const int mid = wpt_rgl::clampi(mids[q], 0, t.M - 1);
+            rgl_bwd_lane<SAMPLE, FULL>(t, out, q, mid, {wi[3 * q], wi[3 * q + 1], wi[3 * q + 2]},
+                                       x + (SAMPLE ? 2 : 3) * q, g_f + 4 * q,
+                                       FULL ? g_pdf[q] : 0.f,
+                                       SAMPLE && FULL ? g_wo + 3 * q : nullptr, fr, tm);
+        }
+        add_rgl_terms<FULL>(t, sk, fr, tm);
+        __syncthreads();   // the round's lanes read before the rest of the queue moves up
+        if (static_cast<int>(threadIdx.x) < queued - take)
+            s_lane[threadIdx.x] = s_lane[take + threadIdx.x];
+        queued -= take;
+        __syncthreads();
+    }
+    if (SHARED) {
+        add_block_sums(sk.phi_i, out.phi_i, words[0]);
+        add_block_sums(sk.theta_i, out.theta_i, words[1]);
+        add_block_sums(sk.ndf, out.ndf, words[2]);
+        add_block_sums(sk.sigma, out.sigma, words[3]);
+        add_block_sums(sk.vndf_data, out.vndf_data, words[4]);
+        add_block_sums(sk.vndf_marg, out.vndf_marg, words[5]);
+        add_block_sums(sk.vndf_cond, out.vndf_cond, words[6]);
+        add_block_sums(sk.lum_data, out.lum_data, words[7]);
+        add_block_sums(sk.lum_marg, out.lum_marg, words[8]);
+        add_block_sums(sk.lum_cond, out.lum_cond, words[9]);
+        add_block_sums(sk.rgb, out.rgb, words[10]);
     }
 }
 

@@ -219,8 +219,9 @@ __device__ __forceinline__ float warp_invert(const Frame& fr, const Warp& wp, fl
 }
 
 // Warp a uniform sample; returns the density (powitacq_rgb.inl:326-432).
+// `found`, where given, gets the row and column the searches found.
 __device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, float u0, float u1, float& px,
-                             float& py) {
+                             float& py, int* found = nullptr) {
     float ux = clampf(u0, U_LO, U_HI), uy = clampf(u1, U_LO, U_HI);
     int cnt = 0;
     for (int j = 0; j < wp.h; ++j) cnt += gm(fr, wp, j) < uy;
@@ -238,6 +239,10 @@ __device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, fl
     for (int j = 0; j < wp.w; ++j)
         cnt += (1.f - uy) * gc(fr, wp, row, j) + uy * gc(fr, wp, row1, j) < ux;
     const int col = clip_count(cnt, wp.w);
+    if (found) {
+        found[0] = row;
+        found[1] = col;
+    }
     ux = ux - ((1.f - uy) * gc(fr, wp, row, col) + uy * gc(fr, wp, row1, col));
     const float v00 = gd(fr, wp, row, col), v10 = gd(fr, wp, row, col + 1);
     const float v01 = gd(fr, wp, row1, col), v11 = gd(fr, wp, row1, col + 1);
