@@ -36,8 +36,14 @@ Phases, each a function, any failure exits non-zero and names its phase:
    their first hits and random rays, both also with every lane dead and on
    1000 lanes (bit-equal); K8's equirect branch on the city
    frame's night sky, its block's 1048576 camera directions and uniforms;
-   K7 on 1048576 lanes of the city frame's block (camera hits and
-   their bounce directions, random tangent-space lanes); P0 on the Pallas
+   K7 bit-equal on 1048576 lanes of the city frame's block (camera hits
+   and their bounce directions, random tangent-space lanes), on the lanes
+   of each of its calls in one pass of material_comparison (its main path:
+   every lane of a bounce, the other materials' with id -1, which K7
+   skips; the pass's RGL share printed) and on 262144 lanes of two wide
+   synthetic tables (128 x 128 and 33 x 33 rows, ids -1, 0 and 1), its two
+   records timed on the pass's calls with the most RGL lanes and its
+   device us a launch printed on every call and set; P0 on the Pallas
    probe's shapes and on the city's material rows at 1048576 lanes (K8's
    equirect branch, K7 and the material rows now run inside K4's shades;
    their stand-alone kernels stay checked here). K1-K3
@@ -282,7 +288,10 @@ their object-space records the cornell_animated_bvh path's.
    form and P0 (the material rows and the texture ids) must launch on
    each, K8's constant branch on the two with a sky, K7's two kernels on
    material_comparison; each frame held to its JAX CPU yardstick
-   (kernel_check.EXAMPLE_REFS: mean within 1e-3, counters within 0.5 %);
+   (kernel_check.EXAMPLE_REFS: mean within 1e-3, counters within 0.5 %),
+   material_comparison's also to its bits as K7 rendered it before it
+   skipped the lanes without an RGL material (kernel_check.EXAMPLE_DIGESTS:
+   the sha256 of its image and stats);
    frame ms (median of 5 after the first), and the CUDA kernel launches and
    device time of one profiled pass printed.
 16. grad - the pass renderer and the differentiable render
@@ -866,30 +875,46 @@ def phase_kernels(scenes_on_card):
                             lambda: const.const_radiance.repeat(nr, 1)),
     }, errs, nr)
 
-    # K7 on the city frame's block; P0 on the probe's shapes and the city's
-    # material rows (the lit shade evaluates, samples and reads them inline).
+    # K7 on the lanes of material_comparison's pass (its main path: every
+    # lane of a bounce, those of other materials with id -1), on the city
+    # frame's block (every lane live) and on 128-wide warps; P0 on the
+    # probe's shapes and the city's material rows (the lit shade evaluates,
+    # samples and reads them inline).
+    mc_calls = _material_comparison_rgl_calls()
+    m_tables = mc_calls[0][1]
     tables = city_scene.rgl
     mid, wi, wo, u2 = kc.city_rgl_lanes(city_scene, DEVICE)
+    wide = kc.wide_rgl_lanes(DEVICE)
     packed = bsdf.pack_material_table(city_scene.materials)
     mat_idx = torch.as_tensor(np.random.default_rng(9).integers(0, packed.shape[0], kc.CITY_LANES),
                               dtype=torch.int32, device=DEVICE)
     probe_rows, probe_vec = kc.probe_gather_inputs(DEVICE)
     errs = _run_checks((
-        ("rgl", lambda: kc.check_rgl(tables, (mid, wi, wo, u2)),
-         {"city camera hits and random lanes": ()}),
+        ("rgl", lambda t, lanes: kc.check_rgl(t, lanes),
+         {"city camera hits and random lanes": (tables, (mid, wi, wo, u2)),
+          **{f"material_comparison pass, {c[0]} call {k} ({int((c[2] >= 0).sum())} of "
+             f"{c[2].shape[0]} lanes RGL)": (c[1], _both_lanes(*c))
+             for k, c in enumerate(mc_calls)},
+          "wide tables: 128 x 128 and 33 x 33 rows, ids -1, 0 and 1": (wide[0], wide[1:])}),
         ("row_gather", kc.check_row_gather,
          {"probe rows [512, 128] x 256": probe_rows, "probe vector [512] x [8, 128]": probe_vec,
           "city material rows": (packed, mat_idx),
           **{f"[37, {c}] NaN payloads, indices out of range": kc.gather_words(c, DEVICE, seed=c)
              for c in (1, 3, 23, 128)}})))
     errs["rgl_eval"] = errs["rgl_sample"] = errs.pop("rgl")
+    # K7's records on the pass's calls with the most RGL lanes
+    ev, sa = (max((c for c in mc_calls if c[0] == kind), key=lambda c: int((c[2] >= 0).sum()))
+              for kind in ("eval", "sample"))
     records += _timed_records({
-        "rgl_eval": (lambda: rgl.rgl_eval(tables, mid, wi, wo),
-                     lambda: rgl.rgl_eval_plain(tables, mid, wi, wo),
-                     kc.rgl_work(tables, mid.shape[0], sample=False), None),
-        "rgl_sample": (lambda: rgl.rgl_sample(tables, mid, wi, u2),
-                       lambda: rgl.rgl_sample_plain(tables, mid, wi, u2),
-                       kc.rgl_work(tables, mid.shape[0], sample=True), None),
+        "rgl_eval": (lambda: rgl.rgl_eval(*ev[1:]), lambda: rgl.rgl_eval_plain(*ev[1:]),
+                     kc.rgl_work(m_tables, ev[2].shape[0], False, int((ev[2] >= 0).sum())),
+                     None),
+        "rgl_sample": (lambda: rgl.rgl_sample(*sa[1:]), lambda: rgl.rgl_sample_plain(*sa[1:]),
+                       kc.rgl_work(m_tables, sa[2].shape[0], True, int((sa[2] >= 0).sum())),
+                       None),
+    }, errs, ev[2].shape[0])
+    _rgl_device_times(mc_calls, (tables, mid, wi, wo, u2), wide)
+    records += _timed_records({
         "row_gather": (lambda: gather.row_gather(packed, mat_idx),
                        lambda: gather.row_gather_plain(packed, mat_idx),
                        kc.row_gather_work(packed, mat_idx),
@@ -904,6 +929,63 @@ def phase_kernels(scenes_on_card):
           f"{p0['library_device_ms'] * 1e3:.2f} us (CUDA events, 20 calls behind a spin), city material "
           f"rows [{packed.shape[0]}, {packed.shape[1]}] x {mat_idx.shape[0]}")
     return records + _per_ray_records(scenes_on_card) + _k4_records(scenes_on_card)
+
+
+def _material_comparison_rgl_calls():
+    """K7's calls of one pass of material_comparison at the app's size
+    (kernel_check.EXAMPLE_FRAMES: the generic bounce, 806400 lanes a
+    bounce), each call's (kind, tables, mid, wi, x) as the bsdf lane
+    adapters hand them (kernel_check.capture_rgl_calls); prints each call's
+    RGL lanes and the pass's share."""
+    from wurblpt_tpu_torch.utils import scenes
+
+    render = kc.example_frame("material_comparison", DEVICE,
+                              scenes.material_comparison(device=DEVICE))
+    calls = kc.capture_rgl_calls(lambda: render(one_pass=True))
+    live = [int((c[2] >= 0).sum()) for c in calls]
+    lanes = sum(c[2].shape[0] for c in calls)
+    print(f"kernels: rgl on material_comparison's pass: {len(calls)} calls "
+          f"({[c[0] for c in calls].count('sample')} sample) of {calls[0][2].shape[0]} lanes, "
+          f"RGL lanes per call {live}: {sum(live)} of {lanes} ({sum(live) / lanes:.4%})")
+    return calls
+
+
+def _both_lanes(kind, tables, mid, wi, x, seed=12):
+    """(mid, wi, wo, u2) of a K7 call of one kind, the other kind's input
+    (wo on the sphere or u2) made from numpy `seed`, so that both kernels
+    run on the call's ids and directions."""
+    rs = np.random.default_rng(seed)
+    n = mid.shape[0]
+    if kind == "sample":
+        d = rs.standard_normal((n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return mid, wi, torch.as_tensor(d.astype(np.float32), device=DEVICE), x
+    return mid, wi, x, torch.as_tensor(rs.uniform(size=(n, 2)).astype(np.float32),
+                                       device=DEVICE)
+
+
+def _rgl_device_times(mc_calls, city_lanes, wide):
+    """K7's device us a launch (kc.device_ms) beside the bound of its
+    work: each call of material_comparison's pass, the city's lanes and the
+    wide tables' lanes."""
+    from wurblpt_tpu_torch.materials import rgl
+
+    cases = {f"material_comparison pass {c[0]} call {k}": (c[0] == "sample", *c[1:])
+             for k, c in enumerate(mc_calls)}
+    t, mid, wi, wo, u2 = city_lanes
+    cases["city lanes eval"], cases["city lanes sample"] = (False, t, mid, wi, wo), (
+        True, t, mid, wi, u2)
+    t, mid, wi, wo, u2 = wide
+    cases["wide tables eval"], cases["wide tables sample"] = (False, t, mid, wi, wo), (
+        True, t, mid, wi, u2)
+    for label, (sample, t, mid, wi, x) in cases.items():
+        fn = rgl.rgl_sample if sample else rgl.rgl_eval
+        us = kc.device_ms(lambda f=fn, a=(t, mid, wi, x): f(*a)) * 1e3
+        live = int((mid >= 0).sum())
+        bound, by = kc.bound_ms(*kc.rgl_work(t, mid.shape[0], sample, live))
+        print(f"kernels: {'rgl_sample' if sample else 'rgl_eval'} {label}: {us:.2f} us device "
+              f"(CUDA events, 20 calls behind a spin), bound {bound * 1e3:.2f} us by {by}, "
+              f"{live} of {mid.shape[0]} lanes RGL")
 
 
 def _per_ray_records(scenes_on_card):
@@ -2189,6 +2271,9 @@ def phase_scene_api(name):
     print(f"{label}: {width} x {height}, {ssqrt * ssqrt} spp, depth {depth}: mean radiance "
           f"{mean!r} (JAX yardstick {ref_mean!r}), stats {stats} (JAX {list(ref_stats)})")
     kc.check_example_frame(name, img, stats)
+    digest, want = kc.frame_digest(img, stats), kc.EXAMPLE_DIGESTS.get(name)
+    print(f"{label}: frame digest {digest} (image and stats; held to {want})")
+    assert want is None or digest == want, f"{label}: the frame's bits moved"
     n_pass = ssqrt * ssqrt // per_pass
     dt = statistics.median(times)
     t0 = time.perf_counter()

@@ -1697,7 +1697,8 @@ __device__ __forceinline__ bool rgl_carries(int i, const float* g_f, const float
 }
 
 // K7T over the block's chunk of lanes [blockIdx.x chunk, + chunk): the
-// lanes that carry a cotangent (rgl_carries; the full form writes the
+// lanes that carry a cotangent (rgl_carries) and an RGL material (a
+// negative id: K7 wrote zeros, which take none; the full form writes the
 // others' zero direction cotangents) queued in shared memory in lane
 // order (a __ballot_sync / __popc prefix per warp), so that a round of the
 // block's threads takes RGL_BLOCK of them (the rest at the chunk's end): a
@@ -1731,7 +1732,8 @@ __device__ __forceinline__ void rgl_bwd_lanes(const RglTables& t, const RglOut& 
     for (int base = start; base < end || queued > 0; base += RGL_BLOCK) {
         if (base < end) {   // scan RGL_BLOCK lanes into the queue
             const int i = base + static_cast<int>(threadIdx.x);
-            const bool carry = i < end && rgl_carries<SAMPLE, FULL>(i, g_f, g_pdf, g_wo);
+            const bool carry =
+                i < end && mids[i] >= 0 && rgl_carries<SAMPLE, FULL>(i, g_f, g_pdf, g_wo);
             if (FULL && i < end && !carry) {
                 store3(out.wi + 3 * i, {0.f, 0.f, 0.f});
                 if (!SAMPLE) store3(out.wo + 3 * i, {0.f, 0.f, 0.f});

@@ -14,6 +14,12 @@
 // Every function is inlined and every loop over a lane's (phi_i, theta_i)
 // corners runs over the four slots with constant indices, so no per-lane
 // array is indexed at run time and none lands in local memory.
+//
+// warp_sample and sample_lane come in two forms: the lane's own (WARP
+// false: K4's lit shade and K7T's recomputed forward) and the warp's (WARP
+// true: K7's stand-alone sample, rgl.cu), whose CDF row searches count a
+// lane's row with the warp's 32 threads and a ballot (warp_row_count): the
+// same count and the same bits, every thread of the warp calling them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -218,13 +224,119 @@ __device__ __forceinline__ float warp_invert(const Frame& fr, const Warp& wp, fl
     return pdf * area(wp);
 }
 
-// Warp a uniform sample; returns the density (powitacq_rgb.inl:326-432).
-// `found`, where given, gets the row and column the searches found.
-__device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, float u0, float u1, float& px,
-                             float& py, int* found = nullptr) {
-    float ux = clampf(u0, U_LO, U_HI), uy = clampf(u1, U_LO, U_HI);
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Threads of a warp that count one row `width` entries wide (padded): the
+// next power of two, at most 32.
+__device__ __forceinline__ int count_group(int width) {
+    int s = 1;
+    while (s < width && s < 32) s *= 2;
+    return s;
+}
+
+// The row searches' count by the warp: for each lane L < live_end, the
+// number of entries j < n_L of its row whose value is below u_L, the value
+// being the corner blend (gsum's expression and order) of
+// arr[slice * stride + off0_L + j] and, with TWO, blended with the one at
+// off1_L as (1 - b_L) * v0 + b_L * v1, warp_sample's own expression. The
+// warp takes its lanes' rows in turn, 32 / S a round with S =
+// count_group(width) threads to a row (a row wider than 32 in rounds of 32
+// entries); each thread blends one entry, from the row's corner slices and
+// offsets shuffled from its lane, and a ballot's bits of a group, counted by
+// __popc, add to that lane's count. Every thread of the warp calls it with
+// `width` and `live_end` the same in all (a lane past live_end, or idle,
+// with any frame whose slices lie inside the tables); returns this
+// thread's count.
+template <bool TWO>
+__device__ __forceinline__ int warp_row_count(const Frame& fr, const float* arr, int stride,
+                                              int off0, int off1, float b, int n, float u,
+                                              int width, int live_end) {
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    const int S = count_group(width), G = 32 / S;
+    const int s = lane & (S - 1), g = lane / S;
+    const unsigned group = S == 32 ? FULL_MASK : (1u << S) - 1u;
+    const int my_round = lane / G, shift = (lane % G) * S;   // where this lane's row is counted
+    int cnt = 0;
+    for (int r = 0; r * G < live_end; ++r) {
+        const int src = r * G + g;
+        float cw[4];
+        int sl[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (k < fr.nc) {
+                cw[k] = __shfl_sync(FULL_MASK, fr.cw[k], src);
+                sl[k] = __shfl_sync(FULL_MASK, fr.slice[k], src) * stride;
+            }
+        }
+        const float us = __shfl_sync(FULL_MASK, u, src);
+        int ns = __shfl_sync(FULL_MASK, n, src);
+        const int o0 = __shfl_sync(FULL_MASK, off0, src);
+        int o1 = 0;
+        float bs = 0.f;
+        if (TWO) {
+            o1 = __shfl_sync(FULL_MASK, off1, src);
+            bs = __shfl_sync(FULL_MASK, b, src);
+        }
+        if (src >= live_end) ns = 0;
+        for (int c = 0; c < width; c += S) {
+            const int j = c + s;
+            bool below = false;
+            if (j < ns) {
+                float v = cw[0] * ld(arr + sl[0] + o0 + j);
+#pragma unroll
+                for (int k = 1; k < 4; ++k) {
+                    if (k < fr.nc) v = v + cw[k] * ld(arr + sl[k] + o0 + j);
+                }
+                if (TWO) {
+                    float v1 = cw[0] * ld(arr + sl[0] + o1 + j);
+#pragma unroll
+                    for (int k = 1; k < 4; ++k) {
+                        if (k < fr.nc) v1 = v1 + cw[k] * ld(arr + sl[k] + o1 + j);
+                    }
+                    v = (1.f - bs) * v + bs * v1;
+                }
+                below = v < us;
+            }
+            const unsigned m = __ballot_sync(FULL_MASK, below);
+            if (my_round == r) cnt += __popc((m >> shift) & group);
+        }
+    }
+    return cnt;
+}
+
+// The lane's own counts: the marginal row's entries below uy, and the
+// conditional rows' blend at uy below ux.
+__device__ __forceinline__ int marg_count(const Frame& fr, const Warp& wp, float uy) {
     int cnt = 0;
     for (int j = 0; j < wp.h; ++j) cnt += gm(fr, wp, j) < uy;
+    return cnt;
+}
+__device__ __forceinline__ int cond_count(const Frame& fr, const Warp& wp, int row, int row1,
+                                          float uy, float ux) {
+    int cnt = 0;
+    for (int j = 0; j < wp.w; ++j)
+        cnt += (1.f - uy) * gc(fr, wp, row, j) + uy * gc(fr, wp, row1, j) < ux;
+    return cnt;
+}
+
+// Warp a uniform sample; returns the density (powitacq_rgb.inl:326-432).
+// `found`, where given, gets the row and column the searches found. WARP:
+// every thread of the warp calls it, the lanes below `live_end` live, and
+// a search over a padded row at least `warp_from` wide is counted by the
+// warp (warp_row_count), a narrower one by the lane.
+template <bool WARP = false>
+__device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, float u0, float u1, float& px,
+                             float& py, int* found = nullptr, int live_end = 32,
+                             int warp_from = 0) {
+    float ux = clampf(u0, U_LO, U_HI), uy = clampf(u1, U_LO, U_HI);
+    int cnt;
+    if constexpr (WARP) {
+        cnt = wp.H >= warp_from
+                  ? warp_row_count<false>(fr, wp.marg, wp.H, 0, 0, 0.f, wp.h, uy, wp.H, live_end)
+                  : marg_count(fr, wp, uy);
+    } else {
+        cnt = marg_count(fr, wp, uy);
+    }
     const int row = clip_count(cnt, wp.h);
     uy = uy - gm(fr, wp, row);
     const int row1 = min(row + 1, wp.H - 1);
@@ -235,9 +347,13 @@ __device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, fl
     uy = is_const ? 2.f * uy / clampminf(r0 + r1, 1e-20f)
                   : (r0 - disc) / ((is_const || r0 == r1) ? 1.f : r0 - r1);
     ux = ux * ((1.f - uy) * r0 + uy * r1);
-    cnt = 0;
-    for (int j = 0; j < wp.w; ++j)
-        cnt += (1.f - uy) * gc(fr, wp, row, j) + uy * gc(fr, wp, row1, j) < ux;
+    if constexpr (WARP) {
+        cnt = wp.W >= warp_from ? warp_row_count<true>(fr, wp.cond, wp.H * wp.W, row * wp.W,
+                                                       row1 * wp.W, uy, wp.w, ux, wp.W, live_end)
+                                : cond_count(fr, wp, row, row1, uy, ux);
+    } else {
+        cnt = cond_count(fr, wp, row, row1, uy, ux);
+    }
     const int col = clip_count(cnt, wp.w);
     if (found) {
         found[0] = row;
@@ -331,14 +447,19 @@ __device__ __forceinline__ float eval_lane(const RglTables& t, int mid, Vec3 wi,
 // One lane of rgl_sample from the uniforms (u0, u1): the sampled direction
 // into *wo, f*cos [4] into f and the pdf into *pdf (both zero unless ok);
 // returns ok: both directions above the surface, a positive pdf and a
-// finite f.
+// finite f. WARP: the searches by the warp (warp_sample<true>; every
+// thread of the warp calls it, the lanes below `live_end` live).
+template <bool WARP = false>
 __device__ __forceinline__ bool sample_lane(const RglTables& t, int mid, Vec3 wi, float u0, float u1,
-                                   Vec3* wo, float f[4], float* pdf) {
+                                   Vec3* wo, float f[4], float* pdf, int live_end = 32,
+                                   int warp_from = 0) {
     const Frame fr = prepare(t, mid, wi);
     const Warp lum = lum_warp(t, mid);
     float sx, sy, uwm_x, uwm_y;
-    const float lum_pdf = warp_sample(fr, lum, u1, u0, sx, sy);
-    const float ndf_pdf = warp_sample(fr, vndf_warp(t, mid), sx, sy, uwm_x, uwm_y);
+    const float lum_pdf =
+        warp_sample<WARP>(fr, lum, u1, u0, sx, sy, nullptr, live_end, warp_from);
+    const float ndf_pdf = warp_sample<WARP>(fr, vndf_warp(t, mid), sx, sy, uwm_x, uwm_y,
+                                            nullptr, live_end, warp_from);
     float phi_m = (2.f * uwm_y - 1.f) * PI_F;
     const float theta_m = uwm_x * uwm_x * HALF_PI_F;
     if (fr.iso) phi_m = phi_m + fr.phi_i;

@@ -10,7 +10,11 @@ Device side: K7, the measured BRDF's eval (f*cos and pdf for a pair of
 tangent-space directions) and sample (a direction from two uniforms), is a
 hand-written CUDA kernel with two entry points (``csrc/rgl.cu``). `rgl_eval`
 and `rgl_sample` launch it on CUDA tensors and run the plain PyTorch versions
-(`rgl_eval_plain`, `rgl_sample_plain`) on CPU tensors. The plain versions
+(`rgl_eval_plain`, `rgl_sample_plain`) on CPU tensors. A lane whose material
+id is negative carries no RGL material: both give it zeros (sample: ok
+false), and the kernel skips it (a render hands K7 every lane of a pass,
+the other materials' with id -1; no caller reads those lanes, where the
+JAX package computes every lane at a clamped id). The plain versions
 keep the JAX package's semantics (powitacq_rgb.inl:326-583, 1016-1190):
 parameter lookups and row searches are counts over a row masked by the
 material's actual width (as JAX's `_search_row`, never a bisection), the
@@ -502,10 +506,20 @@ def _jacobian(wi, wm, u_wm):
             * dot(wi, wm))
 
 
+def _live_ids(tables: RGLTables, mid):
+    """(the lanes with an RGL material, their ids clamped into the stack):
+    a negative id marks a lane without one; an id past the stack reads its
+    last material, as the kernel clamps it."""
+    return mid >= 0, torch.clamp(mid, 0, tables.count - 1)
+
+
 def rgl_eval_plain(tables: RGLTables, mid, wi, wo):
     """Plain version of K7 eval: (f*cos [N, 4], pdf [N]) for tangent-space wi
-    (toward the viewer) and wo (scatter direction); powitacq eval() + pdf()."""
-    valid = (wi[:, 2] > 0) & (wo[:, 2] > 0)
+    (toward the viewer) and wo (scatter direction); powitacq eval() + pdf().
+    A lane with a negative id gets zeros (by design unlike the JAX
+    package, which computes every lane: no caller reads it)."""
+    live, mid = _live_ids(tables, mid)
+    valid = (wi[:, 2] > 0) & (wo[:, 2] > 0) & live
     wm = normalize(wi + wo)
     fr = _prepare(tables, mid, wi)
     u_wm = _u_wm(fr, wm)
@@ -519,7 +533,10 @@ def rgl_eval_plain(tables: RGLTables, mid, wi, wo):
 
 def rgl_sample_plain(tables: RGLTables, mid, wi, u2):
     """Plain version of K7 sample: (wo [N, 3], f*cos [N, 4], pdf [N], ok [N])
-    from uniforms u2 [N, 2]; powitacq sample()."""
+    from uniforms u2 [N, 2]; powitacq sample(). A lane with a negative id
+    gets wo, f*cos and pdf zero and ok false (by design unlike the JAX
+    package, which computes every lane: no caller reads it)."""
+    live, mid = _live_ids(tables, mid)
     fr = _prepare(tables, mid, wi)
     sample, lum_pdf = _warp(tables, fr, "lum").sample(torch.stack([u2[:, 1], u2[:, 0]], -1))
     u_wm, ndf_pdf = _warp(tables, fr, "vndf").sample(sample)
@@ -532,8 +549,9 @@ def rgl_sample_plain(tables: RGLTables, mid, wi, u2):
     valid = (wi[:, 2] > 0) & (wo[:, 2] > 0)
     fval = _fr_common(tables, fr, sample, u_wm)
     pdf = ndf_pdf * lum_pdf / _jacobian(wi, wm, u_wm)
-    ok = valid & (pdf > 0) & torch.isfinite(fval).all(-1)
-    return wo, torch.where(ok[:, None], fval, 0.0), torch.where(ok, pdf, 0.0), ok
+    ok = valid & (pdf > 0) & torch.isfinite(fval).all(-1) & live
+    return (torch.where(live[:, None], wo, 0.0), torch.where(ok[:, None], fval, 0.0),
+            torch.where(ok, pdf, 0.0), ok)
 
 
 # ---------------------------------------------------------------------------
@@ -609,7 +627,8 @@ def rgl_eval(tables: RGLTables, mid, wi, wo):
 
 
 def rgl_eval_raw(tables: RGLTables, mid, wi, wo):
-    """K7 eval without a tape: the kernel on CUDA tensors, the plain version on CPU tensors."""
+    """K7 eval without a tape: the kernel on CUDA tensors, the plain version
+    on CPU tensors; a lane with a negative id gets zeros."""
     _check_lanes("rgl_eval", tables, mid, (wi, 3), (wo, 3))
     if mid.device.type == "cpu":
         return rgl_eval_plain(tables, mid, wi, wo)
@@ -636,8 +655,17 @@ def rgl_sample(tables: RGLTables, mid, wi, u2):
     return rgl_sample_raw(tables, mid, wi, u2)
 
 
+# K7 sample's row searches on the card: the warp counts a lane's row
+# (ballots) where the padded row is at least this wide, the lane alone where
+# narrower (csrc/rgl.cu). Timed on an H100 by tools/k7_turns.py with every
+# lane live, the warp's counts were 3x faster than the lane's on 128-wide
+# rows and 1.5x slower on 8- and 16-wide ones.
+WARP_COUNT_FROM = 32
+
+
 def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
-    """K7 sample without a tape: the kernel on CUDA tensors, the plain version on CPU tensors."""
+    """K7 sample without a tape: the kernel on CUDA tensors, the plain version
+    on CPU tensors; a lane with a negative id gets zeros and ok false."""
     _check_lanes("rgl_sample", tables, mid, (wi, 3), (u2, 2))
     if mid.device.type == "cpu":
         return rgl_sample_plain(tables, mid, wi, u2)
@@ -650,8 +678,8 @@ def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     ct = c_tables(tables)
     code = lib.wpt_rgl_sample(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(), u2.data_ptr(),
-                              n, wo.data_ptr(), fcos.data_ptr(), pdf.data_ptr(), ok.data_ptr(),
-                              native.stream_ptr(mid))
+                              n, WARP_COUNT_FROM, wo.data_ptr(), fcos.data_ptr(), pdf.data_ptr(),
+                              ok.data_ptr(), native.stream_ptr(mid))
     native.check(code, "rgl_sample")
     native.LAUNCHES["rgl_sample"] += 1
     return wo, fcos, pdf, ok
@@ -672,11 +700,12 @@ def rgl_bwd_plain(tables, mid, wi, x, g_f, sample: bool, magnitudes: bool = Fals
     With `magnitudes`, also a dict of each table's sums of |term| over the
     terms its entries receive (each table read's |cotangent|, `_read`).
 
-    The full form takes a lane whose cotangents are all zero at a stand-in
-    direction (its terms are zero wherever they are taken): the chain rule
-    at the lane's own directions can give 0 x NaN there (atan2's derivative
-    at a zero direction, as a render hands the lanes of other materials,
-    and a division by a zero jacobian)."""
+    The full form takes a lane whose cotangents are all zero, or whose id
+    is negative (its outputs are zeros), at a stand-in direction (its terms
+    are zero wherever they are taken): the chain rule at the lane's own
+    directions can give 0 x NaN there (atan2's derivative at a zero
+    direction, as a render hands the lanes of other materials, and a
+    division by a zero jacobian)."""
     global _MAGS
     names = GRAD_TABLES if full else TAIL_TABLES
     with torch.enable_grad():
@@ -685,7 +714,8 @@ def rgl_bwd_plain(tables, mid, wi, x, g_f, sample: bool, magnitudes: bool = Fals
         if full:
             g_pdf = torch.zeros_like(g_f[:, 0]) if g_pdf is None else g_pdf
             g_wo = torch.zeros_like(wi) if g_wo is None else g_wo
-            quiet = (g_f == 0).all(-1) & (g_pdf == 0) & ((g_wo == 0).all(-1) | (not sample))
+            quiet = ((g_f == 0).all(-1) & (g_pdf == 0) & ((g_wo == 0).all(-1) | (not sample))
+                     | (mid < 0))
             stand = torch.tensor([0.6, 0.0, 0.8], dtype=wi.dtype, device=wi.device)
             leaves["wi"] = wi.detach().requires_grad_()
             wi = torch.where(quiet[:, None], stand, leaves["wi"])
@@ -803,7 +833,9 @@ class RglSample(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 def _lane_frame(tables: RGLTables, hr, wo_world, rgl_id):
-    mid = torch.clamp(rgl_id, 0, tables.count - 1).to(torch.int32).contiguous()
+    # A lane of another material keeps its id -1: K7 skips it (its outputs
+    # are zeros, which the callers never select).
+    mid = torch.clamp_max(rgl_id, tables.count - 1).to(torch.int32).contiguous()
     t, b = onb_from_normal_tangent(hr.normal, hr.tangent)
     # RGL convention: "wi" points toward the viewer (material_rgl.hpp:67-70).
     return mid, t, b, to_local(wo_world, t, b, hr.normal).contiguous()

@@ -84,9 +84,10 @@ exits) it is counted on these inputs with the plain version.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import time
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,7 +101,15 @@ from ..accel.traverse import (
 )
 from ..core import sampler
 from ..core.onb import onb_from_normal_tangent, to_local
-from ..materials.rgl import rgl_eval, rgl_eval_plain, rgl_sample, rgl_sample_plain
+from ..materials import rgl as rgl_module
+from ..materials.rgl import (
+    load_rgl_material,
+    rgl_eval,
+    rgl_eval_plain,
+    rgl_sample,
+    rgl_sample_plain,
+    stack_rgl_tables,
+)
 from ..render.bsdf import SceneStatic
 from ..render.camera import CameraConfig, DistortionModel, SurroundMode, camera_rays, make_camera
 from ..render.gather import row_gather, row_gather_plain
@@ -301,6 +310,12 @@ EXAMPLE_FRAMES = {"noise_textures": (480, 200, 4, 5, 8), "normalmap": (320, 320,
 EXAMPLE_REFS = {"noise_textures": (0.24381244771883304, (3227255, 4971874)),
                 "normalmap": (0.03950897025361127, (3268027, 4897654)),
                 "material_comparison": (0.3714994989917606, (3569889, 5225797))}
+# The material_comparison frame on an H100 as K7 rendered it before it
+# skipped the lanes without an RGL material (every lane computed at a
+# clamped id): `frame_digest` of its image and stats, which the skip must
+# keep bit for bit.
+EXAMPLE_DIGESTS = {
+    "material_comparison": "9d1311a1e11d3a53c7dcfe482e5a329c0e407ac570244fe1acc2ca7d5477ad7c"}
 
 # Camera rays over ROADMAP C.1's scenes (scenes.sphere_field,
 # scenes.tri_sphere_field): 128 x 96 pixels x 8 sample lanes.
@@ -638,6 +653,14 @@ def _check_frame(img, stats, shape, ref_mean, ref_stats) -> float:
 def check_bench_frame(img, stats) -> float:
     """Hold a Cornell bench frame to the JAX reference; returns its mean radiance."""
     return _check_frame(img, stats, (BENCH_WIDTH, BENCH_WIDTH, 3), REF_MEAN, REF_STATS)
+
+
+def frame_digest(img, stats) -> str:
+    """sha256 of a frame's image (float32 words) and stats (int64): equal
+    digests, equal bits."""
+    h = hashlib.sha256(img.detach().to("cpu", torch.float32).contiguous().numpy().tobytes())
+    h.update(np.asarray([int(x) for x in stats], np.int64).tobytes())
+    return h.hexdigest()
 
 
 def check_example_frame(name: str, img, stats) -> float:
@@ -1750,22 +1773,88 @@ def city_env_lanes(device, seed: int = 8):
     return d.contiguous(), _f32(rs.uniform(size=(CITY_LANES, 3)), device)
 
 
+def lanes_differ(a, b) -> int:
+    """Lanes (rows) of a and b whose words differ in a bit (a NaN matches
+    any NaN)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
+    if a.is_floating_point():
+        same = same & (torch.signbit(a) == torch.signbit(b))
+    return int((~same.reshape(a.shape[0], -1).all(-1)).sum())
+
+
 def check_rgl(tables, lanes) -> Dict[str, float]:
-    """K7's two entry points against their plain versions on lanes (mid, wi, wo, u2)."""
+    """K7's two entry points against their plain versions on lanes (mid, wi,
+    wo, u2): every output bit-equal on every lane (a lane with a negative
+    id: zeros, sample's ok false)."""
     mid, wi, wo, u2 = lanes
-    (f, p), (pf, pp) = rgl_eval(tables, mid, wi, wo), rgl_eval_plain(tables, mid, wi, wo)
-    sd, sf, sp, ok = rgl_sample(tables, mid, wi, u2)
-    psd, psf, psp, pok = rgl_sample_plain(tables, mid, wi, u2)
-    off = int((ok != pok).sum())
-    assert off == 0, f"rgl_sample: ok differs on {off} lanes"
-    for name, a, b in (("rgl_eval f*cos", f, pf), ("rgl_eval pdf", p, pp),
-                       ("rgl_sample f*cos", sf, psf), ("rgl_sample pdf", sp, psp)):
-        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6), f"{name} differs"
-    assert torch.allclose(sd[ok], psd[ok], rtol=0.0, atol=1e-6), "rgl_sample directions differ"
-    err = max(float((a - b).abs().max()) for a, b in ((f, pf), (p, pp), (sf, psf), (sp, psp),
-                                                       (sd[ok], psd[ok])))
-    return {"max_abs_err": err, "lanes": int(mid.shape[0]), "eval_nonzero": int((p > 0).sum()),
-            "sample_ok": int(ok.sum())}
+    got = rgl_eval(tables, mid, wi, wo) + rgl_sample(tables, mid, wi, u2)
+    ref = rgl_eval_plain(tables, mid, wi, wo) + rgl_sample_plain(tables, mid, wi, u2)
+    for name, a, b in zip(("eval f*cos", "eval pdf", "sample wo", "sample f*cos", "sample pdf",
+                           "sample ok"), got, ref):
+        off = lanes_differ(a, b)
+        assert off == 0, f"rgl {name}: {off} lanes differ from the plain version"
+    live = mid >= 0
+    err = max(float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+              for a, b in zip(got[:5], ref[:5]))   # NaN only where both are (checked above)
+    p, ok = got[1], got[5]
+    return {"max_abs_err": err, "lanes": int(mid.shape[0]), "live": int(live.sum()),
+            "eval_nonzero": int((p > 0).sum()), "sample_ok": int(ok.sum())}
+
+
+def wide_rgl_lanes(device, n: int = 262144, seed: int = 31):
+    """K7's inputs on wide warps: two synthetic materials from numpy `seed`,
+    the first with 128 x 128 vndf and luminance tables over a 2 x 3
+    parameter grid (four corners), the second 33 x 33 and 16 x 16 over 1 x
+    2 (the stack pads it to the first's: its rows masked by its widths), and
+    n lanes: ids -1 (no RGL material), 0 or 1, wi and wo on the sphere
+    (mostly above the surface), u2 uniform. (tables, mid, wi, wo, u2)."""
+    rs = np.random.default_rng(seed)
+
+    def fields(k, P, T, hv, hl, hn):
+        return dict(phi_i=np.linspace(-np.pi, np.pi, P).astype(np.float32),
+                    theta_i=np.linspace(0.0, np.pi / 2, T).astype(np.float32),
+                    ndf=scenes._smooth_positive((hn, hn), seed + 10 * k + 1),
+                    sigma=scenes._smooth_positive((hn, hn), seed + 10 * k + 2, 0.2, 0.4),
+                    vndf=scenes._smooth_positive((P, T, hv, hv), seed + 10 * k + 3),
+                    luminance=scenes._smooth_positive((P, T, hl, hl), seed + 10 * k + 4),
+                    rgb=scenes._smooth_positive((P, T, 3, hl, hl), seed + 10 * k + 5))
+
+    tables = stack_rgl_tables([load_rgl_material(fields(0, 2, 3, 128, 128, 32)),
+                               load_rgl_material(fields(1, 1, 2, 33, 16, 16))], device)
+
+    def dirs():
+        x = rs.standard_normal((n, 3))
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        x[:, 2] = np.abs(x[:, 2]) * np.where(rs.uniform(size=n) < 0.1, -1.0, 1.0)
+        return _f32(x, device)
+
+    mid = torch.as_tensor(rs.choice(np.array([-1, 0, 1], np.int32), n, p=[0.2, 0.4, 0.4]),
+                          device=device)
+    wi, wo = dirs(), dirs()
+    return tables, mid, wi, wo, _f32(rs.uniform(size=(n, 2)), device)
+
+
+def capture_rgl_calls(render) -> List[Tuple[str, object, torch.Tensor, torch.Tensor,
+                                            torch.Tensor]]:
+    """Runs render() with K7's wrappers watched: each call's (kind, tables,
+    mid, wi, x), its inputs cloned, x wo (eval) or u2 (sample), in call
+    order."""
+    calls = []
+    eval_raw, sample_raw = rgl_module.rgl_eval_raw, rgl_module.rgl_sample_raw
+
+    def watch(kind, raw):
+        def call(tables, mid, wi, x):
+            calls.append((kind, tables, mid.clone(), wi.clone(), x.clone()))
+            return raw(tables, mid, wi, x)
+        return call
+
+    rgl_module.rgl_eval_raw = watch("eval", eval_raw)
+    rgl_module.rgl_sample_raw = watch("sample", sample_raw)
+    try:
+        render()
+    finally:
+        rgl_module.rgl_eval_raw, rgl_module.rgl_sample_raw = eval_raw, sample_raw
+    return calls
 
 
 def check_row_gather(table, idx) -> Dict[str, float]:
@@ -2741,16 +2830,19 @@ def env_radiance_work(env, n: int):
     return n * (12 + 16) + _table_bytes(env[1:]), n * 60.0
 
 
-def rgl_work(tables, n: int, sample: bool):
-    """K7: mid and wi in, with wo (eval) or u2 (sample), f*cos and pdf out
-    (and wo, ok for sample); the tables read once. About 450 flops per lane
-    for eval (two parameter searches, the vndf inversion, 16 rgb, 8 ndf/sigma
-    and 8 luminance corner fetches) and 900 for sample (two full warps with
-    their marginal and conditional row searches)."""
-    t_bytes = _table_bytes(tables)
+def rgl_work(tables, n: int, sample: bool, live: Optional[int] = None):
+    """K7 over n lanes of which `live` (default n) carry an RGL material:
+    every lane's id read and its f*cos and pdf written (and wo, ok for
+    sample); wi with wo (eval) or u2 (sample) read, the tables read once and
+    the arithmetic only for the live lanes. About 450 flops per live lane
+    for eval (two parameter searches, the vndf inversion, 16 rgb, 8
+    ndf/sigma and 8 luminance corner fetches) and 900 for sample (two full
+    warps with their marginal and conditional row searches)."""
+    live = n if live is None else live
+    t_bytes = _table_bytes(tables) if live else 0
     if sample:
-        return n * (4 + 12 + 8) + n * (12 + 16 + 4 + 1) + t_bytes, n * 900.0
-    return n * (4 + 12 + 12) + n * (16 + 4) + t_bytes, n * 450.0
+        return n * (4 + 12 + 16 + 4 + 1) + live * (12 + 8) + t_bytes, live * 900.0
+    return n * (4 + 16 + 4) + live * (12 + 12) + t_bytes, live * 450.0
 
 
 def row_gather_work(table, idx):
