@@ -46,7 +46,6 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline unsigned __fns(unsigned mask, unsigned base, int offset) {   // offset > 0 only
     for (unsigned b = base; b < 32; ++b)
         if (((mask >> b) & 1u) && --offset == 0) return b;

@@ -1,10 +1,8 @@
-// K7 (csrc/rgl.cu: eval and sample over the queue of the lanes with an RGL
-// material, the sample's row searches counted by the warp) on the CPU
-// through cuda_runtime.h: the persistent launch's blocks one after another,
-// each as its threads, with the grid and chunk the C entry points pick
-// (persistent_grid) for `resident` blocks in place of the card's.
-// rgl_device.cuh is rgl.cu up to its C entry points (the test cuts it
-// there).
+// K7 (csrc/rgl.cu: eval and sample, a thread a lane, the sample's warp form
+// counting the CDF rows of its RGL lanes by the warp) on the CPU through
+// cuda_runtime.h: the launch's blocks one after another, each as its
+// threads. rgl_device.cuh is rgl.cu up to its C entry points (the test cuts
+// it there).
 #include <thread>
 #include <vector>
 
@@ -37,38 +35,36 @@ static void run_blocks(int grid, int block, Body body) {
     }
 }
 
-// wpt_rgl_eval's arguments but the stream, then the resident blocks;
-// returns the grid.
-extern "C" int host_rgl_eval(const RglTables* t, const int* mid, const float* wi,
-                             const float* wo, int n, float* fcos, float* pdf, int resident) {
-    if (n <= 0) return 0;
-    eval_resident = resident;
-    int chunk = 0;
-    const int grid = persistent_grid(rgl_eval_kernel, eval_resident, n, &chunk);
-    run_blocks(grid, BLOCK, [&] { rgl_eval_kernel(*t, mid, wi, wo, n, chunk, fcos, pdf); });
-    return grid;
+// wpt_rgl_eval's arguments but the stream.
+extern "C" void host_rgl_eval(const RglTables* t, const int* mid, const float* wi,
+                              const float* wo, int n, float* fcos, float* pdf) {
+    if (n <= 0) return;
+    run_blocks((n + BLOCK - 1) / BLOCK, BLOCK,
+               [&] { rgl_eval_kernel(*t, mid, wi, wo, n, fcos, pdf); });
 }
 
-// wpt_rgl_sample's arguments but the stream, then the resident blocks;
-// returns the grid.
-extern "C" int host_rgl_sample(const RglTables* t, const int* mid, const float* wi,
-                               const float* u2, int n, int warp_from, float* wo, float* fcos,
-                               float* pdf, bool* ok, int resident) {
-    if (n <= 0) return 0;
-    sample_resident = resident;
-    int chunk = 0;
-    const int grid = persistent_grid(rgl_sample_kernel, sample_resident, n, &chunk);
-    run_blocks(grid, BLOCK, [&] {
-        rgl_sample_kernel(*t, mid, wi, u2, n, chunk, warp_from, wo, fcos, pdf, ok);
+// wpt_rgl_sample's arguments but the stream.
+extern "C" void host_rgl_sample(const RglTables* t, const int* mid, const float* wi,
+                                const float* u2, int n, float* wo, float* fcos, float* pdf,
+                                bool* ok) {
+    if (n <= 0) return;
+    const bool warp = warp_form(*t);
+    run_blocks((n + BLOCK - 1) / BLOCK, BLOCK, [&] {
+        if (warp)
+            rgl_sample_kernel<true>(*t, mid, wi, u2, n, wo, fcos, pdf, ok);
+        else
+            rgl_sample_kernel<false>(*t, mid, wi, u2, n, wo, fcos, pdf, ok);
     });
-    return grid;
 }
 
-// The lane functions one lane after another, as the kernels before the
-// queue ran them (a thread a lane, each row counted by its lane:
-// eval_lane, sample_lane<false>), with the same contract for a negative
-// id: the reference the queued kernels are held to bit for bit (the same
-// libm). `x` is wo (eval) or u2 (sample); wo and ok unused for eval.
+// 1 where wpt_rgl_sample runs the warp form on tables t.
+extern "C" int host_rgl_warp_form(const RglTables* t) { return warp_form(*t) ? 1 : 0; }
+
+// The lane functions one lane after another, each row counted by its own
+// lane (eval_lane, sample_lane<false>, as K4's lit shade runs them), with
+// the same contract for a negative id: the reference the kernels are held
+// to bit for bit (the same libm). `x` is wo (eval) or u2 (sample); wo and
+// ok unused for eval.
 extern "C" void host_rgl_lanes(const RglTables* t, const int* mid, const float* wi,
                                const float* x, int n, int sample, float* wo, float* fcos,
                                float* pdf, bool* ok) {

@@ -1,27 +1,29 @@
-"""K7's device code (``csrc/rgl.cu``: eval and sample over a persistent
-grid's queue of the lanes that carry an RGL material, the sample's CDF row
-searches counted by the warp's ballots, ``rgl_common.cuh``
+"""K7's device code (``csrc/rgl.cu``: eval and sample, a thread a lane, a
+lane without an RGL material given zeros, the sample's warp form counting
+its RGL lanes' CDF rows by the warp's ballots, ``rgl_common.cuh``
 warp_row_count) compiled with g++ through ``tests/cuda_host`` and run on
 the CPU (``tests/cuda_host/rgl.cpp``: the launch's blocks one after another,
-each as its 128 threads, each warp on its own chunk of lanes and queue, the
-warp votes and shuffles through a barrier per warp).
+each as its 128 threads, the warp votes and shuffles through a barrier per
+warp).
 
 Held bit for bit against the lane functions run one lane after another
 (``host_rgl_lanes``: eval_lane and sample_lane<false>, each row counted by
-its own lane, as K7 ran before the queue; the same libm), with the warp's
-counts on every row (``warp_from`` 0) and with the lane's own (a width past
-every row), on: ids -1 (no RGL material: zeros, ok false), in the stack and
-past it, mixed, every lane skipped, every lane live, the first warps'
-chunks skipped and the others live; rows 8, 16, 33 and 128 wide, and narrower materials in a
-wider stack (their rows masked by their widths); CDF rows with flat runs,
-rows that are not monotone (a table moved by a fit), and uniforms at both
-ends of a row and equal to CDF entries. Then against the plain PyTorch
-version (``rgl_eval_plain`` / ``rgl_sample_plain``): the host's libm and
-PyTorch's CPU kernels round atan2f, asinf, sinf, cosf and sqrtf apart in the
-last bit on some lanes, and a sample's quadratic CDF inversions magnify that,
-so every lane without an RGL material is held bit-equal (zeros) and the
-others to ok equal and rtol 1e-4 on most lanes. The card holds kernel and
-plain version bit for bit (``chip_smoke.py``).
+its own lane, as the lit shade runs them; the same libm), built as the card
+builds it (the warp's counts on padded rows at least WARP_COUNT_FROM wide,
+here the 33- and 128-wide tables) and with ``-DWPT_RGL_WARP_COUNT_FROM=1``
+(the warp's counts on every row), on: ids -1 (no RGL material: zeros, ok
+false), in the stack and past it, mixed, every lane skipped, every lane
+live, the first two warps skipped and the others live; rows 8, 16, 33 and
+128 wide, and narrower materials in a wider stack (their rows masked by
+their widths); CDF rows with flat runs, rows that are not monotone (a table
+moved by a fit), and uniforms at both ends of a row and equal to CDF
+entries. Then against the plain PyTorch version (``rgl_eval_plain`` /
+``rgl_sample_plain``): the host's libm and PyTorch's CPU kernels round
+atan2f, asinf, sinf, cosf and sqrtf apart in the last bit on some lanes,
+and a sample's quadratic CDF inversions magnify that, so every lane without
+an RGL material is held bit-equal (zeros) and the others to ok equal and
+rtol 1e-4 on most lanes. The card holds kernel and plain version bit for
+bit (``chip_smoke.py``).
 
 K7T's device code (``backward_common.cuh``) skips a lane without an RGL
 material as its plain version does (``host_rgl_bwd`` against
@@ -46,35 +48,41 @@ from test_torch_backward_on_host import _close, _host_k7t
 torch.set_num_threads(2)
 
 HOST = SRC_DIR.parent.parent / "tests" / "cuda_host"
-RESIDENT = 3          # persistent blocks in place of the card's
-SCALAR = 1 << 20      # a warp_from past every row: each lane counts its own rows
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _build(out, name, src):
+def _build(out, name, src, *defines):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++")
     lib = out / f"lib{name}.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-pthread", f"-I{out}", f"-I{HOST}", f"-I{SRC_DIR}", "-o", str(lib),
+                    "-pthread", *defines, f"-I{out}", f"-I{HOST}", f"-I{SRC_DIR}", "-o", str(lib),
                     str(HOST / src)], check=True)
     return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    """The host build of rgl.cu's device code (cut at its C entry points)."""
+def libs(tmp_path_factory):
+    """The host builds of rgl.cu's device code (cut at its C entry points):
+    {"card": as the card builds it, "warp": the warp's counts on every
+    row}."""
     out = tmp_path_factory.mktemp("rgl")
     src = (SRC_DIR / "rgl.cu").read_text()
     (out / "rgl_device.cuh").write_text(src[:src.index('extern "C"')])
-    lib = _build(out, "rgl", "rgl.cpp")
     sig = native._SIGNATURES
-    lib.host_rgl_eval.argtypes = sig["wpt_rgl_eval"][:-1] + [_I]
-    lib.host_rgl_sample.argtypes = sig["wpt_rgl_sample"][:-1] + [_I]
-    lib.host_rgl_lanes.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
-    return lib
+    built = {}
+    for key, defines in (("card", ()), ("warp", ("-DWPT_RGL_WARP_COUNT_FROM=1",))):
+        lib = _build(out, f"rgl_{key}", "rgl.cpp", *defines)
+        lib.host_rgl_eval.argtypes = sig["wpt_rgl_eval"][:-1]
+        lib.host_rgl_eval.restype = None
+        lib.host_rgl_sample.argtypes = sig["wpt_rgl_sample"][:-1]
+        lib.host_rgl_sample.restype = None
+        lib.host_rgl_warp_form.argtypes = [_P]
+        lib.host_rgl_lanes.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
+        built[key] = lib
+    return built
 
 
 @pytest.fixture(scope="module")
@@ -135,7 +143,7 @@ TABLES = {
 def _lanes(t, n, ids, seed):
     """n lanes: ids ("mixed": -1, each material, one past the stack;
     "skipped": all -1; "live": all in the stack; "chunks": the first two
-    warps' chunks -1, the rest live), wi and wo on the sphere (a tenth
+    warps' 64 lanes -1, the rest live), wi and wo on the sphere (a tenth
     below the surface), u2 uniform with its last 64 lanes at the ends of a
     row and on CDF entries of material 0."""
     rs = np.random.default_rng(seed)
@@ -147,9 +155,7 @@ def _lanes(t, n, ids, seed):
     elif ids == "live":
         mid = rs.integers(0, m, n)
     else:
-        per = -(-n // (RESIDENT * 4))          # a warp's chunk (persistent_grid)
-        chunk = -(-per // 32) * 32
-        mid = np.where(np.arange(n) < 2 * chunk, -1, rs.integers(0, m, n))
+        mid = np.where(np.arange(n) < 64, -1, rs.integers(0, m, n))
 
     def dirs():
         x = rs.standard_normal((n, 3))
@@ -167,24 +173,23 @@ def _lanes(t, n, ids, seed):
     return (torch.as_tensor(mid.astype(np.int32)), f32(dirs()), f32(dirs()), f32(u2))
 
 
-def _host(lib, t, mid, wi, x, sample, warp_from=0):
-    """The queued kernel (warp_from given) or, with warp_from None, the
-    lane-by-lane reference: (f*cos, pdf) or (wo, f*cos, pdf, ok)."""
+def _host(lib, t, mid, wi, x, sample, lanes=False):
+    """The kernel or, with `lanes`, the lane-by-lane reference: (f*cos,
+    pdf) or (wo, f*cos, pdf, ok)."""
     n = mid.shape[0]
     wo = torch.full((n, 3), float("nan"))
     fcos, pdf = torch.full((n, 4), float("nan")), torch.full((n,), float("nan"))
     ok = torch.ones(n, dtype=torch.bool)
     ct = rgl.c_tables(t)
     p = lambda a: a.data_ptr()  # noqa: E731
-    if warp_from is None:
+    if lanes:
         lib.host_rgl_lanes(ctypes.addressof(ct), p(mid), p(wi), p(x), n, int(sample), p(wo),
                            p(fcos), p(pdf), p(ok))
     elif sample:
-        lib.host_rgl_sample(ctypes.addressof(ct), p(mid), p(wi), p(x), n, warp_from, p(wo),
-                            p(fcos), p(pdf), p(ok), RESIDENT)
+        lib.host_rgl_sample(ctypes.addressof(ct), p(mid), p(wi), p(x), n, p(wo), p(fcos),
+                            p(pdf), p(ok))
     else:
-        lib.host_rgl_eval(ctypes.addressof(ct), p(mid), p(wi), p(x), n, p(fcos), p(pdf),
-                          RESIDENT)
+        lib.host_rgl_eval(ctypes.addressof(ct), p(mid), p(wi), p(x), n, p(fcos), p(pdf))
     return (wo, fcos, pdf, ok) if sample else (fcos, pdf)
 
 
@@ -196,18 +201,23 @@ def _bit_equal(got, ref, what):
 
 @pytest.mark.parametrize("ids", ["mixed", "skipped", "live", "chunks"])
 @pytest.mark.parametrize("name", list(TABLES))
-def test_k7_queue_and_warp_counts_keep_the_lanes_bits(lib, name, ids):
-    """Both kernels, the sample with the warp's counts and with the lane's,
-    bit-equal to the lane functions run lane by lane on every lane."""
+def test_k7_queue_and_warp_counts_keep_the_lanes_bits(libs, name, ids):
+    """Both kernels, the sample as the card builds it and with the warp's
+    counts on every row, bit-equal to the lane functions run lane by lane
+    on every lane; the card's build takes the warp form exactly on the
+    stacks with a padded row at least 32 wide."""
     t = TABLES[name]()
     n = 512 if ids == "chunks" else 320
     mid, wi, wo, u2 = _lanes(t, n, ids, seed=len(name) + len(ids))
-    ref = _host(lib, t, mid, wi, wo, False, None)
-    _bit_equal(_host(lib, t, mid, wi, wo, False), ref, f"eval {name} {ids}")
-    ref = _host(lib, t, mid, wi, u2, True, None)
-    for warp_from in (0, SCALAR):
-        _bit_equal(_host(lib, t, mid, wi, u2, True, warp_from), ref,
-                   f"sample {name} {ids} warp_from {warp_from}")
+    card = libs["card"]
+    ref = _host(card, t, mid, wi, wo, False, lanes=True)
+    _bit_equal(_host(card, t, mid, wi, wo, False), ref, f"eval {name} {ids}")
+    ref = _host(card, t, mid, wi, u2, True, lanes=True)
+    for key, lib in libs.items():
+        _bit_equal(_host(lib, t, mid, wi, u2, True), ref, f"sample {name} {ids} ({key} build)")
+    ct = rgl.c_tables(t)
+    wide = max(t.vndf_data.shape[-2:] + t.lum_data.shape[-2:]) >= 32
+    assert card.host_rgl_warp_form(ctypes.addressof(ct)) == int(wide), name
     skipped = mid < 0
     assert bool((ref[3][skipped] == 0).all()) and bool((ref[0][skipped] == 0).all())
     if ids != "skipped":
@@ -215,16 +225,16 @@ def test_k7_queue_and_warp_counts_keep_the_lanes_bits(lib, name, ids):
 
 
 @pytest.mark.parametrize("name", list(TABLES))
-def test_k7_device_code_against_its_plain_version(lib, name):
-    """The queued kernels against rgl_eval_plain / rgl_sample_plain on mixed
-    ids: every lane without an RGL material bit-equal (zeros, ok false),
-    the others within the host's libm (ok equal on all but a few lanes,
-    each output within rtol 1e-4 on 98 % of the lanes)."""
+def test_k7_device_code_against_its_plain_version(libs, name):
+    """The kernels against rgl_eval_plain / rgl_sample_plain on mixed ids:
+    every lane without an RGL material bit-equal (zeros, ok false), the
+    others within the host's libm (ok equal on all but a few lanes, each
+    output within rtol 1e-4 on 98 % of the lanes)."""
     t = TABLES[name]()
     mid, wi, wo, u2 = _lanes(t, 320, "mixed", seed=5)
     skipped = mid < 0
     for sample, x in ((False, wo), (True, u2)):
-        got = _host(lib, t, mid, wi, x, sample)
+        got = _host(libs["card"], t, mid, wi, x, sample)
         ref = (rgl.rgl_sample_plain if sample else rgl.rgl_eval_plain)(t, mid, wi, x)
         for a, b in zip(got, ref):
             assert kc.lanes_differ(a[skipped], b[skipped]) == 0

@@ -10,28 +10,30 @@
 //
 // A lane whose material id is negative carries no RGL material: no caller
 // reads it, and it gets zeros (eval: f*cos and pdf; sample: wo, f*cos, pdf
-// and ok false). A render hands K7 every lane of a pass, of which those of
-// one material in eight may be RGL, so the kernel is persistent: each warp
-// scans a contiguous chunk of lanes (a multiple of 32), writes the zeros of
-// the lanes without a material at once and queues the others in shared
-// memory in lane order (a __ballot_sync / __popc prefix), then takes its
-// queue a round of 32 lanes at a time, so that warps run live lanes only.
-// The queue is the warp's own: no barrier holds a block's warps together.
-// No lane counter in device memory, no memset. Measured on an H100 against
-// a thread a lane: 2-5x faster where 1 lane in 4 or 1 in 20 carries the
-// material, ~20 % slower where every lane does (the warps' many rounds end
-// unevenly: chunks of one round a warp cost ~6 %, and lose the packing).
+// and ok false). A thread takes a lane; one without a material writes its
+// zeros and is done. A render hands K7 every lane of a bounce, those of the
+// other materials with id -1, so on a scene where few lanes are RGL the
+// launch costs little more than reading the ids and writing the zeros.
+// (On an H100 at 700 W, tools/k7_turns.py: queuing a warp's or a block's
+// RGL lanes in shared memory first ran 2-5x faster where 1 lane in 4 or 1
+// in 20 was RGL, but within a microsecond of this on material_comparison's
+// bounces, where almost none is, and 20-25 % slower where every lane is, as
+// on the city's and the RGL quad's first bounce; no scene of the repo sends
+// the mixed lanes.)
 //
-// Bound on the card: on a pass, the ids read and the zeros written for
-// every lane (bytes); on the live lanes a few hundred dependent scalar
-// loads and a few hundred flops each (two parameter searches, the warps'
-// row searches, 2-4 corner fetches per table value, atan2f/asinf/sinf/
-// cosf), so memory latency. The sample's row searches are counts over the
-// lane's row: the warp counts each of its lanes' rows in turn, S threads
-// blending S entries of one row at once and a ballot counting them
-// (rgl_common.cuh warp_row_count), where the scalar count took one lane's
-// 2-4 scattered loads per entry in turn; `warp_from` (the padded width at
-// which the warp counts) is the wrapper's.
+// Bound on the card: the ids read and the outputs written for every lane
+// (bytes); on the RGL lanes a few hundred dependent scalar loads and a few
+// hundred flops each (two parameter searches, the warps' row searches, 2-4
+// corner fetches per table value, atan2f/asinf/sinf/cosf), so memory
+// latency. The sample's row searches are counts over a lane's row. On a
+// stack whose padded rows are at least WARP_COUNT_FROM wide
+// (rgl_common.cuh) the sample runs its warp form: the warp counts each of
+// its RGL lanes' rows in turn, its 32 threads blending 32 entries of the
+// row at once and a ballot counting them (warp_row_count), where a lane
+// alone takes 2-4 scattered loads per entry in turn; a thread without an
+// RGL lane then runs a stand-in lane of material 0 and drops its results,
+// so that the whole warp reaches every vote. Narrower rows are counted by
+// the lane.
 //
 // Row searches count over a row masked by the material's actual width, as
 // the JAX package's _search_row does (never a bisection), so kernel, plain
@@ -50,157 +52,92 @@ namespace {
 using namespace wpt_rgl;
 
 constexpr int BLOCK = 128;
-constexpr int WARPS = BLOCK / 32;
 
 __device__ __forceinline__ Vec3 load3(const float* p, int i) {
     return {p[3 * i + 0], p[3 * i + 1], p[3 * i + 2]};
 }
 
-struct Out {                    // the outputs of eval (wo, ok null) or sample
-    float *wo, *fcos, *pdf;
-    bool* ok;
-};
-
-// Zeros on lane i (no RGL material).
-template <bool SAMPLE>
-__device__ __forceinline__ void write_none(const Out& out, int i) {
-    for (int c = 0; c < 4; ++c) out.fcos[4 * i + c] = 0.f;
-    out.pdf[i] = 0.f;
-    if (SAMPLE) {
-        for (int c = 0; c < 3; ++c) out.wo[3 * i + c] = 0.f;
-        out.ok[i] = false;
-    }
-}
-
-// One round of queued lanes: lane q (-1: none) of this thread. Eval's lanes
-// run alone; sample's warps run whole (warp_row_count's votes), a thread
-// without a lane on a stand-in lane of material 0 whose results it drops.
-template <bool SAMPLE>
-__device__ __forceinline__ void run_lane(const RglTables& t, const int* mids, const float* wi_p,
-                                         const float* x_p, int q, int warp_from, const Out& out) {
-    if (!SAMPLE) {
-        if (q < 0) return;
-        float f[4];
-        const float pdf = eval_lane(t, min(mids[q], t.M - 1), load3(wi_p, q), load3(x_p, q), f);
-        for (int c = 0; c < 4; ++c) out.fcos[4 * q + c] = f[c];
-        out.pdf[q] = pdf;
-        return;
-    }
-    const unsigned live = __ballot_sync(FULL_MASK, q >= 0);
-    if (live == 0u) return;   // the whole warp idle
-    const int live_end = 32 - __clz(live);
-    const bool mine = q >= 0;
-    const int mid = mine ? min(mids[q], t.M - 1) : 0;
-    const Vec3 wi = mine ? load3(wi_p, q) : Vec3{0.f, 0.f, 1.f};
-    const float u0 = mine ? x_p[2 * q + 0] : 0.5f, u1 = mine ? x_p[2 * q + 1] : 0.5f;
-    Vec3 wo;
-    float f[4], pdf;
-    const bool ok = sample_lane<true>(t, mid, wi, u0, u1, &wo, f, &pdf, live_end, warp_from);
-    if (!mine) return;
-    out.wo[3 * q + 0] = wo.x;
-    out.wo[3 * q + 1] = wo.y;
-    out.wo[3 * q + 2] = wo.z;
-    for (int c = 0; c < 4; ++c) out.fcos[4 * q + c] = f[c];
-    out.pdf[q] = pdf;
-    out.ok[q] = ok;
-}
-
-// The warp's chunk of lanes [w chunk, + chunk), w the warp's index in the
-// grid: scanned 32 at a time into the warp's queue in shared memory, whose
-// lanes run a round of 32 at a time (the rest at the chunk's end). The
-// warp's 32 threads call it; `queued` is the same in all of them, so every
-// vote is reached by the whole warp, and no barrier holds the block's other
-// warps.
-template <bool SAMPLE>
-__device__ __forceinline__ void rgl_lanes(const RglTables& t, const int* mids, const float* wi_p,
-                                          const float* x_p, int n, int chunk, int warp_from,
-                                          const Out& out) {
-    __shared__ int s_lane[WARPS][64];   // each warp's queue: at most a round and a scan's lanes
-    const int lane = static_cast<int>(threadIdx.x & 31u);
-    int* queue = s_lane[threadIdx.x >> 5];
-    const long long w = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-    const int start = static_cast<int>(min(w * chunk, static_cast<long long>(n)));
-    const int end = min(n, start + chunk);
-    int queued = 0;
-    for (int base = start; base < end || queued > 0; base += 32) {
-        if (base < end) {   // scan 32 lanes into the queue
-            const int i = base + lane;
-            const bool in = i < end;
-            const bool live = in && mids[i] >= 0;
-            if (in && !live) write_none<SAMPLE>(out, i);
-            const unsigned m = __ballot_sync(FULL_MASK, live);
-            if (live) queue[queued + __popc(m & ((1u << lane) - 1u))] = i;
-            queued += __popc(m);
-            __syncwarp();
-            if (queued < 32 && base + 32 < end) continue;   // a whole round first
-        }
-        const int take = min(queued, 32);   // a round
-        const int q = lane < take ? queue[lane] : -1;
-        __syncwarp();   // the round's lanes read before the rest of the queue moves up
-        if (lane < queued - take) queue[lane] = queue[take + lane];
-        queued -= take;
-        __syncwarp();
-        run_lane<SAMPLE>(t, mids, wi_p, x_p, q, warp_from, out);
-    }
-}
-
 __global__ void __launch_bounds__(BLOCK)
 rgl_eval_kernel(RglTables t, const int* __restrict__ mids, const float* __restrict__ wi_p,
-                const float* __restrict__ wo_p, int n, int chunk, float* __restrict__ fcos_out,
+                const float* __restrict__ wo_p, int n, float* __restrict__ fcos_out,
                 float* __restrict__ pdf_out) {
-    rgl_lanes<false>(t, mids, wi_p, wo_p, n, chunk, 0, Out{nullptr, fcos_out, pdf_out, nullptr});
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int mid = mids[i];
+    float f[4] = {0.f, 0.f, 0.f, 0.f}, pdf = 0.f;
+    if (mid >= 0) pdf = eval_lane(t, min(mid, t.M - 1), load3(wi_p, i), load3(wo_p, i), f);
+    for (int c = 0; c < 4; ++c) fcos_out[4 * i + c] = f[c];
+    pdf_out[i] = pdf;
 }
 
+// WARP: the warp form (a stack's padded rows at least WARP_COUNT_FROM wide).
+template <bool WARP>
 __global__ void __launch_bounds__(BLOCK)
 rgl_sample_kernel(RglTables t, const int* __restrict__ mids, const float* __restrict__ wi_p,
-                  const float* __restrict__ u2_p, int n, int chunk, int warp_from,
-                  float* __restrict__ wo_out, float* __restrict__ fcos_out,
-                  float* __restrict__ pdf_out, bool* __restrict__ ok_out) {
-    rgl_lanes<true>(t, mids, wi_p, u2_p, n, chunk, warp_from,
-                    Out{wo_out, fcos_out, pdf_out, ok_out});
-}
-
-// Blocks of `kernel` the SMs hold at once (asked once per kernel), the
-// grid's blocks, and the chunk of lanes each of their warps scans: a
-// multiple of 32.
-template <class K>
-int persistent_grid(K kernel, int& resident, int n, int* chunk) {
-    if (resident == 0) {
-        int dev = 0, sms = 1, per = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, BLOCK, 0);
-        resident = max(per, 1) * sms;
+                  const float* __restrict__ u2_p, int n, float* __restrict__ wo_out,
+                  float* __restrict__ fcos_out, float* __restrict__ pdf_out,
+                  bool* __restrict__ ok_out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool in = i < n;
+    const bool mine = in && mids[i] >= 0;
+    Vec3 wo = {0.f, 0.f, 0.f};
+    float f[4] = {0.f, 0.f, 0.f, 0.f}, pdf = 0.f;
+    bool ok = false;
+    if constexpr (WARP) {
+        const unsigned live = __ballot_sync(FULL_MASK, mine);
+        if (live != 0u) {   // a thread without an RGL lane: a stand-in of material 0
+            Vec3 w;
+            float g[4], p;
+            const bool good = sample_lane<true>(
+                t, mine ? min(mids[i], t.M - 1) : 0, mine ? load3(wi_p, i) : Vec3{0.f, 0.f, 1.f},
+                mine ? u2_p[2 * i + 0] : 0.5f, mine ? u2_p[2 * i + 1] : 0.5f, &w, g, &p, live);
+            if (mine) {
+                wo = w;
+                for (int c = 0; c < 4; ++c) f[c] = g[c];
+                pdf = p;
+                ok = good;
+            }
+        }
+    } else if (mine) {
+        ok = sample_lane(t, min(mids[i], t.M - 1), load3(wi_p, i), u2_p[2 * i + 0],
+                         u2_p[2 * i + 1], &wo, f, &pdf);
     }
-    const long long warps = static_cast<long long>(resident) * WARPS;
-    const long long c = ((static_cast<long long>(n) + warps - 1) / warps + 31) / 32 * 32;
-    *chunk = static_cast<int>(c);
-    return static_cast<int>((n + c * WARPS - 1) / (c * WARPS));
+    if (!in) return;
+    wo_out[3 * i + 0] = wo.x;
+    wo_out[3 * i + 1] = wo.y;
+    wo_out[3 * i + 2] = wo.z;
+    for (int c = 0; c < 4; ++c) fcos_out[4 * i + c] = f[c];
+    pdf_out[i] = pdf;
+    ok_out[i] = ok;
 }
 
-int eval_resident = 0, sample_resident = 0;
+// The sample's form for tables t: the warp's where any padded row is at
+// least WARP_COUNT_FROM wide.
+bool warp_form(const RglTables& t) {
+    return max(max(t.Hv, t.Wv), max(t.Hl, t.Wl)) >= WARP_COUNT_FROM;
+}
 
 }  // namespace
 
 extern "C" int wpt_rgl_eval(const RglTables* t, const int* mid, const float* wi, const float* wo,
                             int n, float* fcos, float* pdf, void* stream) {
     if (n > 0) {
-        int chunk = 0;
-        const int grid = persistent_grid(rgl_eval_kernel, eval_resident, n, &chunk);
-        rgl_eval_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            *t, mid, wi, wo, n, chunk, fcos, pdf);
+        rgl_eval_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+            *t, mid, wi, wo, n, fcos, pdf);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int wpt_rgl_sample(const RglTables* t, const int* mid, const float* wi,
-                              const float* u2, int n, int warp_from, float* wo, float* fcos,
-                              float* pdf, bool* ok, void* stream) {
+                              const float* u2, int n, float* wo, float* fcos, float* pdf,
+                              bool* ok, void* stream) {
     if (n > 0) {
-        int chunk = 0;
-        const int grid = persistent_grid(rgl_sample_kernel, sample_resident, n, &chunk);
-        rgl_sample_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            *t, mid, wi, u2, n, chunk, warp_from, wo, fcos, pdf, ok);
+        const dim3 grid((n + BLOCK - 1) / BLOCK);
+        const auto s = static_cast<cudaStream_t>(stream);
+        if (warp_form(*t))
+            rgl_sample_kernel<true><<<grid, BLOCK, 0, s>>>(*t, mid, wi, u2, n, wo, fcos, pdf, ok);
+        else
+            rgl_sample_kernel<false><<<grid, BLOCK, 0, s>>>(*t, mid, wi, u2, n, wo, fcos, pdf, ok);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -226,39 +226,39 @@ __device__ __forceinline__ float warp_invert(const Frame& fr, const Warp& wp, fl
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// Threads of a warp that count one row `width` entries wide (padded): the
-// next power of two, at most 32.
-__device__ __forceinline__ int count_group(int width) {
-    int s = 1;
-    while (s < width && s < 32) s *= 2;
-    return s;
-}
+// The padded row width from which K7's stand-alone sample counts a CDF row
+// by the warp (warp_row_count) rather than by its lane. Timed on an H100 at
+// 700 W with every lane live (tools/k7_turns.py): the warp's count ran 2.5x
+// faster than the lane's on 128-wide rows and 1.7x slower on the 8- and
+// 16-wide rows of every RGL table the repo's scenes carry, even with several
+// narrow rows counted by one ballot, so it serves only wide tables: none
+// of the repo's scenes, only the synthetic 128-wide tables of the checks.
+// A build may set another (-DWPT_RGL_WARP_COUNT_FROM=...) to sweep it or to
+// test the warp's count on narrow rows.
+#ifndef WPT_RGL_WARP_COUNT_FROM
+#define WPT_RGL_WARP_COUNT_FROM 32
+#endif
+constexpr int WARP_COUNT_FROM = WPT_RGL_WARP_COUNT_FROM;
 
-// The row searches' count by the warp: for each lane L < live_end, the
+// The row searches' count by the warp: for each lane L in `live`, the
 // number of entries j < n_L of its row whose value is below u_L, the value
 // being the corner blend (gsum's expression and order) of
 // arr[slice * stride + off0_L + j] and, with TWO, blended with the one at
 // off1_L as (1 - b_L) * v0 + b_L * v1, warp_sample's own expression. The
-// warp takes its lanes' rows in turn, 32 / S a round with S =
-// count_group(width) threads to a row (a row wider than 32 in rounds of 32
-// entries); each thread blends one entry, from the row's corner slices and
-// offsets shuffled from its lane, and a ballot's bits of a group, counted by
-// __popc, add to that lane's count. Every thread of the warp calls it with
-// `width` and `live_end` the same in all (a lane past live_end, or idle,
-// with any frame whose slices lie inside the tables); returns this
-// thread's count.
+// warp takes its live lanes' rows in turn, their corner slices, offsets
+// and u shuffled from the lane; each thread blends one of 32 consecutive
+// entries and a ballot's bits, counted by __popc, add to that lane's
+// count. Every thread of the warp calls it with `live` the same in all (a
+// thread outside it with any frame whose slices lie inside the tables: its
+// count is 0); returns this thread's count.
 template <bool TWO>
 __device__ __forceinline__ int warp_row_count(const Frame& fr, const float* arr, int stride,
                                               int off0, int off1, float b, int n, float u,
-                                              int width, int live_end) {
+                                              unsigned live) {
     const int lane = static_cast<int>(threadIdx.x & 31u);
-    const int S = count_group(width), G = 32 / S;
-    const int s = lane & (S - 1), g = lane / S;
-    const unsigned group = S == 32 ? FULL_MASK : (1u << S) - 1u;
-    const int my_round = lane / G, shift = (lane % G) * S;   // where this lane's row is counted
     int cnt = 0;
-    for (int r = 0; r * G < live_end; ++r) {
-        const int src = r * G + g;
+    for (unsigned rest = live; rest != 0u; rest &= rest - 1u) {
+        const int src = __ffs(rest) - 1;
         float cw[4];
         int sl[4];
 #pragma unroll
@@ -269,7 +269,7 @@ __device__ __forceinline__ int warp_row_count(const Frame& fr, const float* arr,
             }
         }
         const float us = __shfl_sync(FULL_MASK, u, src);
-        int ns = __shfl_sync(FULL_MASK, n, src);
+        const int ns = __shfl_sync(FULL_MASK, n, src);
         const int o0 = __shfl_sync(FULL_MASK, off0, src);
         int o1 = 0;
         float bs = 0.f;
@@ -277,9 +277,9 @@ __device__ __forceinline__ int warp_row_count(const Frame& fr, const float* arr,
             o1 = __shfl_sync(FULL_MASK, off1, src);
             bs = __shfl_sync(FULL_MASK, b, src);
         }
-        if (src >= live_end) ns = 0;
-        for (int c = 0; c < width; c += S) {
-            const int j = c + s;
+        int total = 0;
+        for (int c = 0; c < ns; c += 32) {
+            const int j = c + lane;
             bool below = false;
             if (j < ns) {
                 float v = cw[0] * ld(arr + sl[0] + o0 + j);
@@ -297,9 +297,9 @@ __device__ __forceinline__ int warp_row_count(const Frame& fr, const float* arr,
                 }
                 below = v < us;
             }
-            const unsigned m = __ballot_sync(FULL_MASK, below);
-            if (my_round == r) cnt += __popc((m >> shift) & group);
+            total += __popc(__ballot_sync(FULL_MASK, below));
         }
+        if (lane == src) cnt = total;
     }
     return cnt;
 }
@@ -321,18 +321,17 @@ __device__ __forceinline__ int cond_count(const Frame& fr, const Warp& wp, int r
 
 // Warp a uniform sample; returns the density (powitacq_rgb.inl:326-432).
 // `found`, where given, gets the row and column the searches found. WARP:
-// every thread of the warp calls it, the lanes below `live_end` live, and
-// a search over a padded row at least `warp_from` wide is counted by the
-// warp (warp_row_count), a narrower one by the lane.
+// every thread of the warp calls it, the lanes in `live` live, and a search
+// over a padded row at least WARP_COUNT_FROM wide is counted by the warp
+// (warp_row_count), a narrower one by the lane.
 template <bool WARP = false>
 __device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, float u0, float u1, float& px,
-                             float& py, int* found = nullptr, int live_end = 32,
-                             int warp_from = 0) {
+                             float& py, int* found = nullptr, unsigned live = FULL_MASK) {
     float ux = clampf(u0, U_LO, U_HI), uy = clampf(u1, U_LO, U_HI);
     int cnt;
     if constexpr (WARP) {
-        cnt = wp.H >= warp_from
-                  ? warp_row_count<false>(fr, wp.marg, wp.H, 0, 0, 0.f, wp.h, uy, wp.H, live_end)
+        cnt = wp.H >= WARP_COUNT_FROM
+                  ? warp_row_count<false>(fr, wp.marg, wp.H, 0, 0, 0.f, wp.h, uy, live)
                   : marg_count(fr, wp, uy);
     } else {
         cnt = marg_count(fr, wp, uy);
@@ -348,9 +347,10 @@ __device__ __forceinline__ float warp_sample(const Frame& fr, const Warp& wp, fl
                   : (r0 - disc) / ((is_const || r0 == r1) ? 1.f : r0 - r1);
     ux = ux * ((1.f - uy) * r0 + uy * r1);
     if constexpr (WARP) {
-        cnt = wp.W >= warp_from ? warp_row_count<true>(fr, wp.cond, wp.H * wp.W, row * wp.W,
-                                                       row1 * wp.W, uy, wp.w, ux, wp.W, live_end)
-                                : cond_count(fr, wp, row, row1, uy, ux);
+        cnt = wp.W >= WARP_COUNT_FROM
+                  ? warp_row_count<true>(fr, wp.cond, wp.H * wp.W, row * wp.W, row1 * wp.W, uy,
+                                         wp.w, ux, live)
+                  : cond_count(fr, wp, row, row1, uy, ux);
     } else {
         cnt = cond_count(fr, wp, row, row1, uy, ux);
     }
@@ -448,18 +448,17 @@ __device__ __forceinline__ float eval_lane(const RglTables& t, int mid, Vec3 wi,
 // into *wo, f*cos [4] into f and the pdf into *pdf (both zero unless ok);
 // returns ok: both directions above the surface, a positive pdf and a
 // finite f. WARP: the searches by the warp (warp_sample<true>; every
-// thread of the warp calls it, the lanes below `live_end` live).
+// thread of the warp calls it, the lanes in `live` live).
 template <bool WARP = false>
 __device__ __forceinline__ bool sample_lane(const RglTables& t, int mid, Vec3 wi, float u0, float u1,
-                                   Vec3* wo, float f[4], float* pdf, int live_end = 32,
-                                   int warp_from = 0) {
+                                   Vec3* wo, float f[4], float* pdf,
+                                   unsigned live = FULL_MASK) {
     const Frame fr = prepare(t, mid, wi);
     const Warp lum = lum_warp(t, mid);
     float sx, sy, uwm_x, uwm_y;
-    const float lum_pdf =
-        warp_sample<WARP>(fr, lum, u1, u0, sx, sy, nullptr, live_end, warp_from);
-    const float ndf_pdf = warp_sample<WARP>(fr, vndf_warp(t, mid), sx, sy, uwm_x, uwm_y,
-                                            nullptr, live_end, warp_from);
+    const float lum_pdf = warp_sample<WARP>(fr, lum, u1, u0, sx, sy, nullptr, live);
+    const float ndf_pdf =
+        warp_sample<WARP>(fr, vndf_warp(t, mid), sx, sy, uwm_x, uwm_y, nullptr, live);
     float phi_m = (2.f * uwm_y - 1.f) * PI_F;
     const float theta_m = uwm_x * uwm_x * HALF_PI_F;
     if (fr.iso) phi_m = phi_m + fr.phi_i;

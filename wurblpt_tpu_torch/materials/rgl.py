@@ -655,14 +655,6 @@ def rgl_sample(tables: RGLTables, mid, wi, u2):
     return rgl_sample_raw(tables, mid, wi, u2)
 
 
-# K7 sample's row searches on the card: the warp counts a lane's row
-# (ballots) where the padded row is at least this wide, the lane alone where
-# narrower (csrc/rgl.cu). Timed on an H100 by tools/k7_turns.py with every
-# lane live, the warp's counts were 3x faster than the lane's on 128-wide
-# rows and 1.5x slower on 8- and 16-wide ones.
-WARP_COUNT_FROM = 32
-
-
 def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
     """K7 sample without a tape: the kernel on CUDA tensors, the plain version
     on CPU tensors; a lane with a negative id gets zeros and ok false."""
@@ -678,8 +670,8 @@ def rgl_sample_raw(tables: RGLTables, mid, wi, u2):
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     ct = c_tables(tables)
     code = lib.wpt_rgl_sample(ctypes.addressof(ct), mid.data_ptr(), wi.data_ptr(), u2.data_ptr(),
-                              n, WARP_COUNT_FROM, wo.data_ptr(), fcos.data_ptr(), pdf.data_ptr(),
-                              ok.data_ptr(), native.stream_ptr(mid))
+                              n, wo.data_ptr(), fcos.data_ptr(), pdf.data_ptr(), ok.data_ptr(),
+                              native.stream_ptr(mid))
     native.check(code, "rgl_sample")
     native.LAUNCHES["rgl_sample"] += 1
     return wo, fcos, pdf, ok

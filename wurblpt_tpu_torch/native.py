@@ -93,7 +93,7 @@ _SIGNATURES = {
     "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
-    "wpt_rgl_sample": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
     "wpt_regen_pinhole": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _L, _I, _I,
                           _L, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],

@@ -313,7 +313,10 @@ EXAMPLE_REFS = {"noise_textures": (0.24381244771883304, (3227255, 4971874)),
 # The material_comparison frame on an H100 as K7 rendered it before it
 # skipped the lanes without an RGL material (every lane computed at a
 # clamped id): `frame_digest` of its image and stats, which the skip must
-# keep bit for bit.
+# keep bit for bit. A change that means to move the generic bounce's
+# rounding (a PyTorch op or another kernel on its path) re-pins it from its
+# own run, after tools/k7_turns.py has shown the digests of it and of its
+# parent in turns and the frame still meets EXAMPLE_REFS.
 EXAMPLE_DIGESTS = {
     "material_comparison": "9d1311a1e11d3a53c7dcfe482e5a329c0e407ac570244fe1acc2ca7d5477ad7c"}
 
