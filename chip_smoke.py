@@ -52,7 +52,12 @@ Phases, each a function, any failure exits non-zero and names its phase:
    together) and K2 on its env-NEE shadow rays; K8 on the cube map
    (the envmap frame's 131072 camera directions, random directions, and
    the axis, diagonal, face-edge and texel-boundary directions) and on the
-   constant map, both bit-equal. K1, K2 and K3 also on the C.1 sphere
+   constant map, both bit-equal; K8's pairs (env_lanes_kernel<SAMPLE>: the
+   generic bounce's env_miss and env_nee, one launch each) on the city's,
+   the envmap frame's and rtiow's lanes over every lane and under a mask of
+   30 % of them, bit-equal to the single entry points in turn (the masked
+   lanes' fixed values) and to the plain version, bit for bit. K1, K2 and
+   K3 also on the C.1 sphere
    fields' 98304 camera rays (3000 and 4096 spheres; K2 on shadow rays from
    their first hits to random sky directions). K2 also on its edge cases
    (kernel_check.k2_edge_sets: every lane dead, one live lane, blockers
@@ -238,10 +243,12 @@ launches once per frame) above 295; every frame above 5.00 per step of
 the loop (4.00 on rtiow and rtiow_bvh: no shadow ray; the city's 2 blocks
 of 4 steps carry the set-up of two blocks). Each path's counters are set to 0 just before
 it and read just after; a kernel's `launches` in the JSON line is the sum
-over the paths that use it. The stand-alone K8 and K7 kernels run on no
-path (their work runs inside K4's shades), so their records count 0
-launches, and so do P0's and the resolve's; their `inline_in` lists the
-kernel that does their work on a K4 path, the path and its launches there
+over the paths that use it. K8's single entry points run on no path
+(their work runs inside K4's shades; the generic bounce launches K8's
+pairs, whose records env_lanes_miss and env_lanes_nee count them), so
+their records count 0 launches, and so do P0's and the resolve's; their
+`inline_in` lists the kernel that does their work on a K4 path, the path
+and its launches there
 (the resolve's: the regenerations of each path):
 the equirect K8 record the env shade on the mesh path and the lit shade on
 the city path; the cube and constant K8 records the env shade on the
@@ -311,8 +318,16 @@ their object-space records the cornell_animated_bvh path's.
    and K8T timed on every one of those shapes beside their bounds, with
    the instantiation a profiled call launched (K3T and K3aT must each run
    both <ANIM, SHARED>: the tables in shared memory and global atomics)
-   and the constant sky's g.sum(0), K8T's sample backward
-   on 262144 uniforms of the turned equirect sky, K7T's tail form on
+   and the constant sky's g.sum(0), K8T with its rotation term and its
+   sample's backward also under a lane mask (K8's masked lanes carry no
+   cotangent), K8T's sample backward
+   on 262144 uniforms of the turned equirect sky and on each bounce of the
+   sky-yaw step's own lanes (grad_check.sky_yaw_lanes: 128 x 128, 16 spp,
+   depth 8; its recorded uniforms and cotangents, a few per cent of the
+   lanes carrying one), K8's pairs bit-equal to the single entry points and
+   to the plain version on each bounce's lanes under the bounce's
+   masks (the escaped lanes, the RANDOM lanes), their device us a launch
+   per bounce printed beside the masked bound, K7T's tail form on
    131072 lanes of two synthetic RGL materials (eval and sample; timed on
    sample) and its full form on the same lanes with cotangents of the pdf
    and of sample's direction too (eval and sample; timed on sample, eval
@@ -340,7 +355,9 @@ their object-space records the cornell_animated_bvh path's.
    sky's yaw on envmap_spheres' equirect from grad_check.SKY_YAW_VIEW
    (128 x 128, 16 spp, depth 8: K8T's rotation term and the sample's
    backward), its mean within 1e-3 and d(mean)/d(yaw) within 2e-2 of the
-   JAX CPU yardstick (grad_check.SKY_YAW_REF); every float table of the
+   JAX CPU yardstick (grad_check.SKY_YAW_REF), its K8 and K8T launches
+   exactly `yaw_step_launches` (each bounce of the forward and of its
+   recompute K8's two pairs and no single entry point); every float table of the
    RGL quad on the tape (K7T's full form), each table's digest against
    jax.grad's (grad_check.RGL_TABLE_REFS: the count of entries above 1e-6
    of its largest equal, sum, sum of |entry| and largest within 1e-2); the
@@ -393,10 +410,10 @@ FIELD = "tri_sphere_field 2048 + 40"
 # (phase scene_api): render_frame on the generic bounce, and the hand
 # kernels each must launch there.
 SCENE_API = {"noise_textures": ("closest_hit", "any_hit", "assemble_hit", "row_gather",
-                                "env_radiance"),
+                                "env_miss"),
              "normalmap": ("closest_hit", "any_hit", "assemble_hit", "row_gather"),
              "material_comparison": ("closest_hit", "any_hit", "assemble_hit", "row_gather",
-                                     "env_radiance", "rgl_eval", "rgl_sample")}
+                                     "env_miss", "rgl_eval", "rgl_sample")}
 SCENE_PATHS = tuple(f"scene_api {name}" for name in SCENE_API)
 # The motion-blurred frames (kernel_check.MOTION_FRAMES), one path each
 # (phase motion): render_frame over the shutter (cornell_animated_blur
@@ -441,6 +458,10 @@ PROFILE_TRIES = 10                     # profiles of a frame taken while the pro
 # frames: closest casts over launches x lanes (PERF.md)
 LIVE_SHARES = (0.54, 0.77, 0.26, 0.24)
 ENV_ALL = ("env_radiance", "env_sample", "env_pdf")
+# K8's pairs of a generic bounce (render/wavefront.py env_miss, env_nee), one
+# launch each of env_lanes_kernel<SAMPLE>; no K4 path launches them or the above.
+ENV_PAIRS = ("env_miss", "env_nee")
+ENV_ABSENT = ENV_ALL + ENV_PAIRS
 # name -> (source, TPU kernel it replaces, launch counters, paths whose launches count)
 KERNELS = {
     "closest_hit": ("wurblpt_tpu_torch/csrc/closest_hit.cu",
@@ -466,13 +487,19 @@ KERNELS = {
                            "wurblpt_tpu/accel/traverse.py:152", ("bvh_any_hit",),
                            ("cornell_animated_bvh path",)),
     "envmap": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166", ENV_ALL,
-               K4_PATHS + (GRAD_PATH,)),
-    # the grad path's sky is an equirect map: its stand-alone launches count as the record
-    # above's; the scene_api paths' skies are constant ones, theirs as the constant record's
+               PATHS),
     "envmap_cube": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:118",
                     ENV_ALL, K4_PATHS),
     "envmap_constant": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:181",
-                        ENV_ALL, K4_PATHS + SCENE_PATHS),
+                        ENV_ALL, K4_PATHS),
+    # K8's pairs on the generic bounce (the grad path's equirect skies, the
+    # scene_api paths' constant ones): env_miss's radiance and pdf of the
+    # escaped lanes (env_lanes_kernel<false>), env_nee's sample and its
+    # radiance on the RANDOM lanes (<true>), each under its lane mask
+    "env_lanes_miss": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:166",
+                       ("env_miss",), PATHS),
+    "env_lanes_nee": ("wurblpt_tpu_torch/csrc/envmap.cu", "wurblpt_tpu/render/envmap.py:201",
+                      ("env_nee",), PATHS),
     "rgl_eval": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:633",
                  ("rgl_eval",), PATHS),
     "rgl_sample": ("wurblpt_tpu_torch/csrc/rgl.cu", "wurblpt_tpu/materials/rgl.py:650",
@@ -621,7 +648,7 @@ MESH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4", "shade_env",
 CITY_PATH = ("regen_surround", "bvh_closest_hit", "assemble_hit_k4", "shade_lit", "bvh_any_hit")
 # The stand-alone kernels whose work the lit shade and the regeneration do
 # inline (the regenerations add the step before's NEE deposits: no resolve).
-CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample", "nee_resolve") + ENV_ALL + K3_FULL
+CITY_ABSENT = ("row_gather", "rgl_eval", "rgl_sample", "nee_resolve") + ENV_ABSENT + K3_FULL
 ENVMAP_PATH = ("regen_pinhole", "closest_hit", "assemble_hit_k4", "shade_env", "any_hit")
 RTIOW_PATH = ("regen_pinhole", "closest_hit", "assemble_hit_k4", "shade_env")
 # The animated frame: K4's diffuse class around the sweeps and K3a; no K1-K3
@@ -635,7 +662,7 @@ ANIM_ABSENT = ("closest_hit", "any_hit", "assemble_hit_k4", "row_gather", "shade
 # class around K5/K6 in object space and K3a; neither takes K1/K2 or the sweeps.
 RTIOW_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4", "shade_env")
 RTIOW_BVH_ABSENT = ("closest_hit", "any_hit", "sweep_closest", "sweep_any", "bvh_any_hit",
-                    "row_gather", "nee_resolve") + ENV_ALL + K3_FULL
+                    "row_gather", "nee_resolve") + ENV_ABSENT + K3_FULL
 ANIM_BVH_PATH = ("regen_pinhole", "bvh_closest_hit", "assemble_hit_k4_anim", "shade_diffuse",
                  "bvh_any_hit")
 ANIM_BVH_ABSENT = ("closest_hit", "any_hit", "assemble_hit_k4", "sweep_closest", "sweep_any",
@@ -874,6 +901,20 @@ def phase_kernels(scenes_on_card):
                             kc.env_radiance_work(const, nr),
                             lambda: const.const_radiance.repeat(nr, 1)),
     }, errs, nr)
+    # K8's pairs (env_lanes_kernel<SAMPLE>: env_miss's radiance and pdf,
+    # env_nee's sample and its radiance) on the same lanes, over every lane
+    # and under a mask of 30 % of them (bit-equal to the single entry points
+    # in turn; the masked lanes' fixed values); the sky-yaw step's own lanes
+    # in phase grad.
+    pair_sets = {}
+    for sky, e, dirs, uni in (("city equirect", env, cdirs, cu3), ("envmap cube", cube, ecam, eu3),
+                              ("rtiow constant", const, rt_cam[1], None)):
+        for label, share in (("every lane", None), ("30 % of the lanes", 0.3)):
+            mask = None if share is None else kc.lane_mask(dirs.shape[0], share, DEVICE)
+            pair_sets[f"{sky} miss, {label}"] = (e, dirs, mask, False)
+            if uni is not None:
+                pair_sets[f"{sky} nee, {label}"] = (e, uni, mask, True)
+    _run_checks((("env_lanes", kc.check_env_lanes, pair_sets),))
 
     # K7 on the lanes of material_comparison's pass (its main path: every
     # lane of a bounce, those of other materials with id -1), on the city
@@ -1583,7 +1624,7 @@ def phase_city_path(city_scene):
 def phase_mesh_path(mesh_scene):
     render = kc.mesh_frame(DEVICE, mesh_scene)
     img, stats, launches, times = _drive("mesh path", render, MESH_PATH,
-                                         ("row_gather", "nee_resolve") + ENV_ALL + K3_FULL)
+                                         ("row_gather", "nee_resolve") + ENV_ABSENT + K3_FULL)
     print(f"mesh path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.MESH_REF_MEAN}), stats {stats} (reference {list(kc.MESH_REF_STATS)})")
     kc.check_mesh_frame(img, stats)
@@ -1596,7 +1637,7 @@ def phase_mesh_path(mesh_scene):
 def phase_envmap_path(env_scene):
     render = kc.envmap_frame(DEVICE, env_scene)
     img, stats, launches, times = _drive("envmap path", render, ENVMAP_PATH,
-                                         ("row_gather", "nee_resolve") + ENV_ALL + K3_FULL)
+                                         ("row_gather", "nee_resolve") + ENV_ABSENT + K3_FULL)
     print(f"envmap path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.ENVMAP_REF_MEAN}), stats {stats} "
           f"(reference {list(kc.ENVMAP_REF_STATS)})")
@@ -1610,7 +1651,7 @@ def phase_envmap_path(env_scene):
 def phase_rtiow_path(rt_scene):
     render = kc.rtiow_frame(DEVICE, rt_scene)
     img, stats, launches, times = _drive("rtiow path", render, RTIOW_PATH,
-                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ALL
+                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ABSENT
                                          + K3_FULL)
     print(f"rtiow path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.RTIOW_REF_MEAN}), stats {stats} (reference {list(kc.RTIOW_REF_STATS)})")
@@ -1702,7 +1743,7 @@ def phase_rtiow_dof_path(rt_scene):
     most 4.00 launches per step of the loop and 8 per step of the frame."""
     render = kc.rtiow_dof_frame(DEVICE, rt_scene)
     img, stats, launches, times = _drive("rtiow_dof path", render, RTIOW_PATH,
-                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ALL
+                                         ("row_gather", "any_hit", "nee_resolve") + ENV_ABSENT
                                          + K3_FULL)
     print(f"rtiow_dof path: mean radiance {float(img.double().mean())!r} "
           f"(reference {kc.DOF_REF_MEAN}), stats {stats} (reference {list(kc.DOF_REF_STATS)})")
@@ -1764,6 +1805,7 @@ def _grad_records():
     tables step hands K7T, each path's instantiation read from a profiled
     call's kernel name."""
     from wurblpt_tpu_torch.render import backward as bw
+    from wurblpt_tpu_torch.render import envmap
     from wurblpt_tpu_torch.utils import grad_check as gc
 
     lanes = gc.cornell_lanes(DEVICE)
@@ -1783,6 +1825,10 @@ def _grad_records():
     floor, field = gc.floor_lanes(DEVICE), gc.field_lanes(DEVICE)
     field_anim = {k: gc.field_lanes(DEVICE, anim=k) for k in ("one instant", "per ray")}
     senv, su3, sgd = gc.env_sample_lanes(DEVICE)
+    # the sky-yaw step's own lanes, each bounce's: K8's pairs and K8T's sample
+    yaw = gc.sky_yaw_lanes(DEVICE)
+    yenv = yaw["env"]
+    print(f"grad: sky yaw step lanes, shares per bounce {gc.sky_yaw_shares(yaw)}")
     rtab, rmid, rwi, rwo, ru2, rg = gc.rgl_lanes(DEVICE)
     rgp, rgwo = gc.rgl_full_cotangents(rmid.shape[0], DEVICE)
     # K7T's global path: the same lanes on a stack of materials whose tables
@@ -1819,13 +1865,29 @@ def _grad_records():
                {**{f"animated box with spheres, rows of {k}": (v,) for k, v in anim.items()},
                 **{f"animated {FIELD}, rows of {k}": (v,) for k, v in field_anim.items()}}),
               ("env_radiance_bwd", gc.check_env_radiance_bwd, skies),
-              ("env_radiance_bwd_rot", gc.check_env_radiance_bwd, rotated),
-              ("env_sample_bwd", gc.check_env_sample_bwd, {"equirect, rotated": (senv, su3, sgd)}),
+              ("env_radiance_bwd_rot", gc.check_env_radiance_bwd,
+               {**rotated, "equirect, rotated, 30 % of the lanes in the mask": (
+                   *rotated["equirect, rotated"][:3], True, False,
+                   kc.lane_mask(rotated["equirect, rotated"][1].shape[0], 0.3, DEVICE))}),
+              ("env_sample_bwd", gc.check_env_sample_bwd,
+               {"equirect, rotated": (senv, su3, sgd),
+                "equirect, rotated, 10 % of the lanes in the mask": (
+                    senv, su3, sgd, kc.lane_mask(su3.shape[0], 0.1, DEVICE)),
+                **{f"sky yaw bounce {b}": (yenv, u, g) for b, (u, g) in
+                   enumerate(yaw["sample_bwd"])}}),
+              ("env_lanes_miss", kc.check_env_lanes,
+               {f"sky yaw bounce {b}": (yenv, d, esc, False)
+                for b, (d, esc, _) in enumerate(yaw["miss"])}),
+              ("env_lanes_nee", kc.check_env_lanes,
+               {f"sky yaw bounce {b}": (yenv, u, rnd, True)
+                for b, (u, rnd) in enumerate(yaw["nee"])}),
               ("rgl_bwd", gc.check_rgl_bwd, rgl_sets),
               ("rgl_bwd_full", gc.check_rgl_bwd_full, rgl_full_sets)]
     errs = _run_checks(checks)
     env, d, g = skies["equirect"]
     renv, rd, rgg, _ = rotated["equirect, rotated"]
+    (ymd, yesc, _), (yu3, yrnd) = yaw["miss"][0], yaw["nee"][0]
+    _yaw_device_times(yaw)
     k3a = ([anim["per ray"][k] for k in ("ht", "o", "d", "t", "prim", "u", "v", "backside")]
            + anim["per ray"]["cot"])
     cases = {
@@ -1852,7 +1914,16 @@ def _grad_records():
             gc.env_radiance_bwd_work(renv, rd, rotation=True), None, rd.shape[0]),
         "env_sample_bwd": (lambda: bw.env_sample_bwd(senv, su3, sgd),
                            lambda: bw.env_sample_bwd_plain(senv, su3, sgd),
-                           gc.env_sample_bwd_work(senv, su3), None, su3.shape[0]),
+                           gc.env_sample_bwd_work(senv, su3, sgd), None, su3.shape[0]),
+        # K8's pairs on the sky-yaw step's first bounce
+        "env_lanes_miss": (lambda: envmap.env_miss_raw(yenv, ymd, yesc),
+                           lambda: envmap.env_miss_plain(yenv, ymd, yesc),
+                           kc.env_lanes_work(yenv, ymd.shape[0], False, True, True,
+                                             int(yesc.sum())), None, ymd.shape[0]),
+        "env_lanes_nee": (lambda: envmap.env_nee_raw(yenv, yu3, yrnd),
+                          lambda: envmap.env_nee_plain(yenv, yu3, yrnd),
+                          kc.env_lanes_work(yenv, yu3.shape[0], True, True, True,
+                                            int(yrnd.sum())), None, yu3.shape[0]),
         # the sample's backward: its lanes recompute the two warps' sampling
         "rgl_bwd": (lambda: bw.rgl_bwd(rtab, rmid, rwi, ru2, rg, True),
                     lambda: bw.rgl_bwd_plain(rtab, rmid, rwi, ru2, rg, True),
@@ -1870,15 +1941,8 @@ def _grad_records():
     print(f"grad: env_radiance_bwd on the turned equirect sky, device us a launch in turns: "
           f"without the rotation term {turns[0]:.2f}, {turns[3]:.2f}; with it {turns[1]:.2f}, "
           f"{turns[2]:.2f} at {rd.shape[0]} lanes on {_nvidia_smi()}")
-    # K7T and P0T at every shape checked above, device us a launch beside
-    # the bound and the instantiation a profiled call launched, read from
-    # one profiled session of all their calls (`_launched_kernels`: many
-    # short sessions in one process lose events): K7T must
-    # have run each form on both of its paths (rgl_bwd_kernel<SAMPLE, FULL,
-    # SHARED>: the block's copy of the tables in shared memory, or the warps'
-    # sums added to the tables), P0T its three (row_scatter_kernel<COPIES>:
-    # a copy per warp, the block's copy, the table)
-    bcases = []   # (label, call, work, lanes)
+    # K7T and P0T at every shape checked above
+    bcases = []   # (label, call, work, lanes, library call or None)
     for label, (tb, md, w, x, gf, smp) in rgl_sets.items():
         for full in (False, True):
             a = rgl_full_sets[label][6:8]
@@ -1888,51 +1952,50 @@ def _grad_records():
                     tb, md, w, x, gf, smp, full=full, g_pdf=a[0] if full else None,
                     g_wo=a[1] if full else None),
                 gc.rgl_bwd_work(tb, md.shape[0], smp, full=full, live=gc.rgl_live(
-                    gf, *(a if full else (None, None)))), md.shape[0]))
+                    gf, *(a if full else (None, None)))), md.shape[0], None))
     for label, (sg, si, sr) in {"cornell material rows": (g_rows, mat, rows), **scatter}.items():
         bcases.append((f"row_scatter {label}",
                        lambda sg=sg, si=si, sr=sr: bw.row_scatter(sg, si, sr),
-                       gc.row_scatter_work(sg, si, sr), sg.shape[0]))
-    names = _launched_kernels([c for _, c, _, _ in bcases])
-    for (label, call, work, n), name in zip(bcases, names):
-        _bwd_case(label, call, work, n, ran=[name])
-    print(f"grad: K7T and P0T ran {sorted(set(names))}")
-    want = {f"rgl_bwd_kernel<{s_}, {f_}, {h_}>" for s_ in ("true", "false")
-            for f_ in ("true", "false") for h_ in ("true", "false")}
-    want |= {f"row_scatter_kernel<{c}>" for c in (8, 1, 0)}
-    assert want <= set(names), f"{sorted(want - set(names))} did not launch"
-    # K3T, K3aT and K8T at every shape checked above: device us a launch
-    # beside the bound and the instantiation that ran; a constant sky's also
-    # beside g.sum(0), the one PyTorch call of its function. K3T and K3aT
-    # must each have run both of their paths: the block's tables in shared
-    # memory (assemble_hit_bwd_kernel<ANIM, true>) and the warps' sums added
-    # to the tables (<ANIM, false>).
+                       gc.row_scatter_work(sg, si, sr), sg.shape[0], None))
+    # K3T, K3aT and K8T at every shape checked above; a constant sky's also
+    # beside g.sum(0), the one PyTorch call of its function
     keys = ("ht", "o", "d", "t", "prim", "u", "v", "backside")
     k3_cases = {"assemble_hit_bwd cornell block": lanes, "assemble_hit_bwd floor step": floor,
                 f"assemble_hit_bwd {FIELD}": field,
                 **{f"assemble_hit_anim_bwd animated box, rows of {k}": v for k, v in anim.items()},
                 **{f"assemble_hit_anim_bwd animated {FIELD}, rows of {k}": v
                    for k, v in field_anim.items()}}
-    shared = collections.defaultdict(set)   # ANIM -> the SHARED values that ran
     for label, ln in k3_cases.items():
         fr = ln.get("frames")
         work = gc.assemble_hit_bwd_work(ln) if fr is None else gc.assemble_hit_anim_bwd_work(ln)
         args = [ln[k] for k in keys] + ln["cot"]
-        for name in _bwd_case(label, lambda a=args, f=fr: bw.assemble_hit_bwd(*a, frames=f),
-                              work, ln["o"].shape[0]):
-            m = re.fullmatch(r"assemble_hit_bwd_kernel<(\w+), (\w+)>", name)
-            shared[m.group(1)].add(m.group(2))
+        bcases.append((label, lambda a=args, f=fr: bw.assemble_hit_bwd(*a, frames=f), work,
+                       ln["o"].shape[0], None))
     for label, (sky, sky_d, sky_g, *flags) in {**skies, **rotated}.items():
         rot = bool(flags and flags[0])
-        _bwd_case(f"env_radiance_bwd {label}",
-                  lambda e=sky, a=sky_d, b=sky_g, r=rot: bw.env_radiance_bwd(e, a, b, rotation=r),
-                  gc.env_radiance_bwd_work(sky, sky_d, rotation=rot), sky_d.shape[0],
-                  (lambda b=sky_g: b.sum(0)) if sky.kind == 3 else None)
-    print(f"grad: assemble_hit_bwd_kernel<ANIM, SHARED> ran SHARED "
-          f"{({k: sorted(v) for k, v in shared.items()})}")
-    for anim_, name in (("false", "assemble_hit_bwd"), ("true", "assemble_hit_anim_bwd")):
-        assert shared[anim_] == {"true", "false"}, (
-            f"{name} ran only SHARED {sorted(shared[anim_])}: one of its paths did not launch")
+        bcases.append((f"env_radiance_bwd {label}",
+                       lambda e=sky, a=sky_d, b=sky_g, r=rot: bw.env_radiance_bwd(e, a, b,
+                                                                                rotation=r),
+                       gc.env_radiance_bwd_work(sky, sky_d, rotation=rot), sky_d.shape[0],
+                       (lambda b=sky_g: b.sum(0)) if sky.kind == 3 else None))
+    # each case's device us a launch beside its bound and the instantiation
+    # that ran, read from one profiled session of all their calls
+    # (`_launched_kernels`: many short sessions in one process lose events).
+    # K7T must have run each form on both of its paths (rgl_bwd_kernel<SAMPLE,
+    # FULL, SHARED>: the block's copy of the tables in shared memory, or the
+    # warps' sums added to the tables), P0T its three (row_scatter_kernel<COPIES>:
+    # a copy per warp, the block's copy, the table), K3T and K3aT both of
+    # theirs (assemble_hit_bwd_kernel<ANIM, SHARED>).
+    names = _launched_kernels([c for _, c, _, _, _ in bcases])
+    for (label, call, work, n, library), name in zip(bcases, names):
+        _bwd_case(label, call, work, n, name, library)
+    print(f"grad: the backward kernels ran {sorted(set(names))}")
+    want = {f"rgl_bwd_kernel<{s_}, {f_}, {h_}>" for s_ in ("true", "false")
+            for f_ in ("true", "false") for h_ in ("true", "false")}
+    want |= {f"row_scatter_kernel<{c}>" for c in (8, 1, 0)}
+    want |= {f"assemble_hit_bwd_kernel<{a_}, {h_}>" for a_ in ("true", "false")
+             for h_ in ("true", "false")}
+    assert want <= set(names), f"{sorted(want - set(names))} did not launch"
     # K7T's full form on eval's lanes: timed beside the record (sample's)
     eval_full = lambda: bw.rgl_bwd(rtab, rmid, rwi, rwo, rg, False, full=True, g_pdf=rgp)  # noqa: E731
     bound, bound_by = kc.bound_ms(*gc.rgl_bwd_work(rtab, rmid.shape[0], False, full=True))
@@ -1953,6 +2016,34 @@ def _grad_records():
                              "launches": 0, "max_abs_err": errs[name], "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                              "library_ms": library_ms, "device_us": dev_us})
+
+
+def _yaw_device_times(yaw):
+    """K8's pairs and K8T's sample backward on each bounce of the sky-yaw
+    step's lanes: device us a launch (kc.device_ms) beside the bound of the
+    lanes in each mask (kc.env_lanes_work) and of the cotangents (K8T's
+    sample: gc.env_sample_bwd_work with the lanes' cotangents, and without
+    them, every lane's uniforms: the earlier all-lane count)."""
+    from wurblpt_tpu_torch.render import backward as bw
+    from wurblpt_tpu_torch.render import envmap
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    env = yaw["env"]
+    for b, ((d, esc, _), (u3, rnd), (su, g)) in enumerate(zip(yaw["miss"], yaw["nee"],
+                                                              yaw["sample_bwd"])):
+        n = d.shape[0]
+        miss = kc.device_ms(lambda: envmap.env_miss_raw(env, d, esc)) * 1e3
+        nee = kc.device_ms(lambda: envmap.env_nee_raw(env, u3, rnd)) * 1e3
+        sbwd = kc.device_ms(lambda: bw.env_sample_bwd(env, su, g)) * 1e3
+        bm, bn = (kc.bound_ms(*kc.env_lanes_work(env, n, smp, True, True, int(m.sum())))[0] * 1e3
+                  for smp, m in ((False, esc), (True, rnd)))
+        bs, bs_all = (kc.bound_ms(*gc.env_sample_bwd_work(env, su, gg))[0] * 1e3
+                      for gg in (g, None))
+        print(f"grad: sky yaw bounce {b}: K8 miss pair {miss:.2f} us (bound {bm:.2f}, "
+              f"{int(esc.sum())} of {n} lanes), nee pair {nee:.2f} us (bound {bn:.2f}, "
+              f"{int(rnd.sum())} lanes), K8T sample {sbwd:.2f} us (bound {bs:.2f}, all-lane "
+              f"count {bs_all:.2f}; {int((g != 0).any(-1).sum())} lanes carry a cotangent) "
+              f"on {_nvidia_smi()}")
 
 
 def _launched_kernels(calls):
@@ -1976,39 +2067,34 @@ def _launched_kernels(calls):
                          f"in each of {PROFILE_TRIES} profiles")
 
 
-def _bwd_case(label, kernel, work, n, library=None, ran=None):
+def _bwd_case(label, kernel, work, n, ran, library=None):
     """Prints a backward kernel's device us a launch (kc.device_ms) on one
-    case beside its bound, the instantiation that ran and, where given, the
-    device time of the library call of the same function; returns the names
-    (`<name>_bwd_kernel<...>`) of the kernels a profiled call launched
-    (profiled again, up to PROFILE_TRIES times, while the profiler saw none),
-    or `ran` where given."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(0 if ran else PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kernel()
-            torch.cuda.synchronize()
-        ran = sorted({m.group(0) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and (m := re.search(BWD_NAME, e.key))})
-        if ran:
-            break
-    assert ran, f"profiler: no backward kernel seen in {PROFILE_TRIES} profiles of {label}"
+    case beside its bound, the instantiation `ran` (the name of the kernel
+    a profiled call launched, `_launched_kernels`) and, where given, the
+    device time of the library call of the same function."""
     dev_us = kc.device_ms(kernel) * 1e3
     bound, bound_by = kc.bound_ms(*work)
     lib = "" if library is None else f", g.sum(0) {kc.device_ms(library) * 1e3:.2f} us device"
-    print(f"grad: {label} ({', '.join(ran)}): {dev_us:.2f} us device a launch{lib}; bound "
+    print(f"grad: {label} ({ran}): {dev_us:.2f} us device a launch{lib}; bound "
           f"{bound * 1e3:.2f} us by {bound_by} ({dev_us / (bound * 1e3):.1f}x) at {n} lanes on "
           f"{_nvidia_smi()}")
-    return ran
 
 
-def _timed_step(label, loss, args):
+def yaw_step_launches(depth):
+    """The K8 and K8T launches of one sky-yaw step of `depth` bounces: each
+    bounce of the forward and of its recompute launches K8's two pairs,
+    none of its single entry points; the backward K8T with its rotation
+    term for each pair's radiance and the sample's backward once."""
+    return {"env_miss": 2 * depth, "env_nee": 2 * depth, "env_radiance": 0, "env_sample": 0,
+            "env_pdf": 0, "env_radiance_bwd_rot": 2 * depth, "env_sample_bwd": depth}
+
+
+def _timed_step(label, loss, args, launches=None):
     """One differentiable step: (loss value, the args' gradients), with its
     forward and backward wall ms, the port's kernel launches, the card's
     peak memory, and from a profiled step each pass's CUDA kernel launches,
-    device ms and busy share, printed."""
+    device ms and busy share, printed. `launches`: {counter: launches} the
+    step (forward, recompute and backward) must make exactly."""
     from torch.profiler import ProfilerActivity, profile
 
     from wurblpt_tpu_torch import native
@@ -2031,6 +2117,8 @@ def _timed_step(label, loss, args):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     ours = {k: v - before[k] for k, v in native.LAUNCHES.items() if v != before[k]}
+    for k, want in (launches or {}).items():
+        assert ours.get(k, 0) == want, f"{label}: {ours.get(k, 0)} launches of {k}, not {want}"
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof_line = []
     ys = leaves()
@@ -2153,7 +2241,8 @@ def phase_grad():
     # the sky's yaw (K8T's rotation term, the sample's backward) against the
     # JAX CPU yardstick (grad_check.SKY_YAW_REF)
     loss = gc.sky_yaw_loss(DEVICE)
-    value, (g_y,) = _timed_step("grad: differentiable sky yaw step", loss, (gc.SKY_YAW,))
+    value, (g_y,) = _timed_step("grad: differentiable sky yaw step", loss, (gc.SKY_YAW,),
+                                yaw_step_launches(gc.GRAD_DEPTH))
     ref = gc.SKY_YAW_REF
     print(f"grad: sky yaw {gc.SKY_YAW}: loss {value!r} (JAX {ref['mean']!r}), d/d(yaw) {g_y!r} "
           f"(JAX {ref['grad']!r})")
@@ -2237,8 +2326,10 @@ def phase_grad():
     for name in ("row_scatter", "assemble_hit_bwd", "assemble_hit_anim_bwd", "env_radiance_bwd",
                  "env_radiance_bwd_rot", "env_sample_bwd", "rgl_bwd", "rgl_bwd_full",
                  "assemble_hit", "assemble_hit_anim", "row_gather", "closest_hit", "any_hit",
-                 "env_radiance"):
+                 "env_miss", "env_nee"):
         assert launches[name] > 0, f"kernel {name} was not launched on the {GRAD_PATH}"
+    for name in ENV_ALL:   # the generic bounce asks K8 for its pairs only
+        assert launches[name] == 0, f"kernel {name} was launched on the {GRAD_PATH}"
     return launches
 
 

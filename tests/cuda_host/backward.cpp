@@ -8,8 +8,9 @@
 // the kernels' own rule (hit_takes_shared, rgl_takes_shared,
 // scatter_copies) under the limit in words given in place of the card's
 // (below 0: the card's; 0 forces the global path, a large one the shared
-// one). The K8T sample runs one lane after another (its rotation terms
-// summed in lane order).
+// one). K8T's sample backward runs as its kernel does too: persistent
+// blocks, the lanes of zero cotangent skipped, the last block summing the
+// blocks' partials.
 #include <thread>
 #include <vector>
 
@@ -104,36 +105,42 @@ extern "C" int host_assemble_hit_anim_bwd(
                          limit_words);
 }
 
-// wpt_env_radiance_bwd's arguments but the stream; g_rot may be null.
+// wpt_env_radiance_bwd's arguments but the stream; active and g_rot may be
+// null.
 extern "C" int host_env_radiance_bwd(const float* d, int n, int kind, const float* img, int h,
-                                     int w, const float* rot, const float* g, float* g_d,
-                                     float* g_img, float* g_const, float* g_rot) {
+                                     int w, const float* rot, const float* g, const bool* active,
+                                     float* g_d, float* g_img, float* g_const, float* g_rot) {
     if (n <= 0) return 0;
     const float4* im = reinterpret_cast<const float4*>(img);
     int chunk = 0;
     const int grid = wpt_bwd::chunked_grid(n, RESIDENT, wpt_bwd::SKY_BLOCK, &chunk);
     run_blocks(grid, wpt_bwd::SKY_BLOCK, 0, [&](float*) {
         if (g_rot != nullptr && kind != 3)
-            wpt_bwd::env_radiance_bwd_lanes<true>(d, n, kind, im, h, w, rot, g, g_d, g_img,
-                                                  g_const, g_rot, chunk);
+            wpt_bwd::env_radiance_bwd_lanes<true>(d, n, kind, im, h, w, rot, g, active, g_d,
+                                                  g_img, g_const, g_rot, chunk);
         else
-            wpt_bwd::env_radiance_bwd_lanes<false>(d, n, kind, im, h, w, rot, g, g_d, g_img,
-                                                   g_const, g_rot, chunk);
+            wpt_bwd::env_radiance_bwd_lanes<false>(d, n, kind, im, h, w, rot, g, active, g_d,
+                                                   g_img, g_const, g_rot, chunk);
     });
     return 0;
 }
 
+// wpt_env_sample_bwd's arguments but the stream.
 extern "C" int host_env_sample_bwd(const float* u3, int n, const float* pdf,
                                    const float* alias_prob, const int* alias_idx, int res,
-                                   const float* rot, const float* g_dir, float* g_rot) {
-    for (int i = 0; i < n; ++i) {
-        const float4 q =
-            wpt_bwd::env_sample_bwd_lane(i, u3, pdf, alias_prob, alias_idx, res, rot, g_dir);
-        g_rot[0] += q.x;
-        g_rot[1] += q.y;
-        g_rot[2] += q.z;
-        g_rot[3] += q.w;
+                                   const float* rot, const float* g_dir, const bool* active,
+                                   float* partial, int blocks, unsigned* done, float* g_rot) {
+    if (n <= 0) {
+        for (int k = 0; k < 4; ++k) g_rot[k] = 0.f;
+        return 0;
     }
+    int chunk = 0;
+    const int grid = wpt_bwd::chunked_grid(n, RESIDENT, wpt_bwd::SAMPLE_BLOCK, &chunk);
+    if (grid > blocks) return -1;
+    run_blocks(grid, wpt_bwd::SAMPLE_BLOCK, 0, [&](float*) {
+        wpt_bwd::env_sample_bwd_lanes(u3, n, pdf, alias_prob, alias_idx, res, rot, g_dir, active,
+                                      reinterpret_cast<float4*>(partial), done, g_rot, chunk);
+    });
     return 0;
 }
 

@@ -39,6 +39,8 @@ extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 gridDim, blockDim;
 
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __fmul_rn(float a, float b) { return a * b; }

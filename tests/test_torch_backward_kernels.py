@@ -442,6 +442,15 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "wurblpt_tpu")]
 
 
+@pytest.mark.parametrize("tool", ["bwd_turns.py", "k7_turns.py", "k8_turns.py"])
+def test_turns_tools_import_neither_jax_nor_the_jax_package(tool):
+    tree = ast.parse((REPO / "tools" / tool).read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "wurblpt_tpu")]
+
+
 def test_the_materials_layer_imports_nothing_of_the_render_layer():
     """K7T's wrapper and autograd Functions sit beside K7's in
     materials/rgl.py (render/backward.py re-exports them): the dependency

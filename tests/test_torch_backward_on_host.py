@@ -180,15 +180,17 @@ def _check_k3at(lib, spheres, per_ray, limit):
     assert float(ref[5].abs().sum()) > 0
 
 
-def _host_k8t(lib, env, d, g, rotation=True):
+def _host_k8t(lib, env, d, g, rotation=True, active=None):
     """(g_d, g_image, g_rotation, g_const) of the host build of K8T's
-    kernel, its rotation term where `rotation`."""
+    kernel, its rotation term where `rotation`, under the lane mask
+    `active` where given."""
     g_d = torch.full_like(d, float("nan"))
     g_img, g_rot, g_const = torch.zeros_like(env.image), torch.zeros(4), torch.zeros(4)
     h, w = env.image.shape[-3], env.image.shape[-2]
     assert lib.host_env_radiance_bwd(d.data_ptr(), d.shape[0], env.kind, env.image.data_ptr(),
-                                     h, w, env.rotation.data_ptr(), g.data_ptr(), g_d.data_ptr(),
-                                     g_img.data_ptr(), g_const.data_ptr(),
+                                     h, w, env.rotation.data_ptr(), g.data_ptr(),
+                                     None if active is None else active.data_ptr(),
+                                     g_d.data_ptr(), g_img.data_ptr(), g_const.data_ptr(),
                                      g_rot.data_ptr() if rotation else None) == 0
     return g_d, g_img, g_rot, g_const
 
@@ -350,20 +352,83 @@ def test_k8t_kernel_on_a_constant_sky(lib, rotated):
     _sums_close(g_const, ref[2], ref[5], "constant g_const")
 
 
+@pytest.mark.parametrize("kind", ["equirect", "cube", "constant"])
+def test_k8t_kernel_under_a_lane_mask(lib, kind):
+    """K8T with its rotation term under a lane mask (30 % of the lanes):
+    the lanes outside it carry no cotangent, whatever theirs (random here),
+    and get g_d = 0; the texels', the constant's and the rotation's sums
+    those of the plain version on the cotangents zeroed outside the mask."""
+    from test_torch_backward_kernels import _sky
+
+    env = _sky(kind, True)
+    d, g = _sky_block(env, 15)
+    active = torch.rand(d.shape[0], generator=torch.Generator().manual_seed(16)) < 0.3
+    ref = bw.env_radiance_bwd_plain(env, d, torch.where(active[:, None], g, 0.0),
+                                    magnitudes=True)
+    g_d, g_img, g_rot, g_const = _host_k8t(lib, env, d, g, rotation=kind != "constant",
+                                           active=active)
+    assert not bool(g_d[~active].any())
+    _close(g_d[active], ref[0][active], f"{kind} masked g_d")
+    if kind == "constant":
+        _sums_close(g_const, ref[2], ref[5], "masked g_const")
+    else:
+        _close(g_img, ref[1], f"{kind} masked g_image")
+        _sums_close(g_rot, ref[3], ref[6], f"{kind} masked g_rotation")
+
+
+def _host_k8t_sample(lib, env, u3, g_dir, active=None):
+    """g_rot of the host build of K8T's sample backward under the lane mask
+    `active` where given (its partials NaN before the launch, its output
+    too: the last block writes it), and the count of finished blocks left
+    at 0."""
+    g_rot, partial = torch.full((4,), float("nan")), torch.full((64, 4), float("nan"))
+    done = torch.zeros(1, dtype=torch.int32)
+    assert lib.host_env_sample_bwd(u3.data_ptr(), u3.shape[0], env.pdf_table.data_ptr(),
+                                   env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
+                                   env.pdf_table.shape[0], env.rotation.data_ptr(),
+                                   g_dir.data_ptr(),
+                                   None if active is None else active.data_ptr(),
+                                   partial.data_ptr(), partial.shape[0], done.data_ptr(),
+                                   g_rot.data_ptr()) == 0
+    assert int(done) == 0
+    return g_rot
+
+
 def test_k8t_sample_device_code_matches_its_plain_version(lib):
-    """K8T's sample backward (env_sample_bwd_lane: the sample's map-space
-    direction from envmap_common.cuh sample_map, the rotation formula's
-    backward) on envmap_spheres' rotated equirect sky."""
+    """K8T's sample backward (env_sample_bwd_lanes: persistent blocks, each
+    lane's map-space direction from envmap_common.cuh sample_map and the
+    rotation formula's backward, summed per thread and per block, the last
+    block summing the blocks' partials) on envmap_spheres' rotated
+    equirect sky, every lane carrying a cotangent."""
     from wurblpt_tpu_torch.utils import grad_check as gc
 
     env, u3, g_dir = gc.env_sample_lanes("cpu", n=8192)
     ref, mag = bw.env_sample_bwd_plain(env, u3, g_dir, magnitudes=True)
-    g_rot = torch.zeros(4)
-    assert lib.host_env_sample_bwd(u3.data_ptr(), u3.shape[0], env.pdf_table.data_ptr(),
-                                   env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
-                                   env.pdf_table.shape[0], env.rotation.data_ptr(),
-                                   g_dir.data_ptr(), g_rot.data_ptr()) == 0
-    _sums_close(g_rot, ref, mag, "sample g_rotation")
+    _sums_close(_host_k8t_sample(lib, env, u3, g_dir), ref, mag, "sample g_rotation")
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["zero cotangents", "lane mask"])
+@pytest.mark.parametrize("live", [0.09, 0.0], ids=["sparse", "no lane"])
+def test_k8t_sample_kernel_skips_lanes_without_a_cotangent(lib, live, masked):
+    """The same on a render's sparse cotangents (9 % of the lanes live,
+    scattered, as the sky-yaw step's first bounce sends them; the other
+    lanes' uniforms NaN, which a skipped lane never reads) and on lanes
+    that all carry none (the rotation's cotangent stays 0); the other
+    lanes either carry zero cotangents or lie outside the lane mask (their
+    cotangents random, unread)."""
+    from wurblpt_tpu_torch.utils import grad_check as gc
+
+    env, u3, g_dir = gc.env_sample_lanes("cpu", n=8192)
+    keep = torch.rand(u3.shape[0], generator=torch.Generator().manual_seed(25)) < live
+    g_live = torch.where(keep[:, None], g_dir, 0.0)
+    ref, mag = bw.env_sample_bwd_plain(env, u3, g_live, magnitudes=True)
+    got = _host_k8t_sample(lib, env, torch.where(keep[:, None], u3, float("nan")),
+                           g_dir if masked else g_live, keep if masked else None)
+    if live:
+        assert int(keep.sum()) > 0
+        _sums_close(got, ref, mag, "sparse sample g_rotation")
+    else:
+        assert not bool(got.any())
 
 
 def _host_k7t(lib, tables, mid, wi, x, g_f, sample, full, g_pdf=None, g_wo=None, limit=-1,

@@ -54,10 +54,21 @@
 //   is the lanes' sum: per thread, then per block (one atomicAdd per block
 //   and channel). Where the map's rotation is on the tape, each lane's term
 //   of its cotangent (that of dm = R(conj q) d with respect to q) is summed
-//   per thread and per block in the same way.
+//   per thread and per block in the same way. Under a lane mask (K8's
+//   masked lanes, whose radiance is a constant) a lane outside it carries
+//   no cotangent and gets g_d = 0.
 // K8T's sample, wpt_env_sample_bwd: the backward of K8's sample
 //   (envmap.py:201-234) into the rotation, dir = R(q) d_map with d_map
-//   recomputed from the uniforms, reduced as above; the pdf carries none.
+//   recomputed from the uniforms; the pdf carries none. Each lane's term
+//   lands on the same 4 words: a block of 256 lanes once added its sum by
+//   4 scalar atomics, ~4096 on one address for a frame's lanes, and every
+//   lane recomputed its sample, though a render's NEE directions carry a
+//   cotangent on a few per cent of the lanes. Now the launch is persistent
+//   (a chunk of lanes a block of 1024 threads), a lane whose cotangent is
+//   zero is skipped before its uniforms are read, each block leaves its sum
+//   in a partial, and the last block to finish sums the partials in block
+//   order (env_sample_bwd_lanes): no atomic on the output, which needs no
+//   zeroing launch, and the same sum in every run.
 // K7T, wpt_rgl_bwd: the backward of K7's eval or sample (materials/rgl.py
 //   rgl_eval :633, rgl_sample :650 of the JAX package, through its autodiff).
 //   A thread per lane (rgl_bwd_kernel<SAMPLE, FULL, SHARED>,
@@ -95,8 +106,6 @@
 
 namespace {
 
-constexpr int BLOCK = 256;
-
 template <int COPIES>
 __global__ void __launch_bounds__(wpt_bwd::SCATTER_BLOCK)
 row_scatter_kernel(const float* __restrict__ g, const int* __restrict__ idx, int n, int cols,
@@ -118,21 +127,21 @@ __global__ void __launch_bounds__(wpt_bwd::SKY_BLOCK)
 env_radiance_bwd_kernel(const float* __restrict__ d, int n, int kind,
                         const float4* __restrict__ img, int h, int w,
                         const float* __restrict__ rot, const float* __restrict__ g,
-                        float* __restrict__ g_d, float* __restrict__ g_img,
-                        float* __restrict__ g_const, float* __restrict__ g_rot, int chunk) {
-    wpt_bwd::env_radiance_bwd_lanes<ROT>(d, n, kind, img, h, w, rot, g, g_d, g_img, g_const,
-                                         g_rot, chunk);
+                        const bool* __restrict__ active, float* __restrict__ g_d,
+                        float* __restrict__ g_img, float* __restrict__ g_const,
+                        float* __restrict__ g_rot, int chunk) {
+    wpt_bwd::env_radiance_bwd_lanes<ROT>(d, n, kind, img, h, w, rot, g, active, g_d, g_img,
+                                         g_const, g_rot, chunk);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(wpt_bwd::SAMPLE_BLOCK)
 env_sample_bwd_kernel(const float* __restrict__ u3, int n, const float* __restrict__ pdf,
                       const float* __restrict__ alias_prob, const int* __restrict__ alias_idx,
                       int res, const float* __restrict__ rot, const float* __restrict__ g_dir,
-                      float* __restrict__ g_rot) {
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < n) q = wpt_bwd::env_sample_bwd_lane(i, u3, pdf, alias_prob, alias_idx, res, rot, g_dir);
-    wpt_bwd::block_add4<BLOCK>(q, g_rot);
+                      const bool* __restrict__ active, float4* __restrict__ partial,
+                      unsigned* __restrict__ done, float* __restrict__ g_rot, int chunk) {
+    wpt_bwd::env_sample_bwd_lanes(u3, n, pdf, alias_prob, alias_idx, res, rot, g_dir, active,
+                                  partial, done, g_rot, chunk);
 }
 
 template <bool SAMPLE, bool FULL, bool SHARED>
@@ -146,19 +155,33 @@ rgl_bwd_kernel(RglTables t, RglOut out, const int* __restrict__ mids,
                                                  acc);
 }
 
-inline int blocks(long long n) { return static_cast<int>((n + BLOCK - 1) / BLOCK); }
-
 // The blocks of `kernel` (`threads` each, `smem` bytes of dynamic shared
 // memory, at most 48 KB) resident on the device at once: a persistent
-// launch's grid.
+// launch's grid. Cached per kernel, dynamic shared memory and device, so
+// that only a kernel's first launch queries the occupancy.
 template <class K>
 int resident_blocks(K kernel, int threads, long long smem) {
-    int dev = 0, sms = 1, per = 0;
+    constexpr int SLOTS = 64;
+    struct Slot {
+        const void* kernel;
+        long long smem;
+        int dev, blocks;
+    };
+    static Slot slots[SLOTS];
+    static int used = 0;
+    int dev = 0;
     cudaGetDevice(&dev);
+    const void* key = reinterpret_cast<const void*>(kernel);
+    for (int k = 0; k < used; ++k)
+        if (slots[k].kernel == key && slots[k].smem == smem && slots[k].dev == dev)
+            return slots[k].blocks;
+    int sms = 1, per = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
                                                   static_cast<size_t>(smem));
-    return max(per, 1) * sms;   // none fit: the launch fails and reports it
+    const int blocks = max(per, 1) * sms;   // none fit: the launch fails and reports it
+    if (per > 0 && used < SLOTS) slots[used++] = Slot{key, smem, dev, blocks};
+    return blocks;
 }
 
 // K3T (K3aT with ANIM): its tables (and K3aT's rows of one instant) summed
@@ -187,14 +210,14 @@ int launch_assemble_hit_bwd(const wpt_bwd::HitIn& in, const wpt_bwd::Tables& tb,
 
 template <bool ROT>
 void launch_env_radiance_bwd(const float* d, int n, int kind, const float4* img, int h, int w,
-                             const float* rot, const float* g, float* g_d, float* g_img,
-                             float* g_const, float* g_rot, cudaStream_t s) {
+                             const float* rot, const float* g, const bool* active, float* g_d,
+                             float* g_img, float* g_const, float* g_rot, cudaStream_t s) {
     constexpr int T = wpt_bwd::SKY_BLOCK;
     int chunk = 0;
     const int grid = wpt_bwd::chunked_grid(
         n, resident_blocks(env_radiance_bwd_kernel<ROT>, T, 0), T, &chunk);
-    env_radiance_bwd_kernel<ROT><<<grid, T, 0, s>>>(d, n, kind, img, h, w, rot, g, g_d, g_img,
-                                                    g_const, g_rot, chunk);
+    env_radiance_bwd_kernel<ROT><<<grid, T, 0, s>>>(d, n, kind, img, h, w, rot, g, active, g_d,
+                                                    g_img, g_const, g_rot, chunk);
 }
 
 template <int COPIES>
@@ -296,31 +319,45 @@ extern "C" int wpt_assemble_hit_anim_bwd(
 // g_img and g_const are zeroed by the caller; g_rot: the rotation's
 // cotangent [4] (zeroed by the caller), or null where the rotation carries
 // none: then the launch skips the rotation's term and its reduction.
+// active: a bool per lane (a lane outside it carries no cotangent and gets
+// g_d = 0), or null for every lane.
 extern "C" int wpt_env_radiance_bwd(const float* d, int n, int kind, const float* img, int h,
-                                    int w, const float* rot, const float* g, float* g_d,
-                                    float* g_img, float* g_const, float* g_rot, void* stream) {
+                                    int w, const float* rot, const float* g, const bool* active,
+                                    float* g_d, float* g_img, float* g_const, float* g_rot,
+                                    void* stream) {
     if (n > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
         const float4* im = reinterpret_cast<const float4*>(img);
         if (g_rot != nullptr && kind != 3)
-            launch_env_radiance_bwd<true>(d, n, kind, im, h, w, rot, g, g_d, g_img, g_const,
-                                          g_rot, s);
+            launch_env_radiance_bwd<true>(d, n, kind, im, h, w, rot, g, active, g_d, g_img,
+                                          g_const, g_rot, s);
         else
-            launch_env_radiance_bwd<false>(d, n, kind, im, h, w, rot, g, g_d, g_img, g_const,
-                                           g_rot, s);
+            launch_env_radiance_bwd<false>(d, n, kind, im, h, w, rot, g, active, g_d, g_img,
+                                           g_const, g_rot, s);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-// The sample's backward: the rotation's cotangent g_rot [4] (zeroed by the
-// caller) from that of the sampled directions g_dir [N, 3].
+// The sample's backward: the rotation's cotangent g_rot [4] (written; 0
+// for n = 0) from that of the sampled directions g_dir [N, 3] on the lanes
+// of `active` (a bool per lane, or null for every lane). partial: room for
+// `blocks` per-block sums (16 B each); done: a counter that is 0 at the
+// call and 0 again after it (one per stream).
 extern "C" int wpt_env_sample_bwd(const float* u3, int n, const float* pdf,
                                   const float* alias_prob, const int* alias_idx, int res,
-                                  const float* rot, const float* g_dir, float* g_rot,
+                                  const float* rot, const float* g_dir, const bool* active,
+                                  float* partial, int blocks, unsigned* done, float* g_rot,
                                   void* stream) {
-    if (n > 0)
-        env_sample_bwd_kernel<<<blocks(n), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            u3, n, pdf, alias_prob, alias_idx, res, rot, g_dir, g_rot);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n <= 0) return static_cast<int>(cudaMemsetAsync(g_rot, 0, 4 * sizeof(float), s));
+    constexpr int T = wpt_bwd::SAMPLE_BLOCK;
+    int chunk = 0;
+    const int grid =
+        wpt_bwd::chunked_grid(n, resident_blocks(env_sample_bwd_kernel, T, 0), T, &chunk);
+    if (grid > blocks) return static_cast<int>(cudaErrorInvalidValue);
+    env_sample_bwd_kernel<<<grid, T, 0, s>>>(u3, n, pdf, alias_prob, alias_idx, res, rot, g_dir,
+                                             active, reinterpret_cast<float4*>(partial), done,
+                                             g_rot, chunk);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,9 @@
 // sums: K3T and K7T into a block-private copy of their tables in shared
 // memory where they fit (its nonzero words added to the tables at the
 // end), else into the tables; K8T into the map with one float4 atomic a
-// texel.
+// texel. K8T's sample backward sums its lanes' rotation terms per thread
+// and per block (env_sample_bwd_lanes), skipping the lanes whose cotangent
+// is zero, and the last block to finish sums the blocks' partials.
 // Float atomics make the sums' order vary from run to run (the checks hold
 // them to a tolerance relative to the sum of the terms' magnitudes).
 #pragma once
@@ -525,18 +527,17 @@ __device__ __forceinline__ float4 env_radiance_bwd_lane(int i, const float* d, i
 
 // The sample's backward for lane i (render/backward.py env_sample_bwd_plain):
 // the lane's term of the rotation's cotangent, that of dir = quat_rotate(q,
-// d_map) with respect to q, d_map the sample's map-space direction
-// recomputed from the uniforms u3 (envmap_common.cuh sample_map); the pdf
-// carries none.
+// d_map) with respect to q, from the direction's cotangent g, d_map the
+// sample's map-space direction recomputed from the uniforms u3
+// (envmap_common.cuh sample_map); the pdf carries none.
 __device__ __forceinline__ float4 env_sample_bwd_lane(int i, const float* u3, const float* pdf,
                                                       const float* alias_prob,
                                                       const int* alias_idx, int res,
-                                                      const float* rot, const float* g_dir) {
+                                                      const float* rot, V3 g) {
     float3 dm;
     wpt_env::sample_map(u3[3 * i], u3[3 * i + 1], u3[3 * i + 2], pdf, alias_prob, alias_idx, res,
                         &dm);
-    return quat_rotate_bwd_q({rot[0], rot[1], rot[2]}, rot[3], {dm.x, dm.y, dm.z},
-                             load3(g_dir + 3 * i));
+    return quat_rotate_bwd_q({rot[0], rot[1], rot[2]}, rot[3], {dm.x, dm.y, dm.z}, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -604,11 +605,11 @@ __device__ __forceinline__ bool group_sum(int key, float (&v)[N]) {
     return group_add(group_of(key), v);
 }
 
-// Adds v, summed over the block of B threads, to out[0..3]: shuffles within
-// each warp, the warps' sums in shared memory, one atomicAdd per nonzero
-// component from thread 0. Every thread of the block calls it, last.
+// v summed over the block of B threads, in thread 0 (the other threads get
+// their own v back): shuffles within each warp, the warps' sums in shared
+// memory. Every thread of the block calls it.
 template <int B>
-__device__ __forceinline__ void block_add4(float4 v, float* out) {
+__device__ __forceinline__ float4 block_sum4(float4 v) {
     __shared__ float4 part[B / 32];
     for (int off = 16; off > 0; off >>= 1) {
         v.x += __shfl_xor_sync(FULL_MASK, v.x, off);
@@ -618,7 +619,7 @@ __device__ __forceinline__ void block_add4(float4 v, float* out) {
     }
     if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
     __syncthreads();
-    if (threadIdx.x != 0) return;
+    if (threadIdx.x != 0) return v;
     float4 s = part[0];
     for (int k = 1; k < B / 32; ++k) {
         s.x += part[k].x;
@@ -626,6 +627,16 @@ __device__ __forceinline__ void block_add4(float4 v, float* out) {
         s.z += part[k].z;
         s.w += part[k].w;
     }
+    return s;
+}
+
+// Adds v, summed over the block of B threads (block_sum4), to out[0..3]:
+// one atomicAdd per nonzero component from thread 0. Every thread of the
+// block calls it, last.
+template <int B>
+__device__ __forceinline__ void block_add4(float4 v, float* out) {
+    const float4 s = block_sum4<B>(v);
+    if (threadIdx.x != 0) return;
     add1(out, s.x);
     add1(out + 1, s.y);
     add1(out + 2, s.z);
@@ -741,23 +752,27 @@ __device__ __forceinline__ void assemble_hit_bwd_lanes(const HitIn& in, const Ta
 // texel's 4 words by one vector atomic. ROT: the lanes' rotation terms
 // summed per thread, then per block (block_add4). A constant sky (kind 3):
 // g_d = 0 and the lanes' cotangents summed per thread, then per block into
-// g_const. Every thread calls it.
+// g_const. `active` (or null: every lane): a lane outside it carries no
+// cotangent (K8's masked lanes write constants) and gets g_d = 0. Every
+// thread calls it.
 template <bool ROT>
 __device__ __forceinline__ void env_radiance_bwd_lanes(const float* d, int n, int kind,
                                                        const float4* img, int h, int w,
                                                        const float* rot, const float* g,
-                                                       float* g_d, float* g_img, float* g_const,
+                                                       const bool* active, float* g_d,
+                                                       float* g_img, float* g_const,
                                                        float* g_rot, int chunk) {
     const int start = blockIdx.x * chunk;
     const int end = min(n, start + chunk);
     if (kind == 3) {   // g_rot stays 0
         float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int i = start + static_cast<int>(threadIdx.x); i < end; i += SKY_BLOCK) {
+            store3(g_d + 3 * i, {0.f, 0.f, 0.f});
+            if (active != nullptr && !active[i]) continue;
             s.x += g[4 * i];
             s.y += g[4 * i + 1];
             s.z += g[4 * i + 2];
             s.w += g[4 * i + 3];
-            store3(g_d + 3 * i, {0.f, 0.f, 0.f});
         }
         block_add4<SKY_BLOCK>(s, g_const);
         return;
@@ -768,7 +783,9 @@ __device__ __forceinline__ void env_radiance_bwd_lanes(const float* d, int n, in
         SkyTaps t;
         for (int j = 0; j < 16; ++j) t.v[j] = 0.f;
         int cell = -1;
-        if (i < end) {
+        if (i < end && active != nullptr && !active[i]) {
+            store3(g_d + 3 * i, {0.f, 0.f, 0.f});
+        } else if (i < end) {
             const float4 qi = env_radiance_bwd_lane<ROT>(i, d, kind, img, h, w, rot, g, g_d, t);
             q.x += qi.x;
             q.y += qi.y;
@@ -784,6 +801,64 @@ __device__ __forceinline__ void env_radiance_bwd_lanes(const float* d, int n, in
             }
     }
     if (ROT) block_add4<SKY_BLOCK>(q, g_rot);
+}
+
+constexpr int SAMPLE_BLOCK = 1024;   // K8T's sample backward's threads a block
+
+// K8T's sample backward over the block's chunk of lanes [blockIdx.x chunk,
+// + chunk): a lane outside `active` (where given: K8's masked lanes, whose
+// direction is a constant) or whose direction's cotangent is zero in all
+// three words adds nothing and is skipped before its uniforms and tables
+// are read (a render's NEE directions carry a cotangent on a few lanes); the
+// others' rotation terms (env_sample_bwd_lane) are summed per thread, then
+// per block into partial[blockIdx.x]. The block that finishes last (`done`
+// counts the finished blocks; it is 0 at the launch and reset to 0 here)
+// sums the grid's partials in block order and writes g_rot: no float
+// atomic, no zeroed output, the same sum in every run. Every thread calls
+// it.
+__device__ __forceinline__ void env_sample_bwd_lanes(const float* u3, int n, const float* pdf,
+                                                     const float* alias_prob,
+                                                     const int* alias_idx, int res,
+                                                     const float* rot, const float* g_dir,
+                                                     const bool* active, float4* partial,
+                                                     unsigned* done, float* g_rot, int chunk) {
+    __shared__ bool last;
+    const int start = blockIdx.x * chunk;
+    const int end = min(n, start + chunk);
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = start + static_cast<int>(threadIdx.x); i < end; i += SAMPLE_BLOCK) {
+        if (active != nullptr && !active[i]) continue;   // a masked lane's constant direction
+        const V3 g = load3(g_dir + 3 * i);
+        if (g.x == 0.f && g.y == 0.f && g.z == 0.f) continue;
+        const float4 qi = env_sample_bwd_lane(i, u3, pdf, alias_prob, alias_idx, res, rot, g);
+        q.x += qi.x;
+        q.y += qi.y;
+        q.z += qi.z;
+        q.w += qi.w;
+    }
+    const float4 s = block_sum4<SAMPLE_BLOCK>(q);
+    if (threadIdx.x == 0) {
+        partial[blockIdx.x] = s;
+        __threadfence();   // the partial is seen by the block that counts last
+        last = atomicAdd(done, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += SAMPLE_BLOCK) {
+        const float4 p = __ldcg(partial + b);
+        t.x += p.x;
+        t.y += p.y;
+        t.z += p.z;
+        t.w += p.w;
+    }
+    t = block_sum4<SAMPLE_BLOCK>(t);
+    if (threadIdx.x != 0) return;
+    g_rot[0] = t.x;
+    g_rot[1] = t.y;
+    g_rot[2] = t.z;
+    g_rot[3] = t.w;
+    *done = 0u;
 }
 
 // ---------------------------------------------------------------------------

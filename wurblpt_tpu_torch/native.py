@@ -53,8 +53,9 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fno-exceptions", "-ffp-
 
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_anim": 0,
             "assemble_hit_k4": 0, "assemble_hit_k4_anim": 0, "sweep_closest": 0, "sweep_any": 0,
-            "bvh_closest_hit": 0, "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0, "env_pdf": 0, "rgl_eval": 0,
-            "rgl_sample": 0, "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
+            "bvh_closest_hit": 0, "bvh_any_hit": 0, "env_radiance": 0, "env_sample": 0,
+            "env_pdf": 0, "env_miss": 0, "env_nee": 0, "rgl_eval": 0, "rgl_sample": 0,
+            "row_gather": 0, "regen_pinhole": 0, "regen_surround": 0,
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0,
             "row_scatter": 0, "assemble_hit_bwd": 0, "assemble_hit_anim_bwd": 0,
             "env_radiance_bwd": 0, "env_radiance_bwd_rot": 0, "env_sample_bwd": 0, "rgl_bwd": 0,
@@ -89,9 +90,7 @@ _SIGNATURES = {
                         _P],
     "wpt_bvh_any_threads": [_I, _I],
     "wpt_bvh_any_budget": [_I],
-    "wpt_env_radiance": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
-    "wpt_env_sample": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
-    "wpt_env_pdf": [_P, _I, _P, _I, _P, _P, _P],
+    "wpt_env_lanes": [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "wpt_rgl_eval": [_P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_sample": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "wpt_row_gather": [_P, _I, _I, _P, _I, _P, _P],
@@ -111,8 +110,8 @@ _SIGNATURES = {
     "wpt_assemble_hit_bwd": [_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 12,
     "wpt_assemble_hit_anim_bwd": ([_P] * 7 + [_I, _P, _P, _P, _I, _P, _I] + [_P] * 11
                                   + [_P, _P, _P, _L, _I, _P, _P]),
-    "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "wpt_env_sample_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "wpt_env_sample_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 

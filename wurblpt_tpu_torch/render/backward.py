@@ -38,7 +38,13 @@ kernel of its own (``csrc/backward.cu``) with a plain PyTorch version:
   them: K3T per block in shared memory where its tables fit 48 KB, else to
   the tables; K8T to the map. K8T's sample backward (`env_sample_bwd`):
   the cotangent of the rotation from that of env_sample's direction R(q)
-  d_map (the pdf carries none).
+  d_map (the pdf carries none); its kernel skips the lanes whose cotangent
+  is zero. The generic bounce's K8 pairs (`envmap.env_miss_lanes`,
+  `env_nee_lanes`: one launch each under a lane mask) go on the tape as
+  `EnvMiss` (K8T on the radiance) and `EnvNee` (K8T on the radiance at the
+  sampled directions, then the sample's backward on the directions'
+  cotangent plus K8T's); a masked lane's outputs are constants, so both
+  kernels take the mask and give such a lane no cotangent.
 * K7T (`rgl_bwd`): K7's eval or sample (the measured RGL BRDF). Its tail
   form, where only the tables its reflectance tail reads are on the tape,
   max(rgb, 0) x ndf / max(4 sigma, 1e-12) (`materials.rgl.TAIL_TABLES`):
@@ -598,13 +604,34 @@ def env_radiance_bwd_plain(env, d, g, magnitudes: bool = False):
     return out
 
 
-def env_radiance_bwd(env, d, g, *, rotation: bool):
+def _masked(g, active):
+    """g [N, C] with the rows of lanes outside `active` (where given) zeroed:
+    a masked lane's outputs are constants (the plain versions' mask)."""
+    return g if active is None else torch.where(active[:, None], g, 0.0)
+
+
+def _active_ptr(active, n: int, x):
+    """The kernels' lane mask: a contiguous bool [n] on x's device, or None."""
+    if active is None:
+        return None
+    if (active.dtype != torch.bool or tuple(active.shape) != (n,) or not active.is_contiguous()
+            or active.device != x.device):
+        raise ValueError(f"need a contiguous bool mask ({n},) on {x.device}, got "
+                         f"{active.dtype} {tuple(active.shape)} on {active.device}")
+    return active.data_ptr()
+
+
+def env_radiance_bwd(env, d, g, *, rotation: bool, active=None):
     """K8T: `env_radiance_bwd_plain`'s function, the kernel on CUDA tensors:
     with `rotation` its rotation term too (counter env_radiance_bwd_rot),
-    without it the kernel that skips that term (g_rotation None)."""
+    without it the kernel that skips that term (g_rotation None). `active`
+    [N] (bool) where given: a lane outside it carries no cotangent (a
+    masked lane of K8, whose radiance is a constant) and gets g_d = 0."""
     g = g.contiguous()
     if d.device.type == "cpu":
-        out = env_radiance_bwd_plain(env, d, g)
+        out = env_radiance_bwd_plain(env, d, _masked(g, active))
+        if active is not None:
+            out = (_masked(out[0], active), *out[1:])
         return out if rotation else (*out[:3], None)
     lib = _cuda_lib("env_radiance_bwd", d)
     n = d.shape[0]
@@ -615,7 +642,8 @@ def env_radiance_bwd(env, d, g, *, rotation: bool):
     h, w = env.image.shape[-3], env.image.shape[-2]
     code = lib.wpt_env_radiance_bwd(d.data_ptr(), n, env.kind, env.image.data_ptr(), h, w,
                                     env.rotation.detach().contiguous().data_ptr(), g.data_ptr(),
-                                    g_d.data_ptr(), g_img.data_ptr(), g_const.data_ptr(),
+                                    _active_ptr(active, n, d), g_d.data_ptr(), g_img.data_ptr(),
+                                    g_const.data_ptr(),
                                     None if g_rot is None else g_rot.data_ptr(),
                                     native.stream_ptr(d))
     native.check(code, "env_radiance_bwd")
@@ -627,17 +655,41 @@ class EnvRadiance(torch.autograd.Function):
     """K8 radiance forward, K8T backward."""
 
     @staticmethod
-    def forward(ctx, env, d, image, const_radiance, rotation):
+    def forward(ctx, env, d, active, image, const_radiance, rotation):
         ctx.env = env
-        ctx.save_for_backward(d)
-        return _env.env_radiance_raw(env, d)
+        ctx.save_for_backward(d, active)
+        return _env.env_radiance_raw(env, d, active)
 
     @staticmethod
     def backward(ctx, g):
-        (d,) = ctx.saved_tensors
+        d, active = ctx.saved_tensors
         g_d, g_img, g_const, g_rot = env_radiance_bwd(ctx.env, d, g,
-                                                      rotation=ctx.needs_input_grad[4])
-        return None, g_d, g_img, g_const, g_rot
+                                                      rotation=ctx.needs_input_grad[5],
+                                                      active=active)
+        return None, g_d, None, g_img, g_const, g_rot
+
+
+class EnvMiss(torch.autograd.Function):
+    """K8's (radiance, pdf) of given directions in one launch forward
+    (`envmap.env_miss_raw`), K8T backward: the radiance's, as EnvRadiance's;
+    the pdf carries none."""
+
+    @staticmethod
+    def forward(ctx, env, d, active, pdf, image, const_radiance, rotation):
+        ctx.env = env
+        ctx.save_for_backward(d, active)
+        rad, p = _env.env_miss_raw(env, d, active, pdf)
+        if p is not None:
+            ctx.mark_non_differentiable(p)
+        return rad, p
+
+    @staticmethod
+    def backward(ctx, g, _g_pdf):
+        d, active = ctx.saved_tensors
+        g_d, g_img, g_const, g_rot = env_radiance_bwd(ctx.env, d, g,
+                                                      rotation=ctx.needs_input_grad[6],
+                                                      active=active)
+        return None, g_d, None, None, g_img, g_const, g_rot
 
 
 def env_sample_bwd_plain(env, u3, g_dir, magnitudes: bool = False):
@@ -652,19 +704,39 @@ def env_sample_bwd_plain(env, u3, g_dir, magnitudes: bool = False):
     return (g_q.sum(0), g_q.abs().sum(0)) if magnitudes else g_q.sum(0)
 
 
-def env_sample_bwd(env, u3, g_dir):
+# K8T's sample backward's scratch per (device, stream): room for the
+# per-block partial sums and the count of finished blocks, which each
+# launch leaves at 0 (zeroed once, here).
+_SAMPLE_BLOCKS = 4096
+_SAMPLE_SCRATCH = {}
+
+
+def env_sample_bwd(env, u3, g_dir, active=None):
     """K8T's sample backward: `env_sample_bwd_plain`'s function, the kernel
-    on CUDA tensors."""
+    on CUDA tensors; `active` [N] (bool) where given: a lane outside it
+    carries no cotangent (a masked lane of K8, whose direction is a
+    constant)."""
     g_dir = g_dir.contiguous()
     if u3.device.type == "cpu":
-        return env_sample_bwd_plain(env, u3, g_dir)
+        return env_sample_bwd_plain(env, u3, _masked(g_dir, active))
     lib = _cuda_lib("env_sample_bwd", u3)
-    g_rot = torch.zeros((4,), dtype=torch.float32, device=u3.device)
+    if u3.shape[0] == 0:
+        return torch.zeros((4,), dtype=torch.float32, device=u3.device)
+    stream = native.stream_ptr(u3)
+    key = (u3.device, stream)
+    if key not in _SAMPLE_SCRATCH:
+        _SAMPLE_SCRATCH[key] = (
+            torch.empty((_SAMPLE_BLOCKS, 4), dtype=torch.float32, device=u3.device),
+            torch.zeros((1,), dtype=torch.int32, device=u3.device))
+    partial, done = _SAMPLE_SCRATCH[key]
+    g_rot = torch.empty((4,), dtype=torch.float32, device=u3.device)
     code = lib.wpt_env_sample_bwd(u3.data_ptr(), u3.shape[0], env.pdf_table.data_ptr(),
                                   env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
                                   env.pdf_table.shape[0],
                                   env.rotation.detach().contiguous().data_ptr(), g_dir.data_ptr(),
-                                  g_rot.data_ptr(), native.stream_ptr(u3))
+                                  _active_ptr(active, u3.shape[0], u3), partial.data_ptr(),
+                                  _SAMPLE_BLOCKS, done.data_ptr(),
+                                  g_rot.data_ptr(), stream)
     native.check(code, "env_sample_bwd")
     native.LAUNCHES["env_sample_bwd"] += 1
     return g_rot
@@ -675,14 +747,50 @@ class EnvSample(torch.autograd.Function):
     into the rotation; the pdf, a table lookup, carries none."""
 
     @staticmethod
-    def forward(ctx, env, u3, rotation):
-        d, pdf = _env.env_sample_raw(env, u3)
+    def forward(ctx, env, u3, active, rotation):
+        d, pdf = _env.env_sample_raw(env, u3, active)
         ctx.env = env
-        ctx.save_for_backward(u3)
+        ctx.save_for_backward(u3, active)
         ctx.mark_non_differentiable(pdf)
         return d, pdf
 
     @staticmethod
     def backward(ctx, g_dir, _g_pdf):
-        (u3,) = ctx.saved_tensors
-        return None, None, env_sample_bwd(ctx.env, u3, g_dir)
+        u3, active = ctx.saved_tensors
+        return None, None, None, env_sample_bwd(ctx.env, u3, g_dir, active)
+
+
+class EnvNee(torch.autograd.Function):
+    """K8's (direction, pdf, radiance) of an importance sample in one launch
+    forward (`envmap.env_nee_raw`). Backward: K8T on the radiance's
+    cotangent at the sampled directions (with its rotation term where the
+    rotation is on the tape), then, where it is, K8T's sample backward on
+    the directions' cotangent plus K8T's: the rotation's two terms, as the
+    sample followed by a lookup of its direction gives them. The
+    direction carries a cotangent only where the rotation requires grad;
+    the pdf carries none."""
+
+    @staticmethod
+    def forward(ctx, env, u3, active, image, const_radiance, rotation):
+        d, pdf, rad = _env.env_nee_raw(env, u3, active)
+        ctx.env = env
+        ctx.save_for_backward(u3, active, d)
+        ctx.mark_non_differentiable(pdf)
+        if not ctx.needs_input_grad[5]:
+            ctx.mark_non_differentiable(d)
+        return d, pdf, rad
+
+    @staticmethod
+    def backward(ctx, g_dir, _g_pdf, g_rad):
+        u3, active, d = ctx.saved_tensors
+        rotation = ctx.needs_input_grad[5]
+        g_img = g_const = g_rot = None
+        if g_rad is not None:
+            g_d, g_img, g_const, g_rot = env_radiance_bwd(ctx.env, d, g_rad, rotation=rotation,
+                                                          active=active)
+            if rotation:
+                g_dir = g_d if g_dir is None else g_dir + g_d
+        if rotation and g_dir is not None:
+            g_s = env_sample_bwd(ctx.env, u3, g_dir, active)
+            g_rot = g_s if g_rot is None else g_rot + g_s
+        return None, None, None, g_img, g_const, g_rot

@@ -1,22 +1,28 @@
 """Environment maps: radiance lookup and importance sampling (port of
 ``wurblpt_tpu/render/envmap.py``: the equirect, cube and constant maps).
 
-K8 is three entry points of one hand-written CUDA source
-(``csrc/envmap.cu``): `env_radiance` (the equirect map's bilinear lookup,
-wrap in u, clamp in v; the cube map's face pick and per-face bilinear lookup
-with edge clamp; the constant map's radiance), `env_sample` (alias-table
-pick of a cell of the R x R equal-area grid, then a uniform point in it)
-and `env_pdf` (the pdf table at a direction's cell). Sampling and pdf do not
-depend on the map's parameterization. Each wrapper launches the kernel on
-CUDA tensors and runs its plain PyTorch version (`*_plain`, the JAX formulas
-op for op) on CPU tensors. Where the direction, the image, the constant
-radiance or the map's rotation requires grad, `env_radiance` runs on the
-tape through `backward.EnvRadiance` (its backward is K8T); where the
-rotation requires grad, so does `env_sample`'s direction
-(`backward.EnvSample`). The pdfs carry no gradient: the sample's is a
-lookup in the importance tables, which are not re-derived inside a loss
-(nor are the JAX package's), and `env_pdf` is piecewise constant in its
-direction.
+K8 is one hand-written CUDA kernel (``csrc/envmap.cu`` `env_lanes_kernel`)
+behind five entry points: `env_radiance` (the equirect map's bilinear
+lookup, wrap in u, clamp in v; the cube map's face pick and per-face
+bilinear lookup with edge clamp; the constant map's radiance), `env_sample`
+(alias-table pick of a cell of the R x R equal-area grid, then a uniform
+point in it) and `env_pdf` (the pdf table at a direction's cell), and the
+two pairs that a bounce of the generic path asks for: `env_miss_lanes`
+(radiance and pdf of given directions) and `env_nee_lanes` (a sample and
+the radiance of its direction), one launch each. Sampling and pdf do not
+depend on the map's parameterization. Each takes an optional `active` mask
+[N]: a lane outside it does no lookup, its radiance is 0, its pdf 0 and its
+sampled direction `skipped_direction` (the map's +z axis), a constant under
+autograd; without a mask every lane is computed. Each wrapper launches the kernel on CUDA
+tensors and runs its plain PyTorch version (`*_plain`, the JAX formulas op
+for op, the pairs the single versions in turn) on CPU tensors. Where the
+direction, the image, the constant radiance or the map's rotation requires
+grad, a radiance is on the tape through `backward.EnvRadiance`, `EnvMiss`
+or `EnvNee` (its backward is K8T); where the rotation requires grad, so is
+a sampled direction (`backward.EnvSample`, `EnvNee`: K8T's sample
+backward). The pdfs carry no gradient: the sample's is a lookup in the
+importance tables, which are not re-derived inside a loss (nor are the JAX
+package's), and `env_pdf` is piecewise constant in its direction.
 
 The JAX package reads the four bilinear taps from a 16-channel "patch image"
 so that one TPU gather serves them; the kernel and the plain versions read
@@ -40,6 +46,9 @@ from ..scene.ir import EnvMapArrays
 
 _TWO_PI = 2.0 * math.pi
 _FOUR_PI = 4.0 * math.pi
+# The sampled direction of a lane outside a sample's `active` mask: the
+# map's +z axis, turned into the world by its rotation (`skipped_direction`).
+SKIPPED_MAP_DIRECTION = (0.0, 0.0, 1.0)
 
 
 class EnvironmentMapEquiRect(NamedTuple):
@@ -160,8 +169,14 @@ def _cube_lookup(img, d):
     return (c00 * (1 - a) + c10 * a) * (1 - b) + (c01 * (1 - a) + c11 * a) * b
 
 
-def env_radiance_plain(env: EnvMapArrays, d):
-    """Plain version of K8 radiance: [N, 4] radiance arriving from world directions d [N, 3]."""
+def env_radiance_plain(env: EnvMapArrays, d, active=None):
+    """Plain version of K8 radiance: [N, 4] radiance arriving from world
+    directions d [N, 3]; 0 on the lanes outside `active` [N] (bool) where
+    given."""
+    if active is not None:
+        out = torch.zeros((d.shape[0], 4), dtype=torch.float32, device=d.device)
+        out[active] = env_radiance_plain(env, d[active])
+        return out
     if env.kind == 3:
         return env.const_radiance.expand(d.shape[0], 4).contiguous()
     dm = quat_rotate(quat_conjugate(env.rotation), d)
@@ -171,9 +186,17 @@ def env_radiance_plain(env: EnvMapArrays, d):
     return _bilinear_wrap(env.image, u, v)
 
 
-def env_sample_plain(env: EnvMapArrays, u3):
+def env_sample_plain(env: EnvMapArrays, u3, active=None):
     """Plain version of K8 sample: (world direction [N, 3], solid-angle pdf [N])
-    from uniforms u3 [N, 3] (cell pick by u3[:, 0], position in it by the rest)."""
+    from uniforms u3 [N, 3] (cell pick by u3[:, 0], position in it by the
+    rest); on the lanes outside `active` where given, skipped_direction and
+    pdf 0."""
+    if active is not None:
+        n = u3.shape[0]
+        d = skipped_direction(env).repeat(n, 1)
+        pdf = torch.zeros((n,), dtype=torch.float32, device=u3.device)
+        d[active], pdf[active] = env_sample_plain(env, u3[active])
+        return d, pdf
     res = env.pdf_table.shape[0]
     n = res * res
     pdf_flat = env.pdf_table.reshape(n)
@@ -189,8 +212,23 @@ def env_sample_plain(env: EnvMapArrays, u3):
     return quat_rotate(env.rotation, square_to_sphere(torch.stack([u, v], -1))), pdf
 
 
-def env_pdf_plain(env: EnvMapArrays, d):
-    """Plain version of K8 pdf: solid-angle pdf [N] of env_sample giving direction d."""
+def skipped_direction(env: EnvMapArrays):
+    """[1, 3]: the sampled direction of a lane outside a sample's mask, the
+    map's +z axis in the world (quat_rotate(q, (0, 0, 1)), q detached: a
+    constant under autograd). A lookup there has a regular backward (no
+    pole of the equirect map, whatever q), so a masked lane's zero
+    cotangent stays finite."""
+    z = torch.tensor([SKIPPED_MAP_DIRECTION], dtype=torch.float32, device=env.rotation.device)
+    return quat_rotate(env.rotation.detach(), z)
+
+
+def env_pdf_plain(env: EnvMapArrays, d, active=None):
+    """Plain version of K8 pdf: solid-angle pdf [N] of env_sample giving
+    direction d; 0 on the lanes outside `active` where given."""
+    if active is not None:
+        out = torch.zeros((d.shape[0],), dtype=torch.float32, device=d.device)
+        out[active] = env_pdf_plain(env, d[active])
+        return out
     res = env.pdf_table.shape[0]
     uv = sphere_to_square(quat_rotate(quat_conjugate(env.rotation), d))
     cj = torch.clamp((uv[:, 0] * res).to(torch.int32), 0, res - 1).long()
@@ -198,7 +236,21 @@ def env_pdf_plain(env: EnvMapArrays, d):
     return env.pdf_table[ci, cj]
 
 
-def _check(name, env: EnvMapArrays, x, cols):
+def env_miss_plain(env: EnvMapArrays, d, active=None, pdf: bool = True):
+    """Plain version of `env_miss_lanes`: (env_radiance_plain, env_pdf_plain
+    or None without `pdf`) of the same lanes."""
+    return (env_radiance_plain(env, d, active),
+            env_pdf_plain(env, d, active) if pdf else None)
+
+
+def env_nee_plain(env: EnvMapArrays, u3, active=None):
+    """Plain version of `env_nee_lanes`: env_sample_plain's (direction, pdf),
+    then env_radiance_plain of that direction on the same lanes."""
+    d, pdf = env_sample_plain(env, u3, active)
+    return d, pdf, env_radiance_plain(env, d, active)
+
+
+def _check(name, env: EnvMapArrays, x, cols, active=None):
     n = x.shape[0]
     if x.dtype != torch.float32 or tuple(x.shape) != (n, cols) or not x.is_contiguous():
         raise ValueError(f"{name}: need contiguous float32 ({n}, {cols}), got "
@@ -213,91 +265,154 @@ def _check(name, env: EnvMapArrays, x, cols):
         raise ValueError(f"{name}: envmap on {env.image.device}, rays on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if active is not None and (active.dtype != torch.bool or tuple(active.shape) != (n,)
+                               or not active.is_contiguous() or active.device != x.device):
+        raise ValueError(f"{name}: need a contiguous bool mask ({n},) on {x.device}, got "
+                         f"{active.dtype} {tuple(active.shape)} on {active.device}")
 
 
-def env_radiance(env: EnvMapArrays, d):
-    """Radiance [N, 4] from world directions d [N, 3] (K8). Where d, the
-    image, the constant radiance or the rotation requires grad (and grad
-    mode is on), the lookup is on the tape: its backward is K8T
-    (render/backward.py `EnvRadiance`)."""
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (d, env.image, env.const_radiance, env.rotation)):
+def _check_tables(name, env: EnvMapArrays):
+    if not env.importance:
+        raise ValueError(f"{name}: the envmap has no importance tables")
+
+
+def _on_tape(env: EnvMapArrays, *xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*xs, env.image, env.const_radiance, env.rotation))
+
+
+def _lanes(name, env: EnvMapArrays, sample: bool, x, active, pdf: bool, rad: bool):
+    """One launch of K8's kernel (`wpt_env_lanes`) on CUDA tensors, counted
+    under `name`: (directions [N, 3] where `sample`, pdf [N] where `pdf`,
+    radiance [N, 4] where `rad`; None for each output not asked for)."""
+    lib = native.load_kernels()
+    n, dev = x.shape[0], x.device
+    d_out = torch.empty((n, 3), dtype=torch.float32, device=dev) if sample else None
+    pdf_out = torch.empty((n,), dtype=torch.float32, device=dev) if pdf else None
+    rad_out = torch.empty((n, 4), dtype=torch.float32, device=dev) if rad else None
+    tables = sample or pdf
+    rot = env.rotation.detach().contiguous()
+    code = lib.wpt_env_lanes(int(sample), x.data_ptr(), _ptr(active), n, env.kind,
+                             env.image.data_ptr(), env.image.shape[-3], env.image.shape[-2],
+                             rot.data_ptr(), env.const_radiance.data_ptr(),
+                             _ptr(env.pdf_table if tables else None),
+                             _ptr(env.alias_prob if sample else None),
+                             _ptr(env.alias_idx if sample else None),
+                             env.pdf_table.shape[0] if tables else 0, _ptr(d_out),
+                             _ptr(pdf_out), _ptr(rad_out), native.stream_ptr(x))
+    native.check(code, name)
+    native.LAUNCHES[name] += 1
+    return d_out, pdf_out, rad_out
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def env_radiance(env: EnvMapArrays, d, active=None):
+    """Radiance [N, 4] from world directions d [N, 3] (K8); 0 outside the
+    mask `active` [N] where given. Where d, the image, the constant radiance
+    or the rotation requires grad (and grad mode is on), the lookup is on
+    the tape: its backward is K8T (render/backward.py `EnvRadiance`)."""
+    if _on_tape(env, d):
         from .backward import EnvRadiance
 
-        return EnvRadiance.apply(env, d, env.image, env.const_radiance, env.rotation)
-    return env_radiance_raw(env, d)
+        return EnvRadiance.apply(env, d, active, env.image, env.const_radiance, env.rotation)
+    return env_radiance_raw(env, d, active)
 
 
-def env_radiance_raw(env: EnvMapArrays, d):
+def env_radiance_raw(env: EnvMapArrays, d, active=None):
     """K8 radiance without a tape: the kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    _check("env_radiance", env, d, 3)
+    _check("env_radiance", env, d, 3, active)
     if d.device.type == "cpu":
-        return env_radiance_plain(env, d)
-    lib = native.load_kernels()
-    n = d.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=d.device)
-    h, w = env.image.shape[-3], env.image.shape[-2]
-    code = lib.wpt_env_radiance(d.data_ptr(), n, env.kind, env.image.data_ptr(), h, w,
-                                env.rotation.data_ptr(), env.const_radiance.data_ptr(),
-                                out.data_ptr(), native.stream_ptr(d))
-    native.check(code, "env_radiance")
-    native.LAUNCHES["env_radiance"] += 1
-    return out
+        return env_radiance_plain(env, d, active)
+    return _lanes("env_radiance", env, False, d, active, False, True)[2]
 
 
-def env_sample(env: EnvMapArrays, u3):
+def env_sample(env: EnvMapArrays, u3, active=None):
     """Importance-sampled world direction [N, 3] and its pdf [N] from uniforms
-    u3 [N, 3] (K8). Where the rotation requires grad (and grad mode is on),
-    the direction R(q) d_map is on the tape: its backward is K8T's sample
-    backward (render/backward.py `EnvSample`); the pdf carries none."""
+    u3 [N, 3] (K8); outside the mask `active` [N] where given,
+    `skipped_direction` and pdf 0. Where the rotation requires grad (and grad
+    mode is on), the direction R(q) d_map is on the tape: its backward is
+    K8T's sample backward (render/backward.py `EnvSample`); the pdf carries
+    none."""
     if torch.is_grad_enabled() and env.rotation.requires_grad:
         from .backward import EnvSample
 
-        return EnvSample.apply(env, u3, env.rotation)
-    return env_sample_raw(env, u3)
+        return EnvSample.apply(env, u3, active, env.rotation)
+    return env_sample_raw(env, u3, active)
 
 
-def env_sample_raw(env: EnvMapArrays, u3):
+def env_sample_raw(env: EnvMapArrays, u3, active=None):
     """K8 sample without a tape: the kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    _check("env_sample", env, u3, 3)
-    if not env.importance:
-        raise ValueError("env_sample: the envmap has no importance tables")
+    _check("env_sample", env, u3, 3, active)
+    _check_tables("env_sample", env)
     if u3.device.type == "cpu":
-        return env_sample_plain(env, u3)
-    lib = native.load_kernels()
-    n = u3.shape[0]
-    d = torch.empty((n, 3), dtype=torch.float32, device=u3.device)
-    pdf = torch.empty((n,), dtype=torch.float32, device=u3.device)
-    code = lib.wpt_env_sample(u3.data_ptr(), n, env.pdf_table.data_ptr(),
-                              env.alias_prob.data_ptr(), env.alias_idx.data_ptr(),
-                              env.pdf_table.shape[0], env.rotation.detach().contiguous().data_ptr(),
-                              d.data_ptr(),
-                              pdf.data_ptr(), native.stream_ptr(u3))
-    native.check(code, "env_sample")
-    native.LAUNCHES["env_sample"] += 1
-    return d, pdf
+        return env_sample_plain(env, u3, active)
+    return _lanes("env_sample", env, True, u3, active, True, False)[:2]
 
 
-def env_pdf(env: EnvMapArrays, d):
+def env_pdf(env: EnvMapArrays, d, active=None):
     """Solid-angle pdf [N] of env_sample having produced world directions d
-    [N, 3] (K8). Piecewise constant in d (the pdf table at d's cell), so it
-    carries no gradient to d or to the rotation, in either package: never
-    on the tape."""
-    _check("env_pdf", env, d, 3)
-    if not env.importance:
-        raise ValueError("env_pdf: the envmap has no importance tables")
+    [N, 3] (K8); 0 outside the mask `active` [N] where given. Piecewise
+    constant in d (the pdf table at d's cell), so it carries no gradient to
+    d or to the rotation, in either package: never on the tape."""
+    _check("env_pdf", env, d, 3, active)
+    _check_tables("env_pdf", env)
     if d.device.type == "cpu":
-        return env_pdf_plain(env, d)
-    lib = native.load_kernels()
-    n = d.shape[0]
-    out = torch.empty((n,), dtype=torch.float32, device=d.device)
-    code = lib.wpt_env_pdf(d.data_ptr(), n, env.pdf_table.data_ptr(), env.pdf_table.shape[0],
-                           env.rotation.data_ptr(), out.data_ptr(), native.stream_ptr(d))
-    native.check(code, "env_pdf")
-    native.LAUNCHES["env_pdf"] += 1
-    return out
+        return env_pdf_plain(env, d, active)
+    return _lanes("env_pdf", env, False, d, active, True, False)[1]
+
+
+def env_miss_lanes(env: EnvMapArrays, d, active=None, pdf: bool = True):
+    """The radiance [N, 4] of world directions d [N, 3] and, with `pdf`, their
+    pdf [N] (else None) in one launch of K8 (counter env_miss): a bounce's
+    escaped rays, `active` [N] marking the lanes whose results are read
+    (radiance and pdf 0 elsewhere). The radiance is on the tape as
+    `env_radiance`'s (render/backward.py `EnvMiss`); the pdf carries none."""
+    if _on_tape(env, d):
+        from .backward import EnvMiss
+
+        return EnvMiss.apply(env, d, active, pdf, env.image, env.const_radiance, env.rotation)
+    return env_miss_raw(env, d, active, pdf)
+
+
+def env_miss_raw(env: EnvMapArrays, d, active=None, pdf: bool = True):
+    """`env_miss_lanes` without a tape: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    _check("env_miss", env, d, 3, active)
+    if pdf:
+        _check_tables("env_miss", env)
+    if d.device.type == "cpu":
+        return env_miss_plain(env, d, active, pdf)
+    _, p, rad = _lanes("env_miss", env, False, d, active, pdf, True)
+    return rad, p
+
+
+def env_nee_lanes(env: EnvMapArrays, u3, active=None):
+    """An importance-sampled world direction [N, 3], its pdf [N] and the
+    radiance [N, 4] arriving from it, from uniforms u3 [N, 3], in one launch
+    of K8 (counter env_nee; the direction stays in registers): a bounce's
+    env NEE, `active` [N] marking the lanes that take it (`skipped_direction`,
+    pdf 0 and radiance 0 elsewhere). Direction and radiance are on the tape
+    as `env_sample`'s and `env_radiance`'s (render/backward.py `EnvNee`)."""
+    if _on_tape(env):
+        from .backward import EnvNee
+
+        return EnvNee.apply(env, u3, active, env.image, env.const_radiance, env.rotation)
+    return env_nee_raw(env, u3, active)
+
+
+def env_nee_raw(env: EnvMapArrays, u3, active=None):
+    """`env_nee_lanes` without a tape: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    _check("env_nee", env, u3, 3, active)
+    _check_tables("env_nee", env)
+    if u3.device.type == "cpu":
+        return env_nee_plain(env, u3, active)
+    return _lanes("env_nee", env, True, u3, active, True, True)
 
 
 def _build_alias_table(weights: np.ndarray):

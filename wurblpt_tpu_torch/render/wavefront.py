@@ -106,7 +106,7 @@ from .bsdf import (
     gather_material_rows,
 )
 from .camera import CameraConfig, CameraParams, SurroundMode, camera_rays
-from .envmap import env_pdf, env_radiance, env_sample
+from .envmap import env_miss_lanes, env_nee_lanes
 from .intersect import K4_FIELDS, HitRecord
 from .intersect_brute import BIG
 from .lights import (
@@ -386,16 +386,19 @@ def env_miss(sensor, acc, st: LoopState, env: EnvMapArrays, prim, importance: bo
     """Deposit the sky's radiance on the active lanes whose ray escaped
     (wurblpt.hpp:136-146), MIS-weighted against env NEE with the pdf of the
     previous bsdf sample when the sky is importance-sampled (the JAX
-    package's integrator.py:456-474)."""
-    L_env = env_radiance(env, st.d)
+    package's integrator.py:456-474). One launch of K8 gives the radiance and
+    the pdf of the escaped lanes (`env_miss_lanes`); the other lanes' are 0
+    and unread."""
+    escaped = st.active & (prim < 0)
+    L_env, pdf = env_miss_lanes(env, st.d, escaped, importance)
     if importance:
-        w_env = torch.where(st.prev_random, power_heuristic(st.prev_pdf, env_pdf(env, st.d)), 1.0)
+        w_env = torch.where(st.prev_random, power_heuristic(st.prev_pdf, pdf), 1.0)
     else:
         w_env = torch.ones_like(st.prev_pdf)
     return sensor.accumulate(acc, SensorEvent(
         radiance=st.throughput * L_env * w_env[:, None], path_component=st.bounce,
         geom_path_length=st.geom_len, optical_path_length=st.opt_len,
-        distance_to_light=torch.zeros_like(st.geom_len), active=st.active & (prim < 0)))
+        distance_to_light=torch.zeros_like(st.geom_len), active=escaped))
 
 
 def env_nee(sensor, env: EnvMapArrays, st: LoopState, hr: HitRecord, mrow, mat_types, rgl, ue,
@@ -406,11 +409,14 @@ def env_nee(sensor, env: EnvMapArrays, st: LoopState, hr: HitRecord, mrow, mat_t
 
     Returns (shadow direction [N, 3], shadow t_max [N]: BIG on RANDOM lanes,
     0 elsewhere, the pending deposit [N, n_acc]: what the sensor takes if the
-    shadow ray is not occluded, 0 on lanes that deposit nothing)."""
-    edir, epdf = env_sample(env, ue)
+    shadow ray is not occluded, 0 on lanes that deposit nothing). One launch
+    of K8 samples the RANDOM lanes' directions and looks up their radiance
+    (`env_nee_lanes`); the other lanes get the map's +z axis, pdf 0 and
+    radiance 0, finite values that deposit nothing."""
+    edir, epdf, L_e = env_nee_lanes(env, ue, is_random)
     f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types, rgl=rgl)
     w_e = power_heuristic(epdf, pdf_be)
-    contrib_e = (st.throughput * f_e * env_radiance(env, edir)
+    contrib_e = (st.throughput * f_e * L_e
                  * (w_e / torch.clamp_min(epdf, 1e-12))[:, None])
     dep, ok = sensor.deposit(SensorEvent(
         radiance=contrib_e, path_component=st.bounce, geom_path_length=geom_len,

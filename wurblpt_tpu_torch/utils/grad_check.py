@@ -45,8 +45,10 @@ gradient checks of ``chip_smoke.py``'s `grad` phase.
 * K8T with its rotation term (`check_env_radiance_bwd(..., rotation=True)`)
   on the equirect, cube and constant skies turned by SKY_ROTATION, and its
   sample's backward (`check_env_sample_bwd`, `env_sample_lanes`: 262144
-  uniforms of the turned equirect sky), the rotation's four sums within
-  SKY_SUM_REL and SUM_REL of their terms' magnitudes.
+  uniforms of the turned equirect sky; and the lanes one sky-yaw step
+  hands it, `sky_yaw_lanes`, with K8's pairs' inputs of each bounce), the
+  rotation's four sums within SKY_SUM_REL and SUM_REL of their terms'
+  magnitudes.
 
 The frames: the Cornell bench frame through `render_frame` (the pass
 renderer, 16 samples in one pass), its gradients with respect to the
@@ -382,8 +384,8 @@ def check_assemble_hit_anim_bwd(lanes) -> Dict[str, float]:
     return res
 
 
-def check_env_radiance_bwd(env, d, g, rotation: bool = False,
-                           plain_on_card: bool = False) -> Dict[str, float]:
+def check_env_radiance_bwd(env, d, g, rotation: bool = False, plain_on_card: bool = False,
+                           active=None) -> Dict[str, float]:
     """K8T against its plain version (on the CPU) on the same directions and
     cotangents; with `rotation`, its rotation term too (the lanes' terms
     summed per block: within SKY_SUM_REL of their magnitudes, as the
@@ -395,10 +397,19 @@ def check_env_radiance_bwd(env, d, g, rotation: bool = False,
     the C library's, parts from the CPU plain version so on exactly the
     texels of such lanes: tests/test_torch_backward_on_host.py
     test_k8t_kernel_on_a_wide_sky); on the card the plain version calls
-    CUDA's, as the kernel does, in unfused elementwise ops."""
-    got = _cpu(env_radiance_bwd(env, d, g, rotation=rotation))
+    CUDA's, as the kernel does, in unfused elementwise ops. `active` (a lane
+    mask, where given): the plain version on the cotangents zeroed outside
+    it, and the kernel's g_d 0 there."""
+    got = _cpu(env_radiance_bwd(env, d, g, rotation=rotation, active=active))
+    if active is not None:
+        g = torch.where(active[:, None], g, 0.0)
+        off = ~active.cpu()
+        assert not bool(got[0][off].any()), "env_radiance_bwd: g_d on a masked lane"
+        got[0][off] = 0.0
     ref = (_cpu(env_radiance_bwd_plain(env, d, g, magnitudes=True)) if plain_on_card
            else env_radiance_bwd_plain(*_cpu([env, d, g]), magnitudes=True))
+    if active is not None:   # the plain version on a masked lane's zero cotangent
+        ref[0][off] = 0.0
     r = _lane_close("env_radiance_bwd g_d", got[0], ref[0])
     err = max(r["max_abs_err"],
               _sum_close("env_radiance_bwd g_image", got[1], ref[1], ref[4], SKY_SUM_REL),
@@ -422,11 +433,14 @@ def env_sample_lanes(device, n: int = 262144, seed: int = 24):
     return env, u3, _f32(rng, (n, 3), device)
 
 
-def check_env_sample_bwd(env, u3, g_dir) -> Dict[str, float]:
+def check_env_sample_bwd(env, u3, g_dir, active=None) -> Dict[str, float]:
     """K8T's sample backward against its plain version (on the CPU) on the
-    same uniforms and cotangents: the rotation's cotangent within SUM_REL of
-    its terms' magnitudes."""
-    got = env_sample_bwd(env, u3, g_dir).cpu()
+    same uniforms and cotangents (zeroed outside the lane mask `active`,
+    where given): the rotation's cotangent within SUM_REL of its terms'
+    magnitudes."""
+    got = env_sample_bwd(env, u3, g_dir, active).cpu()
+    if active is not None:
+        g_dir = torch.where(active[:, None], g_dir, 0.0)
     ref, mag = env_sample_bwd_plain(*_cpu([env, u3, g_dir]), magnitudes=True)
     return {"max_abs_err": _sum_close("env_sample_bwd g_rotation", got, ref, mag),
             "g_rotation": got.tolist()}
@@ -635,16 +649,19 @@ def env_radiance_bwd_work(env, d, rotation: bool = False):
             n * (140 if rotation else 100))
 
 
-def env_sample_bwd_work(env, u3):
-    """K8T's sample backward: per lane 3 uniforms and the direction's 3
-    cotangent words read (24 B), the alias and pdf tables read once, the
-    rotation read and its cotangent written (32 B). ~60 float operations a
-    lane (the sample's map-space direction again, the rotation formula's
-    backward, the lane's four terms summed)."""
+def env_sample_bwd_work(env, u3, g_dir=None):
+    """K8T's sample backward: what any version must read, every lane's 3
+    cotangent words of the sampled direction (12 B), and the uniforms (12
+    B) of the lanes whose cotangent is nonzero (`g_dir`; every lane without
+    it: the earlier all-lane count, 24 B a lane), the alias and pdf tables once,
+    the rotation read and its cotangent written (32 B). ~60 float
+    operations a live lane (the sample's map-space direction again, the
+    rotation formula's backward, the lane's four terms summed)."""
     n = u3.shape[0]
+    live = n if g_dir is None else int((g_dir != 0).any(-1).sum())
     tables = sum(x.numel() * x.element_size() for x in (env.pdf_table, env.alias_prob,
                                                         env.alias_idx))
-    return n * 24 + tables + 32, n * 60
+    return n * 12 + live * 12 + (tables if live else 0) + 32, live * 60
 
 
 # ---------------------------------------------------------------------------
@@ -942,6 +959,73 @@ def rgl_quad_lanes(device, width: int = RGL_QUAD_WIDTH, ssqrt: int = RGL_QUAD_SS
     finally:
         rgl_mod.rgl_bwd = inner
     return calls
+
+
+def sky_yaw_lanes(device, width: int = 128, ssqrt: int = GRAD_SSQRT):
+    """K8's and K8T's sample backward's inputs as the sky-yaw step hands
+    them: one step of `sky_yaw_loss` at width^2, ssqrt^2 spp (forward and
+    backward of d(mean)/d(yaw) at SKY_YAW) with the generic bounce's
+    `env_miss` and `env_nee` (render/integrator.py's names) and
+    `render.backward.env_sample_bwd` wrapped to record their inputs. A dict:
+    "env" the turned sky (rotation detached), and per bounce of the
+    forward, in bounce order, "miss": (directions [N, 3], escaped [N]: the
+    active lanes whose ray missed, whose radiance and pdf are read, active
+    [N]), "nee": (uniforms [N, 3], the RANDOM lanes [N]: those that take env
+    NEE), "sample_bwd": (uniforms [N, 3], the directions' cotangent [N,
+    3], zero on the lanes outside the call's mask). Only entry points every
+    version of the port has are wrapped, so an older tree records the same
+    lanes with this file copied over its own."""
+    from ..render import backward as bw_mod
+    from ..render import integrator as it_mod
+
+    rec = {"env": None, "miss": [], "nee": [], "sample_bwd": []}
+    forward = [True]
+    miss, nee, sample_bwd = it_mod.env_miss, it_mod.env_nee, bw_mod.env_sample_bwd
+
+    def env_miss(sensor, acc, st, env, prim, importance):
+        if forward[0]:
+            rec["env"] = env._replace(rotation=env.rotation.detach().clone())
+            rec["miss"].append((st.d.detach().clone(), (st.active & (prim < 0)).clone(),
+                                st.active.clone()))
+        return miss(sensor, acc, st, env, prim, importance)
+
+    def env_nee(sensor, env, st, hr, mrow, mat_types, rgl, ue, is_random, geom_len, opt_len):
+        if forward[0]:
+            rec["nee"].append((ue.detach().clone(), is_random.clone()))
+        return nee(sensor, env, st, hr, mrow, mat_types, rgl, ue, is_random, geom_len, opt_len)
+
+    def env_sample_bwd_rec(env, u3, g_dir, *active):
+        g = g_dir.detach()   # the cotangents the kernel takes: none on a masked lane
+        if active and active[0] is not None:
+            g = torch.where(active[0][:, None], g, 0.0)
+        rec["sample_bwd"].append((u3.detach().clone(), g.clone()))
+        return sample_bwd(env, u3, g_dir, *active)
+
+    it_mod.env_miss, it_mod.env_nee, bw_mod.env_sample_bwd = env_miss, env_nee, env_sample_bwd_rec
+    try:
+        yaw = torch.tensor(SKY_YAW, dtype=torch.float32, device=device, requires_grad=True)
+        value = sky_yaw_loss(device, width, ssqrt)(yaw)
+        forward[0] = False
+        value.backward()
+    finally:
+        it_mod.env_miss, it_mod.env_nee, bw_mod.env_sample_bwd = miss, nee, sample_bwd
+    rec["sample_bwd"].reverse()   # the backward runs the bounces last to first
+    return rec
+
+
+def sky_yaw_shares(lanes) -> Dict[str, list]:
+    """Per bounce of `sky_yaw_lanes`, the shares of all lanes: active,
+    escaped (their sky radiance is deposited), taking env NEE and carrying
+    a nonzero cotangent into K8T's sample backward."""
+    n = lanes["miss"][0][0].shape[0]
+
+    def share(x):
+        return float(x.sum()) / n
+
+    return {"active": [share(a) for _, _, a in lanes["miss"]],
+            "escaped": [share(e) for _, e, _ in lanes["miss"]],
+            "env_nee": [share(r) for _, r in lanes["nee"]],
+            "cotangent": [share((g != 0).any(-1)) for _, g in lanes["sample_bwd"]]}
 
 
 def rgl_camera_loss(device, width: int = 12):

@@ -114,12 +114,19 @@ from ..render.bsdf import SceneStatic
 from ..render.camera import CameraConfig, DistortionModel, SurroundMode, camera_rays, make_camera
 from ..render.gather import row_gather, row_gather_plain
 from ..render.envmap import (
+    env_miss_plain,
+    env_miss_raw,
+    env_nee_plain,
+    env_nee_raw,
     env_pdf,
     env_pdf_plain,
     env_radiance,
     env_radiance_plain,
+    env_radiance_raw,
     env_sample,
     env_sample_plain,
+    env_sample_raw,
+    skipped_direction,
 )
 from ..render.integrator import (
     RenderParams,
@@ -1668,6 +1675,56 @@ def rtiow_camera_lanes(device, seed: int = 0):
                         camera=scenes.rtiow_camera(device), cfg=RTIOW_CAMERA, lens=RTIOW_LENS)
 
 
+def lane_mask(n: int, share: float, device, seed: int = 8):
+    """A bool mask [n] with `share` of the lanes set, scattered from numpy `seed`."""
+    return torch.as_tensor(np.random.default_rng(seed).permutation(n) < round(share * n),
+                           device=device)
+
+
+def check_env_lanes(env, x, active, sample: bool) -> Dict[str, float]:
+    """K8's pair of a bounce in one launch, under the mask `active` [N] (or
+    None): env_nee_raw on uniforms x (`sample`), else env_miss_raw on
+    directions x (with the pdf where the map has importance tables). Held
+    bit for bit to the single entry points launched in turn under the same
+    mask (env_sample then env_radiance of its directions; env_radiance and
+    env_pdf), the lanes outside the mask to their fixed values (radiance
+    and pdf 0, the sample's direction `skipped_direction`), and to the plain
+    version (`env_nee_plain` / `env_miss_plain`) bit for bit (on the CPU
+    the wrappers run the plain version); raises AssertionError. Returns
+    the largest difference from the plain version and the lanes that
+    differ from it in any bit (0)."""
+    pdf = env.importance
+    if sample:
+        got = env_nee_raw(env, x, active)
+        d, p = env_sample_raw(env, x, active)
+        single = (d, p, env_radiance_raw(env, d, active))
+        ref = env_nee_plain(env, x, active)
+        names = ("direction", "pdf", "radiance")
+    else:
+        got = env_miss_raw(env, x, active, pdf)
+        single = (env_radiance_raw(env, x, active), env_pdf(env, x, active) if pdf else None)
+        ref = env_miss_plain(env, x, active, pdf)
+        names = ("radiance", "pdf")
+    n = x.shape[0]
+    err, differ = 0.0, torch.zeros(n, dtype=torch.bool, device=x.device)
+    for name, a, b, r in zip(names, got, single, ref):
+        if a is None:
+            assert b is None and r is None, f"env lanes: {name} missing"
+            continue
+        assert torch.equal(a, b), f"env lanes: {name} differs from the single entry point's"
+        if active is not None:
+            off = ~active
+            want = (skipped_direction(env).expand(n, 3) if name == "direction"
+                    else torch.zeros_like(a))
+            assert torch.equal(a[off], want[off]), f"env lanes: masked lanes' {name} not fixed"
+        err = max(err, float((a - r).abs().max()) if n else 0.0)
+        differ |= (a != r).reshape(n, -1).any(-1)
+    assert not bool(differ.any()), (f"env lanes: {int(differ.sum())} of {n} lanes differ from "
+                                    f"the plain version (largest {err})")
+    live = n if active is None else int(active.sum())
+    return {"max_abs_err": err, "lanes": n, "live": live, "lanes_differ": int(differ.sum())}
+
+
 def random_directions(n: int, device, seed: int = 5):
     """Unit directions uniform on the sphere."""
     d = np.random.default_rng(seed).normal(size=(n, 3))
@@ -2827,10 +2884,36 @@ def env_radiance_work(env, n: int):
     lane, the image read once; about 60 flops per lane on the cube map (the
     rotation, the face pick and the bilinear blend of four texels). The
     constant map reads no direction and no image: its 16 B radiance once,
-    16 B out per lane, no arithmetic."""
+    16 B out per lane, no arithmetic. Its masked form: `env_lanes_work`."""
     if env.kind == 3:
         return n * 16 + env.const_radiance.numel() * 4, 0.0
     return n * (12 + 16) + _table_bytes(env[1:]), n * 60.0
+
+
+def env_lanes_work(env, n: int, sample: bool, pdf: bool, rad: bool, live: Optional[int] = None):
+    """K8's kernel (env_lanes_kernel) over n lanes, `live` of them in its
+    mask (every lane, without one): every lane's mask byte read (with one)
+    and its outputs written (a sample's 12 B direction, 4 B pdf, 16 B
+    radiance, each where asked for); only the live lanes' inputs read (12 B
+    of direction or uniforms; none for a constant sky's radiance alone),
+    the tables the outputs need read once (the image or the constant
+    radiance, the pdf table, the alias tables) and ~60 flops a live lane
+    and output (a lookup, a pdf, a sample)."""
+    masked = live is not None
+    live = n if live is None else live
+    out = n * ((12 if sample else 0) + (4 if pdf else 0) + (16 if rad else 0))
+    reads_x = sample or pdf or env.kind != 3
+    tables = 0
+    if live:
+        if rad:
+            tables += (env.const_radiance if env.kind == 3 else env.image).numel() * 4
+        if sample or pdf:
+            tables += env.pdf_table.numel() * 4
+        if sample:
+            tables += (env.alias_prob.numel() + env.alias_idx.numel()) * 4
+    ops = int(sample) + int(pdf) + int(rad and env.kind != 3)
+    return ((n if masked else 0) + out + (live * 12 if reads_x else 0) + tables,
+            live * 60.0 * ops)
 
 
 def rgl_work(tables, n: int, sample: bool, live: Optional[int] = None):

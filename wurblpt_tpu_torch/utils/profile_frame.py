@@ -46,11 +46,12 @@ from .kernel_check import (
 
 # The hand-written kernels, by the names the profiler's keys contain.
 OURS = ("closest_hit_kernel", "any_hit_kernel", "any_hit_small_kernel", "assemble_hit_kernel",
-        "assemble_hit_k4_kernel", "bvh_closest_kernel", "bvh_any_kernel", "env_radiance_kernel",
-        "env_sample_kernel", "env_pdf_kernel", "rgl_eval_kernel", "rgl_sample_kernel",
-        "row_gather_kernel", "regen_kernel", "shade_kernel", "shade_env_kernel",
-        "shade_lit_kernel", "resolve_kernel", "sweep_closest_kernel", "sweep_any_kernel",
-        "row_scatter_kernel", "assemble_hit_bwd_kernel", "env_radiance_bwd_kernel")
+        "assemble_hit_k4_kernel", "bvh_closest_kernel", "bvh_any_kernel", "env_lanes_kernel",
+        "rgl_eval_kernel", "rgl_sample_kernel", "row_gather_kernel", "regen_kernel",
+        "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel",
+        "sweep_closest_kernel", "sweep_any_kernel", "row_scatter_kernel",
+        "assemble_hit_bwd_kernel", "env_radiance_bwd_kernel", "env_sample_bwd_kernel",
+        "rgl_bwd_kernel")
 _TOP = 25
 
 
