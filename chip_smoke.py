@@ -158,7 +158,8 @@ Phases, each a function, any failure exits non-zero and names its phase:
    nor the resolve, and the frame held to its JAX reference (mean energy, the three
    channel means, counters); phases 1-3 keep the counters and the mean
    and phase 2 swaps the buckets a and b; the 4-phase distance at depth 1
-   is held to the first-hit distance of the pixel-centre rays (median
+   is held to the first-hit distance of the pixel-centre rays, read
+   through get_ground_truth(..., aovs=("distance", "hit_mask")) (median
    under 2 mm).
 10. cornell_animated path - the animated Cornell frame (128 x 128, 16 spp,
    8 path components, SensorRGB, t0 = t1 = 0.5) through render_frame_wavefront
@@ -375,6 +376,46 @@ their object-space records the cornell_animated_bvh path's.
    P0 and K1/K2/K8 count the grad path's launches (those of K1-K3, P0 and
    K7 the scene_api paths' too, K8's constant branch the scene_api paths').
 
+17. KM in the kernels phase (phase 3; the phases 18-19 run after scene_api,
+   before grad) - KM (csrc/media.cu, render/media.py apply_media)
+   against its plain version (kernel_check.check_apply_media: bit-equal
+   but where log1pf and PyTorch's log1p round a free path apart, at most
+   1e-5 of the lanes' scatter decisions flipped, t within 4e-7 relative
+   on the others; the count of flips printed) on the participating_media
+   pass's bounce-0 closest and light-NEE lanes (786432 each), stagelights'
+   first pass's (648000 each: its glass shell and fog octahedron share a
+   surface, KM's triangle branch) and 1000 random segments around the fog
+   sphere (a third from inside it); timed on the participating_media
+   closest lanes (wrapper call, device time a call, plain version, bound
+   by bytes; no single PyTorch call computes it).
+18. media - the two example apps with participating media
+   (kernel_check.MEDIA_FRAMES), one path each ("media <name>"), built
+   through the port's Scene on the card and rendered by render_frame at
+   the apps' sizes on the generic bounce with the counters at 0:
+   participating_media (256 x 192, 16 spp in one pass, depth 12: a fog
+   sphere, a sphere hot spot, a floor and a red sphere; brute force) and
+   stagelights (480 x 270, 25 spp in passes of 5, depth 8: fog inside a
+   glass octahedron, spot lights, a normal-mapped glass sphere, ModPhong
+   and anisotropic GGX; a BVH). KM, the path's closest cast (K1 or K5),
+   K3's full form and P0 must launch and no any-hit cast (a shadow ray
+   in a scene with media is a closest cast followed by KM); each frame
+   held to its JAX CPU yardstick (kernel_check.EXAMPLE_REFS: mean within
+   1e-3, counters within 0.5 %); frame ms (median of 5 after the first),
+   KM's launches and device us a launch, a profiled pass's launches,
+   device ms and busy share printed.
+19. aov - get_ground_truth with every channel of ALL_AOVS, one path each
+   ("aov <name>", kernel_check.AOV_FRAMES): the normalmap scene at 320 x
+   320 (the pixel-centre cast K1 and K3's full form), and the animated
+   Cornell box at 128 x 128 at t = 0.5 with the flows to 0.25 and 0.75
+   (KS1 and K3a's full form with the frame's rows); KM and K3's K4 form
+   must not launch. Each channel's mean and the hit count held to the JAX
+   call's (kernel_check.AOV_REFS, check_aov_frame: 1e-5 relative plus
+   AOV_PARTS = 8 pixels' share of the channel's span; the hit count within
+   8); ms (median of 5 after the first) printed.
+KM's record counts the two media paths' launches; K1's, K3's and P0's
+records count the media and aov paths' too, KS1's and K3a's the aov
+cornell_animated path's.
+
 Output, at the end: the card's name and power limit as nvidia-smi reports
 them, one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. No result is printed without a CUDA device.
@@ -428,7 +469,23 @@ MOTION_PATHS = tuple(f"{name} path" for name in MOTION)
 MOTION_ABSENT = ("regen_pinhole", "regen_surround", "shade_diffuse", "shade_env", "shade_lit",
                  "assemble_hit_k4", "assemble_hit_k4_anim", "assemble_hit", "closest_hit",
                  "any_hit")
-PATHS = K4_PATHS + SCENE_PATHS + MOTION_PATHS + (GRAD_PATH,)
+# The example apps with participating media (kernel_check.MEDIA_FRAMES),
+# one path each (phase media): render_frame on the generic bounce, KM after
+# every closest cast (the bounce's and, with media, each NEE shadow ray's);
+# the hand kernels each must launch there, and the any-hit casts that must
+# not (media shadow rays are closest casts).
+MEDIA = {"participating_media": (("apply_media", "closest_hit", "assemble_hit", "row_gather"),
+                                 ("any_hit", "bvh_any_hit", "sweep_any")),
+         "stagelights": (("apply_media", "bvh_closest_hit", "assemble_hit", "row_gather"),
+                         ("any_hit", "bvh_any_hit", "sweep_any"))}
+MEDIA_PATHS = tuple(f"media {name}" for name in MEDIA)
+# The ground-truth AOVs (kernel_check.AOV_FRAMES), one path each (phase aov):
+# the pixel-centre cast and K3's full form (K3a's with the frame's rows).
+AOV = {"normalmap": ("closest_hit", "assemble_hit"),
+       "cornell_animated": ("sweep_closest", "assemble_hit_anim")}
+AOV_PATHS = tuple(f"aov {name}" for name in AOV)
+AOV_ABSENT = ("assemble_hit_k4", "assemble_hit_k4_anim", "apply_media", "any_hit", "sweep_any")
+PATHS = K4_PATHS + SCENE_PATHS + MOTION_PATHS + (GRAD_PATH,) + MEDIA_PATHS + AOV_PATHS
 # the paths whose animated casts read each ray's own rows (the grad path's
 # animated step is over a shutter too), and the others
 PER_RAY = MOTION_PATHS + (GRAD_PATH,)
@@ -572,6 +629,9 @@ KERNELS = {
                              "wurblpt_tpu/render/intersect.py:510", ("assemble_hit_k4_anim",),
                              ("cornell_animated path", "cornell_animated_bvh path")),
 }
+# KM (checked in phase kernels), whose launches count on the two media paths
+KERNELS["apply_media"] = ("wurblpt_tpu_torch/csrc/media.cu", "wurblpt_tpu/render/media.py:104",
+                          ("apply_media",), MEDIA_PATHS)
 # The backward kernels of a differentiable render (phase `grad`), whose
 # launches count on the grad path.
 GRAD_KERNELS = {
@@ -969,7 +1029,40 @@ def phase_kernels(scenes_on_card):
     print(f"kernels: row_gather device {p0['device_ms'] * 1e3:.2f} us per call vs index_select "
           f"{p0['library_device_ms'] * 1e3:.2f} us (CUDA events, 20 calls behind a spin), city material "
           f"rows [{packed.shape[0]}, {packed.shape[1]}] x {mat_idx.shape[0]}")
-    return records + _per_ray_records(scenes_on_card) + _k4_records(scenes_on_card)
+    return (records + _per_ray_records(scenes_on_card) + _k4_records(scenes_on_card)
+            + _media_records(scenes_on_card))
+
+
+def _media_records(scenes_on_card):
+    """KM against its plain version on the card (kernel_check.check_apply_media):
+    the participating_media pass's bounce-0 closest and light-NEE lanes
+    (786432 each), stagelights' first pass's (648000 each) and 1000 random
+    segments around the fog sphere; timed on the participating_media
+    closest lanes (wrapper call, plain, bound; no single PyTorch call
+    computes it). Returns its record."""
+    from wurblpt_tpu_torch.render import media
+
+    sets = {}
+    for name in kc.MEDIA_FRAMES:
+        closest, nee = kc.media_lanes(name, DEVICE, scenes_on_card[name])
+        sets[f"{name} closest (salt_ctx 0)"] = closest
+        sets[f"{name} light NEE (salt_ctx 1)"] = nee
+    sets["1000 random segments"] = kc.media_random_lanes(scenes_on_card["participating_media"])
+    err = 0.0
+    for label, args in sets.items():
+        res = kc.check_apply_media(args)
+        torch.cuda.synchronize()
+        print(f"kernels: apply_media [{label}] ok {res}")
+        err = max(err, res["max_abs_err"])
+    args = sets["participating_media closest (salt_ctx 0)"]
+    records = _timed_records({"apply_media": (
+        lambda: media.apply_media(*args), lambda: media.apply_media_plain(*args),
+        kc.media_work(args), None)}, {"apply_media": err}, args[1].shape[0])
+    records[0]["device_ms"] = kc.device_ms(lambda: media.apply_media(*args))
+    print(f"kernels: apply_media device {records[0]['device_ms'] * 1e3:.2f} us per call "
+          f"(CUDA events, 20 calls behind a spin) at {args[1].shape[0]} lanes; no single "
+          f"PyTorch call computes it (library_ms null)")
+    return records
 
 
 def _material_comparison_rgl_calls():
@@ -2333,16 +2426,56 @@ def phase_grad():
     return launches
 
 
+def _example_path(label, name, scene, names, absent=()):
+    """One example app's frame as a path: `scene` (built through the port's
+    Scene on the card) rendered with render_frame at the app's size
+    (kernel_check.EXAMPLE_FRAMES: the generic bounce) with the counters at
+    0, held to its JAX yardstick (kernel_check.EXAMPLE_REFS: mean within
+    1e-3 relative, each counter within 0.5 %; EXAMPLE_DIGESTS' bits where
+    pinned), the hand kernels `names` required to launch and `absent` not;
+    then frame ms (median of 5 after the first), KM's launches where it
+    ran, the CUDA kernel launches, device time and busy share of a profiled
+    pass. Returns the counters of the first frame."""
+    width, height, ssqrt, depth, per_pass = kc.EXAMPLE_FRAMES[name]
+    render = kc.example_frame(name, DEVICE, scene)
+    img, stats, launches, times = _drive(label, render, names, absent)
+    mean = float(img.double().mean())
+    ref_mean, ref_stats = kc.EXAMPLE_REFS[name]
+    print(f"{label}: {width} x {height}, {ssqrt * ssqrt} spp in passes of {per_pass}, depth "
+          f"{depth}: mean radiance {mean!r} (JAX yardstick {ref_mean!r}), stats {stats} (JAX "
+          f"{list(ref_stats)})")
+    kc.check_example_frame(name, img, stats)
+    digest, want = kc.frame_digest(img, stats), kc.EXAMPLE_DIGESTS.get(name)
+    print(f"{label}: frame digest {digest} (image and stats; held to {want})")
+    assert want is None or digest == want, f"{label}: the frame's bits moved"
+    n_pass = ssqrt * ssqrt // per_pass
+    dt = statistics.median(times)
+    t0 = time.perf_counter()
+    render(one_pass=True)
+    pass_s = time.perf_counter() - t0
+    kernels, copies, _, device_ms, ours, _ = _count_launches(lambda: render(one_pass=True))
+    km = ""
+    if launches["apply_media"]:
+        km_us, km_n = ours.get("media_kernel", (float("nan"), 0))
+        km = (f"; KM {launches['apply_media']} launches a frame, {km_us:.2f} us a launch "
+              f"({km_n} in the profiled pass)")
+    print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
+          f"{[round(t * 1e3, 2) for t in times]}; {n_pass} passes), "
+          f"{width * height * ssqrt * ssqrt / dt:.4g} paths/s, {stats[1] / dt / 1e6:.4g} "
+          f"Mrays/s{km}; a profiled pass: {kernels} CUDA kernel launches and {copies} "
+          f"copies/memsets, device time {device_ms:.3f} ms in {pass_s * 1e3:.2f} ms (busy "
+          f"{device_ms / (pass_s * 1e3):.3f}) on {_nvidia_smi()}")
+    print(f"{label}: hand-written kernels launched {{"
+          + ", ".join(f"{k}: {v}" for k, v in sorted(launches.items()) if v) + "}, device us "
+          "per launch (launches): "
+          + ", ".join(f"{k} {us:.2f} ({count})" for k, (us, count) in sorted(ours.items())))
+    return launches
+
+
 def phase_scene_api(name):
-    """Phase scene_api, one path per example scene: the scene built through
-    the port's Scene on the card, rendered with render_frame at the app's
-    size (kernel_check.EXAMPLE_FRAMES: the generic bounce, passes of 8
-    samples) with the counters at 0, held to its JAX yardstick (mean within
-    1e-3 relative, each counter within 0.5 %), its hand kernels
-    (SCENE_API[name]) required to launch; then frame ms (median of 5 after
-    the first), the CUDA kernel launches of a pass and the device time of a
-    profiled frame. Returns the counters of the first frame."""
-    from wurblpt_tpu_torch import native
+    """Phase scene_api, one path per example scene (`_example_path`), the
+    scene built here through the port's Scene on the card; its hand kernels
+    SCENE_API[name]."""
     from wurblpt_tpu_torch.utils import scenes
 
     label = f"scene_api {name}"
@@ -2354,33 +2487,54 @@ def phase_scene_api(name):
           f"{scene.n_tris} triangles, {scene.n_spheres} spheres, {tt.count} textures (image "
           f"stack {list(tt.img_data.shape)} {tt.img_data.dtype}), {scene.n_lights} light prims, "
           f"sky kind {scene.env_kind}, RGL tables {scene.rgl is not None}")
-    width, height, ssqrt, depth, per_pass = kc.EXAMPLE_FRAMES[name]
-    render = kc.example_frame(name, DEVICE, scene)
-    img, stats, launches, times = _drive(label, render, SCENE_API[name])
-    mean = float(img.double().mean())
-    ref_mean, ref_stats = kc.EXAMPLE_REFS[name]
-    print(f"{label}: {width} x {height}, {ssqrt * ssqrt} spp, depth {depth}: mean radiance "
-          f"{mean!r} (JAX yardstick {ref_mean!r}), stats {stats} (JAX {list(ref_stats)})")
-    kc.check_example_frame(name, img, stats)
-    digest, want = kc.frame_digest(img, stats), kc.EXAMPLE_DIGESTS.get(name)
-    print(f"{label}: frame digest {digest} (image and stats; held to {want})")
-    assert want is None or digest == want, f"{label}: the frame's bits moved"
-    n_pass = ssqrt * ssqrt // per_pass
-    dt = statistics.median(times)
-    t0 = time.perf_counter()
-    render(one_pass=True)
-    pass_s = time.perf_counter() - t0
-    kernels, copies, _, device_ms, ours, _ = _count_launches(lambda: render(one_pass=True))
-    print(f"{label}: frame {dt * 1e3:.2f} ms (median of 5; all "
-          f"{[round(t * 1e3, 2) for t in times]}; {n_pass} passes), "
-          f"{width * height * ssqrt * ssqrt / dt:.4g} paths/s, {stats[1] / dt / 1e6:.4g} "
-          f"Mrays/s; a profiled pass: {kernels} CUDA kernel launches and {copies} "
-          f"copies/memsets, device time {device_ms:.3f} ms in {pass_s * 1e3:.2f} ms (busy "
-          f"{device_ms / (pass_s * 1e3):.3f}) on {_nvidia_smi()}")
-    print(f"{label}: hand-written kernels launched {{"
-          + ", ".join(f"{k}: {v}" for k, v in sorted(launches.items()) if v) + "}, device us "
-          "per launch (launches): "
-          + ", ".join(f"{k} {us:.2f} ({count})" for k, (us, count) in sorted(ours.items())))
+    return _example_path(label, name, scene, SCENE_API[name])
+
+
+def phase_media(name, scene):
+    """Phase media, one path per example app with participating media
+    (`_example_path`): KM and the path's casts, K3's full form and P0 must
+    launch (MEDIA[name]) and no any-hit cast."""
+    label = f"media {name}"
+    md = scene.media
+    print(f"{label}: {scene.n_tris} triangles, {scene.n_spheres} spheres, {md.count} media "
+          f"({md.tri_p0.shape[0]} boundary triangles, {md.sph_center.shape[0]} boundary "
+          f"spheres, density {md.density.tolist()}), {scene.n_lights} light prims, "
+          f"{'BVH' if scene.has_bvh else 'brute force'}")
+    return _example_path(label, name, scene, *MEDIA[name])
+
+
+def phase_aov(name, scene):
+    """Phase aov: get_ground_truth with every channel of ALL_AOVS
+    (kernel_check.AOV_FRAMES[name]) with the counters at 0, each channel's
+    mean and the hit count held to the JAX call's (kernel_check.AOV_REFS,
+    check_aov_frame's tolerances); the pixel-centre cast and K3's full form
+    (K3a's with the frame's rows) must launch, KM and the K4 form not; ms
+    (median of 5 after the first)."""
+    from wurblpt_tpu_torch import native
+
+    label = f"aov {name}"
+    run = kc.aov_frame(name, DEVICE, scene)
+    native.reset_launch_counts()
+    gt = run()
+    launches = dict(native.LAUNCHES)
+    for k in AOV[name]:
+        assert launches[k] > 0, f"kernel {k} was not launched on the {label}"
+    for k in AOV_ABSENT:
+        assert launches[k] == 0, f"kernel {k} was launched on the {label}"
+    res = kc.check_aov_frame(name, gt)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    width, t, t_prev, t_next = kc.AOV_FRAMES[name]
+    print(f"{label}: {width} x {width} at t {t} (flows to {t_prev}, {t_next}): "
+          f"{int(gt['hit_mask'].sum())} hits (JAX {kc.AOV_REFS[name]['hits']}); each channel's "
+          f"|mean - JAX's| over its tolerance: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in res.items()))
+    print(f"{label}: {statistics.median(times) * 1e3:.2f} ms (median of 5; all "
+          f"{[round(x * 1e3, 2) for x in times]}), launches "
+          + str({k: v for k, v in sorted(launches.items()) if v}) + f" on {_nvidia_smi()}")
     return launches
 
 
@@ -2408,7 +2562,10 @@ def phase_scenes():
                          ("cornell_animated_bvh", lambda: scenes.cornell_box_animated(
                              DEVICE, spheres=True, use_bvh=True)),
                          *((name, lambda n=name: kc.motion_scene(n, DEVICE))
-                           for name in kc.MOTION_FRAMES)):
+                           for name in kc.MOTION_FRAMES),
+                         *((name, lambda n=name: getattr(scenes, n)(device=DEVICE))
+                           for name in kc.MEDIA_FRAMES),
+                         ("normalmap", lambda: scenes.normalmap(device=DEVICE))):
         t0 = time.perf_counter()
         scene = build()
         torch.cuda.synchronize()
@@ -2468,6 +2625,12 @@ def main() -> int:
                         *((f"{n} path", lambda n=n: phase_motion_path(n, out["scenes"][n]))
                           for n in MOTION),
                         *((f"scene_api {n}", lambda n=n: phase_scene_api(n)) for n in SCENE_API),
+                        *((f"media {n}", lambda n=n: phase_media(n, out["scenes"][n]))
+                          for n in MEDIA),
+                        ("aov normalmap", lambda: phase_aov("normalmap",
+                                                            out["scenes"]["normalmap"])),
+                        ("aov cornell_animated",
+                         lambda: phase_aov("cornell_animated", out["scenes"]["cornell_animated"])),
                         (GRAD_PATH, phase_grad)):
         try:
             out[name] = phase()

@@ -12,6 +12,10 @@ to (``wurblpt_tpu_torch/utils/kernel_check.py``).
     JAX_PLATFORMS=cpu python jax_frame_reference.py noise_textures
     JAX_PLATFORMS=cpu python jax_frame_reference.py normalmap
     JAX_PLATFORMS=cpu python jax_frame_reference.py material_comparison
+    JAX_PLATFORMS=cpu python jax_frame_reference.py participating_media
+    JAX_PLATFORMS=cpu python jax_frame_reference.py stagelights
+    JAX_PLATFORMS=cpu python jax_frame_reference.py aov_normalmap
+    JAX_PLATFORMS=cpu python jax_frame_reference.py aov_cornell_animated
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_grad_tables_128
     JAX_PLATFORMS=cpu python jax_frame_reference.py rgl_camera_grad
@@ -72,6 +76,13 @@ port's tests' JAX side) and rendered with render_frame as the apps render
 them: 480x200 (16 spp, 5 path components), 320x320 (16 spp, 4) and 560x180
 (16 spp, 8), in passes of 8 samples (examples/_common.py's pick), under
 jax.jit with the scene as an argument (~1-3 minutes each).
+participating_media and stagelights are the example apps with
+participating media (examples/participating_media.py, stagelights.py),
+built as the apps build them (`jax_media_scene`) and rendered the same way:
+256x192 (16 spp in one pass, 12 path components) and 480x270 (25 spp in
+passes of 5, 8 path components; ~10 minutes). aov_normalmap and
+aov_cornell_animated print get_ground_truth's channel means and hit count
+(`_aov_report`).
 
 rolling_marbles, animations and cornell_animated_blur are the
 motion-blurred frames (kernel_check.MOTION_FRAMES): frame 0 of
@@ -291,6 +302,73 @@ def jax_example_scene(name, normal_map_size=256):
     return scene.build(), cam
 
 
+def jax_media_scene(name):
+    """The example apps with participating media built with the JAX
+    package's builder as the apps build them (examples/participating_media.py,
+    stagelights.py; the bumpy normal map is the port's copy,
+    wurblpt_tpu_torch.utils.scenes.bumpy_normal_map): the SceneArrays and
+    the camera's pose (a Transformation) and vfov_deg."""
+    import numpy as np
+
+    from wurblpt_tpu.core.transform import Transformation, from_lookat, quat_from_axis_angle
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.scene import generator as G
+    from wurblpt_tpu.utils.scenes import _quad_to
+    from wurblpt_tpu_torch.utils import scenes as port_scenes
+
+    scene = B.Scene()
+    if name == "participating_media":
+        floor = scene.take_material(B.Lambertian(albedo=(0.4, 0.4, 0.45)))
+        fm, ftf = _quad_to((0, -1.0, 0), (1, 0, 0), -np.pi / 2, half=10.0)
+        scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+        light = scene.take_material(B.LightDiffuse(radiance=(14.0, 12.0, 10.0)))
+        scene.take_sphere(B.SphereObject((0.0, 1.6, -2.0), 0.35, light), hot_spot=True)
+        red = scene.take_material(B.Lambertian(albedo=(0.7, 0.2, 0.2)))
+        scene.take_sphere(B.SphereObject((-0.8, -0.6, -0.4), 0.4, red))
+        scene.take_medium(B.MediumObject(boundary=B.SphereObject((0.4, 0.0, -0.8), 1.0, 0),
+                                         density=1.5, phase=B.PhaseIso(albedo=(0.9, 0.9, 0.9))))
+        return scene.build(), (from_lookat((0, 0.4, 3.2), (0, 0, -0.8)), 45.0)
+    white = scene.take_material(B.Lambertian(albedo=(0.8, 0.8, 0.8)))
+
+    def wall(translate, axis, deg):
+        tf = B.Transformation.make(
+            translation=translate,
+            rotation=quat_from_axis_angle(np.asarray(axis, np.float32), np.deg2rad(deg)),
+            scale=(5.0, 5.0, 5.0))
+        scene.take_mesh_instance(B.MeshInstance(G.generate_quad(1.0, 1.0), white, tf))
+
+    wall((-2.6, 0.0, 0.0), (0, 1, 0), +90)
+    wall((+2.6, 0.0, 0.0), (0, 1, 0), -90)
+    wall((0.0, 0.0, +5.0), (0, 1, 0), 180)
+    wall((0.0, 0.0, -4.6), (0, 1, 0), 0)
+    wall((0.0, -2.499, 0.0), (1, 0, 0), +90)
+    wall((0.0, -5.0, 0.0), (1, 0, 0), -90)
+    modphong = B.ModPhong(diffuse=(0.5, 0.5, 0.5), specular=(0.5, 0.5, 0.5), shininess=120.0)
+    tra0 = Transformation.make(translation=(-1.5, -4.7, -4.0),
+                               rotation=quat_from_axis_angle((0, 1, 0), np.deg2rad(30.0)),
+                               scale=(0.3,) * 3)
+    scene.take_mesh_instance(B.MeshInstance(G.generate_torus(1.0, 0.4, 64, 48), modphong, tra0))
+    tra1 = Transformation.make(translation=(-0.5, -4.7, -4.0),
+                               rotation=quat_from_axis_angle((0, 1, 0), np.deg2rad(160.0)),
+                               scale=(0.3,) * 3)
+    scene.take_mesh_instance(B.MeshInstance(G.generate_octahedron(), B.Glass(ior=1.5), tra1))
+    scene.take_medium(B.MediumObject(boundary=B.MeshInstance(G.generate_octahedron(), 0, tra1),
+                                     density=2.5, phase=B.PhaseIso(albedo=(1.0, 1.0, 1.0))))
+    nmap = B.ImageTexture(image=port_scenes.bumpy_normal_map(), srgb=False)
+    scene.take_sphere(B.SphereObject((0.5, -4.7, -4.0), 0.3, B.Glass(ior=1.5, normal_map=nmap)))
+    ggx = B.GGX(albedo=(1.0, 1.0, 1.0), roughness=(0.01, 0.1))
+    tra3 = Transformation.make(translation=(1.5, -4.7, -4.0), scale=(0.3,) * 3)
+    scene.take_mesh_instance(B.MeshInstance(G.generate_icosahedron(), ggx, tra3))
+    lrot = quat_from_axis_angle((1, 0, 0), np.deg2rad(90.0))
+    for i, col in enumerate(port_scenes.STAGE_SPOT_COLORS):
+        lm = scene.take_material(B.LightSpot(radiance=col, half_angle=np.deg2rad(20.0)))
+        lt = Transformation.make(translation=(-1.5 + i, -2.5, -4.0), rotation=lrot,
+                                 scale=(0.3,) * 3)
+        scene.take_mesh_instance(B.MeshInstance(G.generate_quad(1.0, 1.0), lm, lt),
+                                 hot_spot=True)
+    return scene.build(), (Transformation.make(translation=(0.0, -4.5, -1.2)), 50.0)
+
+
 def _example(name):
     import jax
 
@@ -300,9 +378,12 @@ def _example(name):
     from wurblpt_tpu_torch.utils import kernel_check as kc
 
     width, height, ssqrt, depth, spp_pass = kc.EXAMPLE_FRAMES[name]
-    scene, (eye, center, vfov) = jax_example_scene(name)
-    cam = make_camera(transformation=from_lookat(eye, center), vfov_deg=vfov, width=width,
-                      height=height)
+    if name in kc.MEDIA_FRAMES:
+        scene, (pose, vfov) = jax_media_scene(name)
+    else:
+        scene, (eye, center, vfov) = jax_example_scene(name)
+        pose = from_lookat(eye, center)
+    cam = make_camera(transformation=pose, vfov_deg=vfov, width=width, height=height)
     static = SceneStatic.from_scene(scene)
     fn = jax.jit(lambda s, c: render_frame(
         s, static, c, CameraConfig(), SensorRGB(), width, height, ssqrt,
@@ -569,6 +650,35 @@ def _tof_report():
                       "max_abs_err_m": float(err.max()), "lit_pixels": int(lit.sum())}))
 
 
+def _aov_report(name):
+    """get_ground_truth with every channel of ALL_AOVS on the normalmap
+    scene at 320 x 320 (its app's camera), or on the animated Cornell box
+    at 128 x 128 (t 0.5, the flows to 0.25 and 0.75): each channel's float64
+    mean and the hit count (kernel_check.AOV_REFS)."""
+    import numpy as np
+
+    from wurblpt_tpu import CameraConfig, SceneStatic, make_camera
+    from wurblpt_tpu.core.transform import from_lookat
+    from wurblpt_tpu.render.aov import ALL_AOVS, get_ground_truth
+    from wurblpt_tpu_torch.utils import kernel_check as kc
+
+    width, t, t_prev, t_next = kc.AOV_FRAMES[name]
+    if name == "normalmap":
+        scene, (eye, center, vfov) = jax_example_scene("normalmap")
+    else:
+        scene = jax_cornell_animated(t=t)
+        eye, center, vfov = (0.0, 1.0, 3.2), (0.0, 1.0, -1.0), 50.0   # cornell_ref_camera
+    cam = make_camera(transformation=from_lookat(eye, center), vfov_deg=vfov, width=width,
+                      height=width)
+    t0 = time.perf_counter()
+    gt = get_ground_truth(scene, SceneStatic.from_scene(scene), cam, CameraConfig(), width,
+                          width, t=t, t_prev=t_prev, t_next=t_next, aovs=ALL_AOVS)
+    print(json.dumps({"aov": name, "means": {k: float(np.asarray(v, np.float64).mean())
+                                             for k, v in gt.items()},
+                      "hits": int(np.asarray(gt["hit_mask"]).sum()),
+                      "render_s": time.perf_counter() - t0}))
+
+
 FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
           "cornell_animated": _cornell_animated,
           "rtiow_bvh": lambda: _rtiow(n=22, use_bvh=True),
@@ -576,12 +686,14 @@ FRAMES = {"city": _city, "envmap": _envmap, "rtiow": _rtiow, "tof": None,
           "noise_textures": lambda: _example("noise_textures"),
           "normalmap": lambda: _example("normalmap"),
           "material_comparison": lambda: _example("material_comparison"),
+          "participating_media": lambda: _example("participating_media"),
+          "stagelights": lambda: _example("stagelights"),
           "rolling_marbles": lambda: _motion("rolling_marbles"),
           "animations": lambda: _motion("animations"),
           "cornell_animated_blur": lambda: _motion("cornell_animated_blur"),
           "rtiow_dof": _rtiow_dof,
           "rgl_grad_tables": None, "rgl_grad_tables_128": None, "rgl_camera_grad": None,
-          "sky_yaw_grad": None}
+          "sky_yaw_grad": None, "aov_normalmap": None, "aov_cornell_animated": None}
 
 
 def main():
@@ -600,6 +712,8 @@ def main():
         return _rgl_camera_grad()
     if name == "sky_yaw_grad":
         return _sky_yaw_grad()
+    if name.startswith("aov_"):
+        return _aov_report(name[4:])
     t0 = time.perf_counter()
     scene, render = FRAMES[name]()
     t_build = time.perf_counter() - t0

@@ -5,7 +5,8 @@ its own layout and is compared by test_torch_bvh.py), the texture tables'
 float16 image stacks and the materials' texture ids among them.
 
 Cases: the three example apps' scenes (noise_textures, normalmap with a
-32^2 map, material_comparison), the textured quad of
+32^2 map, material_comparison), the two with participating media
+(participating_media, stagelights), the textured quad of
 tests/test_gradients_breadth.py, and one scene that takes every descriptor
 the slice renders: ModPhong with textured diffuse, specular, opacity and
 emission, a normal map, a two-sided material, images in grey + alpha, RGB
@@ -16,8 +17,10 @@ rotation and the surround x convention, and the uniform light pick. An
 importance-sampled sky's tables come from each package's own radiance
 lookup (pdf table to rtol 1e-5, acceptance probabilities to atol 1e-5, as
 test_torch_scene.py holds them). An odd-width surround equirect raises
-ValueError, as in the JAX package (ROADMAP C.2), and a medium is refused
-until media are ported (ROADMAP A.8)."""
+ValueError, as in the JAX package (ROADMAP C.2). Media (a sphere boundary
+with a transformation, a mesh boundary, three media two of which share an
+inline phase function) build as the JAX builder builds them, their
+MediumArrays included."""
 
 import sys
 from pathlib import Path
@@ -135,6 +138,10 @@ CASES = {
     "textured_quad": (lambda: _textured_quad(B, device="cpu"), lambda: _textured_quad(JB)),
     "every_descriptor": (lambda: _everything(B, Transformation, G, device="cpu"),
                          lambda: _everything(JB, JTransformation, JG)),
+    "participating_media": (lambda: scenes.participating_media(device="cpu"),
+                            lambda: jfr.jax_media_scene("participating_media")[0]),
+    "stagelights": (lambda: scenes.stagelights(device="cpu"),
+                    lambda: jfr.jax_media_scene("stagelights")[0]),
 }
 
 
@@ -184,13 +191,43 @@ def test_odd_width_surround_equirect_raises(M):
         sc.build(**({} if M is JB else dict(device="cpu")))
 
 
-def test_a_medium_is_refused():
-    sc = B.Scene()
-    sc.take_mesh_instance(B.MeshInstance(G.generate_quad(), B.Lambertian()))
-    sc.take_medium(B.MediumObject(B.SphereObject((0, 0, 0), 1.0, B.PhaseIso()), 1.0,
-                                  B.PhaseIso()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        sc.build(device="cpu")
+def _media(M, T, Gen, kind, **build):
+    """A quad and media in builder module M: a sphere boundary with a
+    transformation (its translation and largest scale apply), a mesh
+    boundary (an octahedron turned, scaled and moved), or both, overlapping,
+    added mesh first (the rows are ordered by medium); inline phase
+    functions, one shared by two media."""
+    sc = M.Scene()
+    sc.take_mesh_instance(M.MeshInstance(Gen.generate_quad(), M.Lambertian()))
+    shared = M.PhaseIso(albedo=(0.9, 0.8, 0.7))
+    sphere = M.MediumObject(M.SphereObject((0.1, 0.2, 0.3), 1.0, M.PhaseIso(),
+                                           T.make(translation=(0.5, 0.0, -1.0),
+                                                  scale=(1.0, 2.0, 1.5))), 1.5, shared)
+    octa = M.MediumObject(M.MeshInstance(Gen.generate_octahedron(), 0, T.make(
+        translation=(0.2, 0.1, -0.6), scale=(0.8,) * 3)), 2.5, M.PhaseIso(albedo=(1.0,) * 3))
+    for med in {"sphere": [sphere], "mesh": [octa], "both": [octa, sphere,
+                                                              M.MediumObject(sphere.boundary,
+                                                                             0.3, shared)]}[kind]:
+        sc.take_medium(med)
+    return sc.build(**build)
+
+
+@pytest.mark.parametrize("kind", ["sphere", "mesh", "both"])
+def test_media_build_as_the_jax_builder_builds_them(kind):
+    """The scene with its MediumArrays equal to the JAX build's, carried
+    across by scene_from_numpy (ordered by medium, with each medium's row
+    offsets), and each phase function a PHASE_ISO row of the table."""
+    ours = _media(B, Transformation, G, kind, device="cpu")
+    ref = _port_of(_media(JB, JTransformation, JG, kind))
+    _same_scene(ours, ref)
+    md = ours.media
+    assert md.count == {"sphere": 1, "mesh": 1, "both": 3}[kind]
+    assert (ours.materials.typ[md.phase_mat.long()] == 6).all()
+    assert md.tri_off.tolist()[-1] == md.tri_p0.shape[0]
+    assert md.sph_off.tolist()[-1] == md.sph_center.shape[0]
+    if kind == "both":
+        assert md.phase_mat[1] == md.phase_mat[2] != md.phase_mat[0]
+        assert md.tri_off.tolist() == [0, 8, 8, 8] and md.sph_off.tolist() == [0, 0, 1, 2]
 
 
 def test_inline_materials_are_registered_once():

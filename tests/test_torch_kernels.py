@@ -1,7 +1,7 @@
 """The hand-written kernels (K1 closest hit, K2 any hit, K3 hit assembly and
 its animated branch K3a, both also in their K4 form, the sweeps KS1/KS2, K5 BVH closest hit, K6 BVH
 any hit, K7 RGL eval/sample, K8 envmap with its equirect, cube and constant
-branches, P0 row gather) against their plain PyTorch versions, with the
+branches, P0 row gather, KM participating media) against their plain PyTorch versions, with the
 tolerances of utils/kernel_check.py.
 
 Tests marked `cuda` need an NVIDIA GPU with nvcc and skip without one. This
@@ -1079,3 +1079,19 @@ def test_k4_form_kernel_bit_equal_on_the_frames_first_block(gpu, frame):
     res = kc.check_assemble_hit_k4(ht, args, frames, fields)
     torch.cuda.synchronize()
     assert 0 < res["hits"] < res["lanes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["random segments", "closest", "light NEE"])
+def test_apply_media_kernel_matches_plain(gpu, lanes):
+    """KM against its plain version on participating_media: 1000 random
+    segments around the fog sphere, and the app's first pass's bounce-0
+    closest and light-NEE lanes (kernel_check.check_apply_media's tolerances)."""
+    scene = scenes.participating_media(device=gpu)
+    if lanes == "random segments":
+        args = kc.media_random_lanes(scene)
+    else:
+        args = kc.media_lanes("participating_media", gpu, scene)[lanes == "light NEE"]
+    res = kc.check_apply_media(args)
+    torch.cuda.synchronize()
+    assert res["medium_lanes"] > 0, res

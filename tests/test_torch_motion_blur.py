@@ -13,7 +13,9 @@ over a shutter [t0, t1], on the CPU (the kernels' plain versions).
   against the JAX BVH walk with per-ray object rays and against the port's
   sweep (prim ids equal off ties, t rtol 1e-4).
 * `render_frame` over a shutter against the JAX package's on
-  tests/test_shading_features.py:257's moving light (32 x 32, 4 spp), on
+  tests/test_shading_features.py:257's moving light (32 x 32, 4 spp) and
+  a moving sphere hot spot over a floor (32 x 32, 4 spp, 3 path
+  components: NEE toward the sphere at each ray's time), on
   frame 0 of examples/rolling_marbles.py at 32 x 18 (4 spp, 3 path
   components) and examples/animations.py at 24 x 18, and on the animated
   box with spheres in a BVH swept over [0, 1] (24 x 24, 4 spp): the mean
@@ -231,6 +233,22 @@ def _moving_light():
     return js, (JT.make(translation=(0.0, 0.0, 2.5)), 50.0), (0.0, 1.0)
 
 
+def _moving_sphere_light():
+    """A sphere hot spot keyframed from x = -0.6 to 0.6 over [0, 1] above a
+    floor quad, seen from z = 2.5: NEE toward the sphere where it is at each
+    ray's time (its per-ray forward frame)."""
+    sc = JB.Scene()
+    aid = sc.take_animation(JB.AnimationKeyframes([0.0, 1.0], [
+        JT.make(translation=(-0.6, 0.0, 0.0)), JT.make(translation=(0.6, 0.0, 0.0))]))
+    sc.take_mesh_instance(JB.MeshInstance(mesh=jquad(1.5, 1.5),
+                                          material=JB.Lambertian(albedo=(0.7, 0.6, 0.5)),
+                                          transformation=JT.make(translation=(0.0, 0.0, -0.6))))
+    sc.take_sphere(JB.SphereObject((0.0, 0.0, 0.0), 0.15, JB.LightDiffuse(radiance=(4, 4, 4)),
+                                   animation=aid), hot_spot=True)
+    js = sc.build(t0=0.0, t1=1.0)
+    return js, (JT.make(translation=(0.0, 0.0, 2.5)), 50.0), (0.0, 1.0)
+
+
 def _motion(name):
     js, (pose, vfov) = jfr.jax_motion_scene(name)
     if not isinstance(pose, JT):
@@ -240,6 +258,7 @@ def _motion(name):
 
 # (scene, width, height, samples_sqrt, path components)
 CASES = {"moving light": (_moving_light, 32, 32, 2, 2),
+         "moving sphere light": (_moving_sphere_light, 32, 32, 2, 3),
          "rolling_marbles": (lambda: _motion("rolling_marbles"), 32, 18, 2, 3),
          "animations": (lambda: _motion("animations"), 24, 18, 2, 3),
          "cornell_animated_blur": (lambda: _motion("cornell_animated_blur"), 24, 24, 2, 3)}

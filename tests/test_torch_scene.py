@@ -285,9 +285,31 @@ def _medium_scene():
     return scene.build()
 
 
+@pytest.mark.parametrize("build", [lambda: _quad_scene(B.PhaseIso()), _medium_scene],
+                         ids=["phase_material", "medium"])
+def test_phase_function_and_media_come_across(build):
+    """The phase function and media, refused here before, are in the slice:
+    check_slice takes them, and scene_from_numpy carries the JAX scene's
+    media (boundaries, densities, phase materials) across unchanged, the
+    rows ordered by medium with their offsets."""
+    jscene = build()
+    scene = _port_of(jscene)
+    st = SceneStatic.from_scene(scene)
+    st.check_slice()
+    assert 6 in st.mat_types
+    jm = jscene.media
+    assert st.has_media == (int(jm.density.shape[0]) > 0)
+    if not st.has_media:
+        assert scene.media is None
+        return
+    md = scene.media
+    for f in ("tri_p0", "tri_e1", "tri_e2", "tri_med", "sph_center", "sph_radius", "sph_med",
+              "density", "phase_mat"):
+        np.testing.assert_array_equal(getattr(md, f).numpy(), np.asarray(getattr(jm, f)), f)
+    assert md.sph_off.tolist() == [0, 1] and md.tri_off.tolist() == [0, 0]
+
+
 @pytest.mark.parametrize("build, feature", [
-    (lambda: _quad_scene(B.PhaseIso()), "material types [6]"),
-    (_medium_scene, "participating media (ROADMAP A.8)"),
     (lambda: jscenes.envmap_spheres(cube=False, importance_resolution=0).build(),
      "environment map kind 1 without importance sampling"),
 ])

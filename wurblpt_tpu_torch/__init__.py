@@ -13,10 +13,12 @@ or stereo), SensorRGB and the AMCW time-of-flight sensor SensorTofAmcw:
 Lambertian, GGX, mirror, glass, ModPhong, measured RGL, diffuse-, spot- and
 ToF-light materials, triangles and analytic spheres, triangle and sphere hot
 spots with mixture or per-light MIS, an importance-sampled equirect sky, a
-cube-map sky with or without importance sampling, a constant sky, on the brute-force
+cube-map sky with or without importance sampling, a constant sky,
+homogeneous participating media with the isotropic phase function (KM,
+:mod:`.render.media`; the generic bounce), on the brute-force
 intersector or the port's BVH (triangle and sphere leaves, static or
-animated), and OBJ/MTL export and import (see
-ROADMAP.md for the rest). Scenes of the diffuse class (Lambertian surfaces,
+animated), the ground-truth AOVs (`get_ground_truth`, :mod:`.render.aov`)
+and OBJ/MTL export and import (see ROADMAP.md for the rest). Scenes of the diffuse class (Lambertian surfaces,
 triangle lights, no sky, a pinhole camera without distortion) take one
 wavefront step as hand-written kernels (K4, :mod:`.render.wavefront`).
 The pass renderer (`render_frame`) renders the same paths, takes sphere
@@ -30,6 +32,7 @@ Scene, camera and table builders build on the GPU unless told otherwise.
 """
 
 from .core.transform import Transformation, from_lookat  # noqa: F401
+from .render.aov import ALL_AOVS, get_ground_truth  # noqa: F401
 from .render.bsdf import SceneStatic  # noqa: F401
 from .render.camera import CameraConfig, CameraParams, camera_rays, make_camera  # noqa: F401
 from .render.integrator import (  # noqa: F401
@@ -41,6 +44,7 @@ from .render.integrator import (  # noqa: F401
     render_frame_wavefront,
     trace_paths,
 )
+from .render.media import apply_media  # noqa: F401
 from .render.sensor import SensorRGB, SensorTofAmcw  # noqa: F401
 from .scene.builder import (  # noqa: F401
     GGX,
@@ -67,4 +71,4 @@ from .scene.builder import (  # noqa: F401
     Scene,
     SphereObject,
 )
-from .scene.ir import SceneArrays, TextureType, scene_from_numpy  # noqa: F401
+from .scene.ir import MediumArrays, SceneArrays, TextureType, scene_from_numpy  # noqa: F401

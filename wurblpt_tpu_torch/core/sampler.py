@@ -1,5 +1,5 @@
-"""Sampling warps (port of ``wurblpt_tpu/core/sampler.py``, the subset the
-ported slice uses): uniforms in [0, 1) -> geometric distributions."""
+"""Sampling warps (port of ``wurblpt_tpu/core/sampler.py``): uniforms in
+[0, 1) -> geometric distributions."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import math
 import torch
 
 from .onb import onb_from_normal, to_world
-from .vecmath import safe_sqrt
+from .vecmath import normalize, safe_sqrt
 
 _PI = math.pi
 
@@ -25,6 +25,22 @@ def in_unit_disk(u):
         use_x, (_PI / 4.0) * (oy / safe_ox), (_PI / 2.0) - (_PI / 4.0) * (ox / safe_oy))
     r = torch.where((ox == 0.0) & (oy == 0.0), 0.0, r)
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+
+
+def on_unit_sphere(u):
+    """Uniform direction on the unit sphere from u[..., 2]."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * _PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def on_unit_hemisphere(u):
+    """Uniform direction on the +z hemisphere from u[..., 2]."""
+    z = u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * _PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
 
 
 def in_triangle(u):
@@ -53,6 +69,14 @@ def cone_direction_local(cos_theta_max, u):
     r = safe_sqrt(1.0 - z * z)
     phi = 2.0 * _PI * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def to_sphere(center_dir, cos_theta_max, u):
+    """Uniform direction in the cone subtended by a sphere seen along
+    center_dir; cos_theta_max broadcasts against u[..., 0]."""
+    axis = normalize(center_dir)
+    t, b = onb_from_normal(axis)
+    return to_world(cone_direction_local(cos_theta_max, u), t, b, axis)
 
 
 def power_heuristic(pdf_a, pdf_b):

@@ -71,6 +71,23 @@ def quat_mul(a, b):
                         aw * bw - ax * bx - ay * by - az * bz], -1)
 
 
+def quat_conjugate(q):
+    """The inverse rotation of a unit quaternion [..., 4]."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], -1)
+
+
+def transform_point(tf: Transformation, p):
+    """Scale, rotate, then translate points p [..., 3]."""
+    return quat_rotate(tf.rotation, p * tf.scale) + tf.translation
+
+
+def inverse(tf: Transformation) -> Transformation:
+    """The inverse pose (transform.py `inverse`; exact for uniform scales)."""
+    inv_rot = quat_conjugate(tf.rotation)
+    inv_scale = 1.0 / tf.scale
+    return Transformation(-quat_rotate(inv_rot, tf.translation) * inv_scale, inv_rot, inv_scale)
+
+
 def quat_rotate(q, v):
     """Rotate v by unit quaternion q (v + 2w(u x v) + 2 u x (u x v))."""
     u = q[..., :3]

@@ -40,7 +40,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("closest_hit.cu", "any_hit.cu", "assemble_hit.cu", "bvh_closest.cu", "bvh_any.cu",
            "envmap.cu", "rgl.cu", "row_gather.cu", "wavefront.cu", "sweep_closest.cu",
-           "sweep_any.cu", "backward.cu")
+           "sweep_any.cu", "backward.cu", "media.cu")
 HEADERS = ("backward_common.cuh", "brute_common.cuh", "bvh_common.cuh", "envmap_common.cuh",
            "live_queue.cuh", "rgl_common.cuh", "sweep_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,7 +59,7 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "assemble_hit": 0, "assemble_hit_ani
             "shade_diffuse": 0, "shade_env": 0, "shade_lit": 0, "nee_resolve": 0,
             "row_scatter": 0, "assemble_hit_bwd": 0, "assemble_hit_anim_bwd": 0,
             "env_radiance_bwd": 0, "env_radiance_bwd_rot": 0, "env_sample_bwd": 0, "rgl_bwd": 0,
-            "rgl_bwd_full": 0}
+            "rgl_bwd_full": 0, "apply_media": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -113,6 +113,7 @@ _SIGNATURES = {
     "wpt_env_radiance_bwd": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "wpt_env_sample_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "wpt_rgl_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "wpt_apply_media": [_P] * 10 + [_I, _I] + [_P] * 9 + [_I, _I] + [_P] * 7,
 }
 
 

@@ -1,5 +1,6 @@
 """BSDF sampling / evaluation / emission (port of ``wurblpt_tpu/render/bsdf.py``
-for LAMBERTIAN, GGX, MIRROR, GLASS, MODPHONG, RGL and the LIGHT_DIFFUSE,
+for LAMBERTIAN, GGX, MIRROR, GLASS, MODPHONG, RGL, the isotropic phase
+function PHASE_ISO of participating media and the LIGHT_DIFFUSE,
 LIGHT_SPOT and LIGHT_TOF materials).
 
 Lobes are evaluated for the material types present in the scene
@@ -8,7 +9,8 @@ cosine-sampled Lambertian, anisotropic GGX with Heitz's VNDF sampling
 (material_ggx.hpp:89-171), the mirror and the dispersive glass
 (material_glass.hpp:97-141) as delta (EXPLICIT) lobes, the
 energy-normalized modified Phong with its opacity pass-through
-(material_modphong.hpp:192-263), and the measured RGL BRDF through K7
+(material_modphong.hpp:192-263), the isotropic phase function (a uniform
+direction on the sphere, albedo / 4 pi), and the measured RGL BRDF through K7
 (:mod:`wurblpt_tpu_torch.materials.rgl`).
 
 Material attributes reach the lanes through one packed row per lane, fetched
@@ -41,14 +43,15 @@ from .intersect import HitRecord
 from .texture import TexCtx, material_albedo, material_emissive
 
 _INV_PI = 1.0 / math.pi
+_INV_4PI = 1.0 / (4.0 * math.pi)
 _TWO_PI = 2.0 * math.pi
 # x / (2 pi) as XLA evaluates it: x times float32(1) / float32(2 pi).
 _INV_TWO_PI = float(np.float32(1.0) / np.float32(_TWO_PI))
 
 SLICE_MATERIALS = frozenset({MaterialType.LAMBERTIAN, MaterialType.GGX, MaterialType.MIRROR,
                              MaterialType.GLASS, MaterialType.MODPHONG, MaterialType.RGL,
-                             MaterialType.LIGHT_DIFFUSE, MaterialType.LIGHT_SPOT,
-                             MaterialType.LIGHT_TOF})
+                             MaterialType.PHASE_ISO, MaterialType.LIGHT_DIFFUSE,
+                             MaterialType.LIGHT_SPOT, MaterialType.LIGHT_TOF})
 LIGHT_MATERIALS = frozenset({MaterialType.LIGHT_DIFFUSE, MaterialType.LIGHT_SPOT,
                              MaterialType.LIGHT_TOF})
 # The lobes evaluated when a caller names no types: all but RGL, which needs tables.
@@ -112,12 +115,11 @@ class SceneStatic(NamedTuple):
     def check_slice(self) -> None:
         """Raise NotImplementedError for any scene feature outside the ported slice."""
         off = {
-            f"material types {sorted(self.mat_types - SLICE_MATERIALS)} (the phase function: "
-            "ROADMAP A.8)": bool(self.mat_types - SLICE_MATERIALS),
+            f"material types {sorted(self.mat_types - SLICE_MATERIALS)}":
+                bool(self.mat_types - SLICE_MATERIALS),
             f"environment map kind {self.env_kind}"
             f"{'' if self.env_importance else ' without importance sampling'} (ROADMAP A.5)":
                 not (self.env_kind in (0, 2, 3) or (self.env_kind == 1 and self.env_importance)),
-            "participating media (ROADMAP A.8)": self.has_media,
             "RGL materials without tables (materials.rgl.stack_rgl_tables)":
                 MaterialType.RGL in self.mat_types and not self.rgl_tables,
         }
@@ -403,6 +405,13 @@ def bsdf_sample(hr: HitRecord, ray_dir, ray_ior, u4, u_lobe, u_chan, mrow: MatRo
         pdf = torch.where(sel, torch.where(pass_through, 1.0, p), pdf)
         ior = torch.where((sel & pass_through)[:, None],
                           torch.where(hr.backside, 1.0, mp_ior)[:, None], ior)
+    if MaterialType.PHASE_ISO in mat_types:
+        # The isotropic phase function (bsdf.py:594-602): a uniform direction.
+        sel = mrow.typ == MaterialType.PHASE_ISO
+        kind = torch.where(sel, ScatterKind.RANDOM, kind)
+        direction = torch.where(sel[:, None], sampler.on_unit_sphere(u2), direction)
+        atten = torch.where(sel[:, None], albedo * _INV_4PI, atten)
+        pdf = torch.where(sel, _INV_4PI, pdf)
     if MaterialType.RGL in mat_types:
         from ..materials.rgl import rgl_sample_lanes
 
@@ -444,6 +453,10 @@ def bsdf_eval(hr: HitRecord, ray_dir, wd, mrow: MatRow, mat_types=ANALYTIC_MATER
         sel = mrow.typ == MaterialType.MODPHONG
         fcos = torch.where(sel[:, None], f_m, fcos)
         pdf = torch.where(sel, p_m, pdf)
+    if MaterialType.PHASE_ISO in mat_types:
+        sel = mrow.typ == MaterialType.PHASE_ISO
+        fcos = torch.where(sel[:, None], albedo * _INV_4PI, fcos)
+        pdf = torch.where(sel, _INV_4PI, pdf)
     if MaterialType.RGL in mat_types:
         from ..materials.rgl import rgl_eval_lanes
 

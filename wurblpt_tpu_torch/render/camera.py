@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import sampler
-from ..core.transform import Transformation, quat_mul, quat_rotate
+from ..core.transform import Transformation, quat_conjugate, quat_mul, quat_rotate
 from ..core.vecmath import normalize
 
 
@@ -267,3 +267,30 @@ def camera_rays(cam: CameraParams, cfg: CameraConfig, pixel_xy, width: int, heig
     d_world = quat_rotate(tf.rotation, normalize(d_cam))
     o_world = quat_rotate(tf.rotation, o_cam * tf.scale) + tf.translation
     return o_world, d_world, time
+
+
+def camera_space_to_image_space(cam: CameraParams, cfg: CameraConfig, p_cam, width: int,
+                                height: int):
+    """Pixel coordinates [N, 2] of camera-space points p_cam [N, 3]
+    (camera.py:273-294, camera.hpp:205-217), off-screen ones too: the
+    pinhole through the lens model's forward distortion, or the equirect
+    surround camera's angles."""
+    if cfg.surround == SurroundMode.OFF:
+        z = torch.clamp_max(p_cam[..., 2], -1e-6)
+        # the inverse of camera_rays: normalized image coordinates (-x / z, y / z)
+        xy = torch.stack([-p_cam[..., 0] / z, p_cam[..., 1] / z], -1)
+        dist = distort_normalized(cam, cfg, xy)
+        return torch.stack([dist[..., 0] * cam.focal_px[0] + cam.center_px[0],
+                            dist[..., 1] * cam.focal_px[1] + cam.center_px[1]], -1)
+    span = math.pi if cfg.surround == SurroundMode.S360 else math.pi / 2.0
+    d = normalize(p_cam)
+    phi = torch.atan2(d[..., 0], -d[..., 2])
+    theta = torch.asin(torch.clamp(d[..., 1], -1.0, 1.0))
+    return torch.stack([(phi * _recip(span) + 1.0) * 0.5 * width,
+                        (0.5 - theta * _recip(math.pi)) * height], -1)
+
+
+def world_to_camera(cam: CameraParams, p_world):
+    """World points [N, 3] in the camera's frame (camera.py:297-299)."""
+    tf = cam.transformation
+    return quat_rotate(quat_conjugate(tf.rotation), p_world - tf.translation) / tf.scale

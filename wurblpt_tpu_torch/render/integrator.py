@@ -126,6 +126,7 @@ from .intersect import (
 from .intersect_brute import BIG, brute_eligible, build_brute_scene
 from .intersect_sweep import build_sweep_scene
 from .lights import light_frames, pick_area_table
+from .media import apply_media
 from .texture import TexCtx, apply_textures
 from .wavefront import (
     LoopState,
@@ -278,13 +279,29 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
     env = scene.envmap
     dev = scene.device
     t_min = torch.full((n,), params.min_hit_distance, dtype=torch.float32, device=dev)
+    has_media = static.has_media
+
+    def cast(o, d, t_max, pixel_id, sample_id, k, salt_ctx):
+        """The closest cast, and in a scene with media KM after it
+        (integrator.py:374-395): (t, prim, u, v, med_mask, med_mat); a lane
+        that scatters in medium m has prim n_tris + n_spheres + m."""
+        t, prim, u, v = scene_raw_hit(accel, o, d, t_min, t_max, frames)
+        if not has_media:
+            return t, prim, u, v, None, None
+        return apply_media(scene, o, d, t_min, t, prim, u, v, pixel_id, sample_id, k, salt_ctx)
 
     def body(st: LoopState, pixel_id, sample_id) -> LoopState:
         k = st.bounce
         acc = st.acc
-        t, prim, u, v = scene_raw_hit(accel, st.o, st.d, t_min,
-                                      torch.where(st.active, BIG, 0.0), frames)
+        t, prim, u, v, med_mask, med_mat = cast(st.o, st.d, torch.where(st.active, BIG, 0.0),
+                                                pixel_id, sample_id, k, 0)
         hit = (prim >= 0) & st.active
+        # With media the NEE shadow rays are closest casts followed by KM
+        # (salt_ctx 1 for the light's, 2 for the sky's; integrator.py:573-582,
+        # :657-663): a medium scatter blocks them as a solid blocker would.
+        shadow = None if not has_media else (
+            lambda o, d, t_max, salt_ctx: cast(o.contiguous(), d.contiguous(), t_max, pixel_id,
+                                               sample_id, k, salt_ctx)[:2])
 
         # Environment on a miss, MIS-weighted against env NEE.
         if has_env:
@@ -292,6 +309,16 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
 
         hr = assemble_hit(ht, st.o, st.d, t, prim, u, v, frames)
         t = hr.t   # the winner's distance, on the tape where o, d or the geometry are
+        if has_media:
+            # A medium scatter takes the phase material, a frame facing the
+            # ray and uv 0 (hitable_medium.hpp:94-97; integrator.py:476-490),
+            # before the material rows are gathered.
+            mm = med_mask[:, None]
+            hr = hr._replace(mat=torch.where(med_mask, med_mat, hr.mat),
+                             normal=torch.where(mm, -st.d, hr.normal),
+                             geom_normal=torch.where(mm, -st.d, hr.geom_normal),
+                             backside=hr.backside & ~med_mask,
+                             uv=torch.where(mm, 0.0, hr.uv))
         mrow = gather_material_rows(mat_packed, hr.mat, None if tex is None else tex.ids)
         # The normal map perturbs the shading frame before any emission,
         # scatter or evaluation (integrator.py:495); the textured colours
@@ -312,20 +339,27 @@ def _make_bounce_fn(scene: SceneArrays, static: SceneStatic, tables: SceneTables
         light_pdf_next = None
         if has_lights:
             u3 = uniform4(pixel_id, sample_id, k, Salt.NEE_SAMPLE)[:, :3]
-            ldir, t_shadow, pending, light_pdf_next = light_nee(
-                scene, sensor, params, st, hr, mrow, mat_types, rgl, sr.direction, is_random,
-                geom_len, opt_len, u3, mat_packed, per_light, lframes, tex)
-            occluded = scene_any_hit(accel, hr.position, ldir, t_min, t_shadow, frames)
-            acc = deposit_unoccluded(acc, pending, occluded)
+            nee = (scene, sensor, params, st, hr, mrow, mat_types, rgl, sr.direction, is_random,
+                   geom_len, opt_len, u3, mat_packed, per_light, lframes, tex)
+            if shadow is None:
+                ldir, t_shadow, pending, light_pdf_next = light_nee(*nee)
+                occluded = scene_any_hit(accel, hr.position, ldir, t_min, t_shadow, frames)
+                acc = deposit_unoccluded(acc, pending, occluded)
+            else:   # visibility resolved by the closest cast inside light_nee
+                _, _, pending, light_pdf_next = light_nee(*nee, shadow=shadow)
+                acc = acc + pending
 
         # Env NEE: shadow ray to BIG, unoccluded lanes see the sky's radiance
         # in the sampled direction.
         if env_is:
             ue = uniform4(pixel_id, sample_id, k, Salt.ENVMAP_SAMPLE)[:, :3].contiguous()
-            edir, t_env, pending_e = env_nee(sensor, env, st, hr, mrow, mat_types, rgl, ue,
-                                             is_random, geom_len, opt_len)
-            occluded_e = scene_any_hit(accel, hr.position, edir, t_min, t_env, frames)
-            acc = deposit_unoccluded(acc, pending_e, occluded_e)
+            nee_e = (sensor, env, st, hr, mrow, mat_types, rgl, ue, is_random, geom_len, opt_len)
+            if shadow is None:
+                edir, t_env, pending_e = env_nee(*nee_e)
+                occluded_e = scene_any_hit(accel, hr.position, edir, t_min, t_env, frames)
+                acc = deposit_unoccluded(acc, pending_e, occluded_e)
+            else:
+                acc = acc + env_nee(*nee_e, shadow=shadow)[2]
 
         new = advance(params, st, hit, hr, sr, is_random, is_explicit, u_aux[:, 2], acc,
                       geom_len, opt_len, light_pdf_next)
@@ -540,6 +574,9 @@ def trace_paths(scene: SceneArrays, static: SceneStatic, sensor, o, d, time, pix
     device = torch.device(device)
     _check_device(device, scene=scene.tris.p0, rays=o)
     static.check_slice()
+    if params.differentiable and static.has_media:
+        raise NotImplementedError("a differentiable render of a scene with participating media: "
+                                  "KM has no backward yet (ROADMAP A.13, media gradients: KMT)")
     n = o.shape[0]
     if tables is None:
         tables = prepare_scene(scene, static, step=False)

@@ -193,7 +193,9 @@ def lights_pdf_at_hit(pick_area, d, t, prim, geom_normal, scene=None, o=None):
     gather (lights.py:204-240). The sphere branch needs `scene` and `o`
     (a scene with sphere lights); without them every prim is taken as a
     triangle."""
-    row = row_gather(pick_area, torch.clamp_min(prim, 0).to(torch.int32).contiguous())
+    # clipped as the JAX package's gather: a medium scatter's prim lies past the table
+    row = row_gather(pick_area, torch.clamp(prim, 0, pick_area.shape[0] - 1)
+                     .to(torch.int32).contiguous())
     pp = torch.where(prim >= 0, row[:, 0], 0.0)
     cos = torch.abs(dot(d, geom_normal))
     pdf = t * t * row[:, 1] / torch.clamp_min(cos, 1e-12)

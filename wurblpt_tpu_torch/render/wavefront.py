@@ -328,7 +328,7 @@ def emit(sensor, acc, st: LoopState, hr: HitRecord, mrow, t, prim, hit, geom_len
 
 def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, mrow, mat_types,
               rgl, sr_direction, is_random, geom_len, opt_len, u3, mat_packed, per_light: bool,
-              frames=None, tex: Optional[TexCtx] = None):
+              frames=None, tex: Optional[TexCtx] = None, shadow: Optional[Callable] = None):
     """NEE toward a picked hot spot (wurblpt.hpp:179-220), up to its shadow ray;
     `frames` (lights.light_frames) places animated lights at the frame's instant.
 
@@ -336,7 +336,15 @@ def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, 
     shortened by `shadow_identity_eps` on RANDOM lanes, 0 elsewhere, the
     pending deposit [N, n_acc]: what the sensor takes if the shadow ray is
     not occluded, 0 on lanes that deposit nothing, and the light-mixture pdf
-    of the bsdf sample for the next bounce's emission weight)."""
+    of the bsdf sample for the next bounce's emission weight).
+
+    In a scene with media `shadow(o, d, t_max, salt_ctx)` is the closest
+    cast followed by KM, (t, prim): the shadow ray is cast here, to BIG on
+    RANDOM lanes, with salt_ctx 1; the light is visible where the winner is
+    the sampled light's prim, and the winner's t (the light's distance where
+    nothing is hit) places Le's point and the path lengths
+    (integrator.py:573-582). The shadow t_max returned is then None and the
+    pending deposit is 0 where the light is not visible."""
     ldir, lprim, ldist, lpick, pdf_sa = lights_sample(scene, hr.position, u3, frames)
     if per_light:
         # The NEE strategy "pick light i, sample its solid angle" has density
@@ -350,18 +358,26 @@ def light_nee(scene: SceneArrays, sensor, params, st: LoopState, hr: HitRecord, 
                                     frames)
         pdf_light, light_pdf_next = pdf_pair[:, 0], pdf_pair[:, 1]
     f_l, pdf_b = bsdf_eval(hr, st.d, ldir, mrow, mat_types, rgl=rgl)
-    t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps), params.min_hit_distance)
+    active = is_random & (pdf_light > 1e-12)
+    st_t, t_shadow = ldist, None
+    if shadow is None:
+        t_vis = torch.clamp_min(ldist * (1.0 - params.shadow_identity_eps),
+                                params.min_hit_distance)
+        t_shadow = torch.where(is_random, t_vis, 0.0)
+    else:
+        ct, cprim = shadow(hr.position, ldir, torch.where(is_random, BIG, 0.0), 1)
+        active = active & (cprim == lprim)
+        st_t = torch.where(cprim >= 0, ct, ldist)
     Le = light_emitted_at(scene, torch.clamp_min(lprim, 0), -ldir, mat_packed,
                           None if frames is None else pick_frame(frames, lpick),
-                          hr.position + ldir * ldist[:, None], tex)
+                          hr.position + ldir * st_t[:, None], tex)
     w_nee = power_heuristic(pdf_light, pdf_b)
     contrib = st.throughput * f_l * Le * (w_nee / torch.clamp_min(pdf_light, 1e-12))[:, None]
     dep, ok = sensor.deposit(SensorEvent(
-        radiance=contrib, path_component=st.bounce, geom_path_length=geom_len + ldist,
-        optical_path_length=opt_len + ldist[:, None] * st.ior, distance_to_light=ldist,
-        active=is_random & (pdf_light > 1e-12)))
-    return (ldir, torch.where(is_random, t_vis, 0.0), torch.where(ok[:, None], dep, 0.0),
-            light_pdf_next)
+        radiance=contrib, path_component=st.bounce, geom_path_length=geom_len + st_t,
+        optical_path_length=opt_len + st_t[:, None] * st.ior, distance_to_light=st_t,
+        active=active))
+    return ldir, t_shadow, torch.where(ok[:, None], dep, 0.0), light_pdf_next
 
 
 def deposit_unoccluded(acc, pending, occluded):
@@ -402,7 +418,7 @@ def env_miss(sensor, acc, st: LoopState, env: EnvMapArrays, prim, importance: bo
 
 
 def env_nee(sensor, env: EnvMapArrays, st: LoopState, hr: HitRecord, mrow, mat_types, rgl, ue,
-            is_random, geom_len, opt_len):
+            is_random, geom_len, opt_len, shadow: Optional[Callable] = None):
     """Env NEE (wurblpt.hpp:221-252; JAX integrator.py:650-693) up to its
     shadow ray: an importance-sampled sky direction from the uniforms ue
     [N, 3], the bsdf toward it, the power-heuristic weight.
@@ -412,17 +428,27 @@ def env_nee(sensor, env: EnvMapArrays, st: LoopState, hr: HitRecord, mrow, mat_t
     shadow ray is not occluded, 0 on lanes that deposit nothing). One launch
     of K8 samples the RANDOM lanes' directions and looks up their radiance
     (`env_nee_lanes`); the other lanes get the map's +z axis, pdf 0 and
-    radiance 0, finite values that deposit nothing."""
+    radiance 0, finite values that deposit nothing.
+
+    In a scene with media `shadow` (as `light_nee`'s) casts the shadow ray
+    here with salt_ctx 2: the sky is seen where nothing, solid or medium,
+    is hit (integrator.py:657-663); the shadow t_max returned is then None
+    and the pending deposit 0 where the sky is not seen."""
     edir, epdf, L_e = env_nee_lanes(env, ue, is_random)
     f_e, pdf_be = bsdf_eval(hr, st.d, edir, mrow, mat_types, rgl=rgl)
     w_e = power_heuristic(epdf, pdf_be)
     contrib_e = (st.throughput * f_e * L_e
                  * (w_e / torch.clamp_min(epdf, 1e-12))[:, None])
+    active = is_random & (epdf > 1e-12)
+    t_shadow = torch.where(is_random, BIG, 0.0)
+    if shadow is not None:
+        _, eprim = shadow(hr.position, edir, t_shadow, 2)
+        active, t_shadow = active & (eprim < 0), None
     dep, ok = sensor.deposit(SensorEvent(
         radiance=contrib_e, path_component=st.bounce, geom_path_length=geom_len,
         optical_path_length=opt_len, distance_to_light=torch.zeros_like(geom_len),
-        active=is_random & (epdf > 1e-12)))
-    return edir, torch.where(is_random, BIG, 0.0), torch.where(ok[:, None], dep, 0.0)
+        active=active))
+    return edir, t_shadow, torch.where(ok[:, None], dep, 0.0)
 
 
 def advance(params, st: LoopState, hit, hr: HitRecord, sr, is_random, is_explicit, u_rr, acc,

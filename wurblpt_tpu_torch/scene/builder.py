@@ -221,9 +221,9 @@ class SphereObject:
 
 @dataclass
 class MediumObject:
-    """Homogeneous medium inside a boundary (hitable_medium.hpp:38-99). A
-    scene may hold one; `Scene.build` refuses it until media are ported
-    (ROADMAP A.8)."""
+    """Homogeneous medium inside a boundary (hitable_medium.hpp:38-99): a
+    sphere (its transformation's translation and largest scale apply) or a
+    mesh instance; `phase` is its phase function (`PhaseIso`)."""
     boundary: Union[MeshInstance, SphereObject]
     density: float = 1.0
     phase: Material = None

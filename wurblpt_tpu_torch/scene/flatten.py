@@ -17,13 +17,14 @@ Two entry points share one lowering:
 Covered: indexed meshes with or without texcoords, normals and tangents
 (missing normals are computed, and tangents wherever there are texcoords),
 static instance transforms baked into world space; analytic spheres; every
-material of the builder but the phase function; constant, checker, image
+material of the builder; constant, checker, image
 and noise textures with the float16 image stack; hot-spot triangles and
 spheres, the power-proportional or uniform light pick and the per-prim
 pick and 1 / area rows of per-light MIS; the port's BVH, an equirect, cube
 or constant environment map and the RGL tables; keyframe animations (the
 instance pose stays baked into the vertices and the keyframes apply on top
-at ray time). Media are refused (ROADMAP A.8).
+at ray time); participating media (`flatten_media`: sphere and mesh
+boundaries, density, phase function).
 """
 
 from __future__ import annotations
@@ -44,11 +45,13 @@ from .ir import (
     MaterialFlags,
     MaterialTable,
     MaterialType,
+    MediumArrays,
     SceneArrays,
     Spheres,
     TextureTable,
     TextureType,
     Triangles,
+    medium_arrays,
 )
 
 _f32 = np.float32
@@ -419,7 +422,8 @@ def material_table(rows) -> MaterialTable:
 def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use_bvh=None,
                    envmap=None, rgl_tables=None, spheres=(), animations=(), t0: float = 0.0,
                    t1: float = 0.0, textures: Optional[TextureCollector] = None,
-                   light_sampling: str = "power") -> SceneArrays:
+                   light_sampling: str = "power",
+                   media: Optional[MediumArrays] = None) -> SceneArrays:
     """Meshes and spheres + a numpy material table -> SceneArrays on `device`.
 
     `textures` holds the texture descriptors the table's texture ids name
@@ -435,7 +439,8 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
     flattened as flatten.py:550-576 does (centre by scale, rotation,
     translation; radius by the mean scale); sphere j has prim id T + j.
     `animations` are builder :class:`AnimationKeyframes`, animation ids 1,
-    2, ... in order; a mesh or sphere names its own by `anim`."""
+    2, ... in order; a mesh or sphere names its own by `anim`. `media`
+    (`flatten_media`) go into the scene as they are."""
     if light_sampling not in ("power", "uniform"):
         raise ValueError(f"light_sampling must be 'power' or 'uniform', got {light_sampling!r}")
     cols = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
@@ -554,6 +559,7 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
         light_prims=dev(light_ids),
         textures=(textures or TextureCollector()).build(device),
         anims=anims,
+        media=media,
         bvh=bvh,
         envmap=env,
         rgl=rgl,
@@ -561,18 +567,51 @@ def flatten_meshes(meshes: List[MeshSpec], materials: MaterialTable, device, use
     )
 
 
+def flatten_media(scene: "B.Scene", device) -> Optional[MediumArrays]:
+    """The scene's media as MediumArrays (flatten.py:578-615), None without
+    one: a sphere boundary takes its transformation's translation and its
+    largest scale, a mesh boundary its triangles baked to world space; the
+    phase function is resolved through the material table."""
+    if not scene._media:
+        return None
+    tri, sph = ([], [], [], []), ([], [], [])
+    density, phase = [], []
+    for mi, med in enumerate(scene._media):
+        density.append(float(med.density))
+        phase.append(scene._resolve_material(med.phase))
+        b = med.boundary
+        if isinstance(b, B.SphereObject):
+            center, radius = np.asarray(b.center, _f32), float(b.radius)
+            if b.transformation is not None:
+                t, _, scale = (_np32(x) for x in b.transformation)
+                center = center + t
+                radius *= float(np.max(scale))
+            for col, x in zip(sph, (center, radius, mi)):
+                col.append(x)
+        else:
+            pos, _, _ = bake_transform(b.transformation, b.mesh.positions, None, None)
+            f = b.mesh.indices
+            v0, v1, v2 = pos[f[:, 0]], pos[f[:, 1]], pos[f[:, 2]]
+            for col, x in zip(tri, (v0, v1 - v0, v2 - v0, np.full((len(f),), mi, _i32))):
+                col.append(x)
+    cat = lambda xs, shape, dt: np.concatenate(xs) if xs else np.zeros(shape, dt)  # noqa: E731
+    return medium_arrays(*(cat(x, (0, 3), _f32) for x in tri[:3]), cat(tri[3], (0,), _i32),
+                         np.asarray(sph[0], _f32).reshape(-1, 3),
+                         np.asarray(sph[1], _f32).reshape(-1), np.asarray(sph[2], _i32),
+                         np.asarray(density, _f32), np.asarray(phase, _i32), device)
+
+
 def flatten_scene(scene: "B.Scene", max_image_dim: int = 2048, use_bvh=None, t0: float = 0.0,
                   t1: float = 0.0, light_sampling: str = "power", device="cuda") -> SceneArrays:
     """A builder Scene as SceneArrays on `device` (flatten.py `flatten_scene`):
     materials resolved (inline ones registered first, as the JAX flattener
     does), flattened with their textures, the instances and spheres as specs
-    through `flatten_meshes`. A scene with a medium raises NotImplementedError."""
-    if scene._media:
-        raise NotImplementedError("participating media (media.apply_media) are not ported yet: "
-                                  "ROADMAP A.8")
+    through `flatten_meshes`, the media through `flatten_media`."""
     rgl_names = {name: i for i, name in enumerate(scene._rgl_tables)}
     inst_mats = [scene._resolve_material(inst.material) for inst, _ in scene._instances]
     sph_mats = [scene._resolve_material(s.material) for s, _ in scene._spheres]
+    for med in scene._media:   # an inline phase function joins the table first
+        scene._resolve_material(med.phase)
     textures = TextureCollector()
     materials = flatten_materials(scene._materials, textures, rgl_names)
     meshes = [MeshSpec.of(inst.mesh, m, hot_spot=hot, transformation=inst.transformation,
@@ -583,4 +622,4 @@ def flatten_scene(scene: "B.Scene", max_image_dim: int = 2048, use_bvh=None, t0:
     return flatten_meshes(meshes, materials, device, use_bvh, envmap=scene._envmap,
                           rgl_tables=list(scene._rgl_tables.values()), spheres=spheres,
                           animations=scene._animations[1:], t0=t0, t1=t1, textures=textures,
-                          light_sampling=light_sampling)
+                          light_sampling=light_sampling, media=flatten_media(scene, device))

@@ -5,9 +5,8 @@ reads. Integer columns stay int32 tensors (the JAX package float-encodes some
 of them to dodge TPU gather costs; nothing here needs that). The keyframe
 tables (`AnimTable`), each primitive's animation id, the texture table
 (`TextureTable`, its float16 image stack as the JAX package keeps it) and the
-materials' texture ids come across whole. Media, outside the slice, are
-recorded only by their count (`n_media`), so that
-:class:`wurblpt_tpu_torch.render.bsdf.SceneStatic` can refuse such a scene.
+materials' texture ids come across whole, and so do the media
+(`MediumArrays`: their boundaries, densities and phase materials).
 The BVH is the port's own layout (:mod:`wurblpt_tpu_torch.accel.build`), not
 the JAX package's W-wide rows.
 """
@@ -230,6 +229,56 @@ class EnvMapArrays(NamedTuple):
         return EnvMapArrays(self.kind, *(x.to(device).contiguous() for x in self[1:]))
 
 
+class MediumArrays(NamedTuple):
+    """Homogeneous participating media (ir.MediumArrays,
+    hitable_medium.hpp:38-99, medium.hpp:37-57).
+
+    The boundaries live outside the solid primitives: a medium never
+    occludes for certain; each traced segment samples a free path against
+    its density (render/media.py). The boundary rows are ordered by medium,
+    the JAX package's order kept within a medium, so medium m's triangles
+    are rows [tri_off[m], tri_off[m + 1]) and its spheres rows
+    [sph_off[m], sph_off[m + 1])."""
+
+    tri_p0: torch.Tensor      # [MT, 3]
+    tri_e1: torch.Tensor      # [MT, 3]
+    tri_e2: torch.Tensor      # [MT, 3]
+    tri_med: torch.Tensor     # [MT] int32 medium id
+    sph_center: torch.Tensor  # [MS, 3]
+    sph_radius: torch.Tensor  # [MS]
+    sph_med: torch.Tensor     # [MS] int32 medium id
+    density: torch.Tensor     # [M] f32 (rho; mean free path 1 / rho)
+    phase_mat: torch.Tensor   # [M] int32 material id of the phase function
+    tri_off: torch.Tensor     # [M + 1] int32 row offsets of each medium's triangles
+    sph_off: torch.Tensor     # [M + 1] int32 row offsets of each medium's spheres
+
+    @property
+    def count(self):
+        return self.density.shape[0]
+
+
+def medium_arrays(tri_p0, tri_e1, tri_e2, tri_med, sph_center, sph_radius, sph_med, density,
+                  phase_mat, device) -> MediumArrays:
+    """MediumArrays on `device` from numpy-like columns: the boundary rows
+    stably sorted by medium id, and each medium's row offsets."""
+    n_med = int(np.shape(density)[0])
+    cols = {}
+    for kind, med, rows in (("tri", tri_med, (tri_p0, tri_e1, tri_e2)),
+                            ("sph", sph_med, (sph_center, sph_radius))):
+        med = np.asarray(med, np.int32).reshape(-1)
+        order = np.argsort(med, kind="stable")
+        cols[kind] = [np.asarray(r, np.float32)[order] for r in rows] + [med[order]]
+        cols[kind + "_off"] = np.searchsorted(med[order], np.arange(n_med + 1), "left")
+    (p0, e1, e2, tm), (sc, sr, sm) = cols["tri"], cols["sph"]
+    return MediumArrays(
+        tri_p0=_f32(p0.reshape(-1, 3), device), tri_e1=_f32(e1.reshape(-1, 3), device),
+        tri_e2=_f32(e2.reshape(-1, 3), device), tri_med=_i32(tm, device),
+        sph_center=_f32(sc.reshape(-1, 3), device), sph_radius=_f32(sr.reshape(-1), device),
+        sph_med=_i32(sm, device), density=_f32(np.reshape(density, (-1,)), device),
+        phase_mat=_i32(np.reshape(phase_mat, (-1,)), device),
+        tri_off=_i32(cols["tri_off"], device), sph_off=_i32(cols["sph_off"], device))
+
+
 class SceneArrays(NamedTuple):
     """Everything the render kernels read, on one device."""
 
@@ -242,7 +291,7 @@ class SceneArrays(NamedTuple):
     light_alias_idx: Optional[torch.Tensor] = None   # [L] int32
     textures: Optional[TextureTable] = None    # None or empty: no texture
     anims: Optional[AnimTable] = None          # keyframe tables (None: static scene)
-    n_media: int = 0
+    media: Optional[MediumArrays] = None       # participating media (None: none)
     bvh: Optional[BVHArrays] = None
     envmap: Optional[EnvMapArrays] = None
     rgl: Optional[RGLTables] = None                 # measured materials (None: no RGL)
@@ -258,6 +307,10 @@ class SceneArrays(NamedTuple):
     @property
     def env_kind(self) -> int:
         return 0 if self.envmap is None else self.envmap.kind
+
+    @property
+    def n_media(self) -> int:
+        return 0 if self.media is None else self.media.count
 
     @property
     def n_textures(self) -> int:
@@ -305,7 +358,7 @@ def scene_from_numpy(a, device, t0: float = 0.0, t1: float = 0.0) -> SceneArrays
     beyond row 0.
     The RGL tables come across where a material is RGL (the JAX scene always
     carries a placeholder table); the texture table and the materials'
-    texture ids always.
+    texture ids always, and the media where the scene has one.
     """
     t, s, m = a.tris, a.spheres, a.materials
     tris = Triangles(*(_f32(getattr(t, f), device) for f in Triangles._fields[:12]),
@@ -351,7 +404,8 @@ def scene_from_numpy(a, device, t0: float = 0.0, t1: float = 0.0) -> SceneArrays
         light_alias_idx=opt(a.light_alias_idx, _i32),
         textures=textures,
         anims=anims,
-        n_media=int(np.shape(a.media.density)[0]),
+        media=(medium_arrays(*(getattr(a.media, f) for f in MediumArrays._fields[:9]), device)
+               if int(np.shape(a.media.density)[0]) else None),
         bvh=bvh,
         envmap=envmap,
         rgl=(rgl_tables_from_numpy(a.rgl, device)

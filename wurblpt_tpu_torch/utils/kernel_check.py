@@ -110,6 +110,7 @@ from ..materials.rgl import (
     rgl_sample_plain,
     stack_rgl_tables,
 )
+from ..render.aov import ALL_AOVS, get_ground_truth
 from ..render.bsdf import SceneStatic
 from ..render.camera import CameraConfig, DistortionModel, SurroundMode, camera_rays, make_camera
 from ..render.gather import row_gather, row_gather_plain
@@ -307,16 +308,21 @@ ANIM_BVH_REF_MEAN = 0.042729496972403025
 ANIM_BVH_REF_STATS = (1130169, 2075217)
 
 # The example apps' scenes through the port's Scene (scenes.noise_textures,
-# scenes.normalmap, scenes.material_comparison), rendered by render_frame on
-# the generic bounce at the apps' sizes: (width, height, samples_sqrt, path
-# components, samples per pass; examples/_common.py picks 8 a pass). Their
+# scenes.normalmap, scenes.material_comparison; the two with media,
+# MEDIA_FRAMES), rendered by render_frame on the generic bounce at the apps'
+# sizes: (width, height, samples_sqrt, path components, samples per pass;
+# examples/_common.py's pick: the most that divides spp within 2^20 lanes). Their
 # JAX yardsticks, the JAX package's CPU render_frame of the same scenes
 # (`JAX_PLATFORMS=cpu python jax_frame_reference.py <name>`): (mean, stats).
 EXAMPLE_FRAMES = {"noise_textures": (480, 200, 4, 5, 8), "normalmap": (320, 320, 4, 4, 8),
-                  "material_comparison": (560, 180, 4, 8, 8)}
+                  "material_comparison": (560, 180, 4, 8, 8),
+                  "participating_media": (256, 192, 4, 12, 16),
+                  "stagelights": (480, 270, 5, 8, 5)}
 EXAMPLE_REFS = {"noise_textures": (0.24381244771883304, (3227255, 4971874)),
                 "normalmap": (0.03950897025361127, (3268027, 4897654)),
-                "material_comparison": (0.3714994989917606, (3569889, 5225797))}
+                "material_comparison": (0.3714994989917606, (3569889, 5225797)),
+                "participating_media": (0.22651895224798638, (1756053, 2746622)),
+                "stagelights": (1.0317688785405104, (23099677, 44681968))}
 # The material_comparison frame on an H100 as K7 rendered it before it
 # skipped the lanes without an RGL material (every lane computed at a
 # clamped id): `frame_digest` of its image and stats, which the skip must
@@ -326,6 +332,68 @@ EXAMPLE_REFS = {"noise_textures": (0.24381244771883304, (3227255, 4971874)),
 # parent in turns and the frame still meets EXAMPLE_REFS.
 EXAMPLE_DIGESTS = {
     "material_comparison": "9d1311a1e11d3a53c7dcfe482e5a329c0e407ac570244fe1acc2ca7d5477ad7c"}
+
+# The example apps with participating media (examples/participating_media.py,
+# stagelights.py; in EXAMPLE_FRAMES): render_frame on the generic bounce, KM
+# after every closest cast.
+MEDIA_FRAMES = ("participating_media", "stagelights")
+
+# The ground-truth AOVs (render/aov.py get_ground_truth with every channel of
+# ALL_AOVS): the normalmap scene at 320 x 320 from its app's camera, and the
+# animated Cornell box at 128 x 128 from the reference camera at t = 0.5 with
+# the flows to 0.25 and 0.75: (width = height, t, t_prev, t_next). Their JAX
+# yardsticks (`jax_frame_reference.py aov_<name>`): each channel's mean and
+# the hit count. AOV_PARTS pixels may part from the JAX call's (the normal
+# map's bilinear lookups under XLA's contracted FMAs; a tie at a seam
+# between two primitives, whose records differ in every channel but the
+# position): a channel's mean within 1e-5 relative plus that many pixels'
+# share of the channel's span, the hit count within that many pixels.
+AOV_FRAMES = {"normalmap": (320, 0.0, None, None), "cornell_animated": (128, 0.5, 0.25, 0.75)}
+AOV_PARTS = 8
+AOV_REFS = {
+    "normalmap": {"hits": 101760, "means": {
+        "hit_mask": 0.99375,
+        "world_position": 0.004653822676627897,
+        "camera_position": -0.8021404836392321,
+        "geometry_normal": 0.33125,
+        "geometry_tangent": 0.33125,
+        "tangent": 0.33125,
+        "material_normal": 0.22547157976692403,
+        "material_tangent": 0.28112664910375507,
+        "camera_geometry_normal": 0.38120008781552317,
+        "camera_geometry_tangent": 0.33125,
+        "camera_material_normal": 0.2617565066639077,
+        "camera_material_tangent": 0.28116889395010036,
+        "depth": 2.420193416788243,
+        "distance": 2.534604288903065,
+        "texcoords": 0.5003653723838909,
+        "material_index": 0.9875,
+    }},
+    "cornell_animated": {"hits": 15375, "means": {
+        "hit_mask": 0.93841552734375,
+        "world_position": 0.34036083033485437,
+        "camera_position": -0.9734209228621088,
+        "geometry_normal": 0.089563074269269,
+        "geometry_tangent": 0.08397933445435803,
+        "tangent": 0.08397933445435803,
+        "material_normal": 0.08927341990962578,
+        "material_tangent": 0.08397933450628568,
+        "camera_geometry_normal": 0.089563074269269,
+        "camera_geometry_tangent": 0.08397933445435803,
+        "camera_material_normal": 0.08927341990962578,
+        "camera_material_tangent": 0.08397933450628568,
+        "depth": 2.9198399517918006,
+        "distance": 3.090626951729064,
+        "texcoords": 0.45151302013207545,
+        "material_index": 0.46539306640625,
+        "world_flow_prev": -0.0022034928124412545,
+        "camera_flow_prev": -0.0022034928246436416,
+        "pixel_flow_prev": -0.18982259824406356,
+        "world_flow_next": 0.0018365958042068087,
+        "camera_flow_next": 0.0018365956038148095,
+        "pixel_flow_next": 0.1677989203017205,
+    }},
+}
 
 # Camera rays over ROADMAP C.1's scenes (scenes.sphere_field,
 # scenes.tri_sphere_field): 128 x 96 pixels x 8 sample lanes.
@@ -607,39 +675,29 @@ def check_rtiow_dof_frame(img, stats) -> float:
     return _check_frame(img, stats, (DOF_HEIGHT, DOF_WIDTH, 3), DOF_REF_MEAN, DOF_REF_STATS)
 
 
-def pixel_centre_distance(scene, camera, width: int, height: int, device):
-    """[H, W] first-hit distance of the pixel-centre camera rays (K1's t; BIG
-    on a miss): the ground truth of a ToF distance image."""
-    pose, vfov = camera
-    cam = make_camera(pose, vfov, width, height, device=device)
-    ys, xs = torch.meshgrid(torch.arange(height, device=device),
-                            torch.arange(width, device=device), indexing="ij")
-    pxy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(torch.float32) + 0.5
-    o, d, _ = camera_rays(cam, CameraConfig(), pxy, width, height)
-    n = o.shape[0]
-    t, _, _, _ = scene_raw_hit(build_brute_scene(scene), o.contiguous(), d.contiguous(),
-                               torch.full((n,), MIN_HIT, device=device),
-                               torch.full((n,), BIG, device=device))
-    return t.reshape(height, width)
-
-
 def tof_distance_check(device, scene=None, width: int = TOF_WIDTH, ssqrt: int = TOF_SSQRT,
                        randomize: bool = True) -> Dict[str, float]:
     """The 4-phase ToF reconstruction at depth 1 (direct light only) against
     the first-hit distance of the pixel-centre camera rays: renders the four
     phase images of tof_box, converts them to electrons without noise,
     reconstructs the distance (SensorTofAmcw.result) and returns the median
-    and 90th percentile of |distance - t| in metres over the lit pixels;
-    raises AssertionError if the median exceeds TOF_DISTANCE_MEDIAN_MAX.
-    Without `randomize` every sample takes the pixel centre."""
+    and 90th percentile of |distance - t| in metres over the lit pixels, t
+    the pixel-centre rays' first-hit distance (get_ground_truth's
+    "distance"); raises AssertionError if the median exceeds
+    TOF_DISTANCE_MEDIAN_MAX. Without `randomize` every sample takes the
+    pixel centre."""
     scene = scenes.tof_box(device=device) if scene is None else scene
     sensor = SensorTofAmcw()
     phases = [SensorTofAmcw(phase_index=i).phase(
         tof_frame(device, scene, i, depth=1, width=width, ssqrt=ssqrt, randomize=randomize)()[0])
         for i in range(4)]
     dist, _, intensity = sensor.result(phases)
-    truth = pixel_centre_distance(scene, scenes.tof_camera(device), width, width, device)
-    lit = (intensity > 0) & (truth < BIG)
+    pose, vfov = scenes.tof_camera(device)
+    gt = get_ground_truth(scene, SceneStatic.from_scene(scene),
+                          make_camera(pose, vfov, width, width, device=device), CameraConfig(),
+                          width, width, aovs=("distance", "hit_mask"), device=device)
+    truth = gt["distance"]
+    lit = (intensity > 0) & (gt["hit_mask"] > 0)
     err = (dist - truth)[lit].abs().double()
     res = {"median_abs_err_m": float(err.median()), "p90_abs_err_m": float(err.quantile(0.9)),
            "max_abs_err_m": float(err.max()), "lit_pixels": int(lit.sum()),
@@ -678,6 +736,160 @@ def check_example_frame(name: str, img, stats) -> float:
     (EXAMPLE_REFS); returns its mean radiance."""
     w, h = EXAMPLE_FRAMES[name][:2]
     return _check_frame(img, stats, (h, w, 3), *EXAMPLE_REFS[name])
+
+
+def aov_frame(name: str, device, scene=None) -> Callable[[], dict]:
+    """A function that takes get_ground_truth with every channel of ALL_AOVS
+    of an AOV frame (AOV_FRAMES[name]) on `device`, the scene's tables built
+    once, and returns the channels once the device is done; `scene` is built
+    here when not given."""
+    width, t, t_prev, t_next = AOV_FRAMES[name]
+    if name == "normalmap":
+        scene = scenes.normalmap(device=device) if scene is None else scene
+        pose, vfov = scenes.normalmap_camera(device)
+    else:
+        scene = scenes.cornell_box_animated(device) if scene is None else scene
+        pose, vfov = scenes.cornell_ref_camera(device)
+    cam = make_camera(pose, vfov, width, width, device=device)
+    static = SceneStatic.from_scene(scene)
+    tables = prepare_scene(scene, static, step=False)
+
+    def run():
+        gt = get_ground_truth(scene, static, cam, CameraConfig(), width, width, t=t,
+                              t_prev=t_prev, t_next=t_next, aovs=ALL_AOVS, device=device,
+                              tables=tables)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return gt
+
+    return run
+
+
+def check_aov_frame(name: str, gt) -> Dict[str, float]:
+    """Hold an AOV frame's channels to the JAX call's (AOV_REFS[name]): the
+    same channels (ALL_AOVS, the flows only where the frame has t_prev and
+    t_next), each finite, its mean within 1e-5 relative
+    plus AOV_PARTS pixels' share of its span (the channel's largest minus
+    its smallest value over the frame), the hit count within AOV_PARTS;
+    returns each channel's |mean - JAX's| over its tolerance (at most 1)."""
+    ref = AOV_REFS[name]
+    width = AOV_FRAMES[name][0]
+    n_pix = width * width
+    hits = int(gt["hit_mask"].sum())
+    assert abs(hits - ref["hits"]) <= AOV_PARTS, f"{name}: {hits} hits, JAX {ref['hits']}"
+    assert set(gt) == set(ref["means"]), sorted(set(gt) ^ set(ref["means"]))
+    out = {}
+    for k in ref["means"]:
+        x = gt[k].double()
+        assert x.shape[:2] == (width, width) and bool(torch.isfinite(x).all()), k
+        span = float(x.max() - x.min())
+        tol = 1e-5 * max(1.0, abs(ref["means"][k])) + AOV_PARTS * span / n_pix
+        err = abs(float(x.mean()) - ref["means"][k])
+        assert err <= tol, f"{name} {k}: mean {float(x.mean())!r} off JAX's {ref['means'][k]!r}"
+        out[k] = err / tol
+    return out
+
+
+def media_lanes(name: str, device, scene=None, calls: int = 2):
+    """The inputs of KM's first `calls` launches in the first pass of an
+    example frame with media (EXAMPLE_FRAMES[name] through render_frame):
+    bounce 0's closest cast (salt_ctx 0) and its light NEE's shadow cast
+    (salt_ctx 1), each (scene, o, d, t_min, t, prim, u, v, pixel, sample,
+    bounce, salt_ctx) as render/integrator.py hands them to apply_media."""
+    from ..render import integrator as it_mod
+
+    rec, apply = [], it_mod.apply_media
+
+    def spy(*args):
+        if len(rec) < calls:
+            rec.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return apply(*args)
+
+    it_mod.apply_media = spy
+    try:
+        example_frame(name, device, scene)(one_pass=True)
+    finally:
+        it_mod.apply_media = apply
+    return rec
+
+
+def media_random_lanes(scene, n: int = 1000, seed: int = 23):
+    """n segments around participating_media's fog sphere (centre (0.4, 0,
+    -0.8), radius 1): a third starting inside it (the exit-only branch), the
+    rest from a box around it in random directions, random solid hits (a
+    quarter none: t BIG, prim -1), random counter words and salt_ctx 1."""
+    dev = scene.device
+    rs = np.random.default_rng(seed)
+    c = np.array([0.4, 0.0, -0.8])
+    inside = rs.uniform(size=n) < 1.0 / 3.0
+    v = rs.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    o = np.where(inside[:, None], c + v * rs.uniform(0.0, 0.95, size=(n, 1)),
+                 c + rs.uniform(-3.0, 3.0, size=(n, 3)))
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    none = rs.uniform(size=n) < 0.25
+    t = np.where(none, BIG, rs.uniform(0.05, 6.0, size=n))
+    prim = np.where(none, -1, rs.integers(0, scene.n_tris + scene.n_spheres, size=n))
+    i64 = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)  # noqa: E731
+    return (scene, _f32(o, dev), _f32(d, dev), torch.full((n,), MIN_HIT, device=dev),
+            _f32(t, dev), torch.as_tensor(prim, dtype=torch.int32, device=dev),
+            _f32(rs.uniform(size=n), dev), _f32(rs.uniform(size=n), dev),
+            i64(rs.integers(0, 1 << 20, size=n)), i64(rs.integers(0, 64, size=n)),
+            i64(rs.integers(0, 12, size=n)), 1)
+
+
+def check_apply_media(args) -> Dict[str, float]:
+    """KM against its plain version on the same lanes (apply_media's
+    arguments): every output bit-equal but where log1pf and PyTorch's CUDA
+    log1p round a free path differently, which moves that lane's t by an ulp
+    or two and, only where the scatter point sits that close to the exit or
+    the solid hit, flips the lane's scatter decision. Returns the lanes whose
+    outputs differ in a bit (`differ`), the flipped decisions (`flips`, held
+    to at most 1e-5 of the lanes), and the largest |t| difference relative
+    to t on the lanes that agree in their decision (`max_abs_err`, held to
+    4e-7: a couple of ulps)."""
+    from ..render.media import apply_media, apply_media_plain
+
+    n = args[1].shape[0]
+    words = [torch.as_tensor(x, device=args[1].device).to(torch.int64).expand(n)
+             for x in args[8:11]]
+    return compare_media(apply_media(*args), apply_media_plain(*args[:8], *words, args[11]))
+
+
+def compare_media(got, ref) -> Dict[str, float]:
+    """KM's outputs (t, prim, u, v, med_mask, med_mat) against the plain
+    version's, with check_apply_media's tolerances."""
+    n = got[0].shape[0]
+    flips = got[4] != ref[4]
+    differ = flips.clone()
+    for a, b in zip(got, ref):
+        a, b = a.reshape(n, -1), b.reshape(n, -1)
+        differ |= (a.view(torch.int32) != b.view(torch.int32)).any(-1) if a.dtype == torch.float32 \
+            else (a != b).any(-1)
+    same = ~flips
+    rel = ((got[0] - ref[0]).abs() / torch.clamp_min(ref[0].abs(), 1e-20))[same]
+    res = {"lanes": n, "medium_lanes": int(ref[4].sum()), "differ": int(differ.sum()),
+           "flips": int(flips.sum()),
+           "max_abs_err": float(rel.max()) if rel.numel() else 0.0}
+    assert res["flips"] <= max(1, int(1e-5 * n)), res
+    assert res["max_abs_err"] <= 4e-7, res
+    for a, b in zip(got[1:], ref[1:]):   # prim, u, v, mask, mat: equal where the decision is
+        assert torch.equal(a[same], b[same]), res
+    return res
+
+
+def media_work(args):
+    """KM's (bytes, float32 operations) on these lanes: per lane o, d, t_min,
+    the solid hit and three int64 counter words in (68 B), the hit, mask and
+    phase material out (21 B), the boundary tables once; per lane and
+    medium two probes of 46 operations a boundary triangle and 31 a
+    boundary sphere, the free path's ~30."""
+    scene, n = args[0], args[1].shape[0]
+    md = scene.media
+    table = sum(x.numel() * x.element_size() for x in md)
+    flops = n * (2 * (46 * md.tri_p0.shape[0] + 31 * md.sph_center.shape[0]) + 30 * md.count)
+    return n * (68 + 21) + table, flops
 
 
 def check_mesh_frame(img, stats) -> float:

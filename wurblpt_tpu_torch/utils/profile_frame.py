@@ -51,7 +51,7 @@ OURS = ("closest_hit_kernel", "any_hit_kernel", "any_hit_small_kernel", "assembl
         "shade_kernel", "shade_env_kernel", "shade_lit_kernel", "resolve_kernel",
         "sweep_closest_kernel", "sweep_any_kernel", "row_scatter_kernel",
         "assemble_hit_bwd_kernel", "env_radiance_bwd_kernel", "env_sample_bwd_kernel",
-        "rgl_bwd_kernel")
+        "rgl_bwd_kernel", "media_kernel")
 _TOP = 25
 
 

@@ -7,7 +7,9 @@ the Cornell box from the port's copy of the reference vertex data
 the sphere paths' `envmap_spheres` and `rtiow`, the ToF path's `tof_box`, the
 animated Cornell box (`cornell_box_animated`) and the two brute-force scenes
 past the K1 form's column count and near it (`sphere_field`,
-`tri_sphere_field`). Scenes and cameras are built on the GPU unless the
+`tri_sphere_field`), and the example apps' scenes built through the port's
+`Scene` as the apps build theirs (those with participating media among
+them: `participating_media`, `stagelights`). Scenes and cameras are built on the GPU unless the
 caller names another device.
 """
 
@@ -710,6 +712,112 @@ def animations(t0: float = 0.0, t1: float = 0.02, fps: float = 25.0, frames: int
 def animations_camera(device="cuda"):
     """The keyframe-animation viewpoint: (pose, vfov_deg)."""
     return from_lookat((0, 1.0, 4.0), (0, 0, 0), device=device), 40.0
+
+
+def participating_media(density: float = 1.5, device="cuda"):
+    """examples/participating_media.py's scene (reference app
+    wurblpt-participating-media.cpp): a floor quad, a sphere hot spot, a red
+    sphere and a fog sphere of density `density` with an isotropic phase
+    function (albedo 0.9), the boundary's own material 0 as the app gives it."""
+    scene = B.Scene()
+    floor = scene.take_material(B.Lambertian(albedo=(0.4, 0.4, 0.45)))
+    fm, ftf = _quad_to((0, -1.0, 0), (1, 0, 0), -np.pi / 2, half=10.0)
+    scene.take_mesh_instance(B.MeshInstance(fm, floor, ftf))
+    light = scene.take_material(B.LightDiffuse(radiance=(14.0, 12.0, 10.0)))
+    scene.take_sphere(B.SphereObject((0.0, 1.6, -2.0), 0.35, light), hot_spot=True)
+    red = scene.take_material(B.Lambertian(albedo=(0.7, 0.2, 0.2)))
+    scene.take_sphere(B.SphereObject((-0.8, -0.6, -0.4), 0.4, red))
+    scene.take_medium(B.MediumObject(boundary=B.SphereObject((0.4, 0.0, -0.8), 1.0, 0),
+                                     density=density, phase=B.PhaseIso(albedo=(0.9, 0.9, 0.9))))
+    return scene.build(device=device)
+
+
+def participating_media_camera(device="cuda"):
+    """The participating-media demo's viewpoint: (pose, vfov_deg)."""
+    return from_lookat((0, 0.4, 3.2), (0, 0, -0.8), device=device), 45.0
+
+
+def bumpy_normal_map(size: int = 256, base: int = 16, scale: float = 1.0,
+                     seed: int = 31415926):
+    """examples/stagelights.py's tangent-space normal map, baked on the host
+    from smooth value noise (the port's copy of the app's function)."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.random((base, base)).astype(np.float32)
+    ys = np.linspace(0, base, size, endpoint=False)
+    xs = np.linspace(0, base, size, endpoint=False)
+    y0 = np.floor(ys).astype(int) % base
+    x0 = np.floor(xs).astype(int) % base
+    fy = (ys - np.floor(ys))[:, None]
+    fx = (xs - np.floor(xs))[None, :]
+    sy = fy * fy * (3 - 2 * fy)
+    sx = fx * fx * (3 - 2 * fx)
+    c00 = coarse[np.ix_(y0, x0)]
+    c01 = coarse[np.ix_(y0, (x0 + 1) % base)]
+    c10 = coarse[np.ix_((y0 + 1) % base, x0)]
+    c11 = coarse[np.ix_((y0 + 1) % base, (x0 + 1) % base)]
+    h = (c00 * (1 - sx) + c01 * sx) * (1 - sy) + (c10 * (1 - sx) + c11 * sx) * sy
+    dhx = np.roll(h, -1, 1) - np.roll(h, 1, 1)
+    dhy = np.roll(h, -1, 0) - np.roll(h, 1, 0)
+    n = np.stack([-scale * dhx, -scale * dhy, np.full_like(h, 2.0 / size * base)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return ((n + 1.0) * 0.5).astype(np.float32)
+
+
+STAGE_SPOT_COLORS = ((73.0, 118.0, 139.0), (243.0, 108.0, 100.0), (191.0, 197.0, 85.0),
+                     (165.0, 69.0, 179.0))
+
+
+def stagelights(device="cuda"):
+    """examples/stagelights.py's scene (reference app wurblpt-stagelights.cpp:
+    30-204): a closed room of six quads, a ModPhong torus, fog (density 2.5)
+    inside an octahedron that a glass shell of the same octahedron bounds, a
+    glass sphere with the baked bumpy normal map, an anisotropic GGX
+    icosahedron and four coloured spot lights (quads, hot spots)."""
+    scene = B.Scene()
+    white = scene.take_material(B.Lambertian(albedo=(0.8, 0.8, 0.8)))
+
+    def wall(translate, axis, deg):
+        tf = Transformation.make(translation=translate,
+                                 rotation=quat_from_axis_angle(np.asarray(axis, np.float32),
+                                                               np.deg2rad(deg)),
+                                 scale=(5.0, 5.0, 5.0))
+        scene.take_mesh_instance(B.MeshInstance(G.generate_quad(1.0, 1.0), white, tf))
+
+    wall((-2.6, 0.0, 0.0), (0, 1, 0), +90)
+    wall((+2.6, 0.0, 0.0), (0, 1, 0), -90)
+    wall((0.0, 0.0, +5.0), (0, 1, 0), 180)
+    wall((0.0, 0.0, -4.6), (0, 1, 0), 0)
+    wall((0.0, -2.499, 0.0), (1, 0, 0), +90)
+    wall((0.0, -5.0, 0.0), (1, 0, 0), -90)
+    modphong = B.ModPhong(diffuse=(0.5, 0.5, 0.5), specular=(0.5, 0.5, 0.5), shininess=120.0)
+    tra0 = Transformation.make(translation=(-1.5, -4.7, -4.0),
+                               rotation=quat_from_axis_angle((0, 1, 0), np.deg2rad(30.0)),
+                               scale=(0.3,) * 3)
+    scene.take_mesh_instance(B.MeshInstance(G.generate_torus(1.0, 0.4, 64, 48), modphong, tra0))
+    tra1 = Transformation.make(translation=(-0.5, -4.7, -4.0),
+                               rotation=quat_from_axis_angle((0, 1, 0), np.deg2rad(160.0)),
+                               scale=(0.3,) * 3)
+    scene.take_mesh_instance(B.MeshInstance(G.generate_octahedron(), B.Glass(ior=1.5), tra1))
+    scene.take_medium(B.MediumObject(boundary=B.MeshInstance(G.generate_octahedron(), 0, tra1),
+                                     density=2.5, phase=B.PhaseIso(albedo=(1.0, 1.0, 1.0))))
+    nmap = B.ImageTexture(image=bumpy_normal_map(), srgb=False)
+    scene.take_sphere(B.SphereObject((0.5, -4.7, -4.0), 0.3, B.Glass(ior=1.5, normal_map=nmap)))
+    ggx = B.GGX(albedo=(1.0, 1.0, 1.0), roughness=(0.01, 0.1))
+    tra3 = Transformation.make(translation=(1.5, -4.7, -4.0), scale=(0.3,) * 3)
+    scene.take_mesh_instance(B.MeshInstance(G.generate_icosahedron(), ggx, tra3))
+    lrot = quat_from_axis_angle((1, 0, 0), np.deg2rad(90.0))
+    for i, col in enumerate(STAGE_SPOT_COLORS):
+        lm = scene.take_material(B.LightSpot(radiance=col, half_angle=np.deg2rad(20.0)))
+        lt = Transformation.make(translation=(-1.5 + i, -2.5, -4.0), rotation=lrot,
+                                 scale=(0.3,) * 3)
+        scene.take_mesh_instance(B.MeshInstance(G.generate_quad(1.0, 1.0), lm, lt),
+                                 hot_spot=True)
+    return scene.build(device=device)
+
+
+def stagelights_camera(device="cuda"):
+    """The stage-lights demo's viewpoint: (pose, vfov_deg)."""
+    return Transformation.make(translation=(0.0, -4.5, -1.2)).to(device), 50.0
 
 
 def rtiow_dof_camera(width: int, height: int, aperture: float = 0.08,
